@@ -12,9 +12,14 @@ Two attention branches, as in the JAX ``Attention``:
 * with a :class:`PagedKVCache` — the serving path: the new K/V are scattered
   into the page pool in place, then attention reads the pages through the
   block tables with the decode kernel (K1) or the prefill kernel (K2);
-* without a cache — plain causal attention (the ``attention_impl="xla"``
-  math), computed outside any kernel.  It is the independent forward the
-  serving path is checked against.
+* without a cache — the training path and the independent forward the
+  serving path is checked against: causal
+  :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention` with
+  ``config.attention_impl``, ``"xla"`` (plain math, no kernel) or
+  ``"pallas"`` (the flash kernels K3–K5, differentiable).
+
+:func:`lm_loss_fn` is the next-token loss the ``Accelerator`` train step
+differentiates, with the JAX signature ``loss_fn(params, batch)``.
 
 Family switches the JAX config also carries (layernorm, learned or alibi
 positions, gelu MLPs, parallel residual, partial or interleaved rope, sliding
@@ -31,12 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
-from ..ops.paged_attention import (
-    DEFAULT_MASK_VALUE,
-    paged_attention,
-    paged_flash_prefill,
-    paged_insert,
-)
+from ..ops.attention import check_implementation, dot_product_attention
+from ..ops.paged_attention import paged_attention, paged_flash_prefill, paged_insert
 
 #: Llama-recipe values of the JAX config's family switches; any other value
 #: is a family this slice has not ported
@@ -76,6 +77,7 @@ class TransformerConfig:
     rope_interleaved: bool = False
     sliding_window: Optional[int] = None
     num_experts: int = 0
+    attention_impl: str = "xla"                # no-cache attention: "xla" | "pallas"
     dtype: torch.dtype = torch.bfloat16        # activation / compute dtype
     param_dtype: torch.dtype = torch.float32   # default weight storage dtype
 
@@ -87,6 +89,7 @@ class TransformerConfig:
                     f"Llama recipe is ported ({name}={llama!r}); other families "
                     "are ROADMAP Queue 1 item 2"
                 )
+        check_implementation(self.attention_impl)
         if self.num_heads % self.num_kv_heads != 0:
             raise ValueError(f"num_heads {self.num_heads} must be a multiple of "
                              f"num_kv_heads {self.num_kv_heads}")
@@ -155,22 +158,6 @@ def cached_attention(q, k, v, q_positions):
     return out.reshape(b, s, n_q, d)
 
 
-def causal_attention(q, k, v):
-    """Plain causal attention over ``[B, S, H, D]`` — the JAX package's
-    ``attention_impl="xla"`` math: logits in f32 from the input dtype, masked
-    with a large negative, f32 softmax, probabilities cast to ``v.dtype``."""
-    b, s, n_q, d = q.shape
-    rep = n_q // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
-    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    logits = torch.where(causal, logits, DEFAULT_MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding over the last dim of ``[B, S, H, D]`` — rotate-half
     convention (Llama/NeoX), computed in f32."""
@@ -235,7 +222,8 @@ class Attention(nn.Module):
             out = attend(q, pages_k, pages_v, cache.tables, cache.index,
                          k_scales=cache.k_scales[layer], v_scales=cache.v_scales[layer])
         else:
-            out = causal_attention(q, k, v)
+            out = dot_product_attention(q, k, v, causal=True,
+                                        implementation=cfg.attention_impl)
         return _dense(self.o_proj, out.reshape(b, s, cfg.num_heads * hd), dt)
 
 
@@ -349,3 +337,45 @@ def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     shapes["final_norm.scale"] = (h,)
     shapes["lm_head.weight"] = (cfg.vocab_size, h)
     return shapes
+
+
+# ------------------------------------------------------------------ training
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean cross entropy over the positions whose label is not
+    ``ignore_index``, with the optional z-loss ``z_loss * logsumexp**2``."""
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = logz - label_logits
+    if z_loss > 0.0:
+        nll = nll + z_loss * logz.square()
+    nll = torch.where(mask, nll, torch.zeros_like(nll))
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+def shift_labels(batch) -> torch.Tensor:
+    """Next-token labels: ``batch["labels"]`` if given, else ``input_ids``
+    shifted left with ``-100`` (ignored) at the final position."""
+    labels = batch.get("labels")
+    if labels is None:
+        ids = batch["input_ids"]
+        pad = torch.full((ids.shape[0], 1), -100, dtype=ids.dtype, device=ids.device)
+        labels = torch.cat([ids[:, 1:], pad], dim=1)
+    return labels
+
+
+def lm_loss_fn(model: Transformer):
+    """Next-token loss for ``Accelerator.compile_train_step``:
+    ``loss_fn(params, batch)``, where ``params`` maps every parameter name
+    of ``model`` to the tensor to run it with (the train step passes the
+    masters cast to the compute dtype) and ``batch["input_ids"]`` is
+    ``[B, S]``.  The model is run through :func:`torch.func.functional_call`,
+    so gradients flow to whatever tensors ``params`` holds."""
+
+    def loss_fn(params, batch):
+        logits = torch.func.functional_call(model, params, (batch["input_ids"],))
+        return cross_entropy_loss(logits, shift_labels(batch))
+
+    return loss_fn

@@ -25,17 +25,30 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
-#: library name -> its CUDA source, and the C entry point it exports
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: paged kernels: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
+#: out; n, s, hq, hkv, d, page, num_p, q_bf16, kv_bf16; scale; stream
+_PAGED_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P]
+#: flash forward: q, k, v, seg, out, lse; b, sq, sk, hq, hkv, d, seg_stride,
+#: causal, bf16; scale; stream
+_FWD_ARGS = [_P] * 6 + [_I] * 9 + [_F, _P]
+#: flash dq: q, k, v, dout, lse, delta, seg, dq; then as the forward
+_DQ_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P]
+#: flash dk/dv: q, k, v, dout, lse, delta, seg, dk, dv; then as the forward
+_DKV_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
+
+#: library name -> its CUDA source, and the C entry points it exports with
+#: each one's argument types
 KERNELS = {
-    "paged_attention": ("paged_attention.cu", "atpu_paged_decode"),
-    "paged_prefill": ("paged_prefill.cu", "atpu_paged_prefill"),
+    "paged_attention": ("paged_attention.cu", {"atpu_paged_decode": _PAGED_ARGS}),
+    "paged_prefill": ("paged_prefill.cu", {"atpu_paged_prefill": _PAGED_ARGS}),
+    "flash_fwd": ("flash_fwd.cu", {"atpu_flash_fwd": _FWD_ARGS}),
+    "flash_bwd": ("flash_bwd.cu", {"atpu_flash_dq": _DQ_ARGS,
+                                   "atpu_flash_dkv": _DKV_ARGS}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 
@@ -105,9 +118,10 @@ def load() -> Dict[str, ctypes.CDLL]:
     libs = {}
     for name, path in _build_all(_source_hash()).items():
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        for entry, argtypes in KERNELS[name][1].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.atpu_error_string.argtypes = [ctypes.c_int]
         lib.atpu_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -117,3 +131,15 @@ def load() -> Dict[str, ctypes.CDLL]:
 
 def error_string(lib: ctypes.CDLL, code: int) -> str:
     return lib.atpu_error_string(code).decode()
+
+
+def launch(library: str, entry: str, what: str, *args) -> None:
+    """Call C entry point ``entry`` of ``library`` (building the libraries at
+    first use) and raise with the CUDA error string when it does not return
+    0 — a launch refused for its shared memory or grid never runs, and no
+    later synchronisation would report it."""
+    lib = load()[library]
+    rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed: {error_string(lib, rc)} "
+                           f"(cudaError {rc})")

@@ -25,18 +25,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from . import _build
 
 #: reserved garbage-sink page id — must match ``serving.paging.NULL_PAGE``
 NULL_PAGE = 0
-
-#: finite mask value of the kernels (``kMaskValue`` in ``csrc/paged_common.cuh``)
-#: and of the no-cache causal attention; ``cached_attention`` masks with
-#: ``finfo(float32).min`` as its JAX counterpart does
-DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -129,29 +123,29 @@ def paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
 
 
 # -------------------------------------------------------------------- kernels
-def _launch(entry: str, library: str, q, pages_k, pages_v, tables, lengths,
-            k_scales, v_scales) -> torch.Tensor:
+def _launch(what: str, library: str, entry: str, q, pages_k, pages_v, tables,
+            lengths, k_scales, v_scales) -> torch.Tensor:
     """Validate the operands, launch one kernel on the current stream, raise
     on a non-zero ``cudaGetLastError``.  Returns the ``[N, S, Hq, D]`` output."""
     if q.device.type != "cuda":
-        raise ValueError(f"{entry}: the CUDA kernel needs CUDA tensors, got {q.device}")
+        raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, got {q.device}")
     n, s, hq, d = q.shape
     num_pages, page, hkv, d_kv = pages_k.shape
     if pages_v.shape != pages_k.shape or d_kv != d:
-        raise ValueError(f"{entry}: pages {tuple(pages_k.shape)} / "
+        raise ValueError(f"{what}: pages {tuple(pages_k.shape)} / "
                          f"{tuple(pages_v.shape)} do not match q {tuple(q.shape)}")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"{entry}: head_dim {d} not supported (kernel takes {_HEAD_DIMS})")
+        raise ValueError(f"{what}: head_dim {d} not supported (kernel takes {_HEAD_DIMS})")
     if hq % hkv != 0:
-        raise ValueError(f"{entry}: {hq} query heads do not fold over {hkv} kv heads")
+        raise ValueError(f"{what}: {hq} query heads do not fold over {hkv} kv heads")
     if q.dtype not in _KERNEL_DTYPES or pages_k.dtype not in _KERNEL_DTYPES \
             or pages_v.dtype != pages_k.dtype:
-        raise ValueError(f"{entry}: dtypes q={q.dtype} pages={pages_k.dtype}/"
+        raise ValueError(f"{what}: dtypes q={q.dtype} pages={pages_k.dtype}/"
                          f"{pages_v.dtype} not supported (f32 or bf16)")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError(f"{entry}: tables and lengths must be int32")
+        raise ValueError(f"{what}: tables and lengths must be int32")
     if tables.shape[0] != n or lengths.shape != (n,):
-        raise ValueError(f"{entry}: tables {tuple(tables.shape)} / lengths "
+        raise ValueError(f"{what}: tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {n} lanes")
     if k_scales is None:
         # native pages: feed ones so the kernel signature is uniform
@@ -161,29 +155,25 @@ def _launch(entry: str, library: str, q, pages_k, pages_v, tables, lengths,
                     ("tables", tables), ("lengths", lengths),
                     ("k_scales", k_scales), ("v_scales", v_scales)):
         if t.device != q.device:
-            raise ValueError(f"{entry}: {name} lies on {t.device}, q on {q.device}")
+            raise ValueError(f"{what}: {name} lies on {t.device}, q on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{entry}: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     if k_scales.shape != (num_pages, hkv) or v_scales.shape != (num_pages, hkv) \
             or k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
-        raise ValueError(f"{entry}: scales must be f32 [{num_pages}, {hkv}]")
+        raise ValueError(f"{what}: scales must be f32 [{num_pages}, {hkv}]")
     for name, t in (("q", q), ("pages_k", pages_k), ("pages_v", pages_v)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{entry}: {name} must be 16-byte aligned")
-    lib = _build.load()[library]
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = getattr(lib, _build.KERNELS[library][1])(
+    _build.launch(
+        library, entry, what,
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
         k_scales.data_ptr(), v_scales.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         n, s, hq, hkv, d, page, tables.shape[1],
         int(q.dtype == torch.bfloat16), int(pages_k.dtype == torch.bfloat16),
-        float(d ** -0.5), stream,
+        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"{entry}: kernel launch failed: "
-                           f"{_build.error_string(lib, rc)} (cudaError {rc})")
     return out
 
 
@@ -201,8 +191,8 @@ def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
     if q.device.type == "cpu":
         return paged_attention_reference(q, pages_k, pages_v, tables, lengths,
                                          k_scales=k_scales, v_scales=v_scales)
-    out = _launch("paged_attention", "paged_attention", q, pages_k, pages_v,
-                  tables, lengths, k_scales, v_scales)
+    out = _launch("paged_attention", "paged_attention", "atpu_paged_decode", q,
+                  pages_k, pages_v, tables, lengths, k_scales, v_scales)
     paged_attention.launches += 1
     return out
 
@@ -220,8 +210,8 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
     if q.device.type == "cpu":
         return paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
                                              k_scales=k_scales, v_scales=v_scales)
-    out = _launch("paged_flash_prefill", "paged_prefill", q, pages_k, pages_v,
-                  tables, lengths, k_scales, v_scales)
+    out = _launch("paged_flash_prefill", "paged_prefill", "atpu_paged_prefill", q,
+                  pages_k, pages_v, tables, lengths, k_scales, v_scales)
     paged_flash_prefill.launches += 1
     return out
 

@@ -45,6 +45,19 @@ ENGINE_KW = dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), prefill_token_
                  decode_window=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_telemetry_off():
+    """The JAX engine beats the process-wide flight recorder's heartbeat.
+    With telemetry off it beats none, so a ``/healthz`` check that runs later
+    in the same process does not find this module's heartbeat gone stale."""
+    from accelerate_tpu.telemetry import metrics as jax_metrics
+
+    was = jax_metrics.enabled()
+    jax_metrics.set_enabled(False)
+    yield
+    jax_metrics.set_enabled(was)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = JConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, max_seq_len=64)
