@@ -54,7 +54,8 @@ _libs: Optional[Dict[str, ctypes.CDLL]] = None
 
 #: wall seconds the last :func:`load` spent compiling (0.0 when cached)
 build_seconds = 0.0
-#: ``nvcc -Xptxas -v`` output of the last build, per library
+#: ``nvcc -Xptxas -v`` output of each loaded library's build, per library
+#: (read back from its ``.log`` when the library was cached)
 build_logs: Dict[str, str] = {}
 
 
@@ -84,6 +85,9 @@ def _build_all(tag: str) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     outputs = {name: BUILD_DIR / f"lib{name}_{tag}.so" for name in KERNELS}
     missing = {name: out for name, out in outputs.items() if not out.exists()}
+    for name, out in outputs.items():
+        if name not in missing and out.with_suffix(".log").exists():
+            build_logs[name] = out.with_suffix(".log").read_text()
     if not missing:
         build_seconds = 0.0
         return outputs

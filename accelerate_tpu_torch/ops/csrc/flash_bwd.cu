@@ -21,18 +21,42 @@
 // 6 * D flops (scores, dp, dq) and K5 8 * D (scores, dp, dk, dv): at the
 // training shape (B 2, S 2048, 32 heads, D 128, causal) 0.104 ms and
 // 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate, against ~0.06 ms of
-// bytes each; the operations bound both.
+// bytes each; the tensor cores bound both.
 //
-// What the design does about it.  K4: one CTA per (batch, kv-head, q-block of
-// 64 folded rows, group part), walking the k-tiles up to its causal
-// frontier with q, dO, lse and delta resident.  K5: one CTA per (batch,
-// kv-head, k-tile of 64 keys) with K, V and the dk/dv accumulators
-// resident, walking the q-blocks (and each one's group parts) from the
-// first one that can see the tile; a q-block's rows hold the query heads of
-// the GQA group, so dk and dv accumulate unexpanded over the group as at
-// :331-348.  All products are register-tiled on the CUDA cores
-// from f32 shared tiles; tensor cores and TMA are a later change's work.
+// K4 (flash_dq_kernel, both dtypes, CUDA cores): one CTA of 256 threads per
+// (batch, kv-head, q-block of 64 folded rows, group part), walking the
+// k-tiles up to its causal frontier with q, dO, lse and delta resident; all
+// products are register-tiled on the CUDA cores from f32 shared tiles.
+//
+// K5: each (batch, kv-head, k-tile of 64 keys) keeps K, V and the dk/dv
+// accumulators resident and walks the q-blocks (and each one's group parts)
+// from the first one that can see the tile; a q-block's rows hold the query
+// heads of the GQA group, so dk and dv accumulate unexpanded over the group
+// as at :331-348.  The f32 arm runs one CTA per k-tile, the bf16 arm two
+// consecutive k-tiles per CTA.
+//   bf16 arm (flash_dkv_wgmma_kernel): the tensor cores, FlashAttention-3's
+//   arrangement.  A CTA holds two consumer warpgroups, each owning one k-tile
+//   of 64 keys, and a producer warpgroup (setmaxnreg hands its registers to
+//   the consumers).  The keys are wgmma's M, so S^T = K.Q^T and dP^T =
+//   V.dO^T come out with a thread holding 2 keys x 16 rows, and P^T and
+//   dS^T, rounded to bf16 in place, are exactly the register A operands of
+//   dV += P^T.dO and dK += dS^T.Q, with dO and Q read MN-major as they are
+//   stored.  K and V stay in swizzled bf16 shared tiles, which the
+//   producer loads once by TMA (one box of 64 keys per panel, zeros past
+//   Sk), and the f32 dK/dV accumulators stay in registers across the whole
+//   walk.  The producer's first warp then streams the q-blocks through a
+//   ring of three stages: Q and
+//   dO by TMA, one box per panel that is the folded q-block itself (rep
+//   heads x block_q queries of the [B, Sq, Hq, D] tensor, zeros past Sq),
+//   and each row's lse, delta, query and segment id stored by its lanes;
+//   full/empty mbarriers let the two warpgroups run out of step.  Left for
+//   later: a fused backward (dQ from the same CTA), persistent CTAs.
+//   f32 arm (flash_dkv_kernel): 256 threads on the CUDA cores, as K4, so
+//   that f32 inputs keep f32 products.
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace atpu {
 
@@ -282,6 +306,226 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+constexpr int kDkvGroups = 2;  // consumer warpgroups of a CTA, one k-tile each
+constexpr int kDkvStages = 3;  // Q/dO stages in the ring
+// the consumer warpgroups, then a producer warpgroup whose first warp
+// issues the TMA loads and fills in each q-block's statistics
+constexpr int kDkvThreads = (kDkvGroups + 1) * kWarpgroup;
+constexpr int kDkvConsumerRegs = 240, kDkvProducerRegs = 24;
+static_assert(kDkvGroups * kWarpgroup * kDkvConsumerRegs + kWarpgroup * kDkvProducerRegs <= 65536,
+              "the register file");
+
+// Shared memory of the bf16 arm of K5: each warpgroup's K and V tiles, the
+// Q/dO stages, each stage's per-row statistics, the ring's full/empty
+// barriers, one barrier per warpgroup's K/V, and a pad to align the tiles
+// to the swizzle's 1024 bytes.
+template <int D> constexpr size_t dkv_wgmma_smem() {
+  return kSwizzleAlign + (2 * kDkvGroups + 2 * kDkvStages) * (size_t)tile_bytes<D>() +
+         kDkvStages * 4 * (size_t)kRows * sizeof(float) +
+         (2 * kDkvStages + kDkvGroups) * sizeof(uint64_t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, FlashShape sh, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
+
+  extern __shared__ unsigned char flash_tc_smem[];
+  const uint32_t base = (smem_u32(flash_tc_smem) + kSwizzleAlign - 1) & ~(kSwizzleAlign - 1u);
+  auto q_s = [&](int st) { return base + TB * (2 * kDkvGroups + 2 * st); };
+  auto do_s = [&](int st) { return base + TB * (2 * kDkvGroups + 2 * st + 1); };
+  // per stage and folded row: lse, delta, query and its segment id (a row
+  // past the sequence holds zeros: its Q and dO rows are zero, so its s is
+  // 0, its p at most 1 and its dp and ds 0, and it adds nothing to dK or dV)
+  const uint32_t stats_u32 = base + TB * (2 * kDkvGroups + 2 * kDkvStages);
+  float* stats = reinterpret_cast<float*>(flash_tc_smem + (stats_u32 - smem_u32(flash_tc_smem)));
+  auto stat = [&](int st, int which) { return stats + (st * 4 + which) * kRows; };
+  const uint32_t full0 = stats_u32 + kDkvStages * 4 * kRows * sizeof(float);
+  auto full = [&](int st) { return full0 + 8 * st; };  // a stage's Q, dO and statistics landed
+  auto empty = [&](int st) { return full0 + 8 * (kDkvStages + st); };  // both groups are done
+  auto kv_full = [&](int i) { return full0 + 8 * (2 * kDkvStages + i); };  // group i's K, V landed
+  auto tile_k0 = [&](int i) { return (kDkvGroups * blockIdx.x + i) * kKeys; };  // group i's k-tile
+
+  // queries before a tile's first key see none of it: each warpgroup starts
+  // at the q-block holding its k0 (the CTA at its first warpgroup's); every
+  // part of the group of each q-block, in a fixed order
+  const int n_qb = (sh.sq + sh.block_q - 1) / sh.block_q;
+  const int n_it = n_qb * sh.parts;
+  auto first = [&](int kt0) { return (sh.causal ? min(kt0 / sh.block_q, n_qb) : 0) * sh.parts; };
+  const int it0 = first(tile_k0(0));
+  const int rows = sh.rep * sh.block_q;  // folded rows a q-block's box fills
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kDkvStages; ++st) {
+      mbar_init(full(st), 1 + 32);  // the producer's expect_tx, then each lane's statistics
+      mbar_init(empty(st), kDkvGroups);
+    }
+#pragma unroll
+    for (int i = 0; i < kDkvGroups; ++i) mbar_init(kv_full(i), 1);
+    mbar_init_fence();
+  }
+  if (rows < kRows && wg < kDkvGroups) {
+    // the box of a q-block fills `rows` rows of a tile; the rest stay zero
+    const int chunks = (kRows - rows) * 8;
+    const int total = kDkvStages * 2 * (D / kPanelCols) * chunks;
+    for (int e = tid; e < total; e += kDkvGroups * kWarpgroup) {
+      const int tile = e / chunks / (D / kPanelCols), p = e / chunks % (D / kPanelCols);
+      const int c = e % chunks;
+      const uint32_t addr = base + TB * (2 * kDkvGroups + tile) + p * kPanelBytes +
+                            (rows + c / 8) * 128 + (c % 8) * 16;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" :: "r"(addr), "r"(0) : "memory");
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();  // the last CTA-wide barrier: the roles part here
+
+  if (wg == kDkvGroups) {
+    regs_dealloc<kDkvProducerRegs>();
+    if (t >= 32) return;
+    if (t == 0) {
+      // each warpgroup's K and V tiles (none for a k-tile past the keys,
+      // whose warpgroup walks no q-block)
+#pragma unroll
+      for (int i = 0; i < kDkvGroups; ++i) {
+        if (tile_k0(i) >= sh.sk) continue;
+        mbar_arrive_expect_tx(kv_full(i), 2 * TB);
+#pragma unroll
+        for (int p = 0; p < D / kPanelCols; ++p) {
+          const int col = p * kPanelCols;
+          tma_load_4d(base + TB * i + p * kPanelBytes, &tm_k, kv_full(i), col, h, tile_k0(i), b);
+          tma_load_4d(base + TB * (kDkvGroups + i) + p * kPanelBytes, &tm_v, kv_full(i), col, h,
+                      tile_k0(i), b);
+        }
+      }
+    }
+    for (int it = it0; it < n_it; ++it) {
+      const int st = (it - it0) % kDkvStages, round = (it - it0) / kDkvStages;
+      if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
+      const FoldedRows fr = folded_rows(sh, it / sh.parts, it % sh.parts, h);
+      if (t == 0) {
+        mbar_arrive_expect_tx(full(st), 2 * (D / kPanelCols) * rows * 128);
+#pragma unroll
+        for (int p = 0; p < D / kPanelCols; ++p) {
+          const int col = p * kPanelCols;
+          tma_load_4d(q_s(st) + p * kPanelBytes, &tm_q, full(st), col, fr.head0, fr.q0, b);
+          tma_load_4d(do_s(st) + p * kPanelBytes, &tm_do, full(st), col, fr.head0, fr.q0, b);
+        }
+      }
+#pragma unroll
+      for (int r = t; r < kRows; r += 32) {
+        const bool valid = fr.valid(r);
+        const int qi = fr.query(r);
+        stat(st, 0)[r] = valid ? lse[fr.stat(b, r)] : 0.f;
+        stat(st, 1)[r] = valid ? delta[fr.stat(b, r)] : 0.f;
+        reinterpret_cast<int*>(stat(st, 2))[r] = qi;
+        reinterpret_cast<int*>(stat(st, 3))[r] = seg ? seg[(long long)b * sh.seg_stride + qi] : 0;
+      }
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  regs_alloc<kDkvConsumerRegs>();
+  const int w = t / 32, g = (t % 32) / 4, c2 = 2 * (t % 4);
+  const int k0 = tile_k0(wg);                        // this warpgroup's k-tile
+  const int my_it0 = k0 < sh.sk ? first(k0) : n_it;  // a k-tile past the keys does nothing
+  const uint32_t k_s = base + TB * wg, v_s = base + TB * (kDkvGroups + wg);
+
+  // the thread's keys k0 + 16 w + g + 8 e (e = 0, 1): rows of S^T and dK/dV
+  int key[2], segk[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    key[e] = k0 + 16 * w + g + 8 * e;
+    segk[e] = (seg && key[e] < sh.sk) ? seg[(long long)b * sh.seg_stride + key[e]] : 0;
+  }
+  float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  if (k0 < sh.sk) mbar_wait(kv_full(wg), 0);
+
+  for (int it = it0; it < n_it; ++it) {
+    const int st = (it - it0) % kDkvStages;
+    mbar_wait(full(st), ((it - it0) / kDkvStages) & 1);
+    if (it >= my_it0) {
+      wgmma_fence();
+      mma_rows_by_rows<D>(s, k_s, q_s(st));    // S^T = K . Q^T
+      mma_rows_by_rows<D>(dp, v_s, do_s(st));  // dP^T = V . dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // s[4i + 2e + j] is (key[e], folded row 8 i + c2 + j); p and ds
+      // replace s and dp, rounded to bf16 and packed as the next products'
+      // A operands
+      const int q0 = (it / sh.parts) * sh.block_q;
+      const bool masked = seg || k0 + kKeys > sh.sk || (sh.causal && k0 + kKeys - 1 > q0);
+      const float* ls = stat(st, 0);
+      const float* dl = stat(st, 1);
+      const int* qs = reinterpret_cast<const int*>(stat(st, 2));
+      const int* sgs = reinterpret_cast<const int*>(stat(st, 3));
+      uint32_t pp[16], pd[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = 8 * i + c2 + j, idx = 4 * i + 2 * e + j;
+            float x = s[idx] * scale;
+            if (masked) {
+              if (key[e] >= sh.sk) {
+                x = -INFINITY;
+              } else if ((sh.causal && key[e] > qs[n]) || (seg && segk[e] != sgs[n])) {
+                x = kFlashMask;
+              }
+            }
+            const float p = __expf(x - ls[n]);
+            s[idx] = p;
+            dp[idx] = p * (dp[idx] - dl[n]) * scale;
+          }
+          // p rounded to dO's dtype (:346), ds to q's (:342)
+          pp[2 * i + e] = pack_bf16(s[4 * i + 2 * e], s[4 * i + 2 * e + 1]);
+          pd[2 * i + e] = pack_bf16(dp[4 * i + 2 * e], dp[4 * i + 2 * e + 1]);
+        }
+
+      wgmma_fence();
+      mma_probs_by_tile<D>(dv_acc, pp, do_s(st));  // dV += P^T . dO
+      mma_probs_by_tile<D>(dk_acc, pd, q_s(st));   // dK += dS^T . Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    }
+    // the warpgroup's products that read stage st are complete
+    if (t == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long off = kv_offset(b, key[e], h, sh, D);
+    if (off < 0) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * i + c2) =
+          __floats2bfloat162_rn(dk_acc[4 * i + 2 * e], dk_acc[4 * i + 2 * e + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * i + c2) =
+          __floats2bfloat162_rn(dv_acc[4 * i + 2 * e], dv_acc[4 * i + 2 * e + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, const int* seg, void* dq, int b, const FlashShape& sh,
@@ -302,17 +546,34 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, const int* seg, void* dk, void* dv, int b,
                const FlashShape& sh, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)kKeys * (D + 4) +
-                                       2 * (size_t)kRows * (D + 4) +
-                                       2 * (size_t)kRows * kPStride);
-  auto kernel = flash_dkv_kernel<T, D>;
-  cudaError_t err = flash_allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kb = (sh.sk + kKeys - 1) / kKeys;
-  kernel<<<dim3(n_kb, sh.hkv, b), kFlashThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dk), static_cast<T*>(dv),
-      sh, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    CUtensorMap tm_q, tm_do, tm_k, tm_v;
+    cudaError_t err = make_panel_tensor_map(&tm_q, q, b, sh.sq, sh.hq, D, sh.rep, sh.block_q);
+    if (err == cudaSuccess)
+      err = make_panel_tensor_map(&tm_do, dout, b, sh.sq, sh.hq, D, sh.rep, sh.block_q);
+    if (err == cudaSuccess) err = make_panel_tensor_map(&tm_k, k, b, sh.sk, sh.hkv, D, 1, kKeys);
+    if (err == cudaSuccess) err = make_panel_tensor_map(&tm_v, v, b, sh.sk, sh.hkv, D, 1, kKeys);
+    const size_t smem = dkv_wgmma_smem<D>();
+    auto kernel = flash_dkv_wgmma_kernel<D>;
+    if (err == cudaSuccess) err = flash_allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n_kb + kDkvGroups - 1) / kDkvGroups, sh.hkv, b);
+    kernel<<<grid, kDkvThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, lse, delta, seg,
+                                                static_cast<T*>(dk), static_cast<T*>(dv), sh,
+                                                scale);
+  } else {
+    const size_t smem = sizeof(float) * (2 * (size_t)kKeys * (D + 4) +
+                                         2 * (size_t)kRows * (D + 4) +
+                                         2 * (size_t)kRows * kPStride);
+    auto kernel = flash_dkv_kernel<T, D>;
+    cudaError_t err = flash_allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(n_kb, sh.hkv, b), kFlashThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dk), static_cast<T*>(dv),
+        sh, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

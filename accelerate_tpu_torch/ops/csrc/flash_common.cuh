@@ -1,6 +1,9 @@
 // Shared pieces of the dense flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): the tile geometry, dtype helpers, the BSHD row loader, the
 // CUDA-core tile product and the launch dispatch over (dtype, head dim).
+// The CUDA-core pieces serve K4 in both dtypes and the f32 arms of K3 and
+// K5; the bf16 arms of K3 and K5 are tensor-core kernels built from
+// flash_wgmma.cuh on the same folded-row geometry.
 //
 // Layout contract, the public layout of accelerate_tpu/ops/flash_attention.py
 // (BSHD at the function boundary; the GQA fold happens inside the kernels):
@@ -232,7 +235,9 @@ inline bool flash_shape_ok(int b, int sq, int sk, int hq, int hkv) {
 }  // namespace atpu
 
 // Expand LAUNCH(T, D) for the (dtype, head dim) of a call; returns
-// cudaErrorInvalidValue for a combination the kernels do not take.
+// cudaErrorInvalidValue for a combination the kernels do not take.  Each
+// launcher picks its arm from T: bf16 K3 and K5 launch their tensor-core
+// kernels, everything else the CUDA-core ones.
 #define ATPU_FLASH_DISPATCH(bf16, d, LAUNCH)                            \
   do {                                                                  \
     if (d == 128) return bf16 ? LAUNCH(__nv_bfloat16, 128) : LAUNCH(float, 128); \

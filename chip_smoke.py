@@ -21,10 +21,15 @@ Phases, each printing one JSON line:
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
-   at S 1024, and non-causal at S 512; K4 and K5 run twice and must give the
-   same bits.  Each line: max abs error beside its tolerance, kernel, plain,
-   bound and library (``scaled_dot_product_attention``) ms, and the case's
-   launches.
+   at S 1024, non-causal at S 512, and GQA 32/8 at D 64; K4 and K5 run twice
+   and must give the same bits.  Each line: max abs error beside its
+   tolerance, the largest relative error of a tile of 64 positions of one
+   head beside its own tolerance, kernel, plain, bound and library
+   (``scaled_dot_product_attention``) ms, the case's launches, and the
+   kernel's ``design`` (``wgmma`` for the bf16 arms of K3 and K5,
+   ``cuda-cores`` for K4 and the f32 arms).  The device line names every
+   kernel whose build spills registers; a tensor-core kernel that spills
+   fails the run.
 7. ``train``   — the serving model freed, ``TransformerConfig.llama2_7b`` at
    full width and 8 of its 32 layers (f32 masters, bf16 compute, the flash
    path) trains through ``Accelerator(mixed_precision="bf16",
@@ -46,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +70,13 @@ TOL = {  # kernel vs plain version, per page dtype
 # round their output once, after sums in different orders (and p relative to
 # another running max in K3), so two bf16 steps at the top of the range
 FLASH_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+# ... and, so that an error confined to one tile cannot hide under the
+# largest value (out's first row, dk/dv's first keys), each tile of 64
+# positions of one head is held at its own scale: ||err|| / ||plain|| over
+# the tile, against 2.5-3x the largest reading of sound kernels on an H100
+# over these cases and tests/test_torch_cuda.py's (bf16 0.0031, f32 1.7e-6;
+# PERF.md §2 keeps the readings)
+FLASH_TILE_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0**-7}
 # train phase: the flash path's loss and gradient against the xla path's,
 # as a multiple of the xla bf16 path's own distance from an f32 run of the
 # same weights (two independent bf16 paths sit ~sqrt(2) x that apart); the
@@ -98,6 +111,14 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def card_state() -> str:
+    """SM clock, power draw and temperature, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -109,6 +130,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def spilling_kernels(logs) -> dict:
+    """Mangled kernel name -> its ``ptxas -v`` spill line, for each kernel of
+    the build that spills registers to local memory."""
+    spills = {}
+    for log in logs.values():
+        kernel = None
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if entry:
+                kernel = entry.group(1)
+            elif spill and (int(spill.group(1)) or int(spill.group(2))):
+                spills[kernel] = line.strip()
+    return spills
 
 
 # ------------------------------------------------------------------ kernels
@@ -293,11 +330,11 @@ def engine_phase(model, cfg, rng, gpu, margin: float):
 
 
 # --------------------------------------------------------------- flash attn
-def flash_inputs(seed, b, s, hq, hkv, dtype, segmented):
+def flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, dout = (torch.randn((b, s, hq, 128), generator=gen, device="cuda").to(dtype)
+    q, dout = (torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
                for _ in range(2))
-    k, v = (torch.randn((b, s, hkv, 128), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     seg = None
     if segmented:
@@ -321,18 +358,18 @@ def visible_pairs(b, s, causal, seg) -> int:
     return total
 
 
-def flash_bound_ms(name, b, s, hq, hkv, dtype, pairs, segmented) -> tuple:
+def flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented) -> tuple:
     """Least time: every input read once and every output written once, or
     4 / 6 / 8 x D flops per visible pair (K3 / K4 / K5) at the dtype's peak."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    q_bytes, kv_bytes, stat_bytes = b * s * hq * 128 * elem, b * s * hkv * 128 * elem, b * hq * s * 4
+    q_bytes, kv_bytes, stat_bytes = b * s * hq * d * elem, b * s * hkv * d * elem, b * hq * s * 4
     seg_bytes = b * s * 4 if segmented else 0
     nbytes, flops_per_pair = {
         "k3": (q_bytes + 2 * kv_bytes + q_bytes + stat_bytes + seg_bytes, 4),
         "k4": (2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes + q_bytes, 6),
         "k5": (2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes + 2 * kv_bytes, 8),
     }[name]
-    flops = flops_per_pair * 128 * hq * pairs
+    flops = flops_per_pair * d * hq * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -354,13 +391,33 @@ def library_ms(q, k, v, dout, causal, backward) -> float:
     return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), grad, retain_graph=True), 10)
 
 
-def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented) -> dict:
+def tile_rel_err(got, want, tile=64) -> float:
+    """Largest ``||got - want|| / ||want||`` over the tiles of ``tile``
+    positions of one head of one batch row of ``[B, S, H, D]`` tensors: 0
+    on a tile where both are 0, infinite where only the plain value is."""
+    pad = (0, 0, 0, 0, 0, (-want.shape[1]) % tile)
+    sums = []
+    for x in (got.float() - want.float(), want.float()):
+        x = torch.nn.functional.pad(x, pad)
+        b, s, h, d = x.shape
+        sums.append(x.reshape(b, s // tile, tile, h, d).square().sum(dim=(2, 4)))
+    err, ref = sums
+    return torch.where(err == 0, torch.zeros_like(err), (err / ref).sqrt()).max().item()
+
+
+def flash_design(name, dtype) -> str:
+    """How a flash kernel computes: the bf16 arms of K3 and K5 on the tensor
+    cores (wgmma), K4 and every f32 arm on the CUDA cores."""
+    return "wgmma" if name in ("k3", "k5") and dtype == torch.bfloat16 else "cuda-cores"
+
+
+def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> dict:
     """K3, K4 and K5 against their plain versions on one case (the same
     inputs to both: the plain forward's lse and delta feed both backward
     versions); one record per kernel."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout, seg = flash_inputs(seed, b, s, hq, hkv, dtype, segmented)
+    q, k, v, dout, seg = flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented)
     kw = dict(causal=causal, segment_ids=seg)
     counters = {"k3": fa.flash_fwd, "k4": fa.flash_dq, "k5": fa.flash_dkv}
     launches0 = {name: fn.launches for name, fn in counters.items()}
@@ -375,12 +432,19 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented) -> dict:
     out, lse = fa.flash_fwd(q, k, v, **kw)
     dq = fa.flash_dq(*args, **kw)
     dk, dv = fa.flash_dkv(*args, **kw)
+    ref_dq = fa.flash_dq_reference(*args, **kw)
     ref_dk, ref_dv = fa.flash_dkv_reference(*args, **kw)
     checks = {
         "k3": {"out": held(out, ref_out), "lse": held(lse, ref_lse, FLASH_REL_TOL[torch.float32])},
-        "k4": {"dq": held(dq, fa.flash_dq_reference(*args, **kw))},
+        "k4": {"dq": held(dq, ref_dq)},
         "k5": {"dk": held(dk, ref_dk), "dv": held(dv, ref_dv)},
     }
+    tiled = {
+        "k3": {"out": tile_rel_err(out, ref_out)},
+        "k4": {"dq": tile_rel_err(dq, ref_dq)},
+        "k5": {"dk": tile_rel_err(dk, ref_dk), "dv": tile_rel_err(dv, ref_dv)},
+    }
+    tile_tol = FLASH_TILE_TOL[dtype]
     repeat_dk, repeat_dv = fa.flash_dkv(*args, **kw)
     bitwise = {"k4": torch.equal(dq, fa.flash_dq(*args, **kw)),
                "k5": torch.equal(dk, repeat_dk) and torch.equal(dv, repeat_dv)}
@@ -397,13 +461,15 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented) -> dict:
         errs = checks[name]
         # the kernels line carries the binding check: the largest err / tolerance
         worst = max(errs.values(), key=lambda et: et[0] / et[1])
-        bms, by = flash_bound_ms(name, b, s, hq, hkv, dtype, pairs, segmented)
+        bms, by = flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented)
         rec = dict(
-            case=label, dtype=str(dtype).replace("torch.", ""), b=b, s=s, hq=hq, hkv=hkv,
+            case=label, dtype=str(dtype).replace("torch.", ""), b=b, s=s, hq=hq, hkv=hkv, d=d,
             causal=causal, segmented=segmented, visible_pairs=pairs,
+            design=flash_design(name, dtype),
             errors={key: e for key, (e, _) in errs.items()},
             tolerances={key: t for key, (_, t) in errs.items()},
             max_abs_err=worst[0], tolerance=worst[1],
+            tile_rel_errors=tiled[name], tile_tolerance=tile_tol,
             ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 3, warmup=1),
             bound_ms=bms, bound_by=by,
             library_ms=None if segmented else library_ms(q, k, v, dout, causal, backward),
@@ -415,6 +481,8 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented) -> dict:
         emit({"phase": name, **rec})
         for key, (err, tol) in errs.items():
             check(err <= tol, f"{name} {label}: {key} max abs err {err} > tolerance {tol}")
+        for key, err in tiled[name].items():
+            check(err <= tile_tol, f"{name} {label}: {key} tile relative err {err} > {tile_tol}")
         check(bitwise.get(name, True), f"{name} {label}: two runs gave different bits")
         records[name] = rec
     return records
@@ -543,6 +611,7 @@ def train_phase(gpu):
         "loss": [h["loss"] for h in host], "grad_norm": [h["grad_norm"] for h in host],
         "applied": [bool(h["applied"]) for h in host], "launches": launches,
         "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+        "step_ms_each": [t * 1e3 for t in step_s], "card_after": card_state(),
         "tokens_per_s": tokens / steady, "model_flops_per_micro_step": flops,
         "mfu_vs_989_tflops": flops / steady / PEAK_FLOPS[torch.bfloat16],
         "max_memory_allocated_gb": peak / 1e9, "path_check": path_check, "gpu": gpu,
@@ -580,12 +649,19 @@ def main() -> int:
     gpu = gpu_line()
     print(gpu, flush=True)
     _build.load()
+    spills = spilling_kernels(_build.build_logs)
     emit({"phase": "device", "gpu": gpu, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": _build.build_seconds,
-          "spills": sorted({line.strip() for log in _build.build_logs.values()
-                            for line in log.splitlines()
-                            if "spill" in line and not line.strip().startswith("0 bytes")})})
+          "spills": spills})
+    check(sorted(_build.build_logs) == sorted(_build.KERNELS),
+          f"ptxas reports for {sorted(_build.build_logs)}, want every library")
+    tc_entries = set(re.findall(r"Compiling entry function '(\w*wgmma\w*)'",
+                                "".join(_build.build_logs.values())))
+    check(len(tc_entries) == 4, f"ptxas reports {len(tc_entries)} tensor-core kernels, want 4 "
+          "(K3 and K5 at D 64 and 128)")
+    check(not [k for k in spills if "wgmma" in k],
+          "a tensor-core kernel spills registers to local memory")
 
     bf16, f32 = torch.bfloat16, torch.float32
     ragged = [5, 700, 1500, 2040]  # a lane on its first page ... a nearly full lane
@@ -621,6 +697,7 @@ def main() -> int:
         ("gqa", 15, 2, 2048, 32, 8, bf16, True, False),
         ("segments3", 16, 2, 1024, 32, 32, bf16, True, True),
         ("full512", 17, 2, 512, 32, 32, bf16, False, False),
+        ("gqa_d64", 18, 2, 2048, 32, 8, bf16, True, False, 64),
     ])
     launches.update(train_phase(gpu))
 
@@ -645,6 +722,8 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
         })
+        if "design" in rec:
+            kernels[-1]["design"] = rec["design"]
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

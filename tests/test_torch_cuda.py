@@ -1,16 +1,19 @@
 """Card-only tests of the port: the CUDA kernels against their plain versions.
 
 Every test here is marked ``cuda`` and skips without a card.  This file
-imports torch and the port only (no JAX), so it also runs on a machine that
-has no JAX; run it there with::
+imports torch, the port and ``chip_smoke.py``'s checks only (no JAX), so it
+also runs on a machine that has no JAX; run it there, from the repo root,
+with::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 1e-4 (the kernels sum in another order than the plain
 version, measured errors are ~1e-6); bf16 2e-2 — the plain version rounds
 logits and probabilities to bf16 where the kernels keep f32.  The flash
-kernels (K3-K5) are held relative to the largest plain value: 1e-5 in f32,
-2**-6 (two bf16 steps) in bf16.
+kernels (K3-K5) are held as ``chip_smoke.py`` holds them: relative to the
+largest plain value (``FLASH_REL_TOL``), and each tile of 64 positions of
+one head at its own scale (``tile_rel_err`` against ``FLASH_TILE_TOL``), so
+that an error in one tile cannot hide under the largest value.
 """
 
 import functools
@@ -28,6 +31,7 @@ from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.serving import ServingEngine
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.weights import init_params
+from chip_smoke import FLASH_REL_TOL, FLASH_TILE_TOL, tile_rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -119,9 +123,10 @@ def _flash_case(card, b, s, hq, hkv, d, dtype, segmented=False, seed=0, sk=None)
 
 
 def _close(got, want, dtype):
-    rel = 1e-5 if dtype == torch.float32 else 2.0**-6
-    tol = rel * max(want.float().abs().max().item(), 1.0)
+    tol = FLASH_REL_TOL[dtype] * max(want.float().abs().max().item(), 1.0)
     assert (got.float() - want.float()).abs().max().item() <= tol
+    if want.dim() == 4:
+        assert tile_rel_err(got, want) <= FLASH_TILE_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -150,8 +155,34 @@ def test_flash_kernels_match_plain_uneven(card, dtype, b, sq, sk, hq, hkv, d, ca
     _hold_flash_kernels(*case, causal, dtype)
 
 
-def _hold_flash_kernels(q, k, v, dout, seg, causal, dtype):
-    kw = dict(causal=causal, segment_ids=seg)
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,segmented", [
+    (1, 129, 129, 4, 2, 128, True, False),  # one row and one key past a 128 boundary
+    (1, 257, 257, 4, 4, 64, True, False),
+    (2, 257, 257, 8, 2, 128, True, False),
+    (1, 96, 320, 4, 2, 128, True, True),    # fewer queries than keys, with segments
+    (1, 512, 512, 32, 4, 128, True, False),  # GQA 32/4: 8 heads folded into each tile
+    (1, 512, 512, 32, 4, 64, True, False),
+])
+def test_flash_bf16_tensor_core_tiles(card, b, sq, sk, hq, hkv, d, causal, segmented):
+    """The bf16 arm (wgmma tiles of 64 folded rows x 64 keys; two consumer
+    warpgroups per CTA, fed through a ring of 3 TMA stages) on shapes that
+    cut its tiles raggedly: S 257 walks 5 k-tiles, the last one 1 key wide,
+    so the ring wraps before the ragged tile."""
+    case = _flash_case(card, b, sq, hq, hkv, d, torch.bfloat16, segmented, seed=2, sk=sk)
+    _hold_flash_kernels(*case, causal, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_negative_scale(card, dtype, causal):
+    """A negative scale turns the row maximum into the smallest raw score:
+    the kernels must take the maximum of the scaled scores."""
+    case = _flash_case(card, 1, 200, 4, 2, 64, dtype, seed=3)
+    _hold_flash_kernels(*case, causal, dtype, scale=-0.125)
+
+
+def _hold_flash_kernels(q, k, v, dout, seg, causal, dtype, scale=None):
+    kw = dict(causal=causal, segment_ids=seg, scale=scale)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
     _close(out, ref_out, dtype)
