@@ -26,9 +26,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: paged kernels: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
+#: paged decode: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
 #: out; n, s, hq, hkv, d, page, num_p, q_bf16, kv_bf16; scale; stream
-_PAGED_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P]
+_DECODE_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P]
+#: paged prefill: as decode, with num_pages after page and tensor_cores after
+#: kv_bf16
+_PREFILL_ARGS = [_P] * 8 + [_I] * 11 + [_F, _P]
 #: flash forward: q, k, v, seg, out, lse; b, sq, sk, hq, hkv, d, seg_stride,
 #: causal, bf16; scale; stream
 _FWD_ARGS = [_P] * 6 + [_I] * 9 + [_F, _P]
@@ -40,8 +43,8 @@ _DKV_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
 #: library name -> its CUDA source, and the C entry points it exports with
 #: each one's argument types
 KERNELS = {
-    "paged_attention": ("paged_attention.cu", {"atpu_paged_decode": _PAGED_ARGS}),
-    "paged_prefill": ("paged_prefill.cu", {"atpu_paged_prefill": _PAGED_ARGS}),
+    "paged_attention": ("paged_attention.cu", {"atpu_paged_decode": _DECODE_ARGS}),
+    "paged_prefill": ("paged_prefill.cu", {"atpu_paged_prefill": _PREFILL_ARGS}),
     "flash_fwd": ("flash_fwd.cu", {"atpu_flash_fwd": _FWD_ARGS}),
     "flash_bwd": ("flash_bwd.cu", {"atpu_flash_dq": _DQ_ARGS,
                                    "atpu_flash_dkv": _DKV_ARGS}),

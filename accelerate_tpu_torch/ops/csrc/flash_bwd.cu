@@ -23,10 +23,27 @@
 // 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate, against ~0.06 ms of
 // bytes each; the tensor cores bound both.
 //
-// K4 (flash_dq_kernel, both dtypes, CUDA cores): one CTA of 256 threads per
-// (batch, kv-head, q-block of 64 folded rows, group part), walking the
-// k-tiles up to its causal frontier with q, dO, lse and delta resident; all
-// products are register-tiled on the CUDA cores from f32 shared tiles.
+// K4: each (batch, kv-head, q-block of 64 folded rows, group part) walks the
+// k-tiles up to its causal frontier with Q, dO, lse and delta resident and
+// the dQ accumulator in registers.  The f32 arm runs one CTA per q-block,
+// the bf16 arm two consecutive q-blocks per CTA.
+//   bf16 arm (flash_dq_wgmma_kernel): the tensor cores, K3's arrangement
+//   with the dQ algebra.  A CTA holds two consumer warpgroups, each owning
+//   one q-block (wgmma's M), and one producer warp that loads each
+//   warpgroup's Q and dO once by TMA (one box per panel that is the folded
+//   q-block itself, zeros past Sq) and then streams the K/V tiles through a
+//   ring of three stages.  Per k-tile S = Q.K^T and dP = dO.V^T are wgmma
+//   products from shared memory; p = exp(S * scale - lse) and ds are formed
+//   in registers (a thread holds 2 rows x 16 keys, its rows' lse and delta
+//   read once), and dS, rounded to bf16 in place, is the register A operand
+//   of dQ += dS.K with the same K tile read MN-major, as K3 reads V for
+//   P.V: no transposed copy of K.  A warpgroup whose causal walk is shorter
+//   than its partner's keeps releasing the stages it does not use.  When
+//   rep does not divide 64 the tiles' spare rows are never written: a row
+//   of dQ reads only its own Q and dO rows, and a spare row is never stored.
+//   f32 arm (flash_dq_kernel): 256 threads on the CUDA cores, every product
+//   register-tiled from f32 shared tiles, so that f32 inputs keep f32
+//   products (TF32 keeps ~3 decimal digits).
 //
 // K5: each (batch, kv-head, k-tile of 64 keys) keeps K, V and the dk/dv
 // accumulators resident and walks the q-blocks (and each one's group parts)
@@ -51,7 +68,7 @@
 //   and each row's lse, delta, query and segment id stored by its lanes;
 //   full/empty mbarriers let the two warpgroups run out of step.  Left for
 //   later: a fused backward (dQ from the same CTA), persistent CTAs.
-//   f32 arm (flash_dkv_kernel): 256 threads on the CUDA cores, as K4, so
+//   f32 arm (flash_dkv_kernel): 256 threads on the CUDA cores, as K4's, so
 //   that f32 inputs keep f32 products.
 #include <type_traits>
 
@@ -526,19 +543,218 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+constexpr int kDqGroups = 2;  // consumer warpgroups of a CTA, one q-block each
+constexpr int kDqStages = 3;  // K/V stages in the ring
+// the consumer warpgroups, then one producer warp that issues the TMA loads
+constexpr int kDqThreads = kDqGroups * kWarpgroup + 32;
+
+// Shared memory of the bf16 arm of K4: each warpgroup's Q and dO tiles, the
+// K/V stages, the ring's full/empty barriers and one barrier per
+// warpgroup's Q/dO, after a pad that lets the kernel align its tiles to the
+// swizzle's 1024 bytes.
+template <int D> constexpr size_t dq_wgmma_smem() {
+  return kSwizzleAlign + (2 * kDqGroups + 2 * kDqStages) * (size_t)tile_bytes<D>() +
+         (2 * kDqStages + kDqGroups) * sizeof(uint64_t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+                      const float* __restrict__ delta, const int* __restrict__ seg,
+                      __nv_bfloat16* __restrict__ dq, FlashShape sh, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int pair = blockIdx.x / sh.parts, part = blockIdx.x % sh.parts;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
+
+  extern __shared__ unsigned char flash_tc_smem[];
+  const uint32_t base = (smem_u32(flash_tc_smem) + kSwizzleAlign - 1) & ~(kSwizzleAlign - 1u);
+  auto q_s = [&](int i) { return base + TB * i; };
+  auto do_s = [&](int i) { return base + TB * (kDqGroups + i); };
+  auto k_s = [&](int st) { return base + TB * (2 * kDqGroups + 2 * st); };
+  auto v_s = [&](int st) { return base + TB * (2 * kDqGroups + 2 * st + 1); };
+  const uint32_t full0 = base + TB * (2 * kDqGroups + 2 * kDqStages);  // K/V of a stage landed
+  const uint32_t empty0 = full0 + 8 * kDqStages;    // both warpgroups are done with a stage
+  const uint32_t q_full0 = empty0 + 8 * kDqStages;  // a warpgroup's Q and dO landed
+  auto full = [&](int st) { return full0 + 8 * st; };
+  auto empty = [&](int st) { return empty0 + 8 * st; };
+  auto q_full = [&](int i) { return q_full0 + 8 * i; };
+
+  // warpgroup wg owns q-block qb; the CTA streams the K/V tiles of the
+  // longer walk of its two q-blocks
+  int n_kb = 0;
+#pragma unroll
+  for (int i = 0; i < kDqGroups; ++i)
+    n_kb = max(n_kb, q_block_tiles(sh, kDqGroups * pair + i, part, h));
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kDqGroups);
+    }
+#pragma unroll
+    for (int i = 0; i < kDqGroups; ++i) mbar_init(q_full(i), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();  // the last CTA-wide barrier: the roles part here
+
+  if (wg == kDqGroups) {
+    // producer: one thread loads each warpgroup's Q and dO tiles (none for
+    // a q-block past the sequence, whose warpgroup walks no tile), then
+    // keeps up to kDqStages K/V tiles in flight
+    if (t != 0) return;
+#pragma unroll
+    for (int i = 0; i < kDqGroups; ++i) {
+      const int qb = kDqGroups * pair + i;
+      if (q_block_tiles(sh, qb, part, h) == 0) continue;
+      const FoldedRows fr = folded_rows(sh, qb, part, h);
+      mbar_arrive_expect_tx(q_full(i), 2 * (D / kPanelCols) * fr.rows * 128);
+#pragma unroll
+      for (int p = 0; p < D / kPanelCols; ++p) {
+        const int col = p * kPanelCols;
+        tma_load_4d(q_s(i) + p * kPanelBytes, &tm_q, q_full(i), col, fr.head0, fr.q0, b);
+        tma_load_4d(do_s(i) + p * kPanelBytes, &tm_do, q_full(i), col, fr.head0, fr.q0, b);
+      }
+    }
+    for (int kb = 0; kb < n_kb; ++kb) {
+      const int st = kb % kDqStages, round = kb / kDqStages;
+      if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
+      mbar_arrive_expect_tx(full(st), 2 * TB);
+#pragma unroll
+      for (int p = 0; p < D / kPanelCols; ++p) {
+        tma_load_4d(k_s(st) + p * kPanelBytes, &tm_k, full(st), p * kPanelCols, h, kb * kKeys, b);
+        tma_load_4d(v_s(st) + p * kPanelBytes, &tm_v, full(st), p * kPanelCols, h, kb * kKeys, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows 16 w + g + 8 e (e = 0, 1) of q-block qb,
+  // the same rows for the whole walk, so their statistics live in registers
+  const int w = t / 32, g = (t % 32) / 4, c2 = 2 * (t % 4);
+  const int qb = kDqGroups * pair + wg;
+  const FoldedRows fr = folded_rows(sh, qb, part, h);
+  const int my_kb = q_block_tiles(sh, qb, part, h);
+
+  int qi[2], segq[2];
+  float lse2[2], dl[2];  // lse in log2 units, delta; 0 for a row that is never stored
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 16 * w + g + 8 * e;
+    const bool valid = fr.valid(r);
+    qi[e] = fr.query(r);
+    segq[e] = seg ? seg[(long long)b * sh.seg_stride + qi[e]] : 0;
+    lse2[e] = valid ? lse[fr.stat(b, r)] * kLog2e : 0.f;
+    dl[e] = valid ? delta[fr.stat(b, r)] : 0.f;
+  }
+  float acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  if (my_kb > 0) mbar_wait(q_full(wg), 0);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int st = kb % kDqStages, k0 = kb * kKeys;
+    mbar_wait(full(st), (kb / kDqStages) & 1);
+    if (kb < my_kb) {
+      wgmma_fence();
+      mma_rows_by_rows<D>(s, q_s(wg), k_s(st));    // S = Q . K^T
+      mma_rows_by_rows<D>(dp, do_s(wg), v_s(st));  // dP = dO . V^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // s[4i + 2e + j] is (row 16 w + g + 8 e, key k0 + 8 i + c2 + j); p
+      // from the saved lse, then ds, which replaces s, rounded to k's
+      // dtype (:303) and packed as the A operand of dS . K
+      const bool masked = seg || k0 + kKeys > sh.sk || (sh.causal && k0 + kKeys - 1 > fr.q0);
+      uint32_t pk[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int idx = 4 * i + 2 * e + j;
+            float p;
+            if (masked) {
+              const int key = k0 + 8 * i + c2 + j;
+              const int segk = (seg && key < sh.sk) ? seg[(long long)b * sh.seg_stride + key] : 0;
+              float x = s[idx] * scale;
+              if (key >= sh.sk) {
+                x = -INFINITY;  // past the sequence: not a key at all
+              } else if ((sh.causal && key > qi[e]) || (seg && segk != segq[e])) {
+                x = kFlashMask;
+              }
+              p = ex2_approx(fmaf(x, kLog2e, -lse2[e]));
+            } else {
+              p = ex2_approx(fmaf(s[idx], scale_log2, -lse2[e]));
+            }
+            s[idx] = p * (dp[idx] - dl[e]) * scale;
+          }
+          pk[2 * i + e] = pack_bf16(s[4 * i + 2 * e], s[4 * i + 2 * e + 1]);
+        }
+
+      // dQ += dS . K, the same K tile read MN-major (the depth is its keys)
+      wgmma_fence();
+      mma_probs_by_tile<D>(acc, pk, k_s(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    // the warpgroup's products that read stage st are complete
+    if (t == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long off = fr.offset(b, 16 * w + g + 8 * e, D);
+    if (off < 0) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dq + off + 8 * i + c2) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * e], acc[4 * i + 2 * e + 1]);
+  }
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, const int* seg, void* dq, int b, const FlashShape& sh,
               float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)kRows * (D + 4) +
-                                       2 * (size_t)kKeys * (D + 4) + (size_t)kRows * kPStride);
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = flash_allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qb = (sh.sq + sh.block_q - 1) / sh.block_q;
-  kernel<<<dim3(n_qb * sh.parts, sh.hkv, b), kFlashThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dq), sh, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    CUtensorMap tm_q, tm_do, tm_k, tm_v;
+    cudaError_t err = make_panel_tensor_map(&tm_q, q, b, sh.sq, sh.hq, D, sh.rep, sh.block_q);
+    if (err == cudaSuccess)
+      err = make_panel_tensor_map(&tm_do, dout, b, sh.sq, sh.hq, D, sh.rep, sh.block_q);
+    if (err == cudaSuccess) err = make_panel_tensor_map(&tm_k, k, b, sh.sk, sh.hkv, D, 1, kKeys);
+    if (err == cudaSuccess) err = make_panel_tensor_map(&tm_v, v, b, sh.sk, sh.hkv, D, 1, kKeys);
+    const size_t smem = dq_wgmma_smem<D>();
+    auto kernel = flash_dq_wgmma_kernel<D>;
+    if (err == cudaSuccess) err = flash_allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n_qb + kDqGroups - 1) / kDqGroups * sh.parts, sh.hkv, b);
+    kernel<<<grid, kDqThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, lse, delta, seg,
+                                               static_cast<T*>(dq), sh, scale);
+  } else {
+    const size_t smem = sizeof(float) * (2 * (size_t)kRows * (D + 4) +
+                                         2 * (size_t)kKeys * (D + 4) + (size_t)kRows * kPStride);
+    auto kernel = flash_dq_kernel<T, D>;
+    cudaError_t err = flash_allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(n_qb * sh.parts, sh.hkv, b), kFlashThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dq), sh, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

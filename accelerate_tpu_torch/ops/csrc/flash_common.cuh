@@ -1,9 +1,9 @@
 // Shared pieces of the dense flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): the tile geometry, dtype helpers, the BSHD row loader, the
 // CUDA-core tile product and the launch dispatch over (dtype, head dim).
-// The CUDA-core pieces serve K4 in both dtypes and the f32 arms of K3 and
-// K5; the bf16 arms of K3 and K5 are tensor-core kernels built from
-// flash_wgmma.cuh on the same folded-row geometry.
+// The CUDA-core pieces serve the f32 arms of K3, K4 and K5; their bf16 arms
+// are tensor-core kernels built from flash_wgmma.cuh on the same folded-row
+// geometry.
 //
 // Layout contract, the public layout of accelerate_tpu/ops/flash_attention.py
 // (BSHD at the function boundary; the GQA fold happens inside the kernels):
@@ -122,6 +122,15 @@ __device__ __forceinline__ FoldedRows folded_rows(const FlashShape& sh, int qb, 
                     h * sh.group + part * sh.rep};
 }
 
+// k-tiles q-block qb of part `part` walks: up to its causal frontier (0 for
+// a q-block past the sequence)
+__device__ __forceinline__ int q_block_tiles(const FlashShape& sh, int qb, int part, int h) {
+  const FoldedRows fr = folded_rows(sh, qb, part, h);
+  if (fr.q0 >= sh.sq) return 0;
+  const int n_kb = (sh.sk + kKeys - 1) / kKeys;
+  return sh.causal ? min(n_kb, (min(fr.q0 + sh.block_q, sh.sq) - 1) / kKeys + 1) : n_kb;
+}
+
 // element offset of key j of kv-head h in a [B, Sk, Hkv, D] tensor, or -1
 // (zero fill) past the sequence
 __device__ __forceinline__ long long kv_offset(int b, int j, int h, const FlashShape& sh, int d) {
@@ -236,7 +245,7 @@ inline bool flash_shape_ok(int b, int sq, int sk, int hq, int hkv) {
 
 // Expand LAUNCH(T, D) for the (dtype, head dim) of a call; returns
 // cudaErrorInvalidValue for a combination the kernels do not take.  Each
-// launcher picks its arm from T: bf16 K3 and K5 launch their tensor-core
+// launcher picks its arm from T: bf16 K3, K4 and K5 launch their tensor-core
 // kernels, everything else the CUDA-core ones.
 #define ATPU_FLASH_DISPATCH(bf16, d, LAUNCH)                            \
   do {                                                                  \

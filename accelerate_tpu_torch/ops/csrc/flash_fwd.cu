@@ -203,15 +203,6 @@ template <int D> constexpr size_t fwd_wgmma_smem() {
          (2 * kFwdStages + kFwdGroups) * sizeof(uint64_t);
 }
 
-// k-tiles q-block qb of part `part` walks: up to its causal frontier (0 for
-// a q-block past the sequence)
-__device__ __forceinline__ int fwd_tiles(const FlashShape& sh, int qb, int part, int h) {
-  const FoldedRows fr = folded_rows(sh, qb, part, h);
-  if (fr.q0 >= sh.sq) return 0;
-  const int n_kb = (sh.sk + kKeys - 1) / kKeys;
-  return sh.causal ? min(n_kb, (min(fr.q0 + sh.block_q, sh.sq) - 1) / kKeys + 1) : n_kb;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -241,7 +232,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   int n_kb = 0;
 #pragma unroll
   for (int i = 0; i < kFwdGroups; ++i)
-    n_kb = max(n_kb, fwd_tiles(sh, kFwdGroups * pair + i, part, h));
+    n_kb = max(n_kb, q_block_tiles(sh, kFwdGroups * pair + i, part, h));
 
   if (tid == 0) {
 #pragma unroll
@@ -263,7 +254,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < kFwdGroups; ++i) {
       const int qb = kFwdGroups * pair + i;
-      if (fwd_tiles(sh, qb, part, h) == 0) continue;
+      if (q_block_tiles(sh, qb, part, h) == 0) continue;
       const FoldedRows fr = folded_rows(sh, qb, part, h);
       mbar_arrive_expect_tx(q_full(i), (D / kPanelCols) * fr.rows * 128);
 #pragma unroll
@@ -288,7 +279,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int w = t / 32, g = (t % 32) / 4, c2 = 2 * (t % 4);
   const int qb = kFwdGroups * pair + wg;
   const FoldedRows fr = folded_rows(sh, qb, part, h);
-  const int my_kb = fwd_tiles(sh, qb, part, h);
+  const int my_kb = q_block_tiles(sh, qb, part, h);
   const uint32_t q_s = base + TB * wg;
 
   int qi[2], segq[2];

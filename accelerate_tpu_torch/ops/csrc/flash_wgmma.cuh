@@ -1,6 +1,6 @@
-// Hopper tensor-core pieces of the bf16 flash kernels (flash_fwd.cu and
-// flash_bwd.cu's dK/dV): TMA tile loads into 128-byte-swizzled shared
-// tiles, the mbarriers that pace a ring of such tiles, the wgmma
+// Hopper tensor-core pieces of the bf16 attention kernels (flash_fwd.cu,
+// flash_bwd.cu and paged_prefill.cu): TMA tile loads into 128-byte-swizzled
+// shared tiles, the mbarriers that pace a ring of such tiles, the wgmma
 // matrix descriptors that read them, and the warpgroup matrix-multiply
 // wrappers.  Compiled for sm_90a only: wgmma and setmaxnreg do not exist on
 // plain sm_90.
@@ -267,7 +267,10 @@ __device__ __forceinline__ void mma_probs_by_tile(float (&acc)[D / 2], const uin
 // sequence positions, heads fastest: for K and V a box of 1 head x 64 keys,
 // for Q and dO a folded q-block (rep heads x block_q queries, query-major
 // as the kernels fold them).  A box never crosses from one batch into the
-// next, and positions past S land as zeros.  The encoder is looked up
+// next, and positions past S land as zeros.  The KV page pool [NP, page,
+// Hkv, D] is the same shape with pages for batches: a box of 1 head x
+// min(page, 64) keys of one page (a box wholly past the last page lands as
+// zeros).  The encoder is looked up
 // through the CUDA runtime, so the library links nothing beyond cudart.
 inline cudaError_t make_panel_tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
                                          int d, int heads, int rows) {

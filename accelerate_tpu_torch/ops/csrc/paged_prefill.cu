@@ -11,9 +11,9 @@
 // KV head fold into rows query-major (row r: query qb * block_q + r / rep,
 // head h * rep + r % rep), so one q-block covers one contiguous query span
 // and its page walk can stop at that span's causal frontier,
-// p * page <= lengths[n] + last query of the block (:507).  QK^T and PV run
-// in f32 from the page dtype with q scaled by D^-0.5 before the product
-// (:514); masked logits take DEFAULT_MASK_VALUE; online softmax in f32.
+// p * page <= lengths[n] + last query of the block (:507).  Masked logits
+// take DEFAULT_MASK_VALUE; the online softmax keeps its running max,
+// denominator and accumulator in f32.
 //
 // What bounds it on an H100.  A chunk of S queries over L prior keys does
 // 4 * D * Hq * (S * L + S * (S + 1) / 2) flops and moves the chunk's q/out
@@ -23,15 +23,48 @@
 // thousands of prior keys the flops dominate.  The bound reported beside
 // the kernel's time is the larger of the two.
 //
-// What the design does about it.  One CTA per (lane, kv-head, q-block of up
-// to 64 folded rows): each K/V page tile is loaded into shared memory once
-// per q-block and reused by all 64 rows, the walk skips pages past the
-// block's causal frontier, and dead table slots are never read.  Logits and
-// PV are register-tiled on the CUDA cores (8 rows per thread sharing one K
-// row or one V column group).  This first version leaves the tensor cores
-// idle: wgmma on bf16 tiles, TMA loads and a pipelined page ring are the
-// work of a later change, and its time beside the bound says how much that
-// is worth.
+// Two arms, chosen by the caller from the dtypes and the page size before
+// the launch (accelerate_tpu_torch/ops/paged_attention.py prefill_design;
+// the entry point refuses a tensor-core launch it cannot run).  Both give
+// each (lane, kv-head, q-block of up to 64 folded rows) one walk over the
+// keys up to the block's causal frontier: pages past it are never read, and
+// each K/V tile serves all the block's rows (every head of the GQA group).
+//
+// bf16 q and pages, a page of 8, 16 or 32 keys or a multiple of 64
+// (paged_prefill_wgmma_kernel): the tensor cores, K3's design
+// (flash_fwd.cu, flash_wgmma.cuh) over the page pool.  One consumer
+// warpgroup owns the q-block (wgmma's M) and one producer warp feeds it by
+// TMA: the folded q-block is one box per 64-column panel of the [N, S, Hq,
+// D] tensor (zeros past the chunk), and the K/V tiles of 64 keys stream
+// through a ring of two stages straight from the pages, read through the
+// block table by the producer.  The pool [NP, page, Hkv, D] is a 4D tensor
+// like a BSHD one, so a tile is one box of 64 keys of one page (page >= 64)
+// or 64 / page boxes of whole pages (page < 64), each landing at its rows
+// of the swizzled tile (a box of 8 rows or more keeps the swizzle's
+// 1024-byte period).  A table slot whose page lies past the frontier is
+// never read: its box is aimed past the pool's last page, so TMA lands
+// zeros there, never a stale or NaN page; its keys are masked anyway, and
+// zero K and V keep them finite through the products.  The producer's
+// lanes also stage each key's page scales beside the tile.  S = Q.K^T is a
+// wgmma from shared memory, times scale and the key's k-scale after the
+// product (the TPU kernel scales q first, :514; the two agree up to
+// rounding, and a negative scale is exact either way); the online softmax
+// runs on the accumulator in registers, masked keys taking
+// DEFAULT_MASK_VALUE; P, times the key's v-scale and rounded to bf16 in
+// registers (the TPU kernel keeps P in f32, :538; l sums the unrounded p),
+// is the A operand of O += P.V with V read MN-major.  Operands are bf16
+// with f32 accumulation; the output is O / l with l == 0 taken as 1.  One
+// q-block per CTA and two CTAs per SM (82 KB of shared memory each at
+// D 128): a 128-token chunk of 32 heads is only 64 q-blocks, and two
+// q-blocks per CTA would leave most of the 132 SMs idle.
+//
+// Every other call (f32 or mixed dtypes, other page sizes:
+// paged_prefill_kernel): the CUDA cores, in f32 from the page dtype with q
+// scaled by D^-0.5 before the product (:514), as the TPU kernel computes.
+// Each page tile is loaded into f32 shared memory once per q-block; logits
+// and PV are register-tiled (8 rows per thread sharing one K row or one V
+// column group).
+#include "flash_wgmma.cuh"
 #include "paged_common.cuh"
 
 namespace atpu {
@@ -220,18 +253,274 @@ int launch_prefill(const void* q, const void* pages_k, const void* pages_v,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kPrefillKeys = 64;     // keys of a K/V tile of the tensor-core arm
+constexpr int kPrefillStages = 2;    // K/V stages in the ring
+// one consumer warpgroup, then one producer warp that issues the TMA loads
+constexpr int kPrefillTcThreads = kWarpgroup + 32;
+
+// Page sizes whose 64-key tiles the tensor-core arm reads as whole boxes.
+inline bool prefill_wgmma_page_ok(int page) {
+  return page % kPrefillKeys == 0 || page == 8 || page == 16 || page == 32;
+}
+
+// Shared memory of the tensor-core arm: the Q tile, the K/V stages, each
+// stage's per-key k- and v-scales, the ring's full/empty barriers and the Q
+// barrier, after a pad that lets the kernel align its tiles to the
+// swizzle's 1024 bytes.
+template <int D> constexpr size_t prefill_wgmma_smem() {
+  return kSwizzleAlign + (1 + 2 * kPrefillStages) * (size_t)tile_bytes<D>() +
+         kPrefillStages * 2 * kPrefillKeys * sizeof(float) +
+         (2 * kPrefillStages + 1) * sizeof(uint64_t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kPrefillTcThreads, 2)
+paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+                           const int* __restrict__ tables, const int* __restrict__ lengths,
+                           __nv_bfloat16* __restrict__ out, int s_len, int hq, int hkv, int page,
+                           int num_pages, int num_p, int block_q, float scale) {
+  constexpr int TB = tile_bytes<D>();
+  constexpr int NK = kPrefillKeys;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int qb = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
+  const int rep = hq / hkv, rows = block_q * rep, q0 = qb * block_q;
+  const int tid = threadIdx.x;
+
+  extern __shared__ unsigned char prefill_tc_smem[];
+  const uint32_t smem0 = smem_u32(prefill_tc_smem);
+  const uint32_t base = (smem0 + kSwizzleAlign - 1) & ~(kSwizzleAlign - 1u);
+  const uint32_t q_s = base;
+  auto k_s = [&](int st) { return base + TB * (1 + 2 * st); };
+  auto v_s = [&](int st) { return base + TB * (2 + 2 * st); };
+  // per stage: the k-scale of each of the tile's keys, then the v-scale
+  float* scales = reinterpret_cast<float*>(prefill_tc_smem + (base - smem0) +
+                                           TB * (1 + 2 * kPrefillStages));
+  auto ks_s = [&](int st) { return scales + st * 2 * NK; };
+  auto vs_s = [&](int st) { return scales + st * 2 * NK + NK; };
+  const uint32_t full0 = base + TB * (1 + 2 * kPrefillStages) +
+                         kPrefillStages * 2 * NK * sizeof(float);
+  auto full = [&](int st) { return full0 + 8 * st; };    // a stage's K/V and scales landed
+  auto empty = [&](int st) { return full0 + 8 * (kPrefillStages + st); };  // the stage was read
+  const uint32_t q_full = full0 + 8 * 2 * kPrefillStages;                   // Q landed
+
+  const int length = lengths[n];
+  // the last key any row of this block sees; tiles of keys 0 .. frontier
+  const int frontier = length + min(q0 + block_q, s_len) - 1;
+  const int n_kt = frontier / NK + 1;
+  // a page is read iff its slot exists and its first key is visible to some row
+  auto live = [&](int p) { return p < num_p && p * page <= frontier; };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kPrefillStages; ++st) {
+      mbar_init(full(st), 1 + 32);  // the producer's expect_tx, then each lane's scales
+      mbar_init(empty(st), 1);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();  // the last CTA-wide barrier: the roles part here
+
+  if (tid >= kWarpgroup) {
+    // producer warp: lane 0 loads Q once, then every lane keeps up to
+    // kPrefillStages K/V tiles in flight (lane 0 the TMA boxes, each lane
+    // the scales of two keys)
+    const int lane = tid - kWarpgroup;
+    const int box_keys = min(page, NK);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, (D / kPanelCols) * rows * 128);
+#pragma unroll
+      for (int p = 0; p < D / kPanelCols; ++p)
+        tma_load_4d(q_s + p * kPanelBytes, &tm_q, q_full, p * kPanelCols, h * rep, q0, n);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % kPrefillStages, round = kt / kPrefillStages;
+      if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full(st), 2 * TB);
+        for (int i = 0; i < NK / box_keys; ++i) {
+          const int key0 = kt * NK + i * box_keys, p = key0 / page;
+          // past the frontier (or the table): a box past the last page, zeros
+          const int pid = live(p) ? tables[n * num_p + p] : num_pages;
+#pragma unroll
+          for (int c = 0; c < D / kPanelCols; ++c) {
+            const uint32_t dst = c * kPanelBytes + i * box_keys * 128;
+            tma_load_4d(k_s(st) + dst, &tm_k, full(st), c * kPanelCols, h, key0 % page, pid);
+            tma_load_4d(v_s(st) + dst, &tm_v, full(st), c * kPanelCols, h, key0 % page, pid);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = lane; j < NK; j += 32) {
+        const int p = (kt * NK + j) / page;
+        const bool on = live(p);
+        const long long at = on ? (long long)tables[n * num_p + p] * hkv + h : 0;
+        // a dead slot's keys are masked: scales of one keep 0 * scale finite
+        ks_s(st)[j] = on ? k_scales[at] : 1.f;
+        vs_s(st)[j] = on ? v_scales[at] : 1.f;
+      }
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // consumer warpgroup: rows 16 w + g + 8 e (e = 0, 1) of the q-block
+  const int w = tid / 32, g = (tid % 32) / 4, c2 = 2 * (tid % 4);
+  int last[2];  // the last key row e sees
+  float m[2], l[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 16 * w + g + 8 * e;
+    last[e] = length + min(q0 + r / rep, s_len - 1);
+    m[e] = -INFINITY;
+    l[e] = 0.f;
+  }
+  float o[D / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kPrefillStages, k0 = kt * NK;
+    mbar_wait(full(st), (kt / kPrefillStages) & 1);
+    wgmma_fence();
+    mma_rows_by_rows<D>(s, q_s, k_s(st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // s[4i + 2e + j] is (row 16 w + g + 8 e, key k0 + 8 i + c2 + j); a key
+    // past a row's position is masked (only a tile past the block's first
+    // query can hold one)
+    const bool masked = k0 + NK - 1 > length + q0;
+    const float* ks = ks_s(st);
+    const float* vs = vs_s(st);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kl = 8 * i + c2 + j;
+        const float ksc = ks[kl] * scale;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[4 * i + 2 * e + j] * ksc;
+          if (masked && k0 + kl > last[e]) x = kMaskValue;
+          s[4 * i + 2 * e + j] = x;
+          mx[e] = fmaxf(mx[e], x);
+        }
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      const float m_next = fmaxf(m[e], mx[e]);
+      alpha[e] = ex2_approx((m[e] - m_next) * kLog2e);
+      m[e] = m_next;
+    }
+    uint32_t pk[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int e = i % 2;                   // registers 2i, 2i + 1 share row 16 w + g + 8 e
+      const int kl = 8 * (i / 2) + c2;       // ... and keys kl, kl + 1
+      const float p0 = ex2_approx((s[2 * i] - m[e]) * kLog2e);
+      const float p1 = ex2_approx((s[2 * i + 1] - m[e]) * kLog2e);
+      sum[e] += p0 + p1;
+      pk[i] = pack_bf16(p0 * vs[kl], p1 * vs[kl + 1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 1);
+      sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 2);
+      l[e] = alpha[e] * l[e] + sum[e];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+    wgmma_fence();
+    mma_probs_by_tile<D>(o, pk, v_s(st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    // the warpgroup's products (and its reads of the scales, which fed
+    // them) that used stage st are complete
+    if (tid == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = 16 * w + g + 8 * e, qi = q0 + r / rep;
+    if (r >= rows || qi >= s_len) continue;
+    const float inv = 1.f / (l[e] == 0.f ? 1.f : l[e]);
+    __nv_bfloat16* o_row = out + ((size_t)(n * s_len + qi) * hq + h * rep + r % rep) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * i + c2) =
+          __floats2bfloat162_rn(o[4 * i + 2 * e] * inv, o[4 * i + 2 * e + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v,
+                         const float* k_scales, const float* v_scales, const int* tables,
+                         const int* lengths, void* out, int n, int s, int hq, int hkv, int page,
+                         int num_pages, int num_p, float scale, cudaStream_t stream) {
+  const int rep = hq / hkv;
+  int block_q = kPrefillRows / rep;
+  if (block_q > s) block_q = s;
+  CUtensorMap tm_q, tm_k, tm_v;
+  const int box_keys = page < kPrefillKeys ? page : kPrefillKeys;
+  cudaError_t err = make_panel_tensor_map(&tm_q, q, n, s, hq, D, rep, block_q);
+  if (err == cudaSuccess)
+    err = make_panel_tensor_map(&tm_k, pages_k, num_pages, page, hkv, D, 1, box_keys);
+  if (err == cudaSuccess)
+    err = make_panel_tensor_map(&tm_v, pages_v, num_pages, page, hkv, D, 1, box_keys);
+  const size_t smem = prefill_wgmma_smem<D>();
+  auto kernel = paged_prefill_wgmma_kernel<D>;
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qb = (s + block_q - 1) / block_q;
+  kernel<<<dim3(n_qb, hkv, n), kPrefillTcThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, k_scales, v_scales, tables, lengths, static_cast<__nv_bfloat16*>(out), s,
+      hq, hkv, page, num_pages, num_p, block_q, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace atpu
 
 #define ATPU_LAUNCH_PREFILL(QT, KT, D)                                                  \
   atpu::launch_prefill<QT, KT, D>(q, pages_k, pages_v, k_scales, v_scales, tables,      \
                                   lengths, out, n, s, hq, hkv, page, num_p, scale,       \
                                   static_cast<cudaStream_t>(stream))
+#define ATPU_LAUNCH_PREFILL_WGMMA(D)                                                     \
+  atpu::launch_prefill_wgmma<D>(q, pages_k, pages_v, k_scales, v_scales, tables, lengths, \
+                                out, n, s, hq, hkv, page, num_pages, num_p, scale,        \
+                                static_cast<cudaStream_t>(stream))
 
+// tensor_cores = 1 asks for the tensor-core arm, which takes bf16 q and
+// pages, D 64 or 128, a group of at most 64 heads and a page that
+// prefill_wgmma_page_ok accepts; the entry point refuses anything else
+// rather than run another arm.
 extern "C" int atpu_paged_prefill(const void* q, const void* pages_k, const void* pages_v,
                                   const float* k_scales, const float* v_scales,
                                   const int* tables, const int* lengths, void* out, int n,
-                                  int s, int hq, int hkv, int d, int page, int num_p,
-                                  int q_bf16, int kv_bf16, float scale, void* stream) {
+                                  int s, int hq, int hkv, int d, int page, int num_pages,
+                                  int num_p, int q_bf16, int kv_bf16, int tensor_cores,
+                                  float scale, void* stream) {
+  if (tensor_cores) {
+    if (!q_bf16 || !kv_bf16 || !atpu::prefill_wgmma_page_ok(page) || hq % hkv != 0 ||
+        hq / hkv > atpu::kPrefillRows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (d == 128) return ATPU_LAUNCH_PREFILL_WGMMA(128);
+    if (d == 64) return ATPU_LAUNCH_PREFILL_WGMMA(64);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ATPU_DISPATCH(q_bf16, kv_bf16, d, ATPU_LAUNCH_PREFILL);
 }
 

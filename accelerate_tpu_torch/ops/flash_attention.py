@@ -12,10 +12,10 @@ hand-written kernels:
 * :func:`flash_dkv` — K5, ``csrc/flash_bwd.cu``: dK and dV, accumulated
   unexpanded over the GQA group.
 
-The C entry points pick the arm by dtype: bf16 K3 and K5 run on the tensor
-cores (``wgmma`` on swizzled bf16 tiles fed by TMA, ``csrc/flash_wgmma.cuh``);
-K4, and K3 and K5 on f32 inputs, run on the CUDA cores, so that f32 keeps
-f32 products.
+The C entry points pick the arm by dtype: bf16 K3, K4 and K5 run on the
+tensor cores (``wgmma`` on swizzled bf16 tiles fed by TMA,
+``csrc/flash_wgmma.cuh``); f32 inputs run on the CUDA cores, so that f32
+keeps f32 products.
 
 Each wrapper takes its plain PyTorch version (:func:`flash_attention_reference`,
 :func:`flash_dq_reference`, :func:`flash_dkv_reference`) for a tensor on the

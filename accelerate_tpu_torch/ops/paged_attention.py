@@ -7,7 +7,8 @@ through per-lane block tables; attention reads those pages in place.
 * :func:`paged_attention` — decode (and short verify spans): launches the
   hand-written kernel ``csrc/paged_attention.cu`` (K1) on a CUDA tensor.
 * :func:`paged_flash_prefill` — a prefill chunk's causal flash attention over
-  the same pages: launches ``csrc/paged_prefill.cu`` (K2).
+  the same pages: launches ``csrc/paged_prefill.cu`` (K2), on the tensor
+  cores for bf16 where :func:`prefill_design` allows it.
 * :func:`paged_attention_reference` / :func:`paged_flash_prefill_reference` —
   the plain PyTorch versions: a live-masked page gather feeding
   :func:`~accelerate_tpu_torch.models.transformer.cached_attention`.  A CPU
@@ -123,10 +124,27 @@ def paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
 
 
 # -------------------------------------------------------------------- kernels
-def _launch(what: str, library: str, entry: str, q, pages_k, pages_v, tables,
-            lengths, k_scales, v_scales) -> torch.Tensor:
-    """Validate the operands, launch one kernel on the current stream, raise
-    on a non-zero ``cudaGetLastError``.  Returns the ``[N, S, Hq, D]`` output."""
+#: page sizes whose 64-key tiles K2's tensor-core arm reads as whole TMA boxes:
+#: one box of 64 keys of a page of 64 or more, or 64 / page whole pages of a
+#: smaller page (a box of at least 8 rows keeps the swizzle's period); the
+#: other sizes keep the CUDA-core arm
+_PREFILL_TC_SMALL_PAGES = (8, 16, 32)
+
+
+def prefill_design(q_dtype: torch.dtype, page_dtype: torch.dtype, page: int) -> str:
+    """The arm of K2 a call takes, from its dtypes and page size alone:
+    ``"wgmma"`` (the tensor cores) for bf16 q and pages with a page of 8, 16
+    or 32 keys or a multiple of 64, ``"cuda-cores"`` otherwise (f32 or mixed
+    dtypes keep f32 products; other pages do not tile into 64-key boxes)."""
+    if q_dtype == page_dtype == torch.bfloat16 and (
+            page % 64 == 0 or page in _PREFILL_TC_SMALL_PAGES):
+        return "wgmma"
+    return "cuda-cores"
+
+
+def _operands(what: str, q, pages_k, pages_v, tables, lengths, k_scales, v_scales):
+    """Validate a paged kernel's operands; return the ``(k_scales, v_scales)``
+    to launch with (ones for native pages, so both kernels take scales)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, got {q.device}")
     n, s, hq, d = q.shape
@@ -164,17 +182,11 @@ def _launch(what: str, library: str, entry: str, q, pages_k, pages_v, tables,
     for name, t in (("q", q), ("pages_k", pages_k), ("pages_v", pages_v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    out = torch.empty_like(q)
-    _build.launch(
-        library, entry, what,
-        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-        k_scales.data_ptr(), v_scales.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
-        n, s, hq, hkv, d, page, tables.shape[1],
-        int(q.dtype == torch.bfloat16), int(pages_k.dtype == torch.bfloat16),
-        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    return out
+    return k_scales, v_scales
+
+
+def _bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
 
 
 def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
@@ -191,8 +203,18 @@ def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
     if q.device.type == "cpu":
         return paged_attention_reference(q, pages_k, pages_v, tables, lengths,
                                          k_scales=k_scales, v_scales=v_scales)
-    out = _launch("paged_attention", "paged_attention", "atpu_paged_decode", q,
-                  pages_k, pages_v, tables, lengths, k_scales, v_scales)
+    k_scales, v_scales = _operands("paged_attention", q, pages_k, pages_v, tables, lengths,
+                                   k_scales, v_scales)
+    n, s, hq, d = q.shape
+    _, page, hkv, _ = pages_k.shape
+    out = torch.empty_like(q)
+    _build.launch(
+        "paged_attention", "atpu_paged_decode", "paged_attention",
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        n, s, hq, hkv, d, page, tables.shape[1], _bf16(q), _bf16(pages_k),
+        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+    )
     paged_attention.launches += 1
     return out
 
@@ -206,12 +228,26 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
     over prior pages and the in-chunk triangle are one page walk, cut per
     q-block at its causal frontier.  A CPU ``q`` takes
     :func:`paged_flash_prefill_reference`; a CUDA ``q`` launches
-    ``csrc/paged_prefill.cu`` or raises."""
+    ``csrc/paged_prefill.cu`` or raises: on the tensor cores where
+    :func:`prefill_design` says ``"wgmma"`` (bf16 q and pages, a page of 8,
+    16 or 32 keys or a multiple of 64; bf16 operands with f32 sums, the
+    probabilities rounded to bf16 before P.V), else on the CUDA cores in f32."""
     if q.device.type == "cpu":
         return paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
                                              k_scales=k_scales, v_scales=v_scales)
-    out = _launch("paged_flash_prefill", "paged_prefill", "atpu_paged_prefill", q,
-                  pages_k, pages_v, tables, lengths, k_scales, v_scales)
+    k_scales, v_scales = _operands("paged_flash_prefill", q, pages_k, pages_v, tables,
+                                   lengths, k_scales, v_scales)
+    n, s, hq, d = q.shape
+    num_pages, page, hkv, _ = pages_k.shape
+    tensor_cores = int(prefill_design(q.dtype, pages_k.dtype, page) == "wgmma")
+    out = torch.empty_like(q)
+    _build.launch(
+        "paged_prefill", "atpu_paged_prefill", "paged_flash_prefill",
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        n, s, hq, hkv, d, page, num_pages, tables.shape[1], _bf16(q), _bf16(pages_k),
+        tensor_cores, float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+    )
     paged_flash_prefill.launches += 1
     return out
 

@@ -7,8 +7,11 @@ Builds the Llama-2-7B geometry (bf16, random weights from a seed), serves the
 cuBLAS handles), then serves it again twice: once plain, for the wall times
 and engine phase seconds, and once under ``torch.profiler`` for the device
 time by kernel.  Prints one JSON object: wall seconds, device busy share,
-CUDA kernel launches per decode step and per prefill chunk, and the top
-device-time entries.  Needs a CUDA card.
+CUDA kernel launches per decode step and per prefill chunk, the top
+device-time entries, and for the two paged kernels (K1 decode, K2 prefill)
+their launches, device ms per launch and mean bound per launch at the
+engine's own shapes (each call's lengths and widths, recorded during the
+warm-up serve, through :func:`paged_bound_ms`).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from .models import transformer
 from .models.generation import GenerationConfig
 from .models.transformer import Transformer, TransformerConfig
 from .serving import ServingEngine
@@ -27,6 +31,24 @@ from .weights import init_params
 
 PROMPT_LENS = (57, 100, 384, 700, 1000, 1500)
 TOP = 15  # device-time entries printed
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per dtype
+#: the paged kernels' wrappers as the transformer calls them -> a fragment of
+#: their device entries' names
+PAGED_KERNELS = {"paged_attention": "paged_decode", "paged_flash_prefill": "paged_prefill"}
+
+
+def paged_bound_ms(lengths, s, hq, hkv, d, dtype) -> tuple:
+    """Least time for one paged attention call (K1 or K2): each visible K/V
+    byte, q and out moved once, against 4 * D flops per visible (query head,
+    key) pair.  Returns ``(ms, "bytes" or "operations")``."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    keys = sum(length + s for length in lengths)
+    pairs = sum(length * s + s * (s + 1) // 2 for length in lengths)
+    nbytes = 2 * keys * hkv * d * elem + 2 * len(lengths) * s * hq * d * elem
+    flops = 4 * d * hq * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _serve(model, prompts):
@@ -39,7 +61,26 @@ def _serve(model, prompts):
     return engine, time.perf_counter() - t0
 
 
-def _device_us(evt) -> float:
+def _recording_bounds(bounds):
+    """Wrap the transformer's two paged kernels so that every call appends
+    its :func:`paged_bound_ms` to ``bounds[name]``; returns an undo.  Reading
+    each call's lengths syncs the card, so only an untimed serve records."""
+    saved = {name: getattr(transformer, name) for name in PAGED_KERNELS}
+
+    def recorder(name, fn):
+        def call(q, pages_k, pages_v, tables, lengths, **kw):
+            _, s, hq, d = q.shape
+            bounds[name].append(paged_bound_ms(lengths.tolist(), s, hq, pages_k.shape[2], d,
+                                               pages_k.dtype))
+            return fn(q, pages_k, pages_v, tables, lengths, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(transformer, name, recorder(name, fn))
+    return lambda: [setattr(transformer, name, fn) for name, fn in saved.items()]
+
+
+def device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", 0.0)
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
@@ -54,7 +95,12 @@ def main() -> int:
                           assign=True)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
-    _serve(model, prompts)                           # warm-up
+    bounds = {name: [] for name in PAGED_KERNELS}
+    undo = _recording_bounds(bounds)
+    try:
+        _serve(model, prompts)                       # warm-up, recording each call's bound
+    finally:
+        undo()
     engine, wall = _serve(model, prompts)
     stats = dict(engine.stats)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -63,10 +109,22 @@ def main() -> int:
     # device-side entries only (kernels, memcpy/memset): the host ops that
     # launched them carry the same time as children
     evts = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
-    device_us = sum(_device_us(e) for e in evts)
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in evts)
     launches = sum(e.count for e in evts)
-    top = sorted(evts, key=_device_us, reverse=True)[:TOP]
+    top = sorted(evts, key=device_us, reverse=True)[:TOP]
+    paged = {}
+    for name, fragment in PAGED_KERNELS.items():
+        mine = [e for e in evts if fragment in e.key]
+        count = sum(e.count for e in mine)
+        paged[name] = {
+            "device_entries": sorted({e.key[:80] for e in mine}),
+            "launches": count,
+            "ms_per_launch": sum(device_us(e) for e in mine) / 1e3 / max(count, 1),
+            "recorded_calls": len(bounds[name]),
+            "bound_ms_per_launch": float(np.mean([ms for ms, _ in bounds[name]])),
+            "bytes_bound_share": float(np.mean([by == "bytes" for _, by in bounds[name]])),
+        }
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
@@ -76,14 +134,15 @@ def main() -> int:
         "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
         "prefill_ms_per_chunk": 1e3 * stats["prefill_s"] / stats["prefill_chunks"],
         "profiled_wall_s": p_wall,
-        "device_busy_s": device_us / 1e6,
-        "device_busy_share_of_profiled_wall": device_us / 1e6 / p_wall,
+        "device_busy_s": busy_us / 1e6,
+        "device_busy_share_of_profiled_wall": busy_us / 1e6 / p_wall,
         "device_entries_per_engine_run": launches,
         "device_entries_per_layer_step": launches / (
             cfg.num_layers * (p_engine.stats["decode_steps"] + p_engine.stats["prefill_chunks"])),
+        "paged_kernels": paged,
         "top_device_time": [
-            {"name": e.key[:80], "count": e.count, "device_ms": _device_us(e) / 1e3,
-             "share": _device_us(e) / device_us}
+            {"name": e.key[:80], "count": e.count, "device_ms": device_us(e) / 1e3,
+             "share": device_us(e) / busy_us}
             for e in top
         ],
     }))

@@ -24,7 +24,7 @@ import torch
 
 from .accelerator import Accelerator
 from .models.transformer import Transformer, TransformerConfig, lm_loss_fn
-from .profile_engine import _device_us
+from .profile_engine import device_us
 from .weights import init_params
 
 LAYERS, ROWS, SEQ = 8, 2, 2048
@@ -82,14 +82,14 @@ def main() -> int:
     # launched them carry the same time as children, and so does the device
     # span of a user annotation (``Optimizer.step#AdamW.step``)
     evts = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
             and not e.is_user_annotation]
-    device_us = sum(_device_us(e) for e in evts)
+    busy_us = sum(device_us(e) for e in evts)
     by_class = {}
     for e in evts:
         label = _class(e.key)
-        by_class[label] = by_class.get(label, 0.0) + _device_us(e)
-    top = sorted(evts, key=_device_us, reverse=True)[:TOP]
+        by_class[label] = by_class.get(label, 0.0) + device_us(e)
+    top = sorted(evts, key=device_us, reverse=True)[:TOP]
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
@@ -97,16 +97,16 @@ def main() -> int:
         "layers": LAYERS, "tokens_per_micro_step": ROWS * SEQ, "micro_steps": MICRO_STEPS,
         "ms_per_micro_step": 1e3 * wall / MICRO_STEPS,
         "profiled_ms_per_micro_step": 1e3 * p_wall / MICRO_STEPS,
-        "device_ms_per_micro_step": device_us / 1e3 / MICRO_STEPS,
-        "device_busy_share_of_profiled_wall": device_us / 1e6 / p_wall,
-        "device_busy_share_of_plain_wall": device_us / 1e6 / wall,
+        "device_ms_per_micro_step": busy_us / 1e3 / MICRO_STEPS,
+        "device_busy_share_of_profiled_wall": busy_us / 1e6 / p_wall,
+        "device_busy_share_of_plain_wall": busy_us / 1e6 / wall,
         "device_entries_per_micro_step": sum(e.count for e in evts) / MICRO_STEPS,
         "device_ms_per_micro_step_by_class": {k: v / 1e3 / MICRO_STEPS
                                               for k, v in sorted(by_class.items())},
-        "device_share_by_class": {k: v / device_us for k, v in sorted(by_class.items())},
+        "device_share_by_class": {k: v / busy_us for k, v in sorted(by_class.items())},
         "top_device_time": [
-            {"name": e.key[:80], "count": e.count, "device_ms": _device_us(e) / 1e3,
-             "share": _device_us(e) / device_us}
+            {"name": e.key[:80], "count": e.count, "device_ms": device_us(e) / 1e3,
+             "share": device_us(e) / busy_us}
             for e in top
         ],
     }))

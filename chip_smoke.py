@@ -9,8 +9,16 @@ Phases, each printing one JSON line:
 2. ``k1``      — the paged decode kernel against its plain version at the
    serving path's shapes (Llama-2-7B widths) and at a GQA shape, bf16 and f32
    pages: max abs error against the stated tolerance, kernel/plain/bound ms.
+   A kernel's ``ms`` is its device time per launch under ``torch.profiler``
+   (``wall_ms``, CUDA events around the wrapper's calls, also counts the
+   host, which a short kernel does not hide); plain ms are event times.
 3. ``k2``      — the paged prefill kernel the same, for a 512-token chunk at
-   base 0 and a 128-token chunk at base 640.
+   base 0 and a 128-token chunk at base 640 (page 128, the engine's), a
+   512-token chunk at page 64 and a 128-token chunk at base 600 at page 16
+   (its last tiles straddle the causal frontier and NaN-filled dead pages).
+   Each record names its ``design`` (``wgmma`` for bf16 q and pages,
+   ``cuda-cores`` for f32); the bf16 records are also held per tile of 64
+   positions of one head against the plain version computed in f32.
 4. ``model``   — the full-width, full-depth Llama-2-7B geometry (random
    weights from a seed): a 512-token prompt prefilled as one paged chunk,
    then 8 decode steps through ``PagedKVCache``, each step's logits held
@@ -25,19 +33,22 @@ Phases, each printing one JSON line:
    and must give the same bits.  Each line: max abs error beside its
    tolerance, the largest relative error of a tile of 64 positions of one
    head beside its own tolerance, kernel, plain, bound and library
-   (``scaled_dot_product_attention``) ms, the case's launches, and the
-   kernel's ``design`` (``wgmma`` for the bf16 arms of K3 and K5,
-   ``cuda-cores`` for K4 and the f32 arms).  The device line names every
-   kernel whose build spills registers; a tensor-core kernel that spills
-   fails the run.
+   (``scaled_dot_product_attention``, device time of all its kernels per
+   call) ms, the case's launches, and the kernel's ``design`` (``wgmma`` for
+   the bf16 arms, ``cuda-cores`` for the f32 arms).  The device line names
+   every kernel whose build spills registers; a tensor-core kernel that
+   spills fails the run.
 7. ``train``   — the serving model freed, ``TransformerConfig.llama2_7b`` at
    full width and 8 of its 32 layers (f32 masters, bf16 compute, the flash
    path) trains through ``Accelerator(mixed_precision="bf16",
    gradient_accumulation_steps=2)``: AdamW with the Llama-2 recipe, 8
    micro-steps of 2 x 2048 tokens = 4 optimizer steps, the flash launch
-   counters zeroed just before and read just after.  Before that, one
-   micro-step of one sequence is held against the ``attention_impl="xla"``
-   path, with an f32 run of the same weights as the yardstick of bf16 noise.
+   counters zeroed just before and read just after; ``step_ms`` is a
+   micro-step's share of an optimizer step (accumulate + apply), the median
+   over the optimizer steps after the first, beside the plain mean
+   ``step_ms_mean``.  Before that, one micro-step of one sequence is held
+   against the ``attention_impl="xla"`` path, with an f32 run of the same
+   weights as the yardstick of bf16 noise.
 8. the ``kernels`` line, the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -59,8 +70,13 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per dtype
+from accelerate_tpu_torch.profile_engine import (
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    device_us,
+    paged_bound_ms,
+)
+
 TOL = {  # kernel vs plain version, per page dtype
     "k1": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
     "k2": {torch.float32: 1e-4, torch.bfloat16: 3e-2},
@@ -132,6 +148,38 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
+    """Device time per call of ``fn`` under ``torch.profiler``: with
+    ``fragment``, the mean time of the kernels whose name holds it, per
+    launch; else all the kernels of ``iters`` calls, summed, per call.
+    Unlike :func:`time_ms` it leaves out the host, whose time per call (the
+    wrapper's checks, the tensor maps) exceeds a short kernel's own.  The
+    profiler traces a warm-up cycle of one call before the measured one."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+        for n in (1, iters):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's own step annotation also carries the step's device
+    # time: leave it out, or a sum over all kernels counts them twice
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+            and not e.key.startswith("ProfilerStep")
+            and (fragment is None or fragment in e.key)]
+    total_ms = sum(device_us(e) for e in evts) / 1e3
+    if fragment is None:
+        return total_ms / iters
+    seen = sum(e.count for e in evts)
+    check(seen > 0, f"the profiler saw no launch of {fragment}")
+    return total_ms / seen
+
+
 def spilling_kernels(logs) -> dict:
     """Mangled kernel name -> its ``ptxas -v`` spill line, for each kernel of
     the build that spills registers to local memory."""
@@ -174,25 +222,18 @@ def paged_case(seed, lengths, s, hq, hkv, d, page, ppl, dtype):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def bound_ms(lengths, s, hq, hkv, d, dtype) -> tuple:
-    """Least time for the call: each visible K/V byte, q and out moved once,
-    against 4 * D flops per visible (query head, key) pair."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    keys = sum(length + s for length in lengths)
-    pairs = sum(length * s + s * (s + 1) // 2 for length in lengths)
-    nbytes = 2 * keys * hkv * d * elem + 2 * len(lengths) * s * hq * d * elem
-    flops = 4 * d * hq * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def kernel_phase(name, kernel, plain, cases):
+def kernel_phase(name, kernel, plain, fragment, cases, design=None):
     """Hold ``kernel`` against ``plain`` on every case; returns the first
     (main-path) case's record.  ``launches`` counts the kernel's launches in
-    the case (one checked call, then the timing loop)."""
+    the case (one checked call, then the timing loops); ``ms`` is its device
+    time per launch (device entries named with ``fragment``), ``wall_ms``
+    the CUDA-event time per call of the wrapper.  ``design(dtype,
+    page)`` names the kernel's arm; where given (K2), a bf16 case is also
+    held per tile of 64 positions of one head against the plain version
+    computed in f32 from the same bf16 inputs (``FLASH_TILE_TOL``)."""
     records = []
-    for label, seed, lengths, s, hq, hkv, dtype in cases:
-        args = paged_case(seed, lengths, s, hq, hkv, 128, 128, 16, dtype)
+    for label, seed, lengths, s, hq, hkv, dtype, page in cases:
+        args = paged_case(seed, lengths, s, hq, hkv, 128, page, 2048 // page, dtype)
         launches0 = kernel.launches
         out = kernel(*args)
         ref = plain(*args)
@@ -201,17 +242,29 @@ def kernel_phase(name, kernel, plain, cases):
         tol = TOL[name][dtype]
         check(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output "
               "(a dead or stale page was read)")
-        bms, by = bound_ms(lengths, s, hq, hkv, 128, dtype)
+        bms, by = paged_bound_ms(lengths, s, hq, hkv, 128, dtype)
         rec = dict(
             case=label, dtype=str(dtype).replace("torch.", ""), lengths=lengths, s=s,
-            hq=hq, hkv=hkv, max_abs_err=err, tolerance=tol,
-            ms=time_ms(lambda: kernel(*args), 20),
+            hq=hq, hkv=hkv, page=page, max_abs_err=err, tolerance=tol,
+        )
+        tile_err = None
+        if design is not None:
+            rec["design"] = design(dtype, page)
+            if dtype == torch.bfloat16:
+                q, pages_k, pages_v = (t.float() for t in args[:3])
+                tile_err = tile_rel_err(out, plain(q, pages_k, pages_v, *args[3:]))
+                rec.update(tile_rel_err_vs_f32=tile_err, tile_tolerance=FLASH_TILE_TOL[dtype])
+        rec.update(
+            ms=device_ms(lambda: kernel(*args), 20, fragment),
+            wall_ms=time_ms(lambda: kernel(*args), 20),
             plain_ms=time_ms(lambda: plain(*args), 5),
             bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
         )
         rec["launches"] = kernel.launches - launches0
         emit({"phase": name, **rec})
         check(err <= tol, f"{name} {label}: max abs err {err} > tolerance {tol}")
+        check(tile_err is None or tile_err <= FLASH_TILE_TOL[dtype],
+              f"{name} {label}: tile relative err {tile_err} > {FLASH_TILE_TOL[dtype]}")
         records.append(rec)
     return records[0]
 
@@ -374,21 +427,21 @@ def flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_ms(q, k, v, dout, causal, backward) -> float:
+def library_call(q, k, v, dout, causal, backward):
     """``scaled_dot_product_attention`` on the same values in its own
-    contiguous BHSD layout: its forward computes K3's function, its backward
-    K4's and K5's together."""
+    contiguous BHSD layout, as a call to time: its forward computes K3's
+    function, its backward K4's and K5's together."""
     import torch.nn.functional as F
 
     gqa = q.shape[2] != k.shape[2]
     qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(backward)
                   for t in (q, k, v))
     if not backward:
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=gqa), 10)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=gqa)
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
     grad = dout.transpose(1, 2).contiguous()
-    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), grad, retain_graph=True), 10)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), grad, retain_graph=True)
 
 
 def tile_rel_err(got, want, tile=64) -> float:
@@ -405,10 +458,10 @@ def tile_rel_err(got, want, tile=64) -> float:
     return torch.where(err == 0, torch.zeros_like(err), (err / ref).sqrt()).max().item()
 
 
-def flash_design(name, dtype) -> str:
-    """How a flash kernel computes: the bf16 arms of K3 and K5 on the tensor
-    cores (wgmma), K4 and every f32 arm on the CUDA cores."""
-    return "wgmma" if name in ("k3", "k5") and dtype == torch.bfloat16 else "cuda-cores"
+def flash_design(dtype) -> str:
+    """How a flash kernel computes: the bf16 arms of K3, K4 and K5 on the
+    tensor cores (wgmma), every f32 arm on the CUDA cores."""
+    return "wgmma" if dtype == torch.bfloat16 else "cuda-cores"
 
 
 def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> dict:
@@ -450,14 +503,14 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> d
                "k5": torch.equal(dk, repeat_dk) and torch.equal(dv, repeat_dv)}
     timings = {
         "k3": (lambda: fa.flash_fwd(q, k, v, **kw),
-               lambda: fa.flash_attention_reference(q, k, v, **kw), False),
+               lambda: fa.flash_attention_reference(q, k, v, **kw), False, "flash_fwd"),
         "k4": (lambda: fa.flash_dq(*args, **kw),
-               lambda: fa.flash_dq_reference(*args, **kw), True),
+               lambda: fa.flash_dq_reference(*args, **kw), True, "flash_dq"),
         "k5": (lambda: fa.flash_dkv(*args, **kw),
-               lambda: fa.flash_dkv_reference(*args, **kw), True),
+               lambda: fa.flash_dkv_reference(*args, **kw), True, "flash_dkv"),
     }
     records = {}
-    for name, (kernel, plain, backward) in timings.items():
+    for name, (kernel, plain, backward, fragment) in timings.items():
         errs = checks[name]
         # the kernels line carries the binding check: the largest err / tolerance
         worst = max(errs.values(), key=lambda et: et[0] / et[1])
@@ -465,15 +518,16 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> d
         rec = dict(
             case=label, dtype=str(dtype).replace("torch.", ""), b=b, s=s, hq=hq, hkv=hkv, d=d,
             causal=causal, segmented=segmented, visible_pairs=pairs,
-            design=flash_design(name, dtype),
+            design=flash_design(dtype),
             errors={key: e for key, (e, _) in errs.items()},
             tolerances={key: t for key, (_, t) in errs.items()},
             max_abs_err=worst[0], tolerance=worst[1],
             tile_rel_errors=tiled[name], tile_tolerance=tile_tol,
-            ms=time_ms(kernel, 10), plain_ms=time_ms(plain, 3, warmup=1),
-            bound_ms=bms, bound_by=by,
-            library_ms=None if segmented else library_ms(q, k, v, dout, causal, backward),
+            ms=device_ms(kernel, 10, fragment), wall_ms=time_ms(kernel, 10),
+            plain_ms=time_ms(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
         )
+        library = None if segmented else library_call(q, k, v, dout, causal, backward)
+        rec["library_ms"] = library and device_ms(library, 10)
         # the case's own launches: the checked calls, then the timing loop
         rec["launches"] = counters[name].launches - launches0[name]
         if name in bitwise:
@@ -602,7 +656,11 @@ def train_phase(gpu):
                         if name.endswith("proj.weight") or name == "lm_head.weight")
     attn_fwd = 4 * cfg.resolved_head_dim * cfg.num_heads * layers * rows * seq * (seq + 1) // 2
     flops = 6 * matrix_params * tokens + 3 * attn_fwd
-    steady = float(np.mean(step_s[1:]))
+    # a micro-step's share of an optimizer step (accumulate + apply), the
+    # median over the optimizer steps after the first (where AdamW allocates
+    # its moments), so that one slow step does not set it
+    steady = float(np.median([(step_s[i] + step_s[i + 1]) / 2
+                              for i in range(2, micro - 1, 2)]))
     applied = [h for h in host if h["applied"]]
     rec = {
         "phase": "train", "config": "llama2_7b", "layers": layers, "of_layers": 32,
@@ -611,6 +669,7 @@ def train_phase(gpu):
         "loss": [h["loss"] for h in host], "grad_norm": [h["grad_norm"] for h in host],
         "applied": [bool(h["applied"]) for h in host], "launches": launches,
         "first_step_ms": step_s[0] * 1e3, "step_ms": steady * 1e3,
+        "step_ms_mean": float(np.mean(step_s[1:])) * 1e3,
         "step_ms_each": [t * 1e3 for t in step_s], "card_after": card_state(),
         "tokens_per_s": tokens / steady, "model_flops_per_micro_step": flops,
         "mfu_vs_989_tflops": flops / steady / PEAK_FLOPS[torch.bfloat16],
@@ -658,29 +717,34 @@ def main() -> int:
           f"ptxas reports for {sorted(_build.build_logs)}, want every library")
     tc_entries = set(re.findall(r"Compiling entry function '(\w*wgmma\w*)'",
                                 "".join(_build.build_logs.values())))
-    check(len(tc_entries) == 4, f"ptxas reports {len(tc_entries)} tensor-core kernels, want 4 "
-          "(K3 and K5 at D 64 and 128)")
+    check(len(tc_entries) == 8, f"ptxas reports {len(tc_entries)} tensor-core kernels, want 8 "
+          "(K2, K3, K4 and K5 at D 64 and 128)")
     check(not [k for k in spills if "wgmma" in k],
           "a tensor-core kernel spills registers to local memory")
 
     bf16, f32 = torch.bfloat16, torch.float32
     ragged = [5, 700, 1500, 2040]  # a lane on its first page ... a nearly full lane
-    k1 = kernel_phase("k1", pa.paged_attention, pa.paged_attention_reference, [
-        ("main", 1, ragged, 1, 32, 32, bf16),
-        ("main", 2, ragged, 1, 32, 32, f32),
-        ("gqa", 3, ragged, 1, 32, 8, bf16),
-        ("gqa", 4, ragged, 1, 32, 8, f32),
+    k1 = kernel_phase("k1", pa.paged_attention, pa.paged_attention_reference, "paged_decode", [
+        ("main", 1, ragged, 1, 32, 32, bf16, 128),
+        ("main", 2, ragged, 1, 32, 32, f32, 128),
+        ("gqa", 3, ragged, 1, 32, 8, bf16, 128),
+        ("gqa", 4, ragged, 1, 32, 8, f32, 128),
     ])
-    k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference, [
-        ("chunk512_base0", 5, [0], 512, 32, 32, bf16),
-        ("chunk128_base640", 6, [640], 128, 32, 32, bf16),
-        ("chunk512_base0", 7, [0], 512, 32, 32, f32),
-        ("chunk128_base640", 8, [640], 128, 32, 32, f32),
-        ("gqa_chunk512_base0", 9, [0], 512, 32, 8, bf16),
-        ("gqa_chunk128_base640", 10, [640], 128, 32, 8, bf16),
-        ("gqa_chunk512_base0", 11, [0], 512, 32, 8, f32),
-        ("gqa_chunk128_base640", 12, [640], 128, 32, 8, f32),
-    ])
+    k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
+                      "paged_prefill", [
+        ("chunk512_base0", 5, [0], 512, 32, 32, bf16, 128),
+        ("chunk128_base640", 6, [640], 128, 32, 32, bf16, 128),
+        ("chunk512_base0", 7, [0], 512, 32, 32, f32, 128),
+        ("chunk128_base640", 8, [640], 128, 32, 32, f32, 128),
+        ("gqa_chunk512_base0", 9, [0], 512, 32, 8, bf16, 128),
+        ("gqa_chunk128_base640", 10, [640], 128, 32, 8, bf16, 128),
+        ("gqa_chunk512_base0", 11, [0], 512, 32, 8, f32, 128),
+        ("gqa_chunk128_base640", 12, [640], 128, 32, 8, f32, 128),
+        # one box of 64 keys per tile, and four pages of 16 per tile whose
+        # last tiles straddle the frontier and the NaN-filled dead pages
+        ("chunk512_base0_page64", 19, [0], 512, 32, 32, bf16, 64),
+        ("chunk128_base600_page16", 20, [600], 128, 32, 32, bf16, 16),
+    ], design=lambda dtype, page: pa.prefill_design(dtype, dtype, page))
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
     model = Transformer(cfg, device="cuda", dtype=bf16)

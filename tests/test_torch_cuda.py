@@ -13,7 +13,11 @@ logits and probabilities to bf16 where the kernels keep f32.  The flash
 kernels (K3-K5) are held as ``chip_smoke.py`` holds them: relative to the
 largest plain value (``FLASH_REL_TOL``), and each tile of 64 positions of
 one head at its own scale (``tile_rel_err`` against ``FLASH_TILE_TOL``), so
-that an error in one tile cannot hide under the largest value.
+that an error in one tile cannot hide under the largest value.  The bf16
+tensor-core arm of the paged prefill kernel (K2) is held the same way per
+tile, against the plain version computed in f32 from the same bf16 inputs
+(it rounds the probabilities to bf16 before P.V), and to 3e-2 absolute
+against the plain bf16 version, as ``chip_smoke.py`` holds it.
 """
 
 import functools
@@ -31,7 +35,8 @@ from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.serving import ServingEngine
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.weights import init_params
-from chip_smoke import FLASH_REL_TOL, FLASH_TILE_TOL, tile_rel_err
+from accelerate_tpu_torch.ops import _build
+from chip_smoke import FLASH_REL_TOL, FLASH_TILE_TOL, TOL, tile_rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +78,78 @@ def test_kernel_matches_plain(card, kernel, plain, s, dtype, atol, hkv, d, page)
     out = kernel(*args)
     ref = plain(*args)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+def _prefill_case(card, lengths, s, hq, hkv, d, page, seed=0):
+    """bf16 paged prefill state whose dead table slots (past each lane's live
+    pages) point at NaN-filled pages; the null page 0 holds zeros, as the
+    plain version reads it for dead slots."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n = len(lengths)
+    ppl = max((length + s - 1) // page + 1 for length in lengths) + 2
+    live_pages = n * ppl + 1
+    shape = (live_pages + 1, page, hkv, d)
+    pages = [torch.randn(shape, generator=gen, device=card) for _ in range(2)]
+    tables = torch.arange(1, live_pages, dtype=torch.int32, device=card).reshape(n, ppl)
+    for lane, length in enumerate(lengths):
+        tables[lane, (length + s - 1) // page + 1:] = live_pages
+    for t in pages:
+        t[0] = 0.0
+        t[live_pages] = float("nan")
+    q = torch.randn((n, s, hq, d), generator=gen, device=card)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
+    return q.bfloat16(), pages[0].bfloat16(), pages[1].bfloat16(), tables, lengths
+
+
+@pytest.mark.parametrize("page", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("lengths,s,hq,hkv,d", [
+    ([0, 37, 100], 90, 8, 8, 128),   # tiles straddle pages and each q-block's frontier
+    ([5, 150], 200, 8, 2, 128),      # GQA rep 4, a ragged last q-block
+    ([70, 0], 61, 12, 2, 64),        # D 64, rep 6 (64 is no multiple: spare rows)
+])
+def test_paged_prefill_tensor_cores(card, page, lengths, s, hq, hkv, d):
+    """The bf16 arm of K2 (wgmma over 64-key tiles read through the block
+    table: one box per tile for pages of 64 or more, 64 / page boxes below)
+    against the plain version; dead slots hold NaN pages, so a tile that
+    read one past the frontier would turn its rows NaN."""
+    args = _prefill_case(card, lengths, s, hq, hkv, d, page, seed=page)
+    assert pa.prefill_design(args[0].dtype, args[1].dtype, page) == "wgmma"
+    out = pa.paged_flash_prefill(*args)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_flash_prefill_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k2"][torch.bfloat16], rtol=0)
+    ref32 = pa.paged_flash_prefill_reference(*(t.float() for t in args[:3]), *args[3:])
+    assert tile_rel_err(out, ref32) <= FLASH_TILE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("page,dtype,design", [
+    (16, torch.bfloat16, "wgmma"),
+    (64, torch.bfloat16, "wgmma"),
+    (24, torch.bfloat16, "cuda-cores"),   # neither divides 64 nor is a multiple of it
+    (4, torch.bfloat16, "cuda-cores"),    # a box of fewer than 8 rows
+    (64, torch.float32, "cuda-cores"),
+])
+def test_paged_prefill_route(card, page, dtype, design):
+    """Each page size and dtype takes the arm ``prefill_design`` names, and
+    either arm matches the plain version; the entry point refuses a
+    tensor-core launch it cannot run rather than run another arm."""
+    q, pk, pv, tables, lengths = (t.to(dtype) if t.is_floating_point() else t
+                                  for t in _prefill_case(card, [9, 40], 70, 4, 2, 64, page))
+    assert pa.prefill_design(q.dtype, pk.dtype, page) == design
+    out = pa.paged_flash_prefill(q, pk, pv, tables, lengths)
+    ref = pa.paged_flash_prefill_reference(q, pk, pv, tables, lengths)
+    atol = TOL["k2"][dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    if design == "cuda-cores":
+        ones = torch.ones((pk.shape[0], 2), device=card)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            _build.launch(
+                "paged_prefill", "atpu_paged_prefill", "forced tensor cores",
+                q.data_ptr(), pk.data_ptr(), pv.data_ptr(), ones.data_ptr(), ones.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), torch.empty_like(q).data_ptr(),
+                2, 70, 4, 2, 64, page, pk.shape[0], tables.shape[1],
+                int(dtype == torch.bfloat16), int(dtype == torch.bfloat16), 1, 0.125,
+                torch.cuda.current_stream().cuda_stream)
 
 
 def test_launch_counters_count_kernel_launches_only(card):
@@ -162,12 +239,16 @@ def test_flash_kernels_match_plain_uneven(card, dtype, b, sq, sk, hq, hkv, d, ca
     (1, 96, 320, 4, 2, 128, True, True),    # fewer queries than keys, with segments
     (1, 512, 512, 32, 4, 128, True, False),  # GQA 32/4: 8 heads folded into each tile
     (1, 512, 512, 32, 4, 64, True, False),
+    (1, 160, 96, 4, 2, 64, False, False),    # more queries than keys
+    (1, 70, 70, 12, 2, 64, True, False),     # rep 6: 64 is no multiple, spare rows
 ])
 def test_flash_bf16_tensor_core_tiles(card, b, sq, sk, hq, hkv, d, causal, segmented):
-    """The bf16 arm (wgmma tiles of 64 folded rows x 64 keys; two consumer
-    warpgroups per CTA, fed through a ring of 3 TMA stages) on shapes that
-    cut its tiles raggedly: S 257 walks 5 k-tiles, the last one 1 key wide,
-    so the ring wraps before the ragged tile."""
+    """The bf16 arms of K3, K4 and K5 (wgmma tiles of 64 folded rows x 64
+    keys; two consumer warpgroups per CTA, fed through a ring of 3 TMA
+    stages) on shapes that cut their tiles raggedly: S 257 walks 5 k-tiles,
+    the last one 1 key wide, so the ring wraps before the ragged tile.  K4
+    reads dS from registers into dS . K with K read MN-major, and repeats
+    bit for bit (``_hold_flash_kernels``)."""
     case = _flash_case(card, b, sq, hq, hkv, d, torch.bfloat16, segmented, seed=2, sk=sk)
     _hold_flash_kernels(*case, causal, torch.bfloat16)
 

@@ -79,6 +79,13 @@ PREFILL_CASES = [
     (2, 16, 8, 6, 2, 2, 32),   # chunk spans pages, GQA rep 2
     (3, 4, 16, 3, 2, 1, 16),   # chunk smaller than a page
     (2, 8, 8, 5, 1, 2, 64),    # GQA rep 2, head_dim 64
+    # the page sizes K2's tensor-core arm tiles apart: 64-key tiles of 8 or 4
+    # small pages, or one box of a page of 64 or 128, with chunks whose last
+    # tile straddles the causal frontier and stale slots inside a tile
+    (2, 40, 8, 12, 2, 1, 16),   # eight pages per tile
+    (2, 40, 16, 8, 1, 2, 16),   # four pages per tile, GQA rep 2
+    (1, 80, 64, 3, 2, 1, 16),   # a tile is a page
+    (2, 70, 128, 3, 2, 2, 32),  # two tiles per page, GQA rep 2
 ]
 
 
@@ -125,6 +132,25 @@ class TestPrefillParity:
         out, ref = _run_both(jpa.paged_flash_prefill, tpa.paged_flash_prefill,
                              (q, pk, pv, tables, lengths), torch.float32)
         np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype,page,design", [
+    (torch.bfloat16, torch.bfloat16, 128, "wgmma"),   # the engine's pages
+    (torch.bfloat16, torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 4, "cuda-cores"),    # a box under 8 rows
+    (torch.bfloat16, torch.bfloat16, 24, "cuda-cores"),   # neither divides 64 nor a multiple
+    (torch.bfloat16, torch.bfloat16, 96, "cuda-cores"),
+    (torch.float32, torch.float32, 128, "cuda-cores"),    # f32 keeps f32 products
+    (torch.bfloat16, torch.float32, 128, "cuda-cores"),
+    (torch.float32, torch.bfloat16, 128, "cuda-cores"),
+])
+def test_prefill_design_from_shapes_alone(q_dtype, page_dtype, page, design):
+    """K2's arm is chosen from the dtypes and the page size before launch."""
+    assert tpa.prefill_design(q_dtype, page_dtype, page) == design
 
 
 class TestPagedInsert:
