@@ -27,10 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: paged decode: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
-#: out; n, s, hq, hkv, d, page, num_p, q_bf16, kv_bf16; scale; stream
-_DECODE_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P]
-#: paged prefill: as decode, with num_pages after page and tensor_cores after
-#: kv_bf16
+#: out, part, counters; n, s, hq, hkv, d, page, num_p, pps, nsplit, q_bf16,
+#: kv_bf16; scale; stream
+_DECODE_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
+#: paged prefill: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
+#: out; n, s, hq, hkv, d, page, num_pages, num_p, q_bf16, kv_bf16,
+#: tensor_cores; scale; stream
 _PREFILL_ARGS = [_P] * 8 + [_I] * 11 + [_F, _P]
 #: flash forward: q, k, v, seg, out, lse; b, sq, sk, hq, hkv, d, seg_stride,
 #: causal, bf16; scale; stream

@@ -1,4 +1,4 @@
-// K1 - paged decode attention for Hopper (sm_90a).
+// K1 - paged decode attention for Hopper (sm_90a), split across CTAs.
 //
 // Replaces the TPU kernel _paged_attn_kernel of
 // accelerate_tpu/ops/paged_attention.py (defined at :252, launched by
@@ -9,192 +9,489 @@
 // sees keys j <= lengths[n] + i; the new positions' K/V are already in the
 // pool.  The rep = Hq / Hkv query heads sharing a KV head fold into rows,
 // group-major as on the TPU (:415-420): row r is head h * rep + r / S, query
-// r % S.  QK^T and PV run in f32 from the page dtype, q is scaled by
-// D^-0.5 before the product (:294), masked logits take DEFAULT_MASK_VALUE,
-// and the softmax is the online (flash) one in f32 over the lane's pages.
+// r % S, at most 32 rows.  Q.K^T and P.V run in f32 from the page dtype, q
+// is scaled by D^-0.5 before the product (:294), masked logits take the
+// finite DEFAULT_MASK_VALUE, the softmax is the online one in f32, and the
+// output is acc / l with l == 0 taken as 1.
 //
-// What bounds it on an H100.  One decode step reads every live K/V byte of
-// every lane once and does 4 * D flops per (row, key) - about 2 flops per
-// byte for bf16 pages, far below the ~295 flop/byte at which the tensor
-// cores would become the limit.  The bound is bytes: live K/V bytes at
-// 3.35 TB/s.
+// What bounds it on an H100.  A decode step reads every live K/V byte of
+// every lane once and does 4 * D flops per (row, key): about 2 flops per
+// byte for bf16 pages at one row, 8 at a GQA group of four, below the ~20
+// flop/byte at which the CUDA cores' f32 rate would become the limit.  The
+// bound is bytes: live K/V bytes at 3.35 TB/s.  So the design is about
+// moving bytes, in four parts.
 //
-// What the design does about it.  One CTA per (lane, kv-head) walks only the
-// lane's live pages, p < (lengths[n] + S - 1) / page + 1 (:285-287); table
-// slots past that hold the null page or a previous owner's id and are never
-// read.  Each page's K and V tile is loaded into shared memory once per
-// (lane, kv-head) with 16-byte loads, several in flight per thread, and
-// dequantized by its per-(page, head) scale (ones for native pages, as the
-// TPU wrapper feeds them, :410-413), so every folded GQA row reuses the same
-// tile instead of re-reading the page.  Arithmetic stays on the CUDA cores:
-// at ~2 flops per byte they are not the limit.  Not done yet: cp.async/TMA
-// double buffering of the next page behind the current one, and a split of
-// long lanes across CTAs (flash-decoding) when lanes x heads < 132 SMs.
+// 1. The KV walk is split across CTAs (flash-decoding).  The grid is
+//    (kv-head, lane, split); split z walks the pages [z * pps, (z + 1) *
+//    pps) of the lane's table.  pps comes from the host (paged_attention.py
+//    decode_split_plan) from the table width, lanes, kv heads and SM count,
+//    never from the lengths, so planning never syncs the card; at the
+//    serving path's shapes it is one page.  A split that starts past the
+//    lane's live pages, (lengths[n] + S - 1) / page + 1 (:285-287), exits
+//    before it reads anything; slots past them hold the null page or a
+//    previous owner's id and are never read.  A lane whose live pages fit
+//    one split writes its output directly.  Otherwise each split writes its
+//    partial (m, l, acc) in f32 to scratch the wrapper allocates, and the
+//    last of the lane's working splits to arrive (a per-(lane, kv-head)
+//    counter) merges the partials in split order and sets the counter back
+//    to zero: one launch per call, no atomics on the output, bit-for-bit
+//    repeatable.
+// 2. Tiles stay in the page dtype.  K and V sit in shared memory as stored
+//    (bf16 stays bf16) and are converted to f32 in registers at use: a
+//    bf16 stage of 32 keys at D 128 is 17 KB, the CTA 54 KB at one row,
+//    so four CTAs share an SM.
+// 3. Keys are in flight while others are computed.  A split's keys stream
+//    through a ring of three stages of 32 keys, each filled by 16-byte
+//    cp.async copies straight from the pages (any page size: each key row
+//    is found through the table, its page id read a tile ahead), so two
+//    stages are in flight while the third is computed; only the keys up to
+//    lengths[n] + S - 1 are copied.
+// 4. Every thread works at one row.  Each of the four warps takes 8 of a
+//    stage's 32 keys: for Q.K^T four lanes share a key, each summing a
+//    quarter of D, and for P.V the 32 lanes split D, so a warp keeps its
+//    own running (m, l, acc) over its keys.  At the end of the split the
+//    four warps' states merge through shared memory, in warp order.  The
+//    products stay on the CUDA cores in f32: the bound is bytes, and the
+//    TPU kernel computes in f32.
+//
+// What limits it (PERF.md §6): each CTA's walk is latency-bound, a tile of
+// 32 keys waiting microseconds for its copies, so the bytes in flight per
+// SM (the ring times the CTAs that fit) set the rate.  On an H100 a deeper
+// ring, 64-key stages, whole-row bulk copies (cp.async.bulk) and, as a
+// timing experiment, tiles read as if the pool were head-major were none
+// of them faster at the serving shapes.
 #include "paged_common.cuh"
 
 namespace atpu {
 
 constexpr int kDecodeThreads = 128;
-constexpr int kDecodeMaxRows = 32;  // rep * S folded rows one CTA holds
+constexpr int kDecodeWarps = kDecodeThreads / 32;
+constexpr int kDecodeTileKeys = 32;  // keys per ring stage: 8 per warp
+constexpr int kDecodeWarpKeys = kDecodeTileKeys / kDecodeWarps;
+constexpr int kDecodeKeyLanes = 32 / kDecodeWarpKeys;  // lanes summing one key's Q.K
+constexpr int kDecodeStages = 3;
+constexpr int kDecodeMaxRows = 32;   // rep * S folded rows one CTA holds
+constexpr int kDecodeMaxSplits = 64;
 
-template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(kDecodeThreads)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Unpack one 32-bit word of page elements to f32 (bf16 -> f32 is exact).
+template <typename T> struct Words;
+template <> struct Words<float> {
+  static constexpr int kPerWord = 1;
+  __device__ static void unpack(unsigned w, float* o) { o[0] = __uint_as_float(w); }
+};
+template <> struct Words<__nv_bfloat16> {
+  static constexpr int kPerWord = 2;
+  __device__ static void unpack(unsigned w, float* o) {
+    o[0] = __uint_as_float(w << 16);
+    o[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+
+// N consecutive page elements from shared memory, as f32 (one 4-, 8- or
+// 16-byte load; p is aligned to its width).
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* p, float (&o)[N]) {
+  constexpr int W = N / Words<T>::kPerWord;
+  unsigned w[W];
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) Words<T>::unpack(w[i], o + i * Words<T>::kPerWord);
+}
+
+// Shared-memory layout of one CTA, in bytes, for gs folded rows.
+template <typename KT, int D>
+struct DecodeSmem {
+  static constexpr int kRow = D * (int)sizeof(KT) + 16;  // padded key row: no bank conflicts
+  static constexpr int kStage = 2 * kDecodeTileKeys * kRow;  // K tile, then V tile
+  static constexpr int kRing = kDecodeStages * kStage;
+  // after the walk the ring holds the merge's rows [gs][D] and (m, l) [splits][gs][2]
+  static __host__ __device__ size_t bytes(int gs) {
+    return (size_t)kRing + sizeof(float) * ((size_t)kDecodeStages * 2 * kDecodeTileKeys +
+                                            (size_t)gs * D + 2 * kDecodeWarps * (size_t)gs +
+                                            2 * (size_t)gs);
+  }
+  static constexpr bool kMergeFits =
+      sizeof(float) * (kDecodeMaxRows * D + 2 * kDecodeMaxSplits * kDecodeMaxRows) <= kRing;
+};
+
+// One CTA: split z of (kv-head h, lane n), rows up to MAXG.  Up to four
+// rows (decode at rep <= 4) keep four CTAs on an SM, as shared memory allows.
+template <typename QT, typename KT, int D, int MAXG>
+__global__ void __launch_bounds__(kDecodeThreads, MAXG <= 4 ? 4 : 1)
 paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
                     const KT* __restrict__ pages_v, const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, QT* __restrict__ out, int s_len,
-                    int hq, int hkv, int page, int num_p, float scale) {
-  constexpr int NT = kDecodeThreads;
-  constexpr int KS = D + 4;      // padded K row: conflict-free float4 reads across rows
-  constexpr int CG = D / 4;      // float4 column groups of a row
-  constexpr int NRG = NT / CG;   // row groups of the PV phase
-  constexpr int MAXK = kDecodeMaxRows / NRG;
+                    const int* __restrict__ lengths, QT* __restrict__ out,
+                    float* __restrict__ part, int* __restrict__ counters, int s_len, int hq,
+                    int hkv, int page, int num_p, int pps, int nsplit, float scale) {
+  using L = DecodeSmem<KT, D>;
+  constexpr int NT = kDecodeThreads, TK = kDecodeTileKeys, WK = kDecodeWarpKeys;
+  constexpr int EPC = 16 / sizeof(KT);   // page elements per 16-byte chunk
+  constexpr int CPR = D / EPC;           // chunks per key row
+  constexpr int KL = kDecodeKeyLanes;
+  constexpr int CPL = CPR / KL;          // chunks of a row each of a key's lanes sums
+  constexpr int VPL = D / 32;            // P.V columns per lane
+  static_assert(NT % CPR == 0 && TK % (NT / CPR) == 0 && CPR % KL == 0, "tile shape");
+  static_assert(L::kMergeFits, "the merge must fit in the ring");
 
-  const int h = blockIdx.x;
-  const int n = blockIdx.y;
-  const int rep = hq / hkv;
-  const int gs = rep * s_len;
+  const int h = blockIdx.x, n = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rep = hq / hkv, gs = rep * s_len;
+  const int length = lengths[n];
+  const int live = min((length + s_len - 1) / page + 1, num_p);
+  if (z * pps >= live) return;  // a split past the lane's live pages reads nothing
+  const int nsl = (live + pps - 1) / pps;  // the lane's working splits
+  const int k0 = z * pps * page;
+  const int k1 = min(k0 + pps * page, min(length + s_len, live * page));
+  const int ntiles = (k1 - k0 + TK - 1) / TK;
 
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // page x KS
-  float* v_s = k_s + page * KS;                   // page x D
-  float* q_s = v_s + page * D;                    // gs x D
-  float* p_s = q_s + gs * D;                      // gs x page: logits, then probabilities
-  float* m_s = p_s + gs * page;                   // gs running max
-  float* l_s = m_s + gs;                          // gs running denominator
-  float* a_s = l_s + gs;                          // gs rescale factor of this page
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);
+  float* sc = reinterpret_cast<float*>(ring + L::kRing);  // [stage][k | v][TK] page scales
+  float* q_s = sc + kDecodeStages * 2 * TK;               // [gs][D] scaled q
+  float* mw = q_s + gs * D;                               // [warp][gs] running max
+  float* lw = mw + kDecodeWarps * gs;                     // [warp][gs] denominator
+  float* row_m = lw + kDecodeWarps * gs;                  // [gs] the CTA's max
+  float* row_l = row_m + gs;                              // [gs] the CTA's denominator
+  __shared__ int is_last;
 
-  const int length = lengths[n];
-  for (int e = threadIdx.x; e < gs * D; e += NT) {
+  // Copying a tile of the split into a stage (nothing past k1): each thread
+  // owns one 16-byte column of RPT key rows, RSTEP rows apart.  The rows'
+  // page ids are read from the table a tile ahead of their copies, so no
+  // copy waits on a table read.
+  constexpr int RSTEP = NT / CPR, RPT = TK / RSTEP;
+  const int col = tid % CPR, row0 = tid / CPR;
+  const bool scaled = k_scales != nullptr;  // no scales: native pages, ones
+  auto fetch = [&](int tile, int (&ids)[RPT]) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int key = k0 + tile * TK + row0 + i * RSTEP;
+      ids[i] = key < k1 ? __ldg(tables + (size_t)n * num_p + key / page) : 0;
+    }
+  };
+  auto issue = [&](int tile, int st, const int (&ids)[RPT]) {
+    unsigned char* kdst = ring + st * L::kStage;
+    unsigned char* vdst = kdst + TK * L::kRow;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = row0 + i * RSTEP, key = k0 + tile * TK + row;
+      if (key < k1) {
+        const size_t off = (((size_t)ids[i] * page + key % page) * hkv + h) * D + col * EPC;
+        cp_async16(kdst + row * L::kRow + col * 16, pages_k + off);
+        cp_async16(vdst + row * L::kRow + col * 16, pages_v + off);
+        if (scaled && col == 0) {
+          sc[st * 2 * TK + row] = __ldg(k_scales + (size_t)ids[i] * hkv + h);
+          sc[st * 2 * TK + TK + row] = __ldg(v_scales + (size_t)ids[i] * hkv + h);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  {  // the first tiles' page ids and q, every load in flight before their use
+    int ids[kDecodeStages - 1][RPT];
+#pragma unroll
+    for (int st = 0; st < kDecodeStages - 1; ++st) fetch(st, ids[st]);
+    constexpr int QPT = MAXG * D / NT;
+    float qv[QPT];
+#pragma unroll
+    for (int i = 0; i < QPT; ++i) {
+      const int e = tid + i * NT, r = e / D, c = e % D;
+      const int head = h * rep + r / s_len, qi = r % s_len;
+      qv[i] = e < gs * D ? to_f32(q[((size_t)(n * s_len + qi) * hq + head) * D + c]) : 0.f;
+    }
+#pragma unroll
+    for (int st = 0; st < kDecodeStages - 1; ++st) issue(st, st, ids[st]);
+#pragma unroll
+    for (int i = 0; i < QPT; ++i)
+      if (tid + i * NT < gs * D) q_s[tid + i * NT] = qv[i] * scale;
+  }
+  int ids[RPT];
+  fetch(kDecodeStages - 1, ids);
+
+  // lane = t * WK + g: key g of the warp's WK, share t of its chunks
+  const int g = lane % WK, t = lane / WK;
+  float m_reg = -INFINITY, l_reg = 0.f;  // row `lane`'s running max and denominator
+  float acc[MAXG][VPL];
+#pragma unroll
+  for (int r = 0; r < MAXG; ++r)
+#pragma unroll
+    for (int c = 0; c < VPL; ++c) acc[r][c] = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kDecodeStages - 2>();
+    __syncthreads();  // the tile has landed; the stage refilled below is consumed
+    issue(tile + kDecodeStages - 1, (tile + kDecodeStages - 1) % kDecodeStages, ids);
+    fetch(tile + kDecodeStages, ids);  // lands while this tile is computed
+
+    const int st = tile % kDecodeStages;
+    const int mine = min(TK, k1 - k0 - tile * TK) - warp * WK;  // this warp's keys
+    if (mine <= 0) continue;
+    const int jl = warp * WK + g;
+    const bool valid = g < mine;
+    const int pos = k0 + tile * TK + jl;
+    const unsigned char* krow = ring + st * L::kStage + jl * L::kRow;
+    const unsigned char* vtile = ring + st * L::kStage + TK * L::kRow;
+
+    // Q.K^T: the KL lanes of a key sum interleaved shares of its chunks
+    float s[MAXG];
+#pragma unroll
+    for (int r = 0; r < MAXG; ++r) s[r] = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int ci = 0; ci < CPL; ++ci) {
+        const int c = t + KL * ci;
+        float kf[EPC];
+        load_f32<KT, EPC>(reinterpret_cast<const KT*>(krow + c * 16), kf);
+#pragma unroll
+        for (int r = 0; r < MAXG; ++r) {
+          if (r < gs) {
+            const float4* qp = reinterpret_cast<const float4*>(q_s + r * D + c * EPC);
+#pragma unroll
+            for (int v = 0; v < EPC / 4; ++v) {
+              const float4 qq = qp[v];
+              s[r] = fmaf(qq.x, kf[4 * v], s[r]);
+              s[r] = fmaf(qq.y, kf[4 * v + 1], s[r]);
+              s[r] = fmaf(qq.z, kf[4 * v + 2], s[r]);
+              s[r] = fmaf(qq.w, kf[4 * v + 3], s[r]);
+            }
+          }
+        }
+      }
+    }
+    const float k_scale = scaled ? sc[st * 2 * TK + jl] : 1.f;
+    const float v_scale = scaled ? sc[st * 2 * TK + TK + jl] : 1.f;
+
+    // the warp's online softmax over its keys, row by row
+    int qi = 0;
+#pragma unroll
+    for (int r = 0; r < MAXG; ++r) {
+      if (r < gs) {
+        float x = s[r];
+#pragma unroll
+        for (int o = WK; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+        x = !valid ? -INFINITY : (pos <= length + qi ? x * k_scale : kMaskValue);
+        float mx = x;
+#pragma unroll
+        for (int o = 1; o < WK; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_old = __shfl_sync(0xffffffffu, m_reg, r);
+        const float l_old = __shfl_sync(0xffffffffu, l_reg, r);
+        const float m_new = fmaxf(m_old, mx);
+        const float p = valid ? expf(x - m_new) : 0.f;
+        float sum = p;
+#pragma unroll
+        for (int o = 1; o < WK; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float alpha = expf(m_old - m_new);
+        if (lane == r) {
+          m_reg = m_new;
+          l_reg = alpha * l_old + sum;
+        }
+#pragma unroll
+        for (int c = 0; c < VPL; ++c) acc[r][c] *= alpha;
+        s[r] = p * v_scale;
+        if (++qi == s_len) qi = 0;
+      }
+    }
+
+    // P.V: the 32 lanes split D; key jj's probabilities come from lane jj
+    const int nk = min(mine, WK);
+#pragma unroll
+    for (int jj = 0; jj < WK; ++jj) {
+      if (jj < nk) {
+        float vf[VPL];
+        load_f32<KT, VPL>(
+            reinterpret_cast<const KT*>(vtile + (warp * WK + jj) * L::kRow) + lane * VPL, vf);
+#pragma unroll
+        for (int r = 0; r < MAXG; ++r) {
+          if (r < gs) {
+            const float p = __shfl_sync(0xffffffffu, s[r], jj);
+#pragma unroll
+            for (int c = 0; c < VPL; ++c) acc[r][c] = fmaf(p, vf[c], acc[r][c]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups can be left; the ring becomes the merge's
+
+  // merge the four warps' states, in warp order
+  if (lane < gs) {
+    mw[warp * gs + lane] = m_reg;
+    lw[warp * gs + lane] = l_reg;
+  }
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);  // [gs][D]
+#pragma unroll
+  for (int r = 0; r < MAXG; ++r) {
+    if (r < gs) {
+      float m = mw[r];
+      for (int w = 1; w < kDecodeWarps; ++w) m = fmaxf(m, mw[w * gs + r]);
+      const float wt = expf(mw[warp * gs + r] - m);  // 0 for a warp that saw no key
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) acc[r][c] *= wt;
+    }
+  }
+  if (tid < gs) {
+    float m = mw[tid];
+    for (int w = 1; w < kDecodeWarps; ++w) m = fmaxf(m, mw[w * gs + tid]);
+    float l = 0.f;
+    for (int w = 0; w < kDecodeWarps; ++w) l += expf(mw[w * gs + tid] - m) * lw[w * gs + tid];
+    row_m[tid] = m;
+    row_l[tid] = l;
+  }
+  for (int w = 0; w < kDecodeWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int r = 0; r < MAXG; ++r) {
+        if (r < gs) {
+#pragma unroll
+          for (int c = 0; c < VPL; ++c) {
+            float* dst = red + r * D + lane * VPL + c;
+            *dst = (w == 0 ? 0.f : *dst) + acc[r][c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  auto store = [&](int e, float v, float l) {
     const int r = e / D, c = e % D;
     const int head = h * rep + r / s_len, qi = r % s_len;
-    q_s[e] = to_f32(q[((size_t)(n * s_len + qi) * hq + head) * D + c]) * scale;
+    out[((size_t)(n * s_len + qi) * hq + head) * D + c] = from_f32<QT>(v / (l == 0.f ? 1.f : l));
+  };
+  if (nsl == 1) {  // the lane's only split: no partials, no counter
+    for (int e = tid; e < gs * D; e += NT) store(e, red[e], row_l[e / D]);
+    return;
   }
-  for (int r = threadIdx.x; r < gs; r += NT) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
+
+  // partials: acc [n][h][split][gs][D], then (m, l) [n][h][split][gs][2]
+  const size_t lane_head = (size_t)n * hkv + h;
+  const size_t acc_total = (size_t)gridDim.y * hkv * nsplit * gs * D;
+  float* p_acc = part + (lane_head * nsplit) * gs * D;
+  float* p_ml = part + acc_total + (lane_head * nsplit) * gs * 2;
+  for (int e = tid; e < gs * D; e += NT) p_acc[(size_t)z * gs * D + e] = red[e];
+  if (tid < gs) {
+    p_ml[((size_t)z * gs + tid) * 2] = row_m[tid];
+    p_ml[((size_t)z * gs + tid) * 2 + 1] = row_l[tid];
   }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counters + lane_head, 1) == nsl - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
 
-  const int c4 = threadIdx.x % CG, rg = threadIdx.x / CG;
-  float4 acc[MAXK];
-#pragma unroll
-  for (int k = 0; k < MAXK; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  int live = (length + s_len - 1) / page + 1;
-  if (live > num_p) live = num_p;
-  const size_t row_stride = (size_t)hkv * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int p = 0; p < live; ++p) {
-    const int pid = tables[n * num_p + p];
-    const size_t base = ((size_t)pid * page * hkv + h) * D;
-    __syncthreads();  // the previous page's readers are done with the tiles
-    load_kv_tiles<KT, D, NT>(k_s, KS, v_s, pages_k + base, pages_v + base, row_stride, page,
-                             k_scales[pid * hkv + h], v_scales[pid * hkv + h]);
-    __syncthreads();
-
-    // logits: one thread per key, every folded row
-    for (int j = threadIdx.x; j < page; j += NT) {
-      const float4* kr = reinterpret_cast<const float4*>(k_s + j * KS);
-      const int pos = p * page + j;
-      for (int r = 0; r < gs; ++r) {
-        const float4* qr = reinterpret_cast<const float4*>(q_s + r * D);
-        float dot = 0.f;
+  // the last split to arrive merges all of them, in split order; every
+  // partial is read in one parallel sweep, not split after split
+  float* ml = red + gs * D;  // [split][gs] (m, l); m becomes the split's weight
+  for (int e = tid; e < nsl * gs * 2; e += NT) ml[e] = __ldcg(p_ml + e);
+  __syncthreads();
+  if (tid < gs) {
+    float m = -INFINITY;
+    for (int i = 0; i < nsl; ++i) m = fmaxf(m, ml[(i * gs + tid) * 2]);
+    float l = 0.f;
+    for (int i = 0; i < nsl; ++i) {
+      float* mi = ml + (i * gs + tid) * 2;
+      mi[0] = expf(mi[0] - m);
+      l = fmaf(mi[0], mi[1], l);
+    }
+    row_l[tid] = l;
+  }
+  __syncthreads();
+  for (int e = tid; e < gs * D; e += NT) {
+    const int r = e / D;
+    float a = 0.f;
 #pragma unroll 8
-        for (int c = 0; c < CG; ++c) dot += dot4(qr[c], kr[c]);
-        p_s[r * page + j] = (pos <= length + r % s_len) ? dot : kMaskValue;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row
-    for (int r = warp; r < gs; r += NT / 32) {
-      float* pr = p_s + r * page;
-      float mx = -INFINITY;
-      for (int j = lane; j < page; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_next = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < page; j += 32) {
-        const float e = expf(pr[j] - m_next);
-        pr[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_next);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_next;
-      }
-    }
-    __syncthreads();
-
-    // PV: each thread owns a float4 column group of rows rg, rg + NRG, ...
-#pragma unroll
-    for (int k = 0; k < MAXK; ++k) {
-      const int r = rg + NRG * k;
-      if (r < gs) {
-        const float alpha = a_s[r];
-        float4 a = make_float4(acc[k].x * alpha, acc[k].y * alpha, acc[k].z * alpha,
-                               acc[k].w * alpha);
-        const float* pr = p_s + r * page;
-        for (int j = 0; j < page; ++j)
-          a = fma4(pr[j], reinterpret_cast<const float4*>(v_s + j * D)[c4], a);
-        acc[k] = a;
-      }
-    }
+    for (int i = 0; i < nsl; ++i)
+      a = fmaf(ml[(i * gs + r) * 2], __ldcg(p_acc + (size_t)i * gs * D + e), a);
+    store(e, a, row_l[r]);
   }
+  if (tid == 0) counters[lane_head] = 0;  // every working split has arrived
+}
 
-#pragma unroll
-  for (int k = 0; k < MAXK; ++k) {
-    const int r = rg + NRG * k;
-    if (r < gs) {
-      const float l = l_s[r];
-      const float inv = 1.f / (l == 0.f ? 1.f : l);
-      const int head = h * rep + r / s_len, qi = r % s_len;
-      QT* o = out + ((size_t)(n * s_len + qi) * hq + head) * D + c4 * 4;
-      o[0] = from_f32<QT>(acc[k].x * inv);
-      o[1] = from_f32<QT>(acc[k].y * inv);
-      o[2] = from_f32<QT>(acc[k].z * inv);
-      o[3] = from_f32<QT>(acc[k].w * inv);
-    }
-  }
+template <typename QT, typename KT, int D, int MAXG>
+int launch_decode_rows(const void* q, const void* pages_k, const void* pages_v,
+                       const float* k_scales, const float* v_scales, const int* tables,
+                       const int* lengths, void* out, float* part, int* counters, int n, int s,
+                       int hq, int hkv, int page, int num_p, int pps, int nsplit, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = DecodeSmem<KT, D>::bytes((hq / hkv) * s);
+  auto kernel = paged_decode_kernel<QT, KT, D, MAXG>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(hkv, n, nsplit), kDecodeThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(pages_k),
+      static_cast<const KT*>(pages_v), k_scales, v_scales, tables, lengths,
+      static_cast<QT*>(out), part, counters, s, hq, hkv, page, num_p, pps, nsplit, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT, int D>
 int launch_decode(const void* q, const void* pages_k, const void* pages_v,
                   const float* k_scales, const float* v_scales, const int* tables,
-                  const int* lengths, void* out, int n, int s, int hq, int hkv, int page,
-                  int num_p, float scale, cudaStream_t stream) {
+                  const int* lengths, void* out, float* part, int* counters, int n, int s,
+                  int hq, int hkv, int page, int num_p, int pps, int nsplit, float scale,
+                  cudaStream_t stream) {
+  if (hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int gs = (hq / hkv) * s;
-  if (gs > kDecodeMaxRows || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D + (size_t)gs * D +
-                       (size_t)gs * page + 3 * (size_t)gs);
-  auto kernel = paged_decode_kernel<QT, KT, D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(hkv, n), kDecodeThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(pages_k),
-      static_cast<const KT*>(pages_v), k_scales, v_scales, tables, lengths,
-      static_cast<QT*>(out), s, hq, hkv, page, num_p, scale);
-  return static_cast<int>(cudaGetLastError());
+  // the split plan must tile the table: nsplit runs of pps pages, the last one ragged
+  if (gs > kDecodeMaxRows || pps < 1 || nsplit < 1 || nsplit > kDecodeMaxSplits ||
+      nsplit != (num_p + pps - 1) / pps || (nsplit > 1 && (!part || !counters)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // register classes of folded rows: the accumulator holds MAXG x D / 32 per lane
+  if (gs <= 4)
+    return launch_decode_rows<QT, KT, D, 4>(q, pages_k, pages_v, k_scales, v_scales, tables,
+                                            lengths, out, part, counters, n, s, hq, hkv, page,
+                                            num_p, pps, nsplit, scale, stream);
+  if (gs <= 16)
+    return launch_decode_rows<QT, KT, D, 16>(q, pages_k, pages_v, k_scales, v_scales, tables,
+                                             lengths, out, part, counters, n, s, hq, hkv, page,
+                                             num_p, pps, nsplit, scale, stream);
+  return launch_decode_rows<QT, KT, D, kDecodeMaxRows>(
+      q, pages_k, pages_v, k_scales, v_scales, tables, lengths, out, part, counters, n, s, hq,
+      hkv, page, num_p, pps, nsplit, scale, stream);
 }
 
 }  // namespace atpu
 
-#define ATPU_LAUNCH_DECODE(QT, KT, D)                                                   \
-  atpu::launch_decode<QT, KT, D>(q, pages_k, pages_v, k_scales, v_scales, tables,       \
-                                 lengths, out, n, s, hq, hkv, page, num_p, scale,        \
-                                 static_cast<cudaStream_t>(stream))
+#define ATPU_LAUNCH_DECODE(QT, KT, D)                                                      \
+  atpu::launch_decode<QT, KT, D>(q, pages_k, pages_v, k_scales, v_scales, tables, lengths, \
+                                 out, part, counters, n, s, hq, hkv, page, num_p, pps,     \
+                                 nsplit, scale, static_cast<cudaStream_t>(stream))
 
+// k_scales and v_scales: [NP, Hkv] f32, or both null for native pages (ones).
+// part: f32 scratch of n * hkv * nsplit * (hq / hkv) * s * (d + 2) floats and
+// counters: n * hkv int32 zeros, both needed only when nsplit > 1; the
+// counters are zero again when the kernel ends.
 extern "C" int atpu_paged_decode(const void* q, const void* pages_k, const void* pages_v,
                                  const float* k_scales, const float* v_scales,
-                                 const int* tables, const int* lengths, void* out, int n,
-                                 int s, int hq, int hkv, int d, int page, int num_p,
-                                 int q_bf16, int kv_bf16, float scale, void* stream) {
+                                 const int* tables, const int* lengths, void* out, float* part,
+                                 int* counters, int n, int s, int hq, int hkv, int d, int page,
+                                 int num_p, int pps, int nsplit, int q_bf16, int kv_bf16,
+                                 float scale, void* stream) {
   ATPU_DISPATCH(q_bf16, kv_bf16, d, ATPU_LAUNCH_DECODE);
 }
 

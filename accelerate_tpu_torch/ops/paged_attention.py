@@ -5,7 +5,8 @@ every lane's KV in a shared page pool ``[num_pages, page, Hkv, D]`` addressed
 through per-lane block tables; attention reads those pages in place.
 
 * :func:`paged_attention` — decode (and short verify spans): launches the
-  hand-written kernel ``csrc/paged_attention.cu`` (K1) on a CUDA tensor.
+  hand-written kernel ``csrc/paged_attention.cu`` (K1) on a CUDA tensor,
+  each lane's page walk split across CTAs by :func:`decode_split_plan`.
 * :func:`paged_flash_prefill` — a prefill chunk's causal flash attention over
   the same pages: launches ``csrc/paged_prefill.cu`` (K2), on the tensor
   cores for bf16 where :func:`prefill_design` allows it.
@@ -24,7 +25,8 @@ and nowhere else, so a run can show that its path went through the kernel.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -124,6 +126,65 @@ def paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
 
 
 # -------------------------------------------------------------------- kernels
+#: how K1 computes: each lane's page walk split across CTAs, tiles streamed
+#: by cp.async in the page dtype, f32 products on the CUDA cores
+DECODE_DESIGN = "split-kv"
+#: CTAs the split plan aims for per SM over a launch: four waves of four
+#: (four of K1's CTAs fit on an SM at bf16, D 128).  Short splits win while
+#: the (lane, kv-head) pairs alone do not fill the card: each CTA's fixed
+#: cost overlaps its neighbours' walks (``profile_decode``)
+_SPLIT_CTAS_PER_SM = 16
+#: keys a split walks at least (a page at the engine's page size)
+_SPLIT_MIN_KEYS = 128
+#: the most splits of one (lane, kv-head): the merge keeps a weight per split
+_MAX_SPLITS = 64
+
+
+def decode_split_plan(num_p: int, n: int, hkv: int, page: int,
+                      sm_count: int) -> Tuple[int, int]:
+    """``(pages_per_split, splits)`` of K1's grid (kv-head, lane, split):
+    split ``z`` walks the table slots ``[z * pps, (z + 1) * pps)``, so the
+    splits tile all ``num_p`` slots, the last one ragged.  Chosen from the
+    table width, the lanes, the kv heads, the page size and the SM count
+    alone — never from the lengths, whose reading would sync the card — so
+    that about ``_SPLIT_CTAS_PER_SM`` CTAs per SM exist, each walking at
+    least ``_SPLIT_MIN_KEYS`` keys.  A split that starts past its lane's
+    live pages exits at once; a lane whose live pages fit one split writes
+    its output without the merge."""
+    num_p = max(num_p, 1)
+    wanted = -(-_SPLIT_CTAS_PER_SM * sm_count // max(n * hkv, 1))
+    pps = max(-(-num_p // max(wanted, 1)), -(-_SPLIT_MIN_KEYS // page),
+              -(-num_p // _MAX_SPLITS))
+    pps = min(pps, num_p)
+    return pps, -(-num_p // pps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+#: (device, lanes x kv heads) -> K1's per-(lane, kv-head) arrival counters:
+#: zeroed once, and every launch leaves them at zero.  Launches that share a
+#: buffer must not overlap, as on one stream.
+_SPLIT_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+#: (device, num_pages, kv heads) -> the ones native pages feed as scales
+_UNIT_SCALES: Dict[Tuple[torch.device, int, int], torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device, size: int) -> torch.Tensor:
+    key = (device, size)
+    counters = _SPLIT_COUNTERS.get(key)
+    if counters is None:
+        counters = _SPLIT_COUNTERS[key] = torch.zeros(size, dtype=torch.int32, device=device)
+    return counters
+
+
+def pending_split_counters() -> int:
+    """Sum of every K1 arrival counter (syncs the card; for checks): 0
+    unless a launch was cut short."""
+    return int(sum(int(c.sum()) for c in _SPLIT_COUNTERS.values()))
+
 #: page sizes whose 64-key tiles K2's tensor-core arm reads as whole TMA boxes:
 #: one box of 64 keys of a page of 64 or more, or 64 / page whole pages of a
 #: smaller page (a box of at least 8 rows keeps the swizzle's period); the
@@ -166,8 +227,13 @@ def _operands(what: str, q, pages_k, pages_v, tables, lengths, k_scales, v_scale
         raise ValueError(f"{what}: tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {n} lanes")
     if k_scales is None:
-        # native pages: feed ones so the kernel signature is uniform
-        k_scales = torch.ones((num_pages, hkv), dtype=torch.float32, device=q.device)
+        # native pages: feed ones (made once per pool shape) so the kernel
+        # signature is uniform
+        key = (q.device, num_pages, hkv)
+        k_scales = _UNIT_SCALES.get(key)
+        if k_scales is None:
+            k_scales = _UNIT_SCALES[key] = torch.ones((num_pages, hkv), dtype=torch.float32,
+                                                      device=q.device)
         v_scales = k_scales
     for name, t in (("q", q), ("pages_k", pages_k), ("pages_v", pages_v),
                     ("tables", tables), ("lengths", lengths),
@@ -199,21 +265,34 @@ def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
     int32; ``lengths [N]`` int32; ``k_scales``/``v_scales [NP, Hkv]`` f32 or
     None (ones).  Returns ``[N, S, Hq, D]`` in ``q.dtype``.  A CPU ``q`` takes
     :func:`paged_attention_reference`; a CUDA ``q`` launches
-    ``csrc/paged_attention.cu`` or raises."""
+    ``csrc/paged_attention.cu`` or raises.  The launch splits each lane's
+    pages by :func:`decode_split_plan`; with more than one split the
+    partials go to f32 scratch allocated here, and the arrival counters are
+    this device's cached ones, which the kernel leaves at zero.  Native
+    pages (no scales) pass null scales, which the kernel reads as ones."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, pages_k, pages_v, tables, lengths,
                                          k_scales=k_scales, v_scales=v_scales)
+    native = k_scales is None
     k_scales, v_scales = _operands("paged_attention", q, pages_k, pages_v, tables, lengths,
                                    k_scales, v_scales)
     n, s, hq, d = q.shape
     _, page, hkv, _ = pages_k.shape
+    num_p = tables.shape[1]
+    pps, nsplit = decode_split_plan(num_p, n, hkv, page, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    part_ptr = counters_ptr = 0
+    if nsplit > 1:
+        part = torch.empty(n * hq * s * nsplit * (d + 2), dtype=torch.float32, device=q.device)
+        part_ptr = part.data_ptr()
+        counters_ptr = _split_counters(q.device, n * hkv).data_ptr()
     _build.launch(
         "paged_attention", "atpu_paged_decode", "paged_attention",
-        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), k_scales.data_ptr(),
-        v_scales.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        n, s, hq, hkv, d, page, tables.shape[1], _bf16(q), _bf16(pages_k),
-        float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
+        0 if native else k_scales.data_ptr(), 0 if native else v_scales.data_ptr(),
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        part_ptr, counters_ptr, n, s, hq, hkv, d, page, num_p, pps, nsplit, _bf16(q),
+        _bf16(pages_k), float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_attention.launches += 1
     return out

@@ -1,0 +1,117 @@
+"""K1's device time per launch at each split plan, at the serving path's decode shapes.
+
+    python -m accelerate_tpu_torch.profile_decode
+    python -m accelerate_tpu_torch.profile_decode --host
+
+Three bf16 shapes at Llama-2-7B widths (D 128, page 128, 16 table slots a
+lane): ``chip_smoke.py``'s "main" (4 lanes of 5/700/1500/2040 keys, 32
+heads) and "gqa" (the same lanes, 32 query over 8 kv heads), and
+"engine", lanes of 57/384/700/1000 keys as the engine's decode steps hold
+them.  For each, K1 runs at every pages-per-split value that gives a
+distinct number of splits; prints one JSON line per (shape, plan): device
+ms per launch under ``torch.profiler``, the bound, and whether it is the
+plan :func:`~accelerate_tpu_torch.ops.paged_attention.decode_split_plan`
+picks.  Last, the yardstick of the card's read rate: one ``torch.sum``
+over each of the "main" shape's K and V pools (the whole pool, contiguous),
+as device ms and GB/s.  With ``--host`` it prints instead, per shape, the
+host ms per call of the wrapper: the host clock over 200 calls with no
+synchronisation between them (the launch queue absorbs their kernels), so
+the kernel's own time is left out; that mode uses nothing but
+``paged_attention``, so it also times an older tree's wrapper.  Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from .ops import paged_attention as pa
+
+SHAPES = {  # lengths, query heads, kv heads
+    "main": ([5, 700, 1500, 2040], 32, 32),
+    "gqa": ([5, 700, 1500, 2040], 32, 8),
+    "engine": ([57, 384, 700, 1000], 32, 32),
+}
+PAGE, SLOTS, D = 128, 16, 128
+
+
+def _case(lengths, hq, hkv, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = len(lengths)
+    shape = (n * SLOTS + 1, PAGE, hkv, D)
+    pages = [torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(2)]
+    tables = torch.arange(1, n * SLOTS + 1, dtype=torch.int32, device="cuda").reshape(n, SLOTS)
+    q = torch.randn((n, 1, hq, D), generator=gen, device="cuda").bfloat16()
+    return q, pages[0], pages[1], tables, torch.tensor(lengths, dtype=torch.int32,
+                                                       device="cuda")
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """Host ms per call of ``fn``: no synchronisation inside the timed loop."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode: needs a CUDA card")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if "--host" in sys.argv[1:]:
+        for name, (lengths, hq, hkv) in SHAPES.items():
+            args = _case(lengths, hq, hkv)
+            print(json.dumps({"shape": name, "host_ms": host_ms(lambda: pa.paged_attention(*args)),
+                              "gpu": gpu}), flush=True)
+        return 0
+    from .profile_engine import device_ms, graph_ms, paged_bound_ms
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.decode_split_plan
+    try:
+        for name, (lengths, hq, hkv) in SHAPES.items():
+            args = _case(lengths, hq, hkv)
+            picked = plan(SLOTS, len(lengths), hkv, PAGE, sms)
+            bound, _ = paged_bound_ms(lengths, 1, hq, hkv, D, torch.bfloat16)
+            ref = pa.paged_attention(*args)
+            seen = set()
+            for pps in range(1, SLOTS + 1):
+                splits = -(-SLOTS // pps)
+                if splits in seen:
+                    continue
+                seen.add(splits)
+                pa.decode_split_plan = lambda *_, p=pps, z=splits: (p, z)
+                out = pa.paged_attention(*args)
+                ms = device_ms(lambda: pa.paged_attention(*args), 20, "paged_decode")
+                g_ms = graph_ms(lambda: pa.paged_attention(*args), 20)
+                pa.decode_split_plan = plan
+                print(json.dumps({
+                    "shape": name, "lengths": lengths, "hq": hq, "hkv": hkv,
+                    "pages_per_split": pps, "splits": splits, "picked": (pps, splits) == picked,
+                    "ms": ms, "graph_ms": g_ms, "bound_ms": bound, "share_of_bound": bound / ms,
+                    "max_abs_diff_vs_picked": (out.float() - ref.float()).abs().max().item(),
+                    "gpu": gpu,
+                }), flush=True)
+    finally:
+        pa.decode_split_plan = plan
+    _, pages_k, pages_v, _, _ = _case(*SHAPES["main"])
+    nbytes = 2 * pages_k.numel() * pages_k.element_size()
+    ms = device_ms(lambda: (pages_k.sum(dtype=torch.float32),
+                            pages_v.sum(dtype=torch.float32)), 20)
+    print(json.dumps({"shape": "stream_read", "bytes": nbytes, "ms": ms,
+                      "gb_per_s": nbytes / ms / 1e6, "gpu": gpu}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -83,6 +84,74 @@ def _recording_bounds(bounds):
 def device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", 0.0)
                  or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+#: profiler windows :func:`device_ms` traces before it times a graph instead
+PROFILE_WINDOWS = 2
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``, from CUDA events around replays of a
+    CUDA graph of ``iters`` calls: no host time, and no profiler.  It counts
+    every kernel of a call and the graph's short gaps between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
+    """Device time per call of ``fn`` under ``torch.profiler``: with
+    ``fragment``, the mean time of the kernels whose name holds it, per
+    launch; else all the kernels of ``iters`` calls, summed, per call.
+    Unlike CUDA events around the calls it leaves out the host, whose time
+    per call (a wrapper's checks, tensor maps) exceeds a short kernel's own.
+    The profiler traces a warm-up cycle of one call before the measured
+    one.  The profiler sometimes records no device activity in a window:
+    a window that holds no launch of ``fragment`` is traced again, and
+    after ``PROFILE_WINDOWS`` such windows the time is :func:`graph_ms`'s,
+    per call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for window in range(PROFILE_WINDOWS):
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+            for n in (1, iters):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the schedule's own step annotation also carries the step's device
+        # time: leave it out, or a sum over all kernels counts them twice
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+                and not e.key.startswith("ProfilerStep")
+                and (fragment is None or fragment in e.key)]
+        total_ms = sum(device_us(e) for e in evts) / 1e3
+        if fragment is None:
+            return total_ms / iters
+        seen = sum(e.count for e in evts)
+        if seen:
+            return total_ms / seen
+        print(f"device_ms: profiler window {window + 1} held no launch of {fragment}",
+              file=sys.stderr, flush=True)
+    return graph_ms(fn, iters)
 
 
 def main() -> int:

@@ -12,6 +12,14 @@ Phases, each printing one JSON line:
    A kernel's ``ms`` is its device time per launch under ``torch.profiler``
    (``wall_ms``, CUDA events around the wrapper's calls, also counts the
    host, which a short kernel does not hide); plain ms are event times.
+   Then the shapes that cut its split walk raggedly: a lane of length 0
+   beside a 2040-token lane, lengths at and one past page edges, page 16
+   (128 pages, many splits), a 3-token verify span at GQA rep 4 (rows of a
+   split wholly masked), D 64, and f32.  Each record names the ``design``
+   and its pages per split; each is also held per (lane, query, head) row,
+   ``||err|| / ||plain||`` against the plain version computed in f32
+   (``ROW_REL_TOL``), run twice for the same bits, and must leave the
+   arrival counters at zero.
 3. ``k2``      — the paged prefill kernel the same, for a 512-token chunk at
    base 0 and a 128-token chunk at base 640 (page 128, the engine's), a
    512-token chunk at page 64 and a 128-token chunk at base 600 at page 16
@@ -73,7 +81,7 @@ import torch
 from accelerate_tpu_torch.profile_engine import (
     HBM_BYTES_PER_S,
     PEAK_FLOPS,
-    device_us,
+    device_ms,
     paged_bound_ms,
 )
 
@@ -93,6 +101,13 @@ FLASH_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
 # over these cases and tests/test_torch_cuda.py's (bf16 0.0031, f32 1.7e-6;
 # PERF.md §2 keeps the readings)
 FLASH_TILE_TOL = {torch.float32: 5e-6, torch.bfloat16: 2.0**-7}
+# K1 against its plain version per (lane, query, head) row: ||err|| / ||plain||
+# over the row's D values, the plain version computed in f32 from the same
+# inputs.  The kernel keeps f32 sums and rounds its output once (bf16: near
+# 2^-9), so 2^-7 catches a wrong merge weight on a long lane, where an
+# absolute 2e-2 is over half of a typical output value (about sqrt(e / L)
+# for L random keys); f32 sums in another order read ~1e-7
+ROW_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 # train phase: the flash path's loss and gradient against the xla path's,
 # as a multiple of the xla bf16 path's own distance from an f32 run of the
 # same weights (two independent bf16 paths sit ~sqrt(2) x that apart); the
@@ -148,38 +163,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
-    """Device time per call of ``fn`` under ``torch.profiler``: with
-    ``fragment``, the mean time of the kernels whose name holds it, per
-    launch; else all the kernels of ``iters`` calls, summed, per call.
-    Unlike :func:`time_ms` it leaves out the host, whose time per call (the
-    wrapper's checks, the tensor maps) exceeds a short kernel's own.  The
-    profiler traces a warm-up cycle of one call before the measured one."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
-        for n in (1, iters):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    # the schedule's own step annotation also carries the step's device
-    # time: leave it out, or a sum over all kernels counts them twice
-    evts = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
-            and not e.key.startswith("ProfilerStep")
-            and (fragment is None or fragment in e.key)]
-    total_ms = sum(device_us(e) for e in evts) / 1e3
-    if fragment is None:
-        return total_ms / iters
-    seen = sum(e.count for e in evts)
-    check(seen > 0, f"the profiler saw no launch of {fragment}")
-    return total_ms / seen
-
-
 def spilling_kernels(logs) -> dict:
     """Mangled kernel name -> its ``ptxas -v`` spill line, for each kernel of
     the build that spills registers to local memory."""
@@ -222,18 +205,20 @@ def paged_case(seed, lengths, s, hq, hkv, d, page, ppl, dtype):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def kernel_phase(name, kernel, plain, fragment, cases, design=None):
-    """Hold ``kernel`` against ``plain`` on every case; returns the first
-    (main-path) case's record.  ``launches`` counts the kernel's launches in
-    the case (one checked call, then the timing loops); ``ms`` is its device
-    time per launch (device entries named with ``fragment``), ``wall_ms``
-    the CUDA-event time per call of the wrapper.  ``design(dtype,
-    page)`` names the kernel's arm; where given (K2), a bf16 case is also
-    held per tile of 64 positions of one head against the plain version
-    computed in f32 from the same bf16 inputs (``FLASH_TILE_TOL``)."""
+def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
+    """Hold ``kernel`` against ``plain`` on every case ``(label, seed,
+    lengths, s, hq, hkv, dtype, page[, d])``; returns the first (main-path)
+    case's record.  ``launches`` counts the kernel's launches in the case
+    (the checked calls, then the timing loops); ``ms`` is its device time
+    per launch (device entries named with ``fragment``), ``wall_ms`` the
+    CUDA-event time per call of the wrapper.  ``describe(args)`` names the
+    kernel's arm (a dict for the record); ``extra_checks(out, args)``
+    returns the kernel's own further readings and ``(passed, message)``
+    checks."""
     records = []
-    for label, seed, lengths, s, hq, hkv, dtype, page in cases:
-        args = paged_case(seed, lengths, s, hq, hkv, 128, page, 2048 // page, dtype)
+    for label, seed, lengths, s, hq, hkv, dtype, page, *rest in cases:
+        d = rest[0] if rest else 128
+        args = paged_case(seed, lengths, s, hq, hkv, d, page, 2048 // page, dtype)
         launches0 = kernel.launches
         out = kernel(*args)
         ref = plain(*args)
@@ -242,18 +227,13 @@ def kernel_phase(name, kernel, plain, fragment, cases, design=None):
         tol = TOL[name][dtype]
         check(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output "
               "(a dead or stale page was read)")
-        bms, by = paged_bound_ms(lengths, s, hq, hkv, 128, dtype)
+        bms, by = paged_bound_ms(lengths, s, hq, hkv, d, dtype)
         rec = dict(
             case=label, dtype=str(dtype).replace("torch.", ""), lengths=lengths, s=s,
-            hq=hq, hkv=hkv, page=page, max_abs_err=err, tolerance=tol,
+            hq=hq, hkv=hkv, d=d, page=page, **describe(args), max_abs_err=err, tolerance=tol,
         )
-        tile_err = None
-        if design is not None:
-            rec["design"] = design(dtype, page)
-            if dtype == torch.bfloat16:
-                q, pages_k, pages_v = (t.float() for t in args[:3])
-                tile_err = tile_rel_err(out, plain(q, pages_k, pages_v, *args[3:]))
-                rec.update(tile_rel_err_vs_f32=tile_err, tile_tolerance=FLASH_TILE_TOL[dtype])
+        readings, checks = extra_checks(out, args)
+        rec.update(readings)
         rec.update(
             ms=device_ms(lambda: kernel(*args), 20, fragment),
             wall_ms=time_ms(lambda: kernel(*args), 20),
@@ -263,10 +243,72 @@ def kernel_phase(name, kernel, plain, fragment, cases, design=None):
         rec["launches"] = kernel.launches - launches0
         emit({"phase": name, **rec})
         check(err <= tol, f"{name} {label}: max abs err {err} > tolerance {tol}")
-        check(tile_err is None or tile_err <= FLASH_TILE_TOL[dtype],
-              f"{name} {label}: tile relative err {tile_err} > {FLASH_TILE_TOL[dtype]}")
+        for passed, message in checks:
+            check(passed, f"{name} {label}: {message}")
         records.append(rec)
     return records[0]
+
+
+def plain_f32(plain, args):
+    """The plain version on the same values in f32 (bf16 values are exact
+    in f32): the yardstick that keeps f32 sums, as the kernels do."""
+    return plain(*(t.float() for t in args[:3]), *args[3:])
+
+
+def k2_checks(out, args):
+    """A bf16 K2 case is held per tile of 64 positions of one head against
+    the plain version computed in f32 (``FLASH_TILE_TOL``)."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    if out.dtype != torch.bfloat16:
+        return {}, []
+    err = tile_rel_err(out, plain_f32(pa.paged_flash_prefill_reference, args))
+    tol = FLASH_TILE_TOL[torch.bfloat16]
+    return ({"tile_rel_err_vs_f32": err, "tile_tolerance": tol},
+            [(err <= tol, f"tile relative err {err} > {tol}")])
+
+
+def row_rel_err(got, want) -> float:
+    """Largest ``||got - want|| / ||want||`` over the rows of the last
+    dimension: 0 on a row where both are 0, infinite where only the plain
+    value is."""
+    err = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    return torch.where(err == 0, torch.zeros_like(err), err / ref).max().item()
+
+
+def k1_checks(out, args):
+    """K1 per (lane, query, head) row against the plain version in f32
+    (``ROW_REL_TOL``), a second run that must give the same bits, and the
+    arrival counters, which every launch must leave at zero."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    err = row_rel_err(out, plain_f32(pa.paged_attention_reference, args))
+    tol = ROW_REL_TOL[out.dtype]
+    repeat = torch.equal(out, pa.paged_attention(*args))
+    pending = pa.pending_split_counters()
+    return ({"row_rel_err_vs_f32": err, "row_tolerance": tol, "bitwise_repeatable": repeat,
+             "pending_counters": pending},
+            [(err <= tol, f"row relative err {err} > {tol}"),
+             (repeat, "two runs gave different bits"),
+             (pending == 0, f"the arrival counters were left at {pending}")])
+
+
+def k1_describe(args):
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    q, pages_k, _, tables, _ = args
+    pps, splits = pa.decode_split_plan(tables.shape[1], q.shape[0], pages_k.shape[2],
+                                       pages_k.shape[1], torch.cuda.get_device_properties(
+                                           q.device).multi_processor_count)
+    return {"design": pa.DECODE_DESIGN, "pages_per_split": pps, "splits": splits}
+
+
+def k2_describe(args):
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    q, pages_k = args[:2]
+    return {"design": pa.prefill_design(q.dtype, pages_k.dtype, pages_k.shape[1])}
 
 
 # -------------------------------------------------------------------- model
@@ -729,7 +771,18 @@ def main() -> int:
         ("main", 2, ragged, 1, 32, 32, f32, 128),
         ("gqa", 3, ragged, 1, 32, 8, bf16, 128),
         ("gqa", 4, ragged, 1, 32, 8, f32, 128),
-    ])
+        # the split walk cut raggedly: an empty lane beside a full one, the
+        # page edges, 128 pages of 16 over many splits, a verify span whose
+        # early rows see none of a late split's keys (gs 12), D 64
+        ("len0_2040", 21, [0, 2040], 1, 32, 32, bf16, 128),
+        ("page_edges", 22, [127, 128, 255], 1, 32, 32, bf16, 128),
+        ("page16", 23, [5, 2040], 1, 32, 32, bf16, 16),
+        ("verify3_gqa", 24, ragged, 3, 32, 8, bf16, 128),
+        ("gqa_d64", 25, ragged, 1, 32, 8, bf16, 128, 64),
+        ("page16", 26, [5, 2040], 1, 32, 32, f32, 16),
+        ("verify3_gqa", 27, ragged, 3, 32, 8, f32, 128),
+        ("gqa_d64", 28, ragged, 1, 32, 8, f32, 128, 64),
+    ], k1_describe, k1_checks)
     k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
                       "paged_prefill", [
         ("chunk512_base0", 5, [0], 512, 32, 32, bf16, 128),
@@ -744,7 +797,7 @@ def main() -> int:
         # last tiles straddle the frontier and the NaN-filled dead pages
         ("chunk512_base0_page64", 19, [0], 512, 32, 32, bf16, 64),
         ("chunk128_base600_page16", 20, [600], 128, 32, 32, bf16, 16),
-    ], design=lambda dtype, page: pa.prefill_design(dtype, dtype, page))
+    ], k2_describe, k2_checks)
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
     model = Transformer(cfg, device="cuda", dtype=bf16)

@@ -17,7 +17,11 @@ that an error in one tile cannot hide under the largest value.  The bf16
 tensor-core arm of the paged prefill kernel (K2) is held the same way per
 tile, against the plain version computed in f32 from the same bf16 inputs
 (it rounds the probabilities to bf16 before P.V), and to 3e-2 absolute
-against the plain bf16 version, as ``chip_smoke.py`` holds it.
+against the plain bf16 version, as ``chip_smoke.py`` holds it.  The paged
+decode kernel (K1), whose lanes split across CTAs and merge, is also held
+per (lane, query, head) row against the plain version in f32
+(``ROW_REL_TOL``: bf16 2^-7, f32 1e-5), must repeat bit for bit, and must
+leave its arrival counters at zero.
 """
 
 import functools
@@ -36,7 +40,14 @@ from accelerate_tpu_torch.serving import ServingEngine
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.weights import init_params
 from accelerate_tpu_torch.ops import _build
-from chip_smoke import FLASH_REL_TOL, FLASH_TILE_TOL, TOL, tile_rel_err
+from chip_smoke import (
+    FLASH_REL_TOL,
+    FLASH_TILE_TOL,
+    ROW_REL_TOL,
+    TOL,
+    row_rel_err,
+    tile_rel_err,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,13 +91,14 @@ def test_kernel_matches_plain(card, kernel, plain, s, dtype, atol, hkv, d, page)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 
-def _prefill_case(card, lengths, s, hq, hkv, d, page, seed=0):
+def _prefill_case(card, lengths, s, hq, hkv, d, page, seed=0, ppl=None):
     """bf16 paged prefill state whose dead table slots (past each lane's live
     pages) point at NaN-filled pages; the null page 0 holds zeros, as the
-    plain version reads it for dead slots."""
+    plain version reads it for dead slots.  ``ppl`` table slots per lane
+    (default: two past the longest lane's live pages)."""
     gen = torch.Generator(device=card).manual_seed(seed)
     n = len(lengths)
-    ppl = max((length + s - 1) // page + 1 for length in lengths) + 2
+    ppl = ppl or max((length + s - 1) // page + 1 for length in lengths) + 2
     live_pages = n * ppl + 1
     shape = (live_pages + 1, page, hkv, d)
     pages = [torch.randn(shape, generator=gen, device=card) for _ in range(2)]
@@ -150,6 +162,78 @@ def test_paged_prefill_route(card, page, dtype, design):
                 2, 70, 4, 2, 64, page, pk.shape[0], tables.shape[1],
                 int(dtype == torch.bfloat16), int(dtype == torch.bfloat16), 1, 0.125,
                 torch.cuda.current_stream().cuda_stream)
+
+
+K1_CASES = [
+    # lengths, s, hq, hkv, d, page, table slots per lane
+    ([5, 700, 1500, 2040], 1, 32, 32, 128, 128, 16),  # the serving path's shape
+    ([0, 2040], 1, 8, 8, 128, 128, 16),      # an empty lane beside a full one
+    ([127, 128, 255], 1, 8, 8, 128, 128, 4),  # at and one past page edges
+    ([2040, 33], 1, 8, 8, 128, 16, 128),     # 128 pages of 16: many splits
+    ([5, 700, 2040], 3, 8, 2, 128, 128, 16),  # verify span, rep 4 (gs 12)
+    ([5, 300, 1000], 1, 8, 2, 64, 128, 16),   # D 64
+    ([9, 250], 4, 16, 2, 64, 24, 12),        # gs 32, a page of 24 keys
+    ([3, 40, 77], 2, 4, 4, 128, 8, 16),      # pages of 8, a 2-token span
+]
+
+
+@pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+])
+@pytest.mark.parametrize("lengths,s,hq,hkv,d,page,ppl", K1_CASES)
+def test_paged_decode_split(card, dtype, q_dtype, lengths, s, hq, hkv, d, page, ppl):
+    """K1's split walk over NaN dead pages against the plain version: within
+    its absolute tolerance, per row against the plain version in f32, bit
+    for bit on a second run, and the arrival counters left at zero."""
+    q, pk, pv, tables, lens = _prefill_case(card, lengths, s, hq, hkv, d, page,
+                                            seed=len(lengths) * page + s, ppl=ppl)
+    args = (q.to(q_dtype), pk.to(dtype), pv.to(dtype), tables, lens)
+    # f32 tensors take values off the bf16 grid
+    args = (*(t + torch.randn(t.shape, device=card) * 2.0**-10 if t.dtype == torch.float32
+              else t for t in args[:3]), tables, lens)
+    out = pa.paged_attention(*args)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_attention_reference(*args)
+    rows32 = (args[0].dtype, args[1].dtype) == (torch.float32, torch.float32)
+    atol = TOL["k1"][torch.float32 if rows32 else torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    ref32 = pa.paged_attention_reference(*(t.float() for t in args[:3]), tables, lens)
+    assert row_rel_err(out, ref32) <= ROW_REL_TOL[out.dtype]
+    assert torch.equal(out, pa.paged_attention(*args))
+    assert pa.pending_split_counters() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_page_scales(card, dtype):
+    """Per-(page, kv-head) scales, as quantized pages will carry: K1 scales
+    each key's logit by its k-scale and its probability by its v-scale, the
+    plain version scales the pages before the products."""
+    q, pk, pv, tables, lens = _prefill_case(card, [40, 700, 2040], 1, 8, 4, 128, 128,
+                                            seed=5, ppl=16)
+    args = (q.to(dtype), pk.to(dtype), pv.to(dtype), tables, lens)
+    gen = torch.Generator(device=card).manual_seed(6)
+    scales = [0.5 + 1.5 * torch.rand((pk.shape[0], 4), generator=gen, device=card)
+              for _ in range(2)]
+    out = pa.paged_attention(*args, k_scales=scales[0], v_scales=scales[1])
+    assert bool(torch.isfinite(out).all())
+    ref32 = pa.paged_attention_reference(*(t.float() for t in args[:3]), tables, lens,
+                                         k_scales=scales[0], v_scales=scales[1])
+    assert row_rel_err(out, ref32) <= ROW_REL_TOL[dtype]
+    unscaled = pa.paged_attention(*args)
+    assert row_rel_err(unscaled, ref32) > 100 * ROW_REL_TOL[dtype]
+
+
+def test_paged_decode_shapes_in_turn(card):
+    """Calls at one shape, then another, then the first again: each right,
+    so every launch leaves the arrival counters at zero for the next."""
+    cases = [_prefill_case(card, lengths, 1, 8, 8, 128, 128, seed=i, ppl=16)
+             for i, lengths in enumerate(([700, 2040], [5, 300, 1000, 2040, 64]))]
+    for args in (cases[0], cases[1], cases[0], cases[1]):
+        out = pa.paged_attention(*args)
+        ref32 = pa.paged_attention_reference(*(t.float() for t in args[:3]), *args[3:])
+        assert row_rel_err(out, ref32) <= ROW_REL_TOL[torch.bfloat16]
+    assert pa.pending_split_counters() == 0
 
 
 def test_launch_counters_count_kernel_launches_only(card):

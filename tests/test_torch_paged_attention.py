@@ -13,6 +13,7 @@ rounds logits and probabilities to bf16 where the kernel keeps f32, the JAX
 package's own bf16 bounds.
 """
 
+import inspect
 import zlib
 
 import jax.numpy as jnp
@@ -26,16 +27,18 @@ from accelerate_tpu_torch.ops import paged_attention as tpa
 STALE = 1e4  # stale pages past a lane's frontier hold large finite garbage
 
 
-def _scenario(seed, n, s, page, pages_per_lane, hkv, rep, d):
+def _scenario(seed, n, s, page, pages_per_lane, hkv, rep, d, lengths=None):
     """Ragged paged-KV state as numpy: per-lane tables over a shared pool,
     the ``s`` new positions' KV already inserted, and every table slot past
-    a lane's live pages holding another lane's id or a stale page."""
+    a lane's live pages holding another lane's id or a stale page.  Lengths
+    are drawn from the seed unless given."""
     rng = np.random.default_rng(seed)
     num_pages = n * pages_per_lane + 2
     stale = num_pages - 1
     tables = np.arange(1, n * pages_per_lane + 1).reshape(n, pages_per_lane).astype(np.int32)
     cap = page * (pages_per_lane - 1) - s
-    lengths = rng.integers(0, cap + 1, n).astype(np.int32)
+    drawn = rng.integers(0, cap + 1, n).astype(np.int32)
+    lengths = drawn if lengths is None else np.asarray(lengths, np.int32)
     pages_k = np.zeros((num_pages, page, hkv, d), np.float32)
     pages_v = np.zeros((num_pages, page, hkv, d), np.float32)
     pages_k[stale] = STALE
@@ -113,6 +116,110 @@ class TestDecodeParity:
         out2 = tpa.paged_attention(args[0], torch.from_numpy(pk2), torch.from_numpy(pv2),
                                    *args[3:])
         torch.testing.assert_close(out, out2, rtol=0, atol=0)
+
+
+# ------------------------------------------------- K1's split walk and merge
+MASK_VALUE = np.float32(-0.7 * np.finfo(np.float32).max)  # the kernels' finite mask
+
+
+def _split_merge_model(q, pages_k, pages_v, tables, lengths, pps):
+    """Plain f32 model of K1's algorithm, for the tests only: split ``z`` of
+    (lane, kv-head) walks the table slots ``[z * pps, (z + 1) * pps)`` up to
+    the lane's last key; a split past the live pages does nothing.  Each
+    working split keeps its partial (m, l, acc) over its keys, masked keys
+    at the finite mask value (a row that sees none of a split's keys keeps
+    m at the mask, which the merge weighs by 0), and the partials merge in
+    split order; l == 0 reads as 1."""
+    q, pages_k, pages_v = (np.asarray(a, np.float32) for a in (q, pages_k, pages_v))
+    n, s, hq, d = q.shape
+    page, hkv = pages_k.shape[1], pages_k.shape[2]
+    rep, num_p = hq // hkv, tables.shape[1]
+    out = np.zeros_like(q)
+    rows = np.arange(rep * s)
+    for lane in range(n):
+        length = int(lengths[lane])
+        live = min((length + s - 1) // page + 1, num_p)
+        last = min(length + s, live * page)
+        visible_to = length + rows % s                   # row r sees keys <= this
+        for h in range(hkv):
+            # fold the group's heads into rows, group-major: r -> head h * rep + r // s
+            qf = q[lane, :, h * rep:(h + 1) * rep].transpose(1, 0, 2).reshape(rep * s, d)
+            qf = qf * np.float32(d ** -0.5)
+            parts = []
+            for z in range(-(-num_p // pps)):
+                if z * pps >= live:
+                    break
+                keys = np.arange(z * pps * page, min((z + 1) * pps * page, last))
+                pid = tables[lane, keys // page]
+                k = pages_k[pid, keys % page, h]
+                v = pages_v[pid, keys % page, h]
+                x = np.where(keys[None, :] <= visible_to[:, None], qf @ k.T, MASK_VALUE)
+                m = x.max(axis=1)
+                p = np.exp(x - m[:, None])
+                parts.append((m, p.sum(axis=1), p @ v))
+            top = np.max([m for m, _, _ in parts], axis=0)
+            weights = [np.exp(m - top) for m, _, _ in parts]
+            l_sum = sum(w * l for w, (_, l, _) in zip(weights, parts))
+            acc = sum(w[:, None] * a for w, (_, _, a) in zip(weights, parts))
+            o = acc / np.where(l_sum == 0, 1.0, l_sum)[:, None]
+            out[lane, :, h * rep:(h + 1) * rep] = o.reshape(rep, s, d).transpose(1, 0, 2)
+    return out
+
+
+SPLIT_CASES = DECODE_CASES + [
+    # n, s, page, pages_per_lane, hkv, rep, d, lengths
+    (2, 1, 8, 5, 2, 1, 16, [0, 30]),    # an empty lane beside a long one
+    (2, 5, 8, 4, 2, 2, 16, [15, 0]),    # keys 16..19 are a split no row 0 sees
+]
+
+
+class TestSplitWalk:
+    @pytest.mark.parametrize("pps", [1, 2, None])
+    @pytest.mark.parametrize("case", SPLIT_CASES)
+    def test_split_merge_model_matches_jax_kernel(self, case, pps):
+        n, s, page, ppl, hkv, rep, d, *lengths = case
+        arrays = _scenario(zlib.crc32(repr(("split", case)).encode()), n, s, page, ppl, hkv,
+                           rep, d, lengths=lengths[0] if lengths else None)
+        q, pk, pv, tables, lens = arrays
+        if pps is None:  # the plan for a small card: several splits per lane
+            pps, _ = tpa.decode_split_plan(ppl, n, hkv, page, sm_count=2)
+        ref = jpa.paged_attention(*(jnp.asarray(a) for a in arrays))
+        out = _split_merge_model(q, pk, pv, tables, lens, pps)
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, np.asarray(ref, np.float32), atol=2e-5)
+
+    @pytest.mark.parametrize("num_p,n,hkv,page,sm_count", [
+        (16, 4, 32, 128, 132),    # the serving path: 4 lanes x 32 heads, page 128
+        (16, 4, 8, 128, 132),     # GQA 32/8
+        (16, 2, 32, 128, 132),
+        (128, 2, 32, 16, 132),    # pages of 16: a split walks at least 128 keys
+        (256, 1, 1, 8, 132),      # one lane, one head: the split cap
+        (1000, 1, 1, 128, 132),
+        (13, 64, 32, 128, 132),   # more (lane, head) pairs than CTAs wanted
+        (7, 3, 2, 24, 1),
+        (1, 1, 1, 4, 132),
+    ])
+    def test_split_plan_tiles_the_table(self, num_p, n, hkv, page, sm_count):
+        """The splits lie inside the table and cover every slot once; for
+        any lengths, the splits a launch walks (those starting inside the
+        lane's live pages) cover exactly the live pages."""
+        pps, splits = tpa.decode_split_plan(num_p, n, hkv, page, sm_count)
+        assert 1 <= pps <= num_p and 1 <= splits <= 64
+        spans = [range(z * pps, min((z + 1) * pps, num_p)) for z in range(splits)]
+        assert all(len(span) > 0 for span in spans)
+        assert [p for span in spans for p in span] == list(range(num_p))
+        rng = np.random.default_rng(num_p * n + page)
+        for s in (1, 3):
+            for length in rng.integers(0, num_p * page - s + 1, 20):
+                live = (int(length) + s - 1) // page + 1
+                walked = [p for span in spans if span.start < live for p in span if p < live]
+                assert walked == list(range(live))
+
+    def test_split_plan_never_reads_lengths(self):
+        """The plan is a function of shapes and the card: nothing a launch
+        would have to read back from the device."""
+        params = inspect.signature(tpa.decode_split_plan).parameters
+        assert list(params) == ["num_p", "n", "hkv", "page", "sm_count"]
 
 
 class TestPrefillParity:
