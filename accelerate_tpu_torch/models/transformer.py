@@ -10,8 +10,9 @@ logits come out in f32.
 Two attention branches, as in the JAX ``Attention``:
 
 * with a :class:`PagedKVCache` — the serving path: the new K/V are scattered
-  into the page pool in place, then attention reads the pages through the
-  block tables with the decode kernel (K1) or the prefill kernel (K2);
+  into the page pool in place (int8 and fp8 pages requantized per touched
+  page), then attention reads the pages through the block tables with the
+  decode kernel (K1) or the prefill kernel (K2);
 * without a cache — the training path and the independent forward the
   serving path is checked against: causal
   :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention` with
@@ -37,7 +38,13 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops.attention import check_implementation, dot_product_attention
-from ..ops.paged_attention import paged_attention, paged_flash_prefill, paged_insert
+from ..ops.paged_attention import (
+    kv_qmax,
+    paged_attention,
+    paged_flash_prefill,
+    paged_insert,
+    paged_quantized_insert,
+)
 
 #: Llama-recipe values of the JAX config's family switches; any other value
 #: is a family this slice has not ported
@@ -121,7 +128,10 @@ class PagedKVCache:
     next write position per lane, ``active [N]`` bool write gate (inactive
     lanes' writes go to the null page).  ``kernel`` picks the attention
     kernel: ``"decode"`` (K1, :func:`paged_attention`) or ``"prefill"`` (K2,
-    :func:`paged_flash_prefill`)."""
+    :func:`paged_flash_prefill`).  ``quant_err`` is the running max of the
+    round-trip error of every value a quantized-page forward wrote, an f32
+    device scalar (``None`` until one writes; the reference's
+    ``PagedKVCache.quant_err``, ``accelerate_tpu/models/transformer.py:349``)."""
 
     pages_k: torch.Tensor
     pages_v: torch.Tensor
@@ -131,6 +141,7 @@ class PagedKVCache:
     index: torch.Tensor
     active: torch.Tensor
     kernel: str = "decode"
+    quant_err: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.kernel not in ("decode", "prefill"):
@@ -216,11 +227,24 @@ class Attention(nn.Module):
             # scatter the new KV through the block tables, then attend over the
             # pages in place; ``index`` doubles as each lane's pre-write length
             pages_k, pages_v = cache.pages_k[layer], cache.pages_v[layer]
-            paged_insert(pages_k, k, cache.tables, cache.index, cache.active)
-            paged_insert(pages_v, v, cache.tables, cache.index, cache.active)
+            k_scales, v_scales = cache.k_scales[layer], cache.v_scales[layer]
+            if kv_qmax(pages_k.dtype) is not None:
+                # quantized pages: each touched page requantized, its scales
+                # rewritten in place; the larger error of K and V carried
+                # (accelerate_tpu/models/transformer.py:596-604)
+                _, _, err_k = paged_quantized_insert(pages_k, k_scales, k, cache.tables,
+                                                     cache.index, cache.active)
+                _, _, err_v = paged_quantized_insert(pages_v, v_scales, v, cache.tables,
+                                                     cache.index, cache.active)
+                err = torch.maximum(err_k, err_v)
+                cache.quant_err = err if cache.quant_err is None \
+                    else torch.maximum(cache.quant_err, err)
+            else:
+                paged_insert(pages_k, k, cache.tables, cache.index, cache.active)
+                paged_insert(pages_v, v, cache.tables, cache.index, cache.active)
             attend = paged_flash_prefill if cache.kernel == "prefill" else paged_attention
             out = attend(q, pages_k, pages_v, cache.tables, cache.index,
-                         k_scales=cache.k_scales[layer], v_scales=cache.v_scales[layer])
+                         k_scales=k_scales, v_scales=v_scales)
         else:
             out = dot_product_attention(q, k, v, causal=True,
                                         implementation=cfg.attention_impl)

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library at first use — one ``nvcc`` per source, all started together —
 and loaded with :mod:`ctypes`.  No PyTorch headers and no ``ninja`` are
-involved, so a build takes seconds.  Libraries land in ``ops/build/``
-(ignored by git) under a name carrying a hash of the sources, so an edited
-kernel is rebuilt and an unchanged one is reused; each library's
+involved.  Libraries land in ``ops/build/`` (ignored by git) under a name
+carrying a hash of the sources, so an edited kernel is rebuilt and an
+unchanged one is reused; each library's
 ``nvcc -Xptxas -v`` report (registers, shared memory, spills) lands beside it
 as ``.log``.  A failed build raises: there is no fallback to the plain
 PyTorch versions.
@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -28,10 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: paged decode: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
 #: out, part, counters; n, s, hq, hkv, d, page, num_p, pps, nsplit, q_bf16,
-#: kv_bf16; scale; stream
+#: kv_format (0 f32, 1 bf16, 2 int8, 3 fp8-e4m3); scale; stream
 _DECODE_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
 #: paged prefill: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
-#: out; n, s, hq, hkv, d, page, num_pages, num_p, q_bf16, kv_bf16,
+#: out; n, s, hq, hkv, d, page, num_pages, num_p, q_bf16, kv_format,
 #: tensor_cores; scale; stream
 _PREFILL_ARGS = [_P] * 8 + [_I] * 11 + [_F, _P]
 #: flash forward: q, k, v, seg, out, lse; b, sq, sk, hq, hkv, d, seg_stride,
@@ -59,6 +60,9 @@ _libs: Optional[Dict[str, ctypes.CDLL]] = None
 
 #: wall seconds the last :func:`load` spent compiling (0.0 when cached)
 build_seconds = 0.0
+#: wall seconds of each library's own ``nvcc``, as the last :func:`load`
+#: compiled them side by side (empty when cached)
+build_times: Dict[str, float] = {}
 #: ``nvcc -Xptxas -v`` output of each loaded library's build, per library
 #: (read back from its ``.log`` when the library was cached)
 build_logs: Dict[str, str] = {}
@@ -98,21 +102,24 @@ def _build_all(tag: str) -> Dict[str, Path]:
         return outputs
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = {}
-    for name, out in missing.items():
+
+    def compile_one(name: str, out: Path):
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build_times[name] = time.perf_counter() - start
+        return name, proc, tmp, out
+
     failures = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
+    with ThreadPoolExecutor(max_workers=len(missing)) as pool:
+        for name, proc, tmp, out in pool.map(lambda kv: compile_one(*kv), missing.items()):
+            build_logs[name] = proc.stdout
+            out.with_suffix(".log").write_text(proc.stdout)
+            if proc.returncode != 0:
+                failures.append(f"{name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+                continue
+            os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))

@@ -262,20 +262,11 @@ __device__ __forceinline__ void mma_probs_by_tile(float (&acc)[D / 2], const uin
   }
 }
 
-// Host: a 4D tensor map over a contiguous bf16 [B, S, H, D] tensor (BSHD)
-// whose box is one swizzled panel of 64 columns of `heads` heads x `rows`
-// sequence positions, heads fastest: for K and V a box of 1 head x 64 keys,
-// for Q and dO a folded q-block (rep heads x block_q queries, query-major
-// as the kernels fold them).  A box never crosses from one batch into the
-// next, and positions past S land as zeros.  The KV page pool [NP, page,
-// Hkv, D] is the same shape with pages for batches: a box of 1 head x
-// min(page, 64) keys of one page (a box wholly past the last page lands as
-// zeros).  The encoder is looked up
-// through the CUDA runtime, so the library links nothing beyond cudart.
-inline cudaError_t make_panel_tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
-                                         int d, int heads, int rows) {
-  using Encode = decltype(&cuTensorMapEncodeTiled);
-  static Encode encode = nullptr;
+// Host: the tensor-map encoder (cuTensorMapEncodeTiled), looked up once through the CUDA
+// runtime, so the library links nothing beyond cudart.
+using TiledEncode = decltype(&cuTensorMapEncodeTiled);
+inline cudaError_t tiled_encoder(TiledEncode* out) {
+  static TiledEncode encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -288,8 +279,26 @@ inline cudaError_t make_panel_tensor_map(CUtensorMap* map, const void* ptr, int 
 #endif
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TiledEncode>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// Host: a 4D tensor map over a contiguous bf16 [B, S, H, D] tensor (BSHD)
+// whose box is one swizzled panel of 64 columns of `heads` heads x `rows`
+// sequence positions, heads fastest: for K and V a box of 1 head x 64 keys,
+// for Q and dO a folded q-block (rep heads x block_q queries, query-major
+// as the kernels fold them).  A box never crosses from one batch into the
+// next, and positions past S land as zeros.  The KV page pool [NP, page,
+// Hkv, D] is the same shape with pages for batches: a box of 1 head x
+// min(page, 64) keys of one page (a box wholly past the last page lands as
+// zeros).
+inline cudaError_t make_panel_tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
+                                         int d, int heads, int rows) {
+  TiledEncode encode;
+  const cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)d * 2 * h,
                                  (cuuint64_t)d * 2 * h * s};
@@ -298,6 +307,26 @@ inline cudaError_t make_panel_tensor_map(CUtensorMap* map, const void* ptr, int 
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Host: a 4D tensor map over a contiguous 1-byte [B, S, H, D] tensor (the
+// quantized page pool [NP, page, Hkv, D]) whose box is whole rows of D
+// bytes of one head x `rows` positions, unswizzled: row r of a box lands at
+// byte r * D.  As above, a box wholly past the last page lands as zeros.
+inline cudaError_t make_byte_tensor_map(CUtensorMap* map, const void* ptr, int b, int s, int h,
+                                        int d, int rows) {
+  TiledEncode encode;
+  const cudaError_t err = tiled_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d, (cuuint64_t)d * h, (cuuint64_t)d * h * s};
+  const cuuint32_t box[4] = {(cuuint32_t)d, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

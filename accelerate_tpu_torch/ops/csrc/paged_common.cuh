@@ -1,16 +1,19 @@
 // Shared pieces of the paged attention kernels (paged_attention.cu,
 // paged_prefill.cu): dtype conversion, warp reductions, the K/V page-tile
-// loader and the launch dispatch over (q dtype, page dtype, head dim).
+// loader and the launch dispatch over (q dtype, page format, head dim).
 //
 // Layout contract, identical to accelerate_tpu/ops/paged_attention.py:
-//   q, out   [N, S, Hq, D]        f32 or bf16, contiguous
-//   pages    [NP, page, Hkv, D]   f32 or bf16, contiguous (one layer)
-//   scales   [NP, Hkv]            f32 dequantization scales (ones for native pages)
+//   q, out   [N, S, Hq, D]        f32 or bf16, contiguous; D 16, 32, 64 or 128
+//   pages    [NP, page, Hkv, D]   f32, bf16, int8 or fp8-e4m3, contiguous (one layer)
+//   scales   [NP, Hkv]            f32 dequantization scales (ones for native pages):
+//                                 a page's value is its code times its scale
 //   tables   [N, P]               int32 block tables, dead slots hold page 0
 //   lengths  [N]                  int32, query i of lane n sits at lengths[n] + i
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -24,6 +27,10 @@ constexpr float kMaskValue = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// quantized page codes (exact in f32): int8, and fp8-e4m3 (the dequant arm
+// of the TPU kernels, accelerate_tpu/ops/paged_attention.py:291 and :511)
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -116,21 +123,31 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 }  // namespace atpu
 
-// Expand LAUNCH(QT, KT, D) for the (q dtype, page dtype, head dim) of a call;
-// returns cudaErrorInvalidValue for a combination the kernels do not take.
-#define ATPU_DISPATCH(q_bf16, kv_bf16, d, LAUNCH)                                   \
+// The page formats, by the wrappers' codes (ops/paged_attention.py
+// _PAGE_FORMATS): 0 f32, 1 bf16, 2 int8, 3 fp8-e4m3.
+#define ATPU_PAGE_CASES(kv_fmt, QT, D, LAUNCH)                                      \
+  if (kv_fmt == 0) return LAUNCH(QT, float, D);                                     \
+  if (kv_fmt == 1) return LAUNCH(QT, __nv_bfloat16, D);                             \
+  if (kv_fmt == 2) return LAUNCH(QT, int8_t, D);                                    \
+  if (kv_fmt == 3) return LAUNCH(QT, __nv_fp8_e4m3, D);
+
+#define ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, D, LAUNCH)                            \
+  if (d == D) {                                                                     \
+    if (q_bf16) {                                                                   \
+      ATPU_PAGE_CASES(kv_fmt, __nv_bfloat16, D, LAUNCH)                             \
+    } else {                                                                        \
+      ATPU_PAGE_CASES(kv_fmt, float, D, LAUNCH)                                     \
+    }                                                                               \
+    return static_cast<int>(cudaErrorInvalidValue);                                 \
+  }
+
+// Expand LAUNCH(QT, KT, D) for the (q dtype, page format, head dim) of a
+// call; returns cudaErrorInvalidValue for a combination it does not take.
+#define ATPU_DISPATCH(q_bf16, kv_fmt, d, LAUNCH)                                    \
   do {                                                                              \
-    if (d == 128) {                                                                 \
-      if (q_bf16 && kv_bf16) return LAUNCH(__nv_bfloat16, __nv_bfloat16, 128);      \
-      if (q_bf16 && !kv_bf16) return LAUNCH(__nv_bfloat16, float, 128);             \
-      if (!q_bf16 && kv_bf16) return LAUNCH(float, __nv_bfloat16, 128);             \
-      return LAUNCH(float, float, 128);                                             \
-    }                                                                               \
-    if (d == 64) {                                                                  \
-      if (q_bf16 && kv_bf16) return LAUNCH(__nv_bfloat16, __nv_bfloat16, 64);       \
-      if (q_bf16 && !kv_bf16) return LAUNCH(__nv_bfloat16, float, 64);              \
-      if (!q_bf16 && kv_bf16) return LAUNCH(float, __nv_bfloat16, 64);              \
-      return LAUNCH(float, float, 64);                                              \
-    }                                                                               \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 128, LAUNCH)                              \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 64, LAUNCH)                               \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 32, LAUNCH)                               \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 16, LAUNCH)                               \
     return static_cast<int>(cudaErrorInvalidValue);                                 \
   } while (0)

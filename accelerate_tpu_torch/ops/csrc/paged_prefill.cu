@@ -30,8 +30,9 @@
 // keys up to the block's causal frontier: pages past it are never read, and
 // each K/V tile serves all the block's rows (every head of the GQA group).
 //
-// bf16 q and pages, a page of 8, 16 or 32 keys or a multiple of 64
-// (paged_prefill_wgmma_kernel): the tensor cores, K3's design
+// bf16 q over bf16, int8 or fp8-e4m3 pages, D 64 or 128, a page of 8, 16
+// or 32 keys or a multiple of 64 (paged_prefill_wgmma_kernel): the tensor
+// cores, K3's design
 // (flash_fwd.cu, flash_wgmma.cuh) over the page pool.  One consumer
 // warpgroup owns the q-block (wgmma's M) and one producer warp feeds it by
 // TMA: the folded q-block is one box per 64-column panel of the [N, S, Hq,
@@ -58,8 +59,22 @@
 // D 128): a 128-token chunk of 32 heads is only 64 q-blocks, and two
 // q-blocks per CTA would leave most of the 132 SMs idle.
 //
-// Every other call (f32 or mixed dtypes, other page sizes:
-// paged_prefill_kernel): the CUDA cores, in f32 from the page dtype with q
+// Quantized pages on the tensor cores (the dequant arm, :511).  wgmma takes
+// no int8 or e4m3 B operand against a bf16 A, so the TMA lands each K/V
+// tile as its 1-byte codes, unswizzled (a box of whole D-byte rows), and
+// the consumer warpgroup converts it into the bf16 swizzled tiles that
+// wgmma reads: each key's codes times its page's scale, rounded once to
+// bf16 - the TPU kernel's dequantized tile k.astype(f32) * scale cast to
+// q's dtype for the product (:512-516), and the plain version's rounding.
+// (Keeping exact codes and applying the v-scale to P instead would round
+// P * scale to bf16 at every key, one more rounding than the reference
+// has where one key dominates a row.)
+// The codes' stages hold half the bytes of a bf16 stage, so the two
+// converted tiles keep the CTA at the native arm's 82 KB.
+//
+// Every other call (f32 or mixed dtypes, f32 q over quantized pages, other
+// page sizes, D 16 and 32: paged_prefill_kernel): the CUDA cores, in f32
+// from the page dtype (quantized codes times their scale) with q
 // scaled by D^-0.5 before the product (:514), as the TPU kernel computes.
 // Each page tile is loaded into f32 shared memory once per q-block; logits
 // and PV are register-tiled (8 rows per thread sharing one K row or one V
@@ -263,17 +278,71 @@ inline bool prefill_wgmma_page_ok(int page) {
   return page % kPrefillKeys == 0 || page == 8 || page == 16 || page == 32;
 }
 
-// Shared memory of the tensor-core arm: the Q tile, the K/V stages, each
-// stage's per-key k- and v-scales, the ring's full/empty barriers and the Q
-// barrier, after a pad that lets the kernel align its tiles to the
-// swizzle's 1024 bytes.
-template <int D> constexpr size_t prefill_wgmma_smem() {
-  return kSwizzleAlign + (1 + 2 * kPrefillStages) * (size_t)tile_bytes<D>() +
-         kPrefillStages * 2 * kPrefillKeys * sizeof(float) +
+// Shared memory of the tensor-core arm, after a pad that lets the kernel
+// align its tiles to the swizzle's 1024 bytes: the Q tile; for bf16 pages
+// the K/V stages; for 1-byte pages the converted K and V tiles, then the
+// stages of codes; each stage's per-key k- and v-scales; the ring's
+// full/empty barriers and the Q barrier.
+template <int D, typename KT> constexpr size_t prefill_wgmma_smem() {
+  constexpr size_t tiles =
+      sizeof(KT) == 2 ? (1 + 2 * kPrefillStages) * (size_t)tile_bytes<D>()
+                      : 3 * (size_t)tile_bytes<D>() + kPrefillStages * 2 * (size_t)kPrefillKeys * D;
+  return kSwizzleAlign + tiles + kPrefillStages * 2 * kPrefillKeys * sizeof(float) +
          (2 * kPrefillStages + 1) * sizeof(uint64_t);
 }
 
-template <int D>
+// The consumer warpgroup's own barrier (named barrier 1; the producer warp
+// takes no part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kWarpgroup) : "memory");
+}
+
+// Eight 1-byte codes (one 8-byte word) times their scale, as eight bf16
+// packed in a uint4 (the codes convert exactly; the product rounds once).
+__device__ __forceinline__ uint4 codes_to_bf16(uint2 w, float scale, int8_t) {
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = i < 2 ? w.x : w.y;
+    const int sh = 16 * (i % 2);
+    out[i] = pack_bf16(static_cast<float>(static_cast<int8_t>(word >> sh)) * scale,
+                       static_cast<float>(static_cast<int8_t>(word >> (sh + 8))) * scale);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+__device__ __forceinline__ uint4 codes_to_bf16(uint2 w, float scale, __nv_fp8_e4m3) {
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = i < 2 ? w.x : w.y;
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>((word >> (16 * (i % 2))) & 0xffffu), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    out[i] = pack_bf16(f.x * scale, f.y * scale);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// The consumer warpgroup converts a stage of codes (NK rows of D bytes),
+// each key's times its scale, into a bf16 tile in the swizzled panel
+// layout (flash_wgmma.cuh): 16-byte chunk c of row r of panel p at
+// p * kPanelBytes + r * 128 + ((c ^ (r % 8)) * 16).
+template <int D, typename KT>
+__device__ __forceinline__ void convert_tile(uint32_t dst, const unsigned char* codes,
+                                             const float* key_scales, int tid) {
+  constexpr int CHUNKS = kPrefillKeys * D / 8;  // 8 codes -> one 16-byte bf16 chunk
+#pragma unroll 4
+  for (int e = tid; e < CHUNKS; e += kWarpgroup) {
+    const int r = e / (D / 8), c = e % (D / 8);
+    const uint4 v = codes_to_bf16(*reinterpret_cast<const uint2*>(codes + r * D + c * 8),
+                                  key_scales[r], KT());
+    const uint32_t at = dst + (c / 8) * kPanelBytes + r * 128 + (((c % 8) ^ (r % 8)) * 16);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(at), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+  }
+}
+
+template <int D, typename KT>
 __global__ void __launch_bounds__(kPrefillTcThreads, 2)
 paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -282,8 +351,10 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const int* __restrict__ tables, const int* __restrict__ lengths,
                            __nv_bfloat16* __restrict__ out, int s_len, int hq, int hkv, int page,
                            int num_pages, int num_p, int block_q, float scale) {
+  constexpr bool kCodes = sizeof(KT) == 1;     // quantized pages: TMA lands codes
   constexpr int TB = tile_bytes<D>();
   constexpr int NK = kPrefillKeys;
+  constexpr int SB = kCodes ? NK * D : TB;     // bytes of one K or V stage
   constexpr float kLog2e = 1.4426950408889634f;
   const int qb = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
   const int rep = hq / hkv, rows = block_q * rep, q0 = qb * block_q;
@@ -293,15 +364,18 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t smem0 = smem_u32(prefill_tc_smem);
   const uint32_t base = (smem0 + kSwizzleAlign - 1) & ~(kSwizzleAlign - 1u);
   const uint32_t q_s = base;
-  auto k_s = [&](int st) { return base + TB * (1 + 2 * st); };
-  auto v_s = [&](int st) { return base + TB * (2 + 2 * st); };
+  // bf16 pages: the stages are the wgmma tiles; codes: two converted tiles,
+  // then the stages
+  const uint32_t kc_s = base + TB, vc_s = base + 2 * TB;
+  const uint32_t stages = base + (kCodes ? 3 * TB : TB);
+  auto k_s = [&](int st) { return stages + SB * (2 * st); };
+  auto v_s = [&](int st) { return stages + SB * (2 * st + 1); };
+  const uint32_t scales_at = stages + 2 * kPrefillStages * SB;
   // per stage: the k-scale of each of the tile's keys, then the v-scale
-  float* scales = reinterpret_cast<float*>(prefill_tc_smem + (base - smem0) +
-                                           TB * (1 + 2 * kPrefillStages));
+  float* scales = reinterpret_cast<float*>(prefill_tc_smem + (scales_at - smem0));
   auto ks_s = [&](int st) { return scales + st * 2 * NK; };
   auto vs_s = [&](int st) { return scales + st * 2 * NK + NK; };
-  const uint32_t full0 = base + TB * (1 + 2 * kPrefillStages) +
-                         kPrefillStages * 2 * NK * sizeof(float);
+  const uint32_t full0 = scales_at + kPrefillStages * 2 * NK * sizeof(float);
   auto full = [&](int st) { return full0 + 8 * st; };    // a stage's K/V and scales landed
   auto empty = [&](int st) { return full0 + 8 * (kPrefillStages + st); };  // the stage was read
   const uint32_t q_full = full0 + 8 * 2 * kPrefillStages;                   // Q landed
@@ -340,16 +414,22 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int st = kt % kPrefillStages, round = kt / kPrefillStages;
       if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
       if (lane == 0) {
-        mbar_arrive_expect_tx(full(st), 2 * TB);
+        mbar_arrive_expect_tx(full(st), 2 * SB);
         for (int i = 0; i < NK / box_keys; ++i) {
           const int key0 = kt * NK + i * box_keys, p = key0 / page;
           // past the frontier (or the table): a box past the last page, zeros
           const int pid = live(p) ? tables[n * num_p + p] : num_pages;
+          if constexpr (kCodes) {
+            const uint32_t dst = i * box_keys * D;
+            tma_load_4d(k_s(st) + dst, &tm_k, full(st), 0, h, key0 % page, pid);
+            tma_load_4d(v_s(st) + dst, &tm_v, full(st), 0, h, key0 % page, pid);
+          } else {
 #pragma unroll
-          for (int c = 0; c < D / kPanelCols; ++c) {
-            const uint32_t dst = c * kPanelBytes + i * box_keys * 128;
-            tma_load_4d(k_s(st) + dst, &tm_k, full(st), c * kPanelCols, h, key0 % page, pid);
-            tma_load_4d(v_s(st) + dst, &tm_v, full(st), c * kPanelCols, h, key0 % page, pid);
+            for (int c = 0; c < D / kPanelCols; ++c) {
+              const uint32_t dst = c * kPanelBytes + i * box_keys * 128;
+              tma_load_4d(k_s(st) + dst, &tm_k, full(st), c * kPanelCols, h, key0 % page, pid);
+              tma_load_4d(v_s(st) + dst, &tm_v, full(st), c * kPanelCols, h, key0 % page, pid);
+            }
           }
         }
       }
@@ -388,8 +468,20 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int st = kt % kPrefillStages, k0 = kt * NK;
     mbar_wait(full(st), (kt / kPrefillStages) & 1);
+    uint32_t kt_s = k_s(st), vt_s = v_s(st);
+    if constexpr (kCodes) {
+      // every consumer's products of the last tile are complete (each
+      // thread waited on its wgmma), so the converted tiles may be rewritten
+      consumers_sync();
+      convert_tile<D, KT>(kc_s, prefill_tc_smem + (k_s(st) - smem0), ks_s(st), tid);
+      convert_tile<D, KT>(vc_s, prefill_tc_smem + (v_s(st) - smem0), vs_s(st), tid);
+      fence_proxy_async();  // the generic-proxy stores, seen by wgmma's async proxy
+      consumers_sync();
+      kt_s = kc_s;
+      vt_s = vc_s;
+    }
     wgmma_fence();
-    mma_rows_by_rows<D>(s, q_s, k_s(st));
+    mma_rows_by_rows<D>(s, q_s, kt_s);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -398,6 +490,8 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // past a row's position is masked (only a tile past the block's first
     // query can hold one)
     const bool masked = k0 + NK - 1 > length + q0;
+    // bf16 pages: the key's k-scale after Q.K^T and its v-scale on P; codes:
+    // the scales are already in the converted tiles
     const float* ks = ks_s(st);
     const float* vs = vs_s(st);
     float mx[2] = {-INFINITY, -INFINITY};
@@ -406,7 +500,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kl = 8 * i + c2 + j;
-        const float ksc = ks[kl] * scale;
+        const float ksc = kCodes ? scale : ks[kl] * scale;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float x = s[4 * i + 2 * e + j] * ksc;
@@ -432,7 +526,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float p0 = ex2_approx((s[2 * i] - m[e]) * kLog2e);
       const float p1 = ex2_approx((s[2 * i + 1] - m[e]) * kLog2e);
       sum[e] += p0 + p1;
-      pk[i] = pack_bf16(p0 * vs[kl], p1 * vs[kl + 1]);
+      pk[i] = kCodes ? pack_bf16(p0, p1) : pack_bf16(p0 * vs[kl], p1 * vs[kl + 1]);
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -444,7 +538,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
     wgmma_fence();
-    mma_probs_by_tile<D>(o, pk, v_s(st));
+    mma_probs_by_tile<D>(o, pk, vt_s);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -466,7 +560,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, typename KT>
 int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v,
                          const float* k_scales, const float* v_scales, const int* tables,
                          const int* lengths, void* out, int n, int s, int hq, int hkv, int page,
@@ -477,12 +571,19 @@ int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v
   CUtensorMap tm_q, tm_k, tm_v;
   const int box_keys = page < kPrefillKeys ? page : kPrefillKeys;
   cudaError_t err = make_panel_tensor_map(&tm_q, q, n, s, hq, D, rep, block_q);
-  if (err == cudaSuccess)
-    err = make_panel_tensor_map(&tm_k, pages_k, num_pages, page, hkv, D, 1, box_keys);
-  if (err == cudaSuccess)
-    err = make_panel_tensor_map(&tm_v, pages_v, num_pages, page, hkv, D, 1, box_keys);
-  const size_t smem = prefill_wgmma_smem<D>();
-  auto kernel = paged_prefill_wgmma_kernel<D>;
+  if constexpr (sizeof(KT) == 2) {
+    if (err == cudaSuccess)
+      err = make_panel_tensor_map(&tm_k, pages_k, num_pages, page, hkv, D, 1, box_keys);
+    if (err == cudaSuccess)
+      err = make_panel_tensor_map(&tm_v, pages_v, num_pages, page, hkv, D, 1, box_keys);
+  } else {
+    if (err == cudaSuccess)
+      err = make_byte_tensor_map(&tm_k, pages_k, num_pages, page, hkv, D, box_keys);
+    if (err == cudaSuccess)
+      err = make_byte_tensor_map(&tm_v, pages_v, num_pages, page, hkv, D, box_keys);
+  }
+  const size_t smem = prefill_wgmma_smem<D, KT>();
+  auto kernel = paged_prefill_wgmma_kernel<D, KT>;
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qb = (s + block_q - 1) / block_q;
@@ -498,30 +599,40 @@ int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v
   atpu::launch_prefill<QT, KT, D>(q, pages_k, pages_v, k_scales, v_scales, tables,      \
                                   lengths, out, n, s, hq, hkv, page, num_p, scale,       \
                                   static_cast<cudaStream_t>(stream))
-#define ATPU_LAUNCH_PREFILL_WGMMA(D)                                                     \
-  atpu::launch_prefill_wgmma<D>(q, pages_k, pages_v, k_scales, v_scales, tables, lengths, \
-                                out, n, s, hq, hkv, page, num_pages, num_p, scale,        \
-                                static_cast<cudaStream_t>(stream))
+#define ATPU_LAUNCH_PREFILL_WGMMA(D, KT)                                                  \
+  atpu::launch_prefill_wgmma<D, KT>(q, pages_k, pages_v, k_scales, v_scales, tables,      \
+                                    lengths, out, n, s, hq, hkv, page, num_pages, num_p,   \
+                                    scale, static_cast<cudaStream_t>(stream))
 
-// tensor_cores = 1 asks for the tensor-core arm, which takes bf16 q and
-// pages, D 64 or 128, a group of at most 64 heads and a page that
-// prefill_wgmma_page_ok accepts; the entry point refuses anything else
-// rather than run another arm.
+// The tensor-core arms: bf16, int8 and fp8-e4m3 pages, at D 64 and 128.
+#define ATPU_WGMMA_PAGES(D)                                                              \
+  if (kv_fmt == 1) return ATPU_LAUNCH_PREFILL_WGMMA(D, __nv_bfloat16);                   \
+  if (kv_fmt == 2) return ATPU_LAUNCH_PREFILL_WGMMA(D, int8_t);                          \
+  if (kv_fmt == 3) return ATPU_LAUNCH_PREFILL_WGMMA(D, __nv_fp8_e4m3);
+
+// tensor_cores = 1 asks for the tensor-core arm, which takes bf16 q over
+// bf16, int8 or fp8-e4m3 pages, D 64 or 128, a group of at most 64 heads
+// and a page that prefill_wgmma_page_ok accepts; the entry point refuses
+// anything else rather than run another arm.  kv_fmt: 0 f32, 1 bf16, 2 int8,
+// 3 fp8-e4m3.
 extern "C" int atpu_paged_prefill(const void* q, const void* pages_k, const void* pages_v,
                                   const float* k_scales, const float* v_scales,
                                   const int* tables, const int* lengths, void* out, int n,
                                   int s, int hq, int hkv, int d, int page, int num_pages,
-                                  int num_p, int q_bf16, int kv_bf16, int tensor_cores,
+                                  int num_p, int q_bf16, int kv_fmt, int tensor_cores,
                                   float scale, void* stream) {
   if (tensor_cores) {
-    if (!q_bf16 || !kv_bf16 || !atpu::prefill_wgmma_page_ok(page) || hq % hkv != 0 ||
+    if (!q_bf16 || !atpu::prefill_wgmma_page_ok(page) || hq % hkv != 0 ||
         hq / hkv > atpu::kPrefillRows)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (d == 128) return ATPU_LAUNCH_PREFILL_WGMMA(128);
-    if (d == 64) return ATPU_LAUNCH_PREFILL_WGMMA(64);
+    if (d == 128) {
+      ATPU_WGMMA_PAGES(128)
+    } else if (d == 64) {
+      ATPU_WGMMA_PAGES(64)
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ATPU_DISPATCH(q_bf16, kv_bf16, d, ATPU_LAUNCH_PREFILL);
+  ATPU_DISPATCH(q_bf16, kv_fmt, d, ATPU_LAUNCH_PREFILL);
 }
 
 extern "C" const char* atpu_error_string(int err) {

@@ -17,6 +17,10 @@ through per-lane block tables; attention reads those pages in place.
   ``try`` falls back.
 * :func:`paged_insert` — the write path: scatter new K/V through the block
   tables, in place (``index_put_``), inactive lanes routed to the null page.
+* :func:`paged_quantized_insert` — the write path of int8 and fp8-e4m3
+  pages (:data:`KV_FORMATS`): every touched page requantized against its
+  own amax, one f32 scale per (page, kv-head), in place.  Both kernels read
+  such pages through their dequant arms.
 
 Each kernel wrapper counts its launches in an integer attribute
 (``paged_attention.launches``), raised by one where the kernel is launched
@@ -35,24 +39,52 @@ from . import _build
 #: reserved garbage-sink page id — must match ``serving.paging.NULL_PAGE``
 NULL_PAGE = 0
 
+#: largest finite float8-e4m3fn magnitude (``accelerate_tpu/ops/fp8.py:35``)
+E4M3_MAX = 448.0
+#: quantized KV storage formats (``accelerate_tpu/ops/paged_attention.py:64``):
+#: page dtype + the largest magnitude the per-page scale maps each head's
+#: amax onto
+KV_FORMATS = {
+    "int8": (torch.int8, 127.0),
+    "fp8": (torch.float8_e4m3fn, E4M3_MAX),
+}
+
+#: q dtypes the kernels take, and page dtypes: native, then quantized
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128)
+#: page dtype -> the C ABI's page-format code (``ATPU_DISPATCH``)
+_PAGE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
+_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims of K2's tensor-core arm (64-column wgmma panels)
+_WGMMA_HEAD_DIMS = (64, 128)
 
 
 def kv_storage_dtype(kv_dtype: Optional[str], native: torch.dtype) -> torch.dtype:
-    """Resolve a ``ServingEngine(kv_dtype=...)`` string to the page dtype.
-    ``None`` keeps the model's native KV dtype; ``"bf16"`` stores bf16.  The
-    quantized formats (``"int8"``, ``"fp8"``) are not ported yet."""
+    """Resolve a ``ServingEngine(kv_dtype=...)`` string to the page dtype
+    (``accelerate_tpu/ops/paged_attention.py:71``).  ``None`` keeps the
+    model's native KV dtype; ``"bf16"`` stores bf16; ``"int8"`` and ``"fp8"``
+    store quantized pages (:data:`KV_FORMATS`)."""
     if kv_dtype is None:
         return native
     if kv_dtype == "bf16":
         return torch.bfloat16
-    if kv_dtype in ("int8", "fp8"):
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r} (quantized KV pages) is not ported yet: "
-            "ROADMAP Queue 1 item 6"
-        )
-    raise ValueError(f"unknown kv_dtype {kv_dtype!r}; choose None or 'bf16'")
+    if kv_dtype in KV_FORMATS:
+        return KV_FORMATS[kv_dtype][0]
+    raise ValueError(f"unknown kv_dtype {kv_dtype!r}; choose None, 'bf16', 'int8' or 'fp8'")
+
+
+def kv_qmax(dtype: torch.dtype) -> Optional[float]:
+    """The quantization ceiling of a page dtype; None for direct-store dtypes
+    (``accelerate_tpu/ops/paged_attention.py:85``)."""
+    for fmt_dtype, qmax in KV_FORMATS.values():
+        if dtype == fmt_dtype:
+            return qmax
+    return None
+
+
+def _bytes_view(pages: torch.Tensor) -> torch.Tensor:
+    """Quantized pages as raw bytes, for gathers and scatters: indexing
+    float8 tensors is not implemented on every PyTorch build."""
+    return pages.view(torch.uint8) if pages.element_size() == 1 else pages
 
 
 def _live_pages(lengths: torch.Tensor, s: int, page: int) -> torch.Tensor:
@@ -81,6 +113,65 @@ def paged_insert(pages: torch.Tensor, new: torch.Tensor, tables: torch.Tensor,
     return pages
 
 
+def paged_quantized_insert(pages: torch.Tensor, scales: torch.Tensor, new: torch.Tensor,
+                           tables: torch.Tensor, index: torch.Tensor, active: torch.Tensor,
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantized scatter: requantize every page the ``S`` new positions touch
+    (``accelerate_tpu/ops/paged_attention.py:143``), in place.
+
+    ``pages [NP, page, H, D]`` int8 or float8-e4m3fn, ``scales [NP, H]`` f32
+    with ``dequant = pages * scales``; ``new [N, S, H, D]`` goes to positions
+    ``index[n] .. index[n] + S - 1`` of lane ``n``.  Per touched page:
+    dequantize, insert the new rows, zero every slot at or past the lane's
+    pre-call frontier that is not written now (a page's previous owner's
+    values must not inflate the amax), take each head's scale as
+    ``max(amax, 1e-8) / qmax``, requantize (int8: ``clip(round(x), ±qmax)``,
+    round half to even; fp8: a plain cast).  Inactive lanes and untouched
+    span slots write to the null page.  Returns ``(pages, scales,
+    max_abs_err)``: the largest round-trip error over the newly written
+    values, a device scalar (nothing here reads the device back).  Plain
+    PyTorch: the reference leaves this to XLA, and it matches the JAX
+    function bit for bit."""
+    qmax = kv_qmax(pages.dtype)
+    if qmax is None:
+        raise ValueError(f"pages dtype {pages.dtype} is not a quantized KV format")
+    n, s, h, d = new.shape
+    page = pages.shape[1]
+    p_max = tables.shape[1] - 1
+    dev = new.device
+    index = index.long()
+    t = (s + page - 2) // page + 1                   # most pages a span of S touches
+    pt = (index // page)[:, None] + torch.arange(t, device=dev)[None, :]       # [N, T]
+    last = (index + s - 1) // page
+    touched = (pt <= last[:, None]) & active[:, None]
+    pid = torch.gather(tables.long(), 1, torch.clamp(pt, 0, p_max))
+    pid = torch.where(touched, pid, torch.full_like(pid, NULL_PAGE))          # [N, T]
+
+    raw = _bytes_view(pages)
+    old = raw[pid].view(pages.dtype).float() * scales[pid][:, :, None, :, None]
+    g = pt[:, :, None] * page + torch.arange(page, device=dev)[None, None, :]  # [N, T, page]
+    i_new = g - index[:, None, None]
+    use_new = (i_new >= 0) & (i_new < s)
+    rows = torch.clamp(i_new, 0, s - 1).reshape(n, t * page)
+    gathered = new.float()[torch.arange(n, device=dev)[:, None], rows].reshape(n, t, page, h, d)
+    keep_old = g < index[:, None, None]              # valid history, strictly pre-frontier
+    content = torch.where(use_new[..., None, None], gathered,
+                          torch.where(keep_old[..., None, None], old, torch.zeros_like(old)))
+    amax = content.abs().amax(dim=(2, 4))                                       # [N, T, H]
+    new_scales = torch.clamp(amax, min=1e-8) / qmax
+    q = content / new_scales[:, :, None, :, None]
+    if pages.dtype == torch.int8:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    q = q.to(pages.dtype)
+    err = torch.where(use_new[..., None, None],
+                      (q.float() * new_scales[:, :, None, :, None] - content).abs(),
+                      torch.zeros_like(content)).amax()
+    flat = pid.reshape(-1)
+    raw[flat] = _bytes_view(q.reshape(n * t, page, h, d))
+    scales[flat] = new_scales.reshape(n * t, h)
+    return pages, scales, err
+
+
 # ------------------------------------------------------------------ reference
 def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
                               k_scales=None, v_scales=None):
@@ -102,8 +193,8 @@ def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
     slots = torch.arange(num_p, device=q.device)[None, :]
     t = torch.where(slots < live[:, None], tables.long(),
                     torch.full_like(tables, NULL_PAGE, dtype=torch.long))
-    k = pages_k[t]                                    # [N, P, page, Hkv, D]
-    v = pages_v[t]
+    k = _bytes_view(pages_k)[t].view(pages_k.dtype)   # [N, P, page, Hkv, D]
+    v = _bytes_view(pages_v)[t].view(pages_v.dtype)
     if k_scales is not None:
         k = (k.float() * k_scales[t][:, :, None, :, None]).to(q.dtype)
         v = (v.float() * v_scales[t][:, :, None, :, None]).to(q.dtype)
@@ -164,7 +255,8 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-#: (device, lanes x kv heads) -> K1's per-(lane, kv-head) arrival counters:
+#: (device, lanes x kv heads x row blocks) -> K1's per-(lane, kv-head, row
+#: block) arrival counters:
 #: zeroed once, and every launch leaves them at zero.  Launches that share a
 #: buffer must not overlap, as on one stream.
 _SPLIT_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -190,22 +282,40 @@ def pending_split_counters() -> int:
 #: smaller page (a box of at least 8 rows keeps the swizzle's period); the
 #: other sizes keep the CUDA-core arm
 _PREFILL_TC_SMALL_PAGES = (8, 16, 32)
+#: folded rows (rep * S) one K1 CTA holds (``kDecodeRows``): a launch
+#: covers rep * S rows in blocks of four, one CTA per block.  Four: the
+#: register class keeps four CTAs on an SM, and re-reading the keys per
+#: block costs less than wide CTAs' occupancy (PERF.md §6: 40 rows 0.071 ms
+#: at 4 rows a CTA against 0.171 at 20; 32 rows 0.065 against 0.149 at 32)
+DECODE_ROWS = 4
+#: lanes one launch of either kernel takes: a lane per block along a grid
+#: dimension that holds at most 65535
+MAX_LANES = 65535
+#: folded rows of one K2 q-block (``kPrefillRows``): a GQA group of more
+#: query heads than this per kv head does not fit a q-block
+PREFILL_MAX_GROUP = 64
 
 
-def prefill_design(q_dtype: torch.dtype, page_dtype: torch.dtype, page: int) -> str:
-    """The arm of K2 a call takes, from its dtypes and page size alone:
-    ``"wgmma"`` (the tensor cores) for bf16 q and pages with a page of 8, 16
-    or 32 keys or a multiple of 64, ``"cuda-cores"`` otherwise (f32 or mixed
-    dtypes keep f32 products; other pages do not tile into 64-key boxes)."""
-    if q_dtype == page_dtype == torch.bfloat16 and (
-            page % 64 == 0 or page in _PREFILL_TC_SMALL_PAGES):
+def prefill_design(q_dtype: torch.dtype, page_dtype: torch.dtype, page: int, d: int) -> str:
+    """The arm of K2 a call takes, from its dtypes, page size and head dim
+    alone: ``"wgmma"`` (the tensor cores) for bf16 q over bf16, int8 or fp8
+    pages with a page of 8, 16 or 32 keys or a multiple of 64 and D 64 or
+    128; ``"cuda-cores"`` otherwise (f32 or mixed native dtypes keep f32
+    products; other pages do not tile into 64-key boxes; D 16 and 32 fill
+    no 64-column panel).  Quantized pages reach the tensor cores as bf16
+    tiles made in shared memory: each code times its page's scale, rounded
+    once, as the reference dequantizes a tile for a bf16 product."""
+    if q_dtype == torch.bfloat16 and page_dtype in (torch.bfloat16, torch.int8,
+                                                    torch.float8_e4m3fn) \
+            and d in _WGMMA_HEAD_DIMS and (page % 64 == 0 or page in _PREFILL_TC_SMALL_PAGES):
         return "wgmma"
     return "cuda-cores"
 
 
 def _operands(what: str, q, pages_k, pages_v, tables, lengths, k_scales, v_scales):
     """Validate a paged kernel's operands; return the ``(k_scales, v_scales)``
-    to launch with (ones for native pages, so both kernels take scales)."""
+    to launch with (ones for native pages, so both kernels take scales).
+    Quantized pages need their scales, as in the reference (``:408``)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, got {q.device}")
     n, s, hq, d = q.shape
@@ -217,16 +327,24 @@ def _operands(what: str, q, pages_k, pages_v, tables, lengths, k_scales, v_scale
         raise ValueError(f"{what}: head_dim {d} not supported (kernel takes {_HEAD_DIMS})")
     if hq % hkv != 0:
         raise ValueError(f"{what}: {hq} query heads do not fold over {hkv} kv heads")
-    if q.dtype not in _KERNEL_DTYPES or pages_k.dtype not in _KERNEL_DTYPES \
+    if n > MAX_LANES:
+        raise ValueError(f"{what}: {n} lanes exceed the {MAX_LANES} of one launch's grid")
+    if q.dtype not in _KERNEL_DTYPES or pages_k.dtype not in _PAGE_FORMATS \
             or pages_v.dtype != pages_k.dtype:
         raise ValueError(f"{what}: dtypes q={q.dtype} pages={pages_k.dtype}/"
-                         f"{pages_v.dtype} not supported (f32 or bf16)")
+                         f"{pages_v.dtype} not supported (q f32 or bf16; pages f32, "
+                         "bf16, int8 or float8_e4m3fn)")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError(f"{what}: tables and lengths must be int32")
     if tables.shape[0] != n or lengths.shape != (n,):
         raise ValueError(f"{what}: tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {n} lanes")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{what}: give both k_scales and v_scales, or neither")
     if k_scales is None:
+        if kv_qmax(pages_k.dtype) is not None:
+            raise ValueError(f"{what}: quantized pages ({pages_k.dtype}) need "
+                             "k_scales/v_scales")
         # native pages: feed ones (made once per pool shape) so the kernel
         # signature is uniform
         key = (q.device, num_pages, hkv)
@@ -255,18 +373,28 @@ def _bf16(t) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+def decode_row_blocks(gs: int) -> Tuple[int, int]:
+    """``(rows_per_block, blocks)`` of K1's ``gs = rep * S`` folded rows: one
+    CTA per block of :data:`DECODE_ROWS` rows (the last one ragged), each
+    walking the split's keys for its own rows.  Rows are independent: the
+    blocking changes no bit of the output."""
+    return min(gs, DECODE_ROWS), -(-gs // DECODE_ROWS)
+
+
 def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
                     v_scales=None):
     """Decode attention over paged KV, reading pages in place (kernel K1).
 
     ``q [N, S, Hq, D]`` — query ``i`` of lane ``n`` at position
     ``lengths[n] + i``; ``pages_k``/``pages_v [NP, page, Hkv, D]`` — the pool
-    of ONE layer with this call's KV already inserted; ``tables [N, P]``
-    int32; ``lengths [N]`` int32; ``k_scales``/``v_scales [NP, Hkv]`` f32 or
-    None (ones).  Returns ``[N, S, Hq, D]`` in ``q.dtype``.  A CPU ``q`` takes
-    :func:`paged_attention_reference`; a CUDA ``q`` launches
+    of ONE layer with this call's KV already inserted, f32, bf16, int8 or
+    fp8-e4m3; ``tables [N, P]`` int32; ``lengths [N]`` int32;
+    ``k_scales``/``v_scales [NP, Hkv]`` f32 — required for int8/fp8 pages,
+    else None (ones).  Returns ``[N, S, Hq, D]`` in ``q.dtype``.  A CPU
+    ``q`` takes :func:`paged_attention_reference`; a CUDA ``q`` launches
     ``csrc/paged_attention.cu`` or raises.  The launch splits each lane's
-    pages by :func:`decode_split_plan`; with more than one split the
+    pages by :func:`decode_split_plan` and its ``rep * S`` folded rows into
+    blocks by :func:`decode_row_blocks`; with more than one split the
     partials go to f32 scratch allocated here, and the arrival counters are
     this device's cached ones, which the kernel leaves at zero.  Native
     pages (no scales) pass null scales, which the kernel reads as ones."""
@@ -280,19 +408,22 @@ def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
     _, page, hkv, _ = pages_k.shape
     num_p = tables.shape[1]
     pps, nsplit = decode_split_plan(num_p, n, hkv, page, _sm_count(q.device.index))
+    rows, blocks = decode_row_blocks((hq // hkv) * s)
     out = torch.empty_like(q)
     part_ptr = counters_ptr = 0
     if nsplit > 1:
-        part = torch.empty(n * hq * s * nsplit * (d + 2), dtype=torch.float32, device=q.device)
+        part = torch.empty(n * hkv * blocks * nsplit * rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
         part_ptr = part.data_ptr()
-        counters_ptr = _split_counters(q.device, n * hkv).data_ptr()
+        counters_ptr = _split_counters(q.device, n * hkv * blocks).data_ptr()
     _build.launch(
         "paged_attention", "atpu_paged_decode", "paged_attention",
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
         0 if native else k_scales.data_ptr(), 0 if native else v_scales.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         part_ptr, counters_ptr, n, s, hq, hkv, d, page, num_p, pps, nsplit, _bf16(q),
-        _bf16(pages_k), float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+        _PAGE_FORMATS[pages_k.dtype], float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_attention.launches += 1
     return out
@@ -305,12 +436,15 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
     The prefill-side twin of :func:`paged_attention` with a chunk-wide ``S``:
     the chunk's K/V must already be in the pool, so the causal online softmax
     over prior pages and the in-chunk triangle are one page walk, cut per
-    q-block at its causal frontier.  A CPU ``q`` takes
+    q-block at its causal frontier.  Pages f32, bf16, int8 or fp8-e4m3
+    (scales required for the last two).  A CPU ``q`` takes
     :func:`paged_flash_prefill_reference`; a CUDA ``q`` launches
     ``csrc/paged_prefill.cu`` or raises: on the tensor cores where
-    :func:`prefill_design` says ``"wgmma"`` (bf16 q and pages, a page of 8,
-    16 or 32 keys or a multiple of 64; bf16 operands with f32 sums, the
-    probabilities rounded to bf16 before P.V), else on the CUDA cores in f32."""
+    :func:`prefill_design` says ``"wgmma"`` (bf16 q over bf16, int8 or fp8
+    pages, a page of 8, 16 or 32 keys or a multiple of 64, D 64 or 128;
+    bf16 operands with f32 sums, the probabilities rounded to bf16 before
+    P.V), else on the CUDA cores in f32.  A GQA group of more than
+    :data:`PREFILL_MAX_GROUP` query heads per kv head is refused."""
     if q.device.type == "cpu":
         return paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
                                              k_scales=k_scales, v_scales=v_scales)
@@ -318,14 +452,18 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
                                    lengths, k_scales, v_scales)
     n, s, hq, d = q.shape
     num_pages, page, hkv, _ = pages_k.shape
-    tensor_cores = int(prefill_design(q.dtype, pages_k.dtype, page) == "wgmma")
+    if hq // hkv > PREFILL_MAX_GROUP:
+        raise ValueError(f"paged_flash_prefill: {hq // hkv} query heads per kv head exceed "
+                         f"the {PREFILL_MAX_GROUP} folded rows of a q-block")
+    tensor_cores = int(prefill_design(q.dtype, pages_k.dtype, page, d) == "wgmma")
     out = torch.empty_like(q)
     _build.launch(
         "paged_prefill", "atpu_paged_prefill", "paged_flash_prefill",
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(), k_scales.data_ptr(),
         v_scales.data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        n, s, hq, hkv, d, page, num_pages, tables.shape[1], _bf16(q), _bf16(pages_k),
-        tensor_cores, float(d ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+        n, s, hq, hkv, d, page, num_pages, tables.shape[1], _bf16(q),
+        _PAGE_FORMATS[pages_k.dtype], tensor_cores, float(d ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_flash_prefill.launches += 1
     return out

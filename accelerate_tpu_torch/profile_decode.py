@@ -1,7 +1,8 @@
 """K1's device time per launch at each split plan, at the serving path's decode shapes.
 
-    python -m accelerate_tpu_torch.profile_decode
-    python -m accelerate_tpu_torch.profile_decode --host
+    python -m accelerate_tpu_torch.profile_decode [--kv-dtype int8|fp8]
+    python -m accelerate_tpu_torch.profile_decode --host [--kv-dtype int8|fp8]
+    python -m accelerate_tpu_torch.profile_decode --kernels
 
 Three bf16 shapes at Llama-2-7B widths (D 128, page 128, 16 table slots a
 lane): ``chip_smoke.py``'s "main" (4 lanes of 5/700/1500/2040 keys, 32
@@ -18,7 +19,14 @@ host ms per call of the wrapper: the host clock over 200 calls with no
 synchronisation between them (the launch queue absorbs their kernels), so
 the kernel's own time is left out; that mode uses nothing but
 ``paged_attention``, so it also times an older tree's wrapper.  Needs a
-CUDA card.
+CUDA card.  ``--kv-dtype`` makes the pages int8 or fp8-e4m3 codes of the
+same values, written by ``paged_quantized_insert`` with their scales (K1's
+dequant arm).  ``--kernels`` prints the device ms per launch of K1 at the
+three shapes and of K2 at ``chip_smoke.py``'s two bf16 chunks (512 tokens
+at base 0, 128 at base 640), native bf16 pages; like ``--host`` it calls
+nothing but the two wrappers and ``profile_engine.device_ms``, so a copy of
+this file inside an older tree times that tree's kernels (an A/B within
+one call).
 """
 
 from __future__ import annotations
@@ -38,17 +46,31 @@ SHAPES = {  # lengths, query heads, kv heads
     "engine": ([57, 384, 700, 1000], 32, 32),
 }
 PAGE, SLOTS, D = 128, 16, 128
+CHUNKS = {"chunk512_base0": (0, 512), "chunk128_base640": (640, 128)}  # base, chunk
 
-
-def _case(lengths, hq, hkv, seed=0):
+def _case(lengths, hq, hkv, seed=0, kv_dtype=None, s=1):
+    """q, pages, tables and lengths (then the scales, for quantized pages)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n = len(lengths)
     shape = (n * SLOTS + 1, PAGE, hkv, D)
     pages = [torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(2)]
     tables = torch.arange(1, n * SLOTS + 1, dtype=torch.int32, device="cuda").reshape(n, SLOTS)
-    q = torch.randn((n, 1, hq, D), generator=gen, device="cuda").bfloat16()
-    return q, pages[0], pages[1], tables, torch.tensor(lengths, dtype=torch.int32,
-                                                       device="cuda")
+    q = torch.randn((n, s, hq, D), generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if kv_dtype is None:
+        return q, pages[0], pages[1], tables, lens
+    # every lane's whole table written at once: the codes of the same values
+    dtype = pa.KV_FORMATS[kv_dtype][0]
+    codes, scales = [], []
+    every = torch.ones(n, dtype=torch.bool, device="cuda")
+    for values in pages:
+        c = torch.zeros(shape, dtype=dtype, device="cuda")
+        sc = torch.ones(shape[0], hkv, device="cuda")
+        new = values[tables.long()].reshape(n, SLOTS * PAGE, hkv, D)
+        pa.paged_quantized_insert(c, sc, new, tables, torch.zeros_like(lens), every)
+        codes.append(c)
+        scales.append(sc)
+    return q, codes[0], codes[1], tables, lens, scales[0], scales[1]
 
 
 def host_ms(fn, iters: int = 200) -> float:
@@ -69,20 +91,36 @@ def main() -> int:
         raise SystemExit("profile_decode: needs a CUDA card")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    if "--host" in sys.argv[1:]:
+    args_in = sys.argv[1:]
+    kv_dtype = args_in[args_in.index("--kv-dtype") + 1] if "--kv-dtype" in args_in else None
+    if kv_dtype is not None and kv_dtype not in pa.KV_FORMATS:
+        raise SystemExit(f"profile_decode: --kv-dtype {kv_dtype!r}: choose int8 or fp8")
+    if "--host" in args_in:
         for name, (lengths, hq, hkv) in SHAPES.items():
-            args = _case(lengths, hq, hkv)
-            print(json.dumps({"shape": name, "host_ms": host_ms(lambda: pa.paged_attention(*args)),
+            args = _case(lengths, hq, hkv, kv_dtype=kv_dtype)
+            print(json.dumps({"shape": name, "kv_dtype": kv_dtype,
+                              "host_ms": host_ms(lambda: pa.paged_attention(*args)),
                               "gpu": gpu}), flush=True)
         return 0
     from .profile_engine import device_ms, graph_ms, paged_bound_ms
+    if "--kernels" in args_in:
+        cases = [(f"k1_{name}", pa.paged_attention, "paged_decode", _case(lengths, hq, hkv))
+                 for name, (lengths, hq, hkv) in SHAPES.items()]
+        cases += [(f"k2_{name}", pa.paged_flash_prefill, "paged_prefill",
+                   _case([base], 32, 32, s=chunk)) for name, (base, chunk) in CHUNKS.items()]
+        for name, fn, fragment, args in cases:
+            fn(*args)
+            print(json.dumps({"case": name, "ms": device_ms(lambda: fn(*args), 50, fragment),
+                              "gpu": gpu}), flush=True)
+        return 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = pa.decode_split_plan
     try:
         for name, (lengths, hq, hkv) in SHAPES.items():
-            args = _case(lengths, hq, hkv)
+            args = _case(lengths, hq, hkv, kv_dtype=kv_dtype)
             picked = plan(SLOTS, len(lengths), hkv, PAGE, sms)
-            bound, _ = paged_bound_ms(lengths, 1, hq, hkv, D, torch.bfloat16)
+            bound, _ = paged_bound_ms(lengths, 1, hq, hkv, D, torch.bfloat16, args[1].dtype,
+                                      PAGE)
             ref = pa.paged_attention(*args)
             seen = set()
             for pps in range(1, SLOTS + 1):
@@ -96,7 +134,8 @@ def main() -> int:
                 g_ms = graph_ms(lambda: pa.paged_attention(*args), 20)
                 pa.decode_split_plan = plan
                 print(json.dumps({
-                    "shape": name, "lengths": lengths, "hq": hq, "hkv": hkv,
+                    "shape": name, "kv_dtype": kv_dtype, "lengths": lengths, "hq": hq,
+                    "hkv": hkv,
                     "pages_per_split": pps, "splits": splits, "picked": (pps, splits) == picked,
                     "ms": ms, "graph_ms": g_ms, "bound_ms": bound, "share_of_bound": bound / ms,
                     "max_abs_diff_vs_picked": (out.float() - ref.float()).abs().max().item(),

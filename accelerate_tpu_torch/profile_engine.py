@@ -1,6 +1,6 @@
 """Where the serving path's time goes on the card.
 
-    python -m accelerate_tpu_torch.profile_engine
+    python -m accelerate_tpu_torch.profile_engine [--kv-dtype int8|fp8|bf16]
 
 Builds the Llama-2-7B geometry (bf16, random weights from a seed), serves the
 ``chip_smoke.py`` engine workload once to warm up (kernel build, allocator,
@@ -11,11 +11,18 @@ CUDA kernel launches per decode step and per prefill chunk, the top
 device-time entries, and for the two paged kernels (K1 decode, K2 prefill)
 their launches, device ms per launch and mean bound per launch at the
 engine's own shapes (each call's lengths and widths, recorded during the
-warm-up serve, through :func:`paged_bound_ms`).  Needs a CUDA card.
+warm-up serve, through :func:`paged_bound_ms`).  ``--kv-dtype`` serves from
+a pool of that storage format (``ServingEngine(kv_dtype=...)``; default the
+model's bf16), so the quantized arms of K1 and K2 get their rows at the
+engine's shapes; the plain-PyTorch quantized insert then runs under a
+``paged_quantized_insert`` span in the profiled serve, and ``insert``
+reports its calls, ops and host and device time (host time under the
+profiler, which inflates it).  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -27,6 +34,7 @@ import torch
 from .models import transformer
 from .models.generation import GenerationConfig
 from .models.transformer import Transformer, TransformerConfig
+from .ops.paged_attention import kv_qmax
 from .serving import ServingEngine
 from .weights import init_params
 
@@ -39,22 +47,30 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per dtype
 PAGED_KERNELS = {"paged_attention": "paged_decode", "paged_flash_prefill": "paged_prefill"}
 
 
-def paged_bound_ms(lengths, s, hq, hkv, d, dtype) -> tuple:
+def paged_bound_ms(lengths, s, hq, hkv, d, dtype, page_dtype=None, page=None) -> tuple:
     """Least time for one paged attention call (K1 or K2): each visible K/V
-    byte, q and out moved once, against 4 * D flops per visible (query head,
-    key) pair.  Returns ``(ms, "bytes" or "operations")``."""
-    elem = torch.tensor([], dtype=dtype).element_size()
+    byte (in ``page_dtype``, default ``dtype``), q and out (in ``dtype``)
+    moved once, and for quantized pages each live (page, kv-head)'s two f32
+    scales (``page`` keys a page), against 4 * D flops per visible (query
+    head, key) pair at the rate of the products' type (bf16 unless q or the
+    pages are f32).  Returns ``(ms, "bytes" or "operations")``."""
+    page_dtype = page_dtype or dtype
+    q_elem = torch.tensor([], dtype=dtype).element_size()
+    kv_elem = torch.tensor([], dtype=page_dtype).element_size()
     keys = sum(length + s for length in lengths)
     pairs = sum(length * s + s * (s + 1) // 2 for length in lengths)
-    nbytes = 2 * keys * hkv * d * elem + 2 * len(lengths) * s * hq * d * elem
+    nbytes = 2 * keys * hkv * d * kv_elem + 2 * len(lengths) * s * hq * d * q_elem
+    if kv_qmax(page_dtype) is not None:
+        nbytes += 2 * 4 * hkv * sum(-(-(length + s) // page) for length in lengths)
     flops = 4 * d * hq * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    peak = PEAK_FLOPS[torch.float32 if torch.float32 in (dtype, page_dtype) else torch.bfloat16]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _serve(model, prompts):
+def _serve(model, prompts, kv_dtype=None):
     engine = ServingEngine(model, None, num_slots=4, max_len=2048, prefill_buckets=(128, 512),
-                           decode_window=4, device="cuda")
+                           decode_window=4, kv_dtype=kv_dtype, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.serve(prompts, configs=GenerationConfig(max_new_tokens=48))
@@ -72,13 +88,26 @@ def _recording_bounds(bounds):
         def call(q, pages_k, pages_v, tables, lengths, **kw):
             _, s, hq, d = q.shape
             bounds[name].append(paged_bound_ms(lengths.tolist(), s, hq, pages_k.shape[2], d,
-                                               pages_k.dtype))
+                                               q.dtype, pages_k.dtype, pages_k.shape[1]))
             return fn(q, pages_k, pages_v, tables, lengths, **kw)
         return call
 
     for name, fn in saved.items():
         setattr(transformer, name, recorder(name, fn))
     return lambda: [setattr(transformer, name, fn) for name, fn in saved.items()]
+
+
+def _span_inserts():
+    """Run the transformer's quantized insert under a named profiler span;
+    returns an undo."""
+    saved = transformer.paged_quantized_insert
+
+    def insert(*args):
+        with torch.profiler.record_function("paged_quantized_insert"):
+            return saved(*args)
+
+    transformer.paged_quantized_insert = insert
+    return lambda: setattr(transformer, "paged_quantized_insert", saved)
 
 
 def device_us(evt) -> float:
@@ -122,9 +151,9 @@ def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
     per call (a wrapper's checks, tensor maps) exceeds a short kernel's own.
     The profiler traces a warm-up cycle of one call before the measured
     one.  The profiler sometimes records no device activity in a window:
-    a window that holds no launch of ``fragment`` is traced again, and
-    after ``PROFILE_WINDOWS`` such windows the time is :func:`graph_ms`'s,
-    per call."""
+    a window that holds no launch of ``fragment`` (of any kernel, without
+    one) is traced again, and after ``PROFILE_WINDOWS`` such windows the
+    time is :func:`graph_ms`'s, per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -144,17 +173,19 @@ def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
                 and not e.key.startswith("ProfilerStep")
                 and (fragment is None or fragment in e.key)]
         total_ms = sum(device_us(e) for e in evts) / 1e3
-        if fragment is None:
-            return total_ms / iters
         seen = sum(e.count for e in evts)
         if seen:
-            return total_ms / seen
-        print(f"device_ms: profiler window {window + 1} held no launch of {fragment}",
-              file=sys.stderr, flush=True)
+            return total_ms / (iters if fragment is None else seen)
+        print(f"device_ms: profiler window {window + 1} held no launch of "
+              f"{fragment or 'any kernel'}", file=sys.stderr, flush=True)
     return graph_ms(fn, iters)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kv-dtype", default=None, choices=["bf16", "int8", "fp8"],
+                        help="the KV pool's storage format (default: the model's bf16)")
+    kv_dtype = parser.parse_args(argv).kv_dtype
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,18 +198,42 @@ def main() -> int:
     bounds = {name: [] for name in PAGED_KERNELS}
     undo = _recording_bounds(bounds)
     try:
-        _serve(model, prompts)                       # warm-up, recording each call's bound
+        _serve(model, prompts, kv_dtype)             # warm-up, recording each call's bound
     finally:
         undo()
-    engine, wall = _serve(model, prompts)
+    engine, wall = _serve(model, prompts, kv_dtype)
     stats = dict(engine.stats)
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        p_engine, p_wall = _serve(model, prompts)
+    undo = _span_inserts()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            p_engine, p_wall = _serve(model, prompts, kv_dtype)
+    finally:
+        undo()
+    averages = prof.key_averages()
+    span = [e for e in averages if e.key == "paged_quantized_insert"
+            and e.device_type != torch.autograd.DeviceType.CUDA]
+    insert = None
+    if span:
+        calls = span[0].count
+        ops = sum(e.count for e in prof.events() if e.name.startswith("aten::")
+                  and e.cpu_parent is not None and e.cpu_parent.name == "paged_quantized_insert")
+        steps = p_engine.stats["decode_steps"] + p_engine.stats["prefill_chunks"]
+        insert = {
+            "calls": calls, "top_level_ops_per_call": ops / calls,
+            "profiled_host_ms_total": span[0].cpu_time_total / 1e3,
+            "profiled_host_ms_per_call": span[0].cpu_time_total / 1e3 / calls,
+            "device_ms_total": getattr(span[0], "device_time_total",
+                                       getattr(span[0], "cuda_time_total", 0.0)) / 1e3,
+            "calls_per_step_or_chunk": calls / steps,
+        }
     # device-side entries only (kernels, memcpy/memset): the host ops that
     # launched them carry the same time as children
-    evts = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    # (the insert's span, which the trace also draws on the device, is not a
+    # kernel: its kernels are counted on their own)
+    evts = [e for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
+            and e.key != "paged_quantized_insert"]
     busy_us = sum(device_us(e) for e in evts)
     launches = sum(e.count for e in evts)
     top = sorted(evts, key=device_us, reverse=True)[:TOP]
@@ -198,6 +253,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
         "gpu": gpu,
+        "kv_dtype": kv_dtype,
+        "kv_bytes_per_token": stats["kv_bytes_per_token"],
+        "kv_pool_gb": engine.kv.kv_bytes() / 1e9,
         "wall_s": wall,
         "stats": stats,
         "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
@@ -209,6 +267,7 @@ def main() -> int:
         "device_entries_per_layer_step": launches / (
             cfg.num_layers * (p_engine.stats["decode_steps"] + p_engine.stats["prefill_chunks"])),
         "paged_kernels": paged,
+        "insert": insert,
         "top_device_time": [
             {"name": e.key[:80], "count": e.count, "device_ms": device_us(e) / 1e3,
              "share": device_us(e) / busy_us}

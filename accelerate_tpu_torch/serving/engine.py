@@ -13,8 +13,9 @@ no speculation and no mesh.  One engine step:
    through the decode kernel (K1), then one readback of the tokens, which
    stream out to their requests.
 
-Greedy outputs are token-identical to the JAX engine's; a request's sampled
-tokens depend only on ``(rng_seed, request id)``.  Arguments naming parts of
+Greedy outputs are token-identical to the JAX engine's, with native and
+with quantized (int8, fp8-e4m3) pages; a request's sampled tokens depend
+only on ``(rng_seed, request id)``.  Arguments naming parts of
 the JAX engine this slice has not ported raise ``NotImplementedError``.
 """
 
@@ -63,12 +64,19 @@ class ServingEngine:
     page_size: tokens per KV page; default ``gcd(prefill_buckets)``.
     num_pages: physical pages including the null page; default the
         no-preemption worst case ``num_slots * max_len / page_size + 1``.
-    kv_dtype: ``None`` (model dtype) or ``"bf16"``.
+    kv_dtype: ``None`` (model dtype), ``"bf16"``, or the quantized page
+        formats ``"int8"`` and ``"fp8"`` (e4m3): one f32 scale per (layer,
+        page, kv-head), each touched page requantized at every insert.
+        ``stats["kv_quant_error"]`` then holds the largest round-trip error
+        of the values the last prefill phase or decode window wrote (the
+        reference's ``serve/kv_quant_error`` gauge), read once per phase;
+        ``stats["kv_bytes_per_token"]`` is the pool's bytes per token across
+        all layers, scales included (``serve/kv_bytes_per_token``).
     device: where the engine runs — the card unless ``device="cpu"``.
 
     ``paged=False``, ``async_depth=1``, ``prefix_cache_mb > 0``,
-    ``speculate_k > 0``, ``draft_model``, quantized ``kv_dtype``, ``mesh`` and
-    ``role != "both"`` raise ``NotImplementedError``.  Unlike the JAX engine,
+    ``speculate_k > 0``, ``draft_model``, ``mesh`` and ``role != "both"``
+    raise ``NotImplementedError``.  Unlike the JAX engine,
     ``prefix_cache_mb`` defaults to 0 and ``async_depth`` to 0.
     """
 
@@ -176,6 +184,8 @@ class ServingEngine:
             "preemptions": 0,
             "prefill_s": 0.0,
             "decode_s": 0.0,
+            "kv_quant_error": 0.0,
+            "kv_bytes_per_token": self.kv.kv_bytes_per_token,
         }
 
     # ---------------------------------------------------------------- submit
@@ -242,8 +252,9 @@ class ServingEngine:
         return self._reclaim_pages(bucket // self.page_size, allow_preempt=False)
 
     def _prefill_chunk(self, req: Request, bucket: int, chunk: np.ndarray,
-                       start: int) -> None:
-        """Prefill one chunk straight into newly allocated lane pages."""
+                       start: int) -> torch.Tensor:
+        """Prefill one chunk straight into newly allocated lane pages; returns
+        its quantization error (a device scalar)."""
         s = req.slot
         ids = self.kv.allocator.alloc(bucket // self.page_size)
         if ids is None:  # _ensure_prefill_pages ran first; this cannot happen
@@ -252,13 +263,13 @@ class ServingEngine:
         kv = self.kv
         tokens = torch.from_numpy(chunk[None]).to(self.device)
         table = torch.from_numpy(kv.tables[s].copy()).to(self.device)
-        prefill_chunk(self.model, tokens, kv.pages_k, kv.pages_v, kv.k_scales,
-                      kv.v_scales, table, start)
+        return prefill_chunk(self.model, tokens, kv.pages_k, kv.pages_v, kv.k_scales,
+                             kv.v_scales, table, start)
 
     def _admit(self) -> None:
         budget = self.scheduler.begin_step()
         t0 = time.perf_counter()
-        ran = False
+        errs = []
         while True:
             sched = self.scheduler
             if sched.queue and sched.prefilling is None:
@@ -274,16 +285,17 @@ class ServingEngine:
             req, bucket, valid, start = took
             chunk = np.zeros(bucket, np.int32)
             chunk[:valid] = req.prefill_tokens[start:start + valid]
-            self._prefill_chunk(req, bucket, chunk, start)
-            ran = True
+            errs.append(self._prefill_chunk(req, bucket, chunk, start))
             budget -= bucket
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += valid
             done = sched.finish_prefill()
             if done is not None:
                 self._install(done)
-        if ran:
-            if self.device.type == "cuda":
+        if errs:
+            if self.kv.quantized:  # one readback for the phase's chunks
+                self.stats["kv_quant_error"] = float(torch.stack(errs).max())
+            elif self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.stats["prefill_s"] += time.perf_counter() - t0
 
@@ -364,10 +376,12 @@ class ServingEngine:
         kv = self.kv
         tables = torch.from_numpy(kv.tables.copy()).to(self.device)
         index = torch.from_numpy(self._lane_len.copy()).to(self.device)
-        toks = decode_window(self.model, self.window, kv.pages_k, kv.pages_v,
-                             kv.k_scales, kv.v_scales, tables, index, self.lanes,
-                             self.pad_token_id)
-        toks = toks.cpu().numpy()  # the one readback per window
+        toks, err = decode_window(self.model, self.window, kv.pages_k, kv.pages_v,
+                                  kv.k_scales, kv.v_scales, tables, index, self.lanes,
+                                  self.pad_token_id)
+        toks = toks.cpu().numpy()  # the one readback of tokens per window
+        if self.kv.quantized:
+            self.stats["kv_quant_error"] = float(err)
         self.stats["decode_s"] += time.perf_counter() - t0
         self._lane_len[self._active] += self.window
         self.stats["decode_steps"] += self.window

@@ -10,8 +10,10 @@ updates the tensors themselves).
 * :class:`PageAllocator` — the refcounted free list.  Page id ``0`` is the
   reserved **null page**: freed or frozen lanes' writes land there.
 * :class:`PagedKVPool` — the device page arrays
-  ``[L, num_pages, page_size, Hkv, Dh]``, f32 scales ``[L, num_pages, Hkv]``
-  (ones: only native and bf16 pages are ported) and per-lane block tables.
+  ``[L, num_pages, page_size, Hkv, Dh]`` in the storage dtype (native, bf16,
+  int8 or fp8-e4m3), f32 dequantization scales ``[L, num_pages, Hkv]``
+  (ones; quantized pages rewrite theirs at every insert) and per-lane block
+  tables.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.paged_attention import NULL_PAGE, kv_storage_dtype
+from ..ops.paged_attention import NULL_PAGE, kv_qmax, kv_storage_dtype
 
 
 class PageAllocator:
@@ -77,7 +79,11 @@ class PagedKVPool:
 
     ``max_len`` must be a multiple of ``page_size``; ``num_pages`` counts the
     null page and must hold one full lane plus it.  ``kv_dtype``: ``None``
-    keeps ``config.dtype``, ``"bf16"`` stores bf16."""
+    keeps ``config.dtype``, ``"bf16"`` stores bf16, ``"int8"`` / ``"fp8"``
+    store quantized pages with one f32 scale per (layer, page, kv-head),
+    written at scatter time
+    (:func:`~accelerate_tpu_torch.ops.paged_attention.paged_quantized_insert`;
+    ``accelerate_tpu/serving/paging.py:136``)."""
 
     def __init__(self, config, num_slots: int, max_len: int, page_size: int,
                  num_pages: int, kv_dtype: Optional[str] = None,
@@ -96,16 +102,25 @@ class PagedKVPool:
                 f"({self.pages_per_lane} pages) plus the null page"
             )
         cfg = config
+        self.kv_dtype = kv_dtype
         self.storage_dtype = kv_storage_dtype(kv_dtype, cfg.dtype)
+        self.quantized = kv_qmax(self.storage_dtype) is not None
         shape = (cfg.num_layers, self.num_pages, self.page_size,
                  cfg.num_kv_heads, cfg.resolved_head_dim)
         scale_shape = (cfg.num_layers, self.num_pages, cfg.num_kv_heads)
         self.pages_k = torch.zeros(shape, dtype=self.storage_dtype, device=self.device)
         self.pages_v = torch.zeros(shape, dtype=self.storage_dtype, device=self.device)
         # per-(layer, page, kv-head) dequantization scales: ones, the no-op
-        # multiply the kernels take for native pages
+        # multiply the kernels take for native pages; quantized inserts
+        # rewrite the scales of every page they touch
         self.k_scales = torch.ones(scale_shape, dtype=torch.float32, device=self.device)
         self.v_scales = torch.ones(scale_shape, dtype=torch.float32, device=self.device)
+        #: bytes of K+V one page holds across all layers, its scales included
+        #: (``accelerate_tpu/serving/paging.py:204``)
+        itemsize = self.pages_k.element_size()
+        self.page_kv_bytes = 2 * (self.page_size * cfg.num_kv_heads * cfg.resolved_head_dim
+                                  * cfg.num_layers * itemsize
+                                  + cfg.num_layers * cfg.num_kv_heads * 4)
         self.allocator = PageAllocator(self.num_pages)
         # host block tables: row s maps lane s's logical page slots to
         # physical ids; NULL_PAGE marks unmapped entries
@@ -127,6 +142,12 @@ class PagedKVPool:
         self.tables[slot, :] = NULL_PAGE
         self.lane_npages[slot] = 0
         return self.allocator.deref(held)
+
+    @property
+    def kv_bytes_per_token(self) -> float:
+        """KV bytes one token costs across all layers at the storage dtype,
+        the per-page scales amortized (``serve/kv_bytes_per_token``)."""
+        return self.page_kv_bytes / self.page_size
 
     def kv_bytes(self) -> int:
         """Device bytes held by the page and scale arrays (null page included)."""

@@ -13,6 +13,10 @@ each program here is a plain function:
   the decode kernel (K1): the JAX ``_decode_scan`` as a Python loop.  Frozen
   lanes (inactive, or past their EOS) keep their index, and ``active = ~done``
   routes their writes to the null page each step.
+
+Both return the call's largest KV quantization round-trip error as an f32
+device scalar (0 for native pages), the reference's ``quant_err`` output
+(``accelerate_tpu/serving/pool.py:745-849``); nothing here reads it back.
 * :class:`LaneState` — the per-lane decode vectors on the device; installing a
   request edits one slot of them in place.
 * :func:`plan_chunks` — split a prompt into bucket-sized prefill chunks.
@@ -92,33 +96,41 @@ class LaneState:
         self.generators[slot] = None
 
 
+def _quant_err(cache: PagedKVCache, device) -> torch.Tensor:
+    if cache.quant_err is None:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return cache.quant_err
+
+
 @torch.inference_mode()
 def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
-                  k_scales, v_scales, table: torch.Tensor, base: int) -> None:
+                  k_scales, v_scales, table: torch.Tensor, base: int) -> torch.Tensor:
     """Run one ``[1, chunk_len]`` prompt chunk at positions ``base ..`` of the
     lane whose block table is ``table [P]``; its K/V are written into the
-    page arrays in place."""
+    page arrays (and, for quantized pages, their scales) in place.  Returns
+    the chunk's quantization error, a device scalar."""
     device = tokens.device
     cache = PagedKVCache(
         pages_k=pages_k, pages_v=pages_v, k_scales=k_scales, v_scales=v_scales,
         tables=table[None], index=torch.tensor([base], dtype=torch.int32, device=device),
         active=torch.ones(1, dtype=torch.bool, device=device), kernel="prefill",
     )
-    model(tokens, cache=cache)
+    _, cache = model(tokens, cache=cache)
+    return _quant_err(cache, device)
 
 
 @torch.inference_mode()
 def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
                   v_scales, tables: torch.Tensor, index: torch.Tensor,
-                  lanes: LaneState, pad: int) -> torch.Tensor:
+                  lanes: LaneState, pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``window`` masked decode steps over the whole slot pool.
 
     Each step feeds every lane's pending token at its own position, writes
     its KV there, and picks the next token per lane; lanes that are inactive
     or have emitted their EOS freeze — their index stops advancing, their
     writes go to the null page and their outputs are ``pad``.  Updates
-    ``lanes.pending`` in place and returns the tokens ``[N, window]`` (on the
-    device)."""
+    ``lanes.pending`` in place and returns the tokens ``[N, window]`` and the
+    window's quantization error (both on the device)."""
     cache = PagedKVCache(pages_k=pages_k, pages_v=pages_v, k_scales=k_scales,
                          v_scales=v_scales, tables=tables, index=index,
                          active=lanes.active.clone(), kernel="decode")
@@ -140,4 +152,4 @@ def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
         out.append(nxt)
         tok = nxt
     lanes.pending.copy_(tok)
-    return torch.stack(out, dim=1)
+    return torch.stack(out, dim=1), _quant_err(cache, tok.device)

@@ -15,25 +15,48 @@ Phases, each printing one JSON line:
    Then the shapes that cut its split walk raggedly: a lane of length 0
    beside a 2040-token lane, lengths at and one past page edges, page 16
    (128 pages, many splits), a 3-token verify span at GQA rep 4 (rows of a
-   split wholly masked), D 64, and f32.  Each record names the ``design``
-   and its pages per split; each is also held per (lane, query, head) row,
-   ``||err|| / ||plain||`` against the plain version computed in f32
-   (``ROW_REL_TOL``), run twice for the same bits, and must leave the
-   arrival counters at zero.
+   split wholly masked), D 64, and f32.  Then the dequant arm: int8 and
+   fp8-e4m3 pages (``pages``) written by the port's own
+   ``paged_quantized_insert`` on the card, dead slots poisoned (NaN fp8
+   codes, NaN int8 scales), at "main" and at the engine's lanes
+   (57/384/700/1000), bf16 q and one f32-q case per format; folded rows
+   past the 32 that K1 once took (GQA 8 verifying 5: 40 rows; rep 2 at
+   S 17: 34), in row blocks;
+   D 16 and 32, native and quantized.  Each record names the ``design``,
+   its pages per split and row blocks; each is also held per (lane, query,
+   head) row, ``||err|| / ||plain||`` against the plain version computed
+   in f32 from the same values (codes and scales; ``ROW_REL_TOL``), run
+   twice for the same bits, and must leave the arrival counters at zero.
 3. ``k2``      — the paged prefill kernel the same, for a 512-token chunk at
    base 0 and a 128-token chunk at base 640 (page 128, the engine's), a
    512-token chunk at page 64 and a 128-token chunk at base 600 at page 16
-   (its last tiles straddle the causal frontier and NaN-filled dead pages).
-   Each record names its ``design`` (``wgmma`` for bf16 q and pages,
-   ``cuda-cores`` for f32); the bf16 records are also held per tile of 64
+   (its last tiles straddle the causal frontier and NaN-filled dead pages);
+   then int8 and fp8 pages as for K1 (bf16 q on the tensor cores, the codes
+   converted to bf16 tiles; f32 q on the CUDA cores), and D 16 and 32.
+   Each record names its ``design`` (``wgmma`` for bf16 q over bf16, int8
+   or fp8 pages at D 64/128, ``cuda-cores`` otherwise); every case must
+   repeat bit for bit, and the bf16 records are also held per tile of 64
    positions of one head against the plain version computed in f32.
 4. ``model``   — the full-width, full-depth Llama-2-7B geometry (random
    weights from a seed): a 512-token prompt prefilled as one paged chunk,
    then 8 decode steps through ``PagedKVCache``, each step's logits held
    against the no-cache causal forward (plain attention, no kernel).
+   ``model_int8``, ``model_fp8``: the same into a pool of quantized pages,
+   each call held against the same call over a bf16 pool holding the
+   quantized pool's dequantized values (through the native arms), within
+   the model line's tolerance; the distance to the no-cache forward is
+   printed, not gated.
 5. ``engine``  — ``ServingEngine(paged=True)`` serves 6 greedy requests; the
    kernel launch counters are zeroed just before and read just after; every
-   output is teacher-forced through the no-cache forward.
+   output is teacher-forced through the no-cache forward.  ``engine_int8``,
+   ``engine_fp8``: the same requests with ``kv_dtype="int8"`` / ``"fp8"``
+   (K1's and K2's dequant arms), their own launch counts, the pool's bytes
+   per token and GB, and ``kv_quant_error`` held under the format's bound
+   (``QUANT_ERR_BOUND`` times the largest page scale any insert left).  The
+   largest scale comes from a second, untimed serve of the same requests by
+   a new engine whose inserts are watched; that serve must give the same
+   tokens and the same ``kv_quant_error``, so the timed serve runs the path
+   a user runs and the bound holds for it.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -57,8 +80,9 @@ Phases, each printing one JSON line:
    ``step_ms_mean``.  Before that, one micro-step of one sequence is held
    against the ``attention_impl="xla"`` path, with an f32 run of the same
    weights as the yardstick of bf16 noise.
-8. the ``kernels`` line, the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+8. the ``kernels`` line (each kernel, and K1's and K2's dequant arms with
+   the launches of their engine runs), the card's name and power limit, and
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero before the last
 line.  It needs a CUDA card and the repository beside it; there is no CPU
@@ -205,20 +229,61 @@ def paged_case(seed, lengths, s, hq, hkv, d, page, ppl, dtype):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
+def quantized_case(seed, fmt, lengths, s, hq, hkv, d, page, ppl, q_dtype):
+    """A ragged state of ``fmt`` pages (int8 or fp8-e4m3) on the card,
+    written by the port's own ``paged_quantized_insert``: each lane's
+    ``length + s`` random keys and values inserted through its table, then
+    every dead table slot pointed at a poisoned page — NaN codes for fp8,
+    NaN scales for int8 (whose codes cannot be NaN) — so that a kernel that
+    reads past a lane's live pages turns its output NaN.  Returns ``(q,
+    pages_k, pages_v, tables, lengths, k_scales, v_scales)``."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    n = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    live_pages = n * ppl + 1
+    poisoned = live_pages
+    shape = (live_pages + 1, page, hkv, d)
+    pages = [torch.zeros(shape, dtype=pa.KV_FORMATS[fmt][0], device="cuda") for _ in range(2)]
+    scales = [torch.ones((shape[0], hkv), device="cuda") for _ in range(2)]
+    tables = torch.arange(1, live_pages, dtype=torch.int32, device="cuda").reshape(n, ppl)
+    start = torch.zeros(1, dtype=torch.int32, device="cuda")
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    for lane, length in enumerate(lengths):
+        for codes, sc in zip(pages, scales):
+            new = torch.randn((1, length + s, hkv, d), generator=gen, device="cuda")
+            pa.paged_quantized_insert(codes, sc, new, tables[lane:lane + 1], start, one)
+        tables[lane, (length + s - 1) // page + 1:] = poisoned
+    for codes, sc in zip(pages, scales):
+        if fmt == "fp8":
+            codes.view(torch.uint8)[poisoned] = 0x7F  # e4m3fn's NaN
+        else:
+            sc[poisoned] = float("nan")
+    q = torch.randn((n, s, hq, d), generator=gen, device="cuda").to(q_dtype)
+    return (q, pages[0], pages[1], tables,
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), scales[0], scales[1])
+
+
 def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
     """Hold ``kernel`` against ``plain`` on every case ``(label, seed,
-    lengths, s, hq, hkv, dtype, page[, d])``; returns the first (main-path)
-    case's record.  ``launches`` counts the kernel's launches in the case
-    (the checked calls, then the timing loops); ``ms`` is its device time
-    per launch (device entries named with ``fragment``), ``wall_ms`` the
-    CUDA-event time per call of the wrapper.  ``describe(args)`` names the
-    kernel's arm (a dict for the record); ``extra_checks(out, args)``
-    returns the kernel's own further readings and ``(passed, message)``
-    checks."""
+    lengths, s, hq, hkv, dtype, page[, d[, fmt]])``: native pages of
+    ``dtype`` (:func:`paged_case`), or with ``fmt`` pages of that quantized
+    format under q of ``dtype`` (:func:`quantized_case`).  Returns every
+    case's record, the first (main-path) case's first.  ``launches`` counts
+    the kernel's launches in the case (the checked calls, then the timing
+    loops); ``ms`` is its device time per launch (device entries named with
+    ``fragment``), ``wall_ms`` the CUDA-event time per call of the
+    wrapper.  ``describe(args)`` names the kernel's arm (a dict for the
+    record); ``extra_checks(out, args)`` returns the kernel's own further
+    readings and ``(passed, message)`` checks."""
     records = []
     for label, seed, lengths, s, hq, hkv, dtype, page, *rest in cases:
         d = rest[0] if rest else 128
-        args = paged_case(seed, lengths, s, hq, hkv, d, page, 2048 // page, dtype)
+        fmt = rest[1] if len(rest) > 1 else None
+        if fmt is None:
+            args = paged_case(seed, lengths, s, hq, hkv, d, page, 2048 // page, dtype)
+        else:
+            args = quantized_case(seed, fmt, lengths, s, hq, hkv, d, page, 2048 // page, dtype)
         launches0 = kernel.launches
         out = kernel(*args)
         ref = plain(*args)
@@ -227,9 +292,10 @@ def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
         tol = TOL[name][dtype]
         check(bool(torch.isfinite(out).all()), f"{name} {label}: non-finite output "
               "(a dead or stale page was read)")
-        bms, by = paged_bound_ms(lengths, s, hq, hkv, d, dtype)
+        bms, by = paged_bound_ms(lengths, s, hq, hkv, d, dtype, args[1].dtype, page)
         rec = dict(
-            case=label, dtype=str(dtype).replace("torch.", ""), lengths=lengths, s=s,
+            case=label, dtype=str(dtype).replace("torch.", ""),
+            pages=fmt or str(dtype).replace("torch.", ""), lengths=lengths, s=s,
             hq=hq, hkv=hkv, d=d, page=page, **describe(args), max_abs_err=err, tolerance=tol,
         )
         readings, checks = extra_checks(out, args)
@@ -246,26 +312,31 @@ def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
         for passed, message in checks:
             check(passed, f"{name} {label}: {message}")
         records.append(rec)
-    return records[0]
+    return records
 
 
 def plain_f32(plain, args):
-    """The plain version on the same values in f32 (bf16 values are exact
-    in f32): the yardstick that keeps f32 sums, as the kernels do."""
+    """The plain version on the same values in f32 (bf16 values and
+    quantized codes are exact in f32; codes keep their scales): the
+    yardstick that keeps f32 sums, as the kernels do."""
     return plain(*(t.float() for t in args[:3]), *args[3:])
 
 
 def k2_checks(out, args):
-    """A bf16 K2 case is held per tile of 64 positions of one head against
-    the plain version computed in f32 (``FLASH_TILE_TOL``)."""
+    """K2 on a second run must give the same bits; a bf16 case is also held
+    per tile of 64 positions of one head against the plain version computed
+    in f32 (``FLASH_TILE_TOL``)."""
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    if out.dtype != torch.bfloat16:
-        return {}, []
-    err = tile_rel_err(out, plain_f32(pa.paged_flash_prefill_reference, args))
-    tol = FLASH_TILE_TOL[torch.bfloat16]
-    return ({"tile_rel_err_vs_f32": err, "tile_tolerance": tol},
-            [(err <= tol, f"tile relative err {err} > {tol}")])
+    repeat = torch.equal(out, pa.paged_flash_prefill(*args))
+    readings = {"bitwise_repeatable": repeat}
+    checks = [(repeat, "two runs gave different bits")]
+    if out.dtype == torch.bfloat16:
+        err = tile_rel_err(out, plain_f32(pa.paged_flash_prefill_reference, args))
+        tol = FLASH_TILE_TOL[torch.bfloat16]
+        readings.update(tile_rel_err_vs_f32=err, tile_tolerance=tol)
+        checks.append((err <= tol, f"tile relative err {err} > {tol}"))
+    return readings, checks
 
 
 def row_rel_err(got, want) -> float:
@@ -297,18 +368,21 @@ def k1_checks(out, args):
 def k1_describe(args):
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    q, pages_k, _, tables, _ = args
+    q, pages_k, _, tables = args[:4]
     pps, splits = pa.decode_split_plan(tables.shape[1], q.shape[0], pages_k.shape[2],
                                        pages_k.shape[1], torch.cuda.get_device_properties(
                                            q.device).multi_processor_count)
-    return {"design": pa.DECODE_DESIGN, "pages_per_split": pps, "splits": splits}
+    gs = q.shape[2] // pages_k.shape[2] * q.shape[1]
+    return {"design": pa.DECODE_DESIGN, "pages_per_split": pps, "splits": splits,
+            "rows": gs, "row_blocks": pa.decode_row_blocks(gs)[1]}
 
 
 def k2_describe(args):
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     q, pages_k = args[:2]
-    return {"design": pa.prefill_design(q.dtype, pages_k.dtype, pages_k.shape[1])}
+    return {"design": pa.prefill_design(q.dtype, pages_k.dtype, pages_k.shape[1],
+                                        q.shape[3])}
 
 
 # -------------------------------------------------------------------- model
@@ -368,17 +442,107 @@ def model_phase(model, cfg, rng) -> float:
     return tol
 
 
-def engine_phase(model, cfg, rng, gpu, margin: float):
+def quantized_model_phase(model, cfg, rng, fmt: str, tol: float) -> None:
+    """A 512-token prompt prefilled through K2 into a pool of ``fmt`` pages,
+    then 8 decode steps through K1, each call's logits held against the
+    same call over a bf16 pool that holds the dequantized values of the
+    quantized pool right after the call (codes x scales, rounded to bf16
+    once), attended through the native arms with the call's own writes sent
+    to the null page: ``tol`` is the bf16 model line's.  The distance to the
+    no-cache forward is printed, not gated: quantization moves it by
+    design."""
+    from accelerate_tpu_torch.models.transformer import PagedKVCache
+    from accelerate_tpu_torch.serving import PagedKVPool
+
+    prompt = rng.integers(1, cfg.vocab_size, 512).astype(np.int32)
+    pools = {kv: PagedKVPool(cfg, 1, 1024, 128, 9, kv_dtype=kv, device="cuda")
+             for kv in (fmt, "bf16")}
+    tables = torch.arange(1, 9, dtype=torch.int32, device="cuda")[None]
+    quant, plain = pools[fmt], pools["bf16"]
+
+    def paged(pool, index, kernel, writes):
+        return PagedKVCache(pool.pages_k, pool.pages_v, pool.k_scales, pool.v_scales,
+                            tables=tables, index=index,
+                            active=torch.full((1,), writes, device="cuda"), kernel=kernel)
+
+    cache = paged(quant, torch.zeros(1, dtype=torch.int32, device="cuda"), "prefill", True)
+    steps, held, feed = [], [], prompt
+    tokens = list(prompt)
+    with torch.inference_mode():
+        for _ in range(9):
+            ids = torch.from_numpy(np.asarray(feed, np.int32)[None]).cuda()
+            index = cache.index
+            logits, cache = model(ids, cache=cache)
+            steps.append(logits[0])
+            for dst, codes, sc in ((plain.pages_k, quant.pages_k, quant.k_scales),
+                                   (plain.pages_v, quant.pages_v, quant.v_scales)):
+                for layer in range(cfg.num_layers):
+                    dst[layer].copy_(codes[layer].float() * sc[layer][:, None, :, None])
+            ref, _ = model(ids, cache=paged(plain, index, cache.kernel, False))
+            held.append(ref[0])
+            cache.kernel = "decode"
+            feed = [int(steps[-1][-1].argmax())]
+            tokens.append(feed[0])
+    got, want = torch.cat(steps), torch.cat(held)
+    err = (got - want).abs().max().item()
+    no_cache = no_cache_logits(model, np.asarray(tokens[:-1], np.int32))
+    emit({"phase": "model_" + fmt, "prompt": 512, "decode_steps": 8, "pages": fmt,
+          "max_abs_logit_err_vs_dequantized_bf16": err,
+          "decode_max_abs_logit_err_vs_dequantized_bf16": (got[512:] - want[512:]).abs()
+          .max().item(),
+          "tolerance": tol,
+          "max_abs_logit_dist_to_no_cache": (got - no_cache).abs().max().item(),
+          "kv_quant_error": cache.quant_err.item()})
+    check(err <= tol, f"{fmt} paged forward logits differ from the dequantized bf16 pool's "
+          f"by {err} > {tol}")
+    del pools, quant, plain
+    torch.cuda.empty_cache()
+
+
+#: the round-trip error bound of each quantized format, as a multiple of the
+#: largest page scale: half a code step for int8; for e4m3, 2^-4 of the
+#: amax, which the scale maps to 448 (3 mantissa bits: a relative step of
+#: 2^-3 at worst).  The slack covers the f32 rounding of x / s and q * s
+#: (a few 2^-24 of 127 steps).
+QUANT_ERR_BOUND = {"int8": 0.5, "fp8": 2.0**-4 * 448.0}
+QUANT_ERR_SLACK = 1 + 2.0**-10
+
+
+def tracking_scales(track: torch.Tensor):
+    """Wrap the transformer's quantized insert so that ``track`` follows the
+    largest page scale any insert leaves in its layer's scale array (a
+    device max, never read back during the run); returns an undo.  It adds
+    two ops to every insert, so it watches only an untimed serve."""
+    from accelerate_tpu_torch.models import transformer
+
+    saved = transformer.paged_quantized_insert
+
+    def insert(pages, scales, new, tables, index, active):
+        out = saved(pages, scales, new, tables, index, active)
+        torch.maximum(track, out[1].amax(), out=track)
+        return out
+
+    transformer.paged_quantized_insert = insert
+    return lambda: setattr(transformer, "paged_quantized_insert", saved)
+
+
+def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None):
     from accelerate_tpu_torch.models.generation import GenerationConfig
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving import ServingEngine
 
     lens = (57, 100, 384, 700, 1000, 1500)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in lens]
-    engine = ServingEngine(model, None, num_slots=4, max_len=2048,
-                           prefill_buckets=(128, 512), decode_window=4, device="cuda")
-    idle_free = engine.kv.allocator.free_count
     gen = GenerationConfig(max_new_tokens=48)
+
+    def new_engine():
+        return ServingEngine(model, None, num_slots=4, max_len=2048,
+                             prefill_buckets=(128, 512), decode_window=4, kv_dtype=kv_dtype,
+                             device="cuda")
+
+    engine = new_engine()
+    idle_free = engine.kv.allocator.free_count
+    quantized = engine.kv.quantized
     pa.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = engine.serve(prompts, configs=gen)
@@ -394,6 +558,27 @@ def engine_phase(model, cfg, rng, gpu, margin: float):
           f"prefill kernel launches {launches['paged_flash_prefill']} != "
           f"{st['prefill_chunks']} chunks x {cfg.num_layers} layers")
     check(engine.kv.allocator.free_count == idle_free, "KV pages leaked")
+    if quantized:
+        # the same serve again, untimed, by a new engine whose inserts are
+        # watched for the largest scale they leave; scales of pages no insert
+        # wrote read 0, so that the largest is one some write used (an
+        # unwritten page is never read: the insert zeroes a fresh page's
+        # slots past the frontier itself, whatever its scale)
+        watched = new_engine()
+        watched.kv.k_scales.zero_()
+        watched.kv.v_scales.zero_()
+        scale_max = torch.zeros((), device="cuda")
+        undo = tracking_scales(scale_max)
+        try:
+            again = watched.serve(prompts, configs=gen)
+        finally:
+            undo()
+        check([r.tokens for r in again] == [r.tokens for r in reqs],
+              f"{kv_dtype} engine tokens differ between two serves of the same requests")
+        check(watched.stats["kv_quant_error"] == st["kv_quant_error"],
+              f"{kv_dtype} kv_quant_error differs between two serves: "
+              f"{watched.stats['kv_quant_error']} against {st['kv_quant_error']}")
+        del watched
 
     agree = total = confident = 0
     deficits = []
@@ -410,7 +595,16 @@ def engine_phase(model, cfg, rng, gpu, margin: float):
         deficits.append(top2[:, 0] - rows.gather(1, got[:, None])[:, 0])
         total += len(req.tokens)
     deficit = torch.cat(deficits)
-    emit({"phase": "engine", "requests": len(reqs), "prompt_lens": list(lens),
+    kv_rec = {}
+    if quantized:
+        bound = QUANT_ERR_BOUND[kv_dtype] * scale_max.item() * QUANT_ERR_SLACK
+        kv_rec = {"kv_quant_error": st["kv_quant_error"], "kv_quant_error_bound": bound,
+                  "largest_scale": scale_max.item()}
+    emit({"phase": "engine" if kv_dtype is None else "engine_" + kv_dtype,
+          "kv_dtype": kv_dtype, "pages": str(engine.kv.storage_dtype).replace("torch.", ""),
+          "kv_bytes_per_token": st["kv_bytes_per_token"],
+          "kv_pool_gb": engine.kv.kv_bytes() / 1e9, **kv_rec,
+          "requests": len(reqs), "prompt_lens": list(lens),
           "new_tokens": 48, "stats": st, "launches": launches, "wall_s": wall,
           "argmax_agree_share": agree / total,
           "margin_above_noise_share": confident / total, "noise_margin": margin,
@@ -419,8 +613,15 @@ def engine_phase(model, cfg, rng, gpu, margin: float):
           "decode_tokens_per_s": st["tokens_generated"] / st["decode_s"],
           "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
           "kv_pool_bytes": engine.kv.kv_bytes(), "gpu": gpu})
-    check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
-          f"forward's best logit by more than the noise margin {margin}")
+    if quantized:
+        # quantization moves the logits by design: the tokens are held by
+        # the error bound, not by the bf16 noise margin
+        check(0.0 < kv_rec["kv_quant_error"] <= kv_rec["kv_quant_error_bound"],
+              f"{kv_dtype} kv_quant_error {kv_rec['kv_quant_error']} outside "
+              f"(0, {kv_rec['kv_quant_error_bound']}]")
+    else:
+        check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
+              f"forward's best logit by more than the noise margin {margin}")
     return launches
 
 
@@ -753,19 +954,20 @@ def main() -> int:
     spills = spilling_kernels(_build.build_logs)
     emit({"phase": "device", "gpu": gpu, "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": _build.build_seconds,
+          "build_s": _build.build_seconds, "build_s_by_library": _build.build_times,
           "spills": spills})
     check(sorted(_build.build_logs) == sorted(_build.KERNELS),
           f"ptxas reports for {sorted(_build.build_logs)}, want every library")
     tc_entries = set(re.findall(r"Compiling entry function '(\w*wgmma\w*)'",
                                 "".join(_build.build_logs.values())))
-    check(len(tc_entries) == 8, f"ptxas reports {len(tc_entries)} tensor-core kernels, want 8 "
-          "(K2, K3, K4 and K5 at D 64 and 128)")
+    check(len(tc_entries) == 12, f"ptxas reports {len(tc_entries)} tensor-core kernels, want "
+          "12 (K2 over bf16, int8 and fp8 pages, K3, K4 and K5, each at D 64 and 128)")
     check(not [k for k in spills if "wgmma" in k],
           "a tensor-core kernel spills registers to local memory")
 
     bf16, f32 = torch.bfloat16, torch.float32
     ragged = [5, 700, 1500, 2040]  # a lane on its first page ... a nearly full lane
+    engine_lanes = [57, 384, 700, 1000]  # as the engine's decode steps hold them
     k1 = kernel_phase("k1", pa.paged_attention, pa.paged_attention_reference, "paged_decode", [
         ("main", 1, ragged, 1, 32, 32, bf16, 128),
         ("main", 2, ragged, 1, 32, 32, f32, 128),
@@ -782,6 +984,32 @@ def main() -> int:
         ("page16", 26, [5, 2040], 1, 32, 32, f32, 16),
         ("verify3_gqa", 27, ragged, 3, 32, 8, f32, 128),
         ("gqa_d64", 28, ragged, 1, 32, 8, f32, 128, 64),
+        # the dequant arm: int8 and fp8-e4m3 pages written by the port's own
+        # quantized insert, dead slots poisoned (NaN codes / NaN scales)
+        ("main", 31, ragged, 1, 32, 32, bf16, 128, 128, "int8"),
+        ("main", 32, ragged, 1, 32, 32, bf16, 128, 128, "fp8"),
+        ("engine", 33, engine_lanes, 1, 32, 32, bf16, 128, 128, "int8"),
+        ("engine", 34, engine_lanes, 1, 32, 32, bf16, 128, 128, "fp8"),
+        ("engine", 35, engine_lanes, 1, 32, 32, bf16, 128),
+        ("main", 36, ragged, 1, 32, 32, f32, 128, 128, "int8"),
+        ("main", 37, ragged, 1, 32, 32, f32, 128, 128, "fp8"),
+        ("gqa", 38, ragged, 1, 32, 8, bf16, 128, 128, "int8"),
+        # past 32 folded rows: GQA 8 verifying 5 (40 rows), rep 2 at S 17 (34)
+        ("rows40_rep8_s5", 39, ragged, 5, 32, 4, bf16, 128),
+        ("rows34_rep2_s17", 40, [5, 700, 1500, 2000], 17, 32, 16, bf16, 128),
+        ("rows40_rep8_s5", 41, ragged, 5, 32, 4, f32, 128),
+        ("rows34_rep2_s17", 42, [5, 700, 1500, 2000], 17, 32, 16, f32, 128),
+        ("rows40_rep8_s5", 43, ragged, 5, 32, 4, bf16, 128, 128, "int8"),
+        ("rows34_rep2_s17", 44, [5, 700, 1500, 2000], 17, 32, 16, bf16, 128, 128, "fp8"),
+        # head dims 16 and 32, native and quantized
+        ("gqa_d16", 45, ragged, 1, 32, 8, bf16, 128, 16),
+        ("gqa_d32", 46, ragged, 1, 32, 8, bf16, 128, 32),
+        ("gqa_d16", 47, ragged, 1, 32, 8, f32, 128, 16),
+        ("gqa_d32", 48, ragged, 1, 32, 8, f32, 128, 32),
+        ("gqa_d16", 49, ragged, 1, 32, 8, bf16, 128, 16, "int8"),
+        ("gqa_d32", 50, ragged, 1, 32, 8, bf16, 128, 32, "fp8"),
+        ("gqa_d16", 51, ragged, 1, 32, 8, f32, 128, 16, "fp8"),
+        ("gqa_d32", 52, ragged, 1, 32, 8, f32, 128, 32, "int8"),
     ], k1_describe, k1_checks)
     k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
                       "paged_prefill", [
@@ -797,6 +1025,22 @@ def main() -> int:
         # last tiles straddle the frontier and the NaN-filled dead pages
         ("chunk512_base0_page64", 19, [0], 512, 32, 32, bf16, 64),
         ("chunk128_base600_page16", 20, [600], 128, 32, 32, bf16, 16),
+        # the dequant arm: on the tensor cores for bf16 q (codes converted to
+        # bf16 tiles), on the CUDA cores for f32 q
+        ("chunk512_base0", 53, [0], 512, 32, 32, bf16, 128, 128, "int8"),
+        ("chunk512_base0", 54, [0], 512, 32, 32, bf16, 128, 128, "fp8"),
+        ("chunk128_base640", 55, [640], 128, 32, 32, bf16, 128, 128, "int8"),
+        ("chunk128_base640", 56, [640], 128, 32, 32, bf16, 128, 128, "fp8"),
+        ("chunk512_base0", 57, [0], 512, 32, 32, f32, 128, 128, "int8"),
+        ("chunk512_base0", 58, [0], 512, 32, 32, f32, 128, 128, "fp8"),
+        ("gqa_chunk512_base0", 59, [0], 512, 32, 8, bf16, 128, 128, "int8"),
+        ("chunk128_base600_page16", 60, [600], 128, 32, 32, bf16, 16, 128, "fp8"),
+        ("gqa_d64_chunk128_base640", 61, [640], 128, 32, 8, bf16, 128, 64, "int8"),
+        # head dims 16 and 32 on the CUDA cores, native and quantized
+        ("gqa_d16_chunk128_base640", 62, [640], 128, 32, 8, bf16, 128, 16),
+        ("gqa_d32_chunk128_base640", 63, [640], 128, 32, 8, f32, 128, 32),
+        ("gqa_d16_chunk128_base640", 64, [640], 128, 32, 8, bf16, 128, 16, "fp8"),
+        ("gqa_d32_chunk128_base640", 65, [640], 128, 32, 8, f32, 128, 32, "int8"),
     ], k2_describe, k2_checks)
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
@@ -804,7 +1048,11 @@ def main() -> int:
     model.load_state_dict(init_params(cfg, seed=0, device="cuda", dtype=bf16), assign=True)
     rng = np.random.default_rng(0)
     tol = model_phase(model, cfg, rng)
+    for fmt in pa.KV_FORMATS:
+        quantized_model_phase(model, cfg, rng, fmt, tol)
     launches = engine_phase(model, cfg, rng, gpu, tol)
+    arm_launches = {fmt: engine_phase(model, cfg, rng, gpu, tol, kv_dtype=fmt)
+                    for fmt in pa.KV_FORMATS}
     del model
     torch.cuda.empty_cache()
 
@@ -818,29 +1066,45 @@ def main() -> int:
     ])
     launches.update(train_phase(gpu))
 
+    def first(records, pages, case):
+        return next(r for r in records if r["pages"] == pages and r["case"] == case)
+
     kernels = []
     csrc = "accelerate_tpu_torch/ops/csrc/"
-    for rec, name, src, replaces in (
-        (k1, "paged_attention", csrc + "paged_attention.cu",
-         "accelerate_tpu/ops/paged_attention.py:252"),
-        (k2, "paged_flash_prefill", csrc + "paged_prefill.cu",
-         "accelerate_tpu/ops/paged_attention.py:479"),
+    arms = []
+    for fmt in pa.KV_FORMATS:
+        # the dequant arms, launched on their own engine run's path
+        arms += [
+            (first(k1, fmt, "main"), f"paged_attention[{fmt}]", csrc + "paged_attention.cu",
+             "accelerate_tpu/ops/paged_attention.py:291",
+             arm_launches[fmt]["paged_attention"]),
+            (first(k2, fmt, "chunk512_base0"), f"paged_flash_prefill[{fmt}]",
+             csrc + "paged_prefill.cu", "accelerate_tpu/ops/paged_attention.py:511",
+             arm_launches[fmt]["paged_flash_prefill"]),
+        ]
+    for rec, name, src, replaces, count in (
+        (k1[0], "paged_attention", csrc + "paged_attention.cu",
+         "accelerate_tpu/ops/paged_attention.py:252", launches["paged_attention"]),
+        (k2[0], "paged_flash_prefill", csrc + "paged_prefill.cu",
+         "accelerate_tpu/ops/paged_attention.py:479", launches["paged_flash_prefill"]),
+        *arms,
         (flash["k3"], "flash_fwd", csrc + "flash_fwd.cu",
-         "accelerate_tpu/ops/flash_attention.py:84"),
+         "accelerate_tpu/ops/flash_attention.py:84", launches["flash_fwd"]),
         (flash["k4"], "flash_dq", csrc + "flash_bwd.cu",
-         "accelerate_tpu/ops/flash_attention.py:278"),
+         "accelerate_tpu/ops/flash_attention.py:278", launches["flash_dq"]),
         (flash["k5"], "flash_dkv", csrc + "flash_bwd.cu",
-         "accelerate_tpu/ops/flash_attention.py:312"),
+         "accelerate_tpu/ops/flash_attention.py:312", launches["flash_dkv"]),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "launches": count, "max_abs_err": rec["max_abs_err"],
             "tolerance": rec["tolerance"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
         })
-        if "design" in rec:
-            kernels[-1]["design"] = rec["design"]
+        for key in ("design", "pages"):
+            if key in rec:
+                kernels[-1][key] = rec[key]
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,10 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from accelerate_tpu_torch.ops import _build
+from accelerate_tpu_torch.ops import paged_attention as pa
 
 OPS = Path(_build.__file__).resolve().parent
 WRAPPERS = ("flash_attention.py", "paged_attention.py")
@@ -95,3 +97,34 @@ def test_every_launch_names_a_known_entry_with_its_arity(wrapper):
 def test_every_entry_point_is_launched():
     launched = {(lib, entry) for w in WRAPPERS for lib, entry, _, _ in _launches(OPS / w)}
     assert launched == {(lib, entry) for lib, entry, _ in ENTRIES}
+
+
+@pytest.mark.parametrize("dtype,code", sorted(pa._PAGE_FORMATS.items(), key=lambda kv: kv[1]),
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_page_dispatch_takes_every_page_format(dtype, code):
+    """Both paged libraries dispatch every page format the wrappers pass
+    (``_PAGE_FORMATS``) through the shared header, to the C type of that
+    dtype: one build per source holds them all."""
+    ctype = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16", torch.int8: "int8_t",
+             torch.float8_e4m3fn: "__nv_fp8_e4m3"}[dtype]
+    common = (OPS / "csrc" / "paged_common.cuh").read_text()
+    assert re.search(rf"kv_fmt == {code}\) return LAUNCH\(QT, {re.escape(ctype)}, D\)", common)
+    for library in ("paged_attention", "paged_prefill"):
+        source = (OPS / "csrc" / _build.KERNELS[library][0]).read_text()
+        assert "ATPU_DISPATCH(q_bf16, kv_fmt, d," in source
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float8_e4m3fn],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_tensor_core_prefill_dispatch_takes_what_the_design_picks(dtype):
+    """Every page dtype for which ``prefill_design`` picks ``"wgmma"`` has a
+    tensor-core arm in ``atpu_paged_prefill``, at both of its head dims."""
+    assert pa.prefill_design(torch.bfloat16, dtype, 64, 128) == "wgmma"
+    ctype = {torch.bfloat16: "__nv_bfloat16", torch.int8: "int8_t",
+             torch.float8_e4m3fn: "__nv_fp8_e4m3"}[dtype]
+    source = (OPS / "csrc" / "paged_prefill.cu").read_text()
+    code = pa._PAGE_FORMATS[dtype]
+    assert re.search(rf"kv_fmt == {code}\) return ATPU_LAUNCH_PREFILL_WGMMA\(D, "
+                     rf"{re.escape(ctype)}\)", source)
+    for d in pa._WGMMA_HEAD_DIMS:
+        assert f"ATPU_WGMMA_PAGES({d})" in source

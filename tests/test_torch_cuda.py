@@ -21,7 +21,11 @@ against the plain bf16 version, as ``chip_smoke.py`` holds it.  The paged
 decode kernel (K1), whose lanes split across CTAs and merge, is also held
 per (lane, query, head) row against the plain version in f32
 (``ROW_REL_TOL``: bf16 2^-7, f32 1e-5), must repeat bit for bit, and must
-leave its arrival counters at zero.
+leave its arrival counters at zero.  Quantized pages (int8, fp8-e4m3) are
+written by the port's own ``paged_quantized_insert`` on the card
+(``chip_smoke.quantized_case``: dead slots poisoned with NaN codes or NaN
+scales) and held the same ways, the f32 plain version computed from the
+same codes and scales.
 """
 
 import functools
@@ -45,6 +49,7 @@ from chip_smoke import (
     FLASH_TILE_TOL,
     ROW_REL_TOL,
     TOL,
+    quantized_case,
     row_rel_err,
     tile_rel_err,
 )
@@ -125,7 +130,7 @@ def test_paged_prefill_tensor_cores(card, page, lengths, s, hq, hkv, d):
     against the plain version; dead slots hold NaN pages, so a tile that
     read one past the frontier would turn its rows NaN."""
     args = _prefill_case(card, lengths, s, hq, hkv, d, page, seed=page)
-    assert pa.prefill_design(args[0].dtype, args[1].dtype, page) == "wgmma"
+    assert pa.prefill_design(args[0].dtype, args[1].dtype, page, d) == "wgmma"
     out = pa.paged_flash_prefill(*args)
     assert bool(torch.isfinite(out).all())
     ref = pa.paged_flash_prefill_reference(*args)
@@ -147,7 +152,7 @@ def test_paged_prefill_route(card, page, dtype, design):
     tensor-core launch it cannot run rather than run another arm."""
     q, pk, pv, tables, lengths = (t.to(dtype) if t.is_floating_point() else t
                                   for t in _prefill_case(card, [9, 40], 70, 4, 2, 64, page))
-    assert pa.prefill_design(q.dtype, pk.dtype, page) == design
+    assert pa.prefill_design(q.dtype, pk.dtype, page, 64) == design
     out = pa.paged_flash_prefill(q, pk, pv, tables, lengths)
     ref = pa.paged_flash_prefill_reference(q, pk, pv, tables, lengths)
     atol = TOL["k2"][dtype]
@@ -174,6 +179,10 @@ K1_CASES = [
     ([5, 300, 1000], 1, 8, 2, 64, 128, 16),   # D 64
     ([9, 250], 4, 16, 2, 64, 24, 12),        # gs 32, a page of 24 keys
     ([3, 40, 77], 2, 4, 4, 128, 8, 16),      # pages of 8, a 2-token span
+    ([5, 300, 1000], 5, 16, 2, 64, 128, 16),  # 40 rows (rep 8, S 5): two row blocks
+    ([9, 250, 700], 17, 8, 4, 128, 16, 64),  # 34 rows (rep 2, S 17), pages of 16
+    ([5, 300, 1000], 1, 8, 2, 16, 128, 16),  # D 16
+    ([3, 40, 77], 3, 8, 2, 32, 8, 16),       # D 32, pages of 8
 ]
 
 
@@ -224,6 +233,114 @@ def test_paged_decode_page_scales(card, dtype):
     assert row_rel_err(unscaled, ref32) > 100 * ROW_REL_TOL[dtype]
 
 
+K1_QUANT_CASES = [
+    # lengths, s, hq, hkv, d, page, table slots per lane
+    ([5, 700, 1500, 2040], 1, 32, 32, 128, 128, 16),  # the serving path's shape
+    ([5, 700, 2040], 3, 8, 2, 128, 128, 16),  # verify span, rep 4
+    ([5, 300, 1000], 5, 16, 2, 64, 128, 16),  # 40 rows
+    ([9, 250, 700], 17, 8, 4, 128, 16, 64),  # 34 rows, pages of 16
+    ([5, 300, 1000], 1, 8, 2, 16, 128, 16),  # D 16
+    ([3, 40, 77], 3, 8, 2, 32, 8, 16),       # D 32, pages of 8
+]
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths,s,hq,hkv,d,page,ppl", K1_QUANT_CASES)
+def test_paged_decode_quantized(card, fmt, q_dtype, lengths, s, hq, hkv, d, page, ppl):
+    """K1's dequant arm over int8 / fp8 codes and their scales: within the
+    q dtype's absolute tolerance of the plain version, per row against the
+    plain version in f32, bit for bit on a second run, counters at zero."""
+    args = quantized_case(len(lengths) * page + s, fmt, lengths, s, hq, hkv, d, page, ppl,
+                          q_dtype)
+    out = pa.paged_attention(*args)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_attention_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k1"][q_dtype], rtol=0)
+    ref32 = pa.paged_attention_reference(*(t.float() for t in args[:3]), *args[3:])
+    assert row_rel_err(out, ref32) <= ROW_REL_TOL[q_dtype]
+    assert torch.equal(out, pa.paged_attention(*args))
+    assert pa.pending_split_counters() == 0
+
+
+def _quantized_prefill_case(card, fmt, lengths, s, hq, hkv, d, page, q_dtype):
+    ppl = max((length + s - 1) // page + 1 for length in lengths) + 2
+    return quantized_case(page + s + d, fmt, lengths, s, hq, hkv, d, page, ppl, q_dtype)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("page", [8, 16, 64, 128])
+@pytest.mark.parametrize("lengths,s,hq,hkv,d", [
+    ([0, 37, 100], 90, 8, 8, 128),   # tiles straddle pages and each q-block's frontier
+    ([70, 0], 61, 12, 2, 64),        # D 64, rep 6
+])
+def test_paged_prefill_quantized_tensor_cores(card, fmt, page, lengths, s, hq, hkv, d):
+    """K2's dequant arm on the tensor cores: TMA lands the codes, the
+    consumer warpgroup converts them to bf16 tiles; held per tile against
+    the plain version in f32 from the same codes and scales, to the bf16
+    plain version's absolute tolerance, and bit for bit on a second run."""
+    args = _quantized_prefill_case(card, fmt, lengths, s, hq, hkv, d, page, torch.bfloat16)
+    assert pa.prefill_design(args[0].dtype, args[1].dtype, page, d) == "wgmma"
+    out = pa.paged_flash_prefill(*args)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_flash_prefill_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k2"][torch.bfloat16], rtol=0)
+    ref32 = pa.paged_flash_prefill_reference(*(t.float() for t in args[:3]), *args[3:])
+    assert tile_rel_err(out, ref32) <= FLASH_TILE_TOL[torch.bfloat16]
+    assert torch.equal(out, pa.paged_flash_prefill(*args))
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("q_dtype,d,page", [
+    (torch.float32, 128, 128),   # f32 q keeps f32 products
+    (torch.float32, 64, 24),
+    (torch.bfloat16, 128, 24),   # a page that tiles into no 64-key box
+    (torch.bfloat16, 16, 128),   # D 16 and 32 fill no 64-column panel
+    (torch.bfloat16, 32, 16),
+    (torch.float32, 16, 8),
+])
+def test_paged_prefill_quantized_cuda_cores(card, fmt, q_dtype, d, page):
+    """K2's dequant arm on the CUDA cores (codes times scales as the tiles
+    load) against the plain version."""
+    args = _quantized_prefill_case(card, fmt, [9, 40], 70, 8, 2, d, page, q_dtype)
+    assert pa.prefill_design(args[0].dtype, args[1].dtype, page, d) == "cuda-cores"
+    out = pa.paged_flash_prefill(*args)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_flash_prefill_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k2"][q_dtype], rtol=0)
+    assert torch.equal(out, pa.paged_flash_prefill(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32])
+def test_paged_prefill_small_head_dims(card, dtype, d):
+    """K2's CUDA-core arm at D 16 and 32 (TransformerConfig.tiny's 16)."""
+    q, pk, pv, tables, lengths = (t.to(dtype) if t.is_floating_point() else t
+                                  for t in _prefill_case(card, [9, 40, 0], 70, 8, 2, d, 16))
+    assert pa.prefill_design(q.dtype, pk.dtype, 16, d) == "cuda-cores"
+    out = pa.paged_flash_prefill(q, pk, pv, tables, lengths)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_flash_prefill_reference(q, pk, pv, tables, lengths)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k2"][dtype], rtol=0)
+
+
+def test_quantized_pages_need_scales(card):
+    args = quantized_case(1, "int8", [5, 40], 1, 4, 2, 64, 16, 4, torch.float32)
+    for fn in (pa.paged_attention, pa.paged_flash_prefill):
+        with pytest.raises(ValueError, match="need k_scales"):
+            fn(*args[:5])
+
+
+def test_prefill_refuses_a_group_wider_than_a_q_block(card):
+    """A GQA group of 65 query heads per kv head does not fit K2's 64-row
+    q-block: the wrapper names the limit before any launch."""
+    args = _case(card, [5], 4, 65, 1, 64, 16, 2, torch.float32)
+    launches = pa.paged_flash_prefill.launches
+    with pytest.raises(ValueError, match="64 folded rows"):
+        pa.paged_flash_prefill(*args)
+    assert pa.paged_flash_prefill.launches == launches
+
+
 def test_paged_decode_shapes_in_turn(card):
     """Calls at one shape, then another, then the first again: each right,
     so every launch leaves the arrival counters at zero for the next."""
@@ -246,9 +363,28 @@ def test_launch_counters_count_kernel_launches_only(card):
 
 
 def test_unsupported_head_dim_raises(card):
-    args = _case(card, [5], 1, 4, 4, 32, 16, 2, torch.float32)
+    """D 16, 32, 64 and 128 are taken; any other D (48 here) is refused by
+    the wrapper, before a launch, for both paged kernels."""
+    args = _case(card, [5], 1, 4, 4, 48, 16, 2, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_attention(*args)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_flash_prefill(*args)
+
+
+def test_too_many_lanes_raise(card):
+    """A call of more lanes than a launch's grid holds is refused by the
+    wrapper, naming the limit, before a launch, for both paged kernels."""
+    n = pa.MAX_LANES + 1
+    q = torch.zeros((n, 1, 1, 16), dtype=torch.bfloat16, device=card)
+    pages = torch.zeros((2, 16, 1, 16), dtype=torch.bfloat16, device=card)
+    tables = torch.ones((n, 1), dtype=torch.int32, device=card)
+    lengths = torch.zeros((n,), dtype=torch.int32, device=card)
+    for fn in (pa.paged_attention, pa.paged_flash_prefill):
+        before = fn.launches
+        with pytest.raises(ValueError, match=str(pa.MAX_LANES)):
+            fn(q, pages, pages, tables, lengths)
+        assert fn.launches == before
 
 
 def test_engine_on_card_matches_cpu_engine(card):
@@ -268,6 +404,33 @@ def test_engine_on_card_matches_cpu_engine(card):
                                device=dev)
         out[str(dev)] = [r.tokens for r in engine.serve(prompts, configs=gen)]
     assert out["cpu"] == out[str(card)]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_tiny_engine_on_card_matches_cpu_engine(card, kv_dtype):
+    """``TransformerConfig.tiny`` as the reference runs it (D 16, GQA 4/2),
+    f32, native and quantized pages: greedy tokens on the card (K1, K2 and
+    the quantized insert there) == the plain versions on the CPU."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128)
+    assert cfg.resolved_head_dim == 16
+    sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 19, 33, 8)]
+    gen = GenerationConfig(max_new_tokens=12)
+    out, errs = {}, {}
+    pa.reset_launch_counts()
+    for dev in ("cpu", card):
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               kv_dtype=kv_dtype, device=dev)
+        out[str(dev)] = [r.tokens for r in engine.serve(prompts, configs=gen)]
+        errs[str(dev)] = engine.stats["kv_quant_error"]
+    assert out["cpu"] == out[str(card)]
+    assert pa.paged_attention.launches > 0 and pa.paged_flash_prefill.launches > 0
+    if kv_dtype is not None:
+        assert errs["cpu"] > 0.0 and errs[str(card)] > 0.0
 
 
 def _flash_case(card, b, s, hq, hkv, d, dtype, segmented=False, seed=0, sk=None):

@@ -3,7 +3,9 @@
 Greedy tokens must be IDENTICAL to the JAX ``ServingEngine(paged=True,
 decode_kernel="pallas", prefix_cache_mb=0)`` (Pallas kernels in interpret
 mode) on the workload of ``tests/test_paged_attention.py``: prompts of 5, 9,
-3, 12 and 7 tokens, buckets (4, 8), 2 slots, window 2, 8 new tokens.  Sampled
+3, 12 and 7 tokens, buckets (4, 8), 2 slots, window 2, 8 new tokens; with
+native pages and with ``kv_dtype="int8"`` and ``"fp8"`` pages, whose write
+path matches the JAX one bit for bit.  Sampled
 tokens cannot match JAX's threefry stream; they must be reproducible from the
 seed and independent of which slot a request lands in.  The remaining tests
 pin the host-side pieces against their JAX counterparts and the port's
@@ -95,6 +97,49 @@ def test_greedy_tokens_identical_to_jax_engine(models):
     assert engine.kv.allocator.free_count == engine.num_pages - 1
 
 
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_quantized_greedy_tokens_identical_to_jax_engine(models, fmt):
+    """Quantized pages (``kv_dtype``): the same tokens as the JAX paged
+    engine with the same format; the engine gauges a nonzero round-trip
+    error, and its pool stores less than half the native bytes per token."""
+    jmodel, jparams, model, params = models
+    prompts = _prompts(20, (5, 9, 3, 12, 7))
+    jeng = JServingEngine(jmodel, jparams, paged=True, decode_kernel="pallas",
+                          prefix_cache_mb=0, kv_dtype=fmt, registry=MetricsRegistry(),
+                          **ENGINE_KW)
+    jreqs = jeng.serve([p.copy() for p in prompts],
+                       configs=JGenerationConfig(max_new_tokens=8))
+    engine, toks = _serve(model, params, prompts, GenerationConfig(max_new_tokens=8),
+                          kv_dtype=fmt)
+    assert engine.kv.pages_k.dtype == {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[fmt]
+    assert toks == [r.tokens for r in jreqs]
+    assert engine.stats["kv_quant_error"] > 0.0
+    native = ServingEngine(model, params, device="cpu", **ENGINE_KW)
+    assert engine.kv.page_kv_bytes == jeng.kv.page_kv_bytes
+    assert engine.stats["kv_bytes_per_token"] == jeng.kv.page_kv_bytes / jeng.kv.page_size
+    assert engine.kv.page_kv_bytes < native.kv.page_kv_bytes / 2
+    assert native.stats["kv_quant_error"] == 0.0
+    assert engine.kv.allocator.free_count == engine.num_pages - 1
+
+
+def test_quantized_preemption_replay_is_deterministic(models):
+    """A page-starved int8 pool preempts and replays (the JAX package's
+    ``test_preemption_replay_is_deterministic_under_int8``): every request
+    lands its full output, two runs give the same tokens, and every page
+    returns to the free list."""
+    _, _, model, params = models
+    prompts = _prompts(25, (12, 16, 9, 14))
+    gen = GenerationConfig(max_new_tokens=28)
+    runs = [_serve(model, params, prompts, gen, num_pages=17, kv_dtype="int8")
+            for _ in range(2)]
+    (eng1, toks1), (eng2, toks2) = runs
+    assert eng1.stats["preemptions"] >= 1
+    assert toks1 == toks2
+    assert all(len(t) == 28 for t in toks1)
+    for eng in (eng1, eng2):
+        assert eng.kv.allocator.free_count == eng.num_pages - 1
+
+
 def test_eos_stops_a_lane(models):
     _, _, model, params = models
     prompts = _prompts(20, (5, 9))
@@ -179,7 +224,7 @@ def test_admission_refusals(models):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(paged=False), "5"), (dict(async_depth=1), "5"), (dict(prefix_cache_mb=64.0), "6"),
-    (dict(kv_dtype="int8"), "6"), (dict(speculate_k=2), "7"), (dict(draft_model=2), "7"),
+    (dict(speculate_k=2), "7"), (dict(draft_model=2), "7"),
     (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
 ])
 def test_unported_arguments_raise(models, kw, item):

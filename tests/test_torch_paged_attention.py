@@ -4,13 +4,17 @@ The port's ``paged_attention`` / ``paged_flash_prefill`` take their plain
 PyTorch versions on CPU tensors; the JAX wrappers run their Pallas kernels in
 interpret mode (their CPU default).  The same numpy inputs go through both:
 ragged lengths, dead table slots holding stale page ids of other lanes,
-GQA rep 1 and 2, f32 and bf16 pages, and prefill chunks at a nonzero base.
+GQA rep 1 and 2, f32 and bf16 pages, int8 and fp8-e4m3 pages with their
+per-(page, kv-head) scales, and prefill chunks at a nonzero base.  The
+quantized write path (``paged_quantized_insert``) must match the JAX
+function bit for bit: codes, scales and error.
 
 Tolerances: f32 2e-5 — the JAX kernel's online softmax against the port's
 full-row softmax, the same bound the JAX package holds its kernel to against
 its own reference; bf16 2e-2 (decode) / 3e-2 (prefill) — the plain version
 rounds logits and probabilities to bf16 where the kernel keeps f32, the JAX
-package's own bf16 bounds.
+package's own bf16 bounds.  Quantized pages are held to the same bounds as
+the q dtype's: both sides dequantize the same codes with the same scales.
 """
 
 import inspect
@@ -69,6 +73,38 @@ def _run_both(fn_jax, fn_torch, arrays, dtype):
     return out.float().numpy(), np.asarray(ref, np.float32)
 
 
+def _codes(jax_array, fmt):
+    """A JAX int8 / fp8 array as the port's tensor of the same bits."""
+    bits = np.asarray(jax_array).view(np.uint8)
+    return torch.from_numpy(bits.copy()).view(tpa.KV_FORMATS[fmt][0])
+
+
+def _quantized_scenario(seed, fmt, *case):
+    """``_scenario``'s state with its pages turned into codes of ``fmt``
+    (30 x the values, rounded into [-100, 100], cast by JAX) and random
+    per-(page, kv-head) scales near 1/30, so that the dequantized values
+    keep the native scenario's unit scale; as JAX arrays and as the port's
+    tensors of the same bits."""
+    q, pk, pv, tables, lengths = _scenario(seed, *case)
+    rng = np.random.default_rng(seed + 1)
+    jdt = jpa.KV_FORMATS[fmt][0]
+    jk, jv = (jnp.asarray(np.clip(np.round(a * 30), -100, 100)).astype(jdt) for a in (pk, pv))
+    ks, vs = (rng.uniform(0.5 / 30, 1.5 / 30, (pk.shape[0], pk.shape[2])).astype(np.float32)
+              for _ in range(2))
+    return (q, jk, jv, tables, lengths, ks, vs), (_codes(jk, fmt), _codes(jv, fmt))
+
+
+def _run_quantized(fn_jax, fn_torch, seed, fmt, dtype, case):
+    (q, jk, jv, tables, lengths, ks, vs), (tk, tv) = _quantized_scenario(seed, fmt, *case)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = fn_jax(jnp.asarray(q, jdt), jk, jv, jnp.asarray(tables), jnp.asarray(lengths),
+                 k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    out = fn_torch(torch.from_numpy(q).to(dtype), tk, tv, torch.from_numpy(tables),
+                   torch.from_numpy(lengths), k_scales=torch.from_numpy(ks),
+                   v_scales=torch.from_numpy(vs))
+    return out.float().numpy(), np.asarray(ref, np.float32)
+
+
 DECODE_CASES = [
     # n, s, page, pages_per_lane, hkv, rep, d
     (1, 1, 8, 4, 2, 1, 16),    # plain decode, MHA
@@ -101,6 +137,17 @@ class TestDecodeParity:
         assert np.isfinite(out).all()
         np.testing.assert_allclose(out, ref, atol=atol)
 
+    @pytest.mark.parametrize("case", DECODE_CASES)
+    @pytest.mark.parametrize("fmt", ["int8", "fp8"])
+    @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+    def test_quantized_pages_match_jax_kernel(self, case, fmt, dtype, atol):
+        """The dequant arm (``quantized``, the JAX kernel's ``:291``): the
+        plain version over int8 / fp8 codes and their scales."""
+        out, ref = _run_quantized(jpa.paged_attention, tpa.paged_attention,
+                                  zlib.crc32(repr(("dq", case, fmt)).encode()), fmt, dtype, case)
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=atol)
+
     def test_dead_slots_never_read(self):
         """Poisoning every page past each lane's live count leaves the plain
         version's output bitwise unchanged."""
@@ -129,7 +176,9 @@ def _split_merge_model(q, pages_k, pages_v, tables, lengths, pps):
     working split keeps its partial (m, l, acc) over its keys, masked keys
     at the finite mask value (a row that sees none of a split's keys keeps
     m at the mask, which the merge weighs by 0), and the partials merge in
-    split order; l == 0 reads as 1."""
+    split order; l == 0 reads as 1.  The ``rep * S`` folded rows go in
+    blocks of ``DECODE_ROWS``, each walking the keys on its own, as the
+    kernel's CTAs do."""
     q, pages_k, pages_v = (np.asarray(a, np.float32) for a in (q, pages_k, pages_v))
     n, s, hq, d = q.shape
     page, hkv = pages_k.shape[1], pages_k.shape[2]
@@ -145,23 +194,28 @@ def _split_merge_model(q, pages_k, pages_v, tables, lengths, pps):
             # fold the group's heads into rows, group-major: r -> head h * rep + r // s
             qf = q[lane, :, h * rep:(h + 1) * rep].transpose(1, 0, 2).reshape(rep * s, d)
             qf = qf * np.float32(d ** -0.5)
-            parts = []
-            for z in range(-(-num_p // pps)):
-                if z * pps >= live:
-                    break
-                keys = np.arange(z * pps * page, min((z + 1) * pps * page, last))
-                pid = tables[lane, keys // page]
-                k = pages_k[pid, keys % page, h]
-                v = pages_v[pid, keys % page, h]
-                x = np.where(keys[None, :] <= visible_to[:, None], qf @ k.T, MASK_VALUE)
-                m = x.max(axis=1)
-                p = np.exp(x - m[:, None])
-                parts.append((m, p.sum(axis=1), p @ v))
-            top = np.max([m for m, _, _ in parts], axis=0)
-            weights = [np.exp(m - top) for m, _, _ in parts]
-            l_sum = sum(w * l for w, (_, l, _) in zip(weights, parts))
-            acc = sum(w[:, None] * a for w, (_, _, a) in zip(weights, parts))
-            o = acc / np.where(l_sum == 0, 1.0, l_sum)[:, None]
+            o = np.zeros_like(qf)
+            rpb, _ = tpa.decode_row_blocks(rep * s)
+            for r0 in range(0, rep * s, rpb):
+                block = slice(r0, min(r0 + rpb, rep * s))
+                parts = []
+                for z in range(-(-num_p // pps)):
+                    if z * pps >= live:
+                        break
+                    keys = np.arange(z * pps * page, min((z + 1) * pps * page, last))
+                    pid = tables[lane, keys // page]
+                    k = pages_k[pid, keys % page, h]
+                    v = pages_v[pid, keys % page, h]
+                    x = np.where(keys[None, :] <= visible_to[block, None], qf[block] @ k.T,
+                                 MASK_VALUE)
+                    m = x.max(axis=1)
+                    p = np.exp(x - m[:, None])
+                    parts.append((m, p.sum(axis=1), p @ v))
+                top = np.max([m for m, _, _ in parts], axis=0)
+                weights = [np.exp(m - top) for m, _, _ in parts]
+                l_sum = sum(w * l for w, (_, l, _) in zip(weights, parts))
+                acc = sum(w[:, None] * a for w, (_, _, a) in zip(weights, parts))
+                o[block] = acc / np.where(l_sum == 0, 1.0, l_sum)[:, None]
             out[lane, :, h * rep:(h + 1) * rep] = o.reshape(rep, s, d).transpose(1, 0, 2)
     return out
 
@@ -170,6 +224,9 @@ SPLIT_CASES = DECODE_CASES + [
     # n, s, page, pages_per_lane, hkv, rep, d, lengths
     (2, 1, 8, 5, 2, 1, 16, [0, 30]),    # an empty lane beside a long one
     (2, 5, 8, 4, 2, 2, 16, [15, 0]),    # keys 16..19 are a split no row 0 sees
+    # past the 32 folded rows K1 once took: GQA 8 verifying 5 (40), rep 2 at S 17 (34)
+    (2, 5, 8, 4, 1, 8, 16, [3, 20]),
+    (2, 17, 8, 6, 2, 2, 16, [0, 21]),
 ]
 
 
@@ -215,6 +272,37 @@ class TestSplitWalk:
                 walked = [p for span in spans if span.start < live for p in span if p < live]
                 assert walked == list(range(live))
 
+    @pytest.mark.parametrize("gs", [1, 3, 4, 5, 12, 16, 17, 32, 33, 34, 40, 200])
+    def test_row_blocks_cover_the_rows(self, gs):
+        """K1's CTAs hold DECODE_ROWS rows each: a call covers its rep * S
+        rows in blocks of four, the last one ragged, and never a block with
+        no row."""
+        rows, blocks = tpa.decode_row_blocks(gs)
+        assert rows == min(gs, tpa.DECODE_ROWS) and blocks == -(-gs // tpa.DECODE_ROWS)
+        assert (blocks - 1) * tpa.DECODE_ROWS < gs <= blocks * tpa.DECODE_ROWS
+
+    @pytest.mark.parametrize("gs", [1, 3, 4, 5, 34, 40])
+    @pytest.mark.parametrize("nsplit", [2, 5, 64])
+    def test_partials_fit_the_scratch_apart(self, gs, nsplit):
+        """Model of K1's partial indexing (``paged_attention.cu``): every
+        (lane, kv-head, row block, split) writes its acc rows and (m, l)
+        pairs to a region of its own, inside the f32 scratch the wrapper
+        allocates — so a merge reads only what its own splits wrote."""
+        n, hkv, d = 3, 2, 16
+        rows, blocks = tpa.decode_row_blocks(gs)
+        size = n * hkv * blocks * nsplit * rows * (d + 2)  # as paged_attention allocates
+        acc_total = n * hkv * blocks * nsplit * rows * d
+        used = np.zeros(size, np.int32)
+        for lane_head in range(n * hkv * blocks):
+            g = min(tpa.DECODE_ROWS, gs - (lane_head % blocks) * tpa.DECODE_ROWS)
+            for z in range(nsplit):
+                acc0 = lane_head * nsplit * rows * d + z * g * d
+                ml0 = acc_total + lane_head * nsplit * rows * 2 + z * g * 2
+                used[acc0:acc0 + g * d] += 1
+                used[ml0:ml0 + g * 2] += 1
+                assert acc0 + g * d <= acc_total and ml0 + g * 2 <= size
+        assert used.max() == 1
+
     def test_split_plan_never_reads_lengths(self):
         """The plan is a function of shapes and the card: nothing a launch
         would have to read back from the device."""
@@ -231,6 +319,17 @@ class TestPrefillParity:
         assert np.isfinite(out).all()
         np.testing.assert_allclose(out, ref, atol=atol)
 
+    @pytest.mark.parametrize("case", PREFILL_CASES)
+    @pytest.mark.parametrize("fmt", ["int8", "fp8"])
+    @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+    def test_quantized_pages_match_jax_kernel(self, case, fmt, dtype, atol):
+        """K2's dequant arm (the JAX kernel's ``:511``) through the plain
+        version, on int8 / fp8 codes and their scales."""
+        out, ref = _run_quantized(jpa.paged_flash_prefill, tpa.paged_flash_prefill,
+                                  zlib.crc32(repr(("pq", case, fmt)).encode()), fmt, dtype, case)
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=atol)
+
     def test_chunk_at_nonzero_base(self):
         """A later chunk (base 13) attends all prior history plus its own
         causal triangle, as the JAX kernel does."""
@@ -243,6 +342,12 @@ class TestPrefillParity:
 
 @pytest.mark.parametrize("q_dtype,page_dtype,page,design", [
     (torch.bfloat16, torch.bfloat16, 128, "wgmma"),   # the engine's pages
+    (torch.bfloat16, torch.int8, 128, "wgmma"),       # codes converted to bf16 tiles
+    (torch.bfloat16, torch.float8_e4m3fn, 128, "wgmma"),
+    (torch.bfloat16, torch.int8, 16, "wgmma"),
+    (torch.bfloat16, torch.float8_e4m3fn, 24, "cuda-cores"),
+    (torch.float32, torch.int8, 128, "cuda-cores"),   # f32 q keeps f32 products
+    (torch.float32, torch.float8_e4m3fn, 128, "cuda-cores"),
     (torch.bfloat16, torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, torch.bfloat16, 32, "wgmma"),
@@ -256,8 +361,12 @@ class TestPrefillParity:
     (torch.float32, torch.bfloat16, 128, "cuda-cores"),
 ])
 def test_prefill_design_from_shapes_alone(q_dtype, page_dtype, page, design):
-    """K2's arm is chosen from the dtypes and the page size before launch."""
-    assert tpa.prefill_design(q_dtype, page_dtype, page) == design
+    """K2's arm is chosen from the dtypes, the page size and the head dim
+    before launch: the tensor-core arm at D 64 and 128, never at 16 or 32."""
+    assert tpa.prefill_design(q_dtype, page_dtype, page, 128) == design
+    assert tpa.prefill_design(q_dtype, page_dtype, page, 64) == design
+    for d in (16, 32):
+        assert tpa.prefill_design(q_dtype, page_dtype, page, d) == "cuda-cores"
 
 
 class TestPagedInsert:
@@ -310,9 +419,132 @@ class TestWrapperDispatch:
             fn(meta, pages, pages, tables, lengths)
 
     def test_kv_storage_dtype(self):
+        """The storage dtypes and quantization ceilings of the JAX package's
+        formats: int8 (127) and fp8-e4m3 (448); native dtypes store directly."""
         assert tpa.kv_storage_dtype(None, torch.float32) is torch.float32
         assert tpa.kv_storage_dtype("bf16", torch.float32) is torch.bfloat16
-        with pytest.raises(NotImplementedError):
-            tpa.kv_storage_dtype("int8", torch.float32)
+        assert tpa.kv_storage_dtype("int8", torch.bfloat16) is torch.int8
+        assert tpa.kv_storage_dtype("fp8", torch.bfloat16) is torch.float8_e4m3fn
+        for fmt, (dtype, qmax) in tpa.KV_FORMATS.items():
+            assert qmax == jpa.KV_FORMATS[fmt][1]
+            assert tpa.kv_qmax(dtype) == jpa.kv_qmax(jpa.KV_FORMATS[fmt][0])
+        assert tpa.kv_qmax(torch.bfloat16) is None and tpa.kv_qmax(torch.float32) is None
         with pytest.raises(ValueError):
             tpa.kv_storage_dtype("fp4", torch.float32)
+
+
+# ------------------------------------------------------ quantized write path
+def _insert_both(fmt, pages, scales, new, tables, index, active):
+    """``paged_quantized_insert`` of both packages on the same inputs
+    (``pages`` given as f32 values, cast to the format by JAX, the port fed
+    the same bits); returns ``((codes, scales, err) of JAX, of the port)``
+    with the codes as raw bytes."""
+    jdt = jpa.KV_FORMATS[fmt][0]
+    jpages = jnp.asarray(pages).astype(jdt) if pages.dtype != np.int8 else jnp.asarray(pages)
+    tpages = _codes(jpages, fmt)
+    jp, js, je = jpa.paged_quantized_insert(
+        jpages, jnp.asarray(scales), jnp.asarray(new), jnp.asarray(tables),
+        jnp.asarray(index), jnp.asarray(active))
+    tscales = torch.from_numpy(np.asarray(scales, np.float32).copy())
+    tp, ts, te = tpa.paged_quantized_insert(
+        tpages, tscales, torch.from_numpy(new), torch.from_numpy(tables),
+        torch.from_numpy(index), torch.from_numpy(active))
+    assert tp is tpages and ts is tscales          # written in place
+    assert te.dim() == 0 and te.dtype == torch.float32
+    want = (np.asarray(jp).view(np.uint8), np.asarray(js), np.float32(je))
+    got = (tp.view(torch.uint8).numpy(), ts.numpy(), np.float32(te.item()))
+    return want, got
+
+
+def _assert_bit_identical(want, got):
+    """Codes, scales and error equal bit for bit on every real page (the
+    null page takes colliding discarded writes, in unspecified order)."""
+    np.testing.assert_array_equal(got[0][1:], want[0][1:])
+    np.testing.assert_array_equal(got[1][1:].view(np.uint32), want[1][1:].view(np.uint32))
+    assert got[2].view(np.uint32) == want[2].view(np.uint32)
+
+
+class TestQuantizedInsert:
+    """The four cases of the JAX package's ``TestQuantizedInsert``, each run
+    through both packages and held bit for bit, plus a ragged batch."""
+
+    @pytest.mark.parametrize("fmt", ["int8", "fp8"])
+    def test_single_shot_scale_is_amax_over_qmax(self, fmt):
+        _, qmax = tpa.KV_FORMATS[fmt]
+        rng = np.random.default_rng(3)
+        page, h, d = 8, 2, 16
+        new = rng.normal(size=(1, page, h, d)).astype(np.float32)
+        want, got = _insert_both(fmt, np.zeros((3, page, h, d), np.float32),
+                                 np.ones((3, h), np.float32), new,
+                                 np.asarray([[1, 2]], np.int32), np.asarray([0], np.int32),
+                                 np.asarray([True]))
+        _assert_bit_identical(want, got)
+        amax = np.abs(new[0]).max(axis=(0, 2))
+        np.testing.assert_allclose(got[1][1], amax / qmax, rtol=1e-6)
+        assert 0.0 < got[2]
+
+    @pytest.mark.parametrize("fmt", ["int8", "fp8"])
+    def test_requant_exact_when_amax_unchanged(self, fmt):
+        """A second insert under the page's amax leaves the old codes and
+        the scale as they were, in both packages."""
+        rng = np.random.default_rng(4)
+        page, h, d = 8, 1, 4
+        first = rng.normal(size=(1, 4, h, d)).astype(np.float32)
+        first[0, 0, 0, 0] = 5.0
+        tables = np.asarray([[1]], np.int32)
+        want, got = _insert_both(fmt, np.zeros((2, page, h, d), np.float32),
+                                 np.ones((2, h), np.float32), first, tables,
+                                 np.asarray([0], np.int32), np.asarray([True]))
+        _assert_bit_identical(want, got)
+        codes = got[0].view(np.int8) if fmt == "int8" else got[0]
+        second = np.clip(rng.normal(size=(1, 4, h, d)), -1, 1).astype(np.float32)
+        jdt = jpa.KV_FORMATS[fmt][0]
+        pages = np.asarray(jnp.asarray(codes.view(np.dtype(jdt)) if fmt == "fp8" else codes))
+        want2, got2 = _insert_both(fmt, pages.astype(np.float32) if fmt == "fp8" else pages,
+                                   got[1], second, tables, np.asarray([4], np.int32),
+                                   np.asarray([True]))
+        _assert_bit_identical(want2, got2)
+        assert got2[1][1, 0] == got[1][1, 0]
+        np.testing.assert_array_equal(got2[0][1, :4], got[0][1, :4])
+
+    def test_stale_slots_cannot_inflate_the_scale(self):
+        page, h, d = 8, 1, 2
+        pages = np.zeros((2, page, h, d), np.int8)
+        pages[1, 4:] = 127                                 # garbage past the frontier
+        want, got = _insert_both("int8", pages, np.full((2, h), 100.0, np.float32),
+                                 np.full((1, 2, h, d), 0.5, np.float32),
+                                 np.asarray([[1]], np.int32), np.asarray([2], np.int32),
+                                 np.asarray([True]))
+        _assert_bit_identical(want, got)
+        np.testing.assert_allclose(got[1][1], 0.5 / 127, rtol=1e-6)
+        assert got[0][1, 4:].sum() == 0
+
+    @pytest.mark.parametrize("fmt", ["int8", "fp8"])
+    def test_inactive_lane_is_a_noop_on_real_pages(self, fmt):
+        page, h, d = 4, 1, 2
+        want, got = _insert_both(fmt, np.zeros((2, page, h, d), np.float32),
+                                 np.ones((2, h), np.float32),
+                                 np.full((1, 1, h, d), 3.0, np.float32),
+                                 np.asarray([[1]], np.int32), np.asarray([0], np.int32),
+                                 np.asarray([False]))
+        _assert_bit_identical(want, got)
+        assert got[0][1].sum() == 0 and (got[1][1] == 1.0).all()
+
+    @pytest.mark.parametrize("fmt", ["int8", "fp8"])
+    @pytest.mark.parametrize("s", [1, 3, 11])
+    def test_ragged_batch_bit_identical(self, fmt, s):
+        """Three lanes writing spans that cross pages over history, a
+        frozen lane, stale values past each frontier, a wide value range
+        (fp8 subnormals included): every code, scale and the error equal."""
+        rng = np.random.default_rng(100 + s)
+        page, h, d, ppl = 4, 2, 8, 6
+        pages = (rng.normal(size=(3 * ppl + 1, page, h, d)) * 50).astype(np.float32)
+        scales = rng.uniform(0.01, 2.0, (3 * ppl + 1, h)).astype(np.float32)
+        new = (rng.normal(size=(3, s, h, d))
+               * np.exp(rng.uniform(-8, 3, (3, s, h, 1)))).astype(np.float32)
+        tables = np.arange(1, 3 * ppl + 1, dtype=np.int32).reshape(3, ppl)
+        index = np.asarray([0, 5, page * ppl - s - 1], np.int32)
+        active = np.asarray([True, True, False]) if s != 3 else np.asarray([True] * 3)
+        want, got = _insert_both(fmt, pages, scales, new, tables, index, active)
+        _assert_bit_identical(want, got)
+        assert got[2] > 0.0
