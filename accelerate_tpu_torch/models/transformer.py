@@ -7,12 +7,17 @@ model: every projection casts its input and weight to ``config.dtype``
 before the product (Flax ``nn.Dense(dtype=...)``), norm scales stay f32, and
 logits come out in f32.
 
-Two attention branches, as in the JAX ``Attention``:
+Three attention branches, as in the JAX ``Attention``:
 
 * with a :class:`PagedKVCache` — the serving path: the new K/V are scattered
   into the page pool in place (int8 and fp8 pages requantized per touched
   page), then attention reads the pages through the block tables with the
-  decode kernel (K1) or the prefill kernel (K2);
+  decode kernel (K1) or the prefill kernel (K2).  A ``tree_mask`` (a
+  speculative tree verify) takes K1's tree-mask arm;
+* with a slab :class:`KVCache` (per-lane index) — the stateless draft
+  forward of tree speculation: the new K/V are written at each lane's own
+  index and :func:`cached_attention` (plain PyTorch, as XLA code is in the
+  reference) reads the slab;
 * without a cache — the training path and the independent forward the
   serving path is checked against: causal
   :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention` with
@@ -39,6 +44,7 @@ from torch import nn
 from .._device import resolve_device
 from ..ops.attention import check_implementation, dot_product_attention
 from ..ops.paged_attention import (
+    as_tree_mask,
     kv_qmax,
     paged_attention,
     paged_flash_prefill,
@@ -148,21 +154,61 @@ class PagedKVCache:
             raise ValueError(f"kernel must be 'decode' or 'prefill', got {self.kernel!r}")
 
 
-def cached_attention(q, k, v, q_positions):
-    """Attention of ``q [B,S,Hq,D]`` against a full cache ``k``/``v [B,M,Hkv,D]``
-    (causal arm of the JAX function).
+@dataclasses.dataclass
+class KVCache:
+    """A slab KV cache with a per-lane write index: ``k``/``v [L, B, M, Hkv,
+    D]``, ``index [B]`` int32, the next write position of each lane.  The
+    port's counterpart of ``KVCache.create(..., per_lane_index=True)``
+    (``accelerate_tpu/models/transformer.py:309-317``); only the draft
+    forward of tree speculation uses it (slab serving is not ported).  The
+    forward writes ``k``/``v`` in place."""
 
-    Key slot ``j`` is visible to query ``i`` iff ``j <= q_positions[b, i]``.
-    GQA groups fold into the query tensor so the cache is contracted
-    unexpanded; logits are formed in ``q.dtype``, then softmax in f32, and the
-    probabilities are cast back to ``q.dtype`` for the PV product."""
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+
+    @classmethod
+    def create(cls, config: "TransformerConfig", batch_size: int, max_len: int,
+               device=None, dtype: Optional[torch.dtype] = None) -> "KVCache":
+        shape = (config.num_layers, batch_size, max_len, config.num_kv_heads,
+                 config.resolved_head_dim)
+        dtype = dtype or config.dtype
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   index=torch.zeros(batch_size, dtype=torch.int32, device=device))
+
+
+def cached_attention(q, k, v, q_positions, tree_mask=None):
+    """Attention of ``q [B,S,Hq,D]`` against a full cache ``k``/``v [B,M,Hkv,D]``.
+
+    Causal arm: key slot ``j`` is visible to query ``i`` iff ``j <=
+    q_positions[b, i]``.  Tree arm (``tree_mask``, an ``[S, S]``
+    ancestor-or-self mask or a
+    :class:`~accelerate_tpu_torch.ops.paged_attention.TreeMask`): the ``S``
+    tree nodes sit at the slots from each lane's frontier ``q_positions[:,
+    0]`` on, and node ``i`` sees the history ``j < frontier`` plus the tree
+    nodes of its row of the mask (``accelerate_tpu/models/transformer.py:
+    386-405``).  GQA groups fold into the query tensor so the cache is
+    contracted unexpanded; logits are formed in ``q.dtype``, then softmax in
+    f32, and the probabilities are cast back to ``q.dtype`` for the PV
+    product."""
     b, s, n_q, d = q.shape
     n_kv = k.shape[2]
     rep = n_q // n_kv
     qg = q.reshape(b, s, n_kv, rep, d)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * d ** -0.5
     j = torch.arange(k.shape[1], device=q.device)
-    mask = j[None, None, None, None, :] <= q_positions[:, None, None, :, None]
+    tree = as_tree_mask(tree_mask)
+    if tree is not None:
+        anc_mask = tree.dense(q.device)                         # [S, S]
+        base = q_positions[:, 0].long()                         # [B] lane frontier
+        rel = j[None, :] - base[:, None]                        # [B, M] slot -> node
+        within = (rel >= 0) & (rel < s)
+        anc = anc_mask[:, rel.clamp(0, s - 1)].permute(1, 0, 2)  # [B, S, M]
+        allowed = (j[None, None, :] < base[:, None, None]) | (within[:, None, :] & anc)
+        mask = allowed[:, None, None, :, :]
+    else:
+        mask = j[None, None, None, None, :] <= q_positions[:, None, None, :, None]
     logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v)
@@ -212,8 +258,7 @@ class Attention(nn.Module):
         self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd, **kw)
         self.o_proj = nn.Linear(cfg.num_heads * hd, cfg.hidden_size, **kw)
 
-    def forward(self, x, positions, cache: Optional[PagedKVCache] = None,
-                layer: int = 0):
+    def forward(self, x, positions, cache=None, layer: int = 0, tree_mask=None):
         cfg = self.config
         dt = cfg.dtype
         hd = cfg.resolved_head_dim
@@ -223,7 +268,15 @@ class Attention(nn.Module):
         v = _dense(self.v_proj, x, dt).reshape(b, s, cfg.num_kv_heads, hd)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
-        if cache is not None:
+        if isinstance(cache, KVCache):
+            # slab: write each lane at its own index, attend over the slab
+            slots = cache.index.long()[:, None] + torch.arange(s, device=x.device)[None, :]
+            lanes = torch.arange(b, device=x.device)[:, None]
+            k_cache, v_cache = cache.k[layer], cache.v[layer]
+            k_cache[lanes, slots] = k.to(k_cache.dtype)
+            v_cache[lanes, slots] = v.to(v_cache.dtype)
+            out = cached_attention(q, k_cache, v_cache, positions, tree_mask=tree_mask)
+        elif cache is not None:
             # scatter the new KV through the block tables, then attend over the
             # pages in place; ``index`` doubles as each lane's pre-write length
             pages_k, pages_v = cache.pages_k[layer], cache.pages_v[layer]
@@ -242,10 +295,19 @@ class Attention(nn.Module):
             else:
                 paged_insert(pages_k, k, cache.tables, cache.index, cache.active)
                 paged_insert(pages_v, v, cache.tables, cache.index, cache.active)
-            attend = paged_flash_prefill if cache.kernel == "prefill" else paged_attention
-            out = attend(q, pages_k, pages_v, cache.tables, cache.index,
-                         k_scales=k_scales, v_scales=v_scales)
+            if cache.kernel == "prefill":
+                if tree_mask is not None:
+                    raise ValueError("tree verification is a decode-side program: the "
+                                     "prefill kernel cannot carry a tree_mask")
+                out = paged_flash_prefill(q, pages_k, pages_v, cache.tables, cache.index,
+                                          k_scales=k_scales, v_scales=v_scales)
+            else:
+                out = paged_attention(q, pages_k, pages_v, cache.tables, cache.index,
+                                      k_scales=k_scales, v_scales=v_scales,
+                                      tree_mask=tree_mask)
         else:
+            if tree_mask is not None:
+                raise ValueError("tree_mask requires a KV cache (verify window)")
             out = dot_product_attention(q, k, v, causal=True,
                                         implementation=cfg.attention_impl)
         return _dense(self.o_proj, out.reshape(b, s, cfg.num_heads * hd), dt)
@@ -277,18 +339,24 @@ class DecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device=device)
         self.mlp = MLP(cfg, device=device, dtype=dtype)
 
-    def forward(self, x, positions, cache=None, layer: int = 0):
-        x = x + self.attn(self.input_norm(x), positions, cache=cache, layer=layer)
+    def forward(self, x, positions, cache=None, layer: int = 0, tree_mask=None):
+        x = x + self.attn(self.input_norm(x), positions, cache=cache, layer=layer,
+                          tree_mask=tree_mask)
         return x + self.mlp(self.post_attn_norm(x))
 
 
 class Transformer(nn.Module):
     """Decoder-only LM.  ``forward(input_ids [B,S]) -> logits [B,S,V]`` (f32).
 
-    With ``cache=``\\ :class:`PagedKVCache` the call is an incremental
-    forward: positions default to ``cache.index + arange(S)``, each layer
-    writes its K/V into the page pool in place, and the result is
-    ``(logits, cache)`` with the cache's ``index`` advanced by ``S``.
+    With ``cache=``\\ :class:`PagedKVCache` (or a slab :class:`KVCache`) the
+    call is an incremental forward: positions default to ``cache.index +
+    arange(S)``, each layer writes its K/V into the cache in place at
+    ``cache.index + arange(S)``, and the result is ``(logits, cache)`` with
+    the cache's ``index`` advanced by ``S``.  ``tree_mask`` (``[S, S]`` or a
+    :class:`~accelerate_tpu_torch.ops.paged_attention.TreeMask`) makes it a
+    tree verify: the ``S`` inputs are tree nodes, attention takes the
+    ancestor mask, and ``positions`` must be given (frontier + node depth:
+    sibling branches share positions).
 
     The constructor allocates the weights uninitialised on ``device`` (the
     card unless ``device="cpu"``), matrices in ``dtype`` (default
@@ -322,8 +390,12 @@ class Transformer(nn.Module):
         return self.lm_head.weight.device
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                cache: Optional[PagedKVCache] = None):
+                cache=None, tree_mask=None):
         cfg = self.config
+        if tree_mask is not None and positions is None:
+            raise ValueError("tree_mask requires explicit positions "
+                             "(lane frontier + per-node tree depth)")
+        tree_mask = as_tree_mask(tree_mask)
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
             positions = positions.expand(input_ids.shape[0], -1)
@@ -332,7 +404,7 @@ class Transformer(nn.Module):
         # Flax nn.Embed(dtype=...): the table is cast to the compute dtype
         x = self.embed_tokens.weight[input_ids].to(cfg.dtype)
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, cache=cache, layer=i)
+            x = layer(x, positions, cache=cache, layer=i, tree_mask=tree_mask)
         x = self.final_norm(x)
         logits = _dense(self.lm_head, x, cfg.dtype).float()
         if cache is None:

@@ -28,9 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: paged decode: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
-#: out, part, counters; n, s, hq, hkv, d, page, num_p, pps, nsplit, q_bf16,
-#: kv_format (0 f32, 1 bf16, 2 int8, 3 fp8-e4m3); scale; stream
-_DECODE_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
+#: out, part, counters, tree_words (null: the causal arm); n, s, hq, hkv, d,
+#: page, num_p, pps, nsplit, q_bf16, kv_format (0 f32, 1 bf16, 2 int8, 3
+#: fp8-e4m3); scale; stream
+_DECODE_ARGS = [_P] * 11 + [_I] * 11 + [_F, _P]
 #: paged prefill: q, pages_k, pages_v, k_scales, v_scales, tables, lengths,
 #: out; n, s, hq, hkv, d, page, num_pages, num_p, q_bf16, kv_format,
 #: tensor_cores; scale; stream

@@ -12,7 +12,13 @@
 // r % S, any number of rows.  Q.K^T and P.V run in f32 from the page dtype, q
 // is scaled by D^-0.5 before the product (:294), masked logits take the
 // finite DEFAULT_MASK_VALUE, the softmax is the online one in f32, and the
-// output is acc / l with l == 0 taken as 1.  Pages are f32, bf16 or - the
+// output is acc / l with l == 0 taken as 1.  The tree-mask arm (:300-315),
+// for speculative tree verification, swaps the causal rule for token-tree
+// visibility: the S queries are tree nodes at slots lengths[n] + i, and
+// node i sees every key j < lengths[n] plus the tree nodes whose bits are
+// set in its uint32 ancestor word (bit j: node j, S <= 32).  The words are
+// data - a device array of S words, null for the causal arm - so one build
+// serves every topology.  Pages are f32, bf16 or - the
 // dequant arm (:291) - int8 or fp8-e4m3 codes with one f32 scale per (page,
 // kv-head): the k-scale multiplies a key's logit after the product and the
 // v-scale its probability before P.V, which equals scaling the page first.
@@ -89,6 +95,12 @@ constexpr int kDecodeKeyLanes = 32 / kDecodeWarpKeys;  // lanes summing one key'
 constexpr int kDecodeStages = 3;
 constexpr int kDecodeRows = 4;  // folded rows one CTA holds: a row block
 constexpr int kDecodeMaxSplits = 64;
+
+// A compile-time tag for the mask arm of K1's softmax (causal or tree).
+template <bool B>
+struct Arm {
+  static constexpr bool value = B;
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -185,7 +197,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
                     const KT* __restrict__ pages_v, const float* __restrict__ k_scales,
                     const float* __restrict__ v_scales, const int* __restrict__ tables,
                     const int* __restrict__ lengths, QT* __restrict__ out,
-                    float* __restrict__ part, int* __restrict__ counters, int s_len, int hq,
+                    float* __restrict__ part, int* __restrict__ counters,
+                    const unsigned* __restrict__ tree_words, int s_len, int hq,
                     int hkv, int page, int num_p, int pps, int nsplit, float scale) {
   using L = DecodeSmem<KT, D>;
   constexpr int NT = kDecodeThreads, TK = kDecodeTileKeys, WK = kDecodeWarpKeys;
@@ -297,6 +310,12 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
     for (int c = 0; c < VPL; ++c) acc[r][c] = 0.f;
 
   const int qi0 = r0 == 0 ? 0 : r0 % s_len;  // the query of the block's first row
+  // The tree-mask arm: row r of the block is node (r0 + r) % S of its head,
+  // so its ancestor word follows the query, not the row; each row's word is
+  // loaded once into shared memory (the first tile's barrier publishes it).
+  const bool tree = tree_words != nullptr;
+  __shared__ unsigned row_word[kDecodeRows];
+  if (tree && tid < gs) row_word[tid] = __ldg(tree_words + (r0 + tid) % s_len);
   for (int tile = 0; tile < ntiles; ++tile) {
     cp_async_wait<kDecodeStages - 2>();
     __syncthreads();  // the tile has landed; the stage refilled below is consumed
@@ -341,35 +360,56 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
     const float k_scale = scaled ? sc[st * 2 * TK + jl] : 1.f;
     const float v_scale = scaled ? sc[st * 2 * TK + TK + jl] : 1.f;
 
-    // the warp's online softmax over its keys, row by row
-    int qi = qi0;
+    // the warp's online softmax over its keys, row by row.  The mask: the
+    // causal arm's key pos is visible to query qi iff pos <= length + qi;
+    // the tree arm's iff it is history (pos < length) or tree node j = pos -
+    // length whose bit j the row's word sets (keys past length + S are never
+    // walked, and a word has no bit past S - 1).  The arm is a grid-uniform
+    // branch around the whole row loop, so the causal arm runs the code it
+    // ran before the tree arm existed.
+    auto softmax = [&](auto arm) {
+      constexpr bool kTree = decltype(arm)::value;
+      int qi = qi0;
 #pragma unroll
-    for (int r = 0; r < kDecodeRows; ++r) {
-      if (r < gs) {
-        float x = s[r];
+      for (int r = 0; r < kDecodeRows; ++r) {
+        if (r < gs) {
+          float x = s[r];
 #pragma unroll
-        for (int o = WK; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-        x = !valid ? -INFINITY : (pos <= length + qi ? x * k_scale : kMaskValue);
-        float mx = x;
+          for (int o = WK; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+          bool seen;
+          if constexpr (kTree) {
+            const unsigned node = static_cast<unsigned>(pos - length);
+            seen = pos < length || (node < 32u && ((row_word[r] >> node) & 1u));
+          } else {
+            seen = pos <= length + qi;
+          }
+          x = !valid ? -INFINITY : (seen ? x * k_scale : kMaskValue);
+          float mx = x;
 #pragma unroll
-        for (int o = 1; o < WK; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_old = __shfl_sync(0xffffffffu, m_reg, r);
-        const float l_old = __shfl_sync(0xffffffffu, l_reg, r);
-        const float m_new = fmaxf(m_old, mx);
-        const float p = valid ? expf(x - m_new) : 0.f;
-        float sum = p;
+          for (int o = 1; o < WK; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_old = __shfl_sync(0xffffffffu, m_reg, r);
+          const float l_old = __shfl_sync(0xffffffffu, l_reg, r);
+          const float m_new = fmaxf(m_old, mx);
+          const float p = valid ? expf(x - m_new) : 0.f;
+          float sum = p;
 #pragma unroll
-        for (int o = 1; o < WK; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        const float alpha = expf(m_old - m_new);
-        if (lane == r) {
-          m_reg = m_new;
-          l_reg = alpha * l_old + sum;
+          for (int o = 1; o < WK; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          const float alpha = expf(m_old - m_new);
+          if (lane == r) {
+            m_reg = m_new;
+            l_reg = alpha * l_old + sum;
+          }
+#pragma unroll
+          for (int c = 0; c < VPL; ++c) acc[r][c] *= alpha;
+          s[r] = p * v_scale;
+          if (++qi == s_len) qi = 0;
         }
-#pragma unroll
-        for (int c = 0; c < VPL; ++c) acc[r][c] *= alpha;
-        s[r] = p * v_scale;
-        if (++qi == s_len) qi = 0;
       }
+    };
+    if (tree) {
+      softmax(Arm<true>{});
+    } else {
+      softmax(Arm<false>{});
     }
 
     // P.V: the 32 lanes split D (at D 16 the first 16 lanes, a column
@@ -499,10 +539,11 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
 template <typename QT, typename KT, int D>
 int launch_decode(const void* q, const void* pages_k, const void* pages_v,
                   const float* k_scales, const float* v_scales, const int* tables,
-                  const int* lengths, void* out, float* part, int* counters, int n, int s,
-                  int hq, int hkv, int page, int num_p, int pps, int nsplit, float scale,
-                  cudaStream_t stream) {
-  if (hq % hkv != 0 || s < 1) return static_cast<int>(cudaErrorInvalidValue);
+                  const int* lengths, void* out, float* part, int* counters,
+                  const unsigned* tree_words, int n, int s, int hq, int hkv, int page,
+                  int num_p, int pps, int nsplit, float scale, cudaStream_t stream) {
+  if (hq % hkv != 0 || s < 1 || (tree_words && s > 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   // the split plan must tile the table: nsplit runs of pps pages, the last one ragged
   if (pps < 1 || nsplit < 1 || nsplit > kDecodeMaxSplits ||
       nsplit != (num_p + pps - 1) / pps || (nsplit > 1 && (!part || !counters)))
@@ -516,7 +557,8 @@ int launch_decode(const void* q, const void* pages_k, const void* pages_v,
   kernel<<<dim3(hkv * nrb, n, nsplit), kDecodeThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(pages_k),
       static_cast<const KT*>(pages_v), k_scales, v_scales, tables, lengths,
-      static_cast<QT*>(out), part, counters, s, hq, hkv, page, num_p, pps, nsplit, scale);
+      static_cast<QT*>(out), part, counters, tree_words, s, hq, hkv, page, num_p, pps, nsplit,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,19 +566,22 @@ int launch_decode(const void* q, const void* pages_k, const void* pages_v,
 
 #define ATPU_LAUNCH_DECODE(QT, KT, D)                                                      \
   atpu::launch_decode<QT, KT, D>(q, pages_k, pages_v, k_scales, v_scales, tables, lengths, \
-                                 out, part, counters, n, s, hq, hkv, page, num_p, pps,     \
-                                 nsplit, scale, static_cast<cudaStream_t>(stream))
+                                 out, part, counters, tree_words, n, s, hq, hkv, page,     \
+                                 num_p, pps, nsplit, scale, static_cast<cudaStream_t>(stream))
 
 // k_scales and v_scales: [NP, Hkv] f32, or both null for native pages (ones).
 // With gs = (hq / hkv) * s folded rows in nrb = ceil(gs / 4) blocks of four
 // rows (the last one ragged) - part: f32 scratch of n * hkv * nrb * nsplit *
 // min(4, gs) * (d + 2) floats and counters: n * hkv * nrb int32 zeros, both
 // needed only when nsplit > 1; the counters are zero again when the kernel
-// ends.  kv_fmt: 0 f32, 1 bf16, 2 int8, 3 fp8-e4m3.
+// ends.  tree_words: null for the causal arm, or s <= 32 uint32 ancestor
+// words, bit j of word i set iff tree node i sees node j (the tree-mask
+// arm).  kv_fmt: 0 f32, 1 bf16, 2 int8, 3 fp8-e4m3.
 extern "C" int atpu_paged_decode(const void* q, const void* pages_k, const void* pages_v,
                                  const float* k_scales, const float* v_scales,
                                  const int* tables, const int* lengths, void* out, float* part,
-                                 int* counters, int n, int s, int hq, int hkv, int d, int page,
+                                 int* counters, const unsigned* tree_words, int n, int s,
+                                 int hq, int hkv, int d, int page,
                                  int num_p, int pps, int nsplit, int q_bf16,
                                  int kv_fmt, float scale, void* stream) {
   ATPU_DISPATCH(q_bf16, kv_fmt, d, ATPU_LAUNCH_DECODE);

@@ -6,7 +6,9 @@ through per-lane block tables; attention reads those pages in place.
 
 * :func:`paged_attention` — decode (and short verify spans): launches the
   hand-written kernel ``csrc/paged_attention.cu`` (K1) on a CUDA tensor,
-  each lane's page walk split across CTAs by :func:`decode_split_plan`.
+  each lane's page walk split across CTAs by :func:`decode_split_plan`;
+  with a ``tree_mask`` (:class:`TreeMask`, speculative tree verification)
+  its tree-mask arm.
 * :func:`paged_flash_prefill` — a prefill chunk's causal flash attention over
   the same pages: launches ``csrc/paged_prefill.cu`` (K2), on the tensor
   cores for bf16 where :func:`prefill_design` allows it.
@@ -24,7 +26,8 @@ through per-lane block tables; attention reads those pages in place.
 
 Each kernel wrapper counts its launches in an integer attribute
 (``paged_attention.launches``), raised by one where the kernel is launched
-and nowhere else, so a run can show that its path went through the kernel.
+and nowhere else, so a run can show that its path went through the kernel;
+``paged_attention.tree_launches`` counts those of K1's tree-mask arm.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -85,6 +89,69 @@ def _bytes_view(pages: torch.Tensor) -> torch.Tensor:
     """Quantized pages as raw bytes, for gathers and scatters: indexing
     float8 tensors is not implemented on every PyTorch build."""
     return pages.view(torch.uint8) if pages.element_size() == 1 else pages
+
+
+#: most tree nodes K1's tree-mask arm takes: one uint32 ancestor word a node
+MAX_TREE_NODES = 32
+
+
+class TreeMask:
+    """The ``[S, S]`` ancestor-or-self mask of a speculative token tree:
+    ``mask[i, j]`` says tree node ``i`` (at slot ``lengths[n] + i``) sees tree
+    node ``j``; every node also sees the lane's history.  Built once (the
+    engine makes one per engine); its device copies are made once per
+    device: the bool mask the plain versions take, and the packed words K1's
+    tree-mask arm reads — bit ``j`` of node ``i``'s uint32 word set iff
+    ``mask[i, j]``, as the reference packs them
+    (``accelerate_tpu/ops/paged_attention.py:392-406``), passed as int32 bit
+    patterns."""
+
+    def __init__(self, mask):
+        m = mask.detach().cpu().numpy() if isinstance(mask, torch.Tensor) else mask
+        self.mask = np.asarray(m, dtype=bool)
+        if self.mask.ndim != 2 or self.mask.shape[0] != self.mask.shape[1]:
+            raise ValueError(f"tree_mask {self.mask.shape} must be square [S, S]")
+        self.nodes = self.mask.shape[0]
+        self._dense: Dict[torch.device, torch.Tensor] = {}
+        self._words: Dict[torch.device, torch.Tensor] = {}
+
+    def packed(self) -> np.ndarray:
+        """The ``[S]`` uint32 ancestor words (``S <= 32``)."""
+        if self.nodes > MAX_TREE_NODES:
+            raise ValueError(f"tree verification packs ancestor sets into uint32 words: "
+                             f"{self.nodes} tree nodes > {MAX_TREE_NODES}")
+        bits = self.mask.astype(np.uint64) << np.arange(self.nodes, dtype=np.uint64)[None, :]
+        return bits.sum(axis=1).astype(np.uint32)
+
+    def dense(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._dense.get(device)
+        if t is None:
+            t = self._dense[device] = torch.from_numpy(self.mask.copy()).to(device)
+        return t
+
+    def words(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        t = self._words.get(device)
+        if t is None:
+            t = self._words[device] = torch.from_numpy(self.packed().view(np.int32)).to(device)
+        return t
+
+
+def as_tree_mask(tree_mask) -> Optional[TreeMask]:
+    """``None``, a :class:`TreeMask`, or an ``[S, S]`` bool array (wrapped)."""
+    if tree_mask is None or isinstance(tree_mask, TreeMask):
+        return tree_mask
+    return TreeMask(tree_mask)
+
+
+def _check_tree(tree: TreeMask, s: int, what: str) -> None:
+    """K1's tree arm's operand rules, as the reference's (``:394-401``)."""
+    if tree.nodes != s:
+        raise ValueError(f"{what}: tree_mask {tree.mask.shape} must be [S, S] = [{s}, {s}]")
+    if s > MAX_TREE_NODES:
+        raise ValueError(f"{what}: tree verification packs ancestor sets into uint32 "
+                         f"words: {s} tree nodes > {MAX_TREE_NODES}")
 
 
 def _live_pages(lengths: torch.Tensor, s: int, page: int) -> torch.Tensor:
@@ -174,14 +241,18 @@ def paged_quantized_insert(pages: torch.Tensor, scales: torch.Tensor, new: torch
 
 # ------------------------------------------------------------------ reference
 def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
-                              k_scales=None, v_scales=None):
+                              k_scales=None, v_scales=None, tree_mask=None):
     """Plain version of both kernels: live-masked gather + the slab attention math.
 
     ``q [N, S, Hq, D]`` against pages ``[NP, page, Hkv, D]`` through
     ``tables [N, P]``; query ``i`` of lane ``n`` sits at position
     ``lengths[n] + i`` and sees keys ``j <= lengths[n] + i`` (the new
     positions' KV must already be inserted).  Table slots past each lane's
-    live page count gather the null page instead of stale pages."""
+    live page count gather the null page instead of stale pages.
+    ``tree_mask`` (``[S, S]`` or :class:`TreeMask`) swaps the causal rule for
+    token-tree visibility: node ``i`` sees the history ``j < lengths[n]``
+    and the tree nodes its row of the mask names (the live pages are the
+    same: the tree spans the same ``S`` slots)."""
     from ..models.transformer import cached_attention
 
     n, s, _, d = q.shape
@@ -204,7 +275,7 @@ def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
     k = k.reshape(n, num_p * page, hkv, d)
     v = v.reshape(n, num_p * page, hkv, d)
     q_positions = lengths[:, None] + torch.arange(s, device=q.device)[None, :]
-    return cached_attention(q, k, v, q_positions)
+    return cached_attention(q, k, v, q_positions, tree_mask=tree_mask)
 
 
 def paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
@@ -382,7 +453,7 @@ def decode_row_blocks(gs: int) -> Tuple[int, int]:
 
 
 def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
-                    v_scales=None):
+                    v_scales=None, tree_mask=None):
     """Decode attention over paged KV, reading pages in place (kernel K1).
 
     ``q [N, S, Hq, D]`` — query ``i`` of lane ``n`` at position
@@ -397,10 +468,22 @@ def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
     blocks by :func:`decode_row_blocks`; with more than one split the
     partials go to f32 scratch allocated here, and the arrival counters are
     this device's cached ones, which the kernel leaves at zero.  Native
-    pages (no scales) pass null scales, which the kernel reads as ones."""
+    pages (no scales) pass null scales, which the kernel reads as ones.
+
+    ``tree_mask`` (a :class:`TreeMask`, or an ``[S, S]`` bool array wrapped
+    into one per call) runs the tree-mask arm: query ``i`` is tree node
+    ``i`` at slot ``lengths[n] + i`` and sees the history plus the nodes its
+    row of the mask names; its RoPE position is the caller's business.  A
+    mask that is not ``[S, S]`` or has more than :data:`MAX_TREE_NODES`
+    nodes raises ``ValueError``, on every device; the kernel reads the
+    mask's packed words from the card."""
+    tree = as_tree_mask(tree_mask)
+    if tree is not None:
+        _check_tree(tree, q.shape[1], "paged_attention")
     if q.device.type == "cpu":
         return paged_attention_reference(q, pages_k, pages_v, tables, lengths,
-                                         k_scales=k_scales, v_scales=v_scales)
+                                         k_scales=k_scales, v_scales=v_scales,
+                                         tree_mask=tree)
     native = k_scales is None
     k_scales, v_scales = _operands("paged_attention", q, pages_k, pages_v, tables, lengths,
                                    k_scales, v_scales)
@@ -421,11 +504,14 @@ def paged_attention(q, pages_k, pages_v, tables, lengths, k_scales=None,
         q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
         0 if native else k_scales.data_ptr(), 0 if native else v_scales.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        part_ptr, counters_ptr, n, s, hq, hkv, d, page, num_p, pps, nsplit, _bf16(q),
+        part_ptr, counters_ptr, 0 if tree is None else tree.words(q.device).data_ptr(),
+        n, s, hq, hkv, d, page, num_p, pps, nsplit, _bf16(q),
         _PAGE_FORMATS[pages_k.dtype], float(d ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     paged_attention.launches += 1
+    if tree is not None:
+        paged_attention.tree_launches += 1
     return out
 
 
@@ -470,10 +556,12 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
 
 
 paged_attention.launches = 0
+paged_attention.tree_launches = 0
 paged_flash_prefill.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counters to zero."""
+    """Set both kernels' launch counters (and K1's tree-arm count) to zero."""
     paged_attention.launches = 0
+    paged_attention.tree_launches = 0
     paged_flash_prefill.launches = 0

@@ -22,15 +22,21 @@ the kernel's own time is left out; that mode uses nothing but
 CUDA card.  ``--kv-dtype`` makes the pages int8 or fp8-e4m3 codes of the
 same values, written by ``paged_quantized_insert`` with their scales (K1's
 dequant arm).  ``--kernels`` prints the device ms per launch of K1 at the
-three shapes and of K2 at ``chip_smoke.py``'s two bf16 chunks (512 tokens
-at base 0, 128 at base 640), native bf16 pages; like ``--host`` it calls
-nothing but the two wrappers and ``profile_engine.device_ms``, so a copy of
-this file inside an older tree times that tree's kernels (an A/B within
-one call).
+three shapes, of K1's causal arm at the verify spans S 5 and S 9 ("main"'s
+heads; S 9 over lanes of 5/700/1500/2000 keys, as 2040 + 9 would overrun
+the table) and of K2 at ``chip_smoke.py``'s two bf16 chunks (512 tokens at
+base 0, 128 at base 640), native bf16 pages, then, where the tree has it,
+K1's tree-mask arm on the S 9 case (the 9-node tree of ``TreeSpec(2, 4)``),
+and last the first-use build of the tree's kernels (wall seconds, all and by
+library; 0 when they were built before); like ``--host`` it calls nothing
+but the two wrappers, ``profile_engine.device_ms`` and ``ops._build``, so a
+copy of this file inside an older tree times that tree's kernels and build
+(an A/B within one call).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -47,6 +53,7 @@ SHAPES = {  # lengths, query heads, kv heads
 }
 PAGE, SLOTS, D = 128, 16, 128
 CHUNKS = {"chunk512_base0": (0, 512), "chunk128_base640": (640, 128)}  # base, chunk
+VERIFY = {"verify5_main": ([5, 700, 1500, 2040], 5), "verify9_main": ([5, 700, 1500, 2000], 9)}
 
 def _case(lengths, hq, hkv, seed=0, kv_dtype=None, s=1):
     """q, pages, tables and lengths (then the scales, for quantized pages)."""
@@ -106,12 +113,25 @@ def main() -> int:
     if "--kernels" in args_in:
         cases = [(f"k1_{name}", pa.paged_attention, "paged_decode", _case(lengths, hq, hkv))
                  for name, (lengths, hq, hkv) in SHAPES.items()]
+        verify = {name: _case(lengths, 32, 32, s=s) for name, (lengths, s) in VERIFY.items()}
+        cases += [(f"k1_{name}", pa.paged_attention, "paged_decode", args)
+                  for name, args in verify.items()]
         cases += [(f"k2_{name}", pa.paged_flash_prefill, "paged_prefill",
                    _case([base], 32, 32, s=chunk)) for name, (base, chunk) in CHUNKS.items()]
+        if hasattr(pa, "TreeMask"):  # the tree-mask arm; an older tree has none
+            from .serving.spec_exec import TreeSpec
+
+            mask = pa.TreeMask(TreeSpec(2, 4).anc)
+            cases.append(("k1_tree9_main", functools.partial(pa.paged_attention, tree_mask=mask),
+                          "paged_decode", verify["verify9_main"]))
         for name, fn, fragment, args in cases:
             fn(*args)
             print(json.dumps({"case": name, "ms": device_ms(lambda: fn(*args), 50, fragment),
                               "gpu": gpu}), flush=True)
+        from .ops import _build
+
+        print(json.dumps({"case": "build", "build_s": _build.build_seconds,
+                          "by_library": _build.build_times, "gpu": gpu}), flush=True)
         return 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = pa.decode_split_plan

@@ -9,6 +9,8 @@ updates the tensors themselves).
 
 * :class:`PageAllocator` — the refcounted free list.  Page id ``0`` is the
   reserved **null page**: freed or frozen lanes' writes land there.
+* :class:`DraftContextWindow` — the draft model's per-lane context window
+  (tree speculation), host numpy.
 * :class:`PagedKVPool` — the device page arrays
   ``[L, num_pages, page_size, Hkv, Dh]`` in the storage dtype (native, bf16,
   int8 or fp8-e4m3), f32 dequantization scales ``[L, num_pages, Hkv]``
@@ -155,4 +157,51 @@ class PagedKVPool:
                    for t in (self.pages_k, self.pages_v, self.k_scales, self.v_scales))
 
 
-__all__ = ["NULL_PAGE", "PageAllocator", "PagedKVPool"]
+class DraftContextWindow:
+    """Host-side sliding context for the draft model of tree speculation
+    (``accelerate_tpu/serving/paging.py:332-378``).
+
+    The draft forward is stateless: every cycle it re-prefills the last
+    ``width`` visible tokens of each lane, right-padded, plus a valid length.
+    Two numpy arrays ``[slots, width]`` / ``[slots]`` hold them:
+    :meth:`begin` seeds a lane from its prompt tail, :meth:`push` slides
+    committed tokens in after each verify cycle, :meth:`retire` clears the
+    row.  The window's last token is the lane's pending token, the draft
+    tree's root."""
+
+    def __init__(self, slots: int, width: int, pad: int = 0) -> None:
+        if width < 1:
+            raise ValueError(f"need width >= 1, got {width}")
+        self.width = width
+        self.pad = pad
+        self.tokens = np.full((slots, width), pad, dtype=np.int32)
+        self.length = np.zeros(slots, dtype=np.int32)
+
+    def begin(self, slot: int, tokens: Sequence[int]) -> None:
+        """Seed ``slot`` from a prompt: keep the last ``width`` tokens."""
+        toks = np.asarray(tokens, dtype=np.int32).ravel()[-self.width:]
+        self.tokens[slot] = self.pad
+        self.tokens[slot, : toks.size] = toks
+        self.length[slot] = toks.size
+
+    def push(self, slot: int, tokens: Sequence[int]) -> None:
+        """Append committed tokens, sliding the window left on overflow."""
+        toks = np.asarray(tokens, dtype=np.int32).ravel()
+        if toks.size >= self.width:
+            self.tokens[slot] = toks[-self.width:]
+            self.length[slot] = self.width
+            return
+        n = int(self.length[slot])
+        spill = n + toks.size - self.width
+        if spill > 0:
+            self.tokens[slot, : n - spill] = self.tokens[slot, spill:n]
+            n -= spill
+        self.tokens[slot, n: n + toks.size] = toks
+        self.length[slot] = n + toks.size
+
+    def retire(self, slot: int) -> None:
+        self.tokens[slot] = self.pad
+        self.length[slot] = 0
+
+
+__all__ = ["NULL_PAGE", "DraftContextWindow", "PageAllocator", "PagedKVPool"]

@@ -35,7 +35,10 @@ class Request:
 
     ``on_token(request, token)`` streams each generated token as the engine
     lands it (window granularity); ``tokens`` accumulates the generated ids
-    (EOS included when hit, never the post-EOS padding)."""
+    (EOS included when hit, never the post-EOS padding).  ``speculate=False``
+    opts the request out of drafting (it still rides along in verify
+    windows other lanes trigger, with pad drafts that verification
+    rejects)."""
 
     rid: int
     prompt: np.ndarray                      # [S] int32
@@ -46,6 +49,7 @@ class Request:
     slot: Optional[int] = None
     chunks: Tuple[Tuple[int, int], ...] = ()
     next_chunk: int = 0
+    speculate: bool = True
 
     @property
     def done(self) -> bool:

@@ -22,7 +22,15 @@ Phases, each printing one JSON line:
    (57/384/700/1000), bf16 q and one f32-q case per format; folded rows
    past the 32 that K1 once took (GQA 8 verifying 5: 40 rows; rep 2 at
    S 17: 34), in row blocks;
-   D 16 and 32, native and quantized.  Each record names the ``design``,
+   D 16 and 32, native and quantized.  Then the tree-mask arm (tree
+   verification) against the plain version with the same ``tree_mask``: the
+   9-node tree of ``TreeSpec(2, 4)`` at "main"'s heads over lanes of
+   5/700/1500/2000 keys (2040 + S would overrun the table), bf16 and f32,
+   beside the causal arm at S 9 and S 5; at the engine's lanes; the 10-node
+   ``TreeSpec(3, 3)`` at GQA 32/8 (40 folded rows); the 32-node
+   ``TreeSpec(31, 1)`` (word bit 31); a random 20-node tree (the words are
+   data); a tree across a page edge (lengths 127/128); int8 and fp8 pages.
+   Each record names the ``design`` and the ``arm``,
    its pages per split and row blocks; each is also held per (lane, query,
    head) row, ``||err|| / ||plain||`` against the plain version computed
    in f32 from the same values (codes and scales; ``ROW_REL_TOL``), run
@@ -56,7 +64,17 @@ Phases, each printing one JSON line:
    largest scale comes from a second, untimed serve of the same requests by
    a new engine whose inserts are watched; that serve must give the same
    tokens and the same ``kv_quant_error``, so the timed serve runs the path
-   a user runs and the bound holds for it.
+   a user runs and the bound holds for it.  ``engine_tree``: the engine
+   line's requests with ``draft_model=8, tree_width=2, tree_depth=4,
+   draft_ctx=64`` (an 8-layer draft of the served model drafts a 9-node
+   tree a lane, one tree verify forward a cycle through K1's tree-mask
+   arm); ``engine_spec``: ``speculate_k=4`` (n-gram drafts, one linear
+   verify forward over 5 positions through K1's causal arm) on prompts of a
+   random 40-token segment tiled to the same six lengths.  Both hold every
+   token to the noise margin, count K1's launches exactly (one a layer per
+   decode-window step and per verify forward, the tree arm's apart; the
+   draft forward launches none) and print the drafted and accepted tokens,
+   tokens per verify forward and the draft's share of decode time.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -80,8 +98,9 @@ Phases, each printing one JSON line:
    ``step_ms_mean``.  Before that, one micro-step of one sequence is held
    against the ``attention_impl="xla"`` path, with an f32 run of the same
    weights as the yardstick of bf16 noise.
-8. the ``kernels`` line (each kernel, and K1's and K2's dequant arms with
-   the launches of their engine runs), the card's name and power limit, and
+8. the ``kernels`` line (each kernel, K1's tree-mask arm with the launches
+   of ``engine_tree``, and K1's and K2's dequant arms with the launches of
+   their engine runs), the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -266,27 +285,33 @@ def quantized_case(seed, fmt, lengths, s, hq, hkv, d, page, ppl, q_dtype):
 
 def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
     """Hold ``kernel`` against ``plain`` on every case ``(label, seed,
-    lengths, s, hq, hkv, dtype, page[, d[, fmt]])``: native pages of
+    lengths, s, hq, hkv, dtype, page[, d[, fmt[, tree]]])``: native pages of
     ``dtype`` (:func:`paged_case`), or with ``fmt`` pages of that quantized
-    format under q of ``dtype`` (:func:`quantized_case`).  Returns every
+    format under q of ``dtype`` (:func:`quantized_case`); with ``tree`` (an
+    ``[s, s]`` ancestor mask) both take it as ``tree_mask``.  Returns every
     case's record, the first (main-path) case's first.  ``launches`` counts
     the kernel's launches in the case (the checked calls, then the timing
     loops); ``ms`` is its device time per launch (device entries named with
     ``fragment``), ``wall_ms`` the CUDA-event time per call of the
-    wrapper.  ``describe(args)`` names the kernel's arm (a dict for the
-    record); ``extra_checks(out, args)`` returns the kernel's own further
-    readings and ``(passed, message)`` checks."""
+    wrapper.  ``describe(args, kw)`` names the kernel's arm (a dict for the
+    record); ``extra_checks(out, args, kw)`` returns the kernel's own
+    further readings and ``(passed, message)`` checks."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
     records = []
     for label, seed, lengths, s, hq, hkv, dtype, page, *rest in cases:
         d = rest[0] if rest else 128
         fmt = rest[1] if len(rest) > 1 else None
+        tree = rest[2] if len(rest) > 2 else None
         if fmt is None:
             args = paged_case(seed, lengths, s, hq, hkv, d, page, 2048 // page, dtype)
         else:
             args = quantized_case(seed, fmt, lengths, s, hq, hkv, d, page, 2048 // page, dtype)
+        # one mask object per case: its packed words go to the card once
+        kw = {} if tree is None else {"tree_mask": pa.TreeMask(tree)}
         launches0 = kernel.launches
-        out = kernel(*args)
-        ref = plain(*args)
+        out = kernel(*args, **kw)
+        ref = plain(*args, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = TOL[name][dtype]
@@ -296,14 +321,15 @@ def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
         rec = dict(
             case=label, dtype=str(dtype).replace("torch.", ""),
             pages=fmt or str(dtype).replace("torch.", ""), lengths=lengths, s=s,
-            hq=hq, hkv=hkv, d=d, page=page, **describe(args), max_abs_err=err, tolerance=tol,
+            hq=hq, hkv=hkv, d=d, page=page, **describe(args, kw), max_abs_err=err,
+            tolerance=tol,
         )
-        readings, checks = extra_checks(out, args)
+        readings, checks = extra_checks(out, args, kw)
         rec.update(readings)
         rec.update(
-            ms=device_ms(lambda: kernel(*args), 20, fragment),
-            wall_ms=time_ms(lambda: kernel(*args), 20),
-            plain_ms=time_ms(lambda: plain(*args), 5),
+            ms=device_ms(lambda: kernel(*args, **kw), 20, fragment),
+            wall_ms=time_ms(lambda: kernel(*args, **kw), 20),
+            plain_ms=time_ms(lambda: plain(*args, **kw), 5),
             bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
         )
         rec["launches"] = kernel.launches - launches0
@@ -315,14 +341,30 @@ def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
     return records
 
 
-def plain_f32(plain, args):
+def plain_f32(plain, args, kw=None):
     """The plain version on the same values in f32 (bf16 values and
     quantized codes are exact in f32; codes keep their scales): the
     yardstick that keeps f32 sums, as the kernels do."""
-    return plain(*(t.float() for t in args[:3]), *args[3:])
+    return plain(*(t.float() for t in args[:3]), *args[3:], **(kw or {}))
 
 
-def k2_checks(out, args):
+def random_tree(seed: int, nodes: int) -> np.ndarray:
+    """A random token tree's ``[nodes, nodes]`` ancestor-or-self mask: node
+    ``i``'s parent is drawn from ``0 .. i - 1`` (node 0 is the root), so
+    the words K1 reads are data, not one of the engine's chains."""
+    rng = np.random.default_rng(seed)
+    parent = [0] + [int(rng.integers(0, i)) for i in range(1, nodes)]
+    anc = np.zeros((nodes, nodes), bool)
+    for i in range(nodes):
+        j = i
+        anc[i, j] = True
+        while j:
+            j = parent[j]
+            anc[i, j] = True
+    return anc
+
+
+def k2_checks(out, args, kw):
     """K2 on a second run must give the same bits; a bf16 case is also held
     per tile of 64 positions of one head against the plain version computed
     in f32 (``FLASH_TILE_TOL``)."""
@@ -348,15 +390,15 @@ def row_rel_err(got, want) -> float:
     return torch.where(err == 0, torch.zeros_like(err), err / ref).max().item()
 
 
-def k1_checks(out, args):
+def k1_checks(out, args, kw):
     """K1 per (lane, query, head) row against the plain version in f32
     (``ROW_REL_TOL``), a second run that must give the same bits, and the
     arrival counters, which every launch must leave at zero."""
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    err = row_rel_err(out, plain_f32(pa.paged_attention_reference, args))
+    err = row_rel_err(out, plain_f32(pa.paged_attention_reference, args, kw))
     tol = ROW_REL_TOL[out.dtype]
-    repeat = torch.equal(out, pa.paged_attention(*args))
+    repeat = torch.equal(out, pa.paged_attention(*args, **kw))
     pending = pa.pending_split_counters()
     return ({"row_rel_err_vs_f32": err, "row_tolerance": tol, "bitwise_repeatable": repeat,
              "pending_counters": pending},
@@ -365,7 +407,7 @@ def k1_checks(out, args):
              (pending == 0, f"the arrival counters were left at {pending}")])
 
 
-def k1_describe(args):
+def k1_describe(args, kw):
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     q, pages_k, _, tables = args[:4]
@@ -373,11 +415,12 @@ def k1_describe(args):
                                        pages_k.shape[1], torch.cuda.get_device_properties(
                                            q.device).multi_processor_count)
     gs = q.shape[2] // pages_k.shape[2] * q.shape[1]
-    return {"design": pa.DECODE_DESIGN, "pages_per_split": pps, "splits": splits,
-            "rows": gs, "row_blocks": pa.decode_row_blocks(gs)[1]}
+    return {"design": pa.DECODE_DESIGN, "arm": "tree" if kw else "causal",
+            "pages_per_split": pps, "splits": splits, "rows": gs,
+            "row_blocks": pa.decode_row_blocks(gs)[1]}
 
 
-def k2_describe(args):
+def k2_describe(args, kw):
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     q, pages_k = args[:2]
@@ -526,19 +569,31 @@ def tracking_scales(track: torch.Tensor):
     return lambda: setattr(transformer, "paged_quantized_insert", saved)
 
 
-def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None):
+ENGINE_LENS = (57, 100, 384, 700, 1000, 1500)
+
+
+def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
+                 prompts=None, name=None):
+    """Serve six greedy requests of 48 new tokens through ``ServingEngine``
+    (``spec``: the speculation knobs; ``prompts``: else drawn from ``rng``),
+    the launch counters zeroed just before and read just after.  K1 must
+    have launched once a layer for each forward of a decode window and each
+    linear verify (its causal arm) and each tree verify (its tree-mask arm,
+    counted apart); the draft forward launches none.  Returns the launches
+    and the prompts."""
     from accelerate_tpu_torch.models.generation import GenerationConfig
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving import ServingEngine
 
-    lens = (57, 100, 384, 700, 1000, 1500)
-    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    if prompts is None:
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in ENGINE_LENS]
+    lens = tuple(len(p) for p in prompts)
     gen = GenerationConfig(max_new_tokens=48)
 
     def new_engine():
         return ServingEngine(model, None, num_slots=4, max_len=2048,
                              prefill_buckets=(128, 512), decode_window=4, kv_dtype=kv_dtype,
-                             device="cuda")
+                             device="cuda", **(spec or {}))
 
     engine = new_engine()
     idle_free = engine.kv.allocator.free_count
@@ -548,12 +603,29 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None):
     reqs = engine.serve(prompts, configs=gen)
     wall = time.perf_counter() - t0
     launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_attention_tree": pa.paged_attention.tree_launches,
                 "paged_flash_prefill": pa.paged_flash_prefill.launches}
     st = engine.stats
     check(all(len(r.tokens) == 48 and r.done for r in reqs), "a request did not finish 48 tokens")
-    check(launches["paged_attention"] == st["decode_steps"] * cfg.num_layers > 0,
-          f"decode kernel launches {launches['paged_attention']} != "
-          f"{st['decode_steps']} steps x {cfg.num_layers} layers")
+    # a verify cycle counts its committed width in decode_steps but runs one
+    # forward: K + 1 for the linear arm, tree_depth + 1 for the tree arm
+    tree = engine.tree is not None
+    width = engine.tree.depth + 1 if tree else engine.speculate_k + 1
+    window_forwards = st["decode_steps"] - st["verify_forwards"] * width
+    causal = (window_forwards + (0 if tree else st["verify_forwards"])) * cfg.num_layers
+    tree_forwards = st["verify_forwards"] if tree else 0
+    check(launches["paged_attention"] - launches["paged_attention_tree"] == causal
+          and launches["paged_attention"] > 0,
+          f"decode kernel launches {launches['paged_attention']} (tree arm "
+          f"{launches['paged_attention_tree']}) != {causal} causal: {window_forwards} window "
+          f"steps and {st['verify_forwards']} verify forwards x {cfg.num_layers} layers")
+    check(launches["paged_attention_tree"] == tree_forwards * cfg.num_layers,
+          f"tree-arm launches {launches['paged_attention_tree']} != {tree_forwards} tree "
+          f"verify forwards x {cfg.num_layers} layers")
+    if spec:
+        check(st["verify_forwards"] > 0 and st["spec_drafted"] > 0,
+              f"speculation ran no verify: {st['verify_forwards']} forwards, "
+              f"{st['spec_drafted']} drafted")
     check(launches["paged_flash_prefill"] == st["prefill_chunks"] * cfg.num_layers > 0,
           f"prefill kernel launches {launches['paged_flash_prefill']} != "
           f"{st['prefill_chunks']} chunks x {cfg.num_layers} layers")
@@ -600,7 +672,18 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None):
         bound = QUANT_ERR_BOUND[kv_dtype] * scale_max.item() * QUANT_ERR_SLACK
         kv_rec = {"kv_quant_error": st["kv_quant_error"], "kv_quant_error_bound": bound,
                   "largest_scale": scale_max.item()}
-    emit({"phase": "engine" if kv_dtype is None else "engine_" + kv_dtype,
+    spec_rec = {}
+    if spec:
+        spec_rec = {
+            "spec": spec, "spec_drafted": st["spec_drafted"],
+            "spec_accepted": st["spec_accepted"],
+            "accept_rate": st["spec_accepted"] / st["spec_drafted"],
+            "tokens_per_verify_forward": st["verify_committed"] / st["verify_forwards"],
+            "tokens_per_lane_verify": st["verify_committed"] / st["verify_lanes"],
+            "draft_share_of_decode_s": st["draft_s"] / st["decode_s"],
+        }
+    emit({"phase": name or ("engine" if kv_dtype is None else "engine_" + kv_dtype),
+          **spec_rec,
           "kv_dtype": kv_dtype, "pages": str(engine.kv.storage_dtype).replace("torch.", ""),
           "kv_bytes_per_token": st["kv_bytes_per_token"],
           "kv_pool_gb": engine.kv.kv_bytes() / 1e9, **kv_rec,
@@ -622,7 +705,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None):
     else:
         check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
               f"forward's best logit by more than the noise margin {margin}")
-    return launches
+    return launches, prompts
 
 
 # --------------------------------------------------------------- flash attn
@@ -944,6 +1027,7 @@ def main() -> int:
     from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
     from accelerate_tpu_torch.ops import _build
     from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving.spec_exec import TreeSpec
     from accelerate_tpu_torch.weights import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -968,6 +1052,8 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
     ragged = [5, 700, 1500, 2040]  # a lane on its first page ... a nearly full lane
     engine_lanes = [57, 384, 700, 1000]  # as the engine's decode steps hold them
+    tree_lanes = [5, 700, 1500, 2000]
+    tree24 = TreeSpec(2, 4).anc  # the engine_tree phase's tree: 9 nodes
     k1 = kernel_phase("k1", pa.paged_attention, pa.paged_attention_reference, "paged_decode", [
         ("main", 1, ragged, 1, 32, 32, bf16, 128),
         ("main", 2, ragged, 1, 32, 32, f32, 128),
@@ -1010,6 +1096,22 @@ def main() -> int:
         ("gqa_d32", 50, ragged, 1, 32, 8, bf16, 128, 32, "fp8"),
         ("gqa_d16", 51, ragged, 1, 32, 8, f32, 128, 16, "fp8"),
         ("gqa_d32", 52, ragged, 1, 32, 8, f32, 128, 32, "int8"),
+        # the tree-mask arm (tree verification), beside the causal arm at the
+        # same S; the last lane holds 2000 keys, as 2040 + S would overrun
+        # the 2048 keys of its table
+        ("tree_main", 70, tree_lanes, 9, 32, 32, bf16, 128, 128, None, tree24),
+        ("tree_main", 71, tree_lanes, 9, 32, 32, f32, 128, 128, None, tree24),
+        ("verify9_main", 72, tree_lanes, 9, 32, 32, bf16, 128),
+        ("verify5_main", 73, tree_lanes, 5, 32, 32, bf16, 128),
+        ("tree_engine", 74, engine_lanes, 9, 32, 32, bf16, 128, 128, None, tree24),
+        ("tree_gqa_rows40", 75, tree_lanes, 10, 32, 8, bf16, 128, 128, None,
+         TreeSpec(3, 3).anc),
+        ("tree32", 76, tree_lanes, 32, 32, 32, bf16, 128, 128, None, TreeSpec(31, 1).anc),
+        ("tree32", 77, tree_lanes, 32, 32, 8, f32, 128, 128, None, TreeSpec(31, 1).anc),
+        ("tree_random20", 78, tree_lanes, 20, 32, 8, bf16, 128, 128, None, random_tree(78, 20)),
+        ("tree_page_edge", 79, [127, 128], 9, 32, 32, bf16, 128, 128, None, tree24),
+        ("tree_main", 80, tree_lanes, 9, 32, 32, bf16, 128, 128, "int8", tree24),
+        ("tree_main", 81, tree_lanes, 9, 32, 32, bf16, 128, 128, "fp8", tree24),
     ], k1_describe, k1_checks)
     k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
                       "paged_prefill", [
@@ -1050,9 +1152,18 @@ def main() -> int:
     tol = model_phase(model, cfg, rng)
     for fmt in pa.KV_FORMATS:
         quantized_model_phase(model, cfg, rng, fmt, tol)
-    launches = engine_phase(model, cfg, rng, gpu, tol)
-    arm_launches = {fmt: engine_phase(model, cfg, rng, gpu, tol, kv_dtype=fmt)
+    launches, prompts = engine_phase(model, cfg, rng, gpu, tol)
+    arm_launches = {fmt: engine_phase(model, cfg, rng, gpu, tol, kv_dtype=fmt)[0]
                     for fmt in pa.KV_FORMATS}
+    # speculation: the tree arm on the engine line's prompts; the linear arm
+    # on a random 40-token segment tiled to the same lengths, so that the
+    # n-gram drafter finds matches
+    tree_launches, _ = engine_phase(
+        model, cfg, rng, gpu, tol, prompts=prompts, name="engine_tree",
+        spec=dict(draft_model=8, tree_width=2, tree_depth=4, draft_ctx=64))
+    segment = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)
+    engine_phase(model, cfg, rng, gpu, tol, prompts=[np.resize(segment, n) for n in ENGINE_LENS],
+                 name="engine_spec", spec=dict(speculate_k=4))
     del model
     torch.cuda.empty_cache()
 
@@ -1085,6 +1196,9 @@ def main() -> int:
     for rec, name, src, replaces, count in (
         (k1[0], "paged_attention", csrc + "paged_attention.cu",
          "accelerate_tpu/ops/paged_attention.py:252", launches["paged_attention"]),
+        # the tree-mask arm, launched on the tree engine's path
+        (first(k1, "bfloat16", "tree_main"), "paged_attention[tree]", csrc + "paged_attention.cu",
+         "accelerate_tpu/ops/paged_attention.py:300", tree_launches["paged_attention_tree"]),
         (k2[0], "paged_flash_prefill", csrc + "paged_prefill.cu",
          "accelerate_tpu/ops/paged_attention.py:479", launches["paged_flash_prefill"]),
         *arms,
@@ -1102,7 +1216,7 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
         })
-        for key in ("design", "pages"):
+        for key in ("design", "pages", "arm"):
             if key in rec:
                 kernels[-1][key] = rec[key]
     emit({"kernels": kernels})

@@ -25,7 +25,12 @@ leave its arrival counters at zero.  Quantized pages (int8, fp8-e4m3) are
 written by the port's own ``paged_quantized_insert`` on the card
 (``chip_smoke.quantized_case``: dead slots poisoned with NaN codes or NaN
 scales) and held the same ways, the f32 plain version computed from the
-same codes and scales.
+same codes and scales.  K1's tree-mask arm (speculative tree verification)
+is held the same ways against the plain version with the same
+``tree_mask``, at ``chip_smoke.py``'s tree shapes and at D 64 and 16; the
+linear and tree verify windows of a 2-layer f32 model on the card are held
+against the same windows on the CPU (tokens and commit counts identical,
+pages within 1e-4).
 """
 
 import functools
@@ -40,7 +45,9 @@ from accelerate_tpu_torch.models.generation import GenerationConfig
 from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig, lm_loss_fn
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
-from accelerate_tpu_torch.serving import ServingEngine
+from accelerate_tpu_torch.serving import LaneState, PagedKVPool, ServingEngine
+from accelerate_tpu_torch.serving.pool import tree_verify_window, verify_window
+from accelerate_tpu_torch.serving.spec_exec import TreeSpec
 from accelerate_tpu_torch.state import AcceleratorState, GradientState
 from accelerate_tpu_torch.weights import init_params
 from accelerate_tpu_torch.ops import _build
@@ -50,6 +57,7 @@ from chip_smoke import (
     ROW_REL_TOL,
     TOL,
     quantized_case,
+    random_tree,
     row_rel_err,
     tile_rel_err,
 )
@@ -339,6 +347,149 @@ def test_prefill_refuses_a_group_wider_than_a_q_block(card):
     with pytest.raises(ValueError, match="64 folded rows"):
         pa.paged_flash_prefill(*args)
     assert pa.paged_flash_prefill.launches == launches
+
+
+TREES = {"2x4": TreeSpec(2, 4).anc, "3x3": TreeSpec(3, 3).anc, "31x1": TreeSpec(31, 1).anc,
+         "random20": random_tree(78, 20), "random7": random_tree(5, 7)}
+
+K1_TREE_CASES = [
+    # lengths, hq, hkv, d, page, table slots per lane, tree
+    ([5, 700, 1500, 2000], 32, 32, 128, 128, 16, "2x4"),  # chip_smoke.py's tree_main
+    ([5, 700, 1500, 2000], 32, 8, 128, 128, 16, "3x3"),   # 40 folded rows
+    ([5, 700, 1500, 2000], 32, 32, 128, 128, 16, "31x1"),  # 32 nodes: word bit 31
+    ([5, 700, 1500, 2000], 32, 8, 128, 128, 16, "random20"),  # the words are data
+    ([127, 128], 32, 32, 128, 128, 16, "2x4"),            # across a page edge
+    ([0, 40, 1000], 16, 2, 64, 128, 16, "random7"),       # D 64, an empty lane
+    ([3, 40, 77], 8, 2, 16, 8, 16, "3x3"),                # D 16, pages of 8
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths,hq,hkv,d,page,ppl,tree", K1_TREE_CASES)
+def test_paged_decode_tree_arm(card, dtype, lengths, hq, hkv, d, page, ppl, tree):
+    """K1's tree-mask arm over NaN dead pages against the plain version
+    with the same mask: within K1's absolute tolerance, per row against the
+    plain version in f32, bit for bit on a second run, counters at zero,
+    one launch counted on both counters; and unlike the causal arm's
+    output wherever a node is hidden from a later slot."""
+    anc = TREES[tree]
+    s = anc.shape[0]
+    q, pk, pv, tables, lens = _prefill_case(card, lengths, s, hq, hkv, d, page,
+                                            seed=len(lengths) * page + s, ppl=ppl)
+    args = tuple(t.to(dtype) for t in (q, pk, pv)) + (tables, lens)
+    mask = pa.TreeMask(anc)
+    pa.reset_launch_counts()
+    out = pa.paged_attention(*args, tree_mask=mask)
+    assert (pa.paged_attention.launches, pa.paged_attention.tree_launches) == (1, 1)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_attention_reference(*args, tree_mask=mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k1"][dtype], rtol=0)
+    ref32 = pa.paged_attention_reference(*(t.float() for t in args[:3]), tables, lens,
+                                         tree_mask=mask)
+    assert row_rel_err(out, ref32) <= ROW_REL_TOL[dtype]
+    assert torch.equal(out, pa.paged_attention(*args, tree_mask=mask))
+    assert pa.pending_split_counters() == 0
+    causal = pa.paged_attention(*args)
+    assert pa.paged_attention.tree_launches == 2
+    assert row_rel_err(causal, ref32) > 100 * ROW_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_tree_arm_quantized(card, fmt, q_dtype):
+    """The tree-mask arm over int8 / fp8 pages (the dequant arm beside it),
+    dead slots poisoned: as the native tree cases."""
+    mask = pa.TreeMask(TREES["2x4"])
+    args = quantized_case(9, fmt, [5, 700, 1500, 2000], 9, 32, 32, 128, 128, 16, q_dtype)
+    out = pa.paged_attention(*args, tree_mask=mask)
+    assert bool(torch.isfinite(out).all())
+    ref = pa.paged_attention_reference(*args, tree_mask=mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k1"][q_dtype], rtol=0)
+    ref32 = pa.paged_attention_reference(*(t.float() for t in args[:3]), *args[3:],
+                                         tree_mask=mask)
+    assert row_rel_err(out, ref32) <= ROW_REL_TOL[q_dtype]
+    assert torch.equal(out, pa.paged_attention(*args, tree_mask=mask))
+    assert pa.pending_split_counters() == 0
+
+
+def test_paged_decode_tree_arm_refusals(card):
+    """A mask that is not [S, S] or has more than 32 nodes raises before
+    any launch; the words are read from the card."""
+    q, pk, pv, tables, lens = _prefill_case(card, [5, 40], 33, 8, 8, 64, 16, seed=1, ppl=8)
+    pa.reset_launch_counts()
+    with pytest.raises(ValueError, match="32"):
+        pa.paged_attention(q, pk, pv, tables, lens, tree_mask=np.tril(np.ones((33, 33), bool)))
+    with pytest.raises(ValueError, match="S, S"):
+        pa.paged_attention(q[:, :9], pk, pv, tables, lens, tree_mask=TREES["3x3"])
+    assert pa.paged_attention.launches == 0
+    assert pa.TreeMask(TREES["31x1"]).words(card).device == card
+
+
+def _verify_setup(dev, sd, cfg, prompts, kv_dtype=None):
+    """A 2-lane pool on ``dev`` holding each prompt's KV (prefilled through
+    the model), the lanes installed greedy with their last prompt token
+    pending."""
+    from accelerate_tpu_torch.serving.pool import prefill_chunk
+
+    model = Transformer(cfg, device=dev)
+    model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, assign=True)
+    pool = PagedKVPool(cfg, 2, 64, 8, 17, kv_dtype=kv_dtype, device=dev)
+    lanes = LaneState.create(2, dev)
+    lengths = []
+    for lane, prompt in enumerate(prompts):
+        pool.tables[lane, :8] = np.arange(1 + 8 * lane, 9 + 8 * lane)
+        padded = np.zeros(-(-len(prompt) // 8) * 8, np.int32)
+        padded[:len(prompt)] = prompt
+        table = torch.from_numpy(pool.tables[lane].copy()).to(dev)
+        prefill_chunk(model, torch.from_numpy(padded[None]).to(dev), pool.pages_k,
+                      pool.pages_v, pool.k_scales, pool.v_scales, table, 0)
+        lanes.install(lane, int(prompt[-1]), -1, 1.0, 0, 1.0, None)
+        lengths.append(len(prompt) - 1)
+    tables = torch.from_numpy(pool.tables.copy()).to(dev)
+    index = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return model, pool, lanes, tables, index
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_verify_windows_on_card_match_cpu(card, kv_dtype):
+    """A linear verify (K1's causal arm at S = 4) and a tree verify (its
+    tree-mask arm at S = 7, and the path commit) of a 2-layer f32 model on
+    the card against the same windows on the CPU: tokens and commit counts
+    identical, the pages within 1e-4 (the kernels sum in another order)."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 head_dim=64, max_seq_len=64)
+    sd = init_params(cfg, seed=2, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (11, 6)]
+    tree = TreeSpec(2, 3)
+    draws = rng.integers(1, 256, (2, 3)).astype(np.int32)
+    tree_draws = rng.integers(1, 256, (2, tree.nodes)).astype(np.int32)
+    results = {}
+    for dev in ("cpu", card):
+        model, pool, lanes, tables, index = _verify_setup(dev, sd, cfg, prompts, kv_dtype)
+        kv = (pool.pages_k, pool.pages_v, pool.k_scales, pool.v_scales, tables)
+        tokens = torch.cat([lanes.pending[:, None], torch.from_numpy(draws).to(dev)], dim=1)
+        pa.reset_launch_counts()
+        out, n_commit, _ = verify_window(model, *kv, index, tokens, lanes, 0)
+        index = index + n_commit
+        tree_tokens = torch.from_numpy(tree_draws).to(dev)
+        tree_tokens[:, 0] = lanes.pending
+        t_out, t_commit, _ = tree_verify_window(model, tree, pa.TreeMask(tree.anc), *kv, index,
+                                                tree_tokens, lanes, 0)
+        if dev != "cpu":
+            assert (pa.paged_attention.launches, pa.paged_attention.tree_launches) == (4, 2)
+        # the pages' values: codes x scales for int8 pages
+        values = [pages.float() * scales[..., None, :, None] for pages, scales in
+                  ((pool.pages_k, pool.k_scales), (pool.pages_v, pool.v_scales))]
+        results[str(dev)] = [t.cpu() for t in (out, n_commit, t_out, t_commit, *values)]
+        step = max(pool.k_scales.max().item(), pool.v_scales.max().item())
+    cpu, gpu = results["cpu"], results[str(card)]
+    for a, b in zip(cpu[:4], gpu[:4]):
+        assert torch.equal(a, b)
+    # int8: a value may round to the neighbouring code on the other device
+    atol = 1e-4 if kv_dtype is None else 1.01 * step
+    for a, b in zip(cpu[4:], gpu[4:]):
+        torch.testing.assert_close(b, a, atol=atol, rtol=0)
 
 
 def test_paged_decode_shapes_in_turn(card):

@@ -7,9 +7,15 @@ mode) on the workload of ``tests/test_paged_attention.py``: prompts of 5, 9,
 native pages and with ``kv_dtype="int8"`` and ``"fp8"`` pages, whose write
 path matches the JAX one bit for bit.  Sampled
 tokens cannot match JAX's threefry stream; they must be reproducible from the
-seed and independent of which slot a request lands in.  The remaining tests
-pin the host-side pieces against their JAX counterparts and the port's
-import and device rules.
+seed and independent of which slot a request lands in.  Speculative decoding
+(``speculate_k``: n-gram drafts and the linear verify; ``draft_model``: the
+draft-model tree and the tree verify through K1's tree-mask arm) must give
+greedy tokens identical to the JAX paged engine with the same knobs and to
+the port's own tokens with speculation off, on a workload that accepts
+drafts (24 new tokens: the tiny model's greedy streams fall into loops the
+n-gram drafter finds; a draft of all the model's layers accepts nearly
+everything).  The remaining tests pin the host-side pieces against their
+JAX counterparts and the port's import and device rules.
 """
 
 import ast
@@ -224,13 +230,140 @@ def test_admission_refusals(models):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(paged=False), "5"), (dict(async_depth=1), "5"), (dict(prefix_cache_mb=64.0), "6"),
-    (dict(speculate_k=2), "7"), (dict(draft_model=2), "7"),
     (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
+    (dict(draft_model="ckpt/dir#1"), "2"),
 ])
 def test_unported_arguments_raise(models, kw, item):
     _, _, model, params = models
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+
+
+SPEC_KNOBS = [
+    dict(speculate_k=2),
+    dict(speculate_k=3, speculate_ngram=2),
+    dict(draft_model=2, tree_width=2, tree_depth=3, draft_ctx=64),
+    dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16),
+    dict(draft_model=2, tree_width=3, tree_depth=2, draft_ctx=64, kv_dtype="int8"),
+]
+
+
+@pytest.mark.parametrize("knobs", SPEC_KNOBS, ids=lambda k: "-".join(f"{a}{b}" for a, b in
+                                                                     k.items()))
+def test_speculative_greedy_tokens_identical_to_jax_engine(models, knobs):
+    """Greedy tokens with speculation: identical to the JAX paged engine
+    with the same knobs and the port's synchronous loop (``async_depth=0``),
+    on a workload where both accept drafts, with the same counts of drafted
+    and accepted tokens.  With native pages they are also the port's tokens
+    with speculation off.  Quantized pages are not: a page is requantized at
+    every insert, so a verify's writes leave other codes than decode steps
+    do (the JAX package's own identity test of this needs a page of one
+    token).  Every page returns to the free list."""
+    jmodel, jparams, model, params = models
+    prompts = _prompts(20, (5, 9, 3, 12, 7))
+    jeng = JServingEngine(jmodel, jparams, paged=True, decode_kernel="pallas",
+                          prefix_cache_mb=0, async_depth=0, registry=MetricsRegistry(),
+                          **ENGINE_KW, **knobs)
+    jreqs = jeng.serve([p.copy() for p in prompts],
+                       configs=JGenerationConfig(max_new_tokens=24))
+    gen = GenerationConfig(max_new_tokens=24)
+    engine, toks = _serve(model, params, prompts, gen, **knobs)
+    assert toks == [r.tokens for r in jreqs]
+    if "kv_dtype" not in knobs:
+        _, plain = _serve(model, params, prompts, gen)
+        assert toks == plain
+    st = engine.stats
+    assert st["spec_accepted"] > 0 and st["verify_forwards"] > 0
+    assert (st["spec_drafted"], st["spec_accepted"]) == (jeng.stats["spec_drafted"],
+                                                         jeng.stats["spec_accepted"])
+    assert st["tokens_generated"] == 5 * 24
+    assert engine.kv.allocator.free_count == engine.num_pages - 1
+
+
+def test_speculation_survives_preemption(models):
+    """A page-starved pool preempts and replays under tree and linear
+    speculation (the drafters' per-lane state retires and restarts with the
+    lane): the tokens are those of the spec-off engine without preemption."""
+    _, _, model, params = models
+    prompts = _prompts(7, (12, 11, 10))
+    gen = GenerationConfig(max_new_tokens=36)
+    _, ref = _serve(model, params, prompts, gen)
+    for knobs in (dict(speculate_k=3), dict(draft_model=1, tree_width=2, tree_depth=3,
+                                            draft_ctx=16)):
+        engine, toks = _serve(model, params, prompts, gen, num_pages=17, **knobs)
+        assert engine.stats["preemptions"] > 0 and engine.stats["verify_forwards"] > 0
+        assert toks == ref
+        assert engine.kv.allocator.free_count == engine.num_pages - 1
+
+
+@pytest.mark.parametrize("knobs", [dict(speculate_k=2),
+                                   dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)])
+def test_speculative_eos_and_opt_out(models, knobs):
+    """An EOS the model emits inside a verify cuts the stream where plain
+    decode does; ``submit(..., speculate=False)`` runs no verify at all."""
+    _, _, model, params = models
+    prompts = _prompts(20, (5, 9, 3, 12, 7))
+    gen = GenerationConfig(max_new_tokens=24)
+    _, plain = _serve(model, params, prompts, gen)
+    eos = plain[0][9]
+    cut = GenerationConfig(max_new_tokens=24, eos_token_id=eos)
+    _, want = _serve(model, params, prompts, cut)
+    _, got = _serve(model, params, prompts, cut, **knobs)
+    assert got == want and got[0] == plain[0][:plain[0].index(eos) + 1]
+    engine = ServingEngine(model, params, device="cpu", **ENGINE_KW, **knobs)
+    reqs = [engine.submit(p, config=gen, speculate=False) for p in prompts]
+    engine.run()
+    assert [r.tokens for r in reqs] == plain
+    assert engine.stats["spec_drafted"] == engine.stats["verify_forwards"] == 0
+
+
+@pytest.mark.parametrize("knobs", [dict(speculate_k=2),
+                                   dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)])
+def test_speculative_sampling_reproducible_and_in_vocab(models, knobs):
+    _, _, model, params = models
+    prompts = _prompts(21, (6, 11, 9))
+    gen = GenerationConfig(max_new_tokens=16, do_sample=True, temperature=0.8, top_k=50)
+    engine, a = _serve(model, params, prompts, gen, rng_seed=3, **knobs)
+    _, b = _serve(model, params, prompts, gen, rng_seed=3, **knobs)
+    _, c = _serve(model, params, prompts, gen, rng_seed=4, **knobs)
+    assert a == b and a != c
+    assert all(len(t) == 16 and all(0 <= x < 256 for x in t) for t in a)
+    assert engine.stats["verify_forwards"] > 0
+
+
+def test_speculation_refusals(models):
+    """The reference's validation: ``tree_width > 1`` needs a draft model,
+    a tree of more than 32 nodes does not fit K1's words, and the other
+    knobs' ranges."""
+    _, _, model, params = models
+    with pytest.raises(ValueError, match="tree_width"):
+        ServingEngine(model, params, device="cpu", tree_width=2, **ENGINE_KW)
+    with pytest.raises(ValueError, match="32"):
+        ServingEngine(model, params, device="cpu", draft_model=1, tree_width=8, tree_depth=4,
+                      **ENGINE_KW)
+    with pytest.raises(ValueError, match="speculate_k"):
+        ServingEngine(model, params, device="cpu", speculate_k=-1, **ENGINE_KW)
+    with pytest.raises(ValueError, match="draft_ctx"):
+        ServingEngine(model, params, device="cpu", draft_model=1, draft_ctx=0, **ENGINE_KW)
+    with pytest.raises(ValueError, match="out of range"):
+        ServingEngine(model, params, device="cpu", draft_model=3, **ENGINE_KW)
+    engine = ServingEngine(model, params, device="cpu", draft_model=1, tree_width=7,
+                           tree_depth=1, **ENGINE_KW)
+    assert engine.tree.nodes == 8 and engine.draft.lm_head.weight is not None
+
+
+@pytest.mark.parametrize("knobs,new", [
+    (dict(draft_model=1, tree_width=4, tree_depth=3), 44),   # span 13 nodes
+    (dict(speculate_k=7), 49),                               # span K + 1 = 8
+])
+def test_admission_covers_the_speculation_span(models, knobs, new):
+    """A request needs room for the widest pass a cycle writes at its
+    frontier: max(decode_window, speculation span)."""
+    _, _, model, params = models
+    engine = ServingEngine(model, params, device="cpu", **ENGINE_KW, **knobs)
+    with pytest.raises(AdmissionError, match="speculation span"):
+        engine.submit(np.ones(8, np.int32), max_new_tokens=new)
+    engine.submit(np.ones(8, np.int32), max_new_tokens=new - 1)
 
 
 def _port_sources():

@@ -165,6 +165,105 @@ class TestDecodeParity:
         torch.testing.assert_close(out, out2, rtol=0, atol=0)
 
 
+# ------------------------------------------------------ K1's tree-mask arm
+def _random_tree(seed, nodes):
+    """A random ancestor-closed mask: node i's parent drawn from 0 .. i - 1."""
+    rng = np.random.default_rng(seed)
+    parent = [0] + [int(rng.integers(0, i)) for i in range(1, nodes)]
+    anc = np.zeros((nodes, nodes), bool)
+    for i in range(nodes):
+        j = i
+        anc[i, j] = True
+        while j:
+            j = parent[j]
+            anc[i, j] = True
+    return anc
+
+
+def _tree_masks():
+    from accelerate_tpu.serving.spec_exec import TreeSpec as JTreeSpec
+
+    return {"2x3": JTreeSpec(2, 3).anc, "31x1": JTreeSpec(31, 1).anc,
+            "random9": _random_tree(9, 9)}
+
+
+TREE_CASES = [
+    # n, page, pages_per_lane, hkv, rep, d, tree
+    (3, 8, 4, 2, 1, 16, "2x3"),    # the engine's chains, spans crossing pages
+    (2, 8, 6, 1, 2, 16, "31x1"),   # 32 nodes: word bit 31, GQA rep 2 (64 rows)
+    (3, 16, 3, 2, 2, 32, "random9"),  # the words are data
+]
+
+
+class TestTreeArmParity:
+    """K1's tree-mask arm (``accelerate_tpu/ops/paged_attention.py:300-315``):
+    the port's plain version with ``tree_mask`` against JAX's plain version
+    and JAX's kernel in interpret mode, on native f32 and int8 pages.
+    Tolerance 2e-5, the f32 decode bound above."""
+
+    @pytest.mark.parametrize("case", TREE_CASES)
+    def test_matches_jax_reference_and_kernel(self, case):
+        n, page, ppl, hkv, rep, d, name = case
+        anc = _tree_masks()[name]
+        s = anc.shape[0]
+        q, pk, pv, tables, lengths = _scenario(zlib.crc32(repr(("tree", case)).encode()),
+                                               n, s, page, ppl, hkv, rep, d)
+        jargs = (jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(tables),
+                 jnp.asarray(lengths))
+        ref = np.asarray(jpa.paged_attention_reference(*jargs, tree_mask=anc))
+        kernel = np.asarray(jpa.paged_attention(*jargs, tree_mask=anc, interpret=True))
+        targs = [torch.from_numpy(a) for a in (q, pk, pv, tables, lengths)]
+        out = tpa.paged_attention(*targs, tree_mask=anc).numpy()
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=2e-5)
+        np.testing.assert_allclose(out, kernel, atol=2e-5)
+        # the mask matters: the causal arm differs where a node hides a slot
+        causal = tpa.paged_attention(*targs).numpy()
+        assert np.abs(causal - out).max() > 1e-3
+        assert np.array_equal(
+            tpa.paged_attention(*targs, tree_mask=tpa.TreeMask(anc)).numpy(), out)
+
+    @pytest.mark.parametrize("name", ["2x3", "random9"])
+    def test_int8_pages_match_jax_kernel(self, name):
+        anc = _tree_masks()[name]
+        s = anc.shape[0]
+        case = (3, s, 8, 4, 2, 2, 16)
+        (q, jk, jv, tables, lengths, ks, vs), (tk, tv) = _quantized_scenario(
+            zlib.crc32(repr(("tree8", name)).encode()), "int8", *case)
+        kw = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), tree_mask=anc)
+        ref = np.asarray(jpa.paged_attention(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                                             jnp.asarray(lengths), interpret=True, **kw))
+        out = tpa.paged_attention(torch.from_numpy(q), tk, tv, torch.from_numpy(tables),
+                                  torch.from_numpy(lengths), k_scales=torch.from_numpy(ks),
+                                  v_scales=torch.from_numpy(vs), tree_mask=anc).numpy()
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=2e-5)
+
+    def test_words_pack_as_the_reference_does(self):
+        """Bit j of node i's word set iff node i sees node j: the words the
+        reference bakes into its kernel (``:392-406``), here a device array
+        of int32 bit patterns."""
+        for anc in _tree_masks().values():
+            want = (anc.astype(np.uint64) << np.arange(anc.shape[0], dtype=np.uint64)).sum(1)
+            mask = tpa.TreeMask(anc)
+            assert mask.packed().tolist() == want.astype(np.uint32).tolist()
+            words = mask.words("cpu")
+            assert words.dtype == torch.int32 and words is mask.words("cpu")
+            assert words.numpy().view(np.uint32).tolist() == want.tolist()
+
+    def test_refusals(self):
+        """As the reference: a mask that is not [S, S], or more than 32
+        nodes, raises ValueError (on every device, before any dispatch)."""
+        q, pk, pv, tables, lengths = _scenario(5, 2, 33, 8, 6, 1, 1, 16)
+        args = [torch.from_numpy(a) for a in (q, pk, pv, tables, lengths)]
+        with pytest.raises(ValueError, match="32"):
+            tpa.paged_attention(*args, tree_mask=np.tril(np.ones((33, 33), bool)))
+        with pytest.raises(ValueError, match="S, S"):
+            tpa.paged_attention(args[0][:, :7], *args[1:], tree_mask=np.ones((6, 6), bool))
+        with pytest.raises(ValueError, match="square"):
+            tpa.TreeMask(np.ones((3, 4), bool))
+
+
 # ------------------------------------------------- K1's split walk and merge
 MASK_VALUE = np.float32(-0.7 * np.finfo(np.float32).max)  # the kernels' finite mask
 
