@@ -4,18 +4,24 @@ Port of the batched half of :mod:`accelerate_tpu.models.generation`:
 :class:`GenerationConfig`, :func:`filter_logits_batched` (temperature, then
 top-k, then top-p, per lane) and :func:`sample_tokens_batched`.
 
-Greedy lanes take ``argmax`` — exact.  Sampled lanes draw from their own
-``torch.Generator``; the engine seeds each from ``(rng_seed, request id)``
-(:func:`lane_generator`), so a request's sampled tokens depend neither on
-the slot it lands in nor on its neighbours.  JAX's threefry and torch's
-Philox streams differ, so sampled tokens match the JAX package in
-distribution only.
+Greedy lanes take ``argmax`` — exact.  Sampled lanes draw by inverse CDF
+from uniforms that a counter-based hash makes of each lane's key, a device
+row ``(seed, counter)`` (:func:`uniforms`), as the reference carries a
+device key per lane through its windows
+(``accelerate_tpu/serving/pool.py:137-172``).  The engine seeds a lane
+from ``(rng_seed, request id)`` (:func:`lane_key`) and each window advances
+its counter by a fixed number of draws, so a request's sampled tokens
+depend neither on the slot it lands in nor on its neighbours; no host state
+takes part, so a CUDA graph of a window replays the draws.  The hash works
+on 32-bit halves held in int64 tensors, whose products stay below 2^49: it
+gives the same bits on the CPU and the card.  JAX's threefry stream differs,
+so sampled tokens match the JAX package in distribution only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,13 +39,40 @@ class GenerationConfig:
     eos_token_id: Optional[int] = None
 
 
-def lane_generator(rng_seed: int, rid: int,
-                   device: Union[str, torch.device]) -> torch.Generator:
-    """A request's own sampling stream: seeded from ``(rng_seed, rid)`` only."""
-    seed = np.random.SeedSequence([int(rng_seed), int(rid)]).generate_state(1, np.uint64)[0]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
+def lane_key(rng_seed: int, rid: int) -> int:
+    """A request's sampling seed, from ``(rng_seed, rid)`` only: a
+    non-negative int below 2^63 (the first column of a lane's key)."""
+    state = np.random.SeedSequence([int(rng_seed), int(rid)]).generate_state(1, np.uint64)[0]
+    return int(state >> np.uint64(1))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a * b mod 2^32`` for ``a`` in ``[0, 2^32)`` (int64) and a 32-bit
+    constant ``b``, by 16-bit limbs of ``a``: no product reaches 2^63."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer bijection with low bias (the ``lowbias32`` finalizer)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def uniforms(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` uniforms in ``[0, 1)`` per lane, f32 ``[N, n]``: draw ``j`` of
+    lane ``i`` hashes its seed ``keys[i, 0]`` with the counter ``keys[i, 1]
+    + j``.  Reads the keys only; the caller advances the counters."""
+    seed, counter = keys[:, 0:1], keys[:, 1:2]
+    c = (counter + torch.arange(n, device=keys.device)[None, :]) & _M32
+    h = _mix32(_mix32(_mix32(c) ^ (seed & _M32)) ^ (seed >> 32))
+    return (h >> 8).to(torch.float32) * 2.0**-24
 
 
 def filter_logits_batched(logits: torch.Tensor, *, temperature: torch.Tensor,
@@ -66,22 +99,32 @@ def filter_logits_batched(logits: torch.Tensor, *, temperature: torch.Tensor,
     return torch.where((top_p < 1.0)[:, None] & (lf < min_kept), neg_inf, lf)
 
 
-def sample_tokens_batched(logits: torch.Tensor,
-                          generators: Sequence[Optional[torch.Generator]], *,
+def sample_filtered(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One inverse-CDF draw per row of filtered logits ``[..., V]`` with the
+    uniform ``u [...]``: the first token of nonzero probability whose
+    cumulative probability exceeds ``u`` times the total.  Always a token
+    of the support, even where a parallel cumulative sum rounds unevenly
+    (then the last token of the support).  Returns int32 ``[...]``."""
+    shape = logits.shape[:-1]
+    v = logits.shape[-1]
+    probs = torch.softmax(logits.reshape(-1, v), dim=-1)
+    cdf = torch.cumsum(probs, dim=-1)
+    support = probs > 0
+    hit = support & (cdf > (u.reshape(-1, 1) * cdf[:, -1:]))
+    first = torch.argmax(hit.to(torch.int32), dim=-1)
+    last = v - 1 - torch.argmax(support.flip(-1).to(torch.int32), dim=-1)
+    return torch.where(hit.any(dim=-1), first, last).to(torch.int32).reshape(shape)
+
+
+def sample_tokens_batched(logits: torch.Tensor, u: torch.Tensor, sampled: torch.Tensor, *,
                           temperature: torch.Tensor, top_k: torch.Tensor,
                           top_p: torch.Tensor) -> torch.Tensor:
     """Per-lane token choice: ``[N, V]`` logits -> ``[N]`` int32 tokens.
 
-    ``generators[n]`` is lane ``n``'s sampling stream, or ``None`` for a
-    greedy lane (``do_sample=False`` or temperature 0), which takes
-    ``argmax``.  Which lanes sample is host state, so an all-greedy pool —
-    the common serving mix — never sorts the vocabulary or synchronises."""
+    Lanes with ``sampled[n]`` false take ``argmax``; the others draw from
+    their filtered distribution with the uniform ``u[n]``.  Every lane's
+    vocabulary is sorted: an engine whose lanes are all greedy takes the
+    ``argmax`` alone and never calls this."""
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-    lanes = [i for i, g in enumerate(generators) if g is not None]
-    if not lanes:
-        return tokens
     lf = filter_logits_batched(logits, temperature=temperature, top_k=top_k, top_p=top_p)
-    probs = torch.softmax(lf, dim=-1)
-    for i in lanes:
-        tokens[i] = torch.multinomial(probs[i], 1, generator=generators[i])[0].to(torch.int32)
-    return tokens
+    return torch.where(sampled, sample_filtered(lf, u), tokens)

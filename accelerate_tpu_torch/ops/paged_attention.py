@@ -27,7 +27,12 @@ through per-lane block tables; attention reads those pages in place.
 Each kernel wrapper counts its launches in an integer attribute
 (``paged_attention.launches``), raised by one where the kernel is launched
 and nowhere else, so a run can show that its path went through the kernel;
-``paged_attention.tree_launches`` counts those of K1's tree-mask arm.
+``paged_attention.tree_launches`` counts those of K1's tree-mask arm.  A
+launch inside a CUDA graph's capture is counted there, and the graph's
+replays credit their launches (:func:`credit_launches`), so a count always
+means launches on the card.  Both wrappers are graph-safe: what they make
+once (K1's arrival counters, the unit scales of native pages, the SM count)
+a warm-up call makes before capture, and nothing they do reads the card.
 """
 
 from __future__ import annotations
@@ -560,8 +565,27 @@ paged_attention.tree_launches = 0
 paged_flash_prefill.launches = 0
 
 
+#: the launch counters: (wrapper, attribute)
+LAUNCH_COUNTERS = ((paged_attention, "launches"), (paged_attention, "tree_launches"),
+                   (paged_flash_prefill, "launches"))
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """The launch counters' values, in :data:`LAUNCH_COUNTERS` order."""
+    return tuple(getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS)
+
+
+def set_launch_counts(counts: Tuple[int, ...]) -> None:
+    for (fn, attr), value in zip(LAUNCH_COUNTERS, counts):
+        setattr(fn, attr, value)
+
+
+def credit_launches(counts: Tuple[int, ...]) -> None:
+    """Add ``counts`` to the launch counters: a CUDA graph's replay launches
+    on the card what its capture counted, without running the wrappers."""
+    set_launch_counts(tuple(a + b for a, b in zip(launch_counts(), counts)))
+
+
 def reset_launch_counts() -> None:
     """Set both kernels' launch counters (and K1's tree-arm count) to zero."""
-    paged_attention.launches = 0
-    paged_attention.tree_launches = 0
-    paged_flash_prefill.launches = 0
+    set_launch_counts((0,) * len(LAUNCH_COUNTERS))

@@ -1,23 +1,27 @@
-"""Where the serving path's time goes on the card.
+"""Where the serving path's time goes on the card: the engine's two loops, A/B.
 
-    python -m accelerate_tpu_torch.profile_engine [--kv-dtype int8|fp8|bf16]
+    python -m accelerate_tpu_torch.profile_engine [--kv-dtype bf16 int8 fp8]
 
-Builds the Llama-2-7B geometry (bf16, random weights from a seed), serves the
-``chip_smoke.py`` engine workload once to warm up (kernel build, allocator,
-cuBLAS handles), then serves it again twice: once plain, for the wall times
-and engine phase seconds, and once under ``torch.profiler`` for the device
-time by kernel.  Prints one JSON object: wall seconds, device busy share,
-CUDA kernel launches per decode step and per prefill chunk, the top
-device-time entries, and for the two paged kernels (K1 decode, K2 prefill)
-their launches, device ms per launch and mean bound per launch at the
-engine's own shapes (each call's lengths and widths, recorded during the
-warm-up serve, through :func:`paged_bound_ms`).  ``--kv-dtype`` serves from
-a pool of that storage format (``ServingEngine(kv_dtype=...)``; default the
-model's bf16), so the quantized arms of K1 and K2 get their rows at the
-engine's shapes; the plain-PyTorch quantized insert then runs under a
-``paged_quantized_insert`` span in the profiled serve, and ``insert``
-reports its calls, ops and host and device time (host time under the
-profiler, which inflates it).  Needs a CUDA card.
+Builds the Llama-2-7B geometry (bf16, random weights from a seed) and, for
+each KV storage format (``--kv-dtype``; default the model's bf16), serves
+the ``chip_smoke.py`` engine workload in two modes: ``graphs`` — the engine
+as a user makes it, every window a CUDA graph replay, the depth-1
+pipelined loop (``async_depth=1``); ``eager`` — the same windows launch by
+launch with the synchronous loop (``async_depth=0``), reached through the
+private hook ``ServingEngine._eager``.  A first eager serve warms up (kernel
+build, allocator, cuBLAS handles) and records each paged kernel call's
+bound at the engine's own shapes (each call's lengths and widths, through
+:func:`paged_bound_ms`); then timed serves run in turns (graphs, eager,
+eager, graphs), each engine made before the clock; then one serve of each
+mode under ``torch.profiler`` (recording the card only) gives device
+time by kernel.  Prints one JSON object per format: for each mode, wall seconds, decode ms per step
+(the engine's ``decode_s`` over its decode steps), tokens per second over
+the serve's wall, the device's busy share of the profiled and of the timed
+wall, CUDA kernel launches per layer-step, the top device-time entries,
+and for the paged kernels (K1 decode, K2 prefill) their launches, device
+ms per launch and mean bound per launch; beside them the decode step's
+weight-read bound (the weights' bytes over the card's memory rate).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -68,9 +72,22 @@ def paged_bound_ms(lengths, s, hq, hkv, d, dtype, page_dtype=None, page=None) ->
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _serve(model, prompts, kv_dtype=None):
-    engine = ServingEngine(model, None, num_slots=4, max_len=2048, prefill_buckets=(128, 512),
-                           decode_window=4, kv_dtype=kv_dtype, device="cuda")
+def _engine(model, kv_dtype=None, mode="graphs") -> ServingEngine:
+    """A new engine for the workload: ``mode`` ``"graphs"`` is the engine as
+    a user makes it (CUDA graphs captured here, ``async_depth=1``);
+    ``"eager"`` its eager windows with the synchronous loop, through the
+    private A/B hook."""
+    kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+              kv_dtype=kv_dtype, device="cuda")
+    if mode == "graphs":
+        return ServingEngine(model, None, **kw)
+    return ServingEngine._eager(model, None, async_depth=0, **kw)
+
+
+def _serve(model, prompts, kv_dtype=None, mode="graphs", engine=None):
+    """Serve the workload (on ``engine``, else a new one made before the
+    clock starts); returns the engine and the serve's wall seconds."""
+    engine = engine or _engine(model, kv_dtype, mode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.serve(prompts, configs=GenerationConfig(max_new_tokens=48))
@@ -95,19 +112,6 @@ def _recording_bounds(bounds):
     for name, fn in saved.items():
         setattr(transformer, name, recorder(name, fn))
     return lambda: [setattr(transformer, name, fn) for name, fn in saved.items()]
-
-
-def _span_inserts():
-    """Run the transformer's quantized insert under a named profiler span;
-    returns an undo."""
-    saved = transformer.paged_quantized_insert
-
-    def insert(*args):
-        with torch.profiler.record_function("paged_quantized_insert"):
-            return saved(*args)
-
-    transformer.paged_quantized_insert = insert
-    return lambda: setattr(transformer, "paged_quantized_insert", saved)
 
 
 def device_us(evt) -> float:
@@ -181,59 +185,22 @@ def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
     return graph_ms(fn, iters)
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kv-dtype", default=None, choices=["bf16", "int8", "fp8"],
-                        help="the KV pool's storage format (default: the model's bf16)")
-    kv_dtype = parser.parse_args(argv).kv_dtype
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_engine: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16)
-    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16)
-    model.load_state_dict(init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16),
-                          assign=True)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
-    bounds = {name: [] for name in PAGED_KERNELS}
-    undo = _recording_bounds(bounds)
-    try:
-        _serve(model, prompts, kv_dtype)             # warm-up, recording each call's bound
-    finally:
-        undo()
-    engine, wall = _serve(model, prompts, kv_dtype)
-    stats = dict(engine.stats)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    undo = _span_inserts()
-    try:
-        with torch.profiler.profile(activities=activities) as prof:
-            p_engine, p_wall = _serve(model, prompts, kv_dtype)
-    finally:
-        undo()
+#: the engine's two loops, for the A/B: CUDA graphs with the depth-1
+#: pipeline (the default), and eager windows with the synchronous loop
+MODES = ("graphs", "eager")
+
+
+def _profile(model, cfg, prompts, kv_dtype, mode, bounds) -> dict:
+    """One serve in ``mode`` under ``torch.profiler``, recording the card
+    only (the engine, and its graphs, made before the profiler starts):
+    device time by kernel, the busy time, launches per layer-step."""
+    engine = _engine(model, kv_dtype, mode)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        p_engine, p_wall = _serve(model, prompts, engine=engine)
     averages = prof.key_averages()
-    span = [e for e in averages if e.key == "paged_quantized_insert"
-            and e.device_type != torch.autograd.DeviceType.CUDA]
-    insert = None
-    if span:
-        calls = span[0].count
-        ops = sum(e.count for e in prof.events() if e.name.startswith("aten::")
-                  and e.cpu_parent is not None and e.cpu_parent.name == "paged_quantized_insert")
-        steps = p_engine.stats["decode_steps"] + p_engine.stats["prefill_chunks"]
-        insert = {
-            "calls": calls, "top_level_ops_per_call": ops / calls,
-            "profiled_host_ms_total": span[0].cpu_time_total / 1e3,
-            "profiled_host_ms_per_call": span[0].cpu_time_total / 1e3 / calls,
-            "device_ms_total": getattr(span[0], "device_time_total",
-                                       getattr(span[0], "cuda_time_total", 0.0)) / 1e3,
-            "calls_per_step_or_chunk": calls / steps,
-        }
-    # device-side entries only (kernels, memcpy/memset): the host ops that
-    # launched them carry the same time as children
-    # (the insert's span, which the trace also draws on the device, is not a
-    # kernel: its kernels are counted on their own)
+    # device-side entries only (kernels, memcpy/memset)
     evts = [e for e in averages
-            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0
-            and e.key != "paged_quantized_insert"]
+            if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     busy_us = sum(device_us(e) for e in evts)
     launches = sum(e.count for e in evts)
     top = sorted(evts, key=device_us, reverse=True)[:TOP]
@@ -249,17 +216,7 @@ def main(argv=None) -> int:
             "bound_ms_per_launch": float(np.mean([ms for ms, _ in bounds[name]])),
             "bytes_bound_share": float(np.mean([by == "bytes" for _, by in bounds[name]])),
         }
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({
-        "gpu": gpu,
-        "kv_dtype": kv_dtype,
-        "kv_bytes_per_token": stats["kv_bytes_per_token"],
-        "kv_pool_gb": engine.kv.kv_bytes() / 1e9,
-        "wall_s": wall,
-        "stats": stats,
-        "decode_ms_per_step": 1e3 * stats["decode_s"] / stats["decode_steps"],
-        "prefill_ms_per_chunk": 1e3 * stats["prefill_s"] / stats["prefill_chunks"],
+    return {
         "profiled_wall_s": p_wall,
         "device_busy_s": busy_us / 1e6,
         "device_busy_share_of_profiled_wall": busy_us / 1e6 / p_wall,
@@ -267,13 +224,79 @@ def main(argv=None) -> int:
         "device_entries_per_layer_step": launches / (
             cfg.num_layers * (p_engine.stats["decode_steps"] + p_engine.stats["prefill_chunks"])),
         "paged_kernels": paged,
-        "insert": insert,
         "top_device_time": [
             {"name": e.key[:80], "count": e.count, "device_ms": device_us(e) / 1e3,
              "share": device_us(e) / busy_us}
             for e in top
         ],
-    }))
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kv-dtype", nargs="+", default=[None],
+                        choices=["bf16", "int8", "fp8"],
+                        help="the KV pool's storage formats, one A/B each (default: the "
+                             "model's bf16)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_engine: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16)
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16),
+                          assign=True)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    for kv_dtype in args.kv_dtype:
+        bounds = {name: [] for name in PAGED_KERNELS}
+        undo = _recording_bounds(bounds)
+        try:
+            # warm-up (kernel build, allocator, cuBLAS), recording each call's
+            # bound: reading the lengths syncs, so an eager engine records
+            _serve(model, prompts, kv_dtype, "eager")
+        finally:
+            undo()
+        # timed serves in turns (A, B, B, A), each engine made before its clock
+        order = MODES + MODES[::-1]
+        timed = {mode: [] for mode in MODES}
+        for mode in order:
+            engine, wall = _serve(model, prompts, kv_dtype, mode)
+            timed[mode].append((dict(engine.stats), wall))
+        pool = {"kv_bytes_per_token": engine.stats["kv_bytes_per_token"],
+                "kv_pool_gb": engine.kv.kv_bytes() / 1e9}
+        del engine
+        report = {}
+        for mode in MODES:
+            walls = [wall for _, wall in timed[mode]]
+            stats = [st for st, _ in timed[mode]]
+            profiled = _profile(model, cfg, prompts, kv_dtype, mode, bounds)
+            report[mode] = {
+                "async_depth": 1 if mode == "graphs" else 0,
+                "wall_s": walls,
+                "decode_ms_per_step": [1e3 * st["decode_s"] / st["decode_steps"]
+                                       for st in stats],
+                "serve_tokens_per_s": [st["tokens_generated"] / wall
+                                       for st, wall in zip(stats, walls)],
+                "decode_tokens_per_s": [st["tokens_generated"] / st["decode_s"]
+                                        for st in stats],
+                "prefill_ms_per_chunk": [1e3 * st["prefill_s"] / st["prefill_chunks"]
+                                         for st in stats],
+                "device_busy_share_of_timed_wall": profiled["device_busy_s"] / float(
+                    np.mean(walls)),
+                "stats": stats[-1],
+                **profiled,
+            }
+        print(json.dumps({
+            "gpu": gpu,
+            "kv_dtype": kv_dtype,
+            **pool,
+            "decode_step_weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            "modes": report,
+        }), flush=True)
     return 0
 
 

@@ -1,35 +1,44 @@
 """Continuous-batching serving engine on the paged KV pool.
 
 Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with
-``paged=True``, the synchronous loop (``async_depth=0``), no prefix cache
-and no mesh.  One engine step:
+``paged=True``, no prefix cache and no mesh.  One engine step:
 
 1. admission — open the FCFS head's prefill when a slot and its pages are
    free, then run prefill chunks (buckets from :func:`.pool.plan_chunks`)
    against the per-step prefill-token budget; each chunk's K/V is written
    straight into newly allocated lane pages by the prefill kernel (K2), and a
    request whose last chunk landed is installed into its lane;
-2. one decode cycle, then one readback of the tokens, which stream out to
-   their requests.  Without speculation, or when no lane drafts, it is a
-   decode window: ``decode_window`` masked steps over every lane through
-   the decode kernel (K1).  With ``speculate_k = K`` (n-gram prompt-lookup
-   drafts, :mod:`.spec`) it is a linear verify: one forward over ``[slots,
-   K+1]`` through K1's causal arm, landing 1..K+1 tokens a lane.  With
-   ``draft_model`` it is a tree cycle: a draft forward of the served
-   model's first layers drafts a ``1 + tree_width * tree_depth``-node
+2. dispatch of one decode cycle.  Without speculation, or when no lane
+   drafts, it is a decode window: ``decode_window`` masked steps over every
+   lane through the decode kernel (K1).  With ``speculate_k = K`` (n-gram
+   prompt-lookup drafts, :mod:`.spec`) it is a linear verify: one forward
+   over ``[slots, K+1]`` through K1's causal arm, landing 1..K+1 tokens a
+   lane.  With ``draft_model`` it is a tree cycle: a draft forward of the
+   served model's first layers drafts a ``1 + tree_width * tree_depth``-node
    token tree per lane (:mod:`.spec_exec`), and one tree verify forward
    scores every node through K1's tree-mask arm and commits the winning
-   path's KV into the pages (:mod:`.pool`).
+   path's KV into the pages (:mod:`.pool`);
+3. drain: the one readback of a window's tokens, which stream out to their
+   requests.
+
+On the card every window is one CUDA graph, captured at construction
+(:mod:`.graphs`) and replayed each cycle.  With ``async_depth=1`` (the
+default, as in the reference) the loop is the reference's depth-1
+pipeline: step 3 drains the PREVIOUS window (:mod:`.readback`), so the
+host's emit, admission and drafting run while the card computes the window
+just dispatched; ``async_depth=0`` drains each window right after its
+dispatch.  Prefill chunks run eagerly.
 
 Greedy outputs are token-identical to the JAX engine's, with native and
-with quantized (int8, fp8-e4m3) pages; a request's sampled tokens depend
-only on ``(rng_seed, request id)``.  Arguments naming parts of
-the JAX engine this slice has not ported raise ``NotImplementedError``.
+with quantized (int8, fp8-e4m3) pages, in either loop; a request's sampled
+tokens depend only on ``(rng_seed, request id)``.  Arguments naming parts
+of the JAX engine this slice has not ported raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, List, Optional, Sequence, Union
@@ -38,10 +47,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.generation import GenerationConfig, lane_generator
+from ..models.generation import GenerationConfig, lane_key
 from ..models.transformer import Transformer
 from ..ops.paged_attention import MAX_TREE_NODES, TreeMask
 from .errors import AdmissionError
+from .graphs import WindowGraphs
 from .paging import DraftContextWindow, PagedKVPool
 from .pool import (
     LaneState,
@@ -51,6 +61,7 @@ from .pool import (
     tree_verify_window,
     verify_window,
 )
+from .readback import Readback, stage
 from .scheduler import Request, RequestState, Scheduler
 from .spec_exec import (
     NgramDrafter,
@@ -94,10 +105,14 @@ class ServingEngine:
         formats ``"int8"`` and ``"fp8"`` (e4m3): one f32 scale per (layer,
         page, kv-head), each touched page requantized at every insert.
         ``stats["kv_quant_error"]`` then holds the largest round-trip error
-        of the values the last prefill phase or decode window wrote (the
-        reference's ``serve/kv_quant_error`` gauge), read once per phase;
+        of the values the last drained window wrote, or of the prefill
+        chunks dispatched in its cycle where there were any (the reference's
+        ``serve/kv_quant_error`` gauge), read at the window's drain;
         ``stats["kv_bytes_per_token"]`` is the pool's bytes per token across
         all layers, scales included (``serve/kv_bytes_per_token``).
+    async_depth: ``1`` (default) — the depth-1 pipeline: each step drains
+        the window dispatched one step earlier; ``0`` — the synchronous
+        loop.  Any other value raises ``ValueError``.
     speculate_k: draft length K of n-gram speculation; ``0`` (default) off.
         Cycles where some lane drafts run one verify forward over ``[slots,
         K+1]`` instead of the decode window (``submit(..., speculate=False)``
@@ -118,18 +133,37 @@ class ServingEngine:
     draft_ctx: the draft forward's context window per lane, in tokens.
     device: where the engine runs — the card unless ``device="cpu"``.
 
-    ``stats`` counts, beside the plain counters: ``spec_drafted`` (draft
+    On the card the constructor captures one CUDA graph per window kind
+    (decode; linear verify, or tree draft and tree verify with its commit),
+    a greedy and a sampling variant of each window that samples, and every
+    cycle replays one.  ``stats`` counts, beside the plain counters:
+    ``graph_captures`` and ``graph_replays``; ``spec_drafted`` (draft
     tokens proposed: K per drafting lane, or ``tree_depth``),
     ``spec_accepted``, ``verify_forwards`` (verify forwards of either arm:
     one K1 launch a layer each), ``verify_lanes`` (occupied lanes summed
     over them), ``verify_committed`` (tokens they committed) and
     ``draft_s`` (the draft forwards' time on the card's stream between
-    their first and last launch; host wall on the CPU).
+    their first and last launch; host wall on the CPU); and the reference's
+    pipeline accounting: ``host_overlap_ratio`` (host time between a
+    window's dispatch and its drain, over that plus the drain's wait),
+    ``device_idle_s`` (host wall with no window dispatched or in flight)
+    and ``prefreed_lanes`` (lanes retired one cycle early because the
+    window in flight provably finishes them).  ``decode_s`` is the host
+    wall while some window was dispatched and not yet drained (with the
+    pipeline it therefore holds the admission phases that ran under a
+    window, and their chunks' card time); ``prefill_s`` the host wall of
+    the admission phases that ran prefill chunks (under ``async_depth=0``
+    ending in a device synchronisation; under the pipeline nothing waits
+    there).
 
-    ``paged=False``, ``async_depth=1``, ``prefix_cache_mb > 0``, ``mesh``
-    and ``role != "both"`` raise ``NotImplementedError``.  Unlike the JAX
-    engine, ``prefix_cache_mb`` defaults to 0 and ``async_depth`` to 0.
+    ``paged=False``, ``prefix_cache_mb > 0``, ``mesh`` and ``role !=
+    "both"`` raise ``NotImplementedError``.  Unlike the JAX engine,
+    ``prefix_cache_mb`` defaults to 0.
     """
+
+    #: read by ``__init__``: capture the windows as CUDA graphs on the card.
+    #: Only :meth:`_eager` turns it off.
+    _graph_windows = True
 
     def __init__(
         self,
@@ -150,7 +184,7 @@ class ServingEngine:
         kv_dtype: Optional[str] = None,
         max_queue: Optional[int] = None,
         prefix_cache_mb: Optional[float] = 0.0,
-        async_depth: int = 0,
+        async_depth: int = 1,
         speculate_k: int = 0,
         speculate_ngram: int = 3,
         draft_model=None,
@@ -163,14 +197,16 @@ class ServingEngine:
     ):
         if not paged:
             raise _not_ported("paged=False (the contiguous slab pool)", "5")
-        if async_depth != 0:
-            raise _not_ported(f"async_depth={async_depth} (the pipelined loop)", "5")
         if prefix_cache_mb:
             raise _not_ported("prefix_cache_mb > 0 (the prefix KV cache)", "6")
         if mesh is not None:
             raise _not_ported("mesh= (tensor-parallel serving)", "8")
         if role != "both":
             raise _not_ported(f"role={role!r} (disaggregated prefill/decode)", "8")
+        self.async_depth = int(async_depth)
+        if self.async_depth not in (0, 1):
+            raise ValueError(f"async_depth must be 0 (synchronous) or 1 (depth-1 pipeline), "
+                             f"got {async_depth}")
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict(params, assign=True)
@@ -216,6 +252,7 @@ class ServingEngine:
                     "shrink tree_width/tree_depth")
         # the widest pass one cycle can write at a lane's frontier
         self._spec_span = self.tree.nodes if self.tree is not None else self.speculate_k + 1
+        self._spec_any = self.tree is not None or self.speculate_k > 0
         self.pad_token_id = int(pad_token_id)
         self.rng_seed = int(rng_seed)
         if slot_order is None:
@@ -259,6 +296,7 @@ class ServingEngine:
             self.draft = draft_transformer(draft_cfg, draft_sd, self.device)
             self._tree_mask = TreeMask(self.tree.anc)
             self._tree_mask.words(self.device)
+            self.tree.on(self.device)
             self._draft_window = DraftContextWindow(n, self.draft_ctx, pad=self.pad_token_id)
             self.drafter = TreeDrafter(self.tree, draft_cfg,
                                        make_draft_forward(self.draft, self.tree, self.draft_ctx))
@@ -266,7 +304,7 @@ class ServingEngine:
             self._ngram = self.drafter = NgramDrafter(max_ngram=self.speculate_ngram)
         self._next_rid = 0
         #: plain counters; ``prefill_s`` / ``decode_s`` are host wall seconds
-        #: of each phase, ending in a device synchronisation
+        #: (see the class docstring)
         self.stats = {
             "requests_submitted": 0,
             "requests_completed": 0,
@@ -285,7 +323,102 @@ class ServingEngine:
             "verify_lanes": 0,
             "verify_committed": 0,
             "draft_s": 0.0,
+            "graph_captures": 0,
+            "graph_replays": 0,
+            "host_overlap_ratio": 0.0,
+            "device_idle_s": 0.0,
+            "prefreed_lanes": 0,
         }
+        # the depth-1 pipeline: the at-most-one window in flight (always
+        # None under async_depth=0), and the reference's overlap accounting
+        self._inflight: Optional[Readback] = None
+        self._overlap_host_s = 0.0
+        self._overlap_wait_s = 0.0
+        self._t_pipeline_empty: Optional[float] = None
+        self._busy_since: Optional[float] = None
+        # quantization errors of prefill chunks, staged with the next window
+        self._pending_prefill_qerr: List[torch.Tensor] = []
+
+        # the windows' static inputs: written in place before each cycle
+        dev = self.device
+        self._tables = torch.zeros((n, self.kv.pages_per_lane), dtype=torch.int32, device=dev)
+        self._index = torch.zeros(n, dtype=torch.int32, device=dev)
+        if self.tree is not None:
+            self._ctx = torch.zeros((n, self.draft_ctx), dtype=torch.int32, device=dev)
+            self._ctx_len = torch.zeros(n, dtype=torch.int32, device=dev)
+            self._draft_tokens = torch.zeros((n, self.tree.nodes), dtype=torch.int32, device=dev)
+        elif self.speculate_k:
+            self._drafts = torch.zeros((n, self.speculate_k), dtype=torch.int32, device=dev)
+        self._windows = self._window_programs()
+        self.graphs: Optional[WindowGraphs] = None
+        if dev.type == "cuda" and self._graph_windows:
+            self.graphs = WindowGraphs(dev)
+            for (kind, sampling), fn in self._windows.items():
+                self.graphs.capture(self._graph_key(kind, sampling), fn, self._reset_lanes)
+                self.stats["graph_captures"] += 1
+
+    @classmethod
+    def _eager(cls, *args, **kwargs) -> "ServingEngine":
+        """An engine whose windows run launch by launch instead of as CUDA
+        graphs: the A/B baseline of ``profile_engine`` and ``chip_smoke.py``
+        (with ``async_depth=0``, the loop before graphs and the pipeline).
+        Same arguments as the constructor."""
+        engine = cls.__new__(cls)
+        engine._graph_windows = False
+        engine.__init__(*args, **kwargs)
+        return engine
+
+    # --------------------------------------------------------------- windows
+    def _window_programs(self) -> dict:
+        """``(kind, sampling) -> fn()``: each window over the engine's static
+        buffers, greedy and sampling variants of the windows that sample.
+        The same functions run eagerly (CPU, :meth:`_eager`) and are
+        captured as graphs."""
+        kv, lanes, pad = self.kv, self.lanes, self.pad_token_id
+        pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales, self._tables, self._index)
+        windows = {}
+        for sampling in (False, True):
+            windows["decode", sampling] = functools.partial(
+                decode_window, self.model, self.window, *pool, lanes, pad, sampling=sampling)
+            if self.tree is not None:
+                windows["tree", sampling] = functools.partial(
+                    tree_verify_window, self.model, self.tree, self._tree_mask, *pool,
+                    self._draft_tokens, lanes, pad, sampling=sampling)
+            elif self.speculate_k:
+                windows["verify", sampling] = functools.partial(self._verify_program, pool,
+                                                                sampling)
+        if self.tree is not None:
+            windows["draft", False] = self._draft_program
+        return windows
+
+    def _verify_program(self, pool, sampling: bool):
+        tokens = torch.cat([self.lanes.pending[:, None], self._drafts], dim=1)
+        return verify_window(self.model, *pool, tokens, self.lanes, self.pad_token_id,
+                             sampling=sampling)
+
+    def _draft_program(self):
+        self._draft_tokens.copy_(self.drafter.propose_device(self._ctx, self._ctx_len))
+
+    def _graph_key(self, kind: str, sampling: bool) -> tuple:
+        span = self.window if kind == "decode" else self._spec_span
+        return (kind, self.num_slots, span, self.kv.pages_per_lane, self.kv.storage_dtype,
+                sampling)
+
+    def _reset_lanes(self) -> None:
+        """Undo a capture warm-up's writes: every lane was inactive (its KV
+        writes went to the null page), but the windows rewrite the pending
+        tokens and advance the draw counters."""
+        self.lanes.pending.zero_()
+        self.lanes.keys.zero_()
+
+    def _run(self, kind: str):
+        """Run one window: replay its graph on the card, else call it.  The
+        variant follows host state: does some lane sample?"""
+        sampling = kind != "draft" and self.lanes.any_sampled
+        if self.graphs is None:
+            return self._windows[kind, sampling]()
+        self.stats["graph_replays"] += 1
+        return self.graphs.replay(self._graph_key(kind, sampling))
 
     # ---------------------------------------------------------------- submit
     def submit(self, prompt, config: Optional[GenerationConfig] = None,
@@ -336,9 +469,16 @@ class ServingEngine:
         return None
 
     def _reclaim_pages(self, need: int, allow_preempt: bool) -> bool:
-        """Free pages until ``need`` are available, preempting the youngest
-        running lane when allowed.  False when nothing is left to reclaim."""
+        """Free pages until ``need`` are available.  The reference's ladder
+        without the prefix cache (``accelerate_tpu/serving/engine.py:
+        1882-1902``): first drain the window in flight when pages wait on
+        it (its deferred pages then free), then — when allowed — preempt
+        the youngest running lane.  False when nothing is left to
+        reclaim."""
         while self.kv.allocator.free_count < need:
+            if self._inflight is not None and self._inflight.deferred_pages:
+                self._drain_inflight()
+                continue
             if allow_preempt and self._preempt():
                 continue
             return False
@@ -358,22 +498,23 @@ class ServingEngine:
     def _prefill_chunk(self, req: Request, bucket: int, chunk: np.ndarray,
                        start: int) -> torch.Tensor:
         """Prefill one chunk straight into newly allocated lane pages; returns
-        its quantization error (a device scalar)."""
+        its quantization error (a device scalar).  The chunk and table ride
+        up by non-blocking copies: nothing waits for a window in flight."""
         s = req.slot
         ids = self.kv.allocator.alloc(bucket // self.page_size)
         if ids is None:  # _ensure_prefill_pages ran first; this cannot happen
             raise RuntimeError("KV page pool exhausted mid-prefill")
         self.kv.lane_append_owned(s, ids)
         kv = self.kv
-        tokens = torch.from_numpy(chunk[None]).to(self.device)
-        table = torch.from_numpy(kv.tables[s].copy()).to(self.device)
+        tokens = torch.from_numpy(chunk[None]).to(self.device, non_blocking=True)
+        table = torch.from_numpy(kv.tables[s].copy()).to(self.device, non_blocking=True)
         return prefill_chunk(self.model, tokens, kv.pages_k, kv.pages_v, kv.k_scales,
                              kv.v_scales, table, start)
 
     def _admit(self) -> None:
         budget = self.scheduler.begin_step()
         t0 = time.perf_counter()
-        errs = []
+        chunks = 0
         while True:
             sched = self.scheduler
             if sched.queue and sched.prefilling is None:
@@ -389,24 +530,26 @@ class ServingEngine:
             req, bucket, valid, start = took
             chunk = np.zeros(bucket, np.int32)
             chunk[:valid] = req.prefill_tokens[start:start + valid]
-            errs.append(self._prefill_chunk(req, bucket, chunk, start))
+            err = self._prefill_chunk(req, bucket, chunk, start)
+            if self.kv.quantized:
+                self._pending_prefill_qerr.append(err)
             budget -= bucket
+            chunks += 1
             self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += valid
             done = sched.finish_prefill()
             if done is not None:
                 self._install(done)
-        if errs:
-            if self.kv.quantized:  # one readback for the phase's chunks
-                self.stats["kv_quant_error"] = float(torch.stack(errs).max())
-            elif self.device.type == "cuda":
+        if chunks:
+            if self.async_depth == 0 and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.stats["prefill_s"] += time.perf_counter() - t0
 
     def _install(self, req: Request) -> None:
         """Hand a fully prefilled request its lane: its pages already hold the
         prompt's KV; the last prompt token stays pending so the first decode
-        step computes the first generated token."""
+        step computes the first generated token.  The lane vectors are
+        edited in place on the card's stream, behind any window in flight."""
         s = req.slot
         ptoks = req.prefill_tokens
         self._lane_len[s] = len(ptoks) - 1
@@ -417,7 +560,7 @@ class ServingEngine:
             s, int(ptoks[-1]), eos, float(gen.temperature),
             0 if gen.top_k is None else int(gen.top_k),
             1.0 if gen.top_p is None else float(gen.top_p),
-            lane_generator(self.rng_seed, req.rid, self.device) if sampled else None,
+            lane_key(self.rng_seed, req.rid) if sampled else None,
         )
         if self._draft_window is not None:
             # the window's last token is the lane's pending token: the root
@@ -431,8 +574,16 @@ class ServingEngine:
 
     # ---------------------------------------------------------------- decode
     def _retire_lane(self, slot: int) -> int:
-        """Tear down one running lane (finish / preempt); returns pages freed."""
-        freed = self.kv.lane_release(slot)
+        """Tear down one running lane (finish / preempt / pre-free).  If the
+        window in flight was dispatched with this lane live, its pages move
+        to that window's deferral list and free at its drain; else they
+        free now.  Returns pages freed now."""
+        inflight = self._inflight
+        if inflight is not None and inflight.lane_live(slot):
+            inflight.deferred_pages.extend(self.kv.lane_detach(slot))
+            freed = 0
+        else:
+            freed = self.kv.lane_release(slot)
         self.lanes.retire(slot)
         self._active[slot] = False
         self._slot_req[slot] = None
@@ -446,7 +597,7 @@ class ServingEngine:
     def _preempt(self) -> bool:
         """Preempt the youngest running lane: release its pages and requeue it
         at the FRONT for replay over prompt + generated tokens (greedy replay
-        is token-exact; a sampled lane resumes on a re-seeded stream)."""
+        is token-exact; a sampled lane restarts its stream)."""
         victims = sorted((s for s in np.nonzero(self._active)[0]),
                          key=lambda s: self._slot_req[s].rid, reverse=True)
         for s in victims:
@@ -478,42 +629,106 @@ class ServingEngine:
                     raise RuntimeError("KV page pool exhausted: no lane left to "
                                        "reclaim for a decoding lane")
 
-    def _decode(self) -> None:
-        if not self._active.any():
+    def _prefree_exhausted(self) -> None:
+        """Retire, before this step's admission, the lanes the window in
+        flight provably finishes (``accelerate_tpu/serving/engine.py:
+        2197-2238``): a lane with no EOS lands exactly ``width`` tokens a
+        decode window, so ``len(tokens) + width >= max_new_tokens`` proves
+        it done.  Its slot admits a new request this cycle instead of one
+        later; its pages wait for the window's drain, where its tokens
+        land (the handle's ``prefreed`` mark).  Lanes with an EOS and
+        speculating lanes keep the one-window lag."""
+        hd = self._inflight
+        if hd is None or hd.kind != "decode":
             return
+        for s in np.nonzero(self._active)[0]:
+            s = int(s)
+            req = self._slot_req[s]
+            if req is None or not hd.lane_live(s) or hd.reqs[s] is not req:
+                continue
+            if self._eos[s] >= 0 or (self._spec_any and req.speculate):
+                continue
+            if len(req.tokens) + hd.width >= req.config.max_new_tokens:
+                hd.prefreed.add(s)
+                self._retire_lane(s)
+                self.stats["prefreed_lanes"] += 1
+
+    def _dispatch(self) -> Optional[Readback]:
+        """Dispatch one decode cycle over the pool and return the handle the
+        caller must drain: the previous window under the pipeline, this one
+        under ``async_depth=0``, ``None`` when the pool is idle.
+        Speculative cycles drain first: drafting and the verify need the
+        previous window's tokens."""
+        if self._spec_any and self._inflight is not None:
+            self._drain_inflight()
+        if not self._active.any():
+            self._drain_inflight()
+            return None
+        # pages for the widest pass this cycle could run; this may drain the
+        # window in flight and preempt, so re-check occupancy
         self._ensure_decode_capacity(max(self.window, self._spec_span))
         if not self._active.any():
-            return
+            self._drain_inflight()
+            return None
+        n_occupied = int(self._active.sum())
+        hd = None
         if self.tree is not None:
             drafted = self._tree_lanes()
             if drafted.any():
-                self._tree_cycle(drafted)
-                return
+                hd = self._tree_cycle(drafted, n_occupied)
         elif self.speculate_k:
             drafts = self._propose_drafts()
             if drafts is not None:
-                self._verify_cycle(*drafts)
-                return
-        self._decode_cycle()
+                hd = self._verify_cycle(*drafts, n_occupied)
+        if hd is None:
+            hd = self._decode_cycle(n_occupied)
+        if self.async_depth == 0:
+            return hd
+        prev, self._inflight = self._inflight, hd
+        return prev
 
-    def _pool_args(self):
-        kv = self.kv
-        tables = torch.from_numpy(kv.tables.copy()).to(self.device)
-        index = torch.from_numpy(self._lane_len.copy()).to(self.device)
-        return kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales, tables, index
+    def _note_dispatch(self) -> None:
+        """Charge the gap since the pipeline last went empty as device idle
+        time, and open the busy span."""
+        now = time.perf_counter()
+        if self._t_pipeline_empty is not None:
+            self.stats["device_idle_s"] += now - self._t_pipeline_empty
+            self._t_pipeline_empty = None
+        if self._busy_since is None:
+            self._busy_since = now
 
-    def _decode_cycle(self) -> None:
-        """One decode window over the pool."""
-        t0 = time.perf_counter()
-        toks, err = decode_window(self.model, self.window, *self._pool_args(), self.lanes,
-                                  self.pad_token_id)
-        toks = toks.cpu().numpy()  # the one readback of tokens per window
-        if self.kv.quantized:
-            self.stats["kv_quant_error"] = float(err)
-        self.stats["decode_s"] += time.perf_counter() - t0
+    def _upload_pool(self) -> None:
+        """Block tables and write indices into the windows' static buffers.
+        Pageable non-blocking copies: the host arrays are staged at the
+        call, so they may change on return, and nothing waits."""
+        self._tables.copy_(torch.from_numpy(self.kv.tables), non_blocking=True)
+        self._index.copy_(torch.from_numpy(self._lane_len), non_blocking=True)
+
+    def _handle(self, kind: str, width: int, toks, counts, err, n_occupied: int,
+                drafted: Optional[np.ndarray] = None) -> Readback:
+        """Stage a dispatched window's outputs (and the pending prefill
+        chunks' errors) to the host and snapshot the lanes it saw; the
+        handle's ``dispatch_t`` is now, the window's launches done."""
+        prefill_err = None
+        if not self.kv.quantized:
+            err = None
+        elif self._pending_prefill_qerr:
+            prefill_err = torch.stack(self._pending_prefill_qerr)
+            self._pending_prefill_qerr = []
+        (toks, counts, err, prefill_err), ready = stage((toks, counts, err, prefill_err))
+        return Readback(kind=kind, toks=toks, width=width, counts=counts, qerr=err,
+                        active=self._active.copy(), reqs=list(self._slot_req),
+                        eos=self._eos.copy(), n_occupied=n_occupied, drafted=drafted,
+                        ready=ready, prefill_qerrs=prefill_err)
+
+    def _decode_cycle(self, n_occupied: int) -> Readback:
+        """Dispatch one decode window over the pool."""
+        self._note_dispatch()
+        self._upload_pool()
+        toks, err = self._run("decode")
         self._lane_len[self._active] += self.window
         self.stats["decode_steps"] += self.window
-        self._emit(toks, np.full(self.num_slots, self.window))
+        return self._handle("decode", self.window, toks, None, err, n_occupied)
 
     def _propose_drafts(self):
         """Host n-gram drafts for this cycle: ``(drafts [N, K], drafted
@@ -546,101 +761,159 @@ class ServingEngine:
             drafted[s] = req is not None and req.speculate
         return drafted
 
-    def _land_verify(self, t0: float, out: torch.Tensor, n_commit: torch.Tensor, err,
-                     drafted: np.ndarray, drafted_tokens: int, steps: int) -> None:
-        """Read a verify cycle back (one readback of tokens and counts) and
-        land it: each lane's index mirror advances by what it committed."""
-        both = torch.cat([out, n_commit[:, None]], dim=1).cpu().numpy()
-        toks, counts = both[:, :-1], both[:, -1]
-        if self.kv.quantized:
-            self.stats["kv_quant_error"] = float(err)
-        self.stats["decode_s"] += time.perf_counter() - t0
-        active = self._active.copy()
-        self._lane_len[active] += counts[active]
+    def _verify_dispatched(self, drafted: np.ndarray, drafted_tokens: int, steps: int) -> None:
         st = self.stats
         st["decode_steps"] += steps
         st["verify_forwards"] += 1
-        st["verify_lanes"] += int(active.sum())
-        st["verify_committed"] += int(counts[active].sum())
+        st["verify_lanes"] += int(self._active.sum())
         st["spec_drafted"] += int(drafted.sum()) * drafted_tokens
-        st["spec_accepted"] += int(np.maximum(counts[drafted] - 1, 0).sum())
-        self._emit(toks, counts)
 
-    def _verify_cycle(self, drafts: np.ndarray, drafted: np.ndarray) -> None:
-        """One linear verify over ``[slots, K+1]``: the lanes' pending tokens
-        (on the card) and their drafts."""
-        t0 = time.perf_counter()
-        tokens = torch.cat([self.lanes.pending[:, None],
-                            torch.from_numpy(drafts).to(self.device)], dim=1)
-        out, n_commit, err = verify_window(self.model, *self._pool_args(), tokens, self.lanes,
-                                           self.pad_token_id)
-        self._land_verify(t0, out, n_commit, err, drafted, self.speculate_k,
-                          self.speculate_k + 1)
+    def _verify_cycle(self, drafts: np.ndarray, drafted: np.ndarray,
+                      n_occupied: int) -> Readback:
+        """Dispatch one linear verify over ``[slots, K+1]``: the lanes'
+        pending tokens (on the card) and their drafts."""
+        self._note_dispatch()
+        self._upload_pool()
+        self._drafts.copy_(torch.from_numpy(drafts), non_blocking=True)
+        out, n_commit, err = self._run("verify")
+        k = self.speculate_k
+        self._verify_dispatched(drafted, k, k + 1)
+        return self._handle("verify", k + 1, out, n_commit, err, n_occupied,
+                            drafted=drafted.copy())
 
-    def _tree_cycle(self, drafted: np.ndarray) -> None:
-        """One draft forward and one tree verify: the draft's ``[slots,
-        nodes]`` token trees stay on the card.  The context window's last
-        token is each lane's pending token, so the tree's root is the token
-        the verify must score first."""
-        t0 = time.perf_counter()
+    def _tree_cycle(self, drafted: np.ndarray, n_occupied: int) -> Readback:
+        """Dispatch one draft forward and one tree verify: the draft's
+        ``[slots, nodes]`` token trees stay on the card.  The context
+        window's last token is each lane's pending token, so the tree's
+        root is the token the verify must score first.  The draft's time:
+        events on the card's stream around its replay (read at the drain),
+        else host wall."""
+        self._note_dispatch()
+        self._upload_pool()
         dw = self._draft_window
-        ctx = torch.from_numpy(dw.tokens.copy()).to(self.device)
-        length = torch.from_numpy(dw.length.copy()).to(self.device)
-        # the draft's time: events on the card's stream (read after the
-        # cycle's readback, so they add no synchronisation), else host wall
-        marks = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        self._ctx.copy_(torch.from_numpy(dw.tokens), non_blocking=True)
+        self._ctx_len.copy_(torch.from_numpy(dw.length), non_blocking=True)
+        marks = ((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                  if self.device.type == "cuda" else None)
         if marks:
             marks[0].record()
         t_draft = time.perf_counter()
-        tokens = self.drafter.propose_device(ctx, length)
+        self._run("draft")
         t_draft = time.perf_counter() - t_draft
         if marks:
             marks[1].record()
-        out, n_commit, err = tree_verify_window(self.model, self.tree, self._tree_mask,
-                                                *self._pool_args(), tokens, self.lanes,
-                                                self.pad_token_id)
-        self._land_verify(t0, out, n_commit, err, drafted, self.tree.depth,
-                          self.tree.depth + 1)
-        self.stats["draft_s"] += marks[0].elapsed_time(marks[1]) / 1e3 if marks else t_draft
+        out, n_commit, err = self._run("tree")
+        depth = self.tree.depth
+        self._verify_dispatched(drafted, depth, depth + 1)
+        hd = self._handle("verify", depth + 1, out, n_commit, err, n_occupied,
+                          drafted=drafted.copy())
+        hd.draft_marks, hd.draft_s = marks, t_draft
+        return hd
 
-    def _emit(self, toks: np.ndarray, counts: np.ndarray) -> None:
-        """Land a cycle's tokens on their requests: ``toks[s, :counts[s]]``
+    # ----------------------------------------------------------------- drain
+    def _drain_inflight(self) -> None:
+        """Flush the pipeline: land the window in flight, if any."""
+        hd, self._inflight = self._inflight, None
+        if hd is not None:
+            self._drain(hd)
+
+    def _drain(self, hd: Readback) -> None:
+        """Land one window: wait for its staged outputs (the one blocking
+        point), then all host bookkeeping against its dispatch-time lane
+        snapshot."""
+        t0 = time.perf_counter()
+        hd.fetch()
+        t1 = time.perf_counter()
+        # overlap accounting: host work since dispatch ran under the card;
+        # the wait is what the pipeline failed to hide (under async_depth=0
+        # the drain follows the dispatch at once: the ratio stays near 0)
+        self._overlap_host_s += max(t0 - hd.dispatch_t, 0.0)
+        self._overlap_wait_s += t1 - t0
+        denom = self._overlap_host_s + self._overlap_wait_s
+        if denom > 0.0:
+            self.stats["host_overlap_ratio"] = self._overlap_host_s / denom
+        toks = hd.toks.numpy()
+        counts = hd.counts.numpy() if hd.counts is not None else np.full(self.num_slots,
+                                                                          hd.width)
+        st = self.stats
+        if hd.qerr is not None:
+            st["kv_quant_error"] = float(hd.qerr)
+        if hd.prefill_qerrs is not None:
+            st["kv_quant_error"] = float(hd.prefill_qerrs.max())
+        if hd.kind == "verify":
+            # the write-index mirror advances by what the card committed,
+            # for lanes still owned by the request the window ran for
+            for s in np.nonzero(hd.active)[0]:
+                if hd.reqs[s] is not None and self._slot_req[s] is hd.reqs[s]:
+                    self._lane_len[s] += int(counts[s])
+            st["verify_committed"] += int(counts[hd.active].sum())
+            st["spec_accepted"] += int(np.maximum(counts[hd.drafted] - 1, 0).sum())
+            st["draft_s"] += (hd.draft_marks[0].elapsed_time(hd.draft_marks[1]) / 1e3
+                              if hd.draft_marks else hd.draft_s)
+        self._emit(toks, counts, hd)
+        if hd.deferred_pages:
+            # the fetch proved the window done: its writes to detached
+            # lanes' pages have landed, so the pages may recycle
+            hd.settle(self.kv.allocator)
+        if self._inflight is None:
+            now = time.perf_counter()
+            self._t_pipeline_empty = now
+            st["decode_s"] += now - self._busy_since
+            self._busy_since = None
+
+    def _emit(self, toks: np.ndarray, counts: np.ndarray, hd: Readback) -> None:
+        """Land a window's tokens on their requests: ``toks[s, :counts[s]]``
         is lane ``s``'s output (a whole decode window, or a verify's
         committed prefix), cut at the lane's EOS and at the request's length
-        cap; finished lanes free their slot."""
+        cap.  Lanes are those of the window's dispatch-time snapshot: a lane
+        retired or preempted since then no longer owns its slot and its
+        tokens drop, unless it was pre-freed (its request completes here);
+        finished lanes free their slot."""
         width = toks.shape[1]
-        mask = self._active.copy()
-        eos = self._eos
+        mask, reqs, eos = hd.active, hd.reqs, hd.eos
         valid = (np.arange(width)[None, :] < counts[:, None]) & mask[:, None]
         is_eos = valid & (toks == eos[:, None]) & (eos >= 0)[:, None]
         has_eos = is_eos.any(axis=1)
         first_eos = np.where(has_eos, is_eos.argmax(axis=1), width)
         n_take = np.minimum(valid.sum(axis=1), first_eos + 1)
         for s in np.nonzero(n_take > 0)[0]:
-            req = self._slot_req[s]
+            req = reqs[s]
+            if req is None:
+                continue
+            owner = self._slot_req[s] is req
+            if not owner and not (int(s) in hd.prefreed and req.state is RequestState.RUNNING):
+                continue
             n = min(int(n_take[s]), req.config.max_new_tokens - len(req.tokens))
+            if n <= 0:
+                continue
             for t in toks[s, :n]:
                 req.emit(int(t))
-            if self._draft_window is not None:
+            if owner and self._draft_window is not None:
                 self._draft_window.push(int(s), toks[s, :n])
             self.stats["tokens_generated"] += n
             hit_eos = bool(has_eos[s]) and n == int(n_take[s])
             if hit_eos or len(req.tokens) >= req.config.max_new_tokens:
-                self._retire_lane(s)
+                if owner:
+                    self._retire_lane(s)
                 req.state = RequestState.DONE
                 self.stats["requests_completed"] += 1
 
     # ----------------------------------------------------------------- drive
     def step(self) -> None:
-        """One engine iteration: budgeted chunked-prefill admission, then one
-        masked decode window over the pool."""
+        """One engine iteration: pre-free the lanes the window in flight
+        finishes, budgeted chunked-prefill admission, dispatch of one decode
+        cycle, then the drain of the window the pipeline hands back."""
+        self._prefree_exhausted()
         self._admit()
-        self._decode()
+        prev = self._dispatch()
+        if prev is not None:
+            self._drain(prev)
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.has_queued or bool(self._active.any())
+        # a window in flight is work: its tokens have not landed yet
+        return (self.scheduler.has_queued or bool(self._active.any())
+                or self._inflight is not None)
 
     def run(self, max_steps: Optional[int] = None) -> None:
         """Drive :meth:`step` until every submitted request completes."""

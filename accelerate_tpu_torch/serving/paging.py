@@ -136,14 +136,20 @@ class PagedKVPool:
         self.tables[slot, n:n + len(ids)] = ids
         self.lane_npages[slot] = n + len(ids)
 
-    def lane_release(self, slot: int) -> int:
-        """Unmap the whole lane (finish / preempt): deref every mapped page
-        and reset the row to the null sink.  Returns pages freed."""
+    def lane_detach(self, slot: int) -> List[int]:
+        """Unmap the whole lane WITHOUT dropping its references: returns the
+        page ids the caller must deref later (a window in flight may still
+        write them through the table it was dispatched with)."""
         n = int(self.lane_npages[slot])
         held = [int(p) for p in self.tables[slot, :n]]
         self.tables[slot, :] = NULL_PAGE
         self.lane_npages[slot] = 0
-        return self.allocator.deref(held)
+        return held
+
+    def lane_release(self, slot: int) -> int:
+        """Unmap the whole lane (finish / preempt): deref every mapped page
+        and reset the row to the null sink.  Returns pages freed."""
+        return self.allocator.deref(self.lane_detach(slot))
 
     @property
     def kv_bytes_per_token(self) -> float:

@@ -2,8 +2,11 @@
 
 Port of the direct paged arms of :mod:`accelerate_tpu.serving.pool`.  The
 JAX package compiles one executable per shape and donates the page arrays;
-PyTorch runs eagerly and the model's forward writes the pages in place, so
-each program here is a plain function:
+here the model's forward writes the pages in place, and each program is a
+plain function that reads and writes only tensors the engine keeps for its
+life (pages, scales, tables, index, the lane vectors, the verify token
+block) and makes no host decision from lane state, so the engine can
+capture each as one CUDA graph (:mod:`.graphs`) and replay it every cycle:
 
 * :func:`prefill_chunk` — one prompt chunk through the model on a
   :class:`~accelerate_tpu_torch.models.transformer.PagedKVCache` with the
@@ -22,10 +25,12 @@ each program here is a plain function:
   root-to-leaf path per lane, and :func:`tree_commit_paged`, which moves
   that path's KV to the lane's frontier (``:390-538``, ``:960-1063``).
 
-Sampled lanes draw from their own ``torch.Generator`` in a fixed order
-(linear: K uniform accept draws, K residual resamples, 1 bonus draw; tree:
-``W + 2D`` draws), so a seed reproduces a run; all-greedy pools never touch
-a generator or sort the vocabulary.
+Sampled lanes draw uniforms from their device keys (a fixed count a
+cycle: one a decode step; linear verify ``2K + 1``; tree ``W + 2D``), so a
+seed reproduces a run.  Each window has two variants, picked by the caller
+from host state: without ``sampling`` every lane takes the argmax and
+nothing sorts the vocabulary; with it the sampled arms run over every lane,
+masked by ``lanes.sampled``.
 
 Every program returns the call's largest KV quantization round-trip error as an f32
 device scalar (0 for native pages), the reference's ``quant_err`` output
@@ -38,11 +43,17 @@ device scalar (0 for native pages), the reference's ``quant_err`` output
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..models.generation import filter_logits_batched, sample_tokens_batched
+from ..models.generation import (
+    filter_logits_batched,
+    sample_filtered,
+    sample_tokens_batched,
+    uniforms,
+)
 from ..models.transformer import PagedKVCache, Transformer
 from ..ops.paged_attention import (
     TreeMask,
@@ -77,8 +88,13 @@ class LaneState:
 
     ``pending`` is the token each lane feeds next; ``active`` gates lanes in
     the decode window; ``eos`` (-1 = none), ``temperature``, ``top_k`` (0 =
-    off) and ``top_p`` (1 = off) are the sampling knobs.  ``generators`` is
-    host state: a lane's own sampling stream, ``None`` for a greedy lane."""
+    off) and ``top_p`` (1 = off) are the sampling knobs; ``sampled`` marks
+    the lanes that sample, and ``keys [num_slots, 2]`` int64 holds each
+    one's ``(seed, counter)`` (:func:`~accelerate_tpu_torch.models.
+    generation.uniforms`).  Every edit is in place: a CUDA graph of a window
+    reads these very tensors.  ``sampling`` is the host mirror of
+    ``sampled``, from which the engine picks a window's variant without
+    reading the card."""
 
     pending: torch.Tensor
     active: torch.Tensor
@@ -86,7 +102,9 @@ class LaneState:
     temperature: torch.Tensor
     top_k: torch.Tensor
     top_p: torch.Tensor
-    generators: List[Optional[torch.Generator]]
+    keys: torch.Tensor
+    sampled: torch.Tensor
+    sampling: np.ndarray
 
     @classmethod
     def create(cls, num_slots: int, device) -> "LaneState":
@@ -97,29 +115,51 @@ class LaneState:
             pending=full(0, torch.int32), active=full(False, torch.bool),
             eos=full(-1, torch.int32), temperature=full(1.0, torch.float32),
             top_k=full(0, torch.int32), top_p=full(1.0, torch.float32),
-            generators=[None] * num_slots,
+            keys=torch.zeros((num_slots, 2), dtype=torch.int64, device=device),
+            sampled=full(False, torch.bool), sampling=np.zeros(num_slots, bool),
         )
 
+    @property
+    def any_sampled(self) -> bool:
+        """Does some lane sample?  (Host state: the window variant.)"""
+        return bool(self.sampling.any())
+
     def install(self, slot: int, token: int, eos: int, temperature: float,
-                top_k: int, top_p: float, generator: Optional[torch.Generator]) -> None:
-        """Hand lane ``slot`` to a prefilled request: plain in-place edits."""
-        self.pending[slot] = token
-        self.active[slot] = True
-        self.eos[slot] = eos
-        self.temperature[slot] = temperature
-        self.top_k[slot] = top_k
-        self.top_p[slot] = top_p
-        self.generators[slot] = generator
+                top_k: int, top_p: float, key: Optional[int]) -> None:
+        """Hand lane ``slot`` to a prefilled request: one-element fills on
+        the device, ordered behind any window in flight.  ``key`` is the
+        request's seed (:func:`~accelerate_tpu_torch.models.generation.
+        lane_key`), or ``None`` for a greedy lane; the draw counter
+        restarts at 0."""
+        self.pending[slot].fill_(token)
+        self.active[slot].fill_(True)
+        self.eos[slot].fill_(eos)
+        self.temperature[slot].fill_(temperature)
+        self.top_k[slot].fill_(top_k)
+        self.top_p[slot].fill_(top_p)
+        self.keys[slot, 0].fill_(0 if key is None else key)
+        self.keys[slot, 1].fill_(0)
+        self.sampled[slot].fill_(key is not None)
+        self.sampling[slot] = key is not None
 
     def retire(self, slot: int) -> None:
-        self.active[slot] = False
-        self.generators[slot] = None
+        self.active[slot].fill_(False)
+        self.sampled[slot].fill_(False)
+        self.sampling[slot] = False
 
 
 def _quant_err(cache: PagedKVCache, device) -> torch.Tensor:
     if cache.quant_err is None:
         return torch.zeros((), dtype=torch.float32, device=device)
     return cache.quant_err
+
+
+def _draws(lanes: LaneState, n: int) -> torch.Tensor:
+    """This window's ``n`` uniforms per lane ``[N, n]``; every lane's draw
+    counter advances by ``n``, in place."""
+    u = uniforms(lanes.keys, n)
+    lanes.keys[:, 1] += n
+    return u
 
 
 @torch.inference_mode()
@@ -132,7 +172,7 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
     device = tokens.device
     cache = PagedKVCache(
         pages_k=pages_k, pages_v=pages_v, k_scales=k_scales, v_scales=v_scales,
-        tables=table[None], index=torch.tensor([base], dtype=torch.int32, device=device),
+        tables=table[None], index=torch.full((1,), base, dtype=torch.int32, device=device),
         active=torch.ones(1, dtype=torch.bool, device=device), kernel="prefill",
     )
     _, cache = model(tokens, cache=cache)
@@ -142,31 +182,39 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
 @torch.inference_mode()
 def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
                   v_scales, tables: torch.Tensor, index: torch.Tensor,
-                  lanes: LaneState, pad: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  lanes: LaneState, pad: int, sampling: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``window`` masked decode steps over the whole slot pool.
 
     Each step feeds every lane's pending token at its own position, writes
     its KV there, and picks the next token per lane; lanes that are inactive
     or have emitted their EOS freeze — their index stops advancing, their
-    writes go to the null page and their outputs are ``pad``.  Updates
-    ``lanes.pending`` in place and returns the tokens ``[N, window]`` and the
-    window's quantization error (both on the device)."""
+    writes go to the null page and their outputs are ``pad``.  ``sampling``
+    picks the variant (default: does some lane sample): without it every
+    lane takes the argmax; with it sampled lanes draw one uniform a step.
+    Updates ``lanes.pending`` in place and returns the tokens ``[N, window]``
+    and the window's quantization error (both on the device)."""
+    sampling = lanes.any_sampled if sampling is None else sampling
     cache = PagedKVCache(pages_k=pages_k, pages_v=pages_v, k_scales=k_scales,
                          v_scales=v_scales, tables=tables, index=index,
                          active=lanes.active.clone(), kernel="decode")
     tok = lanes.pending
     done = ~lanes.active
+    u = _draws(lanes, window) if sampling else None
     out = []
-    for _ in range(window):
+    for step in range(window):
         prev_index = cache.index
         cache.active = ~done
         logits, cache = model(tok[:, None], cache=cache)
         # the forward advanced every lane; frozen lanes roll back
         cache.index = torch.where(done, prev_index, prev_index + 1)
-        nxt = sample_tokens_batched(
-            logits[:, -1], lanes.generators, temperature=lanes.temperature,
-            top_k=lanes.top_k, top_p=lanes.top_p,
-        )
+        if sampling:
+            nxt = sample_tokens_batched(
+                logits[:, -1], u[:, step], lanes.sampled, temperature=lanes.temperature,
+                top_k=lanes.top_k, top_p=lanes.top_p,
+            )
+        else:
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
         done = done | ((lanes.eos >= 0) & (nxt == lanes.eos))
         out.append(nxt)
@@ -209,27 +257,21 @@ def _filtered(logits: torch.Tensor, lanes: LaneState) -> torch.Tensor:
     n, s, v = logits.shape
 
     def rep(x):
-        return x.repeat_interleave(s)
+        return x[:, None].expand(n, s).reshape(n * s)
 
     return filter_logits_batched(logits.reshape(n * s, v), temperature=rep(lanes.temperature),
                                  top_k=rep(lanes.top_k), top_p=rep(lanes.top_p)).reshape(n, s, v)
 
 
-def _draw(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """One categorical draw per row of ``logits [..., V]``."""
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
-                             generator=gen).reshape(probs.shape[:-1]).to(torch.int32)
-
-
-def _uniform(shape, gen: torch.Generator, device) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=device)
+def _prob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """The probability of ``token [...]`` under ``softmax(logits [..., V])``."""
+    return torch.softmax(logits, dim=-1).gather(-1, token[..., None].long())[..., 0]
 
 
 def _without(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     """``logits [..., V]`` with ``token [...]`` suppressed: the residual after
     a point-mass draft was rejected."""
-    hit = torch.nn.functional.one_hot(token.long(), logits.shape[-1]).bool()
+    hit = torch.arange(logits.shape[-1], device=logits.device) == token[..., None]
     return torch.where(hit, _NEG, logits)
 
 
@@ -242,7 +284,7 @@ def _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index, active):
 @torch.inference_mode()
 def verify_window(model: Transformer, pages_k, pages_v, k_scales, v_scales,
                   tables: torch.Tensor, index: torch.Tensor, tokens: torch.Tensor,
-                  lanes: LaneState, pad: int
+                  lanes: LaneState, pad: int, sampling: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One linear speculative verify over the whole slot pool.
 
@@ -250,34 +292,34 @@ def verify_window(model: Transformer, pages_k, pages_v, k_scales, v_scales,
     forward writes all K+1 positions at each lane's index (inactive lanes'
     writes go to the null page) and gives the true next-token logits at
     every position.  Greedy lanes accept a draft while it equals the argmax
-    and commit the argmaxes: the tokens plain decode would emit.  Sampled
-    lanes take the Leviathan accept/resample rule for a point-mass drafter:
-    draft ``d`` at position ``i`` is accepted with probability ``p_i(d)``
-    under the lane's filtered distribution, else the token is resampled from
-    ``p_i`` with ``d`` removed; one bonus token is drawn at the last
-    position.  Commits stop at the first EOS.  Updates ``lanes.pending`` in
-    place and returns ``(out [N, K+1], n_commit [N], quantization error)``
-    on the device; the caller advances each lane's index by ``n_commit``."""
-    n, kp1 = tokens.shape
-    k = kp1 - 1
+    and commit the argmaxes: the tokens plain decode would emit.  With
+    ``sampling`` (default: does some lane sample) every lane draws ``2K +
+    1`` uniforms, and sampled lanes take the Leviathan accept/resample rule
+    for a point-mass drafter, vectorised over the lanes: draft ``d`` at
+    position ``i`` is accepted when its uniform falls below ``p_i(d)`` under
+    the lane's filtered distribution, else the token is drawn from ``p_i``
+    with ``d`` removed; one bonus token is drawn at the last position.
+    Commits stop at the first EOS.  Updates ``lanes.pending`` in place and
+    returns ``(out [N, K+1], n_commit [N], quantization error)`` on the
+    device; the caller advances each lane's index by ``n_commit``."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    k = tokens.shape[1] - 1
     cache = _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index,
                          lanes.active.clone())
     logits, cache = model(tokens, cache=cache)                   # [N, K+1, V] f32
     drafts = tokens[:, 1:]
     emit = torch.argmax(logits, dim=-1).to(torch.int32)
     acc = emit[:, :k] == drafts
-    sampled = [i for i, g in enumerate(lanes.generators) if g is not None]
-    if sampled:
+    if sampling:
+        u = _draws(lanes, 2 * k + 1)
         filt = _filtered(logits, lanes)
-        for i in sampled:
-            gen = lanes.generators[i]
-            u = _uniform(k, gen, tokens.device)
-            p_draft = torch.softmax(filt[i, :k], dim=-1).gather(1, drafts[i, :, None].long())[:, 0]
-            accepted = u < p_draft
-            res = _draw(_without(filt[i, :k], drafts[i]), gen)
-            bonus = _draw(filt[i, k], gen)
-            emit[i] = torch.cat([torch.where(accepted, drafts[i], res), bonus[None]])
-            acc[i] = accepted
+        accepted = u[:, :k] < _prob(filt[:, :k], drafts)
+        res = sample_filtered(_without(filt[:, :k], drafts), u[:, k:2 * k])
+        bonus = sample_filtered(filt[:, k], u[:, 2 * k])
+        drawn = torch.cat([torch.where(accepted, drafts, res), bonus[:, None]], dim=1)
+        sampled = lanes.sampled[:, None]
+        emit = torch.where(sampled, drawn, emit)
+        acc = torch.where(sampled, accepted, acc)
     out, n_commit = _commit(emit, acc, lanes.active, lanes.eos, pad)
     lanes.pending.copy_(_pending(out, n_commit))
     return out, n_commit, _quant_err(cache, tokens.device)
@@ -316,7 +358,8 @@ def tree_commit_paged(cache: PagedKVCache, prev_index: torch.Tensor,
 @torch.inference_mode()
 def tree_verify_window(model: Transformer, tree, tree_mask: TreeMask, pages_k, pages_v,
                        k_scales, v_scales, tables: torch.Tensor, index: torch.Tensor,
-                       tokens: torch.Tensor, lanes: LaneState, pad: int
+                       tokens: torch.Tensor, lanes: LaneState, pad: int,
+                       sampling: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One tree speculative verify over the whole slot pool.
 
@@ -328,20 +371,22 @@ def tree_verify_window(model: Transformer, tree, tree_mask: TreeMask, pages_k, p
     tree-mask arm).  Greedy lanes take the branch with the longest prefix
     of drafts equal to the model's argmax at their parents (ties: the lowest
     branch) and commit the argmaxes along it: the tokens plain decode would
-    emit.  Sampled lanes try each sibling candidate at the branch point
-    against the running residual, fall through to a residual draw, then take
-    the linear accept/resample rule down the chosen branch and one bonus
-    draw at its deepest node (``W + 2D`` draws).  Commits stop at the first
-    EOS.  The winning path's KV then moves to the frontier
-    (:func:`tree_commit_paged`).  Updates ``lanes.pending`` in place and
-    returns ``(out [N, D+1], n_commit [N], quantization error)``."""
+    emit.  With ``sampling`` (default: does some lane sample) every lane
+    draws ``W + 2D`` uniforms, and sampled lanes, vectorised over the
+    lanes, try each sibling candidate at the branch point against the
+    running residual, fall through to a residual draw, then take the linear
+    accept/resample rule down the chosen branch and one bonus draw at its
+    deepest node.  Commits stop at the first EOS.  The winning path's KV
+    then moves to the frontier (:func:`tree_commit_paged`).  Updates
+    ``lanes.pending`` in place and returns ``(out [N, D+1], n_commit [N],
+    quantization error)``."""
+    sampling = lanes.any_sampled if sampling is None else sampling
     n = tokens.shape[0]
     dev = tokens.device
     w, depth = tree.width, tree.depth
-    paths = torch.from_numpy(tree.paths).to(dev).long()              # [W, D+1]
-    parent = torch.from_numpy(tree.parent).to(dev).long()
+    paths, parent, depth_arr = tree.on(dev)                          # [W, D+1], [S], [S]
     prev_index = index
-    positions = index.long()[:, None] + torch.from_numpy(tree.depth_arr).to(dev).long()[None, :]
+    positions = index.long()[:, None] + depth_arr[None, :]
     cache = _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index,
                          lanes.active.clone())
     logits, cache = model(tokens, positions=positions, cache=cache, tree_mask=tree_mask)
@@ -354,39 +399,38 @@ def tree_verify_window(model: Transformer, tree, tree_mask: TreeMask, pages_k, p
     path = paths[best]                                              # [N, D+1]
     emit = greedy.gather(1, path)
     acc = ok.gather(1, path[:, 1:])
-    sampled = [i for i, g in enumerate(lanes.generators) if g is not None]
-    if sampled:
+    if sampling:
+        u = _draws(lanes, w + 2 * depth)
         filt = _filtered(logits, lanes)
-        for i in sampled:
-            gen = lanes.generators[i]
-            # the branch point: each sibling tried against the running residual
-            rem = filt[i, 0]
-            taken = torch.zeros((), dtype=torch.bool, device=dev)
-            pick = torch.zeros((), dtype=torch.long, device=dev)
-            tok1 = torch.zeros((), dtype=torch.int32, device=dev)
-            for b in range(w):
-                d_b = tokens[i, int(tree.paths[b, 1])]
-                p_b = torch.softmax(rem, dim=-1)[d_b.long()]
-                take = ~taken & (_uniform((), gen, dev) < p_b)
-                pick = torch.where(take, b, pick)
-                tok1 = torch.where(take, d_b, tok1)
-                taken = taken | take
-                rem = _without(rem, d_b)
-            tok1 = torch.where(taken, tok1, _draw(rem, gen))
-            path_i = paths[pick]
-            cols, accs = [tok1], [taken]
-            # down the chosen branch: the linear point-mass rule
-            for t in range(1, depth):
-                filt_t = filt[i, path_i[t]]
-                d_t = tokens[i, path_i[t + 1]]
-                p_t = torch.softmax(filt_t, dim=-1)[d_t.long()]
-                acc_t = _uniform((), gen, dev) < p_t
-                cols.append(torch.where(acc_t, d_t, _draw(_without(filt_t, d_t), gen)))
-                accs.append(acc_t)
-            cols.append(_draw(filt[i, path_i[depth]], gen))
-            emit[i] = torch.stack(cols)
-            acc[i] = torch.stack(accs)
-            path[i] = path_i
+        rows = torch.arange(n, device=dev)
+        # the branch point: each sibling tried against the running residual
+        rem = filt[:, 0]
+        taken = torch.zeros(n, dtype=torch.bool, device=dev)
+        pick = torch.zeros(n, dtype=torch.long, device=dev)
+        tok1 = torch.zeros(n, dtype=torch.int32, device=dev)
+        for b in range(w):
+            d_b = tokens[:, int(tree.paths[b, 1])]
+            take = ~taken & (u[:, b] < _prob(rem, d_b))
+            pick = torch.where(take, b, pick)
+            tok1 = torch.where(take, d_b, tok1)
+            taken = taken | take
+            rem = _without(rem, d_b)
+        tok1 = torch.where(taken, tok1, sample_filtered(rem, u[:, w]))
+        drawn_path = paths[pick]
+        cols, accs = [tok1], [taken]
+        # down the chosen branch: the linear point-mass rule
+        for t in range(1, depth):
+            filt_t = filt[rows, drawn_path[:, t]]
+            d_t = tokens.gather(1, drawn_path[:, t + 1:t + 2])[:, 0]
+            acc_t = u[:, w + 2 * t - 1] < _prob(filt_t, d_t)
+            res = sample_filtered(_without(filt_t, d_t), u[:, w + 2 * t])
+            cols.append(torch.where(acc_t, d_t, res))
+            accs.append(acc_t)
+        cols.append(sample_filtered(filt[rows, drawn_path[:, depth]], u[:, w + 2 * depth - 1]))
+        sampled = lanes.sampled[:, None]
+        emit = torch.where(sampled, torch.stack(cols, dim=1), emit)
+        acc = torch.where(sampled, torch.stack(accs, dim=1), acc)
+        path = torch.where(sampled, drawn_path, path)
     out, n_commit = _commit(emit, acc, lanes.active, lanes.eos, pad)
     tree_commit_paged(cache, prev_index, path)
     lanes.pending.copy_(_pending(out, n_commit))

@@ -1,0 +1,121 @@
+"""Deferred device->host readback for the pipelined serve loop.
+
+Port of :mod:`accelerate_tpu.serving.readback`.  With
+``ServingEngine(async_depth=1)`` (the default) the engine parks a window's
+outputs in a :class:`Readback` handle, dispatches the NEXT window, and only
+then lands the previous window's tokens: the card runs the new window while
+the host emits tokens, runs callbacks, drafts and admits.
+
+At dispatch, right behind the window on the same stream, :func:`stage`
+copies its tokens, counts and quantization errors from the window's outputs
+(a CUDA graph's static outputs, which the next replay overwrites) into
+pinned host buffers of the handle's own, and records an event after the
+copies.  :meth:`Readback.fetch` waits on that event: it is the one blocking
+point of a window, and it also proves the window's KV writes landed, which
+the deferred page release (:meth:`Readback.settle`) relies on.  On the CPU
+everything ran at dispatch and nothing waits.
+
+The reference's handle also holds ``consumed``, ``spills`` and
+``promotions``; this one does not.  ``consumed`` parks donated JAX buffers
+whose release would block on the window; PyTorch writes the engine's
+tensors in place and drops nothing a window still reads.  ``spills`` and
+``promotions`` carry prefix-cache traffic, and the prefix cache is not
+ported (ROADMAP Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Readback", "stage"]
+
+
+def stage(tensors: Sequence[Optional[torch.Tensor]]
+          ) -> Tuple[List[Optional[torch.Tensor]], Optional[torch.cuda.Event]]:
+    """Copy each CUDA tensor into a pinned host buffer of its own, behind
+    the work already on the current stream, and record an event after the
+    copies.  Returns the host tensors (CPU tensors and ``None`` pass
+    through) and the event (``None`` when nothing was on the card).
+    Nothing here waits for the card."""
+    out: List[Optional[torch.Tensor]] = []
+    device = None
+    for t in tensors:
+        if t is None or t.device.type == "cpu":
+            out.append(t)
+            continue
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        out.append(host)
+        device = t.device
+    if device is None:
+        return out, None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return out, ready
+
+
+@dataclasses.dataclass
+class Readback:
+    """One in-flight decode or verify window: its staged outputs and the
+    dispatch-time host state needed to land them later.
+
+    Made at dispatch and drained at most one cycle later (depth-1
+    pipeline).  ``active``/``reqs``/``eos`` snapshot the lanes as the window
+    saw them: between dispatch and drain the host may retire or preempt a
+    lane or install a new request into a slot the window still holds, so
+    the engine lands tokens against this snapshot and retires by identity
+    (``engine._slot_req[s] is reqs[s]``), not by slot number."""
+
+    kind: str                             # "decode" | "verify"
+    toks: torch.Tensor                    # host [slots, width] token block
+    width: int                            # decode window / verify commit width
+    counts: Optional[torch.Tensor] = None  # host [slots] n_commit (verify only)
+    qerr: Optional[torch.Tensor] = None   # host scalar: the window's KV round-trip error
+    active: Optional[np.ndarray] = None   # dispatch-time active mask (copy)
+    reqs: Optional[list] = None           # dispatch-time _slot_req snapshot
+    eos: Optional[np.ndarray] = None      # dispatch-time per-lane EOS ids
+    n_occupied: int = 0
+    drafted: Optional[np.ndarray] = None  # verify: lanes that proposed drafts
+    dispatch_t: float = dataclasses.field(default_factory=time.perf_counter)
+    #: the event behind the staging copies (``None`` on the CPU)
+    ready: Optional[torch.cuda.Event] = None
+    #: tree cycles on the card: events around the draft forward's replay
+    draft_marks: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+    #: tree cycles on the CPU: the draft forward's host seconds
+    draft_s: float = 0.0
+    #: physical KV page ids whose release waits for this window: it may
+    #: still write through the block table it was dispatched with
+    deferred_pages: List[int] = dataclasses.field(default_factory=list)
+    #: slots retired after dispatch because this window provably finishes
+    #: their request (no EOS, fixed width): the slot was re-admitted one
+    #: cycle early, and the request's tokens still land at drain
+    prefreed: set = dataclasses.field(default_factory=set)
+    #: host [chunks] KV round-trip errors of the prefill chunks dispatched
+    #: in this window's cycle, staged with its outputs
+    prefill_qerrs: Optional[torch.Tensor] = None
+    fetched: bool = False
+
+    def fetch(self) -> None:
+        """Wait until the window and its staging copies are done (the one
+        blocking point of a window; nothing on the CPU)."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        self.fetched = True
+
+    def lane_live(self, slot: int) -> bool:
+        """Was ``slot`` active when this window was dispatched?  A live
+        lane's pages must not return to the allocator until it retires."""
+        return self.active is not None and bool(self.active[slot])
+
+    def settle(self, allocator) -> int:
+        """Release every deferred page (after :meth:`fetch`)."""
+        if not self.fetched:
+            raise RuntimeError("settle() before fetch(): the window may still write its pages")
+        freed = allocator.deref(self.deferred_pages)
+        self.deferred_pages = []
+        return freed

@@ -21,6 +21,10 @@ bounded context window
 (:class:`~accelerate_tpu_torch.serving.paging.DraftContextWindow`) into a
 scratch slab :class:`~accelerate_tpu_torch.models.transformer.KVCache` it
 makes itself, attended by plain PyTorch (the reference leaves it to XLA).
+It reads nothing but its two arguments, which the engine keeps as static
+buffers ``ctx [N, C]`` / ``length [N]`` written in place each cycle, so it
+is captured as a CUDA graph of its own, apart from the verify's (its time,
+``draft_s``, stays measurable with events around its replay).
 """
 
 from __future__ import annotations
@@ -77,6 +81,19 @@ class TreeSpec:
         self.depth_arr = depth_arr
         self.anc = anc
         self.paths = paths
+        self._device: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(paths, parent, depth_arr)`` as int64 tensors on ``device``, made
+        once per device: a window captured in a CUDA graph copies nothing
+        from the host."""
+        device = torch.device(device)
+        arrays = self._device.get(device)
+        if arrays is None:
+            arrays = self._device[device] = tuple(
+                torch.from_numpy(a.astype(np.int64)).to(device)
+                for a in (self.paths, self.parent, self.depth_arr))
+        return arrays
 
     def __repr__(self) -> str:
         return f"TreeSpec(width={self.width}, depth={self.depth}, nodes={self.nodes})"
@@ -219,9 +236,15 @@ def make_draft_forward(model: Transformer, tree: TreeSpec, ctx_len: int):
         logits, cache = model(ctx, cache=cache)
         last = logits[lanes, length - 1]                                  # [N, V]
         cand = torch.topk(last, width, dim=-1).indices.to(torch.int32)    # [N, W]
-        cache = KVCache(k=cache.k.repeat_interleave(width, dim=1),
-                        v=cache.v.repeat_interleave(width, dim=1),
-                        index=length.to(torch.int32).repeat_interleave(width))
+        # lane-major copies (lane i's branches at rows i*W .. i*W+W-1), by
+        # expand and reshape: nothing here may read a count back
+        def tile(t, dim):
+            shape = list(t.shape)
+            t = t.unsqueeze(dim + 1).expand(*shape[:dim + 1], width, *shape[dim + 1:])
+            return t.reshape(*shape[:dim], shape[dim] * width, *shape[dim + 1:])
+
+        cache = KVCache(k=tile(cache.k, 1), v=tile(cache.v, 1),
+                        index=tile(length.to(torch.int32), 0))
         toks = cand.reshape(n * width)
         chain = [toks]
         for _ in range(depth - 1):

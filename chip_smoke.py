@@ -54,9 +54,22 @@ Phases, each printing one JSON line:
    quantized pool's dequantized values (through the native arms), within
    the model line's tolerance; the distance to the no-cache forward is
    printed, not gated.
-5. ``engine``  — ``ServingEngine(paged=True)`` serves 6 greedy requests; the
-   kernel launch counters are zeroed just before and read just after; every
-   output is teacher-forced through the no-cache forward.  ``engine_int8``,
+5. ``engine``  — ``ServingEngine(paged=True)`` serves 6 greedy requests as a
+   user runs it: every decode, verify and draft window a CUDA graph
+   captured at construction and replayed each cycle, the depth-1 pipelined
+   loop (``async_depth=1``); the kernel launch counters are zeroed just
+   before and read just after (graph replays credit the launches their
+   capture counted), the number of graphs must not grow during the serve;
+   every output is teacher-forced through the no-cache forward.  Each
+   engine line prints ``graph_captures``, ``graph_replays``,
+   ``host_overlap_ratio``, ``device_idle_s``, ``prefreed_lanes``,
+   ``serve_tokens_per_s`` (tokens over the serve's wall) beside
+   ``decode_tokens_per_s`` (tokens over the engine's ``decode_s``: wall
+   while a window was in flight) and ``decode_ms_per_step``.
+   ``engine_sync_eager``: the same requests through the A/B hook
+   ``ServingEngine._eager(..., async_depth=0)`` (eager windows, synchronous
+   loop): the same kernels on the same inputs, so its greedy tokens must be
+   identical to ``engine``'s.  ``engine_int8``,
    ``engine_fp8``: the same requests with ``kv_dtype="int8"`` / ``"fp8"``
    (K1's and K2's dequant arms), their own launch counts, the pool's bytes
    per token and GB, and ``kv_quant_error`` held under the format's bound
@@ -573,14 +586,18 @@ ENGINE_LENS = (57, 100, 384, 700, 1000, 1500)
 
 
 def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
-                 prompts=None, name=None):
+                 prompts=None, name=None, eager=False):
     """Serve six greedy requests of 48 new tokens through ``ServingEngine``
     (``spec``: the speculation knobs; ``prompts``: else drawn from ``rng``),
-    the launch counters zeroed just before and read just after.  K1 must
-    have launched once a layer for each forward of a decode window and each
-    linear verify (its causal arm) and each tree verify (its tree-mask arm,
-    counted apart); the draft forward launches none.  Returns the launches
-    and the prompts."""
+    the launch counters zeroed just before and read just after.  The engine
+    is the default one (every window a CUDA graph captured at construction,
+    the depth-1 pipeline), or with ``eager`` the eager windows and the
+    synchronous loop (``ServingEngine._eager(..., async_depth=0)``).  K1
+    must have launched once a layer for each forward of a decode window and
+    each linear verify (its causal arm) and each tree verify (its tree-mask
+    arm, counted apart), graph replays credited; the draft forward launches
+    none.  The graphs captured must not grow during the serve.  Returns the
+    launches, the prompts and the tokens."""
     from accelerate_tpu_torch.models.generation import GenerationConfig
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving import ServingEngine
@@ -591,13 +608,19 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     gen = GenerationConfig(max_new_tokens=48)
 
     def new_engine():
-        return ServingEngine(model, None, num_slots=4, max_len=2048,
-                             prefill_buckets=(128, 512), decode_window=4, kv_dtype=kv_dtype,
-                             device="cuda", **(spec or {}))
+        kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+                  kv_dtype=kv_dtype, device="cuda", **(spec or {}))
+        if eager:
+            return ServingEngine._eager(model, None, async_depth=0, **kw)
+        return ServingEngine(model, None, **kw)
 
     engine = new_engine()
     idle_free = engine.kv.allocator.free_count
     quantized = engine.kv.quantized
+    captures = engine.stats["graph_captures"]
+    check(captures == (0 if eager else len(engine.graphs)) and (eager or captures > 0),
+          f"{captures} graphs captured at construction")
+    torch.cuda.synchronize()
     pa.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = engine.serve(prompts, configs=gen)
@@ -630,18 +653,23 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
           f"prefill kernel launches {launches['paged_flash_prefill']} != "
           f"{st['prefill_chunks']} chunks x {cfg.num_layers} layers")
     check(engine.kv.allocator.free_count == idle_free, "KV pages leaked")
+    check(st["graph_captures"] == captures, f"graphs captured during the serve: "
+          f"{captures} -> {st['graph_captures']}")
+    check(eager or st["graph_replays"] > 0, "no window replayed a graph")
     if quantized:
         # the same serve again, untimed, by a new engine whose inserts are
         # watched for the largest scale they leave; scales of pages no insert
         # wrote read 0, so that the largest is one some write used (an
         # unwritten page is never read: the insert zeroes a fresh page's
         # slots past the frontier itself, whatever its scale)
-        watched = new_engine()
-        watched.kv.k_scales.zero_()
-        watched.kv.v_scales.zero_()
+        # (the tracker goes in before the engine, whose graphs capture it)
         scale_max = torch.zeros((), device="cuda")
         undo = tracking_scales(scale_max)
         try:
+            watched = new_engine()
+            watched.kv.k_scales.zero_()
+            watched.kv.v_scales.zero_()
+            scale_max.zero_()
             again = watched.serve(prompts, configs=gen)
         finally:
             undo()
@@ -683,6 +711,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
             "draft_share_of_decode_s": st["draft_s"] / st["decode_s"],
         }
     emit({"phase": name or ("engine" if kv_dtype is None else "engine_" + kv_dtype),
+          "windows": "eager, async_depth=0" if eager else "cuda graphs, async_depth=1",
           **spec_rec,
           "kv_dtype": kv_dtype, "pages": str(engine.kv.storage_dtype).replace("torch.", ""),
           "kv_bytes_per_token": st["kv_bytes_per_token"],
@@ -694,6 +723,11 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
           "max_logit_deficit": deficit.max().item(),
           "mean_logit_deficit": deficit.mean().item(),
           "decode_tokens_per_s": st["tokens_generated"] / st["decode_s"],
+          "serve_tokens_per_s": st["tokens_generated"] / wall,
+          "decode_ms_per_step": 1e3 * st["decode_s"] / st["decode_steps"],
+          "graph_captures": st["graph_captures"], "graph_replays": st["graph_replays"],
+          "host_overlap_ratio": st["host_overlap_ratio"],
+          "device_idle_s": st["device_idle_s"], "prefreed_lanes": st["prefreed_lanes"],
           "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
           "kv_pool_bytes": engine.kv.kv_bytes(), "gpu": gpu})
     if quantized:
@@ -705,7 +739,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     else:
         check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
               f"forward's best logit by more than the noise margin {margin}")
-    return launches, prompts
+    return launches, prompts, [r.tokens for r in reqs]
 
 
 # --------------------------------------------------------------- flash attn
@@ -1152,13 +1186,18 @@ def main() -> int:
     tol = model_phase(model, cfg, rng)
     for fmt in pa.KV_FORMATS:
         quantized_model_phase(model, cfg, rng, fmt, tol)
-    launches, prompts = engine_phase(model, cfg, rng, gpu, tol)
+    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol)
+    # the A/B baseline: eager windows, synchronous loop, the same requests;
+    # the same kernels on the same inputs give the same greedy tokens
+    _, _, eager_tokens = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
+                                      name="engine_sync_eager", eager=True)
+    check(eager_tokens == tokens, "engine_sync_eager's greedy tokens differ from engine's")
     arm_launches = {fmt: engine_phase(model, cfg, rng, gpu, tol, kv_dtype=fmt)[0]
                     for fmt in pa.KV_FORMATS}
     # speculation: the tree arm on the engine line's prompts; the linear arm
     # on a random 40-token segment tiled to the same lengths, so that the
     # n-gram drafter finds matches
-    tree_launches, _ = engine_phase(
+    tree_launches, _, _ = engine_phase(
         model, cfg, rng, gpu, tol, prompts=prompts, name="engine_tree",
         spec=dict(draft_model=8, tree_width=2, tree_depth=4, draft_ctx=64))
     segment = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)

@@ -30,7 +30,10 @@ is held the same ways against the plain version with the same
 ``tree_mask``, at ``chip_smoke.py``'s tree shapes and at D 64 and 16; the
 linear and tree verify windows of a 2-layer f32 model on the card are held
 against the same windows on the CPU (tokens and commit counts identical,
-pages within 1e-4).
+pages within 1e-4).  The engine's CUDA graphs: each window's replay bitwise
+equal to the eager window on the same inputs, the pipelined dispatch free
+of synchronisations (``torch.cuda.set_sync_debug_mode("error")``), and a
+failed capture raising.
 """
 
 import functools
@@ -582,6 +585,133 @@ def test_tiny_engine_on_card_matches_cpu_engine(card, kv_dtype):
     assert pa.paged_attention.launches > 0 and pa.paged_flash_prefill.launches > 0
     if kv_dtype is not None:
         assert errs["cpu"] > 0.0 and errs[str(card)] > 0.0
+
+
+def _lockstep_engines(card, knobs, steps=None):
+    """A graph engine (the default) and an eager one (``ServingEngine._eager``),
+    both synchronous so that each step drains its window, on one f32 tiny
+    model: the same requests stepped in turn, every state the windows write
+    (pages, scales, pending tokens, draft tokens) and every token compared
+    bitwise after each step.  One request samples, so both variants of each
+    window run.  The null page is left out: it is the garbage sink of
+    inactive lanes, never read."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128)
+    model = Transformer(cfg, device=card)
+    model.load_state_dict(init_params(cfg, seed=5, device=card, dtype=torch.float32),
+                          assign=True)
+    rng = np.random.default_rng(9)
+    segment = rng.integers(1, 256, 12).astype(np.int32)
+    prompts = [np.resize(segment, n) for n in (17, 30, 9, 24)]
+    configs = [GenerationConfig(max_new_tokens=20)] * 3 + [
+        GenerationConfig(max_new_tokens=20, do_sample=True, temperature=0.8, top_k=20)]
+    kw = dict(num_slots=2, max_len=128, prefill_buckets=(16, 32), decode_window=3,
+              async_depth=0, device=card, **knobs)
+    graphed = ServingEngine(model, None, **kw)
+    eager = ServingEngine._eager(model, None, **kw)
+    captures = graphed.stats["graph_captures"]
+    assert captures == len(graphed.graphs) > 0 and eager.graphs is None
+    reqs = {}
+    for name, engine in (("graphed", graphed), ("eager", eager)):
+        reqs[name] = [engine.submit(p, config=c) for p, c in zip(prompts, configs)]
+    while graphed.has_work:
+        for engine in (graphed, eager):
+            engine.step()
+        # every page but the null page (id 0), the sink of inactive lanes'
+        # writes, whose last writer among them is not defined
+        for name in ("pages_k", "pages_v", "k_scales", "v_scales"):
+            assert torch.equal(getattr(graphed.kv, name)[:, 1:],
+                               getattr(eager.kv, name)[:, 1:]), name
+        assert torch.equal(graphed.lanes.pending, eager.lanes.pending)
+        assert torch.equal(graphed.lanes.keys, eager.lanes.keys)
+        if graphed.tree is not None:
+            assert torch.equal(graphed._draft_tokens, eager._draft_tokens)
+        assert [r.tokens for r in reqs["graphed"]] == [r.tokens for r in reqs["eager"]]
+    assert not eager.has_work
+    st = graphed.stats
+    assert st["graph_captures"] == captures and st["graph_replays"] > 0
+    assert eager.stats["graph_replays"] == 0
+    return graphed
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("kind", ["decode", "verify", "tree"])
+def test_window_graphs_replay_the_eager_windows(card, kind, kv_dtype):
+    """Each window's graph replay is bitwise equal to the eager window on
+    the same inputs: the decode window, the linear verify, and the tree
+    draft with the tree verify and its commit, native and int8 pages; the
+    capture count stays constant over the serve."""
+    knobs = {"decode": {}, "verify": dict(speculate_k=2),
+             "tree": dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)}[kind]
+    engine = _lockstep_engines(card, dict(kv_dtype=kv_dtype, **knobs))
+    want = {"decode": {"decode"}, "verify": {"decode", "verify"},
+            "tree": {"decode", "tree", "draft"}}[kind]
+    assert {key[0] for key in engine.graphs.keys()} == want
+    if kind != "decode":
+        assert engine.stats["verify_forwards"] > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_pipelined_dispatch_does_not_synchronise(card, kv_dtype):
+    """Admission and the dispatch of every cycle of the depth-1 pipeline run
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing waits for
+    the window in flight except the drain.  Greedy tokens equal the CPU
+    engine's."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128)
+    sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 19, 33, 8, 12)]
+    gen = GenerationConfig(max_new_tokens=12)
+    out = {}
+    for dev in ("cpu", card):
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               kv_dtype=kv_dtype, device=dev)
+        reqs = [engine.submit(p, config=gen) for p in prompts]
+        while engine.has_work:
+            engine._prefree_exhausted()
+            prev = None
+            on_card = dev != "cpu"
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                engine._admit()
+                if engine._active.any():
+                    prev = engine._dispatch()
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(0)
+            if not engine._active.any():
+                prev = engine._dispatch()
+            if prev is not None:
+                engine._drain(prev)
+        out[str(dev)] = [r.tokens for r in reqs]
+        assert engine.kv.allocator.free_count == engine.num_pages - 1
+    assert out["cpu"] == out[str(card)]
+    assert engine.stats["prefreed_lanes"] > 0 and engine.stats["graph_replays"] > 0
+
+
+def test_failed_capture_raises(card, monkeypatch):
+    """A window whose capture fails raises out of the constructor: there is
+    no fallback to the eager window."""
+    from accelerate_tpu_torch.serving import engine as engine_mod
+
+    def refuse(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("capture refused")
+        return decode_window(*args, **kwargs)
+
+    decode_window = engine_mod.decode_window
+    monkeypatch.setattr(engine_mod, "decode_window", refuse)
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
+    model = Transformer(cfg, device=card)
+    model.load_state_dict(init_params(cfg, seed=0, device=card, dtype=torch.float32),
+                          assign=True)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        ServingEngine(model, None, num_slots=2, max_len=64, prefill_buckets=(16,),
+                      device=card)
 
 
 def _flash_case(card, b, s, hq, hkv, d, dtype, segmented=False, seed=0, sk=None):

@@ -14,7 +14,10 @@ greedy tokens identical to the JAX paged engine with the same knobs and to
 the port's own tokens with speculation off, on a workload that accepts
 drafts (24 new tokens: the tiny model's greedy streams fall into loops the
 n-gram drafter finds; a draft of all the model's layers accepts nearly
-everything).  The remaining tests pin the host-side pieces against their
+everything).  The default loop is the depth-1 pipeline (``async_depth=1``)
+in both packages; the speculation parity test runs both synchronous
+(``async_depth=0``), and ``tests/test_torch_readback.py`` holds the
+pipeline against the JAX one.  The remaining tests pin the host-side pieces against their
 JAX counterparts and the port's import and device rules.
 """
 
@@ -229,7 +232,7 @@ def test_admission_refusals(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False), "5"), (dict(async_depth=1), "5"), (dict(prefix_cache_mb=64.0), "6"),
+    (dict(paged=False), "5"), (dict(prefix_cache_mb=64.0), "6"),
     (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
     (dict(draft_model="ckpt/dir#1"), "2"),
 ])
@@ -237,6 +240,15 @@ def test_unported_arguments_raise(models, kw, item):
     _, _, model, params = models
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+
+
+@pytest.mark.parametrize("depth", [2, -1])
+def test_async_depth_out_of_range_raises(models, depth):
+    """The reference's refusal: the loop is synchronous (0) or the depth-1
+    pipeline (1), nothing else."""
+    _, _, model, params = models
+    with pytest.raises(ValueError, match="async_depth"):
+        ServingEngine(model, params, device="cpu", async_depth=depth, **ENGINE_KW)
 
 
 SPEC_KNOBS = [
@@ -267,7 +279,7 @@ def test_speculative_greedy_tokens_identical_to_jax_engine(models, knobs):
     jreqs = jeng.serve([p.copy() for p in prompts],
                        configs=JGenerationConfig(max_new_tokens=24))
     gen = GenerationConfig(max_new_tokens=24)
-    engine, toks = _serve(model, params, prompts, gen, **knobs)
+    engine, toks = _serve(model, params, prompts, gen, async_depth=0, **knobs)
     assert toks == [r.tokens for r in jreqs]
     if "kv_dtype" not in knobs:
         _, plain = _serve(model, params, prompts, gen)

@@ -18,13 +18,17 @@ packages:
   for int8 pages (a value on a rounding edge may take the neighbouring
   code), and ``quant_err`` within 1e-6;
 * sampled lanes — reproducible from the seed and in vocabulary (JAX's
-  threefry and torch's Philox streams differ, so no token parity).
+  threefry stream and the port's counter hash differ, so no token parity);
+* the windows over static buffers — each window called through buffers the
+  caller writes in place (as the engine's CUDA graphs read them) gives the
+  outputs and pages of a direct call.
 
 The engine-level parity (greedy tokens identical to the JAX engine and to
 the port's spec-off tokens) is in ``tests/test_torch_engine.py``.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -61,7 +65,7 @@ from accelerate_tpu_torch.serving.spec_exec import (
     draft_transformer,
     make_draft_forward,
 )
-from accelerate_tpu_torch.models.generation import lane_generator
+from accelerate_tpu_torch.models.generation import lane_key
 from accelerate_tpu_torch.weights import params_from_jax
 
 PAGE, SLOTS, MAX_LEN = 8, 2, 64
@@ -449,7 +453,7 @@ def test_eos_on_the_accepted_path_stops_the_commit(models):
 
 @pytest.mark.parametrize("kind", ["linear", "tree"])
 def test_sampled_lanes_reproducible_and_in_vocab(models, kind):
-    """Sampled lanes draw from their own generators in a fixed order: the
+    """Sampled lanes draw from their own keys, a fixed count a window: the
     same seed gives the same tokens, another seed other ones (over a few
     windows), and every token is in the vocabulary.  ``top_k=1`` collapses
     each distribution to its argmax, so the sampled rule then commits the
@@ -464,7 +468,7 @@ def test_sampled_lanes_reproducible_and_in_vocab(models, kind):
         pool, lanes, tables, index = _pool(model)
         for lane in range(SLOTS):
             lanes.install(lane, int(tokens[lane, 0]), -1, temperature, top_k, 1.0,
-                          lane_generator(seed, lane, "cpu"))
+                          lane_key(seed, lane))
         outs = []
         for _ in range(3):
             args = (pool.pages_k, pool.pages_v, pool.k_scales, pool.v_scales, tables, index,
@@ -483,3 +487,41 @@ def test_sampled_lanes_reproducible_and_in_vocab(models, kind):
     point, n_commit = run(3, 1)
     np.testing.assert_array_equal(point[0], chain)
     assert n_commit.tolist() == [chain.shape[1]] * SLOTS
+
+
+@pytest.mark.parametrize("kind", ["decode", "linear", "tree"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_windows_over_static_buffers_match_direct_calls(models, kind, kv_dtype):
+    """The engine binds each window once to its static buffers (tables,
+    index, verify tokens) and writes them in place every cycle: such a call
+    gives the outputs, pending tokens and pages of a direct call on fresh
+    tensors, on the CPU."""
+    _, _, model = models
+    tree = TreeSpec(2, 3)
+    tokens, chain, _ = _tree_tokens(model, tree, kv_dtype)
+    if kind == "linear":
+        tokens = np.concatenate([tokens[:, :1], chain[:, :3]], axis=1).astype(np.int32)
+
+    def call(pool, lanes, tables, index, toks):
+        kv = (pool.pages_k, pool.pages_v, pool.k_scales, pool.v_scales, tables, index)
+        if kind == "decode":
+            return decode_window(model, 3, *kv, lanes, 0)
+        if kind == "linear":
+            return verify_window(model, *kv, toks, lanes, 0)
+        return tree_verify_window(model, tree, tpa.TreeMask(tree.anc), *kv, toks, lanes, 0)
+
+    pool, lanes, tables, index = _pool(model, kv_dtype)
+    direct = call(pool, lanes, tables, index, torch.from_numpy(tokens))
+    static = _pool(model, kv_dtype)
+    s_pool, s_lanes = static[0], static[1]
+    bufs = (torch.zeros_like(tables), torch.zeros_like(index), torch.zeros_like(
+        torch.from_numpy(tokens)))
+    window = functools.partial(call, s_pool, s_lanes, *bufs)
+    for buf, value in zip(bufs, (tables, index, torch.from_numpy(tokens))):
+        buf.copy_(value)
+    got = window()
+    for a, b in zip(direct, got):
+        assert torch.equal(a, b)
+    assert torch.equal(lanes.pending, s_lanes.pending)
+    for name in ("pages_k", "pages_v", "k_scales", "v_scales"):
+        assert torch.equal(getattr(pool, name), getattr(s_pool, name))
