@@ -7,9 +7,12 @@
 // inserted, in one uniform causal page walk.
 //
 // What it computes.  Query i of lane n sits at position lengths[n] + i (the
-// chunk base) and sees keys j <= lengths[n] + i.  The rep query heads of a
-// KV head fold into rows query-major (row r: query qb * block_q + r / rep,
-// head h * rep + r % rep), so one q-block covers one contiguous query span
+// chunk base) and sees keys j <= lengths[n] + i.  The query heads of a KV
+// head split into gsplit groups of rep heads (gsplit = 1 unless the GQA
+// group exceeds a q-block's 64 folded rows: prefill_group_split), and a
+// group's heads fold into rows query-major (row r of group hg: query
+// qb * block_q + r / rep, head hg * rep + r % rep; its KV head is
+// hg / gsplit), so one q-block covers one contiguous query span
 // and its page walk can stop at that span's causal frontier,
 // p * page <= lengths[n] + last query of the block (:507).  Masked logits
 // take DEFAULT_MASK_VALUE; the online softmax keeps its running max,
@@ -87,13 +90,22 @@ namespace atpu {
 constexpr int kPrefillThreads = 256;
 constexpr int kPrefillRows = 64;  // folded rows (block_q * rep) per CTA
 
+// The groups a KV head's query heads split into: the fewest that divide its
+// GQA group and leave at most kPrefillRows heads a group.  Each group is a
+// q-block of its own over the same KV head's pages.
+inline int prefill_group_split(int group) {
+  int g = (group + kPrefillRows - 1) / kPrefillRows;
+  while (group % g) ++g;
+  return g;
+}
+
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kPrefillThreads)
 paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
                      const KT* __restrict__ pages_v, const float* __restrict__ k_scales,
                      const float* __restrict__ v_scales, const int* __restrict__ tables,
                      const int* __restrict__ lengths, QT* __restrict__ out, int s_len, int hq,
-                     int hkv, int page, int num_p, int block_q, float scale) {
+                     int hkv, int gsplit, int page, int num_p, int block_q, float scale) {
   constexpr int NT = kPrefillThreads;
   constexpr int ROWS = kPrefillRows;
   constexpr int NW = NT / 32;
@@ -104,9 +116,10 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   constexpr int QKK = ROWS / NW;
 
   const int qb = blockIdx.x;
-  const int h = blockIdx.y;
+  const int hg = blockIdx.y;  // query-head group of KV head h
+  const int h = hg / gsplit;
   const int n = blockIdx.z;
-  const int rep = hq / hkv;
+  const int rep = hq / (hkv * gsplit);
   const int rows = block_q * rep;
   const int q0 = qb * block_q;
 
@@ -130,7 +143,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
     const int r = e / D, c = e % D;
     float v = 0.f;
     if (r < rows) {
-      const int head = h * rep + r % rep;
+      const int head = hg * rep + r % rep;
       v = to_f32(q[((size_t)(n * s_len + query_of(r)) * hq + head) * D + c]) * scale;
     }
     q_s[e] = v;
@@ -234,7 +247,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
     if (r < rows && qi < s_len) {
       const float l = l_s[r];
       const float inv = 1.f / (l == 0.f ? 1.f : l);
-      const int head = h * rep + r % rep;
+      const int head = hg * rep + r % rep;
       QT* o = out + ((size_t)(n * s_len + qi) * hq + head) * D + c4 * 4;
       o[0] = from_f32<QT>(acc[k].x * inv);
       o[1] = from_f32<QT>(acc[k].y * inv);
@@ -250,8 +263,8 @@ int launch_prefill(const void* q, const void* pages_k, const void* pages_v,
                    const int* lengths, void* out, int n, int s, int hq, int hkv, int page,
                    int num_p, float scale, cudaStream_t stream) {
   if (hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int rep = hq / hkv;
-  if (rep > kPrefillRows) return static_cast<int>(cudaErrorInvalidValue);
+  const int gsplit = prefill_group_split(hq / hkv);
+  const int rep = hq / hkv / gsplit;
   int block_q = kPrefillRows / rep;
   if (block_q > s) block_q = s;
   const int n_qb = (s + block_q - 1) / block_q;
@@ -261,10 +274,10 @@ int launch_prefill(const void* q, const void* pages_k, const void* pages_v,
   auto kernel = paged_prefill_kernel<QT, KT, D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(n_qb, hkv, n), kPrefillThreads, smem, stream>>>(
+  kernel<<<dim3(n_qb, hkv * gsplit, n), kPrefillThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(pages_k),
       static_cast<const KT*>(pages_v), k_scales, v_scales, tables, lengths,
-      static_cast<QT*>(out), s, hq, hkv, page, num_p, block_q, scale);
+      static_cast<QT*>(out), s, hq, hkv, gsplit, page, num_p, block_q, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,15 +362,17 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_v,
                            const float* __restrict__ k_scales, const float* __restrict__ v_scales,
                            const int* __restrict__ tables, const int* __restrict__ lengths,
-                           __nv_bfloat16* __restrict__ out, int s_len, int hq, int hkv, int page,
-                           int num_pages, int num_p, int block_q, float scale) {
+                           __nv_bfloat16* __restrict__ out, int s_len, int hq, int hkv,
+                           int gsplit, int page, int num_pages, int num_p, int block_q,
+                           float scale) {
   constexpr bool kCodes = sizeof(KT) == 1;     // quantized pages: TMA lands codes
   constexpr int TB = tile_bytes<D>();
   constexpr int NK = kPrefillKeys;
   constexpr int SB = kCodes ? NK * D : TB;     // bytes of one K or V stage
   constexpr float kLog2e = 1.4426950408889634f;
-  const int qb = blockIdx.x, h = blockIdx.y, n = blockIdx.z;
-  const int rep = hq / hkv, rows = block_q * rep, q0 = qb * block_q;
+  // hg: the query-head group, of KV head h
+  const int qb = blockIdx.x, hg = blockIdx.y, h = hg / gsplit, n = blockIdx.z;
+  const int rep = hq / (hkv * gsplit), rows = block_q * rep, q0 = qb * block_q;
   const int tid = threadIdx.x;
 
   extern __shared__ unsigned char prefill_tc_smem[];
@@ -408,7 +423,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive_expect_tx(q_full, (D / kPanelCols) * rows * 128);
 #pragma unroll
       for (int p = 0; p < D / kPanelCols; ++p)
-        tma_load_4d(q_s + p * kPanelBytes, &tm_q, q_full, p * kPanelCols, h * rep, q0, n);
+        tma_load_4d(q_s + p * kPanelBytes, &tm_q, q_full, p * kPanelCols, hg * rep, q0, n);
     }
     for (int kt = 0; kt < n_kt; ++kt) {
       const int st = kt % kPrefillStages, round = kt / kPrefillStages;
@@ -552,7 +567,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r = 16 * w + g + 8 * e, qi = q0 + r / rep;
     if (r >= rows || qi >= s_len) continue;
     const float inv = 1.f / (l[e] == 0.f ? 1.f : l[e]);
-    __nv_bfloat16* o_row = out + ((size_t)(n * s_len + qi) * hq + h * rep + r % rep) * D;
+    __nv_bfloat16* o_row = out + ((size_t)(n * s_len + qi) * hq + hg * rep + r % rep) * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * i + c2) =
@@ -565,7 +580,8 @@ int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v
                          const float* k_scales, const float* v_scales, const int* tables,
                          const int* lengths, void* out, int n, int s, int hq, int hkv, int page,
                          int num_pages, int num_p, float scale, cudaStream_t stream) {
-  const int rep = hq / hkv;
+  const int gsplit = prefill_group_split(hq / hkv);
+  const int rep = hq / hkv / gsplit;
   int block_q = kPrefillRows / rep;
   if (block_q > s) block_q = s;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -587,9 +603,9 @@ int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v
   if (err == cudaSuccess) err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qb = (s + block_q - 1) / block_q;
-  kernel<<<dim3(n_qb, hkv, n), kPrefillTcThreads, smem, stream>>>(
+  kernel<<<dim3(n_qb, hkv * gsplit, n), kPrefillTcThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, k_scales, v_scales, tables, lengths, static_cast<__nv_bfloat16*>(out), s,
-      hq, hkv, page, num_pages, num_p, block_q, scale);
+      hq, hkv, gsplit, page, num_pages, num_p, block_q, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -611,7 +627,7 @@ int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v
   if (kv_fmt == 3) return ATPU_LAUNCH_PREFILL_WGMMA(D, __nv_fp8_e4m3);
 
 // tensor_cores = 1 asks for the tensor-core arm, which takes bf16 q over
-// bf16, int8 or fp8-e4m3 pages, D 64 or 128, a group of at most 64 heads
+// bf16, int8 or fp8-e4m3 pages, D 64 or 128, any GQA group
 // and a page that prefill_wgmma_page_ok accepts; the entry point refuses
 // anything else rather than run another arm.  kv_fmt: 0 f32, 1 bf16, 2 int8,
 // 3 fp8-e4m3.
@@ -622,8 +638,7 @@ extern "C" int atpu_paged_prefill(const void* q, const void* pages_k, const void
                                   int num_p, int q_bf16, int kv_fmt, int tensor_cores,
                                   float scale, void* stream) {
   if (tensor_cores) {
-    if (!q_bf16 || !atpu::prefill_wgmma_page_ok(page) || hq % hkv != 0 ||
-        hq / hkv > atpu::kPrefillRows)
+    if (!q_bf16 || !atpu::prefill_wgmma_page_ok(page) || hq % hkv != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     if (d == 128) {
       ATPU_WGMMA_PAGES(128)

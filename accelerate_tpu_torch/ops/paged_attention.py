@@ -368,7 +368,9 @@ DECODE_ROWS = 4
 #: dimension that holds at most 65535
 MAX_LANES = 65535
 #: folded rows of one K2 q-block (``kPrefillRows``): a GQA group of more
-#: query heads than this per kv head does not fit a q-block
+#: query heads than this per kv head splits into the fewest groups that
+#: divide it and fit a q-block, each its own q-block over the kv head's
+#: pages (``prefill_group_split``)
 PREFILL_MAX_GROUP = 64
 
 
@@ -535,7 +537,8 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
     pages, a page of 8, 16 or 32 keys or a multiple of 64, D 64 or 128;
     bf16 operands with f32 sums, the probabilities rounded to bf16 before
     P.V), else on the CUDA cores in f32.  A GQA group of more than
-    :data:`PREFILL_MAX_GROUP` query heads per kv head is refused."""
+    :data:`PREFILL_MAX_GROUP` query heads per kv head splits into q-blocks
+    of its head groups, in both arms."""
     if q.device.type == "cpu":
         return paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
                                              k_scales=k_scales, v_scales=v_scales)
@@ -543,9 +546,6 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
                                    lengths, k_scales, v_scales)
     n, s, hq, d = q.shape
     num_pages, page, hkv, _ = pages_k.shape
-    if hq // hkv > PREFILL_MAX_GROUP:
-        raise ValueError(f"paged_flash_prefill: {hq // hkv} query heads per kv head exceed "
-                         f"the {PREFILL_MAX_GROUP} folded rows of a q-block")
     tensor_cores = int(prefill_design(q.dtype, pages_k.dtype, page, d) == "wgmma")
     out = torch.empty_like(q)
     _build.launch(

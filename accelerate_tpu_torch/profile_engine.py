@@ -73,12 +73,13 @@ def paged_bound_ms(lengths, s, hq, hkv, d, dtype, page_dtype=None, page=None) ->
 
 
 def _engine(model, kv_dtype=None, mode="graphs") -> ServingEngine:
-    """A new engine for the workload: ``mode`` ``"graphs"`` is the engine as
+    """A new engine for the workload, without the prefix cache (the
+    workload's prompts share nothing): ``mode`` ``"graphs"`` is the engine as
     a user makes it (CUDA graphs captured here, ``async_depth=1``);
     ``"eager"`` its eager windows with the synchronous loop, through the
     private A/B hook."""
     kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
-              kv_dtype=kv_dtype, device="cuda")
+              kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda")
     if mode == "graphs":
         return ServingEngine(model, None, **kw)
     return ServingEngine._eager(model, None, async_depth=0, **kw)

@@ -1,13 +1,19 @@
 """Continuous-batching serving engine on the paged KV pool.
 
 Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with
-``paged=True``, no prefix cache and no mesh.  One engine step:
+``paged=True`` and no mesh.  One engine step:
 
 1. admission — open the FCFS head's prefill when a slot and its pages are
    free, then run prefill chunks (buckets from :func:`.pool.plan_chunks`)
    against the per-step prefill-token budget; each chunk's K/V is written
    straight into newly allocated lane pages by the prefill kernel (K2), and a
-   request whose last chunk landed is installed into its lane;
+   request whose last chunk landed is installed into its lane.  With the
+   prefix cache (:mod:`.prefix_cache`, on by default as in the reference) a
+   chunk whose whole prefix is cached costs no forward: a device-tier hit
+   aliases the cached pages into the lane's block table, a spilled one is
+   promoted into fresh pages; fresh full chunks are retained by reference,
+   and the one shared page a lane's decode writes into is copied on write
+   at install;
 2. dispatch of one decode cycle.  Without speculation, or when no lane
    drafts, it is a decode window: ``decode_window`` masked steps over every
    lane through the decode kernel (K1).  With ``speculate_k = K`` (n-gram
@@ -55,13 +61,17 @@ from .graphs import WindowGraphs
 from .paging import DraftContextWindow, PagedKVPool
 from .pool import (
     LaneState,
+    copy_page,
     decode_window,
     plan_chunks,
     prefill_chunk,
+    promote_install,
+    spill_extract,
     tree_verify_window,
     verify_window,
 )
-from .readback import Readback, stage
+from .prefix_cache import PrefixCache
+from .readback import CacheTransfer, Readback, stage
 from .scheduler import Request, RequestState, Scheduler
 from .spec_exec import (
     NgramDrafter,
@@ -156,9 +166,28 @@ class ServingEngine:
     ending in a device synchronisation; under the pipeline nothing waits
     there).
 
-    ``paged=False``, ``prefix_cache_mb > 0``, ``mesh`` and ``role !=
-    "both"`` raise ``NotImplementedError``.  Unlike the JAX engine,
-    ``prefix_cache_mb`` defaults to 0.
+    prefix_cache_mb: byte budget (MiB) of the prefix KV cache's device
+        tier (default 64, as in the reference); ``0``/``None`` turns it off.
+        ``submit(..., cache_prefix=False)`` opts a request out.
+    prefix_host_mb: byte budget (MiB) of the pinned host ring behind it:
+        device-tier evictions demote chunks there (pages and scales copied
+        off the card behind the window in flight) and a hit promotes them
+        back into fresh pages.  Needs ``prefix_cache_mb``.
+    prefix_disk_mb: byte budget (MiB) of a disk ring behind the host ring
+        (files under ``prefix_disk_dir``).  Needs ``prefix_host_mb``.
+
+    The cache adds to ``stats``: ``prefix_hit_tokens`` (prompt tokens
+    served from the cache), ``prefix_hit_tokens_host`` (those promoted from
+    the host or disk ring), ``prefix_miss_tokens`` (cache-eligible tokens
+    prefilled), ``cow_copies``, ``promote_degraded`` (promotions that fell
+    back to a prefill: a torn payload or page pressure),
+    ``reclaim_evictions`` (cache chunks the page-reclaim ladder evicted),
+    and ``spill_s``/``spill_bytes``, ``promote_s``/``promote_bytes`` (the
+    transfers' time on the card's stream from CUDA events, host wall on the
+    CPU, and their bytes); :meth:`prefix_cache_stats` adds the cache's own.
+
+    ``paged=False``, ``mesh`` and ``role != "both"`` raise
+    ``NotImplementedError``.
     """
 
     #: read by ``__init__``: capture the windows as CUDA graphs on the card.
@@ -183,7 +212,10 @@ class ServingEngine:
         num_pages: Optional[int] = None,
         kv_dtype: Optional[str] = None,
         max_queue: Optional[int] = None,
-        prefix_cache_mb: Optional[float] = 0.0,
+        prefix_cache_mb: Optional[float] = 64.0,
+        prefix_host_mb: Optional[float] = 0.0,
+        prefix_disk_mb: Optional[float] = 0.0,
+        prefix_disk_dir: Optional[str] = None,
         async_depth: int = 1,
         speculate_k: int = 0,
         speculate_ngram: int = 3,
@@ -197,8 +229,6 @@ class ServingEngine:
     ):
         if not paged:
             raise _not_ported("paged=False (the contiguous slab pool)", "5")
-        if prefix_cache_mb:
-            raise _not_ported("prefix_cache_mb > 0 (the prefix KV cache)", "6")
         if mesh is not None:
             raise _not_ported("mesh= (tensor-parallel serving)", "8")
         if role != "both":
@@ -269,10 +299,29 @@ class ServingEngine:
                              else self.num_slots * (self.max_len // self.page_size) + 1)
         self.kv = PagedKVPool(cfg, self.num_slots, self.max_len, self.page_size,
                               self.num_pages, kv_dtype=kv_dtype, device=self.device)
+        kv = self.kv
+        self._pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales)
+        host_bytes = int((prefix_host_mb or 0.0) * 2**20)
+        disk_bytes = int((prefix_disk_mb or 0.0) * 2**20)
+        if host_bytes and not prefix_cache_mb:
+            raise ValueError("prefix_host_mb spills prefix pages; it requires an enabled "
+                             "prefix cache (prefix_cache_mb > 0)")
+        if disk_bytes and not host_bytes:
+            raise ValueError("prefix_disk_mb sits behind the host ring; set prefix_host_mb")
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache_mb:
+            self.prefix_cache = PrefixCache(
+                int(prefix_cache_mb * 2**20), on_evict=self._on_prefix_evict,
+                host_capacity_bytes=host_bytes, spill=self._spill_node if host_bytes else None,
+                disk_capacity_bytes=disk_bytes, disk_dir=prefix_disk_dir)
+        # prefix-cache spills and promotions enqueued since the last
+        # dispatch: they ride the next window and settle at its drain
+        self._pending_spills: List[CacheTransfer] = []
+        self._pending_promotions: List[CacheTransfer] = []
         self.scheduler = Scheduler(
             self.buckets,
             prefill_token_budget if prefill_token_budget is not None else self.buckets[-1],
-            max_queue=max_queue,
+            max_queue=max_queue, prefix_cache=self.prefix_cache,
         )
 
         n = self.num_slots
@@ -328,6 +377,16 @@ class ServingEngine:
             "host_overlap_ratio": 0.0,
             "device_idle_s": 0.0,
             "prefreed_lanes": 0,
+            "prefix_hit_tokens": 0,
+            "prefix_hit_tokens_host": 0,
+            "prefix_miss_tokens": 0,
+            "cow_copies": 0,
+            "promote_degraded": 0,
+            "reclaim_evictions": 0,
+            "spill_s": 0.0,
+            "spill_bytes": 0,
+            "promote_s": 0.0,
+            "promote_bytes": 0,
         }
         # the depth-1 pipeline: the at-most-one window in flight (always
         # None under async_depth=0), and the reference's overlap accounting
@@ -374,8 +433,8 @@ class ServingEngine:
         buffers, greedy and sampling variants of the windows that sample.
         The same functions run eagerly (CPU, :meth:`_eager`) and are
         captured as graphs."""
-        kv, lanes, pad = self.kv, self.lanes, self.pad_token_id
-        pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales, self._tables, self._index)
+        lanes, pad = self.lanes, self.pad_token_id
+        pool = (*self._pool, self._tables, self._index)
         windows = {}
         for sampling in (False, True):
             windows["decode", sampling] = functools.partial(
@@ -423,10 +482,12 @@ class ServingEngine:
     # ---------------------------------------------------------------- submit
     def submit(self, prompt, config: Optional[GenerationConfig] = None,
                on_token: Optional[Callable[[Request, int], None]] = None,
-               speculate: bool = True, **overrides) -> Request:
+               cache_prefix: bool = True, speculate: bool = True, **overrides) -> Request:
         """Queue one request; returns its :class:`Request` handle (filled in
         as the engine runs).  ``overrides`` patch the ``GenerationConfig``;
-        ``speculate=False`` opts the request out of drafting."""
+        ``cache_prefix=False`` opts the request out of prefix-KV reuse and
+        population (prompts that must not be retained); ``speculate=False``
+        opts it out of drafting."""
         gen = config or GenerationConfig()
         if overrides:
             gen = dataclasses.replace(gen, **overrides)
@@ -454,7 +515,7 @@ class ServingEngine:
                 f"{self.buckets}, exceeding capacity {self.max_len}",
                 queue_depth=depth, retriable=False)
         req = Request(rid=self._next_rid, prompt=prompt, config=gen, on_token=on_token,
-                      speculate=bool(speculate))
+                      cache_prefix=bool(cache_prefix), speculate=bool(speculate))
         self._next_rid += 1
         self.scheduler.submit(req)
         self.stats["requests_submitted"] += 1
@@ -469,29 +530,49 @@ class ServingEngine:
         return None
 
     def _reclaim_pages(self, need: int, allow_preempt: bool) -> bool:
-        """Free pages until ``need`` are available.  The reference's ladder
-        without the prefix cache (``accelerate_tpu/serving/engine.py:
-        1882-1902``): first drain the window in flight when pages wait on
-        it (its deferred pages then free), then — when allowed — preempt
-        the youngest running lane.  False when nothing is left to
-        reclaim."""
+        """Free pages until ``need`` are available, by the reference's
+        ladder, cheapest first (``accelerate_tpu/serving/engine.py:
+        1878-1902``): (1) evict an unpinned prefix-cache leaf (dropping the
+        cache's references frees the pages no lane aliases); (2) drain the
+        window in flight when pages wait on it (its deferred pages then
+        free); (3) when allowed, preempt the youngest running lane; (4) drop
+        queued requests' cache pins, so that (1) reaches more leaves.  False
+        when nothing is left to reclaim."""
         while self.kv.allocator.free_count < need:
+            if self.prefix_cache is not None and self.prefix_cache.evict_one():
+                self.stats["reclaim_evictions"] += 1
+                continue
             if self._inflight is not None and self._inflight.deferred_pages:
                 self._drain_inflight()
                 continue
             if allow_preempt and self._preempt():
+                continue
+            if self.scheduler.drop_cache_pins() > 0:
                 continue
             return False
         return True
 
     def _admission_pages_ok(self, req: Request) -> bool:
         """Can the queue head's whole prefill be paged in, without preempting
-        a running lane (evicting one to admit behind it would invert FCFS)?"""
-        need = sum(b for b, _ in req.chunks) // self.page_size
-        return self._reclaim_pages(need, allow_preempt=False)
+        a running lane (evicting one to admit behind it would invert FCFS)?
+        Device-tier cached chunks alias pages and cost none; spilled ones are
+        promoted into fresh pages and are charged (the count uses the match
+        from submit, which admission may lengthen)."""
+        padded = sum(b for b, _ in req.chunks)
+        cached = sum(b for i, (b, _) in enumerate(req.chunks[:req.cached_chunks])
+                     if i < len(req.cache_nodes) and req.cache_nodes[i].tier == "device")
+        return self._reclaim_pages((padded - cached) // self.page_size, allow_preempt=False)
 
     def _ensure_prefill_pages(self, req: Request) -> bool:
-        """Pages for ``req``'s next chunk (the scheduler's ``ready`` gate)."""
+        """Pages for ``req``'s next chunk (the scheduler's ``ready`` gate): none
+        for a device-tier hit, a bucket's worth otherwise."""
+        if req.next_chunk >= len(req.chunks):
+            return True
+        if req.next_chunk < req.cached_chunks:
+            node = (req.cache_nodes[req.next_chunk]
+                    if req.next_chunk < len(req.cache_nodes) else None)
+            if node is None or node.tier == "device":
+                return True
         bucket, _ = req.chunks[req.next_chunk]
         return self._reclaim_pages(bucket // self.page_size, allow_preempt=False)
 
@@ -499,22 +580,23 @@ class ServingEngine:
                        start: int) -> torch.Tensor:
         """Prefill one chunk straight into newly allocated lane pages; returns
         its quantization error (a device scalar).  The chunk and table ride
-        up by non-blocking copies: nothing waits for a window in flight."""
+        up by non-blocking copies: nothing waits for a window in flight.  The
+        table maps the lane's shared prefix pages too: a chunk after a hit
+        reads the cached KV in place."""
         s = req.slot
         ids = self.kv.allocator.alloc(bucket // self.page_size)
         if ids is None:  # _ensure_prefill_pages ran first; this cannot happen
             raise RuntimeError("KV page pool exhausted mid-prefill")
         self.kv.lane_append_owned(s, ids)
-        kv = self.kv
         tokens = torch.from_numpy(chunk[None]).to(self.device, non_blocking=True)
-        table = torch.from_numpy(kv.tables[s].copy()).to(self.device, non_blocking=True)
-        return prefill_chunk(self.model, tokens, kv.pages_k, kv.pages_v, kv.k_scales,
-                             kv.v_scales, table, start)
+        table = torch.from_numpy(self.kv.tables[s].copy()).to(self.device, non_blocking=True)
+        return prefill_chunk(self.model, tokens, *self._pool, table, start)
 
     def _admit(self) -> None:
         budget = self.scheduler.begin_step()
         t0 = time.perf_counter()
         chunks = 0
+        st = self.stats
         while True:
             sched = self.scheduler
             if sched.queue and sched.prefilling is None:
@@ -527,31 +609,54 @@ class ServingEngine:
             took = sched.take_chunk(budget, ready=self._ensure_prefill_pages)
             if took is None:
                 break  # budget spent or page pressure: retry next step
-            req, bucket, valid, start = took
-            chunk = np.zeros(bucket, np.int32)
-            chunk[:valid] = req.prefill_tokens[start:start + valid]
-            err = self._prefill_chunk(req, bucket, chunk, start)
-            if self.kv.quantized:
-                self._pending_prefill_qerr.append(err)
-            budget -= bucket
+            req, bucket, valid, start, cached = took
             chunks += 1
-            self.stats["prefill_chunks"] += 1
-            self.stats["prefill_tokens"] += valid
+            if cached:
+                node = req.cache_nodes[req.next_chunk - 1]
+                spilled = node.tier != "device"
+                if not spilled:
+                    # the zero-copy hit: the node's pages join the lane's table
+                    self.kv.lane_append_shared(req.slot, node.pages)
+                elif not self._promote_node(req, node, bucket):
+                    # a degraded promotion (a torn payload or page pressure)
+                    # prefills the chunk instead; _populate_cache heals the
+                    # node with the fresh pages
+                    cached = False
+                    st["promote_degraded"] += 1
+                if cached:
+                    st["prefix_hit_tokens"] += valid
+                    if spilled:
+                        st["prefix_hit_tokens_host"] += valid
+            if not cached:
+                chunk = np.zeros(bucket, np.int32)
+                chunk[:valid] = req.prefill_tokens[start:start + valid]
+                err = self._prefill_chunk(req, bucket, chunk, start)
+                if self.kv.quantized:
+                    self._pending_prefill_qerr.append(err)
+                budget -= bucket
+                st["prefill_chunks"] += 1
+                if self.prefix_cache is not None and req.cache_prefix:
+                    st["prefix_miss_tokens"] += valid
+                    self._populate_cache(req, bucket, valid, start)
+            st["prefill_tokens"] += valid
             done = sched.finish_prefill()
             if done is not None:
                 self._install(done)
         if chunks:
             if self.async_depth == 0 and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.stats["prefill_s"] += time.perf_counter() - t0
+            st["prefill_s"] += time.perf_counter() - t0
 
     def _install(self, req: Request) -> None:
         """Hand a fully prefilled request its lane: its pages already hold the
-        prompt's KV; the last prompt token stays pending so the first decode
-        step computes the first generated token.  The lane vectors are
-        edited in place on the card's stream, behind any window in flight."""
+        prompt's KV (its own, or aliased cache pages); only a shared tail
+        page is copied on write before decode writes into it.  The last
+        prompt token stays pending so the first decode step computes the
+        first generated token.  The lane vectors are edited in place on the
+        card's stream, behind any window in flight."""
         s = req.slot
         ptoks = req.prefill_tokens
+        self._cow_tail_page(s, len(ptoks))
         self._lane_len[s] = len(ptoks) - 1
         gen = req.config
         eos = -1 if gen.eos_token_id is None else int(gen.eos_token_id)
@@ -570,7 +675,195 @@ class ServingEngine:
         self._eos[s] = eos
         self._slot_req[s] = req
         self._reserved_slots.discard(s)
+        # the lane holds its own references now: the nodes this request read
+        # or populated may go
+        if self.prefix_cache is not None and req.cache_nodes:
+            self.prefix_cache.release(req.cache_nodes)
+            req.cache_nodes = []
         req.state = RequestState.RUNNING
+
+    # ---------------------------------------------------------- prefix cache
+    def _populate_cache(self, req: Request, bucket: int, valid: int, start: int) -> None:
+        """Retain a freshly prefilled full chunk: the node takes the lane's
+        own page ids and one allocator reference per page, so the KV
+        outlives the lane.  A padded final chunk is skipped (its KV past
+        ``valid`` is garbage), and once a chunk fails to retain the rest of
+        the request's chain is abandoned: a child without its ancestors is
+        unreachable."""
+        if valid != bucket or req.cache_chain_broken:
+            return
+        parent = req.cache_nodes[-1] if req.cache_nodes else None
+        npg = bucket // self.page_size
+        ids = self.kv.chunk_ids(req.slot, start // self.page_size, npg)
+        node = self.prefix_cache.insert_pages(parent, req.prefill_tokens[start:start + bucket],
+                                              ids, nbytes=self.kv.chunk_bytes(npg))
+        if node is None:
+            req.cache_chain_broken = True
+            return
+        if node.pages == tuple(ids):
+            # a new node (or a spilled one healed with these pages) holds
+            # its own references, dropped by _on_prefix_evict
+            self.kv.allocator.ref(ids)
+        self.prefix_cache.acquire([node])
+        req.cache_nodes.append(node)
+
+    def _cow_tail_page(self, s: int, plen: int) -> None:
+        """Copy-on-write of the one page where sharing and writing meet: the
+        page holding position ``plen - 1``, the lane's first decode write.
+        Chunk starts are page-aligned, so every other shared page lies
+        before the frontier and every later page is the lane's own.  The
+        copy is enqueued on the stream behind any window in flight and
+        writes the pool in place.  Re-checked after each reclaim: an
+        eviction may dissolve the sharing."""
+        pslot = (plen - 1) // self.page_size
+        pid = int(self.kv.tables[s, pslot])
+        while int(self.kv.allocator.refs[pid]) > 1:
+            new = self.kv.allocator.alloc(1)
+            if new is None:
+                if not self._reclaim_pages(1, allow_preempt=True):
+                    raise RuntimeError("KV page pool exhausted during copy-on-write")
+                continue
+            copy_page(self._pool, pid, new[0])
+            self.kv.lane_replace(s, pslot, new[0])
+            self.stats["cow_copies"] += 1
+            return
+
+    def _on_prefix_evict(self, node) -> None:
+        """The cache's eviction hook: drop the node's references on its pages
+        (pages lanes still alias survive).  A spilled node arrives with no
+        pages: :meth:`_spill_node` dropped them."""
+        if node.pages:
+            self.kv.allocator.deref(node.pages)
+
+    def _marks(self):
+        """CUDA events around a transfer on the stream, or ``None`` on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        marks = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        marks[0].record()
+        return marks
+
+    def _spill_node(self, node) -> CacheTransfer:
+        """The cache's spill hook: gather the node's pages and scales on the
+        card and copy them into pinned host buffers, behind the work already
+        on the stream, then drop the node's page references at once (any
+        later write to a page that frees is ordered behind the gather on the
+        same stream).  Nothing waits: the transfer is the node's payload in
+        flight until the drain of the window it rides lands it."""
+        t0 = time.perf_counter()
+        ids = torch.tensor(node.pages, dtype=torch.int64).to(self.device, non_blocking=True)
+        on_card = self.device.type == "cuda"
+        # the pinned buffers first, so that the events time the transfer alone
+        host = tuple(torch.empty((t.shape[0], len(node.pages), *t.shape[2:]), dtype=t.dtype,
+                                 pin_memory=True) for t in self._pool) if on_card else ()
+        marks = self._marks()
+        gathered = spill_extract(self._pool, ids)
+        if on_card:
+            for h, g in zip(host, gathered):
+                h.copy_(g, non_blocking=True)
+            marks[1].record()
+        else:
+            host = gathered
+        self.kv.allocator.deref(node.pages)
+        xfer = CacheTransfer("spill", sum(t.numel() * t.element_size() for t in gathered),
+                             node=node, gathered=gathered, host=host, marks=marks,
+                             seconds=time.perf_counter() - t0)
+        self._pending_spills.append(xfer)
+        return xfer
+
+    def _promote_node(self, req: Request, node, bucket: int) -> bool:
+        """Promote one spilled chunk for ``req``: allocate fresh pages, copy
+        the payload up (from its pinned buffers, non-blocking; or straight
+        from the device gather of a spill not drained yet) and install it
+        into the pages in place, all behind the window in flight.  The pages
+        join the lane; the node re-enters the device tier when the budget
+        allows, taking its own references.  False, with nothing installed,
+        on a missing or torn payload or unrecoverable page pressure: the
+        chunk then prefills."""
+        payload = self.prefix_cache.node_payload(node)
+        if payload is None:
+            return False
+        npg = bucket // self.page_size
+        chunk = payload.gathered if isinstance(payload, CacheTransfer) else payload
+        want = [(t.shape[0], npg, *t.shape[2:]) for t in self._pool]
+        if len(chunk) != len(want) or any(tuple(c.shape) != w or c.dtype != t.dtype
+                                          for c, w, t in zip(chunk, want, self._pool)):
+            return False
+        ids = self.kv.allocator.alloc(npg)
+        if ids is None:
+            if not self._reclaim_pages(npg, allow_preempt=False):
+                return False
+            ids = self.kv.allocator.alloc(npg)
+            if ids is None:
+                return False
+        t0 = time.perf_counter()
+        marks = self._marks()
+        source = () if isinstance(payload, CacheTransfer) else payload
+        chunk = tuple(c.to(self.device, non_blocking=True) for c in chunk)
+        promote_install(self._pool, chunk,
+                        torch.tensor(ids, dtype=torch.int64).to(self.device, non_blocking=True))
+        if marks:
+            marks[1].record()
+        self.kv.lane_append_owned(req.slot, ids)  # the lane takes the allocation's reference
+        if self.prefix_cache.promote_node(node, ids):
+            self.kv.allocator.ref(ids)
+        self._pending_promotions.append(CacheTransfer(
+            "promote", sum(c.numel() * c.element_size() for c in chunk), host=source,
+            marks=marks, seconds=time.perf_counter() - t0))
+        return True
+
+    def _settle(self, spills: List[CacheTransfer], promotions: List[CacheTransfer]) -> None:
+        """Land cache transfers (after the fetch of the window they rode, so
+        nothing waits): a spill's host buffers become its node's payload
+        unless the node moved on meanwhile (promoted, healed or dropped); a
+        promotion's source buffers are released.  Their times and bytes go
+        to ``stats``."""
+        st = self.stats
+        for xfer in spills:
+            st["spill_s"] += xfer.finish()
+            st["spill_bytes"] += xfer.nbytes
+            if self.prefix_cache is not None and xfer.node.host is xfer:
+                self.prefix_cache.settle_payload(xfer.node, xfer.host)
+        for xfer in promotions:
+            st["promote_s"] += xfer.finish()
+            st["promote_bytes"] += xfer.nbytes
+
+    def _hand_cache_traffic(self, hd: Optional[Readback]) -> None:
+        """Attach the cache transfers enqueued since the last dispatch to
+        ``hd``, the window dispatched after them (they settle at its drain),
+        or settle them now when no window is in flight."""
+        spills, promotions = self._pending_spills, self._pending_promotions
+        if not spills and not promotions:
+            return
+        self._pending_spills, self._pending_promotions = [], []
+        if hd is not None:
+            hd.spills.extend(spills)
+            hd.promotions.extend(promotions)
+        else:
+            self._settle(spills, promotions)
+
+    def prefix_cache_stats(self) -> dict:
+        """Prefix-cache health: hit and miss tokens, the hit rate, and the
+        cache's residency per tier (hit and miss only when it is off)."""
+        out = {"prefix_hit_tokens": self.stats["prefix_hit_tokens"],
+               "prefix_miss_tokens": self.stats["prefix_miss_tokens"]}
+        covered = out["prefix_hit_tokens"] + out["prefix_miss_tokens"]
+        out["hit_rate"] = out["prefix_hit_tokens"] / covered if covered else 0.0
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.stats())
+        return out
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every cached chunk from every tier, as the reference does at
+        a hot swap or a revive: land the window in flight and any transfer
+        still pending, release queued requests' pins, then flush.  Returns
+        the nodes removed."""
+        if self.prefix_cache is None:
+            return 0
+        self._drain_inflight()
+        self._hand_cache_traffic(None)
+        self.scheduler.drop_cache_pins()
+        return self.prefix_cache.flush()
 
     # ---------------------------------------------------------------- decode
     def _retire_lane(self, slot: int) -> int:
@@ -596,8 +889,9 @@ class ServingEngine:
 
     def _preempt(self) -> bool:
         """Preempt the youngest running lane: release its pages and requeue it
-        at the FRONT for replay over prompt + generated tokens (greedy replay
-        is token-exact; a sampled lane restarts its stream)."""
+        at the FRONT for replay over prompt + generated tokens, through the
+        prefix cache (its first life's full chunks hit; greedy replay is
+        token-exact; a sampled lane restarts its stream)."""
         victims = sorted((s for s in np.nonzero(self._active)[0]),
                          key=lambda s: self._slot_req[s].rid, reverse=True)
         for s in victims:
@@ -851,6 +1145,8 @@ class ServingEngine:
             st["draft_s"] += (hd.draft_marks[0].elapsed_time(hd.draft_marks[1]) / 1e3
                               if hd.draft_marks else hd.draft_s)
         self._emit(toks, counts, hd)
+        self._settle(hd.spills, hd.promotions)
+        hd.spills, hd.promotions = [], []
         if hd.deferred_pages:
             # the fetch proved the window done: its writes to detached
             # lanes' pages have landed, so the pages may recycle
@@ -902,10 +1198,14 @@ class ServingEngine:
     def step(self) -> None:
         """One engine iteration: pre-free the lanes the window in flight
         finishes, budgeted chunked-prefill admission, dispatch of one decode
-        cycle, then the drain of the window the pipeline hands back."""
+        cycle, then the drain of the window the pipeline hands back (with
+        the cache transfers that rode it)."""
         self._prefree_exhausted()
         self._admit()
         prev = self._dispatch()
+        # the window just dispatched runs after every cache transfer enqueued
+        # this step: they settle at its drain
+        self._hand_cache_traffic(self._inflight if self._inflight is not None else prev)
         if prev is not None:
             self._drain(prev)
 

@@ -2,10 +2,18 @@
 
 Port of :mod:`accelerate_tpu.serving.paging`.  KV lives in fixed-size pages;
 a lane owns a block table mapping logical positions to physical pages, pages
-are allocated as the lane grows, and refcounts let lanes alias a page.
-Allocation and refcounting are host-side numpy; the page arrays live on the
-device and are written in place by the model's forward (no donation: PyTorch
-updates the tensors themselves).
+are allocated as the lane grows, and refcounts let lanes and the prefix
+cache (:mod:`.prefix_cache`) alias a page.  Allocation and refcounting are
+host-side numpy; the page arrays live on the device and are written in
+place by the model's forward (no donation: PyTorch updates the tensors
+themselves).
+
+Sharing: the prefix cache holds one allocator reference per page of each
+device-tier node, every lane aliasing a cached prefix takes its own, and a
+page returns to the free list only at refcount zero.  Copy-on-write happens
+in one place: the page holding a lane's first decode write (position
+``prompt_len - 1``) when that page is shared; everything a lane writes after
+that lands in pages it owns alone.
 
 * :class:`PageAllocator` — the refcounted free list.  Page id ``0`` is the
   reserved **null page**: freed or frozen lanes' writes land there.
@@ -33,9 +41,7 @@ class PageAllocator:
     """Refcounted free-list allocator over ``num_pages`` physical pages.
 
     Page 0 is the permanently pinned null page.  The free list hands out
-    ascending ids deterministically (same workload, same tables).  Lanes
-    do not share pages in this slice (no prefix cache), so every allocated
-    page holds exactly one reference."""
+    ascending ids deterministically (same workload, same tables)."""
 
     def __init__(self, num_pages: int):
         self.num_pages = int(num_pages)
@@ -50,6 +56,11 @@ class PageAllocator:
     def free_count(self) -> int:
         return len(self._free)
 
+    @property
+    def used_count(self) -> int:
+        """Allocated pages (null excluded)."""
+        return self.num_pages - 1 - len(self._free)
+
     def alloc(self, n: int) -> Optional[List[int]]:
         """Take ``n`` pages (refcount 1 each) or ``None`` — all-or-nothing."""
         if n < 0:
@@ -59,6 +70,13 @@ class PageAllocator:
         ids = [self._free.pop() for _ in range(n)]
         self.refs[ids] += 1
         return ids
+
+    def ref(self, ids: Sequence[int]) -> None:
+        """One more reference on each of ``ids`` (aliasing a shared prefix)."""
+        for p in ids:
+            if self.refs[p] <= 0:
+                raise RuntimeError(f"ref() on unallocated page {p}")
+            self.refs[p] += 1
 
     def deref(self, ids: Sequence[int]) -> int:
         """Drop one reference per page; pages hitting zero return to the free
@@ -74,6 +92,11 @@ class PageAllocator:
                 self._free.append(p)
                 freed += 1
         return freed
+
+    def shared_extra_refs(self) -> int:
+        """Sum of ``max(refs - 1, 0)`` over real pages: how many page copies
+        sharing saves right now."""
+        return int(np.maximum(self.refs[1:] - 1, 0).sum())
 
 
 class PagedKVPool:
@@ -136,6 +159,31 @@ class PagedKVPool:
         self.tables[slot, n:n + len(ids)] = ids
         self.lane_npages[slot] = n + len(ids)
 
+    def lane_append_shared(self, slot: int, ids: Sequence[int]) -> None:
+        """Alias already resident pages (a prefix-cache hit): one new
+        reference per page, then map them.  No device work: the zero-copy
+        hit."""
+        self.allocator.ref(ids)
+        self.lane_append_owned(slot, ids)
+
+    def lane_replace(self, slot: int, page_slot: int, new_id: int) -> int:
+        """Copy-on-write bookkeeping: map logical slot ``page_slot`` to
+        ``new_id`` (allocated by the caller) and drop the lane's reference
+        on the old page.  Returns the old id (the copy's source)."""
+        old = int(self.tables[slot, page_slot])
+        self.tables[slot, page_slot] = new_id
+        self.allocator.deref([old])
+        return old
+
+    def chunk_ids(self, slot: int, start_page: int, n: int) -> List[int]:
+        """Physical ids behind ``n`` logical page slots from ``start_page``
+        (what the prefix cache retains for a freshly prefilled chunk)."""
+        return [int(p) for p in self.tables[slot, start_page:start_page + n]]
+
+    def lane_pages(self, slot: int) -> List[int]:
+        """Every physical id the lane maps, in logical order."""
+        return self.chunk_ids(slot, 0, int(self.lane_npages[slot]))
+
     def lane_detach(self, slot: int) -> List[int]:
         """Unmap the whole lane WITHOUT dropping its references: returns the
         page ids the caller must deref later (a window in flight may still
@@ -156,6 +204,13 @@ class PagedKVPool:
         """KV bytes one token costs across all layers at the storage dtype,
         the per-page scales amortized (``serve/kv_bytes_per_token``)."""
         return self.page_kv_bytes / self.page_size
+
+    def chunk_bytes(self, npages: int) -> int:
+        """Bytes ``npages`` pages of KV cost: K+V at the storage dtype plus
+        both per-page f32 scale slabs, the one unit every per-chunk budget
+        charges (``prefix_cache_mb``, ``prefix_host_mb``,
+        ``prefix_disk_mb``)."""
+        return int(npages) * self.page_kv_bytes
 
     def kv_bytes(self) -> int:
         """Device bytes held by the page and scale arrays (null page included)."""

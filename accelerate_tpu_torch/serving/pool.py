@@ -38,6 +38,13 @@ device scalar (0 for native pages), the reference's ``quant_err`` output
 * :class:`LaneState` — the per-lane decode vectors on the device; installing a
   request edits one slot of them in place.
 * :func:`plan_chunks` — split a prompt into bucket-sized prefill chunks.
+* :func:`copy_page`, :func:`spill_extract`, :func:`promote_install` — the
+  prefix cache's page traffic (``accelerate_tpu/serving/pool.py:1092-1180``):
+  a copy-on-write of one page, the gather of a spilled chunk's pages, and
+  the install of a promoted chunk into fresh pages.  The reference donates
+  the pool and rebinds it; here they write the engine's pool tensors in
+  place, because the windows' CUDA graphs read those very tensors.  Scales
+  ride along with their pages, so a quantized page moves exactly.
 """
 
 from __future__ import annotations
@@ -146,6 +153,41 @@ class LaneState:
         self.active[slot].fill_(False)
         self.sampled[slot].fill_(False)
         self.sampling[slot] = False
+
+
+_RAW = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its width: gathers and scatters move
+    them exactly, whatever the dtype (indexing float8 is not implemented on
+    every PyTorch build)."""
+    return t.view(_RAW[t.element_size()])
+
+
+def copy_page(pool: Sequence[torch.Tensor], src: int, dst: int) -> None:
+    """Copy-on-write: duplicate physical page ``src`` into ``dst`` in every
+    layer of ``pool = (pages_k, pages_v, k_scales, v_scales)``, scales
+    included, in place on the current stream."""
+    for t in pool:
+        r = _raw(t)
+        r[:, dst].copy_(r[:, src])
+
+
+def spill_extract(pool: Sequence[torch.Tensor], ids: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gather the pages ``ids [npages]`` (int64, on the pool's device) of
+    ``pool`` into new dense tensors ``(k [L, npages, page, Hkv, D], v,
+    k_scales [L, npages, Hkv], v_scales)``; the pool is only read."""
+    return tuple(_raw(t).index_select(1, ids).view(t.dtype) for t in pool)
+
+
+def promote_install(pool: Sequence[torch.Tensor], chunk: Sequence[torch.Tensor],
+                    ids: torch.Tensor) -> None:
+    """Install a spilled chunk ``chunk = (k, v, k_scales, v_scales)`` (as
+    :func:`spill_extract` returns it, on the pool's device) into the pages
+    ``ids``, in place."""
+    for t, c in zip(pool, chunk):
+        _raw(t).index_copy_(1, ids, _raw(c.to(t.dtype)))
 
 
 def _quant_err(cache: PagedKVCache, device) -> torch.Tensor:

@@ -15,12 +15,15 @@ point of a window, and it also proves the window's KV writes landed, which
 the deferred page release (:meth:`Readback.settle`) relies on.  On the CPU
 everything ran at dispatch and nothing waits.
 
-The reference's handle also holds ``consumed``, ``spills`` and
-``promotions``; this one does not.  ``consumed`` parks donated JAX buffers
-whose release would block on the window; PyTorch writes the engine's
-tensors in place and drops nothing a window still reads.  ``spills`` and
-``promotions`` carry prefix-cache traffic, and the prefix cache is not
-ported (ROADMAP Queue 1 item 6).
+The handle also carries the prefix cache's traffic enqueued in its cycle
+(:class:`CacheTransfer`): ``spills`` (a chunk's pages gathered on the card
+and copied into pinned host buffers, behind the work already on the stream)
+land their payloads at the drain, once the fetch proved the copies done;
+``promotions`` (a payload copied up and installed into fresh pages) keep
+their pinned source buffers referenced until then, because the copy reads
+them later.  The reference's handle also holds ``consumed``, which parks
+donated JAX buffers whose release would block on the window; PyTorch writes
+the engine's tensors in place and drops nothing a window still reads.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Readback", "stage"]
+__all__ = ["CacheTransfer", "Readback", "stage"]
 
 
 def stage(tensors: Sequence[Optional[torch.Tensor]]
@@ -57,6 +60,36 @@ def stage(tensors: Sequence[Optional[torch.Tensor]]
     ready = torch.cuda.Event()
     ready.record(torch.cuda.current_stream(device))
     return out, ready
+
+
+@dataclasses.dataclass
+class CacheTransfer:
+    """One prefix-cache transfer in flight: a spill (``kind="spill"``) or a
+    promotion (``"promote"``) of one chunk.
+
+    A spill's ``gathered`` are the chunk's pages and scales gathered on the
+    device (a promotion before the drain installs straight from them) and
+    ``host`` the buffers the device-to-host copies land in (the same
+    tensors on the CPU): its payload once settled.  A promotion keeps its
+    host source buffers in ``host`` until the drain.  ``marks`` are CUDA
+    events around the transfer on the stream (``None`` on the CPU, where
+    ``seconds`` is its host wall); ``nbytes`` the bytes it moved."""
+
+    kind: str
+    nbytes: int
+    node: object = None
+    gathered: Tuple[torch.Tensor, ...] = ()
+    host: Tuple[torch.Tensor, ...] = ()
+    marks: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+    seconds: float = 0.0
+
+    def finish(self) -> float:
+        """Wait for the transfer (nothing is left to wait for after its
+        window's fetch) and return its seconds on the stream."""
+        if self.marks is None:
+            return self.seconds
+        self.marks[1].synchronize()
+        return self.marks[0].elapsed_time(self.marks[1]) / 1e3
 
 
 @dataclasses.dataclass
@@ -98,6 +131,9 @@ class Readback:
     #: host [chunks] KV round-trip errors of the prefill chunks dispatched
     #: in this window's cycle, staged with its outputs
     prefill_qerrs: Optional[torch.Tensor] = None
+    #: prefix-cache spills and promotions enqueued before this window
+    spills: List[CacheTransfer] = dataclasses.field(default_factory=list)
+    promotions: List[CacheTransfer] = dataclasses.field(default_factory=list)
     fetched: bool = False
 
     def fetch(self) -> None:

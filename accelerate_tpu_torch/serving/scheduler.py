@@ -1,11 +1,18 @@
 """Host-side request scheduling for the continuous-batching engine.
 
-Port of :mod:`accelerate_tpu.serving.scheduler` without prefix-cache
-matching: a FCFS request queue, per-request
-:class:`~accelerate_tpu_torch.models.generation.GenerationConfig`,
+Port of :mod:`accelerate_tpu.serving.scheduler`: a FCFS request queue,
+per-request :class:`~accelerate_tpu_torch.models.generation.GenerationConfig`,
 chunked-prefill progress, and an admission policy bounded by a prefill-token
 budget per engine step (the Orca/Sarathi knob that keeps decode-step latency
-jitter bounded while new prompts stream in).  One request prefills at a time.
+jitter bounded while new prompts stream in).  One request prefills at a time
+(the reference's ``max_prefills=1``).
+
+With a :class:`~accelerate_tpu_torch.serving.prefix_cache.PrefixCache`
+attached, the scheduler also resolves prefix reuse: ``submit`` walks the
+radix tree for the longest cached chunk-aligned prefix and pins the matched
+nodes, ``start_next`` and ``requeue`` walk it again (requests admitted since
+may have populated more of it), and ``take_chunk`` charges cached chunks
+nothing against the prefill-token budget.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from collections import deque
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,7 +45,14 @@ class Request:
     (EOS included when hit, never the post-EOS padding).  ``speculate=False``
     opts the request out of drafting (it still rides along in verify
     windows other lanes trigger, with pad drafts that verification
-    rejects)."""
+    rejects).
+
+    Prefix-cache state: the first ``cached_chunks`` entries of ``chunks``
+    are covered by the pinned radix nodes at the head of ``cache_nodes``,
+    which also collects the nodes this request populates (released at
+    install); ``cache_chain_broken`` stops population once a chunk could
+    not be retained (a later chunk without its ancestors is unreachable);
+    ``cache_prefix=False`` opts the request out of reuse and population."""
 
     rid: int
     prompt: np.ndarray                      # [S] int32
@@ -50,6 +64,10 @@ class Request:
     chunks: Tuple[Tuple[int, int], ...] = ()
     next_chunk: int = 0
     speculate: bool = True
+    cache_prefix: bool = True
+    cached_chunks: int = 0
+    cache_nodes: List[Any] = dataclasses.field(default_factory=list)
+    cache_chain_broken: bool = False
 
     @property
     def done(self) -> bool:
@@ -81,12 +99,13 @@ class Scheduler:
     One request prefills at a time; its chunks are charged against
     ``prefill_token_budget`` each engine step, so a long prompt spreads
     across steps instead of stalling every running request for its whole
-    prefill (chunked prefill, Sarathi-style).  The first chunk of each step
-    runs even over budget, or a bucket wider than the budget could never run.
+    prefill (chunked prefill, Sarathi-style).  The first forward-pass chunk
+    of each step runs even over budget, or a bucket wider than the budget
+    could never run.  ``prefix_cache``: the engine's cache, or ``None``.
     """
 
     def __init__(self, prefill_buckets: Sequence[int], prefill_token_budget: int,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, prefix_cache=None):
         self.buckets = tuple(sorted(set(int(b) for b in prefill_buckets)))
         if not self.buckets:
             raise ValueError("need at least one prefill bucket")
@@ -103,6 +122,21 @@ class Scheduler:
         #: the request mid-prefill, if any
         self.prefilling: Optional[Request] = None
         self._chunk_this_step = False
+        self.prefix_cache = prefix_cache
+
+    def _match_prefix(self, request: Request) -> None:
+        """(Re)walk the radix tree for ``request``'s longest cached prefix and
+        pin the matched chain.  Pins of an earlier walk are released after
+        the new chain is acquired: the old nodes stay resident during the
+        walk, so the fresh match is equal or longer."""
+        if self.prefix_cache is None or not request.cache_prefix:
+            return
+        nodes = self.prefix_cache.match(request.prefill_tokens, request.chunks)
+        self.prefix_cache.acquire(nodes)
+        if request.cache_nodes:
+            self.prefix_cache.release(request.cache_nodes)
+        request.cache_nodes = list(nodes)
+        request.cached_chunks = len(nodes)
 
     def submit(self, request: Request) -> None:
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
@@ -112,16 +146,37 @@ class Scheduler:
                 queue_depth=depth, retry_after_s=min(30.0, 0.5 * depth), retriable=True,
             )
         request.chunks = plan_chunks(len(request.prefill_tokens), self.buckets)
+        self._match_prefix(request)
         self.queue.append(request)
 
     def requeue(self, request: Request) -> None:
         """Put a preempted RUNNING request back at the FRONT of the queue; it
-        replays prompt + generated tokens."""
+        replays prompt + generated tokens, re-planned into chunks and
+        re-matched against the prefix cache, so the replay aliases what the
+        request populated in its first life."""
         request.state = RequestState.QUEUED
         request.slot = None
         request.chunks = plan_chunks(len(request.prefill_tokens), self.buckets)
         request.next_chunk = 0
+        request.cached_chunks = 0
+        request.cache_chain_broken = False
+        self._match_prefix(request)
         self.queue.appendleft(request)
+
+    def drop_cache_pins(self) -> int:
+        """Release every queued request's prefix-cache pins (the engine's
+        last-resort page reclaim: pinned nodes block eviction, and a queued
+        request matches again at admission).  Returns requests unpinned."""
+        dropped = 0
+        if self.prefix_cache is None:
+            return 0
+        for req in self.queue:
+            if req.cache_nodes:
+                self.prefix_cache.release(req.cache_nodes)
+                req.cache_nodes = []
+                req.cached_chunks = 0
+                dropped += 1
+        return dropped
 
     @property
     def has_queued(self) -> bool:
@@ -144,27 +199,50 @@ class Scheduler:
         req = self.queue.popleft()
         req.state = RequestState.PREFILL
         req.slot = slot
+        # requests admitted since submit may have populated the chunks this
+        # one needs (the batch-submit case)
+        self._match_prefix(req)
         self.prefilling = req
         return req
 
+    @staticmethod
+    def _remaining_compute(req: Request) -> int:
+        """Tokens still needing a forward pass (cached chunks cost none):
+        the reference's shortest-remaining-first key among open prefills."""
+        skip = max(req.next_chunk, req.cached_chunks)
+        return sum(v for _, v in req.chunks[skip:])
+
     def take_chunk(self, budget: int, ready: Optional[Callable[[Request], bool]] = None,
-                   ) -> Optional[Tuple[Request, int, int, int]]:
+                   ) -> Optional[Tuple[Request, int, int, int, bool]]:
         """Next prefill chunk fitting ``budget``: ``(request, bucket_len,
-        valid_len, start)`` or None.  ``ready`` is an optional gate (the
-        engine's page check).  The first chunk since :meth:`begin_step`
-        ignores the budget."""
-        req = self.prefilling
-        if req is None or req.next_chunk >= len(req.chunks):
+        valid_len, start, cached)`` or None.  Among the open prefills (here
+        at most one) the pick is shortest-remaining-first, FCFS rid breaking
+        ties.  ``ready`` is an optional gate (the engine's page check).  A
+        cached chunk (covered by a pinned prefix-cache node) charges nothing
+        against the budget.  The first forward-pass chunk since
+        :meth:`begin_step` ignores the budget."""
+        best, best_key = None, None
+        for req in (() if self.prefilling is None else (self.prefilling,)):
+            if req.next_chunk >= len(req.chunks):
+                continue
+            bucket, _ = req.chunks[req.next_chunk]
+            cached = req.next_chunk < req.cached_chunks
+            if not cached and bucket > budget and self._chunk_this_step:
+                continue
+            if ready is not None and not ready(req):
+                continue
+            key = (self._remaining_compute(req), req.rid)
+            if best_key is None or key < best_key:
+                best, best_key = req, key
+        if best is None:
             return None
-        bucket, valid = req.chunks[req.next_chunk]
-        if bucket > budget and self._chunk_this_step:
-            return None
-        if ready is not None and not ready(req):
-            return None
-        start = sum(v for _, v in req.chunks[:req.next_chunk])
-        req.next_chunk += 1
-        self._chunk_this_step = True
-        return req, bucket, valid, start
+        bucket, valid = best.chunks[best.next_chunk]
+        cached = best.next_chunk < best.cached_chunks
+        start = sum(v for _, v in best.chunks[:best.next_chunk])
+        best.next_chunk += 1
+        if not cached:
+            self._chunk_this_step = True
+        return best, bucket, valid, start, cached
 
     def finish_prefill(self) -> Optional[Request]:
         """If the open prefill has run every chunk, hand it over for install."""

@@ -40,7 +40,9 @@ Phases, each printing one JSON line:
    512-token chunk at page 64 and a 128-token chunk at base 600 at page 16
    (its last tiles straddle the causal frontier and NaN-filled dead pages);
    then int8 and fp8 pages as for K1 (bf16 q on the tensor cores, the codes
-   converted to bf16 tiles; f32 q on the CUDA cores), and D 16 and 32.
+   converted to bf16 tiles; f32 q on the CUDA cores), D 16 and 32, and a
+   GQA group of 128 query heads per kv head (two q-blocks of 64 heads over
+   the same kv head's pages).
    Each record names its ``design`` (``wgmma`` for bf16 q over bf16, int8
    or fp8 pages at D 64/128, ``cuda-cores`` otherwise); every case must
    repeat bit for bit, and the bf16 records are also held per tile of 64
@@ -87,7 +89,27 @@ Phases, each printing one JSON line:
    token to the noise margin, count K1's launches exactly (one a layer per
    decode-window step and per verify forward, the tree arm's apart; the
    draft forward launches none) and print the drafted and accepted tokens,
-   tokens per verify forward and the draft's share of decode time.
+   tokens per verify forward and the draft's share of decode time.  These
+   engine lines run without the prefix cache (``prefix_cache_mb=0``), as
+   the workload's prompts share nothing.
+   ``engine_prefix``: the same engine with the prefix cache
+   (``prefix_cache_mb=1024``) serves 8 greedy requests of one shared
+   1024-token prefix (two full 512-token chunks) and distinct tails of
+   57-900 tokens; ``engine_prefix_tiers`` and ``engine_prefix_tiers_int8``
+   serve 9 requests of three 1024-token prefixes cycled A B C x 3 and tails
+   of 57-500 tokens under device, host and disk budgets of one, one and two
+   prefix chains, so chains spill to the host ring, then to the disk ring,
+   and are promoted back.  Each serves again with ``prefix_cache_mb=0``: the
+   greedy tokens must be identical, K2 must launch once a layer per
+   prefilled chunk and less than without the cache, no graph may be
+   captured during a serve, no promotion may degrade, and every page must
+   be free after ``flush_prefix_cache()``; ``engine_prefix`` must hit at
+   least 4 x 1024 tokens, the tier lines must spill, write to disk and hit
+   the host tier.  Each line prints hit and miss tokens, prefill chunks,
+   ``prefill_s`` and serve tokens/s with and without the cache,
+   copy-on-write copies, reclaim-ladder evictions, spills and promotions
+   with their GB/s (CUDA events around each transfer), the disk ring's
+   host seconds and the pinned host bytes in use.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -113,7 +135,8 @@ Phases, each printing one JSON line:
    weights as the yardstick of bf16 noise.
 8. the ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
-   their engine runs), the card's name and power limit, and
+   their engine runs; K1 and K2 also with ``engine_prefix``'s launches),
+   the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero before the last
@@ -125,10 +148,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -609,7 +634,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
 
     def new_engine():
         kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
-                  kv_dtype=kv_dtype, device="cuda", **(spec or {}))
+                  kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda", **(spec or {}))
         if eager:
             return ServingEngine._eager(model, None, async_depth=0, **kw)
         return ServingEngine(model, None, **kw)
@@ -740,6 +765,168 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
         check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
               f"forward's best logit by more than the noise margin {margin}")
     return launches, prompts, [r.tokens for r in reqs]
+
+
+# ------------------------------------------------------------- prefix cache
+PREFIX_LEN = 1024  # a shared system prefix: two full 512-token chunks
+
+
+def chain_mb(cfg, kv_dtype, chains: float) -> float:
+    """MiB of ``chains`` cached ``PREFIX_LEN``-token prefixes (two 512-token
+    chunks of four 128-token pages) at the page format, scales included:
+    the engine's ``chunk_bytes`` unit, so a budget of one chain holds
+    exactly one."""
+    from accelerate_tpu_torch.ops.paged_attention import kv_storage_dtype
+
+    itemsize = torch.tensor([], dtype=kv_storage_dtype(kv_dtype, cfg.dtype)).element_size()
+    page_bytes = 2 * (128 * cfg.num_kv_heads * cfg.resolved_head_dim * cfg.num_layers * itemsize
+                      + cfg.num_layers * cfg.num_kv_heads * 4)
+    return chains * (PREFIX_LEN // 128) * page_bytes / 2**20
+
+
+def prefix_prompts(rng, cfg, prefixes: int, tails) -> list:
+    """Prompts of a ``PREFIX_LEN``-token prefix (``prefixes`` distinct ones,
+    cycled A B C A B C ...) and a distinct random tail of each length in
+    ``tails``.  The prefix is exactly the first two chunks of every plan:
+    the cacheable ones."""
+    from accelerate_tpu_torch.serving.pool import plan_chunks
+
+    heads = [rng.integers(1, cfg.vocab_size, PREFIX_LEN).astype(np.int32)
+             for _ in range(prefixes)]
+    prompts = []
+    for i, n in enumerate(tails):
+        prompt = np.concatenate([heads[i % prefixes],
+                                 rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)])
+        check(plan_chunks(len(prompt), (128, 512))[:2] == ((512, 512), (512, 512)),
+              f"a {len(prompt)}-token prompt's plan does not start with two full 512 chunks")
+        prompts.append(prompt)
+    return prompts
+
+
+def prefix_engine(model, kv_dtype=None, device="cuda", **knobs):
+    """The ``engine`` phase's engine, with the prefix-cache ``knobs``."""
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(model, None, num_slots=4, max_len=2048, prefill_buckets=(128, 512),
+                         decode_window=4, kv_dtype=kv_dtype, device=device, **knobs)
+
+
+def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) -> dict:
+    """Serve ``prompts`` (48 greedy new tokens each) through the engine of
+    the ``engine`` phase with the prefix cache (``knobs``), then through the
+    same engine with ``prefix_cache_mb=0``: the greedy tokens must be
+    identical (a hit replays the KV a prefill would have written, bit for
+    bit, and K2 is deterministic).  The launch counters are zeroed just
+    before each serve and read just after: K2 once a layer per prefilled
+    chunk, fewer with the cache; K1 once a layer per decode step.  No graph
+    is captured during a serve, no promotion degrades, and after
+    ``flush_prefix_cache()`` every page is free again."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    gen = GenerationConfig(max_new_tokens=48)
+    runs = {}
+    for mode, kw in (("on", knobs), ("off", dict(prefix_cache_mb=0))):
+        engine = prefix_engine(model, kv_dtype, **kw)
+        idle_free = engine.kv.allocator.free_count
+        captures = engine.stats["graph_captures"]
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = engine.serve(prompts, configs=gen)
+        wall = time.perf_counter() - t0
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "paged_flash_prefill": pa.paged_flash_prefill.launches}
+        st = dict(engine.stats)
+        check(all(len(r.tokens) == 48 and r.done for r in reqs),
+              f"{name} ({mode}): a request did not finish 48 tokens")
+        check(launches["paged_flash_prefill"] == st["prefill_chunks"] * cfg.num_layers,
+              f"{name} ({mode}): prefill kernel launches {launches['paged_flash_prefill']} != "
+              f"{st['prefill_chunks']} chunks x {cfg.num_layers} layers")
+        check(launches["paged_attention"] == st["decode_steps"] * cfg.num_layers > 0,
+              f"{name} ({mode}): decode kernel launches {launches['paged_attention']} != "
+              f"{st['decode_steps']} steps x {cfg.num_layers} layers")
+        check(st["graph_captures"] == captures, f"{name} ({mode}): graphs captured during "
+              f"the serve: {captures} -> {st['graph_captures']}")
+        cache = engine.prefix_cache_stats()
+        # the caching host allocator's pinned bytes in use, before the flush
+        # frees the host ring's payloads
+        pinned = {k: v for k, v in torch.cuda.host_memory_stats().items()
+                  if k in ("allocated_bytes.current", "allocated_bytes.peak")}
+        engine.flush_prefix_cache()
+        check(engine.kv.allocator.free_count == idle_free,
+              f"{name} ({mode}): KV pages leaked: {engine.kv.allocator.free_count} free after "
+              f"the flush, {idle_free} at construction")
+        runs[mode] = dict(tokens=[r.tokens for r in reqs], stats=st, cache=cache, wall=wall,
+                          launches=launches, pinned=pinned)
+        # the cache's hooks are the engine's bound methods: a reference
+        # cycle, so the engine's pool and graphs free only at a collection
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    st = on["stats"]
+    check(on["tokens"] == off["tokens"],
+          f"{name}: greedy tokens with the prefix cache differ from the cache-off serve")
+    check(on["launches"]["paged_flash_prefill"] < off["launches"]["paged_flash_prefill"],
+          f"{name}: the cache saved no prefill launch ({on['launches']} vs {off['launches']})")
+    check(st["promote_degraded"] == 0, f"{name}: {st['promote_degraded']} promotions degraded")
+    tokens = sum(len(t) for t in on["tokens"])
+
+    def gb_per_s(nbytes, seconds):
+        return nbytes / seconds / 1e9 if seconds else None
+
+    rec = {
+        "phase": name, "kv_dtype": kv_dtype, "knobs": knobs, "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts], "new_tokens": 48,
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "prefix_hit_tokens_host": st["prefix_hit_tokens_host"],
+        "prefix_miss_tokens": st["prefix_miss_tokens"], "hit_rate": on["cache"]["hit_rate"],
+        "cow_copies": st["cow_copies"], "reclaim_evictions": st["reclaim_evictions"],
+        "promote_degraded": st["promote_degraded"], "cache": on["cache"],
+        "spills": on["cache"]["spills"], "promotions": on["cache"]["promotions"],
+        "disk_writes": on["cache"]["disk_writes"],
+        "spill_gb_per_s": gb_per_s(st["spill_bytes"], st["spill_s"]),
+        "spill_bytes": st["spill_bytes"], "spill_s": st["spill_s"],
+        "promote_gb_per_s": gb_per_s(st["promote_bytes"], st["promote_s"]),
+        "promote_bytes": st["promote_bytes"], "promote_s": st["promote_s"],
+        "host_ring_bytes_at_end": on["cache"]["host_bytes"], "disk_s": on["cache"]["disk_s"],
+        "pinned_host_bytes": on["pinned"],
+        "prefill_chunks": {"on": st["prefill_chunks"], "off": off["stats"]["prefill_chunks"]},
+        "prefill_s": {"on": st["prefill_s"], "off": off["stats"]["prefill_s"]},
+        "serve_tokens_per_s": {"on": tokens / on["wall"], "off": tokens / off["wall"]},
+        "wall_s": {"on": on["wall"], "off": off["wall"]},
+        "launches": {"on": on["launches"], "off": off["launches"]},
+        "gpu": gpu,
+    }
+    emit(rec)
+    return rec
+
+
+def prefix_phases(model, cfg, rng, gpu) -> dict:
+    """``engine_prefix``: one shared system prefix before 8 distinct tails of
+    57-900 tokens, a 1 GiB device budget; ``engine_prefix_tiers`` (bf16,
+    then int8 pages): three prefixes cycled A B C x 3 before tails of
+    57-500 tokens, under a device budget of one prefix chain, a host ring
+    of one and a disk ring of two, so chains demote to the host, then to
+    disk, and come back.  Returns ``engine_prefix``'s launches."""
+    shared = prefix_phase(model, cfg, gpu, "engine_prefix",
+                          prefix_prompts(rng, cfg, 1, np.linspace(57, 900, 8).astype(int)),
+                          prefix_cache_mb=1024.0)
+    check(shared["prefix_hit_tokens"] >= 4 * PREFIX_LEN,
+          f"engine_prefix: {shared['prefix_hit_tokens']} hit tokens, want >= {4 * PREFIX_LEN}")
+    prompts = prefix_prompts(rng, cfg, 3, np.linspace(57, 500, 9).astype(int))
+    for kv_dtype in (None, "int8"):
+        with tempfile.TemporaryDirectory() as disk:
+            rec = prefix_phase(
+                model, cfg, gpu, "engine_prefix_tiers" + ("" if kv_dtype is None else "_int8"),
+                prompts, kv_dtype=kv_dtype, prefix_cache_mb=chain_mb(cfg, kv_dtype, 1),
+                prefix_host_mb=chain_mb(cfg, kv_dtype, 1),
+                prefix_disk_mb=chain_mb(cfg, kv_dtype, 2), prefix_disk_dir=disk)
+        check(rec["spills"] > 0 and rec["disk_writes"] > 0 and rec["prefix_hit_tokens_host"] > 0,
+              f"{rec['phase']}: the tiers were not exercised: {rec['spills']} spills, "
+              f"{rec['disk_writes']} disk writes, {rec['prefix_hit_tokens_host']} host hits")
+    return shared["launches"]["on"]
 
 
 # --------------------------------------------------------------- flash attn
@@ -1177,6 +1364,10 @@ def main() -> int:
         ("gqa_d32_chunk128_base640", 63, [640], 128, 32, 8, f32, 128, 32),
         ("gqa_d16_chunk128_base640", 64, [640], 128, 32, 8, bf16, 128, 16, "fp8"),
         ("gqa_d32_chunk128_base640", 65, [640], 128, 32, 8, f32, 128, 32, "int8"),
+        # a GQA group of 128 query heads per kv head: two q-blocks of 64 heads
+        # over the same kv head's pages
+        ("gqa128_chunk128_base640", 66, [640], 128, 128, 1, bf16, 128),
+        ("gqa128_chunk128_base640", 67, [640], 128, 128, 1, f32, 128),
     ], k2_describe, k2_checks)
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
@@ -1203,6 +1394,7 @@ def main() -> int:
     segment = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)
     engine_phase(model, cfg, rng, gpu, tol, prompts=[np.resize(segment, n) for n in ENGINE_LENS],
                  name="engine_spec", spec=dict(speculate_k=4))
+    prefix_launches = prefix_phases(model, cfg, rng, gpu)
     del model
     torch.cuda.empty_cache()
 
@@ -1258,6 +1450,9 @@ def main() -> int:
         for key in ("design", "pages", "arm"):
             if key in rec:
                 kernels[-1][key] = rec[key]
+        if name in prefix_launches:
+            # the prefix cache's path, its counts zeroed just before its serve
+            kernels[-1]["launches_engine_prefix"] = prefix_launches[name]
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -342,14 +342,17 @@ def test_quantized_pages_need_scales(card):
             fn(*args[:5])
 
 
-def test_prefill_refuses_a_group_wider_than_a_q_block(card):
-    """A GQA group of 65 query heads per kv head does not fit K2's 64-row
-    q-block: the wrapper names the limit before any launch."""
-    args = _case(card, [5], 4, 65, 1, 64, 16, 2, torch.float32)
-    launches = pa.paged_flash_prefill.launches
-    with pytest.raises(ValueError, match="64 folded rows"):
-        pa.paged_flash_prefill(*args)
-    assert pa.paged_flash_prefill.launches == launches
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq", [65, 128, 192])
+def test_prefill_splits_a_group_wider_than_a_q_block(card, dtype, hq):
+    """A GQA group of more query heads per kv head than K2's 64-row q-block
+    splits into q-blocks of head groups (65: five of 13; 128: two of 64;
+    192: three of 64) over the same kv head's pages, in both arms, and
+    matches the plain version."""
+    args = _case(card, [5, 130], 40, hq, 1, 64, 16, 12, dtype)
+    out = pa.paged_flash_prefill(*args)
+    ref = pa.paged_flash_prefill_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["k2"][dtype], rtol=0)
 
 
 TREES = {"2x4": TreeSpec(2, 4).anc, "3x3": TreeSpec(3, 3).anc, "31x1": TreeSpec(31, 1).anc,
@@ -587,14 +590,15 @@ def test_tiny_engine_on_card_matches_cpu_engine(card, kv_dtype):
         assert errs["cpu"] > 0.0 and errs[str(card)] > 0.0
 
 
-def _lockstep_engines(card, knobs, steps=None):
+def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24)):
     """A graph engine (the default) and an eager one (``ServingEngine._eager``),
     both synchronous so that each step drains its window, on one f32 tiny
     model: the same requests stepped in turn, every state the windows write
     (pages, scales, pending tokens, draft tokens) and every token compared
     bitwise after each step.  One request samples, so both variants of each
     window run.  The null page is left out: it is the garbage sink of
-    inactive lanes, never read."""
+    inactive lanes, never read.  The prompts are one random segment tiled
+    to ``lens``; the prefix cache is off unless ``knobs`` set it."""
     cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
                                  max_seq_len=128)
     model = Transformer(cfg, device=card)
@@ -602,11 +606,11 @@ def _lockstep_engines(card, knobs, steps=None):
                           assign=True)
     rng = np.random.default_rng(9)
     segment = rng.integers(1, 256, 12).astype(np.int32)
-    prompts = [np.resize(segment, n) for n in (17, 30, 9, 24)]
-    configs = [GenerationConfig(max_new_tokens=20)] * 3 + [
+    prompts = [np.resize(segment, n) for n in lens]
+    configs = [GenerationConfig(max_new_tokens=20)] * (len(lens) - 1) + [
         GenerationConfig(max_new_tokens=20, do_sample=True, temperature=0.8, top_k=20)]
     kw = dict(num_slots=2, max_len=128, prefill_buckets=(16, 32), decode_window=3,
-              async_depth=0, device=card, **knobs)
+              async_depth=0, device=card, **{"prefix_cache_mb": 0, **knobs})
     graphed = ServingEngine(model, None, **kw)
     eager = ServingEngine._eager(model, None, **kw)
     captures = graphed.stats["graph_captures"]
@@ -652,23 +656,98 @@ def test_window_graphs_replay_the_eager_windows(card, kind, kv_dtype):
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
-def test_pipelined_dispatch_does_not_synchronise(card, kv_dtype):
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_graph_replay_reads_copied_and_promoted_pages(card, kind, kv_dtype):
+    """With the prefix cache and its host ring, lanes alias cached pages,
+    copy their tail page on write (the 16-token prompts hit their whole
+    prompt) and promote spilled chunks into fresh pages, all in place:
+    each graph replay after such an edit is bitwise the eager window on
+    the same pages, and the tokens are equal."""
+    knobs = {"decode": {}, "verify": dict(speculate_k=2)}[kind]
+    kw = dict(kv_dtype=kv_dtype, prefix_cache_mb=0.004 if kv_dtype else 0.016,
+              prefix_host_mb=8.0, **knobs)
+    engine = _lockstep_engines(card, kw, lens=(16, 40, 17, 16, 33, 24, 16, 50))
+    st = engine.stats
+    assert st["cow_copies"] > 0 and st["prefix_hit_tokens"] > 0
+    assert st["prefix_hit_tokens_host"] > 0 and st["promote_degraded"] == 0
+
+
+@pytest.mark.parametrize("fmt", [None, "bf16", "int8", "fp8"])
+def test_spill_payload_round_trips_bit_for_bit(card, fmt, tmp_path):
+    """A chunk's pages and scales gathered on the card, copied into pinned
+    host buffers (``stage``), through the disk ring's file, and installed
+    back into other pages: the bits come back, and the pool tensors keep
+    their storage through ``copy_page`` and ``promote_install``."""
+    from accelerate_tpu_torch.serving.pool import copy_page, promote_install, spill_extract
+    from accelerate_tpu_torch.serving.prefix_cache import load_payload, save_payload
+    from accelerate_tpu_torch.serving.readback import stage
+
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=64)
+    kv = PagedKVPool(cfg, 2, 64, 8, 17, kv_dtype=fmt, device=card)
+    pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales)
+    gen = torch.Generator(device=card).manual_seed(0)
+    for t in pool:
+        raw = t.view(torch.uint8) if t.element_size() == 1 else t
+        if t.element_size() == 1:
+            # every code but the fp8 NaN patterns
+            raw.copy_(torch.randint(0, 0x7F, t.shape, generator=gen, device=card,
+                                    dtype=torch.uint8))
+        else:
+            raw.copy_(torch.randn(t.shape, generator=gen, device=card))
+    ptrs = [t.data_ptr() for t in pool]
+    ids = torch.tensor([3, 9], device=card)
+    gathered = spill_extract(pool, ids)
+    host, ready = stage(gathered)
+    ready.synchronize()
+    assert all(h.is_pinned() for h in host)
+    path = str(tmp_path / "chunk.npz")
+    save_payload(path, tuple(host))
+    back = load_payload(path)
+    dst = torch.tensor([12, 5], device=card)
+    promote_install(pool, tuple(b.to(card, non_blocking=True) for b in back), dst)
+    copy_page(pool, 12, 14)
+    for t in pool:
+        bits = t.view(torch.uint8) if t.element_size() == 1 else t
+        assert torch.equal(bits[:, 12], bits[:, 3]) and torch.equal(bits[:, 5], bits[:, 9])
+        assert torch.equal(bits[:, 14], bits[:, 3])
+    assert [t.data_ptr() for t in pool] == ptrs
+
+
+@pytest.mark.parametrize("prefix", ["off", "tiers"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_pipelined_dispatch_does_not_synchronise(card, kv_dtype, prefix, tmp_path):
     """Admission and the dispatch of every cycle of the depth-1 pipeline run
     under ``torch.cuda.set_sync_debug_mode("error")``: nothing waits for
-    the window in flight except the drain.  Greedy tokens equal the CPU
-    engine's."""
+    the window in flight except the drain, also with the prefix cache
+    spilling to its host and disk rings and promoting back (``tiers``).
+    Greedy tokens equal the CPU engine's; after a flush every page is
+    free."""
     cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
                                  max_seq_len=128)
     sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(6)
     prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 19, 33, 8, 12)]
+    cache = dict(prefix_cache_mb=0)
+    if prefix == "tiers":
+        # three 32-token prefixes cycled A B C A ..., device and host budgets
+        # of one 32-token chunk each, a disk ring behind them
+        heads = [rng.integers(1, 256, 32).astype(np.int32) for _ in range(3)]
+        prompts = [np.concatenate([heads[i % 3], p]) for i, p in enumerate(prompts + prompts[:4])]
+        one = PagedKVPool(cfg, 2, 128, 16, 17, kv_dtype=kv_dtype,
+                          device="cpu").chunk_bytes(2) / 2**20
+        cache = dict(prefix_cache_mb=one, prefix_host_mb=one, prefix_disk_mb=1.0)
     gen = GenerationConfig(max_new_tokens=12)
     out = {}
     for dev in ("cpu", card):
         model = Transformer(cfg, device=dev)
+        disk = tmp_path / str(dev)
+        disk.mkdir()
+        if prefix == "tiers":
+            cache["prefix_disk_dir"] = str(disk)
         engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
                                max_len=128, prefill_buckets=(16, 32), decode_window=3,
-                               kv_dtype=kv_dtype, device=dev)
+                               kv_dtype=kv_dtype, device=dev, **cache)
         reqs = [engine.submit(p, config=gen) for p in prompts]
         while engine.has_work:
             engine._prefree_exhausted()
@@ -685,12 +764,18 @@ def test_pipelined_dispatch_does_not_synchronise(card, kv_dtype):
                     torch.cuda.set_sync_debug_mode(0)
             if not engine._active.any():
                 prev = engine._dispatch()
+            engine._hand_cache_traffic(engine._inflight if engine._inflight is not None
+                                       else prev)
             if prev is not None:
                 engine._drain(prev)
         out[str(dev)] = [r.tokens for r in reqs]
+        engine.flush_prefix_cache()
         assert engine.kv.allocator.free_count == engine.num_pages - 1
     assert out["cpu"] == out[str(card)]
     assert engine.stats["prefreed_lanes"] > 0 and engine.stats["graph_replays"] > 0
+    if prefix == "tiers":
+        st = engine.prefix_cache_stats()
+        assert st["spills"] > 0 and st["promotions"] > 0 and st["disk_writes"] > 0
 
 
 def test_failed_capture_raises(card, monkeypatch):

@@ -54,6 +54,8 @@ from accelerate_tpu_torch.weights import params_from_jax
 REPO = Path(__file__).resolve().parents[1]
 ENGINE_KW = dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), prefill_token_budget=8,
                  decode_window=2)
+#: the port's engines here run without the prefix cache, as the JAX engines do
+CACHE_OFF = dict(prefix_cache_mb=0)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -86,7 +88,7 @@ def _prompts(seed, lens):
 
 
 def _serve(model, params, prompts, gen, **kw):
-    engine = ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+    engine = ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **CACHE_OFF, **kw})
     reqs = engine.serve([p.copy() for p in prompts], configs=gen)
     return engine, [r.tokens for r in reqs]
 
@@ -232,7 +234,7 @@ def test_admission_refusals(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False), "5"), (dict(prefix_cache_mb=64.0), "6"),
+    (dict(paged=False), "5"),
     (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
     (dict(draft_model="ckpt/dir#1"), "2"),
 ])

@@ -125,6 +125,9 @@ PREFILL_CASES = [
     (2, 40, 16, 8, 1, 2, 16),   # four pages per tile, GQA rep 2
     (1, 80, 64, 3, 2, 1, 16),   # a tile is a page
     (2, 70, 128, 3, 2, 2, 32),  # two tiles per page, GQA rep 2
+    # a GQA group of 128 query heads per kv head: K2 splits it into two
+    # q-blocks of 64 over the same kv head's pages
+    (2, 8, 8, 4, 1, 128, 16),
 ]
 
 

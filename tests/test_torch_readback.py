@@ -54,6 +54,8 @@ from accelerate_tpu_torch.weights import params_from_jax
 
 ENGINE_KW = dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), prefill_token_budget=8,
                  decode_window=2)
+#: the port's engines here run without the prefix cache, as the JAX engines do
+CACHE_OFF = dict(prefix_cache_mb=0)
 #: the p-value a chi-square test of the sampler must exceed
 CHI2_P_MIN = 1e-3
 
@@ -88,7 +90,7 @@ def _prompts(seed, lens):
 
 
 def _serve(model, prompts, configs, **kw):
-    engine = ServingEngine(model, None, device="cpu", **{**ENGINE_KW, **kw})
+    engine = ServingEngine(model, None, device="cpu", **{**ENGINE_KW, **CACHE_OFF, **kw})
     reqs = engine.serve([p.copy() for p in prompts], configs=configs)
     return engine, [r.tokens for r in reqs]
 
@@ -149,7 +151,7 @@ def test_deferred_pages_wait_for_their_window(models):
     lanes and preempts, so pages are deferred; the free count returns to
     idle."""
     _, _, model = models
-    engine = ServingEngine(model, None, device="cpu", num_pages=17, **ENGINE_KW)
+    engine = ServingEngine(model, None, device="cpu", num_pages=17, **ENGINE_KW, **CACHE_OFF)
     allocator, kv = engine.kv.allocator, engine.kv
     handed, deferred = [], []
     alloc, detach = allocator.alloc, kv.lane_detach
