@@ -538,7 +538,12 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
     bf16 operands with f32 sums, the probabilities rounded to bf16 before
     P.V), else on the CUDA cores in f32.  A GQA group of more than
     :data:`PREFILL_MAX_GROUP` query heads per kv head splits into q-blocks
-    of its head groups, in both arms."""
+    of its head groups, in both arms.  Graph-safe: the tensor-core arm's
+    three TMA tensor maps (q, K and V pages) are encoded on the host at the
+    call and passed as ``__grid_constant__`` kernel parameters, so a CUDA
+    graph's capture keeps them and its replays encode nothing (the engine's
+    prefill-chunk graphs; ``q`` then lives at a fixed address of the graph's
+    pool)."""
     if q.device.type == "cpu":
         return paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
                                              k_scales=k_scales, v_scales=v_scales)

@@ -1,27 +1,34 @@
-"""Where the serving path's time goes on the card: the engine's two loops, A/B.
+"""Where the serving path's time goes on the card: the engine's loops, A/B.
 
     python -m accelerate_tpu_torch.profile_engine [--kv-dtype bf16 int8 fp8]
 
 Builds the Llama-2-7B geometry (bf16, random weights from a seed) and, for
 each KV storage format (``--kv-dtype``; default the model's bf16), serves
-the ``chip_smoke.py`` engine workload in two modes: ``graphs`` — the engine
-as a user makes it, every window a CUDA graph replay, the depth-1
-pipelined loop (``async_depth=1``); ``eager`` — the same windows launch by
-launch with the synchronous loop (``async_depth=0``), reached through the
-private hook ``ServingEngine._eager``.  A first eager serve warms up (kernel
-build, allocator, cuBLAS handles) and records each paged kernel call's
-bound at the engine's own shapes (each call's lengths and widths, through
-:func:`paged_bound_ms`); then timed serves run in turns (graphs, eager,
-eager, graphs), each engine made before the clock; then one serve of each
-mode under ``torch.profiler`` (recording the card only) gives device
-time by kernel.  Prints one JSON object per format: for each mode, wall seconds, decode ms per step
-(the engine's ``decode_s`` over its decode steps), tokens per second over
-the serve's wall, the device's busy share of the profiled and of the timed
-wall, CUDA kernel launches per layer-step, the top device-time entries,
-and for the paged kernels (K1 decode, K2 prefill) their launches, device
-ms per launch and mean bound per launch; beside them the decode step's
-weight-read bound (the weights' bytes over the card's memory rate).
-Needs a CUDA card.
+the ``chip_smoke.py`` engine workload in four modes: ``graphs`` — the
+engine as a user makes it, every window and every prefill bucket's chunk a
+CUDA graph replay, the depth-1 pipelined loop (``async_depth=1``);
+``eager_chunks`` — the same with the chunks launch by launch (the loop
+before the chunk graphs, through the private hook
+``ServingEngine._eager_chunks``); ``interleave`` — ``graphs`` with
+``interleave_prefill=True``; ``eager`` — windows and chunks launch by launch
+with the synchronous loop (``async_depth=0``, ``ServingEngine._eager``).  A
+first eager serve warms up (kernel build, allocator, cuBLAS handles) and
+records each paged kernel call's bound at the engine's own shapes (each
+call's lengths and widths, through :func:`paged_bound_ms`); then timed
+serves run in turns (the modes, then the modes reversed), each engine made
+before the clock; then one serve of each mode under ``torch.profiler``
+(recording the card only) gives device time by kernel.  Prints one JSON
+object per format: for each mode, wall seconds, ``prefill_s``, decode ms
+per step (the engine's ``decode_s`` over its decode steps), tokens per
+second over the serve's wall, the peak of allocated device memory over
+the engine's construction and serve, the device's busy share of the
+profiled and of the timed wall, CUDA kernel launches per layer-step, the
+top device-time entries, and for the paged kernels (K1 decode, K2 prefill)
+their launches, device ms per launch and mean bound per launch; beside
+them the decode step's weight-read bound (the weights' bytes over the
+card's memory rate) and, per prefill bucket, one chunk's ms replayed from
+its graph and run launch by launch beside the chunk's bound
+(:func:`chunk_times`).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -72,28 +79,115 @@ def paged_bound_ms(lengths, s, hq, hkv, d, dtype, page_dtype=None, page=None) ->
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def chunk_bound_ms(model, bucket: int, base: int, page_dtype=None, page: int = 128) -> tuple:
+    """Least time for one prefill chunk of ``bucket`` tokens at positions
+    ``base ..`` through the model's layer stack (the chunk program stops
+    before the LM head): the layers' weights, the chunk's embedding rows and
+    the ``base`` prior tokens' K/V read once, the chunk's K/V written once
+    (in ``page_dtype``, with each live page's two f32 scales for quantized
+    pages), against 2 flops per matrix weight per token plus 4 * D flops per
+    visible (query head, key) pair a layer, at the model's compute rate.
+    Returns ``(ms, "bytes" or "operations")``."""
+    cfg = model.config
+    act = torch.tensor([], dtype=cfg.dtype).element_size()
+    page_dtype = page_dtype or cfg.dtype
+    kv = torch.tensor([], dtype=page_dtype).element_size()
+    hd = cfg.resolved_head_dim
+    matrices = [m.weight for m in model.layers.modules() if isinstance(m, torch.nn.Linear)]
+    nbytes = sum(p.numel() * p.element_size() for p in model.layers.parameters())
+    nbytes += bucket * cfg.hidden_size * model.embed_tokens.weight.element_size()
+    nbytes += 2 * cfg.num_layers * (base + bucket) * cfg.num_kv_heads * hd * kv
+    if kv_qmax(page_dtype) is not None:
+        nbytes += 2 * 4 * cfg.num_layers * cfg.num_kv_heads * -(-(base + bucket) // page)
+    pairs = base * bucket + bucket * (bucket + 1) // 2
+    flops = (2 * sum(w.numel() for w in matrices) * bucket
+             + 4 * hd * cfg.num_heads * pairs * cfg.num_layers)
+    peak = PEAK_FLOPS[torch.float32 if act == 4 else torch.bfloat16]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``iters`` calls
+    (after ``warmup``), nothing synchronised between them, so a call whose
+    host time exceeds its card time is timed by its host."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+#: (bucket, base) of the chunks :func:`chunk_times` times: the first chunk
+#: of a prompt, and a chunk behind 640 tokens of earlier pages
+CHUNK_CASES = ((512, 0), (128, 0), (128, 640))
+
+
+def chunk_times(engine: ServingEngine, iters: int = 10) -> list:
+    """One prefill chunk per :data:`CHUNK_CASES` entry on ``engine`` (made
+    with its chunk graphs; idle): the bucket's graph replayed and the same
+    program launch by launch (as ``_eager`` engines and the parent's loop
+    run it), each timed by :func:`time_ms` over ``iters`` back-to-back
+    calls, beside :func:`chunk_bound_ms`.  The table maps pages ``1 ..`` of
+    the pool, and the tokens are drawn from a seed: the chunk's work is a
+    real one, written into pages no request holds."""
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    cfg = engine.model.config
+    engine._chunk_table.copy_(torch.arange(1, engine.kv.pages_per_lane + 1,
+                                           dtype=torch.int32)[None])
+    out = []
+    for bucket, base in CHUNK_CASES:
+        engine._chunk_tokens[bucket].copy_(torch.randint(
+            1, cfg.vocab_size, (1, bucket), generator=gen, device=engine.device))
+        engine._chunk_base.fill_(base)
+        key = engine._chunk_key(bucket)
+        bound, by = chunk_bound_ms(engine.model, bucket, base, engine.kv.storage_dtype,
+                                   engine.page_size)
+        out.append({"bucket": bucket, "base": base,
+                    "graph_ms": time_ms(lambda: engine.graphs.replay(key), iters),
+                    "eager_ms": time_ms(engine._chunks[bucket], iters),
+                    "bound_ms": bound, "bound_by": by})
+    return out
+
+
+#: the engine's loops, for the A/B: the engine as a user makes it (window
+#: and chunk graphs, the depth-1 pipeline), the same with eager chunks,
+#: the same with interleaved prefill, and eager windows and chunks with
+#: the synchronous loop
+MODES = ("graphs", "eager_chunks", "interleave", "eager")
+
+
 def _engine(model, kv_dtype=None, mode="graphs") -> ServingEngine:
-    """A new engine for the workload, without the prefix cache (the
-    workload's prompts share nothing): ``mode`` ``"graphs"`` is the engine as
-    a user makes it (CUDA graphs captured here, ``async_depth=1``);
-    ``"eager"`` its eager windows with the synchronous loop, through the
-    private A/B hook."""
+    """A new engine for the workload in ``mode`` (:data:`MODES`), without
+    the prefix cache (the workload's prompts share nothing)."""
     kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
               kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda")
     if mode == "graphs":
         return ServingEngine(model, None, **kw)
+    if mode == "eager_chunks":
+        return ServingEngine._eager_chunks(model, None, **kw)
+    if mode == "interleave":
+        return ServingEngine(model, None, interleave_prefill=True, **kw)
     return ServingEngine._eager(model, None, async_depth=0, **kw)
 
 
 def _serve(model, prompts, kv_dtype=None, mode="graphs", engine=None):
     """Serve the workload (on ``engine``, else a new one made before the
-    clock starts); returns the engine and the serve's wall seconds."""
+    clock starts); returns the engine, the serve's wall seconds and the
+    peak of allocated device memory since the engine's construction (bytes;
+    over the serve alone when ``engine`` is given)."""
+    torch.cuda.reset_peak_memory_stats()
     engine = engine or _engine(model, kv_dtype, mode)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.serve(prompts, configs=GenerationConfig(max_new_tokens=48))
     torch.cuda.synchronize()
-    return engine, time.perf_counter() - t0
+    return engine, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
 def _recording_bounds(bounds):
@@ -186,18 +280,13 @@ def device_ms(fn, iters: int, fragment=None, warmup: int = 2) -> float:
     return graph_ms(fn, iters)
 
 
-#: the engine's two loops, for the A/B: CUDA graphs with the depth-1
-#: pipeline (the default), and eager windows with the synchronous loop
-MODES = ("graphs", "eager")
-
-
 def _profile(model, cfg, prompts, kv_dtype, mode, bounds) -> dict:
     """One serve in ``mode`` under ``torch.profiler``, recording the card
     only (the engine, and its graphs, made before the profiler starts):
     device time by kernel, the busy time, launches per layer-step."""
     engine = _engine(model, kv_dtype, mode)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        p_engine, p_wall = _serve(model, prompts, engine=engine)
+        p_engine, p_wall, _ = _serve(model, prompts, engine=engine)
     averages = prof.key_averages()
     # device-side entries only (kernels, memcpy/memset)
     evts = [e for e in averages
@@ -261,23 +350,30 @@ def main(argv=None) -> int:
             _serve(model, prompts, kv_dtype, "eager")
         finally:
             undo()
-        # timed serves in turns (A, B, B, A), each engine made before its clock
+        # timed serves in turns (A B C D D C B A), each engine made before its
+        # clock
         order = MODES + MODES[::-1]
         timed = {mode: [] for mode in MODES}
         for mode in order:
-            engine, wall = _serve(model, prompts, kv_dtype, mode)
-            timed[mode].append((dict(engine.stats), wall))
+            engine, wall, peak = _serve(model, prompts, kv_dtype, mode)
+            timed[mode].append((dict(engine.stats), wall, peak))
+            del engine
+        engine = _engine(model, kv_dtype, "graphs")
         pool = {"kv_bytes_per_token": engine.stats["kv_bytes_per_token"],
                 "kv_pool_gb": engine.kv.kv_bytes() / 1e9}
+        chunks = chunk_times(engine)
         del engine
         report = {}
         for mode in MODES:
-            walls = [wall for _, wall in timed[mode]]
-            stats = [st for st, _ in timed[mode]]
+            walls = [wall for _, wall, _ in timed[mode]]
+            stats = [st for st, _, _ in timed[mode]]
             profiled = _profile(model, cfg, prompts, kv_dtype, mode, bounds)
             report[mode] = {
-                "async_depth": 1 if mode == "graphs" else 0,
+                "async_depth": 0 if mode == "eager" else 1,
                 "wall_s": walls,
+                "prefill_s": [st["prefill_s"] for st in stats],
+                "peak_memory_gb": [peak / 1e9 for _, _, peak in timed[mode]],
+                "interleaved_chunks": stats[-1]["interleaved_chunks"],
                 "decode_ms_per_step": [1e3 * st["decode_s"] / st["decode_steps"]
                                        for st in stats],
                 "serve_tokens_per_s": [st["tokens_generated"] / wall
@@ -296,6 +392,7 @@ def main(argv=None) -> int:
             "kv_dtype": kv_dtype,
             **pool,
             "decode_step_weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            "prefill_chunk_ms": chunks,
             "modes": report,
         }), flush=True)
     return 0

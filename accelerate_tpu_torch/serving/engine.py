@@ -3,9 +3,13 @@
 Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with
 ``paged=True`` and no mesh.  One engine step:
 
+0. the deadline sweep (only while some request has a ``deadline_s``):
+   running and queued requests past their budget are cancelled;
 1. admission — open the FCFS head's prefill when a slot and its pages are
-   free, then run prefill chunks (buckets from :func:`.pool.plan_chunks`)
-   against the per-step prefill-token budget; each chunk's K/V is written
+   free (up to one open prefill per slot with ``interleave_prefill``, their
+   chunks picked shortest-remaining-first), then run prefill chunks
+   (buckets from :func:`.pool.plan_chunks`) against the per-step
+   prefill-token budget; each chunk's K/V is written
    straight into newly allocated lane pages by the prefill kernel (K2), and a
    request whose last chunk landed is installed into its lane.  With the
    prefix cache (:mod:`.prefix_cache`, on by default as in the reference) a
@@ -27,13 +31,19 @@ Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with
 3. drain: the one readback of a window's tokens, which stream out to their
    requests.
 
-On the card every window is one CUDA graph, captured at construction
-(:mod:`.graphs`) and replayed each cycle.  With ``async_depth=1`` (the
-default, as in the reference) the loop is the reference's depth-1
-pipeline: step 3 drains the PREVIOUS window (:mod:`.readback`), so the
-host's emit, admission and drafting run while the card computes the window
-just dispatched; ``async_depth=0`` drains each window right after its
-dispatch.  Prefill chunks run eagerly.
+With ``interleave_prefill`` steps 1 and 2 swap, as in the reference: the
+window is dispatched first and the cycle's chunks queue behind it on the
+card, charged against one joint budget with the window's tokens.
+
+On the card every window and every prefill bucket's chunk is one CUDA
+graph, captured at construction (:mod:`.graphs`) and replayed each cycle
+(a chunk's tokens, block table and start position are written into static
+buffers first).  With ``async_depth=1`` (the default, as in the reference)
+the loop is the reference's depth-1 pipeline: step 3 drains the PREVIOUS
+window (:mod:`.readback`), so the host's emit, admission and drafting run
+while the card computes the window just dispatched; ``async_depth=0``
+drains each window right after its dispatch.  :meth:`ServingEngine.cancel`
+drops a queued request or retires a running lane at once.
 
 Greedy outputs are token-identical to the JAX engine's, with native and
 with quantized (int8, fp8-e4m3) pages, in either loop; a request's sampled
@@ -81,6 +91,11 @@ from .spec_exec import (
     draft_transformer,
     make_draft_forward,
 )
+
+
+#: the clock of deadlines and service times (``submit_time``, the deadline
+#: sweep, the service-time average): tests swap in a fake one
+clock = time.perf_counter
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -141,13 +156,24 @@ class ServingEngine:
         ancestors into a uint32 word), and commits at most ``tree_depth +
         1`` tokens a lane per cycle.
     draft_ctx: the draft forward's context window per lane, in tokens.
+    interleave_prefill: dispatch each step's decode window first and queue
+        the cycle's prefill chunks behind it (the reference's decode-first
+        ordering): the window's tokens (occupied lanes x width) are charged
+        against the prefill-token budget, up to ``num_slots`` requests may
+        be mid-prefill at once, their chunks picked shortest-remaining-first.
+        Tokens are identical either way.  ``paged=False`` with it raises
+        ``ValueError``.
     device: where the engine runs — the card unless ``device="cpu"``.
 
     On the card the constructor captures one CUDA graph per window kind
     (decode; linear verify, or tree draft and tree verify with its commit),
-    a greedy and a sampling variant of each window that samples, and every
-    cycle replays one.  ``stats`` counts, beside the plain counters:
-    ``graph_captures`` and ``graph_replays``; ``spec_drafted`` (draft
+    a greedy and a sampling variant of each window that samples, and one
+    per prefill bucket; every cycle replays them.  ``stats`` counts, beside
+    the plain counters: ``graph_captures`` and ``graph_replays`` (windows
+    and chunks); ``interleaved_chunks`` (chunks dispatched behind a window
+    of their cycle); ``cancelled`` (:meth:`cancel`) and ``deadline_shed``
+    (requests refused at submit or cancelled by the sweep for their
+    deadline); ``spec_drafted`` (draft
     tokens proposed: K per drafting lane, or ``tree_depth``),
     ``spec_accepted``, ``verify_forwards`` (verify forwards of either arm:
     one K1 launch a layer each), ``verify_lanes`` (occupied lanes summed
@@ -190,9 +216,11 @@ class ServingEngine:
     ``NotImplementedError``.
     """
 
-    #: read by ``__init__``: capture the windows as CUDA graphs on the card.
-    #: Only :meth:`_eager` turns it off.
+    #: read by ``__init__``: capture the windows, and the prefill chunks, as
+    #: CUDA graphs on the card.  Only :meth:`_eager` and :meth:`_eager_chunks`
+    #: turn them off.
     _graph_windows = True
+    _graph_chunks = True
 
     def __init__(
         self,
@@ -223,10 +251,16 @@ class ServingEngine:
         tree_width: int = 1,
         tree_depth: Optional[int] = None,
         draft_ctx: int = 64,
+        interleave_prefill: bool = False,
         mesh=None,
         role: str = "both",
         device: Optional[Union[str, torch.device]] = None,
     ):
+        self.interleave_prefill = bool(interleave_prefill)
+        if self.interleave_prefill and not paged:
+            raise ValueError("interleave_prefill needs the paged pool (the slab pool's "
+                             "batch-1 prefill scratch admits one request at a time); "
+                             "pass paged=True")
         if not paged:
             raise _not_ported("paged=False (the contiguous slab pool)", "5")
         if mesh is not None:
@@ -322,6 +356,8 @@ class ServingEngine:
             self.buckets,
             prefill_token_budget if prefill_token_budget is not None else self.buckets[-1],
             max_queue=max_queue, prefix_cache=self.prefix_cache,
+            # interleaved: one open prefill per slot, SRTF among them
+            max_prefills=self.num_slots if self.interleave_prefill else 1,
         )
 
         n = self.num_slots
@@ -360,6 +396,7 @@ class ServingEngine:
             "tokens_generated": 0,
             "prefill_chunks": 0,
             "prefill_tokens": 0,
+            "interleaved_chunks": 0,
             "decode_steps": 0,
             "preemptions": 0,
             "prefill_s": 0.0,
@@ -387,10 +424,23 @@ class ServingEngine:
             "spill_bytes": 0,
             "promote_s": 0.0,
             "promote_bytes": 0,
+            "cancelled": 0,
+            "deadline_shed": 0,
         }
         # the depth-1 pipeline: the at-most-one window in flight (always
         # None under async_depth=0), and the reference's overlap accounting
         self._inflight: Optional[Readback] = None
+        # the window a step's dispatch handed back, parked between dispatch
+        # and drain (interleaved admission runs in between: a forced flush
+        # there lands it before the newer window)
+        self._prev_handle: Optional[Readback] = None
+        # tokens the decode window of this cycle charges against the joint
+        # budget (read by interleaved admission only)
+        self._cycle_decode_tokens = 0
+        # deadlines: the service-time average behind submit's estimate, and
+        # whether the sweep has a live deadline to watch
+        self._service_ema = 0.0
+        self._has_deadlines = False
         self._overlap_host_s = 0.0
         self._overlap_wait_s = 0.0
         self._t_pipeline_empty: Optional[float] = None
@@ -409,21 +459,48 @@ class ServingEngine:
         elif self.speculate_k:
             self._drafts = torch.zeros((n, self.speculate_k), dtype=torch.int32, device=dev)
         self._windows = self._window_programs()
+        # the prefill chunk's static inputs: tokens per bucket, the lane's
+        # block table and the chunk's start position
+        self._chunk_tokens = {b: torch.zeros((1, b), dtype=torch.int32, device=dev)
+                              for b in self.buckets}
+        self._chunk_table = torch.zeros((1, self.kv.pages_per_lane), dtype=torch.int32,
+                                        device=dev)
+        self._chunk_base = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._chunks = {b: functools.partial(prefill_chunk, self.model, self._chunk_tokens[b],
+                                             *self._pool, self._chunk_table, self._chunk_base)
+                        for b in self.buckets}
         self.graphs: Optional[WindowGraphs] = None
-        if dev.type == "cuda" and self._graph_windows:
+        if dev.type == "cuda" and (self._graph_windows or self._graph_chunks):
             self.graphs = WindowGraphs(dev)
+        if self.graphs is not None and self._graph_windows:
             for (kind, sampling), fn in self._windows.items():
                 self.graphs.capture(self._graph_key(kind, sampling), fn, self._reset_lanes)
+                self.stats["graph_captures"] += 1
+        if self.graphs is not None and self._graph_chunks:
+            # captured with the table all null page and base 0: the capture's
+            # writes land in the garbage sink, as inactive lanes' do
+            for b, fn in self._chunks.items():
+                self.graphs.capture(self._chunk_key(b), fn, lambda: None)
                 self.stats["graph_captures"] += 1
 
     @classmethod
     def _eager(cls, *args, **kwargs) -> "ServingEngine":
-        """An engine whose windows run launch by launch instead of as CUDA
-        graphs: the A/B baseline of ``profile_engine`` and ``chip_smoke.py``
-        (with ``async_depth=0``, the loop before graphs and the pipeline).
-        Same arguments as the constructor."""
+        """An engine whose windows and prefill chunks run launch by launch
+        instead of as CUDA graphs: the A/B baseline of ``profile_engine`` and
+        ``chip_smoke.py`` (with ``async_depth=0``, the loop before graphs and
+        the pipeline).  Same arguments as the constructor."""
         engine = cls.__new__(cls)
-        engine._graph_windows = False
+        engine._graph_windows = engine._graph_chunks = False
+        engine.__init__(*args, **kwargs)
+        return engine
+
+    @classmethod
+    def _eager_chunks(cls, *args, **kwargs) -> "ServingEngine":
+        """An engine whose windows are CUDA graphs but whose prefill chunks
+        run launch by launch: the A/B baseline of the chunk graphs
+        (``profile_engine``).  Same arguments as the constructor."""
+        engine = cls.__new__(cls)
+        engine._graph_chunks = False
         engine.__init__(*args, **kwargs)
         return engine
 
@@ -463,6 +540,9 @@ class ServingEngine:
         return (kind, self.num_slots, span, self.kv.pages_per_lane, self.kv.storage_dtype,
                 sampling)
 
+    def _chunk_key(self, bucket: int) -> tuple:
+        return ("prefill", bucket, self.kv.pages_per_lane, self.kv.storage_dtype)
+
     def _reset_lanes(self) -> None:
         """Undo a capture warm-up's writes: every lane was inactive (its KV
         writes went to the null page), but the windows rewrite the pending
@@ -482,12 +562,19 @@ class ServingEngine:
     # ---------------------------------------------------------------- submit
     def submit(self, prompt, config: Optional[GenerationConfig] = None,
                on_token: Optional[Callable[[Request, int], None]] = None,
-               cache_prefix: bool = True, speculate: bool = True, **overrides) -> Request:
+               cache_prefix: bool = True, speculate: bool = True,
+               deadline_s: Optional[float] = None, **overrides) -> Request:
         """Queue one request; returns its :class:`Request` handle (filled in
         as the engine runs).  ``overrides`` patch the ``GenerationConfig``;
         ``cache_prefix=False`` opts the request out of prefix-KV reuse and
         population (prompts that must not be retained); ``speculate=False``
-        opts it out of drafting."""
+        opts it out of drafting.  ``deadline_s``: the request's budget in
+        seconds from now.  When the queue ahead of it (requests waiting or
+        mid-prefill, each costing the running average of completed
+        requests' submit-to-done time) already exceeds it, the submit raises
+        a retriable :class:`AdmissionError` with ``retry_after_s``; once
+        admitted, a step that finds it past its budget cancels it (queued
+        or running) and sets ``deadline_exceeded``."""
         gen = config or GenerationConfig()
         if overrides:
             gen = dataclasses.replace(gen, **overrides)
@@ -514,12 +601,79 @@ class ServingEngine:
                 f"prompt {prompt.size} pads to {padded} prefill tokens under buckets "
                 f"{self.buckets}, exceeding capacity {self.max_len}",
                 queue_depth=depth, retriable=False)
+        if deadline_s is not None:
+            # each request ahead costs about one service time; optimistic
+            # (admits everything) before the first completion
+            est = depth * self._service_ema
+            if est > float(deadline_s):
+                self.stats["deadline_shed"] += 1
+                raise AdmissionError(
+                    f"deadline {deadline_s}s unmeetable: ~{est:.2f}s of queued work ahead "
+                    f"({depth} requests)", queue_depth=depth,
+                    retry_after_s=min(30.0, max(est - float(deadline_s), 0.1)), retriable=True)
         req = Request(rid=self._next_rid, prompt=prompt, config=gen, on_token=on_token,
-                      cache_prefix=bool(cache_prefix), speculate=bool(speculate))
+                      cache_prefix=bool(cache_prefix), speculate=bool(speculate),
+                      submit_time=clock(),
+                      deadline_s=None if deadline_s is None else float(deadline_s))
         self._next_rid += 1
         self.scheduler.submit(req)
         self.stats["requests_submitted"] += 1
+        if deadline_s is not None:
+            self._has_deadlines = True
         return req
+
+    def cancel(self, request: Union[Request, int]) -> bool:
+        """Cancel a queued or running request (its :class:`Request` or rid).
+        A queued one leaves the queue and releases its cache pins; a running
+        lane retires now: its slot frees for the next admission, its tokens
+        from a window in flight are dropped at that window's drain, and its
+        pages free when that window retires (at once with none in flight).
+        Tokens already streamed stay.  True when cancelled (the state becomes
+        ``CANCELLED``); False for a request mid-prefill, done or unknown."""
+        rid = request.rid if isinstance(request, Request) else int(request)
+        if self.scheduler.cancel(rid) is not None:
+            self.stats["cancelled"] += 1
+            return True
+        for s in range(self.num_slots):
+            req = self._slot_req[s]
+            if req is None or req.rid != rid or not self._active[s]:
+                continue
+            self._retire_lane(s)
+            req.state = RequestState.CANCELLED
+            self.stats["cancelled"] += 1
+            return True
+        return False
+
+    def _shed_blown_deadlines(self) -> None:
+        """The deadline sweep (only while a deadline is live): cancel the
+        running lanes and queued requests past their ``deadline_s``, setting
+        ``deadline_exceeded``.  A request mid-prefill finishes its chunks;
+        the sweep catches it once it runs."""
+        now = clock()
+        live = False
+        st = self.stats
+        for s in range(self.num_slots):
+            req = self._slot_req[s]
+            if req is None or req.deadline_s is None or not self._active[s]:
+                continue
+            if now - req.submit_time <= req.deadline_s:
+                live = True
+                continue
+            self._retire_lane(s)
+            req.deadline_exceeded = True
+            req.state = RequestState.CANCELLED
+            st["deadline_shed"] += 1
+        for req in list(self.scheduler.queue):
+            if req.deadline_s is None:
+                continue
+            if now - req.submit_time <= req.deadline_s:
+                live = True
+                continue
+            self.scheduler.cancel(req.rid)
+            req.deadline_exceeded = True
+            st["deadline_shed"] += 1
+        self._has_deadlines = live or any(r.deadline_s is not None
+                                          for r in self.scheduler.prefills)
 
     # ------------------------------------------------------------- admission
     def _next_free_slot(self) -> Optional[int]:
@@ -534,15 +688,17 @@ class ServingEngine:
         ladder, cheapest first (``accelerate_tpu/serving/engine.py:
         1878-1902``): (1) evict an unpinned prefix-cache leaf (dropping the
         cache's references frees the pages no lane aliases); (2) drain the
-        window in flight when pages wait on it (its deferred pages then
-        free); (3) when allowed, preempt the youngest running lane; (4) drop
+        windows in flight when pages wait on one (its deferred pages then
+        free; the window parked by interleaved admission lands first); (3)
+        when allowed, preempt the youngest running lane; (4) drop
         queued requests' cache pins, so that (1) reaches more leaves.  False
         when nothing is left to reclaim."""
         while self.kv.allocator.free_count < need:
             if self.prefix_cache is not None and self.prefix_cache.evict_one():
                 self.stats["reclaim_evictions"] += 1
                 continue
-            if self._inflight is not None and self._inflight.deferred_pages:
+            if any(hd is not None and hd.deferred_pages
+                   for hd in (self._inflight, self._prev_handle)):
                 self._drain_inflight()
                 continue
             if allow_preempt and self._preempt():
@@ -579,32 +735,47 @@ class ServingEngine:
     def _prefill_chunk(self, req: Request, bucket: int, chunk: np.ndarray,
                        start: int) -> torch.Tensor:
         """Prefill one chunk straight into newly allocated lane pages; returns
-        its quantization error (a device scalar).  The chunk and table ride
-        up by non-blocking copies: nothing waits for a window in flight.  The
-        table maps the lane's shared prefix pages too: a chunk after a hit
-        reads the cached KV in place."""
+        its quantization error (a device scalar of its own).  The chunk's
+        tokens, table and start go into the static buffers by non-blocking
+        copies from pageable memory (staged at the call, so the host arrays
+        may change on return; nothing waits for a window in flight), then
+        the bucket's graph replays (on the CPU and in :meth:`_eager` engines
+        the same program runs launch by launch).  The table maps the lane's
+        shared prefix pages too: a chunk after a hit reads the cached KV in
+        place, behind any copy-on-write or promotion on the same stream."""
         s = req.slot
         ids = self.kv.allocator.alloc(bucket // self.page_size)
         if ids is None:  # _ensure_prefill_pages ran first; this cannot happen
             raise RuntimeError("KV page pool exhausted mid-prefill")
         self.kv.lane_append_owned(s, ids)
-        tokens = torch.from_numpy(chunk[None]).to(self.device, non_blocking=True)
-        table = torch.from_numpy(self.kv.tables[s].copy()).to(self.device, non_blocking=True)
-        return prefill_chunk(self.model, tokens, *self._pool, table, start)
+        self._chunk_tokens[bucket].copy_(torch.from_numpy(chunk[None]), non_blocking=True)
+        self._chunk_table.copy_(torch.from_numpy(self.kv.tables[s:s + 1]), non_blocking=True)
+        self._chunk_base.fill_(start)
+        if self.graphs is None or not self._graph_chunks:
+            return self._chunks[bucket]()
+        self.stats["graph_replays"] += 1
+        err = self.graphs.replay(self._chunk_key(bucket))
+        # the replay's output is rewritten by the next one: keep a copy
+        return err.clone() if self.kv.quantized else err
 
     def _admit(self) -> None:
-        budget = self.scheduler.begin_step()
+        """Open prefills and run chunks against this step's budget (less the
+        tokens of a window dispatched ahead, under interleave)."""
+        sched = self.scheduler
+        budget = sched.begin_step(self._cycle_decode_tokens if self.interleave_prefill else 0)
         t0 = time.perf_counter()
         chunks = 0
         st = self.stats
         while True:
-            sched = self.scheduler
-            if sched.queue and sched.prefilling is None:
+            # open prefills, FCFS, up to the scheduler's cap while slots and
+            # pages allow
+            while sched.queue and len(sched.prefills) < sched.max_prefills:
                 slot = self._next_free_slot()
-                if slot is not None and self._admission_pages_ok(sched.queue[0]):
-                    sched.start_next(slot)
-                    self._reserved_slots.add(slot)
-            if sched.prefilling is None:
+                if slot is None or not self._admission_pages_ok(sched.queue[0]):
+                    break
+                sched.start_next(slot)
+                self._reserved_slots.add(slot)
+            if not sched.prefills:
                 break
             took = sched.take_chunk(budget, ready=self._ensure_prefill_pages)
             if took is None:
@@ -635,6 +806,9 @@ class ServingEngine:
                     self._pending_prefill_qerr.append(err)
                 budget -= bucket
                 st["prefill_chunks"] += 1
+                if self.interleave_prefill and self._cycle_decode_tokens:
+                    # queued behind this cycle's window: the interleave happened
+                    st["interleaved_chunks"] += 1
                 if self.prefix_cache is not None and req.cache_prefix:
                     st["prefix_miss_tokens"] += valid
                     self._populate_cache(req, bucket, valid, start)
@@ -829,9 +1003,19 @@ class ServingEngine:
             st["promote_bytes"] += xfer.nbytes
 
     def _hand_cache_traffic(self, hd: Optional[Readback]) -> None:
-        """Attach the cache transfers enqueued since the last dispatch to
-        ``hd``, the window dispatched after them (they settle at its drain),
-        or settle them now when no window is in flight."""
+        """Attach the traffic enqueued since the last hand-off to ``hd``, the
+        newest window (it retires no earlier than that traffic): the prefix
+        cache's transfers settle at its drain, and the prefill chunks'
+        quantization errors, staged behind the chunks, are read there (the
+        handle's event now follows them).  With no window in flight the
+        transfers settle now and the errors wait for the next window."""
+        if self._pending_prefill_qerr and hd is not None:
+            (errs,), ready = stage([torch.stack(self._pending_prefill_qerr)])
+            self._pending_prefill_qerr = []
+            hd.prefill_qerrs = (errs if hd.prefill_qerrs is None
+                                else torch.cat([hd.prefill_qerrs, errs]))
+            if ready is not None:
+                hd.ready = ready
         spills, promotions = self._pending_spills, self._pending_promotions
         if not spills and not promotions:
             return
@@ -952,7 +1136,9 @@ class ServingEngine:
         caller must drain: the previous window under the pipeline, this one
         under ``async_depth=0``, ``None`` when the pool is idle.
         Speculative cycles drain first: drafting and the verify need the
-        previous window's tokens."""
+        previous window's tokens.  Sets ``_cycle_decode_tokens`` to the
+        tokens the window charges (occupied lanes x width; 0 when idle)."""
+        self._cycle_decode_tokens = 0
         if self._spec_any and self._inflight is not None:
             self._drain_inflight()
         if not self._active.any():
@@ -976,6 +1162,7 @@ class ServingEngine:
                 hd = self._verify_cycle(*drafts, n_occupied)
         if hd is None:
             hd = self._decode_cycle(n_occupied)
+        self._cycle_decode_tokens = n_occupied * hd.width
         if self.async_depth == 0:
             return hd
         prev, self._inflight = self._inflight, hd
@@ -1000,20 +1187,16 @@ class ServingEngine:
 
     def _handle(self, kind: str, width: int, toks, counts, err, n_occupied: int,
                 drafted: Optional[np.ndarray] = None) -> Readback:
-        """Stage a dispatched window's outputs (and the pending prefill
-        chunks' errors) to the host and snapshot the lanes it saw; the
-        handle's ``dispatch_t`` is now, the window's launches done."""
-        prefill_err = None
+        """Stage a dispatched window's outputs to the host and snapshot the
+        lanes it saw; the handle's ``dispatch_t`` is now, the window's
+        launches done."""
         if not self.kv.quantized:
             err = None
-        elif self._pending_prefill_qerr:
-            prefill_err = torch.stack(self._pending_prefill_qerr)
-            self._pending_prefill_qerr = []
-        (toks, counts, err, prefill_err), ready = stage((toks, counts, err, prefill_err))
+        (toks, counts, err), ready = stage((toks, counts, err))
         return Readback(kind=kind, toks=toks, width=width, counts=counts, qerr=err,
                         active=self._active.copy(), reqs=list(self._slot_req),
                         eos=self._eos.copy(), n_occupied=n_occupied, drafted=drafted,
-                        ready=ready, prefill_qerrs=prefill_err)
+                        ready=ready)
 
     def _decode_cycle(self, n_occupied: int) -> Readback:
         """Dispatch one decode window over the pool."""
@@ -1106,7 +1289,12 @@ class ServingEngine:
 
     # ----------------------------------------------------------------- drain
     def _drain_inflight(self) -> None:
-        """Flush the pipeline: land the window in flight, if any."""
+        """Flush the pipeline: land the windows in flight, oldest first (the
+        window parked by an interleaved step before the one dispatched after
+        it, or tokens would land out of order)."""
+        prev, self._prev_handle = self._prev_handle, None
+        if prev is not None:
+            self._drain(prev)
         hd, self._inflight = self._inflight, None
         if hd is not None:
             self._drain(hd)
@@ -1193,19 +1381,34 @@ class ServingEngine:
                     self._retire_lane(s)
                 req.state = RequestState.DONE
                 self.stats["requests_completed"] += 1
+                # the submit-to-done average behind submit's deadline estimate
+                dur = max(clock() - req.submit_time, 0.0)
+                self._service_ema = (dur if self._service_ema == 0.0
+                                     else 0.8 * self._service_ema + 0.2 * dur)
 
     # ----------------------------------------------------------------- drive
     def step(self) -> None:
-        """One engine iteration: pre-free the lanes the window in flight
-        finishes, budgeted chunked-prefill admission, dispatch of one decode
-        cycle, then the drain of the window the pipeline hands back (with
-        the cache transfers that rode it)."""
+        """One engine iteration: the deadline sweep (while a deadline is
+        live), pre-free the lanes the window in flight finishes, budgeted
+        chunked-prefill admission and the dispatch of one decode cycle (the
+        dispatch first under ``interleave_prefill``), then the drain of the
+        window the pipeline hands back (with the traffic that rode it)."""
+        if self._has_deadlines:
+            self._shed_blown_deadlines()
         self._prefree_exhausted()
-        self._admit()
-        prev = self._dispatch()
-        # the window just dispatched runs after every cache transfer enqueued
-        # this step: they settle at its drain
-        self._hand_cache_traffic(self._inflight if self._inflight is not None else prev)
+        if self.interleave_prefill:
+            # the window first; the cycle's chunks queue behind it while the
+            # window it hands back stays parked until the drain below
+            self._prev_handle = self._dispatch()
+            self._admit()
+        else:
+            self._admit()
+            self._prev_handle = self._dispatch()
+        # the newest window runs after everything enqueued this step: the
+        # cache transfers and the chunks' errors land at its drain
+        self._hand_cache_traffic(self._inflight if self._inflight is not None
+                                 else self._prev_handle)
+        prev, self._prev_handle = self._prev_handle, None
         if prev is not None:
             self._drain(prev)
 

@@ -1,15 +1,18 @@
-"""One CUDA graph per window kind of a serving engine.
+"""One CUDA graph per window kind, and per prefill bucket, of a serving engine.
 
 The port's counterpart of the reference's one compiled executable per
-window (``_serve_jit`` and ``jit_cache_sizes``,
-``accelerate_tpu/serving/pool.py:102``, ``:1228``).  The engine captures
-each of its windows once, at construction, on the card, with every lane
-inactive (all writes go to the null page), and replays the graph every
-cycle: one launch where the eager window makes thousands.  A window reads
-and writes only tensors that live as long as the engine (pages, scales,
-tables, index, lane vectors, the verify token block); the host writes its
-inputs in place before a replay and copies the graph's static outputs out
-right after it (:func:`~accelerate_tpu_torch.serving.readback.stage`).
+window and per prefill bucket (``_serve_jit`` and ``jit_cache_sizes``,
+``accelerate_tpu/serving/pool.py:102``, ``:1228``; ``self._prefill[bucket]``,
+``accelerate_tpu/serving/engine.py:668``).  The engine captures each of its
+windows and each bucket's chunk once, at construction, on the card, with
+every lane inactive and the chunk's table on the null page (all writes go
+to the null page), and replays the graph every cycle: one launch where the
+eager program makes thousands.  A graph reads and writes only tensors that
+live as long as the engine (pages, scales, tables, index, lane vectors, the
+verify token block, the chunk's tokens, table and start); the host writes
+its inputs in place before a replay and copies the graph's static outputs
+out right after it (:func:`~accelerate_tpu_torch.serving.readback.stage`;
+a chunk's quantization error is cloned).
 
 Capture follows ``torch.cuda.graph``'s rules: one eager warm-up on a side
 stream first (it makes what the kernel wrappers make once: K1's arrival
@@ -41,8 +44,9 @@ class CapturedWindow:
 
 
 class WindowGraphs:
-    """The captured windows of one engine, by key: (kind, lanes, window or
-    span, table width, page dtype, sampled variant), each fixed for the
+    """The captured programs of one engine, by key: for a window (kind,
+    lanes, window or span, table width, page dtype, sampled variant), for a
+    chunk ("prefill", bucket, table width, page dtype); each fixed for the
     engine's life."""
 
     def __init__(self, device: torch.device):

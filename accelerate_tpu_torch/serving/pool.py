@@ -8,10 +8,11 @@ life (pages, scales, tables, index, the lane vectors, the verify token
 block) and makes no host decision from lane state, so the engine can
 capture each as one CUDA graph (:mod:`.graphs`) and replay it every cycle:
 
-* :func:`prefill_chunk` — one prompt chunk through the model on a
+* :func:`prefill_chunk` — one prompt chunk through the model's layers on a
   :class:`~accelerate_tpu_torch.models.transformer.PagedKVCache` with the
   prefill kernel (K2): the chunk's K/V land in the lane's pages and its
-  queries attend over prior pages in place.
+  queries attend over prior pages in place; the table and start position
+  may be device buffers, so that one graph per bucket serves every chunk.
 * :func:`decode_window` — ``window`` masked decode steps over every lane with
   the decode kernel (K1): the JAX ``_decode_scan`` as a Python loop.  Frozen
   lanes (inactive, or past their EOS) keep their index, and ``active = ~done``
@@ -206,18 +207,30 @@ def _draws(lanes: LaneState, n: int) -> torch.Tensor:
 
 @torch.inference_mode()
 def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
-                  k_scales, v_scales, table: torch.Tensor, base: int) -> torch.Tensor:
+                  k_scales, v_scales, table: torch.Tensor, base) -> torch.Tensor:
     """Run one ``[1, chunk_len]`` prompt chunk at positions ``base ..`` of the
-    lane whose block table is ``table [P]``; its K/V are written into the
-    page arrays (and, for quantized pages, their scales) in place.  Returns
-    the chunk's quantization error, a device scalar."""
+    lane whose block table is ``table`` (``[P]`` or ``[1, P]``); its K/V are
+    written into the page arrays (and, for quantized pages, their scales) in
+    place.  ``base`` is an int or a one-element int32 tensor on the chunk's
+    device: the engine passes its static buffers, written in place before
+    each run, so that one captured graph per bucket serves every chunk of
+    that bucket (the reference's per-bucket executable, whose table and base
+    are device arguments).  The forward stops after the layer stack: a
+    chunk's logits are never read (under the reference's ``jit`` the final
+    norm and the LM head are dead code).  Returns the chunk's quantization
+    error, a device scalar."""
     device = tokens.device
+    index = (base if isinstance(base, torch.Tensor)
+             else torch.full((1,), int(base), dtype=torch.int32, device=device))
     cache = PagedKVCache(
         pages_k=pages_k, pages_v=pages_v, k_scales=k_scales, v_scales=v_scales,
-        tables=table[None], index=torch.full((1,), base, dtype=torch.int32, device=device),
+        tables=table.reshape(1, -1), index=index,
         active=torch.ones(1, dtype=torch.bool, device=device), kernel="prefill",
     )
-    _, cache = model(tokens, cache=cache)
+    positions = index.long()[:, None] + torch.arange(tokens.shape[1], device=device)[None, :]
+    x = model.embed_tokens.weight[tokens].to(model.config.dtype)
+    for i, layer in enumerate(model.layers):
+        x = layer(x, positions, cache=cache, layer=i)
     return _quant_err(cache, device)
 
 

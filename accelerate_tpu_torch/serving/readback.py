@@ -129,7 +129,8 @@ class Readback:
     #: cycle early, and the request's tokens still land at drain
     prefreed: set = dataclasses.field(default_factory=set)
     #: host [chunks] KV round-trip errors of the prefill chunks dispatched
-    #: in this window's cycle, staged with its outputs
+    #: in this window's cycle, staged behind the chunks when the engine
+    #: hands them to the window (``ready`` then follows them)
     prefill_qerrs: Optional[torch.Tensor] = None
     #: prefix-cache spills and promotions enqueued before this window
     spills: List[CacheTransfer] = dataclasses.field(default_factory=list)

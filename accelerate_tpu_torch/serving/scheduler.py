@@ -5,7 +5,8 @@ per-request :class:`~accelerate_tpu_torch.models.generation.GenerationConfig`,
 chunked-prefill progress, and an admission policy bounded by a prefill-token
 budget per engine step (the Orca/Sarathi knob that keeps decode-step latency
 jitter bounded while new prompts stream in).  One request prefills at a time
-(the reference's ``max_prefills=1``).
+by default (``max_prefills=1``); the interleaved engine keeps up to one open
+prefill per slot and picks their chunks shortest-remaining-first.
 
 With a :class:`~accelerate_tpu_torch.serving.prefix_cache.PrefixCache`
 attached, the scheduler also resolves prefix reuse: ``submit`` walks the
@@ -34,6 +35,7 @@ class RequestState(enum.Enum):
     PREFILL = "prefill"
     RUNNING = "running"
     DONE = "done"
+    CANCELLED = "cancelled"
 
 
 @dataclasses.dataclass
@@ -52,7 +54,12 @@ class Request:
     which also collects the nodes this request populates (released at
     install); ``cache_chain_broken`` stops population once a chunk could
     not be retained (a later chunk without its ancestors is unreachable);
-    ``cache_prefix=False`` opts the request out of reuse and population."""
+    ``cache_prefix=False`` opts the request out of reuse and population.
+
+    ``deadline_s``: the request's budget in seconds from ``submit_time``
+    (``None``: no deadline); the engine sheds it at admission when the
+    queue's estimate says it cannot be met, and cancels it once it is blown,
+    setting ``deadline_exceeded``."""
 
     rid: int
     prompt: np.ndarray                      # [S] int32
@@ -68,6 +75,9 @@ class Request:
     cached_chunks: int = 0
     cache_nodes: List[Any] = dataclasses.field(default_factory=list)
     cache_chain_broken: bool = False
+    submit_time: float = 0.0
+    deadline_s: Optional[float] = None
+    deadline_exceeded: bool = False
 
     @property
     def done(self) -> bool:
@@ -96,16 +106,19 @@ class Request:
 class Scheduler:
     """FCFS admission with a per-step prefill-token budget.
 
-    One request prefills at a time; its chunks are charged against
-    ``prefill_token_budget`` each engine step, so a long prompt spreads
-    across steps instead of stalling every running request for its whole
-    prefill (chunked prefill, Sarathi-style).  The first forward-pass chunk
-    of each step runs even over budget, or a bucket wider than the budget
-    could never run.  ``prefix_cache``: the engine's cache, or ``None``.
+    Chunks are charged against ``prefill_token_budget`` each engine step, so
+    a long prompt spreads across steps instead of stalling every running
+    request for its whole prefill (chunked prefill, Sarathi-style).  The
+    first forward-pass chunk of each step runs even over budget, or a bucket
+    wider than the budget could never run.  ``max_prefills``: requests that
+    may be mid-prefill at once (1, or one per slot in the interleaved
+    engine): admission stays FCFS, and :meth:`take_chunk` picks among them
+    shortest-remaining-first.  ``prefix_cache``: the engine's cache, or
+    ``None``.
     """
 
     def __init__(self, prefill_buckets: Sequence[int], prefill_token_budget: int,
-                 max_queue: Optional[int] = None, prefix_cache=None):
+                 max_queue: Optional[int] = None, prefix_cache=None, max_prefills: int = 1):
         self.buckets = tuple(sorted(set(int(b) for b in prefill_buckets)))
         if not self.buckets:
             raise ValueError("need at least one prefill bucket")
@@ -118,11 +131,24 @@ class Scheduler:
         self.max_queue = None if max_queue is None else int(max_queue)
         if self.max_queue is not None and self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_prefills = int(max_prefills)
+        if self.max_prefills < 1:
+            raise ValueError(f"max_prefills must be >= 1, got {max_prefills}")
         self.queue: deque = deque()
-        #: the request mid-prefill, if any
-        self.prefilling: Optional[Request] = None
+        # requests mid-prefill, in admission order
+        self._prefills: List[Request] = []
         self._chunk_this_step = False
         self.prefix_cache = prefix_cache
+
+    @property
+    def prefills(self) -> Tuple[Request, ...]:
+        """Every request mid-prefill, in admission order."""
+        return tuple(self._prefills)
+
+    @property
+    def prefilling(self) -> Optional[Request]:
+        """The oldest open prefill (the only one under ``max_prefills=1``)."""
+        return self._prefills[0] if self._prefills else None
 
     def _match_prefix(self, request: Request) -> None:
         """(Re)walk the radix tree for ``request``'s longest cached prefix and
@@ -178,23 +204,42 @@ class Scheduler:
                 dropped += 1
         return dropped
 
+    def cancel(self, rid: int) -> Optional[Request]:
+        """Drop a QUEUED request (not yet prefilling) from the queue: it
+        becomes ``CANCELLED`` and its prefix-cache pins are released.
+        Returns it, or ``None`` when ``rid`` is not queued (prefilling,
+        running, done or unknown)."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                if self.prefix_cache is not None and req.cache_nodes:
+                    self.prefix_cache.release(req.cache_nodes)
+                    req.cache_nodes = []
+                req.state = RequestState.CANCELLED
+                return req
+        return None
+
     @property
     def has_queued(self) -> bool:
-        return bool(self.queue) or self.prefilling is not None
+        return bool(self.queue) or bool(self._prefills)
 
     @property
     def queue_depth(self) -> int:
         """Requests waiting or mid-prefill."""
-        return len(self.queue) + (self.prefilling is not None)
+        return len(self.queue) + len(self._prefills)
 
-    def begin_step(self) -> int:
-        """Fresh prefill-token budget for this engine step."""
+    def begin_step(self, decode_tokens: int = 0) -> int:
+        """Fresh prefill-token budget for this engine step: the budget less
+        ``decode_tokens``, what the decode window dispatched this cycle
+        already charged (the interleaved engine's joint decode + prefill
+        bound; never below 0)."""
         self._chunk_this_step = False
-        return self.budget
+        return max(self.budget - int(decode_tokens), 0)
 
     def start_next(self, slot: int) -> Optional[Request]:
-        """Pop the FCFS head into PREFILL state, bound for ``slot``."""
-        if self.prefilling is not None or not self.queue:
+        """Pop the FCFS head into PREFILL state, bound for ``slot``, while
+        fewer than ``max_prefills`` are open."""
+        if len(self._prefills) >= self.max_prefills or not self.queue:
             return None
         req = self.queue.popleft()
         req.state = RequestState.PREFILL
@@ -202,7 +247,7 @@ class Scheduler:
         # requests admitted since submit may have populated the chunks this
         # one needs (the batch-submit case)
         self._match_prefix(req)
-        self.prefilling = req
+        self._prefills.append(req)
         return req
 
     @staticmethod
@@ -215,14 +260,16 @@ class Scheduler:
     def take_chunk(self, budget: int, ready: Optional[Callable[[Request], bool]] = None,
                    ) -> Optional[Tuple[Request, int, int, int, bool]]:
         """Next prefill chunk fitting ``budget``: ``(request, bucket_len,
-        valid_len, start, cached)`` or None.  Among the open prefills (here
-        at most one) the pick is shortest-remaining-first, FCFS rid breaking
-        ties.  ``ready`` is an optional gate (the engine's page check).  A
+        valid_len, start, cached)`` or None.  Among the open prefills whose
+        next chunk fits, the pick is shortest-remaining-first (remaining
+        forward-pass tokens), FCFS rid breaking ties.  ``ready`` is an
+        optional gate (the engine's page check): a request short of pages
+        does not block one that fits.  A
         cached chunk (covered by a pinned prefix-cache node) charges nothing
         against the budget.  The first forward-pass chunk since
         :meth:`begin_step` ignores the budget."""
         best, best_key = None, None
-        for req in (() if self.prefilling is None else (self.prefilling,)):
+        for req in self._prefills:
             if req.next_chunk >= len(req.chunks):
                 continue
             bucket, _ = req.chunks[req.next_chunk]
@@ -245,9 +292,11 @@ class Scheduler:
         return best, bucket, valid, start, cached
 
     def finish_prefill(self) -> Optional[Request]:
-        """If the open prefill has run every chunk, hand it over for install."""
-        req = self.prefilling
-        if req is not None and req.next_chunk >= len(req.chunks):
-            self.prefilling = None
-            return req
+        """Hand over an open prefill that has run every chunk, for install
+        (at most one a call: the engine installs each before the next
+        chunk)."""
+        for i, req in enumerate(self._prefills):
+            if req.next_chunk >= len(req.chunks):
+                del self._prefills[i]
+                return req
         return None

@@ -68,10 +68,23 @@ Phases, each printing one JSON line:
    ``serve_tokens_per_s`` (tokens over the serve's wall) beside
    ``decode_tokens_per_s`` (tokens over the engine's ``decode_s``: wall
    while a window was in flight) and ``decode_ms_per_step``.
+   Each prefill bucket's chunk is a graph too: the engine must hold one per
+   bucket, and K2 must launch once a layer per chunk, credited by replays.
    ``engine_sync_eager``: the same requests through the A/B hook
-   ``ServingEngine._eager(..., async_depth=0)`` (eager windows, synchronous
-   loop): the same kernels on the same inputs, so its greedy tokens must be
-   identical to ``engine``'s.  ``engine_int8``,
+   ``ServingEngine._eager(..., async_depth=0)`` (eager windows and chunks,
+   synchronous loop): the same kernels on the same inputs, so its greedy
+   tokens must be identical to ``engine``'s.  ``engine_interleave``: the
+   same requests with ``interleave_prefill=True`` (each window dispatched
+   first, the cycle's chunks queued behind it): identical tokens, and some
+   chunk must ride behind a window.  ``engine_cancel``: the same requests,
+   the second cancelled once it has 8 tokens and its lane is live in the
+   window in flight: no token of it streams after the cancel, its pages
+   wait for that window, the others' tokens equal ``engine``'s, and every
+   page is free after ``flush_prefix_cache()``.  ``chunk_graphs``: for
+   bf16, int8 and fp8 pages, each bucket's graph replay bitwise the eager
+   chunk on the same pool state at bases 0, 512 and 640 (32 K2 launches
+   credited a replay), ms per chunk replayed and eager beside the chunk's
+   bound, and the memory the chunk graphs hold.  ``engine_int8``,
    ``engine_fp8``: the same requests with ``kv_dtype="int8"`` / ``"fp8"``
    (K1's and K2's dequant arms), their own launch counts, the pool's bytes
    per token and GB, and ``kv_quant_error`` held under the format's bound
@@ -162,8 +175,10 @@ import torch
 from accelerate_tpu_torch.profile_engine import (
     HBM_BYTES_PER_S,
     PEAK_FLOPS,
+    chunk_times,
     device_ms,
     paged_bound_ms,
+    time_ms,
 )
 
 TOL = {  # kernel vs plain version, per page dtype
@@ -229,19 +244,6 @@ def card_state() -> str:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def spilling_kernels(logs) -> dict:
@@ -611,18 +613,20 @@ ENGINE_LENS = (57, 100, 384, 700, 1000, 1500)
 
 
 def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
-                 prompts=None, name=None, eager=False):
+                 prompts=None, name=None, eager=False, knobs=None):
     """Serve six greedy requests of 48 new tokens through ``ServingEngine``
-    (``spec``: the speculation knobs; ``prompts``: else drawn from ``rng``),
-    the launch counters zeroed just before and read just after.  The engine
-    is the default one (every window a CUDA graph captured at construction,
-    the depth-1 pipeline), or with ``eager`` the eager windows and the
-    synchronous loop (``ServingEngine._eager(..., async_depth=0)``).  K1
-    must have launched once a layer for each forward of a decode window and
-    each linear verify (its causal arm) and each tree verify (its tree-mask
-    arm, counted apart), graph replays credited; the draft forward launches
-    none.  The graphs captured must not grow during the serve.  Returns the
-    launches, the prompts and the tokens."""
+    (``spec``: the speculation knobs; ``knobs``: other engine knobs;
+    ``prompts``: else drawn from ``rng``), the launch counters zeroed just
+    before and read just after.  The engine is the default one (every
+    window and each prefill bucket's chunk a CUDA graph captured at
+    construction, the depth-1 pipeline), or with ``eager`` the eager windows
+    and chunks and the synchronous loop (``ServingEngine._eager(...,
+    async_depth=0)``).  K1 must have launched once a layer for each forward
+    of a decode window and each linear verify (its causal arm) and each
+    tree verify (its tree-mask arm, counted apart), graph replays credited;
+    the draft forward launches none; K2 once a layer per prefill chunk.
+    The graphs captured (one per bucket among them) must not grow during the
+    serve.  Returns the launches, the prompts and the tokens."""
     from accelerate_tpu_torch.models.generation import GenerationConfig
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving import ServingEngine
@@ -634,7 +638,8 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
 
     def new_engine():
         kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
-                  kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda", **(spec or {}))
+                  kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda", **(spec or {}),
+                  **(knobs or {}))
         if eager:
             return ServingEngine._eager(model, None, async_depth=0, **kw)
         return ServingEngine(model, None, **kw)
@@ -645,6 +650,10 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     captures = engine.stats["graph_captures"]
     check(captures == (0 if eager else len(engine.graphs)) and (eager or captures > 0),
           f"{captures} graphs captured at construction")
+    chunk_graphs = sorted(key[1] for key in (engine.graphs.keys() if engine.graphs else ())
+                          if key[0] == "prefill")
+    check(chunk_graphs == ([] if eager else [128, 512]),
+          f"prefill chunk graphs for buckets {chunk_graphs}")
     torch.cuda.synchronize()
     pa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -681,6 +690,8 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     check(st["graph_captures"] == captures, f"graphs captured during the serve: "
           f"{captures} -> {st['graph_captures']}")
     check(eager or st["graph_replays"] > 0, "no window replayed a graph")
+    if (knobs or {}).get("interleave_prefill"):
+        check(st["interleaved_chunks"] > 0, "no chunk queued behind a window of its cycle")
     if quantized:
         # the same serve again, untimed, by a new engine whose inserts are
         # watched for the largest scale they leave; scales of pages no insert
@@ -736,8 +747,9 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
             "draft_share_of_decode_s": st["draft_s"] / st["decode_s"],
         }
     emit({"phase": name or ("engine" if kv_dtype is None else "engine_" + kv_dtype),
-          "windows": "eager, async_depth=0" if eager else "cuda graphs, async_depth=1",
-          **spec_rec,
+          "windows": ("eager windows and chunks, async_depth=0" if eager
+                      else "cuda graphs (windows and chunks), async_depth=1"),
+          "knobs": knobs, **spec_rec,
           "kv_dtype": kv_dtype, "pages": str(engine.kv.storage_dtype).replace("torch.", ""),
           "kv_bytes_per_token": st["kv_bytes_per_token"],
           "kv_pool_gb": engine.kv.kv_bytes() / 1e9, **kv_rec,
@@ -754,6 +766,9 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
           "host_overlap_ratio": st["host_overlap_ratio"],
           "device_idle_s": st["device_idle_s"], "prefreed_lanes": st["prefreed_lanes"],
           "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
+          "prefill_s": st["prefill_s"], "prefill_chunks": st["prefill_chunks"],
+          "prefill_ms_per_chunk": 1e3 * st["prefill_s"] / st["prefill_chunks"],
+          "interleaved_chunks": st["interleaved_chunks"],
           "kv_pool_bytes": engine.kv.kv_bytes(), "gpu": gpu})
     if quantized:
         # quantization moves the logits by design: the tokens are held by
@@ -765,6 +780,138 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
         check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
               f"forward's best logit by more than the noise margin {margin}")
     return launches, prompts, [r.tokens for r in reqs]
+
+
+def chunk_graph_phase(model, cfg, gpu) -> None:
+    """Each prefill bucket's CUDA graph against the same chunk program run
+    launch by launch, at full width, for bf16, int8 and fp8 pages: a
+    512-token chunk at base 0, then 128-token chunks at bases 512 and 640
+    behind it (their prior pages are the earlier chunks' KV), each replay's
+    pages, scales and quantization error bitwise the eager run's on the same
+    pool state (the touched pages gathered after the replay, restored, and
+    gathered again after the eager run).  Then :func:`~accelerate_tpu_torch.
+    profile_engine.chunk_times`: ms per chunk replayed and eager beside the
+    bound.  For bf16 pages also the device memory the chunk graphs hold:
+    ``memory_allocated`` and ``memory_reserved`` (a graph's private pool is
+    reserved, its freed intermediates not allocated) gained by constructing
+    the engine with and without them (``ServingEngine._eager_chunks``)."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.serving.pool import promote_install, spill_extract
+
+    kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+              prefix_cache_mb=0, device="cuda")
+    memory = {}
+    for kv_dtype in (None, "int8", "fp8"):
+        if kv_dtype is None:
+            for mode, make in (("without", ServingEngine._eager_chunks),
+                               ("with", ServingEngine)):
+                gc.collect()
+                torch.cuda.empty_cache()
+                before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+                engine = make(model, None, **kw)
+                torch.cuda.synchronize()
+                memory[mode] = (torch.cuda.memory_allocated() - before[0],
+                                torch.cuda.memory_reserved() - before[1])
+                if mode == "without":
+                    del engine
+        else:
+            engine = ServingEngine(model, None, kv_dtype=kv_dtype, **kw)
+        pool = engine._pool
+        ids = torch.arange(1, 8, device="cuda")
+        engine._chunk_table.copy_(torch.arange(1, engine.kv.pages_per_lane + 1,
+                                               dtype=torch.int32)[None])
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        cases = []
+        for bucket, base in ((512, 0), (128, 512), (128, 640)):
+            engine._chunk_tokens[bucket].copy_(torch.randint(
+                1, cfg.vocab_size, (1, bucket), generator=gen, device="cuda"))
+            engine._chunk_base.fill_(base)
+            state = spill_extract(pool, ids)
+            counts = pa.launch_counts()
+            err_graph = engine.graphs.replay(engine._chunk_key(bucket)).clone()
+            graph_launches = pa.paged_flash_prefill.launches - counts[-1]
+            replayed = spill_extract(pool, ids)
+            promote_install(pool, state, ids)
+            err_eager = engine._chunks[bucket]()
+            eager = spill_extract(pool, ids)
+            same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                       for a, b in zip(replayed, eager)) and torch.equal(err_graph, err_eager)
+            check(same, f"{kv_dtype or 'bf16'} pages: the {bucket}-token chunk's graph replay "
+                        f"at base {base} is not bitwise the eager chunk")
+            check(graph_launches == cfg.num_layers,
+                  f"a {bucket}-token chunk replay credited {graph_launches} K2 launches, "
+                  f"want {cfg.num_layers}")
+            cases.append({"bucket": bucket, "base": base, "bitwise": same,
+                          "quant_err": err_graph.item()})
+        emit({"phase": "chunk_graphs", "kv_dtype": kv_dtype,
+              "pages": str(engine.kv.storage_dtype).replace("torch.", ""),
+              "bitwise_cases": cases, "chunk_ms": chunk_times(engine),
+              **({"engine_allocated_reserved_gb": {k: [v / 1e9 for v in m]
+                                                   for k, m in memory.items()},
+                  "chunk_graphs_reserved_gb": (memory["with"][1] - memory["without"][1]) / 1e9}
+                 if kv_dtype is None else {}),
+              "gpu": gpu})
+        del engine, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def cancel_phase(model, cfg, gpu, prompts, tokens) -> None:
+    """``engine_cancel``: the ``engine`` phase's requests through the engine
+    as a user makes it (graphs, the pipeline, the default prefix cache);
+    once the second request has streamed 8 tokens and its lane is live in
+    the window in flight, it is cancelled.  No token of it streams after the cancel, every other
+    request gives the ``engine`` phase's tokens, K2 launches once a layer
+    per chunk, and every page is free after the drain and
+    ``flush_prefix_cache()``."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import RequestState, ServingEngine
+
+    engine = ServingEngine(model, None, num_slots=4, max_len=2048, prefill_buckets=(128, 512),
+                           decode_window=4, device="cuda")
+    idle_free = engine.kv.allocator.free_count
+    streamed = []
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, config=GenerationConfig(max_new_tokens=48),
+                          on_token=lambda r, t: streamed.append(r.rid)) for p in prompts]
+    victim = reqs[1]
+    while not (len(victim.tokens) >= 8 and engine._inflight is not None
+               and engine._inflight.lane_live(victim.slot)):
+        engine.step()
+    before = len(victim.tokens)
+    deferred = len(engine._inflight.deferred_pages)
+    check(engine.cancel(victim), "cancel of a running lane returned False")
+    deferred = len(engine._inflight.deferred_pages) - deferred
+    engine.run()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    k2 = pa.paged_flash_prefill.launches
+    check(victim.state is RequestState.CANCELLED and len(victim.tokens) == before
+          and streamed.count(victim.rid) == before,
+          f"the cancelled lane streamed {streamed.count(victim.rid) - before} tokens after "
+          "its cancel")
+    others = [i for i in range(len(reqs)) if reqs[i] is not victim]
+    check(all(reqs[i].done and reqs[i].tokens == tokens[i] for i in others),
+          "engine_cancel: a request other than the cancelled one differs from engine's tokens")
+    check(k2 == st["prefill_chunks"] * cfg.num_layers,
+          f"engine_cancel: K2 launches {k2} != {st['prefill_chunks']} chunks x "
+          f"{cfg.num_layers} layers")
+    check(deferred > 0, "the cancelled lane's pages were not deferred to its window")
+    engine.flush_prefix_cache()
+    check(engine.kv.allocator.free_count == idle_free,
+          f"engine_cancel: {engine.kv.allocator.free_count} pages free after the flush, "
+          f"{idle_free} at construction")
+    emit({"phase": "engine_cancel", "cancelled_rid": victim.rid,
+          "tokens_before_cancel": before, "deferred_pages": deferred,
+          "cancelled": st["cancelled"], "requests_completed": st["requests_completed"],
+          "prefill_chunks": st["prefill_chunks"], "launches_k2": k2, "wall_s": wall,
+          "graph_captures": st["graph_captures"], "gpu": gpu})
+    check(st["cancelled"] == 1 and st["requests_completed"] == len(reqs) - 1,
+          f"engine_cancel: cancelled {st['cancelled']}, completed {st['requests_completed']}")
 
 
 # ------------------------------------------------------------- prefix cache
@@ -1383,6 +1530,14 @@ def main() -> int:
     _, _, eager_tokens = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
                                       name="engine_sync_eager", eager=True)
     check(eager_tokens == tokens, "engine_sync_eager's greedy tokens differ from engine's")
+    # the decode-first ordering: the same requests, chunks queued behind
+    # the window of their cycle
+    _, _, inter_tokens = engine_phase(
+        model, cfg, rng, gpu, tol, prompts=prompts, name="engine_interleave",
+        knobs=dict(interleave_prefill=True))
+    check(inter_tokens == tokens, "engine_interleave's greedy tokens differ from engine's")
+    cancel_phase(model, cfg, gpu, prompts, tokens)
+    chunk_graph_phase(model, cfg, gpu)
     arm_launches = {fmt: engine_phase(model, cfg, rng, gpu, tol, kv_dtype=fmt)[0]
                     for fmt in pa.KV_FORMATS}
     # speculation: the tree arm on the engine line's prompts; the linear arm

@@ -30,10 +30,13 @@ is held the same ways against the plain version with the same
 ``tree_mask``, at ``chip_smoke.py``'s tree shapes and at D 64 and 16; the
 linear and tree verify windows of a 2-layer f32 model on the card are held
 against the same windows on the CPU (tokens and commit counts identical,
-pages within 1e-4).  The engine's CUDA graphs: each window's replay bitwise
-equal to the eager window on the same inputs, the pipelined dispatch free
-of synchronisations (``torch.cuda.set_sync_debug_mode("error")``), and a
-failed capture raising.
+pages within 1e-4).  The engine's CUDA graphs: each window's and each
+prefill bucket's replay bitwise equal to the eager program on the same
+inputs (chunks at base 0, after aliased prefix hits and after promotions,
+over bf16, int8 and fp8 pages; ``kv_quant_error`` equal with several chunks
+a cycle), the pipelined dispatch free of synchronisations
+(``torch.cuda.set_sync_debug_mode("error")``, with and without interleaved
+prefill), and a failed capture raising.
 """
 
 import functools
@@ -590,27 +593,28 @@ def test_tiny_engine_on_card_matches_cpu_engine(card, kv_dtype):
         assert errs["cpu"] > 0.0 and errs[str(card)] > 0.0
 
 
-def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24)):
-    """A graph engine (the default) and an eager one (``ServingEngine._eager``),
-    both synchronous so that each step drains its window, on one f32 tiny
-    model: the same requests stepped in turn, every state the windows write
-    (pages, scales, pending tokens, draft tokens) and every token compared
-    bitwise after each step.  One request samples, so both variants of each
-    window run.  The null page is left out: it is the garbage sink of
-    inactive lanes, never read.  The prompts are one random segment tiled
-    to ``lens``; the prefix cache is off unless ``knobs`` set it."""
-    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
-                                 max_seq_len=128)
+def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24), dtype=torch.float32,
+                      **cfg_kw):
+    """A graph engine (the default: window and chunk graphs) and an eager one
+    (``ServingEngine._eager``), both synchronous so that each step drains its
+    window, on one tiny model (``dtype``, ``cfg_kw`` for its config): the
+    same requests stepped in turn, every state the windows and chunks write
+    (pages, scales, pending tokens, draft tokens), every token and
+    ``kv_quant_error`` compared bitwise after each step.  One request
+    samples, so both variants of each window run.  The null page is left
+    out: it is the garbage sink of inactive lanes, never read.  The prompts
+    are one random segment tiled to ``lens``; the prefix cache is off
+    unless ``knobs`` set it."""
+    cfg = TransformerConfig.tiny(dtype=dtype, param_dtype=dtype, max_seq_len=128, **cfg_kw)
     model = Transformer(cfg, device=card)
-    model.load_state_dict(init_params(cfg, seed=5, device=card, dtype=torch.float32),
-                          assign=True)
+    model.load_state_dict(init_params(cfg, seed=5, device=card, dtype=dtype), assign=True)
     rng = np.random.default_rng(9)
     segment = rng.integers(1, 256, 12).astype(np.int32)
     prompts = [np.resize(segment, n) for n in lens]
     configs = [GenerationConfig(max_new_tokens=20)] * (len(lens) - 1) + [
         GenerationConfig(max_new_tokens=20, do_sample=True, temperature=0.8, top_k=20)]
-    kw = dict(num_slots=2, max_len=128, prefill_buckets=(16, 32), decode_window=3,
-              async_depth=0, device=card, **{"prefix_cache_mb": 0, **knobs})
+    kw = {**dict(num_slots=2, max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                 async_depth=0, device=card, prefix_cache_mb=0), **knobs}
     graphed = ServingEngine(model, None, **kw)
     eager = ServingEngine._eager(model, None, **kw)
     captures = graphed.stats["graph_captures"]
@@ -631,6 +635,7 @@ def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24)):
         if graphed.tree is not None:
             assert torch.equal(graphed._draft_tokens, eager._draft_tokens)
         assert [r.tokens for r in reqs["graphed"]] == [r.tokens for r in reqs["eager"]]
+        assert graphed.stats["kv_quant_error"] == eager.stats["kv_quant_error"]
     assert not eager.has_work
     st = graphed.stats
     assert st["graph_captures"] == captures and st["graph_replays"] > 0
@@ -643,13 +648,15 @@ def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24)):
 def test_window_graphs_replay_the_eager_windows(card, kind, kv_dtype):
     """Each window's graph replay is bitwise equal to the eager window on
     the same inputs: the decode window, the linear verify, and the tree
-    draft with the tree verify and its commit, native and int8 pages; the
-    capture count stays constant over the serve."""
+    draft with the tree verify and its commit, native and int8 pages (and
+    each prefill bucket's chunk beside them); the capture count stays
+    constant over the serve."""
     knobs = {"decode": {}, "verify": dict(speculate_k=2),
              "tree": dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)}[kind]
     engine = _lockstep_engines(card, dict(kv_dtype=kv_dtype, **knobs))
+    # every engine also holds one graph per prefill bucket
     want = {"decode": {"decode"}, "verify": {"decode", "verify"},
-            "tree": {"decode", "tree", "draft"}}[kind]
+            "tree": {"decode", "tree", "draft"}}[kind] | {"prefill"}
     assert {key[0] for key in engine.graphs.keys()} == want
     if kind != "decode":
         assert engine.stats["verify_forwards"] > 0
@@ -776,6 +783,90 @@ def test_pipelined_dispatch_does_not_synchronise(card, kv_dtype, prefix, tmp_pat
     if prefix == "tiers":
         st = engine.prefix_cache_stats()
         assert st["spills"] > 0 and st["promotions"] > 0 and st["disk_writes"] > 0
+
+
+def _chunk_budget_mb(cfg, kv_dtype, chunks=1.0):
+    """MiB of ``chunks`` cached 32-token chunks (two pages of 16) at the
+    page format: the lockstep engines' device-tier budget."""
+    return chunks * PagedKVPool(cfg, 2, 128, 16, 17, kv_dtype=kv_dtype,
+                                device="cpu").chunk_bytes(2) / 2**20
+
+
+@pytest.mark.parametrize("pages", ["bf16", "int8", "fp8"])
+def test_prefill_graphs_replay_the_eager_chunks(card, pages):
+    """Each prefill bucket's graph replay is bitwise the eager chunk: a bf16
+    model at D 64 (K2's tensor-core arm) over bf16, int8 and fp8 pages,
+    stepped in lockstep with the eager engine (pages compared after every
+    step), with chunks at base 0, chunks after aliased prefix hits, and
+    chunks after promotions from the host ring (a device budget of one
+    chunk).  The engine holds one chunk graph per bucket."""
+    cfg = TransformerConfig.tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                                 max_seq_len=128, head_dim=64)
+    kw = dict(kv_dtype=pages, prefix_cache_mb=_chunk_budget_mb(cfg, pages, 1.01),
+              prefix_host_mb=8.0)
+    engine = _lockstep_engines(card, kw, lens=(16, 40, 17, 16, 33, 24, 16, 50),
+                               dtype=torch.bfloat16, head_dim=64)
+    assert sorted(k[1] for k in engine.graphs.keys() if k[0] == "prefill") == [16, 32]
+    st = engine.stats
+    assert st["prefix_hit_tokens"] > 0 and st["prefix_hit_tokens_host"] > 0
+    assert st["prefill_chunks"] > 0 and st["promote_degraded"] == 0
+
+
+def test_graphed_chunks_keep_every_quantization_error(card):
+    """int8 pages, one 16-token bucket and a 64-token budget: four chunks a
+    cycle replay one graph, whose error output each next replay rewrites;
+    ``kv_quant_error`` after every step equals the eager engine's (the
+    lockstep compares it), so no chunk's error was lost."""
+    engine = _lockstep_engines(card, dict(kv_dtype="int8", prefill_buckets=(16,),
+                                          prefill_token_budget=64),
+                               lens=(64, 60, 48, 64, 33))
+    assert engine.stats["prefill_chunks"] >= 16 and engine.stats["kv_quant_error"] > 0.0
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_interleaved_dispatch_does_not_synchronise(card, kv_dtype):
+    """``interleave_prefill``: the dispatch of each window and the admission
+    behind it (chunk graph replays, their errors kept) run under
+    ``torch.cuda.set_sync_debug_mode("error")``; only the drain waits.
+    Greedy tokens equal the CPU engine's, and chunks were interleaved."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128)
+    sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 40, 33, 8, 60, 12)]
+    gen = GenerationConfig(max_new_tokens=12)
+    out = {}
+    for dev in ("cpu", card):
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               kv_dtype=kv_dtype, prefix_cache_mb=0, interleave_prefill=True,
+                               device=dev)
+        reqs = [engine.submit(p, config=gen) for p in prompts]
+        while engine.has_work:
+            engine._prefree_exhausted()
+            active = bool(engine._active.any())
+            if not active:
+                engine._prev_handle = engine._dispatch()  # drains the pipeline: waits
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                if active:
+                    engine._prev_handle = engine._dispatch()
+                engine._admit()
+            finally:
+                if dev != "cpu":
+                    torch.cuda.set_sync_debug_mode(0)
+            engine._hand_cache_traffic(engine._inflight if engine._inflight is not None
+                                       else engine._prev_handle)
+            prev, engine._prev_handle = engine._prev_handle, None
+            if prev is not None:
+                engine._drain(prev)
+        out[str(dev)] = [r.tokens for r in reqs]
+        assert engine.kv.allocator.free_count == engine.num_pages - 1
+    assert out["cpu"] == out[str(card)]
+    st = engine.stats
+    assert st["interleaved_chunks"] > 0 and st["graph_replays"] > st["decode_steps"] // 3
 
 
 def test_failed_capture_raises(card, monkeypatch):
