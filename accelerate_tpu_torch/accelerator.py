@@ -23,7 +23,8 @@ The state is updated in place.  ``metrics`` holds device tensors (``loss``,
 ``grad_norm``, ``applied``, ``overflow`` and ``aux``): the step reads nothing
 back from the device, except one finiteness flag per sync step under fp16.
 
-Arguments for what is not ported — sharding plugins, meshes, offload,
+Arguments for what is not ported — sharding plugins, meshes, RNG
+synchronization across processes (``rng_types``), offload,
 PowerSGD, fp8, remat, trackers, the metrics endpoint, checkpoints — raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -58,6 +59,7 @@ _UNPORTED_ARGS = {
     "fsdp_plugin": f"FSDP sharding and offload: {_PARALLEL}",
     "megatron_lm_plugin": f"tensor/pipeline/sequence parallelism: {_PARALLEL}",
     "mesh": f"device meshes: {_PARALLEL}",
+    "rng_types": f"RNG synchronization across processes: {_PARALLEL}",
     "compilation_config": "remat and compile options: ROADMAP Queue 1 item 9 (remat)",
     "dynamo_backend": "torch.compile of the step: ROADMAP Queue 1 item 9 (remat)",
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
@@ -86,6 +88,7 @@ class Accelerator:
         fsdp_plugin=None,
         megatron_lm_plugin=None,
         mesh=None,
+        rng_types=None,
         log_with=None,
         project_dir: Optional[str] = None,
         project_config=None,
@@ -97,7 +100,7 @@ class Accelerator:
         metrics_port: Optional[int] = None,
     ):
         given = dict(deepspeed_plugin=deepspeed_plugin, fsdp_plugin=fsdp_plugin,
-                     megatron_lm_plugin=megatron_lm_plugin, mesh=mesh,
+                     megatron_lm_plugin=megatron_lm_plugin, mesh=mesh, rng_types=rng_types,
                      compilation_config=compilation_config, dynamo_backend=dynamo_backend,
                      log_with=log_with, metrics_port=metrics_port, project_dir=project_dir,
                      project_config=project_config)

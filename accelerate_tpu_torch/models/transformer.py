@@ -14,10 +14,11 @@ Three attention branches, as in the JAX ``Attention``:
   page), then attention reads the pages through the block tables with the
   decode kernel (K1) or the prefill kernel (K2).  A ``tree_mask`` (a
   speculative tree verify) takes K1's tree-mask arm;
-* with a slab :class:`KVCache` (per-lane index) — the stateless draft
-  forward of tree speculation: the new K/V are written at each lane's own
-  index and :func:`cached_attention` (plain PyTorch, as XLA code is in the
-  reference) reads the slab;
+* with a slab :class:`KVCache` (per-lane index) — the slab serving pool
+  (``ServingEngine(paged=False)``), its batch-1 prefill scratch and the
+  stateless draft forward of tree speculation: the new K/V are written at
+  each lane's own index and :func:`cached_attention` (plain PyTorch, as
+  XLA code is in the reference) reads the slab;
 * without a cache — the training path and the independent forward the
   serving path is checked against: causal
   :func:`~accelerate_tpu_torch.ops.attention.dot_product_attention` with
@@ -47,7 +48,9 @@ from ..ops.paged_attention import (
     as_tree_mask,
     kv_qmax,
     paged_attention,
+    paged_attention_reference,
     paged_flash_prefill,
+    paged_flash_prefill_reference,
     paged_insert,
     paged_quantized_insert,
 )
@@ -134,7 +137,9 @@ class PagedKVCache:
     next write position per lane, ``active [N]`` bool write gate (inactive
     lanes' writes go to the null page).  ``kernel`` picks the attention
     kernel: ``"decode"`` (K1, :func:`paged_attention`) or ``"prefill"`` (K2,
-    :func:`paged_flash_prefill`).  ``quant_err`` is the running max of the
+    :func:`paged_flash_prefill`); ``plain`` routes either to its kernel's
+    plain version instead (the engine's ``decode_kernel="xla"``, an A/B of
+    the kernels inside the engine).  ``quant_err`` is the running max of the
     round-trip error of every value a quantized-page forward wrote, an f32
     device scalar (``None`` until one writes; the reference's
     ``PagedKVCache.quant_err``, ``accelerate_tpu/models/transformer.py:349``)."""
@@ -148,6 +153,7 @@ class PagedKVCache:
     active: torch.Tensor
     kernel: str = "decode"
     quant_err: Optional[torch.Tensor] = None
+    plain: bool = False
 
     def __post_init__(self):
         if self.kernel not in ("decode", "prefill"):
@@ -159,9 +165,16 @@ class KVCache:
     """A slab KV cache with a per-lane write index: ``k``/``v [L, B, M, Hkv,
     D]``, ``index [B]`` int32, the next write position of each lane.  The
     port's counterpart of ``KVCache.create(..., per_lane_index=True)``
-    (``accelerate_tpu/models/transformer.py:309-317``); only the draft
-    forward of tree speculation uses it (slab serving is not ported).  The
-    forward writes ``k``/``v`` in place."""
+    (``accelerate_tpu/models/transformer.py:309-317``): the slab serving
+    pool (``KVCache.create(cfg, num_slots, max_len)``), its batch-1 prefill
+    scratch (``KVCache.create(cfg, 1, max_prompt_len)``, whose one-lane
+    index stands for the reference's scalar one) and the draft forward of
+    tree speculation.  The forward writes ``k``/``v`` in place, so a CUDA
+    graph that holds them stays valid.  A write of ``S`` rows starts at
+    ``clamp(index, 0, M - S)``, as ``lax.dynamic_update_slice`` clamps in
+    the reference: a lane past its slab's end (a finished lane one
+    pipelined window late) overwrites its own last rows instead of indexing
+    out of bounds."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -269,10 +282,12 @@ class Attention(nn.Module):
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         if isinstance(cache, KVCache):
-            # slab: write each lane at its own index, attend over the slab
-            slots = cache.index.long()[:, None] + torch.arange(s, device=x.device)[None, :]
-            lanes = torch.arange(b, device=x.device)[:, None]
+            # slab: write each lane at its own index (clamped as the
+            # reference's dynamic_update_slice clamps), attend over the slab
             k_cache, v_cache = cache.k[layer], cache.v[layer]
+            start = cache.index.long().clamp(0, k_cache.shape[1] - s)
+            slots = start[:, None] + torch.arange(s, device=x.device)[None, :]
+            lanes = torch.arange(b, device=x.device)[:, None]
             k_cache[lanes, slots] = k.to(k_cache.dtype)
             v_cache[lanes, slots] = v.to(v_cache.dtype)
             out = cached_attention(q, k_cache, v_cache, positions, tree_mask=tree_mask)
@@ -299,12 +314,13 @@ class Attention(nn.Module):
                 if tree_mask is not None:
                     raise ValueError("tree verification is a decode-side program: the "
                                      "prefill kernel cannot carry a tree_mask")
-                out = paged_flash_prefill(q, pages_k, pages_v, cache.tables, cache.index,
-                                          k_scales=k_scales, v_scales=v_scales)
+                prefill = paged_flash_prefill_reference if cache.plain else paged_flash_prefill
+                out = prefill(q, pages_k, pages_v, cache.tables, cache.index,
+                              k_scales=k_scales, v_scales=v_scales)
             else:
-                out = paged_attention(q, pages_k, pages_v, cache.tables, cache.index,
-                                      k_scales=k_scales, v_scales=v_scales,
-                                      tree_mask=tree_mask)
+                decode = paged_attention_reference if cache.plain else paged_attention
+                out = decode(q, pages_k, pages_v, cache.tables, cache.index,
+                             k_scales=k_scales, v_scales=v_scales, tree_mask=tree_mask)
         else:
             if tree_mask is not None:
                 raise ValueError("tree_mask requires a KV cache (verify window)")

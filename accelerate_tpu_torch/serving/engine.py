@@ -1,7 +1,14 @@
-"""Continuous-batching serving engine on the paged KV pool.
+"""Continuous-batching serving engine on the paged or the slab KV pool.
 
-Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with
-``paged=True`` and no mesh.  One engine step:
+Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with either
+pool and no mesh.  ``paged=True`` (the port's default, the path that runs
+the kernels) serves from the refcounted page pool; ``paged=False`` (the
+reference's default) from the slab pool: one ``[L, slots, max_len, Hkv,
+D]`` slab a lane, prompts prefilled chunk by chunk into a batch-1 scratch
+slab and copied into the lane's slot when their last chunk lands, attended
+by plain PyTorch, as the reference attends slabs by XLA.  One engine step
+(described for the paged pool; the slab pool has no pages, so it never
+preempts, and a prefix-cache hit copies a cached chunk into the scratch):
 
 0. the deadline sweep (only while some request has a ``deadline_s``):
    running and queued requests past their budget are cancelled;
@@ -45,10 +52,11 @@ while the card computes the window just dispatched; ``async_depth=0``
 drains each window right after its dispatch.  :meth:`ServingEngine.cancel`
 drops a queued request or retires a running lane at once.
 
-Greedy outputs are token-identical to the JAX engine's, with native and
-with quantized (int8, fp8-e4m3) pages, in either loop; a request's sampled
-tokens depend only on ``(rng_seed, request id)``.  Arguments naming parts
-of the JAX engine this slice has not ported raise ``NotImplementedError``.
+Greedy outputs are token-identical to the JAX engine's on either pool,
+with native and with quantized (int8, fp8-e4m3) pages, in either loop; a
+request's sampled tokens depend only on ``(rng_seed, request id)``.
+Arguments naming parts of the JAX engine the port has not ported raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,18 +72,24 @@ import torch
 
 from .._device import resolve_device
 from ..models.generation import GenerationConfig, lane_key
-from ..models.transformer import Transformer
+from ..models.transformer import KVCache, Transformer
 from ..ops.paged_attention import MAX_TREE_NODES, TreeMask
 from .errors import AdmissionError
 from .graphs import WindowGraphs
 from .paging import DraftContextWindow, PagedKVPool
 from .pool import (
     LaneState,
+    copy_chunk,
     copy_page,
     decode_window,
     plan_chunks,
     prefill_chunk,
     promote_install,
+    slab_decode_window,
+    slab_insert,
+    slab_prefill_chunk,
+    slab_tree_verify_window,
+    slab_verify_window,
     spill_extract,
     tree_verify_window,
     verify_window,
@@ -123,6 +137,23 @@ class ServingEngine:
         the largest bucket).
     decode_window: decode steps per engine step.
     slot_order: slot-id preference for admission (tests permute it).
+    paged: ``True`` (the port's default; the reference defaults to
+        ``False``) — the paged pool, attended by the kernels K1 and K2;
+        ``False`` — the reference's slab pool: ``KVCache.create(cfg,
+        num_slots, max_len)`` and the batch-1 prefill scratch
+        ``KVCache.create(cfg, 1, max_prompt_len)``, attended by plain
+        PyTorch (no kernel, as the reference runs none there).  A prompt
+        must then pad (:func:`~.pool.plan_chunks`) to at most
+        ``max_prompt_len``.  With ``paged=False``, ``decode_kernel`` or
+        ``prefill_kernel="pallas"``, ``kv_dtype``, ``interleave_prefill``,
+        ``role`` other than ``"both"`` and ``prefix_host_mb`` raise the
+        reference's ``ValueError``.
+    decode_kernel: ``None`` (default: the kernels on the paged pool, plain
+        PyTorch on the slab), ``"pallas"`` (the kernels, named explicitly)
+        or ``"xla"``: on the paged pool, K1 and K2 replaced by their plain
+        versions, an in-engine A/B of the kernels.
+    prefill_kernel: ``None`` (follows ``decode_kernel``), ``"pallas"`` or
+        ``"xla"``: K2 or its plain version for the paged prefill chunks.
     page_size: tokens per KV page; default ``gcd(prefill_buckets)``.
     num_pages: physical pages including the null page; default the
         no-preemption worst case ``num_slots * max_len / page_size + 1``.
@@ -163,12 +194,16 @@ class ServingEngine:
         be mid-prefill at once, their chunks picked shortest-remaining-first.
         Tokens are identical either way.  ``paged=False`` with it raises
         ``ValueError``.
+    weights_version: a label of the parameter set served, kept as
+        ``weights_version``.
     device: where the engine runs — the card unless ``device="cpu"``.
 
     On the card the constructor captures one CUDA graph per window kind
     (decode; linear verify, or tree draft and tree verify with its commit),
     a greedy and a sampling variant of each window that samples, and one
-    per prefill bucket; every cycle replays them.  ``stats`` counts, beside
+    per prefill bucket, on either pool; every cycle replays them.  The slab
+    pool's insert of a prefilled scratch into its slot and its copy of a
+    cached chunk into the scratch are a copy each and run eagerly.  ``stats`` counts, beside
     the plain counters: ``graph_captures`` and ``graph_replays`` (windows
     and chunks); ``interleaved_chunks`` (chunks dispatched behind a window
     of their cycle); ``cancelled`` (:meth:`cancel`) and ``deadline_shed``
@@ -212,8 +247,13 @@ class ServingEngine:
     transfers' time on the card's stream from CUDA events, host wall on the
     CPU, and their bytes); :meth:`prefix_cache_stats` adds the cache's own.
 
-    ``paged=False``, ``mesh`` and ``role != "both"`` raise
-    ``NotImplementedError``.
+    On the slab pool a cached chunk is a device copy of its slab, ``[L, 1,
+    chunk, Hkv, D]`` for K and V, charged against ``prefix_cache_mb``; a hit
+    copies it into the scratch.
+
+    ``mesh``, ``tp_axis`` other than ``"tp"``, ``role`` other than
+    ``"both"`` (paged), ``registry`` and ``metrics_port`` raise
+    ``NotImplementedError`` (ROADMAP Queue 1 item 8).
     """
 
     #: read by ``__init__``: capture the windows, and the prefill chunks, as
@@ -235,15 +275,19 @@ class ServingEngine:
         pad_token_id: int = 0,
         rng_seed: int = 0,
         slot_order: Optional[Sequence[int]] = None,
+        registry=None,
         paged: bool = True,
         page_size: Optional[int] = None,
         num_pages: Optional[int] = None,
+        decode_kernel: Optional[str] = None,
+        prefill_kernel: Optional[str] = None,
         kv_dtype: Optional[str] = None,
         max_queue: Optional[int] = None,
         prefix_cache_mb: Optional[float] = 64.0,
         prefix_host_mb: Optional[float] = 0.0,
         prefix_disk_mb: Optional[float] = 0.0,
         prefix_disk_dir: Optional[str] = None,
+        metrics_port: Optional[int] = None,
         async_depth: int = 1,
         speculate_k: int = 0,
         speculate_ngram: int = 3,
@@ -253,20 +297,51 @@ class ServingEngine:
         draft_ctx: int = 64,
         interleave_prefill: bool = False,
         mesh=None,
+        tp_axis: str = "tp",
+        weights_version: str = "v0",
         role: str = "both",
         device: Optional[Union[str, torch.device]] = None,
     ):
+        self.paged = bool(paged)
+        # the reference's refusals (accelerate_tpu/serving/engine.py:426-455)
+        if decode_kernel not in (None, "xla", "pallas"):
+            raise ValueError(f"decode_kernel must be 'xla' or 'pallas', got {decode_kernel!r}")
+        if prefill_kernel not in (None, "xla", "pallas"):
+            raise ValueError(f"prefill_kernel must be None, 'xla' or 'pallas', "
+                             f"got {prefill_kernel!r}")
+        if (decode_kernel == "pallas" or prefill_kernel == "pallas"
+                or kv_dtype is not None) and not self.paged:
+            raise ValueError("decode_kernel/prefill_kernel/kv_dtype act on the paged KV "
+                             "pool; pass paged=True")
         self.interleave_prefill = bool(interleave_prefill)
-        if self.interleave_prefill and not paged:
+        if self.interleave_prefill and not self.paged:
             raise ValueError("interleave_prefill needs the paged pool (the slab pool's "
                              "batch-1 prefill scratch admits one request at a time); "
                              "pass paged=True")
-        if not paged:
-            raise _not_ported("paged=False (the contiguous slab pool)", "5")
+        if role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role must be 'prefill', 'decode' or 'both', got {role!r}")
+        if role != "both" and not self.paged:
+            raise ValueError("disaggregated roles move lanes between replicas as KV pages; "
+                             "role='prefill'/'decode' requires paged=True")
+        if (prefix_host_mb or 0.0) and not (self.paged and prefix_cache_mb):
+            raise ValueError("prefix_host_mb spills prefix pages; it requires paged=True and "
+                             "an enabled prefix cache (prefix_cache_mb > 0)")
         if mesh is not None:
             raise _not_ported("mesh= (tensor-parallel serving)", "8")
+        if tp_axis != "tp":
+            raise _not_ported("tp_axis= (tensor-parallel serving)", "8")
         if role != "both":
             raise _not_ported(f"role={role!r} (disaggregated prefill/decode)", "8")
+        if registry is not None:
+            raise _not_ported("registry= (the telemetry registry)", "8")
+        if metrics_port is not None:
+            raise _not_ported("metrics_port= (the metrics endpoint)", "8")
+        #: which attention the paged pool runs: the kernels ("pallas") or
+        #: their plain versions ("xla"); the prefill follows unless forced
+        self.decode_kernel = decode_kernel or "pallas"
+        self.prefill_kernel = prefill_kernel or self.decode_kernel
+        #: label of the parameter set served
+        self.weights_version = str(weights_version)
         self.async_depth = int(async_depth)
         if self.async_depth not in (0, 1):
             raise ValueError(f"async_depth must be 0 (synchronous) or 1 (depth-1 pipeline), "
@@ -325,27 +400,43 @@ class ServingEngine:
         if sorted(self.slot_order) != list(range(self.num_slots)):
             raise ValueError(f"slot_order must permute range({self.num_slots}), "
                              f"got {self.slot_order}")
-        self.page_size = int(page_size if page_size is not None else math.gcd(*self.buckets))
-        if any(b % self.page_size for b in self.buckets):
-            raise ValueError(f"page_size {self.page_size} must divide every prefill "
-                             f"bucket, got {self.buckets}")
-        self.num_pages = int(num_pages if num_pages is not None
-                             else self.num_slots * (self.max_len // self.page_size) + 1)
-        self.kv = PagedKVPool(cfg, self.num_slots, self.max_len, self.page_size,
-                              self.num_pages, kv_dtype=kv_dtype, device=self.device)
-        kv = self.kv
-        self._pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales)
+        self.kv: Optional[PagedKVPool] = None
+        self.pool: Optional[KVCache] = None
+        self.scratch: Optional[KVCache] = None
+        self.page_size = self.num_pages = None
+        if self.paged:
+            self.page_size = int(page_size if page_size is not None
+                                 else math.gcd(*self.buckets))
+            if any(b % self.page_size for b in self.buckets):
+                raise ValueError(f"page_size {self.page_size} must divide every prefill "
+                                 f"bucket, got {self.buckets}")
+            self.num_pages = int(num_pages if num_pages is not None
+                                 else self.num_slots * (self.max_len // self.page_size) + 1)
+            self.kv = PagedKVPool(cfg, self.num_slots, self.max_len, self.page_size,
+                                  self.num_pages, kv_dtype=kv_dtype, device=self.device)
+            kv = self.kv
+            self._pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales)
+            self.quantized = kv.quantized
+            kv_bytes_per_token = kv.kv_bytes_per_token
+        else:
+            # the slab pool and the batch-1 prefill scratch (the reference's
+            # accelerate_tpu/serving/engine.py:600-602); their index is the
+            # engine's static ``_index`` / ``_chunk_base``, so only k and v
+            # are used from these
+            self.pool = KVCache.create(cfg, self.num_slots, self.max_len, device=self.device)
+            self.scratch = KVCache.create(cfg, 1, self.max_prompt_len, device=self.device)
+            self.quantized = False
+            kv_bytes_per_token = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim
+                                  * self.pool.k.element_size())
         host_bytes = int((prefix_host_mb or 0.0) * 2**20)
         disk_bytes = int((prefix_disk_mb or 0.0) * 2**20)
-        if host_bytes and not prefix_cache_mb:
-            raise ValueError("prefix_host_mb spills prefix pages; it requires an enabled "
-                             "prefix cache (prefix_cache_mb > 0)")
         if disk_bytes and not host_bytes:
             raise ValueError("prefix_disk_mb sits behind the host ring; set prefix_host_mb")
         self.prefix_cache: Optional[PrefixCache] = None
         if prefix_cache_mb:
             self.prefix_cache = PrefixCache(
-                int(prefix_cache_mb * 2**20), on_evict=self._on_prefix_evict,
+                int(prefix_cache_mb * 2**20),
+                on_evict=self._on_prefix_evict if self.paged else None,
                 host_capacity_bytes=host_bytes, spill=self._spill_node if host_bytes else None,
                 disk_capacity_bytes=disk_bytes, disk_dir=prefix_disk_dir)
         # prefix-cache spills and promotions enqueued since the last
@@ -380,7 +471,10 @@ class ServingEngine:
                                               draft_ctx=self.draft_ctx, depth=self.tree_depth)
             self.draft = draft_transformer(draft_cfg, draft_sd, self.device)
             self._tree_mask = TreeMask(self.tree.anc)
+            # both device copies made now, never inside a capture: K1's
+            # packed words, the bool mask of plain attention
             self._tree_mask.words(self.device)
+            self._tree_mask.dense(self.device)
             self.tree.on(self.device)
             self._draft_window = DraftContextWindow(n, self.draft_ctx, pad=self.pad_token_id)
             self.drafter = TreeDrafter(self.tree, draft_cfg,
@@ -402,7 +496,7 @@ class ServingEngine:
             "prefill_s": 0.0,
             "decode_s": 0.0,
             "kv_quant_error": 0.0,
-            "kv_bytes_per_token": self.kv.kv_bytes_per_token,
+            "kv_bytes_per_token": kv_bytes_per_token,
             "spec_drafted": 0,
             "spec_accepted": 0,
             "verify_forwards": 0,
@@ -450,7 +544,9 @@ class ServingEngine:
 
         # the windows' static inputs: written in place before each cycle
         dev = self.device
-        self._tables = torch.zeros((n, self.kv.pages_per_lane), dtype=torch.int32, device=dev)
+        if self.paged:
+            self._tables = torch.zeros((n, self.kv.pages_per_lane), dtype=torch.int32,
+                                       device=dev)
         self._index = torch.zeros(n, dtype=torch.int32, device=dev)
         if self.tree is not None:
             self._ctx = torch.zeros((n, self.draft_ctx), dtype=torch.int32, device=dev)
@@ -460,15 +556,25 @@ class ServingEngine:
             self._drafts = torch.zeros((n, self.speculate_k), dtype=torch.int32, device=dev)
         self._windows = self._window_programs()
         # the prefill chunk's static inputs: tokens per bucket, the lane's
-        # block table and the chunk's start position
+        # block table (paged) and the chunk's start position (on the slab
+        # pool, the scratch's write index)
         self._chunk_tokens = {b: torch.zeros((1, b), dtype=torch.int32, device=dev)
                               for b in self.buckets}
-        self._chunk_table = torch.zeros((1, self.kv.pages_per_lane), dtype=torch.int32,
-                                        device=dev)
         self._chunk_base = torch.zeros(1, dtype=torch.int32, device=dev)
-        self._chunks = {b: functools.partial(prefill_chunk, self.model, self._chunk_tokens[b],
-                                             *self._pool, self._chunk_table, self._chunk_base)
-                        for b in self.buckets}
+        if self.paged:
+            self._chunk_table = torch.zeros((1, self.kv.pages_per_lane), dtype=torch.int32,
+                                            device=dev)
+            plain = self.prefill_kernel == "xla"
+            self._chunks = {b: functools.partial(prefill_chunk, self.model,
+                                                 self._chunk_tokens[b], *self._pool,
+                                                 self._chunk_table, self._chunk_base,
+                                                 plain=plain)
+                            for b in self.buckets}
+        else:
+            self._chunks = {b: functools.partial(slab_prefill_chunk, self.model,
+                                                 self._chunk_tokens[b], self.scratch.k,
+                                                 self.scratch.v, self._chunk_base)
+                            for b in self.buckets}
         self.graphs: Optional[WindowGraphs] = None
         if dev.type == "cuda" and (self._graph_windows or self._graph_chunks):
             self.graphs = WindowGraphs(dev)
@@ -478,7 +584,8 @@ class ServingEngine:
                 self.stats["graph_captures"] += 1
         if self.graphs is not None and self._graph_chunks:
             # captured with the table all null page and base 0: the capture's
-            # writes land in the garbage sink, as inactive lanes' do
+            # writes land in the garbage sink, as inactive lanes' do (on the
+            # slab pool in the idle scratch)
             for b, fn in self._chunks.items():
                 self.graphs.capture(self._chunk_key(b), fn, lambda: None)
                 self.stats["graph_captures"] += 1
@@ -511,37 +618,57 @@ class ServingEngine:
         The same functions run eagerly (CPU, :meth:`_eager`) and are
         captured as graphs."""
         lanes, pad = self.lanes, self.pad_token_id
-        pool = (*self._pool, self._tables, self._index)
         windows = {}
+        if self.paged:
+            pool = (*self._pool, self._tables, self._index)
+            plain = self.decode_kernel == "xla"
+            decode = functools.partial(decode_window, self.model, self.window, *pool, lanes, pad,
+                                       plain=plain)
+            tree = (None if self.tree is None else functools.partial(
+                tree_verify_window, self.model, self.tree, self._tree_mask, *pool,
+                self._draft_tokens, lanes, pad, plain=plain))
+            verify = functools.partial(verify_window, self.model, *pool, plain=plain)
+        else:
+            pool = (self.pool.k, self.pool.v, self._index)
+            decode = functools.partial(slab_decode_window, self.model, self.window, *pool,
+                                       lanes, pad)
+            tree = (None if self.tree is None else functools.partial(
+                slab_tree_verify_window, self.model, self.tree, self._tree_mask, *pool,
+                self._draft_tokens, lanes, pad))
+            verify = functools.partial(slab_verify_window, self.model, *pool)
         for sampling in (False, True):
-            windows["decode", sampling] = functools.partial(
-                decode_window, self.model, self.window, *pool, lanes, pad, sampling=sampling)
-            if self.tree is not None:
-                windows["tree", sampling] = functools.partial(
-                    tree_verify_window, self.model, self.tree, self._tree_mask, *pool,
-                    self._draft_tokens, lanes, pad, sampling=sampling)
+            windows["decode", sampling] = functools.partial(decode, sampling=sampling)
+            if tree is not None:
+                windows["tree", sampling] = functools.partial(tree, sampling=sampling)
             elif self.speculate_k:
-                windows["verify", sampling] = functools.partial(self._verify_program, pool,
+                windows["verify", sampling] = functools.partial(self._verify_program, verify,
                                                                 sampling)
         if self.tree is not None:
             windows["draft", False] = self._draft_program
         return windows
 
-    def _verify_program(self, pool, sampling: bool):
+    def _verify_program(self, verify, sampling: bool):
         tokens = torch.cat([self.lanes.pending[:, None], self._drafts], dim=1)
-        return verify_window(self.model, *pool, tokens, self.lanes, self.pad_token_id,
-                             sampling=sampling)
+        return verify(tokens, self.lanes, self.pad_token_id, sampling=sampling)
 
     def _draft_program(self):
         self._draft_tokens.copy_(self.drafter.propose_device(self._ctx, self._ctx_len))
 
+    def _pool_key(self, scratch: bool = False) -> tuple:
+        """The KV a graph runs on: the pool's kind, its width (table width,
+        or the length of the slab pool or, for a chunk, of its scratch) and
+        its storage dtype."""
+        if self.paged:
+            return ("paged", self.kv.pages_per_lane, self.kv.storage_dtype)
+        slab = self.scratch if scratch else self.pool
+        return ("slab", slab.k.shape[2], slab.k.dtype)
+
     def _graph_key(self, kind: str, sampling: bool) -> tuple:
         span = self.window if kind == "decode" else self._spec_span
-        return (kind, self.num_slots, span, self.kv.pages_per_lane, self.kv.storage_dtype,
-                sampling)
+        return (kind, self.num_slots, span, sampling, *self._pool_key())
 
     def _chunk_key(self, bucket: int) -> tuple:
-        return ("prefill", bucket, self.kv.pages_per_lane, self.kv.storage_dtype)
+        return ("prefill", bucket, *self._pool_key(scratch=True))
 
     def _reset_lanes(self) -> None:
         """Undo a capture warm-up's writes: every lane was inactive (its KV
@@ -563,7 +690,8 @@ class ServingEngine:
     def submit(self, prompt, config: Optional[GenerationConfig] = None,
                on_token: Optional[Callable[[Request, int], None]] = None,
                cache_prefix: bool = True, speculate: bool = True,
-               deadline_s: Optional[float] = None, **overrides) -> Request:
+               deadline_s: Optional[float] = None, request_class: Optional[str] = None,
+               tenant: Optional[str] = None, **overrides) -> Request:
         """Queue one request; returns its :class:`Request` handle (filled in
         as the engine runs).  ``overrides`` patch the ``GenerationConfig``;
         ``cache_prefix=False`` opts the request out of prefix-KV reuse and
@@ -574,7 +702,13 @@ class ServingEngine:
         requests' submit-to-done time) already exceeds it, the submit raises
         a retriable :class:`AdmissionError` with ``retry_after_s``; once
         admitted, a step that finds it past its budget cancels it (queued
-        or running) and sets ``deadline_exceeded``."""
+        or running) and sets ``deadline_exceeded``.  ``request_class`` and
+        ``tenant`` (the reference's per-class and per-tenant accounting)
+        raise ``NotImplementedError``."""
+        if request_class is not None:
+            raise _not_ported("submit(request_class=) (per-class latency histograms)", "8")
+        if tenant is not None:
+            raise _not_ported("submit(tenant=) (per-tenant accounting)", "8")
         gen = config or GenerationConfig()
         if overrides:
             gen = dataclasses.replace(gen, **overrides)
@@ -595,11 +729,14 @@ class ServingEngine:
                 f"prompt {prompt.size} + max_new_tokens {gen.max_new_tokens} + "
                 f"max(decode_window, speculation span) {span} = {need} exceeds slot "
                 f"capacity {self.max_len}", queue_depth=depth, retriable=False)
+        # the padded final chunk must fit the prefill's write target: the
+        # lane's pages, or the slab pool's scratch
         padded = sum(b for b, _ in plan_chunks(prompt.size, self.buckets))
-        if padded > self.max_len:
+        cap = self.max_len if self.paged else self.max_prompt_len
+        if padded > cap:
             raise AdmissionError(
                 f"prompt {prompt.size} pads to {padded} prefill tokens under buckets "
-                f"{self.buckets}, exceeding capacity {self.max_len}",
+                f"{self.buckets}, exceeding capacity {cap}",
                 queue_depth=depth, retriable=False)
         if deadline_s is not None:
             # each request ahead costs about one service time; optimistic
@@ -733,30 +870,34 @@ class ServingEngine:
         return self._reclaim_pages(bucket // self.page_size, allow_preempt=False)
 
     def _prefill_chunk(self, req: Request, bucket: int, chunk: np.ndarray,
-                       start: int) -> torch.Tensor:
-        """Prefill one chunk straight into newly allocated lane pages; returns
-        its quantization error (a device scalar of its own).  The chunk's
-        tokens, table and start go into the static buffers by non-blocking
-        copies from pageable memory (staged at the call, so the host arrays
-        may change on return; nothing waits for a window in flight), then
-        the bucket's graph replays (on the CPU and in :meth:`_eager` engines
-        the same program runs launch by launch).  The table maps the lane's
-        shared prefix pages too: a chunk after a hit reads the cached KV in
-        place, behind any copy-on-write or promotion on the same stream."""
-        s = req.slot
-        ids = self.kv.allocator.alloc(bucket // self.page_size)
-        if ids is None:  # _ensure_prefill_pages ran first; this cannot happen
-            raise RuntimeError("KV page pool exhausted mid-prefill")
-        self.kv.lane_append_owned(s, ids)
+                       start: int) -> Optional[torch.Tensor]:
+        """Prefill one chunk: on the paged pool straight into newly allocated
+        lane pages, on the slab pool into the scratch at ``start``; returns
+        its quantization error (a device scalar of its own; ``None`` on the
+        slab pool).  The chunk's tokens, table and start go into the static
+        buffers by non-blocking copies from pageable memory (staged at the
+        call, so the host arrays may change on return; nothing waits for a
+        window in flight), then the bucket's graph replays (on the CPU and
+        in :meth:`_eager` engines the same program runs launch by launch).
+        The table maps the lane's shared prefix pages too: a chunk after a
+        hit reads the cached KV in place, behind any copy-on-write or
+        promotion on the same stream."""
+        if self.paged:
+            s = req.slot
+            ids = self.kv.allocator.alloc(bucket // self.page_size)
+            if ids is None:  # _ensure_prefill_pages ran first; this cannot happen
+                raise RuntimeError("KV page pool exhausted mid-prefill")
+            self.kv.lane_append_owned(s, ids)
+            self._chunk_table.copy_(torch.from_numpy(self.kv.tables[s:s + 1]),
+                                    non_blocking=True)
         self._chunk_tokens[bucket].copy_(torch.from_numpy(chunk[None]), non_blocking=True)
-        self._chunk_table.copy_(torch.from_numpy(self.kv.tables[s:s + 1]), non_blocking=True)
         self._chunk_base.fill_(start)
         if self.graphs is None or not self._graph_chunks:
             return self._chunks[bucket]()
         self.stats["graph_replays"] += 1
         err = self.graphs.replay(self._chunk_key(bucket))
         # the replay's output is rewritten by the next one: keep a copy
-        return err.clone() if self.kv.quantized else err
+        return err.clone() if self.quantized else err
 
     def _admit(self) -> None:
         """Open prefills and run chunks against this step's budget (less the
@@ -771,13 +912,14 @@ class ServingEngine:
             # pages allow
             while sched.queue and len(sched.prefills) < sched.max_prefills:
                 slot = self._next_free_slot()
-                if slot is None or not self._admission_pages_ok(sched.queue[0]):
+                if slot is None or (self.paged and not self._admission_pages_ok(sched.queue[0])):
                     break
                 sched.start_next(slot)
                 self._reserved_slots.add(slot)
             if not sched.prefills:
                 break
-            took = sched.take_chunk(budget, ready=self._ensure_prefill_pages)
+            took = sched.take_chunk(budget,
+                                    ready=self._ensure_prefill_pages if self.paged else None)
             if took is None:
                 break  # budget spent or page pressure: retry next step
             req, bucket, valid, start, cached = took
@@ -785,7 +927,11 @@ class ServingEngine:
             if cached:
                 node = req.cache_nodes[req.next_chunk - 1]
                 spilled = node.tier != "device"
-                if not spilled:
+                if not self.paged:
+                    # replay the cached slab into the scratch: one copy on
+                    # the stream, no forward, no budget charged
+                    copy_chunk(self.scratch.k, self.scratch.v, node.k, node.v, start)
+                elif not spilled:
                     # the zero-copy hit: the node's pages join the lane's table
                     self.kv.lane_append_shared(req.slot, node.pages)
                 elif not self._promote_node(req, node, bucket):
@@ -802,7 +948,7 @@ class ServingEngine:
                 chunk = np.zeros(bucket, np.int32)
                 chunk[:valid] = req.prefill_tokens[start:start + valid]
                 err = self._prefill_chunk(req, bucket, chunk, start)
-                if self.kv.quantized:
+                if self.quantized:
                     self._pending_prefill_qerr.append(err)
                 budget -= bucket
                 st["prefill_chunks"] += 1
@@ -822,15 +968,20 @@ class ServingEngine:
             st["prefill_s"] += time.perf_counter() - t0
 
     def _install(self, req: Request) -> None:
-        """Hand a fully prefilled request its lane: its pages already hold the
-        prompt's KV (its own, or aliased cache pages); only a shared tail
-        page is copied on write before decode writes into it.  The last
-        prompt token stays pending so the first decode step computes the
-        first generated token.  The lane vectors are edited in place on the
-        card's stream, behind any window in flight."""
+        """Hand a fully prefilled request its lane.  Paged: its pages
+        already hold the prompt's KV (its own, or aliased cache pages); only
+        a shared tail page is copied on write before decode writes into it.
+        Slab: the scratch is copied into the lane's slot.  The last prompt
+        token stays pending so the first decode step computes the first
+        generated token.  The copies and the lane vectors' edits are
+        enqueued on the card's stream, behind any window in flight (which
+        may still write the slot of a lane retired under it)."""
         s = req.slot
         ptoks = req.prefill_tokens
-        self._cow_tail_page(s, len(ptoks))
+        if self.paged:
+            self._cow_tail_page(s, len(ptoks))
+        else:
+            slab_insert(self.pool.k, self.pool.v, self.scratch.k, self.scratch.v, s)
         self._lane_len[s] = len(ptoks) - 1
         gen = req.config
         eos = -1 if gen.eos_token_id is None else int(gen.eos_token_id)
@@ -858,26 +1009,34 @@ class ServingEngine:
 
     # ---------------------------------------------------------- prefix cache
     def _populate_cache(self, req: Request, bucket: int, valid: int, start: int) -> None:
-        """Retain a freshly prefilled full chunk: the node takes the lane's
-        own page ids and one allocator reference per page, so the KV
-        outlives the lane.  A padded final chunk is skipped (its KV past
+        """Retain a freshly prefilled full chunk.  Paged: the node takes the
+        lane's own page ids and one allocator reference per page, so the KV
+        outlives the lane.  Slab: the node takes its own device copy of the
+        chunk's scratch rows (the reference's ``PrefixCache.insert``),
+        charged at its bytes.  A padded final chunk is skipped (its KV past
         ``valid`` is garbage), and once a chunk fails to retain the rest of
         the request's chain is abandoned: a child without its ancestors is
         unreachable."""
         if valid != bucket or req.cache_chain_broken:
             return
         parent = req.cache_nodes[-1] if req.cache_nodes else None
-        npg = bucket // self.page_size
-        ids = self.kv.chunk_ids(req.slot, start // self.page_size, npg)
-        node = self.prefix_cache.insert_pages(parent, req.prefill_tokens[start:start + bucket],
-                                              ids, nbytes=self.kv.chunk_bytes(npg))
+        tokens = req.prefill_tokens[start:start + bucket]
+        if self.paged:
+            npg = bucket // self.page_size
+            ids = self.kv.chunk_ids(req.slot, start // self.page_size, npg)
+            node = self.prefix_cache.insert_pages(parent, tokens, ids,
+                                                  nbytes=self.kv.chunk_bytes(npg))
+            if node is not None and node.pages == tuple(ids):
+                # a new node (or a spilled one healed with these pages) holds
+                # its own references, dropped by _on_prefix_evict
+                self.kv.allocator.ref(ids)
+        else:
+            rows = slice(start, start + bucket)
+            node = self.prefix_cache.insert(parent, tokens, self.scratch.k[:, :, rows].clone(),
+                                            self.scratch.v[:, :, rows].clone())
         if node is None:
             req.cache_chain_broken = True
             return
-        if node.pages == tuple(ids):
-            # a new node (or a spilled one healed with these pages) holds
-            # its own references, dropped by _on_prefix_evict
-            self.kv.allocator.ref(ids)
         self.prefix_cache.acquire([node])
         req.cache_nodes.append(node)
 
@@ -1054,13 +1213,16 @@ class ServingEngine:
         """Tear down one running lane (finish / preempt / pre-free).  If the
         window in flight was dispatched with this lane live, its pages move
         to that window's deferral list and free at its drain; else they
-        free now.  Returns pages freed now."""
-        inflight = self._inflight
-        if inflight is not None and inflight.lane_live(slot):
-            inflight.deferred_pages.extend(self.kv.lane_detach(slot))
-            freed = 0
-        else:
-            freed = self.kv.lane_release(slot)
+        free now.  Returns pages freed now.  A slab lane has no pages: its
+        slot is free at once, and a new request's insert into it queues
+        behind the window in flight on the stream."""
+        freed = 0
+        if self.paged:
+            inflight = self._inflight
+            if inflight is not None and inflight.lane_live(slot):
+                inflight.deferred_pages.extend(self.kv.lane_detach(slot))
+            else:
+                freed = self.kv.lane_release(slot)
         self.lanes.retire(slot)
         self._active[slot] = False
         self._slot_req[slot] = None
@@ -1144,12 +1306,13 @@ class ServingEngine:
         if not self._active.any():
             self._drain_inflight()
             return None
-        # pages for the widest pass this cycle could run; this may drain the
-        # window in flight and preempt, so re-check occupancy
-        self._ensure_decode_capacity(max(self.window, self._spec_span))
-        if not self._active.any():
-            self._drain_inflight()
-            return None
+        if self.paged:
+            # pages for the widest pass this cycle could run; this may drain
+            # the window in flight and preempt, so re-check occupancy
+            self._ensure_decode_capacity(max(self.window, self._spec_span))
+            if not self._active.any():
+                self._drain_inflight()
+                return None
         n_occupied = int(self._active.sum())
         hd = None
         if self.tree is not None:
@@ -1179,10 +1342,11 @@ class ServingEngine:
             self._busy_since = now
 
     def _upload_pool(self) -> None:
-        """Block tables and write indices into the windows' static buffers.
-        Pageable non-blocking copies: the host arrays are staged at the
-        call, so they may change on return, and nothing waits."""
-        self._tables.copy_(torch.from_numpy(self.kv.tables), non_blocking=True)
+        """Block tables (paged) and write indices into the windows' static
+        buffers.  Pageable non-blocking copies: the host arrays are staged
+        at the call, so they may change on return, and nothing waits."""
+        if self.paged:
+            self._tables.copy_(torch.from_numpy(self.kv.tables), non_blocking=True)
         self._index.copy_(torch.from_numpy(self._lane_len), non_blocking=True)
 
     def _handle(self, kind: str, width: int, toks, counts, err, n_occupied: int,
@@ -1190,7 +1354,7 @@ class ServingEngine:
         """Stage a dispatched window's outputs to the host and snapshot the
         lanes it saw; the handle's ``dispatch_t`` is now, the window's
         launches done."""
-        if not self.kv.quantized:
+        if not self.quantized:
             err = None
         (toks, counts, err), ready = stage((toks, counts, err))
         return Readback(kind=kind, toks=toks, width=width, counts=counts, qerr=err,

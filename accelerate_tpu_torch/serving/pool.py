@@ -1,30 +1,41 @@
-"""The engine's device programs on the paged pool: prefill, decode and verify windows.
+"""The engine's device programs: prefill, decode and verify windows, on either pool.
 
-Port of the direct paged arms of :mod:`accelerate_tpu.serving.pool`.  The
-JAX package compiles one executable per shape and donates the page arrays;
-here the model's forward writes the pages in place, and each program is a
-plain function that reads and writes only tensors the engine keeps for its
-life (pages, scales, tables, index, the lane vectors, the verify token
-block) and makes no host decision from lane state, so the engine can
-capture each as one CUDA graph (:mod:`.graphs`) and replay it every cycle:
+Port of :mod:`accelerate_tpu.serving.pool`: the direct paged arms and the
+slab arms.  The JAX package compiles one executable per shape and donates
+the KV arrays; here the model's forward writes them in place, and each
+program is a plain function that reads and writes only tensors the engine
+keeps for its life (pages and scales or slabs, tables, index, the lane
+vectors, the verify token block) and makes no host decision from lane
+state, so the engine can capture each as one CUDA graph (:mod:`.graphs`)
+and replay it every cycle.  As in the reference, each window's traced body
+is shared by both pools (``_decode_scan``, ``_verify_body``,
+``_tree_verify_body`` branch on the cache type only where the KV moves):
 
 * :func:`prefill_chunk` — one prompt chunk through the model's layers on a
   :class:`~accelerate_tpu_torch.models.transformer.PagedKVCache` with the
   prefill kernel (K2): the chunk's K/V land in the lane's pages and its
   queries attend over prior pages in place; the table and start position
   may be device buffers, so that one graph per bucket serves every chunk.
-* :func:`decode_window` — ``window`` masked decode steps over every lane with
-  the decode kernel (K1): the JAX ``_decode_scan`` as a Python loop.  Frozen
-  lanes (inactive, or past their EOS) keep their index, and ``active = ~done``
-  routes their writes to the null page each step.
-* :func:`verify_window` — speculative decoding's linear verify: one forward
-  over ``[slots, K+1]`` (each lane's pending token and K drafts) through
-  K1's causal arm, then the acceptance rule per lane
+  :func:`slab_prefill_chunk` — the same into the slab pool's batch-1
+  scratch (``accelerate_tpu/serving/pool.py:541``), attended by plain
+  PyTorch (the reference's XLA).
+* :func:`decode_window` / :func:`slab_decode_window` — ``window`` masked
+  decode steps over every lane (the JAX ``_decode_scan`` as a Python loop),
+  through the decode kernel (K1) on pages, through
+  :func:`~accelerate_tpu_torch.models.transformer.cached_attention` on the
+  slab.  Frozen lanes (inactive, or past their EOS) keep their index; on
+  pages ``active = ~done`` routes their writes to the null page each step,
+  on the slab they overwrite their own dead slot, as in the reference.
+* :func:`verify_window` / :func:`slab_verify_window` — speculative
+  decoding's linear verify: one forward over ``[slots, K+1]`` (each lane's
+  pending token and K drafts), then the acceptance rule per lane
   (``accelerate_tpu/serving/pool.py:267-335``).
-* :func:`tree_verify_window` — the tree verify: one forward over ``[slots,
-  nodes]`` draft-tree tokens through K1's tree-mask arm, the winning
-  root-to-leaf path per lane, and :func:`tree_commit_paged`, which moves
-  that path's KV to the lane's frontier (``:390-538``, ``:960-1063``).
+* :func:`tree_verify_window` / :func:`slab_tree_verify_window` — the tree
+  verify: one forward over ``[slots, nodes]`` draft-tree tokens under the
+  ancestor mask (K1's tree-mask arm on pages), the winning root-to-leaf
+  path per lane, and its commit to the lane's frontier:
+  :func:`tree_commit_paged` through the block tables (``:960-1063``),
+  :func:`tree_commit_slab` in the slab (``_compact``, ``:524-534``).
 
 Sampled lanes draw uniforms from their device keys (a fixed count a
 cycle: one a decode step; linear verify ``2K + 1``; tree ``W + 2D``), so a
@@ -34,8 +45,10 @@ nothing sorts the vocabulary; with it the sampled arms run over every lane,
 masked by ``lanes.sampled``.
 
 Every program returns the call's largest KV quantization round-trip error as an f32
-device scalar (0 for native pages), the reference's ``quant_err`` output
+device scalar (0 for native pages and slabs), the reference's ``quant_err`` output
 (``accelerate_tpu/serving/pool.py:745-849``); nothing here reads it back.
+``plain=True`` (the engine's ``decode_kernel="xla"``) routes a paged
+program's attention to the kernels' plain versions.
 * :class:`LaneState` — the per-lane decode vectors on the device; installing a
   request edits one slot of them in place.
 * :func:`plan_chunks` — split a prompt into bucket-sized prefill chunks.
@@ -46,6 +59,10 @@ device scalar (0 for native pages), the reference's ``quant_err`` output
   the pool and rebinds it; here they write the engine's pool tensors in
   place, because the windows' CUDA graphs read those very tensors.  Scales
   ride along with their pages, so a quantized page moves exactly.
+* :func:`slab_insert`, :func:`copy_chunk` — the slab pool's copies
+  (``make_insert`` ``:568``, ``make_copy_chunk`` ``:637``): a prefilled
+  scratch into a freed slot, and a cached chunk's slab into the scratch.
+  Both run eagerly, in place, on the stream behind any window in flight.
 """
 
 from __future__ import annotations
@@ -62,7 +79,7 @@ from ..models.generation import (
     sample_tokens_batched,
     uniforms,
 )
-from ..models.transformer import PagedKVCache, Transformer
+from ..models.transformer import KVCache, PagedKVCache, Transformer
 from ..ops.paged_attention import (
     TreeMask,
     _bytes_view,
@@ -191,10 +208,11 @@ def promote_install(pool: Sequence[torch.Tensor], chunk: Sequence[torch.Tensor],
         _raw(t).index_copy_(1, ids, _raw(c.to(t.dtype)))
 
 
-def _quant_err(cache: PagedKVCache, device) -> torch.Tensor:
-    if cache.quant_err is None:
+def _quant_err(cache, device) -> torch.Tensor:
+    err = getattr(cache, "quant_err", None)
+    if err is None:
         return torch.zeros((), dtype=torch.float32, device=device)
-    return cache.quant_err
+    return err
 
 
 def _draws(lanes: LaneState, n: int) -> torch.Tensor:
@@ -205,9 +223,26 @@ def _draws(lanes: LaneState, n: int) -> torch.Tensor:
     return u
 
 
+def _layer_stack(model: Transformer, tokens: torch.Tensor, cache, index: torch.Tensor) -> None:
+    """A chunk's forward through the layers at positions ``index ..``: a
+    chunk's logits are never read (under the reference's ``jit`` the final
+    norm and the LM head are dead code)."""
+    positions = index.long()[:, None] + torch.arange(tokens.shape[1],
+                                                     device=tokens.device)[None, :]
+    x = model.embed_tokens.weight[tokens].to(model.config.dtype)
+    for i, layer in enumerate(model.layers):
+        x = layer(x, positions, cache=cache, layer=i)
+
+
+def _base_index(base, device) -> torch.Tensor:
+    return (base if isinstance(base, torch.Tensor)
+            else torch.full((1,), int(base), dtype=torch.int32, device=device))
+
+
 @torch.inference_mode()
 def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
-                  k_scales, v_scales, table: torch.Tensor, base) -> torch.Tensor:
+                  k_scales, v_scales, table: torch.Tensor, base, plain: bool = False
+                  ) -> torch.Tensor:
     """Run one ``[1, chunk_len]`` prompt chunk at positions ``base ..`` of the
     lane whose block table is ``table`` (``[P]`` or ``[1, P]``); its K/V are
     written into the page arrays (and, for quantized pages, their scales) in
@@ -215,51 +250,76 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
     device: the engine passes its static buffers, written in place before
     each run, so that one captured graph per bucket serves every chunk of
     that bucket (the reference's per-bucket executable, whose table and base
-    are device arguments).  The forward stops after the layer stack: a
-    chunk's logits are never read (under the reference's ``jit`` the final
-    norm and the LM head are dead code).  Returns the chunk's quantization
-    error, a device scalar."""
+    are device arguments).  The forward stops after the layer stack.
+    Returns the chunk's quantization error, a device scalar."""
     device = tokens.device
-    index = (base if isinstance(base, torch.Tensor)
-             else torch.full((1,), int(base), dtype=torch.int32, device=device))
+    index = _base_index(base, device)
     cache = PagedKVCache(
         pages_k=pages_k, pages_v=pages_v, k_scales=k_scales, v_scales=v_scales,
         tables=table.reshape(1, -1), index=index,
-        active=torch.ones(1, dtype=torch.bool, device=device), kernel="prefill",
+        active=torch.ones(1, dtype=torch.bool, device=device), kernel="prefill", plain=plain,
     )
-    positions = index.long()[:, None] + torch.arange(tokens.shape[1], device=device)[None, :]
-    x = model.embed_tokens.weight[tokens].to(model.config.dtype)
-    for i, layer in enumerate(model.layers):
-        x = layer(x, positions, cache=cache, layer=i)
+    _layer_stack(model, tokens, cache, index)
     return _quant_err(cache, device)
 
 
 @torch.inference_mode()
-def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
-                  v_scales, tables: torch.Tensor, index: torch.Tensor,
-                  lanes: LaneState, pad: int, sampling: Optional[bool] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``window`` masked decode steps over the whole slot pool.
+def slab_prefill_chunk(model: Transformer, tokens: torch.Tensor, scratch_k: torch.Tensor,
+                       scratch_v: torch.Tensor, base) -> None:
+    """Run one ``[1, chunk_len]`` prompt chunk into the batch-1 scratch slab
+    ``scratch_k``/``scratch_v [L, 1, M, Hkv, D]`` at positions ``base ..``
+    (the reference's ``make_prefill_chunk``, whose scratch index is this
+    ``base``): its K/V are written in place and its queries attend over the
+    scratch by plain PyTorch.  A padded final chunk writes garbage past the
+    prompt, which the causal mask never lets a later query read.  ``base``
+    as for :func:`prefill_chunk`."""
+    index = _base_index(base, tokens.device)
+    _layer_stack(model, tokens, KVCache(k=scratch_k, v=scratch_v, index=index), index)
 
-    Each step feeds every lane's pending token at its own position, writes
-    its KV there, and picks the next token per lane; lanes that are inactive
-    or have emitted their EOS freeze — their index stops advancing, their
-    writes go to the null page and their outputs are ``pad``.  ``sampling``
-    picks the variant (default: does some lane sample): without it every
-    lane takes the argmax; with it sampled lanes draw one uniform a step.
-    Updates ``lanes.pending`` in place and returns the tokens ``[N, window]``
-    and the window's quantization error (both on the device)."""
-    sampling = lanes.any_sampled if sampling is None else sampling
-    cache = PagedKVCache(pages_k=pages_k, pages_v=pages_v, k_scales=k_scales,
-                         v_scales=v_scales, tables=tables, index=index,
-                         active=lanes.active.clone(), kernel="decode")
+
+def slab_insert(pool_k: torch.Tensor, pool_v: torch.Tensor, scratch_k: torch.Tensor,
+                scratch_v: torch.Tensor, slot: int) -> None:
+    """Install a prefilled request: the whole scratch width
+    ``[L, 1, Mp, Hkv, D]`` into slot ``slot`` of the slab pool ``[L, N, M,
+    Hkv, D]`` at position 0, in place (``make_insert``,
+    ``accelerate_tpu/serving/pool.py:568``; the lane's write index, ``prompt_len
+    - 1``, is the engine's).  Other lanes are untouched."""
+    width = scratch_k.shape[2]
+    pool_k[:, slot, :width].copy_(scratch_k[:, 0])
+    pool_v[:, slot, :width].copy_(scratch_v[:, 0])
+
+
+def copy_chunk(scratch_k: torch.Tensor, scratch_v: torch.Tensor, node_k: torch.Tensor,
+               node_v: torch.Tensor, start: int) -> None:
+    """A prefix-cache hit on the slab pool: the cached chunk ``node_k``/
+    ``node_v [L, 1, chunk, Hkv, D]`` into the scratch at ``start``, in place
+    (``make_copy_chunk``, ``accelerate_tpu/serving/pool.py:637``; the next
+    chunk starts ``chunk`` positions later)."""
+    n = node_k.shape[2]
+    scratch_k[:, :, start:start + n].copy_(node_k)
+    scratch_v[:, :, start:start + n].copy_(node_v)
+
+
+def _decode_scan(model: Transformer, window: int, cache, lanes: LaneState, pad: int,
+                 sampling: bool):
+    """The masked decode steps shared by the paged and slab windows.  Each
+    step feeds every lane's pending token at its own position, writes its KV
+    there, and picks the next token per lane; lanes that are inactive or
+    have emitted their EOS freeze: their index stops advancing and their
+    outputs are ``pad``.  On pages a frozen lane's writes go to the null
+    page (``active = ~done``: a quantized page write requantizes the whole
+    page); in the slab it overwrites its own dead slot.  Updates
+    ``lanes.pending`` in place; returns the tokens ``[N, window]`` and the
+    last cache."""
+    paged = isinstance(cache, PagedKVCache)
     tok = lanes.pending
     done = ~lanes.active
     u = _draws(lanes, window) if sampling else None
     out = []
     for step in range(window):
         prev_index = cache.index
-        cache.active = ~done
+        if paged:
+            cache.active = ~done
         logits, cache = model(tok[:, None], cache=cache)
         # the forward advanced every lane; frozen lanes roll back
         cache.index = torch.where(done, prev_index, prev_index + 1)
@@ -275,7 +335,40 @@ def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
         out.append(nxt)
         tok = nxt
     lanes.pending.copy_(tok)
-    return torch.stack(out, dim=1), _quant_err(cache, tok.device)
+    return torch.stack(out, dim=1), cache
+
+
+@torch.inference_mode()
+def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
+                  v_scales, tables: torch.Tensor, index: torch.Tensor,
+                  lanes: LaneState, pad: int, sampling: Optional[bool] = None,
+                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``window`` masked decode steps over the whole paged slot pool
+    (:func:`_decode_scan`), through K1.  ``sampling`` picks the variant
+    (default: does some lane sample): without it every lane takes the
+    argmax; with it sampled lanes draw one uniform a step.  Updates
+    ``lanes.pending`` in place and returns the tokens ``[N, window]`` and
+    the window's quantization error (both on the device)."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    cache = PagedKVCache(pages_k=pages_k, pages_v=pages_v, k_scales=k_scales,
+                         v_scales=v_scales, tables=tables, index=index,
+                         active=lanes.active.clone(), kernel="decode", plain=plain)
+    toks, cache = _decode_scan(model, window, cache, lanes, pad, sampling)
+    return toks, _quant_err(cache, toks.device)
+
+
+@torch.inference_mode()
+def slab_decode_window(model: Transformer, window: int, pool_k: torch.Tensor,
+                       pool_v: torch.Tensor, index: torch.Tensor, lanes: LaneState, pad: int,
+                       sampling: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``window`` masked decode steps over the slab pool ``pool_k``/``pool_v
+    [L, N, M, Hkv, D]`` at the lanes' write ``index [N]`` (the reference's
+    ``make_decode_window``, ``accelerate_tpu/serving/pool.py:175``), attended
+    by plain PyTorch.  As :func:`decode_window`; the error is 0."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    toks, cache = _decode_scan(model, window, KVCache(k=pool_k, v=pool_v, index=index),
+                               lanes, pad, sampling)
+    return toks, _quant_err(cache, toks.device)
 
 
 # ------------------------------------------------------------------ speculation
@@ -330,37 +423,17 @@ def _without(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, _NEG, logits)
 
 
-def _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index, active):
+def _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index, active, plain):
     return PagedKVCache(pages_k=pages_k, pages_v=pages_v, k_scales=k_scales,
                         v_scales=v_scales, tables=tables, index=index, active=active,
-                        kernel="decode")
+                        kernel="decode", plain=plain)
 
 
-@torch.inference_mode()
-def verify_window(model: Transformer, pages_k, pages_v, k_scales, v_scales,
-                  tables: torch.Tensor, index: torch.Tensor, tokens: torch.Tensor,
-                  lanes: LaneState, pad: int, sampling: Optional[bool] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One linear speculative verify over the whole slot pool.
-
-    ``tokens [N, K+1]``: each lane's pending token, then its K drafts.  One
-    forward writes all K+1 positions at each lane's index (inactive lanes'
-    writes go to the null page) and gives the true next-token logits at
-    every position.  Greedy lanes accept a draft while it equals the argmax
-    and commit the argmaxes: the tokens plain decode would emit.  With
-    ``sampling`` (default: does some lane sample) every lane draws ``2K +
-    1`` uniforms, and sampled lanes take the Leviathan accept/resample rule
-    for a point-mass drafter, vectorised over the lanes: draft ``d`` at
-    position ``i`` is accepted when its uniform falls below ``p_i(d)`` under
-    the lane's filtered distribution, else the token is drawn from ``p_i``
-    with ``d`` removed; one bonus token is drawn at the last position.
-    Commits stop at the first EOS.  Updates ``lanes.pending`` in place and
-    returns ``(out [N, K+1], n_commit [N], quantization error)`` on the
-    device; the caller advances each lane's index by ``n_commit``."""
-    sampling = lanes.any_sampled if sampling is None else sampling
+def _verify_body(model: Transformer, cache, tokens: torch.Tensor, lanes: LaneState,
+                 pad: int, sampling: bool):
+    """Forward and accept/commit of one linear verify, shared by the paged
+    and slab windows (the reference's ``_verify_body``)."""
     k = tokens.shape[1] - 1
-    cache = _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index,
-                         lanes.active.clone())
     logits, cache = model(tokens, cache=cache)                   # [N, K+1, V] f32
     drafts = tokens[:, 1:]
     emit = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -378,6 +451,46 @@ def verify_window(model: Transformer, pages_k, pages_v, k_scales, v_scales,
     out, n_commit = _commit(emit, acc, lanes.active, lanes.eos, pad)
     lanes.pending.copy_(_pending(out, n_commit))
     return out, n_commit, _quant_err(cache, tokens.device)
+
+
+@torch.inference_mode()
+def verify_window(model: Transformer, pages_k, pages_v, k_scales, v_scales,
+                  tables: torch.Tensor, index: torch.Tensor, tokens: torch.Tensor,
+                  lanes: LaneState, pad: int, sampling: Optional[bool] = None,
+                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One linear speculative verify over the whole paged slot pool.
+
+    ``tokens [N, K+1]``: each lane's pending token, then its K drafts.  One
+    forward writes all K+1 positions at each lane's index (inactive lanes'
+    writes go to the null page) and gives the true next-token logits at
+    every position.  Greedy lanes accept a draft while it equals the argmax
+    and commit the argmaxes: the tokens plain decode would emit.  With
+    ``sampling`` (default: does some lane sample) every lane draws ``2K +
+    1`` uniforms, and sampled lanes take the Leviathan accept/resample rule
+    for a point-mass drafter, vectorised over the lanes: draft ``d`` at
+    position ``i`` is accepted when its uniform falls below ``p_i(d)`` under
+    the lane's filtered distribution, else the token is drawn from ``p_i``
+    with ``d`` removed; one bonus token is drawn at the last position.
+    Commits stop at the first EOS.  Updates ``lanes.pending`` in place and
+    returns ``(out [N, K+1], n_commit [N], quantization error)`` on the
+    device; the caller advances each lane's index by ``n_commit``."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    cache = _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index,
+                         lanes.active.clone(), plain)
+    return _verify_body(model, cache, tokens, lanes, pad, sampling)
+
+
+@torch.inference_mode()
+def slab_verify_window(model: Transformer, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                       index: torch.Tensor, tokens: torch.Tensor, lanes: LaneState, pad: int,
+                       sampling: Optional[bool] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`verify_window` over the slab pool (the reference's
+    ``make_verify_window``, ``accelerate_tpu/serving/pool.py:217``): every
+    lane, inactive ones included, writes its K+1 rows at its own index."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    return _verify_body(model, KVCache(k=pool_k, v=pool_v, index=index), tokens, lanes,
+                        pad, sampling)
 
 
 def tree_commit_paged(cache: PagedKVCache, prev_index: torch.Tensor,
@@ -410,40 +523,36 @@ def tree_commit_paged(cache: PagedKVCache, prev_index: torch.Tensor,
                 paged_insert(pages, rows, cache.tables, prev_index, cache.active)
 
 
-@torch.inference_mode()
-def tree_verify_window(model: Transformer, tree, tree_mask: TreeMask, pages_k, pages_v,
-                       k_scales, v_scales, tables: torch.Tensor, index: torch.Tensor,
-                       tokens: torch.Tensor, lanes: LaneState, pad: int,
-                       sampling: Optional[bool] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One tree speculative verify over the whole slot pool.
+def tree_commit_slab(pool_k: torch.Tensor, pool_v: torch.Tensor, prev_index: torch.Tensor,
+                     path: torch.Tensor) -> None:
+    """Commit a tree verify's winning path inside the slab pool, in place
+    (the reference's ``_compact``, ``accelerate_tpu/serving/pool.py:524-534``):
+    gather each lane's ``D+1`` path rows at ``prev_index + path`` from every
+    layer into new tensors, then write them at the lane's frontier (the
+    write start clamped as ``dynamic_update_slice`` clamps it).  Losing
+    branches' rows past ``frontier + D`` are never visible: they lie past
+    the lane's length."""
+    m = pool_k.shape[2]
+    width = path.shape[1]
+    lanes = torch.arange(path.shape[0], device=path.device)[:, None]
+    src = torch.clamp(prev_index.long()[:, None] + path.long(), max=m - 1)     # [N, D+1]
+    start = torch.clamp(prev_index.long(), 0, m - width)
+    dst = start[:, None] + torch.arange(width, device=path.device)[None, :]
+    for t in (pool_k, pool_v):
+        t[:, lanes, dst] = t[:, lanes, src]             # the gather copies first
 
-    ``tree`` is a :class:`~accelerate_tpu_torch.serving.spec_exec.TreeSpec`
-    and ``tree_mask`` its ancestor mask (built once by the engine);
-    ``tokens [N, S]``: each lane's draft tree, node 0 its pending token.
-    One forward writes the ``S`` nodes' KV at slots ``index + i`` and scores
-    them at RoPE positions ``index + depth(i)`` under the ancestor mask (K1's
-    tree-mask arm).  Greedy lanes take the branch with the longest prefix
-    of drafts equal to the model's argmax at their parents (ties: the lowest
-    branch) and commit the argmaxes along it: the tokens plain decode would
-    emit.  With ``sampling`` (default: does some lane sample) every lane
-    draws ``W + 2D`` uniforms, and sampled lanes, vectorised over the
-    lanes, try each sibling candidate at the branch point against the
-    running residual, fall through to a residual draw, then take the linear
-    accept/resample rule down the chosen branch and one bonus draw at its
-    deepest node.  Commits stop at the first EOS.  The winning path's KV
-    then moves to the frontier (:func:`tree_commit_paged`).  Updates
-    ``lanes.pending`` in place and returns ``(out [N, D+1], n_commit [N],
-    quantization error)``."""
-    sampling = lanes.any_sampled if sampling is None else sampling
+
+def _tree_verify_body(model: Transformer, tree, tree_mask: TreeMask, cache,
+                      tokens: torch.Tensor, lanes: LaneState, pad: int, sampling: bool):
+    """Forward, branch selection and commit of one tree verify, shared by
+    the paged and slab windows (the reference's ``_tree_verify_body``);
+    only the commit of the winning path's KV branches on the pool."""
     n = tokens.shape[0]
     dev = tokens.device
     w, depth = tree.width, tree.depth
     paths, parent, depth_arr = tree.on(dev)                          # [W, D+1], [S], [S]
-    prev_index = index
-    positions = index.long()[:, None] + depth_arr[None, :]
-    cache = _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index,
-                         lanes.active.clone())
+    prev_index = cache.index
+    positions = prev_index.long()[:, None] + depth_arr[None, :]
     logits, cache = model(tokens, positions=positions, cache=cache, tree_mask=tree_mask)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)          # [N, S]
     # ok[i]: node i's draft equals the model's argmax at its parent
@@ -487,6 +596,56 @@ def tree_verify_window(model: Transformer, tree, tree_mask: TreeMask, pages_k, p
         acc = torch.where(sampled, torch.stack(accs, dim=1), acc)
         path = torch.where(sampled, drawn_path, path)
     out, n_commit = _commit(emit, acc, lanes.active, lanes.eos, pad)
-    tree_commit_paged(cache, prev_index, path)
+    if isinstance(cache, PagedKVCache):
+        tree_commit_paged(cache, prev_index, path)
+    else:
+        tree_commit_slab(cache.k, cache.v, prev_index, path)
     lanes.pending.copy_(_pending(out, n_commit))
     return out, n_commit, _quant_err(cache, dev)
+
+
+@torch.inference_mode()
+def tree_verify_window(model: Transformer, tree, tree_mask: TreeMask, pages_k, pages_v,
+                       k_scales, v_scales, tables: torch.Tensor, index: torch.Tensor,
+                       tokens: torch.Tensor, lanes: LaneState, pad: int,
+                       sampling: Optional[bool] = None, plain: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One tree speculative verify over the whole paged slot pool.
+
+    ``tree`` is a :class:`~accelerate_tpu_torch.serving.spec_exec.TreeSpec`
+    and ``tree_mask`` its ancestor mask (built once by the engine);
+    ``tokens [N, S]``: each lane's draft tree, node 0 its pending token.
+    One forward writes the ``S`` nodes' KV at slots ``index + i`` and scores
+    them at RoPE positions ``index + depth(i)`` under the ancestor mask (K1's
+    tree-mask arm).  Greedy lanes take the branch with the longest prefix
+    of drafts equal to the model's argmax at their parents (ties: the lowest
+    branch) and commit the argmaxes along it: the tokens plain decode would
+    emit.  With ``sampling`` (default: does some lane sample) every lane
+    draws ``W + 2D`` uniforms, and sampled lanes, vectorised over the
+    lanes, try each sibling candidate at the branch point against the
+    running residual, fall through to a residual draw, then take the linear
+    accept/resample rule down the chosen branch and one bonus draw at its
+    deepest node.  Commits stop at the first EOS.  The winning path's KV
+    then moves to the frontier (:func:`tree_commit_paged`).  Updates
+    ``lanes.pending`` in place and returns ``(out [N, D+1], n_commit [N],
+    quantization error)``."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    cache = _paged_cache(pages_k, pages_v, k_scales, v_scales, tables, index,
+                         lanes.active.clone(), plain)
+    return _tree_verify_body(model, tree, tree_mask, cache, tokens, lanes, pad, sampling)
+
+
+@torch.inference_mode()
+def slab_tree_verify_window(model: Transformer, tree, tree_mask: TreeMask,
+                            pool_k: torch.Tensor, pool_v: torch.Tensor, index: torch.Tensor,
+                            tokens: torch.Tensor, lanes: LaneState, pad: int,
+                            sampling: Optional[bool] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`tree_verify_window` over the slab pool (the reference's
+    ``make_tree_verify_window``, ``accelerate_tpu/serving/pool.py:338``):
+    the ancestor mask through plain PyTorch attention, the winning path
+    committed by :func:`tree_commit_slab`."""
+    sampling = lanes.any_sampled if sampling is None else sampling
+    return _tree_verify_body(model, tree, tree_mask,
+                             KVCache(k=pool_k, v=pool_v, index=index), tokens, lanes, pad,
+                             sampling)

@@ -1,13 +1,17 @@
 """Chunk-granular prefix KV cache: a radix tree over chunk-aligned prefixes.
 
-Port of :mod:`accelerate_tpu.serving.prefix_cache` for the paged engine.
+Port of :mod:`accelerate_tpu.serving.prefix_cache` for both engines.
 Under a serving queue with shared system or few-shot prefixes, most prefill
 work recomputes KV the pool already holds for an earlier request.  The cache
 keeps that KV at **chunk granularity**, the bucket boundaries
 :func:`~accelerate_tpu_torch.serving.pool.plan_chunks` prefills at: a node is
-one full chunk of token ids whose KV sits in physical pages of the shared
-page pool, and a later request whose prompt starts with the node's whole
-prefix aliases those pages into its block table instead of prefilling them.
+one full chunk of token ids whose KV sits either in physical pages of the
+shared page pool (:meth:`PrefixCache.insert_pages`, the paged engine: a
+later request whose prompt starts with the node's whole prefix aliases
+those pages into its block table instead of prefilling them) or in the
+node's own device slab ``k``/``v [L, 1, chunk, Hkv, D]``
+(:meth:`PrefixCache.insert`, the slab engine: a hit copies the slab into
+the prefill scratch).
 
 A node's identity is the whole token prefix from the root; its key inside
 the parent is a rolling hash of that prefix (:func:`rolling_hash`), verified
@@ -20,7 +24,7 @@ install depends on them; eviction is leaf-only LRU among unpinned nodes,
 under a byte ``capacity`` (``ServingEngine(prefix_cache_mb=...)``), so every
 resident node's prefix chain stays resident.
 
-Tiers: with ``host_capacity_bytes > 0`` and a ``spill`` hook, a device-tier
+Tiers (paged engine only): with ``host_capacity_bytes > 0`` and a ``spill`` hook, a device-tier
 eviction *demotes* the node: the hook gathers the node's pages and their
 dequantization scales off the device into a host ring under its own byte
 budget and drops the node's page references, and the node stays in the tree
@@ -102,23 +106,27 @@ def load_payload(path: str) -> Tuple[torch.Tensor, ...]:
 
 
 class PrefixNode:
-    """One cached chunk: token ids + the physical page ids of its KV in the
-    shared page pool.  A node holds one allocator reference per page for as
-    long as it is device-tier resident; a spilled node (``tier != "device"``)
+    """One cached chunk: token ids + its KV, either the physical page ids of
+    the shared page pool (``pages``, the paged engine) or a device slab of
+    its own (``k``/``v``, the slab engine).  A page node holds one
+    allocator reference per page for as long as it is device-tier resident;
+    a spilled node (``tier != "device"``)
     holds no pages and keeps its KV in ``host`` instead: the spill hook's
     payload (in flight, then landed) or, for the disk tier, the path of the
     ring file."""
 
-    __slots__ = ("key", "tokens", "parent", "children", "pages", "nbytes", "refs",
+    __slots__ = ("key", "tokens", "parent", "children", "k", "v", "pages", "nbytes", "refs",
                  "last_used", "tier", "host")
 
     def __init__(self, key: int, tokens: Optional[np.ndarray], parent,
-                 pages: Optional[Tuple[int, ...]] = None, nbytes: int = 0):
+                 pages: Optional[Tuple[int, ...]] = None, nbytes: int = 0, k=None, v=None):
         self.key = key
         self.tokens = tokens                 # [chunk] int32; None for the root
         self.parent = parent
         self.children: Dict[int, "PrefixNode"] = {}
-        self.pages = pages                   # physical page ids
+        self.k = k                           # [L, 1, chunk, Hkv, D] device slab (slab engine)
+        self.v = v
+        self.pages = pages                   # physical page ids (paged engine)
         self.nbytes = int(nbytes)
         self.refs = 0
         self.last_used = 0
@@ -132,7 +140,7 @@ class PrefixNode:
 
 
 class PrefixCache:
-    """Host-managed radix cache of page-pool KV with LRU byte budgeting.
+    """Host-managed radix cache of page-pool or slab KV with LRU byte budgeting.
 
     Parameters
     ----------
@@ -140,8 +148,8 @@ class PrefixCache:
         0``) nodes never evict, so in-flight requests can transiently hold
         the cache over budget.
     on_evict: called with each node as it leaves the cache entirely: the
-        engine drops the allocator references its pages hold (pages survive
-        while lanes still alias them).  A demotion to the host ring is not
+        paged engine drops the allocator references its pages hold (pages
+        survive while lanes still alias them); the slab engine passes none.  A demotion to the host ring is not
         an eviction: the ``spill`` hook releases the page references itself.
     host_capacity_bytes: host-RAM spill ring budget; 0 disables tiering and
         evictions drop.
@@ -225,6 +233,35 @@ class PrefixCache:
             self._touch(n)
 
     # -------------------------------------------------------------- mutation
+    def insert(self, parent: Optional[PrefixNode], tokens, k: torch.Tensor,
+               v: torch.Tensor) -> Optional[PrefixNode]:
+        """Retain one freshly prefilled chunk as a device slab of its own
+        (the slab engine; ``accelerate_tpu/serving/prefix_cache.py:243-271``):
+        ``k``/``v [L, 1, chunk, Hkv, D]``, copies the caller made, charged
+        at their bytes.  Returns the resident node (the existing one, its
+        slab kept, if this exact chunk is cached already), or ``None`` when
+        the chunk cannot be retained: the byte budget cannot be met even
+        after eviction, or a hash collision with another token sequence
+        occupies the key.  The caller then stops extending this chain."""
+        parent = parent if parent is not None else self.root
+        tokens = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        key = rolling_hash(parent.key, tokens)
+        existing = parent.children.get(key)
+        if existing is not None:
+            if np.array_equal(existing.tokens, tokens):
+                self._touch(existing)
+                return existing
+            return None  # 61-bit hash collision: keep the resident entry
+        nbytes = k.numel() * k.element_size() + v.numel() * v.element_size()
+        if not self._make_room(nbytes):
+            return None
+        node = PrefixNode(key, tokens, parent, nbytes=nbytes, k=k, v=v)
+        self._touch(node)
+        parent.children[key] = node
+        self._nodes.append(node)
+        self.bytes += nbytes
+        return node
+
     def insert_pages(self, parent: Optional[PrefixNode], tokens, page_ids: Sequence[int],
                      nbytes: int) -> Optional[PrefixNode]:
         """Retain one freshly prefilled chunk as page references (zero
@@ -459,6 +496,8 @@ class PrefixCache:
         self._nodes.remove(node)
         self.bytes -= node.nbytes
         self.evictions += 1
+        # a slab node's device copy frees with the node
+        node.k = node.v = None
         if self.on_evict is not None:
             self.on_evict(node)
 
@@ -477,6 +516,8 @@ class PrefixCache:
         node.tier = "device"  # detached; a neutral state for late settles
         self.host_evictions += 1
         self.evictions += 1
+        # a slab node's device copy frees with the node
+        node.k = node.v = None
         if self.on_evict is not None:
             self.on_evict(node)
 
@@ -518,6 +559,8 @@ class PrefixCache:
         node.host = None
         node.tier = "device"  # detached; a neutral state for late settles
         self.evictions += 1
+        # a slab node's device copy frees with the node
+        node.k = node.v = None
         if self.on_evict is not None:
             self.on_evict(node)
 

@@ -263,8 +263,9 @@ class Scheduler:
         valid_len, start, cached)`` or None.  Among the open prefills whose
         next chunk fits, the pick is shortest-remaining-first (remaining
         forward-pass tokens), FCFS rid breaking ties.  ``ready`` is an
-        optional gate (the engine's page check): a request short of pages
-        does not block one that fits.  A
+        optional gate (the paged engine's page check): a request short of
+        pages does not block one that fits.  The slab engine passes
+        ``None``: its one prefill at a time writes the scratch.  A
         cached chunk (covered by a pinned prefix-cache node) charges nothing
         against the budget.  The first forward-pass chunk since
         :meth:`begin_step` ignores the budget."""

@@ -123,6 +123,22 @@ Phases, each printing one JSON line:
    copy-on-write copies, reclaim-ladder evictions, spills and promotions
    with their GB/s (CUDA events around each transfer), the disk ring's
    host seconds and the pinned host bytes in use.
+   The slab pool (``paged=False``, the reference's default; plain PyTorch
+   attention over ``[L, 4, 2048, Hkv, D]`` slabs and a batch-1 scratch of
+   2048, no kernel): ``engine_slab`` serves the engine line's requests (one
+   graph per window and per bucket, the count constant over the serve, K1
+   and K2 launched 0 times, every token within the noise margin; the pool's
+   and the scratch's GB), ``engine_slab_sync_eager`` the same through
+   ``_eager(..., async_depth=0)`` (tokens bit-identical to
+   ``engine_slab``'s), ``engine_slab_tree`` and ``engine_slab_spec`` with
+   the knobs and prompts of ``engine_tree`` and ``engine_spec``, and
+   ``engine_slab_prefix`` ``engine_prefix``'s requests at
+   ``prefix_cache_mb=1024`` against its cache-off serve (identical tokens,
+   at least 4 x 1024 hit tokens, fewer chunks).  Every engine line prints
+   the device memory its construction took (``engine_memory``: the pool,
+   and the graphs' private pools).  ``slab_attention``: one layer's plain
+   slab attention at the decode shape against K1 on the same keys in pages
+   and the bytes bounds of the whole slab and of the live keys.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -146,7 +162,8 @@ Phases, each printing one JSON line:
    ``step_ms_mean``.  Before that, one micro-step of one sequence is held
    against the ``attention_impl="xla"`` path, with an f32 run of the same
    weights as the yardstick of bf16 noise.
-8. the ``kernels`` line (each kernel, K1's tree-mask arm with the launches
+8. the ``run`` line (the run's total seconds, the build included), the
+   ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
    their engine runs; K1 and K2 also with ``engine_prefix``'s launches),
    the card's name and power limit, and
@@ -175,8 +192,10 @@ import torch
 from accelerate_tpu_torch.profile_engine import (
     HBM_BYTES_PER_S,
     PEAK_FLOPS,
+    chunk_bound_ms,
     chunk_times,
     device_ms,
+    graph_ms,
     paged_bound_ms,
     time_ms,
 )
@@ -644,9 +663,18 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
             return ServingEngine._eager(model, None, async_depth=0, **kw)
         return ServingEngine(model, None, **kw)
 
+    # the device memory the engine takes: its pool (and scratch), the
+    # graphs' private pools and whatever they keep allocated
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
     engine = new_engine()
-    idle_free = engine.kv.allocator.free_count
-    quantized = engine.kv.quantized
+    torch.cuda.synchronize()
+    held = {"allocated_gb": (torch.cuda.memory_allocated() - before[0]) / 1e9,
+            "reserved_gb": (torch.cuda.memory_reserved() - before[1]) / 1e9}
+    paged = engine.paged
+    idle_free = engine.kv.allocator.free_count if paged else None
+    quantized = engine.quantized
     captures = engine.stats["graph_captures"]
     check(captures == (0 if eager else len(engine.graphs)) and (eager or captures > 0),
           f"{captures} graphs captured at construction")
@@ -671,8 +699,12 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     window_forwards = st["decode_steps"] - st["verify_forwards"] * width
     causal = (window_forwards + (0 if tree else st["verify_forwards"])) * cfg.num_layers
     tree_forwards = st["verify_forwards"] if tree else 0
+    if not paged:
+        # the slab pool attends by plain PyTorch, as the reference by XLA:
+        # no kernel of the path may launch
+        causal = tree_forwards = 0
     check(launches["paged_attention"] - launches["paged_attention_tree"] == causal
-          and launches["paged_attention"] > 0,
+          and (launches["paged_attention"] > 0) == paged,
           f"decode kernel launches {launches['paged_attention']} (tree arm "
           f"{launches['paged_attention_tree']}) != {causal} causal: {window_forwards} window "
           f"steps and {st['verify_forwards']} verify forwards x {cfg.num_layers} layers")
@@ -683,10 +715,11 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
         check(st["verify_forwards"] > 0 and st["spec_drafted"] > 0,
               f"speculation ran no verify: {st['verify_forwards']} forwards, "
               f"{st['spec_drafted']} drafted")
-    check(launches["paged_flash_prefill"] == st["prefill_chunks"] * cfg.num_layers > 0,
-          f"prefill kernel launches {launches['paged_flash_prefill']} != "
-          f"{st['prefill_chunks']} chunks x {cfg.num_layers} layers")
-    check(engine.kv.allocator.free_count == idle_free, "KV pages leaked")
+    chunk_launches = st["prefill_chunks"] * cfg.num_layers if paged else 0
+    check(launches["paged_flash_prefill"] == chunk_launches and st["prefill_chunks"] > 0,
+          f"prefill kernel launches {launches['paged_flash_prefill']} != {chunk_launches} "
+          f"for {st['prefill_chunks']} chunks x {cfg.num_layers} layers")
+    check(not paged or engine.kv.allocator.free_count == idle_free, "KV pages leaked")
     check(st["graph_captures"] == captures, f"graphs captured during the serve: "
           f"{captures} -> {st['graph_captures']}")
     check(eager or st["graph_replays"] > 0, "no window replayed a graph")
@@ -746,13 +779,21 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
             "tokens_per_lane_verify": st["verify_committed"] / st["verify_lanes"],
             "draft_share_of_decode_s": st["draft_s"] / st["decode_s"],
         }
+    if paged:
+        pool_rec = {"pages": str(engine.kv.storage_dtype).replace("torch.", ""),
+                    "kv_pool_gb": engine.kv.kv_bytes() / 1e9,
+                    "kv_pool_bytes": engine.kv.kv_bytes()}
+    else:
+        slab_bytes = 2 * engine.pool.k.numel() * engine.pool.k.element_size()
+        scratch_bytes = 2 * engine.scratch.k.numel() * engine.scratch.k.element_size()
+        pool_rec = {"pool": "slab", "slab": str(engine.pool.k.dtype).replace("torch.", ""),
+                    "slab_pool_gb": slab_bytes / 1e9, "scratch_gb": scratch_bytes / 1e9}
     emit({"phase": name or ("engine" if kv_dtype is None else "engine_" + kv_dtype),
           "windows": ("eager windows and chunks, async_depth=0" if eager
                       else "cuda graphs (windows and chunks), async_depth=1"),
-          "knobs": knobs, **spec_rec,
-          "kv_dtype": kv_dtype, "pages": str(engine.kv.storage_dtype).replace("torch.", ""),
-          "kv_bytes_per_token": st["kv_bytes_per_token"],
-          "kv_pool_gb": engine.kv.kv_bytes() / 1e9, **kv_rec,
+          "knobs": knobs, **spec_rec, "kv_dtype": kv_dtype, **pool_rec,
+          "kv_bytes_per_token": st["kv_bytes_per_token"], **kv_rec,
+          "engine_memory": held,
           "requests": len(reqs), "prompt_lens": list(lens),
           "new_tokens": 48, "stats": st, "launches": launches, "wall_s": wall,
           "argmax_agree_share": agree / total,
@@ -768,8 +809,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
           "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
           "prefill_s": st["prefill_s"], "prefill_chunks": st["prefill_chunks"],
           "prefill_ms_per_chunk": 1e3 * st["prefill_s"] / st["prefill_chunks"],
-          "interleaved_chunks": st["interleaved_chunks"],
-          "kv_pool_bytes": engine.kv.kv_bytes(), "gpu": gpu})
+          "interleaved_chunks": st["interleaved_chunks"], "gpu": gpu})
     if quantized:
         # quantization moves the logits by design: the tokens are held by
         # the error bound, not by the bf16 noise margin
@@ -972,10 +1012,12 @@ def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) ->
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     gen = GenerationConfig(max_new_tokens=48)
+    pool = {k: v for k, v in knobs.items() if k == "paged"}
     runs = {}
-    for mode, kw in (("on", knobs), ("off", dict(prefix_cache_mb=0))):
+    for mode, kw in (("on", knobs), ("off", dict(prefix_cache_mb=0, **pool))):
         engine = prefix_engine(model, kv_dtype, **kw)
-        idle_free = engine.kv.allocator.free_count
+        paged = engine.paged
+        idle_free = engine.kv.allocator.free_count if paged else None
         captures = engine.stats["graph_captures"]
         torch.cuda.synchronize()
         pa.reset_launch_counts()
@@ -987,12 +1029,15 @@ def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) ->
         st = dict(engine.stats)
         check(all(len(r.tokens) == 48 and r.done for r in reqs),
               f"{name} ({mode}): a request did not finish 48 tokens")
-        check(launches["paged_flash_prefill"] == st["prefill_chunks"] * cfg.num_layers,
+        # the slab pool runs no kernel: both counts must stay 0
+        layers = cfg.num_layers if paged else 0
+        check(launches["paged_flash_prefill"] == st["prefill_chunks"] * layers,
               f"{name} ({mode}): prefill kernel launches {launches['paged_flash_prefill']} != "
-              f"{st['prefill_chunks']} chunks x {cfg.num_layers} layers")
-        check(launches["paged_attention"] == st["decode_steps"] * cfg.num_layers > 0,
+              f"{st['prefill_chunks']} chunks x {layers} layers")
+        check(launches["paged_attention"] == st["decode_steps"] * layers
+              and st["decode_steps"] > 0,
               f"{name} ({mode}): decode kernel launches {launches['paged_attention']} != "
-              f"{st['decode_steps']} steps x {cfg.num_layers} layers")
+              f"{st['decode_steps']} steps x {layers} layers")
         check(st["graph_captures"] == captures, f"{name} ({mode}): graphs captured during "
               f"the serve: {captures} -> {st['graph_captures']}")
         cache = engine.prefix_cache_stats()
@@ -1001,9 +1046,13 @@ def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) ->
         pinned = {k: v for k, v in torch.cuda.host_memory_stats().items()
                   if k in ("allocated_bytes.current", "allocated_bytes.peak")}
         engine.flush_prefix_cache()
-        check(engine.kv.allocator.free_count == idle_free,
-              f"{name} ({mode}): KV pages leaked: {engine.kv.allocator.free_count} free after "
-              f"the flush, {idle_free} at construction")
+        if paged:
+            check(engine.kv.allocator.free_count == idle_free,
+                  f"{name} ({mode}): KV pages leaked: {engine.kv.allocator.free_count} free "
+                  f"after the flush, {idle_free} at construction")
+        else:
+            check(engine.prefix_cache is None or engine.prefix_cache.bytes == 0,
+                  f"{name} ({mode}): cached slabs left after the flush")
         runs[mode] = dict(tokens=[r.tokens for r in reqs], stats=st, cache=cache, wall=wall,
                           launches=launches, pinned=pinned)
         # the cache's hooks are the engine's bound methods: a reference
@@ -1015,8 +1064,13 @@ def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) ->
     st = on["stats"]
     check(on["tokens"] == off["tokens"],
           f"{name}: greedy tokens with the prefix cache differ from the cache-off serve")
-    check(on["launches"]["paged_flash_prefill"] < off["launches"]["paged_flash_prefill"],
-          f"{name}: the cache saved no prefill launch ({on['launches']} vs {off['launches']})")
+    if paged:
+        check(on["launches"]["paged_flash_prefill"] < off["launches"]["paged_flash_prefill"],
+              f"{name}: the cache saved no prefill launch ({on['launches']} vs "
+              f"{off['launches']})")
+    check(st["prefill_chunks"] < off["stats"]["prefill_chunks"],
+          f"{name}: the cache saved no chunk ({st['prefill_chunks']} vs "
+          f"{off['stats']['prefill_chunks']})")
     check(st["promote_degraded"] == 0, f"{name}: {st['promote_degraded']} promotions degraded")
     tokens = sum(len(t) for t in on["tokens"])
 
@@ -1057,8 +1111,8 @@ def prefix_phases(model, cfg, rng, gpu) -> dict:
     57-500 tokens, under a device budget of one prefix chain, a host ring
     of one and a disk ring of two, so chains demote to the host, then to
     disk, and come back.  Returns ``engine_prefix``'s launches."""
-    shared = prefix_phase(model, cfg, gpu, "engine_prefix",
-                          prefix_prompts(rng, cfg, 1, np.linspace(57, 900, 8).astype(int)),
+    shared_prompts = prefix_prompts(rng, cfg, 1, np.linspace(57, 900, 8).astype(int))
+    shared = prefix_phase(model, cfg, gpu, "engine_prefix", shared_prompts,
                           prefix_cache_mb=1024.0)
     check(shared["prefix_hit_tokens"] >= 4 * PREFIX_LEN,
           f"engine_prefix: {shared['prefix_hit_tokens']} hit tokens, want >= {4 * PREFIX_LEN}")
@@ -1073,7 +1127,104 @@ def prefix_phases(model, cfg, rng, gpu) -> dict:
         check(rec["spills"] > 0 and rec["disk_writes"] > 0 and rec["prefix_hit_tokens_host"] > 0,
               f"{rec['phase']}: the tiers were not exercised: {rec['spills']} spills, "
               f"{rec['disk_writes']} disk writes, {rec['prefix_hit_tokens_host']} host hits")
-    return shared["launches"]["on"]
+    return shared["launches"]["on"], shared_prompts
+
+
+def slab_phases(model, cfg, gpu, margin, prompts, spec_prompts, prefix_prompts_) -> None:
+    """The slab pool (``paged=False``, the reference's default) at the
+    ``engine`` phase's geometry: ``engine_slab`` (the engine line's requests;
+    one graph per window and per bucket, K1 and K2 never launched, every
+    token within the noise margin), ``engine_slab_sync_eager`` (the same
+    through ``_eager(..., async_depth=0)``: bit-identical tokens),
+    ``engine_slab_tree`` and ``engine_slab_spec`` (the knobs and prompts of
+    ``engine_tree`` and ``engine_spec``), ``engine_slab_prefix``
+    (``engine_prefix``'s requests at ``prefix_cache_mb=1024``: tokens
+    identical to the cache-off serve, at least 4 x 1024 hit tokens, fewer
+    chunks), and ``slab_attention`` (what plain attention over the slab
+    costs a decode step)."""
+    slab = dict(paged=False)
+    _, _, tokens = engine_phase(model, cfg, None, gpu, margin, prompts=prompts,
+                                name="engine_slab", knobs=slab)
+    _, _, eager = engine_phase(model, cfg, None, gpu, margin, prompts=prompts,
+                               name="engine_slab_sync_eager", eager=True, knobs=slab)
+    check(eager == tokens, "engine_slab_sync_eager's greedy tokens differ from engine_slab's")
+    engine_phase(model, cfg, None, gpu, margin, prompts=prompts, name="engine_slab_tree",
+                 spec=dict(draft_model=8, tree_width=2, tree_depth=4, draft_ctx=64), knobs=slab)
+    engine_phase(model, cfg, None, gpu, margin, prompts=spec_prompts, name="engine_slab_spec",
+                 spec=dict(speculate_k=4), knobs=slab)
+    rec = prefix_phase(model, cfg, gpu, "engine_slab_prefix", prefix_prompts_,
+                       prefix_cache_mb=1024.0, paged=False)
+    check(rec["prefix_hit_tokens"] >= 4 * PREFIX_LEN,
+          f"engine_slab_prefix: {rec['prefix_hit_tokens']} hit tokens, want >= {4 * PREFIX_LEN}")
+    slab_attention_cost(model, cfg, gpu)
+
+
+def slab_attention_cost(model, cfg, gpu) -> dict:
+    """What plain attention over the slab pool costs a decode step: one
+    layer's :func:`~accelerate_tpu_torch.models.transformer.cached_attention`
+    at the ``engine_slab`` decode shape (4 lanes of 57/384/700/1000 keys in
+    slabs of 2048, 32 heads, D 128, bf16), device ms per call from CUDA
+    events around a CUDA graph of the calls, beside the bytes bound of
+    reading the whole slab (what plain attention reads) and of reading the
+    live keys only (what the paged kernel K1 reads), and beside K1 on the
+    same lanes in pages of 128.  Times 32 layers: the step's share.  Then,
+    on an idle slab engine of the ``engine_slab`` geometry, the card time
+    of one decode window's graph replay (plain attention reads the whole
+    slab whatever the lanes hold, so an idle pool costs what a full one
+    does), per step, and of each bucket's chunk graph replayed and run
+    launch by launch (:func:`time_ms` over 10 back-to-back calls), beside
+    the chunk's bound (:func:`chunk_bound_ms`)."""
+    from accelerate_tpu_torch.models.transformer import cached_attention
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    lens = [57, 384, 700, 1000]
+    n, m, h, d = len(lens), 2048, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((n, 1, cfg.num_heads, d), generator=gen, device="cuda").to(cfg.dtype)
+    k = torch.randn((n, m, h, d), generator=gen, device="cuda").to(cfg.dtype)
+    v = torch.randn((n, m, h, d), generator=gen, device="cuda").to(cfg.dtype)
+    pos = torch.tensor(lens, device="cuda")[:, None]
+    slab_ms = graph_ms(lambda: cached_attention(q, k, v, pos), 20)
+    # the same keys in pages of 128, one block table row a lane
+    pages_k = k.reshape(n * m // 128, 128, h, d)
+    pages_v = v.reshape(n * m // 128, 128, h, d)
+    tables = torch.arange(n * m // 128, dtype=torch.int32, device="cuda").reshape(n, -1)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    counts = pa.launch_counts()
+    k1_ms = graph_ms(lambda: pa.paged_attention(q, pages_k, pages_v, tables, lengths), 20)
+    pa.set_launch_counts(counts)     # a measurement, not the path's launches
+    item = k.element_size()
+    whole = 2 * n * m * h * d * item / HBM_BYTES_PER_S * 1e3
+    live = 2 * sum(x + 1 for x in lens) * h * d * item / HBM_BYTES_PER_S * 1e3
+    del q, k, v, pages_k, pages_v
+    engine = ServingEngine(model, None, paged=False, num_slots=4, max_len=2048,
+                           prefill_buckets=(128, 512), decode_window=4, prefix_cache_mb=0,
+                           device="cuda")
+    window_ms = time_ms(lambda: engine.graphs.replay(engine._graph_key("decode", False)), 10)
+    chunks = []
+    for bucket, base in ((512, 0), (128, 0), (128, 640)):
+        engine._chunk_tokens[bucket].copy_(torch.randint(
+            1, cfg.vocab_size, (1, bucket), generator=gen, device="cuda"))
+        engine._chunk_base.fill_(base)
+        bound, by = chunk_bound_ms(model, bucket, base)
+        chunks.append({"bucket": bucket, "base": base,
+                       "graph_ms": time_ms(lambda: engine.graphs.replay(
+                           engine._chunk_key(bucket)), 10),
+                       "eager_ms": time_ms(engine._chunks[bucket], 10),
+                       "bound_ms": bound, "bound_by": by})
+    check(pa.launch_counts() == counts, "a slab program launched a paged kernel")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "slab_attention", "lanes": lens, "slab_len": m,
+           "slab_ms_per_layer": slab_ms, "k1_ms_per_layer": k1_ms,
+           "whole_slab_bound_ms": whole, "live_keys_bound_ms": live,
+           "slab_ms_per_step": slab_ms * cfg.num_layers,
+           "k1_ms_per_step": k1_ms * cfg.num_layers,
+           "decode_window_graph_ms_per_step": window_ms / 4, "slab_chunks": chunks, "gpu": gpu}
+    emit(rec)
+    return rec
 
 
 # --------------------------------------------------------------- flash attn
@@ -1388,6 +1539,7 @@ def train_phase(gpu):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on the card",
               file=sys.stderr)
@@ -1547,9 +1699,11 @@ def main() -> int:
         model, cfg, rng, gpu, tol, prompts=prompts, name="engine_tree",
         spec=dict(draft_model=8, tree_width=2, tree_depth=4, draft_ctx=64))
     segment = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)
-    engine_phase(model, cfg, rng, gpu, tol, prompts=[np.resize(segment, n) for n in ENGINE_LENS],
-                 name="engine_spec", spec=dict(speculate_k=4))
-    prefix_launches = prefix_phases(model, cfg, rng, gpu)
+    spec_prompts = [np.resize(segment, n) for n in ENGINE_LENS]
+    engine_phase(model, cfg, rng, gpu, tol, prompts=spec_prompts, name="engine_spec",
+                 spec=dict(speculate_k=4))
+    prefix_launches, shared_prompts = prefix_phases(model, cfg, rng, gpu)
+    slab_phases(model, cfg, gpu, tol, prompts, spec_prompts, shared_prompts)
     del model
     torch.cuda.empty_cache()
 
@@ -1608,6 +1762,7 @@ def main() -> int:
         if name in prefix_launches:
             # the prefix cache's path, its counts zeroed just before its serve
             kernels[-1]["launches_engine_prefix"] = prefix_launches[name]
+    emit({"phase": "run", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -398,6 +398,7 @@ def test_accelerator_without_a_card_raises(monkeypatch):
     (dict(deepspeed_plugin=object()), "item 9"),
     (dict(megatron_lm_plugin=object()), "item 9"),
     (dict(mesh={"dp": 1}), "item 9"),
+    (dict(rng_types=["generator"]), "item 9"),
     (dict(compilation_config=object()), "item 9"),
     (dict(dynamo_backend="inductor"), "item 9"),
     (dict(log_with="tensorboard"), "item 10"),

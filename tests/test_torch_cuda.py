@@ -599,7 +599,8 @@ def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24), dtype=torch
     (``ServingEngine._eager``), both synchronous so that each step drains its
     window, on one tiny model (``dtype``, ``cfg_kw`` for its config): the
     same requests stepped in turn, every state the windows and chunks write
-    (pages, scales, pending tokens, draft tokens), every token and
+    (pages and scales, or the running lanes' rows of the slab pool; pending
+    tokens, draft tokens), every token and
     ``kv_quant_error`` compared bitwise after each step.  One request
     samples, so both variants of each window run.  The null page is left
     out: it is the garbage sink of inactive lanes, never read.  The prompts
@@ -625,11 +626,22 @@ def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24), dtype=torch
     while graphed.has_work:
         for engine in (graphed, eager):
             engine.step()
-        # every page but the null page (id 0), the sink of inactive lanes'
-        # writes, whose last writer among them is not defined
-        for name in ("pages_k", "pages_v", "k_scales", "v_scales"):
-            assert torch.equal(getattr(graphed.kv, name)[:, 1:],
-                               getattr(eager.kv, name)[:, 1:]), name
+        if graphed.paged:
+            # every page but the null page (id 0), the sink of inactive
+            # lanes' writes, whose last writer among them is not defined
+            for name in ("pages_k", "pages_v", "k_scales", "v_scales"):
+                assert torch.equal(getattr(graphed.kv, name)[:, 1:],
+                                   getattr(eager.kv, name)[:, 1:]), name
+        else:
+            # the slab pool's live rows: each running lane's history.  Rows
+            # past it are dead, and differ: the captures' warm-ups wrote
+            # there, and an insert copies the scratch's stale tail along
+            np.testing.assert_array_equal(graphed._lane_len, eager._lane_len)
+            for s in np.nonzero(graphed._active)[0]:
+                rows = int(graphed._lane_len[s])
+                for kv in ("k", "v"):
+                    assert torch.equal(getattr(graphed.pool, kv)[:, s, :rows],
+                                       getattr(eager.pool, kv)[:, s, :rows]), (s, kv)
         assert torch.equal(graphed.lanes.pending, eager.lanes.pending)
         assert torch.equal(graphed.lanes.keys, eager.lanes.keys)
         if graphed.tree is not None:
@@ -660,6 +672,97 @@ def test_window_graphs_replay_the_eager_windows(card, kind, kv_dtype):
     assert {key[0] for key in engine.graphs.keys()} == want
     if kind != "decode":
         assert engine.stats["verify_forwards"] > 0
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(kv_dtype="int8"),
+                                   dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)])
+def test_plain_route_on_card_matches_cpu(card, knobs):
+    """``decode_kernel="xla"`` on the paged pool: every window and chunk graph
+    captures the kernels' plain versions (native and int8 pages, and the
+    tree verify's dense mask), K1 and K2 launch never, and the greedy tokens
+    equal the CPU engine's."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128)
+    sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 19, 33, 8)]
+    gen = GenerationConfig(max_new_tokens=12)
+    out = {}
+    for dev in ("cpu", card):
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               decode_kernel="xla", device=dev, **knobs)
+        pa.reset_launch_counts()
+        out[str(dev)] = [r.tokens for r in engine.serve(prompts, configs=gen)]
+    assert out["cpu"] == out[str(card)]
+    assert engine.stats["graph_replays"] > 0
+    assert pa.launch_counts() == (0,) * len(pa.launch_counts())
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify", "tree"])
+def test_slab_graphs_replay_the_eager_windows(card, kind):
+    """The slab pool (``paged=False``): each window's graph replay and each
+    bucket's chunk replay leave every running lane's rows of the slab pool
+    bitwise equal to the eager engine's, with the prefix cache copying cached chunks into
+    the scratch (the 16-token prompts hit); every graph key names the slab
+    pool; K1 and K2 launch never; the capture count stays constant."""
+    knobs = {"decode": {}, "verify": dict(speculate_k=2),
+             "tree": dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)}[kind]
+    pa.reset_launch_counts()
+    engine = _lockstep_engines(card, dict(paged=False, prefix_cache_mb=1.0, **knobs),
+                               lens=(16, 40, 17, 16, 33, 24))
+    assert all("slab" in key for key in engine.graphs.keys())
+    assert sorted(k[1] for k in engine.graphs.keys() if k[0] == "prefill") == [16, 32]
+    assert engine.stats["prefix_hit_tokens"] > 0
+    assert pa.launch_counts() == (0,) * len(pa.launch_counts())
+    if kind != "decode":
+        assert engine.stats["verify_forwards"] > 0
+
+
+def test_slab_pipeline_on_card_matches_cpu_and_does_not_synchronise(card):
+    """The pipelined slab engine (prefix cache on): admission, the scratch
+    prefill, the cached-chunk copy, the insert and every dispatch run under
+    ``torch.cuda.set_sync_debug_mode("error")``; greedy tokens equal the
+    CPU slab engine's."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128)
+    sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    head = rng.integers(1, 256, 32).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(1, 256, n).astype(np.int32)])
+               for n in (5, 19, 33, 8, 12)]
+    gen = GenerationConfig(max_new_tokens=12)
+    out = {}
+    for dev in ("cpu", card):
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               paged=False, device=dev)
+        reqs = [engine.submit(p, config=gen) for p in prompts]
+        while engine.has_work:
+            engine._prefree_exhausted()
+            prev = None
+            on_card = dev != "cpu"
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                engine._admit()
+                if engine._active.any():
+                    prev = engine._dispatch()
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(0)
+            if not engine._active.any():
+                prev = engine._dispatch()
+            engine._hand_cache_traffic(engine._inflight if engine._inflight is not None
+                                       else prev)
+            if prev is not None:
+                engine._drain(prev)
+        out[str(dev)] = [r.tokens for r in reqs]
+        assert engine.stats["prefix_hit_tokens"] > 0
+    assert out["cpu"] == out[str(card)]
+    assert engine.stats["prefreed_lanes"] > 0 and engine.stats["graph_replays"] > 0
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])

@@ -234,14 +234,59 @@ def test_admission_refusals(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(paged=False), "5"),
     (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
     (dict(draft_model="ckpt/dir#1"), "2"),
+    (dict(registry=object()), "8"), (dict(metrics_port=0), "8"), (dict(tp_axis="model"), "8"),
 ])
 def test_unported_arguments_raise(models, kw, item):
+    """The reference's keywords that the port has not ported raise
+    ``NotImplementedError`` naming their item (``paged=False`` is ported:
+    ``tests/test_torch_slab.py``)."""
     _, _, model, params = models
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+
+
+@pytest.mark.parametrize("kw", [dict(request_class="chat"), dict(tenant="acme")])
+def test_unported_submit_arguments_raise(models, kw):
+    """``submit(request_class=, tenant=)``: the reference's accounting
+    labels raise ``NotImplementedError`` naming item 8, not a bare
+    ``TypeError`` from the generation config."""
+    _, _, model, params = models
+    engine = ServingEngine(model, params, device="cpu", **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+        engine.submit(np.arange(1, 5), max_new_tokens=2, **kw)
+    assert engine.scheduler.queue_depth == 0
+
+
+def test_kernel_keywords_and_weights_version(models, monkeypatch):
+    """``decode_kernel``/``prefill_kernel`` take the reference's values and
+    refusals; ``"xla"`` routes the paged pool's attention to the kernels'
+    plain versions (no wrapper of K1 or K2 is called) with the tokens of
+    the default engine; ``weights_version`` is kept as a label."""
+    from accelerate_tpu_torch.models import transformer
+
+    _, _, model, params = models
+    for kw in (dict(decode_kernel="triton"), dict(prefill_kernel="cuda")):
+        with pytest.raises(ValueError, match="must be"):
+            ServingEngine(model, params, device="cpu", **ENGINE_KW, **kw)
+    calls = []
+    for name in ("paged_attention", "paged_flash_prefill"):
+        wrapped = getattr(transformer, name)
+        monkeypatch.setattr(transformer, name,
+                            lambda *a, _f=wrapped, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    prompts = _prompts(21, (5, 9, 3))
+    _, tokens = _serve(model, params, prompts, GenerationConfig(max_new_tokens=6),
+                       decode_kernel="pallas", weights_version="v7")
+    assert set(calls) == {"paged_attention", "paged_flash_prefill"}
+    calls.clear()
+    engine, plain = _serve(model, params, prompts, GenerationConfig(max_new_tokens=6),
+                           decode_kernel="xla")
+    assert calls == [] and plain == tokens
+    assert (engine.decode_kernel, engine.prefill_kernel) == ("xla", "xla")
+    mixed = ServingEngine(model, params, device="cpu", prefill_kernel="xla", **ENGINE_KW)
+    assert (mixed.decode_kernel, mixed.prefill_kernel, mixed.weights_version) == \
+        ("pallas", "xla", "v0")
 
 
 @pytest.mark.parametrize("depth", [2, -1])
