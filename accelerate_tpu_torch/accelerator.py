@@ -23,21 +23,39 @@ The state is updated in place.  ``metrics`` holds device tensors (``loss``,
 ``grad_norm``, ``applied``, ``overflow`` and ``aux``): the step reads nothing
 back from the device, except one finiteness flag per sync step under fp16.
 
+The reference's unfused loop shape is here too, with the JAX package's
+semantics::
+
+    for batch in loader:
+        with accelerator.accumulate():
+            grads, m = accelerator.compute_gradients(loss_fn, state, batch)
+            state = accelerator.apply_gradients(state, grads, max_grad_norm=1.0)
+
+``compute_gradients`` returns fresh f32 gradients (unscaled under fp16)
+and leaves the state alone; ``apply_gradients`` adds them into the
+accumulation buffer, or on a sync call averages, clips, applies and clears
+it.  ``save_state``/``load_state`` (``checkpointing.py``) resume a run,
+mid-window too; ``save_model`` exports safetensors.
+
 Arguments for what is not ported — sharding plugins, meshes, RNG
 synchronization across processes (``rng_types``), offload,
-PowerSGD, fp8, remat, trackers, the metrics endpoint, checkpoints — raise
+PowerSGD, fp8, remat, trackers, the metrics endpoint — raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional
+import gc
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.utils.data
 from torch import nn
 
+from . import checkpointing
 from .data_loader import DataLoaderShard, SimpleDataLoader, prepare_data_loader
 from .data_loader import skip_first_batches as _skip_first_batches
 from .optimizer import AcceleratedOptimizer
@@ -50,6 +68,7 @@ from .utils.dataclasses import (
     GradientAccumulationPlugin,
     GradScalerKwargs,
     PrecisionPolicy,
+    ProjectConfiguration,
 )
 
 _PARALLEL = "ROADMAP Queue 1 item 9 (parallel/)"
@@ -64,9 +83,18 @@ _UNPORTED_ARGS = {
     "dynamo_backend": "torch.compile of the step: ROADMAP Queue 1 item 9 (remat)",
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
     "metrics_port": "the metrics endpoint: ROADMAP Queue 1 item 8 (telemetry/)",
-    "project_dir": "project directories: ROADMAP Queue 1 item 9 (checkpointing.py)",
-    "project_config": "project directories: ROADMAP Queue 1 item 9 (checkpointing.py)",
 }
+
+
+def _is_tensor(t) -> bool:
+    return isinstance(t, torch.Tensor)
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """Every tensor leaf of a tree, in order."""
+    leaves: List[torch.Tensor] = []
+    ops.recursively_apply(leaves.append, tree, _is_tensor)
+    return leaves
 
 
 def _is_dataloader_like(obj) -> bool:
@@ -91,7 +119,7 @@ class Accelerator:
         rng_types=None,
         log_with=None,
         project_dir: Optional[str] = None,
-        project_config=None,
+        project_config: Optional[ProjectConfiguration] = None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         step_scheduler_with_optimizer: bool = True,
         kwargs_handlers: Optional[List[Any]] = None,
@@ -102,12 +130,15 @@ class Accelerator:
         given = dict(deepspeed_plugin=deepspeed_plugin, fsdp_plugin=fsdp_plugin,
                      megatron_lm_plugin=megatron_lm_plugin, mesh=mesh, rng_types=rng_types,
                      compilation_config=compilation_config, dynamo_backend=dynamo_backend,
-                     log_with=log_with, metrics_port=metrics_port, project_dir=project_dir,
-                     project_config=project_config)
+                     log_with=log_with, metrics_port=metrics_port)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
                     f"Accelerator({name}=...) is not ported: {_UNPORTED_ARGS[name]}")
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
         self.scaler_handler: Optional[GradScalerKwargs] = None
         for handler in kwargs_handlers or []:
             if not isinstance(handler, GradScalerKwargs):
@@ -133,13 +164,19 @@ class Accelerator:
             self.dataloader_config.split_batches = True
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
 
+        self.trackers: List[Any] = []  # stays empty: log_with is not ported
+
         self.step = 0  # host micro-step counter (the GradientState mirror)
+        self.flag_tensor: Optional[int] = None
         self._models: List[nn.Module] = []
         self._optimizers: List[AcceleratedOptimizer] = []
         self._schedulers: List[AcceleratedScheduler] = []
         self._dataloaders: List[DataLoaderShard] = []
         #: id(torch optimizer) -> the TrainState it is bound to
         self._states: Dict[int, TrainState] = {}
+        self._custom_objects: List[Any] = []
+        self._save_model_state_pre_hooks: Dict[Any, Callable] = {}
+        self._load_model_state_pre_hooks: Dict[Any, Callable] = {}
 
     # ------------------------------------------------------------- properties
     @property
@@ -208,11 +245,54 @@ class Accelerator:
     def split_batches(self) -> bool:
         return self.dataloader_config.split_batches
 
+    @property
+    def even_batches(self) -> bool:
+        return self.dataloader_config.even_batches
+
+    @property
+    def use_seedable_sampler(self) -> bool:
+        return self.dataloader_config.use_seedable_sampler
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self) -> Optional[str]:
+        return self.project_configuration.logging_dir
+
+    # ------------------------------------------------------------ process ctl
     def wait_for_everyone(self):
         self.state.partial_state.wait_for_everyone()
 
     def print(self, *args, **kwargs):
         self.state.partial_state.print(*args, **kwargs)
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.partial_state.split_between_processes(inputs,
+                                                                apply_padding=apply_padding)
+
+    def on_main_process(self, function):
+        return self.state.partial_state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state.partial_state.on_local_main_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state.partial_state.on_process(function, process_index=process_index)
+
+    def on_last_process(self, function):
+        return self.state.partial_state.on_last_process(function)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state.partial_state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.partial_state.local_main_process_first():
+            yield
 
     # ----------------------------------------------------------------- prepare
     def prepare(self, *args):
@@ -408,6 +488,96 @@ class Accelerator:
         finally:
             self.gradient_state._set_sync_gradients(old)
 
+    # ------------------------------------------------- the reference's loop
+    def compute_gradients(self, loss_fn: Callable, state: TrainState, batch,
+                          has_aux: bool = False):
+        """Gradients of ``loss_fn(params, batch)`` (the loss
+        ``compile_train_step`` takes, run under the same policy cast) with
+        respect to the state's masters: ``(grads, {"loss", "aux"})``, where
+        ``grads`` maps each parameter name to a fresh f32 tensor, divided
+        by the fp16 loss scale.  The state, and its accumulation buffer,
+        are left as they are."""
+        named = list(state.model.named_parameters())
+        scale = state.loss_scale.scale if state.loss_scale is not None else 1.0
+        out = loss_fn(self._compute_params(state.model), batch)
+        loss, aux = out if has_aux else (out, ())
+        loss = loss.float()
+        grads = torch.autograd.grad(loss * scale if scale != 1.0 else loss,
+                                    [p for _, p in named], allow_unused=True)
+        result = {}
+        for (name, p), g in zip(named, grads):
+            g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+            result[name] = g.div_(scale) if scale != 1.0 else g
+        aux = ops.recursively_apply(torch.Tensor.detach, aux, _is_tensor)
+        return result, {"loss": loss.detach(), "aux": aux}
+
+    def backward(self, *args, **kwargs):
+        """Not supported, as in the JAX package: gradients are computed
+        functionally (:meth:`compute_gradients`)."""
+        raise RuntimeError(
+            "accelerator.backward(loss) is not supported: gradients are computed "
+            "functionally. Use `grads, m = accelerator.compute_gradients(loss_fn, state, batch)` "
+            "then `state = accelerator.apply_gradients(state, grads)`, or the fused "
+            "`accelerator.compile_train_step(loss_fn)`.")
+
+    def apply_gradients(self, state: TrainState, grads: Dict[str, torch.Tensor],
+                        max_grad_norm: Optional[float] = None) -> TrainState:
+        """Add ``grads`` (name -> tensor, as :meth:`compute_gradients`
+        returns them) into the accumulation buffer — the parameters'
+        ``.grad`` — and, when ``sync_gradients`` is set (by
+        :meth:`accumulate`), average the buffer over the window's
+        ``micro_step + 1`` calls, clip it by global norm to
+        ``max_grad_norm`` (factor ``min(1, max / (norm + 1e-6))``), apply
+        the optimizer unless fp16 finds it non-finite, update the loss
+        scale, clear the buffer and restart the window.  ``grads`` is not
+        modified.  In place; returns ``state``."""
+        params = dict(state.model.named_parameters())
+        if grads.keys() != params.keys():
+            raise ValueError(f"grads hold {sorted(set(grads) ^ set(params))[:5]} that the "
+                             "state's parameters do not (or the other way round)")
+        with torch.no_grad():
+            for name, p in params.items():
+                if p.grad is None:
+                    p.grad = grads[name].to(p.dtype, copy=True)
+                else:
+                    p.grad.add_(grads[name])
+        if not self.sync_gradients:
+            state.micro_step += 1
+            return state
+        bufs = [p.grad for p in params.values()]
+        torch._foreach_div_(bufs, float(state.micro_step + 1))
+        if max_grad_norm is not None:
+            clip = torch.clamp(max_grad_norm / (global_norm(bufs) + 1e-6), max=1.0)
+            torch._foreach_mul_(bufs, clip)
+        finite = bool(tree_finite(bufs)) if state.loss_scale is not None else True
+        if finite:
+            for sched in self._schedulers:
+                sched.apply(state.optimizer, state.step)
+            state.apply_gradients()
+        state.optimizer.zero_grad(set_to_none=True)
+        state.micro_step = 0
+        if state.loss_scale is not None:
+            state.loss_scale = state.loss_scale.update(finite)
+        for wrapper in self._optimizers:
+            if wrapper.optimizer is state.optimizer:
+                wrapper._step_was_skipped = not finite
+        return state
+
+    def clip_grad_norm_(self, grads, max_norm: float, norm_type: float = 2.0):
+        """``(grads scaled by min(1, max_norm / (norm + 1e-6)), norm)`` for
+        the global L2 norm of a tree of gradients; ``grads`` is not
+        modified."""
+        if norm_type != 2.0:
+            raise NotImplementedError("Only L2 global-norm clipping is supported")
+        norm = global_norm(_tensors(grads))
+        factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+        return ops.recursively_apply(lambda g: g * factor, grads, _is_tensor), norm
+
+    def clip_grad_value_(self, grads, clip_value: float):
+        """Every gradient clamped to ``[-clip_value, clip_value]`` (new tensors)."""
+        return ops.recursively_apply(lambda g: g.clamp(-clip_value, clip_value), grads,
+                                     _is_tensor)
+
     # ------------------------------------------------------------ collectives
     def gather(self, tensor):
         return ops.gather(tensor)
@@ -421,15 +591,123 @@ class Accelerator:
             data = ops.recursively_apply(lambda t: t[: gs.remainder], data)
         return data
 
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        return ops.reduce(tensor, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
+                                        pad_first=pad_first)
+
     # ------------------------------------------------------------- utilities
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler=None):
+        """A no-op scope: the precision policy is applied inside the step."""
+        yield
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
+        """A no-op scope: one process has no uneven inputs to join."""
+        yield
+
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
         """The module itself: the port wraps nothing."""
         return model
 
-    def save_state(self, *args, **kwargs):
-        raise NotImplementedError("save_state is not ported: "
-                                  "ROADMAP Queue 1 item 9 (checkpointing.py)")
+    def free_memory(self, *objects):
+        """Drop every registered model, optimizer, schedule, dataloader and
+        train state, collect garbage and return the card's cached blocks."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self._states.clear()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
 
-    def load_state(self, *args, **kwargs):
-        raise NotImplementedError("load_state is not ported: "
-                                  "ROADMAP Queue 1 item 9 (checkpointing.py)")
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    def set_trigger(self):
+        """Flag this process for :meth:`check_trigger`."""
+        self.flag_tensor = 1
+
+    def check_trigger(self) -> bool:
+        """True (once) if any process called :meth:`set_trigger`."""
+        triggered = any(bool(f) for f in ops.gather_object([self.flag_tensor or 0]))
+        if triggered:
+            self.flag_tensor = 0
+        return triggered
+
+    def get_state_dict(self, state_or_params, unwrap: bool = True) -> Dict[str, torch.Tensor]:
+        """A host copy of the weights of a :class:`TrainState`, a module or a
+        name -> tensor dict, by the port's state-dict names."""
+        return checkpointing.host_state_dict(state_or_params)
+
+    def register_for_checkpointing(self, *objects):
+        """Objects with ``state_dict``/``load_state_dict`` that
+        :meth:`save_state`/:meth:`load_state` carry along."""
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(
+                f"All objects must have state_dict/load_state_dict methods; got {invalid}")
+        self._custom_objects.extend(objects)
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return _skip_first_batches(dataloader, num_batches=num_batches)
+
+    # ------------------------------------------------------------ checkpoints
+    def save_state(self, output_dir: Optional[str] = None, state: Optional[TrainState] = None,
+                   **save_kwargs) -> str:
+        return checkpointing.save_accelerator_state(self, output_dir, state, **save_kwargs)
+
+    def load_state(self, input_dir: Optional[str] = None, state: Optional[TrainState] = None,
+                   **load_kwargs) -> Optional[TrainState]:
+        return checkpointing.load_accelerator_state(self, input_dir, state, **load_kwargs)
+
+    def save_model(self, state_or_params, save_directory: str,
+                   max_shard_size: Union[int, str] = "10GB", safe_serialization: bool = True,
+                   save_dtype: Optional[torch.dtype] = None) -> List[str]:
+        return checkpointing.save_model(
+            self, state_or_params, save_directory, max_shard_size=max_shard_size,
+            safe_serialization=safe_serialization, save_dtype=save_dtype)
+
+    def register_save_state_pre_hook(self, hook: Callable):
+        """``hook(models, weights, output_dir)`` runs before each save."""
+        handle = object()
+        self._save_model_state_pre_hooks[handle] = hook
+        return handle
+
+    def register_load_state_pre_hook(self, hook: Callable):
+        """``hook(models, input_dir)`` runs before each load."""
+        handle = object()
+        self._load_model_state_pre_hooks[handle] = hook
+        return handle
+
+    def end_training(self):
+        for tracker in self.trackers:
+            tracker.finish()
+
+    # ---------------------------------------------------------------- profile
+    @contextlib.contextmanager
+    def profile(self, log_dir: Optional[str] = None):
+        """Capture a ``torch.profiler`` trace of the block (host activity,
+        and the card's on ``cuda``) and write it as a Chrome trace under
+        ``log_dir`` (default ``<project_dir or .>/profile``); yields the
+        profiler."""
+        log_dir = log_dir or os.path.join(self.project_dir or ".", "profile")
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        try:
+            yield prof
+        finally:
+            prof.stop()
+            os.makedirs(log_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                log_dir, f"worker{self.process_index}.{time.time_ns()}.pt.trace.json"))

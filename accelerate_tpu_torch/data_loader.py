@@ -32,6 +32,13 @@ class SeedableRandomSampler:
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
+    def state_dict(self):
+        return {"seed": self.seed, "epoch": self.epoch}
+
+    def load_state_dict(self, state):
+        self.seed = state["seed"]
+        self.epoch = state["epoch"]
+
     def __len__(self):
         return self.data_source_len
 

@@ -11,7 +11,6 @@ state, so a restore mid-window resumes the same average.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -49,9 +48,6 @@ class AcceleratedOptimizer:
         """True when the last sync step overflowed under fp16 and was skipped."""
         return self._step_was_skipped
 
-    def _params(self):
-        return [p for group in self.optimizer.param_groups for p in group["params"]]
-
     def _resolve_state(self):
         state = None
         if self._accelerator is not None:
@@ -73,41 +69,12 @@ class AcceleratedOptimizer:
                 state.micro_step = 0
 
     def state_dict(self) -> Dict[str, Any]:
-        """Host copy of the optimizer state, the step counters, the
-        accumulation buffer and the loss scale."""
-        state = self._resolve_state()
-        sd = {
-            "optimizer": _to_host(self.optimizer.state_dict()),
-            "step": state.step,
-            "micro_step": state.micro_step,
-            "grad_accum": [None if p.grad is None else _to_host(p.grad) for p in self._params()],
-        }
-        if state.loss_scale is not None:
-            sd["loss_scale"] = {"scale": state.loss_scale.scale,
-                                "growth_tracker": state.loss_scale.growth_tracker}
-        return sd
+        """Host copy of the linked TrainState's :meth:`~TrainState.state_dict`:
+        the optimizer state, the step counters, the accumulation buffer and
+        the loss scale."""
+        return _to_host(self._resolve_state().state_dict())
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         """Restore a :meth:`state_dict` snapshot into the optimizer and its
         linked TrainState, in place."""
-        state = self._resolve_state()
-        self.optimizer.load_state_dict(state_dict["optimizer"])
-        state.step = int(state_dict.get("step", 0))
-        accum = state_dict.get("grad_accum")
-        params = self._params()
-        if accum is None:
-            # no buffer in the snapshot: restart the window from zero
-            self.optimizer.zero_grad(set_to_none=True)
-            state.micro_step = 0
-        else:
-            if len(accum) != len(params):
-                raise ValueError(f"snapshot holds {len(accum)} gradient buffers for "
-                                 f"{len(params)} parameters")
-            for p, g in zip(params, accum):
-                p.grad = None if g is None else g.to(device=p.device, dtype=p.dtype, copy=True)
-            state.micro_step = int(state_dict.get("micro_step", 0))
-        ls = state_dict.get("loss_scale")
-        if ls is not None and state.loss_scale is not None:
-            state.loss_scale = dataclasses.replace(
-                state.loss_scale, scale=float(ls["scale"]),
-                growth_tracker=int(ls["growth_tracker"]))
+        self._resolve_state().load_state_dict(state_dict)

@@ -12,9 +12,12 @@ item 9 (``parallel/``).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ._device import resolve_device
@@ -73,6 +76,86 @@ class PartialState:
     def print(self, *args, **kwargs):
         if self.is_local_main_process:
             print(*args, **kwargs)
+
+    def _goes_first(self, is_main: bool):
+        if not is_main:
+            self.wait_for_everyone()
+        yield
+        if is_main:
+            self.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        """The main process runs the block before the others."""
+        yield from self._goes_first(self.is_main_process)
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        yield from self._goes_first(self.is_local_main_process)
+
+    @contextlib.contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """This process's share of a list, tuple, array, tensor or dict of
+        them (equal lengths), in contiguous slices, the first
+        ``len % num_processes`` one longer.  ``apply_padding`` pads a short
+        share to the longest by repeating the input's last element."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        if isinstance(inputs, dict):
+            lengths = {len(v) for v in inputs.values()}
+            if len(lengths) != 1:
+                raise ValueError("All values in a dict passed to split_between_processes "
+                                 "must have equal length")
+            length = lengths.pop()
+        else:
+            length = len(inputs)
+        sizes = [length // self.num_processes] * self.num_processes
+        for i in range(length % self.num_processes):
+            sizes[i] += 1
+        start = sum(sizes[: self.process_index])
+        end = start + sizes[self.process_index]
+
+        def _slice(obj):
+            chunk = obj[start:end]
+            pad = sizes[0] - len(chunk)
+            if not apply_padding or pad <= 0:
+                return chunk
+            # the input's last element, so that an empty share pads too
+            if isinstance(chunk, torch.Tensor):
+                return torch.cat([chunk] + [obj[-1:]] * pad)
+            if isinstance(chunk, np.ndarray):
+                return np.concatenate([chunk] + [obj[-1:]] * pad)
+            return list(chunk) + [obj[-1]] * pad
+
+        if isinstance(inputs, dict):
+            yield {k: _slice(v) for k, v in inputs.items()}
+        else:
+            yield _slice(inputs)
+
+    def _run_if(self, flag: Callable[[], bool], function: Callable) -> Callable:
+        @functools.wraps(function)
+        def wrapper(*args, **kwargs):
+            if flag():
+                return function(*args, **kwargs)
+
+        return wrapper
+
+    def on_main_process(self, function: Callable) -> Callable:
+        """Decorator: run ``function`` on the main process only."""
+        return self._run_if(lambda: self.is_main_process, function)
+
+    def on_local_main_process(self, function: Callable) -> Callable:
+        return self._run_if(lambda: self.is_local_main_process, function)
+
+    def on_last_process(self, function: Callable) -> Callable:
+        return self._run_if(lambda: self.is_last_process, function)
+
+    def on_process(self, function: Optional[Callable] = None,
+                   process_index: Optional[int] = None) -> Callable:
+        if function is None:
+            return functools.partial(self.on_process, process_index=process_index)
+        return self._run_if(lambda: self.process_index == process_index, function)
 
     def __repr__(self):
         return (f"Distributed environment: {self.distributed_type}\n"

@@ -21,7 +21,7 @@ from the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -109,3 +109,41 @@ class TrainState:
         self.optimizer.step()
         self.step += 1
         return self
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What resuming needs besides the weights: the counters, the
+        optimizer's state, the loss scale and — whenever ``micro_step > 0`` —
+        the accumulation buffer by parameter name (without it a window
+        restored mid-way would lose its earlier micro-steps).  Tensors stay
+        where they are."""
+        tree = {"step": self.step, "micro_step": self.micro_step,
+                "optimizer": self.optimizer.state_dict()}
+        if self.micro_step > 0:
+            tree["grad"] = {name: p.grad for name, p in self.model.named_parameters()
+                            if p.grad is not None}
+        if self.loss_scale is not None:
+            tree["loss_scale"] = {"scale": self.loss_scale.scale,
+                                  "growth_tracker": self.loss_scale.growth_tracker}
+        return tree
+
+    def load_state_dict(self, tree: Dict[str, Any]) -> None:
+        """Restore a :meth:`state_dict` in place, the buffer onto the
+        parameters' device.  torch keeps an optimizer's step counts on the
+        host unless it is ``capturable`` or ``fused``: they go back there, and
+        ``optimizer.load_state_dict`` places them (and the moments, on the
+        parameters' device) as the optimizer itself would."""
+        opt = tree["optimizer"]
+        for param_state in opt["state"].values():
+            if isinstance(param_state.get("step"), torch.Tensor):
+                param_state["step"] = param_state["step"].cpu()
+        self.optimizer.load_state_dict(opt)
+        self.step = int(tree["step"])
+        self.micro_step = int(tree["micro_step"])
+        grads = tree.get("grad", {})
+        for name, p in self.model.named_parameters():
+            g = grads.get(name)
+            p.grad = None if g is None else g.to(device=p.device, dtype=p.dtype)
+        if self.loss_scale is not None and "loss_scale" in tree:
+            self.loss_scale = dataclasses.replace(
+                self.loss_scale, scale=float(tree["loss_scale"]["scale"]),
+                growth_tracker=int(tree["loss_scale"]["growth_tracker"]))

@@ -1,9 +1,10 @@
 """Configuration dataclasses of the training path.
 
-Port of the four :mod:`accelerate_tpu.utils.dataclasses` classes the
-single-device train step needs: :class:`PrecisionPolicy`,
-:class:`GradScalerKwargs`, :class:`GradientAccumulationPlugin` and
-:class:`DataLoaderConfiguration`.  Dtypes are ``torch`` dtypes.
+Port of the :mod:`accelerate_tpu.utils.dataclasses` classes the
+single-device train step and its checkpoints need: :class:`PrecisionPolicy`,
+:class:`GradScalerKwargs`, :class:`GradientAccumulationPlugin`,
+:class:`DataLoaderConfiguration` and :class:`ProjectConfiguration`.  Dtypes
+are ``torch`` dtypes.
 """
 
 from __future__ import annotations
@@ -47,6 +48,28 @@ class DataLoaderConfiguration:
     use_seedable_sampler: bool = False
     non_blocking: bool = False
     prefetch_size: int = 2
+
+
+@dataclass
+class ProjectConfiguration:
+    """Where a run keeps its checkpoints and logs: ``save_state`` names
+    ``<project_dir>/checkpoints/checkpoint_{iteration}`` under
+    ``automatic_checkpoint_naming`` and keeps the newest ``total_limit``."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: Optional[str] = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        self.set_directories(self.project_dir)
 
 
 @dataclass(frozen=True)

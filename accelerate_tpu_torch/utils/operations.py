@@ -1,13 +1,15 @@
 """Tree helpers of the training path: device placement and single-process gathers.
 
-Port of the parts of :mod:`accelerate_tpu.utils.operations` the train step
-and the data loader use.  A "tree" is a tensor, numpy array, number, or a
-dict / list / tuple of them.
+Port of the parts of :mod:`accelerate_tpu.utils.operations` the train step,
+the data loader and the ``Accelerator``'s collectives use.  A "tree" is a
+tensor, numpy array, number, or a dict / list / tuple of them.  With one
+process every collective is the identity or a scale; each returns its
+tensors on their own device (the JAX package returns numpy).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, List, Mapping
 
 import numpy as np
 import torch
@@ -47,4 +49,24 @@ def send_to_device(tensor, device=None, non_blocking: bool = False, skip_keys=No
 
 def gather(tensor: Any):
     """Concatenate a tree over processes; with one process, the tree itself."""
+    return tensor
+
+
+def gather_object(object: Any) -> List[Any]:
+    """A picklable object from each process, in a list (a list's items
+    are spliced in)."""
+    return list(object) if isinstance(object, list) else [object]
+
+
+def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
+    """Sum or mean every array leaf across processes, times ``scale``; with
+    one process both are the leaf times ``scale``."""
+    if reduction not in ("sum", "mean"):
+        raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
+    return recursively_apply(lambda t: t * scale, tensor)
+
+
+def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+    """Pad every array leaf along ``dim`` to the largest size any process
+    holds there; with one process each leaf is that size already."""
     return tensor

@@ -162,10 +162,31 @@ Phases, each printing one JSON line:
    ``step_ms_mean``.  Before that, one micro-step of one sequence is held
    against the ``attention_impl="xla"`` path, with an f32 run of the same
    weights as the yardstick of bf16 noise.
+   ``train_api``: the reference's loop shape on ``train``'s model (a fresh
+   one from the same seed), batches and recipe: 8 micro-steps of
+   ``compute_gradients`` + ``apply_gradients(max_grad_norm=1.0)`` inside
+   ``accumulate()``; each call's loss and grad norm (the window's running
+   average, as ``train`` reports it) held against ``train``'s within
+   ``TRAIN_API_REL_TOL``, K3-K5 counted (8 a call), ``step_ms`` (the two
+   calls, not the norm read between them) and the peak memory beside
+   ``train``'s (the returned f32 gradients are one more copy of the
+   masters).
+   ``checkpoint``: full width at 2 of 32 layers (2.7 GB of f32 masters,
+   5.3 GB of AdamW moments, 2.7 GB of ``.grad`` mid-window): an
+   uninterrupted run of 6 reference-loop calls at accumulation 2, twice
+   (the card must repeat itself bit for bit); 3 calls, ``save_state``
+   mid-window, a fresh accelerator and a state from another seed,
+   ``load_state``, 3 more: losses, grad norms and final params bitwise the
+   uninterrupted run's, AdamW's moments on the card; then
+   ``save_model(save_dtype=torch.bfloat16, max_shard_size="1GB")`` read back
+   by ``load_model_params``, bitwise the masters cast to bf16.  Bytes,
+   seconds and GB/s of the save, load, export and import; the free space
+   of the temp dir is checked first and the directory removed after.
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
-   their engine runs; K1 and K2 also with ``engine_prefix``'s launches),
+   their engine runs; K1 and K2 also with ``engine_prefix``'s launches,
+   K3-K5 also with ``train_api``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -180,7 +201,9 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -231,6 +254,16 @@ ROW_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 # happens to fall near zero make the check a coin toss
 TRAIN_TOL_FACTOR = 2.0
 TRAIN_LOSS_TOL_FLOOR = 5e-3
+# train_api against train, call by call, relative: the two run the same
+# kernels on the same inputs, and differ only in where the buffer's sums
+# happen (autograd's accumulation into .grad against an add of fresh
+# gradients; halving before the norm against after it: exact), so f32 sums
+# in another order (~1e-6) are all that may differ, and through AdamW a
+# weight one f32 step away can flip a bf16 rounding of an activation (2^-8
+# of it), which moves a mean of 4094 cross entropies by ~2^-8 / sqrt(4094)
+# = 6e-5; 1e-3 is 16x that, while a lost micro-step or a wrong count in the
+# average moves the window's grad norm by tens of percent
+TRAIN_API_REL_TOL = 1e-3
 # bf16 logit tolerance of the paged forward against the no-cache forward, as
 # a multiple of the plain bf16 path's own distance from an f32 forward of the
 # same weights (measured in the same run): the paged path rounds to bf16 at
@@ -1446,35 +1479,55 @@ def attention_path_check(accelerator, model, cfg, batch):
     return rec
 
 
+TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ = 8, 2, 2048
+# the Llama-2 recipe: AdamW(0.9, 0.95), eps 1e-5, weight decay 0.1 (and clip 1.0)
+LLAMA2_ADAMW = functools.partial(torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.95), eps=1e-5,
+                                 weight_decay=0.1)
+
+
+def train_config(layers: int):
+    from accelerate_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig.llama2_7b(num_layers=layers, dtype=torch.bfloat16,
+                                       param_dtype=torch.float32, attention_impl="pallas")
+
+
+def train_model(cfg, seed: int):
+    """f32 masters on the card from ``init_params(seed)``."""
+    from accelerate_tpu_torch.models.transformer import Transformer
+    from accelerate_tpu_torch.weights import init_params
+
+    model = Transformer(cfg, device="cuda", dtype=torch.float32)
+    model.load_state_dict(init_params(cfg, seed=seed, device="cuda", dtype=torch.float32),
+                          assign=True)
+    return model
+
+
+def train_data(cfg):
+    """Two random batches A and B of 2 x 2048 tokens, and the loader's
+    dataset A B A B ... (8 batches)."""
+    rng = np.random.default_rng(7)
+    a, b = (rng.integers(1, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ)).astype(np.int32)
+            for _ in range(2))
+    return a, [{"input_ids": r} for _ in range(4) for r in (*a, *b)]
+
+
 def train_phase(gpu):
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
-    from accelerate_tpu_torch.models.transformer import (
-        Transformer,
-        TransformerConfig,
-        lm_loss_fn,
-        state_dict_shapes,
-    )
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn, state_dict_shapes
     from accelerate_tpu_torch.ops import flash_attention as fa
-    from accelerate_tpu_torch.weights import init_params
 
-    layers, rows, seq = 8, 2, 2048
-    cfg = TransformerConfig.llama2_7b(num_layers=layers, dtype=torch.bfloat16,
-                                      param_dtype=torch.float32, attention_impl="pallas")
-    model = Transformer(cfg, device="cuda", dtype=torch.float32)
-    model.load_state_dict(init_params(cfg, seed=0, device="cuda", dtype=torch.float32),
-                          assign=True)
+    layers, rows, seq = TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ
+    cfg = train_config(layers)
+    model = train_model(cfg, seed=0)
     accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
-    rng = np.random.default_rng(7)
-    a, b = (rng.integers(1, cfg.vocab_size, (rows, seq)).astype(np.int32) for _ in range(2))
+    a, dataset = train_data(cfg)
     path_check = attention_path_check(
         accelerator, model, cfg, {"input_ids": torch.from_numpy(a[:1]).cuda()})
 
-    # the Llama-2 recipe: AdamW(0.9, 0.95), eps 1e-5, weight decay 0.1, clip 1.0
-    state = accelerator.create_train_state(params=model, tx=functools.partial(
-        torch.optim.AdamW, lr=3e-4, betas=(0.9, 0.95), eps=1e-5, weight_decay=0.1))
+    state = accelerator.create_train_state(params=model, tx=LLAMA2_ADAMW)
     step = accelerator.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
-    dataset = [{"input_ids": r} for _ in range(4) for r in (*a, *b)]  # A B A B ...
     loader = accelerator.prepare(SimpleDataLoader(dataset, batch_size=rows))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1535,7 +1588,199 @@ def train_phase(gpu):
           f"flash vs xla loss differ by {path_check['loss_err']}")
     check(path_check["grad_rel_err"] <= path_check["grad_tolerance"],
           f"flash vs xla gradients differ by {path_check['grad_rel_err']} (relative)")
+    return launches, rec
+
+
+def reference_loop_call(accelerator, state, loss_fn):
+    """One call of the reference's loop shape (``compute_gradients`` +
+    ``apply_gradients(max_grad_norm=1.0)`` inside ``accumulate()``) as
+    ``call(batch) -> (loss, grad_norm, seconds)``: ``grad_norm`` is the
+    norm of the window's running average, as ``compile_train_step``
+    reports it, read between the two calls (one parameter at a time) and
+    left out of ``seconds``."""
+
+    def call(batch):
+        with accelerator.accumulate():
+            t0 = time.perf_counter()
+            grads, m = accelerator.compute_gradients(loss_fn, state, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                sq = sum(torch.linalg.vector_norm(g if p.grad is None else p.grad + g).square()
+                         for (_, g), p in zip(grads.items(), state.model.parameters()))
+            norm = sq.sqrt().item() / (state.micro_step + 1)
+            t2 = time.perf_counter()
+            accelerator.apply_gradients(state, grads, max_grad_norm=1.0)
+            del grads
+            torch.cuda.synchronize()
+            seconds = (t1 - t0) + (time.perf_counter() - t2)
+        return m["loss"].item(), norm, seconds
+
+    return call
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_api_phase(gpu, train_rec):
+    """The reference's loop shape on ``train``'s model, batches and recipe:
+    a fresh model from the same seed, 8 micro-steps through
+    ``compute_gradients`` + ``apply_gradients``, held call by call against
+    ``train``'s losses and grad norms."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import SimpleDataLoader
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    free_card()
+    cfg = train_config(TRAIN_LAYERS)
+    model = train_model(cfg, seed=0)
+    accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
+    state = accelerator.create_train_state(params=model, tx=LLAMA2_ADAMW)
+    loader = accelerator.prepare(SimpleDataLoader(train_data(cfg)[1], batch_size=TRAIN_ROWS))
+    call = reference_loop_call(accelerator, state, lm_loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    host = [call(batch) for batch in loader]
+    launches = {"flash_fwd": fa.flash_fwd.launches, "flash_dq": fa.flash_dq.launches,
+                "flash_dkv": fa.flash_dkv.launches}
+    peak = torch.cuda.max_memory_allocated()
+    micro = len(host)
+    losses, norms, step_s = (list(col) for col in zip(*host))
+    steady = float(np.median([(step_s[i] + step_s[i + 1]) / 2
+                              for i in range(2, micro - 1, 2)]))
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses, train_rec["loss"]))
+    norm_err = max(abs(x - y) / abs(y) for x, y in zip(norms, train_rec["grad_norm"]))
+    rec = {
+        "phase": "train_api", "config": "llama2_7b", "layers": TRAIN_LAYERS, "of_layers": 32,
+        "micro_steps": micro, "optimizer_steps": state.step, "loss": losses, "grad_norm": norms,
+        "loss_train": train_rec["loss"], "grad_norm_train": train_rec["grad_norm"],
+        "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+        "tolerance": TRAIN_API_REL_TOL, "launches": launches,
+        "step_ms": steady * 1e3, "step_ms_each": [t * 1e3 for t in step_s],
+        "step_ms_train": train_rec["step_ms"], "max_memory_allocated_gb": peak / 1e9,
+        "max_memory_allocated_gb_train": train_rec["max_memory_allocated_gb"], "gpu": gpu,
+    }
+    emit(rec)
+    check(state.step == micro // 2 and state.micro_step == 0,
+          f"{state.step} optimizer steps and micro_step {state.micro_step} after {micro} calls")
+    check(loss_err <= TRAIN_API_REL_TOL and norm_err <= TRAIN_API_REL_TOL,
+          f"the reference loop's losses / grad norms differ from train's by {loss_err} / "
+          f"{norm_err} (relative), over {TRAIN_API_REL_TOL}")
+    check(peak < 80e9, f"peak memory {peak / 1e9} GB")
+    for name, n in launches.items():
+        check(n == micro * TRAIN_LAYERS, f"{name} launched {n} times, want {micro} x "
+              f"{TRAIN_LAYERS}")
+    del model, state, loader, call, accelerator
+    free_card()
     return launches
+
+
+def checkpoint_phase(gpu):
+    """Full width at 2 of 32 layers through the reference loop: 3 calls at
+    accumulation 2, ``save_state`` mid-window, ``load_state`` into a fresh
+    accelerator and a state made from another seed, 3 more calls, against
+    an uninterrupted run of 6 (run twice: the card's own spread); then the
+    bf16 safetensors export, read back."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.checkpointing import load_model_params
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    layers = 2
+    cfg = train_config(layers)
+    rng = np.random.default_rng(8)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ)).astype(np.int32)).cuda()} for _ in range(6)]
+
+    def trainer(seed):
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        model = train_model(cfg, seed=seed)
+        accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
+        state = accelerator.create_train_state(params=model, tx=LLAMA2_ADAMW)
+        return accelerator, state, reference_loop_call(accelerator, state, lm_loss_fn(model))
+
+    def finals(state):
+        return [p.detach().clone() for p in state.model.parameters()]
+
+    runs = []
+    for _ in range(2):
+        _, state, call = trainer(0)
+        runs.append(([call(b)[:2] for b in batches], finals(state)))
+        del state, call
+        free_card()
+    (whole, want), (again, want_again) = runs
+    repeatable = whole == again and all(torch.equal(x, y) for x, y in zip(want, want_again))
+    del runs, want_again
+
+    params_bytes = sum(p.numel() * 4 for p in want)
+    need = 4 * params_bytes + params_bytes // 2 + 2 * 2**30  # f32 state + bf16 export + margin
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    check(free >= need, f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint phase needs "
+          f"{need / 1e9:.1f} GB")
+    root = tempfile.mkdtemp(prefix="atpu_checkpoint_", dir=tmp)
+    try:
+        accelerator, state, call = trainer(0)
+        first = [call(b)[:2] for b in batches[:3]]
+        check(state.micro_step == 1, f"micro_step {state.micro_step} at the save, want 1")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = accelerator.save_state(os.path.join(root, "ckpt"), state=state)
+        save_s = time.perf_counter() - t0
+        state_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(out) for f in files)
+        del accelerator, state, call
+        free_card()
+
+        accelerator, state, call = trainer(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accelerator.load_state(out, state=state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        moments_on_card = all(s["exp_avg"].is_cuda and s["exp_avg_sq"].is_cuda
+                              for s in state.optimizer.state.values())
+        rest = [call(b)[:2] for b in batches[3:]]
+        resumed_equal = first + rest == whole and all(
+            torch.equal(p, w) for p, w in zip(state.model.parameters(), want))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        files = accelerator.save_model(state, os.path.join(root, "export"),
+                                       max_shard_size="1GB", save_dtype=torch.bfloat16)
+        export_s = time.perf_counter() - t0
+        export_bytes = sum(os.path.getsize(f) for f in files)
+        t0 = time.perf_counter()
+        back = load_model_params(os.path.join(root, "export"), target=state)
+        import_s = time.perf_counter() - t0
+        export_equal = all(torch.equal(back[name], p.detach().to(torch.bfloat16).cpu())
+                           for name, p in state.model.named_parameters())
+        del accelerator, state, call, back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_card()
+    rec = {
+        "phase": "checkpoint", "config": "llama2_7b", "layers": layers, "of_layers": 32,
+        "uninterrupted": whole, "resumed": first + rest, "repeatable": repeatable,
+        "resumed_bitwise": resumed_equal, "moments_on_card": moments_on_card,
+        "train_state_bytes": state_bytes, "save_s": save_s, "load_s": load_s,
+        "save_gb_per_s": state_bytes / save_s / 1e9, "load_gb_per_s": state_bytes / load_s / 1e9,
+        "export_files": len(files), "export_bytes": export_bytes, "export_s": export_s,
+        "import_s": import_s, "export_gb_per_s": export_bytes / export_s / 1e9,
+        "import_gb_per_s": export_bytes / import_s / 1e9, "export_bitwise": export_equal,
+        "disk_free_gb": free / 1e9, "gpu": gpu,
+    }
+    emit(rec)
+    check(repeatable, "two uninterrupted runs of the checkpoint phase differ")
+    check(resumed_equal, "the resumed run differs from the uninterrupted one")
+    check(moments_on_card, "AdamW's moments did not load onto the card")
+    check(len(files) >= 2, f"the 1GB-shard export wrote {len(files)} file(s)")
+    check(export_equal, "the bf16 export read back differs from the masters cast to bf16")
 
 
 def main() -> int:
@@ -1715,7 +1960,10 @@ def main() -> int:
         ("full512", 17, 2, 512, 32, 32, bf16, False, False),
         ("gqa_d64", 18, 2, 2048, 32, 8, bf16, True, False, 64),
     ])
-    launches.update(train_phase(gpu))
+    train_launches, train_rec = train_phase(gpu)
+    launches.update(train_launches)
+    api_launches = train_api_phase(gpu, train_rec)
+    checkpoint_phase(gpu)
 
     def first(records, pages, case):
         return next(r for r in records if r["pages"] == pages and r["case"] == case)
@@ -1762,6 +2010,9 @@ def main() -> int:
         if name in prefix_launches:
             # the prefix cache's path, its counts zeroed just before its serve
             kernels[-1]["launches_engine_prefix"] = prefix_launches[name]
+        if name in api_launches:
+            # the reference loop's path, its counts zeroed just before its calls
+            kernels[-1]["launches_train_api"] = api_launches[name]
     emit({"phase": "run", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(gpu, flush=True)

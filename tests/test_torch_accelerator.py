@@ -403,19 +403,12 @@ def test_accelerator_without_a_card_raises(monkeypatch):
     (dict(dynamo_backend="inductor"), "item 9"),
     (dict(log_with="tensorboard"), "item 10"),
     (dict(metrics_port=0), "item 8"),
-    (dict(project_dir="runs"), "item 9"),
     (dict(kwargs_handlers=[object()]), "item 9"),
     (dict(mixed_precision="fp8"), "item 9"),
 ])
 def test_unported_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         Accelerator(cpu=True, **kw)
-
-
-@pytest.mark.parametrize("method", ["save_state", "load_state"])
-def test_checkpoints_not_ported(method):
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        getattr(Accelerator(cpu=True), method)("ckpt")
 
 
 def test_unported_attention_impls_raise():

@@ -1149,3 +1149,121 @@ def test_train_steps_on_card_match_cpu(card):
         assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=1e-4)
     for name in want_params:
         torch.testing.assert_close(got_params[name], want_params[name], atol=1e-5, rtol=0)
+
+
+def _reference_loop_model(device, attention_impl="pallas", seed=2):
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, head_dim=64,
+                                 attention_impl=attention_impl)
+    model = Transformer(cfg, device=device)
+    # made on the CPU: the card's generator draws other values
+    model.load_state_dict(init_params(cfg, seed=seed, device="cpu", dtype=torch.float32))
+    return model
+
+
+def _loop_batches(device, n=4):
+    ids = np.random.default_rng(5).integers(1, 256, (n, 2, 48)).astype(np.int32)
+    return [{"input_ids": torch.from_numpy(b).to(device)} for b in ids]
+
+
+def _adamw(**kw):
+    return functools.partial(torch.optim.AdamW, lr=1e-3, betas=(0.9, 0.95), eps=1e-6,
+                             weight_decay=0.1, **kw)
+
+
+def _loop_call(acc, state, loss_fn):
+    def call(batch):
+        with acc.accumulate():
+            grads, m = acc.compute_gradients(loss_fn, state, batch)
+            acc.apply_gradients(state, grads, max_grad_norm=1.0)
+        return m["loss"].item()
+    return call
+
+
+def test_reference_loop_on_card_matches_compiled_step(card):
+    """compute_gradients + apply_gradients (accumulation 2, clip 1.0,
+    AdamW) against compile_train_step on the same weights and batches, both
+    through K3-K5 on the card: the same kernels on the same inputs, only
+    the buffer's additions in another order, so losses within 1e-6 and
+    params within 1e-6 (f32)."""
+    runs = []
+    for kind in ("compiled", "loop"):
+        model = _reference_loop_model(None)
+        acc = Accelerator(gradient_accumulation_steps=2)
+        state = acc.create_train_state(params=model, tx=_adamw())
+        if kind == "compiled":
+            step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
+            call = lambda b: step(state, b)[1]["loss"].item()  # noqa: E731
+        else:
+            call = _loop_call(acc, state, lm_loss_fn(model))
+        fa.reset_launch_counts()
+        losses = [call(b) for b in _loop_batches(card)]
+        launches = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+        assert launches == (4 * 2,) * 3 and state.step == 2 and state.micro_step == 0
+        runs.append((losses, {k: v.detach().clone() for k, v in model.named_parameters()}))
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+    (want, want_params), (got, got_params) = runs
+    assert got == pytest.approx(want, rel=1e-6)
+    for name in want_params:
+        torch.testing.assert_close(got_params[name], want_params[name], atol=1e-6, rtol=0)
+
+
+def test_fp16_overflow_skips_on_card(card):
+    """fp16 with a 2**40 scale: the sync call overflows, is skipped (the
+    params stay), and the scale backs off; the returned grads are f32."""
+    from accelerate_tpu_torch.utils.dataclasses import GradScalerKwargs
+
+    model = _reference_loop_model(None, attention_impl="xla")
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    acc = Accelerator(mixed_precision="fp16", gradient_accumulation_steps=2,
+                      kwargs_handlers=[GradScalerKwargs(init_scale=2.0**40)])
+    state = acc.create_train_state(params=model, tx=_adamw())
+    for batch in _loop_batches(card, 2):
+        with acc.accumulate():
+            grads, m = acc.compute_gradients(lm_loss_fn(model), state, batch)
+            assert all(g.dtype == torch.float32 and g.is_cuda for g in grads.values())
+            acc.apply_gradients(state, grads, max_grad_norm=1.0)
+    assert state.step == 0 and state.micro_step == 0 and state.loss_scale.scale == 2.0**39
+    assert acc._optimizers[-1].step_was_skipped
+    assert all(torch.equal(before[k], v) for k, v in model.named_parameters())
+    assert all(p.grad is None for p in model.parameters())
+
+
+@pytest.mark.parametrize("capturable", [False, True])
+def test_mid_window_resume_on_card(card, tmp_path, capturable):
+    """Save after 3 calls of a window of 2 (one micro-step in the buffer),
+    load onto the card into a fresh accelerator and a state made from
+    another seed, run 3 more: bitwise the uninterrupted 6.  The moments and
+    the buffer come back on the card, each step count where torch keeps it
+    (the card only under ``capturable``)."""
+    batches = _loop_batches(card, 6)
+
+    def trainer(seed):
+        model = _reference_loop_model(None, seed=seed)
+        acc = Accelerator(gradient_accumulation_steps=2)
+        state = acc.create_train_state(params=model, tx=_adamw(capturable=capturable))
+        return acc, state, _loop_call(acc, state, lm_loss_fn(model))
+
+    def reset():
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+
+    _, state, call = trainer(2)
+    whole = [call(b) for b in batches]
+    want = {k: v.detach().clone() for k, v in state.params.items()}
+    reset()
+    acc, state, call = trainer(2)
+    first = [call(b) for b in batches[:3]]
+    out = acc.save_state(str(tmp_path / "ckpt"), state=state)
+    reset()
+    acc, state, call = trainer(3)
+    acc.load_state(out, state=state)
+    assert state.micro_step == 1 and all(p.grad.is_cuda for p in state.model.parameters())
+    for p in state.model.parameters():
+        st = state.optimizer.state[p]
+        assert st["exp_avg"].is_cuda and st["exp_avg_sq"].is_cuda
+        assert st["step"].is_cuda == capturable
+    rest = [call(b) for b in batches[3:]]
+    assert first + rest == whole
+    for name, p in state.params.items():
+        assert torch.equal(p, want[name]), name
