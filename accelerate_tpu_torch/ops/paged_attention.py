@@ -246,7 +246,8 @@ def paged_quantized_insert(pages: torch.Tensor, scales: torch.Tensor, new: torch
 
 # ------------------------------------------------------------------ reference
 def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
-                              k_scales=None, v_scales=None, tree_mask=None):
+                              k_scales=None, v_scales=None, window=None,
+                              alibi: bool = False, tree_mask=None):
     """Plain version of both kernels: live-masked gather + the slab attention math.
 
     ``q [N, S, Hq, D]`` against pages ``[NP, page, Hkv, D]`` through
@@ -257,7 +258,10 @@ def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
     ``tree_mask`` (``[S, S]`` or :class:`TreeMask`) swaps the causal rule for
     token-tree visibility: node ``i`` sees the history ``j < lengths[n]``
     and the tree nodes its row of the mask names (the live pages are the
-    same: the tree spans the same ``S`` slots)."""
+    same: the tree spans the same ``S`` slots).  ``window`` and ``alibi`` are
+    the slab math's sliding-window band and alibi bias
+    (``accelerate_tpu/ops/paged_attention.py:207-247``): the kernels have
+    neither, so those models attend through this version only."""
     from ..models.transformer import cached_attention
 
     n, s, _, d = q.shape
@@ -280,16 +284,20 @@ def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
     k = k.reshape(n, num_p * page, hkv, d)
     v = v.reshape(n, num_p * page, hkv, d)
     q_positions = lengths[:, None] + torch.arange(s, device=q.device)[None, :]
-    return cached_attention(q, k, v, q_positions, tree_mask=tree_mask)
+    return cached_attention(q, k, v, q_positions, window=window, alibi=alibi,
+                            tree_mask=tree_mask)
 
 
 def paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
-                                  k_scales=None, v_scales=None):
+                                  k_scales=None, v_scales=None, window=None,
+                                  alibi: bool = False):
     """Plain version of :func:`paged_flash_prefill`: chunk-wide queries share
     the decode reference's math (prior pages and the in-chunk causal triangle
-    are one visibility rule), so this is a documented delegation."""
+    are one visibility rule), so this is a documented delegation
+    (``accelerate_tpu/ops/paged_attention.py:462-476``)."""
     return paged_attention_reference(q, pages_k, pages_v, tables, lengths,
-                                     k_scales=k_scales, v_scales=v_scales)
+                                     k_scales=k_scales, v_scales=v_scales, window=window,
+                                     alibi=alibi)
 
 
 # -------------------------------------------------------------------- kernels

@@ -1,8 +1,11 @@
 """Where the serving path's time goes on the card: the engine's loops, A/B.
 
     python -m accelerate_tpu_torch.profile_engine [--kv-dtype bf16 int8 fp8]
+        [--model llama2-7b | pythia-6.9b]
 
-Builds the Llama-2-7B geometry (bf16, random weights from a seed) and, for
+Builds the Llama-2-7B geometry, or with ``--model pythia-6.9b`` GPT-NeoX at
+Pythia-6.9B's published widths (its ``config.json`` values through
+``hf_compat.config_from_hf_dict``), bf16, random weights from a seed, and, for
 each KV storage format (``--kv-dtype``; default the model's bf16), serves
 the ``chip_smoke.py`` engine workload in four modes: ``graphs`` — the
 engine as a user makes it, every window and every prefill bucket's chunk a
@@ -44,6 +47,7 @@ import torch
 
 from .models import transformer
 from .models.generation import GenerationConfig
+from .models.hf_compat import PYTHIA_6_9B, config_from_hf_dict
 from .models.transformer import Transformer, TransformerConfig
 from .ops.paged_attention import kv_qmax
 from .serving import ServingEngine
@@ -328,11 +332,16 @@ def main(argv=None) -> int:
                         choices=["bf16", "int8", "fp8"],
                         help="the KV pool's storage formats, one A/B each (default: the "
                              "model's bf16)")
+    parser.add_argument("--model", default="llama2-7b", choices=["llama2-7b", "pythia-6.9b"],
+                        help="the served geometry (default Llama-2-7B)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16)
+    if args.model == "pythia-6.9b":
+        cfg = config_from_hf_dict(PYTHIA_6_9B, dtype=torch.bfloat16)
+    else:
+        cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16)
     model = Transformer(cfg, device="cuda", dtype=torch.bfloat16)
     model.load_state_dict(init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16),
                           assign=True)
@@ -389,6 +398,7 @@ def main(argv=None) -> int:
             }
         print(json.dumps({
             "gpu": gpu,
+            "model": args.model,
             "kv_dtype": kv_dtype,
             **pool,
             "decode_step_weight_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,

@@ -149,8 +149,11 @@ class ServingEngine:
         ``role`` other than ``"both"`` and ``prefix_host_mb`` raise the
         reference's ``ValueError``.
     decode_kernel: ``None`` (default: the kernels on the paged pool, plain
-        PyTorch on the slab), ``"pallas"`` (the kernels, named explicitly)
-        or ``"xla"``: on the paged pool, K1 and K2 replaced by their plain
+        PyTorch on the slab; a sliding-window or alibi model takes the
+        kernels' plain versions, the kernels having neither arm),
+        ``"pallas"`` (the kernels, named explicitly; ``ValueError`` for a
+        sliding-window or alibi model, as the reference's config raises) or
+        ``"xla"``: on the paged pool, K1 and K2 replaced by their plain
         versions, an in-engine A/B of the kernels.
     prefill_kernel: ``None`` (follows ``decode_kernel``), ``"pallas"`` or
         ``"xla"``: K2 or its plain version for the paged prefill chunks.
@@ -177,8 +180,11 @@ class ServingEngine:
     draft_model: tree speculation with a draft model: ``int n`` — the
         served model's first ``n`` layers, embedding, final norm and head
         (their tensors shared, not copied); ``(cfg, state_dict)`` — an
-        explicit draft on the engine's device.  A checkpoint path raises
-        ``NotImplementedError``.  Replaces the linear verify.
+        explicit draft on the engine's device; ``"dir"`` or ``"dir#n"`` —
+        a Hugging Face checkpoint directory streamed through
+        :mod:`~accelerate_tpu_torch.models.hf_compat`, its first ``n``
+        layers (default a quarter).  Replaces the linear verify; a
+        sliding-window or alibi served model raises ``ValueError``.
     tree_width: sibling branches at the tree's branch point (the draft's
         top candidates); more than 1 needs ``draft_model``.
     tree_depth: draft chain length under each branch; default
@@ -337,8 +343,18 @@ class ServingEngine:
         if metrics_port is not None:
             raise _not_ported("metrics_port= (the metrics endpoint)", "8")
         #: which attention the paged pool runs: the kernels ("pallas") or
-        #: their plain versions ("xla"); the prefill follows unless forced
-        self.decode_kernel = decode_kernel or "pallas"
+        #: their plain versions ("xla"); the prefill follows unless forced.
+        #: Sliding-window and alibi models take the plain versions, as the
+        #: reference's config sends them to its XLA path and refuses its
+        #: kernels for them (accelerate_tpu/models/transformer.py:237-244)
+        full_causal = model.config.full_causal
+        for name, kernel in (("decode_kernel", decode_kernel),
+                             ("prefill_kernel", prefill_kernel)):
+            if kernel == "pallas" and not full_causal:
+                raise ValueError(
+                    f"{name}='pallas' supports full-causal rope/learned models; "
+                    "sliding_window and alibi need the 'xla' reference path")
+        self.decode_kernel = decode_kernel or ("pallas" if full_causal else "xla")
         self.prefill_kernel = prefill_kernel or self.decode_kernel
         #: label of the parameter set served
         self.weights_version = str(weights_version)
@@ -383,6 +399,10 @@ class ServingEngine:
         else:
             if self.draft_ctx < 1:
                 raise ValueError(f"draft_ctx must be >= 1, got {draft_ctx}")
+            if not cfg.full_causal:
+                raise ValueError("tree speculation needs a full-causal model: the ancestor "
+                                 "mask replaces the causal row mask, which sliding_window "
+                                 "and alibi models reshape")
             self.tree = TreeSpec(self.tree_width, self.tree_depth)
             if self.tree.nodes > MAX_TREE_NODES:
                 raise ValueError(
@@ -468,7 +488,8 @@ class ServingEngine:
             # tree speculation: the draft model, its context window, and the
             # ancestor mask with its packed words on the card, made once
             draft_cfg, draft_sd = build_draft(cfg, model.state_dict(), draft_model,
-                                              draft_ctx=self.draft_ctx, depth=self.tree_depth)
+                                              draft_ctx=self.draft_ctx, depth=self.tree_depth,
+                                              device=self.device)
             self.draft = draft_transformer(draft_cfg, draft_sd, self.device)
             self._tree_mask = TreeMask(self.tree.anc)
             # both device copies made now, never inside a capture: K1's

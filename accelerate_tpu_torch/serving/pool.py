@@ -229,7 +229,7 @@ def _layer_stack(model: Transformer, tokens: torch.Tensor, cache, index: torch.T
     norm and the LM head are dead code)."""
     positions = index.long()[:, None] + torch.arange(tokens.shape[1],
                                                      device=tokens.device)[None, :]
-    x = model.embed_tokens.weight[tokens].to(model.config.dtype)
+    x = model.embed(tokens, positions)
     for i, layer in enumerate(model.layers):
         x = layer(x, positions, cache=cache, layer=i)
 

@@ -163,35 +163,50 @@ def default_draft_layers(num_layers: int) -> int:
 
 
 def build_draft(cfg: TransformerConfig, state_dict, draft_model, *, draft_ctx: int,
-                depth: int) -> Tuple[TransformerConfig, Dict[str, torch.Tensor]]:
-    """Resolve the engine's ``draft_model`` knob to ``(draft_cfg, state dict)``.
+                depth: int, device=None) -> Tuple[TransformerConfig, Dict[str, torch.Tensor]]:
+    """Resolve the engine's ``draft_model`` knob to ``(draft_cfg, state dict)``
+    (``accelerate_tpu/serving/spec_exec.py:191-262``).
 
     * **int n** — self-speculation: the served model's first ``n`` layers
       with its embedding, final norm and head; the state dict holds the
       served model's own tensors (shared, not copied), so the draft computes
       the function of the reference's sliced copy.
+    * **str** — a Hugging Face checkpoint directory, ``"dir"`` or
+      ``"dir#n"`` (``n`` layers; default :func:`default_draft_layers` of its
+      depth), streamed through :mod:`~accelerate_tpu_torch.models.hf_compat`
+      with a key map built for the truncated config, so the deeper layers
+      are never read into memory; the tensors are placed on ``device``.
     * **(cfg, state_dict)** — an explicit draft, taken as given.
-    * **str** — a checkpoint directory: raises ``NotImplementedError`` (the
-      checkpoint mapping, ``hf_compat``, is ROADMAP Queue 1 item 2).
 
-    The int form's config is the served one at ``n`` layers, with a
-    ``max_seq_len`` wide enough for the context window plus the rollout."""
+    The draft's config is the served (or checkpoint's) one at ``n`` layers,
+    with a ``max_seq_len`` wide enough for the context window plus the
+    rollout."""
     if isinstance(draft_model, tuple):
         draft_cfg, draft_sd = draft_model
         return draft_cfg, dict(draft_sd)
-    if isinstance(draft_model, str):
-        raise NotImplementedError(
-            f"draft_model={draft_model!r}: a checkpoint draft is not ported yet (the "
-            "checkpoint mapping hf_compat is ROADMAP Queue 1 item 2)")
-    if isinstance(draft_model, bool) or not isinstance(draft_model, int):
+    if isinstance(draft_model, bool) or not isinstance(draft_model, (int, str)):
         raise ValueError(f"draft_model must be int (layer count), str (checkpoint dir) or "
                          f"(cfg, state_dict), got {type(draft_model).__name__}")
-    n = draft_model
-    if not 1 <= n <= cfg.num_layers:
-        raise ValueError(f"draft_model={n} layers out of range 1..{cfg.num_layers}")
-    draft_cfg = dataclasses.replace(cfg, num_layers=n,
-                                    max_seq_len=max(cfg.max_seq_len, draft_ctx + depth + 1))
-    return draft_cfg, _slice_layers(state_dict, n)
+    min_len = draft_ctx + depth + 1
+    if isinstance(draft_model, int):
+        n = draft_model
+        if not 1 <= n <= cfg.num_layers:
+            raise ValueError(f"draft_model={n} layers out of range 1..{cfg.num_layers}")
+        draft_cfg = dataclasses.replace(cfg, num_layers=n,
+                                        max_seq_len=max(cfg.max_seq_len, min_len))
+        return draft_cfg, _slice_layers(state_dict, n)
+    from ..models.hf_compat import native_key_map, place, stream_mapped_tensors
+
+    path, _, suffix = draft_model.partition("#")
+    base_cfg, _ = native_key_map(path)
+    n = int(suffix) if suffix else default_draft_layers(base_cfg.num_layers)
+    if not 1 <= n <= base_cfg.num_layers:
+        raise ValueError(f"draft_model {draft_model!r}: {n} layers out of range "
+                         f"1..{base_cfg.num_layers}")
+    draft_cfg = dataclasses.replace(base_cfg, num_layers=n,
+                                    max_seq_len=max(base_cfg.max_seq_len, min_len))
+    _, mapping = native_key_map(path, draft_cfg)
+    return draft_cfg, place(stream_mapped_tensors(path, mapping), device)
 
 
 def draft_transformer(draft_cfg: TransformerConfig, state_dict, device) -> Transformer:

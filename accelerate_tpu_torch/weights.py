@@ -1,15 +1,18 @@
 """Weights for the port's :class:`~.models.transformer.Transformer`.
 
 * :func:`params_from_jax` turns the JAX package's Flax params (a nested dict
-  of numpy arrays) into the port's state dict.  Flax ``Dense`` kernels are
-  ``[in, out]``, ``nn.Linear`` weights ``[out, in]``, so every projection is
-  transposed; names map ``layers_{i}/attn/q_proj/kernel`` ->
-  ``layers.{i}.attn.q_proj.weight`` and so on.
+  of numpy arrays) into the port's state dict, for every family: Flax
+  ``Dense`` kernels are ``[in, out]``, ``nn.Linear`` weights ``[out, in]``,
+  so every projection is transposed; names map
+  ``layers_{i}/attn/q_proj/kernel`` -> ``layers.{i}.attn.q_proj.weight``,
+  ``.../bias`` -> ``....bias``, ``embed_tokens``/``pos_embed``
+  ``embedding`` -> ``.weight``, and norm ``scale``/``bias`` keep their names.
 * :func:`init_params` makes random full-width weights from a seed, the way
-  the Flax model initialises them (normal(0.02) matrices and embedding, unit
-  norm scales).  Matrices may be stored in bf16: Flax casts f32 params to the
-  bf16 compute dtype before every product, so the math is the same; norm
-  scales stay f32.
+  the Flax model initialises them (normal(0.02) matrices and embeddings,
+  zero biases, unit norm scales, zero scales for Gemma's unit-offset
+  RMSNorm).  Matrices and projection biases may be stored in bf16: Flax
+  casts f32 params to the bf16 compute dtype before every product, so the
+  math is the same; norm parameters stay f32.
 """
 
 from __future__ import annotations
@@ -22,56 +25,65 @@ import torch
 from ._device import resolve_device
 from .models.transformer import TransformerConfig, state_dict_shapes
 
-_PROJ = {
-    "attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-    "mlp": ("gate_proj", "up_proj", "down_proj"),
-}
+
+def is_norm_param(name: str) -> bool:
+    """Whether a state-dict entry is a norm's scale or bias, which the model
+    keeps in f32 whatever the storage dtype of the rest."""
+    return name.rsplit(".", 2)[-2].endswith("norm")
 
 
 def params_from_jax(tree: Mapping, device: Optional[Union[str, torch.device]] = None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Flax ``Transformer`` params -> the port's state dict, on ``device``
-    (the card unless ``device="cpu"``).  Matrices take ``dtype`` when given
-    (else their own), norm scales stay f32."""
+    (the card unless ``device="cpu"``).  Matrices, embeddings and projection
+    biases take ``dtype`` when given (else their own), norm parameters stay
+    f32."""
     device = resolve_device(device)
+    sd = {}
 
-    def mat(a):
-        t = torch.from_numpy(np.array(a))
-        return t.to(device=device, dtype=dtype or t.dtype)
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (key,))
+                continue
+            parts = list(path)
+            if parts and parts[0].startswith("layers_"):
+                parts[0:1] = ["layers", parts[0][len("layers_"):]]
+            a = np.asarray(val)
+            if is_norm_param(".".join(parts + [key])):
+                sd[".".join(parts + [key])] = torch.from_numpy(
+                    a.astype(np.float32, copy=True)).to(device)
+                continue
+            if key == "kernel":
+                a, key = a.T, "weight"
+            elif key == "embedding":
+                key = "weight"
+            t = torch.from_numpy(np.array(a))
+            sd[".".join(parts + [key])] = t.to(device=device, dtype=dtype or t.dtype)
 
-    def vec(a):
-        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(device)
-
-    sd = {"embed_tokens.weight": mat(tree["embed_tokens"]["embedding"])}
-    i = 0
-    while f"layers_{i}" in tree:
-        layer = tree[f"layers_{i}"]
-        p = f"layers.{i}."
-        sd[p + "input_norm.scale"] = vec(layer["input_norm"]["scale"])
-        sd[p + "post_attn_norm.scale"] = vec(layer["post_attn_norm"]["scale"])
-        for block, names in _PROJ.items():
-            for name in names:
-                kernel = np.asarray(layer[block][name]["kernel"])
-                sd[p + f"{block}.{name}.weight"] = mat(kernel.T)
-        i += 1
-    sd["final_norm.scale"] = vec(tree["final_norm"]["scale"])
-    sd["lm_head.weight"] = mat(np.asarray(tree["lm_head"]["kernel"]).T)
+    walk(tree, ())
     return sd
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """Random weights for ``cfg`` from ``seed``: normal(0.02) matrices in
-    ``dtype``, unit f32 norm scales, made on ``device`` (the card unless
-    ``device="cpu"``) with an explicit generator."""
+    """Random weights for ``cfg`` from ``seed``: normal(0.02) matrices and
+    embeddings in ``dtype``, zero projection biases in ``dtype``, f32 norm
+    parameters (unit scales, or zero under ``norm_unit_offset``; zero
+    biases), made on ``device`` (the card unless ``device="cpu"``) with an
+    explicit generator."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     sd = {}
     for name, shape in state_dict_shapes(cfg).items():
         if name.endswith(".scale"):
-            sd[name] = torch.ones(shape, dtype=torch.float32, device=device)
+            fill = 0.0 if cfg.norm_type == "rmsnorm" and cfg.norm_unit_offset else 1.0
+            sd[name] = torch.full(shape, fill, dtype=torch.float32, device=device)
+        elif name.endswith(".bias"):
+            sd[name] = torch.zeros(shape, dtype=torch.float32 if is_norm_param(name) else dtype,
+                                   device=device)
         else:
             sd[name] = torch.empty(shape, dtype=dtype, device=device).normal_(
                 0.0, 0.02, generator=gen)

@@ -139,6 +139,26 @@ Phases, each printing one JSON line:
    and the graphs' private pools).  ``slab_attention``: one layer's plain
    slab attention at the decode shape against K1 on the same keys in pages
    and the bytes bounds of the whole slab and of the live keys.
+   The other families (the Llama model freed first; one 7B model on the card at
+   a time): ``neox_config`` (Pythia-6.9B's published ``config.json`` values,
+   ``PYTHIA_6_9B``, through the port's ``hf_compat.config_from_hf_dict``: GPT-NeoX
+   with LayerNorm and biases, rotary over 32 of 128 dims, exact gelu, parallel
+   residual with two norms, an untied 50432-row head), ``model_neox`` (the
+   ``model`` line's check at 32 layers, random bf16 weights from seed 0),
+   ``engine_neox`` (the ``engine`` line's engine and six requests: K1 32
+   launches a decode step, K2 32 a chunk, every token within the noise margin,
+   decode ms a step, serve tokens/s and the peak memory) and
+   ``engine_neox_sync_eager`` (tokens identical to ``engine_neox``'s);
+   ``model_gpt2`` and ``engine_gpt2``: ``TransformerConfig.gpt2()`` at full
+   width and depth (learned positions, tied head, tanh gelu, 12 heads of D 64)
+   at ``max_len=1024`` with prompts of ``GPT2_LENS``; ``families``: each
+   mapped family's switch set (``FAMILY_SWITCHES``) at hidden 2048 and 2
+   layers, a 512-token prefill chunk and 8 decode steps through K2 and K1 held
+   against the same forward through their plain versions, and for the
+   sliding-window and alibi families (which the kernels refuse, as the
+   reference's do) the plain paged forward, launching neither kernel, held
+   against the no-cache forward.  K1 and K2 also take the families' shapes:
+   GPT-2's 12 heads of D 64 and Falcon-7B's 71 query heads over one kv head.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -185,7 +205,8 @@ Phases, each printing one JSON line:
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
-   their engine runs; K1 and K2 also with ``engine_prefix``'s launches,
+   their engine runs; K1 and K2 also with ``engine_prefix``'s,
+   ``engine_neox``'s and ``engine_gpt2``'s launches,
    K3-K5 also with ``train_api``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
@@ -526,7 +547,7 @@ def no_cache_logits(model, ids: np.ndarray) -> torch.Tensor:
         return model(torch.from_numpy(ids[None]).cuda())[0]
 
 
-def model_phase(model, cfg, rng) -> float:
+def model_phase(model, cfg, rng, name: str = "model") -> float:
     """Paged forward (K2 prefill + 8 K1 decode steps) against the no-cache
     forward in bf16, with an f32 forward of the same weights as the yardstick
     of bf16 noise.  Returns the logit tolerance, which the engine phase uses
@@ -567,7 +588,7 @@ def model_phase(model, cfg, rng) -> float:
     noise = (ref - ref32).abs().max().item()
     tol = LOGIT_TOL_FACTOR * noise
     err = (paged - ref).abs().max().item()
-    emit({"phase": "model", "prompt": 512, "decode_steps": 8,
+    emit({"phase": name, "prompt": 512, "decode_steps": 8,
           "max_abs_logit_err": err,
           "decode_max_abs_logit_err": (paged[512:] - ref[512:]).abs().max().item(),
           "tolerance": tol, "plain_bf16_vs_f32": noise,
@@ -689,9 +710,9 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     gen = GenerationConfig(max_new_tokens=48)
 
     def new_engine():
-        kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
-                  kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda", **(spec or {}),
-                  **(knobs or {}))
+        kw = {**dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+                     kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda"), **(spec or {}),
+              **(knobs or {})}
         if eager:
             return ServingEngine._eager(model, None, async_depth=0, **kw)
         return ServingEngine(model, None, **kw)
@@ -700,6 +721,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     # graphs' private pools and whatever they keep allocated
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
     engine = new_engine()
     torch.cuda.synchronize()
@@ -720,6 +742,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     t0 = time.perf_counter()
     reqs = engine.serve(prompts, configs=gen)
     wall = time.perf_counter() - t0
+    held["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = {"paged_attention": pa.paged_attention.launches,
                 "paged_attention_tree": pa.paged_attention.tree_launches,
                 "paged_flash_prefill": pa.paged_flash_prefill.launches}
@@ -1261,6 +1284,200 @@ def slab_attention_cost(model, cfg, gpu) -> dict:
 
 
 # --------------------------------------------------------------- flash attn
+# ------------------------------------------------------------ families
+#: GPT-2's prompts: the six engine requests cut to its 1024 learned positions
+GPT2_LENS = (57, 100, 384, 700, 850, 960)
+
+
+def family_model(cfg, seed: int = 0, affine_std: float = 0.02):
+    """``cfg``'s model on the card in bf16, random weights from ``seed``.
+    ``init_params`` draws zero biases and unit norm scales, as Flax does;
+    each bias and norm parameter here then gets normal(``affine_std``) noise
+    added, so the bias adds and norm shifts do real arithmetic."""
+    from accelerate_tpu_torch.models.transformer import Transformer
+    from accelerate_tpu_torch.weights import init_params
+
+    sd = init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10_000)
+    for t in sd.values():
+        if affine_std and t.dim() == 1:  # the biases and the norms' parameters
+            t.add_(torch.empty_like(t).normal_(0.0, affine_std, generator=gen))
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+def neox_phases(gpu) -> dict:
+    """Pythia-6.9B (GPT-NeoX: LayerNorm with bias, biased projections,
+    rotary over 32 of 128 dims, exact gelu, parallel residual with two
+    norms, untied head) at its published widths and full depth, from its
+    ``config.json`` values through the port's ``hf_compat`` mapping, bf16,
+    random weights from seed 0: ``model_neox`` (the paged forward through
+    K2 and K1 against the no-cache forward, the f32 forward of the same
+    weights the yardstick of bf16 noise), ``engine_neox`` (the ``engine``
+    line's engine and requests: K1 32 launches a decode step, K2 32 a
+    chunk, every token within the noise margin) and its ``sync_eager``
+    twin, whose tokens must be identical.  Returns ``engine_neox``'s
+    launches."""
+    from accelerate_tpu_torch.models.hf_compat import PYTHIA_6_9B, config_from_hf_dict
+    from accelerate_tpu_torch.models.transformer import state_dict_shapes
+
+    cfg = config_from_hf_dict(PYTHIA_6_9B, dtype=torch.bfloat16)
+    params = sum(int(np.prod(shape)) for shape in state_dict_shapes(cfg).values())
+    check((cfg.norm_type, cfg.use_bias, cfg.rope_dim, cfg.parallel_residual, cfg.shared_norm,
+           cfg.mlp_variant, cfg.tie_word_embeddings, cfg.resolved_head_dim) ==
+          ("layernorm", True, 32, True, False, "gelu_exact", False, 128),
+          f"pythia-6.9b mapped to an unexpected config: {cfg}")
+    emit({"phase": "neox_config", "source": "EleutherAI/pythia-6.9b config.json",
+          "config": {k: str(v) if isinstance(v, torch.dtype) else v
+                     for k, v in dataclasses.asdict(cfg).items()},
+          "params": params, "weights_gb": 2 * params / 1e9})
+    model = family_model(cfg)
+    rng = np.random.default_rng(0)
+    tol = model_phase(model, cfg, rng, name="model_neox")
+    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, name="engine_neox")
+    _, _, eager = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
+                               name="engine_neox_sync_eager", eager=True)
+    check(eager == tokens, "engine_neox_sync_eager's greedy tokens differ from engine_neox's")
+    del model
+    free_card()
+    return launches
+
+
+def gpt2_phase(gpu) -> dict:
+    """``TransformerConfig.gpt2()`` at full width and depth (12 layers, 12
+    heads of D 64, learned positions, tied head, tanh gelu), bf16, random
+    weights from seed 0: ``model_gpt2`` and ``engine_gpt2`` (the engine
+    line's engine at ``max_len=1024``, its learned table's length, and six
+    prompts of ``GPT2_LENS``).  Returns the engine's launches."""
+    from accelerate_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig.gpt2(dtype=torch.bfloat16)
+    model = family_model(cfg)
+    rng = np.random.default_rng(1)
+    tol = model_phase(model, cfg, rng, name="model_gpt2")
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in GPT2_LENS]
+    launches, _, _ = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
+                                  name="engine_gpt2", knobs=dict(max_len=1024))
+    del model
+    free_card()
+    return launches
+
+
+_FAMILY_BASE = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=2,
+                    num_heads=16, num_kv_heads=16, max_seq_len=2048)
+_GPT2_SW = dict(norm_type="layernorm", use_bias=True, positional="learned", mlp_variant="gelu",
+                tie_word_embeddings=True, num_heads=32, num_kv_heads=32)
+_GPTJ_SW = dict(norm_type="layernorm", rope_interleaved=True, rope_dim=64,
+                parallel_residual=True, shared_norm=True, attn_bias=False, mlp_bias=True,
+                lm_head_bias=True, mlp_variant="gelu")
+#: each mapped family's switches at hidden 2048 and 2 layers (D 128 over 16
+#: heads, D 64 over 32); the last three take the plain paged versions
+FAMILY_SWITCHES = {
+    "llama_biased": dict(attn_bias=True, mlp_bias=True, num_kv_heads=4),
+    "gpt2": _GPT2_SW,
+    "opt": dict(_GPT2_SW, pos_offset=2, mlp_variant="relu"),
+    "gptj": _GPTJ_SW,
+    "gpt_neox": dict(norm_type="layernorm", rope_dim=32, parallel_residual=True,
+                     use_bias=True, mlp_variant="gelu_exact"),
+    "qwen2": dict(qkv_bias=True, num_kv_heads=2),
+    "gemma_d128": dict(norm_unit_offset=True, embed_scale=True, mlp_variant="geglu",
+                       tie_word_embeddings=True, num_kv_heads=1),
+    "falcon_mq": dict(norm_type="layernorm", mlp_variant="gelu_exact", parallel_residual=True,
+                      shared_norm=True, num_heads=32, num_kv_heads=1),
+    "stablelm": dict(norm_type="layernorm", rope_dim=32, qkv_bias=True, num_kv_heads=4),
+    "gpt_bigcode": dict(_GPT2_SW, num_kv_heads=1),
+    "phi": dict(norm_type="layernorm", use_bias=True, lm_head_bias=True, mlp_variant="gelu",
+                parallel_residual=True, shared_norm=True, rope_dim=64),
+    "codegen": dict(_GPTJ_SW, rope_dim=32, use_bias=False),
+    "mistral_window256": dict(sliding_window=256, num_kv_heads=4),
+    "bloom_alibi": dict(norm_type="layernorm", use_bias=True, positional="alibi",
+                        embed_norm=True, mlp_variant="gelu", tie_word_embeddings=True),
+    "mpt_alibi": dict(norm_type="layernorm", norm_bias=False, positional="alibi",
+                      mlp_variant="gelu_exact", tie_word_embeddings=True, num_heads=32,
+                      num_kv_heads=32),
+}
+
+
+def paged_logits(model, cfg, ids: np.ndarray, plain: bool) -> torch.Tensor:
+    """Logits of ``ids`` (a 512-token prompt, then 8 tokens fed one at a
+    time) through the paged path: the prompt as one prefill chunk, then 8
+    decode steps, over a fresh pool of 128-token pages; K2 and K1, or with
+    ``plain`` their plain versions."""
+    from accelerate_tpu_torch.models.transformer import PagedKVCache
+    from accelerate_tpu_torch.serving import PagedKVPool
+
+    pool = PagedKVPool(cfg, 1, 1024, 128, 9, device="cuda")
+    cache = PagedKVCache(
+        pool.pages_k, pool.pages_v, pool.k_scales, pool.v_scales,
+        tables=torch.arange(1, 9, dtype=torch.int32, device="cuda")[None],
+        index=torch.zeros(1, dtype=torch.int32, device="cuda"),
+        active=torch.ones(1, dtype=torch.bool, device="cuda"), kernel="prefill", plain=plain)
+    feed = torch.from_numpy(ids[None]).cuda()
+    out = []
+    with torch.inference_mode():
+        logits, cache = model(feed[:, :512], cache=cache)
+        out.append(logits[0])
+        cache.kernel = "decode"
+        for i in range(512, ids.shape[0]):
+            logits, cache = model(feed[:, i:i + 1], cache=cache)
+            out.append(logits[0])
+    return torch.cat(out)
+
+
+def families_phase(gpu) -> None:
+    """Every family of ``FAMILY_SWITCHES`` at hidden 2048 and 2 layers, bf16,
+    random weights: for the full-causal ones the paged forward through K2
+    and K1 (2 and 16 launches) held against the same forward through their
+    plain versions; for the sliding-window and alibi ones (which the
+    kernels refuse, as the reference's) the plain paged forward, K1 and K2
+    launched 0 times, held against the no-cache forward.  The tolerance is
+    ``LOGIT_TOL_FACTOR`` times the bf16 no-cache forward's distance from the
+    f32 one of the same weights, as for the model line."""
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    records = []
+    for i, (family, sw) in enumerate(FAMILY_SWITCHES.items()):
+        cfg = TransformerConfig(**{**_FAMILY_BASE, **sw, "dtype": torch.bfloat16})
+        model = family_model(cfg, seed=100 + i)
+        ids = np.random.default_rng(100 + i).integers(1, cfg.vocab_size, 520).astype(np.int32)
+        ref = no_cache_logits(model, ids)
+        model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32), device="cuda",
+                              dtype=torch.float32)
+        model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
+                                assign=True)
+        noise = (ref - no_cache_logits(model32, ids)).abs().max().item()
+        del model32
+        tol = LOGIT_TOL_FACTOR * noise
+        kernels = cfg.full_causal
+        pa.reset_launch_counts()
+        got = paged_logits(model, cfg, ids, plain=not kernels)
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "paged_flash_prefill": pa.paged_flash_prefill.launches}
+        want = paged_logits(model, cfg, ids, plain=True) if kernels else ref
+        err = (got - want).abs().max().item()
+        rec = {"family": family, "switches": sw, "head_dim": cfg.resolved_head_dim,
+               "heads": [cfg.num_heads, cfg.num_kv_heads],
+               "path": "K2 + K1" if kernels else "plain paged",
+               "held_against": "plain paged" if kernels else "no-cache forward",
+               "max_abs_logit_err": err, "tolerance": tol, "plain_bf16_vs_f32": noise,
+               "launches": launches}
+        records.append(rec)
+        want_launches = ({"paged_attention": 8 * cfg.num_layers,
+                          "paged_flash_prefill": cfg.num_layers} if kernels
+                         else {"paged_attention": 0, "paged_flash_prefill": 0})
+        check(launches == want_launches, f"families {family}: launches {launches}, want "
+              f"{want_launches}")
+        check(bool(torch.isfinite(got).all()), f"families {family}: non-finite logits")
+        check(err <= tol, f"families {family}: paged logits differ by {err} > {tol}")
+        del model
+        free_card()
+    emit({"phase": "families", "hidden": 2048, "layers": 2, "prompt": 512, "decode_steps": 8,
+          "records": records, "gpu": gpu})
+
+
 def flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, dout = (torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
@@ -1789,11 +2006,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this script runs only on the card",
               file=sys.stderr)
         return 1
-    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.models.transformer import TransformerConfig
     from accelerate_tpu_torch.ops import _build
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving.spec_exec import TreeSpec
-    from accelerate_tpu_torch.weights import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1877,6 +2093,11 @@ def main() -> int:
         ("tree_page_edge", 79, [127, 128], 9, 32, 32, bf16, 128, 128, None, tree24),
         ("tree_main", 80, tree_lanes, 9, 32, 32, bf16, 128, 128, "int8", tree24),
         ("tree_main", 81, tree_lanes, 9, 32, 32, bf16, 128, 128, "fp8", tree24),
+        # the families' shapes: GPT-2 (12 heads of D 64), Falcon-7B's
+        # multi-query attention (71 query heads over one kv head, D 64)
+        ("gpt2_d64", 82, ragged, 1, 12, 12, bf16, 128, 64),
+        ("falcon7b_mq71_d64", 83, ragged, 1, 71, 1, bf16, 128, 64),
+        ("falcon7b_mq71_d64", 84, ragged, 1, 71, 1, f32, 128, 64),
     ], k1_describe, k1_checks)
     k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
                       "paged_prefill", [
@@ -1912,11 +2133,14 @@ def main() -> int:
         # over the same kv head's pages
         ("gqa128_chunk128_base640", 66, [640], 128, 128, 1, bf16, 128),
         ("gqa128_chunk128_base640", 67, [640], 128, 128, 1, f32, 128),
+        # the families' shapes: GPT-2 and Falcon-7B's multi-query group of 71
+        ("gpt2_d64_chunk512_base0", 68, [0], 512, 12, 12, bf16, 128, 64),
+        ("falcon7b_mq71_d64_chunk128_base640", 69, [640], 128, 71, 1, bf16, 128, 64),
+        ("falcon7b_mq71_d64_chunk128_base640", 85, [640], 128, 71, 1, f32, 128, 64),
     ], k2_describe, k2_checks)
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
-    model = Transformer(cfg, device="cuda", dtype=bf16)
-    model.load_state_dict(init_params(cfg, seed=0, device="cuda", dtype=bf16), assign=True)
+    model = family_model(cfg, affine_std=0.0)  # the Llama line keeps its earlier weights
     rng = np.random.default_rng(0)
     tol = model_phase(model, cfg, rng)
     for fmt in pa.KV_FORMATS:
@@ -1950,7 +2174,10 @@ def main() -> int:
     prefix_launches, shared_prompts = prefix_phases(model, cfg, rng, gpu)
     slab_phases(model, cfg, gpu, tol, prompts, spec_prompts, shared_prompts)
     del model
-    torch.cuda.empty_cache()
+    free_card()
+    # the other families: one 7B model on the card at a time
+    family_launches = {"engine_neox": neox_phases(gpu), "engine_gpt2": gpt2_phase(gpu)}
+    families_phase(gpu)
 
     flash = flash_phase([
         ("train", 13, 2, 2048, 32, 32, bf16, True, False),
@@ -2010,6 +2237,10 @@ def main() -> int:
         if name in prefix_launches:
             # the prefix cache's path, its counts zeroed just before its serve
             kernels[-1]["launches_engine_prefix"] = prefix_launches[name]
+        for line, counts in family_launches.items():
+            # the other families' engines, their counts zeroed just before
+            if name in counts:
+                kernels[-1]["launches_" + line] = counts[name]
         if name in api_launches:
             # the reference loop's path, its counts zeroed just before its calls
             kernels[-1]["launches_train_api"] = api_launches[name]

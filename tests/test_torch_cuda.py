@@ -593,6 +593,59 @@ def test_tiny_engine_on_card_matches_cpu_engine(card, kv_dtype):
         assert errs["cpu"] > 0.0 and errs[str(card)] > 0.0
 
 
+#: model families on the card (``TransformerConfig.tiny`` widths, D 16): the
+#: first three through K1 and K2, the last two through the plain paged
+#: versions, as the reference routes sliding-window and alibi models
+CARD_FAMILIES = {
+    "gpt_neox": dict(norm_type="layernorm", rope_dim=8, parallel_residual=True, use_bias=True,
+                     mlp_variant="gelu_exact"),
+    "gpt2": dict(norm_type="layernorm", use_bias=True, positional="learned",
+                 mlp_variant="gelu", tie_word_embeddings=True),
+    "falcon_mq": dict(norm_type="layernorm", mlp_variant="gelu_exact", parallel_residual=True,
+                      shared_norm=True, num_kv_heads=1),
+    "mistral_window16": dict(sliding_window=16),
+    "bloom_alibi": dict(norm_type="layernorm", use_bias=True, positional="alibi",
+                        embed_norm=True, mlp_variant="gelu", tie_word_embeddings=True),
+}
+
+
+@pytest.mark.parametrize("family", list(CARD_FAMILIES))
+def test_family_engine_on_card_matches_cpu_engine(card, family):
+    """Greedy tokens of an f32 tiny model of each family, biases drawn
+    nonzero: the engine on the card (K1 and K2, or for window and alibi
+    models the plain paged versions, launching neither kernel) == the
+    plain versions on the CPU."""
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 max_seq_len=128, **CARD_FAMILIES[family])
+    sd = init_params(cfg, seed=7, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(8)
+    for name, t in sd.items():
+        if name.endswith(".bias"):
+            t.normal_(0.0, 0.02, generator=gen)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 19, 33, 8)]
+    out = {}
+    for dev in ("cpu", card):
+        pa.reset_launch_counts()
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               device=dev)
+        out[str(dev)] = [r.tokens for r in engine.serve(prompts, configs=GenerationConfig(
+            max_new_tokens=12))]
+    assert out["cpu"] == out[str(card)]
+    kernels = cfg.full_causal
+    assert (pa.paged_attention.launches > 0) == kernels
+    assert (pa.paged_flash_prefill.launches > 0) == kernels
+
+
+@pytest.mark.parametrize("family", ["gpt_neox", "mistral_window16", "bloom_alibi"])
+def test_family_graphs_replay_the_eager_windows(card, family):
+    """The window and chunk graphs capture whichever paged path the family
+    takes, and replay it bitwise as the eager engine runs it."""
+    _lockstep_engines(card, {}, **CARD_FAMILIES[family])
+
+
 def _lockstep_engines(card, knobs, steps=None, lens=(17, 30, 9, 24), dtype=torch.float32,
                       **cfg_kw):
     """A graph engine (the default: window and chunk graphs) and an eager one

@@ -235,13 +235,13 @@ def test_admission_refusals(models):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
-    (dict(draft_model="ckpt/dir#1"), "2"),
     (dict(registry=object()), "8"), (dict(metrics_port=0), "8"), (dict(tp_axis="model"), "8"),
 ])
 def test_unported_arguments_raise(models, kw, item):
     """The reference's keywords that the port has not ported raise
     ``NotImplementedError`` naming their item (``paged=False`` is ported:
-    ``tests/test_torch_slab.py``)."""
+    ``tests/test_torch_slab.py``; a checkpoint ``draft_model``:
+    ``tests/test_torch_hf_compat.py``)."""
     _, _, model, params = models
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})

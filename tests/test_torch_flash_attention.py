@@ -151,10 +151,10 @@ def test_causal_mask_matches_jax(q_len, kv_len):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(implementation="blocked"), "ROADMAP Queue 1 item 3"),
+    (dict(implementation="blocked", window=8), "implementation='xla' only"),
     (dict(implementation="ring"), "ROADMAP Queue 1 item 9"),
-    (dict(window=8), "ROADMAP Queue 1 item 2"),
-    (dict(bias=torch.zeros(1)), "ROADMAP Queue 1 item 2"),
+    (dict(implementation="pallas", window=8), "implementation='xla' only"),
+    (dict(implementation="pallas", bias=torch.zeros(1)), "implementation='xla' only"),
 ])
 def test_unported_implementations_raise(kw, item):
     q, k, v, _ = _inputs(8, 4, 4)

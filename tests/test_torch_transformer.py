@@ -23,6 +23,7 @@ from accelerate_tpu_torch.models.transformer import (
     TransformerConfig,
 )
 from accelerate_tpu_torch.weights import init_params, params_from_jax, state_dict_shapes
+from test_torch_families import affine_noise
 
 ATOL = 1e-5
 
@@ -131,8 +132,24 @@ def test_paged_forward_matches_no_cache_forward(pair):
     dict(num_experts=4), dict(rope_interleaved=True), dict(use_bias=True),
 ])
 def test_other_families_not_ported(switch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerConfig.tiny(**switch)
+    """Each family switch the port once refused now computes the JAX model's
+    function (no-cache f32 logits within ATOL, biases and norm parameters
+    drawn nonzero); MoE still refuses, naming its ROADMAP item."""
+    if switch.get("num_experts"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9e"):
+            TransformerConfig.tiny(**switch)
+        return
+    jcfg = JConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **switch)
+    jmodel = JTransformer(jcfg)
+    jparams = affine_noise(
+        jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"], seed=1)
+    model = Transformer(TransformerConfig.tiny(dtype=torch.float32, **switch), device="cpu")
+    model.load_state_dict(params_from_jax(jparams, device="cpu"))
+    ids = _ids(3, (2, 13))
+    ref = np.asarray(jmodel.apply({"params": jparams}, jnp.asarray(ids)))
+    with torch.inference_mode():
+        out = model(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL)
 
 
 def test_llama2_7b_geometry():
