@@ -41,6 +41,8 @@ from ..weights import is_norm_param
 from .transformer import Transformer, TransformerConfig
 
 __all__ = [
+    "GEMMA_7B",
+    "PHI_2",
     "PYTHIA_6_9B",
     "SUPPORTED_MODEL_TYPES",
     "config_from_hf",
@@ -68,6 +70,32 @@ PYTHIA_6_9B = {
     "num_attention_heads": 32, "vocab_size": 50432, "rotary_pct": 0.25,
     "rotary_emb_base": 10000, "max_position_embeddings": 2048, "layer_norm_eps": 1e-5,
     "use_parallel_residual": True, "hidden_act": "gelu", "tie_word_embeddings": False,
+}
+
+#: Google ``gemma-7b``'s published ``config.json``: Gemma at 7B width, head
+#: dim 256 (16 heads of 256 over hidden 3072), served without its weights
+#: file from random weights.  The file names the activation twice: the
+#: legacy ``hidden_act`` "gelu" and ``hidden_activation`` "gelu_pytorch_tanh",
+#: which the mapping reads first
+GEMMA_7B = {
+    "model_type": "gemma", "architectures": ["GemmaForCausalLM"],
+    "hidden_size": 3072, "intermediate_size": 24576, "num_hidden_layers": 28,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
+    "vocab_size": 256000, "max_position_embeddings": 8192, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0, "attention_bias": False, "hidden_act": "gelu",
+    "hidden_activation": "gelu_pytorch_tanh",
+}
+
+#: Microsoft ``phi-2``'s published ``config.json``: Phi at 2.7B width, head
+#: dim 80 (32 heads over hidden 2560), rotary over 0.4 of each head (32
+#: dims), served without its weights file from random weights
+PHI_2 = {
+    "model_type": "phi", "architectures": ["PhiForCausalLM"],
+    "hidden_size": 2560, "intermediate_size": 10240, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 32, "vocab_size": 51200,
+    "max_position_embeddings": 2048, "layer_norm_eps": 1e-5, "partial_rotary_factor": 0.4,
+    "rope_theta": 10000.0, "hidden_act": "gelu_new", "qk_layernorm": False,
+    "tie_word_embeddings": False,
 }
 
 #: the stamp a converted directory carries

@@ -41,9 +41,12 @@
 //   than its partner's keeps releasing the stages it does not use.  When
 //   rep does not divide 64 the tiles' spare rows are never written: a row
 //   of dQ reads only its own Q and dO rows, and a spare row is never stored.
+//   At D 256 the CTA holds one consumer warpgroup and two stages (128 dQ
+//   accumulators beside S and dP need most of a thread's 255 registers).
 //   f32 arm (flash_dq_kernel): 256 threads on the CUDA cores, every product
 //   register-tiled from f32 shared tiles, so that f32 inputs keep f32
-//   products (TF32 keeps ~3 decimal digits).
+//   products (TF32 keeps ~3 decimal digits); at D 256 K and V stream in two
+//   column chunks of 128.
 //
 // K5: each (batch, kv-head, k-tile of 64 keys) keeps K, V and the dk/dv
 // accumulators resident and walks the q-blocks (and each one's group parts)
@@ -67,9 +70,16 @@
 //   heads x block_q queries of the [B, Sq, Hq, D] tensor, zeros past Sq),
 //   and each row's lse, delta, query and segment id stored by its lanes;
 //   full/empty mbarriers let the two warpgroups run out of step.  Left for
-//   later: a fused backward (dQ from the same CTA), persistent CTAs.
+//   later: a fused backward (dQ from the same CTA), persistent CTAs.  At
+//   D 256 a warpgroup cannot hold a k-tile's dK and dV (256 accumulators a
+//   thread): both warpgroups take the same k-tile, each computes its S^T
+//   and dP^T and accumulates dK/dV for 128 of the 256 columns (two stages).
 //   f32 arm (flash_dkv_kernel): 256 threads on the CUDA cores, as K4's, so
-//   that f32 inputs keep f32 products.
+//   that f32 inputs keep f32 products; at D 256 Q and dO stream in four
+//   column chunks of 64.
+//   Head dims that fill no whole 64-column panel (16, 32, 80, 96) run on
+//   zero-padded panels in the bf16 arms (flash_wgmma.cuh) and mask their
+//   last column group in the f32 arms.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -111,6 +121,30 @@ __device__ __forceinline__ void probs_and_ds(float (&s)[4][4], float (&dp)[4][4]
     }
 }
 
+// The f32 arms keep f32 tiles of row stride D + 4 in shared memory: 66.5 KB
+// per 64 rows at D 256, so K4's four such tiles and K5's would overflow the
+// SM's 227 KB.  At D 256 the tiles that stream (K4's K and V, K5's Q and
+// dO) are held a column chunk at a time (K4 two of 128 columns, K5 four of
+// 64), the products summed over the chunks; below, a chunk is all of D.
+template <int D> __host__ __device__ constexpr int dq_chunk() { return D > 128 ? 128 : D; }
+template <int D> __host__ __device__ constexpr int dkv_chunk() { return D > 128 ? 64 : D; }
+
+// Float4 column groups per thread (tx + 16 c), and whether group tx + 16 c
+// lies inside D (always, unless D / 4 is no multiple of 16: D 16, 32, 80, 96).
+template <int D> __host__ __device__ constexpr int col_groups() { return (D / 4 + 15) / 16; }
+template <int D> __device__ __forceinline__ bool in_d(int tx, int c) {
+  return (D / 4) % 16 == 0 || tx + 16 * c < D / 4;
+}
+
+// Element offset of row r's column chunk starting at c0, or -1 (zero fill).
+template <typename RowOffset>
+__device__ __forceinline__ auto chunk_rows(RowOffset row_offset, int c0) {
+  return [=](int r) {
+    const long long off = row_offset(r);
+    return off < 0 ? off : off + c0;
+  };
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -118,7 +152,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const float* __restrict__ delta, const int* __restrict__ seg,
                 T* __restrict__ dq, FlashShape sh, float scale) {
   constexpr int QS = D + 4;
-  constexpr int CPT = D / 64;
+  constexpr int CPT = col_groups<D>();
+  constexpr int DC = dq_chunk<D>(), NCH = D / DC;  // K/V column chunks
+  constexpr int KS = DC + 4;
+  constexpr int CPC = NCH == 1 ? CPT : DC / 64;     // a thread's column groups of a chunk
   const int qb = blockIdx.x / sh.parts, part = blockIdx.x % sh.parts;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -126,9 +163,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   extern __shared__ float4 flash_smem[];
   float* q_s = reinterpret_cast<float*>(flash_smem);  // kRows x QS
   float* do_s = q_s + kRows * QS;                     // kRows x QS
-  float* k_s = do_s + kRows * QS;                     // kKeys x QS
-  float* v_s = k_s + kKeys * QS;                      // kKeys x QS
-  float* ds_s = v_s + kKeys * QS;                     // kRows x kPStride
+  float* k_s = do_s + kRows * QS;                     // kKeys x KS: a chunk of K
+  float* v_s = k_s + kKeys * KS;                      // kKeys x KS: a chunk of V
+  float* ds_s = v_s + kKeys * KS;                     // kRows x kPStride
 
   const FoldedRows fr = folded_rows(sh, qb, part, h);
   auto q_row = [&](int r) { return fr.offset(b, r, D); };
@@ -158,18 +195,24 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kKeys;
     auto kv_row = [&](int r) { return kv_offset(b, k0 + r, h, sh, D); };
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D>(k_s, QS, k, kKeys, kv_row);
-    load_rows<T, D>(v_s, QS, v, kKeys, kv_row);
-    __syncthreads();
+    auto load_kv = [&](int ch) {
+      __syncthreads();  // the previous tile's (or chunk's) readers are done
+      load_rows<T, DC>(k_s, KS, k, kKeys, chunk_rows(kv_row, ch * DC));
+      load_rows<T, DC>(v_s, KS, v, kKeys, chunk_rows(kv_row, ch * DC));
+      __syncthreads();
+    };
 
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      load_kv(ch);
+      tile_dot_cols<DC, QS, KS>(s, q_s + ch * DC, k_s, ty, tx);
+      tile_dot_cols<DC, QS, KS>(dp, do_s + ch * DC, v_s, ty, tx);
+    }
     probs_and_ds(s, dp, rs, k0, tx, seg, b, sh, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -178,18 +221,25 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         ds_s[(ty + 16 * i) * kPStride + tx + 16 * j] = round_to<T>(dp[i][j]);
     __syncthreads();
 
-    // dq += ds . K: rows ty + 16 i, float4 columns tx + 16 c
+    // dq += ds . K: rows ty + 16 i, float4 columns tx + 16 c, a chunk at a
+    // time, the resident last chunk first
+#pragma unroll
+    for (int ch = NCH - 1; ch >= 0; --ch) {
+      if (ch != NCH - 1) load_kv(ch);
 #pragma unroll 4
-    for (int kk = 0; kk < kKeys; ++kk) {
-      float4 kv[CPT];
+      for (int kk = 0; kk < kKeys; ++kk) {
+        float4 kv[CPC];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(k_s + kk * QS + (tx + 16 * c) * 4);
+        for (int c = 0; c < CPC; ++c)
+          kv[c] = in_d<D>(tx, c) ? *reinterpret_cast<const float4*>(k_s + kk * KS + (tx + 16 * c) * 4)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = ds_s[(ty + 16 * i) * kPStride + kk];
+        for (int i = 0; i < 4; ++i) {
+          const float d = ds_s[(ty + 16 * i) * kPStride + kk];
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fma4(d, kv[c], acc[i][c]);
+          for (int c = 0; c < CPC; ++c)
+            acc[i][ch * CPC + c] = fma4(d, kv[c], acc[i][ch * CPC + c]);
+        }
       }
     }
   }
@@ -200,6 +250,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     if (off < 0) continue;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
+      if (!in_d<D>(tx, c)) continue;
       T* o = dq + off + (tx + 16 * c) * 4;
       o[0] = flash_from<T>(acc[i][c].x);
       o[1] = flash_from<T>(acc[i][c].y);
@@ -216,7 +267,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const float* __restrict__ delta, const int* __restrict__ seg,
                  T* __restrict__ dk, T* __restrict__ dv, FlashShape sh, float scale) {
   constexpr int QS = D + 4;
-  constexpr int CPT = D / 64;
+  constexpr int CPT = col_groups<D>();
+  constexpr int DC = dkv_chunk<D>(), NCH = D / DC;  // Q/dO column chunks
+  constexpr int RS = DC + 4;
+  constexpr int CPC = NCH == 1 ? CPT : DC / 64;      // a thread's column groups of a chunk
   const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int k0 = kb * kKeys;
@@ -224,9 +278,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   extern __shared__ float4 flash_smem[];
   float* k_s = reinterpret_cast<float*>(flash_smem);  // kKeys x QS
   float* v_s = k_s + kKeys * QS;                      // kKeys x QS
-  float* q_s = v_s + kKeys * QS;                      // kRows x QS
-  float* do_s = q_s + kRows * QS;                     // kRows x QS
-  float* p_s = do_s + kRows * QS;                     // kRows x kPStride
+  float* q_s = v_s + kKeys * QS;                      // kRows x RS: a chunk of Q
+  float* do_s = q_s + kRows * RS;                     // kRows x RS: a chunk of dO
+  float* p_s = do_s + kRows * RS;                     // kRows x kPStride
   float* ds_s = p_s + kRows * kPStride;               // kRows x kPStride
 
   auto kv_row = [&](int r) { return kv_offset(b, k0 + r, h, sh, D); };
@@ -249,9 +303,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int it = qb0 * sh.parts; it < n_qb * sh.parts; ++it) {
     const FoldedRows fr = folded_rows(sh, it / sh.parts, it % sh.parts, h);
     auto q_row = [&](int r) { return fr.offset(b, r, D); };
-    __syncthreads();  // the previous q-block's readers are done
-    load_rows<T, D>(q_s, QS, q, kRows, q_row);
-    load_rows<T, D>(do_s, QS, dout, kRows, q_row);
+    auto load_q = [&](int ch) {
+      __syncthreads();  // the previous q-block's (or chunk's) readers are done
+      load_rows<T, DC>(q_s, RS, q, kRows, chunk_rows(q_row, ch * DC));
+      load_rows<T, DC>(do_s, RS, dout, kRows, chunk_rows(q_row, ch * DC));
+      __syncthreads();
+    };
     RowStats rs;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -262,15 +319,18 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       rs.lse[i] = rs.valid[i] ? lse[fr.stat(b, r)] : 0.f;
       rs.delta[i] = rs.valid[i] ? delta[fr.stat(b, r)] : 0.f;
     }
-    __syncthreads();
 
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      load_q(ch);
+      tile_dot_cols<DC, RS, QS>(s, q_s, k_s + ch * DC, ty, tx);
+      tile_dot_cols<DC, RS, QS>(dp, do_s, v_s + ch * DC, ty, tx);
+    }
     probs_and_ds(s, dp, rs, k0, tx, seg, b, sh, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -281,23 +341,30 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     __syncthreads();
 
-    // dv += p^T . dO and dk += ds^T . q: keys ty + 16 i, float4 columns tx + 16 c
+    // dv += p^T . dO and dk += ds^T . q: keys ty + 16 i, float4 columns
+    // tx + 16 c, a chunk at a time, the resident last chunk first
+#pragma unroll
+    for (int ch = NCH - 1; ch >= 0; --ch) {
+      if (ch != NCH - 1) load_q(ch);
 #pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      float4 dov[CPT], qv[CPT];
+      for (int r = 0; r < kRows; ++r) {
+        float4 dov[CPC], qv[CPC];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        dov[c] = *reinterpret_cast<const float4*>(do_s + r * QS + (tx + 16 * c) * 4);
-        qv[c] = *reinterpret_cast<const float4*>(q_s + r * QS + (tx + 16 * c) * 4);
-      }
+        for (int c = 0; c < CPC; ++c) {
+          const bool in = in_d<D>(tx, c);
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          dov[c] = in ? *reinterpret_cast<const float4*>(do_s + r * RS + (tx + 16 * c) * 4) : zero;
+          qv[c] = in ? *reinterpret_cast<const float4*>(q_s + r * RS + (tx + 16 * c) * 4) : zero;
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = p_s[r * kPStride + ty + 16 * i];
-        const float d = ds_s[r * kPStride + ty + 16 * i];
+        for (int i = 0; i < 4; ++i) {
+          const float p = p_s[r * kPStride + ty + 16 * i];
+          const float d = ds_s[r * kPStride + ty + 16 * i];
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          dv_acc[i][c] = fma4(p, dov[c], dv_acc[i][c]);
-          dk_acc[i][c] = fma4(d, qv[c], dk_acc[i][c]);
+          for (int c = 0; c < CPC; ++c) {
+            dv_acc[i][ch * CPC + c] = fma4(p, dov[c], dv_acc[i][ch * CPC + c]);
+            dk_acc[i][ch * CPC + c] = fma4(d, qv[c], dk_acc[i][ch * CPC + c]);
+          }
         }
       }
     }
@@ -309,6 +376,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (off < 0) continue;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
+      if (!in_d<D>(tx, c)) continue;
       T* ok = dk + off + (tx + 16 * c) * 4;
       T* ov = dv + off + (tx + 16 * c) * 4;
       ok[0] = flash_from<T>(dk_acc[i][c].x);
@@ -324,22 +392,35 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 constexpr int kDkvGroups = 2;  // consumer warpgroups of a CTA, one k-tile each
-constexpr int kDkvStages = 3;  // Q/dO stages in the ring
 // the consumer warpgroups, then a producer warpgroup whose first warp
 // issues the TMA loads and fills in each q-block's statistics
 constexpr int kDkvThreads = (kDkvGroups + 1) * kWarpgroup;
 constexpr int kDkvConsumerRegs = 240, kDkvProducerRegs = 24;
 static_assert(kDkvGroups * kWarpgroup * kDkvConsumerRegs + kWarpgroup * kDkvProducerRegs <= 65536,
               "the register file");
+// At D 256 a warpgroup cannot hold a k-tile's dK and dV (256 f32
+// accumulators a thread, past the 255 registers a thread may have): the two
+// warpgroups then share one k-tile and split its columns, each computing
+// the tile's S^T and dP^T and accumulating dK/dV for its 128 columns.
+template <int D> __host__ __device__ constexpr bool dkv_split() { return D > 128; }
+// K/V tiles the CTA holds (one pair a k-tile), its Q/dO stages (three, or
+// two at D 256: 32 KB tiles), and the columns of dK/dV a warpgroup owns.
+template <int D> __host__ __device__ constexpr int dkv_tiles() {
+  return dkv_split<D>() ? 1 : kDkvGroups;
+}
+template <int D> __host__ __device__ constexpr int dkv_stages() { return D > 128 ? 2 : 3; }
+template <int D> __host__ __device__ constexpr int dkv_cols() {
+  return dkv_split<D>() ? tile_cols<D>() / kDkvGroups : tile_cols<D>();
+}
 
-// Shared memory of the bf16 arm of K5: each warpgroup's K and V tiles, the
-// Q/dO stages, each stage's per-row statistics, the ring's full/empty
-// barriers, one barrier per warpgroup's K/V, and a pad to align the tiles
-// to the swizzle's 1024 bytes.
+// Shared memory of the bf16 arm of K5: the K and V tiles, the Q/dO stages,
+// each stage's per-row statistics, the ring's full/empty barriers, one
+// barrier per K/V pair, and a pad to align the tiles to the swizzle's 1024
+// bytes.
 template <int D> constexpr size_t dkv_wgmma_smem() {
-  return kSwizzleAlign + (2 * kDkvGroups + 2 * kDkvStages) * (size_t)tile_bytes<D>() +
-         kDkvStages * 4 * (size_t)kRows * sizeof(float) +
-         (2 * kDkvStages + kDkvGroups) * sizeof(uint64_t);
+  return kSwizzleAlign + (2 * dkv_tiles<D>() + 2 * dkv_stages<D>()) * (size_t)tile_bytes<D>() +
+         dkv_stages<D>() * 4 * (size_t)kRows * sizeof(float) +
+         (2 * dkv_stages<D>() + dkv_tiles<D>()) * sizeof(uint64_t);
 }
 
 template <int D>
@@ -352,24 +433,27 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
                        __nv_bfloat16* __restrict__ dv, FlashShape sh, float scale) {
   constexpr int TB = tile_bytes<D>();
+  constexpr bool kSplit = dkv_split<D>();
+  constexpr int KVT = dkv_tiles<D>(), kDkvStages = dkv_stages<D>(), NC = dkv_cols<D>();
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
 
   extern __shared__ unsigned char flash_tc_smem[];
   const uint32_t base = (smem_u32(flash_tc_smem) + kSwizzleAlign - 1) & ~(kSwizzleAlign - 1u);
-  auto q_s = [&](int st) { return base + TB * (2 * kDkvGroups + 2 * st); };
-  auto do_s = [&](int st) { return base + TB * (2 * kDkvGroups + 2 * st + 1); };
+  auto q_s = [&](int st) { return base + TB * (2 * KVT + 2 * st); };
+  auto do_s = [&](int st) { return base + TB * (2 * KVT + 2 * st + 1); };
   // per stage and folded row: lse, delta, query and its segment id (a row
   // past the sequence holds zeros: its Q and dO rows are zero, so its s is
   // 0, its p at most 1 and its dp and ds 0, and it adds nothing to dK or dV)
-  const uint32_t stats_u32 = base + TB * (2 * kDkvGroups + 2 * kDkvStages);
+  const uint32_t stats_u32 = base + TB * (2 * KVT + 2 * kDkvStages);
   float* stats = reinterpret_cast<float*>(flash_tc_smem + (stats_u32 - smem_u32(flash_tc_smem)));
   auto stat = [&](int st, int which) { return stats + (st * 4 + which) * kRows; };
   const uint32_t full0 = stats_u32 + kDkvStages * 4 * kRows * sizeof(float);
   auto full = [&](int st) { return full0 + 8 * st; };  // a stage's Q, dO and statistics landed
   auto empty = [&](int st) { return full0 + 8 * (kDkvStages + st); };  // both groups are done
-  auto kv_full = [&](int i) { return full0 + 8 * (2 * kDkvStages + i); };  // group i's K, V landed
-  auto tile_k0 = [&](int i) { return (kDkvGroups * blockIdx.x + i) * kKeys; };  // group i's k-tile
+  auto kv_full = [&](int i) { return full0 + 8 * (2 * kDkvStages + i); };  // K/V pair i landed
+  // K/V pair i's k-tile (split: the one tile of both warpgroups)
+  auto tile_k0 = [&](int i) { return (KVT * blockIdx.x + (kSplit ? 0 : i)) * kKeys; };
 
   // queries before a tile's first key see none of it: each warpgroup starts
   // at the q-block holding its k0 (the CTA at its first warpgroup's); every
@@ -387,17 +471,18 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(empty(st), kDkvGroups);
     }
 #pragma unroll
-    for (int i = 0; i < kDkvGroups; ++i) mbar_init(kv_full(i), 1);
+    for (int i = 0; i < KVT; ++i) mbar_init(kv_full(i), 1);
     mbar_init_fence();
   }
   if (rows < kRows && wg < kDkvGroups) {
     // the box of a q-block fills `rows` rows of a tile; the rest stay zero
+    constexpr int P = tile_panels<D>();
     const int chunks = (kRows - rows) * 8;
-    const int total = kDkvStages * 2 * (D / kPanelCols) * chunks;
+    const int total = kDkvStages * 2 * P * chunks;
     for (int e = tid; e < total; e += kDkvGroups * kWarpgroup) {
-      const int tile = e / chunks / (D / kPanelCols), p = e / chunks % (D / kPanelCols);
+      const int tile = e / chunks / P, p = e / chunks % P;
       const int c = e % chunks;
-      const uint32_t addr = base + TB * (2 * kDkvGroups + tile) + p * kPanelBytes +
+      const uint32_t addr = base + TB * (2 * KVT + tile) + p * kPanelBytes +
                             (rows + c / 8) * 128 + (c % 8) * 16;
       asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" :: "r"(addr), "r"(0) : "memory");
     }
@@ -409,17 +494,17 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     regs_dealloc<kDkvProducerRegs>();
     if (t >= 32) return;
     if (t == 0) {
-      // each warpgroup's K and V tiles (none for a k-tile past the keys,
-      // whose warpgroup walks no q-block)
+      // each K/V pair's tiles (none for a k-tile past the keys, whose
+      // warpgroup walks no q-block)
 #pragma unroll
-      for (int i = 0; i < kDkvGroups; ++i) {
+      for (int i = 0; i < KVT; ++i) {
         if (tile_k0(i) >= sh.sk) continue;
         mbar_arrive_expect_tx(kv_full(i), 2 * TB);
 #pragma unroll
-        for (int p = 0; p < D / kPanelCols; ++p) {
+        for (int p = 0; p < tile_panels<D>(); ++p) {
           const int col = p * kPanelCols;
           tma_load_4d(base + TB * i + p * kPanelBytes, &tm_k, kv_full(i), col, h, tile_k0(i), b);
-          tma_load_4d(base + TB * (kDkvGroups + i) + p * kPanelBytes, &tm_v, kv_full(i), col, h,
+          tma_load_4d(base + TB * (KVT + i) + p * kPanelBytes, &tm_v, kv_full(i), col, h,
                       tile_k0(i), b);
         }
       }
@@ -429,9 +514,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
       const FoldedRows fr = folded_rows(sh, it / sh.parts, it % sh.parts, h);
       if (t == 0) {
-        mbar_arrive_expect_tx(full(st), 2 * (D / kPanelCols) * rows * 128);
+        mbar_arrive_expect_tx(full(st), 2 * tile_panels<D>() * rows * 128);
 #pragma unroll
-        for (int p = 0; p < D / kPanelCols; ++p) {
+        for (int p = 0; p < tile_panels<D>(); ++p) {
           const int col = p * kPanelCols;
           tma_load_4d(q_s(st) + p * kPanelBytes, &tm_q, full(st), col, fr.head0, fr.q0, b);
           tma_load_4d(do_s(st) + p * kPanelBytes, &tm_do, full(st), col, fr.head0, fr.q0, b);
@@ -453,9 +538,13 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   regs_alloc<kDkvConsumerRegs>();
   const int w = t / 32, g = (t % 32) / 4, c2 = 2 * (t % 4);
-  const int k0 = tile_k0(wg);                        // this warpgroup's k-tile
+  const int kv = kSplit ? 0 : wg;                    // this warpgroup's K/V pair
+  const int k0 = tile_k0(kv);                        // ... and k-tile
   const int my_it0 = k0 < sh.sk ? first(k0) : n_it;  // a k-tile past the keys does nothing
-  const uint32_t k_s = base + TB * wg, v_s = base + TB * (kDkvGroups + wg);
+  const uint32_t k_s = base + TB * kv, v_s = base + TB * (KVT + kv);
+  // the first of the NC dK/dV columns this warpgroup owns, and its panel offset
+  const int col0 = kSplit ? wg * NC : 0;
+  const uint32_t col_off = (col0 / kPanelCols) * kPanelBytes;
 
   // the thread's keys k0 + 16 w + g + 8 e (e = 0, 1): rows of S^T and dK/dV
   int key[2], segk[2];
@@ -464,12 +553,12 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     key[e] = k0 + 16 * w + g + 8 * e;
     segk[e] = (seg && key[e] < sh.sk) ? seg[(long long)b * sh.seg_stride + key[e]] : 0;
   }
-  float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
+  float dk_acc[NC / 2], dv_acc[NC / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-  if (k0 < sh.sk) mbar_wait(kv_full(wg), 0);
+  if (k0 < sh.sk) mbar_wait(kv_full(kv), 0);
 
   for (int it = it0; it < n_it; ++it) {
     const int st = (it - it0) % kDkvStages;
@@ -518,8 +607,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
 
       wgmma_fence();
-      mma_probs_by_tile<D>(dv_acc, pp, do_s(st));  // dV += P^T . dO
-      mma_probs_by_tile<D>(dk_acc, pd, q_s(st));   // dK += dS^T . Q
+      mma_probs_by_panels<NC>(dv_acc, pp, do_s(st) + col_off);  // dV += P^T . dO
+      mma_probs_by_panels<NC>(dk_acc, pd, q_s(st) + col_off);   // dK += dS^T . Q
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);
@@ -531,10 +620,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const long long off = kv_offset(b, key[e], h, sh, D);
-    if (off < 0) continue;
+    const long long off = kv_offset(b, key[e], h, sh, D) + col0;
+    if (off < col0) continue;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < (kSplit ? NC : D) / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * i + c2) =
           __floats2bfloat162_rn(dk_acc[4 * i + 2 * e], dk_acc[4 * i + 2 * e + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * i + c2) =
@@ -543,22 +632,28 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-constexpr int kDqGroups = 2;  // consumer warpgroups of a CTA, one q-block each
-constexpr int kDqStages = 3;  // K/V stages in the ring
+// Consumer warpgroups of a CTA, one q-block each, and K/V stages in the
+// ring: two and three, or one and two at D 256 (32 KB tiles, and 128 dQ
+// accumulators a thread beside S and dP: a lone consumer warpgroup may take
+// all 255 registers a thread can have).
+template <int D> __host__ __device__ constexpr int dq_groups() { return D > 128 ? 1 : 2; }
+template <int D> __host__ __device__ constexpr int dq_stages() { return D > 128 ? 2 : 3; }
 // the consumer warpgroups, then one producer warp that issues the TMA loads
-constexpr int kDqThreads = kDqGroups * kWarpgroup + 32;
+template <int D> __host__ __device__ constexpr int dq_threads() {
+  return dq_groups<D>() * kWarpgroup + 32;
+}
 
 // Shared memory of the bf16 arm of K4: each warpgroup's Q and dO tiles, the
 // K/V stages, the ring's full/empty barriers and one barrier per
 // warpgroup's Q/dO, after a pad that lets the kernel align its tiles to the
 // swizzle's 1024 bytes.
 template <int D> constexpr size_t dq_wgmma_smem() {
-  return kSwizzleAlign + (2 * kDqGroups + 2 * kDqStages) * (size_t)tile_bytes<D>() +
-         (2 * kDqStages + kDqGroups) * sizeof(uint64_t);
+  return kSwizzleAlign + (2 * dq_groups<D>() + 2 * dq_stages<D>()) * (size_t)tile_bytes<D>() +
+         (2 * dq_stages<D>() + dq_groups<D>()) * sizeof(uint64_t);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDqThreads)
+__global__ void __launch_bounds__(dq_threads<D>(), 1)
 flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -566,6 +661,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ delta, const int* __restrict__ seg,
                       __nv_bfloat16* __restrict__ dq, FlashShape sh, float scale) {
   constexpr int TB = tile_bytes<D>();
+  constexpr int kDqGroups = dq_groups<D>(), kDqStages = dq_stages<D>();
   constexpr float kLog2e = 1.4426950408889634f;
   const int pair = blockIdx.x / sh.parts, part = blockIdx.x % sh.parts;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -613,9 +709,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qb = kDqGroups * pair + i;
       if (q_block_tiles(sh, qb, part, h) == 0) continue;
       const FoldedRows fr = folded_rows(sh, qb, part, h);
-      mbar_arrive_expect_tx(q_full(i), 2 * (D / kPanelCols) * fr.rows * 128);
+      mbar_arrive_expect_tx(q_full(i), 2 * tile_panels<D>() * fr.rows * 128);
 #pragma unroll
-      for (int p = 0; p < D / kPanelCols; ++p) {
+      for (int p = 0; p < tile_panels<D>(); ++p) {
         const int col = p * kPanelCols;
         tma_load_4d(q_s(i) + p * kPanelBytes, &tm_q, q_full(i), col, fr.head0, fr.q0, b);
         tma_load_4d(do_s(i) + p * kPanelBytes, &tm_do, q_full(i), col, fr.head0, fr.q0, b);
@@ -626,7 +722,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
       mbar_arrive_expect_tx(full(st), 2 * TB);
 #pragma unroll
-      for (int p = 0; p < D / kPanelCols; ++p) {
+      for (int p = 0; p < tile_panels<D>(); ++p) {
         tma_load_4d(k_s(st) + p * kPanelBytes, &tm_k, full(st), p * kPanelCols, h, kb * kKeys, b);
         tma_load_4d(v_s(st) + p * kPanelBytes, &tm_v, full(st), p * kPanelCols, h, kb * kKeys, b);
       }
@@ -652,9 +748,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     lse2[e] = valid ? lse[fr.stat(b, r)] * kLog2e : 0.f;
     dl[e] = valid ? delta[fr.stat(b, r)] : 0.f;
   }
-  float acc[D / 2], s[32], dp[32];
+  float acc[tile_cols<D>() / 2], s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < tile_cols<D>() / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   const float scale_log2 = scale * kLog2e;
@@ -742,12 +838,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     auto kernel = flash_dq_wgmma_kernel<D>;
     if (err == cudaSuccess) err = flash_allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((n_qb + kDqGroups - 1) / kDqGroups * sh.parts, sh.hkv, b);
-    kernel<<<grid, kDqThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, lse, delta, seg,
+    const dim3 grid((n_qb + dq_groups<D>() - 1) / dq_groups<D>() * sh.parts, sh.hkv, b);
+    kernel<<<grid, dq_threads<D>(), smem, stream>>>(tm_q, tm_do, tm_k, tm_v, lse, delta, seg,
                                                static_cast<T*>(dq), sh, scale);
   } else {
     const size_t smem = sizeof(float) * (2 * (size_t)kRows * (D + 4) +
-                                         2 * (size_t)kKeys * (D + 4) + (size_t)kRows * kPStride);
+                                         2 * (size_t)kKeys * (dq_chunk<D>() + 4) +
+                                         (size_t)kRows * kPStride);
     auto kernel = flash_dq_kernel<T, D>;
     cudaError_t err = flash_allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -774,13 +871,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
     auto kernel = flash_dkv_wgmma_kernel<D>;
     if (err == cudaSuccess) err = flash_allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((n_kb + kDkvGroups - 1) / kDkvGroups, sh.hkv, b);
+    const dim3 grid((n_kb + dkv_tiles<D>() - 1) / dkv_tiles<D>(), sh.hkv, b);
     kernel<<<grid, kDkvThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, lse, delta, seg,
                                                 static_cast<T*>(dk), static_cast<T*>(dv), sh,
                                                 scale);
   } else {
     const size_t smem = sizeof(float) * (2 * (size_t)kKeys * (D + 4) +
-                                         2 * (size_t)kRows * (D + 4) +
+                                         2 * (size_t)kRows * (dkv_chunk<D>() + 4) +
                                          2 * (size_t)kRows * kPStride);
     auto kernel = flash_dkv_kernel<T, D>;
     cudaError_t err = flash_allow_smem(kernel, smem);

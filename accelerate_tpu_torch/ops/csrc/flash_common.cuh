@@ -181,22 +181,22 @@ __device__ __forceinline__ void load_rows(float* dst, int stride, const T* __res
   }
 }
 
-// s[i][j] += <a row ty + 16 i, b row tx + 16 j> over D columns; a and b are
-// f32 shared tiles with row stride D + 4 (16-byte reads of 16 different b
-// rows then fall on distinct banks, two wavefronts per warp).
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a, const float* b,
-                                         int ty, int tx) {
-  constexpr int S = D + 4;
+// s[i][j] += <a row ty + 16 i, b row tx + 16 j> over N columns; a and b
+// are f32 shared tiles with row strides SA and SB, each 4 more than a
+// multiple of 32 (16-byte reads of 16 different b rows then fall on
+// distinct banks, two wavefronts per warp).
+template <int N, int SA, int SB>
+__device__ __forceinline__ void tile_dot_cols(float (&s)[4][4], const float* a, const float* b,
+                                              int ty, int tx) {
 #pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
+  for (int c = 0; c < N; c += 4) {
     float4 av[4], bv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * S + c);
+      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * SA + c);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * S + c);
+      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * SB + c);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -209,6 +209,13 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a, const
         s[i][j] = acc;
       }
   }
+}
+
+// tile_dot_cols over all D columns of two tiles of row stride D + 4.
+template <int D>
+__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a, const float* b,
+                                         int ty, int tx) {
+  tile_dot_cols<D, D + 4, D + 4>(s, a, b, ty, tx);
 }
 
 // Raise the dynamic shared-memory ceiling of `kernel` to `bytes`.
@@ -247,9 +254,16 @@ inline bool flash_shape_ok(int b, int sq, int sk, int hq, int hkv) {
 // cudaErrorInvalidValue for a combination the kernels do not take.  Each
 // launcher picks its arm from T: bf16 K3, K4 and K5 launch their tensor-core
 // kernels, everything else the CUDA-core ones.
+#define ATPU_FLASH_HEAD_DIM(bf16, d, D, LAUNCH) \
+  if (d == D) return bf16 ? LAUNCH(__nv_bfloat16, D) : LAUNCH(float, D);
 #define ATPU_FLASH_DISPATCH(bf16, d, LAUNCH)                            \
   do {                                                                  \
-    if (d == 128) return bf16 ? LAUNCH(__nv_bfloat16, 128) : LAUNCH(float, 128); \
-    if (d == 64) return bf16 ? LAUNCH(__nv_bfloat16, 64) : LAUNCH(float, 64);    \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 128, LAUNCH)                           \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 64, LAUNCH)                            \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 256, LAUNCH)                           \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 96, LAUNCH)                            \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 80, LAUNCH)                            \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 32, LAUNCH)                            \
+    ATPU_FLASH_HEAD_DIM(bf16, d, 16, LAUNCH)                            \
     return static_cast<int>(cudaErrorInvalidValue);                     \
   } while (0)

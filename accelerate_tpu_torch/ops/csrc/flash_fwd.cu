@@ -47,15 +47,20 @@
 // the tile's spare rows are never written; a row of S and O depends on its
 // own Q row only, and a spare row is never stored.  Masks are evaluated
 // only on the tiles that need them; an unmasked tile takes
-// exp(s * scale - m) as one fused multiply-add and one exp2.  Left for
-// later: overlapping a warpgroup's
-// own softmax with its next S product, and persistent CTAs.
+// exp(s * scale - m) as one fused multiply-add and one exp2.  Head dims
+// below and between whole panels (16, 32, 80, 96) run on tiles padded to
+// whole 64-column panels (flash_wgmma.cuh: TMA lands the columns past D as
+// zeros, the epilogue stores D); D 256 runs one consumer warpgroup a CTA
+// (128 O accumulators a thread: two warpgroups would spill) over four
+// panels, P.V as two N-128 products.  Left for later: overlapping a
+// warpgroup's own softmax with its next S product, and persistent CTAs.
 //
 // f32 arm (flash_fwd_kernel): the CUDA cores, so that f32 inputs keep f32
 // products (TF32 keeps ~3 decimal digits).  256 threads; both products are
 // register-tiled (4 x 4 scores and 4 rows x D/16 columns of the accumulator
-// per thread, operands from f32 shared tiles); the softmax statistics never
-// leave registers.
+// per thread, operands from f32 shared tiles; at D 16, 32, 80 and 96 the
+// last column group lies past D on some threads, which neither read nor
+// store it); the softmax statistics never leave registers.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -69,10 +74,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const int* __restrict__ seg, T* __restrict__ out, float* __restrict__ lse,
                  FlashShape sh, float scale) {
   constexpr int QS = D + 4;     // row stride of the q and k tiles
-  constexpr int CPT = D / 64;   // float4 column groups per thread
+  constexpr int CPT = (D / 4 + 15) / 16;  // float4 column groups per thread
   const int qb = blockIdx.x / sh.parts, part = blockIdx.x % sh.parts;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // column group tx + 16 c lies inside D (always, unless D / 4 is no
+  // multiple of 16: D 16, 32, 80, 96)
+  auto in_d = [&](int c) { return (D / 4) % 16 == 0 || tx + 16 * c < D / 4; };
 
   extern __shared__ float4 flash_smem[];
   float* q_s = reinterpret_cast<float*>(flash_smem);  // kRows x QS
@@ -161,7 +169,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float4 vv[CPT];
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
-        vv[c] = *reinterpret_cast<const float4*>(v_s + kk * D + (tx + 16 * c) * 4);
+        vv[c] = in_d(c) ? *reinterpret_cast<const float4*>(v_s + kk * D + (tx + 16 * c) * 4)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = p_s[(ty + 16 * i) * kPStride + kk];
@@ -180,6 +189,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float inv = 1.f / l_safe;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
+      if (!in_d(c)) continue;
       T* o = out + off + (tx + 16 * c) * 4;
       o[0] = flash_from<T>(acc[i][c].x * inv);
       o[1] = flash_from<T>(acc[i][c].y * inv);
@@ -190,27 +200,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-constexpr int kFwdGroups = 2;  // consumer warpgroups of a CTA, one q-block each
-constexpr int kFwdStages = 3;  // K/V stages in the ring
+// Consumer warpgroups of a CTA, one q-block each: two, or one at D 256,
+// where 128 accumulators of O beside S and P would spill under the 224
+// registers a thread of a 288-thread CTA may have, while a lone warpgroup
+// may take 255.  K/V stages in the ring: three (at D 256 one Q tile and
+// three stages of 32 KB tiles are 224 KB, within the SM's 227).
+template <int D> __host__ __device__ constexpr int fwd_groups() { return D > 128 ? 1 : 2; }
+constexpr int kFwdStages = 3;
 // the consumer warpgroups, then one producer warp that issues the TMA loads
-constexpr int kFwdThreads = kFwdGroups * kWarpgroup + 32;
+template <int D> __host__ __device__ constexpr int fwd_threads() {
+  return fwd_groups<D>() * kWarpgroup + 32;
+}
 
 // Shared memory of the bf16 arm: one Q tile per warpgroup, the K/V stages,
 // the ring's full/empty barriers and one barrier per Q tile, after a pad
 // that lets the kernel align its tiles to the swizzle's 1024 bytes.
 template <int D> constexpr size_t fwd_wgmma_smem() {
-  return kSwizzleAlign + (kFwdGroups + 2 * kFwdStages) * (size_t)tile_bytes<D>() +
-         (2 * kFwdStages + kFwdGroups) * sizeof(uint64_t);
+  return kSwizzleAlign + (fwd_groups<D>() + 2 * kFwdStages) * (size_t)tile_bytes<D>() +
+         (2 * kFwdStages + fwd_groups<D>()) * sizeof(uint64_t);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(fwd_threads<D>(), 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, FlashShape sh,
                        float scale) {
   constexpr int TB = tile_bytes<D>();
+  constexpr int kFwdGroups = fwd_groups<D>();
   constexpr float kLog2e = 1.4426950408889634f;
   const int pair = blockIdx.x / sh.parts, part = blockIdx.x % sh.parts;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -256,9 +274,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qb = kFwdGroups * pair + i;
       if (q_block_tiles(sh, qb, part, h) == 0) continue;
       const FoldedRows fr = folded_rows(sh, qb, part, h);
-      mbar_arrive_expect_tx(q_full(i), (D / kPanelCols) * fr.rows * 128);
+      mbar_arrive_expect_tx(q_full(i), tile_panels<D>() * fr.rows * 128);
 #pragma unroll
-      for (int p = 0; p < D / kPanelCols; ++p)
+      for (int p = 0; p < tile_panels<D>(); ++p)
         tma_load_4d(base + TB * i + p * kPanelBytes, &tm_q, q_full(i), p * kPanelCols, fr.head0,
                     fr.q0, b);
     }
@@ -267,7 +285,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (round > 0) mbar_wait(empty(st), (round - 1) & 1);
       mbar_arrive_expect_tx(full(st), 2 * TB);
 #pragma unroll
-      for (int p = 0; p < D / kPanelCols; ++p) {
+      for (int p = 0; p < tile_panels<D>(); ++p) {
         tma_load_4d(k_s(st) + p * kPanelBytes, &tm_k, full(st), p * kPanelCols, h, kb * kKeys, b);
         tma_load_4d(v_s(st) + p * kPanelBytes, &tm_v, full(st), p * kPanelCols, h, kb * kKeys, b);
       }
@@ -291,9 +309,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     m[e] = -INFINITY;
     l[e] = 0.f;
   }
-  float o[D / 2], s[32];
+  float o[tile_cols<D>() / 2], s[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < tile_cols<D>() / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   const float scale_log2 = scale * kLog2e;
@@ -377,7 +395,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         l[e] = alpha[e] * l[e] + sum[e];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < tile_cols<D>() / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
       wgmma_fence();
       mma_probs_by_tile<D>(o, pk, v_s(st));
@@ -417,8 +435,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void
     auto kernel = flash_fwd_wgmma_kernel<D>;
     if (err == cudaSuccess) err = flash_allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((n_qb + kFwdGroups - 1) / kFwdGroups * sh.parts, sh.hkv, b);
-    kernel<<<grid, kFwdThreads, smem, stream>>>(tm_q, tm_k, tm_v, seg, static_cast<T*>(out), lse,
+    const dim3 grid((n_qb + fwd_groups<D>() - 1) / fwd_groups<D>() * sh.parts, sh.hkv, b);
+    kernel<<<grid, fwd_threads<D>(), smem, stream>>>(tm_q, tm_k, tm_v, seg, static_cast<T*>(out), lse,
                                                 sh, scale);
   } else {
     const size_t smem = sizeof(float) * ((size_t)kRows * (D + 4) + (size_t)kKeys * (D + 4) +

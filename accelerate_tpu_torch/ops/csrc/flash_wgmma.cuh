@@ -5,9 +5,9 @@
 // wrappers.  Compiled for sm_90a only: wgmma and setmaxnreg do not exist on
 // plain sm_90.
 //
-// Shared tiles.  A tile of 64 rows x D bf16 columns is stored as D / 64
-// panels of 64 rows x 64 columns, 128 bytes a row, each panel 1024-byte
-// aligned.  In a panel the 16-byte chunk c of row r sits at byte
+// Shared tiles.  A tile of 64 rows x D bf16 columns is stored as
+// tile_panels<D>() = ceil(D / 64) panels of 64 rows x 64 columns, 128 bytes
+// a row, each panel 1024-byte aligned.  In a panel the 16-byte chunk c of row r sits at byte
 // r * 128 + ((c ^ (r % 8)) * 16): the layout that TMA's SWIZZLE_128B writes
 // and that a wgmma descriptor of layout type 1 (128-byte swizzle) reads.
 // Eight consecutive rows then spread one column chunk over all 32 banks.
@@ -46,9 +46,20 @@ constexpr int kPanelCols = 64;              // bf16 columns of a panel (128 byte
 constexpr int kPanelBytes = 64 * 128;       // one panel of a 64-row tile
 constexpr int kSwizzleAlign = 1024;         // the 128-byte swizzle repeats every 8 rows
 
-// Bytes of a 64 x D bf16 tile.
+// Panels of a 64 x D bf16 tile: D rounded up to whole 64-column panels.  A
+// head dim that fills no whole panel (16, 32, 80, 96) keeps its true D in
+// the tensor maps (make_panel_tensor_map), so TMA lands the columns past D
+// as zeros: Q.K^T sums D / 16 depth steps, and P.V accumulates the padded
+// columns, which the epilogues never store.
+template <int D> __host__ __device__ constexpr int tile_panels() {
+  return (D + kPanelCols - 1) / kPanelCols;
+}
+// Columns of a tile (64, 128 or 256) and its bytes.
+template <int D> __host__ __device__ constexpr int tile_cols() {
+  return tile_panels<D>() * kPanelCols;
+}
 template <int D> __host__ __device__ constexpr int tile_bytes() {
-  return (D / kPanelCols) * kPanelBytes;
+  return tile_panels<D>() * kPanelBytes;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -248,17 +259,35 @@ __device__ __forceinline__ void mma_rows_by_rows(float (&s)[32], uint32_t a, uin
   }
 }
 
-// acc[64 x D] += P . B over 64 depth rows: P the 64 x 64 accumulator of an
+// acc[64 x N] += P . B over 64 depth rows: P the 64 x 64 accumulator of an
 // earlier product, rounded to bf16 and packed (pk[i] from its registers 2i
-// and 2i + 1); B a 64 x D tile at shared address b, read MN-major (P.V,
-// P^T.dO, dS^T.Q).
-template <int D>
-__device__ __forceinline__ void mma_probs_by_tile(float (&acc)[D / 2], const uint32_t (&pk)[16],
-                                                  uint32_t b) {
+// and 2i + 1); B the N = 64 or 128 columns (one or two panels) of a 64-row
+// tile from shared address b, read MN-major (P.V, P^T.dO, dS^T.Q).
+template <int N>
+__device__ __forceinline__ void mma_probs_by_panels(float (&acc)[N / 2],
+                                                    const uint32_t (&pk)[16], uint32_t b) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const uint32_t a[4] = {pk[4 * j], pk[4 * j + 1], pk[4 * j + 2], pk[4 * j + 3]};
-    wgmma_rs<D>(acc, a, desc_mn_major(b + j * 16 * 128), 1);
+    wgmma_rs<N>(acc, a, desc_mn_major(b + j * 16 * 128), 1);
+  }
+}
+
+// acc[64 x tile_cols<D>] += P . B over a whole 64 x D tile.  A tile of four
+// panels (D 256) takes two N-128 products, panels 0-1 into acc[0 .. 63] and
+// panels 2-3 into acc[64 .. 127]: the fragment layout of one N-256 product,
+// whose columns 8 i + c sit in acc[4 i ...] for i up to 31.
+template <int D>
+__device__ __forceinline__ void mma_probs_by_tile(float (&acc)[tile_cols<D>() / 2],
+                                                  const uint32_t (&pk)[16], uint32_t b) {
+  constexpr int N = tile_cols<D>();
+  if constexpr (N <= 128) {
+    mma_probs_by_panels<N>(acc, pk, b);
+  } else {
+    static_assert(N == 256, "tiles of at most four panels");
+    mma_probs_by_panels<128>(*reinterpret_cast<float(*)[64]>(&acc[0]), pk, b);
+    mma_probs_by_panels<128>(*reinterpret_cast<float(*)[64]>(&acc[64]), pk,
+                             b + 2 * kPanelBytes);
   }
 }
 
@@ -287,7 +316,8 @@ inline cudaError_t tiled_encoder(TiledEncode* out) {
 
 // Host: a 4D tensor map over a contiguous bf16 [B, S, H, D] tensor (BSHD)
 // whose box is one swizzled panel of 64 columns of `heads` heads x `rows`
-// sequence positions, heads fastest: for K and V a box of 1 head x 64 keys,
+// sequence positions, heads fastest (columns past D, in the last panel of a
+// D that is no multiple of 64, land as zeros): for K and V a box of 1 head x 64 keys,
 // for Q and dO a folded q-block (rep heads x block_q queries, query-major
 // as the kernels fold them).  A box never crosses from one batch into the
 // next, and positions past S land as zeros.  The KV page pool [NP, page,

@@ -77,6 +77,16 @@
 //    products stay on the CUDA cores in f32: the bound is bytes, and the
 //    TPU kernel computes in f32.
 //
+// 7. Head dims 16 to 256 (16, 32, 64, 80, 96, 128, 256).  A key row is D
+//    elements, 16-byte chunks of it copied by the threads that a whole
+//    number of rows' chunks keeps busy (at D 80 and 96 the chunks do not
+//    divide the 128 threads: the spare ones copy nothing).  Q.K^T's pieces
+//    split over a key's four lanes unevenly where they must (D 80: ten bf16
+//    pieces, five int8); P.V's columns run in contiguous vectors a lane
+//    where D / 32 is a power of two, else interleaved (column lane + 32 c,
+//    those past D masked).  At D 256 a stage of f32 rows is 65 KB and the
+//    CTA 205 KB: one CTA an SM for f32 pages, two for bf16.
+//
 // What limits it (PERF.md §6): each CTA's walk is latency-bound, a tile of
 // 32 keys waiting microseconds for its copies, so the bytes in flight per
 // SM (the ring times the CTAs that fit) set the rate.  On an H100 a deeper
@@ -158,7 +168,13 @@ __device__ __forceinline__ void load_f32(const T* p, float (&o)[N]) {
   } else {
     constexpr int W = N / Words<T>::kPerWord;
     unsigned w[W];
-    if constexpr (W == 4) {
+    if constexpr (W > 4) {  // f32 at D 256: two or more 16-byte loads
+#pragma unroll
+      for (int i = 0; i < W / 4; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+        w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z; w[4 * i + 3] = v.w;
+      }
+    } else if constexpr (W == 4) {
       const uint4 v = *reinterpret_cast<const uint4*>(p);
       w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
     } else if constexpr (W == 2) {
@@ -206,14 +222,25 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   constexpr int CPR = D / EPC;           // chunks per key row (a row is >= 16 bytes)
   constexpr int KL = kDecodeKeyLanes;
   // Q.K^T: each of a key's KL lanes sums the pieces t, t + KL, ... of PE
-  // elements (a 16-byte chunk, or a quarter of a short row)
+  // elements (a 16-byte chunk, or a quarter of a short row); where the
+  // pieces do not split evenly over the KL lanes (D 80 and 96 over bf16 or
+  // 1-byte pages: 10, 5 or 6 pieces) the last round takes only the first
+  // lanes, and no lane reads past its key's row
   constexpr int PE = EPC < D / KL ? EPC : D / KL;
-  constexpr int PPL = D / PE / KL;       // pieces per lane
-  constexpr int VPL = D >= 32 ? D / 32 : 1;  // P.V columns per lane (D 16: half the lanes)
-  // threads that copy: each owns one chunk column of RPT key rows
-  constexpr int COPIERS = TK * CPR < NT ? TK * CPR : NT;
-  static_assert(COPIERS % CPR == 0 && TK % (COPIERS / CPR) == 0 && PE % 4 == 0 &&
-                    D % (PE * KL) == 0, "tile shape");
+  constexpr int NPC = D / PE;                  // pieces of a key row
+  constexpr int PPL = (NPC + KL - 1) / KL;     // pieces per lane, the last maybe absent
+  // P.V: the 32 lanes split D.  A power-of-two share runs in contiguous
+  // runs of VPL columns (one vector load; D 16: half the lanes); D 80 and
+  // 96 (2.5 and 3 columns a lane) interleave: column lane + 32 c, the
+  // columns past D (D 80: c = 2 on lanes 16-31) masked
+  constexpr int VPL = D >= 32 ? (D + 31) / 32 : 1;
+  constexpr bool kStrided = D >= 32 && (D % 32 != 0 || (VPL & (VPL - 1)) != 0);
+  // threads that copy: each owns one chunk column of RPT key rows, RSTEP
+  // rows apart (at D 80 and 96 the chunks of a row do not divide the 128
+  // threads: the spare threads copy nothing, the last round of rows is short)
+  constexpr int RSTEP = NT / CPR < TK ? NT / CPR : TK;
+  constexpr int COPIERS = RSTEP * CPR;
+  static_assert(RSTEP >= 1 && PE % 4 == 0 && D % PE == 0 && D % 16 == 0, "tile shape");
 
   const int gs_all = (hq / hkv) * s_len;  // folded rows of the kv head
   const int nrb = (gs_all + kDecodeRows - 1) / kDecodeRows;
@@ -248,15 +275,18 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   // COPIERS threads owns one 16-byte column of RPT key rows, RSTEP rows
   // apart.  The rows' page ids are read from the table a tile ahead of
   // their copies, so no copy waits on a table read.
-  constexpr int RSTEP = COPIERS / CPR, RPT = TK / RSTEP;
+  constexpr int RPT = (TK + RSTEP - 1) / RSTEP;
   const int col = tid % CPR, row0 = tid / CPR;
   const bool copier = COPIERS == NT || tid < COPIERS;  // all threads for rows >= 64 bytes
   const bool scaled = k_scales != nullptr;  // no scales: native pages, ones
+  // a row of the stage: always, unless the rows do not divide into RSTEP runs
+  auto in_tile = [&](int row) { return TK % RSTEP == 0 || row < TK; };
   auto fetch = [&](int tile, int (&ids)[RPT]) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int key = k0 + tile * TK + row0 + i * RSTEP;
-      ids[i] = copier && key < k1 ? __ldg(tables + (size_t)n * num_p + key / page) : 0;
+      const int row = row0 + i * RSTEP, key = k0 + tile * TK + row;
+      ids[i] = copier && in_tile(row) && key < k1
+                   ? __ldg(tables + (size_t)n * num_p + key / page) : 0;
     }
   };
   auto issue = [&](int tile, int st, const int (&ids)[RPT]) {
@@ -265,7 +295,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int row = row0 + i * RSTEP, key = k0 + tile * TK + row;
-      if (copier && key < k1) {
+      if (copier && in_tile(row) && key < k1) {
         const size_t off = (((size_t)ids[i] * page + key % page) * hkv + h) * D + col * EPC;
         cp_async16(kdst + row * L::kRow + col * 16, pages_k + off);
         cp_async16(vdst + row * L::kRow + col * 16, pages_v + off);
@@ -339,6 +369,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
 #pragma unroll
       for (int ci = 0; ci < PPL; ++ci) {
         const int c = t + KL * ci;
+        if (NPC % KL != 0 && c >= NPC) break;  // the short last round
         float kf[PE];
         load_f32<KT, PE>(reinterpret_cast<const KT*>(krow) + c * PE, kf);
 #pragma unroll
@@ -419,9 +450,13 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
     for (int jj = 0; jj < WK; ++jj) {
       if (jj < nk) {
         float vf[VPL];
-        if (pv_lane) {
-          load_f32<KT, VPL>(
-              reinterpret_cast<const KT*>(vtile + (warp * WK + jj) * L::kRow) + lane * VPL, vf);
+        const KT* vrow = reinterpret_cast<const KT*>(vtile + (warp * WK + jj) * L::kRow);
+        if constexpr (kStrided) {
+#pragma unroll
+          for (int c = 0; c < VPL; ++c)
+            vf[c] = lane + 32 * c < D ? to_f32(vrow[lane + 32 * c]) : 0.f;
+        } else if (pv_lane) {
+          load_f32<KT, VPL>(vrow + lane * VPL, vf);
         } else {
 #pragma unroll
           for (int c = 0; c < VPL; ++c) vf[c] = 0.f;
@@ -471,7 +506,9 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
         if (r < gs) {
 #pragma unroll
           for (int c = 0; c < VPL; ++c) {
-            float* dst = red + r * D + lane * VPL + c;
+            const int column = kStrided ? lane + 32 * c : lane * VPL + c;
+            if (kStrided && column >= D) continue;
+            float* dst = red + r * D + column;
             *dst = (w == 0 ? 0.f : *dst) + acc[r][c];
           }
         }

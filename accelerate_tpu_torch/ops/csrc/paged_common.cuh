@@ -3,7 +3,8 @@
 // loader and the launch dispatch over (q dtype, page format, head dim).
 //
 // Layout contract, identical to accelerate_tpu/ops/paged_attention.py:
-//   q, out   [N, S, Hq, D]        f32 or bf16, contiguous; D 16, 32, 64 or 128
+//   q, out   [N, S, Hq, D]        f32 or bf16, contiguous; D 16, 32, 64, 80, 96,
+//                                 128 or 256
 //   pages    [NP, page, Hkv, D]   f32, bf16, int8 or fp8-e4m3, contiguous (one layer)
 //   scales   [NP, Hkv]            f32 dequantization scales (ones for native pages):
 //                                 a page's value is its code times its scale
@@ -147,6 +148,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   do {                                                                              \
     ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 128, LAUNCH)                              \
     ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 64, LAUNCH)                               \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 256, LAUNCH)                              \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 96, LAUNCH)                               \
+    ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 80, LAUNCH)                               \
     ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 32, LAUNCH)                               \
     ATPU_HEAD_DIM_CASE(q_bf16, kv_fmt, d, 16, LAUNCH)                               \
     return static_cast<int>(cudaErrorInvalidValue);                                 \

@@ -33,9 +33,9 @@
 // keys up to the block's causal frontier: pages past it are never read, and
 // each K/V tile serves all the block's rows (every head of the GQA group).
 //
-// bf16 q over bf16, int8 or fp8-e4m3 pages, D 64 or 128, a page of 8, 16
-// or 32 keys or a multiple of 64 (paged_prefill_wgmma_kernel): the tensor
-// cores, K3's design
+// bf16 q over bf16, int8 or fp8-e4m3 pages, D 64, 80, 96, 128 or 256, a
+// page of 8, 16 or 32 keys or a multiple of 64 (paged_prefill_wgmma_kernel):
+// the tensor cores, K3's design
 // (flash_fwd.cu, flash_wgmma.cuh) over the page pool.  One consumer
 // warpgroup owns the q-block (wgmma's M) and one producer warp feeds it by
 // TMA: the folded q-block is one box per 64-column panel of the [N, S, Hq,
@@ -75,13 +75,22 @@
 // The codes' stages hold half the bytes of a bf16 stage, so the two
 // converted tiles keep the CTA at the native arm's 82 KB.
 //
+// Head dims.  D 80 and 96 run on two-panel (128-column) tiles: the tensor
+// maps keep the true D, so TMA lands the columns past D as zeros (and the
+// converted tiles of codes zero theirs once), Q.K^T sums D / 16 depth steps,
+// P.V accumulates 128 columns and the epilogue stores D.  D 256 runs four
+// panels, P.V as two N-128 products, one CTA an SM (160 KB of tiles, 128
+// accumulators a thread).
+//
 // Every other call (f32 or mixed dtypes, f32 q over quantized pages, other
 // page sizes, D 16 and 32: paged_prefill_kernel): the CUDA cores, in f32
 // from the page dtype (quantized codes times their scale) with q
 // scaled by D^-0.5 before the product (:514), as the TPU kernel computes.
-// Each page tile is loaded into f32 shared memory once per q-block; logits
-// and PV are register-tiled (8 rows per thread sharing one K row or one V
-// column group).
+// Each page tile is loaded into f32 shared memory once per q-block (at D
+// 256 a page of more than 64 keys in tiles of half a page or less, whose
+// f32 tiles fit the SM); logits and PV are register-tiled (8 rows per
+// thread sharing one K row or one V column group; at D 80 and 96 the column
+// groups do not divide the 256 threads, and the spare ones take no row).
 #include "flash_wgmma.cuh"
 #include "paged_common.cuh"
 
@@ -105,14 +114,17 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
                      const KT* __restrict__ pages_v, const float* __restrict__ k_scales,
                      const float* __restrict__ v_scales, const int* __restrict__ tables,
                      const int* __restrict__ lengths, QT* __restrict__ out, int s_len, int hq,
-                     int hkv, int gsplit, int page, int num_p, int block_q, float scale) {
+                     int hkv, int gsplit, int page, int tile, int num_p, int block_q,
+                     float scale) {
   constexpr int NT = kPrefillThreads;
   constexpr int ROWS = kPrefillRows;
   constexpr int NW = NT / 32;
   constexpr int KS = D + 4;      // padded K row: conflict-free float4 reads across rows
   constexpr int CG = D / 4;      // float4 column groups of a row
-  constexpr int NRG = NT / CG;   // row groups of the PV phase
-  constexpr int PVK = ROWS / NRG;
+  // row groups of the PV phase; where CG does not divide the threads (D 80,
+  // 96) the spare threads take no row
+  constexpr int NRG = NT / CG;
+  constexpr int PVK = (ROWS + NRG - 1) / NRG;
   constexpr int QKK = ROWS / NW;
 
   const int qb = blockIdx.x;
@@ -123,12 +135,14 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   const int rows = block_q * rep;
   const int q0 = qb * block_q;
 
+  // a key tile is `tile` keys of one page: the whole page, or (D 256 with
+  // pages of more than 64 keys, whose f32 tiles would not fit) a part of it
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // page x KS
-  float* v_s = k_s + page * KS;                   // page x D
-  float* q_s = v_s + page * D;                    // ROWS x D
-  float* p_s = q_s + ROWS * D;                    // ROWS x page: logits, then probabilities
-  float* m_s = p_s + ROWS * page;                 // ROWS running max
+  float* k_s = reinterpret_cast<float*>(smem4);  // tile x KS
+  float* v_s = k_s + tile * KS;                   // tile x D
+  float* q_s = v_s + tile * D;                    // ROWS x D
+  float* p_s = q_s + ROWS * D;                    // ROWS x tile: logits, then probabilities
+  float* m_s = p_s + ROWS * tile;                 // ROWS running max
   float* l_s = m_s + ROWS;                        // ROWS running denominator
   float* a_s = l_s + ROWS;                        // ROWS rescale factor of this page
 
@@ -154,6 +168,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   }
 
   const int c4 = threadIdx.x % CG, rg = threadIdx.x / CG;
+  const bool pv_thread = NT % CG == 0 || rg < NRG;
   float4 acc[PVK];
 #pragma unroll
   for (int k = 0; k < PVK; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -163,18 +178,19 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   const size_t row_stride = (size_t)hkv * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int p = 0; p < num_p && p * page <= frontier; ++p) {
+  for (int kt = 0; kt < num_p * page && kt <= frontier; kt += tile) {
+    const int p = kt / page;
     const int pid = tables[n * num_p + p];
-    const size_t base = ((size_t)pid * page * hkv + h) * D;
-    __syncthreads();  // the previous page's readers are done with the tiles
-    load_kv_tiles<KT, D, NT>(k_s, KS, v_s, pages_k + base, pages_v + base, row_stride, page,
+    const size_t base = (((size_t)pid * page + kt % page) * hkv + h) * D;
+    __syncthreads();  // the previous tile's readers are done with the tiles
+    load_kv_tiles<KT, D, NT>(k_s, KS, v_s, pages_k + base, pages_v + base, row_stride, tile,
                              k_scales[pid * hkv + h], v_scales[pid * hkv + h]);
     __syncthreads();
 
     // logits: lane -> key, warp -> rows warp, warp + NW, ...
-    for (int jc = 0; jc < page; jc += 32) {
+    for (int jc = 0; jc < tile; jc += 32) {
       const int j = jc + lane;
-      if (j < page) {
+      if (j < tile) {
         const float4* kr = reinterpret_cast<const float4*>(k_s + j * KS);
         float sc[QKK];
 #pragma unroll
@@ -186,11 +202,11 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
           for (int k = 0; k < QKK; ++k)
             sc[k] += dot4(reinterpret_cast<const float4*>(q_s + (warp + NW * k) * D)[c], kv);
         }
-        const int pos = p * page + j;
+        const int pos = kt + j;
 #pragma unroll
         for (int k = 0; k < QKK; ++k) {
           const int r = warp + NW * k;
-          p_s[r * page + j] = (pos <= length + query_of(r)) ? sc[k] : kMaskValue;
+          p_s[r * tile + j] = (pos <= length + query_of(r)) ? sc[k] : kMaskValue;
         }
       }
     }
@@ -198,14 +214,14 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
 
     // online softmax: one warp per row
     for (int r = warp; r < rows; r += NW) {
-      float* pr = p_s + r * page;
+      float* pr = p_s + r * tile;
       float mx = -INFINITY;
-      for (int j = lane; j < page; j += 32) mx = fmaxf(mx, pr[j]);
+      for (int j = lane; j < tile; j += 32) mx = fmaxf(mx, pr[j]);
       mx = warp_max(mx);
       const float m_prev = m_s[r];
       const float m_next = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int j = lane; j < page; j += 32) {
+      for (int j = lane; j < tile; j += 32) {
         const float e = expf(pr[j] - m_next);
         pr[j] = e;
         sum += e;
@@ -221,21 +237,23 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
     __syncthreads();
 
     // PV: each thread owns a float4 column group of rows rg, rg + NRG, ...
-#pragma unroll
-    for (int k = 0; k < PVK; ++k) {
-      const int r = rg + NRG * k;
-      if (r < rows) {
-        const float alpha = a_s[r];
-        acc[k] = make_float4(acc[k].x * alpha, acc[k].y * alpha, acc[k].z * alpha,
-                             acc[k].w * alpha);
-      }
-    }
-    for (int j = 0; j < page; ++j) {
-      const float4 vv = reinterpret_cast<const float4*>(v_s + j * D)[c4];
+    if (pv_thread) {
 #pragma unroll
       for (int k = 0; k < PVK; ++k) {
         const int r = rg + NRG * k;
-        if (r < rows) acc[k] = fma4(p_s[r * page + j], vv, acc[k]);
+        if (r < rows) {
+          const float alpha = a_s[r];
+          acc[k] = make_float4(acc[k].x * alpha, acc[k].y * alpha, acc[k].z * alpha,
+                               acc[k].w * alpha);
+        }
+      }
+      for (int j = 0; j < tile; ++j) {
+        const float4 vv = reinterpret_cast<const float4*>(v_s + j * D)[c4];
+#pragma unroll
+        for (int k = 0; k < PVK; ++k) {
+          const int r = rg + NRG * k;
+          if (r < rows) acc[k] = fma4(p_s[r * tile + j], vv, acc[k]);
+        }
       }
     }
   }
@@ -244,7 +262,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   for (int k = 0; k < PVK; ++k) {
     const int r = rg + NRG * k;
     const int qi = q0 + r / rep;
-    if (r < rows && qi < s_len) {
+    if (pv_thread && r < rows && qi < s_len) {
       const float l = l_s[r];
       const float inv = 1.f / (l == 0.f ? 1.f : l);
       const int head = hg * rep + r % rep;
@@ -257,6 +275,13 @@ paged_prefill_kernel(const QT* __restrict__ q, const KT* __restrict__ pages_k,
   }
 }
 
+// Shared memory of the CUDA-core arm for key tiles of `tile` keys.
+template <int D> size_t prefill_smem(int tile) {
+  return sizeof(float) * ((size_t)tile * (D + 4) + (size_t)tile * D + (size_t)kPrefillRows * D +
+                          (size_t)kPrefillRows * tile + 3 * (size_t)kPrefillRows);
+}
+constexpr size_t kMaxCtaSmem = 227 * 1024;  // a CTA's share of an H100 SM
+
 template <typename QT, typename KT, int D>
 int launch_prefill(const void* q, const void* pages_k, const void* pages_v,
                    const float* k_scales, const float* v_scales, const int* tables,
@@ -268,16 +293,18 @@ int launch_prefill(const void* q, const void* pages_k, const void* pages_v,
   int block_q = kPrefillRows / rep;
   if (block_q > s) block_q = s;
   const int n_qb = (s + block_q - 1) / block_q;
-  const size_t smem =
-      sizeof(float) * ((size_t)page * (D + 4) + (size_t)page * D + (size_t)kPrefillRows * D +
-                       (size_t)kPrefillRows * page + 3 * (size_t)kPrefillRows);
+  // a whole page a key tile, halved while its f32 tiles overflow the SM
+  // (D 256 over pages of 128 keys: tiles of 64)
+  int tile = page;
+  while (prefill_smem<D>(tile) > kMaxCtaSmem && tile % 2 == 0) tile /= 2;
+  const size_t smem = prefill_smem<D>(tile);
   auto kernel = paged_prefill_kernel<QT, KT, D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(n_qb, hkv * gsplit, n), kPrefillThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(pages_k),
       static_cast<const KT*>(pages_v), k_scales, v_scales, tables, lengths,
-      static_cast<QT*>(out), s, hq, hkv, gsplit, page, num_p, block_q, scale);
+      static_cast<QT*>(out), s, hq, hkv, gsplit, page, tile, num_p, block_q, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,7 +366,9 @@ __device__ __forceinline__ uint4 codes_to_bf16(uint2 w, float scale, __nv_fp8_e4
 // The consumer warpgroup converts a stage of codes (NK rows of D bytes),
 // each key's times its scale, into a bf16 tile in the swizzled panel
 // layout (flash_wgmma.cuh): 16-byte chunk c of row r of panel p at
-// p * kPanelBytes + r * 128 + ((c ^ (r % 8)) * 16).
+// p * kPanelBytes + r * 128 + ((c ^ (r % 8)) * 16).  It writes the D / 8
+// chunks of a row only: at D 80 and 96 the last panel's chunks past D are
+// zeroed once (zero_tile_pad) and never written again.
 template <int D, typename KT>
 __device__ __forceinline__ void convert_tile(uint32_t dst, const unsigned char* codes,
                                              const float* key_scales, int tid) {
@@ -355,8 +384,22 @@ __device__ __forceinline__ void convert_tile(uint32_t dst, const unsigned char* 
   }
 }
 
+// Zero the chunks past D of every row of a converted tile (D 80, 96).
+template <int D>
+__device__ __forceinline__ void zero_tile_pad(uint32_t dst, int tid) {
+  constexpr int PAD = tile_cols<D>() / 8 - D / 8;  // 16-byte chunks past D a row
+  if constexpr (PAD > 0) {
+    for (int e = tid; e < kPrefillKeys * PAD; e += kWarpgroup) {
+      const int r = e / PAD, c = D / 8 + e % PAD;
+      const uint32_t at = dst + (c / 8) * kPanelBytes + r * 128 + (((c % 8) ^ (r % 8)) * 16);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" :: "r"(at), "r"(0) : "memory");
+    }
+  }
+}
+
+// Two CTAs an SM; at D 256 one (its 160 KB of tiles, 128 accumulators a thread).
 template <int D, typename KT>
-__global__ void __launch_bounds__(kPrefillTcThreads, 2)
+__global__ void __launch_bounds__(kPrefillTcThreads, D > 128 ? 1 : 2)
 paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -420,9 +463,9 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = tid - kWarpgroup;
     const int box_keys = min(page, NK);
     if (lane == 0) {
-      mbar_arrive_expect_tx(q_full, (D / kPanelCols) * rows * 128);
+      mbar_arrive_expect_tx(q_full, tile_panels<D>() * rows * 128);
 #pragma unroll
-      for (int p = 0; p < D / kPanelCols; ++p)
+      for (int p = 0; p < tile_panels<D>(); ++p)
         tma_load_4d(q_s + p * kPanelBytes, &tm_q, q_full, p * kPanelCols, hg * rep, q0, n);
     }
     for (int kt = 0; kt < n_kt; ++kt) {
@@ -440,7 +483,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             tma_load_4d(v_s(st) + dst, &tm_v, full(st), 0, h, key0 % page, pid);
           } else {
 #pragma unroll
-            for (int c = 0; c < D / kPanelCols; ++c) {
+            for (int c = 0; c < tile_panels<D>(); ++c) {
               const uint32_t dst = c * kPanelBytes + i * box_keys * 128;
               tma_load_4d(k_s(st) + dst, &tm_k, full(st), c * kPanelCols, h, key0 % page, pid);
               tma_load_4d(v_s(st) + dst, &tm_v, full(st), c * kPanelCols, h, key0 % page, pid);
@@ -473,11 +516,16 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     m[e] = -INFINITY;
     l[e] = 0.f;
   }
-  float o[D / 2], s[32];
+  float o[tile_cols<D>() / 2], s[32];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < tile_cols<D>() / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  if constexpr (kCodes) {
+    // the first tile's convert fences these stores for wgmma and syncs
+    zero_tile_pad<D>(kc_s, tid);
+    zero_tile_pad<D>(vc_s, tid);
+  }
 
   mbar_wait(q_full, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -550,7 +598,7 @@ paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[e] = alpha[e] * l[e] + sum[e];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    for (int i = 0; i < tile_cols<D>() / 2; ++i) o[i] *= alpha[(i / 2) % 2];
 
     wgmma_fence();
     mma_probs_by_tile<D>(o, pk, vt_s);
@@ -620,14 +668,15 @@ int launch_prefill_wgmma(const void* q, const void* pages_k, const void* pages_v
                                     lengths, out, n, s, hq, hkv, page, num_pages, num_p,   \
                                     scale, static_cast<cudaStream_t>(stream))
 
-// The tensor-core arms: bf16, int8 and fp8-e4m3 pages, at D 64 and 128.
+// The tensor-core arms: bf16, int8 and fp8-e4m3 pages, at D 64, 80, 96, 128
+// and 256.
 #define ATPU_WGMMA_PAGES(D)                                                              \
   if (kv_fmt == 1) return ATPU_LAUNCH_PREFILL_WGMMA(D, __nv_bfloat16);                   \
   if (kv_fmt == 2) return ATPU_LAUNCH_PREFILL_WGMMA(D, int8_t);                          \
   if (kv_fmt == 3) return ATPU_LAUNCH_PREFILL_WGMMA(D, __nv_fp8_e4m3);
 
 // tensor_cores = 1 asks for the tensor-core arm, which takes bf16 q over
-// bf16, int8 or fp8-e4m3 pages, D 64 or 128, any GQA group
+// bf16, int8 or fp8-e4m3 pages, D 64, 80, 96, 128 or 256, any GQA group
 // and a page that prefill_wgmma_page_ok accepts; the entry point refuses
 // anything else rather than run another arm.  kv_fmt: 0 f32, 1 bf16, 2 int8,
 // 3 fp8-e4m3.
@@ -644,6 +693,12 @@ extern "C" int atpu_paged_prefill(const void* q, const void* pages_k, const void
       ATPU_WGMMA_PAGES(128)
     } else if (d == 64) {
       ATPU_WGMMA_PAGES(64)
+    } else if (d == 256) {
+      ATPU_WGMMA_PAGES(256)
+    } else if (d == 96) {
+      ATPU_WGMMA_PAGES(96)
+    } else if (d == 80) {
+      ATPU_WGMMA_PAGES(80)
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -46,7 +46,8 @@ from . import _build
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128)
+#: head dims the three kernels take (``ATPU_FLASH_DISPATCH``); any other D raises
+_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 
 
 def _scale(scale: Optional[float], d: int) -> float:

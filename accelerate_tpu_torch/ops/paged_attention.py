@@ -62,9 +62,11 @@ KV_FORMATS = {
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: page dtype -> the C ABI's page-format code (``ATPU_DISPATCH``)
 _PAGE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
-_HEAD_DIMS = (16, 32, 64, 128)
-#: head dims of K2's tensor-core arm (64-column wgmma panels)
-_WGMMA_HEAD_DIMS = (64, 128)
+#: head dims both kernels take (``ATPU_DISPATCH``); any other D raises
+_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+#: head dims of K2's tensor-core arm (64-column wgmma panels; D 80 and 96
+#: fill two, the columns past D landing as zeros)
+_WGMMA_HEAD_DIMS = (64, 80, 96, 128, 256)
 
 
 def kv_storage_dtype(kv_dtype: Optional[str], native: torch.dtype) -> torch.dtype:
@@ -385,10 +387,10 @@ PREFILL_MAX_GROUP = 64
 def prefill_design(q_dtype: torch.dtype, page_dtype: torch.dtype, page: int, d: int) -> str:
     """The arm of K2 a call takes, from its dtypes, page size and head dim
     alone: ``"wgmma"`` (the tensor cores) for bf16 q over bf16, int8 or fp8
-    pages with a page of 8, 16 or 32 keys or a multiple of 64 and D 64 or
-    128; ``"cuda-cores"`` otherwise (f32 or mixed native dtypes keep f32
-    products; other pages do not tile into 64-key boxes; D 16 and 32 fill
-    no 64-column panel).  Quantized pages reach the tensor cores as bf16
+    pages with a page of 8, 16 or 32 keys or a multiple of 64 and D 64, 80,
+    96, 128 or 256; ``"cuda-cores"`` otherwise (f32 or mixed native dtypes
+    keep f32 products; other pages do not tile into 64-key boxes; D 16 and
+    32 stay on the CUDA cores).  Quantized pages reach the tensor cores as bf16
     tiles made in shared memory: each code times its page's scale, rounded
     once, as the reference dequantizes a tile for a bf16 product."""
     if q_dtype == torch.bfloat16 and page_dtype in (torch.bfloat16, torch.int8,
@@ -542,8 +544,8 @@ def paged_flash_prefill(q, pages_k, pages_v, tables, lengths, k_scales=None,
     :func:`paged_flash_prefill_reference`; a CUDA ``q`` launches
     ``csrc/paged_prefill.cu`` or raises: on the tensor cores where
     :func:`prefill_design` says ``"wgmma"`` (bf16 q over bf16, int8 or fp8
-    pages, a page of 8, 16 or 32 keys or a multiple of 64, D 64 or 128;
-    bf16 operands with f32 sums, the probabilities rounded to bf16 before
+    pages, a page of 8, 16 or 32 keys or a multiple of 64, D 64, 80, 96,
+    128 or 256; bf16 operands with f32 sums, the probabilities rounded to bf16 before
     P.V), else on the CUDA cores in f32.  A GQA group of more than
     :data:`PREFILL_MAX_GROUP` query heads per kv head splits into q-blocks
     of its head groups, in both arms.  Graph-safe: the tensor-core arm's

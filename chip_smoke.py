@@ -30,6 +30,11 @@ Phases, each printing one JSON line:
    ``TreeSpec(3, 3)`` at GQA 32/8 (40 folded rows); the 32-node
    ``TreeSpec(31, 1)`` (word bit 31); a random 20-node tree (the words are
    data); a tree across a page edge (lengths 127/128); int8 and fp8 pages.
+   Then the head dims of the wide- and narrow-head families at their
+   decode shapes (``WIDE_HEAD_SHAPES``: Gemma-7B's 16 heads of D 256,
+   Gemma-2B's 8 over one kv head, Phi-2's 32 of D 80, Phi-3-mini's 32 of D
+   96), bf16 and f32 q over native, int8 and fp8 pages, and the tree arm at
+   S 9 at each of D 256, 80 and 96.
    Each record names the ``design`` and the ``arm``,
    its pages per split and row blocks; each is also held per (lane, query,
    head) row, ``||err|| / ||plain||`` against the plain version computed
@@ -42,9 +47,12 @@ Phases, each printing one JSON line:
    then int8 and fp8 pages as for K1 (bf16 q on the tensor cores, the codes
    converted to bf16 tiles; f32 q on the CUDA cores), D 16 and 32, and a
    GQA group of 128 query heads per kv head (two q-blocks of 64 heads over
-   the same kv head's pages).
+   the same kv head's pages), and the wide-head shapes' 512-token chunk at
+   base 0 under both designs over every page format, with 128-token chunks
+   at D 256, 80 and 96 (the last over int8 pages of 16).
    Each record names its ``design`` (``wgmma`` for bf16 q over bf16, int8
-   or fp8 pages at D 64/128, ``cuda-cores`` otherwise); every case must
+   or fp8 pages at D 64, 80, 96, 128 and 256, ``cuda-cores`` otherwise);
+   every case must
    repeat bit for bit, and the bf16 records are also held per tile of 64
    positions of one head against the plain version computed in f32.
 4. ``model``   — the full-width, full-depth Llama-2-7B geometry (random
@@ -149,6 +157,12 @@ Phases, each printing one JSON line:
    launches a decode step, K2 32 a chunk, every token within the noise margin,
    decode ms a step, serve tokens/s and the peak memory) and
    ``engine_neox_sync_eager`` (tokens identical to ``engine_neox``'s);
+   ``gemma_config``, ``model_gemma``, ``engine_gemma`` and
+   ``engine_gemma_sync_eager`` the same for Gemma-7B (``hf_compat.GEMMA_7B``:
+   28 layers, 16 heads of D 256, hidden 3072, tied 256000-row head; K1 and
+   K2 28 launches a step and a chunk), and ``phi2_config``, ``model_phi2``,
+   ``engine_phi2`` and ``engine_phi2_sync_eager`` for Phi-2
+   (``hf_compat.PHI_2``: 32 layers, 32 heads of D 80; 32 and 32);
    ``model_gpt2`` and ``engine_gpt2``: ``TransformerConfig.gpt2()`` at full
    width and depth (learned positions, tied head, tanh gelu, 12 heads of D 64)
    at ``max_len=1024`` with prompts of ``GPT2_LENS``; ``families``: each
@@ -157,18 +171,24 @@ Phases, each printing one JSON line:
    against the same forward through their plain versions, and for the
    sliding-window and alibi families (which the kernels refuse, as the
    reference's do) the plain paged forward, launching neither kernel, held
-   against the no-cache forward.  K1 and K2 also take the families' shapes:
+   against the no-cache forward; six more sets at their published head dims
+   (Gemma-2B's 8 heads of D 256 over one kv head, GPT-J's D 256, Phi-2's,
+   StableLM-3B's and CodeGen-2B's D 80 at hidden 2560, Phi-3-mini's D 96 at
+   3072 without its window).  K1 and K2 also take the families' shapes:
    GPT-2's 12 heads of D 64 and Falcon-7B's 71 query heads over one kv head.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
-   at S 1024, non-causal at S 512, and GQA 32/8 at D 64; K4 and K5 run twice
+   at S 1024, non-causal at S 512, GQA 32/8 at D 64, 32 and 16, and the
+   wide-head shapes (``WIDE_HEAD_SHAPES``) at B 2, S 2048, causal, bf16 and
+   f32; K4 and K5 run twice
    and must give the same bits.  Each line: max abs error beside its
    tolerance, the largest relative error of a tile of 64 positions of one
    head beside its own tolerance, kernel, plain, bound and library
    (``scaled_dot_product_attention``, device time of all its kernels per
-   call) ms, the case's launches, and the kernel's ``design`` (``wgmma`` for
-   the bf16 arms, ``cuda-cores`` for the f32 arms).  The device line names
+   call in a replayed graph) ms, the case's launches, and the kernel's ``design`` (``wgmma`` for
+   the bf16 arms, ``cuda-cores`` for the f32 arms); a kernel or library time
+   below its bound fails the run.  The device line names
    every kernel whose build spills registers; a tensor-core kernel that
    spills fails the run.
 7. ``train``   — the serving model freed, ``TransformerConfig.llama2_7b`` at
@@ -202,12 +222,19 @@ Phases, each printing one JSON line:
    by ``load_model_params``, bitwise the masters cast to bf16.  Bytes,
    seconds and GB/s of the save, load, export and import; the free space
    of the temp dir is checked first and the directory removed after.
+   ``train_gemma``: ``train``'s loop and checks at Gemma-7B's widths and 2
+   of its 28 layers (``gemma_train_config``: 16 heads of D 256, the tied
+   256000-row head), K3-K5 2 launches each a micro-step.
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
    their engine runs; K1 and K2 also with ``engine_prefix``'s,
    ``engine_neox``'s and ``engine_gpt2``'s launches,
-   K3-K5 also with ``train_api``'s),
+   K3-K5 also with ``train_api``'s; each head dim past 64 and 128 its own
+   entry: K1 and K2 at D 256 on ``engine_gemma``, D 80 on ``engine_phi2``,
+   D 96 on ``families``' ``phi3_d96``; K3-K5 at D 256 on ``train_gemma``,
+   at D 80, 96, 32 and 16 on their own kernel cases; ``launches_on`` names
+   the path each count comes from),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -454,6 +481,27 @@ def kernel_phase(name, kernel, plain, fragment, cases, describe, extra_checks):
     return records
 
 
+#: the wide- and narrow-head families' attention shapes: label -> (query
+#: heads, kv heads, D) of Gemma-7B, Gemma-2B, Phi-2 and Phi-3-mini
+WIDE_HEAD_SHAPES = {"gemma7b_d256": (16, 16, 256), "gemma2b_mq8_d256": (8, 1, 256),
+                    "phi2_d80": (32, 32, 80), "phi3_d96": (32, 32, 96)}
+#: (q dtype, page format) of each shape's cases: native pages of the q
+#: dtype, then int8 and fp8 codes under either q dtype
+WIDE_HEAD_ARMS = [(torch.bfloat16, None), (torch.float32, None), (torch.bfloat16, "int8"),
+                  (torch.bfloat16, "fp8"), (torch.float32, "int8"), (torch.float32, "fp8")]
+
+
+def wide_head_cases(lengths, s, seed0, shapes, suffix=""):
+    """``kernel_phase`` cases of every shape of ``shapes`` under every arm of
+    ``WIDE_HEAD_ARMS``, over pages of 128 keys."""
+    cases = []
+    for i, (label, (hq, hkv, d)) in enumerate(shapes.items()):
+        for j, (dtype, fmt) in enumerate(WIDE_HEAD_ARMS):
+            cases.append((f"{label}_{suffix}" if suffix else label, seed0 + 10 * i + j,
+                          lengths, s, hq, hkv, dtype, 128, d, fmt))
+    return cases
+
+
 def plain_f32(plain, args, kw=None):
     """The plain version on the same values in f32 (bf16 values and
     quantized codes are exact in f32; codes keep their scales): the
@@ -577,9 +625,11 @@ def model_phase(model, cfg, rng, name: str = "model") -> float:
     ids = np.asarray(tokens, np.int32)
     paged = torch.cat(steps, dim=0)
     ref = no_cache_logits(model, ids)
-    # the same weights in f32 (bf16 values are exact in f32), f32 compute
+    # the same weights in f32 (bf16 values are exact in f32), f32 compute;
+    # built on the meta device and assigned, so one f32 copy is resident
+    # (Gemma-7B's is 34 GB beside its 17 GB of bf16 weights)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    model32 = Transformer(cfg32, device="cuda", dtype=torch.float32)
+    model32 = Transformer(cfg32, device="meta", dtype=torch.float32)
     model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
                             assign=True)
     ref32 = no_cache_logits(model32, ids)
@@ -1308,38 +1358,61 @@ def family_model(cfg, seed: int = 0, affine_std: float = 0.02):
     return model
 
 
-def neox_phases(gpu) -> dict:
-    """Pythia-6.9B (GPT-NeoX: LayerNorm with bias, biased projections,
-    rotary over 32 of 128 dims, exact gelu, parallel residual with two
-    norms, untied head) at its published widths and full depth, from its
+#: the published configs served at full width and depth: line suffix ->
+#: (``hf_compat`` literal, its source, the switches and head dim it must map to)
+HF_LINES = {
+    # GPT-NeoX: LayerNorm with bias, biased projections, rotary over 32 of
+    # 128 dims, exact gelu, parallel residual with two norms, untied head
+    "neox": ("PYTHIA_6_9B", "EleutherAI/pythia-6.9b config.json",
+             dict(norm_type="layernorm", use_bias=True, rope_dim=32, parallel_residual=True,
+                  shared_norm=False, mlp_variant="gelu_exact", tie_word_embeddings=False,
+                  resolved_head_dim=128)),
+    # Gemma: (1 + scale) RMSNorm, sqrt(hidden) embedding scale, tanh-gelu
+    # gated MLP, tied head, 16 heads of D 256 over hidden 3072 (K1 and K2's
+    # D 256 arms)
+    "gemma": ("GEMMA_7B", "google/gemma-7b config.json",
+              dict(norm_unit_offset=True, embed_scale=True, mlp_variant="geglu",
+                   tie_word_embeddings=True, num_heads=16, num_kv_heads=16,
+                   resolved_head_dim=256)),
+    # Phi-2: one shared LayerNorm, parallel residual, biases everywhere (the
+    # untied head's too), rotary over 32 of 80 dims, tanh gelu (D 80 arms)
+    "phi2": ("PHI_2", "microsoft/phi-2 config.json",
+             dict(norm_type="layernorm", use_bias=True, lm_head_bias=True, mlp_variant="gelu",
+                  parallel_residual=True, shared_norm=True, rope_dim=32,
+                  tie_word_embeddings=False, resolved_head_dim=80)),
+}
+
+
+def hf_phases(gpu, line: str) -> dict:
+    """One of ``HF_LINES`` at its published widths and full depth, from its
     ``config.json`` values through the port's ``hf_compat`` mapping, bf16,
-    random weights from seed 0: ``model_neox`` (the paged forward through
-    K2 and K1 against the no-cache forward, the f32 forward of the same
-    weights the yardstick of bf16 noise), ``engine_neox`` (the ``engine``
-    line's engine and requests: K1 32 launches a decode step, K2 32 a
-    chunk, every token within the noise margin) and its ``sync_eager``
-    twin, whose tokens must be identical.  Returns ``engine_neox``'s
-    launches."""
-    from accelerate_tpu_torch.models.hf_compat import PYTHIA_6_9B, config_from_hf_dict
+    random weights from seed 0: ``<line>_config`` (the mapped config, its
+    parameters and weight bytes), ``model_<line>`` (the paged forward
+    through K2 and K1 against the no-cache forward, the f32 forward of the
+    same weights the yardstick of bf16 noise), ``engine_<line>`` (the
+    ``engine`` line's engine and requests: K1 one launch a layer each
+    decode step, K2 one a layer each chunk, every token within the noise
+    margin) and ``engine_<line>_sync_eager``, whose tokens must be
+    identical.  Returns ``engine_<line>``'s launches."""
+    from accelerate_tpu_torch.models import hf_compat
     from accelerate_tpu_torch.models.transformer import state_dict_shapes
 
-    cfg = config_from_hf_dict(PYTHIA_6_9B, dtype=torch.bfloat16)
+    literal, source, expect = HF_LINES[line]
+    cfg = hf_compat.config_from_hf_dict(getattr(hf_compat, literal), dtype=torch.bfloat16)
     params = sum(int(np.prod(shape)) for shape in state_dict_shapes(cfg).values())
-    check((cfg.norm_type, cfg.use_bias, cfg.rope_dim, cfg.parallel_residual, cfg.shared_norm,
-           cfg.mlp_variant, cfg.tie_word_embeddings, cfg.resolved_head_dim) ==
-          ("layernorm", True, 32, True, False, "gelu_exact", False, 128),
-          f"pythia-6.9b mapped to an unexpected config: {cfg}")
-    emit({"phase": "neox_config", "source": "EleutherAI/pythia-6.9b config.json",
+    got = {key: getattr(cfg, key) for key in expect}
+    check(got == expect, f"{source} mapped to an unexpected config: {got}")
+    emit({"phase": f"{line}_config", "source": source,
           "config": {k: str(v) if isinstance(v, torch.dtype) else v
                      for k, v in dataclasses.asdict(cfg).items()},
           "params": params, "weights_gb": 2 * params / 1e9})
     model = family_model(cfg)
     rng = np.random.default_rng(0)
-    tol = model_phase(model, cfg, rng, name="model_neox")
-    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, name="engine_neox")
+    tol = model_phase(model, cfg, rng, name=f"model_{line}")
+    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, name=f"engine_{line}")
     _, _, eager = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
-                               name="engine_neox_sync_eager", eager=True)
-    check(eager == tokens, "engine_neox_sync_eager's greedy tokens differ from engine_neox's")
+                               name=f"engine_{line}_sync_eager", eager=True)
+    check(eager == tokens, f"engine_{line}_sync_eager's greedy tokens differ from engine_{line}'s")
     del model
     free_card()
     return launches
@@ -1372,8 +1445,16 @@ _GPT2_SW = dict(norm_type="layernorm", use_bias=True, positional="learned", mlp_
 _GPTJ_SW = dict(norm_type="layernorm", rope_interleaved=True, rope_dim=64,
                 parallel_residual=True, shared_norm=True, attn_bias=False, mlp_bias=True,
                 lm_head_bias=True, mlp_variant="gelu")
+_PHI_SW = dict(norm_type="layernorm", use_bias=True, lm_head_bias=True, mlp_variant="gelu",
+               parallel_residual=True, shared_norm=True)
+#: the width of the published models with heads of 80 (Phi-2, StableLM-3B,
+#: CodeGen-2B: 32 heads over hidden 2560) and 96 (Phi-3-mini: 32 over 3072)
+_D80 = dict(hidden_size=2560, intermediate_size=10240, num_heads=32, num_kv_heads=32)
+_D96 = dict(hidden_size=3072, intermediate_size=8192, num_heads=32, num_kv_heads=32)
 #: each mapped family's switches at hidden 2048 and 2 layers (D 128 over 16
-#: heads, D 64 over 32); the last three take the plain paged versions
+#: heads, D 64 over 32), then the families whose published heads are 256,
+#: 80 or 96 wide at those head dims (K1's and K2's D 256, 80 and 96 arms);
+#: the three window and alibi sets take the plain paged versions
 FAMILY_SWITCHES = {
     "llama_biased": dict(attn_bias=True, mlp_bias=True, num_kv_heads=4),
     "gpt2": _GPT2_SW,
@@ -1388,8 +1469,7 @@ FAMILY_SWITCHES = {
                       shared_norm=True, num_heads=32, num_kv_heads=1),
     "stablelm": dict(norm_type="layernorm", rope_dim=32, qkv_bias=True, num_kv_heads=4),
     "gpt_bigcode": dict(_GPT2_SW, num_kv_heads=1),
-    "phi": dict(norm_type="layernorm", use_bias=True, lm_head_bias=True, mlp_variant="gelu",
-                parallel_residual=True, shared_norm=True, rope_dim=64),
+    "phi": dict(_PHI_SW, rope_dim=64),
     "codegen": dict(_GPTJ_SW, rope_dim=32, use_bias=False),
     "mistral_window256": dict(sliding_window=256, num_kv_heads=4),
     "bloom_alibi": dict(norm_type="layernorm", use_bias=True, positional="alibi",
@@ -1397,6 +1477,19 @@ FAMILY_SWITCHES = {
     "mpt_alibi": dict(norm_type="layernorm", norm_bias=False, positional="alibi",
                       mlp_variant="gelu_exact", tie_word_embeddings=True, num_heads=32,
                       num_kv_heads=32),
+    # Gemma-2B: 8 heads of D 256 over one kv head at hidden 2048
+    "gemma_d256_mq": dict(norm_unit_offset=True, embed_scale=True, mlp_variant="geglu",
+                          tie_word_embeddings=True, num_heads=8, num_kv_heads=1,
+                          intermediate_size=16384),
+    # GPT-J-6B's heads of 256 (8 of them at hidden 2048)
+    "gptj_d256": dict(_GPTJ_SW, num_heads=8, num_kv_heads=8),
+    "phi_d80": dict(_PHI_SW, **_D80, rope_dim=32),             # Phi-2: rotary over 0.4
+    "stablelm_d80": dict(_D80, norm_type="layernorm", rope_dim=20,  # StableLM-3B: 0.25
+                         intermediate_size=6912),
+    "codegen_d80": dict(_GPTJ_SW, **_D80, use_bias=False),     # CodeGen-2B: rotary 64
+    # Phi-3-mini's switches without its 2047-token window, which would keep
+    # it off the kernels (the reference routes window models to XLA)
+    "phi3_d96": dict(_D96),
 }
 
 
@@ -1426,15 +1519,16 @@ def paged_logits(model, cfg, ids: np.ndarray, plain: bool) -> torch.Tensor:
     return torch.cat(out)
 
 
-def families_phase(gpu) -> None:
-    """Every family of ``FAMILY_SWITCHES`` at hidden 2048 and 2 layers, bf16,
-    random weights: for the full-causal ones the paged forward through K2
-    and K1 (2 and 16 launches) held against the same forward through their
-    plain versions; for the sliding-window and alibi ones (which the
-    kernels refuse, as the reference's) the plain paged forward, K1 and K2
-    launched 0 times, held against the no-cache forward.  The tolerance is
-    ``LOGIT_TOL_FACTOR`` times the bf16 no-cache forward's distance from the
-    f32 one of the same weights, as for the model line."""
+def families_phase(gpu) -> dict:
+    """Every family of ``FAMILY_SWITCHES`` at its width (hidden 2048 unless
+    the set names another) and 2 layers, bf16, random weights: for the
+    full-causal ones the paged forward through K2 and K1 (2 and 16
+    launches) held against the same forward through their plain versions;
+    for the sliding-window and alibi ones (which the kernels refuse, as the
+    reference's) the plain paged forward, K1 and K2 launched 0 times, held
+    against the no-cache forward.  The tolerance is ``LOGIT_TOL_FACTOR``
+    times the bf16 no-cache forward's distance from the f32 one of the same
+    weights, as for the model line.  Returns each family's launches."""
     from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
     from accelerate_tpu_torch.ops import paged_attention as pa
 
@@ -1458,8 +1552,8 @@ def families_phase(gpu) -> None:
                     "paged_flash_prefill": pa.paged_flash_prefill.launches}
         want = paged_logits(model, cfg, ids, plain=True) if kernels else ref
         err = (got - want).abs().max().item()
-        rec = {"family": family, "switches": sw, "head_dim": cfg.resolved_head_dim,
-               "heads": [cfg.num_heads, cfg.num_kv_heads],
+        rec = {"family": family, "switches": sw, "hidden": cfg.hidden_size,
+               "head_dim": cfg.resolved_head_dim, "heads": [cfg.num_heads, cfg.num_kv_heads],
                "path": "K2 + K1" if kernels else "plain paged",
                "held_against": "plain paged" if kernels else "no-cache forward",
                "max_abs_logit_err": err, "tolerance": tol, "plain_bf16_vs_f32": noise,
@@ -1474,8 +1568,9 @@ def families_phase(gpu) -> None:
         check(err <= tol, f"families {family}: paged logits differ by {err} > {tol}")
         del model
         free_card()
-    emit({"phase": "families", "hidden": 2048, "layers": 2, "prompt": 512, "decode_steps": 8,
+    emit({"phase": "families", "layers": 2, "prompt": 512, "decode_steps": 8,
           "records": records, "gpu": gpu})
+    return {rec["family"]: rec["launches"] for rec in records}
 
 
 def flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented):
@@ -1522,21 +1617,27 @@ def flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_call(q, k, v, dout, causal, backward):
-    """``scaled_dot_product_attention`` on the same values in its own
-    contiguous BHSD layout, as a call to time: its forward computes K3's
-    function, its backward K4's and K5's together."""
+def library_ms(q, k, v, dout, causal, backward) -> float:
+    """Device time of ``scaled_dot_product_attention`` on the same values in
+    its own contiguous BHSD layout, from :func:`graph_ms` (CUDA events around
+    a replayed graph: no host time and no profiler to drop its kernels): its
+    forward computes K3's function, its backward K4's and K5's together.  A
+    captured backward needs its forward in the same graph, so the backward's
+    time is that of forward and backward less the forward's."""
     import torch.nn.functional as F
 
     gqa = q.shape[2] != k.shape[2]
     qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(backward)
                   for t in (q, k, v))
+
+    def forward():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+
+    forward_ms = graph_ms(forward, 5)
     if not backward:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                      enable_gqa=gqa)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+        return forward_ms
     grad = dout.transpose(1, 2).contiguous()
-    return lambda: torch.autograd.grad(out, (qt, kt, vt), grad, retain_graph=True)
+    return graph_ms(lambda: torch.autograd.grad(forward(), (qt, kt, vt), grad), 5) - forward_ms
 
 
 def tile_rel_err(got, want, tile=64) -> float:
@@ -1621,8 +1722,7 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> d
             ms=device_ms(kernel, 10, fragment), wall_ms=time_ms(kernel, 10),
             plain_ms=time_ms(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
         )
-        library = None if segmented else library_call(q, k, v, dout, causal, backward)
-        rec["library_ms"] = library and device_ms(library, 10)
+        rec["library_ms"] = None if segmented else library_ms(q, k, v, dout, causal, backward)
         # the case's own launches: the checked calls, then the timing loop
         rec["launches"] = counters[name].launches - launches0[name]
         if name in bitwise:
@@ -1633,19 +1733,22 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> d
         for key, err in tiled[name].items():
             check(err <= tile_tol, f"{name} {label}: {key} tile relative err {err} > {tile_tol}")
         check(bitwise.get(name, True), f"{name} {label}: two runs gave different bits")
+        for key in ("ms", "library_ms"):
+            check(rec[key] is None or rec[key] >= bms,
+                  f"{name} {label}: {key} {rec[key]} is below the bound {bms}")
         records[name] = rec
     return records
 
 
 def flash_phase(cases):
-    """Every case through :func:`flash_case`; returns each kernel's record of
-    the first (training-shape bf16) case."""
-    first = {}
+    """Every case through :func:`flash_case`; returns each kernel's records,
+    the first (training-shape bf16) case's first."""
+    records = {}
     for case in cases:
         for name, rec in flash_case(*case).items():
-            first.setdefault(name, rec)
+            records.setdefault(name, []).append(rec)
         torch.cuda.empty_cache()
-    return first
+    return records
 
 
 # -------------------------------------------------------------------- train
@@ -1709,6 +1812,18 @@ def train_config(layers: int):
                                        param_dtype=torch.float32, attention_impl="pallas")
 
 
+#: Gemma-7B's widths at 2 of its 28 layers for ``train_gemma`` (K3-K5's D 256
+#: arms): 1.34 B parameters, 0.79 B of them the tied 256000-row embedding
+GEMMA_TRAIN_LAYERS = 2
+
+
+def gemma_train_config():
+    from accelerate_tpu_torch.models.hf_compat import GEMMA_7B, config_from_hf_dict
+
+    return config_from_hf_dict(GEMMA_7B, num_layers=GEMMA_TRAIN_LAYERS, dtype=torch.bfloat16,
+                               param_dtype=torch.float32, attention_impl="pallas")
+
+
 def train_model(cfg, seed: int):
     """f32 masters on the card from ``init_params(seed)``."""
     from accelerate_tpu_torch.models.transformer import Transformer
@@ -1729,14 +1844,21 @@ def train_data(cfg):
     return a, [{"input_ids": r} for _ in range(4) for r in (*a, *b)]
 
 
-def train_phase(gpu):
+def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
+    """``cfg`` (``train``: Llama-2-7B's widths at ``TRAIN_LAYERS`` layers)
+    trained through ``Accelerator.compile_train_step``: 8 micro-steps of
+    ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens at accumulation 2, the flash
+    launch counters zeroed just before and read just after (one launch of
+    each of K3-K5 a layer each micro-step), held to the flash-vs-xla path
+    check.  Returns the launches and the line's record."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
     from accelerate_tpu_torch.models.transformer import lm_loss_fn, state_dict_shapes
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    layers, rows, seq = TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ
-    cfg = train_config(layers)
+    free_card()
+    cfg = cfg or train_config(TRAIN_LAYERS)
+    layers, rows, seq = cfg.num_layers, TRAIN_ROWS, TRAIN_SEQ
     model = train_model(cfg, seed=0)
     accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
     a, dataset = train_data(cfg)
@@ -1767,8 +1889,10 @@ def train_phase(gpu):
     # (4 D flops per visible (query head, key) pair; the backward is twice
     # the forward)
     tokens = rows * seq
+    # (a tied head multiplies by the embedding: Gemma's)
+    head = "embed_tokens.weight" if cfg.tie_word_embeddings else "lm_head.weight"
     matrix_params = sum(int(np.prod(shape)) for name, shape in state_dict_shapes(cfg).items()
-                        if name.endswith("proj.weight") or name == "lm_head.weight")
+                        if name.endswith("proj.weight") or name == head)
     attn_fwd = 4 * cfg.resolved_head_dim * cfg.num_heads * layers * rows * seq * (seq + 1) // 2
     flops = 6 * matrix_params * tokens + 3 * attn_fwd
     # a micro-step's share of an optimizer step (accumulate + apply), the
@@ -1778,7 +1902,8 @@ def train_phase(gpu):
                               for i in range(2, micro - 1, 2)]))
     applied = [h for h in host if h["applied"]]
     rec = {
-        "phase": "train", "config": "llama2_7b", "layers": layers, "of_layers": 32,
+        "phase": name, "config": config, "layers": layers, "of_layers": of_layers,
+        "head_dim": cfg.resolved_head_dim,
         "params": sum(p.numel() for p in model.parameters()), "matrix_params": matrix_params,
         "micro_steps": micro, "optimizer_steps": state.step, "tokens_per_micro_step": tokens,
         "loss": [h["loss"] for h in host], "grad_norm": [h["grad_norm"] for h in host],
@@ -2008,6 +2133,7 @@ def main() -> int:
         return 1
     from accelerate_tpu_torch.models.transformer import TransformerConfig
     from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving.spec_exec import TreeSpec
 
@@ -2025,8 +2151,10 @@ def main() -> int:
           f"ptxas reports for {sorted(_build.build_logs)}, want every library")
     tc_entries = set(re.findall(r"Compiling entry function '(\w*wgmma\w*)'",
                                 "".join(_build.build_logs.values())))
-    check(len(tc_entries) == 12, f"ptxas reports {len(tc_entries)} tensor-core kernels, want "
-          "12 (K2 over bf16, int8 and fp8 pages, K3, K4 and K5, each at D 64 and 128)")
+    want_tc = 3 * len(pa._WGMMA_HEAD_DIMS) + 3 * len(fa._HEAD_DIMS)
+    check(len(tc_entries) == want_tc, f"ptxas reports {len(tc_entries)} tensor-core kernels, "
+          f"want {want_tc} (K2 over bf16, int8 and fp8 pages at D {pa._WGMMA_HEAD_DIMS}; K3, "
+          f"K4 and K5 at D {fa._HEAD_DIMS})")
     check(not [k for k in spills if "wgmma" in k],
           "a tensor-core kernel spills registers to local memory")
 
@@ -2098,6 +2226,17 @@ def main() -> int:
         ("gpt2_d64", 82, ragged, 1, 12, 12, bf16, 128, 64),
         ("falcon7b_mq71_d64", 83, ragged, 1, 71, 1, bf16, 128, 64),
         ("falcon7b_mq71_d64", 84, ragged, 1, 71, 1, f32, 128, 64),
+        # the wide- and narrow-head families at their decode shapes, both q
+        # dtypes over every page format: Gemma-7B (16 heads of D 256),
+        # Gemma-2B (8 heads of D 256 over one kv head), Phi-2 (32 of D 80),
+        # Phi-3-mini (32 of D 96); then each new D's tree arm at S 9
+        *wide_head_cases(ragged, 1, 200, WIDE_HEAD_SHAPES),
+        ("tree_gemma7b_d256", 230, tree_lanes, 9, 16, 16, bf16, 128, 256, None, tree24),
+        ("tree_gemma7b_d256", 231, tree_lanes, 9, 16, 16, f32, 128, 256, None, tree24),
+        ("tree_phi2_d80", 232, tree_lanes, 9, 32, 32, bf16, 128, 80, None, tree24),
+        ("tree_phi2_d80", 233, tree_lanes, 9, 32, 32, bf16, 128, 80, "int8", tree24),
+        ("tree_phi3_d96", 234, tree_lanes, 9, 32, 32, bf16, 128, 96, None, tree24),
+        ("tree_phi3_d96", 235, tree_lanes, 9, 32, 32, f32, 128, 96, "fp8", tree24),
     ], k1_describe, k1_checks)
     k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
                       "paged_prefill", [
@@ -2137,6 +2276,13 @@ def main() -> int:
         ("gpt2_d64_chunk512_base0", 68, [0], 512, 12, 12, bf16, 128, 64),
         ("falcon7b_mq71_d64_chunk128_base640", 69, [640], 128, 71, 1, bf16, 128, 64),
         ("falcon7b_mq71_d64_chunk128_base640", 85, [640], 128, 71, 1, f32, 128, 64),
+        # the wide- and narrow-head families' 512-token chunk at base 0, both
+        # designs (bf16 q: wgmma; f32 q: the CUDA cores) over every page
+        # format, and the engine's 128-token chunk at base 640
+        *wide_head_cases([0], 512, 300, WIDE_HEAD_SHAPES, "chunk512_base0"),
+        ("gemma7b_d256_chunk128_base640", 330, [640], 128, 16, 16, bf16, 128, 256),
+        ("phi2_d80_chunk128_base640", 331, [640], 128, 32, 32, bf16, 128, 80),
+        ("phi3_d96_chunk128_base600_page16", 332, [600], 128, 32, 32, bf16, 16, 96, "int8"),
     ], k2_describe, k2_checks)
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
@@ -2175,9 +2321,13 @@ def main() -> int:
     slab_phases(model, cfg, gpu, tol, prompts, spec_prompts, shared_prompts)
     del model
     free_card()
-    # the other families: one 7B model on the card at a time
-    family_launches = {"engine_neox": neox_phases(gpu), "engine_gpt2": gpt2_phase(gpu)}
-    families_phase(gpu)
+    # the other families: one 7B model on the card at a time; Gemma-7B (16
+    # heads of D 256) and Phi-2 (32 of D 80) through K1's and K2's new arms
+    family_launches = {"engine_neox": hf_phases(gpu, "neox"), "engine_gpt2": gpt2_phase(gpu)}
+    # each new head dim's K1 and K2 launches on the path that runs it
+    wide_launches = {256: ("engine_gemma", hf_phases(gpu, "gemma")),
+                     80: ("engine_phi2", hf_phases(gpu, "phi2"))}
+    wide_launches[96] = ("families:phi3_d96", families_phase(gpu)["phi3_d96"])
 
     flash = flash_phase([
         ("train", 13, 2, 2048, 32, 32, bf16, True, False),
@@ -2186,52 +2336,86 @@ def main() -> int:
         ("segments3", 16, 2, 1024, 32, 32, bf16, True, True),
         ("full512", 17, 2, 512, 32, 32, bf16, False, False),
         ("gqa_d64", 18, 2, 2048, 32, 8, bf16, True, False, 64),
+        # the wide- and narrow-head families at the training shape (B 2, S
+        # 2048, causal), bf16 (wgmma) and f32 (CUDA cores); D 32 and 16
+        *[(label, 400 + 2 * i + j, 2, 2048, hq, hkv, dtype, True, False, d)
+          for i, (label, (hq, hkv, d)) in enumerate(WIDE_HEAD_SHAPES.items())
+          for j, dtype in enumerate((bf16, f32))],
+        ("gqa_d32", 420, 2, 2048, 32, 8, bf16, True, False, 32),
+        ("gqa_d32", 421, 2, 2048, 32, 8, f32, True, False, 32),
+        ("gqa_d16", 422, 2, 2048, 32, 8, bf16, True, False, 16),
+        ("gqa_d16", 423, 2, 2048, 32, 8, f32, True, False, 16),
     ])
     train_launches, train_rec = train_phase(gpu)
     launches.update(train_launches)
     api_launches = train_api_phase(gpu, train_rec)
     checkpoint_phase(gpu)
+    # Gemma-7B's widths (16 heads of D 256, the tied 256000-row head) at 2 of
+    # its 28 layers: K3-K5's D 256 arms on the training path
+    gemma_train_launches, _ = train_phase(gpu, gemma_train_config(), name="train_gemma",
+                                          config="gemma_7b", of_layers=28)
 
     def first(records, pages, case):
         return next(r for r in records if r["pages"] == pages and r["case"] == case)
 
     kernels = []
     csrc = "accelerate_tpu_torch/ops/csrc/"
+    k1_src, k2_src = csrc + "paged_attention.cu", csrc + "paged_prefill.cu"
+    flash_src = {"k3": (csrc + "flash_fwd.cu", "accelerate_tpu/ops/flash_attention.py:84"),
+                 "k4": (csrc + "flash_bwd.cu", "accelerate_tpu/ops/flash_attention.py:278"),
+                 "k5": (csrc + "flash_bwd.cu", "accelerate_tpu/ops/flash_attention.py:312")}
+    flash_names = {"k3": "flash_fwd", "k4": "flash_dq", "k5": "flash_dkv"}
     arms = []
     for fmt in pa.KV_FORMATS:
         # the dequant arms, launched on their own engine run's path
         arms += [
-            (first(k1, fmt, "main"), f"paged_attention[{fmt}]", csrc + "paged_attention.cu",
+            (first(k1, fmt, "main"), f"paged_attention[{fmt}]", k1_src,
              "accelerate_tpu/ops/paged_attention.py:291",
-             arm_launches[fmt]["paged_attention"]),
+             arm_launches[fmt]["paged_attention"], f"engine_{fmt}"),
             (first(k2, fmt, "chunk512_base0"), f"paged_flash_prefill[{fmt}]",
-             csrc + "paged_prefill.cu", "accelerate_tpu/ops/paged_attention.py:511",
-             arm_launches[fmt]["paged_flash_prefill"]),
+             k2_src, "accelerate_tpu/ops/paged_attention.py:511",
+             arm_launches[fmt]["paged_flash_prefill"], f"engine_{fmt}"),
         ]
-    for rec, name, src, replaces, count in (
-        (k1[0], "paged_attention", csrc + "paged_attention.cu",
-         "accelerate_tpu/ops/paged_attention.py:252", launches["paged_attention"]),
+    # each new head dim of K1 and K2 (bf16 at its model's shape), launched on
+    # its engine's or its family set's path
+    for d, label in ((256, "gemma7b_d256"), (80, "phi2_d80"), (96, "phi3_d96")):
+        where, counts = wide_launches[d]
+        arms += [
+            (first(k1, "bfloat16", label), f"paged_attention[d{d}]", k1_src,
+             "accelerate_tpu/ops/paged_attention.py:252", counts["paged_attention"], where),
+            (first(k2, "bfloat16", f"{label}_chunk512_base0"), f"paged_flash_prefill[d{d}]",
+             k2_src, "accelerate_tpu/ops/paged_attention.py:479",
+             counts["paged_flash_prefill"], where),
+        ]
+    # each new head dim of K3-K5 (bf16 at the training shape): D 256 on
+    # train_gemma's path, the others on their own kernel cases only
+    for name in ("k3", "k4", "k5"):
+        for d in (256, 80, 96, 32, 16):
+            rec = next(r for r in flash[name] if r["d"] == d and r["dtype"] == "bfloat16")
+            count, where = ((gemma_train_launches[flash_names[name]], "train_gemma") if d == 256
+                            else (rec["launches"], f"{name} case {rec['case']}"))
+            arms.append((rec, f"{flash_names[name]}[d{d}]", *flash_src[name], count, where))
+    for rec, name, src, replaces, count, where in (
+        (k1[0], "paged_attention", k1_src,
+         "accelerate_tpu/ops/paged_attention.py:252", launches["paged_attention"], "engine"),
         # the tree-mask arm, launched on the tree engine's path
-        (first(k1, "bfloat16", "tree_main"), "paged_attention[tree]", csrc + "paged_attention.cu",
-         "accelerate_tpu/ops/paged_attention.py:300", tree_launches["paged_attention_tree"]),
-        (k2[0], "paged_flash_prefill", csrc + "paged_prefill.cu",
-         "accelerate_tpu/ops/paged_attention.py:479", launches["paged_flash_prefill"]),
+        (first(k1, "bfloat16", "tree_main"), "paged_attention[tree]", k1_src,
+         "accelerate_tpu/ops/paged_attention.py:300", tree_launches["paged_attention_tree"],
+         "engine_tree"),
+        (k2[0], "paged_flash_prefill", k2_src,
+         "accelerate_tpu/ops/paged_attention.py:479", launches["paged_flash_prefill"], "engine"),
+        *[(flash[name][0], flash_names[name], *flash_src[name],
+           launches[flash_names[name]], "train") for name in ("k3", "k4", "k5")],
         *arms,
-        (flash["k3"], "flash_fwd", csrc + "flash_fwd.cu",
-         "accelerate_tpu/ops/flash_attention.py:84", launches["flash_fwd"]),
-        (flash["k4"], "flash_dq", csrc + "flash_bwd.cu",
-         "accelerate_tpu/ops/flash_attention.py:278", launches["flash_dq"]),
-        (flash["k5"], "flash_dkv", csrc + "flash_bwd.cu",
-         "accelerate_tpu/ops/flash_attention.py:312", launches["flash_dkv"]),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": count, "max_abs_err": rec["max_abs_err"],
+            "launches": count, "launches_on": where, "max_abs_err": rec["max_abs_err"],
             "tolerance": rec["tolerance"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
         })
-        for key in ("design", "pages", "arm"):
+        for key in ("design", "pages", "arm", "d"):
             if key in rec:
                 kernels[-1][key] = rec[key]
         if name in prefix_launches:

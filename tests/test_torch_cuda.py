@@ -137,6 +137,10 @@ def _prefill_case(card, lengths, s, hq, hkv, d, page, seed=0, ppl=None):
     ([0, 37, 100], 90, 8, 8, 128),   # tiles straddle pages and each q-block's frontier
     ([5, 150], 200, 8, 2, 128),      # GQA rep 4, a ragged last q-block
     ([70, 0], 61, 12, 2, 64),        # D 64, rep 6 (64 is no multiple: spare rows)
+    ([0, 37, 100], 90, 8, 8, 256),   # D 256: four panels, two N-128 products
+    ([5, 150], 200, 8, 1, 256),      # D 256, one kv head (Gemma-2B's MQA)
+    ([0, 37, 100], 90, 8, 8, 80),    # D 80: two panels, the second's columns past D zero
+    ([70, 0], 61, 12, 2, 96),        # D 96, rep 6
 ])
 def test_paged_prefill_tensor_cores(card, page, lengths, s, hq, hkv, d):
     """The bf16 arm of K2 (wgmma over 64-key tiles read through the block
@@ -197,6 +201,12 @@ K1_CASES = [
     ([9, 250, 700], 17, 8, 4, 128, 16, 64),  # 34 rows (rep 2, S 17), pages of 16
     ([5, 300, 1000], 1, 8, 2, 16, 128, 16),  # D 16
     ([3, 40, 77], 3, 8, 2, 32, 8, 16),       # D 32, pages of 8
+    ([5, 700, 1500, 2040], 1, 16, 16, 256, 128, 16),  # Gemma-7B: 16 heads of D 256
+    ([5, 300, 1000], 1, 8, 1, 256, 128, 16),  # Gemma-2B: 8 heads over one kv head
+    ([5, 700, 2040], 1, 32, 32, 80, 128, 16),  # Phi-2: D 80 (uneven lane shares)
+    ([3, 40, 77], 3, 8, 2, 80, 8, 16),       # D 80, pages of 8, a verify span
+    ([9, 250, 700], 5, 32, 32, 96, 16, 64),  # Phi-3-mini: D 96, pages of 16
+    ([2040, 33], 1, 8, 2, 256, 16, 128),     # D 256, 128 pages of 16: many splits
 ]
 
 
@@ -255,6 +265,9 @@ K1_QUANT_CASES = [
     ([9, 250, 700], 17, 8, 4, 128, 16, 64),  # 34 rows, pages of 16
     ([5, 300, 1000], 1, 8, 2, 16, 128, 16),  # D 16
     ([3, 40, 77], 3, 8, 2, 32, 8, 16),       # D 32, pages of 8
+    ([5, 700, 2040], 1, 16, 16, 256, 128, 16),  # D 256 (Gemma-7B's heads)
+    ([5, 300, 1000], 1, 32, 32, 80, 128, 16),  # D 80: five 16-byte pieces a key row
+    ([9, 250, 700], 3, 8, 2, 96, 16, 64),    # D 96: six pieces, pages of 16
 ]
 
 
@@ -287,6 +300,9 @@ def _quantized_prefill_case(card, fmt, lengths, s, hq, hkv, d, page, q_dtype):
 @pytest.mark.parametrize("lengths,s,hq,hkv,d", [
     ([0, 37, 100], 90, 8, 8, 128),   # tiles straddle pages and each q-block's frontier
     ([70, 0], 61, 12, 2, 64),        # D 64, rep 6
+    ([0, 37, 100], 90, 8, 1, 256),   # D 256
+    ([70, 0], 61, 12, 2, 80),        # D 80: the converted tiles' pad chunks zeroed
+    ([0, 37, 100], 90, 8, 8, 96),    # D 96
 ])
 def test_paged_prefill_quantized_tensor_cores(card, fmt, page, lengths, s, hq, hkv, d):
     """K2's dequant arm on the tensor cores: TMA lands the codes, the
@@ -312,6 +328,9 @@ def test_paged_prefill_quantized_tensor_cores(card, fmt, page, lengths, s, hq, h
     (torch.bfloat16, 16, 128),   # D 16 and 32 fill no 64-column panel
     (torch.bfloat16, 32, 16),
     (torch.float32, 16, 8),
+    (torch.float32, 256, 128),   # D 256 over pages of 128: key tiles of 64
+    (torch.float32, 80, 16),
+    (torch.bfloat16, 96, 24),
 ])
 def test_paged_prefill_quantized_cuda_cores(card, fmt, q_dtype, d, page):
     """K2's dequant arm on the CUDA cores (codes times scales as the tiles
@@ -326,12 +345,17 @@ def test_paged_prefill_quantized_cuda_cores(card, fmt, q_dtype, d, page):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32])
-def test_paged_prefill_small_head_dims(card, dtype, d):
-    """K2's CUDA-core arm at D 16 and 32 (TransformerConfig.tiny's 16)."""
+@pytest.mark.parametrize("d,page", [(16, 16), (32, 16), (80, 24), (96, 128), (256, 128),
+                                    (256, 24)])
+def test_paged_prefill_small_head_dims(card, dtype, d, page):
+    """K2's CUDA-core arm at D 16 and 32 (TransformerConfig.tiny's 16), and
+    at D 80, 96 and 256 where the page or the dtype keeps a call off the
+    tensor cores (D 256 over pages of 128 walks key tiles of 64)."""
     q, pk, pv, tables, lengths = (t.to(dtype) if t.is_floating_point() else t
-                                  for t in _prefill_case(card, [9, 40, 0], 70, 8, 2, d, 16))
-    assert pa.prefill_design(q.dtype, pk.dtype, 16, d) == "cuda-cores"
+                                  for t in _prefill_case(card, [9, 40, 0], 70, 8, 2, d, page))
+    if dtype == torch.bfloat16 and page % 64 == 0 and d >= 64:
+        pk, pv = pk.float(), pv.float()  # bf16 q over f32 pages: the CUDA cores
+    assert pa.prefill_design(q.dtype, pk.dtype, page, d) == "cuda-cores"
     out = pa.paged_flash_prefill(q, pk, pv, tables, lengths)
     assert bool(torch.isfinite(out).all())
     ref = pa.paged_flash_prefill_reference(q, pk, pv, tables, lengths)
@@ -370,6 +394,9 @@ K1_TREE_CASES = [
     ([127, 128], 32, 32, 128, 128, 16, "2x4"),            # across a page edge
     ([0, 40, 1000], 16, 2, 64, 128, 16, "random7"),       # D 64, an empty lane
     ([3, 40, 77], 8, 2, 16, 8, 16, "3x3"),                # D 16, pages of 8
+    ([5, 700, 1500, 2000], 16, 16, 256, 128, 16, "2x4"),  # D 256
+    ([5, 700, 1500, 2000], 32, 32, 80, 128, 16, "2x4"),   # D 80
+    ([0, 40, 1000], 32, 32, 96, 16, 64, "random7"),       # D 96, pages of 16
 ]
 
 
@@ -523,8 +550,8 @@ def test_launch_counters_count_kernel_launches_only(card):
 
 
 def test_unsupported_head_dim_raises(card):
-    """D 16, 32, 64 and 128 are taken; any other D (48 here) is refused by
-    the wrapper, before a launch, for both paged kernels."""
+    """D 16, 32, 64, 80, 96, 128 and 256 are taken; any other D (48 here)
+    is refused by the wrapper, before a launch, for both paged kernels."""
     args = _case(card, [5], 1, 4, 4, 48, 16, 2, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_attention(*args)
@@ -1075,6 +1102,12 @@ def _close(got, want, dtype):
     (2, 200, 4, 2, 64, False, True),
     (1, 131, 6, 2, 128, True, True),
     (1, 100, 8, 1, 128, True, False),   # MQA: one kv head for eight query heads
+    (2, 200, 4, 2, 256, True, False),   # D 256: the f32 arms' column chunks
+    (1, 131, 8, 1, 256, True, True),    # Gemma-2B's MQA at D 256, segments
+    (2, 200, 4, 2, 80, True, False),    # D 80: a column group past D on some threads
+    (1, 131, 6, 2, 96, False, True),
+    (2, 200, 4, 2, 32, True, False),
+    (1, 131, 4, 4, 16, True, True),
 ])
 def test_flash_kernels_match_plain(card, dtype, b, s, hq, hkv, d, causal, segmented):
     _hold_flash_kernels(*_flash_case(card, b, s, hq, hkv, d, dtype, segmented), causal, dtype)
@@ -1101,6 +1134,14 @@ def test_flash_kernels_match_plain_uneven(card, dtype, b, sq, sk, hq, hkv, d, ca
     (1, 512, 512, 32, 4, 64, True, False),
     (1, 160, 96, 4, 2, 64, False, False),    # more queries than keys
     (1, 70, 70, 12, 2, 64, True, False),     # rep 6: 64 is no multiple, spare rows
+    (2, 257, 257, 8, 2, 256, True, False),   # D 256: 2 stages; K4 one warpgroup, K5 split
+    (1, 96, 320, 4, 2, 256, True, True),
+    (1, 70, 70, 12, 2, 256, True, False),    # D 256 with spare rows
+    (2, 257, 257, 8, 2, 80, True, False),    # D 80 and 96: a zero-padded second panel
+    (1, 160, 96, 4, 2, 96, False, False),
+    (1, 70, 70, 12, 2, 80, True, False),
+    (1, 257, 257, 8, 2, 32, True, False),    # D 32 and 16: one zero-padded panel
+    (1, 129, 129, 4, 4, 16, True, True),
 ])
 def test_flash_bf16_tensor_core_tiles(card, b, sq, sk, hq, hkv, d, causal, segmented):
     """The bf16 arms of K3, K4 and K5 (wgmma tiles of 64 folded rows x 64
@@ -1150,7 +1191,7 @@ def test_flash_launch_counters_count_kernel_launches_only(card):
 
 
 def test_flash_refuses_unsupported_head_dim(card):
-    q, k, v, _, _ = _flash_case(card, 1, 64, 4, 2, 32, torch.float32)
+    q, k, v, _, _ = _flash_case(card, 1, 64, 4, 2, 72, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_fwd(q, k, v)
 
