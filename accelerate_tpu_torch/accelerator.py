@@ -37,18 +37,26 @@ accumulation buffer, or on a sync call averages, clips, applies and clears
 it.  ``save_state``/``load_state`` (``checkpointing.py``) resume a run,
 mid-window too; ``save_model`` exports safetensors.
 
+Under ``mixed_precision="fp8"`` (compute in bf16), ``prepare(model)`` rebuilds
+a :class:`~accelerate_tpu_torch.models.transformer.Transformer` with
+``use_fp8`` and the recipe's margin and format (an ``FP8RecipeKwargs``
+handler, else the default recipe), on the same tensors: its projections
+then run fp8 products (``ops/fp8.py``).
+
 Arguments for what is not ported — sharding plugins, meshes, RNG
 synchronization across processes (``rng_types``), offload,
-PowerSGD, fp8, remat, trackers, the metrics endpoint — raise
+PowerSGD, remat, trackers, the metrics endpoint — raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
@@ -65,6 +73,7 @@ from .train_state import TrainState, global_norm, tree_finite
 from .utils import operations as ops
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FP8RecipeKwargs,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     PrecisionPolicy,
@@ -140,12 +149,19 @@ class Accelerator:
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
         self.scaler_handler: Optional[GradScalerKwargs] = None
+        self.fp8_recipe_handler: Optional[FP8RecipeKwargs] = None
         for handler in kwargs_handlers or []:
-            if not isinstance(handler, GradScalerKwargs):
+            if isinstance(handler, GradScalerKwargs):
+                self.scaler_handler = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe_handler = handler
+            else:
                 raise NotImplementedError(
                     f"kwargs handler {type(handler).__name__} is not ported (collective "
-                    f"options and PowerSGD: {_PARALLEL}); only GradScalerKwargs is")
-            self.scaler_handler = handler
+                    f"options and PowerSGD: {_PARALLEL}); GradScalerKwargs and "
+                    "FP8RecipeKwargs are")
+        if self.fp8_recipe_handler is None and mixed_precision == "fp8":
+            self.fp8_recipe_handler = FP8RecipeKwargs()
 
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
@@ -316,6 +332,7 @@ class Accelerator:
             self._schedulers.append(obj)
             return obj
         if isinstance(obj, nn.Module):
+            obj = self._maybe_apply_fp8(obj)
             self._models.append(obj)
             return obj
         if callable(obj):
@@ -326,6 +343,34 @@ class Accelerator:
             self._schedulers.append(sched)
             return sched
         return obj
+
+    def _maybe_apply_fp8(self, model: nn.Module) -> nn.Module:
+        """Under ``mixed_precision="fp8"``, a model whose ``config`` is a
+        dataclass with ``use_fp8`` comes back rebuilt with it set and the
+        recipe's ``margin``/``fp8_format`` (``accelerate_tpu/accelerator.py:
+        579-615``), on the same tensors (built on the meta device, the state
+        dict assigned).  An int-quantized model is left as it is, and a
+        model without such a config too, each with a warning."""
+        if self.mixed_precision != "fp8":
+            return model
+        cfg = getattr(model, "config", None)
+        if cfg is None or not dataclasses.is_dataclass(cfg) or not hasattr(cfg, "use_fp8"):
+            warnings.warn(
+                f"mixed_precision='fp8': {type(model).__name__} has no fp8-capable config "
+                "(a dataclass with a use_fp8 field); its matmuls stay in bf16. Use "
+                "accelerate_tpu_torch.ops.fp8.FP8Linear in the model to opt in.", stacklevel=3)
+            return model
+        if getattr(cfg, "quantization", None) is not None:
+            warnings.warn(
+                "mixed_precision='fp8': model is int-quantized (weights already dequantize "
+                "into the matmul); leaving it unchanged.", stacklevel=3)
+            return model
+        recipe = self.fp8_recipe_handler
+        new_cfg = dataclasses.replace(cfg, use_fp8=True, fp8_margin=int(recipe.margin or 0),
+                                      fp8_format=str(recipe.fp8_format))
+        rebuilt = type(model)(new_cfg, device="meta")
+        rebuilt.load_state_dict(model.state_dict(keep_vars=True), assign=True)
+        return rebuilt
 
     def prepare_data_loader(self, data_loader, device_placement: Optional[bool] = None):
         cfg = self.dataloader_config

@@ -7,13 +7,16 @@ of everything (it imports nothing of the JAX package, nor ``transformers`` or
 * :func:`config_from_hf` — ``config.json`` -> :class:`TransformerConfig` for
   the 17 mapped model types, with the reference's refusals (Qwen2's mixed
   ``max_window_layers``, Falcon's alibi, unmapped activations, ...).
-  ``mixtral`` builds its fields and is refused by the config (MoE, ROADMAP
-  Queue 1 item 9e).
+  ``mixtral`` loads with the drop-free capacity factor ``E / k``.
 * one key map per family: port state-dict name -> ``(hf_key, transform)``.
   HF ``Linear`` weights are already ``[out, in]``, the port's layout, so they
   pass through; GPT-2's ``Conv1D`` weights (``[in, out]``) are transposed;
   the fused-qkv splits of GPT-2, NeoX, BLOOM, Falcon, BigCode, CodeGen, MPT
-  and Phi-3 slice the same rows the reference slices.
+  and Phi-3 slice the same rows the reference slices.  Mixtral's per-expert
+  ``w1``/``w3``/``w2`` gather onto the stacked expert axis: the entry's key
+  is then a tuple of HF keys and its transform takes the list of them.
+* a ``quantization`` config (``config_overrides={"quantization": 8}``)
+  quantizes the mapped weights on the host before they are placed.
 * :func:`stream_mapped_tensors` — one shard resident at a time, safetensors
   through :func:`~accelerate_tpu_torch.checkpointing.load_file` and torch-bin
   through ``torch.load(weights_only=True)``, single-file or sharded
@@ -37,11 +40,13 @@ import torch
 
 from .._device import resolve_device
 from ..checkpointing import load_file, save_file
-from ..weights import is_norm_param
+from ..ops.quantization import QuantizationConfig, quantize_model_params
+from ..weights import is_f32_param
 from .transformer import Transformer, TransformerConfig
 
 __all__ = [
     "GEMMA_7B",
+    "MIXTRAL_8X7B",
     "PHI_2",
     "PYTHIA_6_9B",
     "SUPPORTED_MODEL_TYPES",
@@ -96,6 +101,20 @@ PHI_2 = {
     "max_position_embeddings": 2048, "layer_norm_eps": 1e-5, "partial_rotary_factor": 0.4,
     "rope_theta": 10000.0, "hidden_act": "gelu_new", "qk_layernorm": False,
     "tie_word_embeddings": False,
+}
+
+#: Mistral AI ``Mixtral-8x7B-v0.1``'s published ``config.json``: 32 layers
+#: of hidden 4096, 32 query heads over 8 kv heads of D 128, and in each a
+#: sparse MoE MLP of 8 SwiGLU experts of 14336, top 2; untied 32000-row
+#: head; served without its weights file from random weights
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"],
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "vocab_size": 32000, "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6, "hidden_act": "silu", "tie_word_embeddings": False,
+    "num_local_experts": 8, "num_experts_per_tok": 2, "router_aux_loss_coef": 0.02,
+    "output_router_logits": False, "sliding_window": None,
 }
 
 #: the stamp a converted directory carries
@@ -316,10 +335,17 @@ def config_from_hf_dict(hf: Dict[str, Any], **overrides) -> TransformerConfig:
         if hf.get("attention_bias", False):
             fields["attn_bias"] = True
     elif model_type == "mixtral":
-        # Mistral recipe with top-k sparse MoE MLPs: TransformerConfig refuses
-        # num_experts > 0 (ROADMAP Queue 1 item 9e)
+        # Mistral recipe with the dense MLP replaced by top-k MoE: softmax
+        # over all experts, top k, the chosen gates renormalised — HF's
+        # routing.  HF computes the capacity-less mixture, so the load takes
+        # the drop-free factor E / k: a token's k experts are distinct, so an
+        # expert's worst load is all N tokens, E / k times the even share
+        # N * k / E (accelerate_tpu/models/hf_compat.py:267-283)
+        k = hf.get("num_experts_per_tok", 2)
         fields = dict(_llama_base_fields(hf), sliding_window=hf.get("sliding_window"),
-                      num_experts=hf["num_local_experts"])
+                      num_experts=hf["num_local_experts"], num_experts_per_tok=k,
+                      router_aux_loss_coef=hf.get("router_aux_loss_coef", 0.001),
+                      expert_capacity_factor=hf["num_local_experts"] / k)
     elif model_type == "mpt":
         # MPT (MosaicML): alibi positions, no_bias scale-only LayerNorms,
         # plain-order fused Wqkv, erf-gelu MLP, tied head.  For power-of-2
@@ -730,6 +756,29 @@ def llama_key_map(cfg: TransformerConfig) -> Dict[str, Tuple[str, Transform]]:
     return m
 
 
+def _stack_t(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Gather transform: per-expert ``Linear`` weights ``[out, in]`` -> the
+    stacked experts' ``[E, in, out]``."""
+    return torch.stack([p.t() for p in parts]).contiguous()
+
+
+def mixtral_key_map(cfg: TransformerConfig) -> Dict[str, Tuple[Any, Callable]]:
+    """Mixtral naming: the Llama attention and norms, and each layer's
+    ``block_sparse_moe``: the router ``gate`` (a ``Linear``, as the port's)
+    and the experts' ``w1``/``w3``/``w2`` (gate/up/down) stacked onto the
+    expert axis (``accelerate_tpu/models/hf_compat.py:997-1016``)."""
+    m: Dict[str, Tuple[Any, Callable]] = {
+        k: v for k, v in llama_key_map(cfg).items() if ".mlp." not in k}
+    for i in range(cfg.num_layers):
+        n, t = f"layers.{i}.moe_mlp", f"model.layers.{i}.block_sparse_moe"
+        m[f"{n}.router.weight"] = (f"{t}.gate.weight", _ident)
+        for ours, theirs in (("gate_proj", "w1"), ("up_proj", "w3"), ("down_proj", "w2")):
+            m[f"{n}.experts.{ours}.weight"] = (
+                tuple(f"{t}.experts.{e}.{theirs}.weight" for e in range(cfg.num_experts)),
+                _stack_t)
+    return m
+
+
 def phi3_key_map(cfg: TransformerConfig) -> Dict[str, Tuple[str, Transform]]:
     """Phi-3 naming: the Llama tree with fused ``qkv_proj`` (q|k|v rows) and
     ``gate_up_proj`` (gate|up rows)."""
@@ -937,15 +986,14 @@ def native_key_map(checkpoint: str, cfg: Optional[TransformerConfig] = None
                    ) -> Tuple[TransformerConfig, Dict[str, Tuple[str, Transform]]]:
     """``(config, {port name: (hf_key, transform)})`` for a HF model dir.
     ``cfg`` overrides the config read from ``config.json`` (a truncated
-    depth maps only the first layers).  ``mixtral`` is refused by the
-    config before any map is built."""
+    depth maps only the first layers)."""
     hf = _read_hf_config(checkpoint)
     cfg = cfg if cfg is not None else config_from_hf(checkpoint)
     model_type = hf["model_type"]
     maps = {"gpt2": gpt2_key_map, "opt": opt_key_map, "gptj": gptj_key_map,
             "gpt_neox": gpt_neox_key_map, "phi3": phi3_key_map,
             "gpt_bigcode": bigcode_key_map, "phi": phi_key_map, "bloom": bloom_key_map,
-            "codegen": codegen_key_map, "mpt": mpt_key_map}
+            "codegen": codegen_key_map, "mpt": mpt_key_map, "mixtral": mixtral_key_map}
     if model_type == "falcon":
         mapping = falcon_key_map(cfg, hf.get("new_decoder_architecture", False))
     else:  # llama recipe: llama / mistral / qwen2 / gemma / stablelm
@@ -984,21 +1032,40 @@ def _iter_hf_tensors(checkpoint: str) -> Iterator[Tuple[str, torch.Tensor]]:
         del tensors
 
 
-def stream_mapped_tensors(checkpoint: str, mapping: Dict[str, Tuple[str, Transform]],
+def _mapped(checkpoint: str, mapping: Dict[str, Tuple[Any, Callable]]
+            ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(port name, host tensor)`` as the checkpoint streams: an entry of
+    one HF key as soon as that tensor is read, an entry of a tuple of keys
+    (a gather) once all of them are, its parts held until then."""
+    by_hf: Dict[str, list] = {}
+    for native, (hf_key, transform) in mapping.items():
+        for part in (hf_key if isinstance(hf_key, tuple) else (hf_key,)):
+            by_hf.setdefault(part, []).append(native)
+    pending: Dict[str, Dict[str, torch.Tensor]] = {}
+    for hf_key, tensor in _iter_hf_tensors(checkpoint):
+        for native in by_hf.get(hf_key, ()):
+            keys, transform = mapping[native]
+            if not isinstance(keys, tuple):
+                yield native, transform(tensor)
+                continue
+            parts = pending.setdefault(native, {})
+            parts[hf_key] = tensor
+            if len(parts) == len(keys):
+                yield native, transform([parts[k] for k in keys])
+                del pending[native]
+
+
+def stream_mapped_tensors(checkpoint: str, mapping: Dict[str, Tuple[Any, Callable]],
                           dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Stream a checkpoint through a ``{port name: (hf_key, transform)}`` map
     -> ``{port name: host tensor}`` (cast to ``dtype`` when given).  Several
     port names may cite the same HF tensor (fused-qkv splits), each through
-    its own transform; unmapped HF keys (tied duplicates, buffers) are
-    skipped; a mapped tensor the checkpoint lacks raises ``ValueError``."""
-    by_hf: Dict[str, list] = {}
-    for native, (hf_key, transform) in mapping.items():
-        by_hf.setdefault(hf_key, []).append((native, transform))
+    its own transform; a tuple of HF keys gathers them (Mixtral's experts);
+    unmapped HF keys (tied duplicates, buffers) are skipped; a mapped tensor
+    the checkpoint lacks raises ``ValueError``."""
     flat: Dict[str, torch.Tensor] = {}
-    for hf_key, tensor in _iter_hf_tensors(checkpoint):
-        for native, transform in by_hf.get(hf_key, ()):
-            t = transform(tensor)
-            flat[native] = t.to(dtype) if dtype is not None else t
+    for native, t in _mapped(checkpoint, mapping):
+        flat[native] = t.to(dtype) if dtype is not None else t
     missing = set(mapping) - set(flat)
     if missing:
         raise ValueError(f"{checkpoint} is missing tensors for {sorted(missing)[:5]}")
@@ -1023,9 +1090,6 @@ def convert_hf_checkpoint(checkpoint: str, out_dir: Optional[str] = None,
             if json.load(f) == stamp:
                 return out_dir
     _, mapping = native_key_map(checkpoint)
-    by_hf: Dict[str, list] = {}
-    for native, (hf_key, transform) in mapping.items():
-        by_hf.setdefault(hf_key, []).append((native, transform))
     os.makedirs(out_dir, exist_ok=True)
     # a fresh conversion leaves no stale shard or index behind
     for old in glob.glob(os.path.join(out_dir, "model*.safetensors*")):
@@ -1041,15 +1105,13 @@ def convert_hf_checkpoint(checkpoint: str, out_dir: Optional[str] = None,
             shard_keys.append(list(current))
             current, current_bytes = {}, 0
 
-    for hf_key, tensor in _iter_hf_tensors(checkpoint):
-        for native, transform in by_hf.get(hf_key, ()):
-            t = transform(tensor)
-            t = t.to(dtype) if dtype is not None else t
-            nbytes = t.numel() * t.element_size()
-            if current_bytes + nbytes > max_shard_bytes:
-                flush()
-            current[native] = t
-            current_bytes += nbytes
+    for native, t in _mapped(checkpoint, mapping):
+        t = t.to(dtype) if dtype is not None else t
+        nbytes = t.numel() * t.element_size()
+        if current_bytes + nbytes > max_shard_bytes:
+            flush()
+        current[native] = t
+        current_bytes += nbytes
     flush()
     written = {k for keys in shard_keys for k in keys}
     missing = sorted(set(mapping) - written)
@@ -1093,12 +1155,15 @@ def _placement(device, device_map) -> torch.device:
 def place(host: Dict[str, torch.Tensor], device, dtype: Optional[torch.dtype] = None
           ) -> Dict[str, torch.Tensor]:
     """Host tensors -> the model's placement on ``device``: norm parameters
-    f32 (the model keeps them so), the rest in ``dtype`` (default: as
-    stored)."""
+    and routers f32 (the model keeps them so), quantized codes and scales
+    as they are, the rest in ``dtype`` (default: as stored)."""
     sd = {}
     for name, t in host.items():
-        sd[name] = t.to(device=device,
-                        dtype=torch.float32 if is_norm_param(name) else (dtype or t.dtype))
+        if is_f32_param(name):
+            t = t.to(torch.float32)
+        elif dtype is not None and not name.endswith((".qweight", ".scales")):
+            t = t.to(dtype)
+        sd[name] = t.to(device)
     return sd
 
 
@@ -1110,8 +1175,10 @@ def load_hf_checkpoint(checkpoint: str, device: Optional[Union[str, torch.device
     ``(model, state_dict)`` on one device (the card unless ``device="cpu"``;
     a ``device_map`` naming one device is accepted).  ``dtype`` casts the
     matrices, embeddings and projection biases (default: as stored); norm
-    parameters are f32 whatever the checkpoint holds, as the model keeps
-    them."""
+    parameters and routers are f32 whatever the checkpoint holds, as the
+    model keeps them.  With ``config_overrides={"quantization": 8}`` (or 4)
+    the mapped weights are quantized on the host
+    (:func:`~accelerate_tpu_torch.ops.quantization.quantize_model_params`)."""
     device = _placement(device, device_map)
     cfg = config_from_hf(checkpoint, **(config_overrides or {}))
     if os.path.isfile(os.path.join(checkpoint, "config.json")):
@@ -1121,6 +1188,9 @@ def load_hf_checkpoint(checkpoint: str, device: Optional[Union[str, torch.device
         host = {}
         for fname in _checkpoint_files(checkpoint):
             host.update(load_file(fname))
+    if cfg.quantization is not None and not any(k.endswith(".qweight") for k in host):
+        host = quantize_model_params(host, QuantizationConfig(
+            bits=cfg.quantization, block_size=cfg.quantization_block_size))
     sd = place(host, device, dtype)
     model = Transformer(cfg, device="meta")
     model.load_state_dict(sd, assign=True)

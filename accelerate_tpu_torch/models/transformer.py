@@ -37,8 +37,18 @@ Three attention branches, as in the JAX ``Attention``:
 :func:`lm_loss_fn` is the next-token loss the ``Accelerator`` train step
 differentiates, with the JAX signature ``loss_fn(params, batch)``.
 
-Still refused, each naming its ROADMAP item: MoE (``num_experts > 0``),
-``use_fp8``, ``quantization`` and ``attention_impl="ring"``.
+The projections of ``Attention`` and ``MLP`` come from one factory
+(:func:`make_dense`, the reference's ``functools_partial_dense``):
+``nn.Linear``; :class:`~accelerate_tpu_torch.ops.quantization.QuantizedLinear`
+under ``quantization=8|4`` (int8/int4 weights dequantized right before the
+product, for serving); :class:`~accelerate_tpu_torch.ops.fp8.FP8Linear` under
+``use_fp8`` (fp8 products, for training).  The head and the embeddings stay
+unquantized, as in the reference.  ``num_experts > 0`` replaces each layer's
+MLP by :class:`~accelerate_tpu_torch.parallel.moe.MoEMLP` (an f32 router and
+the config's MLP stacked over the experts), and :func:`lm_loss_fn` adds the
+router's aux loss.
+
+Still refused: ``attention_impl="ring"`` (ROADMAP Queue 1 item 9e).
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops.attention import check_implementation, dot_product_attention
+from ..ops.fp8 import FP8Linear
 from ..ops.paged_attention import (
     as_tree_mask,
     kv_qmax,
@@ -63,13 +74,8 @@ from ..ops.paged_attention import (
     paged_insert,
     paged_quantized_insert,
 )
-
-#: the JAX config's options the port refuses -> (is it set?, its ROADMAP item)
-_NOT_PORTED = {
-    "num_experts": (lambda v: v > 0, "9e (parallel/moe.py)"),
-    "use_fp8": (bool, "9d (ops/fp8.py)"),
-    "quantization": (lambda v: v is not None, "9d (ops/quantization.py)"),
-}
+from ..ops.quantization import QuantizedLinear, quantized_shapes
+from ..parallel.moe import ExpertLinear, MoEMLP, collect_router_aux, router_aux_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,19 +112,37 @@ class TransformerConfig:
     embed_scale: bool = False          # Gemma: embeddings times sqrt(hidden)
     embed_norm: bool = False           # BLOOM: a norm right after the embedding
     attention_impl: str = "xla"        # no-cache attention: "xla" | "blocked" | "pallas"
+    # fp8 products (ops/fp8.py) in the attention and MLP projections: e4m3
+    # operands forward, the gradient in e5m2 ("HYBRID") or e4m3 ("E4M3");
+    # set by Accelerator(mixed_precision="fp8") + prepare(model), or here
     use_fp8: bool = False
-    quantization: Optional[int] = None
+    fp8_margin: int = 0
+    fp8_format: str = "HYBRID"
+    # weight-only int8/int4 projections (ops/quantization.py), for serving;
+    # convert dense weights with quantize_model_params
+    quantization: Optional[int] = None  # None | 8 | 4
+    quantization_block_size: int = 64
+    # Mixture-of-Experts (parallel/moe.py): 0 keeps the dense MLP
     num_experts: int = 0
+    num_experts_per_tok: int = 2
+    expert_capacity_factor: float = 2.0
+    router_aux_loss_coef: float = 0.01
     dtype: torch.dtype = torch.bfloat16        # activation / compute dtype
     param_dtype: torch.dtype = torch.float32   # default weight storage dtype
 
     def __post_init__(self):
-        for name, (is_set, item) in _NOT_PORTED.items():
-            if is_set(getattr(self, name)):
-                raise NotImplementedError(
-                    f"TransformerConfig({name}={getattr(self, name)!r}) is not ported: "
-                    f"ROADMAP Queue 1 item {item}")
         check_implementation(self.attention_impl)
+        if str(self.fp8_format).upper() not in ("HYBRID", "E4M3"):
+            raise ValueError(f"fp8_format must be 'HYBRID' or 'E4M3', got {self.fp8_format!r}")
+        if self.quantization is not None:
+            if self.quantization not in (8, 4):
+                raise ValueError(f"quantization must be None, 8 or 4, got {self.quantization!r}")
+            if self.use_fp8:
+                # accelerate_tpu/models/transformer.py:674-680
+                raise ValueError(
+                    "quantization and use_fp8 are mutually exclusive: int8/int4 weights "
+                    "already dequantize straight into the matmul. Drop mixed_precision='fp8' "
+                    "for quantized-inference models.")
         # the JAX config's validation (accelerate_tpu/models/transformer.py:216-231)
         if self.norm_type not in ("rmsnorm", "layernorm"):
             raise ValueError(f"Unknown norm_type {self.norm_type!r}; choose 'rmsnorm' or "
@@ -138,6 +162,14 @@ class TransformerConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+    def resolved_expert_capacity(self, n_tokens: int) -> int:
+        """Per-expert token buffer: ``expert_capacity_factor`` times the even
+        share ``n_tokens * k / E``, rounded up to a multiple of 8
+        (``accelerate_tpu/models/transformer.py:198-203``)."""
+        even = n_tokens * self.num_experts_per_tok / max(self.num_experts, 1)
+        cap = int(-(-self.expert_capacity_factor * even // 1))
+        return max(8, -(-cap // 8) * 8)
 
     @property
     def full_causal(self) -> bool:
@@ -194,6 +226,11 @@ class TransformerConfig:
         return cls(**{**dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                              num_layers=2, num_heads=4, num_kv_heads=2,
                              max_seq_len=128), **kw})
+
+    @classmethod
+    def tiny_moe(cls, **kw):
+        """Test-sized MoE variant: 4 experts, top 2."""
+        return cls.tiny(**{**dict(num_experts=4, num_experts_per_tok=2), **kw})
 
 
 @dataclasses.dataclass
@@ -383,8 +420,35 @@ def scale_embed(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Flax ``nn.Dense(dtype=...)`` numerics: input, weight and bias in ``dtype``."""
+def make_dense(cfg: TransformerConfig, in_features: int, out_features: int, bias: bool,
+               device=None, dtype=None, experts: Optional[int] = None) -> nn.Module:
+    """One projection of ``Attention`` or ``MLP`` (``functools_partial_dense``,
+    ``accelerate_tpu/models/transformer.py:672-712``): a
+    :class:`QuantizedLinear` under ``cfg.quantization``, an
+    :class:`~accelerate_tpu_torch.ops.fp8.FP8Linear` under ``cfg.use_fp8``,
+    else an ``nn.Linear``; with ``experts=E``, ``E`` of them stacked
+    (:class:`~accelerate_tpu_torch.parallel.moe.ExpertLinear`)."""
+    kw = dict(device=device, dtype=dtype)
+    if cfg.quantization is not None:
+        return QuantizedLinear(in_features, out_features, bits=cfg.quantization,
+                               block_size=cfg.quantization_block_size, bias=bias,
+                               compute_dtype=cfg.dtype, experts=experts, **kw)
+    fp8 = (cfg.fp8_margin, cfg.fp8_format) if cfg.use_fp8 else None
+    if experts is not None:
+        return ExpertLinear(experts, in_features, out_features, bias=bias,
+                            compute_dtype=cfg.dtype, fp8=fp8, **kw)
+    if fp8 is not None:
+        return FP8Linear(in_features, out_features, bias=bias, compute_dtype=cfg.dtype,
+                         margin=fp8[0], fp8_format=fp8[1], **kw)
+    return nn.Linear(in_features, out_features, bias=bias, **kw)
+
+
+def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Flax ``nn.Dense(dtype=...)`` numerics for an ``nn.Linear``: input,
+    weight and bias in ``dtype``; the factory's other projections carry
+    their compute dtype and run their own forward."""
+    if type(layer) is not nn.Linear:
+        return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -441,11 +505,11 @@ class Attention(nn.Module):
         hd = cfg.resolved_head_dim
         kw = dict(device=device, dtype=dtype)
         qkv = cfg.site_bias("qkv")
-        self.q_proj = nn.Linear(cfg.hidden_size, cfg.num_heads * hd, bias=qkv, **kw)
-        self.k_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd, bias=qkv, **kw)
-        self.v_proj = nn.Linear(cfg.hidden_size, cfg.num_kv_heads * hd, bias=qkv, **kw)
-        self.o_proj = nn.Linear(cfg.num_heads * hd, cfg.hidden_size, bias=cfg.site_bias("o"),
-                                **kw)
+        self.q_proj = make_dense(cfg, cfg.hidden_size, cfg.num_heads * hd, qkv, **kw)
+        self.k_proj = make_dense(cfg, cfg.hidden_size, cfg.num_kv_heads * hd, qkv, **kw)
+        self.v_proj = make_dense(cfg, cfg.hidden_size, cfg.num_kv_heads * hd, qkv, **kw)
+        self.o_proj = make_dense(cfg, cfg.num_heads * hd, cfg.hidden_size, cfg.site_bias("o"),
+                                 **kw)
 
     def forward(self, x, positions, cache=None, layer: int = 0, tree_mask=None):
         cfg = self.config
@@ -534,16 +598,21 @@ _ACT = {
 class MLP(nn.Module):
     """``down(act(up(x)))`` for the gelu / gelu_exact / relu variants;
     ``down(gate_act(gate(x)) * up(x))`` for swiglu (silu gate) and geglu
-    (tanh-gelu gate)."""
+    (tanh-gelu gate).  With ``experts=E`` every projection is ``E`` stacked
+    ones and the input ``[E, C, hidden]`` (an MoE layer's experts, the
+    reference's vmapped ``MLP``)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, dtype=None):
+    def __init__(self, cfg: TransformerConfig, device=None, dtype=None,
+                 experts: Optional[int] = None):
         super().__init__()
         self.config = cfg
-        kw = dict(bias=cfg.site_bias("mlp"), device=device, dtype=dtype)
+        bias = cfg.site_bias("mlp")
+        kw = dict(device=device, dtype=dtype, experts=experts)
+        h, f = cfg.hidden_size, cfg.intermediate_size
         if cfg.gated_mlp:
-            self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+            self.gate_proj = make_dense(cfg, h, f, bias, **kw)
+        self.up_proj = make_dense(cfg, h, f, bias, **kw)
+        self.down_proj = make_dense(cfg, f, h, bias, **kw)
 
     def forward(self, x):
         cfg = self.config
@@ -564,18 +633,22 @@ class DecoderLayer(nn.Module):
         self.attn = Attention(cfg, device=device, dtype=dtype)
         if cfg.post_attn_norm:
             self.post_attn_norm = make_norm(cfg)
-        self.mlp = MLP(cfg, device=device, dtype=dtype)
+        if cfg.num_experts > 0:
+            self.moe_mlp = MoEMLP(cfg, device=device, dtype=dtype)
+        else:
+            self.mlp = MLP(cfg, device=device, dtype=dtype)
 
     def forward(self, x, positions, cache=None, layer: int = 0, tree_mask=None):
         normed = self.input_norm(x)
         attn_out = self.attn(normed, positions, cache=cache, layer=layer, tree_mask=tree_mask)
+        mlp = self.moe_mlp if self.config.num_experts > 0 else self.mlp
         if self.config.parallel_residual:
             # GPT-J / NeoX block: both branches read the same input; GPT-J
             # (shared_norm) reuses the attention branch's norm
             mlp_in = normed if self.config.shared_norm else self.post_attn_norm(x)
-            return x + attn_out + self.mlp(mlp_in)
+            return x + attn_out + mlp(mlp_in)
         x = x + attn_out
-        return x + self.mlp(self.post_attn_norm(x))
+        return x + mlp(self.post_attn_norm(x))
 
 
 class Transformer(nn.Module):
@@ -676,7 +749,11 @@ class Transformer(nn.Module):
 
 
 def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
-    """Name -> shape of every weight :class:`Transformer` holds for ``cfg``."""
+    """Name -> shape of every weight :class:`Transformer` holds for ``cfg``:
+    ``nn.Linear`` ``.weight [out, in]``; stacked experts ``.weight [E, in,
+    out]``; under ``quantization`` each projection's ``.qweight`` and
+    ``.scales`` in the reference's layout (:func:`~accelerate_tpu_torch.ops.
+    quantization.quantized_shapes`, per expert for the experts)."""
     hd = cfg.resolved_head_dim
     h, f = cfg.hidden_size, cfg.intermediate_size
     shapes = {"embed_tokens.weight": (cfg.vocab_size, h)}
@@ -686,10 +763,16 @@ def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         if cfg.norm_type == "layernorm" and cfg.norm_bias:
             shapes[name + ".bias"] = (h,)
 
-    def linear(name, out, inp, bias):
-        shapes[name + ".weight"] = (out, inp)
+    def linear(name, out, inp, bias, experts=None):
+        lead = () if experts is None else (experts,)
+        if cfg.quantization is not None:
+            (qs, _), (ss, _) = quantized_shapes(inp, out, cfg.quantization,
+                                                cfg.quantization_block_size)
+            shapes[name + ".qweight"], shapes[name + ".scales"] = lead + qs, lead + ss
+        else:
+            shapes[name + ".weight"] = (out, inp) if experts is None else (experts, inp, out)
         if bias:
-            shapes[name + ".bias"] = (out,)
+            shapes[name + ".bias"] = lead + (out,)
 
     if cfg.positional == "learned":
         shapes["pos_embed.weight"] = (cfg.max_seq_len + cfg.pos_offset, h)
@@ -705,13 +788,22 @@ def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         linear(p + "attn.o_proj", h, cfg.num_heads * hd, o)
         if cfg.post_attn_norm:
             norm(p + "post_attn_norm")
+        experts = None
+        if cfg.num_experts > 0:
+            experts = cfg.num_experts
+            shapes[p + "moe_mlp.router.weight"] = (experts, h)
+            p += "moe_mlp.experts."
+        else:
+            p += "mlp."
         if cfg.gated_mlp:
-            linear(p + "mlp.gate_proj", f, h, mlp)
-        linear(p + "mlp.up_proj", f, h, mlp)
-        linear(p + "mlp.down_proj", h, f, mlp)
+            linear(p + "gate_proj", f, h, mlp, experts)
+        linear(p + "up_proj", f, h, mlp, experts)
+        linear(p + "down_proj", h, f, mlp, experts)
     norm("final_norm")
     if not cfg.tie_word_embeddings:
-        linear("lm_head", cfg.vocab_size, h, cfg.lm_head_bias)
+        shapes["lm_head.weight"] = (cfg.vocab_size, h)
+        if cfg.lm_head_bias:
+            shapes["lm_head.bias"] = (cfg.vocab_size,)
     return shapes
 
 
@@ -748,10 +840,19 @@ def lm_loss_fn(model: Transformer):
     of ``model`` to the tensor to run it with (the train step passes the
     masters cast to the compute dtype) and ``batch["input_ids"]`` is
     ``[B, S]``.  The model is run through :func:`torch.func.functional_call`,
-    so gradients flow to whatever tensors ``params`` holds."""
+    so gradients flow to whatever tensors ``params`` holds.  For an MoE
+    config with ``router_aux_loss_coef > 0`` the routers' Switch aux losses
+    are added, times the coefficient
+    (``accelerate_tpu/models/transformer.py:980-1005``)."""
+    cfg = model.config
+    is_moe = cfg.num_experts > 0 and cfg.router_aux_loss_coef > 0.0
 
     def loss_fn(params, batch):
-        logits = torch.func.functional_call(model, params, (batch["input_ids"],))
-        return cross_entropy_loss(logits, shift_labels(batch))
+        with collect_router_aux() as sown:
+            logits = torch.func.functional_call(model, params, (batch["input_ids"],))
+        loss = cross_entropy_loss(logits, shift_labels(batch))
+        if is_moe:
+            loss = loss + router_aux_loss(sown, cfg.router_aux_loss_coef)
+        return loss
 
     return loss_fn

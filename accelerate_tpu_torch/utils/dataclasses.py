@@ -2,9 +2,9 @@
 
 Port of the :mod:`accelerate_tpu.utils.dataclasses` classes the
 single-device train step and its checkpoints need: :class:`PrecisionPolicy`,
-:class:`GradScalerKwargs`, :class:`GradientAccumulationPlugin`,
-:class:`DataLoaderConfiguration` and :class:`ProjectConfiguration`.  Dtypes
-are ``torch`` dtypes.
+:class:`GradScalerKwargs`, :class:`FP8RecipeKwargs`,
+:class:`GradientAccumulationPlugin`, :class:`DataLoaderConfiguration` and
+:class:`ProjectConfiguration`.  Dtypes are ``torch`` dtypes.
 """
 
 from __future__ import annotations
@@ -30,6 +30,23 @@ class GradScalerKwargs(KwargsHandler):
     backoff_factor: float = 0.5
     growth_interval: int = 2000
     enabled: bool = True
+
+
+@dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """fp8 training knobs (``accelerate_tpu/utils/dataclasses.py:241-256``).
+
+    ``margin`` and ``fp8_format`` drive the just-in-time-scaling linear the
+    model uses under ``Accelerator(mixed_precision="fp8")``
+    (:mod:`~accelerate_tpu_torch.ops.fp8`); ``interval``,
+    ``amax_history_len`` and ``amax_compute_algo`` drive the explicit-state
+    delayed-scaling API (``DelayedScalingState``)."""
+
+    margin: int = 0
+    interval: int = 1
+    fp8_format: str = "HYBRID"  # e4m3 forward / e5m2 backward; "E4M3" both
+    amax_history_len: int = 1024
+    amax_compute_algo: str = "max"
 
 
 @dataclass
@@ -92,8 +109,8 @@ class PrecisionPolicy:
         if mp == "fp16":
             return cls(compute_dtype=torch.float16, use_loss_scaling=True)
         if mp == "fp8":
-            raise NotImplementedError("mixed_precision='fp8' is not ported: "
-                                      "ROADMAP Queue 1 item 9 (ops/fp8.py)")
+            # fp8 product operands (the model's linears); the rest in bf16
+            return cls(compute_dtype=torch.bfloat16)
         raise ValueError(f"Unknown mixed precision: {mixed_precision!r}")
 
     @staticmethod

@@ -7,16 +7,24 @@
   ``layers_{i}/attn/q_proj/kernel`` -> ``layers.{i}.attn.q_proj.weight``,
   ``.../bias`` -> ``....bias``, ``embed_tokens``/``pos_embed``
   ``embedding`` -> ``.weight``, and norm ``scale``/``bias`` keep their names.
+  An MoE layer's router kernel becomes its ``Linear`` weight (transposed,
+  f32); the stacked expert kernels ``[E, in, out]`` keep their layout
+  (``moe_mlp/experts/gate_proj/kernel`` -> ``....weight``), and a quantized
+  tree's ``qweight``/``scales`` carry across untransposed, bit for bit.
 * :func:`init_params` makes random full-width weights from a seed, the way
   the Flax model initialises them (normal(0.02) matrices and embeddings,
   zero biases, unit norm scales, zero scales for Gemma's unit-offset
   RMSNorm).  Matrices and projection biases may be stored in bf16: Flax
   casts f32 params to the bf16 compute dtype before every product, so the
-  math is the same; norm parameters stay f32.
+  math is the same; norm parameters and routers stay f32.  Under
+  ``quantization`` each projection is quantized as it is drawn, so the
+  dense weights never exist at once (Mixtral-8x7B: 93 GB in bf16, 47 GB in
+  int8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -24,12 +32,18 @@ import torch
 
 from ._device import resolve_device
 from .models.transformer import TransformerConfig, state_dict_shapes
+from .ops.quantization import QuantizationConfig, quantize_flat_tree
 
 
 def is_norm_param(name: str) -> bool:
     """Whether a state-dict entry is a norm's scale or bias, which the model
     keeps in f32 whatever the storage dtype of the rest."""
     return name.rsplit(".", 2)[-2].endswith("norm")
+
+
+def is_f32_param(name: str) -> bool:
+    """Norm parameters and MoE routers: the entries the model keeps in f32."""
+    return is_norm_param(name) or name.rsplit(".", 2)[-2:] == ["router", "weight"]
 
 
 def params_from_jax(tree: Mapping, device: Optional[Union[str, torch.device]] = None,
@@ -50,16 +64,22 @@ def params_from_jax(tree: Mapping, device: Optional[Union[str, torch.device]] = 
             if parts and parts[0].startswith("layers_"):
                 parts[0:1] = ["layers", parts[0][len("layers_"):]]
             a = np.asarray(val)
-            if is_norm_param(".".join(parts + [key])):
-                sd[".".join(parts + [key])] = torch.from_numpy(
-                    a.astype(np.float32, copy=True)).to(device)
+            if key in ("qweight", "scales"):
+                # the reference's layout, codes and f32 scales as they are
+                sd[".".join(parts + [key])] = torch.from_numpy(np.array(a)).to(device)
                 continue
             if key == "kernel":
-                a, key = a.T, "weight"
+                # Dense [in, out] -> Linear [out, in]; stacked experts
+                # [E, in, out] keep their layout
+                a, key = (a.T if a.ndim == 2 else a), "weight"
             elif key == "embedding":
                 key = "weight"
+            name = ".".join(parts + [key])
+            if is_f32_param(name):
+                sd[name] = torch.from_numpy(a.astype(np.float32, copy=True)).to(device)
+                continue
             t = torch.from_numpy(np.array(a))
-            sd[".".join(parts + [key])] = t.to(device=device, dtype=dtype or t.dtype)
+            sd[name] = t.to(device=device, dtype=dtype or t.dtype)
 
     walk(tree, ())
     return sd
@@ -76,6 +96,11 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
+    qcfg = None
+    if cfg.quantization is not None:
+        # the dense model's draws, each projection quantized as drawn
+        qcfg = QuantizationConfig(bits=cfg.quantization, block_size=cfg.quantization_block_size)
+        cfg = dataclasses.replace(cfg, quantization=None)
     sd = {}
     for name, shape in state_dict_shapes(cfg).items():
         if name.endswith(".scale"):
@@ -85,6 +110,8 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
             sd[name] = torch.zeros(shape, dtype=torch.float32 if is_norm_param(name) else dtype,
                                    device=device)
         else:
-            sd[name] = torch.empty(shape, dtype=dtype, device=device).normal_(
-                0.0, 0.02, generator=gen)
+            w = torch.empty(shape, dtype=torch.float32 if is_f32_param(name) else dtype,
+                            device=device).normal_(0.0, 0.02, generator=gen)
+            sd.update(quantize_flat_tree({name: w}, qcfg) if qcfg is not None else {name: w})
+            del w
     return sd

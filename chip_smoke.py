@@ -176,6 +176,25 @@ Phases, each printing one JSON line:
    StableLM-3B's and CodeGen-2B's D 80 at hidden 2560, Phi-3-mini's D 96 at
    3072 without its window).  K1 and K2 also take the families' shapes:
    GPT-2's 12 heads of D 64 and Falcon-7B's 71 query heads over one kv head.
+   Weight-only quantization and MoE: ``mixtral_config`` (Mistral AI's
+   Mixtral-8x7B, ``hf_compat.MIXTRAL_8X7B``: 32 layers, hidden 4096, 32
+   query heads over 8 kv heads of D 128, 8 SwiGLU experts of 14336 a layer,
+   top 2, the drop-free capacity factor 4) with int8 weights
+   (``quantization=8``: 47 GB, where bf16 would need 93), random draws from
+   seed 0 quantized per column and per expert as drawn, the router f32; its
+   weight bytes by group and the weight bound of a decode step;
+   ``model_mixtral`` (the ``model`` line's check at 32 layers: the f32 twin
+   shares the int8 codes and dequantizes them layer by layer) and
+   ``model_mixtral_plain_paged`` (the kernel path against the plain paged
+   path within that tolerance); ``engine_mixtral`` (the ``engine`` line's
+   engine and requests, K1 32 launches a step and K2 32 a chunk) and
+   ``engine_mixtral_sync_eager`` (identical tokens); ``mixtral_decode_split``
+   (a decode step's card time split: one layer's dequantization and its
+   experts' products timed alone with CUDA events, times 32, beside the
+   step and its bound).  ``int4_config``, ``model_int4_dequantized`` (the
+   int4 Llama-2-7B's logits bitwise those of the bf16 model holding its
+   dequantized weights), ``model_int4`` and ``engine_int4``: Llama-2-7B with
+   int4 weights in blocks of 64.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -225,6 +244,19 @@ Phases, each printing one JSON line:
    ``train_gemma``: ``train``'s loop and checks at Gemma-7B's widths and 2
    of its 28 layers (``gemma_train_config``: 16 heads of D 256, the tied
    256000-row head), K3-K5 2 launches each a micro-step.
+   ``fp8_linear``: ``FP8Linear`` (``torch._scaled_mm``, forward and both
+   gradients) at an MLP up-projection's training shape against its plain
+   version (``FP8_LINEAR_REL_TOL``), its ms beside a bf16 ``F.linear``'s.
+   ``train_fp8``: ``train``'s model, batches and loop under
+   ``Accelerator(mixed_precision="fp8")`` (``prepare`` rebuilds the model
+   with fp8 projections): ``_scaled_mm`` 3 launches a projection a
+   micro-step, K3-K5 8 each a micro-step; ``train_fp8_vs_train``: each
+   loss and grad norm against ``train``'s (``FP8_TRAIN_LOSS_REL_TOL``,
+   ``FP8_TRAIN_GRAD_NORM_REL_TOL``), ms a micro-step and peak memory beside
+   ``train``'s.  ``train_moe``: Mixtral-8x7B's widths at 1 of 32 layers
+   (1.71 B parameters), ``train``'s loop and path check, K3-K5 one launch
+   each a micro-step; the router's aux loss finite and in the loss (cross
+   entropy plus the coefficient times the collected aux).
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
@@ -234,7 +266,9 @@ Phases, each printing one JSON line:
    entry: K1 and K2 at D 256 on ``engine_gemma``, D 80 on ``engine_phi2``,
    D 96 on ``families``' ``phi3_d96``; K3-K5 at D 256 on ``train_gemma``,
    at D 80, 96, 32 and 16 on their own kernel cases; ``launches_on`` names
-   the path each count comes from),
+   the path each count comes from; K1 and K2 also with ``engine_mixtral``'s
+   and ``engine_int4``'s launches, K3-K5 with ``train_fp8``'s and
+   ``train_moe``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -630,8 +664,8 @@ def model_phase(model, cfg, rng, name: str = "model") -> float:
     # (Gemma-7B's is 34 GB beside its 17 GB of bf16 weights)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     model32 = Transformer(cfg32, device="meta", dtype=torch.float32)
-    model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
-                            assign=True)
+    model32.load_state_dict({k: v.float() if v.is_floating_point() else v
+                             for k, v in model.state_dict().items()}, assign=True)
     ref32 = no_cache_logits(model32, ids)
     del model32
     torch.cuda.empty_cache()
@@ -1438,6 +1472,218 @@ def gpt2_phase(gpu) -> dict:
     return launches
 
 
+def quantized_model(cfg, seed: int = 0):
+    """``cfg``'s weight-quantized model on the card: ``init_params``' bf16
+    draws from ``seed``, each projection quantized as it is drawn (per
+    column, per expert), the router f32, embeddings and head bf16."""
+    from accelerate_tpu_torch.models.transformer import Transformer
+    from accelerate_tpu_torch.weights import init_params
+
+    sd = init_params(cfg, seed=seed, device="cuda", dtype=torch.bfloat16)
+    model = Transformer(cfg, device="meta", dtype=torch.bfloat16)
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+def weight_bytes(model) -> dict:
+    """The model's weight bytes by group: the quantized codes, their f32
+    scales, the MoE routers, the embeddings and head, and the rest (norms)."""
+    groups = {"codes": 0, "scales": 0, "router": 0, "embed_head": 0, "other": 0}
+    for name, t in model.state_dict().items():
+        key = ("codes" if name.endswith(".qweight") else "scales" if name.endswith(".scales")
+               else "router" if ".router." in name
+               else "embed_head" if name.split(".")[0] in ("embed_tokens", "lm_head")
+               else "other")
+        groups[key] += t.numel() * t.element_size()
+    return groups
+
+
+def paged_plain_check(model, cfg, rng, tol: float, name: str) -> dict:
+    """The kernel path's logits (a 512-token prefill chunk through K2, 8
+    decode steps through K1) against the plain paged path's on the same
+    tokens, within the model line's tolerance ``tol``."""
+    ids = rng.integers(1, cfg.vocab_size, 520).astype(np.int32)
+    got = paged_logits(model, cfg, ids, plain=False)
+    want = paged_logits(model, cfg, ids, plain=True)
+    err = (got - want).abs().max().item()
+    rec = {"kernel_vs_plain_paged_max_abs_logit_err": err, "tolerance": tol}
+    check(err <= tol, f"{name}: the kernel path's logits differ from the plain paged path's "
+          f"by {err} > {tol}")
+    return rec
+
+
+#: Mixtral-8x7B's routing constants the published config must map to
+MIXTRAL_EXPECT = dict(num_layers=32, hidden_size=4096, intermediate_size=14336, num_heads=32,
+                      num_kv_heads=8, resolved_head_dim=128, num_experts=8,
+                      num_experts_per_tok=2, expert_capacity_factor=4.0, vocab_size=32000,
+                      rope_theta=1e6, tie_word_embeddings=False, sliding_window=None)
+
+
+def moe_decode_split(model, cfg, lanes: int = 4) -> dict:
+    """Card time of one decode step split into its parts, each timed alone
+    with CUDA events at the engine's decode shape (``lanes`` tokens a
+    forward): the dequantization of one layer's weights (the experts' and
+    the attention projections', the f32 multiply then the bf16 cast), the
+    experts' three batched products at the step's capacity on weights
+    dequantized beforehand, each times the layers; beside them one whole
+    decode forward (``step_ms``) and what is left of it (``rest``: norms,
+    rotary, K1, routing, the attention products, the head)."""
+    from accelerate_tpu_torch.ops.quantization import QuantizedLinear, dequantize
+
+    layer = model.layers[0]
+    quantized = [m for m in layer.modules() if isinstance(m, QuantizedLinear)]
+
+    def dequant_layer():
+        for m in quantized:
+            dequantize(m.qtensor(), cfg.dtype, transposed=m.experts is None)
+
+    experts = layer.moe_mlp.experts
+    w = {n: dequantize(getattr(experts, n).qtensor(), cfg.dtype)
+         for n in ("gate_proj", "up_proj", "down_proj")}
+    cap = cfg.resolved_expert_capacity(lanes)
+    x = torch.randn(cfg.num_experts, cap, cfg.hidden_size, device="cuda", dtype=cfg.dtype)
+
+    def expert_products():
+        g = torch.bmm(x, w["gate_proj"])
+        u = torch.bmm(x, w["up_proj"])
+        torch.bmm(torch.nn.functional.silu(g) * u, w["down_proj"])
+
+    # one decode forward of ``lanes`` lanes at the engine's lengths, through
+    # K1 (eager: at these times the host's launches hide behind the card)
+    from accelerate_tpu_torch.models.transformer import PagedKVCache
+    from accelerate_tpu_torch.serving import PagedKVPool
+
+    per_lane = 2048 // 128
+    pool = PagedKVPool(cfg, lanes, 2048, 128, lanes * per_lane + 1, device="cuda")
+    tables = torch.arange(1, lanes * per_lane + 1, dtype=torch.int32,
+                          device="cuda").reshape(lanes, per_lane)
+    cache = PagedKVCache(pool.pages_k, pool.pages_v, pool.k_scales, pool.v_scales,
+                         tables=tables, index=torch.tensor([57, 384, 700, 1000][:lanes],
+                                                           dtype=torch.int32, device="cuda"),
+                         active=torch.ones(lanes, dtype=torch.bool, device="cuda"),
+                         kernel="decode")
+    ids = torch.ones(lanes, 1, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        dq = time_ms(dequant_layer, iters=5)
+        ex = time_ms(expert_products, iters=20)
+        del w
+        step = time_ms(lambda: model(ids, cache=cache), iters=3, warmup=1)
+    del pool, cache
+    free_card()
+    return {"dequant_ms_per_layer": dq, "expert_products_ms_per_layer": ex,
+            "dequant_ms_per_step": dq * cfg.num_layers,
+            "expert_products_ms_per_step": ex * cfg.num_layers, "step_ms": step,
+            "rest_ms_per_step": step - (dq + ex) * cfg.num_layers,
+            "dequant_share": dq * cfg.num_layers / step, "capacity": cap, "lanes": lanes}
+
+
+def mixtral_phases(gpu) -> dict:
+    """Mixtral-8x7B (``hf_compat.MIXTRAL_8X7B``, the published
+    ``config.json`` values) at full width and depth with int8 weights
+    (``quantization=8``: 47 GB; 93 GB in bf16 would not fit the card):
+    ``mixtral_config`` (the mapped config, the weight bytes by group and
+    the weight bound of a decode step, every weight read once at the HBM
+    rate), ``model_mixtral`` (the ``model`` line's check at 32 layers: the
+    f32 twin shares the int8 codes and dequantizes them to f32 layer by
+    layer, so it needs no f32 copy of the weights), the kernel path against
+    the plain paged path, ``engine_mixtral`` (the ``engine`` line's engine
+    and six requests: K1 32 launches a decode step, K2 32 a chunk, every
+    token within the noise margin, the peak memory) and
+    ``engine_mixtral_sync_eager`` (identical tokens), then the decode step's
+    card time split into dequantization, expert products and the rest.
+    Returns ``engine_mixtral``'s launches."""
+    from accelerate_tpu_torch.models import hf_compat
+    from accelerate_tpu_torch.models.transformer import state_dict_shapes
+
+    cfg = hf_compat.config_from_hf_dict(hf_compat.MIXTRAL_8X7B, dtype=torch.bfloat16,
+                                        quantization=8)
+    got = {key: getattr(cfg, key) for key in MIXTRAL_EXPECT}
+    check(got == MIXTRAL_EXPECT, f"mistralai/Mixtral-8x7B-v0.1 mapped to {got}")
+    dense = dataclasses.replace(cfg, quantization=None)
+    params = sum(int(np.prod(shape)) for shape in state_dict_shapes(dense).values())
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = quantized_model(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    groups = weight_bytes(model)
+    total = sum(groups.values())
+    bound_ms = 1e3 * total / HBM_BYTES_PER_S
+    emit({"phase": "mixtral_config", "source": "mistralai/Mixtral-8x7B-v0.1 config.json",
+          "config": {k: str(v) if isinstance(v, torch.dtype) else v
+                     for k, v in dataclasses.asdict(cfg).items()},
+          "params": params, "bf16_weights_gb": 2 * params / 1e9,
+          "weights_gb": total / 1e9, "weights_gb_by_group": {k: v / 1e9 for k, v in
+                                                             groups.items()},
+          "weight_bound_ms_per_step": bound_ms, "init_s": init_s,
+          "init_peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    rng = np.random.default_rng(0)
+    tol = model_phase(model, cfg, rng, name="model_mixtral")
+    emit({"phase": "model_mixtral_plain_paged", **paged_plain_check(model, cfg, rng, tol,
+                                                                    "model_mixtral")})
+    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, name="engine_mixtral")
+    _, _, eager = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
+                               name="engine_mixtral_sync_eager", eager=True)
+    check(eager == tokens, "engine_mixtral_sync_eager's greedy tokens differ from "
+          "engine_mixtral's")
+    emit({"phase": "mixtral_decode_split", **moe_decode_split(model, cfg),
+          "weight_bound_ms_per_step": bound_ms, "gpu": gpu})
+    del model
+    free_card()
+    return launches
+
+
+def int4_phases(gpu) -> dict:
+    """Llama-2-7B with int4 weights (``quantization=4``, blocks of 64 along
+    K): ``int4_config`` (weight bytes and the weight bound of a decode
+    step), ``model_int4`` (the ``model`` line's check) and
+    ``model_int4_dequantized`` (the no-cache logits bitwise those of the
+    bf16 model holding the dequantized weights: the same products),
+    ``engine_int4`` (the ``engine`` line's engine and requests).  Returns
+    ``engine_int4``'s launches."""
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.ops.quantization import dequantize
+
+    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16, quantization=4,
+                                      quantization_block_size=64)
+    free_card()
+    model = quantized_model(cfg)
+    groups = weight_bytes(model)
+    bound_ms = 1e3 * sum(groups.values()) / HBM_BYTES_PER_S
+    emit({"phase": "int4_config", "config": "llama2_7b", "quantization": 4, "block_size": 64,
+          "weights_gb_by_group": {k: v / 1e9 for k, v in groups.items()},
+          "weights_gb": sum(groups.values()) / 1e9, "weight_bound_ms_per_step": bound_ms})
+    rng = np.random.default_rng(0)
+    # the dense twin on the dequantized weights ([out, in], as QuantizedLinear
+    # hands them to F.linear)
+    sd = {}
+    for name, t in model.state_dict().items():
+        if name.endswith(".qweight"):
+            base = name[: -len(".qweight")]
+            sd[base + ".weight"] = dequantize(model.get_submodule(base).qtensor(),
+                                              torch.bfloat16, transposed=True)
+        elif not name.endswith(".scales"):
+            sd[name] = t
+    twin = Transformer(dataclasses.replace(cfg, quantization=None), device="meta",
+                       dtype=torch.bfloat16)
+    twin.load_state_dict(sd, assign=True)
+    ids = rng.integers(1, cfg.vocab_size, 512).astype(np.int32)
+    got, want = no_cache_logits(model, ids), no_cache_logits(twin, ids)
+    same = torch.equal(got, want)
+    emit({"phase": "model_int4_dequantized", "prompt": 512, "bitwise": same,
+          "max_abs_logit_err": (got - want).abs().max().item()})
+    check(same, "the int4 model's logits are not bitwise the dequantized bf16 model's")
+    del twin, sd, got, want
+    free_card()
+    tol = model_phase(model, cfg, rng, name="model_int4")
+    launches, _, _ = engine_phase(model, cfg, rng, gpu, tol, name="engine_int4")
+    del model
+    free_card()
+    return launches
+
+
 _FAMILY_BASE = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_layers=2,
                     num_heads=16, num_kv_heads=16, max_seq_len=2048)
 _GPT2_SW = dict(norm_type="layernorm", use_bias=True, positional="learned", mlp_variant="gelu",
@@ -1844,26 +2090,39 @@ def train_data(cfg):
     return a, [{"input_ids": r} for _ in range(4) for r in (*a, *b)]
 
 
-def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
+def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
+                mixed_precision="bf16", with_path_check=True):
     """``cfg`` (``train``: Llama-2-7B's widths at ``TRAIN_LAYERS`` layers)
     trained through ``Accelerator.compile_train_step``: 8 micro-steps of
     ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens at accumulation 2, the flash
     launch counters zeroed just before and read just after (one launch of
     each of K3-K5 a layer each micro-step), held to the flash-vs-xla path
-    check.  Returns the launches and the line's record."""
+    check (``with_path_check``).  Under ``mixed_precision="fp8"`` the model
+    goes through ``prepare`` first (its projections become fp8 products)
+    and the ``_scaled_mm`` launches are counted too.  Returns the launches
+    and the line's record."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
     from accelerate_tpu_torch.models.transformer import lm_loss_fn, state_dict_shapes
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8
+
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
     free_card()
     cfg = cfg or train_config(TRAIN_LAYERS)
     layers, rows, seq = cfg.num_layers, TRAIN_ROWS, TRAIN_SEQ
     model = train_model(cfg, seed=0)
-    accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
+    # each line is a run of its own: its precision, its accumulation window
+    GradientState._reset_state()
+    AcceleratorState._reset_state(reset_partial_state=True)
+    accelerator = Accelerator(mixed_precision=mixed_precision, gradient_accumulation_steps=2)
+    model = accelerator.prepare(model)
+    cfg = model.config
     a, dataset = train_data(cfg)
     path_check = attention_path_check(
-        accelerator, model, cfg, {"input_ids": torch.from_numpy(a[:1]).cuda()})
+        accelerator, model, cfg, {"input_ids": torch.from_numpy(a[:1]).cuda()}
+    ) if with_path_check else None
 
     state = accelerator.create_train_state(params=model, tx=LLAMA2_ADAMW)
     step = accelerator.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
@@ -1871,6 +2130,7 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    fp8.launches = 0
     metrics, step_s = [], []
     for batch in loader:
         t0 = time.perf_counter()
@@ -1880,6 +2140,7 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
         metrics.append(m)
     launches = {"flash_fwd": fa.flash_fwd.launches, "flash_dq": fa.flash_dq.launches,
                 "flash_dkv": fa.flash_dkv.launches}
+    scaled_mm_launches = fp8.launches
     peak = torch.cuda.max_memory_allocated()
     host = [{k: v.item() for k, v in m.items()} for m in metrics]
     micro = len(host)
@@ -1891,7 +2152,11 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
     tokens = rows * seq
     # (a tied head multiplies by the embedding: Gemma's)
     head = "embed_tokens.weight" if cfg.tie_word_embeddings else "lm_head.weight"
-    matrix_params = sum(int(np.prod(shape)) for name, shape in state_dict_shapes(cfg).items()
+    # an MoE layer's experts count at their active share k / E (the dense
+    # formulation computes more: every expert over its whole capacity)
+    active = cfg.num_experts_per_tok / cfg.num_experts if cfg.num_experts else 1.0
+    matrix_params = sum(int(np.prod(shape)) * (active if ".experts." in name else 1.0)
+                        for name, shape in state_dict_shapes(cfg).items()
                         if name.endswith("proj.weight") or name == head)
     attn_fwd = 4 * cfg.resolved_head_dim * cfg.num_heads * layers * rows * seq * (seq + 1) // 2
     flops = 6 * matrix_params * tokens + 3 * attn_fwd
@@ -1901,6 +2166,32 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
     steady = float(np.median([(step_s[i] + step_s[i + 1]) / 2
                               for i in range(2, micro - 1, 2)]))
     applied = [h for h in host if h["applied"]]
+    moe_rec = {}
+    if cfg.num_experts:
+        # the router's aux loss is finite and in the loss: cross entropy plus
+        # the coefficient times the layers' collected aux losses
+        from accelerate_tpu_torch.models.transformer import cross_entropy_loss, shift_labels
+        from accelerate_tpu_torch.parallel.moe import collect_router_aux, router_aux_loss
+
+        ids = {"input_ids": torch.from_numpy(a).cuda()}
+        params = accelerator._compute_params(model)
+        with torch.no_grad():
+            with collect_router_aux() as sown:
+                logits = torch.func.functional_call(model, params, (ids["input_ids"],))
+            ce = cross_entropy_loss(logits.float(), shift_labels(ids)).item()
+            del logits
+            total = lm_loss_fn(model)(params, ids).item()
+        aux = router_aux_loss(sown, cfg.router_aux_loss_coef).item()
+        del params
+        moe_rec = {"moe": {"experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+                           "capacity": cfg.resolved_expert_capacity(rows * seq),
+                           "aux_coef": cfg.router_aux_loss_coef, "aux_term": aux,
+                           "aux_per_layer": [x.item() for x in sown], "cross_entropy": ce,
+                           "loss": total}}
+        check(np.isfinite(aux) and len(sown) == layers, f"router aux loss {aux} over "
+              f"{len(sown)} layers")
+        check(abs(total - (ce + aux)) <= 1e-4 * abs(total),
+              f"the MoE loss {total} is not cross entropy {ce} + aux {aux}")
     rec = {
         "phase": name, "config": config, "layers": layers, "of_layers": of_layers,
         "head_dim": cfg.resolved_head_dim,
@@ -1914,6 +2205,8 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
         "tokens_per_s": tokens / steady, "model_flops_per_micro_step": flops,
         "mfu_vs_989_tflops": flops / steady / PEAK_FLOPS[torch.bfloat16],
         "max_memory_allocated_gb": peak / 1e9, "path_check": path_check, "gpu": gpu,
+        "mixed_precision": mixed_precision, "scaled_mm_launches": scaled_mm_launches,
+        **moe_rec,
     }
     emit(rec)
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in host),
@@ -1926,11 +2219,132 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32):
           f"{applied[0]['loss']} on the repeating batch")
     for name, n in launches.items():
         check(n == micro * layers, f"{name} launched {n} times, want {micro} x {layers}")
-    check(path_check["loss_err"] <= path_check["loss_tolerance"],
-          f"flash vs xla loss differ by {path_check['loss_err']}")
-    check(path_check["grad_rel_err"] <= path_check["grad_tolerance"],
-          f"flash vs xla gradients differ by {path_check['grad_rel_err']} (relative)")
+    if mixed_precision == "fp8":
+        # every attention and MLP projection: its forward and both gradients
+        want = micro * layers * 3 * (7 if cfg.gated_mlp else 6)
+        check(scaled_mm_launches == want,
+              f"_scaled_mm launched {scaled_mm_launches} times, want {want}")
+    if path_check is not None:
+        check(path_check["loss_err"] <= path_check["loss_tolerance"],
+              f"flash vs xla loss differ by {path_check['loss_err']}")
+        check(path_check["grad_rel_err"] <= path_check["grad_tolerance"],
+              f"flash vs xla gradients differ by {path_check['grad_rel_err']} (relative)")
     return launches, rec
+
+
+#: the card's fp8 linear against its plain version (quantize -> dequantize
+#: in bf16, then a bf16 product): ``||got - plain|| / ||plain||`` of the
+#: output and both gradients.  The plain version rounds the dequantized
+#: operands and the product to bf16 (2^-9 each), the card multiplies the
+#: fp8 codes exactly and rounds once
+FP8_LINEAR_REL_TOL = 2.0**-7
+#: ``train_fp8`` against ``train`` over the first accumulation window, where
+#: both hold the same weights and batches (after the first update the two
+#: runs follow their own trajectories: fp8 operands carry 3 mantissa bits):
+#: each loss within this relative distance, each grad norm within
+#: ``FP8_TRAIN_GRAD_NORM_REL_TOL``
+FP8_TRAIN_LOSS_REL_TOL = 1e-2
+FP8_TRAIN_GRAD_NORM_REL_TOL = 0.1
+
+
+def fp8_linear_check(gpu, m: int = TRAIN_ROWS * TRAIN_SEQ, k: int = 4096, n: int = 11008) -> dict:
+    """``FP8Linear`` on the card (``_scaled_mm``: the forward and both
+    gradients) at the training shape of an MLP up-projection against its
+    plain version on the same inputs; then ms of its forward and of its
+    forward + backward beside a bf16 ``F.linear``'s (the library call) and
+    the bound of the fp8 product (operations at the fp8 peak, or the bytes
+    of the bf16 operands read once and the output written once)."""
+    from accelerate_tpu_torch.ops import fp8
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16, generator=gen)
+    lin = fp8.FP8Linear(k, n, bias=False, compute_dtype=torch.bfloat16, device="cuda",
+                        dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 0.02, generator=gen)
+    g = torch.randn(m, n, device="cuda", dtype=torch.bfloat16, generator=gen) * 1e-3
+    xr = x.clone().requires_grad_()
+    out = lin(xr)
+    out.backward(g)
+    dx, dw = xr.grad, lin.weight.grad
+    want = fp8.plain_fp8_linear(x, lin.weight.detach())
+    want_dx, want_dw_t = fp8.plain_fp8_grads(x, lin.weight.detach().t(), g)
+    rel = {name: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for name, a, b in (("out", out.detach(), want), ("dx", dx, want_dx),
+                              ("dw", dw, want_dw_t.t()))}
+    lin.weight.grad = None
+    w = lin.weight.detach()
+
+    def fwd_bwd(f):
+        def run():
+            xi = x.detach().requires_grad_()
+            f(xi).backward(g)
+        return run
+
+    with torch.no_grad():
+        ms = time_ms(lambda: lin(x), iters=20)
+        bf16_ms = time_ms(lambda: torch.nn.functional.linear(x, w), iters=20)
+    train_ms = time_ms(fwd_bwd(lin), iters=10)
+    lin.weight.grad = None
+    dense = torch.nn.Linear(k, n, bias=False, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        dense.weight.copy_(w)
+    bf16_train_ms = time_ms(fwd_bwd(dense), iters=10)
+    flops = 2 * m * k * n
+    bound = max(flops / 1979e12, 2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S) * 1e3
+    rec = {"phase": "fp8_linear", "shape": [m, k, n], "rel_err": rel,
+           "tolerance": FP8_LINEAR_REL_TOL, "fwd_ms": ms, "plain_or_library_bf16_fwd_ms": bf16_ms,
+           "fwd_bwd_ms": train_ms, "bf16_fwd_bwd_ms": bf16_train_ms,
+           "fwd_bound_ms": bound, "fwd_bound_by": "operations" if flops / 1979e12 * 1e3 >= bound
+           else "bytes", "gpu": gpu}
+    emit(rec)
+    for name, err in rel.items():
+        check(err <= FP8_LINEAR_REL_TOL, f"the card fp8 linear's {name} differs from its plain "
+              f"version by {err} (relative) > {FP8_LINEAR_REL_TOL}")
+    del x, g, xr, out, dx, dw, lin, dense
+    free_card()
+    return rec
+
+
+def train_fp8_phase(gpu, train_rec) -> dict:
+    """``train``'s model, batches and loop under ``Accelerator(
+    mixed_precision="fp8")``: every projection through ``_scaled_mm`` (its
+    forward and both gradients), attention on K3-K5; the first
+    accumulation window's losses and grad norms (the same weights and
+    batches as ``train``'s) held against ``train``'s bf16 run, every
+    micro-step's distance printed.  Returns the flash launches."""
+    fp8_linear_check(gpu)
+    launches, rec = train_phase(gpu, name="train_fp8", mixed_precision="fp8",
+                                with_path_check=False)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(rec["loss"], train_rec["loss"])]
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(rec["grad_norm"], train_rec["grad_norm"])]
+    window = rec["applied"].index(True) + 1
+    emit({"phase": "train_fp8_vs_train", "held_micro_steps": window, "loss_rel_diff": loss_rel,
+          "grad_norm_rel_diff": norm_rel, "loss_tolerance": FP8_TRAIN_LOSS_REL_TOL,
+          "grad_norm_tolerance": FP8_TRAIN_GRAD_NORM_REL_TOL,
+          "step_ms": rec["step_ms"], "train_step_ms": train_rec["step_ms"],
+          "step_ms_ratio": rec["step_ms"] / train_rec["step_ms"],
+          "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
+          "train_max_memory_allocated_gb": train_rec["max_memory_allocated_gb"], "gpu": gpu})
+    check(max(loss_rel[:window]) <= FP8_TRAIN_LOSS_REL_TOL,
+          f"train_fp8's first-window loss strays {max(loss_rel[:window])} (relative) "
+          "from train's")
+    check(max(norm_rel[:window]) <= FP8_TRAIN_GRAD_NORM_REL_TOL,
+          f"train_fp8's first-window grad norm strays {max(norm_rel[:window])} (relative) "
+          "from train's")
+    return launches
+
+
+#: Mixtral-8x7B's widths at 1 of its 32 layers for ``train_moe``: 1.71 B
+#: parameters, 1.41 B of them the layer's eight experts
+MOE_TRAIN_LAYERS = 1
+
+
+def moe_train_config():
+    from accelerate_tpu_torch.models.hf_compat import MIXTRAL_8X7B, config_from_hf_dict
+
+    return config_from_hf_dict(MIXTRAL_8X7B, num_layers=MOE_TRAIN_LAYERS, dtype=torch.bfloat16,
+                               param_dtype=torch.float32, attention_impl="pallas")
 
 
 def reference_loop_call(accelerator, state, loss_fn):
@@ -2328,6 +2742,10 @@ def main() -> int:
     wide_launches = {256: ("engine_gemma", hf_phases(gpu, "gemma")),
                      80: ("engine_phi2", hf_phases(gpu, "phi2"))}
     wide_launches[96] = ("families:phi3_d96", families_phase(gpu)["phi3_d96"])
+    # weight-only quantization: Mixtral-8x7B in int8 (MoE, GQA 32/8), then
+    # Llama-2-7B in int4
+    family_launches["engine_mixtral"] = mixtral_phases(gpu)
+    family_launches["engine_int4"] = int4_phases(gpu)
 
     flash = flash_phase([
         ("train", 13, 2, 2048, 32, 32, bf16, True, False),
@@ -2354,6 +2772,10 @@ def main() -> int:
     # its 28 layers: K3-K5's D 256 arms on the training path
     gemma_train_launches, _ = train_phase(gpu, gemma_train_config(), name="train_gemma",
                                           config="gemma_7b", of_layers=28)
+    # fp8 products in training, and a Mixtral layer with its aux loss
+    train_lines = {"train_fp8": train_fp8_phase(gpu, train_rec)}
+    train_lines["train_moe"], _ = train_phase(gpu, moe_train_config(), name="train_moe",
+                                              config="mixtral_8x7b", of_layers=32)
 
     def first(records, pages, case):
         return next(r for r in records if r["pages"] == pages and r["case"] == case)
@@ -2428,6 +2850,10 @@ def main() -> int:
         if name in api_launches:
             # the reference loop's path, its counts zeroed just before its calls
             kernels[-1]["launches_train_api"] = api_launches[name]
+        for line, counts in train_lines.items():
+            # the fp8 and MoE training lines, their counts zeroed just before
+            if name in counts:
+                kernels[-1]["launches_" + line] = counts[name]
     emit({"phase": "run", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(gpu, flush=True)

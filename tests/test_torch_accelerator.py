@@ -404,7 +404,7 @@ def test_accelerator_without_a_card_raises(monkeypatch):
     (dict(log_with="tensorboard"), "item 10"),
     (dict(metrics_port=0), "item 8"),
     (dict(kwargs_handlers=[object()]), "item 9"),
-    (dict(mixed_precision="fp8"), "item 9"),
+    (dict(kwargs_handlers=[GradScalerKwargs(), object()]), "item 9"),
 ])
 def test_unported_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):

@@ -36,7 +36,12 @@ inputs (chunks at base 0, after aliased prefix hits and after promotions,
 over bf16, int8 and fp8 pages; ``kv_quant_error`` equal with several chunks
 a cycle), the pipelined dispatch free of synchronisations
 (``torch.cuda.set_sync_debug_mode("error")``, with and without interleaved
-prefill), and a failed capture raising.
+prefill), and a failed capture raising.  Weight-only quantization, fp8 and MoE: the fp8
+linear (``_scaled_mm``, forward and both gradients) within
+``chip_smoke.FP8_LINEAR_REL_TOL`` of its plain version, ``QuantizedLinear``
+bitwise an ``nn.Linear`` on the dequantized weight, an MoE layer's graph
+replay bitwise its eager call, and a quantized MoE engine's tokens on the
+card equal the CPU engine's.
 """
 
 import functools
@@ -1361,3 +1366,113 @@ def test_mid_window_resume_on_card(card, tmp_path, capturable):
     assert first + rest == whole
     for name, p in state.params.items():
         assert torch.equal(p, want[name]), name
+
+
+# ------------------------------------------------- quantization, fp8 and MoE
+@pytest.mark.parametrize("fmt", ["HYBRID", "E4M3"])
+def test_fp8_linear_on_card_matches_plain(card, fmt):
+    """``FP8Linear`` on the card (``_scaled_mm``: forward, input and weight
+    gradients) against its plain version (quantize -> dequantize in bf16,
+    then a bf16 product) on the same inputs, at ``chip_smoke.py``'s
+    tolerance; each product counted once."""
+    from accelerate_tpu_torch.ops import fp8
+    from chip_smoke import FP8_LINEAR_REL_TOL
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(256, 512, device=card, dtype=torch.bfloat16, generator=gen)
+    g = torch.randn(256, 384, device=card, dtype=torch.bfloat16, generator=gen) * 1e-2
+    lin = fp8.FP8Linear(512, 384, bias=False, fp8_format=fmt, device=card, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 0.02, generator=gen)
+    xr = x.clone().requires_grad_()
+    fp8.launches = 0
+    out = lin(xr)
+    out.backward(g)
+    assert fp8.launches == 3
+    bwd = fp8.bwd_dtype_of(fmt)
+    want = fp8.plain_fp8_linear(x, lin.weight.detach())
+    dx, dw_t = fp8.plain_fp8_grads(x, lin.weight.detach().t(), g, bwd_dtype=bwd)
+    for got, ref in ((out.detach(), want), (xr.grad, dx), (lin.weight.grad, dw_t.t())):
+        rel = ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+        assert rel <= FP8_LINEAR_REL_TOL, rel
+
+
+def test_fp8_refuses_shapes_scaled_mm_cannot_take(card):
+    from accelerate_tpu_torch.ops import fp8
+
+    lin = fp8.FP8Linear(512, 384, bias=False, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lin(torch.randn(24, 512, device=card, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linear_on_card_is_linear_on_dequantized_weight(card, bits):
+    """``QuantizedLinear`` on the card: bitwise an ``nn.Linear`` holding
+    the dequantized weight (the same cuBLAS product on the same values)."""
+    from accelerate_tpu_torch.ops import quantization as q
+
+    gen = torch.Generator(device=card).manual_seed(bits)
+    w = torch.randn(4096, 1024, device=card, generator=gen) * 0.02
+    qt = q.quantize(w, q.QuantizationConfig(bits=bits))
+    lin = q.QuantizedLinear(4096, 1024, bits=bits, device=card)
+    lin.load_state_dict({"qweight": qt.data, "scales": qt.scales})
+    dense = torch.nn.Linear(4096, 1024, bias=False, device=card, dtype=torch.bfloat16)
+    with torch.no_grad():
+        dense.weight.copy_(q.dequantize(qt, torch.bfloat16).t())
+        for rows in (4, 512):
+            x = torch.randn(rows, 4096, device=card, dtype=torch.bfloat16, generator=gen)
+            assert torch.equal(lin(x), dense(x))
+
+
+@pytest.mark.parametrize("quantization", [None, 8])
+def test_moe_layer_graph_replays_eager(card, quantization):
+    """An MoE layer (routing, dispatch, stacked experts, int8 or bf16)
+    captured in a CUDA graph: its replay bitwise the eager call on new
+    inputs written in place (routing reads nothing back to the host)."""
+    from accelerate_tpu_torch.parallel.moe import MoEMLP
+
+    cfg = TransformerConfig.tiny_moe(dtype=torch.bfloat16, hidden_size=256,
+                                     intermediate_size=512, num_experts=8,
+                                     quantization=quantization)
+    model = Transformer(cfg, device=card, dtype=torch.bfloat16)
+    model.load_state_dict(init_params(cfg, seed=5, device=card))
+    layer = model.layers[0].moe_mlp
+    assert isinstance(layer, MoEMLP)
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(4, 16, 256, device=card, dtype=torch.bfloat16, generator=gen)
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            layer(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = layer(x)
+        for seed in (1, 2):
+            x.copy_(torch.randn(x.shape, device=card, dtype=x.dtype,
+                                generator=torch.Generator(device=card).manual_seed(seed)))
+            graph.replay()
+            assert torch.equal(out, layer(x))
+
+
+def test_quantized_moe_engine_on_card_matches_cpu_engine(card):
+    """``tiny_moe`` with int8 weights, f32: greedy tokens of the card's
+    engine (its windows and chunks CUDA graphs, K1 and K2) == the CPU
+    engine's."""
+    cfg = TransformerConfig.tiny_moe(dtype=torch.float32, param_dtype=torch.float32,
+                                     max_seq_len=128, quantization=8)
+    sd = init_params(cfg, seed=4, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (5, 19, 33, 8)]
+    gen = GenerationConfig(max_new_tokens=12)
+    out = {}
+    for dev in ("cpu", card):
+        model = Transformer(cfg, device=dev)
+        engine = ServingEngine(model, {k: v.to(dev) for k, v in sd.items()}, num_slots=2,
+                               max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                               device=dev)
+        out[str(dev)] = [r.tokens for r in engine.serve(prompts, configs=gen)]
+        if dev != "cpu":
+            assert engine.stats["graph_replays"] > 0
+    assert out["cpu"] == out[str(card)]

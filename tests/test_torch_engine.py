@@ -17,8 +17,11 @@ n-gram drafter finds; a draft of all the model's layers accepts nearly
 everything).  The default loop is the depth-1 pipeline (``async_depth=1``)
 in both packages; the speculation parity test runs both synchronous
 (``async_depth=0``), and ``tests/test_torch_readback.py`` holds the
-pipeline against the JAX one.  The remaining tests pin the host-side pieces against their
-JAX counterparts and the port's import and device rules.
+pipeline against the JAX one.  The speculation parity test and the
+preemption replay under speculation are in ``tests/test_torch_engine_spec.py``
+(this module's fixtures, split off to keep each file's time in the
+multi-worker run short).  The remaining tests pin the host-side pieces
+against their JAX counterparts and the port's import and device rules.
 """
 
 import ast
@@ -296,63 +299,6 @@ def test_async_depth_out_of_range_raises(models, depth):
     _, _, model, params = models
     with pytest.raises(ValueError, match="async_depth"):
         ServingEngine(model, params, device="cpu", async_depth=depth, **ENGINE_KW)
-
-
-SPEC_KNOBS = [
-    dict(speculate_k=2),
-    dict(speculate_k=3, speculate_ngram=2),
-    dict(draft_model=2, tree_width=2, tree_depth=3, draft_ctx=64),
-    dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16),
-    dict(draft_model=2, tree_width=3, tree_depth=2, draft_ctx=64, kv_dtype="int8"),
-]
-
-
-@pytest.mark.parametrize("knobs", SPEC_KNOBS, ids=lambda k: "-".join(f"{a}{b}" for a, b in
-                                                                     k.items()))
-def test_speculative_greedy_tokens_identical_to_jax_engine(models, knobs):
-    """Greedy tokens with speculation: identical to the JAX paged engine
-    with the same knobs and the port's synchronous loop (``async_depth=0``),
-    on a workload where both accept drafts, with the same counts of drafted
-    and accepted tokens.  With native pages they are also the port's tokens
-    with speculation off.  Quantized pages are not: a page is requantized at
-    every insert, so a verify's writes leave other codes than decode steps
-    do (the JAX package's own identity test of this needs a page of one
-    token).  Every page returns to the free list."""
-    jmodel, jparams, model, params = models
-    prompts = _prompts(20, (5, 9, 3, 12, 7))
-    jeng = JServingEngine(jmodel, jparams, paged=True, decode_kernel="pallas",
-                          prefix_cache_mb=0, async_depth=0, registry=MetricsRegistry(),
-                          **ENGINE_KW, **knobs)
-    jreqs = jeng.serve([p.copy() for p in prompts],
-                       configs=JGenerationConfig(max_new_tokens=24))
-    gen = GenerationConfig(max_new_tokens=24)
-    engine, toks = _serve(model, params, prompts, gen, async_depth=0, **knobs)
-    assert toks == [r.tokens for r in jreqs]
-    if "kv_dtype" not in knobs:
-        _, plain = _serve(model, params, prompts, gen)
-        assert toks == plain
-    st = engine.stats
-    assert st["spec_accepted"] > 0 and st["verify_forwards"] > 0
-    assert (st["spec_drafted"], st["spec_accepted"]) == (jeng.stats["spec_drafted"],
-                                                         jeng.stats["spec_accepted"])
-    assert st["tokens_generated"] == 5 * 24
-    assert engine.kv.allocator.free_count == engine.num_pages - 1
-
-
-def test_speculation_survives_preemption(models):
-    """A page-starved pool preempts and replays under tree and linear
-    speculation (the drafters' per-lane state retires and restarts with the
-    lane): the tokens are those of the spec-off engine without preemption."""
-    _, _, model, params = models
-    prompts = _prompts(7, (12, 11, 10))
-    gen = GenerationConfig(max_new_tokens=36)
-    _, ref = _serve(model, params, prompts, gen)
-    for knobs in (dict(speculate_k=3), dict(draft_model=1, tree_width=2, tree_depth=3,
-                                            draft_ctx=16)):
-        engine, toks = _serve(model, params, prompts, gen, num_pages=17, **knobs)
-        assert engine.stats["preemptions"] > 0 and engine.stats["verify_forwards"] > 0
-        assert toks == ref
-        assert engine.kv.allocator.free_count == engine.num_pages - 1
 
 
 @pytest.mark.parametrize("knobs", [dict(speculate_k=2),

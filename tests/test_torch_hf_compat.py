@@ -7,8 +7,7 @@ safetensors, torch-bin and sharded form.  For each:
 
 * ``config_from_hf`` gives the JAX package's config, field for field, and
   the same refusals (Qwen2's mixed ``max_window_layers``, Falcon's alibi,
-  unmapped activations; ``mixtral`` builds its fields and the port's config
-  refuses MoE, naming ROADMAP Queue 1 item 9e);
+  unmapped activations; ``mixtral`` with the drop-free capacity factor);
 * the port's loaded state dict equals, bit for bit, ``params_from_jax`` of
   the JAX ``convert_hf_checkpoint`` output, and so does the port's own
   converted directory read back;
@@ -317,14 +316,20 @@ def test_qwen2_window_layer_semantics_match_jax():
 
 
 def test_mixtral_maps_its_config_and_the_port_refuses_moe(tmp_path):
+    """Mixtral (MoE, which the port once refused) maps its config as the
+    JAX package does, drop-free capacity factor included, and loads the
+    JAX conversion's bits: the router as a ``Linear`` weight, the experts
+    stacked ``[E, in, out]`` (``tests/test_torch_moe.py`` holds its logits
+    against HF's)."""
     model = _build(MIXTRAL, seed=23)
     model.save_pretrained(str(tmp_path), safe_serialization=True)
     assert hf_compat.is_hf_checkpoint(str(tmp_path))
-    assert jhf.config_from_hf(str(tmp_path)).num_experts == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9e"):
-        hf_compat.config_from_hf(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        hf_compat.load_hf_checkpoint(str(tmp_path), device="cpu")
+    cfg = hf_compat.config_from_hf(str(tmp_path))
+    assert cfg.num_experts == 4 and cfg.expert_capacity_factor == 2.0
+    assert _config_fields(cfg) == _config_fields(jhf.config_from_hf(str(tmp_path)))
+    _, sd = hf_compat.load_hf_checkpoint(str(tmp_path), device="cpu")
+    assert sd["layers.0.moe_mlp.experts.gate_proj.weight"].shape == (4, 64, 96)
+    _assert_bitwise(sd, _jax_converted(str(tmp_path)))
 
 
 def test_placement_refusals(saved, tmp_path):

@@ -134,11 +134,7 @@ def test_paged_forward_matches_no_cache_forward(pair):
 def test_other_families_not_ported(switch):
     """Each family switch the port once refused now computes the JAX model's
     function (no-cache f32 logits within ATOL, biases and norm parameters
-    drawn nonzero); MoE still refuses, naming its ROADMAP item."""
-    if switch.get("num_experts"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9e"):
-            TransformerConfig.tiny(**switch)
-        return
+    drawn nonzero), MoE's included."""
     jcfg = JConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, **switch)
     jmodel = JTransformer(jcfg)
     jparams = affine_noise(
