@@ -43,9 +43,28 @@ a :class:`~accelerate_tpu_torch.models.transformer.Transformer` with
 handler, else the default recipe), on the same tensors: its projections
 then run fp8 products (``ops/fp8.py``).
 
-Arguments for what is not ported — sharding plugins, meshes, RNG
-synchronization across processes (``rng_types``), offload,
-PowerSGD, remat, trackers, the metrics endpoint — raise
+Single-card training memory (the reference's remat and ZeRO-Offload)::
+
+    accelerator = Accelerator(
+        mixed_precision="bf16", gradient_accumulation_steps=2,
+        fsdp_plugin=FullyShardedDataParallelPlugin(offload_optimizer=True),
+        compilation_config=CompilationConfig(remat_policy="full"))
+
+``compilation_config.remat_policy`` checkpoints the whole loss in
+``compile_train_step`` (``_maybe_remat``; ``fsdp_plugin.
+activation_checkpointing`` lowers to ``"full"``); a model's own
+``TransformerConfig(remat=True)`` checkpoints each layer instead.  With
+``offload_optimizer`` the optimizer is a :class:`~accelerate_tpu_torch.
+utils.chunked_update.ChunkedOptimizer`: its state in pinned host memory
+(or files under ``offload_optimizer_nvme_path``), streamed through the card
+in chunks on sync steps; under a compute dtype narrower than f32 the f32
+masters live there too and the card holds the working weights and the
+gradient buffer in the compute dtype.  ``rng_types`` is stored (it matters
+only with several processes) and ``dynamo_backend`` accepted and ignored
+(the step is not compiled by dynamo), as in the reference.
+
+Arguments for what is not ported — the ZeRO plugin, Megatron plugin,
+meshes, PowerSGD, trackers, the metrics endpoint — raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -71,25 +90,25 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .train_state import TrainState, global_norm, tree_finite
 from .utils import operations as ops
+from .utils import remat as _remat
 from .utils.dataclasses import (
+    CompilationConfig,
     DataLoaderConfiguration,
     FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     PrecisionPolicy,
     ProjectConfiguration,
+    parse_flag_from_env,
 )
 
 _PARALLEL = "ROADMAP Queue 1 item 9 (parallel/)"
 #: constructor argument -> where its port stands in the ROADMAP
 _UNPORTED_ARGS = {
-    "deepspeed_plugin": f"ZeRO sharding and offload: {_PARALLEL}",
-    "fsdp_plugin": f"FSDP sharding and offload: {_PARALLEL}",
+    "deepspeed_plugin": "ZeRO sharding and offload: ROADMAP Queue 1 item 9e (parallel/)",
     "megatron_lm_plugin": f"tensor/pipeline/sequence parallelism: {_PARALLEL}",
     "mesh": f"device meshes: {_PARALLEL}",
-    "rng_types": f"RNG synchronization across processes: {_PARALLEL}",
-    "compilation_config": "remat and compile options: ROADMAP Queue 1 item 9 (remat)",
-    "dynamo_backend": "torch.compile of the step: ROADMAP Queue 1 item 9 (remat)",
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
     "metrics_port": "the metrics endpoint: ROADMAP Queue 1 item 8 (telemetry/)",
 }
@@ -136,10 +155,8 @@ class Accelerator:
         dynamo_backend: Optional[str] = None,
         metrics_port: Optional[int] = None,
     ):
-        given = dict(deepspeed_plugin=deepspeed_plugin, fsdp_plugin=fsdp_plugin,
-                     megatron_lm_plugin=megatron_lm_plugin, mesh=mesh, rng_types=rng_types,
-                     compilation_config=compilation_config, dynamo_backend=dynamo_backend,
-                     log_with=log_with, metrics_port=metrics_port)
+        given = dict(deepspeed_plugin=deepspeed_plugin, megatron_lm_plugin=megatron_lm_plugin,
+                     mesh=mesh, log_with=log_with, metrics_port=metrics_port)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -170,8 +187,14 @@ class Accelerator:
             raise ValueError("Pass either gradient_accumulation_steps or "
                              "gradient_accumulation_plugin, not both")
 
+        if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_USE_FSDP"):
+            fsdp_plugin = FullyShardedDataParallelPlugin()
+        if fsdp_plugin is not None and fsdp_plugin.fsdp_axis_size > 1:
+            raise NotImplementedError(
+                f"fsdp_axis_size={fsdp_plugin.fsdp_axis_size} shards over that many devices; "
+                "the port runs on one: ROADMAP Queue 1 item 9e (parallel/)")
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      _from_accelerator=True)
+                                      fsdp_plugin=fsdp_plugin, _from_accelerator=True)
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self.device_placement = device_placement
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
@@ -179,6 +202,16 @@ class Accelerator:
         if split_batches:
             self.dataloader_config.split_batches = True
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        self.compilation_config = compilation_config or CompilationConfig.from_env()
+        # FSDP's activation_checkpointing lowers onto the one remat mechanism
+        # (accelerate_tpu/accelerator.py:254-262)
+        if (fsdp_plugin is not None and fsdp_plugin.activation_checkpointing
+                and self.compilation_config.remat_policy == "none"):
+            self.compilation_config.remat_policy = "full"
+        # synchronizes the samplers' RNGs across processes: one process here
+        self.rng_types = rng_types or ["generator"]
+        # accepted for API parity: the step is not compiled by dynamo
+        self.dynamo_backend = dynamo_backend
 
         self.trackers: List[Any] = []  # stays empty: log_with is not ported
 
@@ -193,6 +226,8 @@ class Accelerator:
         self._custom_objects: List[Any] = []
         self._save_model_state_pre_hooks: Dict[Any, Callable] = {}
         self._load_model_state_pre_hooks: Dict[Any, Callable] = {}
+        self._chunk_info: Optional[Dict[str, Any]] = None  # set under offload_optimizer
+        self._offload_master = False
 
     # ------------------------------------------------------------- properties
     @property
@@ -202,6 +237,10 @@ class Accelerator:
     @property
     def distributed_type(self) -> str:
         return self.state.distributed_type
+
+    @property
+    def fsdp_plugin(self) -> Optional[FullyShardedDataParallelPlugin]:
+        return self.state.fsdp_plugin
 
     @property
     def num_processes(self) -> int:
@@ -388,11 +427,34 @@ class Accelerator:
     def create_train_state(self, *, params: nn.Module, tx: Callable) -> TrainState:
         """Cast the module's masters to the policy's ``param_dtype`` (in
         place), then bind ``tx(parameters) -> torch.optim.Optimizer`` to them.
-        The optimizer is registered, wrapped, with this accelerator."""
+        The optimizer is registered, wrapped, with this accelerator.
+
+        With ``fsdp_plugin.offload_optimizer`` (the reference's offload
+        branch, ``accelerate_tpu/accelerator.py:659-764``) the optimizer is
+        a :class:`~accelerate_tpu_torch.utils.chunked_update.ChunkedOptimizer`
+        over chunks of ``offload_update_chunk_mb`` (-1: sized from the
+        card's memory, ``auto_chunk_bytes``; 0: the whole state at once,
+        without master weights), its state pinned on the host or in files
+        under ``offload_optimizer_nvme_path``.  Master weights (by default
+        on under a compute dtype narrower than f32) put the f32 masters
+        there too and cast the module to the compute dtype.  Everything the
+        state needs on the host is allocated here, once."""
         if not isinstance(params, nn.Module):
             raise TypeError(f"params must be the nn.Module holding the masters, got "
                             f"{type(params)}")
         params.to(dtype=self.policy.param_dtype)
+        self._chunk_info = None
+        self._offload_master = False
+        plugin = self.fsdp_plugin
+        if plugin is not None and plugin.offload_optimizer_nvme_path and (
+                not plugin.offload_optimizer or plugin.offload_update_chunk_mb == 0):
+            raise ValueError(
+                "offload_optimizer_nvme_path requires offload_optimizer=True and "
+                "a non-zero offload_update_chunk_mb: the nvme tier streams the "
+                "optimizer state through the chunked update "
+                "(utils/chunked_update.py).")
+        if plugin is not None and plugin.offload_optimizer:
+            tx = self._offloaded_tx(params, tx, plugin)
         scaler = self.scaler_handler
         state = TrainState.create(
             model=params, tx=tx, use_loss_scaling=self._use_loss_scaling,
@@ -402,11 +464,95 @@ class Accelerator:
                                     growth_interval=scaler.growth_interval)
                                if scaler else None),
         )
+        if self._offload_master:
+            # the working copy in the compute dtype, after the masters were
+            # seeded from the full-precision values
+            params.to(dtype=self.policy.compute_dtype)
+        state.device = self.device
+        state.offload_params, _ = self._offload_flags()
+        state.params_to_host()
         self._states[id(state.optimizer)] = state
         self._optimizers.append(AcceleratedOptimizer(state.optimizer, _accelerator=self))
         if params not in self._models:
             self._models.append(params)
         return state
+
+    def _offloaded_tx(self, model: nn.Module, tx: Callable,
+                      plugin: FullyShardedDataParallelPlugin) -> Callable:
+        """``tx`` made into a :class:`ChunkedOptimizer` factory per the
+        plugin's offload fields; sets ``_chunk_info`` (``None`` when one
+        chunk holds the whole state) and ``_offload_master``."""
+        from .utils.chunked_update import (
+            _BYTES_PER_ELEMENT,
+            ChunkedOptimizer,
+            DiskChunkStore,
+            HostChunkStore,
+            auto_chunk_bytes,
+            build_chunked_tx,
+            detect_hbm_bytes,
+        )
+
+        chunk_mb = plugin.offload_update_chunk_mb
+        if chunk_mb < -1:
+            raise ValueError(
+                f"offload_update_chunk_mb={chunk_mb}: "
+                "use a positive size in MB, 0 to disable chunking, or -1 for "
+                "adaptive sizing from free HBM.")
+        overlap = max(int(plugin.offload_update_overlap), 1)
+        use_master = False
+        chunk_bytes = None  # 0: the whole state round-trips, no masters
+        if chunk_mb != 0:
+            use_master = plugin.offload_master_weights
+            if use_master is None:
+                use_master = self.policy.compute_dtype != torch.float32
+            if chunk_mb == -1:
+                # the working weights and their .grad (the accumulation
+                # buffer: the port has no separate one) in one dtype
+                working_b = (self.policy.compute_dtype if use_master
+                             else self.policy.param_dtype).itemsize
+                chunk_bytes = auto_chunk_bytes(
+                    model, working_bytes_per_element=working_b,
+                    grad_bytes_per_element=working_b, overlap=overlap,
+                    hbm_bytes=detect_hbm_bytes(self.device))
+            else:
+                chunk_bytes = chunk_mb * 2**20
+            _, info = build_chunked_tx(tx, model, chunk_bytes)
+            nvme_path = plugin.offload_optimizer_nvme_path
+            if info is None and nvme_path:
+                state_mb = sum(p.numel() for p in model.parameters()) * _BYTES_PER_ELEMENT >> 20
+                raise ValueError(
+                    "offload_optimizer_device='nvme' streams the optimizer state "
+                    "through bounded chunks, but offload_update_chunk_mb resolves "
+                    f"to a single chunk for this model (~{state_mb} MB of state). "
+                    f"Set offload_update_chunk_mb below {max(state_mb // 2, 1)} to "
+                    "engage the disk tier.")
+            if info is not None:
+                info.update(master=bool(use_master), overlap=overlap, chunk_bytes=chunk_bytes)
+                if nvme_path:
+                    info["disk_store"] = DiskChunkStore(nvme_path)
+                self._chunk_info = info
+        self._offload_master = bool(use_master)
+        info = self._chunk_info
+        store = (info or {}).get("disk_store") or HostChunkStore(pin=self.device.type == "cuda")
+        master_dtype = self.policy.param_dtype if use_master else None
+
+        def make(parameters):
+            return ChunkedOptimizer(parameters, tx, None if info is None else chunk_bytes,
+                                    master_dtype=master_dtype, store=store, overlap=overlap)
+
+        return make
+
+    def _offload_flags(self):
+        """``(offload_params, offload_opt)`` per the FSDP plugin
+        (``accelerate_tpu/accelerator.py:1088-1117``): ``offload_opt`` means
+        pinned-host residency of the optimizer state, so the nvme tier
+        reports False.  Both work on any device here (on the CPU the host
+        is the device)."""
+        plugin = self.fsdp_plugin
+        on_disk = plugin is not None and bool(plugin.offload_optimizer_nvme_path)
+        offload_opt = plugin is not None and plugin.offload_optimizer and not on_disk
+        offload_params = plugin is not None and plugin.cpu_offload
+        return offload_params, offload_opt
 
     def _compute_params(self, model: nn.Module) -> Dict[str, torch.Tensor]:
         """Name -> master cast to the compute dtype (differentiable)."""
@@ -424,16 +570,33 @@ class Accelerator:
         ``gradient_accumulation_steps``-th call and on the dataloader's last
         batch (``GradientState.sync_with_dataloader``); other calls only add
         to the buffer.  ``grad_norm`` is the norm of the running average on
-        every call; the clip factor is ``min(1, max_grad_norm / (norm + 1e-6))``."""
+        every call; the clip factor is ``min(1, max_grad_norm / (norm + 1e-6))``.
+
+        ``compilation_config.remat_policy`` checkpoints the whole loss
+        (:meth:`_maybe_remat`).  Under an offloaded optimizer the update is
+        the chunked one (the state's :class:`~accelerate_tpu_torch.utils.
+        chunked_update.ChunkedOptimizer`), after the clip over the whole
+        buffer; under ``cpu_offload`` the working weights come to the card
+        for the call and go back after it."""
         accum = self.gradient_accumulation_steps
         fp16 = self._use_loss_scaling
+        chunked = self._chunk_info is not None
+        loss_call = self._maybe_remat(loss_fn)
 
         def step(state: TrainState, batch):
+            if not chunked and self._chunk_info is not None:
+                raise ValueError(
+                    "An offload-chunked train state exists but this step was "
+                    "compiled before create_train_state: the in-graph apply "
+                    "would round-trip the whole host-resident optimizer state "
+                    "through HBM. Call create_train_state first, then "
+                    "compile_train_step.")
             gs = self.gradient_state
             force = bool((gs.sync_with_dataloader and gs.end_of_dataloader)
                          or gs.sync_each_batch)
             scale = state.loss_scale.scale if fp16 else 1.0
-            out = loss_fn(self._compute_params(state.model), batch)
+            state.params_to_device()
+            out = loss_call(self._compute_params(state.model), batch)
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
             (loss * scale if fp16 else loss).backward()
@@ -468,6 +631,7 @@ class Accelerator:
                         wrapper._step_was_skipped = overflow
             else:
                 state.micro_step = count
+            state.params_to_host()
             self.step = 0 if do_sync else self.step + 1
             gs._set_sync_gradients(do_sync)
 
@@ -487,6 +651,24 @@ class Accelerator:
 
         return step
 
+    def _maybe_remat(self, loss_fn: Callable) -> Callable:
+        """``CompilationConfig.remat_policy`` over the whole loss
+        (``accelerate_tpu/accelerator.py:1119-1150``): ``loss_fn`` under
+        ``torch.utils.checkpoint`` with the policy
+        (:mod:`~accelerate_tpu_torch.utils.remat`), so that the backward
+        recomputes what it does not save.  FSDP's
+        ``activation_checkpointing`` lowers to ``"full"``.  Values and
+        gradients are the loss's own."""
+        name = self.compilation_config.remat_policy
+        if name in (None, "none"):
+            return loss_fn
+        _remat.check_policy(name)
+
+        def remat_loss(params, batch):
+            return _remat.remat(loss_fn, params, batch, policy=name)
+
+        return remat_loss
+
     def compile_eval_step(self, eval_fn: Callable) -> Callable:
         """Build ``eval_step(state_or_params, batch)``: ``eval_fn(params,
         batch)`` under ``torch.no_grad`` with the compute-dtype weights, its
@@ -496,7 +678,12 @@ class Accelerator:
         def eval_step(state_or_params, batch):
             with torch.no_grad():
                 if isinstance(state_or_params, TrainState):
-                    params = self._compute_params(state_or_params.model)
+                    state_or_params.params_to_device()
+                    try:
+                        params = self._compute_params(state_or_params.model)
+                        return self.policy.cast_to_output(eval_fn(params, batch))
+                    finally:
+                        state_or_params.params_to_host()
                 elif isinstance(state_or_params, nn.Module):
                     params = self._compute_params(state_or_params)
                 else:
@@ -541,9 +728,11 @@ class Accelerator:
         respect to the state's masters: ``(grads, {"loss", "aux"})``, where
         ``grads`` maps each parameter name to a fresh f32 tensor, divided
         by the fp16 loss scale.  The state, and its accumulation buffer,
-        are left as they are."""
-        named = list(state.model.named_parameters())
+        are left as they are.  As in the reference, no remat policy applies
+        here (only ``compile_train_step`` checkpoints the loss)."""
         scale = state.loss_scale.scale if state.loss_scale is not None else 1.0
+        state.params_to_device()
+        named = list(state.model.named_parameters())
         out = loss_fn(self._compute_params(state.model), batch)
         loss, aux = out if has_aux else (out, ())
         loss = loss.float()
@@ -553,6 +742,7 @@ class Accelerator:
         for (name, p), g in zip(named, grads):
             g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
             result[name] = g.div_(scale) if scale != 1.0 else g
+        state.params_to_host()
         aux = ops.recursively_apply(torch.Tensor.detach, aux, _is_tensor)
         return result, {"loss": loss.detach(), "aux": aux}
 
@@ -575,7 +765,13 @@ class Accelerator:
         ``max_grad_norm`` (factor ``min(1, max / (norm + 1e-6))``), apply
         the optimizer unless fp16 finds it non-finite, update the loss
         scale, clear the buffer and restart the window.  ``grads`` is not
-        modified.  In place; returns ``state``."""
+        modified.  In place; returns ``state``.
+
+        Under an offloaded optimizer the update streams the state through
+        the card in chunks, where the reference round-trips the whole state
+        (``accelerate_tpu/accelerator.py:1969-2003``): the values are the
+        same."""
+        state.params_to_device()
         params = dict(state.model.named_parameters())
         if grads.keys() != params.keys():
             raise ValueError(f"grads hold {sorted(set(grads) ^ set(params))[:5]} that the "
@@ -588,6 +784,7 @@ class Accelerator:
                     p.grad.add_(grads[name])
         if not self.sync_gradients:
             state.micro_step += 1
+            state.params_to_host()
             return state
         bufs = [p.grad for p in params.values()]
         torch._foreach_div_(bufs, float(state.micro_step + 1))
@@ -606,6 +803,7 @@ class Accelerator:
         for wrapper in self._optimizers:
             if wrapper.optimizer is state.optimizer:
                 wrapper._step_was_skipped = not finite
+        state.params_to_host()
         return state
 
     def clip_grad_norm_(self, grads, max_norm: float, norm_type: float = 2.0):
@@ -667,6 +865,7 @@ class Accelerator:
         self._schedulers.clear()
         self._dataloaders.clear()
         self._states.clear()
+        self._chunk_info = None  # an nvme tier's store
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

@@ -18,6 +18,9 @@ writes an orbax tree::
 state's ``grad_accum``), saved whenever ``micro_step > 0``: without it a
 run saved mid-window would resume with the window's earlier micro-steps
 lost.  ``load_state`` writes into the given state in place and returns it.
+An offloaded optimizer (``utils/chunked_update.py``) saves each chunk's
+state buffer, read from the host or from its files, and loads it back
+there, bit for bit.
 
 ``save_model`` writes ``model.safetensors`` (or shards and an index past
 ``max_shard_size``) keyed by the port's state-dict names, with the port's
@@ -207,7 +210,13 @@ def load_model_params(load_directory: str, target=None) -> Dict[str, torch.Tenso
 
 # --------------------------------------------------------------- train state
 def _load_into_state(state: TrainState, path: str, load_kwargs: Optional[dict]) -> None:
+    from .utils.chunked_update import ChunkedOptimizer
+
     device = next(state.model.parameters()).device
+    if isinstance(state.optimizer, ChunkedOptimizer) or state.offload_params:
+        # an offloaded state goes back where it lives, the host (or its
+        # files), never whole onto the card
+        device = torch.device("cpu")
     tree = torch.load(path, **{"map_location": device, "weights_only": True,
                                **(load_kwargs or {})})
     state.model.load_state_dict(tree.pop("model"))

@@ -48,11 +48,18 @@ MLP by :class:`~accelerate_tpu_torch.parallel.moe.MoEMLP` (an f32 router and
 the config's MLP stacked over the experts), and :func:`lm_loss_fn` adds the
 router's aux loss.
 
+``remat=True`` checkpoints each layer of the no-cache forward (the
+reference's per-layer ``nn.remat``) with ``remat_policy``'s selective
+policy (:mod:`~accelerate_tpu_torch.utils.remat`); the projections tag
+their products (``_tag_proj``) for ``"proj_saveable"``.  A forward with a
+cache, the serving path, is the same with or without it.
+
 Still refused: ``attention_impl="ring"`` (ROADMAP Queue 1 item 9e).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Union
@@ -76,6 +83,14 @@ from ..ops.paged_attention import (
 )
 from ..ops.quantization import QuantizedLinear, quantized_shapes
 from ..parallel.moe import ExpertLinear, MoEMLP, collect_router_aux, router_aux_loss
+from ..utils import remat as _remat
+
+
+def _tag_proj(name: Optional[str]):
+    """Mark the products inside as ``name`` for ``remat_policy=
+    "proj_saveable"`` (``"proj_out"``: saved; ``"proj_wide"``: recomputed);
+    no scope for ``None``."""
+    return contextlib.nullcontext() if name is None else _remat.tag(name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +144,14 @@ class TransformerConfig:
     router_aux_loss_coef: float = 0.01
     dtype: torch.dtype = torch.bfloat16        # activation / compute dtype
     param_dtype: torch.dtype = torch.float32   # default weight storage dtype
+    # activation checkpointing of each layer in the no-cache forward (the
+    # training path): the backward recomputes what ``remat_policy`` does not
+    # save (utils/remat.py); the serving path is unchanged
+    remat: bool = False
+    remat_policy: str = "full"
 
     def __post_init__(self):
+        _remat.check_policy(self.remat_policy, per_layer=True)
         check_implementation(self.attention_impl)
         if str(self.fp8_format).upper() not in ("HYBRID", "E4M3"):
             raise ValueError(f"fp8_format must be 'HYBRID' or 'E4M3', got {self.fp8_format!r}")
@@ -443,14 +464,17 @@ def make_dense(cfg: TransformerConfig, in_features: int, out_features: int, bias
     return nn.Linear(in_features, out_features, bias=bias, **kw)
 
 
-def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype,
+           name: Optional[str] = None) -> torch.Tensor:
     """Flax ``nn.Dense(dtype=...)`` numerics for an ``nn.Linear``: input,
     weight and bias in ``dtype``; the factory's other projections carry
-    their compute dtype and run their own forward."""
-    if type(layer) is not nn.Linear:
-        return layer(x)
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    their compute dtype and run their own forward.  ``name`` tags the
+    product for the remat policies (``_tag_proj``)."""
+    with _tag_proj(name):
+        if type(layer) is not nn.Linear:
+            return layer(x)
+        bias = None if layer.bias is None else layer.bias.to(dtype)
+        return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 class RMSNorm(nn.Module):
@@ -516,9 +540,9 @@ class Attention(nn.Module):
         dt = cfg.dtype
         hd = cfg.resolved_head_dim
         b, s = x.shape[:2]
-        q = _dense(self.q_proj, x, dt).reshape(b, s, cfg.num_heads, hd)
-        k = _dense(self.k_proj, x, dt).reshape(b, s, cfg.num_kv_heads, hd)
-        v = _dense(self.v_proj, x, dt).reshape(b, s, cfg.num_kv_heads, hd)
+        q = _dense(self.q_proj, x, dt, "proj_out").reshape(b, s, cfg.num_heads, hd)
+        k = _dense(self.k_proj, x, dt, "proj_out").reshape(b, s, cfg.num_kv_heads, hd)
+        v = _dense(self.v_proj, x, dt, "proj_out").reshape(b, s, cfg.num_kv_heads, hd)
         if cfg.positional == "rope":
             q = _apply_rope(q, positions, cfg)
             k = _apply_rope(k, positions, cfg)
@@ -583,7 +607,7 @@ class Attention(nn.Module):
             out = dot_product_attention(q, k, v, causal=True,
                                         implementation=cfg.attention_impl,
                                         window=window, bias=bias)
-        return _dense(self.o_proj, out.reshape(b, s, cfg.num_heads * hd), dt)
+        return _dense(self.o_proj, out.reshape(b, s, cfg.num_heads * hd), dt, "proj_out")
 
 
 #: the non-gated MLPs' activations: GPT-2/GPT-J's tanh gelu, NeoX's exact
@@ -617,12 +641,12 @@ class MLP(nn.Module):
     def forward(self, x):
         cfg = self.config
         dt = cfg.dtype
-        up = _dense(self.up_proj, x, dt)
+        up = _dense(self.up_proj, x, dt, "proj_wide")
         if not cfg.gated_mlp:
-            return _dense(self.down_proj, _ACT[cfg.mlp_variant](up), dt)
-        gate = _dense(self.gate_proj, x, dt)
+            return _dense(self.down_proj, _ACT[cfg.mlp_variant](up), dt, "proj_out")
+        gate = _dense(self.gate_proj, x, dt, "proj_out")
         gated = F.gelu(gate, approximate="tanh") if cfg.mlp_variant == "geglu" else F.silu(gate)
-        return _dense(self.down_proj, gated * up, dt)
+        return _dense(self.down_proj, gated * up, dt, "proj_out")
 
 
 class DecoderLayer(nn.Module):
@@ -740,12 +764,40 @@ class Transformer(nn.Module):
             if cache is not None:
                 positions = positions + cache.index.long()[:, None]
         x = self.embed(input_ids, positions)
+        remat = cfg.remat and cache is None
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, cache=cache, layer=i, tree_mask=tree_mask)
+            if remat:
+                x = _remat_layer(layer, x, positions, cfg.remat_policy)
+            else:
+                x = layer(x, positions, cache=cache, layer=i, tree_mask=tree_mask)
         logits = self.head(x)
         if cache is None:
             return logits
         return logits, dataclasses.replace(cache, index=cache.index + input_ids.shape[1])
+
+
+def _remat_layer(layer: "DecoderLayer", x: torch.Tensor, positions: torch.Tensor,
+                 policy: str) -> torch.Tensor:
+    """``layer(x, positions)`` (no cache) under activation checkpointing with
+    ``policy`` (the reference's per-layer ``nn.remat``).
+
+    The layer's tensors are bound as the forward finds them: under
+    ``torch.func.functional_call`` (``lm_loss_fn``) they are the step's
+    compute-dtype weights, which the module holds only during the call, and
+    the recompute runs in the backward, after it.  The recompute also runs
+    inside a collector of its own: an MoE layer's aux term was sown by the
+    forward, and must not be sown twice."""
+    bound = {**dict(layer.named_parameters()), **dict(layer.named_buffers())}
+    calls = []
+
+    def run(h):
+        if calls:
+            with collect_router_aux():
+                return torch.func.functional_call(layer, bound, (h, positions))
+        calls.append(1)
+        return layer(h, positions)
+
+    return _remat.remat(run, x, policy=policy)
 
 
 def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:

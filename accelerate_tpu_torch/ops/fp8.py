@@ -19,9 +19,10 @@ On the card the product is ``torch._scaled_mm``: fp8 codes in, the f32
 operand's dtype out.  That is the Hopper fp8 GEMM XLA's gemm rewriter makes
 of the reference's quantize -> dequantize -> dot pattern; the reference has
 no kernel of its own there.  Its plain version, on the CPU, is that pattern:
-:func:`quantize_dequantize` both operands, then ``torch.matmul``.  A shape
-``_scaled_mm`` cannot take (a dim not a multiple of 16) raises; nothing
-falls back to the plain version on the card.
+:func:`quantize_dequantize` both operands, then ``torch.matmul``.  A dim
+that is not a multiple of 16 (which ``_scaled_mm`` refuses: a decode
+window's M is its lane count) is zero-padded inside :func:`scaled_mm`;
+nothing falls back to the plain version on the card.
 """
 
 from __future__ import annotations
@@ -93,23 +94,43 @@ def _col_major(t: torch.Tensor) -> torch.Tensor:
 launches = 0
 
 
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` zero-padded to ``[rows, cols]`` (itself when it has that shape)."""
+    if t.shape == (rows, cols):
+        return t
+    out = torch.zeros(rows, cols, dtype=t.dtype, device=t.device)
+    out[: t.shape[0], : t.shape[1]] = t
+    return out
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def scaled_mm(a: torch.Tensor, a_inv: torch.Tensor, b: torch.Tensor, b_inv: torch.Tensor,
               out_dtype: torch.dtype) -> torch.Tensor:
     """``(a * a_inv) @ (b * b_inv)`` on the card from fp8 codes ``a [M, K]``
     and ``b [K, N]``: Hopper's fp8 GEMM (``torch._scaled_mm``, f32
-    accumulation), ``a`` taken row-major and ``b`` column-major."""
+    accumulation), ``a`` taken row-major and ``b`` column-major.
+
+    ``_scaled_mm`` takes only dims that are multiples of 16, so M, K and N
+    are zero-padded up to them and the output sliced back to ``[M, N]``.
+    That is exact: the codes and their scales were taken before the pad,
+    and zero rows and columns add nothing to the f32 accumulation (the
+    reference's fp8 dot takes any shape)."""
     global launches
     m, k = a.shape
     n = b.shape[1]
-    if m % 16 or k % 16 or n % 16:
-        raise ValueError(f"the fp8 product needs every dim a multiple of 16 "
-                         f"(torch._scaled_mm), got [{m}, {k}] @ [{k}, {n}]")
     if a.dtype == torch.float8_e5m2 and b.dtype == torch.float8_e5m2:
         raise ValueError("the fp8 product takes no e5m2 x e5m2 operands")
+    mp, kp, np_ = _up16(m), _up16(k), _up16(n)
+    a = _pad_to(a, mp, kp)
+    b = b if b.shape == (kp, np_) else _pad_to(b.t(), np_, kp).t()
     out = torch._scaled_mm(_row_major(a), _col_major(b), scale_a=a_inv, scale_b=b_inv,
                            out_dtype=out_dtype)
     launches += 1
-    return out[0] if isinstance(out, tuple) else out
+    out = out[0] if isinstance(out, tuple) else out
+    return out if (mp, np_) == (m, n) else out[:m, :n]
 
 
 class _FP8Dot(torch.autograd.Function):

@@ -168,22 +168,41 @@ def _live_pages(lengths: torch.Tensor, s: int, page: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- writes
+def _null_last_writer(pid: torch.Tensor, slot: torch.Tensor, slots: int) -> torch.Tensor:
+    """For a scatter of rows to ``(pid, slot)`` (flat ``[R]``): the row each
+    write takes its values from.  Rows bound for the null page take those of
+    the last row bound for the same null slot; every other row keeps its own.
+    Several inactive lanes (and a chunk's padding) write one null slot, and
+    a scatter on the card lands such duplicates in no fixed order; with one
+    value each the slot ends as a serial scatter leaves it, the last row's,
+    on every run.  A bf16 lane never reads another's row, but an fp8
+    product scales the whole activation by one amax, inactive lanes'
+    rows (which read the null page back) included."""
+    rows = torch.arange(pid.numel(), device=pid.device)
+    null = pid == NULL_PAGE
+    last = torch.full((slots + 1,), -1, dtype=torch.long, device=pid.device)
+    last.scatter_reduce_(0, torch.where(null, slot, slots), rows, "amax")
+    return torch.where(null, last[torch.clamp(slot, 0, slots - 1)], rows)
+
+
 def paged_insert(pages: torch.Tensor, new: torch.Tensor, tables: torch.Tensor,
                  index: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Scatter ``new [N, S, H, D]`` into ``pages [NP, page, H, D]`` at
     positions ``index[n] .. index[n] + S - 1`` through lane ``n``'s block
     table, in place, and return ``pages``.  Inactive lanes are rerouted to the
     null page — a lane mid-prefill has real pages mapped and a stale index
-    that must never trample them.  Values are cast to the page dtype."""
+    that must never trample them; duplicate null-page writes carry the last
+    one's values (:func:`_null_last_writer`).  Values are cast to the page
+    dtype."""
     n, s, h, d = new.shape
     page = pages.shape[1]
     p_max = tables.shape[1] - 1
     pos = index.long()[:, None] + torch.arange(s, device=new.device)[None, :]   # [N, S]
     pid = torch.gather(tables.long(), 1, torch.clamp(pos // page, 0, p_max))
     pid = torch.where(active[:, None], pid, torch.full_like(pid, NULL_PAGE))
-    off = pos % page
-    pages.index_put_((pid.reshape(-1), off.reshape(-1)),
-                     new.to(pages.dtype).reshape(n * s, h, d))
+    pid, off = pid.reshape(-1), (pos % page).reshape(-1)
+    rows = new.to(pages.dtype).reshape(n * s, h, d)
+    pages.index_put_((pid, off), rows[_null_last_writer(pid, off, page)])
     return pages
 
 
@@ -201,9 +220,10 @@ def paged_quantized_insert(pages: torch.Tensor, scales: torch.Tensor, new: torch
     values must not inflate the amax), take each head's scale as
     ``max(amax, 1e-8) / qmax``, requantize (int8: ``clip(round(x), ±qmax)``,
     round half to even; fp8: a plain cast).  Inactive lanes and untouched
-    span slots write to the null page.  Returns ``(pages, scales,
-    max_abs_err)``: the largest round-trip error over the newly written
-    values, a device scalar (nothing here reads the device back).  Plain
+    span slots write to the null page, the last of them winning.  Returns
+    ``(pages, scales, max_abs_err)``: the largest round-trip error over the
+    newly written values, a device scalar (nothing here reads the device
+    back).  Plain
     PyTorch: the reference leaves this to XLA, and it matches the JAX
     function bit for bit."""
     qmax = kv_qmax(pages.dtype)
@@ -241,8 +261,9 @@ def paged_quantized_insert(pages: torch.Tensor, scales: torch.Tensor, new: torch
                       (q.float() * new_scales[:, :, None, :, None] - content).abs(),
                       torch.zeros_like(content)).amax()
     flat = pid.reshape(-1)
-    raw[flat] = _bytes_view(q.reshape(n * t, page, h, d))
-    scales[flat] = new_scales.reshape(n * t, h)
+    src = _null_last_writer(flat, torch.zeros_like(flat), 1)
+    raw[flat] = _bytes_view(q.reshape(n * t, page, h, d))[src]
+    scales[flat] = new_scales.reshape(n * t, h)[src]
     return pages, scales, err
 
 

@@ -41,6 +41,8 @@ class AcceleratedOptimizer:
 
     @property
     def param_groups(self):
+        """The optimizer's groups; for an offloaded (chunked) optimizer,
+        every chunk's, the same dicts its optimizers step with."""
         return self.optimizer.param_groups
 
     @property

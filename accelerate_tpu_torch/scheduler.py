@@ -33,7 +33,9 @@ class AcceleratedScheduler:
 
     def apply(self, optimizer: torch.optim.Optimizer, step: int) -> float:
         """Set every param group's learning rate to the schedule's value for
-        the update that follows ``step`` applied ones; returns it."""
+        the update that follows ``step`` applied ones; returns it.  An
+        offloaded optimizer's ``param_groups`` are every chunk optimizer's
+        groups, so the schedule moves all of them."""
         lr = float(self(step))
         for group in optimizer.param_groups:
             group["lr"] = lr

@@ -73,7 +73,7 @@ import torch
 from .._device import resolve_device
 from ..models.generation import GenerationConfig, lane_key
 from ..models.transformer import KVCache, Transformer
-from ..ops.paged_attention import MAX_TREE_NODES, TreeMask
+from ..ops.paged_attention import MAX_TREE_NODES, NULL_PAGE, TreeMask
 from .errors import AdmissionError
 from .graphs import WindowGraphs
 from .paging import DraftContextWindow, PagedKVPool
@@ -599,6 +599,11 @@ class ServingEngine:
         self.graphs: Optional[WindowGraphs] = None
         if dev.type == "cuda" and (self._graph_windows or self._graph_chunks):
             self.graphs = WindowGraphs(dev)
+        # the captures' warm-ups write the null page, which inactive lanes
+        # read back: restore it, so that a graphed engine starts where an
+        # eager one does
+        null = ([(t, t[:, NULL_PAGE].clone()) for t in self._pool]
+                if self.graphs is not None and self.paged else [])
         if self.graphs is not None and self._graph_windows:
             for (kind, sampling), fn in self._windows.items():
                 self.graphs.capture(self._graph_key(kind, sampling), fn, self._reset_lanes)
@@ -610,6 +615,8 @@ class ServingEngine:
             for b, fn in self._chunks.items():
                 self.graphs.capture(self._chunk_key(b), fn, lambda: None)
                 self.stats["graph_captures"] += 1
+        for t, saved in null:
+            t[:, NULL_PAGE].copy_(saved)
 
     @classmethod
     def _eager(cls, *args, **kwargs) -> "ServingEngine":
@@ -1247,7 +1254,11 @@ class ServingEngine:
         self.lanes.retire(slot)
         self._active[slot] = False
         self._slot_req[slot] = None
-        self._lane_len[slot] = 0
+        if self.paged:
+            # a slab lane keeps its write index, as the reference's device
+            # index does: the dead lane writes and reads its own slot there,
+            # and its row enters an fp8 product's amax
+            self._lane_len[slot] = 0
         if self._ngram is not None:
             self._ngram.retire(slot)
         if self._draft_window is not None:

@@ -20,8 +20,9 @@ counters, cuBLAS handles), then the capture.  The kernels' launch counters
 advance during the warm-up and the capture as the wrappers run; both are
 taken back, the capture's count is kept with the graph, and each replay
 credits it (:func:`~accelerate_tpu_torch.ops.paged_attention.
-credit_launches`), so the counters keep meaning launches on the card.  A
-capture that fails raises: nothing falls back to the eager window.
+credit_launches`, and ``ops.fp8.launches`` for an fp8 model's
+``_scaled_mm`` products), so the counters keep meaning launches on the
+card.  A capture that fails raises: nothing falls back to the eager window.
 """
 
 from __future__ import annotations
@@ -31,7 +32,18 @@ from typing import Any, Callable, Dict, Hashable, Tuple
 
 import torch
 
+from ..ops import fp8
 from ..ops import paged_attention as pa
+
+
+def _counts() -> Tuple[int, ...]:
+    """The kernels' launch counters, then ``_scaled_mm``'s."""
+    return pa.launch_counts() + (fp8.launches,)
+
+
+def _set_counts(counts: Tuple[int, ...]) -> None:
+    pa.set_launch_counts(counts[:-1])
+    fp8.launches = counts[-1]
 
 
 @dataclasses.dataclass
@@ -39,7 +51,8 @@ class CapturedWindow:
     graph: torch.cuda.CUDAGraph
     #: the window's outputs: tensors of the graph's pool, rewritten by every replay
     outputs: Any
-    #: launch counts of one replay, in ``paged_attention.LAUNCH_COUNTERS`` order
+    #: launch counts of one replay, in ``paged_attention.LAUNCH_COUNTERS``
+    #: order, then the fp8 products'
     launches: Tuple[int, ...]
 
 
@@ -65,19 +78,19 @@ class WindowGraphs:
         (which must undo the warm-up's writes to the engine's lane state)."""
         if key in self._windows:
             raise ValueError(f"window {key} is already captured")
-        counts = pa.launch_counts()
+        counts = _counts()
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             fn()
         stream.wait_stream(side)
-        pa.set_launch_counts(counts)          # the warm-up is not the path's
+        _set_counts(counts)                   # the warm-up is not the path's
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outputs = fn()
-        launches = tuple(a - b for a, b in zip(pa.launch_counts(), counts))
-        pa.set_launch_counts(counts)
+        launches = tuple(a - b for a, b in zip(_counts(), counts))
+        _set_counts(counts)
         reset()
         window = self._windows[key] = CapturedWindow(graph, outputs, launches)
         return window
@@ -87,5 +100,6 @@ class WindowGraphs:
         static outputs (valid until the next replay)."""
         window = self._windows[key]
         window.graph.replay()
-        pa.credit_launches(window.launches)
+        pa.credit_launches(window.launches[:-1])
+        fp8.launches += window.launches[-1]
         return window.outputs

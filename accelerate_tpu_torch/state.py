@@ -169,12 +169,14 @@ class PartialState:
 
 
 class AcceleratorState:
-    """:class:`PartialState` plus the mixed-precision policy."""
+    """:class:`PartialState` plus the mixed-precision policy and the FSDP
+    plugin (with which ``distributed_type`` is ``"FSDP"``, as the JAX
+    package promotes it: ``accelerate_tpu/state.py:345-346``)."""
 
     _shared_state: Dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False,
-                 _from_accelerator: bool = False, **kwargs):
+                 fsdp_plugin=None, _from_accelerator: bool = False, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             if mixed_precision is not None and mixed_precision != self._mixed_precision:
@@ -187,7 +189,9 @@ class AcceleratorState:
         self.partial_state = PartialState(cpu=cpu, **kwargs)
         self._mixed_precision = str(mixed_precision or "no").lower()
         self.policy = policy
-        self.distributed_type = self.partial_state.distributed_type
+        self.fsdp_plugin = fsdp_plugin
+        self.distributed_type = ("FSDP" if fsdp_plugin is not None
+                                 else self.partial_state.distributed_type)
         self._shared_state["_initialized"] = True
 
     @property

@@ -5,8 +5,13 @@ immutable pytree through a jitted step; here the state is a mutable
 :class:`TrainState` that the train step **updates in place**:
 
   - ``model``       the ``nn.Module`` holding the master weights
-                    (``PrecisionPolicy.param_dtype``)
+                    (``PrecisionPolicy.param_dtype``) — or, under the
+                    offloaded optimizer's master-weight layout, the working
+                    weights in the compute dtype
   - ``optimizer``   the ``torch.optim.Optimizer`` bound to those weights
+                    (a :class:`~accelerate_tpu_torch.utils.chunked_update.
+                    ChunkedOptimizer` when the optimizer is offloaded: its
+                    state, and the f32 masters, live on the host or on disk)
   - ``step``        count of *applied* optimizer steps
   - ``micro_step``  micro-steps accumulated since the last sync
   - ``loss_scale``  the fp16 :class:`DynamicLossScale` (``None`` otherwise)
@@ -15,7 +20,12 @@ The gradient-accumulation buffer is the parameters' own ``.grad``: each
 micro-step's backward adds into it, and a sync step averages, clips,
 applies and clears it.  ``step`` and ``micro_step`` are host integers — the
 step decides on the host whether a call syncs, so it never reads them back
-from the device.
+from the device.  In the master-weight layout the buffer is in the compute
+dtype, as the working weights are (the reference's ``grad_accum_dtype``).
+
+``offload_params`` (FSDP's ``cpu_offload``): the working weights wait in
+pinned host memory between steps; the step brings them to the card
+(:meth:`params_to_device`) and sends them back (:meth:`params_to_host`).
 """
 
 from __future__ import annotations
@@ -84,6 +94,9 @@ class TrainState:
     step: int = 0
     micro_step: int = 0
     loss_scale: Optional[DynamicLossScale] = None
+    offload_params: bool = False
+    #: where the working weights compute, when they wait on the host
+    device: Optional[torch.device] = None
 
     @classmethod
     def create(cls, *, model: nn.Module, tx: Callable, use_loss_scaling: bool = False,
@@ -102,6 +115,33 @@ class TrainState:
     def params(self) -> Dict[str, torch.Tensor]:
         """Name -> master weight."""
         return dict(self.model.named_parameters())
+
+    def params_to_device(self) -> None:
+        """Under ``offload_params``: the working weights onto the card for a
+        step (exact: a copy)."""
+        if not self.offload_params:
+            return
+        for p in self.model.parameters():
+            if p.device != self.device:
+                p.data = p.data.to(self.device, non_blocking=True)
+
+    def params_to_host(self) -> None:
+        """Under ``offload_params``: the working weights back into pinned
+        host memory (pageable on a CPU-only build); the gradient buffer
+        stays on the card."""
+        if not self.offload_params:
+            return
+        pin = self.device is not None and self.device.type == "cuda"
+        hosts = self.__dict__.setdefault("_host_params", {})
+        for name, p in self.model.named_parameters():
+            if p.device.type != "cpu":
+                host = hosts.get(name)
+                if host is None or host.shape != p.shape or host.dtype != p.dtype:
+                    host = hosts[name] = torch.empty(p.shape, dtype=p.dtype, pin_memory=pin)
+                host.copy_(p.data, non_blocking=pin)
+                p.data = host
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer update from the parameters' ``.grad``; advances
@@ -133,7 +173,7 @@ class TrainState:
         ``optimizer.load_state_dict`` places them (and the moments, on the
         parameters' device) as the optimizer itself would."""
         opt = tree["optimizer"]
-        for param_state in opt["state"].values():
+        for param_state in opt.get("state", {}).values():
             if isinstance(param_state.get("step"), torch.Tensor):
                 param_state["step"] = param_state["step"].cpu()
         self.optimizer.load_state_dict(opt)
@@ -142,7 +182,7 @@ class TrainState:
         grads = tree.get("grad", {})
         for name, p in self.model.named_parameters():
             g = grads.get(name)
-            p.grad = None if g is None else g.to(device=p.device, dtype=p.dtype)
+            p.grad = None if g is None else g.to(device=self.device or p.device, dtype=p.dtype)
         if self.loss_scale is not None and "loss_scale" in tree:
             self.loss_scale = dataclasses.replace(
                 self.loss_scale, scale=float(tree["loss_scale"]["scale"]),

@@ -290,6 +290,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -355,7 +356,14 @@ TRAIN_API_REL_TOL = 1e-3
 LOGIT_TOL_FACTOR = 2.0
 
 
+#: ``time.perf_counter()`` at the start of the run: each phase's record gets
+#: ``t_s``, the seconds since then, so that the run's time splits by line
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -769,7 +777,7 @@ def tracking_scales(track: torch.Tensor):
 ENGINE_LENS = (57, 100, 384, 700, 1000, 1500)
 
 
-def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
+def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, spec=None,
                  prompts=None, name=None, eager=False, knobs=None):
     """Serve six greedy requests of 48 new tokens through ``ServingEngine``
     (``spec``: the speculation knobs; ``knobs``: other engine knobs;
@@ -783,8 +791,13 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     tree verify (its tree-mask arm, counted apart), graph replays credited;
     the draft forward launches none; K2 once a layer per prefill chunk.
     The graphs captured (one per bucket among them) must not grow during the
-    serve.  Returns the launches, the prompts and the tokens."""
+    serve.  An fp8 model's ``_scaled_mm`` launches are counted too (one a
+    projection a forward).  ``margin=None`` holds no token to the no-cache
+    forward (an fp8 model's per-tensor scales differ between the engine's
+    batches and that forward's: the deficit is printed).  Returns the
+    launches, the prompts and the tokens."""
     from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import fp8
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving import ServingEngine
 
@@ -798,7 +811,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
                      kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda"), **(spec or {}),
               **(knobs or {})}
         if eager:
-            return ServingEngine._eager(model, None, async_depth=0, **kw)
+            return ServingEngine._eager(model, None, **{"async_depth": 0, **kw})
         return ServingEngine(model, None, **kw)
 
     # the device memory the engine takes: its pool (and scratch), the
@@ -823,6 +836,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
           f"prefill chunk graphs for buckets {chunk_graphs}")
     torch.cuda.synchronize()
     pa.reset_launch_counts()
+    fp8.launches = 0
     t0 = time.perf_counter()
     reqs = engine.serve(prompts, configs=gen)
     wall = time.perf_counter() - t0
@@ -830,6 +844,8 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     launches = {"paged_attention": pa.paged_attention.launches,
                 "paged_attention_tree": pa.paged_attention.tree_launches,
                 "paged_flash_prefill": pa.paged_flash_prefill.launches}
+    if cfg.use_fp8:
+        launches["scaled_mm"] = fp8.launches
     st = engine.stats
     check(all(len(r.tokens) == 48 and r.done for r in reqs), "a request did not finish 48 tokens")
     # a verify cycle counts its committed width in decode_steps but runs one
@@ -859,6 +875,12 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
     check(launches["paged_flash_prefill"] == chunk_launches and st["prefill_chunks"] > 0,
           f"prefill kernel launches {launches['paged_flash_prefill']} != {chunk_launches} "
           f"for {st['prefill_chunks']} chunks x {cfg.num_layers} layers")
+    if cfg.use_fp8:
+        # every projection of every forward: the window steps and the chunks
+        products = (window_forwards + st["prefill_chunks"]) * cfg.num_layers * (
+            7 if cfg.gated_mlp else 6)
+        check(spec is None and launches["scaled_mm"] == products,
+              f"_scaled_mm launched {launches['scaled_mm']} times, want {products}")
     check(not paged or engine.kv.allocator.free_count == idle_free, "KV pages leaked")
     check(st["graph_captures"] == captures, f"graphs captured during the serve: "
           f"{captures} -> {st['graph_captures']}")
@@ -898,7 +920,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
         got = torch.tensor(req.tokens, device=rows.device)
         top2 = rows.topk(2, dim=-1).values
         agree += int((rows.argmax(dim=-1) == got).sum())
-        confident += int(((top2[:, 0] - top2[:, 1]) > margin).sum())
+        confident += int(((top2[:, 0] - top2[:, 1]) > (margin or 0.0)).sum())
         # how far below the reference's best logit the engine's token sits:
         # 0 where they agree, within the noise margin for a near tie
         deficits.append(top2[:, 0] - rows.gather(1, got[:, None])[:, 0])
@@ -956,7 +978,7 @@ def engine_phase(model, cfg, rng, gpu, margin: float, kv_dtype=None, spec=None,
         check(0.0 < kv_rec["kv_quant_error"] <= kv_rec["kv_quant_error_bound"],
               f"{kv_dtype} kv_quant_error {kv_rec['kv_quant_error']} outside "
               f"(0, {kv_rec['kv_quant_error_bound']}]")
-    else:
+    elif margin is not None:
         check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
               f"forward's best logit by more than the noise margin {margin}")
     return launches, prompts, [r.tokens for r in reqs]
@@ -2081,33 +2103,56 @@ def train_model(cfg, seed: int):
     return model
 
 
-def train_data(cfg):
+def train_data(cfg, repeats: int = 4):
     """Two random batches A and B of 2 x 2048 tokens, and the loader's
-    dataset A B A B ... (8 batches)."""
+    dataset A B A B ... (``2 * repeats`` batches)."""
     rng = np.random.default_rng(7)
     a, b = (rng.integers(1, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ)).astype(np.int32)
             for _ in range(2))
-    return a, [{"input_ids": r} for _ in range(4) for r in (*a, *b)]
+    return a, [{"input_ids": r} for _ in range(repeats) for r in (*a, *b)]
+
+
+def host_available_gb() -> float:
+    """The host's ``MemAvailable``, GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def offload_plugin(**kw):
+    """The FSDP plugin of the offloaded lines: one card, the optimizer state
+    in pinned host memory (master weights: auto, on under bf16)."""
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    return FullyShardedDataParallelPlugin(sharding_strategy="NO_SHARD", offload_optimizer=True,
+                                          **kw)
 
 
 def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
-                mixed_precision="bf16", with_path_check=True):
+                mixed_precision="bf16", with_path_check=True, accelerator_kw=None,
+                repeats=4, keep_weights=False):
     """``cfg`` (``train``: Llama-2-7B's widths at ``TRAIN_LAYERS`` layers)
-    trained through ``Accelerator.compile_train_step``: 8 micro-steps of
-    ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens at accumulation 2, the flash
-    launch counters zeroed just before and read just after (one launch of
-    each of K3-K5 a layer each micro-step), held to the flash-vs-xla path
-    check (``with_path_check``).  Under ``mixed_precision="fp8"`` the model
-    goes through ``prepare`` first (its projections become fp8 products)
-    and the ``_scaled_mm`` launches are counted too.  Returns the launches
-    and the line's record."""
+    trained through ``Accelerator.compile_train_step``: ``2 * repeats``
+    micro-steps of ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens at accumulation 2,
+    the flash launch counters zeroed just before and read just after (one
+    launch of each of K3-K5 a layer each micro-step; K3 twice under remat,
+    whose recompute relaunches it), held to the flash-vs-xla path check
+    (``with_path_check``).  Under ``mixed_precision="fp8"`` the model goes
+    through ``prepare`` first (its projections become fp8 products) and the
+    ``_scaled_mm`` launches are counted too.  ``accelerator_kw`` go to the
+    Accelerator (an offloading FSDP plugin: the line then reports the
+    chunked update).  Returns the launches and the line's record (with
+    ``keep_weights``, the final weights as host copies under ``weights``,
+    not printed)."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
     from accelerate_tpu_torch.models.transformer import lm_loss_fn, state_dict_shapes
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import fp8
-
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.chunked_update import ChunkedOptimizer
 
     free_card()
     cfg = cfg or train_config(TRAIN_LAYERS)
@@ -2116,28 +2161,36 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     # each line is a run of its own: its precision, its accumulation window
     GradientState._reset_state()
     AcceleratorState._reset_state(reset_partial_state=True)
-    accelerator = Accelerator(mixed_precision=mixed_precision, gradient_accumulation_steps=2)
+    accelerator = Accelerator(mixed_precision=mixed_precision, gradient_accumulation_steps=2,
+                              **(accelerator_kw or {}))
     model = accelerator.prepare(model)
     cfg = model.config
-    a, dataset = train_data(cfg)
+    a, dataset = train_data(cfg, repeats)
     path_check = attention_path_check(
         accelerator, model, cfg, {"input_ids": torch.from_numpy(a[:1]).cuda()}
     ) if with_path_check else None
 
+    host_before = host_available_gb()
+    t0 = time.perf_counter()
     state = accelerator.create_train_state(params=model, tx=LLAMA2_ADAMW)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    offloaded = isinstance(state.optimizer, ChunkedOptimizer)
     step = accelerator.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
     loader = accelerator.prepare(SimpleDataLoader(dataset, batch_size=rows))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     fp8.launches = 0
-    metrics, step_s = [], []
+    metrics, step_s, update_s = [], [], []
     for batch in loader:
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         metrics.append(m)
+        if offloaded and accelerator.sync_gradients:
+            update_s.append(state.optimizer.last_step_s)
     launches = {"flash_fwd": fa.flash_fwd.launches, "flash_dq": fa.flash_dq.launches,
                 "flash_dkv": fa.flash_dkv.launches}
     scaled_mm_launches = fp8.launches
@@ -2192,9 +2245,34 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
               f"{len(sown)} layers")
         check(abs(total - (ce + aux)) <= 1e-4 * abs(total),
               f"the MoE loss {total} is not cross entropy {ce} + aux {aux}")
+    offload_rec = {}
+    if offloaded:
+        opt = state.optimizer
+        update = float(np.median(update_s))
+        offload_rec = {"offload": {
+            "chunk_mb": accelerator.fsdp_plugin.offload_update_chunk_mb,
+            "overlap": opt.overlap, "master_weights": accelerator._offload_master,
+            "tier": type(opt.store).__name__, "chunks": len(opt.chunks),
+            "host_state_bytes": opt.host_bytes,
+            "host_pinned_bytes": opt.store.pinned_bytes(),
+            "host_alloc_s": opt.alloc_s,
+            "create_train_state_s": create_s,
+            "host_available_gb_before": host_before,
+            "host_available_gb_after": host_available_gb(),
+            "update_s_each": update_s, "update_ms": update * 1e3,
+            "chunk_ms": update * 1e3 / len(opt.chunks),
+            # each chunk's state crosses PCIe twice a sync step: in and out
+            "pcie_gb_per_s": 2 * opt.host_bytes / update / 1e9,
+            "working_dtype": str(next(model.parameters()).dtype).replace("torch.", "")}}
+        # the host tier streams from page-locked memory, never through
+        # pageable bounce copies
+        check(offload_rec["offload"]["tier"] != "HostChunkStore"
+              or opt.store.pinned_bytes() == opt.host_bytes,
+              f"{opt.store.pinned_bytes()} of the host state's {opt.host_bytes} bytes pinned")
     rec = {
         "phase": name, "config": config, "layers": layers, "of_layers": of_layers,
-        "head_dim": cfg.resolved_head_dim,
+        "head_dim": cfg.resolved_head_dim, "remat": cfg.remat and cfg.remat_policy,
+        "compilation_remat": accelerator.compilation_config.remat_policy, **offload_rec,
         "params": sum(p.numel() for p in model.parameters()), "matrix_params": matrix_params,
         "micro_steps": micro, "optimizer_steps": state.step, "tokens_per_micro_step": tokens,
         "loss": [h["loss"] for h in host], "grad_norm": [h["grad_norm"] for h in host],
@@ -2217,8 +2295,13 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     check(applied[-1]["loss"] < applied[0]["loss"],
           f"the last applied step's loss {applied[-1]['loss']} is not below the first's "
           f"{applied[0]['loss']} on the repeating batch")
+    # a remat recompute relaunches the flash forward (K3) in the backward
+    recompute = cfg.remat or accelerator.compilation_config.remat_policy not in (
+        "none", "everything_saveable")
     for name, n in launches.items():
-        check(n == micro * layers, f"{name} launched {n} times, want {micro} x {layers}")
+        per = 2 if recompute and name == "flash_fwd" else 1
+        check(n == per * micro * layers,
+              f"{name} launched {n} times, want {per} x {micro} x {layers}")
     if mixed_precision == "fp8":
         # every attention and MLP projection: its forward and both gradients
         want = micro * layers * 3 * (7 if cfg.gated_mlp else 6)
@@ -2229,6 +2312,10 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
               f"flash vs xla loss differ by {path_check['loss_err']}")
         check(path_check["grad_rel_err"] <= path_check["grad_tolerance"],
               f"flash vs xla gradients differ by {path_check['grad_rel_err']} (relative)")
+    if keep_weights:
+        rec["weights"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del state, step, loader, model, accelerator
+    free_card()
     return launches, rec
 
 
@@ -2375,9 +2462,15 @@ def reference_loop_call(accelerator, state, loss_fn):
     return call
 
 
-def free_card() -> None:
+def free_card(host: bool = False) -> None:
+    """Collect garbage and return the card's cached blocks; with ``host``,
+    also the pinned host blocks torch's caching host allocator keeps (the
+    prefix cache's host ring, the nvme tier's bounce buffers), before a line
+    that needs the host's memory (``train_full``'s 81 GB)."""
     gc.collect()
     torch.cuda.empty_cache()
+    if host:
+        torch._C._host_emptyCache()
 
 
 def train_api_phase(gpu, train_rec):
@@ -2389,10 +2482,14 @@ def train_api_phase(gpu, train_rec):
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
     from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
     free_card()
     cfg = train_config(TRAIN_LAYERS)
     model = train_model(cfg, seed=0)
+    # a run of its own: no plugin or precision of an earlier line's
+    GradientState._reset_state()
+    AcceleratorState._reset_state(reset_partial_state=True)
     accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
     state = accelerator.create_train_state(params=model, tx=LLAMA2_ADAMW)
     loader = accelerator.prepare(SimpleDataLoader(train_data(cfg)[1], batch_size=TRAIN_ROWS))
@@ -2537,6 +2634,313 @@ def checkpoint_phase(gpu):
     check(moments_on_card, "AdamW's moments did not load onto the card")
     check(len(files) >= 2, f"the 1GB-shard export wrote {len(files)} file(s)")
     check(export_equal, "the bf16 export read back differs from the masters cast to bf16")
+
+
+# --------------------------------------------------- single-card training memory
+#: ``train_full``'s offload tier, chosen from the card machine's resources
+#: (read by a first short call: 96 GiB of host RAM, of which 84 GiB were
+#: granted as pinned memory in 29 s; 75 GB of free disk, less than the 81 GB
+#: of state): pinned host memory.  Never a fallback at run time.
+FULL_OFFLOAD_TIER = "pinned host memory"
+REMAT_POLICY_LAYERS = 2
+#: ``train_offload`` against ``train`` over the first accumulation window
+#: (equal weights): the bf16 gradient buffer against train's f32 one moves
+#: the second micro-step's grad norm by the buffer's rounding, 2^-8 relative
+#: at most
+OFFLOAD_GRAD_NORM_REL_TOL = 2.0**-8
+
+
+def train_remat_phase(gpu, train_rec) -> dict:
+    """``train``'s model, batches and loop with per-layer remat
+    (``TransformerConfig(remat=True, remat_policy="full")``): losses and
+    grad norms bitwise ``train``'s (the recompute repeats the forward's
+    kernels on the same values), K3 launched twice a layer a micro-step,
+    the peak below ``train``'s."""
+    cfg = dataclasses.replace(train_config(TRAIN_LAYERS), remat=True, remat_policy="full")
+    launches, rec = train_phase(gpu, cfg, name="train_remat", with_path_check=False)
+    same = rec["loss"] == train_rec["loss"] and rec["grad_norm"] == train_rec["grad_norm"]
+    emit({"phase": "train_remat_vs_train", "bitwise": same,
+          "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
+          "train_max_memory_allocated_gb": train_rec["max_memory_allocated_gb"],
+          "step_ms": rec["step_ms"], "train_step_ms": train_rec["step_ms"],
+          "step_ms_ratio": rec["step_ms"] / train_rec["step_ms"], "gpu": gpu})
+    check(same, "train_remat's losses or grad norms differ from train's")
+    check(rec["max_memory_allocated_gb"] < train_rec["max_memory_allocated_gb"],
+          f"train_remat's peak {rec['max_memory_allocated_gb']} GB is not below train's "
+          f"{train_rec['max_memory_allocated_gb']} GB")
+    return launches
+
+
+def remat_policies_phase(gpu) -> dict:
+    """Llama-2-7B's widths at ``REMAT_POLICY_LAYERS`` layers: one micro-step
+    (2 x 2048 tokens, bf16 compute from f32 masters, flash path) without
+    remat, under each per-layer policy and under ``CompilationConfig``'s
+    over-the-loss remat (``Accelerator._maybe_remat``): loss and gradients
+    bitwise the plain step's, the activation peak (the peak above what was
+    allocated when the step began) and the ms of a micro-step (median of 3
+    after a warm-up), K3's launches."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.transformer import Transformer, lm_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import CompilationConfig
+
+    free_card()
+    base_cfg = train_config(REMAT_POLICY_LAYERS)
+    base = train_model(base_cfg, seed=0)
+    masters = list(base.parameters())
+    ids = torch.from_numpy(train_data(base_cfg)[0]).cuda()
+    GradientState._reset_state()
+    AcceleratorState._reset_state(reset_partial_state=True)
+
+    def run(model, wrap=None):
+        loss_fn = lm_loss_fn(model)
+        if wrap is not None:
+            loss_fn = wrap(loss_fn)
+        times, peak = [], 0
+        for i in range(4):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+            loss = loss_fn(params, {"input_ids": ids})
+            grads = torch.autograd.grad(loss, masters)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated() - resident)
+            fwd = fa.flash_fwd.launches
+            if i < 3:
+                del params, grads
+        return loss.detach(), grads, float(np.median(times[1:])) * 1e3, peak, fwd
+
+    def variant(cfg):
+        model = Transformer(cfg, device="meta")
+        model.load_state_dict(base.state_dict(keep_vars=True), assign=True)
+        return model
+
+    loss0, grads0, ms0, peak0, fwd0 = run(base)
+    rows = [{"policy": "none", "ms": ms0, "activation_peak_gb": peak0 / 1e9, "flash_fwd": fwd0}]
+    arms = [(f"layer:{p}", variant(dataclasses.replace(base_cfg, remat=True, remat_policy=p)),
+             None) for p in ("full", "nothing_saveable", "dots_saveable",
+                             "dots_with_no_batch_dims_saveable", "proj_saveable")]
+    acc = Accelerator(compilation_config=CompilationConfig(remat_policy="full"))
+    arms.append(("loss:full (CompilationConfig)", base, acc._maybe_remat))
+    for label, model, wrap in arms:
+        loss, grads, ms, peak, fwd = run(model, wrap)
+        same = torch.equal(loss, loss0) and all(torch.equal(a, b) for a, b in zip(grads, grads0))
+        rows.append({"policy": label, "bitwise": same, "ms": ms,
+                     "activation_peak_gb": peak / 1e9, "flash_fwd": fwd})
+        del grads
+        check(same, f"remat {label}: loss or gradients differ from the plain step's")
+        check(fwd == 2 * REMAT_POLICY_LAYERS,
+              f"remat {label}: K3 launched {fwd} times, want 2 x {REMAT_POLICY_LAYERS}")
+        # saving nothing inside a layer keeps one input a layer; the
+        # over-the-loss arm recomputes the whole forward at once in the
+        # backward, so its peak is the plain one's (it is printed)
+        if label in ("layer:full", "layer:nothing_saveable"):
+            check(peak < peak0, f"remat {label}: peak {peak / 1e9} GB not below the plain "
+                  f"step's {peak0 / 1e9} GB")
+    emit({"phase": "remat_policies", "config": "llama2_7b", "layers": REMAT_POLICY_LAYERS,
+          "of_layers": 32, "tokens": int(ids.numel()), "arms": rows, "gpu": gpu})
+    del base, masters, arms, grads0, acc
+    free_card()
+
+
+def train_offload_phase(gpu, train_rec) -> dict:
+    """``train``'s model, batches and loop with the optimizer offloaded
+    (``FullyShardedDataParallelPlugin(sharding_strategy="NO_SHARD",
+    offload_optimizer=True)``: f32 masters and AdamW moments in pinned
+    host memory, 512 MB chunks, bf16 working weights and gradient buffer
+    on the card).  The first accumulation window (equal weights) against
+    ``train``: losses bitwise, grad norms within
+    ``OFFLOAD_GRAD_NORM_REL_TOL``.  After the 4 updates its weights bitwise
+    those of the same run with one chunk (the whole state round-trips) and
+    with ``offload_update_overlap=2``; and ``offload_update_chunk_mb=0``
+    (the reference's whole-state round trip without master weights: f32
+    weights on the card, the moments offloaded) bitwise ``train``'s."""
+    launches, rec = train_phase(gpu, name="train_offload", with_path_check=False,
+                                accelerator_kw=dict(fsdp_plugin=offload_plugin()),
+                                keep_weights=True)
+    weights = rec.pop("weights")
+    window = rec["applied"].index(True) + 1
+    loss_same = rec["loss"][:window] == train_rec["loss"][:window]
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(rec["grad_norm"], train_rec["grad_norm"])]
+    twins = {}
+    for label, kw in (("one_chunk", dict(offload_update_chunk_mb=1 << 20)),
+                      ("overlap_2", dict(offload_update_overlap=2)),
+                      ("chunk_mb_0", dict(offload_update_chunk_mb=0))):
+        _, twin = train_phase(gpu, name=f"train_offload_{label}", with_path_check=False,
+                              accelerator_kw=dict(fsdp_plugin=offload_plugin(**kw)),
+                              keep_weights=True)
+        want = train_rec["weights"] if label == "chunk_mb_0" else weights
+        twins[label] = all(torch.equal(twin["weights"][n], w) for n, w in want.items())
+        del twin
+    emit({"phase": "train_offload_vs", "first_window_micro_steps": window,
+          "losses_bitwise_train": loss_same, "grad_norm_rel_diff_train": norm_rel,
+          "grad_norm_tolerance": OFFLOAD_GRAD_NORM_REL_TOL,
+          "weights_bitwise": twins, "step_ms": rec["step_ms"],
+          "train_step_ms": train_rec["step_ms"],
+          "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
+          "train_max_memory_allocated_gb": train_rec["max_memory_allocated_gb"], "gpu": gpu})
+    check(loss_same, "train_offload's first-window losses differ from train's")
+    check(max(norm_rel[:window]) <= OFFLOAD_GRAD_NORM_REL_TOL,
+          f"train_offload's first-window grad norm strays {max(norm_rel[:window])} from train's")
+    check(twins["one_chunk"], "the 512 MB chunks' weights differ from one chunk's")
+    check(twins["overlap_2"], "overlap 2's weights differ from overlap 1's")
+    check(twins["chunk_mb_0"], "offload_update_chunk_mb=0's weights differ from train's")
+    del weights
+    return launches
+
+
+def train_full_phase(gpu) -> dict:
+    """The slice's headline: Llama-2-7B at all 32 layers on one card,
+    per-layer remat ("full") and the offloaded optimizer with f32 master
+    weights (512 MB chunks, ``FULL_OFFLOAD_TIER``): 4 micro-steps of 2 x
+    2048 tokens at accumulation 2 through ``compile_train_step``, K3-K5 on
+    every layer (K3 again in the recompute)."""
+    cfg = dataclasses.replace(train_config(32), remat=True, remat_policy="full")
+    launches, rec = train_phase(gpu, cfg, name="train_full", with_path_check=False,
+                                accelerator_kw=dict(fsdp_plugin=offload_plugin()), repeats=2)
+    emit({"phase": "train_full_summary", "offload_tier": FULL_OFFLOAD_TIER,
+          "layers": 32, "launches": launches,
+          "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
+          "host_state_gb": rec["offload"]["host_state_bytes"] / 1e9,
+          "step_ms_each": rec["step_ms_each"], "update_ms": rec["offload"]["update_ms"],
+          "pcie_gb_per_s": rec["offload"]["pcie_gb_per_s"],
+          "mfu_vs_989_tflops": rec["mfu_vs_989_tflops"], "loss": rec["loss"], "gpu": gpu})
+    check(launches == {"flash_fwd": 256, "flash_dq": 128, "flash_dkv": 128},
+          f"train_full's launches {launches}")
+    check(rec["max_memory_allocated_gb"] < 80, "train_full's peak is past the card")
+    return launches
+
+
+def checkpoint_offload_phase(gpu) -> dict:
+    """The ``checkpoint`` line's mid-window save and resume with the
+    optimizer offloaded, once with its state in pinned host memory and once
+    in files (the nvme tier): 2 of 32 layers at full width, 512 MB chunks,
+    the reference loop, 3 calls (accumulation 2: the save holds one
+    micro-step), ``save_state``, ``load_state`` into a fresh accelerator and
+    a state from another seed, 1 more call (the update that needs the
+    restored buffer, masters and moments); losses, grad norms, the final
+    working weights and the masters and second moments bitwise an
+    uninterrupted run of 4 with the state in host memory (so the nvme tier
+    is held against the host tier too).  Each nvme sync step moves the
+    whole 8 GB state through files twice, so the calls are kept few."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    layers = 2
+    cfg = train_config(layers)
+    rng = np.random.default_rng(8)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (TRAIN_ROWS, TRAIN_SEQ)).astype(np.int32)).cuda()} for _ in range(4)]
+    tmp = tempfile.gettempdir()
+    root = tempfile.mkdtemp(prefix="atpu_offload_ckpt_", dir=tmp)
+    out = {}
+    try:
+        for tier in ("host", "nvme"):
+            def trainer(seed, run):
+                GradientState._reset_state()
+                AcceleratorState._reset_state(reset_partial_state=True)
+                kw = {} if tier == "host" else dict(
+                    offload_optimizer_nvme_path=os.path.join(root, f"nvme_{run}"))
+                model = train_model(cfg, seed=seed)
+                acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2,
+                                  fsdp_plugin=offload_plugin(**kw))
+                state = acc.create_train_state(params=model, tx=LLAMA2_ADAMW)
+                return acc, state, reference_loop_call(acc, state, lm_loss_fn(model))
+
+            def finals(state):
+                return ([p.detach().cpu() for p in state.model.parameters()],
+                        state.optimizer.host_state("master"),
+                        state.optimizer.host_state("exp_avg_sq"))
+
+            if tier == "host":
+                _, state, call = trainer(0, "whole")
+                whole = [call(b)[:2] for b in batches]
+                want = finals(state)
+                del state, call
+                free_card()
+            acc, state, call = trainer(0, "first")
+            chunks, host_bytes = len(state.optimizer.chunks), state.optimizer.host_bytes
+            first = [call(b)[:2] for b in batches[:3]]
+            check(state.micro_step == 1, f"micro_step {state.micro_step} at the save, want 1")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved = acc.save_state(os.path.join(root, f"ckpt_{tier}"), state=state)
+            save_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(saved) for f in files)
+            del acc, state, call
+            free_card()
+            acc, state, call = trainer(1, "resumed")
+            t0 = time.perf_counter()
+            acc.load_state(saved, state=state)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            rest = [call(b)[:2] for b in batches[3:]]
+            got = finals(state)
+            bitwise = first + rest == whole and all(
+                torch.equal(x, y) for part_g, part_w in zip(got, want)
+                for x, y in zip(part_g, part_w))
+            del acc, state, call, got
+            free_card()
+            out[tier] = {"bitwise": bitwise, "chunks": chunks, "state_bytes": host_bytes,
+                         "checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                         "save_gb_per_s": nbytes / save_s / 1e9,
+                         "load_gb_per_s": nbytes / load_s / 1e9, "losses": first + rest}
+            check(bitwise, f"the offloaded ({tier}) resume differs from the uninterrupted run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "checkpoint_offload", "config": "llama2_7b", "layers": layers,
+          "of_layers": 32, "uninterrupted": whole, "tiers": out, "gpu": gpu})
+    return out
+
+
+ENGINE_FP8_LAYERS = 4
+
+
+def engine_fp8_model_phase(gpu, rng, prompts) -> dict:
+    """A ``use_fp8`` model (Llama-2-7B's widths at ``ENGINE_FP8_LAYERS``
+    layers, random bf16 weights) served by ``ServingEngine(paged=True)``:
+    every projection an fp8 product through ``_scaled_mm``, whose decode
+    windows have M = 4 lanes (zero-padded to 16 inside ``fp8.scaled_mm``).
+    The model line first (``model_use_fp8``: the paged forward against the
+    no-cache one, and the noise margin), then two of the ``engine`` line's
+    requests: K1 and K2 launched once a layer a forward, as in ``engine``;
+    the ``_scaled_mm`` launches counted (graph replays credited); every
+    token within the noise margin of the no-cache forward's best logit; the
+    same for the sync-eager twin, whose tokens must be the graphed engine's.
+    An fp8 product scales its input by the amax of the whole ``[lanes, K]``
+    activation, inactive lanes' rows included, and those rows read the null
+    page back: the twins agree only because every null-page write lands the
+    same on every run (``paged_attention._null_last_writer``) and the engine
+    restores the null page its graph captures wrote."""
+    from accelerate_tpu_torch.models.transformer import TransformerConfig
+
+    free_card()
+    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16, num_layers=ENGINE_FP8_LAYERS,
+                                      use_fp8=True)
+    model = family_model(cfg, affine_std=0.0)
+    margin = model_phase(model, cfg, rng, name="model_use_fp8")
+    two = [prompts[0], prompts[3]]
+    launches, _, tokens = engine_phase(model, cfg, rng, gpu, margin, prompts=two,
+                                       name="engine_fp8_model")
+    _, _, eager_tokens = engine_phase(model, cfg, rng, gpu, margin, prompts=two,
+                                      name="engine_fp8_model_sync_eager", eager=True)
+    same = sum(a == b for x, y in zip(tokens, eager_tokens) for a, b in zip(x, y))
+    emit({"phase": "engine_fp8_model_vs_sync_eager", "tokens_equal": eager_tokens == tokens,
+          "same_token_share": same / sum(len(x) for x in tokens),
+          "first_difference": [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+                               for x, y in zip(tokens, eager_tokens)], "gpu": gpu})
+    check(eager_tokens == tokens, "the fp8 model's graphed engine and its sync-eager twin "
+          f"gave different tokens ({same} of {sum(len(x) for x in tokens)} equal)")
+    del model
+    free_card()
+    return launches
 
 
 def main() -> int:
@@ -2746,6 +3150,8 @@ def main() -> int:
     # Llama-2-7B in int4
     family_launches["engine_mixtral"] = mixtral_phases(gpu)
     family_launches["engine_int4"] = int4_phases(gpu)
+    # an fp8 model served (its decode windows' M = 4 lanes, padded in the product)
+    family_launches["engine_fp8_model"] = engine_fp8_model_phase(gpu, rng, prompts)
 
     flash = flash_phase([
         ("train", 13, 2, 2048, 32, 32, bf16, True, False),
@@ -2764,16 +3170,26 @@ def main() -> int:
         ("gqa_d16", 422, 2, 2048, 32, 8, bf16, True, False, 16),
         ("gqa_d16", 423, 2, 2048, 32, 8, f32, True, False, 16),
     ])
-    train_launches, train_rec = train_phase(gpu)
+    train_launches, train_rec = train_phase(gpu, keep_weights=True)
     launches.update(train_launches)
+    # single-card training memory: remat, the offloaded optimizer, and both
+    # at all 32 layers
+    train_lines = {"train_remat": train_remat_phase(gpu, train_rec)}
+    remat_policies_phase(gpu)
+    train_lines["train_offload"] = train_offload_phase(gpu, train_rec)
+    del train_rec["weights"]  # 7.5 GB of host memory, before train_full's 81 GB
+    free_card(host=True)
+    train_lines["train_full"] = train_full_phase(gpu)
+    free_card(host=True)
     api_launches = train_api_phase(gpu, train_rec)
     checkpoint_phase(gpu)
+    checkpoint_offload_phase(gpu)
     # Gemma-7B's widths (16 heads of D 256, the tied 256000-row head) at 2 of
     # its 28 layers: K3-K5's D 256 arms on the training path
     gemma_train_launches, _ = train_phase(gpu, gemma_train_config(), name="train_gemma",
                                           config="gemma_7b", of_layers=28)
     # fp8 products in training, and a Mixtral layer with its aux loss
-    train_lines = {"train_fp8": train_fp8_phase(gpu, train_rec)}
+    train_lines["train_fp8"] = train_fp8_phase(gpu, train_rec)
     train_lines["train_moe"], _ = train_phase(gpu, moe_train_config(), name="train_moe",
                                               config="mixtral_8x7b", of_layers=32)
 
@@ -2851,7 +3267,8 @@ def main() -> int:
             # the reference loop's path, its counts zeroed just before its calls
             kernels[-1]["launches_train_api"] = api_launches[name]
         for line, counts in train_lines.items():
-            # the fp8 and MoE training lines, their counts zeroed just before
+            # the remat, offload, fp8 and MoE training lines, their counts
+            # zeroed just before
             if name in counts:
                 kernels[-1]["launches_" + line] = counts[name]
     emit({"phase": "run", "total_s": time.perf_counter() - t_start})

@@ -19,6 +19,7 @@ Tolerances, f32:
   gradient is ~0 from turning that noise into full-size steps.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -45,9 +46,13 @@ from accelerate_tpu_torch.models.transformer import (
 )
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.train_state import DynamicLossScale, global_norm, tree_finite
-from accelerate_tpu_torch.utils.dataclasses import GradScalerKwargs
+from accelerate_tpu_torch.utils.dataclasses import (
+    CompilationConfig,
+    FullyShardedDataParallelPlugin,
+    GradScalerKwargs,
+)
 from accelerate_tpu_torch.utils.random import set_seed
-from accelerate_tpu_torch.weights import params_from_jax
+from accelerate_tpu_torch.weights import init_params, params_from_jax
 
 LR, B1, B2, EPS, WD = 1e-3, 0.9, 0.95, 1e-6, 0.1
 MAX_GRAD_NORM = 0.5
@@ -394,13 +399,10 @@ def test_accelerator_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fsdp_plugin=object()), "item 9"),
+    (dict(fsdp_plugin=FullyShardedDataParallelPlugin(fsdp_axis_size=2)), "item 9e"),
     (dict(deepspeed_plugin=object()), "item 9"),
     (dict(megatron_lm_plugin=object()), "item 9"),
     (dict(mesh={"dp": 1}), "item 9"),
-    (dict(rng_types=["generator"]), "item 9"),
-    (dict(compilation_config=object()), "item 9"),
-    (dict(dynamo_backend="inductor"), "item 9"),
     (dict(log_with="tensorboard"), "item 10"),
     (dict(metrics_port=0), "item 8"),
     (dict(kwargs_handlers=[object()]), "item 9"),
@@ -409,6 +411,67 @@ def test_accelerator_without_a_card_raises(monkeypatch):
 def test_unported_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         Accelerator(cpu=True, **kw)
+
+
+@contextlib.contextmanager
+def _jax_accelerator(**kw):
+    """A JAX Accelerator with fresh singletons, reset again after the block."""
+    from accelerate_tpu.state import AcceleratorState as JAcceleratorState
+    from accelerate_tpu.state import GradientState as JGradientState
+
+    JGradientState._reset_state()
+    JAcceleratorState._reset_state(reset_partial_state=True)
+    try:
+        yield JAccelerator(**kw)
+    finally:
+        JGradientState._reset_state()
+        JAcceleratorState._reset_state(reset_partial_state=True)
+
+
+@pytest.mark.parametrize("case", ["fsdp_plugin", "rng_types", "compilation_config",
+                                  "dynamo_backend"])
+def test_ported_arguments_are_stored_as_the_reference_stores_them(case):
+    """The arguments that once raised here: each is taken, and stored as
+    the JAX Accelerator stores it."""
+    from accelerate_tpu.utils.dataclasses import CompilationConfig as JCompilationConfig
+    from accelerate_tpu.utils.dataclasses import FullyShardedDataParallelPlugin as JFSDP
+
+    if case == "fsdp_plugin":
+        kw = dict(sharding_strategy="NO_SHARD", activation_checkpointing=True)
+        acc = Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin(**kw))
+        with _jax_accelerator(fsdp_plugin=JFSDP(**kw)) as ref:
+            assert acc.distributed_type == ref.distributed_type == "FSDP"
+            assert (acc.compilation_config.remat_policy == ref.compilation_config.remat_policy
+                    == "full")
+        assert acc.fsdp_plugin.sharding_strategy.value == "NO_SHARD"
+    elif case == "rng_types":
+        acc = Accelerator(cpu=True, rng_types=["generator"])
+        with _jax_accelerator(rng_types=["generator"]) as ref:
+            assert acc.rng_types == ref.rng_types
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        with _jax_accelerator() as ref:
+            assert Accelerator(cpu=True).rng_types == ref.rng_types == ["generator"]
+    elif case == "compilation_config":
+        acc = Accelerator(cpu=True,
+                          compilation_config=CompilationConfig(remat_policy="dots_saveable"))
+        with _jax_accelerator(compilation_config=JCompilationConfig(
+                remat_policy="dots_saveable")) as ref:
+            assert acc.compilation_config.to_dict() == ref.compilation_config.to_dict()
+    else:
+        # accepted and ignored, as the reference does; the step still trains
+        acc = Accelerator(cpu=True, rng_types=["generator"], dynamo_backend="no")
+        with _jax_accelerator(dynamo_backend="no"):
+            pass
+        cfg = TransformerConfig.tiny()
+        model = Transformer(cfg, device="cpu")
+        model.load_state_dict(init_params(cfg, seed=0, device="cpu"), assign=True)
+        state = acc.create_train_state(params=model, tx=functools.partial(
+            torch.optim.AdamW, lr=1e-2))
+        step = acc.compile_train_step(lm_loss_fn(model))
+        ids = torch.from_numpy(np.random.default_rng(0).integers(1, 64, (2, 8)))
+        state, m = step(state, {"input_ids": ids})
+        assert bool(m["applied"]) and state.step == 1
 
 
 def test_unported_attention_impls_raise():

@@ -41,7 +41,11 @@ linear (``_scaled_mm``, forward and both gradients) within
 ``chip_smoke.FP8_LINEAR_REL_TOL`` of its plain version, ``QuantizedLinear``
 bitwise an ``nn.Linear`` on the dequantized weight, an MoE layer's graph
 replay bitwise its eager call, and a quantized MoE engine's tokens on the
-card equal the CPU engine's.
+card equal the CPU engine's; the fp8 product zero-padded at M = 4 and 24.
+Single-card training memory: per-layer remat bitwise the plain backward
+(K3 relaunched by the recompute), the offloaded chunked update bitwise one
+chunk's and two in flight's, and its whole-state round trip bitwise the
+optimizer kept on the card.
 """
 
 import functools
@@ -1398,11 +1402,112 @@ def test_fp8_linear_on_card_matches_plain(card, fmt):
 
 
 def test_fp8_refuses_shapes_scaled_mm_cannot_take(card):
+    """Shapes ``_scaled_mm`` cannot take itself (M = 4, a decode window's
+    lanes, and M = 24): ``fp8.scaled_mm`` zero-pads them, and each row of
+    the product is bitwise that row of the unpadded product of an aligned
+    operand holding the same rows (a GEMM's row depends on its own row
+    only); ``FP8Linear`` at those rows runs its three products, each
+    counted once, within ``chip_smoke.FP8_LINEAR_REL_TOL`` of its plain
+    version."""
     from accelerate_tpu_torch.ops import fp8
+    from chip_smoke import FP8_LINEAR_REL_TOL
 
+    gen = torch.Generator(device=card).manual_seed(4)
     lin = fp8.FP8Linear(512, 384, bias=False, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        lin(torch.randn(24, 512, device=card, dtype=torch.bfloat16))
+    with torch.no_grad():
+        lin.weight.normal_(0.0, 0.02, generator=gen)
+    b, b_inv = fp8._codes(lin.weight.detach().t(), torch.float8_e4m3fn, 0)
+    for m in (4, 24):
+        x = torch.randn(m, 512, device=card, dtype=torch.bfloat16, generator=gen)
+        a, a_inv = fp8._codes(x, torch.float8_e4m3fn, 0)
+        rows = -(-m // 16) * 16
+        aligned = torch.cat([a, a[:1].expand(rows - m, -1)]).contiguous()
+        got = fp8.scaled_mm(a, a_inv, b, b_inv, torch.float32)
+        assert got.shape == (m, 384)
+        assert torch.equal(got, fp8.scaled_mm(aligned, a_inv, b, b_inv, torch.float32)[:m])
+        xr = x.clone().requires_grad_()
+        fp8.launches = 0
+        out = lin(xr)
+        out.backward(torch.randn(m, 384, device=card, dtype=torch.bfloat16, generator=gen))
+        assert fp8.launches == 3 and out.shape == (m, 384)
+        want = fp8.plain_fp8_linear(x, lin.weight.detach())
+        rel = ((out.detach().float() - want.float()).norm() / want.float().norm()).item()
+        assert rel <= FP8_LINEAR_REL_TOL, (m, rel)
+        lin.weight.grad = None
+
+
+# ------------------------------------------------ remat and the offloaded optimizer
+@pytest.mark.parametrize("policy", ["full", "proj_saveable", "dots_saveable"])
+def test_remat_on_card_is_bitwise(card, policy):
+    """Per-layer remat on the card (K3-K5, bf16 compute from f32 weights):
+    loss and gradients bitwise the plain forward and backward's, K3
+    launched again in the recompute (2 a layer), K4 and K5 once."""
+    import dataclasses
+
+    base = _reference_loop_model(None)
+    ids = _loop_batches(card, 1)[0]["input_ids"]
+    masters = list(base.parameters())
+    plain_cfg = dataclasses.replace(base.config, dtype=torch.bfloat16)
+    runs = []
+    for cfg in (plain_cfg, dataclasses.replace(plain_cfg, remat=True, remat_policy=policy)):
+        model = Transformer(cfg, device="meta")
+        model.load_state_dict(base.state_dict(keep_vars=True), assign=True)
+        fa.reset_launch_counts()
+        params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        loss = lm_loss_fn(model)(params, {"input_ids": ids})
+        grads = torch.autograd.grad(loss, masters)
+        runs.append((loss, grads, (fa.flash_fwd.launches, fa.flash_dq.launches,
+                                   fa.flash_dkv.launches)))
+    (loss0, grads0, l0), (loss1, grads1, l1) = runs
+    layers = base.config.num_layers
+    assert l0 == (layers,) * 3 and l1 == (2 * layers, layers, layers)
+    assert torch.equal(loss0, loss1)
+    assert all(torch.equal(a, b) for a, b in zip(grads0, grads1))
+
+
+def _offload_train(card, mixed_precision, **plugin):
+    """Four calls at accumulation 2 of the tiny D-64 model through
+    compile_train_step, the optimizer offloaded with ``plugin`` (none: on
+    the card); the final weights and the state."""
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    GradientState._reset_state()
+    AcceleratorState._reset_state(reset_partial_state=True)
+    fsdp = (FullyShardedDataParallelPlugin(sharding_strategy="NO_SHARD", offload_optimizer=True,
+                                           **plugin) if plugin else None)
+    acc = Accelerator(mixed_precision=mixed_precision, gradient_accumulation_steps=2,
+                      fsdp_plugin=fsdp)
+    model = _reference_loop_model(None)
+    state = acc.create_train_state(params=model, tx=_adamw())
+    step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
+    for batch in _loop_batches(card):
+        state, _ = step(state, batch)
+    assert state.step == 2
+    return {k: v.detach().cpu() for k, v in model.named_parameters()}, state
+
+
+def test_chunked_step_on_card_is_bitwise_unchunked(card):
+    """The offloaded, chunked update on the card (pinned host state, two
+    copy streams): bf16 working weights with f32 masters in 1 MB chunks,
+    bitwise one chunk's, two chunks in flight's and ``cpu_offload``'s (the
+    working weights on the host between steps); and the whole-state round
+    trip without masters (``offload_update_chunk_mb=0``) bitwise the
+    optimizer kept on the card."""
+    chunked, state = _offload_train(card, "bf16", offload_update_chunk_mb=1)
+    assert len(state.optimizer.chunks) >= 2 and state.optimizer.store.buffer.is_pinned()
+    assert all(w.dtype == torch.bfloat16 for w in chunked.values())
+    for kw in (dict(offload_update_chunk_mb=1, offload_update_overlap=2),
+               dict(offload_update_chunk_mb=1 << 20),
+               dict(offload_update_chunk_mb=1, cpu_offload=True)):
+        twin, twin_state = _offload_train(card, "bf16", **kw)
+        for name, w in chunked.items():
+            assert torch.equal(twin[name], w), (kw, name)
+    # cpu_offload: the working weights wait in pinned host memory between steps
+    assert all(p.device.type == "cpu" and p.is_pinned() for p in twin_state.model.parameters())
+    whole, _ = _offload_train(card, "no", offload_update_chunk_mb=0)
+    plain, _ = _offload_train(card, "no")
+    for name, w in plain.items():
+        assert torch.equal(whole[name], w), name
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -1476,3 +1581,67 @@ def test_quantized_moe_engine_on_card_matches_cpu_engine(card):
         if dev != "cpu":
             assert engine.stats["graph_replays"] > 0
     assert out["cpu"] == out[str(card)]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_null_page_writes_land_as_on_cpu(card, kv_dtype):
+    """Inactive lanes write their rows to the null page, several into one
+    slot: on the card each slot ends as a serial scatter on the CPU leaves
+    it, the last row's, and bitwise the same on every run.  Native and int8
+    pages equal the CPU's bitwise.  fp8 pages hold the CPU's scales within
+    4 f32 ulps (the card divides by ``qmax`` through its reciprocal) and its
+    dequantized values within one e4m3 step (2^-3 relative, 2^-9 of the
+    scale absolute below the normal range): a scale one ulp apart may round
+    a code the other way."""
+    gen = torch.Generator().manual_seed(7)
+    n, s, h, d, page, num_pages = 12, 5, 2, 16, 4, 6
+    new = torch.randn((n, s, h, d), generator=gen)
+    tables = torch.randint(1, num_pages, (n, 2), generator=gen, dtype=torch.int32)
+    index = torch.randint(0, page, (n,), generator=gen, dtype=torch.int32)
+    active = torch.zeros(n, dtype=torch.bool)
+    active[0] = True
+    storage = torch.float32 if kv_dtype is None else pa.KV_FORMATS[kv_dtype][0]
+
+    def run(dev):
+        pages = torch.zeros((num_pages, page, h, d), dtype=storage, device=dev)
+        args = (new.to(dev), tables.to(dev), index.to(dev), active.to(dev))
+        if kv_dtype is None:
+            return (pa.paged_insert(pages, *args),)
+        scales = torch.ones((num_pages, h), device=dev)
+        return pa.paged_quantized_insert(pages, scales, *args)[:2]
+
+    def raw(ts):
+        return [t.cpu().view(torch.uint8) for t in ts]
+
+    want, first = run("cpu"), run(card)
+    for _ in range(4):
+        assert all(torch.equal(g, f) for g, f in zip(raw(run(card)), raw(first)))
+    if kv_dtype != "fp8":
+        assert all(torch.equal(g, w) for g, w in zip(raw(first), raw(want)))
+    else:
+        (pages, scales), (want_pages, want_scales) = [t.cpu() for t in first], want
+        torch.testing.assert_close(scales, want_scales, rtol=2**-21, atol=0)
+        torch.testing.assert_close(pages.float() * scales[:, None, :, None],
+                                   want_pages.float() * want_scales[:, None, :, None],
+                                   rtol=2**-3, atol=want_scales.max().item() * 2**-9)
+
+
+def test_fp8_model_engine_graphs_match_sync_eager(card):
+    """A ``use_fp8`` tiny model, bf16, two requests on four lanes (inactive
+    lanes every window): the graphed, pipelined engine's tokens equal the
+    eager synchronous engine's, and a second graphed engine's.  The fp8
+    products scale by the amax of every lane's row, the inactive lanes'
+    (which read the null page back) included."""
+    cfg = TransformerConfig.tiny(dtype=torch.bfloat16, use_fp8=True, max_seq_len=256)
+    sd = init_params(cfg, seed=5, device=card, dtype=torch.bfloat16)
+    model = Transformer(cfg, device=card)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 256, (n,)).astype(np.int32) for n in (37, 90)]
+    gen = GenerationConfig(max_new_tokens=40)
+    kw = dict(num_slots=4, max_len=256, prefill_buckets=(16, 64), decode_window=4,
+              prefix_cache_mb=0, device=card)
+    graphed = [[r.tokens for r in ServingEngine(model, sd, **kw).serve(prompts, configs=gen)]
+               for _ in range(2)]
+    eager = ServingEngine._eager(model, sd, async_depth=0, **kw)
+    assert graphed[0] == graphed[1]
+    assert graphed[0] == [r.tokens for r in eager.serve(prompts, configs=gen)]

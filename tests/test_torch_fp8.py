@@ -236,12 +236,15 @@ def test_config_and_recipe_refusals():
         FP8Linear(16, 16, fp8_format="E5M2")
     if torch.cuda.is_available():  # pragma: no cover - the card's own test covers it
         return
-    # the card's product refuses shapes _scaled_mm cannot take; the check is
-    # on the host, before any launch
-    codes = torch.zeros(24, 32, dtype=torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fp8.scaled_mm(codes, torch.ones(()), torch.zeros(32, 16, dtype=torch.float8_e4m3fn),
-                      torch.ones(()), torch.bfloat16)
+    # a shape _scaled_mm cannot take is zero-padded inside the product: the
+    # result is the plain dequantized product (exact here: small integers
+    # in fp8, sums exact in f32)
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(-4, 5, (24, 40)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-4, 5, (40, 24)).astype(np.float32))
+    got = fp8.scaled_mm(a.to(torch.float8_e4m3fn), torch.full((), 0.5),
+                        b.to(torch.float8_e4m3fn), torch.full((), 2.0), torch.float32)
+    assert got.shape == (24, 24) and torch.equal(got, (a * 0.5) @ (b * 2.0))
     e5 = torch.zeros(32, 32, dtype=torch.float8_e5m2)
     with pytest.raises(ValueError, match="e5m2 x e5m2"):
         fp8.scaled_mm(e5, torch.ones(()), e5, torch.ones(()), torch.bfloat16)
