@@ -39,7 +39,7 @@ import random
 import re
 import shutil
 import struct
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,18 +88,44 @@ def save_file(tensors: Dict[str, torch.Tensor], path: str) -> None:
             f.write(t.numpy())
 
 
-def load_file(path: str) -> Dict[str, torch.Tensor]:
-    """Read a safetensors file into host tensors."""
-    out = {}
+def read_header(path: str) -> Tuple[Dict[str, dict], int]:
+    """A safetensors file's header (name -> ``dtype``, ``shape``,
+    ``data_offsets``) and the byte offset where its data starts, reading no
+    tensor bytes."""
     with open(path, "rb") as f:
         (length,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(length))
-        header.pop("__metadata__", None)
-        base = 8 + length
+    header.pop("__metadata__", None)
+    for name, info in header.items():
+        if info["dtype"] not in _TORCH_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which the port "
+                             f"does not read (supported: {sorted(_TORCH_DTYPES)})")
+    return header, 8 + length
+
+
+def tensor_dtype(info: dict) -> torch.dtype:
+    """The torch dtype of a header entry."""
+    return _TORCH_DTYPES[info["dtype"]]
+
+
+def map_tensor(path: str, info: dict, base: int) -> torch.Tensor:
+    """One tensor of a safetensors file as a zero-copy view of its bytes: a
+    copy-on-write memory map of its byte range (``info`` and ``base`` from
+    :func:`read_header`), so that a read faults in only what is touched and
+    nothing is ever written back to the file."""
+    start, end = info["data_offsets"]
+    if end == start:
+        return torch.empty(info["shape"], dtype=tensor_dtype(info))
+    raw = np.memmap(path, dtype=np.uint8, mode="c", offset=base + start, shape=(end - start,))
+    return torch.from_numpy(raw).view(tensor_dtype(info)).reshape(info["shape"])
+
+
+def load_file(path: str) -> Dict[str, torch.Tensor]:
+    """Read a safetensors file into host tensors."""
+    header, base = read_header(path)
+    out = {}
+    with open(path, "rb") as f:
         for name, info in header.items():
-            if info["dtype"] not in _TORCH_DTYPES:
-                raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which the port "
-                                 f"does not read (supported: {sorted(_TORCH_DTYPES)})")
             start, end = info["data_offsets"]
             buf = torch.empty(end - start, dtype=torch.uint8)
             f.seek(base + start)

@@ -1,10 +1,27 @@
-"""Per-lane token selection for the serving engine.
+"""Autoregressive generation: the static decode loop, and per-lane token
+selection for the serving engine.
 
-Port of the batched half of :mod:`accelerate_tpu.models.generation`:
-:class:`GenerationConfig`, :func:`filter_logits_batched` (temperature, then
-top-k, then top-p, per lane) and :func:`sample_tokens_batched`.
+Port of :mod:`accelerate_tpu.models.generation`, both halves.
 
-Greedy lanes take ``argmax`` — exact.  Sampled lanes draw by inverse CDF
+The static half: :func:`sample_tokens` (greedy ``argmax``, or temperature,
+top-k and top-p filters then one draw from an explicit
+``torch.Generator``), :func:`make_sampler`, :func:`make_prefill_step`,
+:func:`make_decode_step` and :func:`generate` over the port's
+:class:`~.transformer.Transformer` and its slab
+:class:`~.transformer.KVCache`.  The reference's one fused ``lax.scan``
+program (``accelerate_tpu/models/generation.py:204``) is a Python loop over
+one decode step here, the cache written in place; on the card the step is
+one CUDA graph, replayed a token, and nothing in the loop waits for the
+card.  Lanes that emitted
+``eos_token_id`` emit ``pad_token_id`` from then on (static shapes).  This
+is the reference's one published benchmark workload: seconds per token,
+resident here and streamed by :class:`~accelerate_tpu_torch.big_modeling.
+StreamingTransformer` when the weights do not fit.
+
+The batched half: :class:`GenerationConfig`, :func:`filter_logits_batched`
+(temperature, then top-k, then top-p, per lane) and
+:func:`sample_tokens_batched`.  Greedy lanes take ``argmax`` — exact.
+Sampled lanes draw by inverse CDF
 from uniforms that a counter-based hash makes of each lane's key, a device
 row ``(seed, counter)`` (:func:`uniforms`), as the reference carries a
 device key per lane through its windows
@@ -14,17 +31,21 @@ its counter by a fixed number of draws, so a request's sampled tokens
 depend neither on the slot it lands in nor on its neighbours; no host state
 takes part, so a CUDA graph of a window replays the draws.  The hash works
 on 32-bit halves held in int64 tensors, whose products stay below 2^49: it
-gives the same bits on the CPU and the card.  JAX's threefry stream differs,
-so sampled tokens match the JAX package in distribution only.
+gives the same bits on the CPU and the card.  JAX's threefry stream differs
+(and Philox, the static half's generator, too), so sampled tokens match the
+JAX package in distribution only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from .transformer import KVCache, Transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +58,7 @@ class GenerationConfig:
     top_k: Optional[int] = None
     top_p: Optional[float] = None
     eos_token_id: Optional[int] = None
+    pad_token_id: int = 0
 
 
 def lane_key(rng_seed: int, rid: int) -> int:
@@ -128,3 +150,164 @@ def sample_tokens_batched(logits: torch.Tensor, u: torch.Tensor, sampled: torch.
     tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     lf = filter_logits_batched(logits, temperature=temperature, top_k=top_k, top_p=top_p)
     return torch.where(sampled, sample_filtered(lf, u), tokens)
+
+
+# ------------------------------------------------------------- static loop
+def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                  do_sample: bool = False, temperature: float = 1.0,
+                  top_k: Optional[int] = None, top_p: Optional[float] = None
+                  ) -> torch.Tensor:
+    """``[B, V]`` logits -> ``[B]`` int32 tokens (``accelerate_tpu/models/
+    generation.py:51``).  Greedy unless ``do_sample`` (and a temperature
+    above 0); sampling applies temperature, then top-k, then top-p, and
+    draws once a row from ``generator``."""
+    if not do_sample or temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if generator is None:
+        raise ValueError("do_sample=True needs an rng: pass a torch.Generator")
+    logits = logits.float() / max(temperature, 1e-6)
+    neg_inf = torch.finfo(torch.float32).min
+    if top_k is not None and top_k > 0:
+        kth = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # a slot is outside the nucleus when the mass before it already
+        # reaches top_p; the first slot is always kept
+        outside = (cum - probs) >= top_p
+        min_kept = torch.where(outside, torch.inf, sorted_desc).min(dim=-1, keepdim=True).values
+        logits = torch.where(logits < min_kept, neg_inf, logits)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def make_sampler(do_sample: bool = False, temperature: float = 1.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None):
+    """``(logits [B, V], generator) -> tokens [B]`` for fixed knobs
+    (``:160``)."""
+    return functools.partial(sample_tokens, do_sample=do_sample, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+
+def _apply(model: Transformer, params, input_ids: torch.Tensor, cache: KVCache):
+    """``model`` over ``input_ids`` with ``cache``, holding its own weights
+    (``params`` None) or the state dict ``params``."""
+    with torch.no_grad():
+        if params is None:
+            return model(input_ids, cache=cache)
+        return torch.func.functional_call(model, params, (input_ids,), {"cache": cache})
+
+
+def make_prefill_step(model: Transformer):
+    """``(params, input_ids [B, S], cache) -> (logits [B, S, V], cache)``: the
+    prompt written into the cache at each lane's index (``:178``).
+    ``params`` None runs the model's own weights."""
+
+    def prefill(params, input_ids, cache):
+        return _apply(model, params, input_ids, cache)
+
+    return prefill
+
+
+def make_decode_step(model: Transformer):
+    """``(params, tokens [B], cache) -> (logits [B, V], cache)``: one token a
+    lane (``:188``).  The cache is written in place, so a step costs the
+    weight reads and one row of the cache, not a copy of it."""
+
+    def decode(params, tokens, cache):
+        logits, cache = _apply(model, params, tokens[:, None], cache)
+        return logits[:, -1], cache
+
+    return decode
+
+
+def check_cache_room(used: int, prompt: int, max_new_tokens: int, max_len: int) -> None:
+    """Refuse a generation that would overrun the cache: a slab write past
+    its end is clamped onto the last rows, which would corrupt them."""
+    if used + prompt + max_new_tokens > max_len:
+        raise ValueError(
+            f"cache max_len {max_len} < {used} already written + prompt {prompt} "
+            f"+ max_new_tokens {max_new_tokens}; create the cache with "
+            f"max_len >= {used + prompt + max_new_tokens}")
+
+
+def make_graphed_decode_step(model: Transformer, params, tokens: torch.Tensor,
+                             cache: KVCache):
+    """The decode step on the card as one CUDA graph: ``step(tokens [B]) ->
+    logits [B, V]``, captured as the serving engine captures its windows
+    (:class:`~accelerate_tpu_torch.serving.graphs.WindowGraphs`) over
+    ``tokens``' copy and ``cache``: each replay writes the cache's K/V in
+    place and advances its index in place.  The warm-up before the capture
+    writes the rows the first replay writes again, and its index is put
+    back.  The logits are a static buffer, rewritten by the next replay."""
+    from ..serving.graphs import WindowGraphs
+
+    static, start = tokens.clone(), cache.index.clone()
+
+    def decode():
+        logits, new = _apply(model, params, static[:, None], cache)
+        cache.index.copy_(new.index)
+        return logits[:, -1]
+
+    graphs = WindowGraphs(tokens.device)
+    graphs.capture("decode", decode, reset=lambda: cache.index.copy_(start))
+
+    def step(tok: torch.Tensor) -> torch.Tensor:
+        static.copy_(tok)
+        return graphs.replay("decode")
+
+    return step
+
+
+def generate(model: Transformer, params, input_ids: torch.Tensor,
+             generation_config: Optional[GenerationConfig] = None,
+             generator: Optional[torch.Generator] = None, cache: Optional[KVCache] = None,
+             **overrides: Any):
+    """``max_new_tokens`` continuations of ``input_ids [B, S]`` (``:243``).
+
+    Returns ``(sequences [B, S + max_new_tokens], cache)``.  ``params`` is a
+    state dict for ``model`` (a shell on ``meta`` will do) or None for its
+    own weights, and the loop runs where they are; ``cache`` a warm
+    :class:`~.transformer.KVCache` to continue (each lane's index says how
+    much it holds), else a fresh one of ``S + max_new_tokens`` positions.
+    The final token is returned but never fed back, so the cache ends at
+    ``S + max_new_tokens - 1`` written positions.  On the card the decode
+    step replays one CUDA graph (:func:`make_graphed_decode_step`: the
+    kernels of :func:`make_decode_step`'s step, without the host's launch
+    time)."""
+    gen = generation_config or GenerationConfig()
+    if overrides:
+        gen = dataclasses.replace(gen, **overrides)
+    b, s = input_ids.shape
+    device = next(iter(params.values())).device if params else model.device
+    if cache is None:
+        cache = KVCache.create(model.config, b, s + gen.max_new_tokens, device=device)
+    else:
+        check_cache_room(int(cache.index.max()), s, gen.max_new_tokens, cache.k.shape[2])
+    input_ids = input_ids.to(device)
+    sample = make_sampler(gen.do_sample, gen.temperature, gen.top_k, gen.top_p)
+    logits, cache = make_prefill_step(model)(params, input_ids, cache)
+    tok = sample(logits[:, -1], generator)
+    done = (tok == gen.eos_token_id if gen.eos_token_id is not None
+            else torch.zeros_like(tok, dtype=torch.bool))
+    toks = [tok]
+    if gen.max_new_tokens > 1 and device.type == "cuda":
+        step = make_graphed_decode_step(model, params, tok, cache)
+    else:
+        eager = make_decode_step(model)
+
+        def step(t):
+            nonlocal cache
+            out, cache = eager(params, t, cache)
+            return out
+
+    for _ in range(gen.max_new_tokens - 1):
+        tok = torch.where(done, gen.pad_token_id, sample(step(tok), generator)).to(torch.int32)
+        if gen.eos_token_id is not None:
+            done = done | (tok == gen.eos_token_id)
+        toks.append(tok)
+    seq = torch.cat([input_ids, torch.stack(toks, dim=1).to(input_ids.dtype)], dim=1)
+    return seq, cache

@@ -1137,19 +1137,20 @@ def convert_hf_checkpoint(checkpoint: str, out_dir: Optional[str] = None,
     return out_dir
 
 
-def _placement(device, device_map) -> torch.device:
+def _placement(device, device_map) -> Optional[torch.device]:
     """The one device a load places on: ``device``, or the single device a
-    ``device_map`` names.  A map over several devices (or a placement
-    policy) is big-model dispatch, which the port has not ported."""
+    ``device_map`` names.  ``None`` for a placement policy (``"auto"``,
+    ``"balanced"``, ...) or a map spanning the card, ``"cpu"`` and
+    ``"disk"``: that load is big-model dispatch,
+    :func:`~accelerate_tpu_torch.big_modeling.load_checkpoint_and_dispatch`
+    (ROADMAP item 10a)."""
     if device_map is None:
         return resolve_device(device)
     if isinstance(device_map, dict):
         targets = {str(v) for v in device_map.values()}
-        if len(targets) == 1:
+        if len(targets) == 1 and targets != {"disk"}:
             return resolve_device(targets.pop())
-    raise NotImplementedError(
-        f"device_map={device_map!r} spans devices: big-model dispatch (big_modeling.py) "
-        "is not ported: ROADMAP Queue 1 item 10; pass device= for one device")
+    return None
 
 
 def place(host: Dict[str, torch.Tensor], device, dtype: Optional[torch.dtype] = None
@@ -1170,7 +1171,7 @@ def place(host: Dict[str, torch.Tensor], device, dtype: Optional[torch.dtype] = 
 def load_hf_checkpoint(checkpoint: str, device: Optional[Union[str, torch.device]] = None,
                        dtype: Optional[torch.dtype] = None,
                        config_overrides: Optional[Dict[str, Any]] = None,
-                       device_map=None) -> Tuple[Transformer, Dict[str, torch.Tensor]]:
+                       device_map=None, **dispatch_kwargs):
     """HF model dir (or a directory :func:`convert_hf_checkpoint` wrote) ->
     ``(model, state_dict)`` on one device (the card unless ``device="cpu"``;
     a ``device_map`` naming one device is accepted).  ``dtype`` casts the
@@ -1178,8 +1179,21 @@ def load_hf_checkpoint(checkpoint: str, device: Optional[Union[str, torch.device
     parameters and routers are f32 whatever the checkpoint holds, as the
     model keeps them.  With ``config_overrides={"quantization": 8}`` (or 4)
     the mapped weights are quantized on the host
-    (:func:`~accelerate_tpu_torch.ops.quantization.quantize_model_params`)."""
-    device = _placement(device, device_map)
+    (:func:`~accelerate_tpu_torch.ops.quantization.quantize_model_params`).
+
+    A ``device_map`` over the card, ``"cpu"`` and ``"disk"`` (or
+    ``"auto"``, ``"balanced"``, ``"balanced_low_0"``, ``"sharded"``) goes
+    through :func:`~accelerate_tpu_torch.big_modeling.
+    load_checkpoint_and_dispatch` (``dispatch_kwargs``: ``max_memory``,
+    ``offload_folder``) and returns the reference's ``(model, state dict,
+    device_map, loader)``, ``model`` a weightless shell on ``meta``: pass
+    the rest to :class:`~accelerate_tpu_torch.big_modeling.
+    StreamingTransformer` (``accelerate_tpu/models/hf_compat.py:1266``)."""
+    placement = _placement(device, device_map)
+    if placement is None:
+        return _dispatch_hf_checkpoint(checkpoint, device, dtype, config_overrides, device_map,
+                                       **dispatch_kwargs)
+    device = placement
     cfg = config_from_hf(checkpoint, **(config_overrides or {}))
     if os.path.isfile(os.path.join(checkpoint, "config.json")):
         _, mapping = native_key_map(checkpoint, cfg)
@@ -1195,3 +1209,19 @@ def load_hf_checkpoint(checkpoint: str, device: Optional[Union[str, torch.device
     model = Transformer(cfg, device="meta")
     model.load_state_dict(sd, assign=True)
     return model, sd
+
+
+def _dispatch_hf_checkpoint(checkpoint, device, dtype, config_overrides, device_map,
+                            **dispatch_kwargs):
+    from ..big_modeling import load_checkpoint_and_dispatch
+
+    cfg = config_from_hf(checkpoint, **(config_overrides or {}))
+    native = (convert_hf_checkpoint(checkpoint, dtype=dtype) if is_hf_checkpoint(checkpoint)
+              else checkpoint)
+    quantization = None if cfg.quantization is None else QuantizationConfig(
+        bits=cfg.quantization, block_size=cfg.quantization_block_size)
+    model = Transformer(cfg, device="meta")
+    params, device_map, loader = load_checkpoint_and_dispatch(
+        model, native, device_map=device_map, dtype=dtype, quantization=quantization,
+        device=device, **dispatch_kwargs)
+    return model, params, device_map, loader

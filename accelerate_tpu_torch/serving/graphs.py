@@ -16,7 +16,8 @@ a chunk's quantization error is cloned).
 
 Capture follows ``torch.cuda.graph``'s rules: one eager warm-up on a side
 stream first (it makes what the kernel wrappers make once: K1's arrival
-counters, cuBLAS handles), then the capture.  The kernels' launch counters
+counters, cuBLAS handles), then the capture, with Python's cyclic garbage
+collector off (``torch.cuda.graph`` no longer collects before it).  The kernels' launch counters
 advance during the warm-up and the capture as the wrappers run; both are
 taken back, the capture's count is kept with the graph, and each replay
 credits it (:func:`~accelerate_tpu_torch.ops.paged_attention.
@@ -28,6 +29,7 @@ card.  A capture that fails raises: nothing falls back to the eager window.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, Hashable, Tuple
 
 import torch
@@ -87,8 +89,16 @@ class WindowGraphs:
         stream.wait_stream(side)
         _set_counts(counts)                   # the warm-up is not the path's
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = fn()
+        # no cyclic collection inside the capture: it could free a dead
+        # engine's graphs or pinned buffers, whose CUDA calls invalidate it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = fn()
+        finally:
+            if collecting:
+                gc.enable()
         launches = tuple(a - b for a, b in zip(_counts(), counts))
         _set_counts(counts)
         reset()

@@ -41,12 +41,13 @@ import collections
 import math
 import os
 import time
-import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from .offload import pinned_host_buffer
 
 # Per parameter element the streamed chunk holds master + two f32 moments
 # plus the transient update: 12 bytes an element when sizing groups.
@@ -225,20 +226,17 @@ def _apply_delta(working: torch.Tensor, master: torch.Tensor) -> None:
 
 
 # ------------------------------------------------------------ chunk stores
-def _unregister(buf: torch.Tensor) -> None:
-    torch.cuda.cudart().cudaHostUnregister(buf.data_ptr())
-
-
 class HostChunkStore:
     """Every chunk's state in one pinned host buffer, each chunk a slice of
     it (pageable on a CPU-only build, where the device is the host).
 
     The buffer is plain host memory page-locked with ``cudaHostRegister``,
-    exactly its size: ``pin_memory=True`` goes through torch's caching host
-    allocator, which rounds each request up to a power of two (a 75 GiB
+    exactly its size (:func:`~accelerate_tpu_torch.utils.offload.
+    pinned_host_buffer`): ``pin_memory=True`` goes through torch's caching
+    host allocator, which rounds each request up to a power of two (a 75 GiB
     state would ask for 128; 512 MB chunks plus their alignment would each
     take a 1 GiB block) and keeps freed blocks cached.  The registration is
-    undone, and the memory freed, when the store is collected."""
+    undone, and the memory freed, when the buffer is."""
 
     def __init__(self, pin: bool):
         self.pin = pin
@@ -254,16 +252,11 @@ class HostChunkStore:
     def commit(self) -> None:
         # zero-filled (a parallel fill, which faults the pages in faster
         # than the registration does; the alignment padding is then zeros)
-        self.buffer = torch.zeros(max(self.total, 1), dtype=torch.uint8)
-        if self.pin:
-            err = torch.cuda.cudart().cudaHostRegister(self.buffer.data_ptr(),
-                                                       self.buffer.numel(), 0)
-            if int(err) != 0:
-                raise RuntimeError(f"cudaHostRegister of the {self.total / 1e9:.2f} GB "
-                                   f"optimizer state failed: {err} (the host's locked-memory "
-                                   "limit, or its free memory); use the nvme tier "
-                                   "(offload_optimizer_nvme_path) instead")
-            weakref.finalize(self, _unregister, self.buffer)
+        try:
+            self.buffer = pinned_host_buffer(self.total, pin=self.pin)
+        except RuntimeError as e:
+            raise RuntimeError(f"the optimizer state: {e}; use the nvme tier "
+                               "(offload_optimizer_nvme_path) instead") from e
 
     def read(self, i: int) -> torch.Tensor:
         start, n = self.offsets[i]

@@ -257,12 +257,34 @@ Phases, each printing one JSON line:
    (1.71 B parameters), ``train``'s loop and path check, K3-K5 one launch
    each a micro-step; the router's aux loss finite and in the loss (cross
    entropy plus the coefficient times the collected aux).
+7b. big-model inference (on the serving model, then models of their own):
+   ``generate`` (Llama-2-7B resident: one greedy call of 32 new tokens for
+   each of 4 prompts of 64-512 tokens, the decode step replayed as a CUDA
+   graph; tokens equal to an eager ``make_prefill_step``/``make_decode_step``
+   loop's, every step's logits within the ``model`` line's margin of the
+   no-cache forward; s/token and ms a step, graphed and eager, beside the
+   weight bound), ``stream_offload`` (the same weights under ``cpu_offload``
+   in one pinned host block, 16 tokens through ``StreamingTransformer``:
+   prefill logits bitwise the resident model's, tokens equal to
+   ``generate``'s; s/token, streamed GB/s, the card memory it adds, and the
+   bound from the H2D rate of one pinned 1 GiB copy), ``stream_disk``
+   (Llama-2-7B width at 4 layers, 2 of them in ``.dat`` files: tokens equal
+   to the resident twin's), ``stream_forward`` (4 layers at
+   ``attention_impl="pallas"``, 2 x 2048 tokens: logits bitwise the
+   resident forward's, K3 exactly once a layer, K3 held against its plain
+   version at that shape) and ``big_mixtral`` (Mixtral-8x7B in bf16, 93.4
+   GB, drawn by ``init_params(device_map=...)`` with 20 layers on the card
+   and 12 on pinned host under ``max_memory={0: 60e9, ...}``: 8 greedy
+   tokens and the last logits identical to a run whose map swaps layers
+   0-1 with 20-21; peak card memory under 80 GB, pinned bytes, s/token
+   beside the bound).
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
    their engine runs; K1 and K2 also with ``engine_prefix``'s,
    ``engine_neox``'s and ``engine_gpt2``'s launches,
-   K3-K5 also with ``train_api``'s; each head dim past 64 and 128 its own
+   K3-K5 also with ``train_api``'s, K3 with ``stream_forward``'s; each head
+   dim past 64 and 128 its own
    entry: K1 and K2 at D 256 on ``engine_gemma``, D 80 on ``engine_phi2``,
    D 96 on ``families``' ``phi3_d96``; K3-K5 at D 256 on ``train_gemma``,
    at D 80, 96, 32 and 16 on their own kernel cases; ``launches_on`` names
@@ -2943,6 +2965,353 @@ def engine_fp8_model_phase(gpu, rng, prompts) -> dict:
     return launches
 
 
+# -------------------------------------------------------- big-model inference
+GEN_LENS = (64, 192, 320, 512)  # the generate line's prompts, one call each
+GEN_NEW = 32
+STREAM_NEW = 16
+STREAM_LAYERS = 4  # stream_disk's and stream_forward's depth, at Llama-2-7B width
+MIXTRAL_CARD_BUDGET = 60e9  # max_memory[0] of big_mixtral: the card's weights
+MIXTRAL_PROMPT, MIXTRAL_NEW = 128, 8
+
+
+def model_bytes(sd) -> int:
+    return sum(t.numel() * t.element_size() for t in sd.values())
+
+
+def h2d_gb_per_s(nbytes: int = 1 << 30, reps: int = 8) -> float:
+    """The host-to-card rate of one pinned (``cudaHostRegister``ed) copy of
+    ``nbytes``: the fastest of ``reps`` copies, each between CUDA events,
+    after a warm-up (the least time the link took, the basis of a bound)."""
+    from accelerate_tpu_torch.utils.offload import pinned_host_buffer
+
+    host = pinned_host_buffer(nbytes)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dev.copy_(host, non_blocking=True)
+    best = float("inf")
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return nbytes / best / 1e9
+
+
+def timed(fn):
+    """``(fn(), seconds)``, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def manual_greedy(prefill, decode, ids, steps):
+    """Greedy tokens and each step's last-position logits from a prefill
+    callable and a one-token decode callable, ``steps`` tokens."""
+    logits = prefill(ids)
+    rows, toks = [logits[:, -1]], []
+    for _ in range(steps):
+        toks.append(rows[-1].argmax(-1).to(torch.int32))
+        if len(toks) == steps:
+            break
+        rows.append(decode(toks[-1])[:, -1])
+    return torch.stack(toks, 1), rows, logits
+
+
+def generate_phase(model, cfg, rng, gpu, tol) -> None:
+    """``generate``: Llama-2-7B resident on the card, one greedy call of 32
+    new tokens for each of 4 prompts of 64-512 tokens (the static loop
+    runs one batch of equal-length prompts; the reference's benchmark
+    generates prompt by prompt).  Each call's tokens must equal a manual
+    ``make_prefill_step``/``make_decode_step`` loop's (``generate`` replays
+    its decode step as a CUDA graph, the loop runs it eagerly), and every
+    step's logits (the prompt's, then each decode step's) lie within
+    ``tol`` (the ``model`` line's margin) of the no-cache forward of the
+    same sequence.  s/token (the call's wall over its new tokens, prefill
+    and capture included) and the decode step's ms, graphed and eager
+    (CUDA events around 8 steps), beside the bound: every weight read once
+    a step at the HBM rate."""
+    from accelerate_tpu_torch.models import generation as gen
+    from accelerate_tpu_torch.models.transformer import KVCache
+
+    weights = model_bytes(model.state_dict())
+    bound_ms = 1e3 * weights / HBM_BYTES_PER_S
+    prefill, decode = gen.make_prefill_step(model), gen.make_decode_step(model)
+    calls = []
+    for n in GEN_LENS:
+        ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, n)).astype(np.int64)).cuda()
+        gen.generate(model, None, ids[:, :8], max_new_tokens=2)  # warm-up
+        (seq, _), wall = timed(lambda: gen.generate(model, None, ids, max_new_tokens=GEN_NEW))
+        # room for the loop and the timed steps after it (eager, then graphed)
+        cache = KVCache.create(cfg, 1, n + GEN_NEW + 24, device="cuda")
+        box = [cache]
+
+        def pre(x):
+            logits, box[0] = prefill(None, x, box[0])
+            return logits
+
+        def dec(tok):
+            logits, box[0] = decode(None, tok, box[0])
+            return logits[:, None]
+
+        (toks, rows, prompt_logits), _ = timed(lambda: manual_greedy(pre, dec, ids, GEN_NEW))
+        eager_ms = decode_step_ms(dec, toks[:, -1], 8)
+        graphed = gen.make_graphed_decode_step(model, None, toks[:, -1], box[0])
+        decode_ms = decode_step_ms(graphed, toks[:, -1], 8)
+        check(torch.equal(seq[:, n:].to(torch.int32), toks),
+              f"generate: prompt {n}: tokens differ from the manual prefill/decode loop")
+        ref = no_cache_logits(model, seq[0, :-1].cpu().numpy().astype(np.int32))
+        steps = torch.cat([prompt_logits[0], torch.stack([r[0] for r in rows[1:]])])
+        err = (steps - ref).abs().max().item()
+        calls.append({"prompt": n, "new_tokens": GEN_NEW, "wall_s": wall,
+                      "s_per_token": wall / GEN_NEW, "decode_ms_per_step": decode_ms,
+                      "eager_decode_ms_per_step": eager_ms, "max_abs_logit_err": err})
+        check(err <= tol, f"generate: prompt {n}: logits differ from the no-cache forward by "
+              f"{err} > {tol}")
+    emit({"phase": "generate", "gpu": gpu, "calls": calls, "tolerance": tol,
+          "s_per_token": sum(c["wall_s"] for c in calls) / (GEN_NEW * len(calls)),
+          "decode_ms_per_step": float(np.median([c["decode_ms_per_step"] for c in calls])),
+          "eager_decode_ms_per_step": float(np.median([c["eager_decode_ms_per_step"]
+                                                       for c in calls])),
+          "weights_gb": weights / 1e9, "bound_ms_per_step": bound_ms, "bound_by": "bytes"})
+
+
+def decode_step_ms(dec, tok, reps: int) -> float:
+    """ms of one more decode step (CUDA events around ``reps`` of them)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dec(tok)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stream_offload_phase(model, cfg, rng, gpu) -> None:
+    """``stream_offload``: the same model under ``cpu_offload`` (all 13.5 GB
+    in one pinned host block, the two stream buffers on the card), one
+    prompt of 512 tokens, 16 greedy tokens through
+    ``StreamingTransformer.generate``.  The prefill logits must be bitwise
+    the resident model's on the same cache, and the tokens equal the
+    resident ``generate``'s.  s/token, the streamed GB/s (bytes copied over
+    the wall), the card memory the streaming adds beyond the model already
+    on it (the peak from the streamer's creation through the prefill check
+    and the generation, less what was allocated before: the two buffers,
+    the cache and the activations), and the bound: the host bytes over the H2D
+    rate this run measures on one pinned 1 GiB copy."""
+    from accelerate_tpu_torch.big_modeling import StreamingTransformer, cpu_offload
+    from accelerate_tpu_torch.models import generation as gen
+    from accelerate_tpu_torch.models.transformer import KVCache
+
+    rate = h2d_gb_per_s()
+    (placed, loader), place_s = timed(lambda: cpu_offload(model.state_dict()))
+    host_bytes = model_bytes(placed)
+    check(all(t.is_pinned() for t in placed.values()), "cpu_offload: a weight is not pinned")
+    free_card()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = StreamingTransformer(cfg, placed, weights_loader=loader)
+    n = GEN_LENS[-1]
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, n)).astype(np.int64)).cuda()
+    kinds = [st._resolve(i).kind for i in range(len(st.plan))]
+    check(set(kinds) == {"pinned"}, f"stream_offload: stage kinds {set(kinds)}, want pinned")
+    cache = st.init_cache(1, n)
+    logits, _ = st.forward_with_cache(ids, cache)
+    with torch.inference_mode():
+        ref, _ = model(ids, cache=KVCache.create(cfg, 1, n, device="cuda"))
+    diff = (logits - ref).abs().max().item()
+    check(torch.equal(logits, ref), f"stream_offload: prefill logits differ from the resident "
+          f"model's by up to {diff}")
+    seq, wall = timed(lambda: st.generate(ids, max_new_tokens=STREAM_NEW))
+    extra = torch.cuda.max_memory_allocated() - start
+    want, _ = gen.generate(model, None, ids, max_new_tokens=STREAM_NEW)
+    check(torch.equal(seq, want.cpu()), "stream_offload: tokens differ from generate's")
+    emit({"phase": "stream_offload", "gpu": gpu, "prompt": n, "new_tokens": STREAM_NEW,
+          "host_gb": host_bytes / 1e9, "place_s": place_s, "wall_s": wall,
+          "s_per_token": wall / STREAM_NEW,
+          "streamed_gb_per_forward": st.last_bytes_streamed / 1e9,
+          "streamed_gb_per_s": st.last_bytes_streamed * STREAM_NEW / wall / 1e9,
+          "h2d_gb_per_s_pinned_1gib": rate, "bound_s_per_token": host_bytes / 1e9 / rate,
+          "bound_by": "bytes", "peak_card_gb_beyond_start": extra / 1e9,
+          "slot_gb": 2 * st._slots[0].numel() / 1e9,
+          "prefill_logits_bitwise": True})
+    del st, placed, loader
+    free_card()
+
+
+def stream_disk_phase(gpu) -> None:
+    """``stream_disk``: Llama-2-7B width at 4 layers (random bf16 weights,
+    seed 1), layers 2 and 3 in ``disk_offload``'s ``.dat`` files (written
+    just before: the reads hit a warm page cache), the rest on the card;
+    a 128-token prompt, 16 greedy tokens, identical to the resident twin's
+    ``generate``.  s/token and the GB/s of the mapped stages."""
+    from accelerate_tpu_torch.big_modeling import StreamingTransformer, dispatch_params
+    from accelerate_tpu_torch.models import generation as gen
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.weights import init_params
+
+    cfg = TransformerConfig.llama2_7b(num_layers=STREAM_LAYERS, dtype=torch.bfloat16)
+    sd = init_params(cfg, seed=1, device="cuda", dtype=torch.bfloat16)
+    model = Transformer(cfg, device="meta", dtype=torch.bfloat16)
+    model.load_state_dict(sd, assign=True)
+    dm = {"embed_tokens": 0, "final_norm": 0, "lm_head": 0,
+          **{f"layers.{i}": ("disk" if i >= 2 else 0) for i in range(STREAM_LAYERS)}}
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (1, 128)).astype(np.int64)).cuda()
+    want, _ = gen.generate(model, None, ids, max_new_tokens=STREAM_NEW)
+    folder = tempfile.mkdtemp(prefix="stream_disk_")
+    try:
+        (placed, loader), write_s = timed(lambda: dispatch_params(sd, dm, offload_folder=folder))
+        disk_bytes = sum(loader[k].numel() * loader[k].element_size() for k in loader.index)
+        st = StreamingTransformer(cfg, placed, dm, loader)
+        kinds = [st._resolve(i).kind for i in range(len(st.plan))]
+        check(kinds.count("mapped") == 2, f"stream_disk: stage kinds {kinds}")
+        seq, wall = timed(lambda: st.generate(ids, max_new_tokens=STREAM_NEW))
+        check(torch.equal(seq, want.cpu()), "stream_disk: tokens differ from the resident "
+              "twin's")
+        emit({"phase": "stream_disk", "gpu": gpu, "layers": STREAM_LAYERS, "disk_layers": 2,
+              "disk_gb": disk_bytes / 1e9, "write_s": write_s, "wall_s": wall,
+              "s_per_token": wall / STREAM_NEW,
+              "streamed_gb_per_s": st.last_bytes_streamed * STREAM_NEW / wall / 1e9,
+              "page_cache": "warm (the files were just written)"})
+        del st, placed, loader
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    del model, sd
+    free_card()
+
+
+def stream_forward_phase(gpu) -> dict:
+    """``stream_forward``: the streamed no-cache forward at
+    ``attention_impl="pallas"`` (Llama-2-7B width, 4 layers, every module on
+    pinned host), 2 x 2048 tokens: logits bitwise the resident model's at
+    the same setting, K3 launched exactly once a layer, counted over the
+    streamed forward alone; K3 held against its plain version at that
+    shape (``flash_case``).  Returns K3's launches on the path."""
+    from accelerate_tpu_torch.big_modeling import StreamingTransformer, cpu_offload
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.weights import init_params
+
+    cfg = TransformerConfig.llama2_7b(num_layers=STREAM_LAYERS, dtype=torch.bfloat16,
+                                      attention_impl="pallas")
+    sd = init_params(cfg, seed=2, device="cuda", dtype=torch.bfloat16)
+    model = Transformer(cfg, device="meta", dtype=torch.bfloat16)
+    model.load_state_dict(sd, assign=True)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (2, 2048)).astype(np.int64)).cuda()
+    with torch.inference_mode():
+        ref, resident_s = timed(lambda: model(ids))
+    placed, loader = cpu_offload(sd)
+    st = StreamingTransformer(cfg, placed, weights_loader=loader)
+    st(ids[:, :64])  # warm-up
+    fa.reset_launch_counts()
+    out, wall = timed(lambda: st(ids))
+    launches = fa.flash_fwd.launches
+    diff = (out - ref).abs().max().item()
+    check(torch.equal(out, ref), f"stream_forward: logits differ from the resident forward's "
+          f"by up to {diff}")
+    check(launches == STREAM_LAYERS, f"stream_forward: K3 launched {launches} times, want "
+          f"{STREAM_LAYERS} (one a layer)")
+    k3 = flash_case("stream_forward", 430, 2, 2048, 32, 32, torch.bfloat16, True, False)["k3"]
+    emit({"phase": "stream_forward", "gpu": gpu, "layers": STREAM_LAYERS, "tokens": 2 * 2048,
+          "flash_fwd_launches": launches, "wall_s": wall, "resident_s": resident_s,
+          "streamed_gb": st.last_bytes_streamed / 1e9,
+          "streamed_gb_per_s": st.last_bytes_streamed / wall / 1e9,
+          "logits_bitwise": True, "k3_max_abs_err": k3["max_abs_err"],
+          "k3_tolerance": k3["tolerance"]})
+    del st, placed, loader, model, sd
+    free_card()
+    return {"flash_fwd": launches}
+
+
+def mixtral_run(cfg, device_map, ids):
+    """Mixtral drawn by ``init_params(device_map=...)`` and run by
+    ``StreamingTransformer``: the greedy tokens, the last step's logits, the
+    wall of the prefill and decode loop, the pinned host bytes and the
+    peak card memory."""
+    from accelerate_tpu_torch.big_modeling import StreamingTransformer
+    from accelerate_tpu_torch.weights import init_params
+
+    free_card(host=True)
+    torch.cuda.reset_peak_memory_stats()
+    sd, init_s = timed(lambda: init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16,
+                                           device_map=device_map))
+    host = sum(t.numel() * t.element_size() for t in sd.values() if t.device.type == "cpu")
+    st = StreamingTransformer(cfg, sd, device_map)
+    box = [st.init_cache(1, MIXTRAL_PROMPT + MIXTRAL_NEW)]
+
+    def pre(x):
+        logits, box[0] = st.forward_with_cache(x, box[0])
+        return logits
+
+    def dec(tok):
+        logits, box[0] = st.forward_with_cache(tok[:, None], box[0])
+        return logits
+
+    (toks, rows, _), wall = timed(lambda: manual_greedy(pre, dec, ids, MIXTRAL_NEW))
+    out = dict(tokens=toks.cpu(), last=rows[-1].float().cpu(), wall_s=wall, init_s=init_s,
+               host_bytes=host, card_weight_bytes=model_bytes(sd) - host,
+               peak=torch.cuda.max_memory_allocated(), streamed=st.last_bytes_streamed)
+    del st, sd, box
+    free_card(host=True)
+    return out
+
+
+def big_mixtral_phase(gpu) -> None:
+    """``big_mixtral``: Mixtral-8x7B (``hf_compat.MIXTRAL_8X7B``) in bf16, 93.4
+    GB, larger than the card: ``infer_auto_device_map`` over
+    ``init_empty_weights`` under ``max_memory={0: 60e9, "cpu": ...}`` (the
+    default budget's 10 % reserve has no room for the two stream buffers)
+    puts the embeddings, the final norm and 20 layers on the card and 12
+    layers and the head on pinned host; ``init_params(device_map=...)``
+    draws it; one prompt of 128 tokens and 8 greedy tokens streamed.  A
+    second run whose map moves layers 0 and 1 to the host and 20 and 21 to
+    the card must give the same tokens and last logits.  Peak card memory
+    (under 80 GB), pinned host bytes and s/token beside the bound: the
+    host bytes over the H2D rate of one pinned 1 GiB copy, measured here,
+    plus the card's weights over the HBM rate."""
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+    from accelerate_tpu_torch.models import hf_compat
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes, infer_auto_device_map
+
+    cfg = hf_compat.config_from_hf_dict(hf_compat.MIXTRAL_8X7B, dtype=torch.bfloat16)
+    shapes = init_empty_weights(cfg)
+    total = compute_module_sizes(shapes)[""]
+    dm = infer_auto_device_map(shapes, {0: MIXTRAL_CARD_BUDGET, "cpu": 10**12}, num_devices=1)
+    card_layers = [m for m, d in dm.items() if m.startswith("layers.") and d == 0]
+    check(len(card_layers) == 20 and dm["lm_head"] == "cpu",
+          f"big_mixtral: {len(card_layers)} layers on the card, want 20")
+    moved = {**dm, "layers.0": "cpu", "layers.1": "cpu", "layers.20": 0, "layers.21": 0}
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (1, MIXTRAL_PROMPT)).astype(np.int64)).cuda()
+    rate = h2d_gb_per_s()
+    first = mixtral_run(cfg, dm, ids)
+    second = mixtral_run(cfg, moved, ids)
+    check(torch.equal(first["tokens"], second["tokens"]),
+          "big_mixtral: tokens depend on the placement")
+    diff = (first["last"] - second["last"]).abs().max().item()
+    check(diff == 0.0, f"big_mixtral: last logits differ by {diff} between placements")
+    bound = first["host_bytes"] / 1e9 / rate + first["card_weight_bytes"] / HBM_BYTES_PER_S
+    forwards = MIXTRAL_NEW  # the prefill and 7 decode steps
+    emit({"phase": "big_mixtral", "gpu": gpu, "source": "mistralai/Mixtral-8x7B-v0.1 "
+          "config.json", "dtype": "bfloat16", "weights_gb": total / 1e9,
+          "card_budget_gb": MIXTRAL_CARD_BUDGET / 1e9, "card_layers": len(card_layers),
+          "card_weights_gb": first["card_weight_bytes"] / 1e9,
+          "pinned_host_gb": first["host_bytes"] / 1e9, "init_s": first["init_s"],
+          "prompt": MIXTRAL_PROMPT, "new_tokens": MIXTRAL_NEW, "wall_s": first["wall_s"],
+          "s_per_token": first["wall_s"] / forwards,
+          "streamed_gb_per_forward": first["streamed"] / 1e9,
+          "streamed_gb_per_s": first["streamed"] * forwards / first["wall_s"] / 1e9,
+          "h2d_gb_per_s_pinned_1gib": rate, "bound_s_per_token": bound, "bound_by": "bytes",
+          "peak_card_gb": first["peak"] / 1e9, "moved_peak_card_gb": second["peak"] / 1e9,
+          "moved_s_per_token": second["wall_s"] / forwards,
+          "placement_independent": True})
+    check(max(first["peak"], second["peak"]) < 80e9, "big_mixtral: peak card memory over 80 GB")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3137,8 +3506,14 @@ def main() -> int:
                  spec=dict(speculate_k=4))
     prefix_launches, shared_prompts = prefix_phases(model, cfg, rng, gpu)
     slab_phases(model, cfg, gpu, tol, prompts, spec_prompts, shared_prompts)
+    # big-model inference: the static generate loop on the resident model,
+    # then the same weights streamed from pinned host memory
+    generate_phase(model, cfg, rng, gpu, tol)
+    stream_offload_phase(model, cfg, rng, gpu)
     del model
     free_card()
+    stream_disk_phase(gpu)
+    stream_launches = stream_forward_phase(gpu)
     # the other families: one 7B model on the card at a time; Gemma-7B (16
     # heads of D 256) and Phi-2 (32 of D 80) through K1's and K2's new arms
     family_launches = {"engine_neox": hf_phases(gpu, "neox"), "engine_gpt2": gpt2_phase(gpu)}
@@ -3149,6 +3524,8 @@ def main() -> int:
     # weight-only quantization: Mixtral-8x7B in int8 (MoE, GQA 32/8), then
     # Llama-2-7B in int4
     family_launches["engine_mixtral"] = mixtral_phases(gpu)
+    # Mixtral-8x7B in bf16 (93.4 GB): 20 layers on the card, 12 streamed
+    big_mixtral_phase(gpu)
     family_launches["engine_int4"] = int4_phases(gpu)
     # an fp8 model served (its decode windows' M = 4 lanes, padded in the product)
     family_launches["engine_fp8_model"] = engine_fp8_model_phase(gpu, rng, prompts)
@@ -3263,6 +3640,9 @@ def main() -> int:
             # the other families' engines, their counts zeroed just before
             if name in counts:
                 kernels[-1]["launches_" + line] = counts[name]
+        if name in stream_launches:
+            # the streamed no-cache forward, its counts zeroed just before
+            kernels[-1]["launches_stream_forward"] = stream_launches[name]
         if name in api_launches:
             # the reference loop's path, its counts zeroed just before its calls
             kernels[-1]["launches_train_api"] = api_launches[name]

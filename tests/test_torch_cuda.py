@@ -1645,3 +1645,154 @@ def test_fp8_model_engine_graphs_match_sync_eager(card):
     eager = ServingEngine._eager(model, sd, async_depth=0, **kw)
     assert graphed[0] == graphed[1]
     assert graphed[0] == [r.tokens for r in eager.serve(prompts, configs=gen)]
+
+
+# ----------------------------------------------------- big-model inference
+def _stream_model(card, layers=2):
+    """A 2-layer bf16 model at hidden 1024 on the card, random weights."""
+    cfg = TransformerConfig(vocab_size=4096, hidden_size=1024, intermediate_size=2816,
+                            num_layers=layers, num_heads=8, num_kv_heads=4, max_seq_len=1024,
+                            dtype=torch.bfloat16)
+    sd = init_params(cfg, seed=3, device=card)
+    model = Transformer(cfg, device="meta", dtype=torch.bfloat16)
+    model.load_state_dict(sd, assign=True)
+    return cfg, sd, model
+
+
+@pytest.mark.parametrize("where", ["pinned", "packed", "mapped", "mixed"])
+def test_streamed_model_bitwise_resident(card, where, tmp_path):
+    """The streamed forward, its prefill and three decode steps, bitwise the
+    resident model's on the card, whichever way the weights travel: one
+    pinned block (``cpu_offload``), packed snapshots of pageable tensors,
+    ``.dat`` memory maps through the staging buffer, or a map mixing the
+    card, the host and the disk."""
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.models.transformer import KVCache
+
+    cfg, sd, model = _stream_model(card)
+    if where == "pinned":
+        placed, loader = bm.cpu_offload(sd)
+    elif where == "packed":
+        placed, loader = {k: v.cpu() for k, v in sd.items()}, None
+    elif where == "mapped":
+        placed, loader = bm.disk_offload(sd, str(tmp_path))
+    else:
+        dm = {"embed_tokens": 0, "layers.0": "cpu", "layers.1": "disk", "final_norm": "cpu",
+              "lm_head": 0}
+        placed, loader = bm.dispatch_params(sd, dm, offload_folder=str(tmp_path))
+    st = bm.StreamingTransformer(cfg, placed, weights_loader=loader)
+    kinds = {st._resolve(i).kind for i in range(len(st.plan))}
+    assert kinds == ({"resident", "pinned", "mapped"} if where == "mixed" else {where})
+    gen = torch.Generator(device=card).manual_seed(0)
+    ids = torch.randint(1, cfg.vocab_size, (2, 96), device=card, generator=gen)
+    with torch.inference_mode():
+        assert torch.equal(st(ids), model(ids))
+    cache, ref = st.init_cache(2, 100), KVCache.create(cfg, 2, 100, device=card)
+    for step in range(4):
+        logits, cache = st.forward_with_cache(ids, cache)
+        with torch.inference_mode():
+            want, ref = model(ids, cache=ref)
+        assert torch.equal(logits, want), step
+        ids = logits[:, -1].argmax(-1)[:, None]
+
+
+@pytest.mark.parametrize("kind", ["pinned", "packed", "mapped"])
+def test_double_buffer_never_reads_stale_weights(card, kind, tmp_path):
+    """Six stages through the two device buffers with every copy held back
+    by a spin kernel on the copy stream, and every stage's compute held
+    back before it reads its weights: a compute that did not wait for its
+    copy would read the stage before last's weights, and a copy that did
+    not wait for the compute would overwrite them under it.  Each stage
+    multiplies by its own constant: the product is exact only if every
+    stage saw its own."""
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.utils.offload import (OffloadedWeightsLoader,
+                                                    offload_state_dict, pinned_host_views)
+
+    n, width = 6, 256
+    weights = {f"m{i}.w": torch.full((width, width), float(i + 1)) for i in range(n)}
+    loader = None
+    if kind == "pinned":
+        views = pinned_host_views({k: (tuple(v.shape), v.dtype) for k, v in weights.items()})
+        for k, v in weights.items():
+            views[k].copy_(v)
+        params = views
+    elif kind == "packed":
+        params = weights
+    else:
+        offload_state_dict(str(tmp_path), weights)
+        params, loader = {}, OffloadedWeightsLoader(save_folder=str(tmp_path))
+
+    def stage(p, x):
+        torch.cuda._sleep(20_000_000)  # the compute starts late ...
+        return (x @ p["w"]) / width
+
+    ex = bm.StreamingExecutor([(f"m{i}", stage) for i in range(n)], params=params,
+                              weights_loader=loader)
+    issue = ex._issue
+
+    def slow_issue(st, s):
+        with torch.cuda.stream(ex._copy_stream):
+            torch.cuda._sleep(20_000_000)  # ... and every copy later still
+        issue(st, s)
+
+    ex._issue = slow_issue
+    for _ in range(3):
+        out = ex(torch.ones(4, width, device=card))
+        assert torch.equal(out, torch.full((4, width), 720.0, device=card))
+    assert {ex._resolve(i).kind for i in range(n)} == {kind}
+
+
+def test_pinned_host_buffer_is_pinned(card):
+    from accelerate_tpu_torch.utils.offload import pinned_host_buffer
+
+    buf = pinned_host_buffer(1 << 20)
+    assert buf.is_pinned() and buf[256:4096].view(torch.float32).is_pinned()
+    dev = torch.empty(1 << 20, dtype=torch.uint8, device=card)
+    dev.copy_(buf.fill_(7), non_blocking=True)
+    assert int(dev.sum()) == 7 << 20
+
+
+def test_find_executable_batch_size_halves_on_a_real_oom(card):
+    """A real ``torch.cuda.OutOfMemoryError`` halves the batch: a batch of
+    4 asks for the card's whole memory, 2 for half of it."""
+    from accelerate_tpu_torch.utils.memory import find_executable_batch_size
+
+    torch.cuda.empty_cache()
+    unit = torch.cuda.get_device_properties(card).total_memory // 4
+    tried = []
+
+    @find_executable_batch_size(starting_batch_size=64)
+    def run(batch_size):
+        tried.append(batch_size)
+        x = torch.empty(batch_size * unit, dtype=torch.uint8, device=card)
+        x.fill_(1)
+        return batch_size
+
+    got = run()
+    assert got in (1, 2) and tried == [64 >> i for i in range(len(tried))] and tried[-1] == got
+
+
+def test_generate_graph_replays_the_eager_step(card):
+    """``generate``'s decode step replayed as a CUDA graph: the tokens, the
+    cache's rows and its index equal an eager ``make_prefill_step`` /
+    ``make_decode_step`` loop's, on a warm cache too."""
+    from accelerate_tpu_torch.models import generation as gen
+    from accelerate_tpu_torch.models.transformer import KVCache
+
+    cfg, sd, model = _stream_model(card)
+    g = torch.Generator(device=card).manual_seed(1)
+    ids = torch.randint(1, cfg.vocab_size, (2, 40), device=card, generator=g)
+    graphed = KVCache.create(cfg, 2, 80, device=card)
+    eager = KVCache.create(cfg, 2, 80, device=card)
+    prefill, decode = gen.make_prefill_step(model), gen.make_decode_step(model)
+    for prompt, new in ((ids, 12), (ids[:, :5], 9)):
+        seq, graphed = gen.generate(model, None, prompt, max_new_tokens=new, cache=graphed)
+        logits, eager = prefill(None, prompt, eager)
+        toks = [logits[:, -1].argmax(-1)]
+        for _ in range(new - 1):
+            logits, eager = decode(None, toks[-1], eager)
+            toks.append(logits.argmax(-1))
+        assert torch.equal(seq[:, prompt.shape[1]:], torch.stack(toks, 1))
+    assert graphed.index.tolist() == eager.index.tolist() == [64, 64]
+    assert torch.equal(graphed.k, eager.k) and torch.equal(graphed.v, eager.v)

@@ -333,11 +333,17 @@ def test_mixtral_maps_its_config_and_the_port_refuses_moe(tmp_path):
 
 
 def test_placement_refusals(saved, tmp_path):
+    """A map spanning the card, ``"cpu"`` and ``"disk"`` is big-model
+    dispatch (``big_modeling``, item 10a; ``tests/test_torch_big_modeling.py``
+    loads such maps); a second card is item 9e, and a map that leaves a
+    module out is refused."""
     path, _ = saved("llama")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        hf_compat.load_hf_checkpoint(path, device_map={"layers.0": "cpu", "layers.1": "cuda:1"})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        hf_compat.load_hf_checkpoint(path, device_map="auto")
+    full = {m: "cpu" for m in ("embed_tokens", "layers.0", "layers.1", "final_norm", "lm_head")}
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9e"):
+        hf_compat.load_hf_checkpoint(path, device="cpu", device_map={**full, "layers.1": "cuda:1"})
+    with pytest.raises(ValueError, match="does not cover"):
+        hf_compat.load_hf_checkpoint(path, device="cpu",
+                                     device_map={"layers.0": "cpu", "layers.1": 0})
     model, _ = hf_compat.load_hf_checkpoint(path, device_map={"": "cpu"})
     assert model.device == torch.device("cpu")
     assert not hf_compat.is_hf_checkpoint(str(tmp_path))
