@@ -110,7 +110,7 @@ _UNPORTED_ARGS = {
     "megatron_lm_plugin": f"tensor/pipeline/sequence parallelism: {_PARALLEL}",
     "mesh": f"device meshes: {_PARALLEL}",
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
-    "metrics_port": "the metrics endpoint: ROADMAP Queue 1 item 8 (telemetry/)",
+    "metrics_port": "the training telemetry and its metrics endpoint: ROADMAP Queue 1 item 8a-ii",
 }
 
 

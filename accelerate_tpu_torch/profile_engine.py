@@ -50,7 +50,7 @@ from .models.generation import GenerationConfig
 from .models.hf_compat import PYTHIA_6_9B, config_from_hf_dict
 from .models.transformer import Transformer, TransformerConfig
 from .ops.paged_attention import kv_qmax
-from .serving import ServingEngine
+from .serving import ServingEngine, costs
 from .weights import init_params
 
 PROMPT_LENS = (57, 100, 384, 700, 1000, 1500)
@@ -90,23 +90,16 @@ def chunk_bound_ms(model, bucket: int, base: int, page_dtype=None, page: int = 1
     the ``base`` prior tokens' K/V read once, the chunk's K/V written once
     (in ``page_dtype``, with each live page's two f32 scales for quantized
     pages), against 2 flops per matrix weight per token plus 4 * D flops per
-    visible (query head, key) pair a layer, at the model's compute rate.
-    Returns ``(ms, "bytes" or "operations")``."""
+    visible (query head, key) pair a layer, at the model's compute rate
+    (:func:`~accelerate_tpu_torch.serving.costs.chunk`, the engine's cost
+    formula).  Returns ``(ms, "bytes" or "operations")``."""
     cfg = model.config
-    act = torch.tensor([], dtype=cfg.dtype).element_size()
     page_dtype = page_dtype or cfg.dtype
-    kv = torch.tensor([], dtype=page_dtype).element_size()
-    hd = cfg.resolved_head_dim
-    matrices = [m.weight for m in model.layers.modules() if isinstance(m, torch.nn.Linear)]
-    nbytes = sum(p.numel() * p.element_size() for p in model.layers.parameters())
-    nbytes += bucket * cfg.hidden_size * model.embed_tokens.weight.element_size()
-    nbytes += 2 * cfg.num_layers * (base + bucket) * cfg.num_kv_heads * hd * kv
-    if kv_qmax(page_dtype) is not None:
-        nbytes += 2 * 4 * cfg.num_layers * cfg.num_kv_heads * -(-(base + bucket) // page)
-    pairs = base * bucket + bucket * (bucket + 1) // 2
-    flops = (2 * sum(w.numel() for w in matrices) * bucket
-             + 4 * hd * cfg.num_heads * pairs * cfg.num_layers)
-    peak = PEAK_FLOPS[torch.float32 if act == 4 else torch.bfloat16]
+    flops, nbytes = costs.chunk(
+        cfg, sum(p.numel() * p.element_size() for p in model.layers.parameters()),
+        model.embed_tokens.weight.element_size(), bucket, base, costs.elem(page_dtype), page,
+        kv_qmax(page_dtype) is not None)
+    peak = PEAK_FLOPS[torch.float32 if costs.elem(cfg.dtype) == 4 else torch.bfloat16]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 

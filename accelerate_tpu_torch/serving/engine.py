@@ -57,23 +57,59 @@ with native and with quantized (int8, fp8-e4m3) pages, in either loop; a
 request's sampled tokens depend only on ``(rng_seed, request id)``.
 Arguments naming parts of the JAX engine the port has not ported raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+Telemetry (:mod:`accelerate_tpu_torch.telemetry`), as in the reference:
+every stats counter is mirrored into ``serve/<key>_total`` of the engine's
+registry, with the latency histograms (``serve/ttft_s``,
+``serve/token_latency_s``, ``serve/queue_wait_s``,
+``serve/prefill_compute_s``, ``serve/decode_s_per_token``), per-class and
+per-tenant families and the pool's gauges; every request keeps a latency
+waterfall (:mod:`~accelerate_tpu_torch.telemetry.reqtrace`); lifecycle
+events land in the flight recorder, tagged with the engine's id, and each
+step is a heartbeat; every window and chunk program is wrapped in a
+:class:`~accelerate_tpu_torch.telemetry.RecompileWatchdog` and costed in
+the engine's :class:`~accelerate_tpu_torch.telemetry.CostTable`;
+``metrics_port`` starts the debug server.  Gauges hold host values only:
+nothing hands a gauge a graph's output, which the next replay rewrites.
+The fleet surface (:meth:`ServingEngine.pause_admission`,
+:meth:`~ServingEngine.swap_params`, :meth:`~ServingEngine.kill`,
+:meth:`~ServingEngine.export_inflight`, :meth:`~ServingEngine.adopt`,
+:meth:`~ServingEngine.revive`) and the fault points of
+:mod:`.faults` follow the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import itertools
 import math
 import time
+import weakref
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..logging import get_logger
 from ..models.generation import GenerationConfig, lane_key
 from ..models.transformer import KVCache, Transformer
 from ..ops.paged_attention import MAX_TREE_NODES, NULL_PAGE, TreeMask
+from ..telemetry import (
+    CostTable,
+    RecompileWatchdog,
+    detect_device_peaks,
+    get_flight_recorder,
+    get_registry,
+    get_reqtrace,
+    get_tracer,
+    slo_tick,
+    start_debug_server,
+)
+from ..telemetry.watchdog import tensor_signature
+from . import costs, faults, transfer
 from .errors import AdmissionError
 from .graphs import WindowGraphs
 from .paging import DraftContextWindow, PagedKVPool
@@ -108,8 +144,51 @@ from .spec_exec import (
 
 
 #: the clock of deadlines and service times (``submit_time``, the deadline
-#: sweep, the service-time average): tests swap in a fake one
+#: sweep, the service-time average) and of the latency histograms: tests
+#: swap in a fake one
 clock = time.perf_counter
+
+logger = get_logger(__name__)
+
+# Serving latencies live between ~100 us (a CPU-test decode step) and ~100 s
+# (a deep queue on a loaded pool): 24 x2 buckets from 100 us cover it.
+_LATENCY_BUCKETS = tuple(1e-4 * 2.0**i for i in range(24))
+
+# Process-wide replica ids ("e0", "e1", ...): every flight-recorder event and
+# request-trace phase an engine emits is tagged with its id, so several
+# engines' events in the one process-wide ring stay apart.
+_ENGINE_IDS = itertools.count()
+
+# every engine alive in the process: swap_params refuses to overwrite
+# storage another one serves from
+_LIVE_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+
+#: ``stats`` keys that are levels, not running totals: published as the
+#: reference's gauges (``serve/kv_quant_error``, the pool's
+#: ``serve/kv_bytes_per_token``, ``serve/host_overlap_ratio``), not as
+#: ``serve/<key>_total`` counters
+_LEVEL_KEYS = frozenset({"kv_quant_error", "kv_bytes_per_token", "host_overlap_ratio"})
+
+
+class _Stats(dict):
+    """``ServingEngine.stats``: a plain numeric dict (benches reset it in
+    place) that is also callable — ``engine.stats()`` returns a copy with
+    the per-request trace rollup under ``"requests"`` and the per-tenant
+    books under ``"tenants"``."""
+
+    def __call__(self) -> dict:
+        out = dict(self)
+        engine = getattr(self, "engine", None)
+        out["requests"] = (get_reqtrace().summary(engine_id=engine.engine_id)
+                           if engine is not None else {})
+        out["tenants"] = ({t: dict(v) for t, v in engine._tenant_stats.items()}
+                          if engine is not None else {})
+        return out
+
+
+#: each window kind's program name (the reference's executable names)
+_PROGRAM_NAMES = {"decode": "decode_window", "verify": "verify_window",
+                  "tree": "tree_verify_window", "draft": "draft_forward"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -257,9 +336,18 @@ class ServingEngine:
     chunk, Hkv, D]`` for K and V, charged against ``prefix_cache_mb``; a hit
     copies it into the scratch.
 
-    ``mesh``, ``tp_axis`` other than ``"tp"``, ``role`` other than
-    ``"both"`` (paged), ``registry`` and ``metrics_port`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+    registry: the :class:`~accelerate_tpu_torch.telemetry.MetricsRegistry`
+        the engine, its pool and its cache record into (default: the process
+        registry).
+    metrics_port: start (or join) the process-wide debug server
+        (``/metrics``, ``/healthz``, ``/debug/flight``, ``/debug/stacks``,
+        ``/debug/requests``, ``/debug/slo``) on this port; ``0`` binds an
+        ephemeral port, ``None`` defers to ``ATPU_METRICS_PORT`` (off when
+        unset).  A scrape runs :meth:`analyze_costs` first.
+
+    ``mesh``, ``tp_axis`` other than ``"tp"`` and ``role`` other than
+    ``"both"`` (paged) raise ``NotImplementedError`` (ROADMAP Queue 1 items
+    9e and 8b).
     """
 
     #: read by ``__init__``: capture the windows, and the prefill chunks, as
@@ -333,15 +421,11 @@ class ServingEngine:
             raise ValueError("prefix_host_mb spills prefix pages; it requires paged=True and "
                              "an enabled prefix cache (prefix_cache_mb > 0)")
         if mesh is not None:
-            raise _not_ported("mesh= (tensor-parallel serving)", "8")
+            raise _not_ported("mesh= (tensor-parallel serving)", "9e")
         if tp_axis != "tp":
-            raise _not_ported("tp_axis= (tensor-parallel serving)", "8")
+            raise _not_ported("tp_axis= (tensor-parallel serving)", "9e")
         if role != "both":
-            raise _not_ported(f"role={role!r} (disaggregated prefill/decode)", "8")
-        if registry is not None:
-            raise _not_ported("registry= (the telemetry registry)", "8")
-        if metrics_port is not None:
-            raise _not_ported("metrics_port= (the metrics endpoint)", "8")
+            raise _not_ported(f"role={role!r} (disaggregated prefill/decode)", "8b")
         #: which attention the paged pool runs: the kernels ("pallas") or
         #: their plain versions ("xla"); the prefill follows unless forced.
         #: Sliding-window and alibi models take the plain versions, as the
@@ -363,6 +447,7 @@ class ServingEngine:
             raise ValueError(f"async_depth must be 0 (synchronous) or 1 (depth-1 pipeline), "
                              f"got {async_depth}")
         self.device = resolve_device(device)
+        self.metrics = registry if registry is not None else get_registry()
         if params is not None:
             model.load_state_dict(params, assign=True)
         if model.device != self.device:
@@ -392,6 +477,7 @@ class ServingEngine:
                               else (self.speculate_k if self.speculate_k else 4))
         self.draft_ctx = int(draft_ctx)
         self.tree: Optional[TreeSpec] = None
+        self._draft_spec = draft_model
         if draft_model is None:
             if self.tree_width != 1:
                 raise ValueError("tree_width > 1 needs a draft model to rank sibling "
@@ -433,7 +519,8 @@ class ServingEngine:
             self.num_pages = int(num_pages if num_pages is not None
                                  else self.num_slots * (self.max_len // self.page_size) + 1)
             self.kv = PagedKVPool(cfg, self.num_slots, self.max_len, self.page_size,
-                                  self.num_pages, kv_dtype=kv_dtype, device=self.device)
+                                  self.num_pages, kv_dtype=kv_dtype, device=self.device,
+                                  registry=self.metrics)
             kv = self.kv
             self._pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales)
             self.quantized = kv.quantized
@@ -458,18 +545,36 @@ class ServingEngine:
                 int(prefix_cache_mb * 2**20),
                 on_evict=self._on_prefix_evict if self.paged else None,
                 host_capacity_bytes=host_bytes, spill=self._spill_node if host_bytes else None,
-                disk_capacity_bytes=disk_bytes, disk_dir=prefix_disk_dir)
+                disk_capacity_bytes=disk_bytes, disk_dir=prefix_disk_dir, registry=self.metrics)
         # prefix-cache spills and promotions enqueued since the last
         # dispatch: they ride the next window and settle at its drain
         self._pending_spills: List[CacheTransfer] = []
         self._pending_promotions: List[CacheTransfer] = []
+        # forensics and cost accounting: lifecycle events land in the
+        # process flight recorder tagged with this engine's id, each request
+        # keeps a waterfall, and each program's FLOPs and bytes go to a
+        # private cost table, computed off the serve loop (analyze_costs)
+        self.tracer = get_tracer()
+        self.engine_id = f"e{next(_ENGINE_IDS)}"
+        self.recorder = get_flight_recorder().tagged(engine=self.engine_id)
+        self.reqtrace = get_reqtrace()
+        self.cost_table = CostTable(self.metrics)
+        self.device_peaks = detect_device_peaks(self.device)
         self.scheduler = Scheduler(
             self.buckets,
             prefill_token_budget if prefill_token_budget is not None else self.buckets[-1],
             max_queue=max_queue, prefix_cache=self.prefix_cache,
             # interleaved: one open prefill per slot, SRTF among them
             max_prefills=self.num_slots if self.interleave_prefill else 1,
+            recorder=self.recorder,
         )
+        #: True while a drain or a hot swap holds new prefills back (queued
+        #: requests stay queued; running lanes run to completion)
+        self.admission_paused = False
+        # fault containment: the first exception to escape a step parks
+        # here and every later step re-raises it until revive()
+        self._poisoned: Optional[BaseException] = None
+        self._step_count = 0
 
         n = self.num_slots
         # host mirrors of the lane state; ``lanes`` holds the device copy
@@ -503,9 +608,11 @@ class ServingEngine:
         elif self.speculate_k:
             self._ngram = self.drafter = NgramDrafter(max_ngram=self.speculate_ngram)
         self._next_rid = 0
-        #: plain counters; ``prefill_s`` / ``decode_s`` are host wall seconds
-        #: (see the class docstring)
-        self.stats = {
+        self._slot_ever_used = np.zeros(n, bool)
+        #: plain counters, the reference's first; ``prefill_s`` / ``decode_s``
+        #: are host wall seconds (see the class docstring).  Every bump goes
+        #: through :meth:`_bump`, which mirrors it into ``serve/<key>_total``
+        self.stats = _Stats({
             "requests_submitted": 0,
             "requests_completed": 0,
             "tokens_generated": 0,
@@ -513,13 +620,24 @@ class ServingEngine:
             "prefill_tokens": 0,
             "interleaved_chunks": 0,
             "decode_steps": 0,
+            "occupied_lane_steps": 0,
+            "slots_reused": 0,
+            "prefix_hit_tokens": 0,
+            "prefix_hit_tokens_host": 0,
+            "prefix_miss_tokens": 0,
+            "cancelled": 0,
+            "spec_drafted": 0,
+            "spec_accepted": 0,
             "preemptions": 0,
+            "cow_copies": 0,
+            "prefreed_lanes": 0,
+            "hot_swaps": 0,
+            "deadline_shed": 0,
+            "requests_replayed": 0,
             "prefill_s": 0.0,
             "decode_s": 0.0,
             "kv_quant_error": 0.0,
             "kv_bytes_per_token": kv_bytes_per_token,
-            "spec_drafted": 0,
-            "spec_accepted": 0,
             "verify_forwards": 0,
             "verify_lanes": 0,
             "verify_committed": 0,
@@ -528,20 +646,15 @@ class ServingEngine:
             "graph_replays": 0,
             "host_overlap_ratio": 0.0,
             "device_idle_s": 0.0,
-            "prefreed_lanes": 0,
-            "prefix_hit_tokens": 0,
-            "prefix_hit_tokens_host": 0,
-            "prefix_miss_tokens": 0,
-            "cow_copies": 0,
             "promote_degraded": 0,
             "reclaim_evictions": 0,
             "spill_s": 0.0,
             "spill_bytes": 0,
             "promote_s": 0.0,
             "promote_bytes": 0,
-            "cancelled": 0,
-            "deadline_shed": 0,
-        }
+        })
+        self.stats.engine = self
+        self._init_metrics()
         # the depth-1 pipeline: the at-most-one window in flight (always
         # None under async_depth=0), and the reference's overlap accounting
         self._inflight: Optional[Readback] = None
@@ -569,6 +682,11 @@ class ServingEngine:
             self._tables = torch.zeros((n, self.kv.pages_per_lane), dtype=torch.int32,
                                        device=dev)
         self._index = torch.zeros(n, dtype=torch.int32, device=dev)
+        # the decode window's given tokens (-1: free), for decode replay of
+        # adopted requests; the host copy is uploaded while any is given
+        self._forced = torch.full((n, self.window), -1, dtype=torch.int32, device=dev)
+        self._forced_host = np.full((n, self.window), -1, np.int32)
+        self._forced_live = False
         if self.tree is not None:
             self._ctx = torch.zeros((n, self.draft_ctx), dtype=torch.int32, device=dev)
             self._ctx_len = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -596,6 +714,7 @@ class ServingEngine:
                                                  self._chunk_tokens[b], self.scratch.k,
                                                  self.scratch.v, self._chunk_base)
                             for b in self.buckets}
+        self._init_programs()
         self.graphs: Optional[WindowGraphs] = None
         if dev.type == "cuda" and (self._graph_windows or self._graph_chunks):
             self.graphs = WindowGraphs(dev)
@@ -606,17 +725,244 @@ class ServingEngine:
                 if self.graphs is not None and self.paged else [])
         if self.graphs is not None and self._graph_windows:
             for (kind, sampling), fn in self._windows.items():
-                self.graphs.capture(self._graph_key(kind, sampling), fn, self._reset_lanes)
-                self.stats["graph_captures"] += 1
+                self._capture(self._graph_key(kind, sampling), fn, self._reset_lanes,
+                              _PROGRAM_NAMES[kind])
         if self.graphs is not None and self._graph_chunks:
             # captured with the table all null page and base 0: the capture's
             # writes land in the garbage sink, as inactive lanes' do (on the
             # slab pool in the idle scratch)
             for b, fn in self._chunks.items():
-                self.graphs.capture(self._chunk_key(b), fn, lambda: None)
-                self.stats["graph_captures"] += 1
+                self._capture(self._chunk_key(b), fn, lambda: None, f"prefill_{b}")
         for t, saved in null:
             t[:, NULL_PAGE].copy_(saved)
+        self.debug_server = start_debug_server(metrics_port, registry=self.metrics,
+                                               recorder=self.recorder)
+        if self.debug_server is not None:
+            self.debug_server.add_collector(self.analyze_costs)
+        _LIVE_ENGINES.add(self)
+
+    def _capture(self, key, fn, reset, program: str) -> None:
+        """Capture one graph; what the capture added to the allocator is the
+        program's own card memory (its cost-table ``hbm_peak_bytes``)."""
+        before = torch.cuda.memory_allocated(self.device)
+        self.graphs.capture(key, fn, reset)
+        self.cost_table.set_hbm_peak_bytes(f"serve/{program}",
+                                           torch.cuda.memory_allocated(self.device) - before)
+        self._bump("graph_captures")
+
+    def _init_metrics(self) -> None:
+        """The registry's serving instruments (the reference's names): one
+        counter per running total of ``stats``, the latency histograms and
+        the gauges; per-class and per-tenant families are made on first
+        use."""
+        m = self.metrics
+        self._counters = {k: m.counter(f"serve/{k}_total")
+                          for k in self.stats if k not in _LEVEL_KEYS}
+        self._ttft_hist = m.histogram("serve/ttft_s", buckets=_LATENCY_BUCKETS,
+                                      help="submit-to-first-token wall time")
+        self._class_ttft_hists: dict = {}
+        # tenant attribution: per-tenant counter and TTFT families; the
+        # numeric rollup behind stats()["tenants"] sums exactly to the
+        # global counters (every _bump_tenant sits beside a _bump)
+        self._tenant_counters: dict = {}
+        self._tenant_ttft_hists: dict = {}
+        self._tenant_stats: dict = {}
+        self._tenant_kv_gauges: dict = {}
+        self._token_hist = m.histogram("serve/token_latency_s", buckets=_LATENCY_BUCKETS,
+                                       help="inter-token wall time (first token = TTFT)")
+        self._queue_wait_hist = m.histogram(
+            "serve/queue_wait_s", buckets=_LATENCY_BUCKETS,
+            help="submit to first prefill chunk taken (trace queue_wait phase)")
+        self._prefill_phase_hist = m.histogram(
+            "serve/prefill_compute_s", buckets=_LATENCY_BUCKETS,
+            help="per-chunk prefill share of a request's waterfall "
+                 "(fresh compute, cached replay, or promoted chunks alike)")
+        self._decode_tok_hist = m.histogram(
+            "serve/decode_s_per_token", buckets=_LATENCY_BUCKETS,
+            help="per-request decode-window share amortized over the tokens "
+                 "the window committed (closes at drain)")
+        self._promote_wait_hist = m.histogram(
+            "serve/promote_wait_s", buckets=_LATENCY_BUCKETS,
+            help="host-tier promotion dispatch to landed-at-drain wait")
+        self._queue_gauge = m.gauge("serve/queue_depth", help="requests queued or mid-prefill")
+        self._occupancy_gauge = m.gauge("serve/slot_occupancy",
+                                        help="fraction of slots active this window")
+        self._hit_rate_gauge = m.gauge(
+            "serve/prefix_hit_rate",
+            help="prefix_hit_tokens / (hit + miss) over cache-eligible prefill")
+        self._hit_rate_device_gauge = m.gauge(
+            "serve/prefix_hit_rate_device",
+            help="device-tier share of the prefix hit rate: tokens served by "
+                 "zero-copy page aliasing / (hit + miss)")
+        self._hit_rate_host_gauge = m.gauge(
+            "serve/prefix_hit_rate_host",
+            help="spilled-tier share of the prefix hit rate: tokens served by "
+                 "host/disk promotion / (hit + miss)")
+        self._decode_flops_gauge = m.gauge(
+            "serve/decode_flops_per_token",
+            help="decode-window FLOPs (the cost table's formula) / (window * num_slots)")
+        self._hbm_gauge = m.gauge(
+            "serve/hbm_peak_bytes",
+            help="largest card memory one serving program holds of its own "
+                 "(what its graph capture added to the allocator)")
+        self._accept_rate_gauge = m.gauge(
+            "serve/spec_accept_rate",
+            help="accepted / proposed draft tokens (cumulative) under speculative decoding")
+        self._accept_len_hist = m.histogram(
+            "serve/spec_accept_len", buckets=tuple(float(i) for i in range(33)),
+            help="accepted draft tokens per drafted lane per verify cycle")
+        self._draft_ms_hist = m.histogram(
+            "serve/draft_ms", buckets=tuple(1e-2 * 2.0**i for i in range(20)),
+            help="host wall time per cycle to dispatch the draft forward "
+                 "(tree speculation only)")
+        self._tree_nodes_counter = m.counter(
+            "serve/spec_tree_nodes",
+            help="token-tree nodes verified (occupied lanes x tree nodes, cumulative)")
+        m.gauge("serve/decode_kernel",
+                help="info gauge: decode attention program — 1 = pallas "
+                     "(the paged kernel, K1), 0 = xla (its plain version)",
+                ).set(1.0 if self.decode_kernel == "pallas" else 0.0)
+        m.gauge("serve/prefill_kernel",
+                help="info gauge: prefill attention program — 1 = pallas "
+                     "(the paged prefill kernel, K2), 0 = xla (its plain version)",
+                ).set(1.0 if self.prefill_kernel == "pallas" else 0.0)
+        self._pf_rate_gauge = m.gauge(
+            "serve/prefill_tokens_per_s",
+            help="prefill throughput over the trailing steps that ran at "
+                 "least one chunk (valid tokens / wall time between them)")
+        self._interleave_gauge = m.gauge(
+            "serve/prefill_interleave_ratio",
+            help="fraction of prefill chunks dispatched behind a same-cycle decode window")
+        self._pf_last_t: Optional[float] = None
+        self._pf_last_tokens = 0
+        m.gauge("serve/tp_degree",
+                help="info gauge: tensor-parallel degree (1 = single card)").set(1.0)
+        m.gauge("serve/role",
+                help="info gauge: disaggregated serving role — 0 = both "
+                     "(monolithic), 1 = prefill-only, 2 = decode-only").set(0.0)
+        self._kv_quant_gauge = (
+            m.gauge("serve/kv_quant_error",
+                    help="max abs KV round-trip quantization error of the values "
+                         "written this cycle — only published under quantized kv_dtype")
+            if self.quantized else None)
+        self._overlap_gauge = m.gauge(
+            "serve/host_overlap_ratio",
+            help="fraction of serve-loop host work hidden under device execution: "
+                 "host_s / (host_s + readback_wait_s), cumulative; 0 under async_depth=0")
+        self._idle_gauge = m.gauge(
+            "serve/device_idle_ms",
+            help="cumulative ms the device sat with no window dispatched or in flight")
+
+    def _init_programs(self) -> None:
+        """Wrap every program in a :class:`RecompileWatchdog` (budget 1: each
+        is one program, one CUDA graph on the card) and state its cost
+        formula (:mod:`.costs`)."""
+        def watch(fn, name):
+            return RecompileWatchdog(fn, name=f"serve/{name}", budget=1, registry=self.metrics,
+                                     signature=tensor_signature)
+
+        cfg = self.model.config
+        self._programs = {kind: watch(functools.partial(self._run_window, kind),
+                                      _PROGRAM_NAMES[kind])
+                          for kind, _ in self._windows}
+        if self.paged and (self.quantized or self.decode_kernel == "pallas"):
+            # the reference's nested watchdog: serve/paged_attn accounts the
+            # in-place paged attention, which replaces the decode program's
+            # attention and must never add one of its own
+            self._programs["decode"] = watch(watch(self._programs["decode"], "paged_attn"),
+                                             _PROGRAM_NAMES["decode"])
+        self._prefill = {b: watch(functools.partial(self._run_chunk, b), f"prefill_{b}")
+                         for b in self.buckets}
+        self._lane_install = watch(self.lanes.install, "lane_install")
+        self._copy_page = watch(copy_page, "copy_page") if self.paged else None
+        self._insert = None if self.paged else watch(slab_insert, "insert")
+        self._copy = ({b: watch(copy_chunk, f"copy_{b}") for b in self.buckets}
+                      if self.prefix_cache is not None and not self.paged else {})
+        spilling = self.prefix_cache is not None and self.prefix_cache.host_capacity > 0
+        self._spill_extract = ({b: watch(spill_extract, f"spill_{b}") for b in self.buckets}
+                               if spilling else {})
+        self._promote_install = ({b: watch(promote_install, f"promote_{b}")
+                                  for b in self.buckets} if spilling else {})
+        # the cost formulas, with the model's geometry bound in
+        weight_bytes = costs.tensor_bytes(self.model.state_dict().values())
+        layer_bytes = costs.tensor_bytes(self.model.layers.state_dict().values())
+        embed_elem = self.model.embed_tokens.weight.element_size()
+        if self.paged:
+            kv_elem, page = costs.elem(self.kv.storage_dtype), self.page_size
+            lanes_keys = lambda shapes: (shapes[0][0][0], shapes[0][0][1] * page)  # noqa: E731
+            chunk_keys = lambda shapes: shapes[1][0][1] * page  # noqa: E731
+            page_bytes = self.kv.page_kv_bytes
+        else:
+            kv_elem, page = self.pool.k.element_size(), 1
+            lanes_keys = lambda shapes: (shapes[0][0][1], shapes[0][0][2])  # noqa: E731
+            chunk_keys = lambda shapes: shapes[1][0][2]  # noqa: E731
+            page_bytes = 0
+        q = self.quantized
+        self._costs = {
+            "decode_window": costs.decode_window(cfg, weight_bytes, self.window, kv_elem, page,
+                                                 q, lanes_keys),
+            "verify_window": costs.verify_window(cfg, weight_bytes, self.speculate_k + 1,
+                                                 kv_elem, page, q, lanes_keys),
+            "tree_verify_window": costs.verify_window(cfg, weight_bytes, self._spec_span,
+                                                      kv_elem, page, q, lanes_keys),
+            "lane_install": costs.write(costs.LANE_INSTALL_BYTES),
+            "copy_page": costs.copy(page_bytes),
+        }
+        # K and V of one position, every layer (the slab pool's copies)
+        row_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * kv_elem
+        if not self.paged:
+            self._costs["insert"] = costs.copy(row_bytes * self.max_prompt_len)
+        for b in self.buckets:
+            self._costs[f"prefill_{b}"] = costs.prefill_chunk(
+                cfg, layer_bytes, embed_elem, b, kv_elem, page, q, chunk_keys)
+            if self.paged:
+                self._costs[f"spill_{b}"] = self._costs[f"promote_{b}"] = costs.copy(
+                    self.kv.chunk_bytes(b // page))
+            else:
+                self._costs[f"copy_{b}"] = costs.copy(row_bytes * b)
+        if self.tree is not None:
+            draft = self.draft
+            self._costs["draft_forward"] = costs.verify_window(
+                draft.config, costs.tensor_bytes(draft.state_dict().values()), self.draft_ctx,
+                costs.elem(draft.config.dtype), 1, False,
+                lambda shapes: (shapes[0][0][0], self.draft_ctx))
+
+    def _cost_capture(self, program: str, fn, args) -> None:
+        """Record ``program``'s input shapes and cost formula on its first call."""
+        name = f"serve/{program}"
+        if not self.cost_table.captured(name):
+            self.cost_table.capture(name, fn, args, cost=self._costs.get(program))
+
+    def _bump(self, key: str, n=1) -> None:
+        self.stats[key] += n
+        self._counters[key].inc(n)
+
+    def _bump_tenant(self, tenant: Optional[str], key: str, n: int = 1) -> None:
+        """Mirror a ``_bump`` into the caller tenant's lazily created counter
+        family (``serve/<key>_tenant_<tenant>_total``) and the numeric rollup
+        behind ``stats()["tenants"]``."""
+        if tenant is None:
+            return
+        counters = self._tenant_counters.get(tenant)
+        if counters is None:
+            counters = self._tenant_counters[tenant] = {}
+            self._tenant_stats[tenant] = {}
+        counter = counters.get(key)
+        if counter is None:
+            counter = counters[key] = self.metrics.counter(f"serve/{key}_tenant_{tenant}_total")
+            self._tenant_stats[tenant][key] = 0
+        self._tenant_stats[tenant][key] += n
+        counter.inc(n)
+
+    def _tenant_ttft(self, tenant: Optional[str], value: float) -> None:
+        """Per-tenant TTFT histogram family (``serve/ttft_s_tenant_<t>``)."""
+        if tenant is None:
+            return
+        hist = self._tenant_ttft_hists.get(tenant)
+        if hist is None:
+            hist = self._tenant_ttft_hists[tenant] = self.metrics.histogram(
+                f"serve/ttft_s_tenant_{tenant}", buckets=_LATENCY_BUCKETS)
+        hist.observe(value)
 
     @classmethod
     def _eager(cls, *args, **kwargs) -> "ServingEngine":
@@ -651,7 +997,7 @@ class ServingEngine:
             pool = (*self._pool, self._tables, self._index)
             plain = self.decode_kernel == "xla"
             decode = functools.partial(decode_window, self.model, self.window, *pool, lanes, pad,
-                                       plain=plain)
+                                       plain=plain, forced=self._forced)
             tree = (None if self.tree is None else functools.partial(
                 tree_verify_window, self.model, self.tree, self._tree_mask, *pool,
                 self._draft_tokens, lanes, pad, plain=plain))
@@ -659,7 +1005,7 @@ class ServingEngine:
         else:
             pool = (self.pool.k, self.pool.v, self._index)
             decode = functools.partial(slab_decode_window, self.model, self.window, *pool,
-                                       lanes, pad)
+                                       lanes, pad, forced=self._forced)
             tree = (None if self.tree is None else functools.partial(
                 slab_tree_verify_window, self.model, self.tree, self._tree_mask, *pool,
                 self._draft_tokens, lanes, pad))
@@ -705,13 +1051,32 @@ class ServingEngine:
         self.lanes.pending.zero_()
         self.lanes.keys.zero_()
 
+    def _window_inputs(self, kind: str) -> tuple:
+        """The static inputs a window reads whose shapes set its cost: the
+        block tables (or the slab) and the write indices, and a verify's
+        drafts."""
+        inputs = ((self._tables, self._index) if self.paged else (self.pool.k, self._index))
+        if kind == "draft":
+            return (self._ctx, self._ctx_len)
+        if kind == "tree":
+            return inputs + (self._draft_tokens,)
+        if kind == "verify":
+            return inputs + (self._drafts,)
+        return inputs
+
     def _run(self, kind: str):
-        """Run one window: replay its graph on the card, else call it.  The
+        """Run one window through its watched program."""
+        program = self._programs[kind]
+        self._cost_capture(_PROGRAM_NAMES[kind], program, self._window_inputs(kind))
+        return program()
+
+    def _run_window(self, kind: str):
+        """One window: replay its graph on the card, else call it.  The
         variant follows host state: does some lane sample?"""
         sampling = kind != "draft" and self.lanes.any_sampled
         if self.graphs is None:
             return self._windows[kind, sampling]()
-        self.stats["graph_replays"] += 1
+        self._bump("graph_replays")
         return self.graphs.replay(self._graph_key(kind, sampling))
 
     # ---------------------------------------------------------------- submit
@@ -730,13 +1095,13 @@ class ServingEngine:
         requests' submit-to-done time) already exceeds it, the submit raises
         a retriable :class:`AdmissionError` with ``retry_after_s``; once
         admitted, a step that finds it past its budget cancels it (queued
-        or running) and sets ``deadline_exceeded``.  ``request_class`` and
-        ``tenant`` (the reference's per-class and per-tenant accounting)
-        raise ``NotImplementedError``."""
-        if request_class is not None:
-            raise _not_ported("submit(request_class=) (per-class latency histograms)", "8")
-        if tenant is not None:
-            raise _not_ported("submit(tenant=) (per-tenant accounting)", "8")
+        or running) and sets ``deadline_exceeded``.  ``request_class`` is a
+        free-form traffic label: TTFT is also observed into
+        ``serve/ttft_s_class_<class>``.  ``tenant`` attributes the request to
+        a caller: every counter it moves (submissions, tokens, preemptions,
+        sheds, completions, replays) is mirrored into
+        ``serve/<key>_tenant_<tenant>_total`` and ``stats()["tenants"]``,
+        and its TTFT into ``serve/ttft_s_tenant_<tenant>``."""
         gen = config or GenerationConfig()
         if overrides:
             gen = dataclasses.replace(gen, **overrides)
@@ -771,18 +1136,29 @@ class ServingEngine:
             # (admits everything) before the first completion
             est = depth * self._service_ema
             if est > float(deadline_s):
-                self.stats["deadline_shed"] += 1
+                self._bump("deadline_shed")
+                self._bump_tenant(tenant, "deadline_shed")
+                self.recorder.record("serve/deadline_shed", where="admission",
+                                     deadline_s=float(deadline_s), estimate_s=est,
+                                     queue_depth=depth)
                 raise AdmissionError(
                     f"deadline {deadline_s}s unmeetable: ~{est:.2f}s of queued work ahead "
                     f"({depth} requests)", queue_depth=depth,
                     retry_after_s=min(30.0, max(est - float(deadline_s), 0.1)), retriable=True)
+        now = clock()
         req = Request(rid=self._next_rid, prompt=prompt, config=gen, on_token=on_token,
                       cache_prefix=bool(cache_prefix), speculate=bool(speculate),
-                      submit_time=clock(),
-                      deadline_s=None if deadline_s is None else float(deadline_s))
+                      submit_step=self._step_count, submit_time=now, last_token_time=now,
+                      deadline_s=None if deadline_s is None else float(deadline_s),
+                      request_class=request_class, tenant=tenant)
         self._next_rid += 1
+        # the waterfall opens here: queue_wait runs until the first prefill
+        # chunk is taken (None when tracing is off: every hook checks)
+        req.trace = self.reqtrace.begin(rid=req.rid, engine=self.engine_id,
+                                        prompt_len=int(prompt.size), submit_t=now)
         self.scheduler.submit(req)
-        self.stats["requests_submitted"] += 1
+        self._bump("requests_submitted")
+        self._bump_tenant(tenant, "requests_submitted")
         if deadline_s is not None:
             self._has_deadlines = True
         return req
@@ -796,8 +1172,10 @@ class ServingEngine:
         Tokens already streamed stay.  True when cancelled (the state becomes
         ``CANCELLED``); False for a request mid-prefill, done or unknown."""
         rid = request.rid if isinstance(request, Request) else int(request)
-        if self.scheduler.cancel(rid) is not None:
-            self.stats["cancelled"] += 1
+        req = self.scheduler.cancel(rid)
+        if req is not None:
+            self._bump("cancelled")
+            self.reqtrace.complete(req.trace, status="cancelled")
             return True
         for s in range(self.num_slots):
             req = self._slot_req[s]
@@ -805,7 +1183,11 @@ class ServingEngine:
                 continue
             self._retire_lane(s)
             req.state = RequestState.CANCELLED
-            self.stats["cancelled"] += 1
+            req.finish_step = self._step_count
+            self._bump("cancelled")
+            self.recorder.record("serve/cancel_running", rid=rid, slot=s, step=self._step_count,
+                                 tokens=len(req.tokens))
+            self.reqtrace.complete(req.trace, status="cancelled")
             return True
         return False
 
@@ -816,29 +1198,217 @@ class ServingEngine:
         the sweep catches it once it runs."""
         now = clock()
         live = False
-        st = self.stats
         for s in range(self.num_slots):
             req = self._slot_req[s]
             if req is None or req.deadline_s is None or not self._active[s]:
                 continue
-            if now - req.submit_time <= req.deadline_s:
+            elapsed = now - req.submit_time
+            if elapsed <= req.deadline_s:
                 live = True
                 continue
             self._retire_lane(s)
             req.deadline_exceeded = True
             req.state = RequestState.CANCELLED
-            st["deadline_shed"] += 1
+            req.finish_step = self._step_count
+            self._shed(req, "running", elapsed, slot=s, tokens=len(req.tokens))
         for req in list(self.scheduler.queue):
             if req.deadline_s is None:
                 continue
-            if now - req.submit_time <= req.deadline_s:
+            elapsed = now - req.submit_time
+            if elapsed <= req.deadline_s:
                 live = True
                 continue
             self.scheduler.cancel(req.rid)
             req.deadline_exceeded = True
-            st["deadline_shed"] += 1
+            self._shed(req, "queued", elapsed)
         self._has_deadlines = live or any(r.deadline_s is not None
                                           for r in self.scheduler.prefills)
+
+    # ------------------------------------------------------- drain / hot swap
+    def pause_admission(self) -> None:
+        """Stop starting new prefills.  Queued requests stay queued, a
+        request already mid-prefill finishes its chunks, and running lanes
+        decode to completion: after enough :meth:`step` calls the engine is
+        :attr:`drained`."""
+        self.admission_paused = True
+
+    def resume_admission(self) -> None:
+        """Re-open admission; queued requests start prefilling next step."""
+        self.admission_paused = False
+
+    @property
+    def drained(self) -> bool:
+        """No lane active, no prefill open, no window in flight: the
+        quiescence :meth:`swap_params` requires.  Queued requests do not
+        block it: they hold no device state."""
+        return (not self._active.any() and self._inflight is None
+                and self._prev_handle is None and not self.scheduler.prefills
+                and not self._reserved_slots)
+
+    def swap_params(self, params, version: Optional[str] = None) -> None:
+        """Hot-swap the served weights: ``params`` (a state dict with the
+        engine model's names, shapes, dtypes and devices) is copied **in
+        place** into the tensors the engine's model holds, quantized codes
+        and scales alike.  The CUDA graphs hold those tensors' addresses,
+        so every graph replays the new weights and none is captured again.
+        The caller's tensors that the engine was built on (``params=`` is
+        loaded with ``assign=True``) are therefore overwritten.
+
+        Requires :attr:`drained` (``RuntimeError`` otherwise).  Raises
+        ``ValueError``, before anything changes, when a name, shape, dtype
+        or device differs (a graph cannot take another shape), and
+        ``RuntimeError`` naming the engine when another live engine reads
+        the same storage (the swap would change its tokens).  An injected
+        ``hot_swap_upload`` fault raises before any state changes.  The
+        prefix cache is flushed on every tier (its KV was computed under the
+        old weights) and queued requests' pins are dropped; a
+        self-speculative draft (``draft_model=n``) takes the new weights'
+        first layers.  Admission stays where the caller left it."""
+        if not self.drained:
+            raise RuntimeError(
+                "swap_params requires a drained engine (pause_admission, then step until "
+                "engine.drained): active lanes or an in-flight window would mix weight "
+                "versions mid-request")
+        targets = self.model.state_dict(keep_vars=True)
+        new = dict(params)
+        if set(new) != set(targets):
+            missing, extra = sorted(set(targets) - set(new)), sorted(set(new) - set(targets))
+            raise ValueError(f"swap_params: names differ from the served model's "
+                             f"(missing {missing[:4]}, unexpected {extra[:4]})")
+        for name, t in targets.items():
+            src = new[name]
+            if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype \
+                    or src.device != t.device:
+                raise ValueError(
+                    f"swap_params: {name} is {tuple(src.shape)} {src.dtype} on {src.device}, "
+                    f"the served tensor {tuple(t.shape)} {t.dtype} on {t.device}: the "
+                    "captured graphs cannot take another shape, dtype or device")
+        self._check_unshared(targets.values())
+        if faults.ACTIVE is not None and faults.ACTIVE.fire("hot_swap_upload"):
+            # fail before touching any state: the engine keeps serving the
+            # old weights, cache included
+            raise faults.FaultInjected("injected hot-swap upload failure (weights unchanged)")
+        self.scheduler.drop_cache_pins()
+        flushed = self.prefix_cache.flush() if self.prefix_cache is not None else 0
+        with torch.no_grad():
+            for name, t in targets.items():
+                if new[name] is not t:
+                    t.copy_(new[name])
+            if self.tree is not None and isinstance(self._draft_spec, int):
+                # the self-speculative draft takes the new weights' first
+                # layers (where it aliases the served tensors, it has them)
+                for name, t in self.draft.state_dict(keep_vars=True).items():
+                    if t.data_ptr() != targets[name].data_ptr():
+                        t.copy_(new[name])
+        old = self.weights_version
+        if version is not None:
+            self.weights_version = str(version)
+        self._bump("hot_swaps")
+        self.recorder.record("serve/hot_swap", old_version=old,
+                             new_version=self.weights_version, step=self._step_count,
+                             cache_nodes_flushed=flushed)
+
+    def _check_unshared(self, tensors) -> None:
+        """Refuse a swap into storage another live engine reads."""
+        def storages(ts):
+            return {(t.device, t.untyped_storage().data_ptr()) for t in ts}
+
+        mine = storages(tensors)
+        for other in list(_LIVE_ENGINES):
+            if other is self:
+                continue
+            theirs = storages(other.model.state_dict().values())
+            if mine & theirs:
+                raise RuntimeError(
+                    f"swap_params: engine {other.engine_id} serves from the same storage as "
+                    f"engine {self.engine_id}; an in-place swap would change its tokens (build "
+                    "each engine on its own copy of the weights)")
+
+    # -------------------------------------------------------- fault tolerance
+    def kill(self, reason: str = "replica killed") -> None:
+        """Poison this engine as if its card vanished mid-window: every
+        later :meth:`step` raises without touching the pool, until
+        :meth:`revive`.  A supervisor exports the requests it owes
+        (:meth:`export_inflight`) and replays them on a survivor
+        (:meth:`adopt`)."""
+        self._poisoned = faults.FaultInjected(reason)
+        self.recorder.record("serve/engine_poisoned", error=reason, step=self._step_count)
+
+    def export_inflight(self) -> List[Request]:
+        """Every request this engine still owes an answer, detached and
+        ready for :meth:`adopt` on a survivor
+        (:func:`.transfer.export_inflight`)."""
+        return transfer.export_inflight(self)
+
+    def adopt(self, request: Request) -> Request:
+        """Admit a request exported from a dead replica at the front of the
+        queue (:func:`.transfer.adopt`): greedy lanes replay token-exact;
+        sampled lanes resume on a re-seeded stream."""
+        return transfer.adopt(self, request)
+
+    def revive(self) -> None:
+        """Bring a poisoned engine back to a serviceable idle state: land
+        whatever the dead step left in flight through the handles' fetch (a
+        failed fetch is recorded, and the window's pages settle anyway),
+        settle or discard the prefix cache's transfers, retire every lane
+        (a request mid-prefill's pages too), drop the open prefills and
+        any request left in the queue, flush the prefix cache, put the lane
+        vectors on the card back to their initial values (the next dispatch
+        trusts nothing a dying window left there) and clear the poison."""
+        handles = [h for h in (self._prev_handle, self._inflight) if h is not None]
+        self._prev_handle = self._inflight = None
+        spills, promotions = list(self._pending_spills), list(self._pending_promotions)
+        for hd in handles:
+            try:
+                hd.fetch()  # proves the window's writes landed
+            except Exception as exc:
+                self.recorder.record("serve/revive_fetch_failed", error=repr(exc))
+                hd.fetched = True
+            if self.paged and hd.deferred_pages:
+                hd.settle(self.kv.allocator)
+            spills += hd.spills
+            promotions += hd.promotions
+        self._pending_spills, self._pending_promotions = [], []
+        self._pending_prefill_qerr.clear()
+        try:
+            self._settle(spills, promotions)
+        except Exception as exc:
+            # the transfers rode the dying stream: their payloads cannot be
+            # trusted, so the nodes drop instead of staying spilled
+            self.recorder.record("serve/revive_spill_failed", error=repr(exc))
+            if self.prefix_cache is not None:
+                for xfer in spills:
+                    if xfer.node.host is xfer:
+                        self.prefix_cache.discard_spilled(xfer.node)
+        self._cycle_decode_tokens = 0
+        for s in range(self.num_slots):
+            if self._active[s] or self._slot_req[s] is not None or s in self._reserved_slots:
+                self._retire_lane(s)
+        self.scheduler.take_prefills()
+        self._reserved_slots.clear()
+        for req in list(self.scheduler.queue):
+            # export_inflight normally emptied the queue; what is left has
+            # no owner to stream to
+            self.scheduler.cancel(req.rid)
+        if self.prefix_cache is not None:
+            self.scheduler.drop_cache_pins()
+            self.prefix_cache.flush()
+        self.lanes.reset()
+        self._t_pipeline_empty = None
+        self._busy_since = None
+        self._poisoned = None
+        self.admission_paused = False
+        self.recorder.record("serve/revive", step=self._step_count)
+
+    def _shed(self, req: Request, where: str, elapsed: float, **fields) -> None:
+        """Account one request the deadline sweep cancelled."""
+        self._bump("deadline_shed")
+        self._bump_tenant(req.tenant, "deadline_shed")
+        self.recorder.record("serve/deadline_shed", where=where, rid=req.rid,
+                             deadline_s=req.deadline_s, elapsed_s=elapsed, **fields)
+        if req.trace is not None:
+            req.trace.annotate("deadline_shed", where=where, deadline_s=req.deadline_s)
+            self.reqtrace.complete(req.trace, status="shed")
 
     # ------------------------------------------------------------- admission
     def _next_free_slot(self) -> Optional[int]:
@@ -860,7 +1430,7 @@ class ServingEngine:
         when nothing is left to reclaim."""
         while self.kv.allocator.free_count < need:
             if self.prefix_cache is not None and self.prefix_cache.evict_one():
-                self.stats["reclaim_evictions"] += 1
+                self._bump("reclaim_evictions")
                 continue
             if any(hd is not None and hd.deferred_pages
                    for hd in (self._inflight, self._prev_handle)):
@@ -920,25 +1490,38 @@ class ServingEngine:
                                     non_blocking=True)
         self._chunk_tokens[bucket].copy_(torch.from_numpy(chunk[None]), non_blocking=True)
         self._chunk_base.fill_(start)
+        program = self._prefill[bucket]
+        self._cost_capture(f"prefill_{bucket}", program,
+                           (self._chunk_tokens[bucket],
+                            self._chunk_table if self.paged else self.scratch.k))
+        with self.tracer.span("serve/prefill_chunk", bucket=bucket):
+            return program()
+
+    def _run_chunk(self, bucket: int) -> Optional[torch.Tensor]:
+        """One prefill chunk from the static buffers: replay its graph on the
+        card, else call it."""
         if self.graphs is None or not self._graph_chunks:
             return self._chunks[bucket]()
-        self.stats["graph_replays"] += 1
+        self._bump("graph_replays")
         err = self.graphs.replay(self._chunk_key(bucket))
         # the replay's output is rewritten by the next one: keep a copy
         return err.clone() if self.quantized else err
 
     def _admit(self) -> None:
         """Open prefills and run chunks against this step's budget (less the
-        tokens of a window dispatched ahead, under interleave)."""
+        tokens of a window dispatched ahead, under interleave).  Paused
+        admission opens none, but a prefill already open finishes."""
         sched = self.scheduler
+        if self.admission_paused and not sched.prefills:
+            return
         budget = sched.begin_step(self._cycle_decode_tokens if self.interleave_prefill else 0)
         t0 = time.perf_counter()
         chunks = 0
-        st = self.stats
         while True:
             # open prefills, FCFS, up to the scheduler's cap while slots and
             # pages allow
-            while sched.queue and len(sched.prefills) < sched.max_prefills:
+            while (not self.admission_paused and sched.queue
+                   and len(sched.prefills) < sched.max_prefills):
                 slot = self._next_free_slot()
                 if slot is None or (self.paged and not self._admission_pages_ok(sched.queue[0])):
                     break
@@ -952,26 +1535,39 @@ class ServingEngine:
                 break  # budget spent or page pressure: retry next step
             req, bucket, valid, start, cached = took
             chunks += 1
+            tr = req.trace
+            if tr is not None and not tr.queue_done:
+                # first chunk taken: the queue_wait phase ends here
+                tr.queue_done = True
+                self._queue_wait_hist.observe(
+                    tr.phase("queue_wait", queue_depth=sched.queue_depth))
+            spilled = False
             if cached:
                 node = req.cache_nodes[req.next_chunk - 1]
                 spilled = node.tier != "device"
                 if not self.paged:
                     # replay the cached slab into the scratch: one copy on
                     # the stream, no forward, no budget charged
-                    copy_chunk(self.scratch.k, self.scratch.v, node.k, node.v, start)
+                    program = self._copy[bucket]
+                    args = (self.scratch.k, self.scratch.v, node.k, node.v, start)
+                    self._cost_capture(f"copy_{bucket}", program, args)
+                    with self.tracer.span("serve/copy_chunk", bucket=bucket, start=start):
+                        program(*args)
                 elif not spilled:
                     # the zero-copy hit: the node's pages join the lane's table
                     self.kv.lane_append_shared(req.slot, node.pages)
                 elif not self._promote_node(req, node, bucket):
-                    # a degraded promotion (a torn payload or page pressure)
-                    # prefills the chunk instead; _populate_cache heals the
-                    # node with the fresh pages
+                    # a degraded promotion (a fault, a torn payload or page
+                    # pressure) prefills the chunk instead; _populate_cache
+                    # heals the node with the fresh pages
                     cached = False
-                    st["promote_degraded"] += 1
+                    self._bump("promote_degraded")
+                    self.recorder.record("serve/promote_degraded", rid=req.rid, bucket=bucket,
+                                         step=self._step_count)
                 if cached:
-                    st["prefix_hit_tokens"] += valid
+                    self._bump("prefix_hit_tokens", valid)
                     if spilled:
-                        st["prefix_hit_tokens_host"] += valid
+                        self._bump("prefix_hit_tokens_host", valid)
             if not cached:
                 chunk = np.zeros(bucket, np.int32)
                 chunk[:valid] = req.prefill_tokens[start:start + valid]
@@ -979,21 +1575,27 @@ class ServingEngine:
                 if self.quantized:
                     self._pending_prefill_qerr.append(err)
                 budget -= bucket
-                st["prefill_chunks"] += 1
+                self._bump("prefill_chunks")
                 if self.interleave_prefill and self._cycle_decode_tokens:
                     # queued behind this cycle's window: the interleave happened
-                    st["interleaved_chunks"] += 1
+                    self._bump("interleaved_chunks")
                 if self.prefix_cache is not None and req.cache_prefix:
-                    st["prefix_miss_tokens"] += valid
+                    self._bump("prefix_miss_tokens", valid)
                     self._populate_cache(req, bucket, valid, start)
-            st["prefill_tokens"] += valid
+            self._bump("prefill_tokens", valid)
+            if tr is not None:
+                # one tiled phase per admitted chunk, with the hit's tier
+                source = "fresh" if not cached else "promoted" if spilled else "cached"
+                self._prefill_phase_hist.observe(tr.phase(
+                    "prefill", chunk=req.next_chunk - 1, bucket=bucket, tokens=valid,
+                    source=source))
             done = sched.finish_prefill()
             if done is not None:
                 self._install(done)
         if chunks:
             if self.async_depth == 0 and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            st["prefill_s"] += time.perf_counter() - t0
+            self._bump("prefill_s", time.perf_counter() - t0)
 
     def _install(self, req: Request) -> None:
         """Hand a fully prefilled request its lane.  Paged: its pages
@@ -1009,23 +1611,34 @@ class ServingEngine:
         if self.paged:
             self._cow_tail_page(s, len(ptoks))
         else:
-            slab_insert(self.pool.k, self.pool.v, self.scratch.k, self.scratch.v, s)
+            args = (self.pool.k, self.pool.v, self.scratch.k, self.scratch.v, s)
+            self._cost_capture("insert", self._insert, args)
+            self._insert(*args)
         self._lane_len[s] = len(ptoks) - 1
+        self.recorder.record("serve/install", rid=req.rid, slot=s, step=self._step_count,
+                             prompt_len=len(ptoks))
         gen = req.config
         eos = -1 if gen.eos_token_id is None else int(gen.eos_token_id)
         sampled = gen.do_sample and gen.temperature > 0.0
-        self.lanes.install(
-            s, int(ptoks[-1]), eos, float(gen.temperature),
-            0 if gen.top_k is None else int(gen.top_k),
-            1.0 if gen.top_p is None else float(gen.top_p),
-            lane_key(self.rng_seed, req.rid) if sampled else None,
-        )
+        args = (s, int(ptoks[-1]), eos, float(gen.temperature),
+                0 if gen.top_k is None else int(gen.top_k),
+                1.0 if gen.top_p is None else float(gen.top_p),
+                lane_key(self.rng_seed, req.rid) if sampled else None)
+        self._cost_capture("lane_install", self._lane_install, args)
+        self._lane_install(*args)
         if self._draft_window is not None:
             # the window's last token is the lane's pending token: the root
             # of every draft tree
             self._draft_window.begin(s, ptoks)
+        if req.replay_decode:
+            # the prompt's KV is in the pages: the streamed tokens go through
+            # the decode windows that follow
+            req.replay_len, req.replay_done = len(req.tokens), 0
         self._active[s] = True
         self._eos[s] = eos
+        if self._slot_ever_used[s]:
+            self._bump("slots_reused")
+        self._slot_ever_used[s] = True
         self._slot_req[s] = req
         self._reserved_slots.discard(s)
         # the lane holds its own references now: the nodes this request read
@@ -1084,9 +1697,12 @@ class ServingEngine:
                 if not self._reclaim_pages(1, allow_preempt=True):
                     raise RuntimeError("KV page pool exhausted during copy-on-write")
                 continue
-            copy_page(self._pool, pid, new[0])
+            args = (self._pool, pid, new[0])
+            self._cost_capture("copy_page", self._copy_page, args)
+            with self.tracer.span("serve/copy_page", src=pid, dst=new[0]):
+                self._copy_page(*args)
             self.kv.lane_replace(s, pslot, new[0])
-            self.stats["cow_copies"] += 1
+            self._bump("cow_copies")
             return
 
     def _on_prefix_evict(self, node) -> None:
@@ -1118,7 +1734,11 @@ class ServingEngine:
         host = tuple(torch.empty((t.shape[0], len(node.pages), *t.shape[2:]), dtype=t.dtype,
                                  pin_memory=True) for t in self._pool) if on_card else ()
         marks = self._marks()
-        gathered = spill_extract(self._pool, ids)
+        bucket = len(node.pages) * self.page_size
+        program = self._spill_extract[bucket]
+        self._cost_capture(f"spill_{bucket}", program, (self._pool, ids))
+        with self.tracer.span("serve/spill_d2h", bucket=bucket):
+            gathered = program(self._pool, ids)
         if on_card:
             for h, g in zip(host, gathered):
                 h.copy_(g, non_blocking=True)
@@ -1130,6 +1750,9 @@ class ServingEngine:
                              node=node, gathered=gathered, host=host, marks=marks,
                              seconds=time.perf_counter() - t0)
         self._pending_spills.append(xfer)
+        self.recorder.record("serve/spill", bucket=bucket, step=self._step_count,
+                             behind_window=self._inflight is not None
+                             or self._prev_handle is not None)
         return xfer
 
     def _promote_node(self, req: Request, node, bucket: int) -> bool:
@@ -1140,7 +1763,12 @@ class ServingEngine:
         join the lane; the node re-enters the device tier when the budget
         allows, taking its own references.  False, with nothing installed,
         on a missing or torn payload or unrecoverable page pressure: the
-        chunk then prefills."""
+        chunk then prefills; an injected ``promote_h2d`` fault degrades the
+        same way."""
+        if faults.ACTIVE is not None and faults.ACTIVE.fire("promote_h2d"):
+            self.recorder.record("serve/fault", point="promote_h2d", rid=req.rid,
+                                 step=self._step_count)
+            return False
         payload = self.prefix_cache.node_payload(node)
         if payload is None:
             return False
@@ -1158,11 +1786,16 @@ class ServingEngine:
             if ids is None:
                 return False
         t0 = time.perf_counter()
+        behind = self._inflight is not None or self._prev_handle is not None
         marks = self._marks()
         source = () if isinstance(payload, CacheTransfer) else payload
         chunk = tuple(c.to(self.device, non_blocking=True) for c in chunk)
-        promote_install(self._pool, chunk,
-                        torch.tensor(ids, dtype=torch.int64).to(self.device, non_blocking=True))
+        args = (self._pool, chunk,
+                torch.tensor(ids, dtype=torch.int64).to(self.device, non_blocking=True))
+        program = self._promote_install[bucket]
+        self._cost_capture(f"promote_{bucket}", program, args)
+        with self.tracer.span("serve/promote_h2d", bucket=bucket, behind_window=behind):
+            program(*args)
         if marks:
             marks[1].record()
         self.kv.lane_append_owned(req.slot, ids)  # the lane takes the allocation's reference
@@ -1170,7 +1803,13 @@ class ServingEngine:
             self.kv.allocator.ref(ids)
         self._pending_promotions.append(CacheTransfer(
             "promote", sum(c.numel() * c.element_size() for c in chunk), host=source,
-            marks=marks, seconds=time.perf_counter() - t0))
+            marks=marks, seconds=time.perf_counter() - t0,
+            record={"rid": req.rid, "bucket": bucket, "behind_window": behind,
+                    "step": self._step_count, "trace": req.trace}))
+        if req.trace is not None:
+            req.trace.annotate("promote_dispatch", bucket=bucket, behind_window=behind)
+        self.recorder.record("serve/promote_h2d", rid=req.rid, bucket=bucket,
+                             behind_window=behind, step=self._step_count)
         return True
 
     def _settle(self, spills: List[CacheTransfer], promotions: List[CacheTransfer]) -> None:
@@ -1179,15 +1818,19 @@ class ServingEngine:
         unless the node moved on meanwhile (promoted, healed or dropped); a
         promotion's source buffers are released.  Their times and bytes go
         to ``stats``."""
-        st = self.stats
         for xfer in spills:
-            st["spill_s"] += xfer.finish()
-            st["spill_bytes"] += xfer.nbytes
+            self._bump("spill_s", xfer.finish())
+            self._bump("spill_bytes", xfer.nbytes)
             if self.prefix_cache is not None and xfer.node.host is xfer:
                 self.prefix_cache.settle_payload(xfer.node, xfer.host)
         for xfer in promotions:
-            st["promote_s"] += xfer.finish()
-            st["promote_bytes"] += xfer.nbytes
+            self._bump("promote_s", xfer.finish())
+            self._bump("promote_bytes", xfer.nbytes)
+            rec = dict(xfer.record or {})
+            tr = rec.pop("trace", None)
+            if tr is not None and not tr.finished:
+                self._promote_wait_hist.observe(tr.phase("promote_wait", bucket=rec["bucket"]))
+            self.recorder.record("serve/promote_land", **rec)
 
     def _hand_cache_traffic(self, hd: Optional[Readback]) -> None:
         """Attach the traffic enqueued since the last hand-off to ``hd``, the
@@ -1278,9 +1921,15 @@ class ServingEngine:
             padded = sum(b for b, _ in plan_chunks(eff, self.buckets))
             if eff > self.max_prompt_len or padded > self.max_len:
                 continue  # grew past replayability
-            self._retire_lane(s)
+            freed = self._retire_lane(s)
             self.scheduler.requeue(req)
-            self.stats["preemptions"] += 1
+            self._bump("preemptions")
+            self._bump_tenant(req.tenant, "preemptions")
+            self.recorder.record("serve/preempt", rid=req.rid, slot=int(s),
+                                 step=self._step_count, pages_freed=freed, effective_len=eff)
+            if req.trace is not None:
+                req.trace.annotate("preempt", slot=int(s), pages_freed=freed,
+                                   generated=len(req.tokens))
             return True
         return False
 
@@ -1320,10 +1969,11 @@ class ServingEngine:
                 continue
             if self._eos[s] >= 0 or (self._spec_any and req.speculate):
                 continue
-            if len(req.tokens) + hd.width >= req.config.max_new_tokens:
+            new = hd.width - (int(hd.replayed[s]) if hd.replayed is not None else 0)
+            if len(req.tokens) + new >= req.config.max_new_tokens:
                 hd.prefreed.add(s)
                 self._retire_lane(s)
-                self.stats["prefreed_lanes"] += 1
+                self._bump("prefreed_lanes")
 
     def _dispatch(self) -> Optional[Readback]:
         """Dispatch one decode cycle over the pool and return the handle the
@@ -1346,8 +1996,14 @@ class ServingEngine:
                 self._drain_inflight()
                 return None
         n_occupied = int(self._active.sum())
+        self._occupancy_gauge.set(n_occupied / self.num_slots)
+        if faults.ACTIVE is not None and faults.ACTIVE.fire("decode_dispatch"):
+            raise faults.FaultInjected(f"injected decode-window dispatch failure "
+                                       f"(step {self._step_count}, {n_occupied} lanes)")
         hd = None
-        if self.tree is not None:
+        if self._spec_any and self._replaying():
+            pass  # decode replay runs through the decode window
+        elif self.tree is not None:
             drafted = self._tree_lanes()
             if drafted.any():
                 hd = self._tree_cycle(drafted, n_occupied)
@@ -1368,7 +2024,8 @@ class ServingEngine:
         time, and open the busy span."""
         now = time.perf_counter()
         if self._t_pipeline_empty is not None:
-            self.stats["device_idle_s"] += now - self._t_pipeline_empty
+            self._bump("device_idle_s", now - self._t_pipeline_empty)
+            self._idle_gauge.set(self.stats["device_idle_s"] * 1e3)
             self._t_pipeline_empty = None
         if self._busy_since is None:
             self._busy_since = now
@@ -1382,7 +2039,8 @@ class ServingEngine:
         self._index.copy_(torch.from_numpy(self._lane_len), non_blocking=True)
 
     def _handle(self, kind: str, width: int, toks, counts, err, n_occupied: int,
-                drafted: Optional[np.ndarray] = None) -> Readback:
+                drafted: Optional[np.ndarray] = None,
+                replayed: Optional[np.ndarray] = None) -> Readback:
         """Stage a dispatched window's outputs to the host and snapshot the
         lanes it saw; the handle's ``dispatch_t`` is now, the window's
         launches done."""
@@ -1392,16 +2050,55 @@ class ServingEngine:
         return Readback(kind=kind, toks=toks, width=width, counts=counts, qerr=err,
                         active=self._active.copy(), reqs=list(self._slot_req),
                         eos=self._eos.copy(), n_occupied=n_occupied, drafted=drafted,
-                        ready=ready)
+                        ready=ready, replayed=replayed)
+
+    def _replaying(self) -> bool:
+        """Does some running lane still owe decode replay?"""
+        return any(req is not None and req.replay_done < req.replay_len
+                   for req in self._slot_req)
+
+    def _give_replayed(self) -> Optional[np.ndarray]:
+        """Write the next window's given tokens: each running lane under
+        decode replay takes the next of its streamed tokens, up to a window.
+        Returns the tokens given a lane (``None`` when none is), which the
+        drain does not emit again."""
+        if not (self._forced_live or self._replaying()):
+            return None
+        self._forced_host.fill(-1)
+        given = np.zeros(self.num_slots, np.int32)
+        for s in np.nonzero(self._active)[0]:
+            req = self._slot_req[s]
+            if req is None or req.replay_done >= req.replay_len:
+                continue
+            k = min(self.window, req.replay_len - req.replay_done)
+            self._forced_host[s, :k] = req.tokens[req.replay_done:req.replay_done + k]
+            req.replay_done += k
+            given[s] = k
+        self._forced.copy_(torch.from_numpy(self._forced_host), non_blocking=True)
+        self._forced_live = bool(given.any())
+        return given if self._forced_live else None
+
+    def _attention_span(self):
+        """The reference's ``serve/paged_attn`` span, nested in a window's
+        span where the paged pool attends in place (the kernels, or
+        quantized pages)."""
+        if self.paged and (self.quantized or self.decode_kernel == "pallas"):
+            return self.tracer.span("serve/paged_attn", kernel=self.decode_kernel)
+        return contextlib.nullcontext()
 
     def _decode_cycle(self, n_occupied: int) -> Readback:
         """Dispatch one decode window over the pool."""
         self._note_dispatch()
         self._upload_pool()
-        toks, err = self._run("decode")
+        replayed = self._give_replayed()
+        with self.tracer.span("serve/decode_window", occupied=n_occupied):
+            with self._attention_span():
+                toks, err = self._run("decode")
         self._lane_len[self._active] += self.window
-        self.stats["decode_steps"] += self.window
-        return self._handle("decode", self.window, toks, None, err, n_occupied)
+        self._bump("decode_steps", self.window)
+        self._bump("occupied_lane_steps", n_occupied * self.window)
+        return self._handle("decode", self.window, toks, None, err, n_occupied,
+                            replayed=replayed)
 
     def _propose_drafts(self):
         """Host n-gram drafts for this cycle: ``(drafts [N, K], drafted
@@ -1434,12 +2131,13 @@ class ServingEngine:
             drafted[s] = req is not None and req.speculate
         return drafted
 
-    def _verify_dispatched(self, drafted: np.ndarray, drafted_tokens: int, steps: int) -> None:
-        st = self.stats
-        st["decode_steps"] += steps
-        st["verify_forwards"] += 1
-        st["verify_lanes"] += int(self._active.sum())
-        st["spec_drafted"] += int(drafted.sum()) * drafted_tokens
+    def _verify_dispatched(self, drafted: np.ndarray, drafted_tokens: int, steps: int,
+                           n_occupied: int) -> None:
+        self._bump("decode_steps", steps)
+        self._bump("occupied_lane_steps", n_occupied * steps)
+        self._bump("verify_forwards")
+        self._bump("verify_lanes", int(self._active.sum()))
+        self._bump("spec_drafted", int(drafted.sum()) * drafted_tokens)
 
     def _verify_cycle(self, drafts: np.ndarray, drafted: np.ndarray,
                       n_occupied: int) -> Readback:
@@ -1448,9 +2146,12 @@ class ServingEngine:
         self._note_dispatch()
         self._upload_pool()
         self._drafts.copy_(torch.from_numpy(drafts), non_blocking=True)
-        out, n_commit, err = self._run("verify")
+        with self.tracer.span("serve/verify_window", occupied=n_occupied,
+                              drafted=int(drafted.sum())):
+            with self._attention_span():
+                out, n_commit, err = self._run("verify")
         k = self.speculate_k
-        self._verify_dispatched(drafted, k, k + 1)
+        self._verify_dispatched(drafted, k, k + 1, n_occupied)
         return self._handle("verify", k + 1, out, n_commit, err, n_occupied,
                             drafted=drafted.copy())
 
@@ -1471,13 +2172,19 @@ class ServingEngine:
         if marks:
             marks[0].record()
         t_draft = time.perf_counter()
-        self._run("draft")
+        with self.tracer.span("serve/draft_forward", occupied=n_occupied):
+            self._run("draft")
         t_draft = time.perf_counter() - t_draft
+        self._draft_ms_hist.observe(t_draft * 1e3)
         if marks:
             marks[1].record()
-        out, n_commit, err = self._run("tree")
+        with self.tracer.span("serve/tree_verify_window", occupied=n_occupied,
+                              drafted=int(drafted.sum())):
+            with self._attention_span():
+                out, n_commit, err = self._run("tree")
         depth = self.tree.depth
-        self._verify_dispatched(drafted, depth, depth + 1)
+        self._verify_dispatched(drafted, depth, depth + 1, n_occupied)
+        self._tree_nodes_counter.inc(n_occupied * self.tree.nodes)
         hd = self._handle("verify", depth + 1, out, n_commit, err, n_occupied,
                           drafted=drafted.copy())
         hd.draft_marks, hd.draft_s = marks, t_draft
@@ -1496,20 +2203,45 @@ class ServingEngine:
             self._drain(hd)
 
     def _drain(self, hd: Readback) -> None:
-        """Land one window: wait for its staged outputs (the one blocking
-        point), then all host bookkeeping against its dispatch-time lane
-        snapshot."""
+        """Land one window (:meth:`_drain_impl`).  A drain that fails
+        poisons the engine (:meth:`step`) with the handle already detached:
+        a pre-freed lane's request lives only on it, so it goes back to the
+        queue here, or :meth:`export_inflight` would never see it."""
+        try:
+            self._drain_impl(hd)
+        except BaseException:
+            for s in hd.prefreed:
+                req = hd.reqs[s]
+                if req is not None and req.state is RequestState.RUNNING:
+                    self.scheduler.requeue(req)
+            raise
+
+    def _drain_impl(self, hd: Readback) -> None:
+        """Wait for the window's staged outputs (the one blocking point),
+        then all host bookkeeping against its dispatch-time lane snapshot.
+        The ``fetch_slow`` / ``fetch_fail`` fault points stand in for a
+        stalled or failed readback."""
+        if faults.ACTIVE is not None:
+            if faults.ACTIVE.fire("fetch_slow"):
+                time.sleep(faults.ACTIVE.slow_ms / 1e3)
+            if faults.ACTIVE.fire("fetch_fail"):
+                raise faults.FaultInjected(f"injected readback failure (step {self._step_count})")
         t0 = time.perf_counter()
-        hd.fetch()
+        with self.tracer.span("serve/readback", kind=hd.kind, occupied=hd.n_occupied):
+            hd.fetch()
         t1 = time.perf_counter()
         # overlap accounting: host work since dispatch ran under the card;
         # the wait is what the pipeline failed to hide (under async_depth=0
         # the drain follows the dispatch at once: the ratio stays near 0)
-        self._overlap_host_s += max(t0 - hd.dispatch_t, 0.0)
-        self._overlap_wait_s += t1 - t0
+        host, wait = max(t0 - hd.dispatch_t, 0.0), t1 - t0
+        self._overlap_host_s += host
+        self._overlap_wait_s += wait
         denom = self._overlap_host_s + self._overlap_wait_s
         if denom > 0.0:
             self.stats["host_overlap_ratio"] = self._overlap_host_s / denom
+            self._overlap_gauge.set(self.stats["host_overlap_ratio"])
+        self.recorder.record("serve/readback", step=self._step_count, window=hd.kind,
+                             wait_ms=wait * 1e3, overlapped_ms=host * 1e3)
         toks = hd.toks.numpy()
         counts = hd.counts.numpy() if hd.counts is not None else np.full(self.num_slots,
                                                                           hd.width)
@@ -1518,16 +2250,29 @@ class ServingEngine:
             st["kv_quant_error"] = float(hd.qerr)
         if hd.prefill_qerrs is not None:
             st["kv_quant_error"] = float(hd.prefill_qerrs.max())
+        if self._kv_quant_gauge is not None and (hd.qerr is not None
+                                                 or hd.prefill_qerrs is not None):
+            # a host value that has landed, never a graph's output
+            self._kv_quant_gauge.set(st["kv_quant_error"])
         if hd.kind == "verify":
             # the write-index mirror advances by what the card committed,
             # for lanes still owned by the request the window ran for
             for s in np.nonzero(hd.active)[0]:
                 if hd.reqs[s] is not None and self._slot_req[s] is hd.reqs[s]:
                     self._lane_len[s] += int(counts[s])
-            st["verify_committed"] += int(counts[hd.active].sum())
-            st["spec_accepted"] += int(np.maximum(counts[hd.drafted] - 1, 0).sum())
-            st["draft_s"] += (hd.draft_marks[0].elapsed_time(hd.draft_marks[1]) / 1e3
-                              if hd.draft_marks else hd.draft_s)
+            self._bump("verify_committed", int(counts[hd.active].sum()))
+            accepted = int(np.maximum(counts[hd.drafted] - 1, 0).sum())
+            self._bump("spec_accepted", accepted)
+            for s in np.nonzero(hd.drafted)[0]:
+                self._accept_len_hist.observe(float(max(int(counts[s]) - 1, 0)))
+            if st["spec_drafted"]:
+                self._accept_rate_gauge.set(st["spec_accepted"] / st["spec_drafted"])
+            self.recorder.record("serve/verify", step=self._step_count,
+                                 drafted_lanes=int(hd.drafted.sum()),
+                                 committed=int(counts.sum()), accepted=accepted)
+            self._bump("draft_s", hd.draft_marks[0].elapsed_time(hd.draft_marks[1]) / 1e3
+                       if hd.draft_marks else hd.draft_s)
+        self._trace_drain(hd, counts, t0, t1)
         self._emit(toks, counts, hd)
         self._settle(hd.spills, hd.promotions)
         hd.spills, hd.promotions = [], []
@@ -1538,8 +2283,25 @@ class ServingEngine:
         if self._inflight is None:
             now = time.perf_counter()
             self._t_pipeline_empty = now
-            st["decode_s"] += now - self._busy_since
+            self._bump("decode_s", now - self._busy_since)
             self._busy_since = None
+
+    def _trace_drain(self, hd: Readback, counts: np.ndarray, t0: float, t1: float) -> None:
+        """Close each live lane's decode (or spec_verify) waterfall phase at
+        the drain, where a window's cost is known: the phase spans the
+        trace's cursor to the end of the fetch, and the fetch's wait rides
+        along as ``wait_s``.  Runs before the tokens land, so the phases
+        precede the first-token mark."""
+        phase = "spec_verify" if hd.kind == "verify" else "decode"
+        wait = max(t1 - t0, 0.0)
+        for s, req in hd.live_requests():
+            tr = req.trace
+            if tr is None or tr.finished:
+                continue
+            dur = tr.phase(phase, now=t1, step=self._step_count, lanes=hd.n_occupied,
+                           wait_s=wait)
+            n = max(int(counts[s]), 1)
+            self._decode_tok_hist.observe(dur / n, n)
 
     def _emit(self, toks: np.ndarray, counts: np.ndarray, hd: Readback) -> None:
         """Land a window's tokens on their requests: ``toks[s, :counts[s]]``
@@ -1548,7 +2310,8 @@ class ServingEngine:
         cap.  Lanes are those of the window's dispatch-time snapshot: a lane
         retired or preempted since then no longer owns its slot and its
         tokens drop, unless it was pre-freed (its request completes here);
-        finished lanes free their slot."""
+        finished lanes free their slot.  A lane's first ``hd.replayed[s]``
+        tokens were given (decode replay): streamed before, not again."""
         width = toks.shape[1]
         mask, reqs, eos = hd.active, hd.reqs, hd.eos
         valid = (np.arange(width)[None, :] < counts[:, None]) & mask[:, None]
@@ -1556,6 +2319,7 @@ class ServingEngine:
         has_eos = is_eos.any(axis=1)
         first_eos = np.where(has_eos, is_eos.argmax(axis=1), width)
         n_take = np.minimum(valid.sum(axis=1), first_eos + 1)
+        now = clock()
         for s in np.nonzero(n_take > 0)[0]:
             req = reqs[s]
             if req is None:
@@ -1563,24 +2327,59 @@ class ServingEngine:
             owner = self._slot_req[s] is req
             if not owner and not (int(s) in hd.prefreed and req.state is RequestState.RUNNING):
                 continue
-            n = min(int(n_take[s]), req.config.max_new_tokens - len(req.tokens))
+            given = int(hd.replayed[s]) if hd.replayed is not None else 0
+            if owner and given and self._draft_window is not None:
+                self._draft_window.push(int(s), toks[s, :given])
+            n = min(int(n_take[s]) - given, req.config.max_new_tokens - len(req.tokens))
             if n <= 0:
                 continue
-            for t in toks[s, :n]:
+            if not req.tokens:
+                self._first_token(req, now)
+            new = toks[s, given:given + n]
+            for t in new:
                 req.emit(int(t))
             if owner and self._draft_window is not None:
-                self._draft_window.push(int(s), toks[s, :n])
-            self.stats["tokens_generated"] += n
-            hit_eos = bool(has_eos[s]) and n == int(n_take[s])
+                self._draft_window.push(int(s), new)
+            self._bump("tokens_generated", n)
+            self._bump_tenant(req.tenant, "tokens_generated", n)
+            # the window lands n tokens at once: each is charged its share
+            # of the wall time since the lane's last arrival
+            self._token_hist.observe(max(now - req.last_token_time, 0.0) / n, n)
+            req.last_token_time = now
+            hit_eos = bool(has_eos[s]) and given + n == int(n_take[s])
             if hit_eos or len(req.tokens) >= req.config.max_new_tokens:
                 if owner:
                     self._retire_lane(s)
-                req.state = RequestState.DONE
-                self.stats["requests_completed"] += 1
-                # the submit-to-done average behind submit's deadline estimate
-                dur = max(clock() - req.submit_time, 0.0)
-                self._service_ema = (dur if self._service_ema == 0.0
-                                     else 0.8 * self._service_ema + 0.2 * dur)
+                self._finish_request(int(s), req, now)
+
+    def _first_token(self, req: Request, now: float) -> None:
+        """TTFT into the global, per-class and per-tenant histograms."""
+        ttft = now - req.submit_time
+        self._ttft_hist.observe(ttft)
+        if req.trace is not None:
+            req.trace.mark_first_token(now)
+        if req.request_class:
+            hist = self._class_ttft_hists.get(req.request_class)
+            if hist is None:
+                hist = self._class_ttft_hists[req.request_class] = self.metrics.histogram(
+                    f"serve/ttft_s_class_{req.request_class}", buckets=_LATENCY_BUCKETS)
+            hist.observe(ttft)
+        self._tenant_ttft(req.tenant, ttft)
+
+    def _finish_request(self, slot: int, req: Request, now: float) -> None:
+        req.state = RequestState.DONE
+        req.finish_step = self._step_count
+        # the submit-to-done average behind submit's deadline estimate
+        dur = max(now - req.submit_time, 0.0)
+        self._service_ema = (dur if self._service_ema == 0.0
+                             else 0.8 * self._service_ema + 0.2 * dur)
+        self._bump("requests_completed")
+        self._bump_tenant(req.tenant, "requests_completed")
+        self.recorder.record("serve/finish", rid=req.rid, slot=slot, step=self._step_count,
+                             tokens=len(req.tokens), steps=self._step_count - req.submit_step)
+        if req.trace is not None:
+            req.trace.tokens = len(req.tokens)
+            self.reqtrace.complete(req.trace, status="done")
 
     # ----------------------------------------------------------------- drive
     def step(self) -> None:
@@ -1588,9 +2387,34 @@ class ServingEngine:
         live), pre-free the lanes the window in flight finishes, budgeted
         chunked-prefill admission and the dispatch of one decode cycle (the
         dispatch first under ``interleave_prefill``), then the drain of the
-        window the pipeline hands back (with the traffic that rode it)."""
+        window the pipeline hands back (with the traffic that rode it).
+
+        Fault containment: the first exception to escape a step parks in
+        the engine and every later step raises it, until :meth:`revive`."""
+        if self._poisoned is not None:
+            raise self._poisoned
+        try:
+            self._step_impl()
+        except Exception as exc:
+            self._poisoned = exc
+            self.recorder.record("serve/engine_poisoned", error=repr(exc), step=self._step_count)
+            raise
+
+    def _step_impl(self) -> None:
         if self._has_deadlines:
             self._shed_blown_deadlines()
+        if (faults.ACTIVE is not None and self.paged and self._active.any()
+                and faults.ACTIVE.fire("page_exhaustion")):
+            # stand-in for the pool running dry: the reclaim ladder's last
+            # resort (preempt the youngest lane), after a drain as the
+            # ladder's step 2 does: with the window still in flight the
+            # victim could re-install into its old slot before the drain and
+            # the stale window's tokens would land twice
+            if self._inflight is not None:
+                self._drain_inflight()
+            self._preempt()
+        queue_depth = self.scheduler.queue_depth
+        self._queue_gauge.set(queue_depth)
         self._prefree_exhausted()
         if self.interleave_prefill:
             # the window first; the cycle's chunks queue behind it while the
@@ -1607,6 +2431,42 @@ class ServingEngine:
         prev, self._prev_handle = self._prev_handle, None
         if prev is not None:
             self._drain(prev)
+        st = self.stats
+        if self.prefix_cache is not None:
+            covered = st["prefix_hit_tokens"] + st["prefix_miss_tokens"]
+            if covered:
+                hit, host_hit = st["prefix_hit_tokens"], st["prefix_hit_tokens_host"]
+                self._hit_rate_gauge.set(hit / covered)
+                self._hit_rate_device_gauge.set((hit - host_hit) / covered)
+                self._hit_rate_host_gauge.set(host_hit / covered)
+        self._update_prefill_gauges()
+        if self.paged:
+            self.kv.publish_gauges()
+        self._step_count += 1
+        # progress heartbeat for the stall detector and /healthz, and the
+        # ring's per-step record of the pool
+        self.recorder.heartbeat("serve/step", step=self._step_count, queue=queue_depth,
+                                occupied=int(self._active.sum()))
+
+    def _update_prefill_gauges(self) -> None:
+        """``serve/prefill_tokens_per_s`` (valid prompt tokens over the wall
+        between steps that made prefill progress; idle stretches slide the
+        window) and ``serve/prefill_interleave_ratio``."""
+        chunks = self.stats["prefill_chunks"]
+        if chunks:
+            self._interleave_gauge.set(self.stats["interleaved_chunks"] / chunks)
+        tokens = self.stats["prefill_tokens"]
+        now = time.perf_counter()
+        if self._pf_last_t is None or tokens < self._pf_last_tokens:
+            self._pf_last_t, self._pf_last_tokens = now, tokens
+            return
+        if tokens == self._pf_last_tokens:
+            self._pf_last_t = now  # no prefill this step: slide the window
+            return
+        dt = now - self._pf_last_t
+        if dt > 0.0:
+            self._pf_rate_gauge.set((tokens - self._pf_last_tokens) / dt)
+        self._pf_last_t, self._pf_last_tokens = now, tokens
 
     @property
     def has_work(self) -> bool:
@@ -1614,23 +2474,130 @@ class ServingEngine:
         return (self.scheduler.has_queued or bool(self._active.any())
                 or self._inflight is not None)
 
-    def run(self, max_steps: Optional[int] = None) -> None:
-        """Drive :meth:`step` until every submitted request completes."""
+    def _update_tenant_kv_gauges(self) -> None:
+        """Per-tenant KV occupancy gauges (``serve/kv_pages_tenant_<t>``):
+        pages held by each tenant's lanes (lanes on the slab pool).  A
+        tenant with no live lane reads 0."""
+        if not self._tenant_stats:
+            return
+        held: dict = {}
+        for s in range(self.num_slots):
+            req = self._slot_req[s]
+            if req is None or req.tenant is None:
+                continue
+            held[req.tenant] = held.get(req.tenant, 0) + (
+                int(self.kv.lane_npages[s]) if self.paged else 1)
+        for tenant in self._tenant_stats:
+            gauge = self._tenant_kv_gauges.get(tenant)
+            if gauge is None:
+                gauge = self._tenant_kv_gauges[tenant] = self.metrics.gauge(
+                    f"serve/kv_pages_tenant_{tenant}")
+            gauge.set(held.get(tenant, 0))
+
+    def _log_health(self, dt: float, d_tokens: int) -> None:
+        """One-line serve-health summary (the ``metrics_interval`` heartbeat)."""
+        occupancy = float(self._active.mean()) if self.num_slots else 0.0
+        logger.info(
+            f"serve health: queue={self.scheduler.queue_depth} occupancy={occupancy:.2f} "
+            f"tokens/s={d_tokens / dt if dt > 0 else 0.0:.1f} "
+            f"token_p99={self._token_hist.percentile(99) * 1e3:.2f}ms "
+            f"completed={self.stats['requests_completed']}"
+            f"/{self.stats['requests_submitted']}")
+
+    def run(self, max_steps: Optional[int] = None,
+            metrics_interval: Optional[float] = None) -> None:
+        """Drive :meth:`step` until every submitted request completes.
+        ``metrics_interval`` (seconds) logs a one-line health summary at
+        that cadence, refreshes the per-tenant KV gauges and ticks the
+        installed SLO engine (:func:`~accelerate_tpu_torch.telemetry.
+        slo_tick`); off by default."""
         steps = 0
+        last_log = time.perf_counter()
+        last_tokens = self.stats["tokens_generated"]
         while self.has_work:
             self.step()
             steps += 1
+            if metrics_interval is not None:
+                now = time.perf_counter()
+                if now - last_log >= metrics_interval:
+                    self._log_health(now - last_log,
+                                     self.stats["tokens_generated"] - last_tokens)
+                    self._update_tenant_kv_gauges()
+                    slo_tick()
+                    last_log = now
+                    last_tokens = self.stats["tokens_generated"]
             if max_steps is not None and steps >= max_steps:
                 raise RuntimeError(f"engine did not drain in {max_steps} steps")
 
     def serve(self, prompts: Sequence, configs=None,
-              on_token: Optional[Callable[[Request, int], None]] = None) -> List[Request]:
+              on_token: Optional[Callable[[Request, int], None]] = None,
+              metrics_interval: Optional[float] = None) -> List[Request]:
         """Submit every prompt (``configs`` is one shared or a per-request list
         of ``GenerationConfig``), run to completion, return the requests in
-        submission order."""
+        submission order.  ``metrics_interval`` goes to :meth:`run`."""
         reqs = []
         for i, p in enumerate(prompts):
             cfg = configs[i] if isinstance(configs, (list, tuple)) else configs
             reqs.append(self.submit(p, config=cfg, on_token=on_token))
-        self.run()
+        self.run(metrics_interval=metrics_interval)
         return reqs
+
+    # ------------------------------------------------------------------ stats
+    def mean_slot_occupancy(self) -> float:
+        """Occupied lane-steps / total lane-steps across decode windows."""
+        total = self.stats["decode_steps"] * self.num_slots
+        return self.stats["occupied_lane_steps"] / total if total else 0.0
+
+    def analyze_costs(self) -> dict:
+        """Evaluate the cost table over every program the engine has run
+        and publish ``serve/decode_flops_per_token`` (the decode window's
+        FLOPs over ``window * num_slots``) and ``serve/hbm_peak_bytes``
+        (the largest card memory one program's graph holds; none on the
+        CPU).  Off the serve loop: benches call it, and the debug server
+        runs it before each ``/metrics`` scrape.  Returns the table's
+        snapshot."""
+        snap = self.cost_table.analyze_all()
+        decode_flops = self.cost_table.flops("serve/decode_window")
+        if decode_flops:
+            self._decode_flops_gauge.set(decode_flops / (self.window * self.num_slots))
+        hbm = self.cost_table.max_hbm_peak_bytes()
+        if hbm:
+            self._hbm_gauge.set(hbm)
+        return snap
+
+    def kv_pool_bytes(self) -> int:
+        """Card bytes the KV state occupies: the page pool (pages and
+        scales), or the slab pool plus the prefill scratch."""
+        if self.paged:
+            return self.kv.kv_bytes()
+        return sum(t.numel() * t.element_size()
+                   for t in (self.pool.k, self.pool.v, self.scratch.k, self.scratch.v))
+
+    def compiled_executable_counts(self) -> dict:
+        """Distinct call signatures of each program (its
+        :class:`RecompileWatchdog`), under the reference's keys: at most 1
+        each after any workload, and on the card each is one CUDA graph
+        per signature.  ``decode_window``, ``lane_install``, ``copy_page``
+        (paged; 0 until the first copy-on-write) or ``insert`` (slab),
+        ``verify_window`` or ``tree_verify_window`` and ``draft_forward``
+        (speculation; 0 until the first drafted cycle), ``prefill_<b>``,
+        ``copy_<b>`` (slab with the prefix cache), and ``spill_<b>`` /
+        ``promote_<b>`` (the host tier).  ``lane_install`` counts from the
+        first install: the port's lane vectors always live on the card,
+        where the reference's count starts at the first install after a
+        window."""
+        out = {"decode_window": self._programs["decode"].jit_cache_size(),
+               "lane_install": self._lane_install.jit_cache_size()}
+        if self.paged:
+            out["copy_page"] = self._copy_page.jit_cache_size()
+        else:
+            out["insert"] = self._insert.jit_cache_size()
+        for kind in ("tree", "verify", "draft"):
+            if kind in self._programs:
+                out[_PROGRAM_NAMES[kind]] = self._programs[kind].jit_cache_size()
+        for group, programs in (("prefill", self._prefill), ("copy", self._copy),
+                                ("spill", self._spill_extract),
+                                ("promote", self._promote_install)):
+            for b, program in programs.items():
+                out[f"{group}_{b}"] = program.jit_cache_size()
+        return out

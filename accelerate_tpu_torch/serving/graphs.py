@@ -67,6 +67,9 @@ class WindowGraphs:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self._windows: Dict[Hashable, CapturedWindow] = {}
+        #: the keys replayed at least once (a greedy serve replays no
+        #: sampling variant)
+        self.replayed: set = set()
 
     def __len__(self) -> int:
         return len(self._windows)
@@ -110,6 +113,7 @@ class WindowGraphs:
         static outputs (valid until the next replay)."""
         window = self._windows[key]
         window.graph.replay()
+        self.replayed.add(key)
         pa.credit_launches(window.launches[:-1])
         fp8.launches += window.launches[-1]
         return window.outputs

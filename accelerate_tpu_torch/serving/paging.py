@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..telemetry import MetricsRegistry, get_registry
 from ..ops.paged_attention import NULL_PAGE, kv_qmax, kv_storage_dtype
 
 
@@ -108,11 +109,15 @@ class PagedKVPool:
     store quantized pages with one f32 scale per (layer, page, kv-head),
     written at scatter time
     (:func:`~accelerate_tpu_torch.ops.paged_attention.paged_quantized_insert`;
-    ``accelerate_tpu/serving/paging.py:136``)."""
+    ``accelerate_tpu/serving/paging.py:136``).  ``registry``: where the
+    ``serve/kv_pages_*``, ``serve/kv_bytes_shared`` and
+    ``serve/kv_bytes_per_token`` gauges live (default: the process
+    registry); :meth:`publish_gauges` refreshes them."""
 
     def __init__(self, config, num_slots: int, max_len: int, page_size: int,
                  num_pages: int, kv_dtype: Optional[str] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 registry: Optional[MetricsRegistry] = None):
         if max_len % page_size != 0:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         self.device = resolve_device(device)
@@ -151,6 +156,21 @@ class PagedKVPool:
         # physical ids; NULL_PAGE marks unmapped entries
         self.tables = np.zeros((self.num_slots, self.pages_per_lane), np.int32)
         self.lane_npages = np.zeros(self.num_slots, np.int32)
+
+        registry = registry if registry is not None else get_registry()
+        self._in_use_gauge = registry.gauge(
+            "serve/kv_pages_in_use", help="allocated KV pages (null page excluded)")
+        self._free_gauge = registry.gauge("serve/kv_pages_free", help="KV pages on the free list")
+        self._shared_gauge = registry.gauge(
+            "serve/kv_bytes_shared",
+            help="KV bytes extra references alias instead of copying "
+                 "(sum of (refs-1) * page_bytes over shared pages)")
+        registry.gauge(
+            "serve/kv_bytes_per_token",
+            help="KV bytes one token costs across all layers at the pool's "
+                 "storage dtype, amortized per-page scales included",
+        ).set(self.kv_bytes_per_token)
+        self.publish_gauges()
 
     def lane_append_owned(self, slot: int, ids: Sequence[int]) -> None:
         """Map freshly allocated pages (ownership transfers to the lane) onto
@@ -216,6 +236,11 @@ class PagedKVPool:
         """Device bytes held by the page and scale arrays (null page included)."""
         return sum(t.numel() * t.element_size()
                    for t in (self.pages_k, self.pages_v, self.k_scales, self.v_scales))
+
+    def publish_gauges(self) -> None:
+        self._in_use_gauge.set(self.allocator.used_count)
+        self._free_gauge.set(self.allocator.free_count)
+        self._shared_gauge.set(self.allocator.shared_extra_refs() * self.page_kv_bytes)
 
 
 class DraftContextWindow:

@@ -172,6 +172,20 @@ class LaneState:
         self.sampled[slot].fill_(False)
         self.sampling[slot] = False
 
+    def reset(self) -> None:
+        """Every lane back to :meth:`create`'s values, in place (the graphs
+        keep reading these tensors): a revived engine trusts nothing a dying
+        window may have left in them."""
+        self.pending.zero_()
+        self.active.fill_(False)
+        self.eos.fill_(-1)
+        self.temperature.fill_(1.0)
+        self.top_k.zero_()
+        self.top_p.fill_(1.0)
+        self.keys.zero_()
+        self.sampled.fill_(False)
+        self.sampling[:] = False
+
 
 _RAW = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
 
@@ -301,16 +315,18 @@ def copy_chunk(scratch_k: torch.Tensor, scratch_v: torch.Tensor, node_k: torch.T
 
 
 def _decode_scan(model: Transformer, window: int, cache, lanes: LaneState, pad: int,
-                 sampling: bool):
+                 sampling: bool, forced: Optional[torch.Tensor] = None):
     """The masked decode steps shared by the paged and slab windows.  Each
     step feeds every lane's pending token at its own position, writes its KV
     there, and picks the next token per lane; lanes that are inactive or
     have emitted their EOS freeze: their index stops advancing and their
     outputs are ``pad``.  On pages a frozen lane's writes go to the null
     page (``active = ~done``: a quantized page write requantizes the whole
-    page); in the slab it overwrites its own dead slot.  Updates
-    ``lanes.pending`` in place; returns the tokens ``[N, window]`` and the
-    last cache."""
+    page); in the slab it overwrites its own dead slot.  ``forced [N,
+    window]`` (``-1``: free) overrides a lane's pick at a step with a given
+    token: a replayed request's tokens, already streamed, go through the
+    decode steps that first computed them.  Updates ``lanes.pending`` in
+    place; returns the tokens ``[N, window]`` and the last cache."""
     paged = isinstance(cache, PagedKVCache)
     tok = lanes.pending
     done = ~lanes.active
@@ -330,6 +346,8 @@ def _decode_scan(model: Transformer, window: int, cache, lanes: LaneState, pad: 
             )
         else:
             nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        if forced is not None:
+            nxt = torch.where(forced[:, step] >= 0, forced[:, step], nxt)
         nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
         done = done | ((lanes.eos >= 0) & (nxt == lanes.eos))
         out.append(nxt)
@@ -342,32 +360,35 @@ def _decode_scan(model: Transformer, window: int, cache, lanes: LaneState, pad: 
 def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
                   v_scales, tables: torch.Tensor, index: torch.Tensor,
                   lanes: LaneState, pad: int, sampling: Optional[bool] = None,
-                  plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  plain: bool = False, forced: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``window`` masked decode steps over the whole paged slot pool
     (:func:`_decode_scan`), through K1.  ``sampling`` picks the variant
     (default: does some lane sample): without it every lane takes the
-    argmax; with it sampled lanes draw one uniform a step.  Updates
+    argmax; with it sampled lanes draw one uniform a step.  ``forced``:
+    tokens given per lane and step (:func:`_decode_scan`).  Updates
     ``lanes.pending`` in place and returns the tokens ``[N, window]`` and
     the window's quantization error (both on the device)."""
     sampling = lanes.any_sampled if sampling is None else sampling
     cache = PagedKVCache(pages_k=pages_k, pages_v=pages_v, k_scales=k_scales,
                          v_scales=v_scales, tables=tables, index=index,
                          active=lanes.active.clone(), kernel="decode", plain=plain)
-    toks, cache = _decode_scan(model, window, cache, lanes, pad, sampling)
+    toks, cache = _decode_scan(model, window, cache, lanes, pad, sampling, forced)
     return toks, _quant_err(cache, toks.device)
 
 
 @torch.inference_mode()
 def slab_decode_window(model: Transformer, window: int, pool_k: torch.Tensor,
                        pool_v: torch.Tensor, index: torch.Tensor, lanes: LaneState, pad: int,
-                       sampling: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       sampling: Optional[bool] = None, forced: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``window`` masked decode steps over the slab pool ``pool_k``/``pool_v
     [L, N, M, Hkv, D]`` at the lanes' write ``index [N]`` (the reference's
     ``make_decode_window``, ``accelerate_tpu/serving/pool.py:175``), attended
     by plain PyTorch.  As :func:`decode_window`; the error is 0."""
     sampling = lanes.any_sampled if sampling is None else sampling
     toks, cache = _decode_scan(model, window, KVCache(k=pool_k, v=pool_v, index=index),
-                               lanes, pad, sampling)
+                               lanes, pad, sampling, forced)
     return toks, _quant_err(cache, toks.device)
 
 

@@ -55,6 +55,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import MetricsRegistry, get_registry
+
 #: Seed for the root prefix hash (djb2's seed; any odd constant works).
 _HASH_SEED = 5381
 #: Large Mersenne prime modulus keeps the rolling hash in cheap python ints.
@@ -160,10 +162,13 @@ class PrefixCache:
     disk_capacity_bytes / disk_dir: optional disk ring behind the host ring;
         host-tier LRU victims with landed payloads demote into files under
         ``disk_dir`` instead of dropping.
+    registry: metrics registry for the ``serve/prefix_*`` gauges and the
+        eviction/spill/promotion counters (default: the process registry).
     """
 
     def __init__(self, capacity_bytes: int, on_evict=None, host_capacity_bytes: int = 0,
-                 spill=None, disk_capacity_bytes: int = 0, disk_dir: Optional[str] = None):
+                 spill=None, disk_capacity_bytes: int = 0, disk_dir: Optional[str] = None,
+                 registry: Optional[MetricsRegistry] = None):
         self.on_evict = on_evict
         self.spill = spill
         self.capacity = int(capacity_bytes)
@@ -189,6 +194,23 @@ class PrefixCache:
         self._disk_nodes: List[PrefixNode] = []
         self._disk_seq = 0
         self._clock = 0
+        registry = registry if registry is not None else get_registry()
+        self._bytes_gauge = registry.gauge(
+            "serve/prefix_cache_bytes", help="retained prefix KV slab bytes")
+        self._nodes_gauge = registry.gauge(
+            "serve/prefix_cache_nodes", help="resident prefix cache nodes")
+        self._host_bytes_gauge = registry.gauge(
+            "serve/prefix_host_bytes",
+            help="prefix KV bytes resident in the host-RAM spill ring")
+        self._evict_counter = registry.counter(
+            "serve/prefix_cache_evictions_total",
+            help="prefix cache nodes dropped by LRU eviction")
+        self._spill_counter = registry.counter(
+            "serve/prefix_spills_total",
+            help="prefix nodes demoted device -> host spill ring")
+        self._promote_counter = registry.counter(
+            "serve/prefix_promotions_total",
+            help="spilled prefix nodes re-admitted to the device tier")
 
     # ---------------------------------------------------------------- lookup
     def _touch(self, node: PrefixNode) -> None:
@@ -260,6 +282,7 @@ class PrefixCache:
         parent.children[key] = node
         self._nodes.append(node)
         self.bytes += nbytes
+        self._publish()
         return node
 
     def insert_pages(self, parent: Optional[PrefixNode], tokens, page_ids: Sequence[int],
@@ -296,6 +319,7 @@ class PrefixCache:
         parent.children[key] = node
         self._nodes.append(node)
         self.bytes += node.nbytes
+        self._publish()
         return node
 
     def evict_one(self) -> bool:
@@ -374,6 +398,7 @@ class PrefixCache:
         if node.tier == "device":
             return False
         self.promotions += 1
+        self._promote_counter.inc()
         if not self._readmit(node, page_ids, node.nbytes):
             return False
         self._touch(node)
@@ -399,6 +424,7 @@ class PrefixCache:
         node.nbytes = int(nbytes)
         self._nodes.append(node)
         self.bytes += node.nbytes
+        self._publish()
         return True
 
     # -------------------------------------------------------------- eviction
@@ -470,6 +496,8 @@ class PrefixCache:
         self._host_nodes.append(node)
         self.host_bytes += node.nbytes
         self.spills += 1
+        self._spill_counter.inc()
+        self._publish()
         return True
 
     def _drop_subtree(self, node: PrefixNode) -> bool:
@@ -496,6 +524,8 @@ class PrefixCache:
         self._nodes.remove(node)
         self.bytes -= node.nbytes
         self.evictions += 1
+        self._evict_counter.inc()
+        self._publish()
         # a slab node's device copy frees with the node
         node.k = node.v = None
         if self.on_evict is not None:
@@ -516,6 +546,8 @@ class PrefixCache:
         node.tier = "device"  # detached; a neutral state for late settles
         self.host_evictions += 1
         self.evictions += 1
+        self._evict_counter.inc()
+        self._publish()
         # a slab node's device copy frees with the node
         node.k = node.v = None
         if self.on_evict is not None:
@@ -549,6 +581,7 @@ class PrefixCache:
         self.host_bytes -= node.nbytes
         self._disk_nodes.append(node)
         self.disk_bytes += node.nbytes
+        self._publish()
         return True
 
     def _drop_disk(self, node: PrefixNode) -> None:
@@ -559,6 +592,7 @@ class PrefixCache:
         node.host = None
         node.tier = "device"  # detached; a neutral state for late settles
         self.evictions += 1
+        self._evict_counter.inc()
         # a slab node's device copy frees with the node
         node.k = node.v = None
         if self.on_evict is not None:
@@ -571,6 +605,11 @@ class PrefixCache:
             pass
 
     # ----------------------------------------------------------------- stats
+    def _publish(self) -> None:
+        self._bytes_gauge.set(self.bytes)
+        self._nodes_gauge.set(len(self._nodes))
+        self._host_bytes_gauge.set(self.host_bytes)
+
     @property
     def num_nodes(self) -> int:
         return len(self._nodes)

@@ -82,6 +82,9 @@ class CacheTransfer:
     host: Tuple[torch.Tensor, ...] = ()
     marks: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
     seconds: float = 0.0
+    #: a promotion's flight-recorder fields (rid, bucket, ...) and its
+    #: request's trace, landed at the drain as ``serve/promote_land``
+    record: Optional[dict] = None
 
     def finish(self) -> float:
         """Wait for the transfer (nothing is left to wait for after its
@@ -132,6 +135,9 @@ class Readback:
     #: in this window's cycle, staged behind the chunks when the engine
     #: hands them to the window (``ready`` then follows them)
     prefill_qerrs: Optional[torch.Tensor] = None
+    #: decode windows: tokens given each lane (decode replay of streamed
+    #: tokens), which its drain does not emit again; ``None``: none given
+    replayed: Optional[np.ndarray] = None
     #: prefix-cache spills and promotions enqueued before this window
     spills: List[CacheTransfer] = dataclasses.field(default_factory=list)
     promotions: List[CacheTransfer] = dataclasses.field(default_factory=list)
@@ -148,6 +154,16 @@ class Readback:
         """Was ``slot`` active when this window was dispatched?  A live
         lane's pages must not return to the allocator until it retires."""
         return self.active is not None and bool(self.active[slot])
+
+    def live_requests(self):
+        """``(slot, request)`` of the lanes live at dispatch (pre-freed ones
+        too): the lanes this window owes tokens to."""
+        if self.active is None or self.reqs is None:
+            return
+        for s in np.nonzero(self.active)[0]:
+            req = self.reqs[s]
+            if req is not None:
+                yield int(s), req
 
     def settle(self, allocator) -> int:
         """Release every deferred page (after :meth:`fetch`)."""

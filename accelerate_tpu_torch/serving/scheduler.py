@@ -26,6 +26,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..models.generation import GenerationConfig
+from ..telemetry import get_flight_recorder
 from .errors import AdmissionError
 from .pool import plan_chunks
 
@@ -75,9 +76,31 @@ class Request:
     cached_chunks: int = 0
     cache_nodes: List[Any] = dataclasses.field(default_factory=list)
     cache_chain_broken: bool = False
+    submit_step: int = -1
+    finish_step: int = -1
+    # wall-clock stamps (time.perf_counter) for TTFT / per-token latency
     submit_time: float = 0.0
+    last_token_time: float = 0.0
     deadline_s: Optional[float] = None
     deadline_exceeded: bool = False
+    # traffic-class label ("chat", "batch", ...) for per-class TTFT
+    # histograms; None stays out of the per-class series entirely
+    request_class: Optional[str] = None
+    # tenant attribution label: rides the Request through preemption,
+    # export_inflight and failover ``adopt`` like ``trace`` does, so the
+    # per-tenant counters stay exact across replays
+    tenant: Optional[str] = None
+    # per-request latency waterfall (telemetry.reqtrace.RequestTrace; None
+    # when tracing is off); the same object rides through preemption and
+    # failover, which appends a ``failover`` phase to it
+    trace: Optional[Any] = dataclasses.field(default=None, repr=False)
+    # decode replay (a request adopted from a dead replica): prefill the
+    # prompt only, then feed the tokens already streamed through the
+    # decode steps that first computed them; ``replay_len`` of them, of
+    # which ``replay_done`` are in dispatched windows (both reset at install)
+    replay_decode: bool = False
+    replay_len: int = 0
+    replay_done: int = 0
 
     @property
     def done(self) -> bool:
@@ -92,8 +115,10 @@ class Request:
     def prefill_tokens(self) -> np.ndarray:
         """What prefill must process now: the prompt, plus — after a
         preemption — every token already generated (replay resumes exactly
-        where generation stopped; ``tokens`` is never re-emitted)."""
-        if not self.tokens:
+        where generation stopped; ``tokens`` is never re-emitted).  Under
+        decode replay, the prompt alone: the generated tokens go through
+        decode windows instead."""
+        if not self.tokens or self.replay_decode:
             return self.prompt
         return self.output_ids
 
@@ -118,7 +143,8 @@ class Scheduler:
     """
 
     def __init__(self, prefill_buckets: Sequence[int], prefill_token_budget: int,
-                 max_queue: Optional[int] = None, prefix_cache=None, max_prefills: int = 1):
+                 max_queue: Optional[int] = None, prefix_cache=None, max_prefills: int = 1,
+                 recorder=None):
         self.buckets = tuple(sorted(set(int(b) for b in prefill_buckets)))
         if not self.buckets:
             raise ValueError("need at least one prefill bucket")
@@ -139,6 +165,9 @@ class Scheduler:
         self._prefills: List[Request] = []
         self._chunk_this_step = False
         self.prefix_cache = prefix_cache
+        # request-lifecycle events for post-mortems (a no-op ring append when
+        # telemetry is off); the engine passes its tagged recorder
+        self.recorder = recorder if recorder is not None else get_flight_recorder()
 
     @property
     def prefills(self) -> Tuple[Request, ...]:
@@ -149,6 +178,12 @@ class Scheduler:
     def prefilling(self) -> Optional[Request]:
         """The oldest open prefill (the only one under ``max_prefills=1``)."""
         return self._prefills[0] if self._prefills else None
+
+    def take_prefills(self) -> List[Request]:
+        """Detach and return every open prefill (a replica's export: the
+        requests replay on a survivor)."""
+        out, self._prefills = self._prefills, []
+        return out
 
     def _match_prefix(self, request: Request) -> None:
         """(Re)walk the radix tree for ``request``'s longest cached prefix and
@@ -174,6 +209,11 @@ class Scheduler:
         request.chunks = plan_chunks(len(request.prefill_tokens), self.buckets)
         self._match_prefix(request)
         self.queue.append(request)
+        self.recorder.record(
+            "serve/submit", rid=request.rid, prompt_len=len(request.prompt),
+            chunks=len(request.chunks), cached_chunks=request.cached_chunks,
+            queue_depth=len(self.queue),
+        )
 
     def requeue(self, request: Request) -> None:
         """Put a preempted RUNNING request back at the FRONT of the queue; it
@@ -188,6 +228,16 @@ class Scheduler:
         request.cache_chain_broken = False
         self._match_prefix(request)
         self.queue.appendleft(request)
+        if request.trace is not None:
+            request.trace.annotate(
+                "requeue", effective_len=len(request.prefill_tokens),
+                cached_chunks=request.cached_chunks,
+            )
+        self.recorder.record(
+            "serve/requeue", rid=request.rid,
+            effective_len=len(request.prefill_tokens),
+            cached_chunks=request.cached_chunks, queue_depth=len(self.queue),
+        )
 
     def drop_cache_pins(self) -> int:
         """Release every queued request's prefix-cache pins (the engine's
@@ -216,6 +266,7 @@ class Scheduler:
                     self.prefix_cache.release(req.cache_nodes)
                     req.cache_nodes = []
                 req.state = RequestState.CANCELLED
+                self.recorder.record("serve/cancel", rid=rid)
                 return req
         return None
 
@@ -248,6 +299,10 @@ class Scheduler:
         # one needs (the batch-submit case)
         self._match_prefix(req)
         self._prefills.append(req)
+        self.recorder.record(
+            "serve/prefill_start", rid=req.rid, slot=slot,
+            chunks=len(req.chunks), cached_chunks=req.cached_chunks,
+        )
         return req
 
     @staticmethod

@@ -76,6 +76,18 @@ Phases, each printing one JSON line:
    ``serve_tokens_per_s`` (tokens over the serve's wall) beside
    ``decode_tokens_per_s`` (tokens over the engine's ``decode_s``: wall
    while a window was in flight) and ``decode_ms_per_step``.
+   The ``engine`` line's engine records into a private ``MetricsRegistry``
+   and serves its debug endpoints on an ephemeral local port
+   (``metrics_port=0``): after the serve ``/metrics`` (the Prometheus text
+   must parse; 6 requests completed, 6 TTFT observations), ``/healthz``
+   (200) and ``/debug/requests`` (six finished waterfalls) are fetched over
+   HTTP; it prints ``analyze_costs()``'s decode FLOPs a token and the cost
+   table's bytes a decode step beside the weights' bytes, and
+   ``compiled_executable_counts()``: each at most 1, and each window's and
+   chunk's count the number of its graphs the serve replayed.
+   ``engine_telemetry_off``: the same serve with the telemetry switched
+   off (``set_enabled(False)``): identical tokens; both lines print serve
+   tokens/s (a record, not a gate).
    Each prefill bucket's chunk is a graph too: the engine must hold one per
    bucket, and K2 must launch once a layer per chunk, credited by replays.
    ``engine_sync_eager``: the same requests through the A/B hook
@@ -278,6 +290,20 @@ Phases, each printing one JSON line:
    tokens and the last logits identical to a run whose map swaps layers
    0-1 with 20-21; peak card memory under 80 GB, pinned bytes, s/token
    beside the bound).
+7c. ``fleet`` (the serving model's weights, A, then B drawn from seed 1;
+   the model is not used after this line): an engine X on A serves two
+   requests, pauses admission, is drained and takes B by ``swap_params``
+   (in place: no graph is captured again), and serves two requests with
+   tokens identical to a fresh engine Y on B; an injected
+   ``hot_swap_upload`` fault refuses a third set (B with a random final
+   norm) and X's next tokens are unchanged; X serves the six ``engine``
+   requests and is ``kill``ed once two lanes have tokens and a request
+   waits, its ``export_inflight()`` requests are ``adopt``ed by Y and run
+   to the end: every request's tokens equal Y's uninterrupted serve of the
+   six, no token reaches ``on_token`` twice, ``requests_replayed`` equals
+   the export; ``revive()`` and X serves two requests again with Y's
+   tokens.  K1/K2 launches over the whole line, the steps' walls and the
+   peak memory are printed.
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
@@ -289,8 +315,8 @@ Phases, each printing one JSON line:
    D 96 on ``families``' ``phi3_d96``; K3-K5 at D 256 on ``train_gemma``,
    at D 80, 96, 32 and 16 on their own kernel cases; ``launches_on`` names
    the path each count comes from; K1 and K2 also with ``engine_mixtral``'s
-   and ``engine_int4``'s launches, K3-K5 with ``train_fp8``'s and
-   ``train_moe``'s),
+   and ``engine_int4``'s launches and with ``fleet``'s, K3-K5 with
+   ``train_fp8``'s and ``train_moe``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -800,7 +826,7 @@ ENGINE_LENS = (57, 100, 384, 700, 1000, 1500)
 
 
 def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, spec=None,
-                 prompts=None, name=None, eager=False, knobs=None):
+                 prompts=None, name=None, eager=False, knobs=None, telemetry=False):
     """Serve six greedy requests of 48 new tokens through ``ServingEngine``
     (``spec``: the speculation knobs; ``knobs``: other engine knobs;
     ``prompts``: else drawn from ``rng``), the launch counters zeroed just
@@ -812,6 +838,9 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
     of a decode window and each linear verify (its causal arm) and each
     tree verify (its tree-mask arm, counted apart), graph replays credited;
     the draft forward launches none; K2 once a layer per prefill chunk.
+    ``telemetry``: the engine records into a private registry and serves
+    its debug endpoints on an ephemeral local port, scraped after the serve
+    (:func:`scrape_phase`).
     The graphs captured (one per bucket among them) must not grow during the
     serve.  An fp8 model's ``_scaled_mm`` launches are counted too (one a
     projection a forward).  ``margin=None`` holds no token to the no-cache
@@ -822,9 +851,12 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
     from accelerate_tpu_torch.ops import fp8
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.telemetry import MetricsRegistry, get_reqtrace
 
     if prompts is None:
         prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in ENGINE_LENS]
+    if telemetry:
+        get_reqtrace().reset()
     lens = tuple(len(p) for p in prompts)
     gen = GenerationConfig(max_new_tokens=48)
 
@@ -832,6 +864,8 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
         kw = {**dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
                      kv_dtype=kv_dtype, prefix_cache_mb=0, device="cuda"), **(spec or {}),
               **(knobs or {})}
+        if telemetry:
+            kw.update(registry=MetricsRegistry(), metrics_port=0)
         if eager:
             return ServingEngine._eager(model, None, **{"async_depth": 0, **kw})
         return ServingEngine(model, None, **kw)
@@ -909,6 +943,7 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
     check(eager or st["graph_replays"] > 0, "no window replayed a graph")
     if (knobs or {}).get("interleave_prefill"):
         check(st["interleaved_chunks"] > 0, "no chunk queued behind a window of its cycle")
+    telemetry_rec = scrape_phase(engine, model, len(reqs)) if telemetry else {}
     if quantized:
         # the same serve again, untimed, by a new engine whose inserts are
         # watched for the largest scale they leave; scales of pages no insert
@@ -993,7 +1028,7 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
           "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
           "prefill_s": st["prefill_s"], "prefill_chunks": st["prefill_chunks"],
           "prefill_ms_per_chunk": 1e3 * st["prefill_s"] / st["prefill_chunks"],
-          "interleaved_chunks": st["interleaved_chunks"], "gpu": gpu})
+          "interleaved_chunks": st["interleaved_chunks"], **telemetry_rec, "gpu": gpu})
     if quantized:
         # quantization moves the logits by design: the tokens are held by
         # the error bound, not by the bf16 noise margin
@@ -1079,6 +1114,233 @@ def chunk_graph_phase(model, cfg, gpu) -> None:
         del engine, pool
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text exposition -> ``{sample name with labels: value}``;
+    raises on a line that is neither a comment nor ``name value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        check(re.fullmatch(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{le="[^"]+"\})?', name) is not None,
+              f"bad Prometheus sample name {name!r}")
+        out[name] = float(value)
+    return out
+
+
+def scrape_phase(engine, model, n_requests: int) -> dict:
+    """The ``engine`` line's telemetry, read as an operator reads it: its
+    ``/metrics``, ``/healthz`` and ``/debug/requests`` fetched over HTTP from
+    the engine's debug server on localhost; ``analyze_costs()`` beside the
+    weights' bytes; ``compiled_executable_counts()``, each at most 1 and
+    each window's and chunk's count the number of its graphs this serve
+    replayed.  The debug server stops after (it holds the engine)."""
+    import urllib.request
+
+    from accelerate_tpu_torch.telemetry import stop_debug_server
+
+    server = engine.debug_server
+    check(server is not None, "metrics_port=0 started no debug server")
+
+    def get(path):
+        with urllib.request.urlopen(server.url + path, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+
+    try:
+        status, text = get("/metrics")
+        samples = parse_prometheus(text)
+        health, _ = get("/healthz")
+        _, body = get("/debug/requests")
+        mine = [t for t in json.loads(body)["recent"]
+                if t["engine"] == engine.engine_id and t["status"] == "done"]
+        waterfall = (json.loads(get(f"/debug/requests/{engine.engine_id}:{mine[0]['rid']}")[1])
+                     if mine else {})
+    finally:
+        stop_debug_server()
+    completed = samples.get("atpu_serve_requests_completed_total_total")
+    ttft = samples.get("atpu_serve_ttft_s_count")
+    check(status == 200 and completed == n_requests and ttft == n_requests,
+          f"/metrics: status {status}, {completed} completed, {ttft} TTFT observations, "
+          f"want {n_requests}")
+    check(health == 200, f"/healthz answered {health}")
+    check(len(mine) == n_requests and all(t["phases"] > 0 for t in mine),
+          f"/debug/requests holds {len(mine)} finished waterfalls of this engine, "
+          f"want {n_requests}")
+    costs = engine.analyze_costs()
+    counts = engine.compiled_executable_counts()
+    programs = {"decode": "decode_window", "verify": "verify_window",
+                "tree": "tree_verify_window", "draft": "draft_forward"}
+    replayed = {}
+    for key in engine.graphs.replayed:
+        program = f"prefill_{key[1]}" if key[0] == "prefill" else programs[key[0]]
+        replayed[program] = replayed.get(program, 0) + 1
+    check(max(counts.values()) <= 1 and all(counts[k] == n for k, n in replayed.items()),
+          f"compiled_executable_counts {counts} against the graphs replayed {replayed}")
+    weights = model_bytes(model.state_dict())
+    return {"telemetry": {
+        "metrics_samples": len(samples), "requests_completed": completed,
+        "ttft_count": ttft, "healthz": health, "waterfalls": len(mine),
+        "waterfall_phases": [p["phase"] for p in waterfall.get("phase_list", [])][:12],
+        "decode_flops_per_token": engine.metrics.get("serve/decode_flops_per_token").value,
+        "decode_step_bytes": costs["serve/decode_window"]["bytes_accessed"] / engine.window,
+        "weights_bytes": weights, "weights_gb": weights / 1e9,
+        "hbm_peak_bytes": engine.cost_table.max_hbm_peak_bytes(),
+        "hbm_peak_bytes_by_program": {k: v["hbm_peak_bytes"] for k, v in costs.items()},
+        "compiled_executable_counts": counts, "graphs_replayed": replayed,
+        "device_peaks": dataclasses.asdict(engine.device_peaks)}}
+
+
+def telemetry_off_phase(model, cfg, rng, gpu, tol, prompts, tokens) -> None:
+    """``engine_telemetry_off``: the ``engine`` line's serve with the
+    telemetry switched off process-wide; the tokens must be identical (its
+    serve tokens/s beside ``engine``'s is a record, not a gate)."""
+    from accelerate_tpu_torch.telemetry import set_enabled
+
+    set_enabled(False)
+    try:
+        _, _, off_tokens = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
+                                        name="engine_telemetry_off")
+    finally:
+        set_enabled(True)
+    check(off_tokens == tokens, "engine_telemetry_off's tokens differ from engine's")
+
+
+def fleet_phase(model, cfg, gpu, prompts) -> dict:
+    """The ``fleet`` line (the module docstring's 7c): ``swap_params``, the
+    upload fault, a failover and ``revive`` on Llama-2-7B at full width and
+    depth.  ``model``'s weights are overwritten by the swap.  Returns the
+    K1/K2 launches of the whole line."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.models.transformer import Transformer
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ServingEngine, faults
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+    from accelerate_tpu_torch.weights import init_params
+
+    gen = GenerationConfig(max_new_tokens=48)
+    kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+              prefix_cache_mb=0, device="cuda")
+    walls = {}
+
+    def timed_serve(label, engine, ps):
+        t0 = time.perf_counter()
+        out = [r.tokens for r in engine.serve([p.copy() for p in ps], configs=gen)]
+        walls[label] = time.perf_counter() - t0
+        return out
+
+    gc.collect()  # engines of earlier lines serve from these weights: let them go
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    x = ServingEngine(model, None, registry=MetricsRegistry(), **kw)
+    walls["engine_x_init"] = time.perf_counter() - t0
+    two = prompts[:2]
+    on_a = timed_serve("x_on_a", x, two)
+    t0 = time.perf_counter()
+    sd_b = init_params(cfg, seed=1, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    walls["draw_b"] = time.perf_counter() - t0
+    shell = Transformer(cfg, device="meta")
+    shell.load_state_dict(sd_b, assign=True)
+    t0 = time.perf_counter()
+    y = ServingEngine(shell, None, registry=MetricsRegistry(), **kw)
+    walls["engine_y_init"] = time.perf_counter() - t0
+    # the swap: pause, drain, swap in place, resume
+    captures = x.stats["graph_captures"]
+    x.pause_admission()
+    while not x.drained:
+        x.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x.swap_params(sd_b, version="v1")
+    torch.cuda.synchronize()
+    walls["swap"] = time.perf_counter() - t0
+    x.resume_admission()
+    check(x.stats["graph_captures"] == captures,
+          f"the swap captured graphs: {captures} -> {x.stats['graph_captures']}")
+    on_b = timed_serve("x_on_b", x, two)
+    fresh_b = timed_serve("y_two", y, two)
+    check(on_b == fresh_b, "after swap_params, X's tokens differ from a fresh engine on B")
+    check(on_b != on_a, "the swap left X's tokens unchanged")
+    # the upload fault: a third set (B with a random final norm) is refused
+    third = dict(sd_b)
+    third["final_norm.scale"] = torch.randn_like(sd_b["final_norm.scale"])
+    faults.install("hot_swap_upload@1")
+    refused = False
+    try:
+        x.swap_params(third, version="v2")
+    except faults.FaultInjected:
+        refused = True
+    finally:
+        faults.clear()
+    del third
+    check(refused and x.weights_version == "v1", "the injected upload fault did not refuse")
+    after_fault = timed_serve("x_after_fault", x, two)
+    check(after_fault == on_b, "X's tokens changed across the refused swap")
+    # failover: Y's uninterrupted serve of the six, then X killed mid-serve
+    want = timed_serve("y_six", y, prompts)
+    streamed = {}
+    reqs = [x.submit(p.copy(), config=gen,
+                     on_token=lambda r, t: streamed.setdefault(id(r), []).append(len(r.tokens)))
+            for p in prompts]
+    steps = 0
+    t0 = time.perf_counter()
+    while not (sum(1 for r in reqs if r.state.value == "running" and r.tokens) >= 2
+               and x.scheduler.queue_depth >= 1):
+        check(x.has_work and steps < 10_000, "X drained before the kill point")
+        x.step()
+        steps += 1
+    kill_state = {"step": steps, "queued": x.scheduler.queue_depth,
+                  "tokens": [len(r.tokens) for r in reqs],
+                  "states": [r.state.value for r in reqs]}
+    x.kill("fleet line: simulated loss of the card")
+    exported = x.export_inflight()
+    for r in exported:
+        y.adopt(r)
+    y.run()
+    walls["failover"] = time.perf_counter() - t0
+    got = [r.tokens for r in reqs]
+    mismatched = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    repeated = [i for i, r in enumerate(reqs)
+                if streamed.get(id(r)) != list(range(1, len(r.tokens) + 1))]
+    # the reference's replay, for the record: each request re-prefilled with
+    # its first 8 tokens, the continuation held against Y's uninterrupted
+    # one (the first index where they part; None: never)
+    reprefilled = y.serve([np.concatenate([p, np.asarray(t[:8], np.int32)]) for p, t in
+                           zip(prompts, want)], configs=GenerationConfig(max_new_tokens=40))
+    prefill_replay_parts = [next((i for i, (a, b) in enumerate(zip(r.tokens, t[8:])) if a != b),
+                                 None) for r, t in zip(reprefilled, want)]
+    t0 = time.perf_counter()
+    x.revive()
+    walls["revive"] = time.perf_counter() - t0
+    revived = timed_serve("x_revived", x, two)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_flash_prefill": pa.paged_flash_prefill.launches}
+    emit({"phase": "fleet", "config": "llama2_7b", "layers": cfg.num_layers, "dtype": "bfloat16",
+          "weights_gb_each": model_bytes(sd_b) / 1e9, "graph_captures_x": captures,
+          "kill": kill_state, "exported": len(exported),
+          "requests_replayed": y.stats["requests_replayed"],
+          "failover_mismatched_requests": mismatched, "repeated_streams": repeated,
+          "prefill_replay_first_difference": prefill_replay_parts,
+          "hot_swaps": x.stats["hot_swaps"], "walls_s": walls, "launches": launches,
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "tokens_per_s_y_six": sum(len(t) for t in want) / walls["y_six"], "gpu": gpu})
+    check(not mismatched, f"failover tokens of requests {mismatched} differ from Y's "
+          "uninterrupted serve")
+    check(not repeated and all(len(r.tokens) == 48 for r in reqs),
+          f"requests {repeated} streamed a token twice, or a request finished short")
+    check(y.stats["requests_replayed"] == len(exported),
+          f"requests_replayed {y.stats['requests_replayed']} != {len(exported)} exported")
+    check(revived == want[:2], "the revived engine's tokens differ from Y's")
+    check(launches["paged_attention"] > 0 and launches["paged_flash_prefill"] > 0,
+          f"the fleet line launched no kernel: {launches}")
+    del x, y, shell, sd_b
+    free_card()
+    return launches
 
 
 def cancel_phase(model, cfg, gpu, prompts, tokens) -> None:
@@ -2841,7 +3103,7 @@ def train_full_phase(gpu) -> dict:
 def checkpoint_offload_phase(gpu) -> dict:
     """The ``checkpoint`` line's mid-window save and resume with the
     optimizer offloaded, once with its state in pinned host memory and once
-    in files (the nvme tier): 2 of 32 layers at full width, 512 MB chunks,
+    in files (the nvme tier): 1 of 32 layers at full width, 512 MB chunks,
     the reference loop, 3 calls (accumulation 2: the save holds one
     micro-step), ``save_state``, ``load_state`` into a fresh accelerator and
     a state from another seed, 1 more call (the update that needs the
@@ -2849,12 +3111,12 @@ def checkpoint_offload_phase(gpu) -> dict:
     working weights and the masters and second moments bitwise an
     uninterrupted run of 4 with the state in host memory (so the nvme tier
     is held against the host tier too).  Each nvme sync step moves the
-    whole 8 GB state through files twice, so the calls are kept few."""
+    whole state through files twice, so the calls and layers are kept few."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    layers = 2
+    layers = 1
     cfg = train_config(layers)
     rng = np.random.default_rng(8)
     batches = [{"input_ids": torch.from_numpy(rng.integers(
@@ -3326,6 +3588,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the engine line's debug server listens on localhost only
+    os.environ["ATPU_METRICS_HOST"] = "127.0.0.1"
     gpu = gpu_line()
     print(gpu, flush=True)
     _build.load()
@@ -3478,7 +3742,8 @@ def main() -> int:
     tol = model_phase(model, cfg, rng)
     for fmt in pa.KV_FORMATS:
         quantized_model_phase(model, cfg, rng, fmt, tol)
-    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol)
+    launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, telemetry=True)
+    telemetry_off_phase(model, cfg, rng, gpu, tol, prompts, tokens)
     # the A/B baseline: eager windows, synchronous loop, the same requests;
     # the same kernels on the same inputs give the same greedy tokens
     _, _, eager_tokens = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
@@ -3510,6 +3775,8 @@ def main() -> int:
     # then the same weights streamed from pinned host memory
     generate_phase(model, cfg, rng, gpu, tol)
     stream_offload_phase(model, cfg, rng, gpu)
+    # the fleet surface (swap_params overwrites the model's weights: last)
+    fleet_launches = fleet_phase(model, cfg, gpu, prompts)
     del model
     free_card()
     stream_disk_phase(gpu)
@@ -3529,6 +3796,7 @@ def main() -> int:
     family_launches["engine_int4"] = int4_phases(gpu)
     # an fp8 model served (its decode windows' M = 4 lanes, padded in the product)
     family_launches["engine_fp8_model"] = engine_fp8_model_phase(gpu, rng, prompts)
+    family_launches["fleet"] = fleet_launches
 
     flash = flash_phase([
         ("train", 13, 2, 2048, 32, 32, bf16, True, False),

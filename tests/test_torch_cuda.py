@@ -45,7 +45,11 @@ card equal the CPU engine's; the fp8 product zero-padded at M = 4 and 24.
 Single-card training memory: per-layer remat bitwise the plain backward
 (K3 relaunched by the recompute), the offloaded chunked update bitwise one
 chunk's and two in flight's, and its whole-state round trip bitwise the
-optimizer kept on the card.
+optimizer kept on the card.  The fleet surface: ``swap_params`` on a graphed
+engine replays the new weights with no capture (tokens equal a fresh
+engine's), gauges keep the host values they were set to while the graphs
+replay, ``/metrics`` is scraped over HTTP while a graphed engine serves,
+and ``revive`` after a ``kill`` mid-window serves the same tokens again.
 """
 
 import functools
@@ -1796,3 +1800,146 @@ def test_generate_graph_replays_the_eager_step(card):
         assert torch.equal(seq[:, prompt.shape[1]:], torch.stack(toks, 1))
     assert graphed.index.tolist() == eager.index.tolist() == [64, 64]
     assert torch.equal(graphed.k, eager.k) and torch.equal(graphed.v, eager.v)
+
+
+# ------------------------------------------------------------ fleet surface
+def _fleet_model(card, seed):
+    cfg = TransformerConfig.tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                                 max_seq_len=128)
+    sd = init_params(cfg, seed=seed, device=card, dtype=torch.bfloat16)
+    model = Transformer(cfg, device="meta")
+    model.load_state_dict(sd, assign=True)
+    return cfg, model
+
+
+_FLEET_KW = dict(num_slots=2, max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                 prefix_cache_mb=0)
+
+
+def _fleet_prompts(n=4):
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, 256, int(k)).astype(np.int32) for k in (9, 40, 17, 25)[:n]]
+
+
+def _greedy(engine, prompts, new=12):
+    reqs = engine.serve([p.copy() for p in prompts],
+                        configs=GenerationConfig(max_new_tokens=new))
+    return [r.tokens for r in reqs]
+
+
+def test_swap_params_replays_new_weights_without_captures(card):
+    """``swap_params`` on a graphed engine copies the new weights into the
+    tensors its graphs read: no graph is captured again, and the tokens
+    equal a fresh engine's on the new weights."""
+    _, model_a = _fleet_model(card, 0)
+    cfg, model_b = _fleet_model(card, 1)
+    engine = ServingEngine(model_a, None, device=card, **_FLEET_KW)
+    fresh = ServingEngine(model_b, None, device=card, **_FLEET_KW)
+    prompts = _fleet_prompts()
+    before = _greedy(engine, prompts)
+    captures = engine.stats["graph_captures"]
+    new = {k: v.clone() for k, v in model_b.state_dict().items()}
+    engine.swap_params(new, version="v1")
+    assert engine.stats["graph_captures"] == captures > 0
+    after = _greedy(engine, prompts)
+    assert after == _greedy(fresh, prompts) and after != before
+    assert engine.stats["graph_replays"] > 0 and engine.weights_version == "v1"
+
+
+def test_gauges_hold_landed_values_across_replays(card):
+    """The engine hands gauges host values that have landed, never a
+    graph's output: ``serve/kv_quant_error`` keeps the value of the window it
+    was read from while the graph replays again; a gauge holding a CUDA
+    tensor that nothing rewrites is read at snapshot time."""
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    _, model = _fleet_model(card, 0)
+    registry = MetricsRegistry()
+    engine = ServingEngine(model, None, device=card, kv_dtype="int8", registry=registry,
+                           **_FLEET_KW)
+    _greedy(engine, _fleet_prompts())
+    gauge = registry.get("serve/kv_quant_error")
+    seen = gauge.value
+    assert seen == engine.stats["kv_quant_error"] > 0.0
+    key = engine._graph_key("decode", False)
+    err = engine.graphs._windows[key].outputs[1]  # the graph's own error output
+    for _ in range(3):
+        engine.graphs.replay(key)  # rewritten by replays of every lane inactive
+    torch.cuda.synchronize()
+    assert gauge.value == seen and isinstance(gauge._value, float)
+    assert float(err) != seen  # the graph's output moved on; the gauge did not
+    level = torch.full((), 2.5, device=card)
+    registry.gauge("serve/level").set(level)
+    level.fill_(4.0)
+    assert registry.snapshot()["serve/level"] == 4.0
+
+
+def test_metrics_scrape_while_a_graphed_engine_serves(card, monkeypatch):
+    """``/metrics`` fetched over HTTP from another thread while a graphed
+    engine serves (the scrape runs ``analyze_costs``): every scrape parses
+    and the last one counts every request; each graph's capture is its
+    program's card memory."""
+    import threading
+    import urllib.request
+
+    from accelerate_tpu_torch.telemetry import MetricsRegistry, stop_debug_server
+    from chip_smoke import parse_prometheus
+
+    monkeypatch.setenv("ATPU_METRICS_HOST", "127.0.0.1")
+    _, model = _fleet_model(card, 0)
+    engine = ServingEngine(model, None, device=card, registry=MetricsRegistry(),
+                           metrics_port=0, **_FLEET_KW)
+    url = engine.debug_server.url + "/metrics"
+    scrapes, stop = [], threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            with urllib.request.urlopen(url, timeout=30) as resp:
+                scrapes.append(parse_prometheus(resp.read().decode()))
+
+    thread = threading.Thread(target=scrape)
+    try:
+        thread.start()
+        prompts = _fleet_prompts()
+        _greedy(engine, prompts + prompts)
+        stop.set()
+        thread.join(timeout=60)
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            last = parse_prometheus(resp.read().decode())
+    finally:
+        stop.set()
+        stop_debug_server()
+    assert scrapes and last["atpu_serve_requests_completed_total_total"] == 8
+    assert last["atpu_serve_ttft_s_count"] == 8 and last["atpu_serve_hbm_peak_bytes"] > 0
+    assert last["atpu_serve_decode_flops_per_token"] > 0
+    peaks = engine.cost_table.snapshot()
+    assert peaks["serve/decode_window"]["hbm_peak_bytes"] > 0
+
+
+def test_revive_after_kill_mid_window(card):
+    """``kill`` with a window in flight, ``export_inflight`` (adopted by a
+    survivor: the tokens of an uninterrupted serve, none streamed twice),
+    then ``revive``: the handles are fetched, every page comes back, and the
+    engine serves the same tokens as before."""
+    _, model = _fleet_model(card, 0)
+    _, twin = _fleet_model(card, 0)
+    engine = ServingEngine(model, None, device=card, **_FLEET_KW)
+    survivor = ServingEngine(twin, None, device=card, **_FLEET_KW)
+    prompts = _fleet_prompts()
+    want = _greedy(survivor, prompts)
+    streamed = {}
+    reqs = [engine.submit(p.copy(), max_new_tokens=12,
+                          on_token=lambda r, t: streamed.setdefault(id(r), []).append(
+                              len(r.tokens)))
+            for p in prompts]
+    while not (engine._inflight is not None and any(r.tokens for r in reqs)):
+        engine.step()
+    engine.kill()
+    for r in engine.export_inflight():
+        survivor.adopt(r)
+    survivor.run()
+    assert [r.tokens for r in reqs] == want
+    assert all(streamed[id(r)] == list(range(1, 13)) for r in reqs)
+    engine.revive()
+    assert engine.drained and engine.kv.allocator.free_count == engine.num_pages - 1
+    assert _greedy(engine, prompts) == want

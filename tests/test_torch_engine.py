@@ -237,8 +237,7 @@ def test_admission_refusals(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "8"), (dict(role="prefill"), "8"),
-    (dict(registry=object()), "8"), (dict(metrics_port=0), "8"), (dict(tp_axis="model"), "8"),
+    (dict(mesh=object()), "9e"), (dict(role="prefill"), "8b"), (dict(tp_axis="model"), "9e"),
 ])
 def test_unported_arguments_raise(models, kw, item):
     """The reference's keywords that the port has not ported raise
@@ -250,16 +249,74 @@ def test_unported_arguments_raise(models, kw, item):
         ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
 
 
-@pytest.mark.parametrize("kw", [dict(request_class="chat"), dict(tenant="acme")])
-def test_unported_submit_arguments_raise(models, kw):
-    """``submit(request_class=, tenant=)``: the reference's accounting
-    labels raise ``NotImplementedError`` naming item 8, not a bare
-    ``TypeError`` from the generation config."""
+def test_registry_argument_records_into_it(models):
+    """``registry=``: the engine, its page pool and its prefix cache record
+    into the caller's registry (the process registry is untouched)."""
+    from accelerate_tpu_torch.telemetry import MetricsRegistry as PortRegistry
+    from accelerate_tpu_torch.telemetry import get_registry
+
     _, _, model, params = models
-    engine = ServingEngine(model, params, device="cpu", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        engine.submit(np.arange(1, 5), max_new_tokens=2, **kw)
-    assert engine.scheduler.queue_depth == 0
+    registry = PortRegistry()
+    before = get_registry().snapshot().get("serve/requests_submitted_total", 0.0)
+    engine = ServingEngine(model, params, device="cpu", registry=registry, **ENGINE_KW)
+    engine.serve([np.arange(1, 6), np.arange(3, 12)], configs=GenerationConfig(max_new_tokens=3))
+    snap = registry.snapshot()
+    assert snap["serve/requests_completed_total"] == 2
+    assert snap["serve/tokens_generated_total"] == 6 == engine.stats["tokens_generated"]
+    assert snap["serve/ttft_s"]["count"] == 2
+    assert "serve/kv_pages_free" in snap and "serve/prefix_cache_bytes" in snap
+    assert get_registry().snapshot().get("serve/requests_submitted_total", 0.0) == before
+
+
+def test_metrics_port_serves_the_engine(models, monkeypatch):
+    """``metrics_port=0``: the debug server binds an ephemeral local port and
+    serves the engine's registry (after ``analyze_costs``) over HTTP."""
+    import urllib.request
+
+    from accelerate_tpu_torch.telemetry import MetricsRegistry as PortRegistry
+    from accelerate_tpu_torch.telemetry import stop_debug_server
+
+    _, _, model, params = models
+    monkeypatch.setenv("ATPU_METRICS_HOST", "127.0.0.1")
+    try:
+        engine = ServingEngine(model, params, device="cpu", registry=PortRegistry(),
+                               metrics_port=0, **ENGINE_KW)
+        assert engine.debug_server is not None and engine.debug_server.port > 0
+        engine.serve([np.arange(1, 6)], configs=GenerationConfig(max_new_tokens=2))
+        url = f"http://127.0.0.1:{engine.debug_server.port}"
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            text = resp.read().decode()
+        # a counter named serve/<key>_total renders with the exposition's own suffix
+        assert "atpu_serve_requests_completed_total_total 1" in text.splitlines()
+        assert "atpu_serve_decode_flops_per_token" in text
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            assert resp.status == 200
+    finally:
+        stop_debug_server()
+
+
+@pytest.mark.parametrize("kw", [dict(request_class="chat"), dict(tenant="acme")])
+def test_submit_accounting_arguments(models, kw):
+    """``submit(request_class=, tenant=)``: the reference's accounting labels
+    ride the request into the per-class TTFT histogram and the per-tenant
+    counters, which sum to the global ones."""
+    from accelerate_tpu_torch.telemetry import MetricsRegistry as PortRegistry
+
+    _, _, model, params = models
+    registry = PortRegistry()
+    engine = ServingEngine(model, params, device="cpu", registry=registry, **ENGINE_KW)
+    req = engine.submit(np.arange(1, 5), max_new_tokens=2, **kw)
+    engine.submit(np.arange(2, 9), max_new_tokens=2)
+    engine.run()
+    assert (req.request_class, req.tenant) == (kw.get("request_class"), kw.get("tenant"))
+    snap = registry.snapshot()
+    if "request_class" in kw:
+        assert snap["serve/ttft_s_class_chat"]["count"] == 1
+    else:
+        assert engine.stats()["tenants"] == {"acme": {
+            "requests_submitted": 1, "tokens_generated": 2, "requests_completed": 1}}
+        assert snap["serve/tokens_generated_tenant_acme_total"] == 2
+        assert snap["serve/ttft_s_tenant_acme"]["count"] == 1
 
 
 def test_kernel_keywords_and_weights_version(models, monkeypatch):
