@@ -63,9 +63,26 @@ gradient buffer in the compute dtype.  ``rng_types`` is stored (it matters
 only with several processes) and ``dynamo_backend`` accepted and ignored
 (the step is not compiled by dynamo), as in the reference.
 
+Telemetry, as in the reference: the step records into the process
+registry (:mod:`~accelerate_tpu_torch.telemetry`) the ``train/step_time_s``
+histogram (the step's time on the card's stream, between CUDA events
+recorded around it and read once the step has finished, never waited for
+in the loop; host wall on the CPU), ``train/steps_total``,
+``train/tokens_total``, ``train/tokens_per_s``, the deferred 0-d tensor
+gauges ``train/loss`` and ``train/grad_norm`` (read at a scrape, never in
+the loop), ``train/model_flops`` and ``train/step_mfu`` (the FLOPs of
+:func:`~accelerate_tpu_torch.telemetry.cost.train_step_cost` over the
+step's time and the card's peak) and ``train/hbm_peak_bytes`` (the
+allocator's peak after the step); a ``train/step`` span and heartbeat; and a
+:class:`~accelerate_tpu_torch.telemetry.RecompileWatchdog` over the step,
+where a "compile" is a new ``(shape, dtype, device)`` signature of the
+batch.  Eval steps record ``eval/step_time_s``; ``save_state``,
+``load_state`` and ``save_model`` their ``checkpoint/*`` spans, histograms
+and byte counters.  ``metrics_port`` starts the debug server.
+
 Arguments for what is not ported — the ZeRO plugin, Megatron plugin,
-meshes, PowerSGD, trackers, the metrics endpoint — raise
-``NotImplementedError`` naming their ROADMAP item.
+meshes, PowerSGD, trackers — raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -88,6 +105,18 @@ from .data_loader import skip_first_batches as _skip_first_batches
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
+from .telemetry import (
+    CostTable,
+    RecompileWatchdog,
+    detect_device_peaks,
+    get_flight_recorder,
+    get_registry,
+    get_tracer,
+    start_debug_server,
+)
+from .telemetry import metrics as _telemetry_metrics
+from .telemetry.cost import batch_token_shape, train_step_cost
+from .telemetry.watchdog import tensor_signature
 from .train_state import TrainState, global_norm, tree_finite
 from .utils import operations as ops
 from .utils import remat as _remat
@@ -110,7 +139,6 @@ _UNPORTED_ARGS = {
     "megatron_lm_plugin": f"tensor/pipeline/sequence parallelism: {_PARALLEL}",
     "mesh": f"device meshes: {_PARALLEL}",
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
-    "metrics_port": "the training telemetry and its metrics endpoint: ROADMAP Queue 1 item 8a-ii",
 }
 
 
@@ -123,6 +151,12 @@ def _tensors(tree) -> List[torch.Tensor]:
     leaves: List[torch.Tensor] = []
     ops.recursively_apply(leaves.append, tree, _is_tensor)
     return leaves
+
+
+def _batch_signature(args, kwargs):
+    """A step's signature: its batch's tensors (the state is the same
+    object on every call)."""
+    return tensor_signature(args[1:], kwargs)
 
 
 def _is_dataloader_like(obj) -> bool:
@@ -156,7 +190,7 @@ class Accelerator:
         metrics_port: Optional[int] = None,
     ):
         given = dict(deepspeed_plugin=deepspeed_plugin, megatron_lm_plugin=megatron_lm_plugin,
-                     mesh=mesh, log_with=log_with, metrics_port=metrics_port)
+                     mesh=mesh, log_with=log_with)
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -228,6 +262,23 @@ class Accelerator:
         self._load_model_state_pre_hooks: Dict[Any, Callable] = {}
         self._chunk_info: Optional[Dict[str, Any]] = None  # set under offload_optimizer
         self._offload_master = False
+
+        # telemetry: the process registry and span tracer every built-in
+        # surface records into, the flight recorder (the step's heartbeat),
+        # the cost table (each step's FLOP formula over its batch shapes)
+        # and the opt-in debug server
+        self.telemetry = get_registry()
+        self.tracer = get_tracer()
+        self.flight_recorder = get_flight_recorder()
+        self.cost_table = CostTable(self.telemetry)
+        self.device_peaks = detect_device_peaks(self.device)
+        #: each instrumented step's settle: lands the card timings of its
+        #: finished steps (analyze_costs waits for them all)
+        self._step_settles: List[Callable[[bool], None]] = []
+        self.debug_server = start_debug_server(metrics_port, registry=self.telemetry,
+                                               recorder=self.flight_recorder)
+        if self.debug_server is not None:
+            self.debug_server.add_collector(self.analyze_costs)
 
     # ------------------------------------------------------------- properties
     @property
@@ -558,10 +609,34 @@ class Accelerator:
         """Name -> master cast to the compute dtype (differentiable)."""
         return self.policy.cast_to_compute(dict(model.named_parameters()))
 
+    def analyze_costs(self) -> Dict[str, Any]:
+        """Land the card timings of every finished step (waiting for the
+        steps still on the card), evaluate the cost table over every step
+        program this accelerator ran, and publish ``train/model_flops`` and
+        ``train/hbm_peak_bytes``.  Off the step loop: benches call it, and
+        the debug server runs it before each ``/metrics`` scrape.  Returns
+        the table's snapshot."""
+        for settle in list(self._step_settles):
+            settle(True)
+        snap = self.cost_table.analyze_all()
+        for name, entry in snap.items():
+            if name.startswith("train_step/"):
+                if entry.get("flops"):
+                    self.telemetry.gauge(
+                        "train/model_flops", help="XLA-estimated FLOPs per train step",
+                    ).set(entry["flops"])
+                if entry.get("hbm_peak_bytes"):
+                    self.telemetry.gauge(
+                        "train/hbm_peak_bytes",
+                        help="train step executable HBM peak (arg+out+temp-alias)",
+                    ).set(entry["hbm_peak_bytes"])
+        return snap
+
     # ------------------------------------------------------------- train step
     def compile_train_step(self, loss_fn: Callable, *, has_aux: bool = False,
                            max_grad_norm: Optional[float] = None,
-                           max_grad_value: Optional[float] = None) -> Callable:
+                           max_grad_value: Optional[float] = None,
+                           compile_budget: Optional[int] = 4) -> Callable:
         """Build ``step(state, batch) -> (state, metrics)`` for
         ``loss_fn(params, batch) -> loss`` (``(loss, aux)`` with ``has_aux``),
         where ``params`` maps parameter names to the compute-dtype weights.
@@ -577,7 +652,11 @@ class Accelerator:
         the chunked one (the state's :class:`~accelerate_tpu_torch.utils.
         chunked_update.ChunkedOptimizer`), after the clip over the whole
         buffer; under ``cpu_offload`` the working weights come to the card
-        for the call and go back after it."""
+        for the call and go back after it.
+
+        The step is instrumented (the module docstring's telemetry); more
+        than ``compile_budget`` distinct batch signatures log a warning
+        (``None``: count without warning)."""
         accum = self.gradient_accumulation_steps
         fp16 = self._use_loss_scaling
         chunked = self._chunk_info is not None
@@ -649,7 +728,112 @@ class Accelerator:
                                                        lambda t: isinstance(t, torch.Tensor))
             return state, metrics
 
-        return step
+        name = getattr(loss_fn, "__name__", "loss")
+        # a "compile" of the eager step: a new (shape, dtype, device)
+        # signature of the batch
+        watched = RecompileWatchdog(step, name=f"train_step/{name}", budget=compile_budget,
+                                    registry=self.telemetry, signature=_batch_signature)
+        return self._instrument_train(watched, f"train_step/{name}")
+
+    def _instrument_train(self, watched: Callable, cost_key: str) -> Callable:
+        """The reference's telemetry wrapper around a train step (its
+        ``train/*`` instruments, names and help strings).  With telemetry
+        off it is one boolean check."""
+        registry, tracer, recorder = self.telemetry, self.tracer, self.flight_recorder
+        cost_table, peak_flops = self.cost_table, self.device_peaks.flops_per_s
+        step_hist = registry.histogram("train/step_time_s", help="train step wall time (s)")
+        steps_total = registry.counter("train/steps_total", help="train step calls")
+        tokens_total = registry.counter("train/tokens_total", help="tokens (or samples) stepped")
+        tps_gauge = registry.gauge("train/tokens_per_s", help="last-step token throughput")
+        gnorm_gauge = registry.gauge("train/grad_norm", help="last-step gradient norm (deferred)")
+        loss_gauge = registry.gauge("train/loss", help="last-step loss (deferred)")
+        mfu_gauge = registry.gauge(
+            "train/step_mfu", help="measured FLOPs/s over chip peak, clamped to (0, 1]")
+        flops_gauge = registry.gauge(
+            "train/model_flops", help="XLA-estimated FLOPs per train step")
+        hbm_gauge = registry.gauge(
+            "train/hbm_peak_bytes", help="train step executable HBM peak (arg+out+temp-alias)")
+        #: steps on the card whose end event has not been read:
+        #: (start, end, tokens, FLOPs)
+        on_card: List[tuple] = []
+        #: the batch shapes the cost table's entry was captured with
+        captured: Dict[str, Any] = {"shapes": None, "formula": None}
+
+        def record(dt: float, ntok: int, flops: Optional[float]) -> None:
+            step_hist.observe(dt)
+            if ntok:
+                tps_gauge.set(ntok / dt if dt > 0 else 0.0)
+            if flops:
+                flops_gauge.set(flops)
+                if dt > 0:
+                    mfu_gauge.set(min(1.0, flops / dt / peak_flops))
+
+        def settle(wait: bool) -> None:
+            """Record the card steps whose end event has completed (with
+            ``wait``, all of them, waiting for each)."""
+            while on_card and (wait or on_card[0][1].query()):
+                start, end, ntok, flops = on_card.pop(0)
+                end.synchronize()
+                record(start.elapsed_time(end) / 1e3, ntok, flops)
+
+        self._step_settles.append(settle)
+
+        def instrumented(state: TrainState, batch):
+            if not _telemetry_metrics.enabled():
+                return watched(state, batch)
+            device = self.device
+            shapes = [(tuple(t.shape), str(t.dtype)) for t in _tensors(batch)]
+            if shapes != captured["shapes"]:
+                # the formula is host arithmetic over the batch's shapes: it
+                # is evaluated at once, not deferred to a scrape, and again
+                # for each new batch signature (the step's FLOPs follow it)
+                if captured["formula"] is None:
+                    captured["formula"] = train_step_cost(state.model)
+                cost_table.capture(cost_key, watched, (batch,), cost=captured["formula"],
+                                   replace=True)
+                cost_table.analyze(cost_key)
+                captured["shapes"] = shapes
+                recorder.record("train/capture", name=cost_key,
+                                batch_shapes=sorted({str(s) for s, _ in shapes}))
+            cuda = device.type == "cuda"
+            if cuda:
+                settle(False)
+                marks = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                marks[0].record()
+            t0 = time.perf_counter()
+            with tracer.span("train/step"):
+                new_state, metrics = watched(state, batch)
+            dt = time.perf_counter() - t0
+            steps_total.inc()
+            rows, seq = batch_token_shape(shapes)
+            ntok = rows * seq
+            if ntok:
+                tokens_total.inc(ntok)
+            flops = cost_table.flops(cost_key)
+            if cuda:
+                marks[1].record()
+                on_card.append((marks[0], marks[1], ntok, flops))
+                hbm = torch.cuda.max_memory_allocated(device)
+                cost_table.set_hbm_peak_bytes(cost_key, hbm)
+                hbm_gauge.set(hbm)
+            else:
+                record(dt, ntok, flops)
+            loss = None
+            if isinstance(metrics, dict):
+                if metrics.get("grad_norm") is not None:
+                    gnorm_gauge.set(metrics["grad_norm"])
+                if metrics.get("loss") is not None:
+                    loss = metrics["loss"]
+                    loss_gauge.set(loss)
+            # progress heartbeat: the stall detector and /healthz; the loss
+            # stays a device tensor until a dump reads it
+            recorder.heartbeat("train/step", step=steps_total.value, dt_s=dt, tokens=ntok,
+                               loss=loss)
+            return new_state, metrics
+
+        instrumented._watchdog = watched
+        return instrumented
 
     def _maybe_remat(self, loss_fn: Callable) -> Callable:
         """``CompilationConfig.remat_policy`` over the whole loss
@@ -669,11 +853,14 @@ class Accelerator:
 
         return remat_loss
 
-    def compile_eval_step(self, eval_fn: Callable) -> Callable:
+    def compile_eval_step(self, eval_fn: Callable, *,
+                          compile_budget: Optional[int] = 4) -> Callable:
         """Build ``eval_step(state_or_params, batch)``: ``eval_fn(params,
         batch)`` under ``torch.no_grad`` with the compute-dtype weights, its
         floating outputs cast to the policy's output dtype.  Takes a
-        :class:`TrainState`, the model, or a name -> tensor dict."""
+        :class:`TrainState`, the model, or a name -> tensor dict.
+        Instrumented like the train step: the ``eval/step_time_s``
+        histogram (host wall) and a recompile watchdog."""
 
         def eval_step(state_or_params, batch):
             with torch.no_grad():
@@ -690,7 +877,28 @@ class Accelerator:
                     params = self.policy.cast_to_compute(state_or_params)
                 return self.policy.cast_to_output(eval_fn(params, batch))
 
-        return eval_step
+        name = getattr(eval_fn, "__name__", "eval")
+        watched = RecompileWatchdog(eval_step, name=f"eval_step/{name}", budget=compile_budget,
+                                    registry=self.telemetry, signature=_batch_signature)
+        cost_key = f"eval_step/{name}"
+        eval_hist = self.telemetry.histogram("eval/step_time_s", help="eval step wall time (s)")
+
+        def instrumented(state_or_params, batch):
+            if not _telemetry_metrics.enabled():
+                return watched(state_or_params, batch)
+            model = (state_or_params.model if isinstance(state_or_params, TrainState)
+                     else state_or_params)
+            if not self.cost_table.captured(cost_key) and isinstance(model, nn.Module):
+                self.cost_table.capture(cost_key, watched, (batch,),
+                                        cost=train_step_cost(model, backward=False))
+            t0 = time.perf_counter()
+            with self.tracer.span("eval/step"):
+                out = watched(state_or_params, batch)
+            eval_hist.observe(time.perf_counter() - t0)
+            return out
+
+        instrumented._watchdog = watched
+        return instrumented
 
     # ----------------------------------------------------- accumulation flags
     @contextlib.contextmanager

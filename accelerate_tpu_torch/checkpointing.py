@@ -28,6 +28,13 @@ own writer (:func:`save_file`; :func:`load_file` reads): an 8-byte
 little-endian header length, a JSON header of ``dtype``/``shape``/
 ``data_offsets`` a tensor padded with spaces to 8 bytes, then the tensors'
 raw little-endian bytes.
+
+Instrumented as in the reference: ``checkpoint/save``, ``checkpoint/restore``
+and ``checkpoint/save_model`` spans, the ``checkpoint/save_s``,
+``checkpoint/restore_s`` and ``checkpoint/save_model_s`` histograms (host
+wall), and the ``checkpoint/saved_bytes_total``,
+``checkpoint/restored_bytes_total`` (the train state's tensor bytes) and
+``checkpoint/model_saved_bytes_total`` (shard bytes) counters.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import random
 import re
 import shutil
 import struct
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +54,7 @@ import torch
 from torch import nn
 
 from .data_loader import SeedableRandomSampler
+from .telemetry import get_registry, get_tracer
 from .train_state import TrainState
 
 MODEL_SAFE_NAME = "model.safetensors"
@@ -168,6 +177,26 @@ def parse_size(size) -> int:
     return int(m.group(1)) * mult
 
 
+def _state_nbytes(state: TrainState) -> int:
+    """Bytes of the train state's tensors: weights, optimizer state and,
+    mid-window, the accumulation buffer."""
+    total = 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk({"model": state.model.state_dict(), **state.state_dict()})
+    return total
+
+
 def save_model(accelerator, state_or_params, save_directory: str, max_shard_size="10GB",
                safe_serialization: bool = True,
                save_dtype: Optional[torch.dtype] = None) -> List[str]:
@@ -178,6 +207,17 @@ def save_model(accelerator, state_or_params, save_directory: str, max_shard_size
     weights (the masters stay as they are).  Returns the files written.
     ``safe_serialization`` is accepted for the reference's signature: the
     export is always safetensors."""
+    t0 = time.perf_counter()
+    with get_tracer().span("checkpoint/save_model"):
+        written = _save_model_impl(accelerator, state_or_params, save_directory,
+                                   max_shard_size, save_dtype)
+    get_registry().histogram("checkpoint/save_model_s", help="save_model wall time").observe(
+        time.perf_counter() - t0)
+    return written
+
+
+def _save_model_impl(accelerator, state_or_params, save_directory: str, max_shard_size,
+                     save_dtype: Optional[torch.dtype]) -> List[str]:
     host = host_state_dict(state_or_params, save_dtype)
     if not accelerator.is_main_process:
         accelerator.wait_for_everyone()
@@ -193,6 +233,8 @@ def save_model(accelerator, state_or_params, save_directory: str, max_shard_size
             sizes.append(0)
         shards[-1][key] = host[key]
         sizes[-1] += nbytes
+    get_registry().counter("checkpoint/model_saved_bytes_total",
+                           help="safetensors shard bytes written").inc(sum(sizes))
     written: List[str] = []
     if len(shards) == 1:
         written.append(os.path.join(save_directory, MODEL_SAFE_NAME))
@@ -271,6 +313,20 @@ def save_accelerator_state(accelerator, output_dir: Optional[str],
                            safe_serialization: bool = True) -> str:
     """Save everything a run needs to resume; returns the directory.
     ``safe_serialization`` is accepted for the reference's signature."""
+    registry = get_registry()
+    t0 = time.perf_counter()
+    with get_tracer().span("checkpoint/save"):
+        out = _save_accelerator_state_impl(accelerator, output_dir, state)
+    registry.histogram("checkpoint/save_s", help="save_accelerator_state wall time").observe(
+        time.perf_counter() - t0)
+    if state is not None:
+        registry.counter("checkpoint/saved_bytes_total",
+                         help="train-state array bytes written").inc(_state_nbytes(state))
+    return out
+
+
+def _save_accelerator_state_impl(accelerator, output_dir: Optional[str],
+                                 state: Optional[TrainState]) -> str:
     pc = accelerator.project_configuration
     if pc.automatic_checkpoint_naming:
         base = os.path.join(accelerator.project_dir or ".", "checkpoints")
@@ -349,6 +405,21 @@ def load_accelerator_state(accelerator, input_dir: Optional[str],
     accelerator's micro-step counter is set to the state's ``micro_step``,
     so that the next :meth:`~Accelerator.accumulate` syncs where the run
     that was saved would have."""
+    registry = get_registry()
+    t0 = time.perf_counter()
+    with get_tracer().span("checkpoint/restore"):
+        out = _load_accelerator_state_impl(accelerator, input_dir, state, load_kwargs)
+    registry.histogram("checkpoint/restore_s", help="load_accelerator_state wall time").observe(
+        time.perf_counter() - t0)
+    if out is not None:
+        registry.counter("checkpoint/restored_bytes_total",
+                         help="train-state array bytes restored").inc(_state_nbytes(out))
+    return out
+
+
+def _load_accelerator_state_impl(accelerator, input_dir: Optional[str],
+                                 state: Optional[TrainState],
+                                 load_kwargs: Optional[dict]) -> Optional[TrainState]:
     pc = accelerator.project_configuration
     if input_dir is None and pc.automatic_checkpoint_naming:
         base = os.path.join(accelerator.project_dir or ".", "checkpoints")

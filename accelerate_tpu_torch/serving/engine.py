@@ -345,9 +345,14 @@ class ServingEngine:
         ephemeral port, ``None`` defers to ``ATPU_METRICS_PORT`` (off when
         unset).  A scrape runs :meth:`analyze_costs` first.
 
-    ``mesh``, ``tp_axis`` other than ``"tp"`` and ``role`` other than
-    ``"both"`` (paged) raise ``NotImplementedError`` (ROADMAP Queue 1 items
-    9e and 8b).
+    role: ``"both"`` (default, monolithic), ``"prefill"`` (chunked prefill
+        only; installed lanes wait for the router's handoff, and no decode
+        window is captured or run) or ``"decode"`` (receives migrated
+        lanes): the disaggregated split behind
+        ``ReplicaRouter(policy="disaggregated")``.  Needs ``paged=True``.
+
+    ``mesh`` and ``tp_axis`` other than ``"tp"`` raise
+    ``NotImplementedError`` (ROADMAP Queue 1 item 9e).
     """
 
     #: read by ``__init__``: capture the windows, and the prefill chunks, as
@@ -424,8 +429,12 @@ class ServingEngine:
             raise _not_ported("mesh= (tensor-parallel serving)", "9e")
         if tp_axis != "tp":
             raise _not_ported("tp_axis= (tensor-parallel serving)", "9e")
-        if role != "both":
-            raise _not_ported(f"role={role!r} (disaggregated prefill/decode)", "8b")
+        #: "prefill" runs chunked prefill only: a lane whose last chunk
+        #: landed never dispatches a decode window here, it waits for the
+        #: router's prefill handoff (:mod:`.transfer`) onto a decode-role
+        #: peer.  "decode" replicas receive migrated lanes (and still prefill
+        #: adopted replays: role shapes steady-state policy, not recovery).
+        self.role = role
         #: which attention the paged pool runs: the kernels ("pallas") or
         #: their plain versions ("xla"); the prefill follows unless forced.
         #: Sliding-window and alibi models take the plain versions, as the
@@ -442,6 +451,8 @@ class ServingEngine:
         self.prefill_kernel = prefill_kernel or self.decode_kernel
         #: label of the parameter set served
         self.weights_version = str(weights_version)
+        #: tensor-parallel degree (one card: the router's health reads it)
+        self.tp_degree = 1
         self.async_depth = int(async_depth)
         if self.async_depth not in (0, 1):
             raise ValueError(f"async_depth must be 0 (synchronous) or 1 (depth-1 pipeline), "
@@ -715,6 +726,11 @@ class ServingEngine:
                                                  self.scratch.v, self._chunk_base)
                             for b in self.buckets}
         self._init_programs()
+        # the migration gather and install (serve/migrate_extract,
+        # serve/migrate_install), made on this engine's first migration
+        # (:func:`.transfer.migration_executables`)
+        self._migrate_extract: Optional[RecompileWatchdog] = None
+        self._migrate_install: Optional[RecompileWatchdog] = None
         self.graphs: Optional[WindowGraphs] = None
         if dev.type == "cuda" and (self._graph_windows or self._graph_chunks):
             self.graphs = WindowGraphs(dev)
@@ -723,7 +739,8 @@ class ServingEngine:
         # eager one does
         null = ([(t, t[:, NULL_PAGE].clone()) for t in self._pool]
                 if self.graphs is not None and self.paged else [])
-        if self.graphs is not None and self._graph_windows:
+        if self.graphs is not None and self._graph_windows and self.role != "prefill":
+            # a prefill replica never runs a window: none is captured
             for (kind, sampling), fn in self._windows.items():
                 self._capture(self._graph_key(kind, sampling), fn, self._reset_lanes,
                               _PROGRAM_NAMES[kind])
@@ -836,10 +853,12 @@ class ServingEngine:
         self._pf_last_t: Optional[float] = None
         self._pf_last_tokens = 0
         m.gauge("serve/tp_degree",
-                help="info gauge: tensor-parallel degree (1 = single card)").set(1.0)
+                help="info gauge: tensor-parallel degree (1 = single card)").set(
+            float(self.tp_degree))
         m.gauge("serve/role",
                 help="info gauge: disaggregated serving role — 0 = both "
-                     "(monolithic), 1 = prefill-only, 2 = decode-only").set(0.0)
+                     "(monolithic), 1 = prefill-only, 2 = decode-only").set(
+            {"both": 0.0, "prefill": 1.0, "decode": 2.0}[self.role])
         self._kv_quant_gauge = (
             m.gauge("serve/kv_quant_error",
                     help="max abs KV round-trip quantization error of the values "
@@ -1074,10 +1093,13 @@ class ServingEngine:
         """One window: replay its graph on the card, else call it.  The
         variant follows host state: does some lane sample?"""
         sampling = kind != "draft" and self.lanes.any_sampled
-        if self.graphs is None:
+        key = self._graph_key(kind, sampling)
+        if self.graphs is None or key not in self.graphs.keys():
+            # no graph: the CPU, an eager engine, or a prefill replica (which
+            # captures no window) decoding a replay it adopted
             return self._windows[kind, sampling]()
         self._bump("graph_replays")
-        return self.graphs.replay(self._graph_key(kind, sampling))
+        return self.graphs.replay(key)
 
     # ---------------------------------------------------------------- submit
     def submit(self, prompt, config: Optional[GenerationConfig] = None,
@@ -2416,7 +2438,21 @@ class ServingEngine:
         queue_depth = self.scheduler.queue_depth
         self._queue_gauge.set(queue_depth)
         self._prefree_exhausted()
-        if self.interleave_prefill:
+        if self.role == "prefill":
+            # a disaggregated prefill replica runs chunked prefill only:
+            # lanes whose last chunk landed wait, installed and undecoded,
+            # for the router's handoff to a decode replica; a window here
+            # would advance lanes the destination expects at their prefill
+            # frontier.  No window, so no decode tokens to charge.
+            self._cycle_decode_tokens = 0
+            self._admit()
+            self._prev_handle = None
+            if len(self._pending_prefill_qerr) > 1:
+                # no window comes to read the chunks' quantization errors:
+                # keep their running max, one device scalar, not a list
+                # that grows with every chunk
+                self._pending_prefill_qerr = [torch.stack(self._pending_prefill_qerr).amax()]
+        elif self.interleave_prefill:
             # the window first; the cycle's chunks queue behind it while the
             # window it hands back stays parked until the drain below
             self._prev_handle = self._dispatch()
@@ -2582,7 +2618,9 @@ class ServingEngine:
         ``verify_window`` or ``tree_verify_window`` and ``draft_forward``
         (speculation; 0 until the first drafted cycle), ``prefill_<b>``,
         ``copy_<b>`` (slab with the prefix cache), and ``spill_<b>`` /
-        ``promote_<b>`` (the host tier).  ``lane_install`` counts from the
+        ``promote_<b>`` (the host tier), and ``migrate_extract`` /
+        ``migrate_install`` once the engine took part in a lane migration
+        (:mod:`.transfer`).  ``lane_install`` counts from the
         first install: the port's lane vectors always live on the card,
         where the reference's count starts at the first install after a
         window."""
@@ -2600,4 +2638,8 @@ class ServingEngine:
                                 ("promote", self._promote_install)):
             for b, program in programs.items():
                 out[f"{group}_{b}"] = program.jit_cache_size()
+        if self._migrate_extract is not None:
+            out["migrate_extract"] = self._migrate_extract.jit_cache_size()
+        if self._migrate_install is not None:
+            out["migrate_install"] = self._migrate_install.jit_cache_size()
         return out

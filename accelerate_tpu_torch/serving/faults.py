@@ -3,10 +3,9 @@
 Port of :mod:`accelerate_tpu.serving.faults` (the same ``ATPU_FAULTS``
 grammar and per-point streams).  The engine carries the
 ``decode_dispatch``, ``fetch_slow``, ``fetch_fail``, ``page_exhaustion``,
-``hot_swap_upload`` and ``promote_h2d`` points; ``replica_kill``,
-``handler_disconnect`` and the ``migrate_*`` points parse but have no site
-in the port until the router, the HTTP front door and page migration are
-ported (ROADMAP Queue 1 item 8b/8c).
+``hot_swap_upload`` and ``promote_h2d`` points, the router ``replica_kill``,
+the HTTP front door ``handler_disconnect`` and the page migrator
+``migrate_d2d`` / ``migrate_bounce``.
 
 Chaos testing a continuous-batching engine is only useful when the chaos is
 reproducible: a flaky failure that cannot be replayed cannot be debugged.

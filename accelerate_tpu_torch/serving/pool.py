@@ -150,12 +150,13 @@ class LaneState:
         return bool(self.sampling.any())
 
     def install(self, slot: int, token: int, eos: int, temperature: float,
-                top_k: int, top_p: float, key: Optional[int]) -> None:
+                top_k: int, top_p: float, key: Optional[int], counter: int = 0) -> None:
         """Hand lane ``slot`` to a prefilled request: one-element fills on
         the device, ordered behind any window in flight.  ``key`` is the
         request's seed (:func:`~accelerate_tpu_torch.models.generation.
         lane_key`), or ``None`` for a greedy lane; the draw counter
-        restarts at 0."""
+        restarts at ``counter`` (0, except for a lane migrated from another
+        engine, whose stream continues where it stopped)."""
         self.pending[slot].fill_(token)
         self.active[slot].fill_(True)
         self.eos[slot].fill_(eos)
@@ -163,7 +164,7 @@ class LaneState:
         self.top_k[slot].fill_(top_k)
         self.top_p[slot].fill_(top_p)
         self.keys[slot, 0].fill_(0 if key is None else key)
-        self.keys[slot, 1].fill_(0)
+        self.keys[slot, 1].fill_(counter)
         self.sampled[slot].fill_(key is not None)
         self.sampling[slot] = key is not None
 

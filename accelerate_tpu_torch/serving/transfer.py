@@ -1,26 +1,79 @@
-"""Request-state marshalling between replicas: export from a dead engine,
-adopt on a survivor.
+"""Live KV page migration and request-state marshalling between replicas.
 
-Port of the recovery half of :mod:`accelerate_tpu.serving.transfer`
-(:func:`export_inflight`, :func:`adopt`, :class:`MigrationError`).  A
-request moves between engines by throwing its KV away and rebuilding it on
-the adopter: the prompt prefilled, the tokens it had streamed fed through
-decode windows (the reference re-prefills ``prompt + generated``);
-token-exact under greedy, re-seeded under sampling.  Tokens already
-streamed are never sent again.  The
-reference's live page migration (``PageMigrator``, ``handoff``,
-``migration_executables``) waits for the router (ROADMAP Queue 1 item 8b).
+Port of :mod:`accelerate_tpu.serving.transfer`.  Two ways move a request
+between engines:
+
+* :func:`export_inflight` / :func:`adopt` throw its KV away and rebuild it on
+  the adopter: the prompt prefilled, the tokens it had streamed fed through
+  decode windows (the reference re-prefills ``prompt + generated``);
+  token-exact under greedy, re-seeded under sampling.  Tokens already
+  streamed are never sent again.
+* :class:`PageMigrator` moves the KV itself: a lane's live pages, their
+  per-page scales, its write index, its pending token and its sampling
+  stream ``(seed, counter)`` travel to the destination, which installs them
+  into pages of its own allocator and continues **bit-identically**, greedy
+  and sampled alike, at a copy cost in pages, whatever compute made them.
+
+Two arms (``mode="auto"`` picks by device):
+
+- **d2d**: both pools on the same kind of device; the gathered pages go
+  straight from the source's pool into the destination's, never through
+  the host.
+- **bounce**: the gathered pages are copied into page-locked host memory,
+  waited for (the one blocking point, as a window's readback), and copied
+  up into the destination, as a hierarchical-cache promotion is.  On the
+  CPU the bounce goes through an ordinary host buffer.
+
+Unlike the reference, no id list is padded with the null page: the gather
+and the install take the lane's live page ids only, so the install never
+writes one page twice (the null page is never written).  Each engine's
+gather (``serve/migrate_extract``) and install (``serve/migrate_install``)
+are made lazily on its first migration and watched by a
+:class:`~accelerate_tpu_torch.telemetry.RecompileWatchdog` keyed by the
+pool they touch, so a lane's page count is no new program.  The install is
+an in-place ``index_copy_`` into the destination's page tensors, whose
+addresses its CUDA graphs hold: no graph is captured again.  Both engines
+enqueue on the calling thread's current stream, so the install runs behind
+the destination's window in flight and the gather behind everything the
+source dispatched; the source drains its own pipeline first (the migration
+barrier that makes its host mirrors and its lane vectors current).
+
+Failure semantics: every refusal raises :class:`MigrationError` before any
+engine state mutates.  ``retriable=True`` (destination slot or page
+pressure): try again next step.  ``retriable=False`` (geometry mismatch,
+an injected ``migrate_d2d`` / ``migrate_bounce`` fault): fall back to the
+export/adopt replay path; the source lane is untouched and the source
+replica stays healthy.
 """
 
 from __future__ import annotations
 
-from typing import List
+import time
+from typing import List, Optional, Sequence
 
+import numpy as np
+import torch
+
+from ..telemetry import (
+    MetricsRegistry,
+    RecompileWatchdog,
+    get_flight_recorder,
+    get_registry,
+    get_tracer,
+)
+from ..telemetry.watchdog import tensor_signature
+from . import faults
 from .errors import AdmissionError
-from .pool import plan_chunks
+from .pool import _raw, plan_chunks, promote_install, spill_extract
 from .scheduler import Request, RequestState
 
-__all__ = ["MigrationError", "adopt", "export_inflight"]
+__all__ = ["MigrationError", "PageMigrator", "adopt", "export_inflight",
+           "migration_executables"]
+
+# Migration wall time spans ~10 us (a one-page d2d handoff) to ~100 s (a
+# full lane bounced over a congested host link): 20 x2 buckets from 10 us
+# in ms units cover it.
+_MIGRATE_MS_BUCKETS = tuple(1e-2 * 2.0**i for i in range(20))
 
 
 class MigrationError(RuntimeError):
@@ -28,8 +81,9 @@ class MigrationError(RuntimeError):
 
     ``retriable=True`` — transient destination pressure (no free slot, page
     pool dry): the lane stays where it is and the caller may try again next
-    step.  ``retriable=False`` — the pair can never migrate this lane: the
-    caller falls back to the export/adopt replay path.
+    step.  ``retriable=False`` — the pair can never migrate this lane
+    (geometry mismatch, lane finished, injected fault): the caller falls
+    back to the export/adopt replay path.
     """
 
     def __init__(self, reason: str, retriable: bool = False):
@@ -146,3 +200,295 @@ def adopt(engine, request: Request) -> Request:
     engine.recorder.record("serve/adopt", rid=request.rid, old_rid=old_rid, effective_len=eff,
                            generated=len(request.tokens))
     return request
+
+
+# ----------------------------------------------------------------- executables
+def _pool_signature(args, kwargs):
+    """A migration program's signature: the pool it reads or writes (its
+    first argument), not the lane's page count."""
+    return tensor_signature(args[:1], {})
+
+
+def migration_executables(engine):
+    """The engine's ``(extract, install)`` migration pair, made on first
+    use and kept: ``serve/migrate_extract`` (the gather of a lane's pages
+    and scales) and ``serve/migrate_install`` (their in-place scatter into
+    fresh pages).  Lazy because most engines never migrate: the programs
+    ``compiled_executable_counts`` lists grow on the replicas that take
+    part, and by exactly this pair."""
+    if engine._migrate_extract is None:
+        engine._migrate_extract = RecompileWatchdog(
+            spill_extract, name="serve/migrate_extract", budget=1,
+            registry=engine.metrics, signature=_pool_signature)
+        engine._migrate_install = RecompileWatchdog(
+            promote_install, name="serve/migrate_install", budget=1,
+            registry=engine.metrics, signature=_pool_signature)
+    return engine._migrate_extract, engine._migrate_install
+
+
+def _ids(page_ids: Sequence[int], device: torch.device) -> torch.Tensor:
+    """Page ids as an int64 index on ``device``: a pageable non-blocking
+    copy, staged at the call, that waits for nothing on the stream."""
+    return torch.from_numpy(np.asarray(page_ids, np.int64)).to(device, non_blocking=True)
+
+
+def _bounce(chunk: Sequence[torch.Tensor], device: torch.device) -> tuple:
+    """Copy a gathered chunk through host memory onto ``device``: into
+    page-locked buffers behind the gather, one wait for them (the bounce's
+    blocking point), then non-blocking copies up.  On the CPU an ordinary
+    host buffer stands in.  Moves the bits as integers of their width."""
+    if chunk[0].device.type != "cuda":
+        host = [_raw(c).clone() for c in chunk]
+    else:
+        host = [torch.empty(c.shape, dtype=_raw(c).dtype, pin_memory=True) for c in chunk]
+        for h, c in zip(host, chunk):
+            h.copy_(_raw(c), non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record(torch.cuda.current_stream(chunk[0].device))
+        landed.synchronize()
+    return tuple(h.to(device, non_blocking=True).view(c.dtype) for h, c in zip(host, chunk))
+
+
+# ------------------------------------------------------------------- migrator
+class PageMigrator:
+    """Move live decode lanes between :class:`~.engine.ServingEngine`
+    replicas.
+
+    Stateless apart from telemetry: every :meth:`migrate` call is one whole
+    lane move (or a clean :class:`MigrationError` refusal), so one migrator
+    can serve a whole router.  Pass the registry the engines use to keep
+    bench arms apart."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.metrics = registry if registry is not None else get_registry()
+        self.recorder = get_flight_recorder().tagged(engine="migrator")
+        self.tracer = get_tracer()
+        self._migrations = self.metrics.counter(
+            "serve/migrations_total",
+            help="live lanes moved between replicas with their KV pages "
+                 "(d2d and host-bounce arms both); replay fallbacks do not "
+                 "count — they bump serve/requests_replayed_total instead",
+        )
+        self._bytes = self.metrics.counter(
+            "serve/migrate_bytes_total",
+            help="KV payload bytes migrated between replicas (live pages + "
+                 "quant scales, at storage dtype) — the crossover input of "
+                 "the migrate-vs-replay A/B",
+        )
+        self._handoffs = self.metrics.counter(
+            "serve/prefill_handoffs_total",
+            help="lanes handed off prefill-role -> decode-role right after "
+                 "their last prefill chunk landed (disaggregated policy); a "
+                 "subset of serve/migrations_total",
+        )
+        self._ms_hist = self.metrics.histogram(
+            "serve/migrate_ms",
+            buckets=_MIGRATE_MS_BUCKETS,
+            help="wall time per lane migration, source drain barrier through "
+                 "destination lane install dispatch (the install itself "
+                 "overlaps the destination's decode)",
+        )
+
+    # ------------------------------------------------------------ feasibility
+    @staticmethod
+    def compatible(src, dst) -> Optional[str]:
+        """``None`` when lanes can migrate ``src -> dst``; else the reason.
+        The pools must agree on page geometry and storage dtype, so that
+        the gathered pages feed the destination's install bit for bit."""
+        if src is dst:
+            return "source and destination are the same engine"
+        if not (src.paged and dst.paged):
+            return "both engines must run the paged KV pool"
+        if src.kv.page_size != dst.kv.page_size:
+            return f"page_size differs ({src.kv.page_size} vs {dst.kv.page_size})"
+        if src.kv.pages_per_lane != dst.kv.pages_per_lane:
+            return (f"pages_per_lane differs ({src.kv.pages_per_lane} vs "
+                    f"{dst.kv.pages_per_lane})")
+        if src.kv.storage_dtype != dst.kv.storage_dtype:
+            return (f"KV storage dtype differs ({src.kv.storage_dtype} vs "
+                    f"{dst.kv.storage_dtype})")
+        if src.kv.pages_k.shape[0] != dst.kv.pages_k.shape[0] \
+                or src.kv.pages_k.shape[2:] != dst.kv.pages_k.shape[2:]:
+            return "KV pool geometry (layers/heads/head_dim) differs"
+        return None
+
+    @staticmethod
+    def resolve_mode(src, dst) -> str:
+        """``"d2d"`` when both pools live on the same kind of device (the
+        copy stays on the card, or goes card to card), else ``"bounce"``."""
+        if src.kv.pages_k.device.type != dst.kv.pages_k.device.type:
+            return "bounce"
+        return "d2d"
+
+    # -------------------------------------------------------------- migration
+    def migrate(self, src, dst, slot: int, mode: str = "auto",
+                reason: str = "rebalance") -> Request:
+        """Move the running lane in ``src`` slot ``slot`` to ``dst``, KV
+        pages included, and return its request, which continues on the
+        destination bit-identically (greedy and sampled: the lane's draw
+        counter travels, unlike :func:`adopt`'s re-seed).  Raises
+        :class:`MigrationError` with nothing mutated otherwise."""
+        req = src._slot_req[slot]
+        if req is None or req.state is not RequestState.RUNNING or not src._active[slot]:
+            raise MigrationError(f"no running lane in slot {slot}")
+        why = self.compatible(src, dst)
+        if why is not None:
+            raise MigrationError(why)
+        if mode == "auto":
+            mode = self.resolve_mode(src, dst)
+        if mode not in ("d2d", "bounce"):
+            raise MigrationError(f"unknown migration mode {mode!r}")
+        if dst._next_free_slot() is None:
+            raise MigrationError("destination has no free slot", retriable=True)
+        t0 = time.perf_counter()
+        # the source's migration barrier: land its windows in flight, so the
+        # lane's write index (a host mirror) and its pending token and draw
+        # counter (on the card) are the lane's live state; the source's
+        # other lanes go on with the next step
+        src._drain_inflight()
+        if not src._active[slot] or src._slot_req[slot] is not req:
+            raise MigrationError("lane finished while draining the source")
+        lane_len = int(src._lane_len[slot])
+        span = max(dst.window, dst._spec_span)
+        remaining = max(req.config.max_new_tokens - len(req.tokens), 1)
+        if lane_len + 1 + remaining + span > dst.max_len:
+            raise MigrationError(
+                f"lane length {lane_len} + remaining {remaining} + span {span} "
+                f"exceeds destination capacity {dst.max_len}")
+        page_ids = src.kv.lane_pages(slot)
+        npages = len(page_ids)
+        lanes = src.lanes
+        # one read of the lane's device state (the pipeline is drained: it
+        # waits only for what the source enqueued since)
+        pending, seed, counter = torch.cat(
+            [lanes.pending[slot:slot + 1].long(), lanes.keys[slot]]).tolist()
+        sampled = bool(lanes.sampling[slot])
+        point = f"migrate_{mode}"
+        if faults.ACTIVE is not None and faults.ACTIVE.fire(point):
+            self.recorder.record("serve/fault", point=point, rid=req.rid, slot=int(slot),
+                                 src=src.engine_id, dst=dst.engine_id)
+            raise MigrationError(f"injected {point} fault")
+        new_ids = dst.kv.allocator.alloc(npages)
+        if new_ids is None:
+            if dst._reclaim_pages(npages, allow_preempt=False):
+                new_ids = dst.kv.allocator.alloc(npages)
+            if new_ids is None:
+                raise MigrationError("destination page pool exhausted", retriable=True)
+        extract, _ = migration_executables(src)
+        _, install = migration_executables(dst)
+        behind = dst._inflight is not None or dst._prev_handle is not None
+        with self.tracer.span("serve/migrate", mode=mode, pages=npages, behind_window=behind):
+            chunk = extract(src._pool, _ids(page_ids, src.device))
+            if mode == "bounce":
+                chunk = _bounce(chunk, dst.device)
+            else:
+                chunk = tuple(c.to(dst.device, non_blocking=True) for c in chunk)
+            # in place, on the stream behind the destination's window in
+            # flight: its graphs keep reading the same page tensors
+            install(dst._pool, chunk, _ids(new_ids, dst.device))
+        # the source's lane drops its page references now: a later source
+        # prefill recycling them is ordered behind the gather on the stream
+        src._retire_lane(slot)
+        dst_slot = self._install_lane(dst, req, new_ids, lane_len, int(pending),
+                                      int(seed) if sampled else None, int(counter))
+        old_rid = req.rid
+        req.rid = dst._next_rid
+        dst._next_rid += 1
+        req.slot = dst_slot
+        if req.trace is not None:
+            # the same trace crosses replicas, as in failover: the waterfall
+            # gains a migrate phase instead of restarting
+            req.trace.phase("migrate", from_engine=src.engine_id, to_engine=dst.engine_id,
+                            old_rid=old_rid, rid=req.rid, mode=mode, pages=npages,
+                            generated=len(req.tokens))
+            dst.reqtrace.rebind(req.trace, dst.engine_id, req.rid)
+        self._reestablish_prefix(dst, req, new_ids, lane_len)
+        nbytes = src.kv.chunk_bytes(npages)
+        self._migrations.inc()
+        self._bytes.inc(nbytes)
+        self._ms_hist.observe((time.perf_counter() - t0) * 1e3)
+        self.recorder.record("serve/migrate", rid=req.rid, old_rid=old_rid, mode=mode,
+                             src=src.engine_id, dst=dst.engine_id, slot=int(slot),
+                             dst_slot=dst_slot, pages=npages, bytes=nbytes,
+                             behind_window=behind, reason=reason)
+        return req
+
+    def handoff(self, src, dst, slot: int, mode: str = "auto") -> Request:
+        """Prefill handoff: migrate a freshly prefilled lane off a
+        prefill-role replica onto a decode-role one, the disaggregated
+        steady state.  Counted apart from rebalancing migrations: handoffs
+        are the policy (every lane, once), rebalancing the exception."""
+        req = self.migrate(src, dst, slot, mode=mode, reason="prefill_handoff")
+        self._handoffs.inc()
+        self.recorder.record("serve/prefill_handoff", rid=req.rid, src=src.engine_id,
+                             dst=dst.engine_id, generated=len(req.tokens))
+        return req
+
+    # -------------------------------------------------------------- internals
+    @staticmethod
+    def _install_lane(dst, req: Request, new_ids: List[int], lane_len: int, pending: int,
+                      seed: Optional[int], counter: int) -> int:
+        """Wire the migrated lane into ``dst``: ``_install``'s twin without
+        the prefill.  The block-table row maps the freshly installed pages,
+        the host mirrors take the carried write index, and the lane vectors
+        on the card the carried pending token and ``(seed, counter)`` (not
+        a new seed: that is what makes the continuation bit-identical where
+        :func:`adopt` is right only in distribution), by one-element fills
+        behind any window in flight."""
+        s = dst._next_free_slot()
+        dst.kv.lane_append_owned(s, new_ids)
+        gen = req.config
+        eos = -1 if gen.eos_token_id is None else int(gen.eos_token_id)
+        args = (s, pending, eos, float(gen.temperature),
+                0 if gen.top_k is None else int(gen.top_k),
+                1.0 if gen.top_p is None else float(gen.top_p), seed, counter)
+        dst._cost_capture("lane_install", dst._lane_install, args)
+        dst._lane_install(*args)
+        dst._lane_len[s] = lane_len
+        dst._active[s] = True
+        dst._eos[s] = eos
+        if dst._draft_window is not None:
+            # the draft context from the sequence's tail: its last token is
+            # the lane's pending token, the root of every draft tree
+            dst._draft_window.begin(s, req.output_ids)
+        if dst._slot_ever_used[s]:
+            dst._bump("slots_reused")
+        dst._slot_ever_used[s] = True
+        dst._slot_req[s] = req
+        dst._reserved_slots.discard(s)
+        if req.deadline_s is not None:
+            dst._has_deadlines = True
+        req.state = RequestState.RUNNING
+        return s
+
+    @staticmethod
+    def _reestablish_prefix(dst, req: Request, new_ids: List[int], lane_len: int) -> None:
+        """Re-establish the prompt's prefix-cache entries on the
+        destination: each full prompt chunk aliases the lane's new pages
+        (zero copy) and takes its own allocator references, as
+        ``_populate_cache`` does, so that later requests sharing the prefix
+        hit there.  Chunks reaching the lane's write frontier are skipped:
+        decode writes there, and a cached page must not change."""
+        if dst.prefix_cache is None or not req.cache_prefix:
+            return
+        ptoks = np.asarray(req.prompt, np.int32).reshape(-1)
+        page = dst.page_size
+        frontier = (lane_len // page) * page
+        parent = None
+        start = 0
+        for bucket, valid in plan_chunks(len(ptoks), dst.buckets):
+            if valid != bucket or start + bucket > frontier:
+                break
+            npg = bucket // page
+            first = start // page
+            ids = list(new_ids[first:first + npg])
+            node = dst.prefix_cache.insert_pages(parent, ptoks[start:start + bucket], ids,
+                                                 nbytes=dst.kv.chunk_bytes(npg))
+            if node is None:
+                break
+            if node.pages == tuple(ids):
+                # a new node holds its own references (dropped at its
+                # eviction); a deduplicated insert keeps the resident pages
+                dst.kv.allocator.ref(ids)
+            parent = node
+            start += bucket

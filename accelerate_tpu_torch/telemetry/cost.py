@@ -14,7 +14,13 @@ the formula beside the shapes:
   ``cost/<name>/flops`` and ``cost/<name>/bytes_accessed``.
 - :meth:`CostTable.set_hbm_peak_bytes` records the card memory an
   executable holds of its own: for the serving engine's CUDA graphs, what
-  the key's capture added to the allocator.  Nothing records it on the CPU,
+  the key's capture added to the allocator; for a training step, the
+  allocator's peak after it.
+
+:func:`train_step_cost` is the formula of the ``Accelerator``'s train and
+eval steps (the serving engine's are in ``serving/costs.py``); its FLOPs
+are :func:`transformer_train_flops`, the one count the port's model-FLOPs
+utilization figures use.  Nothing records it on the CPU,
   where ``hbm_peak_bytes`` stays ``None`` (the reference degrades the same
   way where a backend cannot tell).
 
@@ -30,6 +36,7 @@ import dataclasses
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..logging import get_logger
@@ -43,6 +50,10 @@ __all__ = [
     "CPU_FALLBACK_PEAKS",
     "detect_device_peaks",
     "CostTable",
+    "batch_token_shape",
+    "transformer_matrix_params",
+    "transformer_train_flops",
+    "train_step_cost",
 ]
 
 
@@ -150,14 +161,16 @@ class CostTable:
         args: Tuple[Any, ...] = (),
         kwargs: Optional[Dict[str, Any]] = None,
         cost: Optional[CostFormula] = None,
+        replace: bool = False,
     ) -> bool:
         """Record the shapes of ``fn``'s tensor arguments and its ``cost``
-        formula once.
+        formula once (with ``replace``, anew: the entry then holds the
+        latest shapes, analyzed again on the next :meth:`analyze`).
 
         Returns True iff a new entry was created. Cheap after the first
         call; stores no tensor.
         """
-        if not enabled() or name in self._entries:
+        if not enabled() or (name in self._entries and not replace):
             return False
         entry: Dict[str, Any] = {
             "name": name,
@@ -172,7 +185,7 @@ class CostTable:
             "_cost": cost,
         }
         with self._lock:
-            if name in self._entries:
+            if name in self._entries and not replace:
                 return False
             self._entries[name] = entry
         return True
@@ -268,3 +281,80 @@ class CostTable:
     @staticmethod
     def _public(entry: Dict[str, Any]) -> Dict[str, Any]:
         return {k: v for k, v in entry.items() if not k.startswith("_")}
+
+
+# ------------------------------------------------------------- train steps
+def batch_token_shape(shapes: List[Tuple[Tuple[int, ...], str]]) -> Tuple[int, int]:
+    """``(rows, seq)`` of a batch from its recorded ``(shape, dtype)`` list:
+    the largest 2-D integer tensor (``[B, S]`` token ids); a batch without
+    one counts its largest leading dim as rows of one token (samples)."""
+    rows = seq = 0
+    samples = 0
+    for shape, dtype in shapes:
+        if not shape:
+            continue
+        samples = max(samples, int(shape[0]))
+        if len(shape) == 2 and "int" in dtype and shape[0] * shape[1] > rows * seq:
+            rows, seq = int(shape[0]), int(shape[1])
+    return (rows, seq) if rows else (samples, 1)
+
+
+def transformer_matrix_params(config) -> float:
+    """The parameters of a
+    :class:`~accelerate_tpu_torch.models.transformer.Transformer` that
+    multiply activations: the projections and the head (the embedding is a
+    gather, not a product; a tied head multiplies by the embedding), an
+    MoE layer's experts at their active share k / E."""
+    from ..models.transformer import state_dict_shapes
+
+    head = "embed_tokens.weight" if config.tie_word_embeddings else "lm_head.weight"
+    active = (config.num_experts_per_tok / config.num_experts
+              if config.num_experts else 1.0)
+    return sum(float(np.prod(shape)) * (active if ".experts." in name else 1.0)
+               for name, shape in state_dict_shapes(config).items()
+               if name.endswith("proj.weight") or name == head)
+
+
+def transformer_train_flops(config, rows: int, seq: int, backward: bool = True) -> float:
+    """Model FLOPs of one training micro-step of a
+    :class:`~accelerate_tpu_torch.models.transformer.Transformer` over
+    ``rows x seq`` tokens: 6 x :func:`transformer_matrix_params` x tokens
+    plus 3 x the causal attention forward (4 x head_dim FLOPs per visible
+    (query head, key) pair; the backward is twice the forward).
+    ``backward=False``: the forward alone (2 x and 1 x)."""
+    matrix = transformer_matrix_params(config)
+    attn_fwd = (4 * config.resolved_head_dim * config.num_heads * config.num_layers
+                * rows * seq * (seq + 1) // 2)
+    tokens = rows * seq
+    if not backward:
+        return 2 * matrix * tokens + attn_fwd
+    return 6 * matrix * tokens + 3 * attn_fwd
+
+
+def train_step_cost(model, backward: bool = True) -> CostFormula:
+    """The cost formula of a train (``backward=True``) or eval step of
+    ``model`` over the recorded shapes of its batch.  FLOPs: a model with a
+    transformer ``config`` by :func:`transformer_train_flops`, any other
+    module by 6 (2 without the backward) x its parameters of two or more
+    dimensions x tokens.  Bytes: every parameter read in the forward and in
+    the backward at its storage width, its f32 gradient read and written
+    (the forward alone: read once), and the batch read once."""
+    config = getattr(model, "config", None)
+    params = list(model.parameters())
+    stored = sum(p.numel() * p.element_size() for p in params)
+    numel = sum(p.numel() for p in params)
+    matrix = sum(p.numel() for p in params if p.dim() >= 2)
+    factor = 6 if backward else 2
+
+    def cost(shapes):
+        rows, seq = batch_token_shape(shapes)
+        if config is not None and hasattr(config, "resolved_head_dim"):
+            flops = transformer_train_flops(config, rows, seq, backward=backward)
+        else:
+            flops = factor * matrix * rows * seq
+        batch = sum(float(np.prod(s)) * torch.empty((), dtype=getattr(torch, d.split(".")[-1]))
+                    .element_size() for s, d in shapes)
+        nbytes = (2 * stored + 8 * numel if backward else stored) + batch
+        return float(flops), float(nbytes)
+
+    return cost

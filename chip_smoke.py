@@ -93,7 +93,12 @@ Phases, each printing one JSON line:
    ``engine_sync_eager``: the same requests through the A/B hook
    ``ServingEngine._eager(..., async_depth=0)`` (eager windows and chunks,
    synchronous loop): the same kernels on the same inputs, so its greedy
-   tokens must be identical to ``engine``'s.  ``engine_interleave``: the
+   tokens must be identical to those of the graphed engine.  Every eager
+   twin of a model deeper than ``EAGER_TWIN_LAYERS`` (8) runs at that depth
+   (the model's first layers, their tensors shared) beside a graphed run
+   of the same depth (``<twin>_graphs_8of<N>``) and a ``model`` check that
+   gives it its own margin (``eager_twin``): the eager loop's host launches
+   grow with the depth, the check does not.  ``engine_interleave``: the
    same requests with ``interleave_prefill=True`` (each window dispatched
    first, the cycle's chunks queued behind it): identical tokens, and some
    chunk must ride behind a window.  ``engine_cancel``: the same requests,
@@ -304,6 +309,24 @@ Phases, each printing one JSON line:
    the export; ``revive()`` and X serves two requests again with Y's
    tokens.  K1/K2 launches over the whole line, the steps' walls and the
    peak memory are printed.
+7d. ``router`` (the fleet line's two weight sets, equal values after its
+   swap in storage of their own, as two Llama-2-7B replicas behind
+   ``ReplicaRouter``): affinity against round-robin over two 1024-token
+   prefixes (prefix hit tokens, serve tokens/s, the same tokens); four
+   1500-token lanes, greedy and sampled, moved mid-generation by the d2d
+   and the bounce arm (tokens identical to the same requests served
+   unmoved; each move's wall, card time and GB/s); a ``role="prefill"`` and
+   a ``role="decode"`` replica under ``policy="disaggregated"`` (tokens
+   identical to a monolithic replica's, one handoff a request); a failover
+   upgraded to migration; no graph captured by any install (``router_phase``).
+   ``api``: the two replicas behind ``FrontDoor`` and ``ApiServer`` on
+   localhost: the six ``engine`` prompts streamed over HTTP (the in-process
+   tokens, SSE frames before ``[DONE]``, TTFT at the client), a flood
+   answered 200 or 429 only, a disconnect's lane cancelled and its pages
+   freed (``api_phase``).  The ``train`` line also serves its telemetry
+   (``metrics_port=0``) and reads ``/metrics`` after its loop
+   (``train_scrape``: steps, step times, model FLOPs equal to the line's,
+   ``train/step_mfu`` against the line's own MFU of the last step).
 8. the ``run`` line (the run's total seconds, the build included), the
    ``kernels`` line (each kernel, K1's tree-mask arm with the launches
    of ``engine_tree``, and K1's and K2's dequant arms with the launches of
@@ -315,7 +338,8 @@ Phases, each printing one JSON line:
    D 96 on ``families``' ``phi3_d96``; K3-K5 at D 256 on ``train_gemma``,
    at D 80, 96, 32 and 16 on their own kernel cases; ``launches_on`` names
    the path each count comes from; K1 and K2 also with ``engine_mixtral``'s
-   and ``engine_int4``'s launches and with ``fleet``'s, K3-K5 with
+   and ``engine_int4``'s launches and with ``fleet``'s, ``router``'s and
+   ``api``'s, K3-K5 with
    ``train_fp8``'s and ``train_moe``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
@@ -728,7 +752,7 @@ def model_phase(model, cfg, rng, name: str = "model") -> float:
     noise = (ref - ref32).abs().max().item()
     tol = LOGIT_TOL_FACTOR * noise
     err = (paged - ref).abs().max().item()
-    emit({"phase": name, "prompt": 512, "decode_steps": 8,
+    emit({"phase": name, "layers": cfg.num_layers, "prompt": 512, "decode_steps": 8,
           "max_abs_logit_err": err,
           "decode_max_abs_logit_err": (paged[512:] - ref[512:]).abs().max().item(),
           "tolerance": tol, "plain_bf16_vs_f32": noise,
@@ -1008,6 +1032,7 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
         pool_rec = {"pool": "slab", "slab": str(engine.pool.k.dtype).replace("torch.", ""),
                     "slab_pool_gb": slab_bytes / 1e9, "scratch_gb": scratch_bytes / 1e9}
     emit({"phase": name or ("engine" if kv_dtype is None else "engine_" + kv_dtype),
+          "layers": cfg.num_layers,
           "windows": ("eager windows and chunks, async_depth=0" if eager
                       else "cuda graphs (windows and chunks), async_depth=1"),
           "knobs": knobs, **spec_rec, "kv_dtype": kv_dtype, **pool_rec,
@@ -1039,6 +1064,51 @@ def engine_phase(model, cfg, rng, gpu, margin: Optional[float], kv_dtype=None, s
         check(deficit.max().item() <= margin, "an engine token sits below the no-cache "
               f"forward's best logit by more than the noise margin {margin}")
     return launches, prompts, [r.tokens for r in reqs]
+
+
+#: the depth at which an engine line's eager twin runs (with a graphed run
+#: at the same depth beside it): the eager loop's host launches grow with
+#: the depth, the check (identical tokens) does not
+EAGER_TWIN_LAYERS = 8
+
+
+def shallow_model(model, cfg, layers: int):
+    """``model``'s first ``layers`` layers with its embedding, final norm
+    and head, sharing its tensors (quantized ones too): ``(model, cfg)``."""
+    from accelerate_tpu_torch.models.transformer import Transformer
+
+    scfg = dataclasses.replace(cfg, num_layers=layers)
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < layers}
+    shell = Transformer(scfg, device="meta")
+    shell.load_state_dict(keep, assign=True)
+    return shell, scfg
+
+
+def eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, name: str) -> None:
+    """An engine line's A/B baseline ``name``: eager windows and chunks and
+    the synchronous loop on the same requests; the same kernels on the same
+    inputs give the same greedy tokens.  A model deeper than
+    ``EAGER_TWIN_LAYERS`` runs the pair at that depth (its first layers,
+    their tensors shared, its own margin from :func:`model_phase`): the
+    eager arm against a graphed arm of the same depth, the graphed arm held
+    to the margin as the full-depth line is."""
+    if cfg.num_layers <= EAGER_TWIN_LAYERS:
+        _, _, eager = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts, name=name,
+                                   eager=True)
+        check(eager == tokens, f"{name}'s greedy tokens differ from the graphed engine's")
+        return
+    shallow, scfg = shallow_model(model, cfg, EAGER_TWIN_LAYERS)
+    depth = f"{EAGER_TWIN_LAYERS}of{cfg.num_layers}"
+    stol = model_phase(shallow, scfg, rng, name=f"model_{name}_{depth}")
+    _, _, graphed = engine_phase(shallow, scfg, rng, gpu, stol, prompts=prompts,
+                                 name=f"{name}_graphs_{depth}")
+    _, _, eager = engine_phase(shallow, scfg, rng, gpu, stol, prompts=prompts, name=name,
+                               eager=True)
+    check(eager == graphed, f"{name}'s greedy tokens differ from the graphed engine's at "
+          f"{EAGER_TWIN_LAYERS} of {cfg.num_layers} layers")
+    del shallow
+    free_card()
 
 
 def chunk_graph_phase(model, cfg, gpu) -> None:
@@ -1211,7 +1281,9 @@ def fleet_phase(model, cfg, gpu, prompts) -> dict:
     """The ``fleet`` line (the module docstring's 7c): ``swap_params``, the
     upload fault, a failover and ``revive`` on Llama-2-7B at full width and
     depth.  ``model``'s weights are overwritten by the swap.  Returns the
-    K1/K2 launches of the whole line."""
+    K1/K2 launches of the whole line and the model on the second weight set
+    (after the swap its values are ``model``'s, in storage of its own: the
+    ``router`` line's second replica)."""
     from accelerate_tpu_torch.models.generation import GenerationConfig
     from accelerate_tpu_torch.models.transformer import Transformer
     from accelerate_tpu_torch.ops import paged_attention as pa
@@ -1338,8 +1410,350 @@ def fleet_phase(model, cfg, gpu, prompts) -> dict:
     check(revived == want[:2], "the revived engine's tokens differ from Y's")
     check(launches["paged_attention"] > 0 and launches["paged_flash_prefill"] > 0,
           f"the fleet line launched no kernel: {launches}")
-    del x, y, shell, sd_b
+    del x, y, sd_b
     free_card()
+    return launches, shell
+
+
+#: greedy tokens of a request in the ``router`` and ``api`` lines
+ROUTER_NEW = 16
+#: the migrated lanes: prompt length, tokens, and the tokens each had when it moved
+MIGRATE_LEN, MIGRATE_NEW, MIGRATE_AT = 1500, 32, 8
+
+
+def router_phase(model, shell, cfg, gpu, rng, prompts) -> tuple:
+    """The ``router`` line (ROADMAP 8b): two Llama-2-7B replicas at full
+    width and depth behind ``ReplicaRouter``, built on the ``fleet`` line's
+    two weight sets (equal values after its swap, each replica its own
+    storage; ``num_slots=4, max_len=2048``, buckets 128/512, window 4, bf16
+    pages of 128, a prefix cache of 2.5 prefixes each, ``max_queue=8``):
+
+    * ``affinity`` against ``round_robin`` on six prompts over two
+      ``PREFIX_LEN``-token prefixes (one of each first, then the other four,
+      the first prefix's two ahead): prefix hit tokens and serve tokens/s
+      of each, the same tokens under both;
+    * ``migrate``: four 1500-token lanes (greedy and sampled, for each of
+      the d2d and bounce arms) moved by the router's ``PageMigrator`` after
+      ``MIGRATE_AT`` tokens: tokens identical to the same requests served
+      unmoved (by the other replica, which then takes the same request ids:
+      a sampled lane's stream follows its id), each move's wall, card time
+      between CUDA events and GB/s;
+    * ``disaggregated``: a ``role="prefill"`` and a ``role="decode"``
+      replica serving the engine line's six prompts, tokens identical to a
+      monolithic replica's, one handoff a request, no decode on the
+      prefill replica;
+    * a failover upgraded to migration: a disaggregated router over the two
+      replicas, the owner of a 1500-token lane killed mid-decode: its lane
+      migrates (no replay), its tokens the unmoved ones;
+    * no graph captured by any install, handoff or failover.
+
+    The launch counters are zeroed before the first replica is built and
+    read at the end.  Returns K1's and K2's launches and the two replicas."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ReplicaRouter, ServingEngine
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    kw = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+              max_queue=8, device="cuda")
+    gen = GenerationConfig(max_new_tokens=ROUTER_NEW)
+    walls = {}
+
+    def captures(*engines):
+        return sum(e.stats["graph_captures"] for e in engines)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = ServingEngine(model, None, registry=MetricsRegistry(),
+                      prefix_cache_mb=chain_mb(cfg, None, 2.5), **kw)
+    b = ServingEngine(shell, None, registry=MetricsRegistry(),
+                      prefix_cache_mb=chain_mb(cfg, None, 2.5), **kw)
+    walls["replicas_init"] = time.perf_counter() - t0
+    built = captures(a, b)
+
+    # affinity against round-robin
+    shared = prefix_prompts(rng, cfg, 2, (96, 160, 224, 288, 352, 416))  # A B A B A B
+    waves = ([shared[0], shared[1]], [shared[2], shared[4], shared[3], shared[5]])
+    policies, policy_tokens = {}, {}
+    for policy in ("affinity", "round_robin"):
+        for e in (a, b):
+            e.flush_prefix_cache()
+        hits = sum(e.stats["prefix_hit_tokens"] for e in (a, b))
+        router = ReplicaRouter([a, b], policy=policy, registry=MetricsRegistry())
+        reqs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for wave in waves:
+            reqs += [router.submit(p.copy(), config=gen) for p in wave]
+            router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        policy_tokens[policy] = [r.tokens for r in reqs]
+        policies[policy] = {
+            "replicas": [r.replica for r in reqs],
+            "prefix_hit_tokens": sum(e.stats["prefix_hit_tokens"] for e in (a, b)) - hits,
+            "affinity_hit_rate": router.health()["affinity_hit_rate"], "wall_s": wall,
+            "serve_tokens_per_s": sum(len(r.tokens) for r in reqs) / wall}
+    check(policy_tokens["affinity"] == policy_tokens["round_robin"],
+          "affinity and round-robin routing served different tokens")
+    check(policies["affinity"]["prefix_hit_tokens"] == 4 * PREFIX_LEN,
+          f"affinity hit {policies['affinity']['prefix_hit_tokens']} prefix tokens, want "
+          f"{4 * PREFIX_LEN} (every second-wave request on its prefix's replica)")
+    check(policies["round_robin"]["prefix_hit_tokens"] < policies["affinity"]["prefix_hit_tokens"],
+          "round-robin hit as many prefix tokens as affinity")
+
+    # live migration of 1500-token lanes, d2d and bounce, greedy and sampled
+    long = rng.integers(1, cfg.vocab_size, MIGRATE_LEN).astype(np.int32)
+    greedy = GenerationConfig(max_new_tokens=MIGRATE_NEW)
+    sampled = GenerationConfig(max_new_tokens=MIGRATE_NEW, do_sample=True, temperature=0.8,
+                               top_k=50)
+    cases = [(arm, g) for arm in ("d2d", "bounce") for g in (greedy, sampled)]
+    check(a._next_rid == b._next_rid, "the replicas' request ids differ before the migrations")
+    want = [r.tokens for r in b.serve([long.copy() for _ in cases], configs=[g for _, g in cases])]
+    reqs = [a.submit(long.copy(), config=g) for _, g in cases]
+    while any(len(r.tokens) < MIGRATE_AT for r in reqs):
+        a.step()
+    before = captures(a, b)
+    router = ReplicaRouter([a, b], registry=MetricsRegistry())
+    moves = []
+    for (arm, g), r in zip(cases, reqs):
+        slot = next(s for s in range(a.num_slots) if a._slot_req[s] is r)
+        a._drain_inflight()
+        npages = len(a.kv.lane_pages(slot))
+        nbytes = a.kv.chunk_bytes(npages)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks[0].record()
+        router.migrator.migrate(a, b, slot, mode=arm)
+        marks[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = marks[0].elapsed_time(marks[1])
+        moves.append({"arm": arm, "sampled": g.do_sample, "pages": npages, "bytes": nbytes,
+                      "tokens_at_move": len(r.tokens), "wall_ms": wall * 1e3, "card_ms": ms,
+                      "gb_per_s": nbytes / ms / 1e6,
+                      # d2d: the gather reads and writes the payload, the
+                      # install reads and writes it again
+                      "card_traffic_gb_per_s": 4 * nbytes / ms / 1e6 if arm == "d2d" else None})
+    b.run()
+    migrated = [r.tokens for r in reqs]
+    check(migrated == want, "migrated lanes' tokens differ from the unmoved serve: "
+          f"{[i for i, (x, y) in enumerate(zip(migrated, want)) if x != y]}")
+    check(captures(a, b) == before, "a migration captured a graph")
+    migrate_ms = router.migrator.metrics.histogram("serve/migrate_ms")
+
+    # the disaggregated pair against a monolithic replica
+    t0 = time.perf_counter()
+    pre = ServingEngine(model, None, registry=MetricsRegistry(), role="prefill",
+                        prefix_cache_mb=0, **kw)
+    dec = ServingEngine(shell, None, registry=MetricsRegistry(), role="decode",
+                        prefix_cache_mb=0, **kw)
+    walls["disaggregated_init"] = time.perf_counter() - t0
+    pair_built = captures(pre, dec)
+    disagg = ReplicaRouter([pre, dec], policy="disaggregated", registry=MetricsRegistry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dreqs = [disagg.submit(p.copy(), config=gen) for p in prompts]
+    disagg.run()
+    torch.cuda.synchronize()
+    walls["disaggregated_serve"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono = [r.tokens for r in a.serve([p.copy() for p in prompts], configs=gen)]
+    torch.cuda.synchronize()
+    walls["monolithic_serve"] = time.perf_counter() - t0
+    handoffs = disagg.migrator.metrics.counter("serve/prefill_handoffs_total").value
+    disagg_rec = {"handoffs": handoffs,
+                  "migrate_bytes": disagg.migrator.metrics.counter(
+                      "serve/migrate_bytes_total").value,
+                  "prefill_replica_decode_steps": pre.stats["decode_steps"],
+                  "prefill_replica_graphs": len(pre.graphs),
+                  "decode_replica_graphs": len(dec.graphs),
+                  "tokens_per_s": sum(len(r.tokens) for r in dreqs) / walls["disaggregated_serve"],
+                  "monolithic_tokens_per_s": sum(len(t) for t in mono) / walls["monolithic_serve"]}
+    check([r.tokens for r in dreqs] == mono,
+          "the disaggregated pair's tokens differ from a monolithic replica's")
+    check(handoffs == len(prompts) and pre.stats["decode_steps"] == 0,
+          f"{handoffs} handoffs for {len(prompts)} requests, "
+          f"{pre.stats['decode_steps']} decode steps on the prefill replica")
+    check(captures(pre, dec) == pair_built, "a handoff captured a graph")
+    del disagg, pre, dec
+
+    # failover upgraded to migration
+    fail = ReplicaRouter([a, b], policy="disaggregated", registry=MetricsRegistry())
+    req = fail.submit(long.copy(), config=greedy)
+    owner = fail.engines[req.replica]
+    while len(req.tokens) < MIGRATE_AT:
+        owner.step()
+    owner.kill("router line: simulated loss of the card")
+    before = captures(a, b)
+    fail.step()
+    fail.run()
+    failover = {"tokens_at_kill": MIGRATE_AT,
+                "migrations": fail.migrator.metrics.counter("serve/migrations_total").value,
+                "requests_replayed": fail.stats()["requests_replayed"]}
+    check(req.tokens == want[0], "the failed-over lane's tokens differ from the unmoved serve")
+    check(failover["migrations"] >= 1 and failover["requests_replayed"] == 0,
+          f"the failover did not migrate: {failover}")
+    check(captures(a, b) == before, "the failover's migration captured a graph")
+    owner.revive()
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_flash_prefill": pa.paged_flash_prefill.launches}
+    emit({"phase": "router", "config": "llama2_7b", "layers": cfg.num_layers,
+          "dtype": "bfloat16", "replicas": 2, "policies": policies, "migrations": moves,
+          "migrate_ms_count": migrate_ms.count, "disaggregated": disagg_rec,
+          "failover": failover, "graph_captures_at_build": built, "walls_s": walls,
+          "launches": launches, "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "gpu": gpu})
+    check(launches["paged_attention"] > 0 and launches["paged_flash_prefill"] > 0,
+          f"the router line launched no kernel: {launches}")
+    return launches, (a, b)
+
+
+#: concurrent requests of the ``api`` line's flood: past two replicas'
+#: slots and queues (2 x (4 + 8))
+API_FLOOD = 48
+
+
+def api_phase(a, b, gpu, prompts) -> dict:
+    """The ``api`` line (ROADMAP 8c): the ``router`` line's two replicas
+    behind ``FrontDoor`` (its driver thread alone calls the card) and
+    ``ApiServer`` on an ephemeral localhost port.  The engine line's six
+    prompts streamed over HTTP at once (SSE): the tokens of an in-process
+    serve, each request's frames before ``[DONE]``, its TTFT as the client
+    sees it (host wall from the request to its first frame); a flood of
+    ``API_FLOOD`` requests answered 200 (the in-process tokens) or 429 with
+    ``Retry-After``, at least one 429 and nothing else; a client that
+    disconnects after its first frame has its lane cancelled and its pages
+    freed.  The launch counters are zeroed before the front door starts and
+    read after it stops."""
+    import http.client
+    import threading
+
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ReplicaRouter
+    from accelerate_tpu_torch.serving.api import ApiServer, FrontDoor
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    want = [r.tokens for r in a.serve([p.copy() for p in prompts],
+                                      configs=GenerationConfig(max_new_tokens=ROUTER_NEW))]
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    registry = MetricsRegistry()
+    frontdoor = FrontDoor(ReplicaRouter([a, b], registry=registry), model_name="llama2-7b").start()
+    server = ApiServer(frontdoor, registry=registry)
+
+    def body(prompt, stream, n=ROUTER_NEW):
+        return json.dumps({"prompt": [int(t) for t in prompt], "max_tokens": n,
+                           "temperature": 0, "stream": stream})
+
+    def streamed(i, out):
+        conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/v1/completions", body(prompts[i], True),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            frames, ttft = [], None
+            for raw in iter(resp.readline, b""):
+                line = raw.strip()
+                if line.startswith(b"data: "):
+                    if ttft is None:
+                        ttft = time.perf_counter() - t0
+                    frames.append(line[len(b"data: "):])
+                if frames and frames[-1] == b"[DONE]":
+                    break
+            chunks = [json.loads(f) for f in frames[:-1]]
+            out[i] = {"status": resp.status, "ttft_s": ttft, "done": frames[-1:] == [b"[DONE]"],
+                      "token_frames": sum(1 for c in chunks if c["choices"][0]["token_ids"]),
+                      "tokens": [t for c in chunks for t in c["choices"][0]["token_ids"]]}
+        finally:
+            conn.close()
+
+    start = threading.Barrier(API_FLOOD)
+
+    def plain(i, out):
+        start.wait(timeout=120)  # the flood's requests in flight at once
+        conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+        try:
+            conn.request("POST", "/v1/completions", body(prompts[0], False, 8),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out[i] = (resp.status, resp.getheader("Retry-After"), json.loads(resp.read()))
+        finally:
+            conn.close()
+
+    def run(target, n):
+        out = [None] * n
+        threads = [threading.Thread(target=target, args=(i, out)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+
+    def idle():
+        return all(not e.has_work for e in (a, b))
+
+    def settle(predicate, timeout=120.0):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            if predicate():
+                return True
+            time.sleep(0.01)
+        return False
+
+    try:
+        t0 = time.perf_counter()
+        http_runs = run(streamed, len(prompts))
+        walls = {"six_streams": time.perf_counter() - t0}
+        check([r["tokens"] for r in http_runs] == want,
+              "tokens over HTTP differ from the in-process serve")
+        check(all(r["status"] == 200 and r["done"] and r["token_frames"] == ROUTER_NEW
+                  for r in http_runs), "an SSE stream did not frame each token before [DONE]")
+        t0 = time.perf_counter()
+        flood = run(plain, API_FLOOD)
+        walls["flood"] = time.perf_counter() - t0
+        statuses = [s for s, _, _ in flood]
+        check(set(statuses) <= {200, 429} and 429 in statuses,
+              f"the flood answered {sorted(set(statuses))}, want 200 and at least one 429")
+        check(all(retry is not None for st, retry, _ in flood if st == 429) and all(
+            bd["choices"][0]["token_ids"] == want[0][:8] for st, _, bd in flood if st == 200),
+            "a 429 without Retry-After, or a served flood request with other tokens")
+        check(settle(idle), "the replicas did not go idle after the flood")
+        free = [e.kv.allocator.free_count for e in (a, b)]
+        cancelled = sum(e.stats["cancelled"] for e in (a, b))
+        conn = http.client.HTTPConnection(server.host, server.port, timeout=300)
+        # the flood's prompt (one padded chunk: nothing enters the prefix
+        # cache), 400 tokens asked, the connection dropped after one frame
+        conn.request("POST", "/v1/completions", body(prompts[0], True, 400),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.readline()  # the first frame: the lane runs
+        resp.close()
+        conn.close()
+        freed = settle(lambda: sum(e.stats["cancelled"] for e in (a, b)) > cancelled
+                       and idle() and [e.kv.allocator.free_count for e in (a, b)] == free)
+        check(freed, "a disconnected stream's lane was not cancelled or its pages not freed")
+    finally:
+        server.stop()
+        frontdoor.stop()
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_flash_prefill": pa.paged_flash_prefill.launches}
+    emit({"phase": "api", "config": "llama2_7b", "replicas": 2,
+          "ttft_s": [r["ttft_s"] for r in http_runs], "walls_s": walls,
+          "flood": {"requests": API_FLOOD, "200": statuses.count(200),
+                    "429": statuses.count(429)},
+          "http_429_total": registry.counter("serve/http_429_total").value,
+          "disconnect_freed": freed, "launches": launches, "gpu": gpu})
+    check(launches["paged_attention"] > 0 and launches["paged_flash_prefill"] > 0,
+          f"the api line launched no kernel: {launches}")
     return launches
 
 
@@ -1750,9 +2164,7 @@ def hf_phases(gpu, line: str) -> dict:
     rng = np.random.default_rng(0)
     tol = model_phase(model, cfg, rng, name=f"model_{line}")
     launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, name=f"engine_{line}")
-    _, _, eager = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
-                               name=f"engine_{line}_sync_eager", eager=True)
-    check(eager == tokens, f"engine_{line}_sync_eager's greedy tokens differ from engine_{line}'s")
+    eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, f"engine_{line}_sync_eager")
     del model
     free_card()
     return launches
@@ -1930,10 +2342,7 @@ def mixtral_phases(gpu) -> dict:
     emit({"phase": "model_mixtral_plain_paged", **paged_plain_check(model, cfg, rng, tol,
                                                                     "model_mixtral")})
     launches, prompts, tokens = engine_phase(model, cfg, rng, gpu, tol, name="engine_mixtral")
-    _, _, eager = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
-                               name="engine_mixtral_sync_eager", eager=True)
-    check(eager == tokens, "engine_mixtral_sync_eager's greedy tokens differ from "
-          "engine_mixtral's")
+    eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, "engine_mixtral_sync_eager")
     emit({"phase": "mixtral_decode_split", **moe_decode_split(model, cfg),
           "weight_bound_ms_per_step": bound_ms, "gpu": gpu})
     del model
@@ -2416,7 +2825,7 @@ def offload_plugin(**kw):
 
 def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
                 mixed_precision="bf16", with_path_check=True, accelerator_kw=None,
-                repeats=4, keep_weights=False):
+                repeats=4, keep_weights=False, scrape=False):
     """``cfg`` (``train``: Llama-2-7B's widths at ``TRAIN_LAYERS`` layers)
     trained through ``Accelerator.compile_train_step``: ``2 * repeats``
     micro-steps of ``TRAIN_ROWS`` x ``TRAIN_SEQ`` tokens at accumulation 2,
@@ -2429,13 +2838,23 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     Accelerator (an offloading FSDP plugin: the line then reports the
     chunked update).  Returns the launches and the line's record (with
     ``keep_weights``, the final weights as host copies under ``weights``,
-    not printed)."""
+    not printed).  With ``scrape`` the Accelerator serves its telemetry
+    (``metrics_port=0``) and the line reads ``/metrics`` after the loop:
+    ``train/steps_total`` and the step histogram's count must be the
+    micro-steps, ``train/model_flops`` the line's FLOPs, and
+    ``train/step_mfu`` (the last step's, timed by CUDA events) within
+    ``STEP_MFU_REL_TOL`` of the line's own MFU of that step (host wall
+    after a synchronize)."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
-    from accelerate_tpu_torch.models.transformer import lm_loss_fn, state_dict_shapes
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import fp8
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.telemetry.cost import (
+        transformer_matrix_params,
+        transformer_train_flops,
+    )
     from accelerate_tpu_torch.utils.chunked_update import ChunkedOptimizer
 
     free_card()
@@ -2446,7 +2865,7 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     GradientState._reset_state()
     AcceleratorState._reset_state(reset_partial_state=True)
     accelerator = Accelerator(mixed_precision=mixed_precision, gradient_accumulation_steps=2,
-                              **(accelerator_kw or {}))
+                              metrics_port=0 if scrape else None, **(accelerator_kw or {}))
     model = accelerator.prepare(model)
     cfg = model.config
     a, dataset = train_data(cfg, repeats)
@@ -2466,6 +2885,9 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     fp8.launches = 0
+    # the telemetry's counts so far (the path check's steps): the scrape
+    # compares what the loop added
+    telemetry_before = train_counts(accelerator) if scrape else None
     metrics, step_s, update_s = [], [], []
     for batch in loader:
         t0 = time.perf_counter()
@@ -2482,21 +2904,14 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     host = [{k: v.item() for k, v in m.items()} for m in metrics]
     micro = len(host)
 
-    # model FLOPs of a micro-step: 6 x matrix parameters x tokens (the
-    # embedding is a gather, not a product) plus 3 x the attention forward
-    # (4 D flops per visible (query head, key) pair; the backward is twice
-    # the forward)
+    # model FLOPs of a micro-step, the one formula the Accelerator's
+    # train/model_flops and train/step_mfu use: 6 x matrix parameters x
+    # tokens (an MoE layer's experts at their active share k / E; the dense
+    # formulation computes more: every expert over its whole capacity) plus
+    # 3 x the attention forward
     tokens = rows * seq
-    # (a tied head multiplies by the embedding: Gemma's)
-    head = "embed_tokens.weight" if cfg.tie_word_embeddings else "lm_head.weight"
-    # an MoE layer's experts count at their active share k / E (the dense
-    # formulation computes more: every expert over its whole capacity)
-    active = cfg.num_experts_per_tok / cfg.num_experts if cfg.num_experts else 1.0
-    matrix_params = sum(int(np.prod(shape)) * (active if ".experts." in name else 1.0)
-                        for name, shape in state_dict_shapes(cfg).items()
-                        if name.endswith("proj.weight") or name == head)
-    attn_fwd = 4 * cfg.resolved_head_dim * cfg.num_heads * layers * rows * seq * (seq + 1) // 2
-    flops = 6 * matrix_params * tokens + 3 * attn_fwd
+    matrix_params = transformer_matrix_params(cfg)
+    flops = transformer_train_flops(cfg, rows, seq)
     # a micro-step's share of an optimizer step (accumulate + apply), the
     # median over the optimizer steps after the first (where AdamW allocates
     # its moments), so that one slow step does not set it
@@ -2570,6 +2985,8 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
         "mixed_precision": mixed_precision, "scaled_mm_launches": scaled_mm_launches,
         **moe_rec,
     }
+    if scrape:
+        rec["telemetry"] = train_scrape(accelerator, telemetry_before, micro, flops, step_s[-1])
     emit(rec)
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in host),
           "a loss or grad norm is not finite")
@@ -2601,6 +3018,61 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
     del state, step, loader, model, accelerator
     free_card()
     return launches, rec
+
+
+#: ``train/step_mfu`` (the last step's FLOPs over its time between CUDA
+#: events on the stream) against the line's MFU of the same step (its host
+#: wall, the loop synchronizing after each step): the two clocks differ by
+#: the launch of the first kernel and the synchronize's return, microseconds
+#: on a step of tens of milliseconds
+STEP_MFU_REL_TOL = 0.05
+
+
+def train_counts(accelerator) -> dict:
+    """The step counter and the step histogram's count, every step timed on
+    the card landed first (``analyze_costs``, off the loop)."""
+    accelerator.analyze_costs()
+    registry = accelerator.telemetry
+    return {"steps_total": registry.counter("train/steps_total").value,
+            "step_time_count": registry.histogram("train/step_time_s").count}
+
+
+def train_scrape(accelerator, before: dict, micro: int, flops: float,
+                 last_step_s: float) -> dict:
+    """The ``train`` line's telemetry read as an operator reads it:
+    ``/metrics`` fetched over HTTP from the Accelerator's debug server on
+    localhost (the scrape lands the step timings first), then the server
+    stopped.  The counts are held as what the loop added to ``before``."""
+    import urllib.request
+
+    from accelerate_tpu_torch.telemetry import stop_debug_server
+
+    server = accelerator.debug_server
+    check(server is not None, "metrics_port=0 started no debug server")
+    try:
+        with urllib.request.urlopen(server.url + "/metrics", timeout=60) as resp:
+            status, samples = resp.status, parse_prometheus(resp.read().decode())
+    finally:
+        stop_debug_server()
+    got = {"steps_total": samples.get("atpu_train_steps_total_total"),
+           "step_time_count": samples.get("atpu_train_step_time_s_count"),
+           "tokens_total": samples.get("atpu_train_tokens_total_total"),
+           "model_flops": samples.get("atpu_train_model_flops"),
+           "step_mfu": samples.get("atpu_train_step_mfu"),
+           "hbm_peak_bytes": samples.get("atpu_train_hbm_peak_bytes")}
+    last_mfu = flops / last_step_s / accelerator.device_peaks.flops_per_s
+    rel = abs(got["step_mfu"] - last_mfu) / last_mfu if got["step_mfu"] else None
+    added = {k: got[k] - before[k] for k in before}
+    check(status == 200 and added == {"steps_total": micro, "step_time_count": micro},
+          f"/metrics: status {status}, the loop added {added}, want {micro} of each")
+    check(got["model_flops"] == flops,
+          f"train/model_flops {got['model_flops']} is not the line's {flops}")
+    check(rel is not None and rel <= STEP_MFU_REL_TOL,
+          f"train/step_mfu {got['step_mfu']} against the line's last step {last_mfu}")
+    return {**got, "before_loop": before, "last_step_mfu_host_wall": last_mfu,
+            "step_mfu_rel_diff": rel,
+            "step_mfu_tolerance": STEP_MFU_REL_TOL,
+            "peak_flops_per_s": accelerator.device_peaks.flops_per_s}
 
 
 #: the card's fp8 linear against its plain version (quantize -> dequantize
@@ -3032,6 +3504,11 @@ def remat_policies_phase(gpu) -> dict:
     free_card()
 
 
+#: depth of the ``train_offload`` line's three twins and of the two runs
+#: they are held against
+OFFLOAD_TWIN_LAYERS = 2
+
+
 def train_offload_phase(gpu, train_rec) -> dict:
     """``train``'s model, batches and loop with the optimizer offloaded
     (``FullyShardedDataParallelPlugin(sharding_strategy="NO_SHARD",
@@ -3039,32 +3516,42 @@ def train_offload_phase(gpu, train_rec) -> dict:
     host memory, 512 MB chunks, bf16 working weights and gradient buffer
     on the card).  The first accumulation window (equal weights) against
     ``train``: losses bitwise, grad norms within
-    ``OFFLOAD_GRAD_NORM_REL_TOL``.  After the 4 updates its weights bitwise
-    those of the same run with one chunk (the whole state round-trips) and
-    with ``offload_update_overlap=2``; and ``offload_update_chunk_mb=0``
-    (the reference's whole-state round trip without master weights: f32
-    weights on the card, the moments offloaded) bitwise ``train``'s."""
+    ``OFFLOAD_GRAD_NORM_REL_TOL``.  Then, at ``OFFLOAD_TWIN_LAYERS`` of 32
+    layers (the update's chunking does not change with the depth, its
+    time does), the same run's weights after the 4 updates bitwise those
+    of the run with one chunk (the whole state round-trips) and with
+    ``offload_update_overlap=2``; and ``offload_update_chunk_mb=0`` (the
+    reference's whole-state round trip without master weights: f32
+    weights on the card, the moments offloaded) bitwise ``train``'s at that
+    depth."""
     launches, rec = train_phase(gpu, name="train_offload", with_path_check=False,
-                                accelerator_kw=dict(fsdp_plugin=offload_plugin()),
-                                keep_weights=True)
-    weights = rec.pop("weights")
+                                accelerator_kw=dict(fsdp_plugin=offload_plugin()))
     window = rec["applied"].index(True) + 1
     loss_same = rec["loss"][:window] == train_rec["loss"][:window]
     norm_rel = [abs(a - b) / abs(b) for a, b in zip(rec["grad_norm"], train_rec["grad_norm"])]
+    twin_cfg = train_config(OFFLOAD_TWIN_LAYERS)
+    depth = f"{OFFLOAD_TWIN_LAYERS}of32"
+    _, base = train_phase(gpu, twin_cfg, name=f"train_offload_{depth}", with_path_check=False,
+                          accelerator_kw=dict(fsdp_plugin=offload_plugin()), keep_weights=True)
+    _, plain = train_phase(gpu, twin_cfg, name=f"train_{depth}", with_path_check=False,
+                           keep_weights=True)
     twins = {}
     for label, kw in (("one_chunk", dict(offload_update_chunk_mb=1 << 20)),
                       ("overlap_2", dict(offload_update_overlap=2)),
                       ("chunk_mb_0", dict(offload_update_chunk_mb=0))):
-        _, twin = train_phase(gpu, name=f"train_offload_{label}", with_path_check=False,
+        _, twin = train_phase(gpu, twin_cfg, name=f"train_offload_{label}_{depth}",
+                              with_path_check=False,
                               accelerator_kw=dict(fsdp_plugin=offload_plugin(**kw)),
                               keep_weights=True)
-        want = train_rec["weights"] if label == "chunk_mb_0" else weights
+        want = (plain if label == "chunk_mb_0" else base)["weights"]
         twins[label] = all(torch.equal(twin["weights"][n], w) for n, w in want.items())
         del twin
+    del base, plain
     emit({"phase": "train_offload_vs", "first_window_micro_steps": window,
           "losses_bitwise_train": loss_same, "grad_norm_rel_diff_train": norm_rel,
           "grad_norm_tolerance": OFFLOAD_GRAD_NORM_REL_TOL,
-          "weights_bitwise": twins, "step_ms": rec["step_ms"],
+          "weights_bitwise": twins, "twin_layers": OFFLOAD_TWIN_LAYERS,
+          "step_ms": rec["step_ms"],
           "train_step_ms": train_rec["step_ms"],
           "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
           "train_max_memory_allocated_gb": train_rec["max_memory_allocated_gb"], "gpu": gpu})
@@ -3074,7 +3561,6 @@ def train_offload_phase(gpu, train_rec) -> dict:
     check(twins["one_chunk"], "the 512 MB chunks' weights differ from one chunk's")
     check(twins["overlap_2"], "overlap 2's weights differ from overlap 1's")
     check(twins["chunk_mb_0"], "offload_update_chunk_mb=0's weights differ from train's")
-    del weights
     return launches
 
 
@@ -3746,9 +4232,7 @@ def main() -> int:
     telemetry_off_phase(model, cfg, rng, gpu, tol, prompts, tokens)
     # the A/B baseline: eager windows, synchronous loop, the same requests;
     # the same kernels on the same inputs give the same greedy tokens
-    _, _, eager_tokens = engine_phase(model, cfg, rng, gpu, tol, prompts=prompts,
-                                      name="engine_sync_eager", eager=True)
-    check(eager_tokens == tokens, "engine_sync_eager's greedy tokens differ from engine's")
+    eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, "engine_sync_eager")
     # the decode-first ordering: the same requests, chunks queued behind
     # the window of their cycle
     _, _, inter_tokens = engine_phase(
@@ -3775,9 +4259,12 @@ def main() -> int:
     # then the same weights streamed from pinned host memory
     generate_phase(model, cfg, rng, gpu, tol)
     stream_offload_phase(model, cfg, rng, gpu)
-    # the fleet surface (swap_params overwrites the model's weights: last)
-    fleet_launches = fleet_phase(model, cfg, gpu, prompts)
-    del model
+    # the fleet surface (swap_params overwrites the model's weights: last),
+    # then the router and the HTTP front door over its two weight sets
+    fleet_launches, shell = fleet_phase(model, cfg, gpu, prompts)
+    router_launches, replicas = router_phase(model, shell, cfg, gpu, rng, prompts)
+    http_launches = api_phase(*replicas, gpu, prompts)
+    del model, shell, replicas
     free_card()
     stream_disk_phase(gpu)
     stream_launches = stream_forward_phase(gpu)
@@ -3797,6 +4284,8 @@ def main() -> int:
     # an fp8 model served (its decode windows' M = 4 lanes, padded in the product)
     family_launches["engine_fp8_model"] = engine_fp8_model_phase(gpu, rng, prompts)
     family_launches["fleet"] = fleet_launches
+    family_launches["router"] = router_launches
+    family_launches["api"] = http_launches
 
     flash = flash_phase([
         ("train", 13, 2, 2048, 32, 32, bf16, True, False),
@@ -3815,14 +4304,13 @@ def main() -> int:
         ("gqa_d16", 422, 2, 2048, 32, 8, bf16, True, False, 16),
         ("gqa_d16", 423, 2, 2048, 32, 8, f32, True, False, 16),
     ])
-    train_launches, train_rec = train_phase(gpu, keep_weights=True)
+    train_launches, train_rec = train_phase(gpu, scrape=True)
     launches.update(train_launches)
     # single-card training memory: remat, the offloaded optimizer, and both
     # at all 32 layers
     train_lines = {"train_remat": train_remat_phase(gpu, train_rec)}
     remat_policies_phase(gpu)
     train_lines["train_offload"] = train_offload_phase(gpu, train_rec)
-    del train_rec["weights"]  # 7.5 GB of host memory, before train_full's 81 GB
     free_card(host=True)
     train_lines["train_full"] = train_full_phase(gpu)
     free_card(host=True)

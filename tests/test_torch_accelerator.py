@@ -62,6 +62,16 @@ ROWS, SEQ, N_BATCHES = 8, 16, 5
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _jax_telemetry_off():
     """The JAX train step beats the process-wide flight recorder's heartbeat.
     With telemetry off it beats none, so a ``/healthz`` check that runs later
@@ -408,7 +418,21 @@ def test_accelerator_without_a_card_raises(monkeypatch):
     (dict(kwargs_handlers=[object()]), "item 9"),
     (dict(kwargs_handlers=[GradScalerKwargs(), object()]), "item 9"),
 ])
-def test_unported_arguments_raise(kw, item):
+def test_unported_arguments_raise(kw, item, monkeypatch):
+    """Arguments the port has not ported raise naming their ROADMAP item.
+    ``metrics_port`` (item 8a-ii) is ported since: its case holds that the
+    debug server starts on an ephemeral port
+    (``tests/test_torch_train_telemetry.py`` holds the rest)."""
+    if "metrics_port" in kw:
+        from accelerate_tpu_torch.telemetry import stop_debug_server
+
+        monkeypatch.setenv("ATPU_METRICS_HOST", "127.0.0.1")
+        try:
+            accelerator = Accelerator(cpu=True, **kw)
+            assert accelerator.debug_server is not None and accelerator.debug_server.port > 0
+        finally:
+            stop_debug_server()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         Accelerator(cpu=True, **kw)
 

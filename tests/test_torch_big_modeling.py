@@ -56,6 +56,16 @@ ATOL = 1e-5
 CPU = "cpu"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(**kw):
     return TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32, **kw)
 

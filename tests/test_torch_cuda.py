@@ -50,6 +50,12 @@ engine replays the new weights with no capture (tokens equal a fresh
 engine's), gauges keep the host values they were set to while the graphs
 replay, ``/metrics`` is scraped over HTTP while a graphed engine serves,
 and ``revive`` after a ``kill`` mid-window serves the same tokens again.
+The router's live migration: lanes moved mid-generation by the d2d and the
+bounce arm over bf16, int8 and fp8 pages give the unmoved serve's greedy
+and sampled tokens, their pages and scales bitwise, with no graph captured
+by an install; a prefill handoff queues behind a decode window in flight;
+and a replica built by the front door's driver thread (its graphs captured
+there) serves requests submitted from another thread.
 """
 
 import functools
@@ -1943,3 +1949,118 @@ def test_revive_after_kill_mid_window(card):
     engine.revive()
     assert engine.drained and engine.kv.allocator.free_count == engine.num_pages - 1
     assert _greedy(engine, prompts) == want
+
+
+# ------------------------------------------------- router, migration, front door
+def _own_model(card, seed=0):
+    """A replica's own copy of the fleet model's weights."""
+    return _fleet_model(card, seed)[1]
+
+
+_MIGRATE_KW = dict(num_slots=4, max_len=128, prefill_buckets=(16, 32), decode_window=3,
+                   prefix_cache_mb=0)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+def test_migrated_lanes_bit_identical_on_the_card(card, kv_dtype):
+    """Two lanes (greedy, sampled) per arm, moved mid-generation by the d2d
+    and the bounce arm between graphed engines over bf16, int8 and fp8
+    pages: the tokens of the same requests served unmoved (the baseline
+    engine takes the same request ids), pages and scales bitwise, and no
+    graph captured by an install."""
+    from accelerate_tpu_torch.serving import PageMigrator
+
+    kw = dict(_MIGRATE_KW, kv_dtype=kv_dtype)
+    # long enough that no lane is retired early (pre-freed) at its move
+    gens = [GenerationConfig(max_new_tokens=30),
+            GenerationConfig(max_new_tokens=30, do_sample=True, temperature=0.8, top_k=50)]
+    prompts = _fleet_prompts(2)
+    base = ServingEngine(_own_model(card), None, device=card, **kw)
+    src = ServingEngine(_own_model(card), None, device=card, **kw)
+    dst = ServingEngine(_own_model(card), None, device=card, **kw)
+    mig = PageMigrator()
+    for arm in ("d2d", "bounce"):
+        want = [r.tokens for r in base.serve([p.copy() for p in prompts], configs=gens)]
+        reqs = [src.submit(p.copy(), config=g) for p, g in zip(prompts, gens)]
+        while any(len(r.tokens) < 6 for r in reqs):
+            src.step()
+        captures = src.stats["graph_captures"] + dst.stats["graph_captures"]
+        for r in reqs:
+            slot = next(s for s in range(src.num_slots) if src._slot_req[s] is r)
+            src._drain_inflight()
+            old = src.kv.lane_pages(slot)
+            pages = [t[:, old].clone() for t in src._pool]
+            mig.migrate(src, dst, slot, mode=arm)
+            new = dst.kv.lane_pages(r.slot)
+            torch.cuda.synchronize()
+            assert all(torch.equal(t[:, new].view(torch.uint8), p.view(torch.uint8))
+                       for t, p in zip(dst._pool, pages))
+        dst.run()
+        src.run()
+        assert [r.tokens for r in reqs] == want, arm
+        assert src.stats["graph_captures"] + dst.stats["graph_captures"] == captures
+    assert dst.stats["graph_replays"] > 0
+    assert src.compiled_executable_counts()["migrate_extract"] == 1
+    assert dst.compiled_executable_counts()["migrate_install"] == 1
+
+
+def test_handoff_under_an_inflight_destination_window(card):
+    """A prefill replica's lane handed off to a decode replica whose window
+    is in flight: the install queues behind the window on the stream, and
+    both requests' tokens are a monolithic engine's."""
+    from accelerate_tpu_torch.serving import PageMigrator
+
+    prompts = _fleet_prompts(2)
+    mono = ServingEngine(_own_model(card), None, device=card, **_MIGRATE_KW)
+    want = _greedy(mono, prompts)
+    pre = ServingEngine(_own_model(card), None, device=card, role="prefill", **_MIGRATE_KW)
+    dec = ServingEngine(_own_model(card), None, device=card, role="decode", **_MIGRATE_KW)
+    assert len(pre.graphs) == len(pre.buckets)  # chunks only: no window captured
+    r0 = dec.submit(prompts[0].copy(), max_new_tokens=12)
+    r1 = pre.submit(prompts[1].copy(), max_new_tokens=12)
+    while r1.state.name != "RUNNING":
+        pre.step()
+    while not (dec._inflight is not None and r0.tokens):
+        dec.step()
+    captures = dec.stats["graph_captures"]
+    slot = next(s for s in range(pre.num_slots) if pre._slot_req[s] is r1)
+    PageMigrator().handoff(pre, dec, slot)
+    dec.run()
+    assert [r0.tokens, r1.tokens] == want
+    assert dec.stats["graph_captures"] == captures and pre.stats["decode_steps"] == 0
+
+
+def test_frontdoor_driver_thread_captures_and_serves(card):
+    """A replica built by the front door's driver thread (its graphs
+    captured there) serves the requests submitted through the front door
+    from another thread: the tokens of an in-process engine, graphs
+    replayed, none captured after construction."""
+    import threading
+
+    from accelerate_tpu_torch.serving import ReplicaRouter
+    from accelerate_tpu_torch.serving.api import CompletionCall, FrontDoor
+
+    prompts = _fleet_prompts()
+    want = _greedy(ServingEngine(_own_model(card), None, device=card, **_FLEET_KW), prompts)
+    first = ServingEngine(_own_model(card), None, device=card, **_FLEET_KW)
+    frontdoor = FrontDoor(ReplicaRouter([first])).start()
+    built = {}
+
+    def build():
+        built["thread"] = threading.current_thread().name
+        built["engine"] = ServingEngine(_own_model(card), None, device=card, **_FLEET_KW)
+        return built["engine"]
+
+    try:
+        rid = frontdoor.add_replica(build)
+        frontdoor.drain_replica(0)  # new requests go to the replica built on the driver
+        engine = built["engine"]
+        captures = engine.stats["graph_captures"]
+        streams = [frontdoor.submit(CompletionCall(prompt=[int(t) for t in p], max_tokens=12,
+                                                   temperature=0.0))[1] for p in prompts]
+        assert all(s.wait_done(120) for s in streams)
+    finally:
+        frontdoor.stop()
+    assert built["thread"] == "atpu-frontdoor-driver" and rid == 1
+    assert [s.final_tokens for s in streams] == want
+    assert engine.stats["graph_replays"] > 0 and engine.stats["graph_captures"] == captures > 0

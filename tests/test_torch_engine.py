@@ -62,6 +62,16 @@ CACHE_OFF = dict(prefix_cache_mb=0)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _jax_telemetry_off():
     """The JAX engine beats the process-wide flight recorder's heartbeat.
     With telemetry off it beats none, so a ``/healthz`` check that runs later
@@ -243,8 +253,21 @@ def test_unported_arguments_raise(models, kw, item):
     """The reference's keywords that the port has not ported raise
     ``NotImplementedError`` naming their item (``paged=False`` is ported:
     ``tests/test_torch_slab.py``; a checkpoint ``draft_model``:
-    ``tests/test_torch_hf_compat.py``)."""
+    ``tests/test_torch_hf_compat.py``).  ``role`` (item 8b) is ported since:
+    its case holds that a prefill replica builds, publishes its role and
+    prefills without decoding (``tests/test_torch_router.py`` holds the
+    rest)."""
     _, _, model, params = models
+    if item == "8b":
+        engine = ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+        assert engine.role == "prefill"
+        assert engine.metrics.gauge("serve/role").value == 1.0
+        req = engine.submit(np.arange(1, 6), max_new_tokens=2)
+        for _ in range(3):
+            engine.step()
+        assert req.state.name == "RUNNING" and not req.tokens
+        assert engine.stats["decode_steps"] == 0
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
 

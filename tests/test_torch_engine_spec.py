@@ -18,6 +18,7 @@ from accelerate_tpu_torch.models.generation import GenerationConfig
 from test_torch_engine import (  # noqa: F401  (fixtures)
     ENGINE_KW,
     _jax_telemetry_off,
+    _one_torch_thread,
     _prompts,
     _serve,
     models,

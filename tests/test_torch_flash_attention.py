@@ -27,6 +27,16 @@ B, S, D = 2, 64, 32
 HEADS = [(4, 4), (4, 2), (8, 2)]  # (Hq, Hkv): MHA, GQA 4:2, GQA 8:2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, hq, hkv, s=S, segmented=False):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, s, hq, D)).astype(np.float32)

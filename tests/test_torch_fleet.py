@@ -66,6 +66,16 @@ PORT_ONLY = {f"serve/{k}_total" for k in (
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _private_telemetry():
     """Telemetry on in both packages, each with a process-wide recorder and
     trace registry of this module's own; the originals come back after."""

@@ -48,6 +48,16 @@ FORMATS = {"e4m3": (torch.float8_e4m3fn, jnp.float8_e4m3fn),
            "e5m2": (torch.float8_e5m2, jnp.float8_e5m2)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _fresh_state():
     yield

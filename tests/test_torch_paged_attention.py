@@ -31,6 +31,16 @@ from accelerate_tpu_torch.ops import paged_attention as tpa
 STALE = 1e4  # stale pages past a lane's frontier hold large finite garbage
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scenario(seed, n, s, page, pages_per_lane, hkv, rep, d, lengths=None):
     """Ragged paged-KV state as numpy: per-lane tables over a shared pool,
     the ``s`` new positions' KV already inserted, and every table slot past

@@ -68,6 +68,16 @@ COUNTERS = ("prefix_hit_tokens", "prefix_hit_tokens_host", "prefix_miss_tokens",
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _jax_telemetry_off():
     """As in ``test_torch_engine.py``: the JAX engine beats no heartbeat
     that a later ``/healthz`` check in the same process could find stale."""

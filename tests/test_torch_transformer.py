@@ -28,6 +28,16 @@ from test_torch_families import affine_noise
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tiny models here gain nothing from intra-op threads, and under
+    the tier-1 run's six workers such threads contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jcfg = JConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32)
