@@ -1,8 +1,8 @@
-"""The ``Accelerator`` of the training path: one process, one device.
+"""The ``Accelerator`` of the training path: one device a process, one or many processes.
 
-Port of :mod:`accelerate_tpu.accelerator` for a single card.  The JAX
-package compiles the whole training step into one jitted program; here the
-same step runs eagerly, with the same semantics and the same metrics::
+Port of :mod:`accelerate_tpu.accelerator`.  The JAX package compiles the
+whole training step into one jitted program; here the same step runs
+eagerly, with the same semantics and the same metrics::
 
     accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2)
     loader = accelerator.prepare(SimpleDataLoader(dataset, batch_size=2))
@@ -80,9 +80,33 @@ batch.  Eval steps record ``eval/step_time_s``; ``save_state``,
 ``load_state`` and ``save_model`` their ``checkpoint/*`` spans, histograms
 and byte counters.  ``metrics_port`` starts the debug server.
 
-Arguments for what is not ported — the ZeRO plugin, Megatron plugin,
-meshes, PowerSGD, trackers — raise ``NotImplementedError`` naming their
-ROADMAP item.
+Across processes (each one device; ``launchers.py`` or any launcher that
+sets the reference's ``ACCELERATE_*`` rendezvous environment) the same
+script runs unchanged::
+
+    accelerator = Accelerator(
+        mesh={"dp": 2, "fsdp": 2},                       # or derived from the plugins
+        fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD"),
+        deepspeed_plugin=ZeroPlugin(zero_stage=2),       # lowers onto the FSDP plugin
+        megatron_lm_plugin=ModelParallelPlugin(tp_degree=2),
+        kwargs_handlers=[CollectiveKwargs(comm_hook="powersgd"),
+                         InitProcessGroupKwargs(backend="gloo")])
+
+The mesh is the reference's (``_default_mesh``: the plugins' axes, the
+rest ``dp``; ``ACCELERATE_MESH``/``ACCELERATE_DCN_MESH``), and so are the
+train state's placements (``_train_state_shardings``: the FSDP/ZeRO shape
+rule, the tensor-parallel rules under ``tp``).  A prepared loader gives
+each rank the rows of its data shard; the step gathers each parameter
+block for the forward, reduces every micro-step's gradient over the data
+axes (PowerSGD over ``dp`` with the hook), clips by the global norm over
+every shard, and updates each rank's block of the optimizer state
+(``parallel/sharding.py``'s ``ShardedLayout``).  With one process none of
+this runs: the step is the single-card one.  ``save_state`` writes each
+rank's blocks and ``load_state`` re-shards them onto the live mesh, also
+from another world size (``checkpointing.py``).
+
+``log_with`` (trackers) raises ``NotImplementedError`` naming its ROADMAP
+item; so do pipeline, sequence and expert parallelism (9e-ii).
 """
 
 from __future__ import annotations
@@ -90,6 +114,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import math
 import os
 import time
 import warnings
@@ -120,24 +145,28 @@ from .telemetry.watchdog import tensor_signature
 from .train_state import TrainState, global_norm, tree_finite
 from .utils import operations as ops
 from .utils import remat as _remat
+from .parallel import mesh as mesh_lib
 from .utils.dataclasses import (
+    TENSOR_DTYPES,
+    CollectiveKwargs,
     CompilationConfig,
     DataLoaderConfiguration,
     FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
+    InitProcessGroupKwargs,
+    MeshConfig,
+    ModelParallelPlugin,
     PrecisionPolicy,
     ProjectConfiguration,
+    ZeroPlugin,
     parse_flag_from_env,
+    parse_mesh_spec,
 )
 
-_PARALLEL = "ROADMAP Queue 1 item 9 (parallel/)"
 #: constructor argument -> where its port stands in the ROADMAP
 _UNPORTED_ARGS = {
-    "deepspeed_plugin": "ZeRO sharding and offload: ROADMAP Queue 1 item 9e (parallel/)",
-    "megatron_lm_plugin": f"tensor/pipeline/sequence parallelism: {_PARALLEL}",
-    "mesh": f"device meshes: {_PARALLEL}",
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
 }
 
@@ -149,7 +178,7 @@ def _is_tensor(t) -> bool:
 def _tensors(tree) -> List[torch.Tensor]:
     """Every tensor leaf of a tree, in order."""
     leaves: List[torch.Tensor] = []
-    ops.recursively_apply(leaves.append, tree, _is_tensor)
+    ops.recursively_apply(leaves.append, tree, test_type=_is_tensor)
     return leaves
 
 
@@ -189,46 +218,76 @@ class Accelerator:
         dynamo_backend: Optional[str] = None,
         metrics_port: Optional[int] = None,
     ):
-        given = dict(deepspeed_plugin=deepspeed_plugin, megatron_lm_plugin=megatron_lm_plugin,
-                     mesh=mesh, log_with=log_with)
-        for name, value in given.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"Accelerator({name}=...) is not ported: {_UNPORTED_ARGS[name]}")
+        if log_with is not None:
+            raise NotImplementedError(
+                f"Accelerator(log_with=...) is not ported: {_UNPORTED_ARGS['log_with']}")
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
+        # kwargs handlers (accelerate_tpu/accelerator.py:169-190)
         self.scaler_handler: Optional[GradScalerKwargs] = None
+        self.collective_handler: Optional[CollectiveKwargs] = None
+        self.init_handler: Optional[InitProcessGroupKwargs] = None
         self.fp8_recipe_handler: Optional[FP8RecipeKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, GradScalerKwargs):
                 self.scaler_handler = handler
+            elif isinstance(handler, CollectiveKwargs):
+                self.collective_handler = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                self.init_handler = handler
             elif isinstance(handler, FP8RecipeKwargs):
                 self.fp8_recipe_handler = handler
             else:
-                raise NotImplementedError(
-                    f"kwargs handler {type(handler).__name__} is not ported (collective "
-                    f"options and PowerSGD: {_PARALLEL}); GradScalerKwargs and "
-                    "FP8RecipeKwargs are")
+                raise TypeError(
+                    f"kwargs handler {type(handler).__name__} is not one of GradScalerKwargs, "
+                    "CollectiveKwargs, InitProcessGroupKwargs, FP8RecipeKwargs")
         if self.fp8_recipe_handler is None and mixed_precision == "fp8":
             self.fp8_recipe_handler = FP8RecipeKwargs()
+        if self.collective_handler is None and any(
+                os.environ.get(k) for k in ("ACCELERATE_GRAD_REDUCE_DTYPE",
+                                            "ACCELERATE_COMM_HOOK", "ACCELERATE_POWERSGD_RANK")):
+            self.collective_handler = CollectiveKwargs.from_env()
+
+        if deepspeed_plugin is None and os.environ.get("ACCELERATE_DEEPSPEED_CONFIG_FILE"):
+            deepspeed_plugin = ZeroPlugin.from_deepspeed_config(
+                os.environ["ACCELERATE_DEEPSPEED_CONFIG_FILE"])
+        if deepspeed_plugin is None and parse_flag_from_env("ACCELERATE_USE_DEEPSPEED"):
+            deepspeed_plugin = ZeroPlugin()
+        if (mixed_precision is None and not os.environ.get("ACCELERATE_MIXED_PRECISION")
+                and deepspeed_plugin is not None
+                and getattr(deepspeed_plugin, "inferred_mixed_precision", None)):
+            mixed_precision = deepspeed_plugin.inferred_mixed_precision
+        if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_USE_FSDP"):
+            fsdp_plugin = FullyShardedDataParallelPlugin()
+        if megatron_lm_plugin is None and parse_flag_from_env("ACCELERATE_USE_MEGATRON_LM"):
+            megatron_lm_plugin = ModelParallelPlugin()
 
         if gradient_accumulation_plugin is None:
-            gradient_accumulation_plugin = GradientAccumulationPlugin(
-                num_steps=gradient_accumulation_steps)
+            if (gradient_accumulation_steps == 1 and deepspeed_plugin is not None
+                    and deepspeed_plugin.gradient_accumulation_steps):
+                gradient_accumulation_steps = deepspeed_plugin.gradient_accumulation_steps
+            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=int(
+                os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS",
+                               gradient_accumulation_steps)))
         elif gradient_accumulation_steps != 1:
             raise ValueError("Pass either gradient_accumulation_steps or "
                              "gradient_accumulation_plugin, not both")
 
-        if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_USE_FSDP"):
-            fsdp_plugin = FullyShardedDataParallelPlugin()
-        if fsdp_plugin is not None and fsdp_plugin.fsdp_axis_size > 1:
-            raise NotImplementedError(
-                f"fsdp_axis_size={fsdp_plugin.fsdp_axis_size} shards over that many devices; "
-                "the port runs on one: ROADMAP Queue 1 item 9e (parallel/)")
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      fsdp_plugin=fsdp_plugin, _from_accelerator=True)
+        # the rendezvous takes every InitProcessGroupKwargs field here
+        # (the JAX package drops backend and init_method: jax.distributed
+        # has neither)
+        init_kwargs = self.init_handler.to_kwargs() if self.init_handler else {}
+        self.state = AcceleratorState(
+            mixed_precision=mixed_precision, cpu=cpu, fsdp_plugin=fsdp_plugin,
+            zero_plugin=deepspeed_plugin, model_parallel_plugin=megatron_lm_plugin,
+            mesh_config=mesh if isinstance(mesh, MeshConfig) else None,
+            _from_accelerator=True, **init_kwargs)
+        if mesh is not None and not isinstance(mesh, MeshConfig):
+            self.state.partial_state.set_mesh(mesh)
+        elif mesh is None:
+            self._default_mesh()
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self.device_placement = device_placement
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
@@ -237,12 +296,16 @@ class Accelerator:
             self.dataloader_config.split_batches = True
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.compilation_config = compilation_config or CompilationConfig.from_env()
-        # FSDP's activation_checkpointing lowers onto the one remat mechanism
+        # FSDP's activation_checkpointing and the model-parallel plugin's
+        # recompute_activations lower onto the one remat mechanism
         # (accelerate_tpu/accelerator.py:254-262)
-        if (fsdp_plugin is not None and fsdp_plugin.activation_checkpointing
-                and self.compilation_config.remat_policy == "none"):
+        wants_remat = ((fsdp_plugin is not None and fsdp_plugin.activation_checkpointing)
+                       or (megatron_lm_plugin is not None
+                           and megatron_lm_plugin.recompute_activations))
+        if wants_remat and self.compilation_config.remat_policy == "none":
             self.compilation_config.remat_policy = "full"
-        # synchronizes the samplers' RNGs across processes: one process here
+        # the RNGs a prepared loader synchronizes across processes at each
+        # epoch's start ("generator": the seedable sampler's)
         self.rng_types = rng_types or ["generator"]
         # accepted for API parity: the step is not compiled by dynamo
         self.dynamo_backend = dynamo_backend
@@ -279,6 +342,84 @@ class Accelerator:
                                                recorder=self.flight_recorder)
         if self.debug_server is not None:
             self.debug_server.add_collector(self.analyze_costs)
+
+    # --------------------------------------------------------------- topology
+    def _default_mesh(self):
+        """The mesh from the launcher's environment or the plugins
+        (``accelerate_tpu/accelerator.py:337-407``): the model-parallel
+        axes, then ``fsdp`` (``fsdp_axis_size``, -1 for every process left)
+        when the strategy shards, the rest ``dp``; under a hybrid strategy
+        over several nodes, ``dp`` spans the nodes and ``fsdp`` the
+        processes of one.  ``ACCELERATE_MESH`` (``"dp=2,fsdp=-1"``) must
+        carry the axes the plugins shard over."""
+        ps = self.state.partial_state
+        n = ps.num_processes
+        env_mesh = os.environ.get("ACCELERATE_MESH")
+        mp = self.state.model_parallel_plugin
+        fsdp_plugin = self.effective_fsdp_plugin
+        if env_mesh:
+            axes = parse_mesh_spec(env_mesh)
+            required = []
+            if fsdp_plugin is not None and fsdp_plugin.shards_opt_state:
+                required.append("fsdp")
+            if mp is not None:
+                for axis, degree in (("tp", mp.tp_degree), ("pp", mp.pp_degree),
+                                     ("sp", mp.sp_degree), ("ep", mp.expert_parallel_degree)):
+                    if degree > 1:
+                        required.append(axis)
+            missing = [a for a in required if a not in axes]
+            if missing:
+                raise ValueError(
+                    f"ACCELERATE_MESH={env_mesh!r} lacks axes {missing} required by the "
+                    "active FSDP/ZeRO/model-parallel plugins. Add them to --mesh "
+                    f"(e.g. --mesh {','.join(f'{a}=...' for a in missing)},{env_mesh}) "
+                    "or drop the plugin flags.")
+            dcn_spec = os.environ.get("ACCELERATE_DCN_MESH")
+            ps.set_mesh(MeshConfig(axes=axes,
+                                   dcn_axes=parse_mesh_spec(dcn_spec) if dcn_spec else {}))
+            return
+        axes: Dict[str, int] = {}
+        if mp is not None and mp.tp_degree > 1:
+            axes["tp"] = mp.tp_degree
+        model_par = math.prod(axes.values()) if axes else 1
+        if n % model_par != 0:
+            raise ValueError(f"Model-parallel degrees {axes} do not divide {n} devices")
+        rest = n // model_par
+        if fsdp_plugin is not None and fsdp_plugin.shards_opt_state:
+            nodes = self._num_nodes()
+            if fsdp_plugin.hybrid and nodes > 1:
+                ps.set_mesh(MeshConfig(axes={"dp": nodes, "fsdp": rest // nodes, **axes},
+                                       dcn_axes={"dp": nodes}))
+                return
+            fsdp_size = fsdp_plugin.fsdp_axis_size if fsdp_plugin.fsdp_axis_size > 0 else rest
+            if rest % fsdp_size:
+                raise ValueError(
+                    f"fsdp_axis_size={fsdp_size} does not divide the {rest} processes the "
+                    "model-parallel axes leave (one device a process)")
+            axes = {"dp": rest // fsdp_size, "fsdp": fsdp_size, **axes}
+        else:
+            axes = {"dp": rest, **axes}
+        ps.set_mesh(axes)
+
+    def _num_nodes(self) -> int:
+        """Nodes of the run: the processes whose local index is 0 (the
+        reference's processes are its hosts)."""
+        if self.num_processes == 1:
+            return 1
+        return sum(ops.gather_object([int(self.local_process_index == 0)]))
+
+    @property
+    def effective_fsdp_plugin(self) -> Optional[FullyShardedDataParallelPlugin]:
+        """The FSDP plugin, or the one a ZeRO plugin lowers onto."""
+        if self.state.fsdp_plugin is not None:
+            return self.state.fsdp_plugin
+        if self.state.zero_plugin is not None:
+            return self.state.zero_plugin.to_fsdp_plugin()
+        return None
+
+    @property
+    def mesh(self):
+        return self.state.partial_state.mesh
 
     # ------------------------------------------------------------- properties
     @property
@@ -350,6 +491,10 @@ class Accelerator:
     @property
     def split_batches(self) -> bool:
         return self.dataloader_config.split_batches
+
+    @property
+    def dispatch_batches(self):
+        return self.dataloader_config.dispatch_batches
 
     @property
     def even_batches(self) -> bool:
@@ -463,13 +608,17 @@ class Accelerator:
         return rebuilt
 
     def prepare_data_loader(self, data_loader, device_placement: Optional[bool] = None):
+        """The loader for this process: the rows of its data shard on the
+        mesh (``data_partition_spec``: every data axis splits the batch;
+        ranks that differ on ``tp`` only get the same rows)."""
         cfg = self.dataloader_config
         return prepare_data_loader(
             data_loader, device=self.device, split_batches=cfg.split_batches,
             put_on_device=self.device_placement if device_placement is None else device_placement,
             dispatch_batches=cfg.dispatch_batches, even_batches=cfg.even_batches,
             use_seedable_sampler=cfg.use_seedable_sampler, non_blocking=cfg.non_blocking,
-            prefetch_size=cfg.prefetch_size)
+            prefetch_size=cfg.prefetch_size, mesh=self.mesh,
+            rng_types=self.rng_types if cfg.use_seedable_sampler else None)
 
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         return _skip_first_batches(dataloader, num_batches=num_batches)
@@ -496,7 +645,15 @@ class Accelerator:
         params.to(dtype=self.policy.param_dtype)
         self._chunk_info = None
         self._offload_master = False
-        plugin = self.fsdp_plugin
+        plugin = self.effective_fsdp_plugin
+        layout = self._make_layout(params) if self.num_processes > 1 else None
+        opt_params = None if layout is None else layout.optimizer_params(params)
+        if layout is not None and plugin is not None and plugin.offload_optimizer and any(
+                e["master"] is not None for e in layout.entries.values()):
+            raise NotImplementedError(
+                "offload_optimizer with optimizer state sharded finer than the parameters "
+                "(ZeRO-1/2, SHARD_GRAD_OP over an fsdp axis) is not ported; FULL_SHARD "
+                "(ZeRO-3) streams each rank's shard: ROADMAP Queue 1 item 9e-ii")
         if plugin is not None and plugin.offload_optimizer_nvme_path and (
                 not plugin.offload_optimizer or plugin.offload_update_chunk_mb == 0):
             raise ValueError(
@@ -514,7 +671,19 @@ class Accelerator:
                                     backoff_factor=scaler.backoff_factor,
                                     growth_interval=scaler.growth_interval)
                                if scaler else None),
+            opt_params=opt_params,
         )
+        state.layout = layout
+        powersgd = self._powersgd_config()
+        if powersgd is not None:
+            from .parallel.compression import powersgd_init
+            from .parallel.sharding import logical_shape
+
+            self._check_powersgd_layout(layout)
+            state.comm_state = powersgd_init(
+                {name: torch.empty(logical_shape(name, p.shape), device=p.device)
+                 for name, p in params.named_parameters()},
+                rank=powersgd["rank"], min_compression_size=powersgd["min_size"])
         if self._offload_master:
             # the working copy in the compute dtype, after the masters were
             # seeded from the full-precision values
@@ -527,6 +696,112 @@ class Accelerator:
         if params not in self._models:
             self._models.append(params)
         return state
+
+    def _train_state_shardings(self):
+        """``(param_rule, opt_rule, shards_grads)`` over the mesh
+        (``accelerate_tpu/accelerator.py:898-985``, without its ``pp``/``ep``
+        branches): the tensor-parallel rules when the mesh has ``tp``, else
+        the FSDP/ZeRO shape rules; ``shards_grads``: ZeRO-2 and up reduce-
+        scatter gradients into the optimizer's blocks, ZeRO-1 all-reduces."""
+        from .parallel.sharding import make_opt_sharding_fn, make_param_sharding_fn
+        from .parallel.tensor_parallel import make_tp_sharding_fn
+
+        mesh = self.mesh
+        later = [a for a in ("pp", "sp", "ep") if mesh_lib.mesh_axis_size(mesh, a) > 1]
+        if later:
+            raise NotImplementedError(
+                f"mesh axes {later}: pipeline, sequence and expert parallelism are not "
+                "ported: ROADMAP Queue 1 item 9e-ii")
+        plugin = self.effective_fsdp_plugin
+        if mesh_lib.mesh_axis_size(mesh, "tp") > 1:
+            param_rule = make_tp_sharding_fn(mesh, plugin)
+            opt_rule = make_tp_sharding_fn(mesh, plugin, for_opt_state=True)
+        else:
+            shape_param, shape_opt = (make_param_sharding_fn(mesh, plugin),
+                                      make_opt_sharding_fn(mesh, plugin))
+            param_rule = lambda name, x: shape_param(x, name)  # noqa: E731
+            opt_rule = lambda name, x: shape_opt(x, name)  # noqa: E731
+        return param_rule, opt_rule, plugin is None or plugin.shards_grads
+
+    def _make_layout(self, model: nn.Module):
+        """The model's :class:`~accelerate_tpu_torch.parallel.sharding.
+        ShardedLayout` (its blocks cut in place).  Under ``tp`` the port's
+        :class:`~accelerate_tpu_torch.models.transformer.Transformer`
+        computes tensor-parallel (its attention on the rank's heads); any
+        other module gathers the ``tp`` blocks and computes whole, which
+        gives the same values."""
+        from .models.transformer import Transformer
+        from .parallel.sharding import ShardedLayout
+
+        param_rule, opt_rule, shards_grads = self._train_state_shardings()
+        tp = mesh_lib.mesh_axis_size(self.mesh, "tp")
+        tp_compute = isinstance(model, Transformer) and tp > 1
+        if tp_compute:
+            cfg = model.config
+            if cfg.num_kv_heads % tp or cfg.num_heads % tp:
+                raise ValueError(
+                    f"tp={tp} must divide num_heads ({cfg.num_heads}) and num_kv_heads "
+                    f"({cfg.num_kv_heads}): each rank attends over its own heads")
+            if (cfg.positional == "alibi" or cfg.num_experts > 0
+                    or cfg.quantization is not None or cfg.use_fp8):
+                raise NotImplementedError(
+                    "tensor-parallel training of alibi, MoE, quantized or fp8 models is not "
+                    "ported: ROADMAP Queue 1 item 9e-ii")
+        # the reductions ride in the compute dtype, as the reference's do
+        # (XLA reduces the bf16 partials), or the explicit grad_reduce_dtype
+        handler = self.collective_handler
+        reduce_dtype = (TENSOR_DTYPES[handler.grad_reduce_dtype]
+                        if handler is not None and handler.grad_reduce_dtype
+                        else self.policy.compute_dtype)
+        layout = ShardedLayout(self.mesh, model, param_rule, opt_rule, shards_grads=shards_grads,
+                               tp_compute=tp_compute, reduce_dtype=reduce_dtype)
+        layout.install_tp(model)
+        return layout
+
+    def _powersgd_config(self) -> Optional[Dict[str, int]]:
+        """PowerSGD's validated settings, or ``None`` when the hook is off
+        (``accelerate_tpu/accelerator.py:1043-1085``): dp/fsdp meshes only,
+        a ``dp`` axis, no fp16 loss scaling."""
+        handler = self.collective_handler
+        if handler is None or handler.comm_hook in (None, "none"):
+            return None
+        if handler.comm_hook != "powersgd":
+            raise ValueError(f"Unknown CollectiveKwargs.comm_hook {handler.comm_hook!r}; "
+                             "supported: 'none', 'powersgd'.")
+        mesh = self.mesh
+        offending = [a for a in mesh.axis_names
+                     if a not in ("dp", "fsdp") and mesh_lib.mesh_axis_size(mesh, a) > 1]
+        if offending:
+            raise ValueError(
+                "comm_hook='powersgd' compresses the dp gradient reduction and "
+                f"composes with dp/fsdp meshes only; this mesh also shards over "
+                f"{offending}. Drop the hook or the model-parallel axes "
+                "(PowerSGD targets replicated-DP over slow networks).")
+        if "dp" not in mesh.axis_names:
+            raise ValueError(
+                "comm_hook='powersgd' compresses the dp gradient reduction but "
+                "this mesh has no dp axis; add one (e.g. mesh={'dp': n_slices, "
+                "'fsdp': -1}) or drop the hook.")
+        if self._use_loss_scaling:
+            raise ValueError(
+                "comm_hook='powersgd' is bf16/fp32-only: dynamic loss scaling "
+                "re-scales gradients across steps, which breaks the error-feedback "
+                "carry (stale-scale residuals).")
+        return {"rank": int(handler.powersgd_rank), "min_size": int(handler.comm_hook_min_size)}
+
+    @staticmethod
+    def _check_powersgd_layout(layout) -> None:
+        """PowerSGD compresses whole matrices, as the reference's does; a
+        parameter the step holds in ``fsdp`` blocks (FULL_SHARD) would be
+        compressed block by block, which is another algorithm."""
+        if layout is None:
+            return
+        sharded = [n for n, e in layout.entries.items() if "fsdp" in str(e["pspec"])]
+        if sharded:
+            raise NotImplementedError(
+                f"comm_hook='powersgd' over parameters sharded on fsdp ({sharded[:3]}...): "
+                "the port compresses whole matrices only; use SHARD_GRAD_OP or NO_SHARD "
+                "with the hook (ROADMAP Queue 1 item 9e-ii)")
 
     def _offloaded_tx(self, model: nn.Module, tx: Callable,
                       plugin: FullyShardedDataParallelPlugin) -> Callable:
@@ -599,7 +874,7 @@ class Accelerator:
         pinned-host residency of the optimizer state, so the nvme tier
         reports False.  Both work on any device here (on the CPU the host
         is the device)."""
-        plugin = self.fsdp_plugin
+        plugin = self.effective_fsdp_plugin
         on_disk = plugin is not None and bool(plugin.offload_optimizer_nvme_path)
         offload_opt = plugin is not None and plugin.offload_optimizer and not on_disk
         offload_params = plugin is not None and plugin.cpu_offload
@@ -657,6 +932,9 @@ class Accelerator:
         The step is instrumented (the module docstring's telemetry); more
         than ``compile_budget`` distinct batch signatures log a warning
         (``None``: count without warning)."""
+        if max_grad_norm is None and self.state.zero_plugin is not None:
+            # a DeepSpeed config's gradient_clipping stands in when none is given
+            max_grad_norm = self.state.zero_plugin.gradient_clipping
         accum = self.gradient_accumulation_steps
         fp16 = self._use_loss_scaling
         chunked = self._chunk_info is not None
@@ -675,17 +953,28 @@ class Accelerator:
                          or gs.sync_each_batch)
             scale = state.loss_scale.scale if fp16 else 1.0
             state.params_to_device()
-            out = loss_call(self._compute_params(state.model), batch)
-            loss, aux = out if has_aux else (out, None)
-            loss = loss.float()
-            (loss * scale if fp16 else loss).backward()
+            layout = state.layout
+            if layout is None:
+                out = loss_call(self._compute_params(state.model), batch)
+                loss, aux = out if has_aux else (out, None)
+                loss = loss.float()
+                (loss * scale if fp16 else loss).backward()
+            else:
+                loss, aux = self._sharded_backward(state, loss_call, batch, has_aux,
+                                                   scale if fp16 else None)
 
             count = state.micro_step + 1
             do_sync = force or count >= accum
-            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-            # the buffer holds scale * (sum of the micro-steps' gradients)
-            inv = 1.0 / (count * scale)
-            gnorm = global_norm(grads) * inv
+            if layout is None:
+                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+                # the buffer holds scale * (sum of the micro-steps' gradients)
+                inv = 1.0 / (count * scale)
+                gnorm = global_norm(grads) * inv
+            else:
+                # ... summed over the data shards too
+                grads = list(layout.buffers(state.model).values())
+                inv = 1.0 / (count * scale * layout.n_data)
+                gnorm = layout.global_norm(state.model) * inv
             applied = overflow = False
             if do_sync:
                 factor = torch.full((), inv, dtype=torch.float32, device=gnorm.device)
@@ -695,13 +984,15 @@ class Accelerator:
                 if max_grad_value is not None:
                     for g in grads:
                         g.clamp_(-max_grad_value, max_grad_value)
-                finite = bool(tree_finite(grads)) if fp16 else True
+                finite = self._all_finite(state, grads) if fp16 else True
                 applied, overflow = finite, not finite
                 if applied:
                     for sched in self._schedulers:
                         sched.apply(state.optimizer, state.step)
-                    state.apply_gradients()
+                    self._apply(state)
                 state.optimizer.zero_grad(set_to_none=True)
+                if layout is not None:
+                    layout.zero_grad(state.model)
                 state.micro_step = 0
                 if fp16:
                     state.loss_scale = state.loss_scale.update(finite)
@@ -725,7 +1016,7 @@ class Accelerator:
             }
             if has_aux:
                 metrics["aux"] = ops.recursively_apply(torch.Tensor.detach, aux,
-                                                       lambda t: isinstance(t, torch.Tensor))
+                                                       test_type=_is_tensor)
             return state, metrics
 
         name = getattr(loss_fn, "__name__", "loss")
@@ -734,6 +1025,72 @@ class Accelerator:
         watched = RecompileWatchdog(step, name=f"train_step/{name}", budget=compile_budget,
                                     registry=self.telemetry, signature=_batch_signature)
         return self._instrument_train(watched, f"train_step/{name}")
+
+    # ------------------------------------------------- across processes
+    def _sharded_backward(self, state: TrainState, loss_call: Callable, batch, has_aux: bool,
+                          scale: Optional[float]):
+        """One micro-step of a sharded state: the blocks gathered for the
+        forward, the backward, this micro-step's gradient summed over the
+        data ranks (PowerSGD's mean over ``dp`` with the hook) and added to
+        the buffers.  Returns the loss and aux averaged over the data ranks,
+        as the reference's are over the global batch."""
+        layout, model = state.layout, state.model
+        named = list(model.named_parameters())
+        stash = {n: p.grad for n, p in named}
+        for _, p in named:
+            p.grad = None
+        out = loss_call(layout.compute_params(self._compute_params(model)), batch)
+        loss, aux = out if has_aux else (out, None)
+        loss = loss.float()
+        (loss * scale if scale is not None else loss).backward()
+        fresh = {n: p.grad for n, p in named if p.grad is not None}
+        reduced = layout.reduce_fresh(model, fresh, compress=self._compressor(state))
+        layout.accumulate(model, reduced, stash)
+        if has_aux:
+            aux = ops.recursively_apply(
+                lambda t: layout.data_mean(t) if t.is_floating_point() else t.detach(), aux,
+                test_type=_is_tensor)
+        return layout.data_mean(loss), aux
+
+    def _compressor(self, state: TrainState) -> Optional[Callable]:
+        """PowerSGD's ``dp`` reduction of one parameter's gradient, on the
+        JAX package's logical matrix (a linear weight transposed), carrying
+        ``state.comm_state``; ``None`` without the hook.  The gradient is
+        summed over this replica's ``fsdp`` ranks: it is scaled to the
+        replica's mean in, and back to the sum over every data rank out."""
+        if state.comm_state is None:
+            return None
+        from .parallel.compression import compressed_pmean
+        from .parallel.sharding import logical_permutation
+
+        layout = state.layout
+        group = layout.mesh.group("dp")
+        fsdp = mesh_lib.mesh_axis_size(layout.mesh, "fsdp")
+
+        def compress(name: str, g: torch.Tensor) -> torch.Tensor:
+            transposed = logical_permutation(name, g.ndim) != tuple(range(g.ndim))
+            lg = (g.t() if transposed else g) / fsdp
+            ghat, new = compressed_pmean({name: lg}, {name: state.comm_state.get(name)}, group)
+            state.comm_state[name] = new[name]
+            out = ghat[name] * layout.n_data
+            return (out.t() if transposed else out).contiguous()
+
+        return compress
+
+    def _all_finite(self, state: TrainState, grads) -> bool:
+        """fp16's test over every shard of every process's buffers."""
+        if state.layout is None:
+            return bool(tree_finite(grads))
+        return state.layout.all_finite(state.model)
+
+    def _apply(self, state: TrainState) -> None:
+        """The optimizer update; a sharded state's masters take their
+        gradient blocks first and give the updated blocks back after."""
+        if state.layout is not None:
+            state.layout.to_masters(state.model)
+        state.apply_gradients()
+        if state.layout is not None:
+            state.layout.from_masters(state.model)
 
     def _instrument_train(self, watched: Callable, cost_key: str) -> Callable:
         """The reference's telemetry wrapper around a train step (its
@@ -856,7 +1213,8 @@ class Accelerator:
     def compile_eval_step(self, eval_fn: Callable, *,
                           compile_budget: Optional[int] = 4) -> Callable:
         """Build ``eval_step(state_or_params, batch)``: ``eval_fn(params,
-        batch)`` under ``torch.no_grad`` with the compute-dtype weights, its
+        batch)`` under ``torch.no_grad`` with the compute-dtype weights (a
+        sharded state's gathered as its train step gathers them), its
         floating outputs cast to the policy's output dtype.  Takes a
         :class:`TrainState`, the model, or a name -> tensor dict.
         Instrumented like the train step: the ``eval/step_time_s``
@@ -868,11 +1226,18 @@ class Accelerator:
                     state_or_params.params_to_device()
                     try:
                         params = self._compute_params(state_or_params.model)
+                        if state_or_params.layout is not None:
+                            params = state_or_params.layout.compute_params(params)
                         return self.policy.cast_to_output(eval_fn(params, batch))
                     finally:
                         state_or_params.params_to_host()
                 elif isinstance(state_or_params, nn.Module):
                     params = self._compute_params(state_or_params)
+                    layout = next((st.layout for st in self._states.values()
+                                   if st.model is state_or_params and st.layout is not None),
+                                  None)
+                    if layout is not None:
+                        params = layout.compute_params(params)
                 else:
                     params = self.policy.cast_to_compute(state_or_params)
                 return self.policy.cast_to_output(eval_fn(params, batch))
@@ -940,8 +1305,13 @@ class Accelerator:
         here (only ``compile_train_step`` checkpoints the loss)."""
         scale = state.loss_scale.scale if state.loss_scale is not None else 1.0
         state.params_to_device()
+        layout = state.layout
         named = list(state.model.named_parameters())
-        out = loss_fn(self._compute_params(state.model), batch)
+        params = self._compute_params(state.model)
+        if layout is not None:
+            # each rank's block of the global mean gradient
+            params = layout.compute_params(params)
+        out = loss_fn(params, batch)
         loss, aux = out if has_aux else (out, ())
         loss = loss.float()
         grads = torch.autograd.grad(loss * scale if scale != 1.0 else loss,
@@ -950,8 +1320,15 @@ class Accelerator:
         for (name, p), g in zip(named, grads):
             g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
             result[name] = g.div_(scale) if scale != 1.0 else g
+        if layout is not None:
+            result = {name: g.div_(layout.n_data) for name, g in
+                      layout.reduce_fresh(state.model, result, into_masters=False).items()}
+            loss = layout.data_mean(loss)
+            aux = ops.recursively_apply(
+                lambda t: layout.data_mean(t) if t.is_floating_point() else t, aux,
+                test_type=_is_tensor)
         state.params_to_host()
-        aux = ops.recursively_apply(torch.Tensor.detach, aux, _is_tensor)
+        aux = ops.recursively_apply(torch.Tensor.detach, aux, test_type=_is_tensor)
         return result, {"loss": loss.detach(), "aux": aux}
 
     def backward(self, *args, **kwargs):
@@ -984,27 +1361,35 @@ class Accelerator:
         if grads.keys() != params.keys():
             raise ValueError(f"grads hold {sorted(set(grads) ^ set(params))[:5]} that the "
                              "state's parameters do not (or the other way round)")
+        layout = state.layout
         with torch.no_grad():
-            for name, p in params.items():
-                if p.grad is None:
-                    p.grad = grads[name].to(p.dtype, copy=True)
-                else:
-                    p.grad.add_(grads[name])
+            if layout is not None:
+                layout.add_to_buffers(state.model, grads)
+            else:
+                for name, p in params.items():
+                    if p.grad is None:
+                        p.grad = grads[name].to(p.dtype, copy=True)
+                    else:
+                        p.grad.add_(grads[name])
         if not self.sync_gradients:
             state.micro_step += 1
             state.params_to_host()
             return state
-        bufs = [p.grad for p in params.values()]
+        bufs = ([p.grad for p in params.values()] if layout is None
+                else list(layout.buffers(state.model).values()))
         torch._foreach_div_(bufs, float(state.micro_step + 1))
         if max_grad_norm is not None:
-            clip = torch.clamp(max_grad_norm / (global_norm(bufs) + 1e-6), max=1.0)
+            norm = global_norm(bufs) if layout is None else layout.global_norm(state.model)
+            clip = torch.clamp(max_grad_norm / (norm + 1e-6), max=1.0)
             torch._foreach_mul_(bufs, clip)
-        finite = bool(tree_finite(bufs)) if state.loss_scale is not None else True
+        finite = self._all_finite(state, bufs) if state.loss_scale is not None else True
         if finite:
             for sched in self._schedulers:
                 sched.apply(state.optimizer, state.step)
-            state.apply_gradients()
+            self._apply(state)
         state.optimizer.zero_grad(set_to_none=True)
+        if layout is not None:
+            layout.zero_grad(state.model)
         state.micro_step = 0
         if state.loss_scale is not None:
             state.loss_scale = state.loss_scale.update(finite)
@@ -1020,26 +1405,51 @@ class Accelerator:
         modified."""
         if norm_type != 2.0:
             raise NotImplementedError("Only L2 global-norm clipping is supported")
-        norm = global_norm(_tensors(grads))
+        layout = next((st.layout for st in self._states.values()
+                       if st.layout is not None and isinstance(grads, dict)
+                       and grads.keys() == st.layout.entries.keys()), None)
+        if layout is None:
+            norm = global_norm(_tensors(grads))
+        else:
+            # a sharded state's gradient blocks: the norm of the whole
+            norm = torch.zeros((), dtype=torch.float32, device=self.device)
+            for name, g in grads.items():
+                norm = norm + torch.linalg.vector_norm(g, dtype=torch.float32).square() / \
+                    layout._replicas(name, layout.entries[name]["pspec"])
+            norm = ops.reduce(norm, reduction="sum").sqrt()
         factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-        return ops.recursively_apply(lambda g: g * factor, grads, _is_tensor), norm
+        return ops.recursively_apply(lambda g: g * factor, grads, test_type=_is_tensor), norm
 
     def clip_grad_value_(self, grads, clip_value: float):
         """Every gradient clamped to ``[-clip_value, clip_value]`` (new tensors)."""
         return ops.recursively_apply(lambda g: g.clamp(-clip_value, clip_value), grads,
-                                     _is_tensor)
+                                     test_type=_is_tensor)
 
     # ------------------------------------------------------------ collectives
     def gather(self, tensor):
         return ops.gather(tensor)
 
-    def gather_for_metrics(self, input_data):
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """Gather over processes and drop the end-of-epoch remainder padding
-        (with one process the gather is the identity)."""
-        data = ops.gather(input_data)
+        (``accelerate_tpu/accelerator.py:2036-2061``): tensors concatenate
+        on dim 0, anything else gathers as objects."""
+        all_tensors = all(ops.is_tensor(leaf) for leaf in ops._leaves(input_data)) and \
+            bool(ops._leaves(input_data))
+        if not all_tensors or use_gather_object:
+            data = ops.gather_object(input_data)
+        else:
+            data = ops.gather(input_data)
         gs = self.gradient_state
         if gs.end_of_dataloader and gs.remainder > 0:
-            data = ops.recursively_apply(lambda t: t[: gs.remainder], data)
+            if all_tensors and not use_gather_object:
+                data = ops.recursively_apply(lambda t: t[: gs.remainder], data)
+            else:
+                try:
+                    data = data[: gs.remainder]
+                except TypeError:
+                    warnings.warn("gather_for_metrics could not truncate duplicate end-of-epoch "
+                                  "samples on a non-sliceable object; returning data "
+                                  "unmodified.")
         return data
 
     def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
@@ -1058,7 +1468,8 @@ class Accelerator:
 
     @contextlib.contextmanager
     def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
-        """A no-op scope: one process has no uneven inputs to join."""
+        """A no-op scope, as in the reference: the prepared loaders even
+        out the ranks' batches (``even_batches``) instead."""
         yield
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
@@ -1095,7 +1506,8 @@ class Accelerator:
 
     def get_state_dict(self, state_or_params, unwrap: bool = True) -> Dict[str, torch.Tensor]:
         """A host copy of the weights of a :class:`TrainState`, a module or a
-        name -> tensor dict, by the port's state-dict names."""
+        name -> tensor dict, by the port's state-dict names (a sharded
+        state's gathered whole: every process must call this)."""
         return checkpointing.host_state_dict(state_or_params)
 
     def register_for_checkpointing(self, *objects):

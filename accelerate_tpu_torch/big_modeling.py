@@ -15,7 +15,7 @@ Port of :mod:`accelerate_tpu.big_modeling`, over the port's flat state dicts
   read zero-copy through memory maps.  :func:`dispatch_params`,
   :func:`cpu_offload` and :func:`disk_offload` do the same for weights in
   memory.  ``device_map="sharded"`` places everything on the one card (a
-  mesh of one); a mesh of several cards is ROADMAP item 9e.
+  mesh of one); a mesh of several cards is ROADMAP item 9e-ii.
 * :class:`StreamingExecutor` runs a plan of ``(weights source, fn)`` stages
   with each stage's weights brought to the card just in time: the
   reference's ``AlignDevicesHook`` workload, redesigned for one card and a
@@ -252,13 +252,13 @@ def _validate_device_map(device_map: Dict[str, DeviceId], modules, what: str = "
 
 def _target_device(target: DeviceId, device: torch.device) -> torch.device:
     """The device a map's card entry names: ``device`` itself (index 0, or
-    its own index).  Another card is ROADMAP item 9e."""
+    its own index).  Another card is ROADMAP item 9e-ii."""
     index = target.index if isinstance(target, torch.device) else (
         torch.device(target).index if isinstance(target, str) else int(target))
     if index not in (None, 0, device.index):
         raise NotImplementedError(
             f"device_map target {target!r}: a map over several cards is not ported "
-            "(ROADMAP Queue 1 item 9e); map the model onto one card, 'cpu' and 'disk'")
+            "(ROADMAP Queue 1 item 9e-ii); map the model onto one card, 'cpu' and 'disk'")
     return device
 
 
@@ -318,10 +318,10 @@ def shard_params_for_inference(params: Dict[str, torch.Tensor], mesh=None, axis=
                                device: Optional[Union[str, torch.device]] = None
                                ) -> Dict[str, torch.Tensor]:
     """Every weight on the one card of a mesh of one (``:288``).  A mesh of
-    several cards (tensor-sharded weights) is ROADMAP item 9e."""
+    several cards (tensor-sharded weights) is ROADMAP item 9e-ii."""
     if _mesh_size(mesh) > 1:
         raise NotImplementedError("sharding weights over a mesh of several cards is not "
-                                  "ported (ROADMAP Queue 1 item 9e)")
+                                  "ported (ROADMAP Queue 1 item 9e-ii)")
     device = resolve_device(device)
     return {k: v.to(device) for k, v in params.items()}
 
@@ -387,7 +387,7 @@ def load_checkpoint_and_dispatch(model, checkpoint: str,
     if device_map == "sharded":
         if _mesh_size(mesh) > 1:
             raise NotImplementedError("device_map='sharded' over a mesh of several cards is "
-                                      "not ported (ROADMAP Queue 1 item 9e)")
+                                      "not ported (ROADMAP Queue 1 item 9e-ii)")
         return read(list(files), device), "sharded", None
     if isinstance(device_map, str):
         if device_map not in ("auto", "balanced", "balanced_low_0"):
@@ -589,7 +589,7 @@ class StreamingExecutor:
             return False
         if t.device != self.device:
             raise NotImplementedError(f"a weight on {t.device} while the stages run on "
-                                      f"{self.device}: several cards are ROADMAP item 9e")
+                                      f"{self.device}: several cards are ROADMAP item 9e-ii")
         return True
 
     def _resolve(self, i: int) -> _Stage:

@@ -17,7 +17,20 @@ writes an orbax tree::
 ``grad`` is the accumulation buffer (the parameters' ``.grad``, the JAX
 state's ``grad_accum``), saved whenever ``micro_step > 0``: without it a
 run saved mid-window would resume with the window's earlier micro-steps
-lost.  ``load_state`` writes into the given state in place and returns it.
+lost.
+
+A state sharded across processes (``TrainState.layout``) is written the
+way the reference's orbax tree is (``accelerate_tpu/checkpointing.py:
+129-220``): each rank writes only its own blocks, to
+``train_state/rank_{process_index}.pt`` — for every parameter its block of
+the weights, of each optimizer-state tensor and of the buffer, each with
+its box (``[start, stop)`` per dim) in the whole tensor — and the main
+process writes the metadata, ``num_processes`` included.  ``load_state``
+re-shards onto the live mesh: each block of the live state is copied
+together from the saved blocks it overlaps, whatever the world size or
+mesh of the save (a one-process ``train_state.pt`` included, read as one
+whole block), so the values are the saved ones bit for bit.  PowerSGD's
+state goes with its rank, and comes back when the world is the save's.  ``load_state`` writes into the given state in place and returns it.
 An offloaded optimizer (``utils/chunked_update.py``) saves each chunk's
 state buffer, read from the host or from its files, and loads it back
 there, bit for bit.
@@ -39,6 +52,7 @@ wall), and the ``checkpoint/saved_bytes_total``,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
@@ -157,9 +171,13 @@ def host_state_dict(state_or_params, dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
     """Host copies of the weights of a :class:`TrainState`, a module or a
     name -> tensor dict; floating tensors cast to ``dtype`` (on their own
-    device, before the copy) when it is given."""
+    device, before the copy) when it is given.  A sharded state's weights
+    are gathered whole (every process must call this)."""
+    layout = getattr(state_or_params, "layout", None)
     out = {}
     for name, t in _named_tensors(state_or_params).items():
+        if layout is not None and name in layout.entries:
+            t = layout.full_tensor(name, t)
         t = t.detach()
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
@@ -276,6 +294,193 @@ def load_model_params(load_directory: str, target=None) -> Dict[str, torch.Tenso
     return flat
 
 
+# ------------------------------------------------------- sharded train state
+def _box(mesh, spec, shape) -> List[Tuple[int, int]]:
+    from .parallel.mesh import local_slice
+
+    return [(sl.start or 0, size if sl.stop is None else sl.stop)
+            for sl, size in zip(local_slice(mesh, spec, shape), shape)]
+
+
+def _opt_state_by_name(state: TrainState) -> Tuple[Dict[str, dict], list]:
+    """The optimizer's per-parameter state by parameter name, and its
+    param groups."""
+    sd = state.optimizer.state_dict()
+    names = [n for n, _ in state.model.named_parameters()]
+    return {names[i]: v for i, v in sd.get("state", {}).items()}, sd["param_groups"]
+
+
+def _save_sharded(state: TrainState, output_dir: str, process_index: int) -> None:
+    """This rank's blocks of ``state`` (see the module docstring)."""
+    from .utils.chunked_update import ChunkedOptimizer
+
+    layout = state.layout
+    pieces = {}
+    chunked = isinstance(state.optimizer, ChunkedOptimizer)
+    opt_state, groups = ({}, None) if chunked else _opt_state_by_name(state)
+    bufs = layout.buffers(state.model)
+    for name, p in state.model.named_parameters():
+        e = layout.entries[name]
+        on_master = e["master"] is not None and layout.shards_grads
+        piece = {"shape": list(e["shape"]), "box": _box(layout.mesh, e["pspec"], e["shape"]),
+                 "param": p.detach().cpu(),
+                 "opt_box": _box(layout.mesh, e["ospec"], e["shape"]),
+                 "opt": {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+                         for k, v in opt_state.get(name, {}).items()}}
+        if state.micro_step > 0 and name in bufs:
+            piece["grad"] = bufs[name].detach().cpu()
+            piece["grad_box"] = piece["opt_box"] if on_master else piece["box"]
+        pieces[name] = piece
+    tree = {"format": "sharded", "step": state.step, "micro_step": state.micro_step,
+            "mesh": dict(layout.mesh.shape), "process_index": process_index,
+            "pieces": pieces, "param_groups": groups,
+            "chunked_optimizer": state.optimizer.state_dict() if chunked else None,
+            "comm_state": state.comm_state}
+    if state.loss_scale is not None:
+        tree["loss_scale"] = {"scale": state.loss_scale.scale,
+                              "growth_tracker": state.loss_scale.growth_tracker}
+    torch.save(tree, os.path.join(output_dir, "train_state", f"rank_{process_index}.pt"))
+
+
+def _saved_pieces(input_dir: str, load_kwargs: Optional[dict], param_names: List[str]
+                  ) -> Tuple[dict, List[dict]]:
+    """``(meta, per-rank trees)`` of a checkpoint's train state, in the
+    sharded layout; a one-process ``train_state.pt`` becomes one rank
+    holding every tensor whole (its optimizer state by position in
+    ``param_names``, the live model's parameter order)."""
+    kw = {"map_location": "cpu", "weights_only": True, **(load_kwargs or {})}
+    base = os.path.join(input_dir, "train_state")
+    ranks = sorted((f for f in os.listdir(base) if re.fullmatch(r"rank_\d+\.pt", f)),
+                   key=lambda f: int(f[5:-3]))
+    if ranks:
+        trees = [torch.load(os.path.join(base, f), **kw) for f in ranks]
+        return trees[0], trees
+    tree = torch.load(os.path.join(input_dir, TRAIN_STATE_FILE), **kw)
+    model = tree["model"]
+    opt = tree["optimizer"]
+    pieces = {}
+    state_by_idx = opt.get("state", {})
+    for i, name in enumerate(param_names):
+        t = model[name]
+        box = [(0, d) for d in t.shape]
+        piece = {"shape": list(t.shape), "box": box, "param": t, "opt_box": box,
+                 "opt": state_by_idx.get(i, {})}
+        if name in tree.get("grad", {}):
+            piece["grad"], piece["grad_box"] = tree["grad"][name], box
+        pieces[name] = piece
+    one = {"format": "single", "step": tree["step"], "micro_step": tree["micro_step"],
+           "pieces": pieces, "param_groups": opt["param_groups"], "comm_state": None,
+           "loss_scale": tree.get("loss_scale"), "chunked_optimizer": None}
+    return one, [one]
+
+
+def _assemble(trees: List[dict], name: str, kind: str, box_key: str,
+              box: List[Tuple[int, int]]) -> Optional[torch.Tensor]:
+    """The ``box`` of tensor ``name`` copied together from every saved
+    block of it that overlaps (``None`` if none was saved)."""
+    out = None
+    for tree in trees:
+        piece = tree["pieces"].get(name)
+        if piece is None:
+            continue
+        src = piece.get(kind) if kind in ("param", "grad") else piece["opt"].get(kind)
+        if not isinstance(src, torch.Tensor):
+            continue
+        sbox = piece[box_key]
+        lo = [max(a[0], b[0]) for a, b in zip(box, sbox)]
+        hi = [min(a[1], b[1]) for a, b in zip(box, sbox)]
+        if any(h <= l for l, h in zip(lo, hi)):
+            continue
+        if out is None:
+            out = torch.empty([b[1] - b[0] for b in box], dtype=src.dtype)
+        dst = tuple(slice(l - b[0], h - b[0]) for l, h, b in zip(lo, hi, box))
+        srcs = tuple(slice(l - b[0], h - b[0]) for l, h, b in zip(lo, hi, sbox))
+        out[dst] = src[srcs]
+    return out
+
+
+def _load_resharded(state: TrainState, input_dir: str, load_kwargs: Optional[dict]) -> None:
+    """Restore a checkpoint of any layout into ``state``, re-sharding each
+    tensor onto the live blocks (whole ones for a one-process state)."""
+    from .utils.chunked_update import ChunkedOptimizer
+
+    layout = state.layout
+    named = list(state.model.named_parameters())
+    meta, trees = _saved_pieces(input_dir, load_kwargs, [n for n, _ in named])
+    if isinstance(state.optimizer, ChunkedOptimizer) or meta.get("chunked_optimizer"):
+        live = state.optimizer if isinstance(state.optimizer, ChunkedOptimizer) else None
+        mine = [t for t in trees if t.get("process_index") == state_process_index(state)]
+        if (live is None or not meta.get("chunked_optimizer") or len(trees) != layout.world
+                or meta.get("mesh") != dict(layout.mesh.shape)):
+            raise NotImplementedError(
+                "an offloaded (chunked) optimizer's sharded state restores only onto the "
+                "world and mesh it was saved from: ROADMAP Queue 1 item 9e-ii")
+        live.load_state_dict(mine[0]["chunked_optimizer"])
+    opt_state, groups = {}, meta["param_groups"]
+    with torch.no_grad():
+        for name, p in named:
+            shape = tuple(meta["pieces"][name]["shape"]) if layout is None else \
+                layout.entries[name]["shape"]
+            full = [(0, d) for d in shape]
+            if layout is None:
+                box, obox = full, full
+            else:
+                e = layout.entries[name]
+                box = _box(layout.mesh, e["pspec"], shape)
+                obox = _box(layout.mesh, e["ospec"], shape)
+            p.data.copy_(_assemble(trees, name, "param", "box", box))
+            master = None if layout is None else layout.entries[name]["master"]
+            if master is not None:
+                master.data.copy_(_assemble(trees, name, "param", "box", obox))
+            keys: List[str] = []  # in the saved order, the same on every rank
+            for tree in trees:
+                keys += [k for k in tree["pieces"].get(name, {}).get("opt", {}) if k not in keys]
+            entry = {}
+            for key in keys:
+                val = next(t["pieces"][name]["opt"][key] for t in trees
+                           if key in t["pieces"].get(name, {}).get("opt", {}))
+                if isinstance(val, torch.Tensor) and val.ndim > 0:
+                    val = _assemble(trees, name, key, "opt_box", obox)
+                entry[key] = val
+            if entry:
+                opt_state[name] = entry
+            p.grad = None
+            if master is not None:
+                master.grad = None
+            if meta["micro_step"] > 0:
+                on_master = master is not None and layout.shards_grads
+                g = _assemble(trees, name, "grad", "grad_box", obox if on_master else box)
+                if g is not None:
+                    holder = master if on_master else p
+                    holder.grad = g.to(device=holder.device, dtype=holder.dtype)
+    if not isinstance(state.optimizer, ChunkedOptimizer):
+        names = [n for n, _ in named]
+        sd = {"state": {i: opt_state[n] for i, n in enumerate(names) if n in opt_state},
+              "param_groups": groups}
+        for param_state in sd["state"].values():
+            if isinstance(param_state.get("step"), torch.Tensor):
+                param_state["step"] = param_state["step"].cpu()
+        state.optimizer.load_state_dict(sd)
+    state.step = int(meta["step"])
+    state.micro_step = int(meta["micro_step"])
+    if state.loss_scale is not None and meta.get("loss_scale"):
+        state.loss_scale = dataclasses.replace(
+            state.loss_scale, scale=float(meta["loss_scale"]["scale"]),
+            growth_tracker=int(meta["loss_scale"]["growth_tracker"]))
+    if state.comm_state is not None:
+        mine = [t for t in trees if t.get("process_index") == state_process_index(state)]
+        if layout is not None and len(trees) == layout.world and mine and mine[0]["comm_state"]:
+            state.comm_state = {k: None if v is None else
+                                {kk: vv.to(state.device or "cpu") for kk, vv in v.items()}
+                                for k, v in mine[0]["comm_state"].items()}
+
+
+def state_process_index(state: TrainState) -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 # --------------------------------------------------------------- train state
 def _load_into_state(state: TrainState, path: str, load_kwargs: Optional[dict]) -> None:
     from .utils.chunked_update import ChunkedOptimizer
@@ -352,7 +557,10 @@ def _save_accelerator_state_impl(accelerator, output_dir: Optional[str],
     if state is not None:
         path = os.path.join(output_dir, TRAIN_STATE_FILE)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save({"model": state.model.state_dict(), **state.state_dict()}, path)
+        if state.layout is not None:
+            _save_sharded(state, output_dir, accelerator.process_index)
+        else:
+            torch.save({"model": state.model.state_dict(), **state.state_dict()}, path)
 
     for i, dl in enumerate(accelerator._dataloaders):
         sampler = _find_seedable_sampler(dl)
@@ -434,7 +642,11 @@ def _load_accelerator_state_impl(accelerator, input_dir: Optional[str],
         hook(accelerator._models, input_dir)
 
     if state is not None:
-        _load_into_state(state, os.path.join(input_dir, TRAIN_STATE_FILE), load_kwargs)
+        single = os.path.join(input_dir, TRAIN_STATE_FILE)
+        if state.layout is None and os.path.exists(single):
+            _load_into_state(state, single, load_kwargs)
+        else:
+            _load_resharded(state, input_dir, load_kwargs)
         accelerator.step = state.micro_step
 
     for i, dl in enumerate(accelerator._dataloaders):

@@ -4,9 +4,8 @@ Port of :mod:`accelerate_tpu.logging`: a ``logging`` adapter that gates
 records on ``main_process_only`` / per-process emission and supports
 ``in_order`` sequential printing across processes, plus ``warning_once``.
 The process state is the port's own :class:`~.state.PartialState`; before
-anything made one, the process is the only one (the port runs one process,
-ROADMAP Queue 1 item 9), so every record passes without making one (which
-would claim the card).
+anything made one, every record passes without making one (which would
+claim the card and join the process group).
 """
 
 from __future__ import annotations

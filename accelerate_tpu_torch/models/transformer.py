@@ -54,7 +54,7 @@ policy (:mod:`~accelerate_tpu_torch.utils.remat`); the projections tag
 their products (``_tag_proj``) for ``"proj_saveable"``.  A forward with a
 cache, the serving path, is the same with or without it.
 
-Still refused: ``attention_impl="ring"`` (ROADMAP Queue 1 item 9e).
+Still refused: ``attention_impl="ring"`` (ROADMAP Queue 1 item 9e-ii).
 """
 
 from __future__ import annotations
@@ -473,8 +473,30 @@ def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype,
     with _tag_proj(name):
         if type(layer) is not nn.Linear:
             return layer(x)
+        tp = getattr(layer, "_atpu_tp", None)
+        if tp is not None:
+            return _tp_dense(layer, x, dtype, tp)
         bias = None if layer.bias is None else layer.bias.to(dtype)
         return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _tp_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
+    """Megatron's tensor-parallel products on this rank's block of the
+    weight (the Accelerator marks the layer, ``parallel/sharding.py``'s
+    ``ShardedLayout.install_tp``): column-parallel (``"out"``: the rank's
+    output features, the input's gradient summed over ``tp``; ``lm_head``'s
+    output gathered for the loss) or row-parallel (``"in"``: the partial
+    products summed over ``tp``, the bias added once after)."""
+    from ..parallel.sharding import gather_for_compute, reduce_backward, reduce_forward
+
+    kind, group, size, rank, gather_output = tp
+    w = layer.weight.to(dtype)
+    if kind == "out":
+        bias = None if layer.bias is None else layer.bias.to(dtype).chunk(size)[rank]
+        y = F.linear(reduce_backward(x.to(dtype), group), w, bias)
+        return gather_for_compute(y, y.ndim - 1, group, reduce_grad=False) if gather_output else y
+    y = reduce_forward(F.linear(x.to(dtype), w), group)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class RMSNorm(nn.Module):
@@ -540,9 +562,11 @@ class Attention(nn.Module):
         dt = cfg.dtype
         hd = cfg.resolved_head_dim
         b, s = x.shape[:2]
-        q = _dense(self.q_proj, x, dt, "proj_out").reshape(b, s, cfg.num_heads, hd)
-        k = _dense(self.k_proj, x, dt, "proj_out").reshape(b, s, cfg.num_kv_heads, hd)
-        v = _dense(self.v_proj, x, dt, "proj_out").reshape(b, s, cfg.num_kv_heads, hd)
+        # head counts from the projections: under tensor parallelism each
+        # rank holds num_heads / tp and num_kv_heads / tp of them
+        q = _dense(self.q_proj, x, dt, "proj_out").reshape(b, s, -1, hd)
+        k = _dense(self.k_proj, x, dt, "proj_out").reshape(b, s, -1, hd)
+        v = _dense(self.v_proj, x, dt, "proj_out").reshape(b, s, -1, hd)
         if cfg.positional == "rope":
             q = _apply_rope(q, positions, cfg)
             k = _apply_rope(k, positions, cfg)
@@ -607,7 +631,7 @@ class Attention(nn.Module):
             out = dot_product_attention(q, k, v, causal=True,
                                         implementation=cfg.attention_impl,
                                         window=window, bias=bias)
-        return _dense(self.o_proj, out.reshape(b, s, cfg.num_heads * hd), dt, "proj_out")
+        return _dense(self.o_proj, out.reshape(b, s, q.shape[2] * hd), dt, "proj_out")
 
 
 #: the non-gated MLPs' activations: GPT-2/GPT-J's tanh gelu, NeoX's exact

@@ -30,7 +30,7 @@ from .flash_attention import DEFAULT_MASK_VALUE, flash_attention
 
 #: implementations of the JAX package not ported yet -> their ROADMAP item
 _NOT_PORTED = {
-    "ring": "ROADMAP Queue 1 item 9 (parallel/ring_attention.py)",
+    "ring": "ROADMAP Queue 1 item 9e-ii (parallel/ring_attention.py)",
 }
 
 

@@ -10,7 +10,7 @@ collected for the loss function (:func:`collect_router_aux`, the reference's
 ``sow``).
 
 Expert parallelism (``ep`` > 1) needs a device mesh: :func:`shard_moe_params`
-raises for it (ROADMAP Queue 1 item 9e).
+raises for it (ROADMAP Queue 1 item 9e-ii).
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ def shard_moe_params(params, mesh=None, *, marker: str = "experts"):
         return params
     raise NotImplementedError(
         f"shard_moe_params over ep={ep}: expert parallelism needs a device mesh, "
-        "ROADMAP Queue 1 item 9e (parallel/moe.py across cards)")
+        "ROADMAP Queue 1 item 9e-ii (parallel/moe.py across cards)")
 
 
 __all__ = ["ExpertLinear", "MoEMLP", "collect_router_aux", "router_aux_loss",

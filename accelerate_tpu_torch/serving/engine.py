@@ -352,7 +352,7 @@ class ServingEngine:
         ``ReplicaRouter(policy="disaggregated")``.  Needs ``paged=True``.
 
     ``mesh`` and ``tp_axis`` other than ``"tp"`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 9e).
+    ``NotImplementedError`` (ROADMAP Queue 1 item 9e-ii).
     """
 
     #: read by ``__init__``: capture the windows, and the prefill chunks, as
@@ -426,9 +426,9 @@ class ServingEngine:
             raise ValueError("prefix_host_mb spills prefix pages; it requires paged=True and "
                              "an enabled prefix cache (prefix_cache_mb > 0)")
         if mesh is not None:
-            raise _not_ported("mesh= (tensor-parallel serving)", "9e")
+            raise _not_ported("mesh= (tensor-parallel serving)", "9e-ii")
         if tp_axis != "tp":
-            raise _not_ported("tp_axis= (tensor-parallel serving)", "9e")
+            raise _not_ported("tp_axis= (tensor-parallel serving)", "9e-ii")
         #: "prefill" runs chunked prefill only: a lane whose last chunk
         #: landed never dispatches a decode window here, it waits for the
         #: router's prefill handoff (:mod:`.transfer`) onto a decode-role

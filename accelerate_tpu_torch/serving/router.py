@@ -2,7 +2,7 @@
 
 Port of :mod:`accelerate_tpu.serving.router`: N independent engines behind
 one front door, on one card or several (a router over processes and
-``mesh=`` replicas are ROADMAP Queue 1 item 9e).  The routing decision is
+``mesh=`` replicas are ROADMAP Queue 1 item 9e-ii).  The routing decision is
 where a fleet's win lands: each replica's prefix-cache radix tree holds the
 KV of the prefixes *it* served, so a request routed to the replica that
 holds its prefix reads cached KV instead of prefilling again, while a

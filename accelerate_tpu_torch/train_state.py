@@ -26,6 +26,12 @@ dtype, as the working weights are (the reference's ``grad_accum_dtype``).
 ``offload_params`` (FSDP's ``cpu_offload``): the working weights wait in
 pinned host memory between steps; the step brings them to the card
 (:meth:`params_to_device`) and sends them back (:meth:`params_to_host`).
+
+Across processes (``layout``, a :class:`~accelerate_tpu_torch.parallel.
+sharding.ShardedLayout`) the module holds each parameter's block on the
+mesh and the optimizer the block of its state (its ``masters`` where that
+is finer); ``comm_state`` is PowerSGD's per-parameter warm start and error
+feedback (``parallel/compression.py``), ``None`` without the hook.
 """
 
 from __future__ import annotations
@@ -97,14 +103,20 @@ class TrainState:
     offload_params: bool = False
     #: where the working weights compute, when they wait on the host
     device: Optional[torch.device] = None
+    #: the placement over the mesh, across processes (else None)
+    layout: Any = None
+    #: PowerSGD's state by parameter name (else None)
+    comm_state: Any = None
 
     @classmethod
     def create(cls, *, model: nn.Module, tx: Callable, use_loss_scaling: bool = False,
                init_loss_scale: float = 2.0**16,
-               loss_scale_kwargs: Optional[dict] = None) -> "TrainState":
+               loss_scale_kwargs: Optional[dict] = None,
+               opt_params: Optional[list] = None) -> "TrainState":
         """Bind ``tx(parameters) -> Optimizer`` (e.g.
-        ``functools.partial(torch.optim.AdamW, lr=...)``) to ``model``."""
-        optimizer = tx(list(model.parameters()))
+        ``functools.partial(torch.optim.AdamW, lr=...)``) to ``model``'s
+        parameters, or to ``opt_params`` (a sharded state's masters)."""
+        optimizer = tx(list(model.parameters()) if opt_params is None else opt_params)
         if not isinstance(optimizer, torch.optim.Optimizer):
             raise TypeError(f"tx must build a torch.optim.Optimizer, got {type(optimizer)}")
         loss_scale = (DynamicLossScale.create(init_loss_scale, **(loss_scale_kwargs or {}))

@@ -1,12 +1,17 @@
 """Configuration dataclasses of the training path.
 
-Port of the :mod:`accelerate_tpu.utils.dataclasses` classes the
-single-device train step and its checkpoints need: :class:`PrecisionPolicy`,
+Port of the :mod:`accelerate_tpu.utils.dataclasses` classes the train
+step and its checkpoints need: :class:`PrecisionPolicy`,
 :class:`GradScalerKwargs`, :class:`FP8RecipeKwargs`,
 :class:`GradientAccumulationPlugin`, :class:`DataLoaderConfiguration`,
-:class:`ProjectConfiguration`, :class:`CompilationConfig` (remat) and
-:class:`FullyShardedDataParallelPlugin` (the host-offloaded optimizer) with
-its enums.  Dtypes are ``torch`` dtypes.
+:class:`ProjectConfiguration`, :class:`CompilationConfig` (remat),
+:class:`FullyShardedDataParallelPlugin` with its enums, and the
+multi-process ones: :class:`DistributedType`, :class:`MeshConfig` and
+:func:`parse_mesh_spec`, :class:`InitProcessGroupKwargs`,
+:class:`CollectiveKwargs`, :class:`ZeroPlugin` (the DeepSpeed plugin's
+counterpart) and :class:`ModelParallelPlugin` (the Megatron plugin's; only
+``tp_degree`` acts: pipeline, sequence and expert parallelism are ROADMAP
+Queue 1 item 9e-ii).  Dtypes are ``torch`` dtypes.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ from __future__ import annotations
 import copy
 import enum
 import os
-from dataclasses import dataclass
-from typing import Mapping, Optional
+import warnings
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -38,6 +45,25 @@ def parse_flag_from_env(key: str, default: bool = False) -> bool:
         return default
 
 
+def parse_choice_from_env(key: str, default: str = "no") -> str:
+    return os.environ.get(key, str(default))
+
+
+def parse_mesh_spec(spec: str) -> Dict[str, int]:
+    """``"dp=2,fsdp=4,tp=-1"`` -> an axes dict (the ``ACCELERATE_MESH``
+    environment's format)."""
+    axes = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"Bad mesh spec segment {part!r}; expected name=size")
+        name, size = part.split("=", 1)
+        axes[name.strip()] = int(size)
+    return axes
+
+
 class EnumWithContains(enum.EnumMeta):
     def __contains__(cls, item):
         try:
@@ -52,10 +78,28 @@ class BaseEnum(str, enum.Enum, metaclass=EnumWithContains):
         return self.value
 
 
+class DistributedType(BaseEnum):
+    """Topology and promoted strategy, with the JAX package's values:
+    ``NO`` (one process, one device), ``MULTI_CPU`` (several processes on
+    the host), ``FSDP``, ``ZERO`` and ``MODEL_PARALLEL`` (a plugin was
+    given).  The JAX package's ``TPU``/``MULTI_TPU`` name its several chips
+    under one or several hosts; the port's counterpart, several processes
+    each on one card, is ``MULTI_GPU``."""
+
+    NO = "NO"
+    MULTI_CPU = "MULTI_CPU"
+    MULTI_GPU = "MULTI_GPU"
+    FSDP = "FSDP"
+    ZERO = "ZERO"
+    MODEL_PARALLEL = "MODEL_PARALLEL"
+
+
 class ShardingStrategy(BaseEnum):
-    """FSDP sharding strategies.  Over the one card of this package every
-    strategy holds the whole state on it, as the JAX package's do on a
-    one-device mesh (an ``fsdp`` axis of size 1)."""
+    """FSDP sharding strategies, as the JAX package's act over the ``fsdp``
+    axis: ``FULL_SHARD``/``HYBRID_SHARD`` shard parameters, gradients and
+    optimizer state; ``SHARD_GRAD_OP``/``HYBRID_SHARD_ZERO2`` gradients and
+    optimizer state; ``NO_SHARD`` nothing.  Over an ``fsdp`` axis of size 1
+    every strategy holds the whole state."""
 
     FULL_SHARD = "FULL_SHARD"
     SHARD_GRAD_OP = "SHARD_GRAD_OP"
@@ -66,7 +110,8 @@ class ShardingStrategy(BaseEnum):
 
 class StateDictType(BaseEnum):
     """Checkpoint layouts.  The JAX package writes one orbax tree either
-    way; the port writes one ``torch.save`` file either way."""
+    way; the port writes one ``torch.save`` file for one process and one a
+    rank across processes, either way (``checkpointing.py``)."""
 
     FULL_STATE_DICT = "FULL_STATE_DICT"
     SHARDED_STATE_DICT = "SHARDED_STATE_DICT"
@@ -75,6 +120,60 @@ class StateDictType(BaseEnum):
 class KwargsHandler:
     def to_dict(self):
         return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self):
+        """The fields that differ from their defaults."""
+        default_dict = self.__class__().to_dict()
+        this_dict = self.to_dict()
+        return {k: v for k, v in this_dict.items() if default_dict[k] != v}
+
+
+@dataclass
+class CollectiveKwargs(KwargsHandler):
+    """Gradient-reduction options (``accelerate_tpu/utils/dataclasses.py:174-229``).
+
+    - ``grad_reduce_dtype``: the gradient carry dtype (``"bf16"``,
+      ``"fp16"``, ``"fp32"`` or ``None`` for f32): the accumulation buffer
+      and the gradients between the backward and the update take it; norm
+      and clip math stay f32.
+    - ``comm_hook="powersgd"``: rank-``powersgd_rank`` PowerSGD over the
+      ``dp`` axis (:mod:`~accelerate_tpu_torch.parallel.compression`),
+      leaves below ``comm_hook_min_size`` elements reduced uncompressed.
+    - ``bucket_cap_mb``: accepted for the reference's signature.
+    """
+
+    grad_reduce_dtype: Optional[str] = None
+    bucket_cap_mb: int = 25
+    comm_hook: str = "none"
+    powersgd_rank: int = 4
+    comm_hook_min_size: int = 4096
+
+    @classmethod
+    def from_env(cls) -> "CollectiveKwargs":
+        """The launcher's environment (``ACCELERATE_GRAD_REDUCE_DTYPE``,
+        ``ACCELERATE_COMM_HOOK``, ``ACCELERATE_POWERSGD_RANK``); a factory,
+        so that a handler passed to the Accelerator wins."""
+        kw: Dict[str, Any] = {}
+        if os.environ.get("ACCELERATE_GRAD_REDUCE_DTYPE"):
+            kw["grad_reduce_dtype"] = os.environ["ACCELERATE_GRAD_REDUCE_DTYPE"]
+        if os.environ.get("ACCELERATE_COMM_HOOK"):
+            kw["comm_hook"] = os.environ["ACCELERATE_COMM_HOOK"]
+        if os.environ.get("ACCELERATE_POWERSGD_RANK"):
+            kw["powersgd_rank"] = int(os.environ["ACCELERATE_POWERSGD_RANK"])
+        return cls(**kw)
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """Rendezvous options (``accelerate_tpu/utils/dataclasses.py:232-238``).
+    ``backend`` ``"jax"`` (the reference's default) or ``None`` means the
+    default, ``nccl`` on the card and ``gloo`` under ``cpu=True``;
+    ``"gloo"`` and ``"nccl"`` are taken as given.  ``init_method``
+    defaults to ``tcp://`` + ``ACCELERATE_COORDINATOR_ADDRESS``."""
+
+    backend: Optional[str] = "jax"
+    init_method: Optional[str] = None
+    timeout: timedelta = timedelta(seconds=1800)
 
 
 @dataclass
@@ -190,6 +289,26 @@ class PrecisionPolicy:
 
 
 @dataclass
+class MeshConfig:
+    """An explicit mesh request: axis sizes (-1 fills with the remaining
+    processes) and ``dcn_axes``, the axes whose outer part spans nodes."""
+
+    axes: Dict[str, int] = field(default_factory=dict)
+    dcn_axes: Dict[str, int] = field(default_factory=dict)
+    allow_split_physical_axes: bool = False
+
+
+#: ``CollectiveKwargs.grad_reduce_dtype`` names -> torch dtypes
+TENSOR_DTYPES = {
+    "no": torch.float32,
+    "fp32": torch.float32,
+    "bf16": torch.bfloat16,
+    "fp16": torch.float16,
+    "fp8": torch.float8_e4m3fn,
+}
+
+
+@dataclass
 class CompilationConfig(KwargsHandler):
     """Compile options of the train step (``accelerate_tpu/utils/
     dataclasses.py:303-333``).
@@ -230,16 +349,15 @@ class CompilationConfig(KwargsHandler):
 
 @dataclass
 class FullyShardedDataParallelPlugin:
-    """FSDP options on one card (``accelerate_tpu/utils/dataclasses.py:350-440``).
+    """FSDP options (``accelerate_tpu/utils/dataclasses.py:350-460``).
 
-    Over one device the sharding fields change nothing the JAX package
-    computes or writes on a one-device mesh: ``sharding_strategy``,
-    ``min_weight_size``, ``state_dict_type`` and ``shard_gradients`` are
-    accepted and act over that one device; ``backward_prefetch``,
-    ``use_orig_params`` and ``sync_module_states`` are parity no-ops there
-    too.  ``fsdp_axis_size`` above 1 needs that many devices and raises in
-    the Accelerator (ROADMAP Queue 1 item 9e).  What does change the step
-    is ported:
+    ``sharding_strategy`` (:attr:`shards_params`, :attr:`shards_opt_state`,
+    :attr:`shards_grads`, :attr:`hybrid`), ``min_weight_size`` and
+    ``shard_gradients`` place the train state over the mesh's ``fsdp``
+    axis (``parallel/sharding.py``); ``fsdp_axis_size`` sizes that axis
+    (-1: every process the model-parallel axes leave).
+    ``backward_prefetch``, ``use_orig_params`` and ``sync_module_states``
+    are parity no-ops, as in the JAX package.  The rest:
 
     - ``offload_optimizer``: the optimizer state lives in pinned host
       memory and streams through the card in chunks of
@@ -300,3 +418,234 @@ class FullyShardedDataParallelPlugin:
             self.offload_optimizer_nvme_path = os.environ["FSDP_NVME_PATH"]
         if os.environ.get("FSDP_OFFLOAD_MASTER_WEIGHTS"):
             self.offload_master_weights = parse_flag_from_env("FSDP_OFFLOAD_MASTER_WEIGHTS")
+
+    @property
+    def shards_params(self) -> bool:
+        return self.sharding_strategy in (ShardingStrategy.FULL_SHARD,
+                                          ShardingStrategy.HYBRID_SHARD)
+
+    @property
+    def shards_opt_state(self) -> bool:
+        return self.sharding_strategy != ShardingStrategy.NO_SHARD
+
+    @property
+    def shards_grads(self) -> bool:
+        if self.shard_gradients is not None:
+            return self.shard_gradients
+        return self.shards_opt_state
+
+    @property
+    def hybrid(self) -> bool:
+        return self.sharding_strategy in (ShardingStrategy.HYBRID_SHARD,
+                                          ShardingStrategy.HYBRID_SHARD_ZERO2)
+
+
+@dataclass
+class ZeroPlugin:
+    """The DeepSpeed plugin's counterpart (``accelerate_tpu/utils/
+    dataclasses.py:463-711``): ZeRO stages lower onto the FSDP plugin
+    (:meth:`to_fsdp_plugin`): stage 0 NO_SHARD, 1 optimizer state sharded,
+    2 gradients too, 3 parameters too.  Offload maps onto the FSDP
+    plugin's host (``"cpu"``) and disk (``"nvme"``) tiers."""
+
+    zero_stage: int = 2
+    gradient_accumulation_steps: Optional[int] = None
+    gradient_clipping: Optional[float] = None
+    offload_optimizer_device: str = "none"
+    offload_param_device: str = "none"
+    nvme_path: Optional[str] = None
+    zero3_save_16bit_model: bool = False
+    train_micro_batch_size_per_gpu: Optional[int] = None
+    offload_update_chunk_mb: Optional[int] = None
+    offload_update_overlap: Optional[int] = None
+
+    def __post_init__(self):
+        # set by from_deepspeed_config from the JSON's fp16/bf16 sections
+        self.inferred_mixed_precision: Optional[str] = None
+        env = os.environ
+        if env.get("ACCELERATE_DEEPSPEED_ZERO_STAGE"):
+            self.zero_stage = int(env["ACCELERATE_DEEPSPEED_ZERO_STAGE"])
+        if env.get("ACCELERATE_DEEPSPEED_OFFLOAD_OPTIMIZER_DEVICE"):
+            self.offload_optimizer_device = env["ACCELERATE_DEEPSPEED_OFFLOAD_OPTIMIZER_DEVICE"]
+        if env.get("ACCELERATE_DEEPSPEED_OFFLOAD_PARAM_DEVICE"):
+            self.offload_param_device = env["ACCELERATE_DEEPSPEED_OFFLOAD_PARAM_DEVICE"]
+        if env.get("ACCELERATE_DEEPSPEED_NVME_PATH"):
+            self.nvme_path = env["ACCELERATE_DEEPSPEED_NVME_PATH"]
+        if env.get("ACCELERATE_DEEPSPEED_GRADIENT_CLIPPING"):
+            self.gradient_clipping = float(env["ACCELERATE_DEEPSPEED_GRADIENT_CLIPPING"])
+        if env.get("ACCELERATE_DEEPSPEED_ZERO3_SAVE_16BIT_MODEL"):
+            self.zero3_save_16bit_model = parse_flag_from_env(
+                "ACCELERATE_DEEPSPEED_ZERO3_SAVE_16BIT_MODEL")
+        if env.get("ACCELERATE_DEEPSPEED_OFFLOAD_UPDATE_CHUNK_MB"):
+            self.offload_update_chunk_mb = int(env["ACCELERATE_DEEPSPEED_OFFLOAD_UPDATE_CHUNK_MB"])
+        if env.get("ACCELERATE_DEEPSPEED_OFFLOAD_UPDATE_OVERLAP"):
+            self.offload_update_overlap = int(env["ACCELERATE_DEEPSPEED_OFFLOAD_UPDATE_OVERLAP"])
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"ZeRO stage must be 0-3, got {self.zero_stage}")
+        if self.offload_optimizer_device not in ("none", "cpu", "nvme"):
+            raise ValueError(
+                f"offload_optimizer_device={self.offload_optimizer_device!r} is not "
+                "supported; use 'cpu' (pinned-host offload), 'nvme' (disk tier, "
+                "requires nvme_path), or 'none'.")
+        if self.offload_optimizer_device == "nvme" and not self.nvme_path:
+            raise ValueError(
+                "offload_optimizer_device='nvme' requires nvme_path (the directory "
+                "the chunked update streams optimizer state from).")
+        if self.offload_param_device not in ("none", "cpu"):
+            raise ValueError(
+                f"offload_param_device={self.offload_param_device!r} is not supported; "
+                "use 'cpu' (pinned-host offload) or 'none'. Disk-backed weight "
+                "streaming is available via big_modeling.load_checkpoint_and_dispatch.")
+
+    @classmethod
+    def from_deepspeed_config(cls, path: str, **overrides) -> "ZeroPlugin":
+        """A :class:`ZeroPlugin` from a DeepSpeed JSON file, with the
+        reference's mapping (``accelerate_tpu/utils/dataclasses.py:549-680``):
+        ``zero_optimization.stage``, ``offload_optimizer.device``/
+        ``nvme_path``, ``offload_param.device`` (``nvme`` falls back to
+        ``cpu`` with a warning), ``sub_group_size`` (elements at 12 B each,
+        clamped to 2048 MB with a warning), ``stage3_gather_16bit_weights_
+        on_model_save``, ``gradient_accumulation_steps``,
+        ``gradient_clipping``, ``train_micro_batch_size_per_gpu`` and the
+        fp16/bf16 sections (:attr:`inferred_mixed_precision`).  ``"auto"``
+        resolves to the field default; every other key is named in one
+        warning (build the optimizer from the same file with
+        :func:`~accelerate_tpu_torch.utils.ds_compat.torch_tx_from_ds_config`)."""
+        import json as _json
+
+        with open(path) as f:
+            ds = _json.load(f)
+
+        def resolved(value, default=None):
+            return default if value in ("auto", None) else value
+
+        kwargs: Dict[str, Any] = {}
+        zero = ds.get("zero_optimization", {})
+        if resolved(zero.get("stage")) is not None:
+            kwargs["zero_stage"] = int(zero["stage"])
+        off_opt = zero.get("offload_optimizer", {}) or {}
+        device = resolved(off_opt.get("device"), "none") or "none"
+        if device != "none":
+            kwargs["offload_optimizer_device"] = device
+            if device == "nvme":
+                kwargs["nvme_path"] = resolved(off_opt.get("nvme_path"))
+        off_param = zero.get("offload_param", {}) or {}
+        p_device = resolved(off_param.get("device"), "none") or "none"
+        if p_device == "nvme":
+            warnings.warn(
+                "offload_param.device='nvme' has no training-state tier here; "
+                "using 'cpu' (pinned host). Disk-streamed weights are served by "
+                "big_modeling.load_checkpoint_and_dispatch.", stacklevel=2)
+            p_device = "cpu"
+        if p_device != "none":
+            kwargs["offload_param_device"] = p_device
+        sub_group = resolved(zero.get("sub_group_size"))
+        if (sub_group is not None and device in ("cpu", "nvme")
+                and "offload_update_chunk_mb" not in overrides):
+            chunk_mb = max(1, int(float(sub_group)) * 12 >> 20)
+            if chunk_mb > 2048:
+                warnings.warn(
+                    f"sub_group_size={sub_group!r} maps to ~{chunk_mb} MB streamed "
+                    "chunks; clamping to 2048 MB to stay inside HBM transient "
+                    "headroom (set offload_update_chunk_mb explicitly, or -1 for "
+                    "adaptive sizing, to override).", stacklevel=2)
+                chunk_mb = 2048
+            kwargs["offload_update_chunk_mb"] = chunk_mb
+        save16 = resolved(zero.get("stage3_gather_16bit_weights_on_model_save"))
+        if save16 is not None:
+            kwargs["zero3_save_16bit_model"] = bool(save16)
+        for key, conv in (("gradient_accumulation_steps", int), ("gradient_clipping", float),
+                          ("train_micro_batch_size_per_gpu", int)):
+            if resolved(ds.get(key)) is not None:
+                kwargs[key] = conv(ds[key])
+        mixed = None
+        if resolved(ds.get("bf16", {}).get("enabled"), False):
+            mixed = "bf16"
+        elif resolved(ds.get("fp16", {}).get("enabled"), False):
+            mixed = "fp16"
+        known = {"zero_optimization", "gradient_accumulation_steps", "gradient_clipping",
+                 "train_micro_batch_size_per_gpu", "fp16", "bf16"}
+        known_zero = {"stage", "offload_optimizer", "offload_param", "sub_group_size",
+                      "stage3_gather_16bit_weights_on_model_save"}
+        unmapped = sorted(set(ds) - known)
+        unmapped += [f"zero_optimization.{k}" for k in sorted(set(zero) - known_zero)]
+        unmapped += [f"zero_optimization.offload_optimizer.{k}"
+                     for k in sorted(set(off_opt) - {"device", "nvme_path"})]
+        unmapped += [f"zero_optimization.offload_param.{k}"
+                     for k in sorted(set(off_param) - {"device", "nvme_path"})]
+        if unmapped:
+            warnings.warn(
+                f"DeepSpeed config keys without a mapping here (ignored): {unmapped}. "
+                "Optimizer/scheduler sections: build the optimizer from the SAME file "
+                "with accelerate_tpu_torch.utils.ds_compat.torch_tx_from_ds_config(path, "
+                "lr=..., total_num_steps=...) and pass it to create_train_state; "
+                "comm/bucket tuning has no counterpart.", stacklevel=2)
+        kwargs.update(overrides)
+        plugin = cls(**kwargs)
+        plugin.inferred_mixed_precision = mixed
+        return plugin
+
+    def to_fsdp_plugin(self) -> "FullyShardedDataParallelPlugin":
+        """The FSDP plugin this stage lowers onto: stage 1 shards only the
+        optimizer state (gradients all-reduced), stage 2 the gradients too
+        (reduce-scattered), stage 3 the parameters too."""
+        strategy = {0: ShardingStrategy.NO_SHARD, 1: ShardingStrategy.SHARD_GRAD_OP,
+                    2: ShardingStrategy.SHARD_GRAD_OP,
+                    3: ShardingStrategy.FULL_SHARD}[self.zero_stage]
+        kwargs = {}
+        if self.offload_update_chunk_mb is not None:
+            kwargs["offload_update_chunk_mb"] = self.offload_update_chunk_mb
+        if self.offload_update_overlap is not None:
+            kwargs["offload_update_overlap"] = self.offload_update_overlap
+        return FullyShardedDataParallelPlugin(
+            sharding_strategy=strategy,
+            min_weight_size=0 if self.zero_stage == 3 else 2**12,
+            cpu_offload=self.offload_param_device == "cpu",
+            offload_optimizer=self.offload_optimizer_device in ("cpu", "nvme"),
+            offload_optimizer_nvme_path=(self.nvme_path
+                                         if self.offload_optimizer_device == "nvme" else None),
+            shard_gradients=self.zero_stage >= 2,
+            **kwargs)
+
+
+#: the ModelParallelPlugin degrees that wait for ROADMAP Queue 1 item 9e-ii
+_LATER_DEGREES = ("pp_degree", "sp_degree", "expert_parallel_degree")
+
+
+@dataclass
+class ModelParallelPlugin:
+    """The Megatron plugin's counterpart (``accelerate_tpu/utils/
+    dataclasses.py:714-760``): ``tp_degree`` becomes the mesh's ``tp``
+    axis, whose rules are ``parallel/tensor_parallel.py``'s.
+    ``recompute_activations`` lowers to ``remat_policy="full"``.
+    ``pp_degree``, ``sp_degree`` and ``expert_parallel_degree`` above 1
+    raise: pipeline, sequence and expert parallelism are ROADMAP Queue 1
+    item 9e-ii."""
+
+    tp_degree: int = 1
+    pp_degree: int = 1
+    sp_degree: int = 1
+    expert_parallel_degree: int = 1
+    num_micro_batches: int = 8
+    recompute_activations: bool = False
+
+    def __post_init__(self):
+        env = os.environ
+        for key, name in (("MEGATRON_LM_TP_DEGREE", "tp_degree"),
+                          ("MEGATRON_LM_PP_DEGREE", "pp_degree"),
+                          ("MEGATRON_LM_SP_DEGREE", "sp_degree"),
+                          ("MEGATRON_LM_EP_DEGREE", "expert_parallel_degree"),
+                          ("MEGATRON_LM_NUM_MICRO_BATCHES", "num_micro_batches")):
+            if env.get(key):
+                setattr(self, name, int(env[key]))
+        if env.get("MEGATRON_LM_RECOMPUTE_ACTIVATIONS"):
+            self.recompute_activations = parse_flag_from_env("MEGATRON_LM_RECOMPUTE_ACTIVATIONS")
+        for name in _LATER_DEGREES:
+            if getattr(self, name) > 1:
+                raise NotImplementedError(
+                    f"ModelParallelPlugin({name}={getattr(self, name)}): pipeline, sequence "
+                    "and expert parallelism are not ported: ROADMAP Queue 1 item 9e-ii")
+
+    @property
+    def model_parallel_size(self) -> int:
+        return self.tp_degree * self.pp_degree * self.sp_degree * self.expert_parallel_degree

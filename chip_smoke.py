@@ -196,22 +196,22 @@ Phases, each printing one JSON line:
    Weight-only quantization and MoE: ``mixtral_config`` (Mistral AI's
    Mixtral-8x7B, ``hf_compat.MIXTRAL_8X7B``: 32 layers, hidden 4096, 32
    query heads over 8 kv heads of D 128, 8 SwiGLU experts of 14336 a layer,
-   top 2, the drop-free capacity factor 4) with int8 weights
-   (``quantization=8``: 47 GB, where bf16 would need 93), random draws from
+   top 2, the drop-free capacity factor 4), served at ``MIXTRAL_SERVE_LAYERS``
+   (8) of its 32 layers with int8 weights (``quantization=8``), random draws from
    seed 0 quantized per column and per expert as drawn, the router f32; its
    weight bytes by group and the weight bound of a decode step;
-   ``model_mixtral`` (the ``model`` line's check at 32 layers: the f32 twin
+   ``model_mixtral`` (the ``model`` line's check at 8 layers: the f32 twin
    shares the int8 codes and dequantizes them layer by layer) and
    ``model_mixtral_plain_paged`` (the kernel path against the plain paged
    path within that tolerance); ``engine_mixtral`` (the ``engine`` line's
-   engine and requests, K1 32 launches a step and K2 32 a chunk) and
+   engine and requests, K1 8 launches a step and K2 8 a chunk) and
    ``engine_mixtral_sync_eager`` (identical tokens); ``mixtral_decode_split``
    (a decode step's card time split: one layer's dequantization and its
-   experts' products timed alone with CUDA events, times 32, beside the
+   experts' products timed alone with CUDA events, times 8, beside the
    step and its bound).  ``int4_config``, ``model_int4_dequantized`` (the
    int4 Llama-2-7B's logits bitwise those of the bf16 model holding its
    dequantized weights), ``model_int4`` and ``engine_int4``: Llama-2-7B with
-   int4 weights in blocks of 64.
+   int4 weights in blocks of 64, at ``INT4_LAYERS`` (8) of its 32 layers.
 6. ``k3``, ``k4``, ``k5`` — the flash-attention forward, dQ and dK/dV kernels
    against their plain versions: the training shape (B 2, S 2048, 32 heads,
    D 128, causal) in bf16 and f32, GQA 32/8, three packed segments per row
@@ -2235,6 +2235,10 @@ MIXTRAL_EXPECT = dict(num_layers=32, hidden_size=4096, intermediate_size=14336, 
                       num_kv_heads=8, resolved_head_dim=128, num_experts=8,
                       num_experts_per_tok=2, expert_capacity_factor=4.0, vocab_size=32000,
                       rope_theta=1e6, tie_word_embeddings=False, sliding_window=None)
+#: the int8 Mixtral's served depth (of 32) and the int4 Llama's: depth cut
+#: to keep the whole run inside its time budget; the widths stay published
+MIXTRAL_SERVE_LAYERS = 8
+INT4_LAYERS = 8
 
 
 def moe_decode_split(model, cfg, lanes: int = 4) -> dict:
@@ -2297,15 +2301,15 @@ def moe_decode_split(model, cfg, lanes: int = 4) -> dict:
 
 def mixtral_phases(gpu) -> dict:
     """Mixtral-8x7B (``hf_compat.MIXTRAL_8X7B``, the published
-    ``config.json`` values) at full width and depth with int8 weights
-    (``quantization=8``: 47 GB; 93 GB in bf16 would not fit the card):
+    ``config.json`` values) at full width and ``MIXTRAL_SERVE_LAYERS`` of its
+    32 layers with int8 weights (``quantization=8``):
     ``mixtral_config`` (the mapped config, the weight bytes by group and
     the weight bound of a decode step, every weight read once at the HBM
-    rate), ``model_mixtral`` (the ``model`` line's check at 32 layers: the
+    rate), ``model_mixtral`` (the ``model`` line's check: the
     f32 twin shares the int8 codes and dequantizes them to f32 layer by
     layer, so it needs no f32 copy of the weights), the kernel path against
     the plain paged path, ``engine_mixtral`` (the ``engine`` line's engine
-    and six requests: K1 32 launches a decode step, K2 32 a chunk, every
+    and six requests: K1 a launch a layer and decode step, K2 a layer a chunk, every
     token within the noise margin, the peak memory) and
     ``engine_mixtral_sync_eager`` (identical tokens), then the decode step's
     card time split into dequantization, expert products and the rest.
@@ -2317,6 +2321,7 @@ def mixtral_phases(gpu) -> dict:
                                         quantization=8)
     got = {key: getattr(cfg, key) for key in MIXTRAL_EXPECT}
     check(got == MIXTRAL_EXPECT, f"mistralai/Mixtral-8x7B-v0.1 mapped to {got}")
+    cfg = dataclasses.replace(cfg, num_layers=MIXTRAL_SERVE_LAYERS)
     dense = dataclasses.replace(cfg, quantization=None)
     params = sum(int(np.prod(shape)) for shape in state_dict_shapes(dense).values())
     free_card()
@@ -2362,12 +2367,13 @@ def int4_phases(gpu) -> dict:
     from accelerate_tpu_torch.ops.quantization import dequantize
 
     cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16, quantization=4,
-                                      quantization_block_size=64)
+                                      quantization_block_size=64, num_layers=INT4_LAYERS)
     free_card()
     model = quantized_model(cfg)
     groups = weight_bytes(model)
     bound_ms = 1e3 * sum(groups.values()) / HBM_BYTES_PER_S
-    emit({"phase": "int4_config", "config": "llama2_7b", "quantization": 4, "block_size": 64,
+    emit({"phase": "int4_config", "config": "llama2_7b", "layers": cfg.num_layers,
+          "of_layers": 32, "quantization": 4, "block_size": 64,
           "weights_gb_by_group": {k: v / 1e9 for k, v in groups.items()},
           "weights_gb": sum(groups.values()) / 1e9, "weight_bound_ms_per_step": bound_ms})
     rng = np.random.default_rng(0)
@@ -3398,6 +3404,10 @@ def checkpoint_phase(gpu):
 #: granted as pinned memory in 29 s; 75 GB of free disk, less than the 81 GB
 #: of state): pinned host memory.  Never a fallback at run time.
 FULL_OFFLOAD_TIER = "pinned host memory"
+#: ``train_full``'s depth: 16 of 32 layers (all 32 ran in 32.21 GB of card
+#: memory with 80.86 GB pinned; the depth is cut to keep the run inside its
+#: time budget)
+FULL_TRAIN_LAYERS = 16
 REMAT_POLICY_LAYERS = 2
 #: ``train_offload`` against ``train`` over the first accumulation window
 #: (equal weights): the bf16 gradient buffer against train's f32 one moves
@@ -3546,7 +3556,7 @@ def train_offload_phase(gpu, train_rec) -> dict:
         want = (plain if label == "chunk_mb_0" else base)["weights"]
         twins[label] = all(torch.equal(twin["weights"][n], w) for n, w in want.items())
         del twin
-    del base, plain
+    del base
     emit({"phase": "train_offload_vs", "first_window_micro_steps": window,
           "losses_bitwise_train": loss_same, "grad_norm_rel_diff_train": norm_rel,
           "grad_norm_tolerance": OFFLOAD_GRAD_NORM_REL_TOL,
@@ -3561,26 +3571,402 @@ def train_offload_phase(gpu, train_rec) -> dict:
     check(twins["one_chunk"], "the 512 MB chunks' weights differ from one chunk's")
     check(twins["overlap_2"], "overlap 2's weights differ from overlap 1's")
     check(twins["chunk_mb_0"], "offload_update_chunk_mb=0's weights differ from train's")
-    return launches
+    return launches, plain
+
+
+#: the multi-process lines: Llama-2-7B's widths at 2 of 32 layers, the
+#: global batch of 2 x 2048 tokens (one row a rank at dp 2), accumulation 2,
+#: 4 micro-steps
+DIST_LAYERS, DIST_MICRO = 2, 4
+#: the dp/fsdp/tp lines against the one-process run of the same global
+#: batch, as a multiple of how far two one-process runs sit apart that
+#: split the same rows differently (2 rows in one batch against 1 + 1, the
+#: split a data-parallel rank makes): the lines differ from the one-process
+#: run only by where the sums happen (per row, and the f32 gradient sums
+#: over the ranks), which is that noise; 4x it leaves room for the
+#: collectives' own f32 sum order and for tp's bf16 partial sums of the row-
+#: parallel products, while a lost rank, row or micro-step moves the loss
+#: by percents
+DIST_TOL_FACTOR = 4.0
+#: the seconds a world of ranks may take before the run stops it (a
+#: deadlocked collective must fail the run, not hang it)
+DIST_DEADLINE_S = 420.0
+
+
+def _dist_env(rank: int, world: int, port: int) -> dict:
+    """A rank's rendezvous environment for the one card: every rank a node
+    of one card (local index 0), the reference's variables."""
+    return {"ACCELERATE_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            "ACCELERATE_NUM_PROCESSES": str(world), "ACCELERATE_PROCESS_ID": str(rank),
+            "ACCELERATE_LOCAL_PROCESS_ID": "0"}
+
+
+def run_ranks(fn, args, world: int, what: str, deadline_s: float = DIST_DEADLINE_S) -> None:
+    """``fn(*args)`` in ``world`` ranks spawned by the port's launcher
+    (tracebacks collected, the process group left at the end), each a node
+    of one card; ranks still running at the deadline are stopped, and a
+    failed or stopped rank raises ``RuntimeError``."""
+    from accelerate_tpu_torch import launchers
+
+    port = launchers._free_port()
+    launchers._spawn(fn, args, [_dist_env(r, world, port) for r in range(world)], cpu=False,
+                     what=what, rendezvous=False, deadline_s=deadline_s)
+
+
+def probe_gloo() -> dict:
+    """Which collectives gloo takes on card tensors, each tried directly on
+    the process group (every rank calls this together)."""
+    import torch.distributed as dist
+
+    x = torch.full((4, 8), float(dist.get_rank() + 1), device="cuda")
+    res = {}
+
+    def attempt(name, f):
+        try:
+            f()
+            torch.cuda.synchronize()
+            res[name] = "ok"
+        except Exception as e:  # noqa: BLE001 (the probe records what the card said)
+            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        dist.barrier()
+
+    attempt("all_reduce", lambda: dist.all_reduce(x.clone()))
+    attempt("broadcast", lambda: dist.broadcast(x.clone(), src=0))
+    attempt("all_gather", lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x))
+    attempt("all_gather_into_tensor",
+            lambda: dist.all_gather_into_tensor(torch.empty(8, 8, device="cuda"), x))
+    attempt("reduce_scatter_tensor",
+            lambda: dist.reduce_scatter_tensor(torch.empty(2, 8, device="cuda"), x))
+    # the gradients ride the compute dtype on the wire
+    y = x.to(torch.bfloat16)
+    attempt("all_reduce_bf16", lambda: dist.all_reduce(y.clone()))
+    attempt("reduce_scatter_tensor_bf16", lambda: dist.reduce_scatter_tensor(
+        torch.empty(2, 8, device="cuda", dtype=torch.bfloat16), y))
+    return res
+
+
+def probe_nccl_rank(out_dir: str) -> None:
+    """Whether NCCL takes two ranks on one device: its group and an
+    all-reduce, the error recorded."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rank = int(os.environ["ACCELERATE_PROCESS_ID"])
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://{os.environ['ACCELERATE_COORDINATOR_ADDRESS']}",
+            world_size=2, rank=rank, timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        said = f"ok: all_reduce gave {x.tolist()}"
+    except Exception as e:  # noqa: BLE001 (the probe records what the card said)
+        said = f"{type(e).__name__}: {' '.join(str(e).split())[:300]}"
+    with open(os.path.join(out_dir, f"nccl_{rank}.json"), "w") as f:
+        json.dump({"said": said}, f)
+
+
+def dist_rank(out_dir: str, lines) -> None:
+    """One rank of the ``dist_*`` lines, in turn: each a fresh Accelerator
+    (``InitProcessGroupKwargs(backend="gloo")``: two ranks share the card,
+    which NCCL does not allow) over its mesh, the 2-layer model from
+    ``train``'s seed, its rows of the global batch, ``DIST_MICRO``
+    micro-steps; the flash counters zeroed just before the loop and read
+    just after.  After the dp line, ``gather_for_metrics``, ``broadcast``
+    and ``reduce`` on card tensors."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import SimpleDataLoader
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import (
+        FullyShardedDataParallelPlugin,
+        InitProcessGroupKwargs,
+        ModelParallelPlugin,
+    )
+
+    rank = int(os.environ["ACCELERATE_PROCESS_ID"])
+    cfg = train_config(DIST_LAYERS)
+    _, dataset = train_data(cfg, repeats=DIST_MICRO // 2)
+    # the one-process run's final weights, each line's blocks held against them
+    want = torch.load(os.path.join(out_dir, "one_weights.pt"), mmap=True, weights_only=True)
+    out = {}
+    for name, mesh in lines:
+        GradientState._reset_state()
+        AcceleratorState._reset_state()
+        kw = {}
+        if "fsdp" in mesh:
+            kw["fsdp_plugin"] = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")
+        if "tp" in mesh:
+            kw["megatron_lm_plugin"] = ModelParallelPlugin(tp_degree=mesh["tp"])
+        acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2, mesh=mesh,
+                          kwargs_handlers=[InitProcessGroupKwargs(backend="gloo")], **kw)
+        if "probe" not in out:
+            out["probe"] = probe_gloo()
+        model = train_model(cfg, seed=0)
+        state = acc.create_train_state(params=model, tx=LLAMA2_ADAMW)
+        n_data = acc.mesh.size // acc.mesh.shape.get("tp", 1)
+        loader = acc.prepare(SimpleDataLoader(dataset, batch_size=TRAIN_ROWS // n_data))
+        step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        metrics, step_s = [], []
+        for batch in loader:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append(m)
+        launches = {"flash_fwd": fa.flash_fwd.launches, "flash_dq": fa.flash_dq.launches,
+                    "flash_dkv": fa.flash_dkv.launches}
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"loss": [m["loss"].item() for m in metrics],
+               "grad_norm": [m["grad_norm"].item() for m in metrics],
+               "applied": [bool(m["applied"]) for m in metrics], "launches": launches,
+               "step_ms_each": [t * 1e3 for t in step_s],
+               "step_ms": float(np.median(step_s[1:])) * 1e3,
+               "max_memory_allocated_gb": peak / 1e9, "mesh": dict(acc.mesh.shape),
+               "distributed_type": str(acc.distributed_type)}
+        # each rank's block of every weight against the same block of the
+        # one-process run (the whole weight, compared block by block, with
+        # no gather): per weight max |a - b| over max |b|, both maxed over
+        # the ranks
+        from accelerate_tpu_torch.parallel.mesh import local_slice
+        from accelerate_tpu_torch.utils import operations as ops
+
+        worst = 0.0
+        for n, p in model.named_parameters():
+            w = want[n][local_slice(acc.mesh, p.atpu_sharding.spec, want[n].shape)].cuda()
+            both = torch.stack([(p.detach() - w).abs().max(), w.abs().max()]).cpu()
+            gathered = ops.gather(both.reshape(1, 2))  # [ranks, 2]
+            worst = max(worst, (gathered[:, 0].max() / gathered[:, 1].max()).item())
+        rec["weight_rel"] = worst
+        # the dp replicas agree bit for bit: a checksum of every block's bits
+        rec["weights_checksum"] = sum(
+            int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+            for p in model.parameters())
+        if name == "dist_dp2":
+            x = torch.arange(3, device="cuda", dtype=torch.float32) + 10 * rank
+            gathered = acc.gather_for_metrics(x)
+            rec["collectives"] = {
+                "gather_for_metrics": gathered.tolist(), "gather_device": str(gathered.device),
+                "broadcast": ops.broadcast(torch.full((2,), float(rank), device="cuda"),
+                                           from_process=1).tolist(),
+                "reduce_mean": acc.reduce(x, "mean").tolist()}
+        out[name] = rec
+        del state, step, loader, model, acc
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dist_reference_runs(gpu) -> dict:
+    """The one-process runs the ``dist_*`` lines are held against: the
+    global batch of 2 rows a micro-step (``one``), and the same rows one
+    at a time at accumulation 4 (``split``: 1 + 1, the rows a data-parallel
+    rank computes), each ``DIST_MICRO`` rows' worth; losses per global
+    batch, grad norms at the optimizer steps, and the final weights."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import SimpleDataLoader
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    cfg = train_config(DIST_LAYERS)
+    _, dataset = train_data(cfg, repeats=DIST_MICRO // 2)
+    runs = {}
+    for label, rows, accum in (("one", TRAIN_ROWS, 2), ("split", 1, 2 * TRAIN_ROWS)):
+        free_card()
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum)
+        model = train_model(cfg, seed=0)
+        state = acc.create_train_state(params=model, tx=LLAMA2_ADAMW)
+        step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
+        loss, norms, step_s = [], [], []
+        for batch in acc.prepare(SimpleDataLoader(dataset, batch_size=rows)):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            loss.append(m["loss"].item())
+            if bool(m["applied"]):
+                norms.append(m["grad_norm"].item())
+        per = TRAIN_ROWS // rows
+        runs[label] = {"loss": [float(np.mean(loss[i:i + per])) for i in range(0, len(loss), per)],
+                       "grad_norm": norms, "step_ms": float(np.median(step_s[1:])) * 1e3,
+                       "weights": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+        del state, step, model, acc
+    free_card()
+    return runs
+
+
+def _dist_diffs(got_loss, got_norms, want, got_weights=None, weight_rel=None) -> dict:
+    """Relative differences of losses and grad norms, and the weights'
+    largest difference over their scale (per tensor: max |a - b| / max |b|,
+    from ``got_weights`` or as given), of a run against a reference run."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got_loss, want["loss"]))
+    norm = max(abs(a - b) / abs(b) for a, b in zip(got_norms, want["grad_norm"]))
+    if weight_rel is None:
+        weight_rel = max(((got_weights[n].cuda() - w.cuda()).abs().max()
+                          / w.cuda().abs().max()).item() for n, w in want["weights"].items())
+    return {"loss_rel": loss, "grad_norm_rel": norm, "weight_rel": weight_rel}
+
+
+def dist_phases(gpu, plain_rec) -> dict:
+    """The multi-process lines (the script runs one card):
+
+    - ``dist_world1``: this process through the process-group path over
+      NCCL (a world of 1 on the reference's environment) with
+      ``FullyShardedDataParallelPlugin(FULL_SHARD, fsdp_axis_size=-1)``,
+      ``train_2of32``'s model, batches and micro-steps: losses and final
+      weights bitwise ``train_2of32``'s (at fsdp size 1 the reference's
+      rules replicate everything).
+    - the probes: whether NCCL takes two ranks on one card, and which
+      collectives gloo takes on card tensors (in the two-rank world)
+      (``dist_probe``).
+    - ``dist_dp2``, ``dist_fsdp2``, ``dist_tp2``: two ranks on the one card,
+      each a node of one card (``ACCELERATE_LOCAL_PROCESS_ID=0``, process
+      ids 0/1, ``InitProcessGroupKwargs(backend="gloo")``): an emulation of
+      two nodes.  ``mesh={"dp": 2}``, ``{"fsdp": 2}`` (FULL_SHARD) and
+      ``{"tp": 2}``, 2 of 32 layers, the global batch 2 x 2048 tokens (one
+      row a rank on the data axes), accumulation 2, ``DIST_MICRO``
+      micro-steps; K3-K5 launched on both ranks.  Losses, grad norms and
+      every weight (each rank's blocks against the same blocks) against the
+      one-process run of the same global batch
+      within ``DIST_TOL_FACTOR`` x how far that run sits from the same rows
+      split 1 + 1 (``dist_reference``)."""
+    from accelerate_tpu_torch import launchers
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    # --- a world of one over NCCL
+    env = _dist_env(0, 1, launchers._free_port())
+    os.environ.update(env)
+    try:
+        launches, rec = train_phase(
+            gpu, train_config(OFFLOAD_TWIN_LAYERS), name="dist_world1", with_path_check=False,
+            keep_weights=True, accelerator_kw=dict(fsdp_plugin=FullyShardedDataParallelPlugin(
+                sharding_strategy="FULL_SHARD", fsdp_axis_size=-1)))
+        state = PartialState()
+        world1 = {"backend": state.backend, "num_processes": state.num_processes,
+                  "distributed_type": str(AcceleratorState().distributed_type)}
+    finally:
+        if PartialState._shared_state.get("_initialized"):
+            PartialState().destroy_process_group()
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        for key in env:
+            os.environ.pop(key, None)
+    same_loss = rec["loss"] == plain_rec["loss"]
+    same_weights = all(torch.equal(rec["weights"][n], w) for n, w in plain_rec["weights"].items())
+    emit({"phase": "dist_world1_vs_train_2of32", "process_group": world1,
+          "losses_bitwise": same_loss, "weights_bitwise": same_weights, "launches": launches,
+          "gpu": gpu})
+    check(world1["backend"] == "nccl" and world1["num_processes"] == 1,
+          f"dist_world1 ran over {world1}")
+    check(same_loss and same_weights, "dist_world1 differs from train_2of32")
+    del rec
+    free_card()
+
+    out_dir = tempfile.mkdtemp(prefix="atpu_dist_")
+    try:
+        # --- NCCL with two ranks on the card (gloo's probe runs in the world)
+        t0 = time.perf_counter()
+        try:
+            run_ranks(probe_nccl_rank, (out_dir,), 2, "the NCCL probe", deadline_s=60)
+            nccl_launch = None
+        except RuntimeError as e:  # the probe records what the card said
+            nccl_launch = " ".join(str(e).split())[:300]
+        nccl_said = [json.load(open(os.path.join(out_dir, f"nccl_{r}.json")))["said"]
+                     if os.path.exists(os.path.join(out_dir, f"nccl_{r}.json")) else None
+                     for r in range(2)]
+        nccl_s = time.perf_counter() - t0
+
+        # --- the one-process references, then the two-rank world
+        refs = dist_reference_runs(gpu)
+        noise = _dist_diffs(refs["split"]["loss"], refs["split"]["grad_norm"], refs["one"],
+                            got_weights=refs["split"].pop("weights"))
+        torch.save(refs["one"].pop("weights"), os.path.join(out_dir, "one_weights.pt"))
+        tol = {k: DIST_TOL_FACTOR * v for k, v in noise.items()}
+        emit({"phase": "dist_reference", "layers": DIST_LAYERS, "micro_steps": DIST_MICRO,
+              "one": refs["one"], "split": refs["split"], "split_vs_one": noise,
+              "tolerance": tol, "tol_factor": DIST_TOL_FACTOR, "gpu": gpu})
+        lines = [("dist_dp2", {"dp": 2}), ("dist_fsdp2", {"fsdp": 2}), ("dist_tp2", {"tp": 2})]
+        t0 = time.perf_counter()
+        run_ranks(dist_rank, (out_dir, lines), 2, "the two-rank world")
+        world_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(out_dir, f"rank_{r}.json"))) for r in range(2)]
+        emit({"phase": "dist_probe", "gloo_on_card_tensors": [r["probe"] for r in ranks],
+              "nccl_two_ranks_one_card": nccl_said, "nccl_launch_error": nccl_launch,
+              "nccl_probe_s": nccl_s, "gpu": gpu})
+        dist_launches = {}
+        for name, mesh in lines:
+            per = [r[name] for r in ranks]
+            norms = [n for n, a in zip(per[0]["grad_norm"], per[0]["applied"]) if a]
+            diff = _dist_diffs(per[0]["loss"], norms, refs["one"],
+                               weight_rel=per[0]["weight_rel"])
+            want_launch = DIST_MICRO * DIST_LAYERS
+            emit({"phase": name, "config": "llama2_7b", "layers": DIST_LAYERS, "of_layers": 32,
+                  "mesh": per[0]["mesh"], "ranks": 2, "emulation": "two nodes of one card each "
+                  "(local process index 0), gloo over localhost, on one H100",
+                  "distributed_type": per[0]["distributed_type"],
+                  "micro_steps": len(per[0]["loss"]), "loss": per[0]["loss"],
+                  "grad_norm": per[0]["grad_norm"], "applied": per[0]["applied"],
+                  "vs_one_process": diff, "tolerance": tol,
+                  "launches_per_rank": [r["launches"] for r in per],
+                  "step_ms_per_rank": [r["step_ms"] for r in per],
+                  "step_ms_each_rank0": per[0]["step_ms_each"],
+                  "one_process_step_ms": refs["one"]["step_ms"],
+                  "train_2of32_step_ms": plain_rec["step_ms"],
+                  "max_memory_allocated_gb_per_rank": [r["max_memory_allocated_gb"]
+                                                       for r in per],
+                  "block_checksums": [r["weights_checksum"] for r in per],
+                  "collectives": per[0].get("collectives"), "world_s": world_s, "gpu": gpu})
+            for r in per:
+                check(all(n == want_launch for n in r["launches"].values()),
+                      f"{name}: launches {r['launches']}, want {want_launch} each")
+                check(r["loss"] == per[0]["loss"], f"{name}: the ranks' losses differ")
+            if name == "dist_dp2":
+                check(per[0]["weights_checksum"] == per[1]["weights_checksum"],
+                      f"{name}: the replicas' weights differ")
+            for key in ("loss_rel", "grad_norm_rel", "weight_rel"):
+                check(diff[key] <= tol[key],
+                      f"{name}: {key} {diff[key]} against the one-process run, tolerance "
+                      f"{tol[key]}")
+            dist_launches[name] = per[0]["launches"]
+        coll = ranks[0]["dist_dp2"]["collectives"]
+        check(coll["gather_for_metrics"] == [0.0, 1.0, 2.0, 10.0, 11.0, 12.0]
+              and coll["gather_device"].startswith("cuda"),
+              f"gather_for_metrics over the two ranks gave {coll}")
+        check(coll["broadcast"] == [1.0, 1.0] and coll["reduce_mean"] == [5.0, 6.0, 7.0],
+              f"broadcast / reduce over the two ranks gave {coll}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dist_launches
 
 
 def train_full_phase(gpu) -> dict:
-    """The slice's headline: Llama-2-7B at all 32 layers on one card,
+    """Llama-2-7B at ``FULL_TRAIN_LAYERS`` of 32 layers on one card,
     per-layer remat ("full") and the offloaded optimizer with f32 master
     weights (512 MB chunks, ``FULL_OFFLOAD_TIER``): 4 micro-steps of 2 x
     2048 tokens at accumulation 2 through ``compile_train_step``, K3-K5 on
     every layer (K3 again in the recompute)."""
-    cfg = dataclasses.replace(train_config(32), remat=True, remat_policy="full")
+    layers = FULL_TRAIN_LAYERS
+    cfg = dataclasses.replace(train_config(layers), remat=True, remat_policy="full")
     launches, rec = train_phase(gpu, cfg, name="train_full", with_path_check=False,
                                 accelerator_kw=dict(fsdp_plugin=offload_plugin()), repeats=2)
     emit({"phase": "train_full_summary", "offload_tier": FULL_OFFLOAD_TIER,
-          "layers": 32, "launches": launches,
+          "layers": layers, "of_layers": 32, "launches": launches,
           "max_memory_allocated_gb": rec["max_memory_allocated_gb"],
           "host_state_gb": rec["offload"]["host_state_bytes"] / 1e9,
           "step_ms_each": rec["step_ms_each"], "update_ms": rec["offload"]["update_ms"],
           "pcie_gb_per_s": rec["offload"]["pcie_gb_per_s"],
           "mfu_vs_989_tflops": rec["mfu_vs_989_tflops"], "loss": rec["loss"], "gpu": gpu})
-    check(launches == {"flash_fwd": 256, "flash_dq": 128, "flash_dkv": 128},
+    check(launches == {"flash_fwd": 8 * layers, "flash_dq": 4 * layers, "flash_dkv": 4 * layers},
           f"train_full's launches {launches}")
     check(rec["max_memory_allocated_gb"] < 80, "train_full's peak is past the card")
     return launches
@@ -4307,10 +4693,13 @@ def main() -> int:
     train_launches, train_rec = train_phase(gpu, scrape=True)
     launches.update(train_launches)
     # single-card training memory: remat, the offloaded optimizer, and both
-    # at all 32 layers
+    # at 16 of 32 layers
     train_lines = {"train_remat": train_remat_phase(gpu, train_rec)}
     remat_policies_phase(gpu)
-    train_lines["train_offload"] = train_offload_phase(gpu, train_rec)
+    train_lines["train_offload"], plain_2of32 = train_offload_phase(gpu, train_rec)
+    # across processes: a world of one over NCCL, then two ranks on the card
+    dist_launches = dist_phases(gpu, plain_2of32)
+    del plain_2of32
     free_card(host=True)
     train_lines["train_full"] = train_full_phase(gpu)
     free_card(host=True)
@@ -4405,6 +4794,10 @@ def main() -> int:
         for line, counts in train_lines.items():
             # the remat, offload, fp8 and MoE training lines, their counts
             # zeroed just before
+            if name in counts:
+                kernels[-1]["launches_" + line] = counts[name]
+        for line, counts in dist_launches.items():
+            # the two-rank lines: rank 0's count (each rank launches the same)
             if name in counts:
                 kernels[-1]["launches_" + line] = counts[name]
     emit({"phase": "run", "total_s": time.perf_counter() - t_start})

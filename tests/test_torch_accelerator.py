@@ -422,7 +422,37 @@ def test_unported_arguments_raise(kw, item, monkeypatch):
     """Arguments the port has not ported raise naming their ROADMAP item.
     ``metrics_port`` (item 8a-ii) is ported since: its case holds that the
     debug server starts on an ephemeral port
-    (``tests/test_torch_train_telemetry.py`` holds the rest)."""
+    (``tests/test_torch_train_telemetry.py`` holds the rest).  So are the
+    item-9 arguments (9e's first half): each placeholder stands for the
+    object it once refused, and its case holds that the real one is taken
+    (the multi-process tests, ``tests/test_torch_sharding.py`` and
+    ``tests/test_torch_dist_*.py``, hold them against the JAX package); an
+    ``fsdp_axis_size`` larger than the processes raises ``ValueError``, an
+    object that is no kwargs handler ``TypeError``."""
+    from accelerate_tpu_torch.utils.dataclasses import (
+        CollectiveKwargs,
+        ModelParallelPlugin,
+        ZeroPlugin,
+    )
+
+    if item.startswith("item 9"):
+        name, value = next(iter(kw.items()))
+        if name == "fsdp_plugin":
+            with pytest.raises(ValueError, match="processes"):
+                Accelerator(cpu=True, **kw)
+            return
+        if name == "kwargs_handlers":
+            with pytest.raises(TypeError, match="kwargs handler"):
+                Accelerator(cpu=True, **kw)
+            kw = {name: [h for h in value if isinstance(h, GradScalerKwargs)]
+                  + [CollectiveKwargs()]}
+        else:
+            kw = {name: {"deepspeed_plugin": ZeroPlugin(zero_stage=2),
+                         "megatron_lm_plugin": ModelParallelPlugin(tp_degree=1),
+                         "mesh": value}[name]}
+        accelerator = Accelerator(cpu=True, **kw)
+        assert dict(accelerator.mesh.shape) == {"dp": 1}
+        return
     if "metrics_port" in kw:
         from accelerate_tpu_torch.telemetry import stop_debug_server
 
