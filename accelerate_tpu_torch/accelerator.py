@@ -100,13 +100,24 @@ each rank the rows of its data shard; the step gathers each parameter
 block for the forward, reduces every micro-step's gradient over the data
 axes (PowerSGD over ``dp`` with the hook), clips by the global norm over
 every shard, and updates each rank's block of the optimizer state
-(``parallel/sharding.py``'s ``ShardedLayout``).  With one process none of
-this runs: the step is the single-card one.  ``save_state`` writes each
+(``parallel/sharding.py``'s ``ShardedLayout``, built whenever a process
+group is up, a world of one too); without a process group the step is
+the single-card one.  ``save_state`` writes each
 rank's blocks and ``load_state`` re-shards them onto the live mesh, also
 from another world size (``checkpointing.py``).
 
+Pipeline, sequence and expert parallelism (``ModelParallelPlugin(
+pp_degree=, sp_degree=, expert_parallel_degree=)``, the mesh's ``pp``,
+``sp`` and ``ep`` axes): each ``pp`` rank keeps its stage's layers and the
+loss must schedule the pipeline (``parallel/pipeline.py``'s
+``pipeline_lm_loss_fn``, marked ``_pp_aware``); an ``sp`` mesh needs a loss
+that cuts the sequence (a ring model's ``lm_loss_fn``, marked
+``_sp_aware``); the experts' leading dim is cut over ``ep`` and each rank
+computes its own (``parallel/moe.py``).  ``compile_train_step`` refuses a
+loss without the mark, as the reference does.
+
 ``log_with`` (trackers) raises ``NotImplementedError`` naming its ROADMAP
-item; so do pipeline, sequence and expert parallelism (9e-ii).
+item.
 """
 
 from __future__ import annotations
@@ -169,6 +180,12 @@ from .utils.dataclasses import (
 _UNPORTED_ARGS = {
     "log_with": "trackers: ROADMAP Queue 1 item 10 (tracking.py)",
 }
+
+
+def _process_group_up() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
 
 
 def _is_tensor(t) -> bool:
@@ -379,8 +396,11 @@ class Accelerator:
                                    dcn_axes=parse_mesh_spec(dcn_spec) if dcn_spec else {}))
             return
         axes: Dict[str, int] = {}
-        if mp is not None and mp.tp_degree > 1:
-            axes["tp"] = mp.tp_degree
+        if mp is not None:
+            for axis, degree in (("pp", mp.pp_degree), ("sp", mp.sp_degree),
+                                 ("tp", mp.tp_degree), ("ep", mp.expert_parallel_degree)):
+                if degree > 1:
+                    axes[axis] = degree
         model_par = math.prod(axes.values()) if axes else 1
         if n % model_par != 0:
             raise ValueError(f"Model-parallel degrees {axes} do not divide {n} devices")
@@ -646,7 +666,8 @@ class Accelerator:
         self._chunk_info = None
         self._offload_master = False
         plugin = self.effective_fsdp_plugin
-        layout = self._make_layout(params) if self.num_processes > 1 else None
+        # the sharded step whenever a process group is up, a world of one too
+        layout = self._make_layout(params) if _process_group_up() else None
         opt_params = None if layout is None else layout.optimizer_params(params)
         if layout is not None and plugin is not None and plugin.offload_optimizer and any(
                 e["master"] is not None for e in layout.entries.values()):
@@ -699,19 +720,23 @@ class Accelerator:
 
     def _train_state_shardings(self):
         """``(param_rule, opt_rule, shards_grads)`` over the mesh
-        (``accelerate_tpu/accelerator.py:898-985``, without its ``pp``/``ep``
-        branches): the tensor-parallel rules when the mesh has ``tp``, else
-        the FSDP/ZeRO shape rules; ``shards_grads``: ZeRO-2 and up reduce-
-        scatter gradients into the optimizer's blocks, ZeRO-1 all-reduces."""
-        from .parallel.sharding import make_opt_sharding_fn, make_param_sharding_fn
+        (``accelerate_tpu/accelerator.py:898-985``): the tensor-parallel rules
+        when the mesh has ``tp``, else the FSDP/ZeRO shape rules; under
+        ``ep`` the stacked experts' leading dim over ``ep``, composed with
+        ``fsdp`` as the strategy shards (the ``pp`` branch is the layout's
+        stage ownership, :meth:`_make_layout`); ``shards_grads``: ZeRO-2 and
+        up reduce-scatter gradients into the optimizer's blocks, ZeRO-1
+        all-reduces."""
+        from .parallel.sharding import (
+            expert_partition_spec,
+            logical_shape,
+            make_opt_sharding_fn,
+            make_param_sharding_fn,
+            to_torch_spec,
+        )
         from .parallel.tensor_parallel import make_tp_sharding_fn
 
         mesh = self.mesh
-        later = [a for a in ("pp", "sp", "ep") if mesh_lib.mesh_axis_size(mesh, a) > 1]
-        if later:
-            raise NotImplementedError(
-                f"mesh axes {later}: pipeline, sequence and expert parallelism are not "
-                "ported: ROADMAP Queue 1 item 9e-ii")
         plugin = self.effective_fsdp_plugin
         if mesh_lib.mesh_axis_size(mesh, "tp") > 1:
             param_rule = make_tp_sharding_fn(mesh, plugin)
@@ -721,6 +746,25 @@ class Accelerator:
                                       make_opt_sharding_fn(mesh, plugin))
             param_rule = lambda name, x: shape_param(x, name)  # noqa: E731
             opt_rule = lambda name, x: shape_opt(x, name)  # noqa: E731
+        ep = mesh_lib.mesh_axis_size(mesh, "ep")
+        if ep > 1:
+            fsdp = mesh_lib.mesh_axis_size(mesh, "fsdp")
+            min_size = plugin.min_weight_size if plugin is not None else 2**12
+
+            def expert_wrap(base, shards_fsdp: bool):
+                def rule(name, x):
+                    placed = base(name, x)
+                    if "experts" not in name.split("."):
+                        return placed
+                    shape = tuple(x.shape)
+                    spec = expert_partition_spec(logical_shape(name, shape), ep,
+                                                 fsdp if shards_fsdp else 1, min_size)
+                    return mesh_lib.NamedSharding(mesh, to_torch_spec(name, spec, len(shape)),
+                                                  placed.memory_kind)
+                return rule
+
+            param_rule = expert_wrap(param_rule, plugin is not None and plugin.shards_params)
+            opt_rule = expert_wrap(opt_rule, plugin is not None and plugin.shards_opt_state)
         return param_rule, opt_rule, plugin is None or plugin.shards_grads
 
     def _make_layout(self, model: nn.Module):
@@ -733,7 +777,15 @@ class Accelerator:
         from .models.transformer import Transformer
         from .parallel.sharding import ShardedLayout
 
+        from .parallel.pipeline import layer_stage
+
         param_rule, opt_rule, shards_grads = self._train_state_shardings()
+        pp = mesh_lib.mesh_axis_size(self.mesh, "pp")
+        stage_of = None
+        if pp > 1:
+            depth = len({n.split(".")[1] for n, _ in model.named_parameters()
+                         if n.startswith("layers.") and n.split(".")[1].isdigit()})
+            stage_of = lambda name: layer_stage(name, depth, pp)  # noqa: E731
         tp = mesh_lib.mesh_axis_size(self.mesh, "tp")
         tp_compute = isinstance(model, Transformer) and tp > 1
         if tp_compute:
@@ -754,8 +806,10 @@ class Accelerator:
                         if handler is not None and handler.grad_reduce_dtype
                         else self.policy.compute_dtype)
         layout = ShardedLayout(self.mesh, model, param_rule, opt_rule, shards_grads=shards_grads,
-                               tp_compute=tp_compute, reduce_dtype=reduce_dtype)
+                               tp_compute=tp_compute, reduce_dtype=reduce_dtype,
+                               stage_of=stage_of, ep_compute=isinstance(model, Transformer))
         layout.install_tp(model)
+        layout.install_moe(model)
         return layout
 
     def _powersgd_config(self) -> Optional[Dict[str, int]]:
@@ -935,6 +989,7 @@ class Accelerator:
         if max_grad_norm is None and self.state.zero_plugin is not None:
             # a DeepSpeed config's gradient_clipping stands in when none is given
             max_grad_norm = self.state.zero_plugin.gradient_clipping
+        self._check_parallel_loss(loss_fn)
         accum = self.gradient_accumulation_steps
         fp16 = self._use_loss_scaling
         chunked = self._chunk_info is not None
@@ -1192,6 +1247,29 @@ class Accelerator:
         instrumented._watchdog = watched
         return instrumented
 
+    def _check_parallel_loss(self, loss_fn: Callable) -> None:
+        """The reference's guards (``accelerate_tpu/accelerator.py:1213-1234``):
+        on a ``pp`` (``sp``) mesh the loss must schedule the pipeline (cut
+        the sequence), or those ranks would repeat each other's work."""
+        pp_size = mesh_lib.mesh_axis_size(self.mesh, "pp")
+        if pp_size > 1 and not getattr(loss_fn, "_pp_aware", False):
+            raise ValueError(
+                f"The mesh has a pp axis of size {pp_size} but this loss_fn has no "
+                "pipeline schedule: the pp devices would silently replicate compute. "
+                "Build the loss with accelerate_tpu_torch.parallel.pipeline_lm_loss_fn(model) "
+                "(or mark a custom loss that microbatch-schedules over the pp axis "
+                "with `loss_fn._pp_aware = True`), or drop pp_degree from "
+                "ModelParallelPlugin.")
+        sp_size = mesh_lib.mesh_axis_size(self.mesh, "sp")
+        if sp_size > 1 and not getattr(loss_fn, "_sp_aware", False):
+            raise ValueError(
+                f"The mesh has an sp axis of size {sp_size} but this loss_fn does not "
+                "shard the sequence: those devices would silently replicate compute. "
+                "Use a ring-attention model (TransformerConfig(attention_impl='ring') "
+                "with lm_loss_fn — parallel/ring_attention.py), mark a custom "
+                "sequence-sharded loss with `loss_fn._sp_aware = True`, or drop "
+                "sp_degree from ModelParallelPlugin.")
+
     def _maybe_remat(self, loss_fn: Callable) -> Callable:
         """``CompilationConfig.remat_policy`` over the whole loss
         (``accelerate_tpu/accelerator.py:1119-1150``): ``loss_fn`` under
@@ -1202,6 +1280,16 @@ class Accelerator:
         gradients are the loss's own."""
         name = self.compilation_config.remat_policy
         if name in (None, "none"):
+            return loss_fn
+        if getattr(loss_fn, "_pipeline_schedule", None) == "1f1b":
+            # the 1f1b loss computes its gradients in its own forward, and
+            # recomputes each stage already (accelerate_tpu/accelerator.py:1236)
+            from .logging import get_logger
+
+            get_logger(__name__).warning_once(
+                "remat_policy is ignored for schedule='1f1b' pipeline losses: "
+                "the interleaved schedule bounds activation memory itself, and "
+                "checkpointing a custom_vjp would re-run it.")
             return loss_fn
         _remat.check_policy(name)
 

@@ -21,7 +21,8 @@ lost.
 
 A state sharded across processes (``TrainState.layout``) is written the
 way the reference's orbax tree is (``accelerate_tpu/checkpointing.py:
-129-220``): each rank writes only its own blocks, to
+129-220``): each rank writes only its own blocks (a pipeline stage's
+layers only on that stage's ranks, experts cut over ``ep``), to
 ``train_state/rank_{process_index}.pt`` — for every parameter its block of
 the weights, of each optimizer-state tensor and of the buffer, each with
 its box (``[start, stop)`` per dim) in the whole tensor — and the main
@@ -321,6 +322,8 @@ def _save_sharded(state: TrainState, output_dir: str, process_index: int) -> Non
     bufs = layout.buffers(state.model)
     for name, p in state.model.named_parameters():
         e = layout.entries[name]
+        if not e["owned"]:  # another pipeline stage's: that stage writes it
+            continue
         on_master = e["master"] is not None and layout.shards_grads
         piece = {"shape": list(e["shape"]), "box": _box(layout.mesh, e["pspec"], e["shape"]),
                  "param": p.detach().cpu(),
@@ -419,8 +422,11 @@ def _load_resharded(state: TrainState, input_dir: str, load_kwargs: Optional[dic
     opt_state, groups = {}, meta["param_groups"]
     with torch.no_grad():
         for name, p in named:
-            shape = tuple(meta["pieces"][name]["shape"]) if layout is None else \
-                layout.entries[name]["shape"]
+            if layout is not None and not layout.entries[name]["owned"]:
+                continue  # another pipeline stage's parameter
+            shape = (layout.entries[name]["shape"] if layout is not None else
+                     tuple(next(t["pieces"][name]["shape"] for t in trees
+                                if name in t["pieces"])))
             full = [(0, d) for d in shape]
             if layout is None:
                 box, obox = full, full

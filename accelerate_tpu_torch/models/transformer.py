@@ -54,7 +54,13 @@ policy (:mod:`~accelerate_tpu_torch.utils.remat`); the projections tag
 their products (``_tag_proj``) for ``"proj_saveable"``.  A forward with a
 cache, the serving path, is the same with or without it.
 
-Still refused: ``attention_impl="ring"`` (ROADMAP Queue 1 item 9e-ii).
+``attention_impl="ring"`` is sequence parallelism over the mesh's ``sp``
+axis (:mod:`~accelerate_tpu_torch.parallel.ring_attention`, its layout
+``ring_attention_layout``): :func:`lm_loss_fn` runs the model on this
+rank's shard of the sequence (its positions passed on, so rotary and
+learned positions see the global ones), the labels shifted before the cut,
+and the loss is the global token mean, this rank's share summed over
+``sp``.
 """
 
 from __future__ import annotations
@@ -126,7 +132,8 @@ class TransformerConfig:
     norm_unit_offset: bool = False     # Gemma: RMSNorm scales by (1 + scale)
     embed_scale: bool = False          # Gemma: embeddings times sqrt(hidden)
     embed_norm: bool = False           # BLOOM: a norm right after the embedding
-    attention_impl: str = "xla"        # no-cache attention: "xla" | "blocked" | "pallas"
+    attention_impl: str = "xla"        # no-cache attention: "xla" | "blocked" | "pallas" | "ring"
+    ring_attention_layout: str = "contiguous"  # "contiguous" | "zigzag" (balanced causal ring)
     # fp8 products (ops/fp8.py) in the attention and MLP projections: e4m3
     # operands forward, the gradient in e5m2 ("HYBRID") or e4m3 ("E4M3");
     # set by Accelerator(mixed_precision="fp8") + prepare(model), or here
@@ -153,6 +160,9 @@ class TransformerConfig:
     def __post_init__(self):
         _remat.check_policy(self.remat_policy, per_layer=True)
         check_implementation(self.attention_impl)
+        if self.ring_attention_layout not in ("contiguous", "zigzag"):
+            raise ValueError(f"Unknown ring_attention_layout {self.ring_attention_layout!r}; "
+                             "choose 'contiguous' or 'zigzag'")
         if str(self.fp8_format).upper() not in ("HYBRID", "E4M3"):
             raise ValueError(f"fp8_format must be 'HYBRID' or 'E4M3', got {self.fp8_format!r}")
         if self.quantization is not None:
@@ -630,6 +640,7 @@ class Attention(nn.Module):
             bias = _alibi_bias(cfg.num_heads, s, x.device) if alibi else None
             out = dot_product_attention(q, k, v, causal=True,
                                         implementation=cfg.attention_impl,
+                                        ring_layout=cfg.ring_attention_layout,
                                         window=window, bias=bias)
         return _dense(self.o_proj, out.reshape(b, s, q.shape[2] * hd), dt, "proj_out")
 
@@ -811,12 +822,19 @@ def _remat_layer(layer: "DecoderLayer", x: torch.Tensor, positions: torch.Tensor
     the recompute runs in the backward, after it.  The recompute also runs
     inside a collector of its own: an MoE layer's aux term was sown by the
     forward, and must not be sown twice."""
+    from ..parallel.ring_attention import active_shard, sequence_sharded
+
     bound = {**dict(layer.named_parameters()), **dict(layer.named_buffers())}
     calls = []
+    # a ring model's recompute runs in the backward, outside lm_loss_fn's
+    # sequence-sharded block: it re-enters the forward's
+    shard = active_shard()
 
     def run(h):
         if calls:
-            with collect_router_aux():
+            with collect_router_aux(), (contextlib.nullcontext() if shard is None else
+                                        sequence_sharded(shard["mesh"], shard["layout"],
+                                                         shard["axis"])):
                 return torch.func.functional_call(layer, bound, (h, positions))
         calls.append(1)
         return layer(h, positions)
@@ -919,11 +937,21 @@ def lm_loss_fn(model: Transformer):
     so gradients flow to whatever tensors ``params`` holds.  For an MoE
     config with ``router_aux_loss_coef > 0`` the routers' Switch aux losses
     are added, times the coefficient
-    (``accelerate_tpu/models/transformer.py:980-1005``)."""
+    (``accelerate_tpu/models/transformer.py:980-1009``).
+
+    With ``attention_impl="ring"`` on a mesh whose ``sp`` axis is above 1
+    the model runs on this rank's shard of the sequence
+    (:func:`_ring_lm_loss`); the function is marked ``_sp_aware``, which
+    the Accelerator's ``sp`` guard asks for."""
     cfg = model.config
     is_moe = cfg.num_experts > 0 and cfg.router_aux_loss_coef > 0.0
+    ring = cfg.attention_impl == "ring"
 
     def loss_fn(params, batch):
+        if ring:
+            mesh = _sp_mesh()
+            if mesh is not None:
+                return _ring_lm_loss(model, params, batch, mesh)
         with collect_router_aux() as sown:
             logits = torch.func.functional_call(model, params, (batch["input_ids"],))
         loss = cross_entropy_loss(logits, shift_labels(batch))
@@ -931,4 +959,54 @@ def lm_loss_fn(model: Transformer):
             loss = loss + router_aux_loss(sown, cfg.router_aux_loss_coef)
         return loss
 
+    loss_fn._sp_aware = ring
     return loss_fn
+
+
+def _sp_mesh():
+    """The active mesh when it has an ``sp`` axis above 1, else ``None``."""
+    from ..parallel.mesh import mesh_axis_size
+    from ..state import PartialState, is_initialized
+
+    if not is_initialized():
+        return None
+    mesh = PartialState().mesh
+    return mesh if mesh_axis_size(mesh, "sp") > 1 else None
+
+
+def _ring_lm_loss(model: Transformer, params, batch, mesh) -> torch.Tensor:
+    """The ring model's loss on this rank: the labels shifted over the whole
+    sequence, then both cut to the rank's positions (``ring_attention_
+    layout``); the forward on the shard, with those positions; the token
+    NLL summed over the shard over the global count of labelled tokens;
+    that share summed over ``sp`` (identity backward, as each rank's
+    gradient is its share's).  An MoE model's aux term is the whole
+    sequence's (``parallel/moe.py`` sums its statistics over ``sp``)."""
+    from ..parallel.ring_attention import sequence_sharded, shard_positions
+    from ..parallel.sharding import all_reduce_, reduce_forward
+
+    cfg = model.config
+    n, idx, group = mesh.shape["sp"], mesh.axis_index("sp"), mesh.group("sp")
+    ids, labels = batch["input_ids"], shift_labels(batch)
+    seq = ids.shape[1]
+    layout = cfg.ring_attention_layout
+    if seq % n or (layout == "zigzag" and seq % (2 * n)):
+        raise ValueError(
+            f"attention_impl='ring' on an sp={n} mesh requires seq divisible by sp "
+            f"(by 2*sp in the zig-zag layout); got batch={ids.shape[0]}, seq={seq}. Pad "
+            "the sequence (or drop sp_degree) — falling back would silently replicate "
+            "compute across the sp devices.")
+    pos = torch.from_numpy(shard_positions(seq, n, idx, layout)).long().to(ids.device)
+    ids_l, labels_l = ids[:, pos], labels[:, pos]
+    positions = pos[None, :].expand(ids.shape[0], -1)
+    with collect_router_aux() as sown, sequence_sharded(mesh, layout):
+        logits = torch.func.functional_call(model, params, (ids_l,), {"positions": positions})
+    mask = labels_l != -100
+    count = mask.sum().float()
+    all_reduce_(count, group)
+    safe = torch.where(mask, labels_l, torch.zeros_like(labels_l)).long()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, safe[..., None])[..., 0]
+    loss = torch.where(mask, nll, torch.zeros_like(nll)).sum() / count.clamp(min=1)
+    if cfg.num_experts > 0 and cfg.router_aux_loss_coef > 0.0:
+        loss = loss + router_aux_loss(sown, cfg.router_aux_loss_coef)
+    return reduce_forward(loss, group)

@@ -36,13 +36,15 @@ _DECODE_ARGS = [_P] * 11 + [_I] * 11 + [_F, _P]
 #: out; n, s, hq, hkv, d, page, num_pages, num_p, q_bf16, kv_format,
 #: tensor_cores; scale; stream
 _PREFILL_ARGS = [_P] * 8 + [_I] * 11 + [_F, _P]
-#: flash forward: q, k, v, seg, out, lse; b, sq, sk, hq, hkv, d, seg_stride,
-#: causal, bf16; scale; stream
-_FWD_ARGS = [_P] * 6 + [_I] * 9 + [_F, _P]
-#: flash dq: q, k, v, dout, lse, delta, seg, dq; then as the forward
-_DQ_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P]
-#: flash dk/dv: q, k, v, dout, lse, delta, seg, dk, dv; then as the forward
-_DKV_ARGS = [_P] * 9 + [_I] * 9 + [_F, _P]
+#: flash forward: q, k, v, seg, kv_seg (null: the keys take seg's ids), out,
+#: lse; b, sq, sk, hq, hkv, d, seg_stride, kv_seg_stride, causal, bf16,
+#: out_f32 (bf16 inputs, f32 outputs); scale; stream
+_FWD_ARGS = [_P] * 7 + [_I] * 11 + [_F, _P]
+#: flash dq: q, k, v, dout, lse, delta, seg, kv_seg, dq; then as the forward
+_DQ_ARGS = [_P] * 9 + [_I] * 11 + [_F, _P]
+#: flash dk/dv: q, k, v, dout, lse, delta, seg, kv_seg, dk, dv; then as the
+#: forward
+_DKV_ARGS = [_P] * 10 + [_I] * 11 + [_F, _P]
 
 #: library name -> its CUDA source, and the C entry points it exports with
 #: each one's argument types

@@ -15,9 +15,23 @@ head_dim]`` (BSHD) tensors; ``k``/``v`` may carry fewer heads than ``q``
 * ``"pallas"`` — :func:`~accelerate_tpu_torch.ops.flash_attention.flash_attention`,
   the hand-written CUDA kernels K3–K5 (their plain versions on the CPU).
 
-``window`` or ``bias`` with ``"blocked"`` or ``"pallas"`` raises
-``NotImplementedError``, as in the JAX package.  ``"ring"`` is not ported
-and raises ``NotImplementedError`` naming its ROADMAP item.
+* ``"ring"`` — sequence parallelism over the active mesh's ``sp`` axis
+  (:mod:`~accelerate_tpu_torch.parallel.ring_attention`: K3 on each chunk
+  pair, K4/K5 in its backward).  Inside
+  :func:`~accelerate_tpu_torch.parallel.ring_attention.sequence_sharded`
+  (``lm_loss_fn`` of a ring model) q, k and v are this rank's shard and the
+  ring runs.  Outside such a block the whole sequence is on every rank: on
+  an ``sp`` mesh that splits it, :func:`~accelerate_tpu_torch.parallel.
+  ring_attention.ring_attention_sharded` cuts it over the ranks in
+  ``ring_layout``, as the reference does; a sequence that does not split
+  over ``sp`` raises; a batch that does not split over the data axes
+  (batch 1) warns once and computes unsharded.  A ring of one rank — no
+  ``sp`` axis above 1, or that batch-1 case — is its diagonal pair: K3–K5
+  (:func:`~accelerate_tpu_torch.ops.flash_attention.flash_attention`,
+  their plain versions on the CPU).  No active mesh raises.
+
+``window`` or ``bias`` with ``"blocked"``, ``"pallas"`` or ``"ring"`` raises
+``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,22 +42,12 @@ import torch
 
 from .flash_attention import DEFAULT_MASK_VALUE, flash_attention
 
-#: implementations of the JAX package not ported yet -> their ROADMAP item
-_NOT_PORTED = {
-    "ring": "ROADMAP Queue 1 item 9e-ii (parallel/ring_attention.py)",
-}
-
-
 def check_implementation(implementation: str) -> None:
-    """Raise unless the port runs ``implementation``: ``NotImplementedError``
-    naming its ROADMAP item for one of the JAX package's other
-    implementations, ``ValueError`` for an unknown name."""
-    if implementation in _NOT_PORTED:
-        raise NotImplementedError(f"attention implementation {implementation!r} is not "
-                                  f"ported: {_NOT_PORTED[implementation]}")
-    if implementation not in ("xla", "blocked", "pallas"):
+    """Raise ``ValueError`` for an implementation the JAX package does not
+    have."""
+    if implementation not in ("xla", "blocked", "pallas", "ring"):
         raise ValueError(f"unknown attention implementation {implementation!r}; "
-                         "choose 'xla', 'blocked' or 'pallas'")
+                         "choose 'xla', 'blocked', 'pallas' or 'ring'")
 
 
 def causal_mask(q_len: int, kv_len: int, dtype=torch.float32,
@@ -130,9 +134,11 @@ def blocked_causal_attention(q, k, v, *, scale: Optional[float] = None, segment_
 
 def dot_product_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
                           implementation: str = "xla", segment_ids=None,
-                          window: Optional[int] = None, bias=None) -> torch.Tensor:
-    """BSHD attention through ``implementation`` (``"xla"``, ``"blocked"`` or
-    ``"pallas"``).  ``window`` (sliding-window attention: query ``i`` sees
+                          ring_layout: str = "contiguous", window: Optional[int] = None,
+                          bias=None) -> torch.Tensor:
+    """BSHD attention through ``implementation`` (``"xla"``, ``"blocked"``,
+    ``"pallas"`` or ``"ring"``, the last cutting a whole sequence in
+    ``ring_layout``).  ``window`` (sliding-window attention: query ``i`` sees
     keys ``i - window < j <= i``) and ``bias`` (additive, broadcastable to
     ``[B, H, Q, K]``) are the ``"xla"`` arm's, with the JAX refusals."""
     if window is not None:
@@ -154,5 +160,50 @@ def dot_product_attention(q, k, v, *, causal: bool = True, scale: Optional[float
                              "skipping the masked upper triangle); use 'xla' for "
                              "bidirectional attention.")
         return blocked_causal_attention(q, k, v, scale=scale, segment_ids=segment_ids)
+    if implementation == "ring":
+        return _ring(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+                     layout=ring_layout)
     return xla_attention(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
                          window=window, bias=bias)
+
+
+def _ring(q, k, v, *, causal, scale, segment_ids, layout):
+    """The ring arm (``accelerate_tpu/ops/attention.py:88-140``)."""
+    from ..parallel.mesh import mesh_axis_size, sp_shardable
+    from ..parallel.ring_attention import active_shard, ring_attention_sharded, shard_attention
+    from ..state import PartialState, is_initialized
+
+    shard = active_shard()
+    if shard is not None:
+        return shard_attention(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+                               shard=shard)
+    if not is_initialized():
+        raise ValueError(
+            "attention_impl='ring' needs the active mesh: construct "
+            "Accelerator/PartialState (with an sp-axis mesh) before the "
+            "forward, or call parallel.ring_attention_sharded(q, k, v, mesh) "
+            "directly with an explicit mesh.")
+    mesh = PartialState().mesh
+    if sp_shardable(mesh, q.shape[0], q.shape[1]):
+        return ring_attention_sharded(q, k, v, mesh, causal=causal, scale=scale,
+                                      segment_ids=segment_ids, layout=layout)
+    sp = mesh_axis_size(mesh, "sp")
+    if sp > 1 and (q.shape[1] % sp != 0 or q.shape[0] > 1):
+        raise ValueError(
+            f"attention_impl='ring' on an sp={sp} mesh requires seq "
+            f"divisible by sp and batch divisible by the data axes; got "
+            f"batch={q.shape[0]}, seq={q.shape[1]}. Pad the sequence (or "
+            "drop sp_degree) — falling back would silently replicate "
+            "compute across the sp devices.")
+    if sp > 1:
+        from ..logging import get_logger
+
+        get_logger(__name__).warning_once(
+            f"attention_impl='ring' on an sp={sp} mesh got a batch-1 forward "
+            "that cannot shard over the data axes; computing UNSHARDED "
+            "attention (replicated across the sp devices). Harmless for "
+            "model.init shape probes — but if this is a real batch-1 "
+            "eval/generation run, the sp devices are doing redundant work: "
+            "use a batch divisible by the data axes or drop sp_degree.")
+    # a ring of one: the diagonal pair
+    return flash_attention(q, k, v, causal=causal, scale=scale, segment_ids=segment_ids)

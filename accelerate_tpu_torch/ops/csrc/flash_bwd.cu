@@ -103,7 +103,7 @@ __device__ __forceinline__ void probs_and_ds(float (&s)[4][4], float (&dp)[4][4]
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     key[j] = k0 + tx + 16 * j;
-    segk[j] = (seg && key[j] < sh.sk) ? seg[(long long)b * sh.seg_stride + key[j]] : 0;
+    segk[j] = (seg && key[j] < sh.sk) ? sh.kseg[(long long)b * sh.kseg_stride + key[j]] : 0;
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -551,7 +551,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     key[e] = k0 + 16 * w + g + 8 * e;
-    segk[e] = (seg && key[e] < sh.sk) ? seg[(long long)b * sh.seg_stride + key[e]] : 0;
+    segk[e] = (seg && key[e] < sh.sk) ? sh.kseg[(long long)b * sh.kseg_stride + key[e]] : 0;
   }
   float dk_acc[NC / 2], dv_acc[NC / 2], s[32], dp[32];
 #pragma unroll
@@ -622,6 +622,18 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int e = 0; e < 2; ++e) {
     const long long off = kv_offset(b, key[e], h, sh, D) + col0;
     if (off < col0) continue;
+    if (sh.out_f32) {
+      float* dk32 = reinterpret_cast<float*>(dk);
+      float* dv32 = reinterpret_cast<float*>(dv);
+#pragma unroll
+      for (int i = 0; i < (kSplit ? NC : D) / 8; ++i) {
+        *reinterpret_cast<float2*>(dk32 + off + 8 * i + c2) =
+            make_float2(dk_acc[4 * i + 2 * e], dk_acc[4 * i + 2 * e + 1]);
+        *reinterpret_cast<float2*>(dv32 + off + 8 * i + c2) =
+            make_float2(dv_acc[4 * i + 2 * e], dv_acc[4 * i + 2 * e + 1]);
+      }
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < (kSplit ? NC : D) / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * i + c2) =
@@ -784,7 +796,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             float p;
             if (masked) {
               const int key = k0 + 8 * i + c2 + j;
-              const int segk = (seg && key < sh.sk) ? seg[(long long)b * sh.seg_stride + key] : 0;
+              const int segk = (seg && key < sh.sk) ? sh.kseg[(long long)b * sh.kseg_stride + key] : 0;
               float x = s[idx] * scale;
               if (key >= sh.sk) {
                 x = -INFINITY;  // past the sequence: not a key at all
@@ -815,6 +827,14 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int e = 0; e < 2; ++e) {
     const long long off = fr.offset(b, 16 * w + g + 8 * e, D);
     if (off < 0) continue;
+    if (sh.out_f32) {
+      float* dq32 = reinterpret_cast<float*>(dq);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(dq32 + off + 8 * i + c2) =
+            make_float2(acc[4 * i + 2 * e], acc[4 * i + 2 * e + 1]);
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(dq + off + 8 * i + c2) =
@@ -900,20 +920,26 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                          static_cast<cudaStream_t>(stream))
 
 extern "C" int atpu_flash_dq(const void* q, const void* k, const void* v, const void* dout,
-                             const float* lse, const float* delta, const int* seg, void* dq,
-                             int b, int sq, int sk, int hq, int hkv, int d, int seg_stride,
-                             int causal, int bf16, float scale, void* stream) {
+                             const float* lse, const float* delta, const int* seg,
+                             const int* kseg, void* dq, int b, int sq, int sk, int hq, int hkv,
+                             int d, int seg_stride, int kseg_stride, int causal, int bf16,
+                             int out_f32, float scale, void* stream) {
   if (!atpu::flash_shape_ok(b, sq, sk, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
-  const atpu::FlashShape sh = atpu::flash_shape(sq, sk, hq, hkv, seg_stride, causal);
+  atpu::FlashShape sh = atpu::flash_shape(sq, sk, hq, hkv, seg_stride, causal, seg, kseg,
+                                          kseg_stride);
+  sh.out_f32 = out_f32;
   ATPU_FLASH_DISPATCH(bf16, d, ATPU_LAUNCH_DQ);
 }
 
 extern "C" int atpu_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-                              const float* lse, const float* delta, const int* seg, void* dk,
-                              void* dv, int b, int sq, int sk, int hq, int hkv, int d,
-                              int seg_stride, int causal, int bf16, float scale, void* stream) {
+                              const float* lse, const float* delta, const int* seg,
+                              const int* kseg, void* dk, void* dv, int b, int sq, int sk, int hq,
+                              int hkv, int d, int seg_stride, int kseg_stride, int causal,
+                              int bf16, int out_f32, float scale, void* stream) {
   if (!atpu::flash_shape_ok(b, sq, sk, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
-  const atpu::FlashShape sh = atpu::flash_shape(sq, sk, hq, hkv, seg_stride, causal);
+  atpu::FlashShape sh = atpu::flash_shape(sq, sk, hq, hkv, seg_stride, causal, seg, kseg,
+                                          kseg_stride);
+  sh.out_f32 = out_f32;
   ATPU_FLASH_DISPATCH(bf16, d, ATPU_LAUNCH_DKV);
 }
 

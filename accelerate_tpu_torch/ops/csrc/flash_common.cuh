@@ -10,8 +10,14 @@
 //   q, out, dout    [B, Sq, Hq, D]   f32 or bf16, contiguous
 //   k, v            [B, Sk, Hkv, D]  same dtype, contiguous
 //   lse, delta      [B, Hq, Sq]      f32 (no lane broadcast on the card)
-//   segment ids     [B, seg_stride]  int32 or null; query i has id seg[b, i],
-//                                    key j has id seg[b, j]
+//   segment ids     [B, seg_stride]  int32 or null; query i has id seg[b, i]
+//   kv segment ids  [B, kseg_stride] int32 or null; key j has id kseg[b, j],
+//                                    seg[b, j] when null (one tensor for both:
+//                                    a ring attention chunk's keys carry ids
+//                                    of their own)
+//   out_f32                          bf16 inputs only: out, dq, dk and dv are
+//                                    written in f32 (a ring attention pair's,
+//                                    summed across pairs before one rounding)
 //
 // Tiles.  A CTA of 256 threads works on a tile of kRows = 64 folded rows and
 // kKeys = 64 keys.  Folded row r holds query q0 + r / rep of query head
@@ -53,6 +59,9 @@ struct FlashShape {
   int parts;  // parts of a group, each of at most kRows heads
   int rep;    // query heads of a part: group / parts
   int block_q, seg_stride, causal;
+  const int* kseg;  // the keys' segment ids: the kv tensor, else the queries'
+  int kseg_stride;
+  int out_f32;      // the tensor-core arms write their outputs in f32, not bf16
 };
 
 __device__ __forceinline__ float flash_f32(float x) { return x; }
@@ -227,7 +236,8 @@ cudaError_t flash_allow_smem(K kernel, size_t bytes) {
 }
 
 // Host-side geometry shared by the three launches.
-inline FlashShape flash_shape(int sq, int sk, int hq, int hkv, int seg_stride, int causal) {
+inline FlashShape flash_shape(int sq, int sk, int hq, int hkv, int seg_stride, int causal,
+                              const int* seg, const int* kseg, int kseg_stride) {
   FlashShape sh;
   sh.sq = sq;
   sh.sk = sk;
@@ -241,6 +251,9 @@ inline FlashShape flash_shape(int sq, int sk, int hq, int hkv, int seg_stride, i
   if (sh.block_q > sq) sh.block_q = sq;
   sh.seg_stride = seg_stride;
   sh.causal = causal;
+  sh.kseg = kseg ? kseg : seg;
+  sh.kseg_stride = kseg ? kseg_stride : seg_stride;
+  sh.out_f32 = 0;
   return sh;
 }
 

@@ -130,7 +130,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       key[j] = k0 + tx + 16 * j;
-      segk[j] = (seg && key[j] < sh.sk) ? seg[(long long)b * sh.seg_stride + key[j]] : 0;
+      segk[j] = (seg && key[j] < sh.sk) ? sh.kseg[(long long)b * sh.kseg_stride + key[j]] : 0;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -337,7 +337,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int key = k0 + 8 * i + c2 + j;
-            const int segk = (seg && key < sh.sk) ? seg[(long long)b * sh.seg_stride + key] : 0;
+            const int segk = (seg && key < sh.sk) ? sh.kseg[(long long)b * sh.kseg_stride + key] : 0;
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               float x = s[4 * i + 2 * e + j] * scale;
@@ -414,10 +414,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (off < 0) continue;
     const float l_safe = l[e] == 0.f ? 1.f : l[e];
     const float inv = 1.f / l_safe;
+    if (sh.out_f32) {
+      float* out32 = reinterpret_cast<float*>(out);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * i + c2) =
-          __floats2bfloat162_rn(o[4 * i + 2 * e] * inv, o[4 * i + 2 * e + 1] * inv);
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(out32 + off + 8 * i + c2) =
+            make_float2(o[4 * i + 2 * e] * inv, o[4 * i + 2 * e + 1] * inv);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * i + c2) =
+            __floats2bfloat162_rn(o[4 * i + 2 * e] * inv, o[4 * i + 2 * e + 1] * inv);
+    }
     if (c2 == 0) lse[fr.stat(b, r)] = m[e] + logf(l_safe);
   }
 }
@@ -457,11 +465,13 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void
   atpu::launch_fwd<T, D>(q, k, v, seg, out, lse, b, sh, scale, static_cast<cudaStream_t>(stream))
 
 extern "C" int atpu_flash_fwd(const void* q, const void* k, const void* v, const int* seg,
-                              void* out, float* lse, int b, int sq, int sk, int hq, int hkv,
-                              int d, int seg_stride, int causal, int bf16, float scale,
-                              void* stream) {
+                              const int* kseg, void* out, float* lse, int b, int sq, int sk,
+                              int hq, int hkv, int d, int seg_stride, int kseg_stride,
+                              int causal, int bf16, int out_f32, float scale, void* stream) {
   if (!atpu::flash_shape_ok(b, sq, sk, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
-  const atpu::FlashShape sh = atpu::flash_shape(sq, sk, hq, hkv, seg_stride, causal);
+  atpu::FlashShape sh = atpu::flash_shape(sq, sk, hq, hkv, seg_stride, causal, seg, kseg,
+                                          kseg_stride);
+  sh.out_f32 = out_f32;
   ATPU_FLASH_DISPATCH(bf16, d, ATPU_LAUNCH_FWD);
 }
 

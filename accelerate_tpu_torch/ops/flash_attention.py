@@ -26,7 +26,11 @@ raised by one where the kernel is launched and nowhere else.
 Layout, as the JAX function's: ``q [B, Sq, Hq, D]``, ``k``/``v [B, Sk, Hkv,
 D]`` (BSHD, ``Hq`` a multiple of ``Hkv``), ``lse``/``delta [B, Hq, Sq]`` f32,
 ``segment_ids [B, S]`` integer (tokens attend only within equal ids,
-composed with the causal mask).  The plain versions repeat the kernels'
+composed with the causal mask); ``kv_segment_ids [B, Sk]``, when given,
+are the keys' ids, and ``segment_ids`` then the queries' only (a ring
+attention chunk pairs queries and keys of different shards).  ``out_dtype``
+(f32 for bf16 inputs) has a kernel write its outputs unrounded: a ring
+attention sums each pair's before its one rounding.  The plain versions repeat the kernels'
 arithmetic: f32 scores from the input-dtype operands times ``scale``, the
 finite ``DEFAULT_MASK_VALUE``, and the roundings of p and ds to the operand
 dtype before each product.
@@ -55,7 +59,7 @@ def _scale(scale: Optional[float], d: int) -> float:
 
 
 # ------------------------------------------------------------------ plain math
-def _scores(q, k, causal: bool, scale: float, segment_ids):
+def _scores(q, k, causal: bool, scale: float, segment_ids, kv_segment_ids=None):
     """Masked f32 scores ``[B, Hkv, rep, Sq, Sk]`` (the GQA group folded)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -65,8 +69,8 @@ def _scores(q, k, causal: bool, scale: float, segment_ids):
     if causal:
         mask = mask & torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
     if segment_ids is not None:
-        ids = segment_ids
-        mask = mask & (ids[:, :sq, None] == ids[:, None, :sk])
+        kv_ids = segment_ids if kv_segment_ids is None else kv_segment_ids
+        mask = mask & (segment_ids[:, :sq, None] == kv_ids[:, None, :sk])
     return torch.where(mask[:, None, None], s, DEFAULT_MASK_VALUE)
 
 
@@ -77,17 +81,20 @@ def _fold_stat(stat, hkv):
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-                              segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K3: ``(out [B, Sq, Hq, D] in q.dtype, lse [B, Hq, Sq] f32)``."""
+                              segment_ids=None, kv_segment_ids=None, out_dtype=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3: ``(out [B, Sq, Hq, D] in out_dtype (q.dtype by
+    default), lse [B, Hq, Sq] f32)``.  A row that sees no key gets the mean
+    of ``v`` and ``lse = mask value + log(Sk)``, as the kernel does."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
-    s = _scores(q, k, causal, _scale(scale, d), segment_ids)
+    s = _scores(q, k, causal, _scale(scale, d), segment_ids, kv_segment_ids)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     acc = torch.einsum("bgrqk,bkgd->bgrqd", p.to(v.dtype).float(), v.float())
-    out = (acc / l_safe).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    out = (acc / l_safe).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(out_dtype or q.dtype)
     lse = (m + torch.log(l_safe)).reshape(b, hq, sq)
     return out, lse
 
@@ -98,11 +105,11 @@ def flash_delta(out, dout) -> torch.Tensor:
     return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids):
+def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids, kv_segment_ids):
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     scale = _scale(scale, d)
-    s = _scores(q, k, causal, scale, segment_ids)
+    s = _scores(q, k, causal, scale, segment_ids, kv_segment_ids)
     p = torch.exp(s - _fold_stat(lse, hkv))
     dog = dout.float().reshape(b, sq, hkv, hq // hkv, d)
     dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
@@ -111,27 +118,31 @@ def _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids):
 
 
 def flash_dq_reference(q, k, v, dout, lse, delta, *, causal: bool = True,
-                       scale: Optional[float] = None, segment_ids=None) -> torch.Tensor:
-    """Plain version of K4: dQ ``[B, Sq, Hq, D]`` in q.dtype."""
+                       scale: Optional[float] = None, segment_ids=None,
+                       kv_segment_ids=None, out_dtype=None) -> torch.Tensor:
+    """Plain version of K4: dQ ``[B, Sq, Hq, D]`` in out_dtype (q.dtype by
+    default)."""
     b, sq, hq, d = q.shape
-    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids)
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids,
+                          kv_segment_ids)
     dq = torch.einsum("bgrqk,bkgd->bqgrd", ds.to(k.dtype).float(), k.float())
-    return dq.reshape(b, sq, hq, d).to(q.dtype)
+    return dq.reshape(b, sq, hq, d).to(out_dtype or q.dtype)
 
 
 def flash_dkv_reference(q, k, v, dout, lse, delta, *, causal: bool = True,
-                        scale: Optional[float] = None,
-                        segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        scale: Optional[float] = None, segment_ids=None,
+                        kv_segment_ids=None, out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K5: ``(dK, dV)`` ``[B, Sk, Hkv, D]``, summed over the
-    GQA group, in k's and v's dtypes."""
+    GQA group, in out_dtype (k's and v's dtypes by default)."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
-    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids)
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal, scale, segment_ids,
+                          kv_segment_ids)
     qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
     dog = dout.float().reshape(b, sq, hkv, hq // hkv, d)
     dk = torch.einsum("bgrqk,bqgrd->bkgd", ds.to(q.dtype).float(), qg)
     dv = torch.einsum("bgrqk,bqgrd->bkgd", p.to(dout.dtype).float(), dog)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -145,9 +156,9 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, *, causal: bool = Tru
 
 
 # -------------------------------------------------------------------- kernels
-def _check(what: str, q, k, v, segment_ids, extra=()):
+def _check(what: str, q, k, v, segment_ids, extra=(), kv_segment_ids=None):
     """Validate the operands of a flash kernel; return the launch ints
-    ``(b, sq, sk, hq, hkv, d, seg_stride)``."""
+    ``(b, sq, sk, hq, hkv, d, seg_stride, kv_seg_stride)``."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -168,12 +179,24 @@ def _check(what: str, q, k, v, segment_ids, extra=()):
                          "supported (all f32 or all bf16)")
     seg_stride = 0
     if segment_ids is not None:
+        need = sq if kv_segment_ids is not None else max(sq, sk)
         if segment_ids.dtype != torch.int32 or segment_ids.dim() != 2 \
-                or segment_ids.shape[0] != b or segment_ids.shape[1] < max(sq, sk):
+                or segment_ids.shape[0] != b or segment_ids.shape[1] < need:
             raise ValueError(f"{what}: segment_ids must be int32 [B, >= max(Sq, Sk)], got "
                              f"{segment_ids.dtype} {tuple(segment_ids.shape)}")
         seg_stride = segment_ids.shape[1]
-    named = (("q", q), ("k", k), ("v", v), ("segment_ids", segment_ids)) + tuple(extra)
+    kv_seg_stride = 0
+    if kv_segment_ids is not None:
+        if segment_ids is None:
+            raise ValueError(f"{what}: kv_segment_ids needs segment_ids (the queries' ids)")
+        if kv_segment_ids.dtype != torch.int32 or kv_segment_ids.dim() != 2 \
+                or kv_segment_ids.shape[0] != b or kv_segment_ids.shape[1] < sk \
+                or segment_ids.shape[1] < sq:
+            raise ValueError(f"{what}: kv_segment_ids must be int32 [B, >= Sk], got "
+                             f"{kv_segment_ids.dtype} {tuple(kv_segment_ids.shape)}")
+        kv_seg_stride = kv_segment_ids.shape[1]
+    named = (("q", q), ("k", k), ("v", v), ("segment_ids", segment_ids),
+             ("kv_segment_ids", kv_segment_ids)) + tuple(extra)
     for name, t in named:
         if t is None:
             continue
@@ -183,7 +206,7 @@ def _check(what: str, q, k, v, segment_ids, extra=()):
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    return b, sq, sk, hq, hkv, d, seg_stride
+    return b, sq, sk, hq, hkv, d, seg_stride, kv_seg_stride
 
 
 def _check_grad_operands(what, q, dout, lse, delta):
@@ -201,70 +224,95 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _out_f32(what: str, q, out_dtype) -> bool:
+    """Whether a kernel writes f32 outputs for ``q``'s dtype: ``out_dtype``
+    None or the input dtype writes that dtype; f32 outputs of bf16 inputs
+    come from the tensor-core arms' f32 epilogue."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return False
+    if out_dtype == torch.float32 and q.dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"{what}: out_dtype {out_dtype} for {q.dtype} inputs: only f32 outputs "
+                     "of bf16 inputs")
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-              segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              segment_ids=None, kv_segment_ids=None,
+              out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward (kernel K3): ``(out, lse)``.
 
     A CPU ``q`` takes :func:`flash_attention_reference`; a CUDA ``q``
     launches ``csrc/flash_fwd.cu`` or raises."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,
-                                         segment_ids=segment_ids)
-    b, sq, sk, hq, hkv, d, seg_stride = _check("flash_fwd", q, k, v, segment_ids)
-    out = torch.empty_like(q)
+                                         segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+                                         out_dtype=out_dtype)
+    b, sq, sk, hq, hkv, d, seg_stride, kv_stride = _check(
+        "flash_fwd", q, k, v, segment_ids, kv_segment_ids=kv_segment_ids)
+    f32 = _out_f32("flash_fwd", q, out_dtype)
+    out = torch.empty_like(q, dtype=torch.float32 if f32 else q.dtype)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     _build.launch("flash_fwd", "atpu_flash_fwd", "flash_fwd",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segment_ids),
-                  out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d, seg_stride,
-                  int(causal), int(q.dtype == torch.bfloat16), _scale(scale, d), _stream(q))
+                  _ptr(kv_segment_ids), out.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
+                  seg_stride, kv_stride, int(causal), int(q.dtype == torch.bfloat16), int(f32),
+                  _scale(scale, d), _stream(q))
     flash_fwd.launches += 1
     return out, lse
 
 
 def flash_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
-             scale: Optional[float] = None, segment_ids=None) -> torch.Tensor:
+             scale: Optional[float] = None, segment_ids=None,
+             kv_segment_ids=None, out_dtype=None) -> torch.Tensor:
     """dQ of flash attention (kernel K4).  A CPU ``q`` takes
     :func:`flash_dq_reference`; a CUDA ``q`` launches ``csrc/flash_bwd.cu``
     (``atpu_flash_dq``) or raises."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, dout, lse, delta, causal=causal, scale=scale,
-                                  segment_ids=segment_ids)
-    b, sq, sk, hq, hkv, d, seg_stride = _check(
-        "flash_dq", q, k, v, segment_ids, (("dout", dout), ("lse", lse), ("delta", delta)))
+                                  segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+                                  out_dtype=out_dtype)
+    b, sq, sk, hq, hkv, d, seg_stride, kv_stride = _check(
+        "flash_dq", q, k, v, segment_ids, (("dout", dout), ("lse", lse), ("delta", delta)),
+        kv_segment_ids=kv_segment_ids)
     _check_grad_operands("flash_dq", q, dout, lse, delta)
-    dq = torch.empty_like(q)
+    f32 = _out_f32("flash_dq", q, out_dtype)
+    dq = torch.empty_like(q, dtype=torch.float32 if f32 else q.dtype)
     _build.launch("flash_bwd", "atpu_flash_dq", "flash_dq",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids), dq.data_ptr(),
-                  b, sq, sk, hq, hkv, d, seg_stride, int(causal),
-                  int(q.dtype == torch.bfloat16), _scale(scale, d), _stream(q))
+                  lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids), _ptr(kv_segment_ids),
+                  dq.data_ptr(), b, sq, sk, hq, hkv, d, seg_stride, kv_stride, int(causal),
+                  int(q.dtype == torch.bfloat16), int(f32), _scale(scale, d), _stream(q))
     flash_dq.launches += 1
     return dq
 
 
 def flash_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
-              scale: Optional[float] = None,
-              segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              scale: Optional[float] = None, segment_ids=None,
+              kv_segment_ids=None, out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK and dV of flash attention (kernel K5).  A CPU ``q`` takes
     :func:`flash_dkv_reference`; a CUDA ``q`` launches ``csrc/flash_bwd.cu``
     (``atpu_flash_dkv``) or raises."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, dout, lse, delta, causal=causal, scale=scale,
-                                   segment_ids=segment_ids)
-    b, sq, sk, hq, hkv, d, seg_stride = _check(
-        "flash_dkv", q, k, v, segment_ids, (("dout", dout), ("lse", lse), ("delta", delta)))
+                                   segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+                                   out_dtype=out_dtype)
+    b, sq, sk, hq, hkv, d, seg_stride, kv_stride = _check(
+        "flash_dkv", q, k, v, segment_ids, (("dout", dout), ("lse", lse), ("delta", delta)),
+        kv_segment_ids=kv_segment_ids)
     _check_grad_operands("flash_dkv", q, dout, lse, delta)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    f32 = _out_f32("flash_dkv", q, out_dtype)
+    dk = torch.empty_like(k, dtype=torch.float32 if f32 else k.dtype)
+    dv = torch.empty_like(v, dtype=torch.float32 if f32 else v.dtype)
     _build.launch("flash_bwd", "atpu_flash_dkv", "flash_dkv",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids), dk.data_ptr(),
-                  dv.data_ptr(), b, sq, sk, hq, hkv, d, seg_stride, int(causal),
-                  int(q.dtype == torch.bfloat16), _scale(scale, d), _stream(q))
+                  lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids), _ptr(kv_segment_ids),
+                  dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d, seg_stride, kv_stride,
+                  int(causal), int(q.dtype == torch.bfloat16), int(f32), _scale(scale, d),
+                  _stream(q))
     flash_dkv.launches += 1
     return dk, dv
 

@@ -15,7 +15,14 @@ holds.
 
 ``shard_map`` has no counterpart: the port's step is eager, each process
 runs its own shard of the program, and the collectives are explicit
-(``utils/operations.py``, ``parallel/sharding.py``).
+(``utils/operations.py``, ``parallel/sharding.py``).  :func:`ppermute` is
+``lax.ppermute`` over one axis's group: every rank sends its tensors
+``shift`` places along the group and receives its predecessor's.  It is an
+``all_to_all_single`` whose only non-empty split is the one to the
+receiver: gloo writes a card tensor's device pointer to its socket on a
+point-to-point send (its TCP pair fails with "Bad address"), while every
+backend takes that collective on card tensors, so one call serves both.
+:func:`hop` is its differentiable form, whose backward is the reverse hop.
 """
 
 from __future__ import annotations
@@ -291,10 +298,64 @@ def mesh_axis_size(mesh: Mesh, axis: str) -> int:
     return mesh.shape[axis] if axis in mesh.axis_names else 1
 
 
+def ppermute(tensors: Sequence[torch.Tensor], group, shift: int = 1) -> List[torch.Tensor]:
+    """Each tensor sent ``shift`` ranks ahead in ``group`` (wrapping); the
+    returned tensors are the ones that arrived from ``shift`` ranks behind.
+    Every rank of the group calls it with tensors of the same shapes and
+    dtypes.  ``group`` ``None`` (a one-rank axis) returns the tensors."""
+    if group is None:
+        return list(tensors)
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    if shift % n == 0:
+        return list(tensors)
+    dst, src = (me + shift) % n, (me - shift) % n
+    out = []
+    for x in tensors:
+        x = x.contiguous()
+        got = torch.empty_like(x)
+        numel = x.numel()
+        dist.all_to_all_single(
+            got.view(-1), x.view(-1),
+            output_split_sizes=[numel if r == src else 0 for r in range(n)],
+            input_split_sizes=[numel if r == dst else 0 for r in range(n)], group=group)
+        out.append(got)
+    return out
+
+
+class _Hop(torch.autograd.Function):
+    """:func:`ppermute` forward, the reverse hop backward.  ``after`` ties
+    the call to an earlier hop's output, so that every rank runs the hops'
+    backwards in the reverse order of their forwards (the collectives must
+    meet), whether or not a rank used what it received."""
+
+    @staticmethod
+    def forward(ctx, group, shift, after, *xs):
+        ctx.group, ctx.shift = group, shift
+        ctx.after = None if after is None else (after.shape, after.dtype, after.device)
+        return tuple(ppermute(xs, group, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros_like(g) if g is None else g for g in grads]
+        back = ppermute(grads, ctx.group, -ctx.shift)
+        after = None if ctx.after is None else torch.zeros(
+            ctx.after[0], dtype=ctx.after[1], device=ctx.after[2])
+        return (None, None, after, *back)
+
+
+def hop(tensors: Sequence[torch.Tensor], group, shift: int = 1,
+        after: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """:func:`ppermute`, differentiable: the gradients travel ``-shift``.
+    ``after`` (an earlier hop's output) orders the backward."""
+    if group is None:
+        return list(tensors)
+    return list(_Hop.apply(group, shift, after, *tensors))
+
+
 def sp_shardable(mesh: Mesh, batch: int, seq: int) -> bool:
     """Whether a ``[batch, seq, ...]`` activation can split batch over the
-    data axes and seq over ``sp`` (the reference's gate for ring attention,
-    which is ROADMAP Queue 1 item 9e-ii here)."""
+    data axes and seq over ``sp`` (the reference's gate for ring attention)."""
     if mesh_axis_size(mesh, "sp") <= 1:
         return False
     data_size = math.prod(mesh.shape[a] for a in present_data_axes(mesh)) or 1

@@ -9,8 +9,26 @@ a CUDA graph.  The router runs in f32 and the Switch load-balancing loss is
 collected for the loss function (:func:`collect_router_aux`, the reference's
 ``sow``).
 
-Expert parallelism (``ep`` > 1) needs a device mesh: :func:`shard_moe_params`
-raises for it (ROADMAP Queue 1 item 9e-ii).
+Expert parallelism over a mesh's ``ep`` axis: ``ep`` is not a data axis,
+so every ``ep`` rank routes the same tokens; the experts' leading dim is
+cut over ``ep`` (:func:`~accelerate_tpu_torch.parallel.sharding.
+expert_partition_spec`, composed with ``fsdp``; :func:`shard_moe_params`
+places a name -> tensor dict so, and the Accelerator its train state).  A
+layer marked with its ``ep`` block (``_atpu_ep``, set by the Accelerator's
+``ShardedLayout``) computes only its own experts' ``[E/ep, C, H]`` buffers
+from the same dispatch, and the combine is summed over ``ep``: forward an
+all-reduce, backward the identity, since every ``ep`` rank already holds the
+whole output's gradient.  The expert input and the combine weights take the
+converse (identity forward, the sum over ``ep`` backward), so each rank's
+gradient of the tokens and of the router is the whole one and the replicated
+parameters stay equal across ``ep`` without a gradient reduction.
+
+When the tokens are cut over processes — the data axes, and ``sp`` under
+ring attention (a :func:`~accelerate_tpu_torch.parallel.ring_attention.
+sequence_sharded` forward) — the Switch statistics are the whole batch's,
+as the reference's global arrays give them: the routed fractions and mean
+probabilities are summed over those ranks (``_global_aux``).  Capacity is
+decided on each rank's tokens (a token past it is dropped there).
 """
 
 from __future__ import annotations
@@ -34,7 +52,22 @@ def top_k_dispatch(router_probs: torch.Tensor, num_experts_per_tok: int, capacit
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GShard top-k routing -> dense ``dispatch [N, E, C]`` (0/1), ``combine
     [N, E, C]`` (gate-weighted) and the Switch aux loss ``E * sum_e f_e *
-    P_e`` over the top-1 assignments (``accelerate_tpu/parallel/moe.py:26-63``).
+    P_e`` over the top-1 assignments (``accelerate_tpu/parallel/moe.py:26-63``)."""
+    dispatch, combine, routed, mass = _route(router_probs, num_experts_per_tok, capacity)
+    return dispatch, combine, switch_loss(routed, mass, router_probs.shape[0])
+
+
+def switch_loss(routed: torch.Tensor, mass: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """The Switch load-balancing loss ``E * sum_e f_e * P_e`` of ``n_tokens``
+    tokens from their top-1 counts ``routed [E]`` and probability sums
+    ``mass [E]``; means as sum / N, the reference's division (torch's mean
+    multiplies by 1 / N)."""
+    return routed.shape[0] * ((routed / n_tokens) * (mass / n_tokens)).sum()
+
+
+def _route(router_probs: torch.Tensor, num_experts_per_tok: int, capacity: int):
+    """:func:`top_k_dispatch`'s routing: ``(dispatch, combine, routed,
+    mass)``, the last two :func:`switch_loss`'s statistics.
 
     Each token's choices are placed in choice order, a token's position in
     its expert's buffer counting the tokens placed before it; a token past
@@ -60,14 +93,8 @@ def top_k_dispatch(router_probs: torch.Tensor, num_experts_per_tok: int, capacit
         disp_j = keep.to(dtype)[:, :, None] * _one_hot(pos, capacity, dtype)[:, None, :]
         dispatch = dispatch + disp_j
         combine = combine + gates[:, j][:, None, None] * disp_j
-
-    # means as sum / N, the reference's division (torch's mean multiplies
-    # by 1 / N)
-    top1 = _one_hot(expert_idx[:, 0], n_experts, dtype)
-    fraction_routed = top1.sum(dim=0) / n_tokens
-    mean_prob = router_probs.sum(dim=0) / n_tokens
-    aux_loss = n_experts * (fraction_routed * mean_prob).sum()
-    return dispatch, combine, aux_loss
+    routed = _one_hot(expert_idx[:, 0], n_experts, dtype).sum(dim=0)
+    return dispatch, combine, routed, router_probs.sum(dim=0)
 
 
 #: the active collectors of :func:`collect_router_aux`
@@ -152,28 +179,89 @@ class MoEMLP(nn.Module):
         xf = x.reshape(n_tokens, h)
         logits = torch.nn.functional.linear(xf.float(), self.router.weight.float())
         probs = torch.softmax(logits, dim=-1)
-        dispatch, combine, aux = top_k_dispatch(probs, cfg.num_experts_per_tok,
-                                                cfg.resolved_expert_capacity(n_tokens))
+        dispatch, combine, routed, mass = _route(probs, cfg.num_experts_per_tok,
+                                                 cfg.resolved_expert_capacity(n_tokens))
         if _SOWN:
-            _SOWN[-1].append(aux)
+            _SOWN[-1].append(_global_aux(self, routed, mass, n_tokens))
         dt = cfg.dtype
-        expert_in = torch.einsum("nec,nh->ech", dispatch.to(dt), xf.to(dt))
-        expert_out = self.experts(expert_in)                                  # [E, C, H]
-        y = torch.einsum("nec,ech->nh", combine.to(dt), expert_out.to(dt))
-        return y.reshape(b, s, h).to(x.dtype)
+        ep = getattr(self, "_atpu_ep", None)
+        if ep is None:
+            expert_in = torch.einsum("nec,nh->ech", dispatch.to(dt), xf.to(dt))
+            expert_out = self.experts(expert_in)                              # [E, C, H]
+            y = torch.einsum("nec,ech->nh", combine.to(dt), expert_out.to(dt))
+            return y.reshape(b, s, h).to(x.dtype)
+        from .sharding import reduce_backward, reduce_forward
+
+        group, size, rank = ep
+        per = cfg.num_experts // size
+        mine = slice(rank * per, (rank + 1) * per)
+        xf = reduce_backward(xf.to(dt), group)
+        combine = reduce_backward(combine.to(dt), group)
+        expert_in = torch.einsum("nec,nh->ech", dispatch[:, mine].to(dt), xf)
+        expert_out = self.experts(expert_in)                                  # [E/ep, C, H]
+        y = torch.einsum("nec,ech->nh", combine[:, mine], expert_out.to(dt))
+        return reduce_forward(y, group).reshape(b, s, h).to(x.dtype)
 
 
-def shard_moe_params(params, mesh=None, *, marker: str = "experts"):
-    """Expert placement over a mesh's ``ep`` axis (``mesh``: anything with
-    a ``shape`` mapping of axis sizes, or that mapping): the identity when
-    there is no ``ep`` axis above 1 (one card); an ``ep`` mesh raises."""
-    shape = getattr(mesh, "shape", mesh) or {}
-    ep = int(dict(shape).get("ep", 1))
+def _global_aux(module, routed: torch.Tensor, mass: torch.Tensor, n_tokens: int
+                ) -> torch.Tensor:
+    """The aux term to sow: the Switch loss of one rank's tokens, or the
+    whole batch's when the tokens are cut over processes — the data axes
+    the Accelerator marks the layer with (``_atpu_data_groups``) and, in a
+    sequence-sharded forward, ``sp``: the routed counts summed over them
+    (they carry no gradient), the probabilities with one (their sum's
+    backward is the sum over the ranks, as every rank's loss holds the
+    term).  Under ``sp``, whose losses are summed, each rank sows ``1/sp``
+    of it; the data ranks' losses are averaged."""
+    from .ring_attention import active_shard
+
+    groups = list(getattr(module, "_atpu_data_groups", ()))
+    share = 1
+    shard = active_shard()
+    if shard is not None and shard["mesh"].shape.get(shard["axis"], 1) > 1:
+        share = shard["mesh"].shape[shard["axis"]]
+        groups.append((shard["mesh"].group(shard["axis"]), share))
+    if not groups:
+        return switch_loss(routed, mass, n_tokens)
+    from .sharding import all_reduce_, reduce_both
+
+    for group, size in groups:
+        all_reduce_(routed, group)
+        mass = reduce_both(mass, group)
+        n_tokens *= size
+    return switch_loss(routed, mass, n_tokens) / share
+
+
+def shard_moe_params(params, mesh, *, marker: str = "experts"):
+    """This rank's block of every stacked expert tensor of a name -> tensor
+    dict (a name with ``marker`` among its dot-separated parts): the expert
+    dim cut over the mesh's ``ep`` axis, composed with ``fsdp`` on the
+    largest remaining dim (:func:`~accelerate_tpu_torch.parallel.sharding.
+    expert_partition_spec`, the JAX package's placement,
+    ``accelerate_tpu/parallel/moe.py:119``); each block carries its
+    ``atpu_sharding``.  Other tensors are left as they are, and so is the
+    dict on a mesh without an ``ep`` axis above 1 (``mesh``: a
+    :class:`~accelerate_tpu_torch.parallel.mesh.Mesh`, an axes dict, or
+    ``None``)."""
+    from .mesh import Mesh, NamedSharding, local_slice
+    from .sharding import expert_partition_spec
+
+    ep = int(dict(getattr(mesh, "shape", mesh) or {}).get("ep", 1))
     if ep <= 1:
         return params
-    raise NotImplementedError(
-        f"shard_moe_params over ep={ep}: expert parallelism needs a device mesh, "
-        "ROADMAP Queue 1 item 9e-ii (parallel/moe.py across cards)")
+    if not isinstance(mesh, Mesh):
+        mesh = Mesh(dict(mesh))
+    fsdp = int(mesh.shape.get("fsdp", 1))
+    out = {}
+    for name, x in params.items():
+        if marker in name.split(".") and hasattr(x, "shape"):
+            spec = expert_partition_spec(tuple(x.shape), ep, fsdp)
+            block = x[local_slice(mesh, spec, tuple(x.shape))].clone()
+            block.atpu_sharding = NamedSharding(mesh, spec)
+            out[name] = block
+        else:
+            out[name] = x
+    return out
 
 
 __all__ = ["ExpertLinear", "MoEMLP", "collect_router_aux", "router_aux_loss",

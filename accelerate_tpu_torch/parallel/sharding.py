@@ -52,7 +52,7 @@ def expert_partition_spec(shape: Sequence[int], ep_size: int, fsdp_size: int = 1
                           min_weight_size: int = 2**12) -> PartitionSpec:
     """Stacked-expert kernels: the expert dim (``ndim - 3``) over ``ep``, the
     largest matmul dim over ``fsdp`` when large enough (the JAX package's
-    rule; the ``ep`` axis itself is ROADMAP Queue 1 item 9e-ii)."""
+    rule)."""
     if not shape or ep_size <= 1:
         return fsdp_partition_spec(shape, fsdp_size, min_weight_size)
     expert_dim = max(0, len(shape) - 3)
@@ -256,6 +256,24 @@ class _ReduceBackward(torch.autograd.Function):
         return all_reduce_(grad.clone(), ctx.group), None
 
 
+class _ReduceBoth(torch.autograd.Function):
+    """The sum over ``group`` forward and backward (every rank's output is
+    used by its own loss, and each loss depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
+def reduce_both(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceBoth.apply(x, group)
+
+
 def reduce_forward(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceForward.apply(x, group)
 
@@ -278,7 +296,8 @@ def gather_axes_order(spec: PartitionSpec, keep: Sequence[str] = ()) -> list:
 __all__ = [
     "all_gather_along", "all_reduce_", "expert_partition_spec", "fsdp_partition_spec",
     "gather_for_compute", "is_linear_weight", "logical_permutation", "logical_shape",
-    "make_opt_sharding_fn", "make_param_sharding_fn", "reduce_backward", "reduce_forward",
+    "make_opt_sharding_fn", "make_param_sharding_fn", "reduce_backward", "reduce_both",
+    "reduce_forward",
     "reduce_scatter_along", "shard_pytree", "shard_pytree_with_path", "sharding_of",
     "supports_host_offload", "to_logical_spec", "to_torch_spec",
 ]
@@ -314,10 +333,33 @@ class ShardedLayout:
     data shards are equal).  ``reduce_dtype`` is the dtype those
     reductions ride in: the compute dtype, as XLA reduces the reference's
     (``CollectiveKwargs.grad_reduce_dtype`` when given); the buffers keep
-    the parameters' dtype."""
+    the parameters' dtype.
+
+    The other model-parallel axes (the JAX package's ``_train_state_
+    shardings`` pp and ep branches, ``accelerate_tpu/accelerator.py:911-958``):
+
+    - ``pp``: ``stage_of(name)`` names the pipeline stage that owns a
+      parameter (a decoder layer's: ``layers.{i}`` belongs to stage ``i //
+      (L / pp)``, the role of the reference's ``wrap_with_pp_rule`` for an
+      unstacked layer list), ``None`` for one every stage holds (the
+      embedding, the final norm, the head).  A rank keeps only its own
+      stage's layers: another stage's parameter is an empty tensor here, with
+      no gradient and no optimizer state.  The replicated ones' gradients
+      are summed over ``pp`` (each stage computes its own part of them, and
+      zeros where it has none), so their replicas stay equal;
+    - ``sp``: every rank computes its share of the sequence's loss, so
+      every gradient is summed over ``sp``, as over a data axis but not
+      divided (the shares add up to the loss);
+    - ``ep``: a stacked expert tensor whose spec cuts the expert dim over
+      ``ep`` keeps it cut in the forward (:meth:`install_moe` marks its
+      MoE layer), and needs no reduction over ``ep``: the ``ep`` ranks see
+      the same tokens, and the layer's collectives give every rank the
+      whole gradient of what they share."""
 
     def __init__(self, mesh: Mesh, model, param_rule, opt_rule, *, shards_grads: bool,
-                 tp_compute: bool = False, reduce_dtype: Optional[torch.dtype] = None):
+                 tp_compute: bool = False, reduce_dtype: Optional[torch.dtype] = None,
+                 stage_of: Optional[Callable[[str], Optional[int]]] = None,
+                 ep_compute: bool = False):
         from .tensor_parallel import tp_kind
 
         self.mesh = mesh
@@ -328,8 +370,11 @@ class ShardedLayout:
         self.world = mesh.size
         self.tp = mesh_lib.mesh_axis_size(mesh, "tp")
         self.tp_compute = tp_compute and self.tp > 1
+        self.pp = mesh_lib.mesh_axis_size(mesh, "pp")
+        self.ep = mesh_lib.mesh_axis_size(mesh, "ep")
         self.coordinate = mesh.coordinate()
         self.entries: Dict[str, dict] = {}
+        sums = ["sp"] if mesh_lib.mesh_axis_size(mesh, "sp") > 1 else []
         for name, p in model.named_parameters():
             shape = tuple(p.shape)
             pspec = _full_spec(param_rule(name, p).spec, len(shape))
@@ -338,21 +383,29 @@ class ShardedLayout:
             if extra is None:  # the optimizer's block is not inside the module's
                 ospec, extra = pspec, PartitionSpec(*([None] * len(shape)))
             kind = tp_kind(name, shape, self.tp) if self.tp > 1 else None
+            stage = stage_of(name) if (stage_of is not None and self.pp > 1) else None
+            owned = stage is None or stage == self.coordinate.get("pp", 0)
             with torch.no_grad():
-                p.data = p.data[mesh_lib.local_slice(mesh, pspec, shape, self.coordinate)].clone()
+                p.data = (p.data[mesh_lib.local_slice(mesh, pspec, shape, self.coordinate)].clone()
+                          if owned else p.data.new_empty((0,)))
             p.atpu_sharding = NamedSharding(mesh, pspec)
             master = None
-            if any(spec_axes(e) for e in extra):
+            if owned and any(spec_axes(e) for e in extra):
                 block = p.data[mesh_lib.local_slice(mesh, extra, p.shape, self.coordinate)]
                 master = torch.nn.Parameter(block.detach().clone(), requires_grad=False)
                 master.atpu_sharding = NamedSharding(mesh, ospec)
             keep = ("tp",) if self.tp_compute and kind in ("out", "in") else ()
+            if ep_compute and _splits(pspec, "ep"):
+                keep += ("ep",)
+            # replicated over pp: each stage holds a part of the gradient
+            across = sums + (["pp"] if self.pp > 1 and stage is None else [])
             self.entries[name] = dict(
                 shape=shape, pspec=pspec, ospec=ospec, extra=extra, kind=kind, master=master,
-                gather=gather_axes_order(pspec, keep),
+                stage=stage, owned=owned, gather=gather_axes_order(pspec, keep),
                 # fsdp before dp: PowerSGD compresses a replica's (fsdp-summed) gradient
-                reduce=[a for a in reversed(self.data_axes) if not _splits(pspec, a)],
-                opt_reduce=[a for a in reversed(self.data_axes) if not _splits(ospec, a)])
+                reduce=[a for a in reversed(self.data_axes) if not _splits(pspec, a)] + across,
+                opt_reduce=[a for a in reversed(self.data_axes) if not _splits(ospec, a)]
+                + across)
 
     # ----------------------------------------------------------- placement
     def optimizer_params(self, model) -> list:
@@ -362,9 +415,13 @@ class ShardedLayout:
                 for n, p in model.named_parameters()]
 
     def compute_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The tensors the forward runs with, from the (cast) blocks."""
+        """The tensors the forward runs with, from the (cast) blocks (another
+        pipeline stage's parameters stay empty)."""
         out = {}
         for name, t in params.items():
+            if not self.entries[name]["owned"]:
+                out[name] = t
+                continue
             for d, axis in self.entries[name]["gather"]:
                 t = gather_for_compute(t, d, self.mesh.group(axis),
                                        reduce_grad=axis in mesh_lib.DATA_AXES)
@@ -385,6 +442,28 @@ class ShardedLayout:
                 module._atpu_tp = (e["kind"], group, self.tp, rank,
                                    name.split(".")[-2] == "lm_head")
 
+    def install_moe(self, model) -> None:
+        """Mark each MoE layer (``parallel/moe.py``'s ``MoEMLP`` reads the
+        marks) with the data axes' groups its router statistics sum over
+        (``_atpu_data_groups``), and, where this rank holds a block of its
+        experts over ``ep``, with ``(group, ep, rank)`` (``_atpu_ep``)."""
+        from .moe import MoEMLP
+
+        data = [(self.mesh.group(a), self.mesh.shape[a]) for a in self.data_axes]
+        for module in model.modules():
+            if isinstance(module, MoEMLP) and data:
+                module._atpu_data_groups = data
+        if self.ep <= 1:
+            return
+        group, rank = self.mesh.group("ep"), self.coordinate["ep"]
+        for name, e in self.entries.items():
+            if "ep" in e["gather"] or not _splits(e["pspec"], "ep"):
+                continue
+            parts = name.split(".")
+            if "experts" in parts:
+                owner = ".".join(parts[:parts.index("experts")])
+                model.get_submodule(owner)._atpu_ep = (group, self.ep, rank)
+
     # ----------------------------------------------------------- gradients
     def _wire(self, g: torch.Tensor) -> torch.Tensor:
         return g if self.reduce_dtype is None else g.to(self.reduce_dtype)
@@ -396,12 +475,19 @@ class ShardedLayout:
         under ``shards_grads`` (unless not ``into_masters``).
         ``compress(name, g) -> g`` replaces the ``dp`` sum (PowerSGD)."""
         out = {}
-        for name, g in fresh.items():
+        for name, p in model.named_parameters():
             e = self.entries[name]
+            g = fresh.get(name)
+            if g is None:
+                if "pp" not in e["reduce"]:
+                    continue
+                # a replicated parameter this stage did not use: its part is 0
+                g = torch.zeros_like(p)
             dtype = g.dtype
-            g = self._wire(g)
             axes = e["reduce"]
             to_master = e["master"] is not None and self.shards_grads and into_masters
+            if axes or to_master:
+                g = self._wire(g)
             if to_master and compress is None:
                 for d, axis in gather_axes_order(e["extra"]):
                     g = reduce_scatter_along(g, d, self.mesh.group(axis))
@@ -459,10 +545,20 @@ class ShardedLayout:
 
     def full_tensor(self, name: str, block: torch.Tensor) -> torch.Tensor:
         """A parameter's whole value from every rank's block (a collective:
-        every rank calls it)."""
+        every rank calls it); another stage's parameter comes from that
+        stage."""
+        e = self.entries[name]
         t = block.detach()
-        for d, axis in gather_axes_order(self.entries[name]["pspec"]):
-            t = all_gather_along(t, d, self.mesh.group(axis))
+        if e["owned"]:
+            for d, axis in gather_axes_order(e["pspec"]):
+                t = all_gather_along(t, d, self.mesh.group(axis))
+        if e["stage"] is not None:
+            if not e["owned"]:
+                t = torch.empty(e["shape"], dtype=block.dtype, device=block.device)
+            owner = dict(self.coordinate, pp=e["stage"])
+            src = int(self.mesh.devices[tuple(owner[a] for a in self.mesh.axis_names)])
+            t = t.contiguous()
+            dist.broadcast(t, src=src, group=self.mesh.group("pp"))
         return t
 
     def buffers(self, model) -> Dict[str, torch.Tensor]:
@@ -479,23 +575,31 @@ class ShardedLayout:
     def _replicas(self, name: str, spec: PartitionSpec) -> int:
         """How many ranks hold the same block under ``spec``."""
         split = math.prod(self.mesh.shape[a] for entry in spec for a in spec_axes(entry))
+        if self.entries[name]["stage"] is not None:
+            split *= self.pp
         return self.world // split
 
     def global_norm(self, model) -> torch.Tensor:
         """The L2 norm of the whole (summed) gradient: each rank's blocks'
         squares, each counted once over the ranks that hold it (the counts
         are powers of two on the usual meshes, so the division is exact),
-        summed over every rank."""
+        summed over every rank.  A world of one takes the single-card
+        formula (each buffer's norm, then their vector's), so its step is
+        bitwise the card's."""
         bufs = self.buffers(model)
         device = next(model.parameters()).device
+        if self.world == 1:
+            norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in bufs.values()]
+            total = (torch.linalg.vector_norm(torch.stack(norms)) if norms
+                     else torch.zeros((), dtype=torch.float32, device=device))
+            return all_reduce_(total, None) if dist.is_initialized() else total
         total = torch.zeros((), dtype=torch.float32, device=device)
         for name, g in bufs.items():
             e = self.entries[name]
             spec = e["ospec"] if (e["master"] is not None and self.shards_grads) else e["pspec"]
             total = total + torch.linalg.vector_norm(g, dtype=torch.float32).square() / \
                 self._replicas(name, spec)
-        if self.world > 1:
-            all_reduce_(total, None)
+        all_reduce_(total, None)
         return total.sqrt()
 
     def all_finite(self, model) -> bool:
@@ -505,7 +609,7 @@ class ShardedLayout:
         bad = torch.zeros((), dtype=torch.float32, device=device)
         for g in bufs:
             bad = bad + (~torch.isfinite(g)).sum().float()
-        if self.world > 1:
+        if dist.is_initialized():
             all_reduce_(bad, None)
         return bool(bad.item() == 0)
 

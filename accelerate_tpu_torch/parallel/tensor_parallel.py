@@ -15,9 +15,10 @@ dim 1.
 How the step computes under these layouts is the Accelerator's (Megatron's
 column/row-parallel products on the rank's heads, ``models/transformer.py``'s
 ``_dense``); :func:`tp_kind` tells it which kind a parameter got.
-:data:`SERVING_TP_RULES` is kept for the engine's ``tp_axis=``, and
-``wrap_with_pp_rule`` waits with the ``pp`` axis: both ROADMAP Queue 1
-item 9e-ii.
+:data:`SERVING_TP_RULES` is kept for the engine's ``tp_axis=`` (ROADMAP
+Queue 1 item 9e-ii).  ``wrap_with_pp_rule``'s role, each pipeline stage
+owning its layers, is the ``ShardedLayout``'s stage ownership
+(``parallel/sharding.py``, ``parallel/pipeline.py``'s ``layer_stage``).
 """
 
 from __future__ import annotations

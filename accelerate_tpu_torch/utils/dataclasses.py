@@ -9,9 +9,8 @@ step and its checkpoints need: :class:`PrecisionPolicy`,
 multi-process ones: :class:`DistributedType`, :class:`MeshConfig` and
 :func:`parse_mesh_spec`, :class:`InitProcessGroupKwargs`,
 :class:`CollectiveKwargs`, :class:`ZeroPlugin` (the DeepSpeed plugin's
-counterpart) and :class:`ModelParallelPlugin` (the Megatron plugin's; only
-``tp_degree`` acts: pipeline, sequence and expert parallelism are ROADMAP
-Queue 1 item 9e-ii).  Dtypes are ``torch`` dtypes.
+counterpart) and :class:`ModelParallelPlugin` (the Megatron plugin's: the
+``tp``, ``pp``, ``sp`` and ``ep`` degrees).  Dtypes are ``torch`` dtypes.
 """
 
 from __future__ import annotations
@@ -608,19 +607,15 @@ class ZeroPlugin:
             **kwargs)
 
 
-#: the ModelParallelPlugin degrees that wait for ROADMAP Queue 1 item 9e-ii
-_LATER_DEGREES = ("pp_degree", "sp_degree", "expert_parallel_degree")
-
-
 @dataclass
 class ModelParallelPlugin:
     """The Megatron plugin's counterpart (``accelerate_tpu/utils/
-    dataclasses.py:714-760``): ``tp_degree`` becomes the mesh's ``tp``
-    axis, whose rules are ``parallel/tensor_parallel.py``'s.
-    ``recompute_activations`` lowers to ``remat_policy="full"``.
-    ``pp_degree``, ``sp_degree`` and ``expert_parallel_degree`` above 1
-    raise: pipeline, sequence and expert parallelism are ROADMAP Queue 1
-    item 9e-ii."""
+    dataclasses.py:714-760``): the degrees become the mesh's ``tp``, ``pp``,
+    ``sp`` and ``ep`` axes (``parallel/tensor_parallel.py``'s rules,
+    ``parallel/pipeline.py``, ``parallel/ring_attention.py``,
+    ``parallel/moe.py``); ``num_micro_batches`` is the pipeline's default
+    micro-batch count.  ``recompute_activations`` lowers to
+    ``remat_policy="full"``."""
 
     tp_degree: int = 1
     pp_degree: int = 1
@@ -640,11 +635,6 @@ class ModelParallelPlugin:
                 setattr(self, name, int(env[key]))
         if env.get("MEGATRON_LM_RECOMPUTE_ACTIVATIONS"):
             self.recompute_activations = parse_flag_from_env("MEGATRON_LM_RECOMPUTE_ACTIVATIONS")
-        for name in _LATER_DEGREES:
-            if getattr(self, name) > 1:
-                raise NotImplementedError(
-                    f"ModelParallelPlugin({name}={getattr(self, name)}): pipeline, sequence "
-                    "and expert parallelism are not ported: ROADMAP Queue 1 item 9e-ii")
 
     @property
     def model_parallel_size(self) -> int:

@@ -1113,7 +1113,8 @@ def eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, name: str) -> None:
 
 def chunk_graph_phase(model, cfg, gpu) -> None:
     """Each prefill bucket's CUDA graph against the same chunk program run
-    launch by launch, at full width, for bf16, int8 and fp8 pages: a
+    launch by launch, at full width (``CUT_LAYERS`` of the layers), for
+    bf16, int8 and fp8 pages: a
     512-token chunk at base 0, then 128-token chunks at bases 512 and 640
     behind it (their prior pages are the earlier chunks' KV), each replay's
     pages, scales and quantization error bitwise the eager run's on the same
@@ -1964,14 +1965,22 @@ def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) ->
     return rec
 
 
+#: the depth of the Llama lines cut to keep the run inside its time budget
+#: (once the model's 32): ``engine_prefix`` and its tier stresses (the chains
+#: they move scale with it), ``chunk_graphs`` and ``stream_offload``
+CUT_LAYERS = 8
+
+
 def prefix_phases(model, cfg, rng, gpu) -> dict:
-    """``engine_prefix``: one shared system prefix before 8 distinct tails of
-    57-900 tokens, a 1 GiB device budget; ``engine_prefix_tiers`` (bf16,
-    then int8 pages): three prefixes cycled A B C x 3 before tails of
-    57-500 tokens, under a device budget of one prefix chain, a host ring
-    of one and a disk ring of two, so chains demote to the host, then to
-    disk, and come back.  Returns ``engine_prefix``'s launches."""
+    """On the model's first ``CUT_LAYERS`` layers: ``engine_prefix``, one
+    shared system prefix before 8 distinct tails of 57-900 tokens, a 1 GiB
+    device budget; ``engine_prefix_tiers`` (bf16, then int8 pages): three
+    prefixes cycled A B C x 3 before tails of 57-500 tokens, under a device
+    budget of one prefix chain, a host ring of one and a disk ring of two, so
+    chains demote to the host, then to disk, and come back.  Returns
+    ``engine_prefix``'s launches."""
     shared_prompts = prefix_prompts(rng, cfg, 1, np.linspace(57, 900, 8).astype(int))
+    model, cfg = shallow_model(model, cfg, CUT_LAYERS)
     shared = prefix_phase(model, cfg, gpu, "engine_prefix", shared_prompts,
                           prefix_cache_mb=1024.0)
     check(shared["prefix_hit_tokens"] >= 4 * PREFIX_LEN,
@@ -2540,27 +2549,41 @@ def families_phase(gpu) -> dict:
     return {rec["family"]: rec["launches"] for rec in records}
 
 
-def flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented):
+def _segments(b, s, cuts):
+    cuts = torch.tensor(cuts, device="cuda")[:b]
+    pos = torch.arange(s, device="cuda")
+    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32).contiguous()
+
+
+def flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented, kv_segmented=False):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, dout = (torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
                for _ in range(2))
     k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
-    seg = None
+    seg = kv_seg = None
     if segmented:
         # three packed sequences per row, cut at different places in each row
-        cuts = torch.tensor([[s // 4, s // 2], [s // 3, (3 * s) // 4]], device="cuda")[:b]
-        pos = torch.arange(s, device="cuda")
-        seg = (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(torch.int32).contiguous()
-    return q, k, v, dout, seg
+        seg = _segments(b, s, [[s // 4, s // 2], [s // 3, (3 * s) // 4]])
+    if kv_segmented:
+        # the keys' own ids (a ring attention pair: queries and keys of two
+        # shards), cut elsewhere; every id is in every row, so every query
+        # sees some key
+        kv_seg = _segments(b, s, [[s // 8, (5 * s) // 8], [s // 2, (7 * s) // 8]])
+    return q, k, v, dout, seg, kv_seg
 
 
-def visible_pairs(b, s, causal, seg) -> int:
+def visible_pairs(b, s, causal, seg, kv_seg=None) -> int:
     """(query, key) pairs this run's mask lets through, per head, summed over
     the batch: the work the kernels must do for these inputs."""
     if seg is None:
         per_row = s * (s + 1) // 2 if causal else s * s
         return b * per_row
+    if kv_seg is not None:  # the cases with keys' own ids are not causal
+        total = 0
+        for qrow, krow in zip(seg.cpu().numpy(), kv_seg.cpu().numpy()):
+            total += int(sum((qrow == i).sum() * (krow == i).sum() for i in np.unique(qrow)))
+        return total
     total = 0
     for row in seg.cpu().numpy():
         _, lengths = np.unique(row, return_counts=True)
@@ -2568,16 +2591,20 @@ def visible_pairs(b, s, causal, seg) -> int:
     return total
 
 
-def flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented) -> tuple:
-    """Least time: every input read once and every output written once, or
-    4 / 6 / 8 x D flops per visible pair (K3 / K4 / K5) at the dtype's peak."""
+def flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented,
+                   kv_segmented=False, out_f32=False) -> tuple:
+    """Least time: every input read once and every output written once (in
+    f32 with ``out_f32``), or 4 / 6 / 8 x D flops per visible pair (K3 / K4 /
+    K5) at the dtype's peak."""
     elem = torch.tensor([], dtype=dtype).element_size()
+    out_elem = 4 if out_f32 else elem
     q_bytes, kv_bytes, stat_bytes = b * s * hq * d * elem, b * s * hkv * d * elem, b * hq * s * 4
-    seg_bytes = b * s * 4 if segmented else 0
+    q_out, kv_out = q_bytes // elem * out_elem, kv_bytes // elem * out_elem
+    seg_bytes = (b * s * 4 if segmented else 0) + (b * s * 4 if kv_segmented else 0)
     nbytes, flops_per_pair = {
-        "k3": (q_bytes + 2 * kv_bytes + q_bytes + stat_bytes + seg_bytes, 4),
-        "k4": (2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes + q_bytes, 6),
-        "k5": (2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes + 2 * kv_bytes, 8),
+        "k3": (q_bytes + 2 * kv_bytes + q_out + stat_bytes + seg_bytes, 4),
+        "k4": (2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes + q_out, 6),
+        "k5": (2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes + 2 * kv_out, 8),
     }[name]
     flops = flops_per_pair * d * hq * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
@@ -2627,19 +2654,27 @@ def flash_design(dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "cuda-cores"
 
 
-def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> dict:
+def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128,
+               kv_segmented=False, out_f32=False) -> dict:
     """K3, K4 and K5 against their plain versions on one case (the same
     inputs to both: the plain forward's lse and delta feed both backward
-    versions); one record per kernel."""
+    versions); one record per kernel.  ``kv_segmented``: the keys carry
+    ids of their own (``kv_segment_ids``); ``out_f32``: the kernels write
+    f32 outputs of the bf16 inputs (``out_dtype``, ring attention's pairs)."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, dout, seg = flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented)
+    q, k, v, dout, seg, kv_seg = flash_inputs(seed, b, s, hq, hkv, d, dtype, segmented,
+                                              kv_segmented)
     kw = dict(causal=causal, segment_ids=seg)
+    if kv_segmented:
+        kw["kv_segment_ids"] = kv_seg
+    if out_f32:
+        kw["out_dtype"] = torch.float32
     counters = {"k3": fa.flash_fwd, "k4": fa.flash_dq, "k5": fa.flash_dkv}
     launches0 = {name: fn.launches for name, fn in counters.items()}
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
-    args = (q, k, v, dout, ref_lse, fa.flash_delta(ref_out, dout))
-    pairs = visible_pairs(b, s, causal, seg)
+    args = (q, k, v, dout, ref_lse, fa.flash_delta(ref_out.to(dtype), dout))
+    pairs = visible_pairs(b, s, causal, seg, kv_seg)
 
     def held(got, want, rel=FLASH_REL_TOL[dtype]):
         err = (got.float() - want.float()).abs().max().item()
@@ -2677,10 +2712,12 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> d
         errs = checks[name]
         # the kernels line carries the binding check: the largest err / tolerance
         worst = max(errs.values(), key=lambda et: et[0] / et[1])
-        bms, by = flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented)
+        bms, by = flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented, kv_segmented,
+                                 out_f32)
         rec = dict(
             case=label, dtype=str(dtype).replace("torch.", ""), b=b, s=s, hq=hq, hkv=hkv, d=d,
-            causal=causal, segmented=segmented, visible_pairs=pairs,
+            causal=causal, segmented=segmented, kv_segmented=kv_segmented, out_f32=out_f32,
+            visible_pairs=pairs,
             design=flash_design(dtype),
             errors={key: e for key, (e, _) in errs.items()},
             tolerances={key: t for key, (_, t) in errs.items()},
@@ -2705,6 +2742,37 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128) -> d
                   f"{name} {label}: {key} {rec[key]} is below the bound {bms}")
         records[name] = rec
     return records
+
+
+#: the k3-k5 cases: (label, seed, b, s, hq, hkv, dtype, causal, segmented[, d])
+FLASH_CASES = [
+    ("train", 13, 2, 2048, 32, 32, torch.bfloat16, True, False),
+    ("train", 14, 2, 2048, 32, 32, torch.float32, True, False),
+    ("gqa", 15, 2, 2048, 32, 8, torch.bfloat16, True, False),
+    ("segments3", 16, 2, 1024, 32, 32, torch.bfloat16, True, True),
+    ("full512", 17, 2, 512, 32, 32, torch.bfloat16, False, False),
+    ("gqa_d64", 18, 2, 2048, 32, 8, torch.bfloat16, True, False, 64),
+    # the wide- and narrow-head families at the training shape (B 2, S
+    # 2048, causal), bf16 (wgmma) and f32 (CUDA cores); D 32 and 16
+    *[(label, 400 + 2 * i + j, 2, 2048, hq, hkv, dtype, True, False, d)
+      for i, (label, (hq, hkv, d)) in enumerate(WIDE_HEAD_SHAPES.items())
+      for j, dtype in enumerate((torch.bfloat16, torch.float32))],
+    ("gqa_d32", 420, 2, 2048, 32, 8, torch.bfloat16, True, False, 32),
+    ("gqa_d32", 421, 2, 2048, 32, 8, torch.float32, True, False, 32),
+    ("gqa_d16", 422, 2, 2048, 32, 8, torch.bfloat16, True, False, 16),
+    ("gqa_d16", 423, 2, 2048, 32, 8, torch.float32, True, False, 16),
+]
+#: ring attention's cases: keys with ids of their own (not causal, as the
+#: ring's cross-shard pairs are), and f32 outputs of bf16 inputs
+FLASH_KV_SEGMENT_CASES = [
+    ("segments_kv", 424, 2, 1024, 32, 32, torch.bfloat16, False, True, 128, True),
+    ("segments_kv", 425, 2, 1024, 32, 8, torch.float32, False, True, 128, True),
+    # f32 outputs of bf16 inputs (each ring pair's): a zig-zag diagonal's
+    # shape (causal, 1024 positions a rank) and a cross-shard pair's
+    ("ring_diag_f32out", 426, 2, 1024, 32, 32, torch.bfloat16, True, False, 128, False, True),
+    ("segments_kv_f32out", 427, 2, 1024, 32, 32, torch.bfloat16, False, True, 128, True,
+     True),
+]
 
 
 def flash_phase(cases):
@@ -2988,7 +3056,7 @@ def train_phase(gpu, cfg=None, name="train", config="llama2_7b", of_layers=32,
         "tokens_per_s": tokens / steady, "model_flops_per_micro_step": flops,
         "mfu_vs_989_tflops": flops / steady / PEAK_FLOPS[torch.bfloat16],
         "max_memory_allocated_gb": peak / 1e9, "path_check": path_check, "gpu": gpu,
-        "mixed_precision": mixed_precision, "scaled_mm_launches": scaled_mm_launches,
+        "sharded_layout": state.layout is not None, "mixed_precision": mixed_precision, "scaled_mm_launches": scaled_mm_launches,
         **moe_rec,
     }
     if scrape:
@@ -3404,10 +3472,10 @@ def checkpoint_phase(gpu):
 #: granted as pinned memory in 29 s; 75 GB of free disk, less than the 81 GB
 #: of state): pinned host memory.  Never a fallback at run time.
 FULL_OFFLOAD_TIER = "pinned host memory"
-#: ``train_full``'s depth: 16 of 32 layers (all 32 ran in 32.21 GB of card
-#: memory with 80.86 GB pinned; the depth is cut to keep the run inside its
-#: time budget)
-FULL_TRAIN_LAYERS = 16
+#: ``train_full``'s depth: 8 of 32 layers (all 32 ran in 32.21 GB of card
+#: memory with 80.86 GB pinned, 16 in 18.69 GB with 42.00 GB; the depth is
+#: cut to keep the run inside its time budget)
+FULL_TRAIN_LAYERS = 8
 REMAT_POLICY_LAYERS = 2
 #: ``train_offload`` against ``train`` over the first accumulation window
 #: (equal weights): the bf16 gradient buffer against train's f32 one moves
@@ -3668,19 +3736,81 @@ def probe_nccl_rank(out_dir: str) -> None:
         json.dump({"said": said}, f)
 
 
+#: the two-rank lines: name, mesh, and what differs from ``dist_dp2``'s setup
+#: (``mp``: the ModelParallelPlugin's degrees; ``model``: ``"llama"`` or
+#: ``"moe"``; ``cfg``: config fields; ``loss``: ``"lm"`` or a pipeline
+#: schedule; ``replicated``: which parameters every rank holds whole, held
+#: bitwise equal across the ranks; ``launches``: K3-K5 launches a rank)
+DIST_LINES = [
+    dict(name="dist_dp2", mesh={"dp": 2}, replicated="all"),
+    dict(name="dist_fsdp2", mesh={"fsdp": 2}),
+    dict(name="dist_tp2", mesh={"tp": 2}, mp=dict(tp_degree=2)),
+    # a layer a stage, the micro-step's 2 rows as 2 micro-batches of 1: each
+    # rank's layer runs once a micro-batch
+    dict(name="dist_pp2", mesh={"pp": 2}, mp=dict(pp_degree=2, num_micro_batches=2),
+         loss="gpipe", replicated="not layers", launches=DIST_MICRO * 2 * (DIST_LAYERS // 2)),
+    # each rank 1024 of the 2048 positions of both rows, the zig-zag ring:
+    # a layer runs K3 on the diagonal and on one half-tile (K4, K5 alike);
+    # its noise is the ring decomposition's (``DIST_NOISE``)
+    dict(name="dist_sp2", mesh={"sp": 2}, mp=dict(sp_degree=2), replicated="all",
+         cfg=dict(attention_impl="ring", ring_attention_layout="zigzag"),
+         launches=DIST_MICRO * DIST_LAYERS * 2, noise="ring"),
+    # Mixtral's widths at 1 of 32 layers, 4 of the 8 experts a rank; both
+    # ranks route the same rows
+    dict(name="dist_ep2", mesh={"ep": 2}, mp=dict(expert_parallel_degree=2), model="moe",
+         replicated="not experts", launches=DIST_MICRO * MOE_TRAIN_LAYERS),
+]
+
+
+#: each line's noise (``noise=``, else its model's): the model whose
+#: ``one`` run the line is held to, and two one-process computations of one
+#: function (``DIST_REF_PLANS``) whose distance is that noise.  The Llama's:
+#: ``one`` and its rows 1 + 1.  The ring's: ``one`` and ``one`` with its
+#: attention through the zig-zag ring's chunk pairs, computed without the
+#: port's ring code (a pair rounds its probabilities against its own row
+#: maximum, as K3 does in the ring; 1 + 1 rows compute every attention row
+#: as ``one`` does).  The Mixtral layer's: 2 rows against 1 + 1 with the
+#: router's aux term off in both (the Switch term of a 1-row call covers
+#: that row alone: with it on, the split is another function; the expert
+#: capacity, ``E / k`` times the even share, drops no token in either).
+DIST_NOISE = {"llama": ("llama", "one", "split"), "ring": ("llama", "one", "ring"),
+              "moe": ("moe", "one_noaux", "split_noaux")}
+DIST_NOISE_PHASES = {"llama": "dist_reference", "ring": "dist_reference_ring",
+                     "moe": "dist_reference_moe"}
+
+
+def _dist_model_config(line):
+    cfg = moe_train_config() if line.get("model") == "moe" else train_config(DIST_LAYERS)
+    return dataclasses.replace(cfg, **line.get("cfg", {}))
+
+
+def _replicated(line, name: str) -> bool:
+    kind = line.get("replicated")
+    if kind == "all":
+        return True
+    if kind == "not layers":
+        return not name.startswith("layers.")
+    if kind == "not experts":
+        return "experts" not in name.split(".")
+    return False
+
+
 def dist_rank(out_dir: str, lines) -> None:
     """One rank of the ``dist_*`` lines, in turn: each a fresh Accelerator
     (``InitProcessGroupKwargs(backend="gloo")``: two ranks share the card,
-    which NCCL does not allow) over its mesh, the 2-layer model from
-    ``train``'s seed, its rows of the global batch, ``DIST_MICRO``
-    micro-steps; the flash counters zeroed just before the loop and read
-    just after.  After the dp line, ``gather_for_metrics``, ``broadcast``
-    and ``reduce`` on card tensors."""
+    which NCCL does not allow) over its mesh, the model from ``train``'s
+    seed (``DIST_LINES``), its rows of the global batch (the mesh's data
+    shard), ``DIST_MICRO`` micro-steps; the flash counters zeroed just
+    before the loop and read just after.  After the dp line,
+    ``gather_for_metrics``, ``broadcast`` and ``reduce`` on card tensors."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
     from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.parallel.mesh import local_slice, num_data_shards
+    from accelerate_tpu_torch.parallel.pipeline import pipeline_lm_loss_fn
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils import operations as ops
     from accelerate_tpu_torch.utils.dataclasses import (
         FullyShardedDataParallelPlugin,
         InitProcessGroupKwargs,
@@ -3688,28 +3818,32 @@ def dist_rank(out_dir: str, lines) -> None:
     )
 
     rank = int(os.environ["ACCELERATE_PROCESS_ID"])
-    cfg = train_config(DIST_LAYERS)
-    _, dataset = train_data(cfg, repeats=DIST_MICRO // 2)
-    # the one-process run's final weights, each line's blocks held against them
-    want = torch.load(os.path.join(out_dir, "one_weights.pt"), mmap=True, weights_only=True)
     out = {}
-    for name, mesh in lines:
+    for line in lines:
+        name, mesh = line["name"], line["mesh"]
         GradientState._reset_state()
         AcceleratorState._reset_state()
+        cfg = _dist_model_config(line)
+        _, dataset = train_data(cfg, repeats=DIST_MICRO // 2)
+        # the one-process run's final weights, each line's blocks held against them
+        want = torch.load(os.path.join(out_dir, f"one_weights_{line.get('model', 'llama')}.pt"),
+                          mmap=True, weights_only=True)
         kw = {}
         if "fsdp" in mesh:
             kw["fsdp_plugin"] = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")
-        if "tp" in mesh:
-            kw["megatron_lm_plugin"] = ModelParallelPlugin(tp_degree=mesh["tp"])
+        if "mp" in line:
+            kw["megatron_lm_plugin"] = ModelParallelPlugin(**line["mp"])
         acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2, mesh=mesh,
                           kwargs_handlers=[InitProcessGroupKwargs(backend="gloo")], **kw)
         if "probe" not in out:
             out["probe"] = probe_gloo()
         model = train_model(cfg, seed=0)
         state = acc.create_train_state(params=model, tx=LLAMA2_ADAMW)
-        n_data = acc.mesh.size // acc.mesh.shape.get("tp", 1)
-        loader = acc.prepare(SimpleDataLoader(dataset, batch_size=TRAIN_ROWS // n_data))
-        step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
+        loader = acc.prepare(SimpleDataLoader(
+            dataset, batch_size=TRAIN_ROWS // num_data_shards(acc.mesh)))
+        loss_fn = (pipeline_lm_loss_fn(model, schedule=line["loss"])
+                   if line.get("loss", "lm") != "lm" else lm_loss_fn(model))
+        step = acc.compile_train_step(loss_fn, max_grad_norm=1.0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
@@ -3729,25 +3863,29 @@ def dist_rank(out_dir: str, lines) -> None:
                "step_ms_each": [t * 1e3 for t in step_s],
                "step_ms": float(np.median(step_s[1:])) * 1e3,
                "max_memory_allocated_gb": peak / 1e9, "mesh": dict(acc.mesh.shape),
-               "distributed_type": str(acc.distributed_type)}
-        # each rank's block of every weight against the same block of the
-        # one-process run (the whole weight, compared block by block, with
-        # no gather): per weight max |a - b| over max |b|, both maxed over
-        # the ranks
-        from accelerate_tpu_torch.parallel.mesh import local_slice
-        from accelerate_tpu_torch.utils import operations as ops
-
+               "distributed_type": str(acc.distributed_type),
+               "params_held": sum(p.numel() for p in model.parameters())}
+        # each rank's block of every weight it holds against the same block of
+        # the one-process run (the whole weight, compared block by block, with
+        # no gather): per weight max |a - b| over max |b|, both maxed over the
+        # ranks; another pipeline stage's layers are not held here
         worst = 0.0
         for n, p in model.named_parameters():
+            held = p.numel() > 0
             w = want[n][local_slice(acc.mesh, p.atpu_sharding.spec, want[n].shape)].cuda()
-            both = torch.stack([(p.detach() - w).abs().max(), w.abs().max()]).cpu()
+            both = (torch.stack([(p.detach() - w).abs().max(), w.abs().max()]).cpu() if held
+                    else torch.zeros(2))
             gathered = ops.gather(both.reshape(1, 2))  # [ranks, 2]
             worst = max(worst, (gathered[:, 0].max() / gathered[:, 1].max()).item())
         rec["weight_rel"] = worst
-        # the dp replicas agree bit for bit: a checksum of every block's bits
-        rec["weights_checksum"] = sum(
-            int(p.detach().view(torch.int32).sum(dtype=torch.int64))
-            for p in model.parameters())
+        # the replicas agree bit for bit: a checksum of every block's bits, and
+        # of the blocks every rank holds whole
+        bits = {n: int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+                for n, p in model.named_parameters()}
+        rec["weights_checksum"] = sum(bits.values())
+        rec["replicated_checksum"] = sum(v for n, v in bits.items() if _replicated(line, n))
+        rec["replicated_params"] = sum(p.numel() for n, p in model.named_parameters()
+                                       if _replicated(line, n))
         if name == "dist_dp2":
             x = torch.arange(3, device="cuda", dtype=torch.float32) + 10 * rank
             gathered = acc.gather_for_metrics(x)
@@ -3757,49 +3895,121 @@ def dist_rank(out_dir: str, lines) -> None:
                                            from_process=1).tolist(),
                 "reduce_mean": acc.reduce(x, "mean").tolist()}
         out[name] = rec
-        del state, step, loader, model, acc
+        del state, step, loader, model, acc, want
         gc.collect()
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank_{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def dist_reference_runs(gpu) -> dict:
-    """The one-process runs the ``dist_*`` lines are held against: the
-    global batch of 2 rows a micro-step (``one``), and the same rows one
-    at a time at accumulation 4 (``split``: 1 + 1, the rows a data-parallel
-    rank computes), each ``DIST_MICRO`` rows' worth; losses per global
-    batch, grad norms at the optimizer steps, and the final weights."""
+def zigzag_ring_plain_attention(q, k, v, n: int) -> torch.Tensor:
+    """Causal attention as a zig-zag ring of ``n`` ranks decomposes it, in
+    plain PyTorch, written here from the layout's definition alone (the
+    sequence cut into ``2n`` chunks, rank ``r`` holding chunks ``r`` and
+    ``2n - 1 - r``): for every rank's queries and every rank's keys, the
+    softmax over the keys of the pair that each query sees (f32 scores, the
+    pair's own row maximum, probabilities rounded to ``v``'s dtype for the
+    PV product, as a flash kernel rounds them), the pairs merged by their
+    logsumexp in f32, the output rounded to ``q``'s dtype once.  Autograd
+    gives the backward, in f32.  BSHD in natural order; the port's ring
+    code is not used."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    c = s // (2 * n)
+    shards = [torch.cat([torch.arange(r * c, (r + 1) * c),
+                         torch.arange((2 * n - 1 - r) * c, (2 * n - r) * c)]).to(q.device)
+              for r in range(n)]
+    outs = []
+    for qpos in shards:
+        qs = q[:, qpos].float()
+        pair_out, pair_lse = [], []
+        for kpos in shards:
+            seen = kpos[None, :] <= qpos[:, None]                        # [q, k]
+            rows = seen.any(dim=1)[:, None]
+            if not bool(rows.any()):
+                continue
+            sc = torch.einsum("bqhd,bkhd->bhqk", qs, k[:, kpos].float()) * d ** -0.5
+            sc = sc.masked_fill(~seen, float("-inf"))
+            m = torch.where(rows, sc.amax(dim=-1, keepdim=True), 0.0)    # [b, h, q, 1]
+            p = torch.exp(sc - m)
+            l = p.sum(dim=-1, keepdim=True)
+            l_safe = torch.where(l > 0, l, 1.0)
+            pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v[:, kpos].float())
+            pair_out.append(pv / l_safe.transpose(1, 2))
+            pair_lse.append(torch.where(l > 0, m + torch.log(l_safe), float("-inf")))
+        lse = torch.logsumexp(torch.stack(pair_lse), dim=0)
+        outs.append(sum(o * torch.exp(p_lse - lse).transpose(1, 2)
+                        for o, p_lse in zip(pair_out, pair_lse)))
+    out = torch.cat(outs, dim=1).to(q.dtype)
+    return out[:, torch.argsort(torch.cat(shards))]
+
+
+#: the one-process runs of the references (``dist_reference_runs``): rows a
+#: micro-step, accumulation, and what else differs from ``one``
+DIST_REF_PLANS = {
+    # the global batch of 2 rows a micro-step: what the lines are held to
+    "one": dict(rows=TRAIN_ROWS, accum=2),
+    # the same rows one at a time (1 + 1, a data-parallel rank's split)
+    "split": dict(rows=1, accum=2 * TRAIN_ROWS),
+    # one's rows, attention through the zig-zag ring's decomposition over 2
+    # ranks in plain PyTorch (``zigzag_ring_plain_attention``)
+    "ring": dict(rows=TRAIN_ROWS, accum=2, ring=2),
+    # one and split with the router's aux term off
+    "one_noaux": dict(rows=TRAIN_ROWS, accum=2, cfg=dict(router_aux_loss_coef=0.0)),
+    "split_noaux": dict(rows=1, accum=2 * TRAIN_ROWS, cfg=dict(router_aux_loss_coef=0.0)),
+}
+
+
+def dist_reference_runs(model: str, labels) -> dict:
+    """One-process runs of ``DIST_MICRO`` micro-steps' rows of the lines'
+    Llama (``model="llama"``) or Mixtral layer (``"moe"``), one a label of
+    ``DIST_REF_PLANS``: losses per global batch, grad norms at the
+    optimizer steps, the median step and peak memory, the final weights."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.data_loader import SimpleDataLoader
+    from accelerate_tpu_torch.models import transformer
     from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    cfg = train_config(DIST_LAYERS)
-    _, dataset = train_data(cfg, repeats=DIST_MICRO // 2)
+    base = _dist_model_config({"model": model})
+    _, dataset = train_data(base, repeats=DIST_MICRO // 2)
     runs = {}
-    for label, rows, accum in (("one", TRAIN_ROWS, 2), ("split", 1, 2 * TRAIN_ROWS)):
+    attention = transformer.dot_product_attention
+    for label in labels:
+        plan = DIST_REF_PLANS[label]
+        rows = plan["rows"]
+        cfg = dataclasses.replace(base, **plan.get("cfg", {}))
         free_card()
         GradientState._reset_state()
         AcceleratorState._reset_state(reset_partial_state=True)
-        acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=accum)
-        model = train_model(cfg, seed=0)
-        state = acc.create_train_state(params=model, tx=LLAMA2_ADAMW)
-        step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=1.0)
-        loss, norms, step_s = [], [], []
-        for batch in acc.prepare(SimpleDataLoader(dataset, batch_size=rows)):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            loss.append(m["loss"].item())
-            if bool(m["applied"]):
-                norms.append(m["grad_norm"].item())
+        if plan.get("ring"):
+            transformer.dot_product_attention = lambda q, k, v, **kw: (
+                zigzag_ring_plain_attention(q, k, v, plan["ring"]))
+        try:
+            acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=plan["accum"])
+            net = train_model(cfg, seed=0)
+            state = acc.create_train_state(params=net, tx=LLAMA2_ADAMW)
+            step = acc.compile_train_step(lm_loss_fn(net), max_grad_norm=1.0)
+            loss, norms, step_s = [], [], []
+            torch.cuda.reset_peak_memory_stats()
+            for batch in acc.prepare(SimpleDataLoader(dataset, batch_size=rows)):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                loss.append(m["loss"].item())
+                if bool(m["applied"]):
+                    norms.append(m["grad_norm"].item())
+        finally:
+            transformer.dot_product_attention = attention
         per = TRAIN_ROWS // rows
         runs[label] = {"loss": [float(np.mean(loss[i:i + per])) for i in range(0, len(loss), per)],
                        "grad_norm": norms, "step_ms": float(np.median(step_s[1:])) * 1e3,
-                       "weights": {n: p.detach().cpu() for n, p in model.named_parameters()}}
-        del state, step, model, acc
+                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "weights": {n: p.detach().cpu() for n, p in net.named_parameters()}}
+        del state, step, net, acc
     free_card()
     return runs
 
@@ -3822,23 +4032,31 @@ def dist_phases(gpu, plain_rec) -> dict:
     - ``dist_world1``: this process through the process-group path over
       NCCL (a world of 1 on the reference's environment) with
       ``FullyShardedDataParallelPlugin(FULL_SHARD, fsdp_axis_size=-1)``,
-      ``train_2of32``'s model, batches and micro-steps: losses and final
-      weights bitwise ``train_2of32``'s (at fsdp size 1 the reference's
-      rules replicate everything).
+      ``train_2of32``'s model, batches and micro-steps: the step through
+      ``ShardedLayout`` (built whenever a process group is up), its losses
+      and final weights bitwise ``train_2of32``'s (at fsdp size 1 the
+      reference's rules replicate everything; the layout's global norm, an
+      all-reduce under NCCL, is the card's formula).  At a world of one
+      every collective is the identity: the line checks the rendezvous and
+      the layout's step, not a collective's sums (the two-rank lines do).
     - the probes: whether NCCL takes two ranks on one card, and which
       collectives gloo takes on card tensors (in the two-rank world)
       (``dist_probe``).
-    - ``dist_dp2``, ``dist_fsdp2``, ``dist_tp2``: two ranks on the one card,
-      each a node of one card (``ACCELERATE_LOCAL_PROCESS_ID=0``, process
-      ids 0/1, ``InitProcessGroupKwargs(backend="gloo")``): an emulation of
-      two nodes.  ``mesh={"dp": 2}``, ``{"fsdp": 2}`` (FULL_SHARD) and
-      ``{"tp": 2}``, 2 of 32 layers, the global batch 2 x 2048 tokens (one
-      row a rank on the data axes), accumulation 2, ``DIST_MICRO``
-      micro-steps; K3-K5 launched on both ranks.  Losses, grad norms and
-      every weight (each rank's blocks against the same blocks) against the
-      one-process run of the same global batch
-      within ``DIST_TOL_FACTOR`` x how far that run sits from the same rows
-      split 1 + 1 (``dist_reference``)."""
+    - ``DIST_LINES``: two ranks on the one card, each a node of one card
+      (``ACCELERATE_LOCAL_PROCESS_ID=0``, process ids 0/1,
+      ``InitProcessGroupKwargs(backend="gloo")``): an emulation of two
+      nodes.  ``dist_dp2``, ``dist_fsdp2`` (FULL_SHARD), ``dist_tp2``,
+      ``dist_pp2`` (GPipe, a layer a stage), ``dist_sp2`` (the zig-zag
+      ring) at 2 of 32 layers, ``dist_ep2`` at Mixtral's 1 of 32; the global
+      batch 2 x 2048 tokens (each rank its data shard's rows), accumulation
+      2, ``DIST_MICRO`` micro-steps.  Each rank's K3-K5 launches equal the
+      schedule's count; the replicated weights are bitwise equal across the
+      ranks; losses, grad norms and every weight (each rank's blocks
+      against the same blocks) against the one-process run of the same
+      global batch within ``DIST_TOL_FACTOR`` x how far that run sits from
+      a second one-process computation of the same function (``DIST_NOISE``:
+      ``dist_reference``, ``dist_reference_ring`` for the sp line,
+      ``dist_reference_moe`` for the Mixtral line)."""
     from accelerate_tpu_torch import launchers
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
     from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
@@ -3853,7 +4071,8 @@ def dist_phases(gpu, plain_rec) -> dict:
                 sharding_strategy="FULL_SHARD", fsdp_axis_size=-1)))
         state = PartialState()
         world1 = {"backend": state.backend, "num_processes": state.num_processes,
-                  "distributed_type": str(AcceleratorState().distributed_type)}
+                  "distributed_type": str(AcceleratorState().distributed_type),
+                  "sharded_layout": rec["sharded_layout"]}
     finally:
         if PartialState._shared_state.get("_initialized"):
             PartialState().destroy_process_group()
@@ -3866,7 +4085,8 @@ def dist_phases(gpu, plain_rec) -> dict:
     emit({"phase": "dist_world1_vs_train_2of32", "process_group": world1,
           "losses_bitwise": same_loss, "weights_bitwise": same_weights, "launches": launches,
           "gpu": gpu})
-    check(world1["backend"] == "nccl" and world1["num_processes"] == 1,
+    check(world1["backend"] == "nccl" and world1["num_processes"] == 1
+          and world1["sharded_layout"],
           f"dist_world1 ran over {world1}")
     check(same_loss and same_weights, "dist_world1 differs from train_2of32")
     del rec
@@ -3886,16 +4106,32 @@ def dist_phases(gpu, plain_rec) -> dict:
                      for r in range(2)]
         nccl_s = time.perf_counter() - t0
 
-        # --- the one-process references, then the two-rank world
-        refs = dist_reference_runs(gpu)
-        noise = _dist_diffs(refs["split"]["loss"], refs["split"]["grad_norm"], refs["one"],
-                            got_weights=refs["split"].pop("weights"))
-        torch.save(refs["one"].pop("weights"), os.path.join(out_dir, "one_weights.pt"))
-        tol = {k: DIST_TOL_FACTOR * v for k, v in noise.items()}
-        emit({"phase": "dist_reference", "layers": DIST_LAYERS, "micro_steps": DIST_MICRO,
-              "one": refs["one"], "split": refs["split"], "split_vs_one": noise,
-              "tolerance": tol, "tol_factor": DIST_TOL_FACTOR, "gpu": gpu})
-        lines = [("dist_dp2", {"dp": 2}), ("dist_fsdp2", {"fsdp": 2}), ("dist_tp2", {"tp": 2})]
+        # --- the one-process references: each model's ``one`` run and the
+        # second computations its lines' noise is read from (``DIST_NOISE``),
+        # then the two-rank world
+        refs, tols = {}, {}
+        for model in ("llama", "moe"):
+            mine = {noise: pair for noise, (m, *pair) in DIST_NOISE.items() if m == model}
+            labels = ["one", *sorted({lab for pair in mine.values() for lab in pair} - {"one"})]
+            runs = dist_reference_runs(model, labels)
+            for noise, (base, twin) in mine.items():
+                diff = _dist_diffs(runs[twin]["loss"], runs[twin]["grad_norm"], runs[base],
+                                   got_weights=runs[twin]["weights"])
+                tols[noise] = {k: DIST_TOL_FACTOR * v for k, v in diff.items()}
+                emit({"phase": DIST_NOISE_PHASES[noise], "pair": [base, twin],
+                      "plans": {lab: DIST_REF_PLANS[lab] for lab in (base, twin)},
+                      "layers": MOE_TRAIN_LAYERS if model == "moe" else DIST_LAYERS,
+                      "micro_steps": DIST_MICRO,
+                      "runs": {lab: {k: v for k, v in runs[lab].items() if k != "weights"}
+                               for lab in (base, twin)},
+                      "noise": diff, "tolerance": tols[noise], "tol_factor": DIST_TOL_FACTOR,
+                      "gpu": gpu})
+            torch.save(runs["one"].pop("weights"),
+                       os.path.join(out_dir, f"one_weights_{model}.pt"))
+            refs[model] = runs["one"]
+            del runs
+            free_card(host=True)
+        lines = DIST_LINES
         t0 = time.perf_counter()
         run_ranks(dist_rank, (out_dir, lines), 2, "the two-rank world")
         world_s = time.perf_counter() - t0
@@ -3903,41 +4139,58 @@ def dist_phases(gpu, plain_rec) -> dict:
         emit({"phase": "dist_probe", "gloo_on_card_tensors": [r["probe"] for r in ranks],
               "nccl_two_ranks_one_card": nccl_said, "nccl_launch_error": nccl_launch,
               "nccl_probe_s": nccl_s, "gpu": gpu})
-        dist_launches = {}
-        for name, mesh in lines:
+        dist_launches, checks = {}, []
+        for line in lines:
+            name, model = line["name"], line.get("model", "llama")
             per = [r[name] for r in ranks]
             norms = [n for n, a in zip(per[0]["grad_norm"], per[0]["applied"]) if a]
-            diff = _dist_diffs(per[0]["loss"], norms, refs["one"],
+            diff = _dist_diffs(per[0]["loss"], norms, refs[model],
                                weight_rel=per[0]["weight_rel"])
-            want_launch = DIST_MICRO * DIST_LAYERS
-            emit({"phase": name, "config": "llama2_7b", "layers": DIST_LAYERS, "of_layers": 32,
-                  "mesh": per[0]["mesh"], "ranks": 2, "emulation": "two nodes of one card each "
-                  "(local process index 0), gloo over localhost, on one H100",
+            noise = line.get("noise", model)
+            tol = tols[noise]
+            want_launch = line.get("launches", DIST_MICRO * DIST_LAYERS)
+            emit({"phase": name, "config": "mixtral_8x7b" if model == "moe" else "llama2_7b",
+                  "layers": MOE_TRAIN_LAYERS if model == "moe" else DIST_LAYERS,
+                  "of_layers": 32, "mesh": per[0]["mesh"], "ranks": 2,
+                  "emulation": "two nodes of one card each (local process index 0), gloo "
+                  "over localhost, on one H100: the times are the emulation's, not NVLink's",
+                  "model_parallel": line.get("mp"), "loss_fn": line.get("loss", "lm"),
                   "distributed_type": per[0]["distributed_type"],
                   "micro_steps": len(per[0]["loss"]), "loss": per[0]["loss"],
                   "grad_norm": per[0]["grad_norm"], "applied": per[0]["applied"],
                   "vs_one_process": diff, "tolerance": tol,
+                  "noise_reference": DIST_NOISE_PHASES[noise],
                   "launches_per_rank": [r["launches"] for r in per],
+                  "launches_want_per_rank": want_launch,
                   "step_ms_per_rank": [r["step_ms"] for r in per],
                   "step_ms_each_rank0": per[0]["step_ms_each"],
-                  "one_process_step_ms": refs["one"]["step_ms"],
+                  "one_process_step_ms": refs[model]["step_ms"],
+                  "one_process_max_memory_allocated_gb":
+                      refs[model]["max_memory_allocated_gb"],
                   "train_2of32_step_ms": plain_rec["step_ms"],
                   "max_memory_allocated_gb_per_rank": [r["max_memory_allocated_gb"]
                                                        for r in per],
+                  "params_held_per_rank": [r["params_held"] for r in per],
                   "block_checksums": [r["weights_checksum"] for r in per],
+                  "replicated_checksums": [r["replicated_checksum"] for r in per],
+                  "replicated_params": per[0]["replicated_params"],
                   "collectives": per[0].get("collectives"), "world_s": world_s, "gpu": gpu})
+            # every line printed before any is checked
             for r in per:
-                check(all(n == want_launch for n in r["launches"].values()),
-                      f"{name}: launches {r['launches']}, want {want_launch} each")
-                check(r["loss"] == per[0]["loss"], f"{name}: the ranks' losses differ")
-            if name == "dist_dp2":
-                check(per[0]["weights_checksum"] == per[1]["weights_checksum"],
-                      f"{name}: the replicas' weights differ")
+                checks.append((all(n == want_launch for n in r["launches"].values()),
+                               f"{name}: launches {r['launches']}, want {want_launch} each"))
+                checks.append((r["loss"] == per[0]["loss"], f"{name}: the ranks' losses differ"))
+            if line.get("replicated"):
+                checks.append((per[0]["replicated_params"] > 0
+                               and per[0]["replicated_checksum"] == per[1]["replicated_checksum"],
+                               f"{name}: the replicated weights differ across the ranks"))
             for key in ("loss_rel", "grad_norm_rel", "weight_rel"):
-                check(diff[key] <= tol[key],
-                      f"{name}: {key} {diff[key]} against the one-process run, tolerance "
-                      f"{tol[key]}")
+                checks.append((diff[key] <= tol[key],
+                               f"{name}: {key} {diff[key]} against the one-process run, "
+                               f"tolerance {tol[key]}"))
             dist_launches[name] = per[0]["launches"]
+        for ok, msg in checks:
+            check(ok, msg)
         coll = ranks[0]["dist_dp2"]["collectives"]
         check(coll["gather_for_metrics"] == [0.0, 1.0, 2.0, 10.0, 11.0, 12.0]
               and coll["gather_device"].startswith("cuda"),
@@ -3988,7 +4241,7 @@ def checkpoint_offload_phase(gpu) -> dict:
     from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    layers = 1
+    layers = 2
     cfg = train_config(layers)
     rng = np.random.default_rng(8)
     batches = [{"input_ids": torch.from_numpy(rng.integers(
@@ -4224,8 +4477,9 @@ def decode_step_ms(dec, tok, reps: int) -> float:
 
 
 def stream_offload_phase(model, cfg, rng, gpu) -> None:
-    """``stream_offload``: the same model under ``cpu_offload`` (all 13.5 GB
-    in one pinned host block, the two stream buffers on the card), one
+    """``stream_offload``: the model (``CUT_LAYERS`` of Llama-2-7B's layers)
+    under ``cpu_offload`` (all of it in one pinned host block, the two
+    stream buffers on the card), one
     prompt of 512 tokens, 16 greedy tokens through
     ``StreamingTransformer.generate``.  The prefill logits must be bitwise
     the resident model's on the same cache, and the tokens equal the
@@ -4626,7 +4880,7 @@ def main() -> int:
         knobs=dict(interleave_prefill=True))
     check(inter_tokens == tokens, "engine_interleave's greedy tokens differ from engine's")
     cancel_phase(model, cfg, gpu, prompts, tokens)
-    chunk_graph_phase(model, cfg, gpu)
+    chunk_graph_phase(*shallow_model(model, cfg, CUT_LAYERS), gpu)
     arm_launches = {fmt: engine_phase(model, cfg, rng, gpu, tol, kv_dtype=fmt)[0]
                     for fmt in pa.KV_FORMATS}
     # speculation: the tree arm on the engine line's prompts; the linear arm
@@ -4644,7 +4898,7 @@ def main() -> int:
     # big-model inference: the static generate loop on the resident model,
     # then the same weights streamed from pinned host memory
     generate_phase(model, cfg, rng, gpu, tol)
-    stream_offload_phase(model, cfg, rng, gpu)
+    stream_offload_phase(*shallow_model(model, cfg, CUT_LAYERS), rng, gpu)
     # the fleet surface (swap_params overwrites the model's weights: last),
     # then the router and the HTTP front door over its two weight sets
     fleet_launches, shell = fleet_phase(model, cfg, gpu, prompts)
@@ -4673,27 +4927,11 @@ def main() -> int:
     family_launches["router"] = router_launches
     family_launches["api"] = http_launches
 
-    flash = flash_phase([
-        ("train", 13, 2, 2048, 32, 32, bf16, True, False),
-        ("train", 14, 2, 2048, 32, 32, f32, True, False),
-        ("gqa", 15, 2, 2048, 32, 8, bf16, True, False),
-        ("segments3", 16, 2, 1024, 32, 32, bf16, True, True),
-        ("full512", 17, 2, 512, 32, 32, bf16, False, False),
-        ("gqa_d64", 18, 2, 2048, 32, 8, bf16, True, False, 64),
-        # the wide- and narrow-head families at the training shape (B 2, S
-        # 2048, causal), bf16 (wgmma) and f32 (CUDA cores); D 32 and 16
-        *[(label, 400 + 2 * i + j, 2, 2048, hq, hkv, dtype, True, False, d)
-          for i, (label, (hq, hkv, d)) in enumerate(WIDE_HEAD_SHAPES.items())
-          for j, dtype in enumerate((bf16, f32))],
-        ("gqa_d32", 420, 2, 2048, 32, 8, bf16, True, False, 32),
-        ("gqa_d32", 421, 2, 2048, 32, 8, f32, True, False, 32),
-        ("gqa_d16", 422, 2, 2048, 32, 8, bf16, True, False, 16),
-        ("gqa_d16", 423, 2, 2048, 32, 8, f32, True, False, 16),
-    ])
+    flash = flash_phase(FLASH_CASES + FLASH_KV_SEGMENT_CASES)
     train_launches, train_rec = train_phase(gpu, scrape=True)
     launches.update(train_launches)
     # single-card training memory: remat, the offloaded optimizer, and both
-    # at 16 of 32 layers
+    # at 8 of 32 layers
     train_lines = {"train_remat": train_remat_phase(gpu, train_rec)}
     remat_policies_phase(gpu)
     train_lines["train_offload"], plain_2of32 = train_offload_phase(gpu, train_rec)
@@ -4755,6 +4993,17 @@ def main() -> int:
             count, where = ((gemma_train_launches[flash_names[name]], "train_gemma") if d == 256
                             else (rec["launches"], f"{name} case {rec['case']}"))
             arms.append((rec, f"{flash_names[name]}[d{d}]", *flash_src[name], count, where))
+    # ring attention's arms (bf16): the f32 outputs of every pair, launched
+    # on dist_sp2's path (rank 0's count), and the keys' own segment ids, on
+    # their own kernel cases only
+    for name in ("k3", "k4", "k5"):
+        f32out = next(r for r in flash[name] if r["case"] == "ring_diag_f32out")
+        kvseg = next(r for r in flash[name]
+                     if r["case"] == "segments_kv" and r["dtype"] == "bfloat16")
+        arms.append((f32out, f"{flash_names[name]}[f32_out]", *flash_src[name],
+                     dist_launches["dist_sp2"][flash_names[name]], "dist_sp2"))
+        arms.append((kvseg, f"{flash_names[name]}[kv_segment_ids]", *flash_src[name],
+                     kvseg["launches"], f"{name} case segments_kv"))
     for rec, name, src, replaces, count, where in (
         (k1[0], "paged_attention", k1_src,
          "accelerate_tpu/ops/paged_attention.py:252", launches["paged_attention"], "engine"),

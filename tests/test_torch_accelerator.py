@@ -529,6 +529,9 @@ def test_ported_arguments_are_stored_as_the_reference_stores_them(case):
 
 
 def test_unported_attention_impls_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TransformerConfig.tiny(attention_impl="ring")
+    # every implementation of the JAX package is ported ("ring": ROADMAP 9e-ii
+    # b); a name it does not have is refused
+    assert TransformerConfig.tiny(attention_impl="ring").attention_impl == "ring"
+    with pytest.raises(ValueError, match="unknown attention implementation"):
+        TransformerConfig.tiny(attention_impl="splash")
     assert TransformerConfig.tiny(attention_impl="blocked").attention_impl == "blocked"

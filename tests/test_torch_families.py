@@ -362,17 +362,23 @@ def test_cached_attention_arms_match_jax(window, alibi):
     (dict(implementation="blocked", bias="alibi"), NotImplementedError, "'xla' only"),
     (dict(implementation="pallas", bias="alibi"), NotImplementedError, "'xla' only"),
     (dict(window=4, causal=False), ValueError, "requires causal=True"),
-    (dict(implementation="ring"), NotImplementedError, "ROADMAP Queue 1 item 9"),
+    (dict(implementation="ring"), ValueError, "needs the active mesh"),
 ])
 def test_attention_refusals_match_jax(kw, exc, match):
     q, k, v = _qkv(0, 1, 8, 4, 2)
     tkw = dict(kw, bias=torch.zeros(1)) if "bias" in kw else kw
+    if kw.get("implementation") == "ring":
+        # the ring arm needs an active mesh: none in either package
+        from accelerate_tpu.state import AcceleratorState as JAcceleratorState
+        from accelerate_tpu_torch.state import AcceleratorState
+
+        AcceleratorState._reset_state(reset_partial_state=True)
+        JAcceleratorState._reset_state(reset_partial_state=True)
     with pytest.raises(exc, match=match):
         dot_product_attention(*map(torch.from_numpy, (q, k, v)), **tkw)
-    if kw.get("implementation") != "ring":  # the JAX ring arm needs a mesh
-        jkw = dict(kw, bias=jnp.zeros(1)) if "bias" in kw else kw
-        with pytest.raises(exc, match=match):
-            jdpa(*map(jnp.asarray, (q, k, v)), **jkw)
+    jkw = dict(kw, bias=jnp.zeros(1)) if "bias" in kw else kw
+    with pytest.raises(exc, match=match):
+        jdpa(*map(jnp.asarray, (q, k, v)), **jkw)
 
 
 @pytest.mark.parametrize("window,alibi", [(4, False), (None, True)])
@@ -387,7 +393,7 @@ def test_tree_mask_refuses_window_and_alibi(window, alibi):
     (dict(quantization=8, use_fp8=True), ValueError, "mutually exclusive"),
     (dict(quantization=3), ValueError, "quantization must be"),
     (dict(use_fp8=True, fp8_format="E5M2"), ValueError, "fp8_format"),
-    (dict(attention_impl="ring"), NotImplementedError, "item 9"),
+    (dict(ring_attention_layout="spiral"), ValueError, "ring_attention_layout"),
     (dict(norm_type="batchnorm"), ValueError, "norm_type"),
     (dict(positional="sinusoidal"), ValueError, "positional"),
     (dict(mlp_variant="swish"), ValueError, "mlp_variant"),

@@ -162,7 +162,7 @@ def test_causal_mask_matches_jax(q_len, kv_len):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(implementation="blocked", window=8), "implementation='xla' only"),
-    (dict(implementation="ring"), "ROADMAP Queue 1 item 9"),
+    (dict(implementation="ring", window=8), "implementation='xla' only"),
     (dict(implementation="pallas", window=8), "implementation='xla' only"),
     (dict(implementation="pallas", bias=torch.zeros(1)), "implementation='xla' only"),
 ])

@@ -292,8 +292,13 @@ def test_shard_moe_params():
     params = {"w": torch.zeros(2)}
     assert moe.shard_moe_params(params, None) is params
     assert moe.shard_moe_params(params, {"dp": 4, "ep": 1}) is params
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        moe.shard_moe_params(params, {"ep": 2})
+    # an ep mesh (ROADMAP 9e-ii c): the experts' block of this position
+    # (rank 0 without a process group), other tensors untouched
+    name = "layers.0.moe_mlp.experts.up_proj.weight"
+    experts = {name: torch.arange(4 * 2 * 3.0).reshape(4, 2, 3), "w": params["w"]}
+    placed = moe.shard_moe_params(experts, {"ep": 2})
+    assert torch.equal(placed[name], experts[name][:2]) and placed["w"] is params["w"]
+    assert tuple(placed[name].atpu_sharding.spec) == ("ep", None, None)
 
 
 # ------------------------------------------------------------------ serving

@@ -233,11 +233,13 @@ def test_zero_stages_lower_as_the_reference():
 
 
 def test_later_model_parallel_degrees_raise():
-    for kw in (dict(pp_degree=2), dict(sp_degree=2), dict(expert_parallel_degree=2)):
-        with pytest.raises(NotImplementedError, match="9e-ii"):
-            ModelParallelPlugin(**kw)
-    assert ModelParallelPlugin(tp_degree=2).model_parallel_size == \
-        JModelParallelPlugin(tp_degree=2).model_parallel_size
+    # pp, sp and ep are ported (ROADMAP 9e-ii a-c): each degree is taken as
+    # the JAX plugin takes it
+    for kw in (dict(pp_degree=2), dict(sp_degree=2), dict(expert_parallel_degree=2),
+               dict(tp_degree=2), dict(pp_degree=2, sp_degree=2, num_micro_batches=4)):
+        got, want = ModelParallelPlugin(**kw), JModelParallelPlugin(**kw)
+        assert got.model_parallel_size == want.model_parallel_size
+        assert got.num_micro_batches == want.num_micro_batches
 
 
 # -------------------------------------------------------------- train parity

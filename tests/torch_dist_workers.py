@@ -73,9 +73,9 @@ def make_model(jparams, cfg_kw=None):
     from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
     from accelerate_tpu_torch.weights import params_from_jax
 
-    model = Transformer(TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
-                                               attention_impl="pallas", **(cfg_kw or {})),
-                        device="cpu")
+    model = Transformer(TransformerConfig.tiny(
+        dtype=torch.float32, param_dtype=torch.float32,
+        **{"attention_impl": "pallas", **(cfg_kw or {})}), device="cpu")
     model.load_state_dict(params_from_jax(jparams, device="cpu"))
     return model
 
@@ -489,3 +489,353 @@ def sequence(steps):
     (one spawn instead of one each)."""
     for name, args in steps:
         globals()[name](*args)
+
+
+# ------------------------------------------- pipeline, sequence and experts
+def ring_cases(out_dir, cases, arrays):
+    """Each case: ``ring_attention_sharded`` over the case's mesh on the
+    whole arrays (every rank the same ones); the output and the gradients
+    of ``sum(out * dout)``."""
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.parallel.ring_attention import ring_attention_sharded
+
+    _setup()
+    meshes = {}
+    for case in cases:
+        key = tuple(case["mesh"].items())
+        if key not in meshes:
+            meshes[key] = build_mesh(dict(case["mesh"]))
+        a = arrays[case["arrays"]]
+        q, k, v = (torch.from_numpy(a[n]).requires_grad_() for n in ("q", "k", "v"))
+        seg = torch.from_numpy(a["seg"]) if case.get("seg") else None
+        out = ring_attention_sharded(q, k, v, meshes[key], causal=case["causal"],
+                                     segment_ids=seg, layout=case["layout"],
+                                     remat=case.get("remat", False))
+        (out * torch.from_numpy(a["dout"])).sum().backward()
+        _dump(out_dir, case["tag"], {"out": _np(out), "dq": _np(q.grad), "dk": _np(k.grad),
+                                     "dv": _np(v.grad)})
+
+
+def _mp_accelerator(case, accum=2):
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.utils.dataclasses import (
+        FullyShardedDataParallelPlugin,
+        ModelParallelPlugin,
+    )
+
+    kw = {}
+    if case.get("mp"):
+        kw["megatron_lm_plugin"] = ModelParallelPlugin(**case["mp"])
+    if case.get("fsdp"):
+        kw["fsdp_plugin"] = FullyShardedDataParallelPlugin(**case["fsdp"])
+    return Accelerator(cpu=True, gradient_accumulation_steps=accum, mesh=case.get("mesh"),
+                       **kw)
+
+
+def _loss_of(case, model):
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.parallel.pipeline import pipeline_lm_loss_fn
+
+    if case.get("schedule"):
+        return pipeline_lm_loss_fn(model, num_microbatches=case.get("micro"),
+                                   schedule=case["schedule"])
+    return lm_loss_fn(model)
+
+
+def _held_state(state):
+    """This rank's whole weights, optimizer state and buffers of the
+    parameters it holds (gathered over the axes that cut them; another
+    pipeline stage's are left out)."""
+    from accelerate_tpu_torch.parallel.sharding import all_gather_along, gather_axes_order
+
+    layout = state.layout
+    out = {"params": {}, "opt": {}, "grads": {}}
+    for name, p in state.model.named_parameters():
+        e = layout.entries[name]
+        if not e["owned"]:
+            continue
+
+        def whole(t, spec):
+            if t.ndim == 0:
+                return t
+            for d, axis in gather_axes_order(spec):
+                t = all_gather_along(t, d, layout.mesh.group(axis))
+            return t
+
+        holder = p if e["master"] is None else e["master"]
+        spec = e["ospec"] if holder is not p else e["pspec"]
+        out["params"][name] = _np(whole(p.detach(), e["pspec"]))
+        out["opt"][name] = {k: _np(whole(v, spec) if isinstance(v, torch.Tensor)
+                                   else torch.tensor(v))
+                            for k, v in sorted(state.optimizer.state.get(holder, {}).items())}
+        on_master = e["master"] is not None and layout.shards_grads
+        g = (e["master"] if on_master else p).grad
+        if g is not None:
+            out["grads"][name] = _np(whole(g, e["ospec"] if on_master else e["pspec"]))
+    out["step"], out["micro_step"] = state.step, state.micro_step
+    return out
+
+
+def mp_train_cases(out_dir, cases, jparams_by_model, ids, rows, hyper):
+    """Each case: an Accelerator over its mesh and ModelParallelPlugin, the
+    model from the JAX package's weights (``case["model"]``), AdamW, its
+    data shard's rows of ``ids`` (``rows`` a global batch), ``case["calls"]``
+    micro-steps of ``compile_train_step`` with the case's loss; per call
+    the loss, grad norm and applied flag, after each applied step the whole
+    weights; ``save`` writes a checkpoint after the loop, ``load`` restores
+    one first (then nothing is trained); the held state is dumped."""
+    from accelerate_tpu_torch.data_loader import SimpleDataLoader
+    from accelerate_tpu_torch.parallel.mesh import num_data_shards
+
+    _setup()
+    for case in cases:
+        _reset()
+        acc = _mp_accelerator(case)
+        model = make_model(jparams_by_model[case.get("model", "dense")], case.get("cfg"))
+        state = acc.create_train_state(params=model, tx=_adamw(hyper))
+        records = []
+        loss_fn = _loss_of(case, model)
+        if case.get("load"):
+            acc.load_state(case["load"], state=state)
+        else:
+            loader = acc.prepare(SimpleDataLoader([{"input_ids": r} for r in ids],
+                                                  batch_size=rows // num_data_shards(acc.mesh)))
+            step = acc.compile_train_step(loss_fn, max_grad_norm=hyper["max_grad_norm"])
+            for i, batch in enumerate(loader):
+                if i >= case.get("calls", 10**9):
+                    break
+                state, m = step(state, batch)
+                rec = {k: float(m[k]) for k in ("loss", "grad_norm")}
+                rec["applied"] = bool(m["applied"])
+                if rec["applied"]:
+                    rec["params"] = _np(acc.get_state_dict(state))
+                records.append(rec)
+        if case.get("save"):
+            acc.save_state(case["save"], state=state)
+        shardings = {name: (tuple(p.shape), tuple(p.atpu_sharding.spec))
+                     for name, p in model.named_parameters()}
+        experts = {name: getattr(model.get_submodule(name.split(".experts.")[0]), "_atpu_ep",
+                                 None) is not None
+                   for name, _ in model.named_parameters() if ".moe_mlp.experts." in name}
+        _dump(out_dir, case["tag"], {"records": records, "shardings": shardings,
+                                     "held": _held_state(state), "experts_cut": experts,
+                                     "stash_peak": getattr(loss_fn, "stash_peak", None),
+                                     "mesh": dict(acc.mesh.shape)})
+
+
+def pipeline_fn_cases(out_dir, cases, arrays, jparams_by_model):
+    """Each case: a pipeline function on the whole inputs over its mesh, no
+    Accelerator: ``apply`` (``pipeline_apply`` of ``tanh(h @ w)`` layers:
+    outputs and the gradients of ``sum(out * dout)``) or ``loss``
+    (``pipeline_lm_loss_fn`` on the model from the JAX weights: the loss and
+    this rank's gradients, each rank its part); with ``forward``,
+    ``prepare_pipeline``'s logits too."""
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.parallel.pipeline import (
+        pipeline_apply,
+        pipeline_lm_loss_fn,
+        prepare_pipeline,
+    )
+
+    _setup()
+    meshes = {}
+    for case in cases:
+        key = tuple(case["mesh"].items())
+        if key not in meshes:
+            meshes[key] = build_mesh(dict(case["mesh"]))
+        mesh = meshes[key]
+        if case["kind"] == "apply":
+            a = arrays[case["arrays"]]
+            w = torch.from_numpy(a["w"]).requires_grad_()
+            mbs = torch.from_numpy(a["mbs"]).requires_grad_()
+
+            def stage_fn(local, x):
+                for i in range(local["w"].shape[0]):
+                    x = torch.tanh(x @ local["w"][i])
+                return x
+
+            out = pipeline_apply(stage_fn, {"w": w}, mbs, mesh=mesh)
+            (out * torch.from_numpy(a["dout"])).sum().backward()
+            # only the first stage reads the micro-batches
+            dmbs = np.zeros_like(a["mbs"]) if mbs.grad is None else _np(mbs.grad)
+            _dump(out_dir, case["tag"], {"out": _np(out), "dw": _np(w.grad), "dmbs": dmbs})
+            continue
+        model = make_model(jparams_by_model[case["model"]], case.get("cfg"))
+        params = {n: p for n, p in model.named_parameters()}
+        batch = {"input_ids": torch.from_numpy(arrays[case["arrays"]]["ids"])}
+        loss_fn = pipeline_lm_loss_fn(model, mesh=mesh, num_microbatches=case["micro"],
+                                      schedule=case["schedule"])
+        loss = loss_fn(params, batch)
+        loss.backward()
+        grads = {n: _np(p.grad) for n, p in params.items() if p.grad is not None}
+        out = {"loss": float(loss), "grads": grads,
+               "stash_peak": getattr(loss_fn, "stash_peak", None)}
+        if case.get("forward"):
+            with torch.no_grad():
+                out["logits"] = _np(prepare_pipeline(model, None, mesh=mesh,
+                                                     num_microbatches=case["micro"])(
+                    params, batch["input_ids"]))
+        _dump(out_dir, case["tag"], out)
+
+
+def ring_whole_inputs():
+    """q, k, v ``[2, 16, 4, 16]`` f32 of a whole-sequence ring forward."""
+    rng = np.random.default_rng(6)
+    return [rng.standard_normal((2, 16, 4, 16)).astype(np.float32) for _ in range(3)]
+
+
+def ring_refusals(out_dir):
+    """On a ``dp=2 x sp=2`` mesh: each refusal's exception type and message;
+    whether a batch-1 whole-sequence forward warned and gave the flash
+    arm's values; a whole-sequence forward that splits over the mesh (the
+    ring, through ``ring_attention_sharded``)."""
+    import logging
+
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig, lm_loss_fn
+    from accelerate_tpu_torch.ops.attention import dot_product_attention
+    from accelerate_tpu_torch.weights import init_params
+
+    _setup()
+    _reset()
+    acc = _mp_accelerator(dict(mesh={"dp": 2, "sp": 2}, mp=dict(sp_degree=2)))
+    out = {}
+
+    def caught(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 (the refusal is what is recorded)
+            return type(e).__name__, str(e)
+        return None
+
+    q = torch.zeros(2, 15, 4, 16)
+    out["indivisible_seq"] = caught(lambda: dot_product_attention(q, q, q,
+                                                                  implementation="ring"))
+    said = []
+    handler = logging.Handler()
+    handler.emit = lambda record: said.append(record.getMessage())
+    logging.getLogger("accelerate_tpu_torch.ops.attention").addHandler(handler)
+    q1 = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 16, 4, 16))
+                          .astype(np.float32))
+    got = dot_product_attention(q1, q1, q1, implementation="ring")
+    out["batch1_warned"] = any("UNSHARDED" in m for m in said) or torch.distributed.get_rank()
+    # a ring of one: the flash kernels' arm (their plain versions here)
+    out["batch1_close"] = torch.equal(got, dot_product_attention(q1, q1, q1,
+                                                                 implementation="pallas"))
+    # a whole sequence that splits over the mesh: the ring over it, unwarned
+    said.clear()
+    qkv = [torch.from_numpy(a) for a in ring_whole_inputs()]
+    out["whole_seq"] = _np(dot_product_attention(*qkv, implementation="ring",
+                                                 ring_layout="zigzag"))
+    out["whole_seq_warned"] = any("UNSHARDED" in m for m in said)
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                 attention_impl="ring", ring_attention_layout="zigzag")
+    model = Transformer(cfg, device="cpu")
+    model.load_state_dict(init_params(cfg, seed=0, device="cpu"))
+    ids = torch.ones(2, 6, dtype=torch.long)
+    out["zigzag_seq"] = caught(lambda: lm_loss_fn(model)(dict(model.named_parameters()),
+                                                         {"input_ids": ids}))
+    out["guard"] = caught(lambda: acc.compile_train_step(lambda p, b: torch.zeros(())))
+    _dump(out_dir, "refusals", out)
+
+
+def single_state(state):
+    """A one-process train state's weights, optimizer state and buffers by
+    parameter name, as numpy (``_held_state``'s layout)."""
+    out = {"params": {}, "opt": {}, "grads": {}}
+    for name, p in state.model.named_parameters():
+        out["params"][name] = _np(p.detach())
+        out["opt"][name] = {k: _np(v if isinstance(v, torch.Tensor) else torch.tensor(v))
+                            for k, v in sorted(state.optimizer.state.get(p, {}).items())}
+        if p.grad is not None:
+            out["grads"][name] = _np(p.grad)
+    out["step"], out["micro_step"] = state.step, state.micro_step
+    return out
+
+
+def load_ranks(out_dir, tag, world):
+    """Every rank's dump of ``tag``."""
+    out = []
+    for r in range(world):
+        with open(os.path.join(str(out_dir), f"{tag}_rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def train_single(jparams, cfg_kw, ids, rows, hyper, calls, save=None):
+    """``calls`` micro-steps of the one-process port (no process group) at
+    accumulation 2, ``save_state`` to ``save``; returns the whole state."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import SimpleDataLoader
+    from accelerate_tpu_torch.models.transformer import lm_loss_fn
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    GradientState._reset_state()
+    AcceleratorState._reset_state(reset_partial_state=True)
+    try:
+        acc = Accelerator(cpu=True, gradient_accumulation_steps=2)
+        model = make_model(jparams, cfg_kw)
+        state = acc.create_train_state(params=model, tx=_adamw(hyper))
+        loader = acc.prepare(SimpleDataLoader([{"input_ids": r} for r in ids], batch_size=rows))
+        step = acc.compile_train_step(lm_loss_fn(model), max_grad_norm=hyper["max_grad_norm"])
+        for i, batch in enumerate(loader):
+            if i >= calls:
+                break
+            state, _ = step(state, batch)
+        if save:
+            acc.save_state(save, state=state)
+        return single_state(state)
+    finally:
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+
+
+def restore_single(jparams, cfg_kw, hyper, ckpt_dir):
+    """A fresh one-process state restored from ``ckpt_dir``, whole."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    GradientState._reset_state()
+    AcceleratorState._reset_state(reset_partial_state=True)
+    try:
+        acc = Accelerator(cpu=True, gradient_accumulation_steps=2)
+        model = make_model(jparams, cfg_kw)
+        state = acc.create_train_state(params=model, tx=_adamw(hyper))
+        acc.load_state(ckpt_dir, state=state)
+        return single_state(state)
+    finally:
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+
+
+def pipeline_refusals(out_dir):
+    """The pipeline's refusals across processes: layers that do not split
+    into the stages (the loss and ``pipeline_apply``), and a loss not
+    marked ``_pp_aware`` on a ``pp`` mesh."""
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_lm_loss_fn
+    from accelerate_tpu_torch.weights import init_params
+
+    _setup()
+    _reset()
+
+    def caught(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 (the refusal is what is recorded)
+            return type(e).__name__, str(e)
+        return None
+
+    mesh = build_mesh({"pp": 4})
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
+    model = Transformer(cfg, device="cpu")
+    model.load_state_dict(init_params(cfg, seed=0, device="cpu"))
+    batch = {"input_ids": torch.ones(4, 8, dtype=torch.long)}
+    out = {"loss_layers": caught(lambda: pipeline_lm_loss_fn(model, mesh=mesh,
+                                                             num_microbatches=2)(
+        dict(model.named_parameters()), batch)),
+        "apply_layers": caught(lambda: pipeline_apply(
+            lambda p, x: x, {"w": torch.zeros(6, 2)}, torch.zeros(2, 1, 2), mesh=mesh))}
+    acc = _mp_accelerator(dict(mesh={"dp": 2, "pp": 2}, mp=dict(pp_degree=2)))
+    out["guard"] = caught(lambda: acc.compile_train_step(lambda p, b: torch.zeros(())))
+    _dump(out_dir, "refusals", out)
