@@ -54,6 +54,13 @@ policy (:mod:`~accelerate_tpu_torch.utils.remat`); the projections tag
 their products (``_tag_proj``) for ``"proj_saveable"``.  A forward with a
 cache, the serving path, is the same with or without it.
 
+Tensor-parallel serving (``ServingEngine(mesh=)``,
+:func:`~accelerate_tpu_torch.parallel.tensor_parallel.shard_serving_model`)
+marks the projections: q/k/v and gate/up hold a rank's column block, so
+attention runs on the rank's heads (their alibi slopes the global heads'),
+and ``_dense`` gathers the columns (no autograd) before the replicated
+``o_proj`` and ``down_proj`` and after ``lm_head``.
+
 ``attention_impl="ring"`` is sequence parallelism over the mesh's ``sp``
 axis (:mod:`~accelerate_tpu_torch.parallel.ring_attention`, its layout
 ``ring_attention_layout``): :func:`lm_loss_fn` runs the model on this
@@ -319,8 +326,11 @@ class KVCache:
 
     @classmethod
     def create(cls, config: "TransformerConfig", batch_size: int, max_len: int,
-               device=None, dtype: Optional[torch.dtype] = None) -> "KVCache":
-        shape = (config.num_layers, batch_size, max_len, config.num_kv_heads,
+               device=None, dtype: Optional[torch.dtype] = None,
+               tp_degree: int = 1) -> "KVCache":
+        """A zero slab; ``tp_degree`` keeps this rank's ``num_kv_heads /
+        tp_degree`` kv heads (tensor-parallel serving)."""
+        shape = (config.num_layers, batch_size, max_len, config.num_kv_heads // tp_degree,
                  config.resolved_head_dim)
         dtype = dtype or config.dtype
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -328,14 +338,16 @@ class KVCache:
                    index=torch.zeros(batch_size, dtype=torch.int32, device=device))
 
 
-def cached_attention(q, k, v, q_positions, window=None, alibi: bool = False,
+def cached_attention(q, k, v, q_positions, window=None, alibi=False,
                      tree_mask=None):
     """Attention of ``q [B,S,Hq,D]`` against a full cache ``k``/``v [B,M,Hkv,D]``.
 
     Causal arm: key slot ``j`` is visible to query ``i`` iff ``j <=
     q_positions[b, i]``; ``window`` adds the band ``j > q_positions[b, i] -
     window`` (Mistral), and ``alibi`` adds ``slope_h * (j - q_positions[b,
-    i])`` to the f32 logits (BLOOM, MPT).  Tree arm (``tree_mask``, an
+    i])`` to the f32 logits (BLOOM, MPT); ``alibi`` may also be the
+    slopes of ``q``'s heads, f32 ``[Hq]`` (a tensor-parallel rank's block of
+    the global heads').  Tree arm (``tree_mask``, an
     ``[S, S]`` ancestor-or-self mask or a
     :class:`~accelerate_tpu_torch.ops.paged_attention.TreeMask`): the ``S``
     tree nodes sit at the slots from each lane's frontier ``q_positions[:,
@@ -352,8 +364,10 @@ def cached_attention(q, k, v, q_positions, window=None, alibi: bool = False,
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() * d ** -0.5
     j = torch.arange(k.shape[1], device=q.device)
     tree = as_tree_mask(tree_mask)
+    slopes = alibi if isinstance(alibi, torch.Tensor) else (
+        alibi_slopes(n_q, q.device) if alibi else None)
     if tree is not None:
-        if window is not None or alibi:
+        if window is not None or slopes is not None:
             raise ValueError("tree_mask needs a full-causal model: sliding_window and "
                              "alibi are not supported under tree verification")
         anc_mask = tree.dense(q.device)                         # [S, S]
@@ -366,8 +380,8 @@ def cached_attention(q, k, v, q_positions, window=None, alibi: bool = False,
     else:
         key = j[None, None, None, None, :]
         query = q_positions[:, None, None, :, None]
-        if alibi:
-            slopes = alibi_slopes(n_q, q.device).reshape(n_kv, rep)
+        if slopes is not None:
+            slopes = slopes.reshape(n_kv, rep)
             logits = logits + slopes[None, :, :, None, None] * (key - query).float()
         mask = key <= query
         if window is not None:
@@ -486,8 +500,16 @@ def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype,
         tp = getattr(layer, "_atpu_tp", None)
         if tp is not None:
             return _tp_dense(layer, x, dtype, tp)
+        serve = getattr(layer, "_atpu_serve", None)
+        if serve is not None and serve[0] == "in":
+            # a replicated projection after column-parallel ones: the
+            # columns gathered first (tensor-parallel serving)
+            x = serve[1].gather(x)
         bias = None if layer.bias is None else layer.bias.to(dtype)
-        return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+        y = F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+        if serve is not None and serve[0] == "out":
+            y = serve[1].gather(y)
+        return y
 
 
 def _tp_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
@@ -581,6 +603,10 @@ class Attention(nn.Module):
             q = _apply_rope(q, positions, cfg)
             k = _apply_rope(k, positions, cfg)
         window, alibi = cfg.sliding_window, cfg.positional == "alibi"
+        if alibi and q.shape[2] != cfg.num_heads:
+            # a tensor-parallel rank's heads take the global heads' slopes
+            first = getattr(self, "_atpu_head_offset", 0)
+            alibi = alibi_slopes(cfg.num_heads, x.device)[first:first + q.shape[2]]
         if isinstance(cache, KVCache):
             # slab: write each lane at its own index (clamped as the
             # reference's dynamic_update_slice clamps), attend over the slab

@@ -270,7 +270,7 @@ def paged_quantized_insert(pages: torch.Tensor, scales: torch.Tensor, new: torch
 # ------------------------------------------------------------------ reference
 def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
                               k_scales=None, v_scales=None, window=None,
-                              alibi: bool = False, tree_mask=None):
+                              alibi=False, tree_mask=None):
     """Plain version of both kernels: live-masked gather + the slab attention math.
 
     ``q [N, S, Hq, D]`` against pages ``[NP, page, Hkv, D]`` through
@@ -282,7 +282,8 @@ def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
     token-tree visibility: node ``i`` sees the history ``j < lengths[n]``
     and the tree nodes its row of the mask names (the live pages are the
     same: the tree spans the same ``S`` slots).  ``window`` and ``alibi`` are
-    the slab math's sliding-window band and alibi bias
+    the slab math's sliding-window band and alibi bias (``alibi``: a flag,
+    or the slopes of ``q``'s heads)
     (``accelerate_tpu/ops/paged_attention.py:207-247``): the kernels have
     neither, so those models attend through this version only."""
     from ..models.transformer import cached_attention
@@ -313,7 +314,7 @@ def paged_attention_reference(q, pages_k, pages_v, tables, lengths,
 
 def paged_flash_prefill_reference(q, pages_k, pages_v, tables, lengths,
                                   k_scales=None, v_scales=None, window=None,
-                                  alibi: bool = False):
+                                  alibi=False):
     """Plain version of :func:`paged_flash_prefill`: chunk-wide queries share
     the decode reference's math (prior pages and the in-chunk causal triangle
     are one visibility rule), so this is a documented delegation

@@ -75,6 +75,7 @@ class Mesh:
             tuple(self.shape.values()))
         self.device_type = device_type
         self.device_mesh = None
+        self._host_group = None
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -103,6 +104,16 @@ class Mesh:
         if self.shape.get(axis, 1) <= 1 or self.device_mesh is None:
             return None
         return self.device_mesh.get_group(axis)
+
+    def host_group(self):
+        """A gloo group over every rank of the mesh, made on the first call
+        and kept: collectives of host tensors whatever the card's backend
+        (the serving engines' per-step plan exchange).  Every rank makes the
+        first call together (``dist.new_group`` is collective)."""
+        if self._host_group is None:
+            self._host_group = dist.new_group(ranks=self.devices.reshape(-1).tolist(),
+                                              backend="gloo")
+        return self._host_group
 
     def __repr__(self):
         return f"Mesh({self.shape}, device_type={self.device_type!r})"

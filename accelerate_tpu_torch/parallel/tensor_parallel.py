@@ -15,22 +15,39 @@ dim 1.
 How the step computes under these layouts is the Accelerator's (Megatron's
 column/row-parallel products on the rank's heads, ``models/transformer.py``'s
 ``_dense``); :func:`tp_kind` tells it which kind a parameter got.
-:data:`SERVING_TP_RULES` is kept for the engine's ``tp_axis=`` (ROADMAP
-Queue 1 item 9e-ii).  ``wrap_with_pp_rule``'s role, each pipeline stage
+:data:`SERVING_TP_RULES` place a served model (``ServingEngine(mesh=,
+tp_axis=)``): :func:`serving_tp` is the engine's group over the ``tp``
+axis, and :func:`shard_serving_model` keeps this rank's column block of
+q/k/v/gate/up/``lm_head`` (their biases with them) and marks where the
+serving forward gathers the columns back: the attention output before the
+replicated ``o_proj``, the MLP's product before the replicated
+``down_proj``, and the logits.  No contraction is split, so a sharded
+serve computes what one card computes.  ``wrap_with_pp_rule``'s role, each pipeline stage
 owning its layers, is the ``ShardedLayout``'s stage ownership
 (``parallel/sharding.py``, ``parallel/pipeline.py``'s ``layer_stage``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..utils.dataclasses import FullyShardedDataParallelPlugin
 from . import mesh as mesh_lib
 from .mesh import Mesh, NamedSharding, PartitionSpec
-from .sharding import logical_shape, make_opt_sharding_fn, make_param_sharding_fn, to_torch_spec
+from .sharding import (
+    all_gather_along,
+    logical_shape,
+    make_opt_sharding_fn,
+    make_param_sharding_fn,
+    to_torch_spec,
+)
 
 DEFAULT_TP_RULES: Tuple[Tuple[str, str], ...] = (
     (r"(q_proj|k_proj|v_proj|gate_proj|up_proj|lm_head)/kernel$", "out"),
@@ -139,5 +156,123 @@ def make_tp_sharding_fn(mesh: Mesh, plugin: Optional[FullyShardedDataParallelPlu
     return rule
 
 
-__all__ = ["DEFAULT_TP_RULES", "SERVING_TP_RULES", "make_tp_sharding_fn", "path_to_str",
-           "tp_kind"]
+# ------------------------------------------------------------------- serving
+@dataclasses.dataclass(frozen=True)
+class ServeTP:
+    """A serving engine's tensor-parallel group: ``size`` ranks, this one
+    ``rank``; ``group`` ``None`` is the default group (a world of one,
+    where every gather runs over a group of one)."""
+
+    group: Any
+    size: int
+    rank: int
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s last dim gathered from every rank, in rank order, with
+        no autograd (a CUDA graph captures it over NCCL)."""
+        return all_gather_along(x, -1, self.group)
+
+
+def serving_tp(mesh: Mesh, tp_axis: str = "tp") -> ServeTP:
+    """The group a ``ServingEngine(mesh=, tp_axis=)`` serves over.  The
+    engine runs one process a rank, every rank calling it alike, so a mesh
+    needs a process group, and one engine spans the whole mesh, which holds
+    the ``tp_axis`` only (a mesh of one rank in a world of one too).
+    Anything else is replicas over disjoint ranks, which a router over
+    processes would serve: ``NotImplementedError`` (ROADMAP Queue 1 item
+    9e-ii f)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise NotImplementedError(
+            "mesh= without a process group: tensor-parallel serving runs one process a "
+            "rank (launchers.py), and replicas on disjoint meshes in one process are not "
+            "ported yet: ROADMAP Queue 1 item 9e-ii f")
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+    tp = mesh_lib.mesh_axis_size(mesh, tp_axis)
+    world = dist.get_world_size()
+    if mesh.size != world or tp != mesh.size:
+        raise NotImplementedError(
+            f"mesh {mesh.shape} over a world of {world}: one serving engine spans a mesh of "
+            f"the {tp_axis!r} axis over every rank; replicas over other axes or disjoint "
+            "ranks are not ported yet: ROADMAP Queue 1 item 9e-ii f")
+    rank = mesh.coordinate()[tp_axis] if tp > 1 else 0
+    group = mesh.group(tp_axis)
+    return ServeTP(group, tp, rank)
+
+
+def _serving_split(name: str, shape: Sequence[int], size: int) -> bool:
+    """Whether :data:`SERVING_TP_RULES` split this matrix by its output
+    features over ``size`` ranks (its dim dividing; a group of one splits
+    every one into one block)."""
+    return (len(shape) == 2 and shape[0] % size == 0
+            and re.search(SERVING_TP_RULES[0][0], path_to_str(name)) is not None)
+
+
+def shard_serving_model(model: nn.Module, tp: ServeTP) -> Dict[str, slice]:
+    """Keep this rank's column block of every ``nn.Linear`` that
+    :data:`SERVING_TP_RULES` splits (rows of the ``[out, in]`` weight, and
+    the bias's block), and mark the serving forward's gathers
+    (``models/transformer.py``'s ``_dense``): ``o_proj`` and ``down_proj``
+    gather their input when the projections before them were split,
+    ``lm_head`` its output.  Each attention layer learns the global index of
+    its first head (alibi's slopes are the global heads').  The blocks are
+    copies (at a group of one the tensors stay the caller's).  Returns the
+    state-dict name -> row block of every split tensor, which
+    :func:`serving_block` applies to full tensors.  A model already sharded
+    for ``tp`` is returned as it is; head counts that do not divide
+    ``tp.size`` raise ``ValueError``."""
+    cfg = model.config
+    done = getattr(model, "_atpu_serve_tp", None)
+    if done is not None:
+        if done != tp:
+            raise ValueError("the model is already sharded for another tensor-parallel group")
+        return model._atpu_serve_blocks
+    if cfg.num_heads % tp.size or cfg.num_kv_heads % tp.size:
+        raise ValueError(f"num_heads {cfg.num_heads} / num_kv_heads {cfg.num_kv_heads} must "
+                         f"divide evenly over tp={tp.size}")
+    blocks: Dict[str, slice] = {}
+    split = set()
+    with torch.no_grad():
+        for name, module in model.named_modules():
+            if type(module) is not nn.Linear:
+                continue
+            w = module.weight
+            if not _serving_split(name + ".weight", w.shape, tp.size):
+                continue
+            n = w.shape[0] // tp.size
+            rows = slice(tp.rank * n, (tp.rank + 1) * n)
+            split.add(name)
+            blocks[name + ".weight"] = rows
+            if module.bias is not None:
+                blocks[name + ".bias"] = rows
+            if tp.size > 1:
+                module.weight = nn.Parameter(w.detach()[rows].clone(),
+                                             requires_grad=w.requires_grad)
+                if module.bias is not None:
+                    b = module.bias
+                    module.bias = nn.Parameter(b.detach()[rows].clone(),
+                                               requires_grad=b.requires_grad)
+            module._atpu_serve = ("out", tp) if name == "lm_head" else ("col", tp)
+    heads = cfg.num_heads // tp.size
+    for i, layer in enumerate(model.layers):
+        attn = layer.attn
+        if f"layers.{i}.attn.q_proj" in split:
+            attn.o_proj._atpu_serve = ("in", tp)
+            attn._atpu_head_offset = tp.rank * heads
+        mlp = getattr(layer, "mlp", None)
+        if mlp is not None and f"layers.{i}.mlp.up_proj" in split:
+            mlp.down_proj._atpu_serve = ("in", tp)
+    model._atpu_serve_tp = tp
+    model._atpu_serve_blocks = blocks
+    return blocks
+
+
+def serving_block(blocks: Dict[str, slice], name: str, full: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the full tensor ``full`` named ``name``
+    (:func:`shard_serving_model`'s ``blocks``; unsplit names whole)."""
+    rows = blocks.get(name)
+    return full if rows is None else full[rows]
+
+
+__all__ = ["DEFAULT_TP_RULES", "SERVING_TP_RULES", "ServeTP", "make_tp_sharding_fn",
+           "path_to_str", "serving_block", "serving_tp", "shard_serving_model", "tp_kind"]

@@ -113,6 +113,16 @@ class _Ticket:
         self.error: Optional[BaseException] = None
 
 
+def _refuse_mesh(engine) -> None:
+    """The front door drives single-card replicas (as the reference's
+    ``serve.py`` builds them): a tensor-parallel engine needs every rank
+    driven alike, which one driver thread in one process cannot do."""
+    if getattr(engine, "mesh", None) is not None:
+        raise NotImplementedError(
+            "the front door over a tensor-parallel engine (mesh=) is not ported yet: "
+            "ROADMAP Queue 1 item 9e-ii e-ii")
+
+
 class FrontDoor:
     """Owns the router + driver thread; the API server's only way in.
 
@@ -139,6 +149,8 @@ class FrontDoor:
         heartbeat_interval_s: float = 1.0,
         ticket_timeout_s: float = 120.0,
     ):
+        for engine in router.engines:
+            _refuse_mesh(engine)
         self.router = router
         self.model_name = str(model_name)
         self.idle_sleep_s = float(idle_sleep_s)
@@ -264,6 +276,7 @@ class FrontDoor:
         on the card in between."""
         def _do() -> int:
             built = engine() if callable(engine) else engine
+            _refuse_mesh(built)
             return self.router.add_replica(built)
 
         return self._call(_do, admin=True)

@@ -1,7 +1,8 @@
 """Continuous-batching serving engine on the paged or the slab KV pool.
 
 Port of :class:`accelerate_tpu.serving.engine.ServingEngine` with either
-pool and no mesh.  ``paged=True`` (the port's default, the path that runs
+pool, on one card or tensor-parallel over processes (``mesh=``, below).
+``paged=True`` (the port's default, the path that runs
 the kernels) serves from the refcounted page pool; ``paged=False`` (the
 reference's default) from the slab pool: one ``[L, slots, max_len, Hkv,
 D]`` slab a lane, prompts prefilled chunk by chunk into a batch-1 scratch
@@ -58,6 +59,27 @@ request's sampled tokens depend only on ``(rng_seed, request id)``.
 Arguments naming parts of the JAX engine the port has not ported raise
 ``NotImplementedError`` naming their ROADMAP item.
 
+Tensor-parallel serving (``mesh=build_mesh({"tp": N})``, ROADMAP 9e-ii e):
+the reference drives every device from one program through GSPMD; the port
+runs one process a device, so the engine is SPMD.  Every rank of the mesh
+builds it and makes the same ``submit``/``cancel``/``step``/``serve`` calls;
+the scheduler, the radix tree and the block tables are host state, the same
+on every rank.  Each rank keeps its column block of q/k/v/gate/up/lm_head
+(``SERVING_TP_RULES``, :func:`~accelerate_tpu_torch.parallel.
+tensor_parallel.shard_serving_model`) and its ``Hkv / tp`` kv heads of
+every page (or slab); K1 and K2 run on those heads, and the forward
+all-gathers the columns where the reference's GSPMD would: the attention
+output before ``o_proj``, the MLP's product before ``down_proj`` and the
+logits, so that every rank samples the same tokens from the same full
+logits.  Once a step the ranks exchange a digest of their plan and the
+mesh's first rank's clock (:class:`.scheduler.MeshSync`): a rank that
+plans otherwise raises on every rank instead of hanging in a collective,
+and deadlines and the service-time average read that one clock.  Over
+NCCL the windows and chunks are CUDA graphs with their gathers inside;
+gloo collectives cannot be captured, so over gloo (the CPU, or two ranks
+on one card) they run eagerly.  With a process group up the sharded path
+runs at every tp degree, 1 included (its gathers over a group of one).
+
 Telemetry (:mod:`accelerate_tpu_torch.telemetry`), as in the reference:
 every stats counter is mirrored into ``serve/<key>_total`` of the engine's
 registry, with the latency histograms (``serve/ttft_s``,
@@ -87,10 +109,12 @@ import itertools
 import math
 import time
 import weakref
+import zlib
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..logging import get_logger
@@ -109,6 +133,7 @@ from ..telemetry import (
     start_debug_server,
 )
 from ..telemetry.watchdog import tensor_signature
+from ..parallel.tensor_parallel import serving_block, serving_tp, shard_serving_model
 from . import costs, faults, transfer
 from .errors import AdmissionError
 from .graphs import WindowGraphs
@@ -130,9 +155,16 @@ from .pool import (
     tree_verify_window,
     verify_window,
 )
-from .prefix_cache import PrefixCache
+from .prefix_cache import PrefixCache, rank_disk_dir
 from .readback import CacheTransfer, Readback, stage
-from .scheduler import Request, RequestState, Scheduler
+from .scheduler import (
+    POISONED_DIGEST,
+    MeshSync,
+    Request,
+    RequestState,
+    Scheduler,
+    plan_digest,
+)
 from .spec_exec import (
     NgramDrafter,
     TreeDrafter,
@@ -351,8 +383,23 @@ class ServingEngine:
         lanes): the disaggregated split behind
         ``ReplicaRouter(policy="disaggregated")``.  Needs ``paged=True``.
 
-    ``mesh`` and ``tp_axis`` other than ``"tp"`` raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 9e-ii).
+    mesh: a :class:`~accelerate_tpu_torch.parallel.mesh.Mesh` of the
+        ``tp_axis`` over every rank of the process group
+        (``build_mesh({"tp": N})``): tensor-parallel serving, the module
+        docstring's SPMD engine, built and driven alike on every rank.
+        ``None`` (default) serves on one card, as before.  Head counts that
+        do not divide ``N`` raise the reference's ``ValueError``.  A mesh
+        with no process group, or one over other axes (replicas on disjoint
+        ranks), raises ``NotImplementedError`` (ROADMAP Queue 1 item 9e-ii
+        f); so do weight-quantized, fp8 and MoE models under a mesh (item
+        9e-ii e-ii).  ``metrics_port`` binds on the mesh's first rank only
+        (two ranks on one host cannot bind one port).  Under tp ``params``
+        and :meth:`swap_params` take the full weights; each rank keeps its
+        block.  The model's full weights may lie on the host (or come there
+        as ``params``): each rank then copies only its blocks and the
+        replicated tensors to the card, so no card holds the whole model.
+        A ``prefix_disk_dir`` gets one subdirectory a rank.
+    tp_axis: the mesh axis the heads and columns split over (default ``"tp"``).
     """
 
     #: read by ``__init__``: capture the windows, and the prefill chunks, as
@@ -425,10 +472,19 @@ class ServingEngine:
         if (prefix_host_mb or 0.0) and not (self.paged and prefix_cache_mb):
             raise ValueError("prefix_host_mb spills prefix pages; it requires paged=True and "
                              "an enabled prefix cache (prefix_cache_mb > 0)")
+        #: tensor-parallel serving: the mesh, its axis and this rank's group
+        #: (``None`` without a mesh)
+        self.mesh, self.tp_axis = mesh, tp_axis
+        self._tp = None
+        if mesh is None and getattr(model, "_atpu_serve_tp", None) is not None:
+            raise ValueError("the model holds a tensor-parallel engine's blocks: serve it on "
+                             "that mesh, or build a model of its own")
         if mesh is not None:
-            raise _not_ported("mesh= (tensor-parallel serving)", "9e-ii")
-        if tp_axis != "tp":
-            raise _not_ported("tp_axis= (tensor-parallel serving)", "9e-ii")
+            self._tp = serving_tp(mesh, tp_axis)
+            mcfg = model.config
+            if mcfg.quantization is not None or mcfg.use_fp8 or mcfg.num_experts > 0:
+                raise _not_ported("mesh= serving of weight-quantized, fp8 and MoE models",
+                                  "9e-ii e-ii")
         #: "prefill" runs chunked prefill only: a lane whose last chunk
         #: landed never dispatches a decode window here, it waits for the
         #: router's prefill handoff (:mod:`.transfer`) onto a decode-role
@@ -451,8 +507,8 @@ class ServingEngine:
         self.prefill_kernel = prefill_kernel or self.decode_kernel
         #: label of the parameter set served
         self.weights_version = str(weights_version)
-        #: tensor-parallel degree (one card: the router's health reads it)
-        self.tp_degree = 1
+        #: tensor-parallel degree (the router's health reads it)
+        self.tp_degree = self._tp.size if self._tp is not None else 1
         self.async_depth = int(async_depth)
         if self.async_depth not in (0, 1):
             raise ValueError(f"async_depth must be 0 (synchronous) or 1 (depth-1 pipeline), "
@@ -460,8 +516,15 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.metrics = registry if registry is not None else get_registry()
         if params is not None:
+            blocks = getattr(model, "_atpu_serve_blocks", None)
+            if blocks is not None:
+                # a model another engine of the mesh sharded: its blocks
+                params = {n: serving_block(blocks, n, t).clone() for n, t in params.items()}
             model.load_state_dict(params, assign=True)
-        if model.device != self.device:
+        # under a mesh the full weights may lie on the host: each rank cuts
+        # its blocks there and copies them alone to the card (below)
+        on_host = self._tp is not None and model.device.type == "cpu"
+        if model.device != self.device and not on_host:
             raise ValueError(f"model weights lie on {model.device}, engine runs on {self.device}")
         cfg = model.config
         self.model = model
@@ -531,7 +594,7 @@ class ServingEngine:
                                  else self.num_slots * (self.max_len // self.page_size) + 1)
             self.kv = PagedKVPool(cfg, self.num_slots, self.max_len, self.page_size,
                                   self.num_pages, kv_dtype=kv_dtype, device=self.device,
-                                  registry=self.metrics)
+                                  registry=self.metrics, mesh=mesh, tp_axis=tp_axis)
             kv = self.kv
             self._pool = (kv.pages_k, kv.pages_v, kv.k_scales, kv.v_scales)
             self.quantized = kv.quantized
@@ -541,22 +604,30 @@ class ServingEngine:
             # accelerate_tpu/serving/engine.py:600-602); their index is the
             # engine's static ``_index`` / ``_chunk_base``, so only k and v
             # are used from these
-            self.pool = KVCache.create(cfg, self.num_slots, self.max_len, device=self.device)
-            self.scratch = KVCache.create(cfg, 1, self.max_prompt_len, device=self.device)
+            tp = self.tp_degree
+            self.pool = KVCache.create(cfg, self.num_slots, self.max_len, device=self.device,
+                                       tp_degree=tp)
+            self.scratch = KVCache.create(cfg, 1, self.max_prompt_len, device=self.device,
+                                          tp_degree=tp)
             self.quantized = False
-            kv_bytes_per_token = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim
-                                  * self.pool.k.element_size())
+            kv_bytes_per_token = (2 * cfg.num_layers * (cfg.num_kv_heads // tp)
+                                  * cfg.resolved_head_dim * self.pool.k.element_size())
         host_bytes = int((prefix_host_mb or 0.0) * 2**20)
         disk_bytes = int((prefix_disk_mb or 0.0) * 2**20)
         if disk_bytes and not host_bytes:
             raise ValueError("prefix_disk_mb sits behind the host ring; set prefix_host_mb")
         self.prefix_cache: Optional[PrefixCache] = None
         if prefix_cache_mb:
+            if disk_bytes and self._tp is not None:
+                # each rank spills its own heads: two ranks on one host must
+                # not write the same files
+                prefix_disk_dir = rank_disk_dir(prefix_disk_dir, self._tp.rank)
             self.prefix_cache = PrefixCache(
                 int(prefix_cache_mb * 2**20),
                 on_evict=self._on_prefix_evict if self.paged else None,
                 host_capacity_bytes=host_bytes, spill=self._spill_node if host_bytes else None,
-                disk_capacity_bytes=disk_bytes, disk_dir=prefix_disk_dir, registry=self.metrics)
+                disk_capacity_bytes=disk_bytes, disk_dir=prefix_disk_dir, registry=self.metrics,
+                shards=self.tp_degree)
         # prefix-cache spills and promotions enqueued since the last
         # dispatch: they ride the next window and settle at its drain
         self._pending_spills: List[CacheTransfer] = []
@@ -603,9 +674,16 @@ class ServingEngine:
         if self.tree is not None:
             # tree speculation: the draft model, its context window, and the
             # ancestor mask with its packed words on the card, made once
+            if getattr(model, "_atpu_serve_blocks", None) is not None:
+                raise ValueError("draft_model= on a model another engine already sharded: "
+                                 "the draft is replicated and needs the full weights; build "
+                                 "this engine on a model of its own")
             draft_cfg, draft_sd = build_draft(cfg, model.state_dict(), draft_model,
                                               draft_ctx=self.draft_ctx, depth=self.tree_depth,
                                               device=self.device)
+            # a tensor-parallel model handed over on the host: the draft's
+            # full layers go to the card (elsewhere .to keeps them shared)
+            draft_sd = {k: v.to(self.device) for k, v in draft_sd.items()}
             self.draft = draft_transformer(draft_cfg, draft_sd, self.device)
             self._tree_mask = TreeMask(self.tree.anc)
             # both device copies made now, never inside a capture: K1's
@@ -618,6 +696,20 @@ class ServingEngine:
                                        make_draft_forward(self.draft, self.tree, self.draft_ctx))
         elif self.speculate_k:
             self._ngram = self.drafter = NgramDrafter(max_ngram=self.speculate_ngram)
+        # tensor parallel: the served model keeps this rank's blocks (after
+        # the draft, which is replicated, took the full weights), and the
+        # ranks' per-step exchange is set up
+        self._tp_blocks = None
+        self._sync: Optional[MeshSync] = None
+        #: the mesh clock: its first rank's, exchanged once a step
+        self._mesh_now = 0.0
+        self._tok_crc = 0
+        if self._tp is not None:
+            self._tp_blocks = shard_serving_model(model, self._tp)
+            self._sync = MeshSync(mesh)
+            # weights handed over on the host: only this rank's blocks (and
+            # the replicated tensors) reach the card
+            model.to(self.device)
         self._next_rid = 0
         self._slot_ever_used = np.zeros(n, bool)
         #: plain counters, the reference's first; ``prefill_s`` / ``decode_s``
@@ -733,7 +825,12 @@ class ServingEngine:
         self._migrate_install: Optional[RecompileWatchdog] = None
         self.graphs: Optional[WindowGraphs] = None
         if dev.type == "cuda" and (self._graph_windows or self._graph_chunks):
-            self.graphs = WindowGraphs(dev)
+            if self._tp is not None and dist.get_backend(self._tp.group) != "nccl":
+                logger.warning("ServingEngine: the tensor-parallel group is not NCCL (gloo "
+                               "collectives cannot be captured): windows and chunks run "
+                               "eagerly, stats['graph_captures'] stays 0")
+            else:
+                self.graphs = WindowGraphs(dev)
         # the captures' warm-ups write the null page, which inactive lanes
         # read back: restore it, so that a graphed engine starts where an
         # eager one does
@@ -752,8 +849,10 @@ class ServingEngine:
                 self._capture(self._chunk_key(b), fn, lambda: None, f"prefill_{b}")
         for t, saved in null:
             t[:, NULL_PAGE].copy_(saved)
-        self.debug_server = start_debug_server(metrics_port, registry=self.metrics,
-                                               recorder=self.recorder)
+        # one debug server a host: the mesh's first rank binds it
+        first = self._tp is None or self._tp.rank == 0
+        self.debug_server = (start_debug_server(metrics_port, registry=self.metrics,
+                                                recorder=self.recorder) if first else None)
         if self.debug_server is not None:
             self.debug_server.add_collector(self.analyze_costs)
         _LIVE_ENGINES.add(self)
@@ -1224,7 +1323,7 @@ class ServingEngine:
             req = self._slot_req[s]
             if req is None or req.deadline_s is None or not self._active[s]:
                 continue
-            elapsed = now - req.submit_time
+            elapsed = self._since_submit(req, now)
             if elapsed <= req.deadline_s:
                 live = True
                 continue
@@ -1236,7 +1335,7 @@ class ServingEngine:
         for req in list(self.scheduler.queue):
             if req.deadline_s is None:
                 continue
-            elapsed = now - req.submit_time
+            elapsed = self._since_submit(req, now)
             if elapsed <= req.deadline_s:
                 live = True
                 continue
@@ -1245,6 +1344,31 @@ class ServingEngine:
             self._shed(req, "queued", elapsed)
         self._has_deadlines = live or any(r.deadline_s is not None
                                           for r in self.scheduler.prefills)
+
+    def _since_submit(self, req: Request, now: float) -> float:
+        """Seconds since ``req``'s submit, for the decisions a clock makes
+        (deadlines, the service-time average): ``now - submit_time`` on one
+        card; under a mesh on the mesh clock, the same on every rank."""
+        if self._sync is None:
+            return now - req.submit_time
+        t0 = req.mesh_time if req.mesh_time is not None else self._mesh_now
+        return self._mesh_now - t0
+
+    def _mesh_exchange(self) -> None:
+        """A tensor-parallel step's first act: every rank's plan digest
+        (lanes, write indices, queue and prefills, the counters, the tokens
+        landed so far) and clock go round (:class:`.scheduler.MeshSync`); a
+        rank whose digest departs raises on every rank.  Requests submitted
+        since take the mesh clock as their start."""
+        sched = self.scheduler
+        digest = plan_digest(self._active, self._lane_len, np.asarray([
+            self._step_count, self._next_rid, sched.queue_depth, len(sched.prefills),
+            int(self.admission_paused), self.stats["tokens_generated"], self._tok_crc,
+            int(self._inflight is not None)], np.int64))
+        self._mesh_now = self._sync.exchange(digest, clock())
+        for req in (*sched.queue, *sched.prefills, *self._slot_req):
+            if req is not None and req.mesh_time is None:
+                req.mesh_time = self._mesh_now
 
     # ------------------------------------------------------- drain / hot swap
     def pause_admission(self) -> None:
@@ -1278,7 +1402,9 @@ class ServingEngine:
 
         Requires :attr:`drained` (``RuntimeError`` otherwise).  Raises
         ``ValueError``, before anything changes, when a name, shape, dtype
-        or device differs (a graph cannot take another shape), and
+        or device differs (a graph cannot take another shape; under a mesh
+        ``params`` holds the full weights, each rank copies in its block,
+        and the blocks are checked), and
         ``RuntimeError`` naming the engine when another live engine reads
         the same storage (the swap would change its tokens).  An injected
         ``hot_swap_upload`` fault raises before any state changes.  The
@@ -1292,7 +1418,10 @@ class ServingEngine:
                 "engine.drained): active lanes or an in-flight window would mix weight "
                 "versions mid-request")
         targets = self.model.state_dict(keep_vars=True)
-        new = dict(params)
+        full = dict(params)
+        # tensor parallel: the full weights, of which each rank keeps its block
+        new = (full if self._tp_blocks is None else
+               {n: serving_block(self._tp_blocks, n, t) for n, t in full.items()})
         if set(new) != set(targets):
             missing, extra = sorted(set(targets) - set(new)), sorted(set(new) - set(targets))
             raise ValueError(f"swap_params: names differ from the served model's "
@@ -1321,7 +1450,7 @@ class ServingEngine:
                 # layers (where it aliases the served tensors, it has them)
                 for name, t in self.draft.state_dict(keep_vars=True).items():
                     if t.data_ptr() != targets[name].data_ptr():
-                        t.copy_(new[name])
+                        t.copy_(full[name])
         old = self.weights_version
         if version is not None:
             self.weights_version = str(version)
@@ -2342,6 +2471,8 @@ class ServingEngine:
         first_eos = np.where(has_eos, is_eos.argmax(axis=1), width)
         n_take = np.minimum(valid.sum(axis=1), first_eos + 1)
         now = clock()
+        if self._sync is not None:
+            self._tok_crc = zlib.crc32(toks.tobytes(), self._tok_crc)
         for s in np.nonzero(n_take > 0)[0]:
             req = reqs[s]
             if req is None:
@@ -2392,7 +2523,7 @@ class ServingEngine:
         req.state = RequestState.DONE
         req.finish_step = self._step_count
         # the submit-to-done average behind submit's deadline estimate
-        dur = max(now - req.submit_time, 0.0)
+        dur = max(self._since_submit(req, now), 0.0)
         self._service_ema = (dur if self._service_ema == 0.0
                              else 0.8 * self._service_ema + 0.2 * dur)
         self._bump("requests_completed")
@@ -2414,6 +2545,11 @@ class ServingEngine:
         Fault containment: the first exception to escape a step parks in
         the engine and every later step raises it, until :meth:`revive`."""
         if self._poisoned is not None:
+            if self._sync is not None:
+                # the other ranks must not step on alone into a collective:
+                # the poison goes round as a digest no plan makes, so a rank
+                # without it raises PlanDivergence, and so does this one
+                self._sync.exchange(POISONED_DIGEST, clock())
             raise self._poisoned
         try:
             self._step_impl()
@@ -2423,6 +2559,8 @@ class ServingEngine:
             raise
 
     def _step_impl(self) -> None:
+        if self._sync is not None:
+            self._mesh_exchange()
         if self._has_deadlines:
             self._shed_blown_deadlines()
         if (faults.ACTIVE is not None and self.paged and self._active.any()
@@ -2602,10 +2740,12 @@ class ServingEngine:
         return snap
 
     def kv_pool_bytes(self) -> int:
-        """Card bytes the KV state occupies: the page pool (pages and
-        scales), or the slab pool plus the prefill scratch."""
+        """Card bytes the KV state occupies on this device: the page pool
+        (pages and scales), or the slab pool plus the prefill scratch.
+        Under a tp mesh each rank holds ``1 / tp_degree`` of them (the
+        kv-head axis splits exactly), as the reference reports."""
         if self.paged:
-            return self.kv.kv_bytes()
+            return self.kv.kv_bytes_per_device()
         return sum(t.numel() * t.element_size()
                    for t in (self.pool.k, self.pool.v, self.scratch.k, self.scratch.v))
 

@@ -24,6 +24,13 @@ credits it (:func:`~accelerate_tpu_torch.ops.paged_attention.
 credit_launches`, and ``ops.fp8.launches`` for an fp8 model's
 ``_scaled_mm`` products), so the counters keep meaning launches on the
 card.  A capture that fails raises: nothing falls back to the eager window.
+
+Under tensor-parallel serving over NCCL the column gathers of a window's
+forward (``ServingEngine(mesh=)``) run inside the captured graph: the
+warm-up makes the group's communicator, and each replay gathers the new
+columns (a group of one copies them).  Gloo's collectives run on the host
+and cannot be captured: an engine whose group is gloo captures nothing and
+runs its windows eagerly (the engine logs why when it is built).
 """
 
 from __future__ import annotations

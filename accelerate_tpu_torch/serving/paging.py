@@ -23,7 +23,10 @@ that lands in pages it owns alone.
   ``[L, num_pages, page_size, Hkv, Dh]`` in the storage dtype (native, bf16,
   int8 or fp8-e4m3), f32 dequantization scales ``[L, num_pages, Hkv]``
   (ones; quantized pages rewrite theirs at every insert) and per-lane block
-  tables.
+  tables.  With ``mesh=`` (tensor-parallel serving, one process a rank) the
+  pages and scales shard on the kv-head axis: each rank holds ``Hkv / tp``
+  heads of every page, while the allocator and the block tables, host
+  state, are the same on every rank.
 """
 
 from __future__ import annotations
@@ -112,12 +115,18 @@ class PagedKVPool:
     ``accelerate_tpu/serving/paging.py:136``).  ``registry``: where the
     ``serve/kv_pages_*``, ``serve/kv_bytes_shared`` and
     ``serve/kv_bytes_per_token`` gauges live (default: the process
-    registry); :meth:`publish_gauges` refreshes them."""
+    registry); :meth:`publish_gauges` refreshes them.  ``mesh``/``tp_axis``:
+    the pages and scales hold this rank's ``Hkv / tp`` kv heads
+    (``accelerate_tpu/serving/paging.py:147-240``); the byte accounting
+    (:meth:`kv_bytes`, :meth:`chunk_bytes`, the budgets that charge it)
+    stays the whole pool's, :meth:`kv_bytes_per_device` and
+    ``serve/kv_bytes_per_token`` are a rank's."""
 
     def __init__(self, config, num_slots: int, max_len: int, page_size: int,
                  num_pages: int, kv_dtype: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None, mesh=None,
+                 tp_axis: str = "tp"):
         if max_len % page_size != 0:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         self.device = resolve_device(device)
@@ -135,9 +144,18 @@ class PagedKVPool:
         self.kv_dtype = kv_dtype
         self.storage_dtype = kv_storage_dtype(kv_dtype, cfg.dtype)
         self.quantized = kv_qmax(self.storage_dtype) is not None
-        shape = (cfg.num_layers, self.num_pages, self.page_size,
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        scale_shape = (cfg.num_layers, self.num_pages, cfg.num_kv_heads)
+        self.mesh, self.tp_axis = mesh, tp_axis
+        self.tp_degree = 1
+        if mesh is not None:
+            from ..parallel.mesh import mesh_axis_size
+
+            self.tp_degree = mesh_axis_size(mesh, tp_axis)
+        if cfg.num_kv_heads % self.tp_degree != 0:
+            raise ValueError(f"num_kv_heads {cfg.num_kv_heads} must divide evenly over "
+                             f"tp={self.tp_degree} to shard the page pool on the head axis")
+        heads = cfg.num_kv_heads // self.tp_degree
+        shape = (cfg.num_layers, self.num_pages, self.page_size, heads, cfg.resolved_head_dim)
+        scale_shape = (cfg.num_layers, self.num_pages, heads)
         self.pages_k = torch.zeros(shape, dtype=self.storage_dtype, device=self.device)
         self.pages_v = torch.zeros(shape, dtype=self.storage_dtype, device=self.device)
         # per-(layer, page, kv-head) dequantization scales: ones, the no-op
@@ -167,8 +185,9 @@ class PagedKVPool:
                  "(sum of (refs-1) * page_bytes over shared pages)")
         registry.gauge(
             "serve/kv_bytes_per_token",
-            help="KV bytes one token costs across all layers at the pool's "
-                 "storage dtype, amortized per-page scales included",
+            help="per-device KV bytes one token costs across all layers at the "
+                 "pool's storage dtype, amortized per-page scales included (the "
+                 "head axis divides exactly over tp when sharded)",
         ).set(self.kv_bytes_per_token)
         self.publish_gauges()
 
@@ -221,9 +240,10 @@ class PagedKVPool:
 
     @property
     def kv_bytes_per_token(self) -> float:
-        """KV bytes one token costs across all layers at the storage dtype,
-        the per-page scales amortized (``serve/kv_bytes_per_token``)."""
-        return self.page_kv_bytes / self.page_size
+        """KV bytes one token costs a device across all layers at the
+        storage dtype, the per-page scales amortized
+        (``serve/kv_bytes_per_token``)."""
+        return self.page_kv_bytes / self.page_size / self.tp_degree
 
     def chunk_bytes(self, npages: int) -> int:
         """Bytes ``npages`` pages of KV cost: K+V at the storage dtype plus
@@ -233,7 +253,12 @@ class PagedKVPool:
         return int(npages) * self.page_kv_bytes
 
     def kv_bytes(self) -> int:
-        """Device bytes held by the page and scale arrays (null page included)."""
+        """Bytes of the whole pool's page and scale arrays (null page
+        included), over every rank of a mesh."""
+        return self.kv_bytes_per_device() * self.tp_degree
+
+    def kv_bytes_per_device(self) -> int:
+        """This rank's share of :meth:`kv_bytes`: its pages and scales."""
         return sum(t.numel() * t.element_size()
                    for t in (self.pages_k, self.pages_v, self.k_scales, self.v_scales))
 

@@ -49,6 +49,13 @@ device scalar (0 for native pages and slabs), the reference's ``quant_err`` outp
 (``accelerate_tpu/serving/pool.py:745-849``); nothing here reads it back.
 ``plain=True`` (the engine's ``decode_kernel="xla"``) routes a paged
 program's attention to the kernels' plain versions.
+Under tensor-parallel serving (``ServingEngine(mesh=)``, the reference's
+``ServeShardings``, ``accelerate_tpu/serving/pool.py:66-113``) each rank
+runs these same programs on its head shard of the pages (or the slab) and
+its column blocks of the model; the model's forward gathers the columns
+(``models/transformer.py``'s ``_dense``), so the tokens and the lane state
+come out the same on every rank, and a quantized program's error is the
+largest over the ranks (an all-reduce).
 * :class:`LaneState` — the per-lane decode vectors on the device; installing a
   request edits one slot of them in place.
 * :func:`plan_chunks` — split a prompt into bucket-sized prefill chunks.
@@ -72,6 +79,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.generation import (
     filter_logits_batched,
@@ -223,10 +231,16 @@ def promote_install(pool: Sequence[torch.Tensor], chunk: Sequence[torch.Tensor],
         _raw(t).index_copy_(1, ids, _raw(c.to(t.dtype)))
 
 
-def _quant_err(cache, device) -> torch.Tensor:
+def _quant_err(cache, device, model: Transformer) -> torch.Tensor:
+    """The call's quantization error; under tensor-parallel serving the
+    largest over the ranks, each of which quantized its own heads."""
     err = getattr(cache, "quant_err", None)
     if err is None:
         return torch.zeros((), dtype=torch.float32, device=device)
+    tp = getattr(model, "_atpu_serve_tp", None)
+    if tp is not None:
+        err = err.clone()
+        dist.all_reduce(err, op=dist.ReduceOp.MAX, group=tp.group)
     return err
 
 
@@ -275,7 +289,7 @@ def prefill_chunk(model: Transformer, tokens: torch.Tensor, pages_k, pages_v,
         active=torch.ones(1, dtype=torch.bool, device=device), kernel="prefill", plain=plain,
     )
     _layer_stack(model, tokens, cache, index)
-    return _quant_err(cache, device)
+    return _quant_err(cache, device, model)
 
 
 @torch.inference_mode()
@@ -375,7 +389,7 @@ def decode_window(model: Transformer, window: int, pages_k, pages_v, k_scales,
                          v_scales=v_scales, tables=tables, index=index,
                          active=lanes.active.clone(), kernel="decode", plain=plain)
     toks, cache = _decode_scan(model, window, cache, lanes, pad, sampling, forced)
-    return toks, _quant_err(cache, toks.device)
+    return toks, _quant_err(cache, toks.device, model)
 
 
 @torch.inference_mode()
@@ -390,7 +404,7 @@ def slab_decode_window(model: Transformer, window: int, pool_k: torch.Tensor,
     sampling = lanes.any_sampled if sampling is None else sampling
     toks, cache = _decode_scan(model, window, KVCache(k=pool_k, v=pool_v, index=index),
                                lanes, pad, sampling, forced)
-    return toks, _quant_err(cache, toks.device)
+    return toks, _quant_err(cache, toks.device, model)
 
 
 # ------------------------------------------------------------------ speculation
@@ -472,7 +486,7 @@ def _verify_body(model: Transformer, cache, tokens: torch.Tensor, lanes: LaneSta
         acc = torch.where(sampled, accepted, acc)
     out, n_commit = _commit(emit, acc, lanes.active, lanes.eos, pad)
     lanes.pending.copy_(_pending(out, n_commit))
-    return out, n_commit, _quant_err(cache, tokens.device)
+    return out, n_commit, _quant_err(cache, tokens.device, model)
 
 
 @torch.inference_mode()
@@ -623,7 +637,7 @@ def _tree_verify_body(model: Transformer, tree, tree_mask: TreeMask, cache,
     else:
         tree_commit_slab(cache.k, cache.v, prev_index, path)
     lanes.pending.copy_(_pending(out, n_commit))
-    return out, n_commit, _quant_err(cache, dev)
+    return out, n_commit, _quant_err(cache, dev, model)
 
 
 @torch.inference_mode()

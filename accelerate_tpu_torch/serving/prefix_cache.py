@@ -107,6 +107,17 @@ def load_payload(path: str) -> Tuple[torch.Tensor, ...]:
         return tuple(out)
 
 
+def rank_disk_dir(disk_dir: Optional[str], rank: int) -> Optional[str]:
+    """The disk ring's directory of tensor-parallel rank ``rank`` (made if
+    missing): ranks on one host spill different heads of the same chunks,
+    under the same file names."""
+    if not disk_dir:
+        return disk_dir
+    path = os.path.join(disk_dir, f"tp_rank{int(rank)}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 class PrefixNode:
     """One cached chunk: token ids + its KV, either the physical page ids of
     the shared page pool (``pages``, the paged engine) or a device slab of
@@ -164,11 +175,17 @@ class PrefixCache:
         ``disk_dir`` instead of dropping.
     registry: metrics registry for the ``serve/prefix_*`` gauges and the
         eviction/spill/promotion counters (default: the process registry).
+    shards: under tensor-parallel serving each rank's cache holds its own
+        kv heads of every chunk (its host and disk tiers too, the disk files
+        under a directory of the rank's own, :func:`rank_disk_dir`), one of
+        ``shards`` equal head shards; a slab node is charged for the whole
+        chunk, as the page nodes are (``chunk_bytes``), so that every rank
+        and the reference make the same budget decisions.
     """
 
     def __init__(self, capacity_bytes: int, on_evict=None, host_capacity_bytes: int = 0,
                  spill=None, disk_capacity_bytes: int = 0, disk_dir: Optional[str] = None,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None, shards: int = 1):
         self.on_evict = on_evict
         self.spill = spill
         self.capacity = int(capacity_bytes)
@@ -179,6 +196,7 @@ class PrefixCache:
         self.disk_dir = disk_dir
         if self.disk_capacity > 0 and not disk_dir:
             raise ValueError("disk_capacity_bytes > 0 requires disk_dir")
+        self.shards = int(shards)
         self.root = PrefixNode(_HASH_SEED, None, None)
         self.bytes = 0
         self.host_bytes = 0
@@ -274,7 +292,7 @@ class PrefixCache:
                 self._touch(existing)
                 return existing
             return None  # 61-bit hash collision: keep the resident entry
-        nbytes = k.numel() * k.element_size() + v.numel() * v.element_size()
+        nbytes = (k.numel() * k.element_size() + v.numel() * v.element_size()) * self.shards
         if not self._make_room(nbytes):
             return None
         node = PrefixNode(key, tokens, parent, nbytes=nbytes, k=k, v=v)

@@ -24,6 +24,12 @@ their pinned source buffers referenced until then, because the copy reads
 them later.  The reference's handle also holds ``consumed``, which parks
 donated JAX buffers whose release would block on the window; PyTorch writes
 the engine's tensors in place and drops nothing a window still reads.
+
+Under tensor-parallel serving every rank fetches its own copy of a window's
+tokens, which the gathered logits make the same on every rank: the engine
+folds each landed block into a checksum that the next step's plan exchange
+compares across the ranks (:class:`~accelerate_tpu_torch.serving.
+scheduler.MeshSync`).
 """
 
 from __future__ import annotations

@@ -1,8 +1,13 @@
 """Prefix-affinity router over :class:`ServingEngine` replicas.
 
 Port of :mod:`accelerate_tpu.serving.router`: N independent engines behind
-one front door, on one card or several (a router over processes and
-``mesh=`` replicas are ROADMAP Queue 1 item 9e-ii).  The routing decision is
+one front door, on one card or several.  Tensor-parallel engines
+(``ServingEngine(mesh=)``) route like any other when they share one mesh:
+every rank runs the same router over its engines, and a handoff or a
+migration moves each rank's own head shard (:mod:`.transfer`).  Their
+failures raise on every rank instead of failing over (below).  Replicas
+on disjoint meshes, a router over processes, and failover and the
+breaker over mesh replicas are ROADMAP Queue 1 item 9e-ii f.  The routing decision is
 where a fleet's win lands: each replica's prefix-cache radix tree holds the
 KV of the prefixes *it* served, so a request routed to the replica that
 holds its prefix reads cached KV instead of prefilling again, while a
@@ -70,10 +75,27 @@ from . import faults
 from .engine import ServingEngine
 from .errors import AdmissionError
 from .pool import plan_chunks
-from .scheduler import Request, RequestState
+from .scheduler import PlanDivergence, Request, RequestState
 from .transfer import MigrationError, PageMigrator
 
 _POLICIES = ("affinity", "round_robin", "disaggregated")
+
+
+def mesh_ranks(engine) -> Optional[tuple]:
+    """The ranks of a tensor-parallel engine's mesh (``None`` on one card)."""
+    mesh = getattr(engine, "mesh", None)
+    return None if mesh is None else tuple(int(r) for r in mesh.devices.reshape(-1))
+
+
+def _check_one_mesh(engines: Sequence[ServingEngine]) -> None:
+    """Replicas behind one router run on one card each, or all on one
+    mesh; replicas on disjoint meshes (or a mesh beside single-card ones)
+    need a router over processes: ``NotImplementedError``."""
+    meshes = {mesh_ranks(e) for e in engines}
+    if len(meshes) > 1:
+        raise NotImplementedError(
+            f"replicas on different meshes ({sorted(meshes, key=str)}): a router over "
+            "processes is not ported yet: ROADMAP Queue 1 item 9e-ii f")
 
 
 class ReplicaRouter:
@@ -102,6 +124,7 @@ class ReplicaRouter:
     ):
         if not engines:
             raise ValueError("ReplicaRouter needs at least one engine")
+        _check_one_mesh(engines)
         if policy not in _POLICIES:
             raise ValueError(f"policy must be one of {_POLICIES}, got {policy!r}")
         if policy == "disaggregated":
@@ -305,6 +328,7 @@ class ReplicaRouter:
     def add_replica(self, engine: ServingEngine) -> int:
         """Attach a freshly built replica; it is admittable immediately.
         Returns its stable replica id."""
+        _check_one_mesh([*self.engines, engine])
         self.engines.append(engine)
         rid = self._next_id
         self._next_id += 1
@@ -693,7 +717,8 @@ class ReplicaRouter:
         Supervision rides the same loop: a replica whose step raises — or
         that arrives already poisoned (:meth:`ServingEngine.kill`) — is
         ejected and its in-flight requests replay on survivors; ejected
-        replicas re-admit through the half-open circuit breaker."""
+        replicas re-admit through the half-open circuit breaker.  A
+        tensor-parallel replica raises instead (:meth:`_step_mesh_replica`)."""
         if (faults.ACTIVE is not None and len(self.engines) > 1
                 and faults.ACTIVE.fire("replica_kill")):
             # kill the busiest replica — the worst case for replay
@@ -702,6 +727,9 @@ class ReplicaRouter:
         for engine in list(self.engines):
             if engine not in self.engines:
                 continue  # ejected earlier this very step
+            if engine.mesh is not None:
+                self._step_mesh_replica(engine)
+                continue
             if engine._poisoned is not None:
                 self._eject_and_replay(engine, engine._poisoned)
                 continue
@@ -718,6 +746,27 @@ class ReplicaRouter:
             self._sweep_handoffs()
         self._reap_drained()
         self._probe_breaker()
+
+    def _step_mesh_replica(self, engine: ServingEngine) -> None:
+        """Step a tensor-parallel replica alike on every rank: it steps when
+        it has work (host state every rank shares, a parked error aside),
+        and its plan exchange raises :class:`.scheduler.PlanDivergence` on
+        every rank when one rank's plan, or an error parked on one rank,
+        departs; that is re-raised.  Ejecting it, replaying its requests and
+        re-admitting it on the breaker's clock would have to agree across
+        the ranks: any other error raises ``NotImplementedError`` (ROADMAP
+        Queue 1 item 9e-ii f), from the error."""
+        if not engine.has_work:
+            return
+        try:
+            engine.step()
+        except PlanDivergence:
+            raise
+        except Exception as exc:
+            raise NotImplementedError(
+                f"tensor-parallel replica {self._ids[self.engines.index(engine)]} (ranks "
+                f"{mesh_ranks(engine)}) failed with {exc!r}: failing a mesh replica over is "
+                "not ported yet: ROADMAP Queue 1 item 9e-ii f") from exc
 
     def run(self, max_steps: Optional[int] = None) -> None:
         steps = 0

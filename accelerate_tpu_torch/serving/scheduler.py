@@ -14,16 +14,27 @@ radix tree for the longest cached chunk-aligned prefix and pins the matched
 nodes, ``start_next`` and ``requeue`` walk it again (requests admitted since
 may have populated more of it), and ``take_chunk`` charges cached chunks
 nothing against the prefill-token budget.
+
+:class:`MeshSync` is the host's half of tensor-parallel serving
+(``ServingEngine(mesh=)``): every rank runs the same scheduler on the same
+calls, and a collective deadlocks the moment two ranks plan different
+steps.  Once a step, before anything else, the ranks exchange a digest of
+their plan and the mesh's first rank's clock: a rank whose digest departs
+raises on every rank, and every decision read from a clock (deadline
+shedding, the service-time average behind it) reads that one clock.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import zlib
 from collections import deque
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..models.generation import GenerationConfig
 from ..telemetry import get_flight_recorder
@@ -81,6 +92,10 @@ class Request:
     # wall-clock stamps (time.perf_counter) for TTFT / per-token latency
     submit_time: float = 0.0
     last_token_time: float = 0.0
+    # under tensor-parallel serving: the mesh clock (its first rank's, at
+    # the first step after the submit), from which every rank measures the
+    # deadline and the service time alike
+    mesh_time: Optional[float] = None
     deadline_s: Optional[float] = None
     deadline_exceeded: bool = False
     # traffic-class label ("chat", "batch", ...) for per-class TTFT
@@ -126,6 +141,52 @@ class Request:
         self.tokens.append(int(token))
         if self.on_token is not None:
             self.on_token(self, int(token))
+
+
+class PlanDivergence(RuntimeError):
+    """The ranks of a tensor-parallel engine planned different steps."""
+
+
+def plan_digest(*arrays) -> int:
+    """A CRC-32 of the arrays' bytes (host state every rank must share)."""
+    h = 0
+    for a in arrays:
+        h = zlib.crc32(np.ascontiguousarray(a).tobytes(), h)
+    return h
+
+
+#: the digest a poisoned engine sends (a CRC-32 is never negative)
+POISONED_DIGEST = -1
+
+
+class MeshSync:
+    """The per-step exchange of a tensor-parallel engine's ranks, over the
+    mesh's gloo group (:meth:`~accelerate_tpu_torch.parallel.mesh.Mesh.
+    host_group`, host tensors whatever the card's backend, shared by every
+    engine of the mesh): each rank sends its plan digest and its clock;
+    :meth:`exchange` raises :class:`PlanDivergence` on every rank when the
+    digests differ, and returns the mesh's first rank's clock."""
+
+    def __init__(self, mesh):
+        self.ranks = [int(r) for r in mesh.devices.reshape(-1)]
+        self.group = mesh.host_group()
+        self.size = len(self.ranks)
+
+    def exchange(self, digest: int, now: float) -> float:
+        mine = torch.tensor([int(digest), int(np.float64(now).view(np.int64))],
+                            dtype=torch.int64)
+        got = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(got, mine, group=self.group)
+        digests = [int(t[0]) for t in got]
+        if len(set(digests)) > 1:
+            parked = [r for r, d in zip(self.ranks, digests) if d == POISONED_DIGEST]
+            raise PlanDivergence(
+                f"tensor-parallel ranks {self.ranks} planned different steps (plan digests "
+                f"{digests}"
+                + (f"; ranks {parked} hold the error of an earlier step" if parked else "")
+                + "): every rank must make the same submit/cancel/step calls, or their "
+                "collectives would deadlock")
+        return float(np.int64(int(got[0][1])).view(np.float64))
 
 
 class Scheduler:

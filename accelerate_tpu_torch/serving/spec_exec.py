@@ -25,6 +25,13 @@ It reads nothing but its two arguments, which the engine keeps as static
 buffers ``ctx [N, C]`` / ``length [N]`` written in place each cycle, so it
 is captured as a CUDA graph of its own, apart from the verify's (its time,
 ``draft_s``, stays measurable with events around its replay).
+
+Under tensor-parallel serving (``ServingEngine(mesh=)``) the draft model is
+replicated, as the reference's (``accelerate_tpu/serving/spec_exec.py:
+214``): :func:`build_draft` takes the served model's full weights before
+the engine cuts them into ranks' blocks, so every rank drafts the same
+trees, and only the verify window runs sharded (K1's tree arm on each
+rank's kv heads).
 """
 
 from __future__ import annotations

@@ -297,6 +297,13 @@ class PageMigrator:
         the gathered pages feed the destination's install bit for bit."""
         if src is dst:
             return "source and destination are the same engine"
+        from .router import mesh_ranks
+
+        if mesh_ranks(src) != mesh_ranks(dst) or src.tp_degree != dst.tp_degree:
+            # each rank moves its own head shard between engines of one mesh
+            return ("the engines are not on one mesh: lanes move between single-card "
+                    "engines or engines that share a mesh (replicas on disjoint meshes: "
+                    "ROADMAP Queue 1 item 9e-ii f)")
         if not (src.paged and dst.paged):
             return "both engines must run the paged KV pool"
         if src.kv.page_size != dst.kv.page_size:

@@ -150,7 +150,8 @@ Phases, each printing one JSON line:
    host seconds and the pinned host bytes in use.
    The slab pool (``paged=False``, the reference's default; plain PyTorch
    attention over ``[L, 4, 2048, Hkv, D]`` slabs and a batch-1 scratch of
-   2048, no kernel): ``engine_slab`` serves the engine line's requests (one
+   2048, no kernel; its engine lines at ``CUT_LAYERS`` = 8 of 32 layers, held
+   to a noise margin of that depth, ``model_slab_8of32``): ``engine_slab`` serves the engine line's requests (one
    graph per window and per bucket, the count constant over the serve, K1
    and K2 launched 0 times, every token within the noise margin; the pool's
    and the scratch's GB), ``engine_slab_sync_eager`` the same through
@@ -295,8 +296,29 @@ Phases, each printing one JSON line:
    tokens and the last logits identical to a run whose map swaps layers
    0-1 with 20-21; peak card memory under 80 GB, pinned bytes, s/token
    beside the bound).
-7c. ``fleet`` (the serving model's weights, A, then B drawn from seed 1;
-   the model is not used after this line): an engine X on A serves two
+7b'. ``serve_world1`` (tensor-parallel serving, ROADMAP 9e-ii e; the
+   serving model at ``SERVE_TP_LAYERS`` = 8 of its 32 layers, its tensors
+   shared, the ``engine`` line's six requests): mesh-less graphed engines
+   on bf16 and int8 pages (the tp=1 twins), then this process over a NCCL
+   group of one with ``ServingEngine(mesh=build_mesh({"tp": 1}))``: the
+   sharded path, its windows and chunks CUDA graphs with the column gathers
+   inside; tokens identical to the twin's, K1/K2 launches equal, as many
+   graphs captured, replays printed.  ``serve_tp2`` (after ``api``): two
+   ranks on the one card over gloo (an emulation of two nodes: NCCL refuses
+   two ranks on one card), each drawing the same seed-0 weights, over
+   ``{"tp": 2}`` with eager windows (gloo cannot be captured): whether the
+   column-sliced products are bitwise the full product's columns at the
+   engine's row counts, each rank's tokens equal to the other's and to the
+   twin's (the first position where they part printed), K1/K2 launches a
+   rank equal to the twin's, ``kv_pool_bytes`` half the twin's, the same on
+   int8 pages, and every request handed off prefill->decode between two
+   engines of the mesh with the bf16 engine's tokens; the gathers of a
+   window and of a 512-token chunk timed at their shapes (loopback gloo,
+   not NVLink).
+7c. ``fleet`` (at ``CUT_LAYERS`` = 8 of 32 layers, as
+   ``router`` and ``api``: they check swaps, failover, migration and HTTP,
+   not depth; the serving model's first layers' weights, A, then B drawn
+   from seed 1; the model is not used after this line): an engine X on A serves two
    requests, pauses admission, is drained and takes B by ``swap_params``
    (in place: no graph is captured again), and serves two requests with
    tokens identical to a fresh engine Y on B; an injected
@@ -338,8 +360,9 @@ Phases, each printing one JSON line:
    D 96 on ``families``' ``phi3_d96``; K3-K5 at D 256 on ``train_gemma``,
    at D 80, 96, 32 and 16 on their own kernel cases; ``launches_on`` names
    the path each count comes from; K1 and K2 also with ``engine_mixtral``'s
-   and ``engine_int4``'s launches and with ``fleet``'s, ``router``'s and
-   ``api``'s, K3-K5 with
+   and ``engine_int4``'s launches and with ``fleet``'s, ``router``'s,
+   ``api``'s, ``serve_world1``'s and ``serve_tp2``'s (K1's and K2's int8
+   arms too), K3-K5 with
    ``train_fp8``'s and ``train_moe``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
@@ -1111,6 +1134,336 @@ def eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, name: str) -> None:
     free_card()
 
 
+#: tensor-parallel serving (ROADMAP 9e-ii e): the engine line's model at
+#: the eager twins' depth, its six requests and engine
+SERVE_TP_LAYERS = EAGER_TWIN_LAYERS
+SERVE_TP_KW = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
+                   prefix_cache_mb=0, device="cuda")
+#: the window's gathers a layer (the attention output, the MLP's product)
+#: and the logits' one a step, timed at these shapes a rank of tp 2
+SERVE_TP_GATHERS = {"attn": ((4, 1, 2048), torch.bfloat16), "mlp": ((4, 1, 5504), torch.bfloat16),
+                    "logits": ((4, 1, 16000), torch.float32),
+                    "chunk512_attn": ((1, 512, 2048), torch.bfloat16),
+                    "chunk512_mlp": ((1, 512, 5504), torch.bfloat16)}
+
+
+def serve_once(model, prompts, mesh=None, **knobs) -> tuple:
+    """One engine (``SERVE_TP_KW``, ``mesh``) serving ``prompts`` to 48
+    greedy tokens each, K1/K2's counters zeroed just before the serve and
+    read just after: its record and the engine."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    eng = ServingEngine(model, None, registry=MetricsRegistry(), mesh=mesh,
+                        **{**SERVE_TP_KW, **knobs})
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = eng.serve([p.copy() for p in prompts], configs=GenerationConfig(max_new_tokens=48))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    rec = {"tokens": [list(r.tokens) for r in reqs],
+           "launches": {"paged_attention": pa.paged_attention.launches,
+                        "paged_flash_prefill": pa.paged_flash_prefill.launches},
+           "graph_captures": st["graph_captures"], "graph_replays": st["graph_replays"],
+           "wall_s": wall, "serve_tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
+           "decode_ms_per_step": st["decode_s"] / max(st["decode_steps"], 1) * 1e3,
+           "prefill_s": st["prefill_s"], "prefill_chunks": st["prefill_chunks"],
+           "decode_steps": st["decode_steps"], "kv_pool_bytes": eng.kv_pool_bytes(),
+           "tp_degree": eng.tp_degree, "kv_quant_error": st["kv_quant_error"]}
+    return rec, eng
+
+
+def serve_world1_phase(model, cfg, gpu, prompts) -> dict:
+    """``serve_world1`` (ROADMAP 9e-ii e): the engine line's model at
+    ``SERVE_TP_LAYERS`` of its 32 layers (its tensors shared) and its six
+    requests, first through mesh-less engines (bf16 and int8 pages: the
+    tp=1 twins that ``serve_tp2`` is held to), then through
+    ``ServingEngine(mesh=build_mesh({"tp": 1}))`` in this process over a
+    NCCL group of one: the sharded path, its windows and chunks CUDA graphs
+    with the column gathers (over the group of one) inside.  Tokens
+    identical to the twin's, K1/K2 launches equal, as many graphs captured
+    and replays.  Returns the twins' and the line's records."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import launchers
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    shell, _ = shallow_model(model, cfg, SERVE_TP_LAYERS)
+    twin, eng = serve_once(shell, prompts)
+    del eng
+    twin_int8, eng = serve_once(shell, prompts, kv_dtype="int8")
+    del eng, shell
+    free_card()
+    env = _dist_env(0, 1, launchers._free_port())
+    os.environ.update(env)
+    try:
+        PartialState()
+        # a shell of its own: the mesh marks its projections
+        shell, _ = shallow_model(model, cfg, SERVE_TP_LAYERS)
+        got, eng = serve_once(shell, prompts, mesh=build_mesh({"tp": 1}))
+        backend = dist.get_backend()
+        del eng, shell
+        free_card()
+        torch.cuda.synchronize()
+    finally:
+        if PartialState._shared_state.get("_initialized"):
+            PartialState().destroy_process_group()
+        GradientState._reset_state()
+        AcceleratorState._reset_state(reset_partial_state=True)
+        for key in env:
+            os.environ.pop(key, None)
+    emit({"phase": "serve_world1", "config": "llama2_7b", "layers": SERVE_TP_LAYERS,
+          "of_layers": cfg.num_layers, "backend": backend, "mesh": {"tp": 1},
+          **{k: v for k, v in got.items() if k != "tokens"},
+          "twin": {k: v for k, v in twin.items() if k != "tokens"},
+          "tokens_identical": got["tokens"] == twin["tokens"], "gpu": gpu})
+    check(backend == "nccl", f"serve_world1 ran over {backend}")
+    check(got["tokens"] == twin["tokens"], "serve_world1's tokens differ from the mesh-less "
+          "engine's")
+    check(got["launches"] == twin["launches"] and got["launches"]["paged_attention"] > 0,
+          f"serve_world1 launched {got['launches']}, the twin {twin['launches']}")
+    check(got["graph_captures"] == twin["graph_captures"] > 0 and got["graph_replays"] > 0,
+          f"serve_world1 captured {got['graph_captures']} graphs (twin "
+          f"{twin['graph_captures']}), replayed {got['graph_replays']}")
+    return {"bf16": twin, "int8": twin_int8, "world1": got}
+
+
+def column_slices(rows_list=(4, 128, 512)) -> dict:
+    """Whether ``F.linear`` on a half of a weight's rows is bitwise that half
+    of the full product's columns, at the engine's row counts (the decode
+    window's 4 lanes, the two buckets) and Llama-2-7B's column-parallel
+    widths in bf16."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for rows in rows_list:
+        x = torch.randn((rows, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+        for name, n in (("q_proj", 4096), ("gate_up", 11008), ("lm_head", 32000)):
+            w = (torch.randn((n, 4096), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+            full = F.linear(x, w)
+            out[f"rows{rows}_{name}"] = all(
+                torch.equal(F.linear(x, w[r * n // 2:(r + 1) * n // 2]),
+                            full[:, r * n // 2:(r + 1) * n // 2]) for r in range(2))
+    return out
+
+
+#: the tiny config's engine in ``serve_tp2``: 2 kv heads over tp 2, so each
+#: rank's K1/K2 run on one kv head (4 query heads of D 16 in all)
+TINY_TP_KW = dict(num_slots=4, max_len=256, prefill_buckets=(16, 64), decode_window=4,
+                  device="cuda")
+
+
+def tiny_tp_pair(mesh) -> dict:
+    """``TransformerConfig.tiny`` in bf16, its seed-0 weights on the host,
+    served over ``mesh`` (each rank copies its blocks to the card) and by a
+    mesh-less engine on a card copy of them: three prompts to 16 greedy
+    tokens each, K1/K2's counters zeroed just before each serve.  Each
+    arm's tokens, launches, KV bytes and graph captures."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+    from accelerate_tpu_torch.weights import init_params
+
+    cfg = TransformerConfig.tiny(dtype=torch.bfloat16, max_seq_len=256)
+    sd = init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, n).astype(np.int32) for n in (5, 17, 40)]
+    out = {}
+    for arm, on, weights in (("tp", mesh, sd),
+                             ("solo", None, {k: v.to("cuda") for k, v in sd.items()})):
+        model = Transformer(cfg, device="meta")
+        model.load_state_dict(weights, assign=True)
+        eng = ServingEngine(model, None, registry=MetricsRegistry(), mesh=on, **TINY_TP_KW)
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        reqs = eng.serve([p.copy() for p in prompts], GenerationConfig(max_new_tokens=16))
+        torch.cuda.synchronize()
+        out[arm] = {"tokens": [list(r.tokens) for r in reqs],
+                    "launches": {"paged_attention": pa.paged_attention.launches,
+                                 "paged_flash_prefill": pa.paged_flash_prefill.launches},
+                    "kv_pool_bytes": eng.kv_pool_bytes(),
+                    "graph_captures": eng.stats["graph_captures"]}
+    return out
+
+
+def serve_tp2_rank(out_dir: str, prompts) -> None:
+    """One rank of ``serve_tp2``: the engine line's seed-0 weights drawn
+    whole on the card (the other lines' values), cut to ``SERVE_TP_LAYERS``
+    and moved to the host, so that each engine copies only this rank's
+    blocks to the card; then over ``{"tp": 2}`` (gloo: two ranks share the
+    card, which NCCL refuses) the bf16 engine, the int8 pages, a
+    prefill->decode handoff between two engines of the mesh and the tiny
+    pair (:func:`tiny_tp_pair`); the window's gathers timed at their
+    shapes.  The peak card memory is read from after the draw."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+    from accelerate_tpu_torch.serving import ReplicaRouter, ServingEngine
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+    from accelerate_tpu_torch.weights import init_params
+
+    PartialState(backend="gloo")
+    rank = dist.get_rank()
+    mesh = build_mesh({"tp": 2})
+    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16)
+    # family_model(cfg, affine_std=0.0)'s values, without its second copy
+    sd = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    keep = {k: v.cpu() for k, v in sd.items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < SERVE_TP_LAYERS}
+    del sd
+    full = {k: (v.numel(), v.element_size()) for k, v in keep.items()}
+    shell = Transformer(dataclasses.replace(cfg, num_layers=SERVE_TP_LAYERS), device="meta")
+    shell.load_state_dict(keep, assign=True)
+    del keep
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"column_slice": column_slices(), "backend": dist.get_backend()}
+    rec["bf16"], eng = serve_once(shell, prompts, mesh=mesh)
+    on_card = shell.state_dict()
+    blocks = shell._atpu_serve_blocks
+    rec["weights"] = {
+        "on_card": all(t.is_cuda for t in on_card.values()),
+        "bytes": sum(t.numel() * t.element_size() for t in on_card.values()),
+        "blocks_bytes": sum((n // 2 if k in blocks else n) * e for k, (n, e) in full.items()),
+        "full_bytes": sum(n * e for n, e in full.values())}
+    tp = eng._tp
+    gathers = {}
+    for key, (shape, dtype) in SERVE_TP_GATHERS.items():
+        x = torch.ones(shape, device="cuda", dtype=dtype)
+        tp.gather(x)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tp.gather(x)
+        torch.cuda.synchronize()
+        gathers[key] = (time.perf_counter() - t0) / 20 * 1e3
+    rec["gather_ms"] = gathers
+    rec["window_gather_ms"] = SERVE_TP_KW["decode_window"] * (
+        SERVE_TP_LAYERS * (gathers["attn"] + gathers["mlp"]) + gathers["logits"])
+    rec["chunk512_gather_ms"] = SERVE_TP_LAYERS * (gathers["chunk512_attn"]
+                                                   + gathers["chunk512_mlp"])
+    del eng
+    rec["int8"], eng = serve_once(shell, prompts, mesh=mesh, kv_dtype="int8")
+    del eng
+    pre = ServingEngine(shell, None, registry=MetricsRegistry(), mesh=mesh, role="prefill",
+                        **SERVE_TP_KW)
+    dec = ServingEngine(shell, None, registry=MetricsRegistry(), mesh=mesh, role="decode",
+                        **SERVE_TP_KW)
+    router = ReplicaRouter([pre, dec], policy="disaggregated", registry=MetricsRegistry())
+    pa.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = router.serve([p.copy() for p in prompts], GenerationConfig(max_new_tokens=48))
+    torch.cuda.synchronize()
+    rec["handoff"] = {"tokens": [list(r.tokens) for r in reqs],
+                      "wall_s": time.perf_counter() - t0,
+                      "completed_on_decode": dec.stats["requests_completed"],
+                      "prefill_decode_steps": pre.stats["decode_steps"],
+                      "launches": {"paged_attention": pa.paged_attention.launches,
+                                   "paged_flash_prefill": pa.paged_flash_prefill.launches}}
+    rec["tiny"] = tiny_tp_pair(mesh)
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, f"serve_tp2_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def serve_tp2_phase(gpu, refs, prompts) -> dict:
+    """``serve_tp2`` (ROADMAP 9e-ii e): two ranks on the one card over gloo
+    (an emulation of two nodes: NCCL refuses two ranks on one card), each
+    serving the engine line's six requests over ``{"tp": 2}`` with eager
+    windows: every rank's tokens equal to the other's and to the tp=1
+    twin's (``serve_world1``: the column-sliced products are bitwise the
+    full product's columns, ``column_slice``), ``kv_pool_bytes`` half the
+    twin's, K1/K2 launches a rank equal to the twin's; the same for int8
+    pages (K1/K2's dequant arms on each rank's kv heads), and a
+    prefill->decode handoff of every request between two engines of the
+    mesh, tokens the bf16 engine's.  The gathers of a window are timed on
+    loopback gloo, not NVLink.  Returns rank 0's launches by kernel row."""
+    out_dir = tempfile.mkdtemp(prefix="atpu_serve_tp2_")
+    try:
+        t0 = time.perf_counter()
+        run_ranks(serve_tp2_rank, (out_dir, prompts), 2, "the serve_tp2 world")
+        world_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(out_dir, f"serve_tp2_{r}.json")))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    first_part = {}
+    for arm in ("bf16", "int8"):
+        got, want = ranks[0][arm]["tokens"], refs[arm]["tokens"]
+        first_part[arm] = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+                           for g, w in zip(got, want)]
+    r0 = ranks[0]
+    emit({"phase": "serve_tp2", "config": "llama2_7b", "layers": SERVE_TP_LAYERS,
+          "of_layers": 32, "mesh": {"tp": 2}, "ranks": 2, "backend": r0["backend"],
+          "emulation": "two nodes of one card each (local process index 0), gloo over "
+          "localhost, on one H100: the times and the gathers are the emulation's, not NVLink's",
+          "column_slice_bitwise": r0["column_slice"],
+          **{arm: {k: v for k, v in r0[arm].items() if k != "tokens"} for arm in ("bf16", "int8")},
+          "twin": {arm: {k: v for k, v in refs[arm].items() if k != "tokens"}
+                   for arm in ("bf16", "int8")},
+          "first_token_parting_from_twin": first_part,
+          "gather_ms_per_rank": [r["gather_ms"] for r in ranks],
+          "window_gather_ms": r0["window_gather_ms"],
+          "chunk512_gather_ms": r0["chunk512_gather_ms"],
+          "handoff": {k: v for k, v in r0["handoff"].items() if k != "tokens"},
+          "weights": r0["weights"],
+          "tiny": {arm: {k: v for k, v in r0["tiny"][arm].items() if k != "tokens"}
+                   for arm in ("tp", "solo")},
+          "max_memory_allocated_gb_per_rank": [r["max_memory_allocated_gb"] for r in ranks],
+          "world_s": world_s, "gpu": gpu})
+    for arm in ("bf16", "int8"):
+        per = [r[arm] for r in ranks]
+        check(per[0]["tokens"] == per[1]["tokens"], f"serve_tp2 {arm}: the ranks' tokens differ")
+        check(per[0]["tokens"] == refs[arm]["tokens"],
+              f"serve_tp2 {arm}: tokens part from the tp=1 twin's at {first_part[arm]}")
+        check(all(p["launches"] == refs[arm]["launches"] for p in per),
+              f"serve_tp2 {arm}: launches {[p['launches'] for p in per]}, the twin "
+              f"{refs[arm]['launches']}")
+        check(all(2 * p["kv_pool_bytes"] == refs[arm]["kv_pool_bytes"] for p in per),
+              f"serve_tp2 {arm}: kv_pool_bytes {[p['kv_pool_bytes'] for p in per]}, the twin "
+              f"{refs[arm]['kv_pool_bytes']}")
+        check(all(p["graph_captures"] == 0 and p["tp_degree"] == 2 for p in per),
+              f"serve_tp2 {arm}: gloo windows captured graphs, or tp_degree is not 2")
+    for r in ranks:
+        h = r["handoff"]
+        check(h["tokens"] == r["bf16"]["tokens"],
+              "serve_tp2: the handed-off requests' tokens differ from the monolithic engine's")
+        check(h["completed_on_decode"] == len(prompts) and h["prefill_decode_steps"] == 0,
+              f"serve_tp2: handoff {h['completed_on_decode']} requests completed on the decode "
+              f"engine, {h['prefill_decode_steps']} decode steps on the prefill engine")
+        w = r["weights"]
+        check(w["on_card"] and w["bytes"] == w["blocks_bytes"] < w["full_bytes"],
+              f"serve_tp2: the engine holds {w['bytes']} weight bytes on the card, want this "
+              f"rank's blocks ({w['blocks_bytes']} of {w['full_bytes']})")
+        t = r["tiny"]
+        check(t["tp"]["tokens"] == t["solo"]["tokens"],
+              "serve_tp2 tiny (one kv head a rank): tokens differ from the mesh-less engine's")
+        check(t["tp"]["launches"] == t["solo"]["launches"]
+              and t["tp"]["launches"]["paged_attention"] > 0
+              and t["tp"]["launches"]["paged_flash_prefill"] > 0,
+              f"serve_tp2 tiny: launches {t['tp']['launches']}, mesh-less {t['solo']['launches']}")
+        check(2 * t["tp"]["kv_pool_bytes"] == t["solo"]["kv_pool_bytes"],
+              f"serve_tp2 tiny: kv_pool_bytes {t['tp']['kv_pool_bytes']}, mesh-less "
+              f"{t['solo']['kv_pool_bytes']}")
+    check(ranks[0]["tiny"]["tp"]["tokens"] == ranks[1]["tiny"]["tp"]["tokens"],
+          "serve_tp2 tiny: the ranks' tokens differ")
+    return {**r0["bf16"]["launches"],
+            **{f"{k}[int8]": v for k, v in r0["int8"]["launches"].items()}}
+
+
 def chunk_graph_phase(model, cfg, gpu) -> None:
     """Each prefill bucket's CUDA graph against the same chunk program run
     launch by launch, at full width (``CUT_LAYERS`` of the layers), for
@@ -1280,8 +1633,8 @@ def telemetry_off_phase(model, cfg, rng, gpu, tol, prompts, tokens) -> None:
 
 def fleet_phase(model, cfg, gpu, prompts) -> dict:
     """The ``fleet`` line (the module docstring's 7c): ``swap_params``, the
-    upload fault, a failover and ``revive`` on Llama-2-7B at full width and
-    depth.  ``model``'s weights are overwritten by the swap.  Returns the
+    upload fault, a failover and ``revive`` on Llama-2-7B at full width
+    (``model`` and ``cfg``: ``CUT_LAYERS`` of its layers).  ``model``'s weights are overwritten by the swap.  Returns the
     K1/K2 launches of the whole line and the model on the second weight set
     (after the swap its values are ``model``'s, in storage of its own: the
     ``router`` line's second replica)."""
@@ -1424,7 +1777,7 @@ MIGRATE_LEN, MIGRATE_NEW, MIGRATE_AT = 1500, 32, 8
 
 def router_phase(model, shell, cfg, gpu, rng, prompts) -> tuple:
     """The ``router`` line (ROADMAP 8b): two Llama-2-7B replicas at full
-    width and depth behind ``ReplicaRouter``, built on the ``fleet`` line's
+    width (``CUT_LAYERS`` of 32 layers) behind ``ReplicaRouter``, built on the ``fleet`` line's
     two weight sets (equal values after its swap, each replica its own
     storage; ``num_slots=4, max_len=2048``, buckets 128/512, window 4, bf16
     pages of 128, a prefix cache of 2.5 prefixes each, ``max_queue=8``):
@@ -1967,7 +2320,8 @@ def prefix_phase(model, cfg, gpu, name: str, prompts, kv_dtype=None, **knobs) ->
 
 #: the depth of the Llama lines cut to keep the run inside its time budget
 #: (once the model's 32): ``engine_prefix`` and its tier stresses (the chains
-#: they move scale with it), ``chunk_graphs`` and ``stream_offload``
+#: they move scale with it), ``chunk_graphs``, ``stream_offload``, the slab
+#: pool's lines, ``fleet``, ``router`` and ``api``
 CUT_LAYERS = 8
 
 
@@ -2001,16 +2355,18 @@ def prefix_phases(model, cfg, rng, gpu) -> dict:
 
 def slab_phases(model, cfg, gpu, margin, prompts, spec_prompts, prefix_prompts_) -> None:
     """The slab pool (``paged=False``, the reference's default) at the
-    ``engine`` phase's geometry: ``engine_slab`` (the engine line's requests;
+    ``engine`` phase's geometry (``model`` at ``CUT_LAYERS`` of its layers,
+    ``margin`` that depth's): ``engine_slab`` (the engine line's requests;
     one graph per window and per bucket, K1 and K2 never launched, every
     token within the noise margin), ``engine_slab_sync_eager`` (the same
     through ``_eager(..., async_depth=0)``: bit-identical tokens),
     ``engine_slab_tree`` and ``engine_slab_spec`` (the knobs and prompts of
-    ``engine_tree`` and ``engine_spec``), ``engine_slab_prefix``
+    ``engine_tree`` and ``engine_spec``) and ``engine_slab_prefix``
     (``engine_prefix``'s requests at ``prefix_cache_mb=1024``: tokens
     identical to the cache-off serve, at least 4 x 1024 hit tokens, fewer
-    chunks), and ``slab_attention`` (what plain attention over the slab
-    costs a decode step)."""
+    chunks).  ``slab_attention`` (:func:`slab_attention_cost`, what plain
+    attention over the slab costs a decode step) runs beside them, at full
+    depth."""
     slab = dict(paged=False)
     _, _, tokens = engine_phase(model, cfg, None, gpu, margin, prompts=prompts,
                                 name="engine_slab", knobs=slab)
@@ -2025,7 +2381,6 @@ def slab_phases(model, cfg, gpu, margin, prompts, spec_prompts, prefix_prompts_)
                        prefix_cache_mb=1024.0, paged=False)
     check(rec["prefix_hit_tokens"] >= 4 * PREFIX_LEN,
           f"engine_slab_prefix: {rec['prefix_hit_tokens']} hit tokens, want >= {4 * PREFIX_LEN}")
-    slab_attention_cost(model, cfg, gpu)
 
 
 def slab_attention_cost(model, cfg, gpu) -> dict:
@@ -2611,20 +2966,32 @@ def flash_bound_ms(name, b, s, hq, hkv, d, dtype, pairs, segmented,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_ms(q, k, v, dout, causal, backward) -> float:
+def library_ms(q, k, v, dout, causal, backward, seg=None, kv_seg=None) -> float:
     """Device time of ``scaled_dot_product_attention`` on the same values in
     its own contiguous BHSD layout, from :func:`graph_ms` (CUDA events around
     a replayed graph: no host time and no profiler to drop its kernels): its
     forward computes K3's function, its backward K4's and K5's together.  A
     captured backward needs its forward in the same graph, so the backward's
-    time is that of forward and backward less the forward's."""
+    time is that of forward and backward less the forward's.  With segment
+    ids (``seg``, and the keys' own ``kv_seg``) the call takes the boolean
+    mask they make (same id, and causal where the case is), built before
+    the timing."""
     import torch.nn.functional as F
 
     gqa = q.shape[2] != k.shape[2]
     qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_(backward)
                   for t in (q, k, v))
+    mask = None
+    if seg is not None:
+        keys = seg if kv_seg is None else kv_seg
+        mask = seg[:, None, :, None] == keys[:, None, None, :]
+        if causal:
+            s = q.shape[1]
+            mask = mask & torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
 
     def forward():
+        if mask is not None:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=gqa)
 
     forward_ms = graph_ms(forward, 5)
@@ -2726,7 +3093,7 @@ def flash_case(label, seed, b, s, hq, hkv, dtype, causal, segmented, d=128,
             ms=device_ms(kernel, 10, fragment), wall_ms=time_ms(kernel, 10),
             plain_ms=time_ms(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
         )
-        rec["library_ms"] = None if segmented else library_ms(q, k, v, dout, causal, backward)
+        rec["library_ms"] = library_ms(q, k, v, dout, causal, backward, seg, kv_seg)
         # the case's own launches: the checked calls, then the timing loop
         rec["launches"] = counters[name].launches - launches0[name]
         if name in bitwise:
@@ -4873,6 +5240,9 @@ def main() -> int:
     # the A/B baseline: eager windows, synchronous loop, the same requests;
     # the same kernels on the same inputs give the same greedy tokens
     eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, "engine_sync_eager")
+    # tensor-parallel serving: the sharded path over a NCCL group of one,
+    # beside the tp=1 twins serve_tp2 is held to
+    serve_refs = serve_world1_phase(model, cfg, gpu, prompts)
     # the decode-first ordering: the same requests, chunks queued behind
     # the window of their cycle
     _, _, inter_tokens = engine_phase(
@@ -4894,18 +5264,31 @@ def main() -> int:
     engine_phase(model, cfg, rng, gpu, tol, prompts=spec_prompts, name="engine_spec",
                  spec=dict(speculate_k=4))
     prefix_launches, shared_prompts = prefix_phases(model, cfg, rng, gpu)
-    slab_phases(model, cfg, gpu, tol, prompts, spec_prompts, shared_prompts)
+    # the slab pool at CUT_LAYERS of 32 (its lines check the pool, not
+    # depth), held to a margin of that depth from its own prompt
+    slab_model, slab_cfg = shallow_model(model, cfg, CUT_LAYERS)
+    slab_tol = model_phase(slab_model, slab_cfg, np.random.default_rng(CUT_LAYERS),
+                           name=f"model_slab_{CUT_LAYERS}of{cfg.num_layers}")
+    slab_phases(slab_model, slab_cfg, gpu, slab_tol, prompts, spec_prompts, shared_prompts)
+    del slab_model
+    slab_attention_cost(model, cfg, gpu)
     # big-model inference: the static generate loop on the resident model,
     # then the same weights streamed from pinned host memory
     generate_phase(model, cfg, rng, gpu, tol)
     stream_offload_phase(*shallow_model(model, cfg, CUT_LAYERS), rng, gpu)
     # the fleet surface (swap_params overwrites the model's weights: last),
     # then the router and the HTTP front door over its two weight sets
-    fleet_launches, shell = fleet_phase(model, cfg, gpu, prompts)
-    router_launches, replicas = router_phase(model, shell, cfg, gpu, rng, prompts)
+    # (at CUT_LAYERS of 32: they check swap, failover, migration and HTTP,
+    # not depth)
+    fleet_model, fleet_cfg = shallow_model(model, cfg, CUT_LAYERS)
+    fleet_launches, shell = fleet_phase(fleet_model, fleet_cfg, gpu, prompts)
+    router_launches, replicas = router_phase(fleet_model, shell, fleet_cfg, gpu, rng, prompts)
     http_launches = api_phase(*replicas, gpu, prompts)
-    del model, shell, replicas
+    del model, shell, replicas, fleet_model
     free_card()
+    # two ranks on the card over {"tp": 2}, drawing the engine line's weights
+    family_launches_tp = {"serve_world1": serve_refs["world1"]["launches"],
+                          "serve_tp2": serve_tp2_phase(gpu, serve_refs, prompts)}
     stream_disk_phase(gpu)
     stream_launches = stream_forward_phase(gpu)
     # the other families: one 7B model on the card at a time; Gemma-7B (16
@@ -4926,6 +5309,7 @@ def main() -> int:
     family_launches["fleet"] = fleet_launches
     family_launches["router"] = router_launches
     family_launches["api"] = http_launches
+    family_launches.update(family_launches_tp)
 
     flash = flash_phase(FLASH_CASES + FLASH_KV_SEGMENT_CASES)
     train_launches, train_rec = train_phase(gpu, scrape=True)

@@ -256,8 +256,16 @@ def test_unported_arguments_raise(models, kw, item):
     ``tests/test_torch_hf_compat.py``).  ``role`` (item 8b) is ported since:
     its case holds that a prefill replica builds, publishes its role and
     prefills without decoding (``tests/test_torch_router.py`` holds the
-    rest)."""
+    rest).  ``mesh=`` and ``tp_axis=`` (item 9e-ii e) are ported since
+    (``tests/test_torch_serving_mesh.py``): a mesh with no process group up
+    still raises, naming item 9e-ii f (replicas on disjoint meshes), and
+    ``tp_axis`` without a mesh serves on one card, as the reference's
+    engine does."""
     _, _, model, params = models
+    if "tp_axis" in kw:
+        engine = ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+        assert engine.tp_degree == 1 and engine.tp_axis == "model"
+        return
     if item == "8b":
         engine = ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
         assert engine.role == "prefill"

@@ -839,3 +839,247 @@ def pipeline_refusals(out_dir):
     acc = _mp_accelerator(dict(mesh={"dp": 2, "pp": 2}, mp=dict(pp_degree=2)))
     out["guard"] = caught(lambda: acc.compile_train_step(lambda p, b: torch.zeros(())))
     _dump(out_dir, "refusals", out)
+
+
+# ------------------------------------------------------- tensor-parallel serving
+def _serve_model(jparams, cfg_kw=None):
+    """The tiny f32 model (``max_seq_len=64``) on the CPU with ``jparams``."""
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+    from accelerate_tpu_torch.weights import params_from_jax
+
+    model = Transformer(TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                                               max_seq_len=64, **(cfg_kw or {})), device="cpu")
+    model.load_state_dict(params_from_jax(jparams, device="cpu"), assign=True)
+    return model
+
+
+def _gen_config(gen):
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+
+    return GenerationConfig(**gen)
+
+
+def _serve_engine(model, mesh, kw):
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    return ServingEngine(model, None, device="cpu", registry=MetricsRegistry(),
+                         mesh=mesh, **kw)
+
+
+SERVE_STATS = ("prefill_chunks", "decode_steps", "prefix_hit_tokens", "prefix_hit_tokens_host",
+               "spec_drafted", "spec_accepted", "verify_forwards", "interleaved_chunks",
+               "kv_quant_error", "graph_captures", "requests_completed")
+
+
+def _serve_case(case, jparams_by_model, mesh):
+    """One engine over ``mesh`` serving the case's prompts: tokens, the
+    counters of :data:`SERVE_STATS`, the pool's bytes on this rank and the
+    files its disk tier wrote."""
+    model = _serve_model(jparams_by_model[case.get("model", "llama")], case.get("cfg"))
+    kw = dict(case["kw"])
+    disk = kw.get("prefix_disk_dir")
+    eng = _serve_engine(model, mesh, kw)
+    prompts = [np.asarray(p, np.int32) for p in case["prompts"]]
+    reqs = eng.serve(prompts, _gen_config(case["gen"]))
+    out = {"tokens": [list(r.tokens) for r in reqs],
+           "stats": {k: eng.stats[k] for k in SERVE_STATS},
+           "kv_pool_bytes": eng.kv_pool_bytes(), "tp_degree": eng.tp_degree}
+    if disk:
+        torch.distributed.barrier()  # both ranks' files are written
+        out["disk"] = {d: sorted(os.listdir(os.path.join(disk, d)))
+                       for d in sorted(os.listdir(disk))}
+        out["disk_dir"] = os.path.relpath(eng.prefix_cache.disk_dir, disk)
+        out["prefix"] = eng.prefix_cache_stats()
+    return out
+
+
+def _geometry(jparams_by_model, mesh):
+    """The sharded pool and params of ``test_serving_mesh.py::
+    TestShardedPoolGeometry``."""
+    from accelerate_tpu_torch.models.transformer import TransformerConfig
+    from accelerate_tpu_torch.serving import PagedKVPool
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    cfg = TransformerConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
+    pool = PagedKVPool(cfg, num_slots=2, max_len=64, page_size=8, num_pages=17, mesh=mesh,
+                       device="cpu", registry=MetricsRegistry())
+    out = {"pool": dict(pages=tuple(pool.pages_k.shape), scales=tuple(pool.k_scales.shape),
+                        tp_degree=pool.tp_degree, kv_bytes=pool.kv_bytes(),
+                        per_device=pool.kv_bytes_per_device())}
+    kw = dict(num_slots=4, max_len=64, prefill_buckets=(8, 16), decode_window=4)
+    for paged in (False, True):
+        model = _serve_model(jparams_by_model["llama"])
+        full = {n: tuple(t.shape) for n, t in model.state_dict().items()}
+        eng = _serve_engine(model, mesh, dict(kw, paged=paged))
+        out[f"bytes_paged{paged}"] = eng.kv_pool_bytes()
+        out[f"tp_gauge_paged{paged}"] = eng.metrics.gauge("serve/tp_degree").value
+        out["sharded"] = {n: tuple(t.shape) != full[n]
+                          for n, t in eng.model.state_dict().items()}
+    try:
+        _serve_engine(_serve_model(jparams_by_model["odd"],
+                                   dict(hidden_size=48, num_heads=6, num_kv_heads=3)), mesh, kw)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def _swap(case, jparams_by_model, mesh):
+    """Serve, swap to the full weights of another model, serve again."""
+    from accelerate_tpu_torch.weights import params_from_jax
+
+    model = _serve_model(jparams_by_model["llama"])
+    eng = _serve_engine(model, mesh, dict(case["kw"]))
+    gen = _gen_config(case["gen"])
+    prompts = [np.asarray(p, np.int32) for p in case["prompts"]]
+    before = [list(r.tokens) for r in eng.serve(prompts, gen)]
+    eng.swap_params(params_from_jax(jparams_by_model["swap"], device="cpu"), version="v1")
+    after = [list(r.tokens) for r in eng.serve(prompts, gen)]
+    return {"before": before, "after": after, "version": eng.weights_version}
+
+
+def _migrate(case, jparams_by_model, mesh):
+    """``test_disagg.py::_migrate_pair`` on one mesh: an unmoved baseline,
+    then each lane moved mid-generation between two engines of the mesh
+    (d2d), then a prefill->decode handoff through the router."""
+    from accelerate_tpu_torch.serving import ReplicaRouter
+    from accelerate_tpu_torch.serving.transfer import PageMigrator
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    model = _serve_model(jparams_by_model["llama"])
+    kw = dict(case["kw"])
+    prompts = [np.asarray(p, np.int32) for p in case["prompts"]]
+    gens = [_gen_config(g) for g in case["gens"]]
+    base = _serve_engine(model, mesh, kw)
+    breqs = [base.submit(p.copy(), config=g) for p, g in zip(prompts, gens)]
+    base.run()
+    src, dst = _serve_engine(model, mesh, kw), _serve_engine(model, mesh, kw)
+    mig = PageMigrator(registry=MetricsRegistry())
+    reqs = [src.submit(p.copy(), config=g) for p, g in zip(prompts, gens)]
+    for r in reqs:
+        while len(r.tokens) < case["migrate_at"]:
+            src.step()
+    for r in reqs:
+        mig.migrate(src, dst, next(s for s in range(src.num_slots) if src._slot_req[s] is r),
+                    mode="d2d")
+    dst.run()
+    pre = _serve_engine(model, mesh, dict(kw, role="prefill"))
+    dec = _serve_engine(model, mesh, dict(kw, role="decode"))
+    router = ReplicaRouter([pre, dec], policy="disaggregated", registry=MetricsRegistry())
+    handed = router.serve([p.copy() for p in prompts], gens[0])
+    return {"baseline": [list(r.tokens) for r in breqs],
+            "migrated": [list(r.tokens) for r in reqs],
+            "handoff": [list(r.tokens) for r in handed],
+            "handoffs": dec.stats["requests_completed"]}
+
+
+def _refusals(jparams_by_model, mesh):
+    """What a mesh engine refuses, by type and message."""
+    from accelerate_tpu_torch.parallel.mesh import replica_meshes
+    from accelerate_tpu_torch.serving import ReplicaRouter
+    from accelerate_tpu_torch.serving.api.frontdoor import FrontDoor
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    def caught(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 (the refusal is what is recorded)
+            return type(e).__name__, str(e)
+        return None
+
+    kw = dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), decode_window=2)
+    out = {}
+    for name, cfg in (("int8", dict(quantization=8)), ("fp8", dict(use_fp8=True)),
+                      ("moe", dict(num_experts=4, num_experts_per_tok=2))):
+        from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+
+        model = Transformer(TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64, **cfg),
+                            device="cpu")
+        out[name] = caught(lambda: _serve_engine(model, mesh, kw))
+    eng = _serve_engine(_serve_model(jparams_by_model["llama"]), mesh, kw)
+    solo = _serve_engine(_serve_model(jparams_by_model["llama"]), None, kw)
+    out["frontdoor"] = caught(lambda: FrontDoor(ReplicaRouter([eng],
+                                                              registry=MetricsRegistry())))
+    out["mixed_router"] = caught(lambda: ReplicaRouter([eng, solo],
+                                                       registry=MetricsRegistry()))
+    out["disjoint"] = caught(lambda: _serve_engine(_serve_model(jparams_by_model["llama"]),
+                                                   replica_meshes(2)[0], kw))
+    return out
+
+
+def serve_mesh_cases(out_dir, jparams_by_model, cases):
+    """Every tensor-parallel serving scenario of one world, in order (each
+    rank runs them all alike); each case's result goes to ``<tag>``."""
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+
+    _setup()
+    mesh = build_mesh({"tp": torch.distributed.get_world_size()})
+    for case in cases:
+        kind = case.get("kind", "serve")
+        if kind == "geometry":
+            res = _geometry(jparams_by_model, mesh)
+        elif kind == "swap":
+            res = _swap(case, jparams_by_model, mesh)
+        elif kind == "migrate":
+            res = _migrate(case, jparams_by_model, mesh)
+        elif kind == "refusals":
+            res = _refusals(jparams_by_model, mesh)
+        elif kind == "router_failures":
+            res = _router_failures(case, jparams_by_model, mesh)
+        else:
+            res = _serve_case(case, jparams_by_model, mesh)
+        _dump(out_dir, case["tag"], res)
+
+
+def _router_failures(case, jparams_by_model, mesh):
+    """A failing step of a mesh replica under the router: one rank submits
+    a request more to a replica, one rank alone kills a replica, every rank
+    kills it.  Each raises on every rank (type and message recorded, and
+    whether within ``deadline_s``) instead of failing over or hanging."""
+    import time
+
+    from accelerate_tpu_torch.serving import ReplicaRouter
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    rank = torch.distributed.get_rank()
+    prompts = [np.asarray(p, np.int32) for p in case["prompts"]]
+    gen = _gen_config(case["gen"])
+    fail = {"diverge": lambda e: rank == 1 and e.submit(prompts[0].copy(), config=gen),
+            "kill_one": lambda e: rank == 0 and e.kill("killed on rank 0"),
+            "kill_all": lambda e: e.kill("killed on every rank")}
+    out = {}
+    for what, act in fail.items():
+        model = _serve_model(jparams_by_model["llama"])
+        engines = [_serve_engine(model, mesh, dict(case["kw"])) for _ in range(2)]
+        # round robin: the first replica holds two of the three requests
+        router = ReplicaRouter(engines, policy="round_robin", registry=MetricsRegistry())
+        for p in prompts:
+            router.submit(p.copy(), config=gen)
+        router.step()
+        act(engines[0])
+        t0 = time.perf_counter()
+        try:
+            router.run(max_steps=100)
+            out[what] = None
+        except Exception as e:  # noqa: BLE001 (the raise is what is recorded)
+            out[what] = [type(e).__name__, str(e),
+                         time.perf_counter() - t0 < case["deadline_s"]]
+    return out
+
+
+def serve_mesh_diverge(jparams, prompts):
+    """Rank 1 submits one request more than rank 0, then both step: the
+    plan exchange must raise on every rank instead of hanging."""
+    from accelerate_tpu_torch.parallel.mesh import build_mesh
+
+    _setup()
+    mesh = build_mesh({"tp": torch.distributed.get_world_size()})
+    eng = _serve_engine(_serve_model(jparams), mesh,
+                        dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), decode_window=2))
+    gen = _gen_config(dict(max_new_tokens=4))
+    for p in prompts:
+        eng.submit(np.asarray(p, np.int32), config=gen)
+    if torch.distributed.get_rank() == 1:
+        eng.submit(np.asarray(prompts[0], np.int32), config=gen)
+    eng.run()
