@@ -495,16 +495,20 @@ def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype,
     their compute dtype and run their own forward.  ``name`` tags the
     product for the remat policies (``_tag_proj``)."""
     with _tag_proj(name):
-        if type(layer) is not nn.Linear:
-            return layer(x)
-        tp = getattr(layer, "_atpu_tp", None)
-        if tp is not None:
-            return _tp_dense(layer, x, dtype, tp)
         serve = getattr(layer, "_atpu_serve", None)
         if serve is not None and serve[0] == "in":
             # a replicated projection after column-parallel ones: the
             # columns gathered first (tensor-parallel serving)
             x = serve[1].gather(x)
+        if type(layer) is not nn.Linear:
+            if serve is not None and serve[0] == "block":
+                # a quantized or fp8 projection kept whole under
+                # tensor-parallel serving: the rank's heads take their block
+                return serve[1].block(layer(x))
+            return layer(x)
+        tp = getattr(layer, "_atpu_tp", None)
+        if tp is not None:
+            return _tp_dense(layer, x, dtype, tp)
         bias = None if layer.bias is None else layer.bias.to(dtype)
         y = F.linear(x.to(dtype), layer.weight.to(dtype), bias)
         if serve is not None and serve[0] == "out":

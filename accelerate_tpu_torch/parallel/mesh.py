@@ -76,6 +76,7 @@ class Mesh:
         self.device_type = device_type
         self.device_mesh = None
         self._host_group = None
+        self._span_group = None
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -85,6 +86,14 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The mesh's ranks in mesh order (its first is its lead rank)."""
+        return tuple(int(r) for r in self.devices.reshape(-1))
+
+    def __contains__(self, rank: int) -> bool:
+        return int(rank) in self.ranks
 
     def coordinate(self, rank: Optional[int] = None) -> Dict[str, int]:
         """Axis -> index of ``rank`` (this process's by default)."""
@@ -105,11 +114,24 @@ class Mesh:
             return None
         return self.device_mesh.get_group(axis)
 
+    def span_group(self):
+        """The process group over every rank of the mesh, on the world's
+        backend (a one-axis mesh's group along that axis).  A mesh of the
+        whole world takes its ``DeviceMesh``'s (the default group when the
+        world is one process); a replica's mesh (:func:`replica_meshes`)
+        was given its group, of one rank too, when the meshes were made."""
+        if self._span_group is not None:
+            return self._span_group
+        if self.device_mesh is not None and len(self.axis_names) == 1:
+            return self.device_mesh.get_group(self.axis_names[0])
+        return None
+
     def host_group(self):
         """A gloo group over every rank of the mesh, made on the first call
         and kept: collectives of host tensors whatever the card's backend
         (the serving engines' per-step plan exchange).  Every rank makes the
-        first call together (``dist.new_group`` is collective)."""
+        first call together (``dist.new_group`` is collective); a replica's
+        mesh has its group from :func:`replica_meshes`."""
         if self._host_group is None:
             self._host_group = dist.new_group(ranks=self.devices.reshape(-1).tolist(),
                                               backend="gloo")
@@ -186,7 +208,13 @@ def replica_meshes(n_replicas: int, axes: Optional[Dict[str, int]] = None, *,
                    devices: Optional[Sequence[int]] = None) -> List[Mesh]:
     """The ranks split into ``n_replicas`` disjoint groups, one mesh of
     ``axes`` each (one rank each with ``axes=None``).  These meshes carry
-    no ``DeviceMesh``: a router's replicas do not share a program."""
+    no ``DeviceMesh``: a router's replicas do not share a program.  With a
+    process group up, each mesh gets its groups here, in mesh order: the
+    group over its ranks on the world's backend (:meth:`Mesh.span_group`,
+    a serving engine's ``tp`` group) and a gloo one (:meth:`Mesh.
+    host_group`, its plan exchange; the same group when the world runs
+    gloo).  ``dist.new_group`` is collective over the world, even for a
+    rank outside the new group, so every rank calls this alike."""
     n, device_type = _world()
     ranks = list(range(n)) if devices is None else list(devices)
     if n_replicas <= 0:
@@ -202,8 +230,30 @@ def replica_meshes(n_replicas: int, axes: Optional[Dict[str, int]] = None, *,
         mesh.shape, mesh.axis_names = dict(axes), tuple(axes)
         mesh.devices = np.asarray(ranks[i * per:(i + 1) * per]).reshape(tuple(axes.values()))
         mesh.device_type, mesh.device_mesh = device_type, None
+        mesh._host_group = mesh._span_group = None
+        if dist.is_available() and dist.is_initialized():
+            members = mesh.ranks
+            mesh._span_group = dist.new_group(ranks=list(members))
+            mesh._host_group = (mesh._span_group if dist.get_backend() == "gloo"
+                                else dist.new_group(ranks=list(members), backend="gloo"))
         out.append(mesh)
     return out
+
+
+_WORLD_HOST: Dict[str, object] = {}
+
+
+def world_host_group():
+    """A gloo group over every rank of the world: host exchanges whatever
+    the card's backend (a router over processes).  The default group when
+    it runs gloo; else one made on the first call of this process group
+    (collective: every rank calls it together) and kept with it."""
+    world = dist.group.WORLD
+    if dist.get_backend() == "gloo":
+        return world
+    if _WORLD_HOST.get("world") is not world:
+        _WORLD_HOST.update(world=world, group=dist.new_group(backend="gloo"))
+    return _WORLD_HOST["group"]
 
 
 class NamedSharding:

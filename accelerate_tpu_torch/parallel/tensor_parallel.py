@@ -172,31 +172,46 @@ class ServeTP:
         no autograd (a CUDA graph captures it over NCCL)."""
         return all_gather_along(x, -1, self.group)
 
+    def block(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``y``'s last dim (a projection kept whole
+        whose output the rank's heads take)."""
+        return y if self.size == 1 else y.chunk(self.size, -1)[self.rank]
 
-def serving_tp(mesh: Mesh, tp_axis: str = "tp") -> ServeTP:
+
+def serving_tp(mesh: Mesh, tp_axis: str = "tp") -> Optional[ServeTP]:
     """The group a ``ServingEngine(mesh=, tp_axis=)`` serves over.  The
-    engine runs one process a rank, every rank calling it alike, so a mesh
-    needs a process group, and one engine spans the whole mesh, which holds
-    the ``tp_axis`` only (a mesh of one rank in a world of one too).
-    Anything else is replicas over disjoint ranks, which a router over
-    processes would serve: ``NotImplementedError`` (ROADMAP Queue 1 item
-    9e-ii f)."""
-    if not (dist.is_available() and dist.is_initialized()):
-        raise NotImplementedError(
-            "mesh= without a process group: tensor-parallel serving runs one process a "
-            "rank (launchers.py), and replicas on disjoint meshes in one process are not "
-            "ported yet: ROADMAP Queue 1 item 9e-ii f")
+    engine runs one process a rank, every rank of the mesh calling it
+    alike.  The mesh holds the ``tp_axis`` only and this rank: the whole
+    world (:func:`~.mesh.build_mesh`) or one replica's ranks
+    (:func:`~.mesh.replica_meshes`, whose groups were made with the
+    meshes).  A mesh of one rank without a process group returns ``None``:
+    the engine serves as the mesh-less one does.  A mesh of several ranks
+    without a process group would be several cards in one process, which
+    the port does not run: one process a card (``launchers.py``)."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
     tp = mesh_lib.mesh_axis_size(mesh, tp_axis)
-    world = dist.get_world_size()
-    if mesh.size != world or tp != mesh.size:
-        raise NotImplementedError(
-            f"mesh {mesh.shape} over a world of {world}: one serving engine spans a mesh of "
-            f"the {tp_axis!r} axis over every rank; replicas over other axes or disjoint "
-            "ranks are not ported yet: ROADMAP Queue 1 item 9e-ii f")
+    if tp != mesh.size:
+        raise ValueError(
+            f"mesh {mesh.shape}: a serving engine's mesh holds the {tp_axis!r} axis only; "
+            "replicas over other axes are meshes of their own (replica_meshes) behind a "
+            "ReplicaRouter")
+    if not (dist.is_available() and dist.is_initialized()):
+        if mesh.size == 1:
+            return None
+        raise ValueError(
+            f"a mesh of {mesh.size} cards in one process: the port runs one process a card; "
+            "start one process a rank with launchers.py (notebook_launcher on cards, "
+            "debug_launcher on the CPU) and build the engine on every rank")
+    me = dist.get_rank()
+    if me not in mesh:
+        raise ValueError(f"rank {me} is not in the mesh's ranks {list(mesh.ranks)}: build a "
+                         "replica's engine on its own ranks only")
+    group = mesh.span_group()
+    if group is None and mesh.size != dist.get_world_size():
+        raise ValueError(f"mesh {mesh.shape} on ranks {list(mesh.ranks)} has no process "
+                         "group: make replicas' meshes with replica_meshes, on every rank")
     rank = mesh.coordinate()[tp_axis] if tp > 1 else 0
-    group = mesh.group(tp_axis)
     return ServeTP(group, tp, rank)
 
 
@@ -215,7 +230,10 @@ def shard_serving_model(model: nn.Module, tp: ServeTP) -> Dict[str, slice]:
     (``models/transformer.py``'s ``_dense``): ``o_proj`` and ``down_proj``
     gather their input when the projections before them were split,
     ``lm_head`` its output.  Each attention layer learns the global index of
-    its first head (alibi's slopes are the global heads').  The blocks are
+    its first head (alibi's slopes are the global heads').  Weight-quantized
+    and fp8 q/k/v projections stay whole (the reference's rules do not
+    match their leaves), marked to hand the rank its heads' block of their
+    product; an MoE block's experts and router stay whole.  The blocks are
     copies (at a group of one the tensors stay the caller's).  Returns the
     state-dict name -> row block of every split tensor, which
     :func:`serving_block` applies to full tensors.  A model already sharded
@@ -235,6 +253,12 @@ def shard_serving_model(model: nn.Module, tp: ServeTP) -> Dict[str, slice]:
     with torch.no_grad():
         for name, module in model.named_modules():
             if type(module) is not nn.Linear:
+                if re.search(r"attn\.(q_proj|k_proj|v_proj)$", name):
+                    # int8/int4 codes and fp8 weights stay whole, as the
+                    # reference's rules leave those leaves replicated: the
+                    # product is the mesh-less one's, the heads its block
+                    module._atpu_serve = ("block", tp)
+                    split.add(name)
                 continue
             w = module.weight
             if not _serving_split(name + ".weight", w.shape, tp.size):

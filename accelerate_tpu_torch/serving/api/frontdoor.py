@@ -27,6 +27,24 @@ before its first step.
 The driver loop also emits the ``serve/step`` heartbeat while idle (an idle
 API server is a healthy one — without this, ``/healthz`` would go stale-503
 the moment traffic pauses) and reaps finished requests into their streams.
+
+Over processes (a :class:`ReplicaRouter` whose replicas are tensor-parallel
+engines or lie on other ranks, one process a card): every rank builds the
+same router and a front door over it.  World rank 0 runs the
+:class:`~.server.ApiServer` and the driver thread (:meth:`start`); every
+other rank calls :meth:`follow`, which returns when rank 0 stops.  Each
+driver iteration that has tickets or work begins with a broadcast from rank
+0 of its tickets (what each does, not the closure) and its clock; every
+rank then applies them in order and steps the router if it has work, so
+every rank makes the same calls.  An idle driver still sends an empty
+iteration with each idle heartbeat, every ``heartbeat_interval_s`` (a
+follower waits in that broadcast, and a gloo collective times out after 30
+minutes).  The tickets whose payload is weights or an engine
+(:meth:`hot_swap`, :meth:`add_replica`) run on every rank with what each
+rank supplies for itself: pass each follower's front door ``supply(op,
+arg)``, which returns the full weights for ``("hot_swap", version)`` and,
+for ``("add_replica", n)`` (the n-th replica added, from 0), the engine
+where that rank serves it, else its mesh.
 """
 
 from __future__ import annotations
@@ -101,26 +119,18 @@ class TokenStream:
 
 
 class _Ticket:
-    """One closure to run on the driver thread, plus the rendezvous."""
+    """One closure to run on the driver thread, plus the rendezvous; over
+    processes, ``wire`` says what it does for the followers."""
 
-    __slots__ = ("fn", "admin", "event", "result", "error")
+    __slots__ = ("fn", "admin", "wire", "event", "result", "error")
 
-    def __init__(self, fn: Callable[[], Any], admin: bool):
+    def __init__(self, fn: Callable[[], Any], admin: bool, wire: Optional[tuple] = None):
         self.fn = fn
         self.admin = admin
+        self.wire = wire
         self.event = threading.Event()
         self.result: Any = None
         self.error: Optional[BaseException] = None
-
-
-def _refuse_mesh(engine) -> None:
-    """The front door drives single-card replicas (as the reference's
-    ``serve.py`` builds them): a tensor-parallel engine needs every rank
-    driven alike, which one driver thread in one process cannot do."""
-    if getattr(engine, "mesh", None) is not None:
-        raise NotImplementedError(
-            "the front door over a tensor-parallel engine (mesh=) is not ported yet: "
-            "ROADMAP Queue 1 item 9e-ii e-ii")
 
 
 class FrontDoor:
@@ -135,10 +145,15 @@ class FrontDoor:
         version as ``"<model_name>@<version>"``.
     idle_sleep_s: driver nap between polls when there is no work and no
         tickets (keeps the idle loop off a CPU core).
-    heartbeat_interval_s: cadence of the idle ``serve/step`` heartbeat.
+    heartbeat_interval_s: cadence of the idle ``serve/step`` heartbeat;
+        over processes also the longest an idle driver goes without an
+        iteration for the followers.
     ticket_timeout_s: how long a handler thread waits for the driver to pick
         up its ticket before giving up (a driver wedged in device work this
         long means the stall detector is about to fire anyway).
+    supply: over processes, on a follower: ``supply(op, arg)`` returns this
+        rank's weights for a ``hot_swap`` and its entry for an
+        ``add_replica`` (the module docstring).
     """
 
     def __init__(
@@ -148,10 +163,13 @@ class FrontDoor:
         idle_sleep_s: float = 0.001,
         heartbeat_interval_s: float = 1.0,
         ticket_timeout_s: float = 120.0,
+        supply: Optional[Callable[[str, Any], Any]] = None,
     ):
-        for engine in router.engines:
-            _refuse_mesh(engine)
         self.router = router
+        #: over processes: the router's world exchange (None in one process)
+        self._world = router._world
+        self.supply = supply
+        self._added = 0
         self.model_name = str(model_name)
         self.idle_sleep_s = float(idle_sleep_s)
         self.heartbeat_interval_s = float(heartbeat_interval_s)
@@ -173,6 +191,9 @@ class FrontDoor:
     def start(self) -> "FrontDoor":
         if self._thread is not None:
             raise RuntimeError("FrontDoor already started")
+        if self._world is not None and self._world.rank != 0:
+            raise RuntimeError(f"rank {self._world.rank} follows the driver on rank 0: call "
+                               "follow()")
         self._thread = threading.Thread(
             target=self._drive, name="atpu-frontdoor-driver", daemon=True
         )
@@ -186,13 +207,17 @@ class FrontDoor:
             self._thread = None
 
     # ---------------------------------------------------- handler-side API
-    def _call(self, fn: Callable[[], Any], admin: bool = False) -> Any:
+    def _call(self, fn: Callable[[], Any], admin: bool = False,
+              wire: Optional[tuple] = None) -> Any:
         """Run ``fn`` on the driver thread; block until it completes."""
         if self._thread is None:
             raise RuntimeError("FrontDoor is not running (call start())")
         if threading.current_thread() is self._thread:
+            if self._world is not None:
+                raise RuntimeError("over processes every router call is a ticket the "
+                                   "followers apply too: call it from another thread")
             return fn()  # already on the driver: run inline, never deadlock
-        t = _Ticket(fn, admin)
+        t = _Ticket(fn, admin, wire)
         self._tickets.put(t)
         if not t.event.wait(self.ticket_timeout_s):
             raise TimeoutError(
@@ -208,7 +233,7 @@ class FrontDoor:
         """Queue one validated call; returns the live request handle plus its
         token stream.  Raises :class:`AdmissionError` exactly as the router
         does (queue full / capacity / no replica for the pinned version)."""
-        gen = GenerationConfig(
+        gen_kw = dict(
             max_new_tokens=int(call.max_tokens),
             do_sample=call.temperature > 0.0,
             temperature=call.temperature if call.temperature > 0.0 else 1.0,
@@ -216,6 +241,7 @@ class FrontDoor:
             top_p=call.top_p,
             eos_token_id=call.stop_token_id,
         )
+        gen = GenerationConfig(**gen_kw)
 
         def _do() -> Tuple[Request, TokenStream]:
             stream_box: List[TokenStream] = []
@@ -238,7 +264,8 @@ class FrontDoor:
             get_reqtrace().rekey(req.trace, str(stream.rid))
             return req, stream
 
-        return self._call(_do)
+        return self._call(_do, wire=("submit", call.prompt, gen_kw, model_version,
+                                     call.deadline_s, call.tenant))
 
     def cancel(self, rid: int) -> bool:
         """Cancel by front-door request id — the ``stream.rid`` handed back
@@ -256,7 +283,7 @@ class FrontDoor:
             self._reap()
             return ok
 
-        return self._call(_do)
+        return self._call(_do, wire=("cancel", rid))
 
     def hot_swap(self, params: Any, version: Optional[str] = None) -> int:
         """Rolling zero-downtime weight swap across every replica (see
@@ -266,24 +293,28 @@ class FrontDoor:
         return self._call(
             lambda: self.router.hot_swap(params, version=version,
                                          step_fn=self._pump),
-            admin=True,
+            admin=True, wire=("hot_swap", version),
         )
 
     def add_replica(self, engine) -> int:
         """Attach a replica.  ``engine`` is a built :class:`ServingEngine`,
         or a callable that builds one: it then runs on the driver thread,
         so that the engine's graphs are captured there, with nothing else
-        on the card in between."""
+        on the card in between.  Over processes: this rank's entry (the
+        engine where rank 0 serves the replica, else its mesh); each
+        follower's ``supply("add_replica", n)`` gives its own."""
         def _do() -> int:
             built = engine() if callable(engine) else engine
-            _refuse_mesh(built)
             return self.router.add_replica(built)
 
-        return self._call(_do, admin=True)
+        n = self._added
+        self._added += 1
+        return self._call(_do, admin=True, wire=("add_replica", n))
 
     def drain_replica(self, replica_id: int) -> None:
         return self._call(
-            lambda: self.router.drain_replica(replica_id), admin=True
+            lambda: self.router.drain_replica(replica_id), admin=True,
+            wire=("drain_replica", replica_id),
         )
 
     def migrate_lane(
@@ -301,7 +332,7 @@ class FrontDoor:
                 from_replica=from_replica, to_replica=to_replica,
                 slot=slot, reason=reason,
             ),
-            admin=True,
+            admin=True, wire=("migrate_lane", from_replica, to_replica, slot, reason),
         )
 
     def lookup(self, rid: int) -> Optional[Tuple[Request, TokenStream]]:
@@ -346,6 +377,8 @@ class FrontDoor:
         ]
         for rid in finished:
             req, stream = self._outstanding.pop(rid)
+            if stream is None:
+                continue  # a follower's: rank 0 streams it
             if req.deadline_exceeded:
                 # the engine's deadline sweep cancelled it — close with the
                 # typed error so the edge answers 504, not a silent truncation
@@ -360,7 +393,8 @@ class FrontDoor:
             else:
                 stream.close(req.tokens, req.state)
 
-    def _process_tickets(self, skip_admin: bool = False) -> None:
+    def _take_tickets(self, skip_admin: bool) -> List[_Ticket]:
+        taken: List[_Ticket] = []
         deferred: List[_Ticket] = []
         while True:
             try:
@@ -372,24 +406,110 @@ class FrontDoor:
                 # inside its drain loop); run nested admin ops after it
                 deferred.append(t)
                 continue
+            taken.append(t)
+        for t in deferred:
+            self._tickets.put(t)
+        return taken
+
+    def _iterate(self, skip_admin: bool = False, always: bool = False) -> bool:
+        """One drive iteration: service the inbox, step the replicas if they
+        have work, resolve finished requests.  Over processes it first goes
+        to the followers (tickets and clock), unless it would do nothing
+        (``always``: the idle heartbeat's iteration, and the hot-swap drain
+        hook, whose calls the followers count).  Returns whether the router
+        stepped."""
+        tickets = self._take_tickets(skip_admin)
+        if self._world is not None:
+            now = time.monotonic()
+            self.router._world_now = max(self.router._world_now, now)
+            if not (always or tickets or self.router.has_work):
+                return False
+            self._world.bcast(("run", [t.wire for t in tickets], now), src=0)
+        for t in tickets:
             try:
                 t.result = t.fn()
             except BaseException as exc:  # propagate to the waiting thread
                 t.error = exc
             finally:
                 t.event.set()
-        for t in deferred:
-            self._tickets.put(t)
-
-    def _pump(self) -> None:
-        """One drive iteration: service the inbox (admin ops deferred —
-        this is also the hot-swap drain hook, which must keep accepting
-        submits without re-entering another rollout), step replicas with
-        work, resolve finished requests."""
-        self._process_tickets(skip_admin=True)
+        worked = False
         if self.router.has_work:
             self.router.step()
+            worked = True
         self._reap()
+        return worked
+
+    def _pump(self) -> None:
+        """One drive iteration with admin ops deferred — the hot-swap drain
+        hook, which must keep accepting submits without re-entering another
+        rollout."""
+        self._iterate(skip_admin=True, always=True)
+
+    # --------------------------------------------------------- followers
+    def follow(self) -> None:
+        """Over processes, on every rank but 0: apply each iteration rank
+        0's driver sends, until it stops (:meth:`stop` there)."""
+        if self._world is None or self._world.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a router over "
+                               "processes; rank 0 runs start()")
+        self._bind_device()
+        while self._follow_once():
+            pass
+        self._outstanding.clear()
+
+    def _follow_once(self) -> bool:
+        """One of rank 0's iterations, here; ``False`` once it stopped."""
+        msg = self._world.bcast(None, src=0)
+        if msg[0] == "stop":
+            return False
+        _, wires, now = msg
+        self.router._world_now = max(self.router._world_now, now)
+        for wire in wires:
+            try:
+                self._apply(wire)
+            except Exception as exc:  # noqa: BLE001 (rank 0's caller gets it)
+                logger.debug("follower ticket %r failed: %r", wire[0], exc)
+        try:
+            if self.router.has_work:
+                self.router.step()
+            self._reap()
+        except Exception as exc:  # noqa: BLE001 (raised alike on every rank)
+            self._outstanding.clear()
+            logger.debug("follower step failed: %r", exc)
+        return True
+
+    def _apply(self, wire: tuple) -> None:
+        """A ticket rank 0 ran, on a follower: the same router call."""
+        op, *args = wire
+        if op == "submit":
+            prompt, gen_kw, model_version, deadline_s, tenant = args
+            req = self.router.submit(prompt, config=GenerationConfig(**gen_kw),
+                                     model_version=model_version, deadline_s=deadline_s,
+                                     tenant=tenant)
+            self._next_key += 1
+            self._outstanding[self._next_key] = (req, None)
+        elif op == "cancel":
+            entry = self._outstanding.get(args[0])
+            if entry is not None:
+                self.router.cancel(entry[0])
+                self._reap()
+        elif op == "hot_swap":
+            self.router.hot_swap(self._supplied("hot_swap", args[0]), version=args[0],
+                                 step_fn=self._follow_once)
+        elif op == "add_replica":
+            self.router.add_replica(self._supplied("add_replica", args[0]))
+        elif op == "drain_replica":
+            self.router.drain_replica(args[0])
+        elif op == "migrate_lane":
+            self.router.migrate_lane(*args)
+        else:
+            raise ValueError(f"unknown ticket {op!r}")
+
+    def _supplied(self, op: str, arg: Any) -> Any:
+        if self.supply is None:
+            raise RuntimeError(f"a {op} ticket needs this rank's own payload: pass "
+                               "FrontDoor(..., supply=) on every follower")
+        return self.supply(op, arg)
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         """An engine step blew up: every in-flight request's stream is closed
@@ -407,7 +527,7 @@ class FrontDoor:
         """Make the replicas' card this thread's current device, and its
         default stream the current stream (both are per thread)."""
         for engine in self.router.engines:
-            if engine.device.type == "cuda":
+            if getattr(engine, "device", None) is not None and engine.device.type == "cuda":
                 torch.cuda.set_device(engine.device)
                 torch.cuda.set_stream(torch.cuda.default_stream(engine.device))
                 return
@@ -416,16 +536,14 @@ class FrontDoor:
         self._bind_device()
         while not self._stop.is_set():
             worked = False
+            beat = time.monotonic() - self._last_heartbeat >= self.heartbeat_interval_s
             try:
-                self._process_tickets()
-                if self.router.has_work:
-                    self.router.step()
-                    worked = True
-                self._reap()
+                # the heartbeat's iteration goes to the followers even when
+                # idle: they wait in its broadcast
+                worked = self._iterate(always=beat)
             except Exception as exc:
                 self._fail_outstanding(exc)
-            now = time.monotonic()
-            if now - self._last_heartbeat >= self.heartbeat_interval_s:
+            if beat:
                 # stepping engines heartbeat on their own; the idle server
                 # must too, or /healthz would 503 between requests
                 self.recorder.heartbeat(
@@ -433,7 +551,7 @@ class FrontDoor:
                     idle=not worked,
                     outstanding=len(self._outstanding),
                 )
-                self._last_heartbeat = now
+                self._last_heartbeat = time.monotonic()
                 # fleet-health tick rides the heartbeat: samples the
                 # time-series ring and re-evaluates installed SLOs even
                 # while the server is idle (an idle replica can still be
@@ -441,6 +559,8 @@ class FrontDoor:
                 slo_tick()
             if not worked and self._tickets.empty():
                 time.sleep(self.idle_sleep_s)
+        if self._world is not None:
+            self._world.bcast(("stop",), src=0)
         # drain: fail any still-waiting tickets rather than strand threads
         while True:
             try:

@@ -223,10 +223,6 @@ _PROGRAM_NAMES = {"decode": "decode_window", "verify": "verify_window",
                   "tree": "tree_verify_window", "draft": "draft_forward"}
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
-
-
 class ServingEngine:
     """Serve many requests through one paged slot pool with in-flight admission.
 
@@ -385,14 +381,20 @@ class ServingEngine:
 
     mesh: a :class:`~accelerate_tpu_torch.parallel.mesh.Mesh` of the
         ``tp_axis`` over every rank of the process group
-        (``build_mesh({"tp": N})``): tensor-parallel serving, the module
-        docstring's SPMD engine, built and driven alike on every rank.
-        ``None`` (default) serves on one card, as before.  Head counts that
-        do not divide ``N`` raise the reference's ``ValueError``.  A mesh
-        with no process group, or one over other axes (replicas on disjoint
-        ranks), raises ``NotImplementedError`` (ROADMAP Queue 1 item 9e-ii
-        f); so do weight-quantized, fp8 and MoE models under a mesh (item
-        9e-ii e-ii).  ``metrics_port`` binds on the mesh's first rank only
+        (``build_mesh({"tp": N})``) or over one replica's ranks
+        (``replica_meshes(n, {"tp": N})``, behind a router over processes):
+        tensor-parallel serving, the module docstring's SPMD engine, built
+        and driven alike on every rank of the mesh.  ``None`` (default)
+        serves on one card, as before; so does a mesh of one rank without
+        a process group.  Head counts that do not divide ``N`` raise the
+        reference's ``ValueError``; so does a mesh over other axes, or of
+        several cards in one process (the port runs one process a card:
+        ``launchers.py``).  Weight-quantized and fp8 projections are kept
+        whole on every rank, as the reference's rules leave their leaves
+        replicated, and each rank's heads take their block of the q/k/v
+        products; an MoE block's experts and router stay whole too, and
+        every rank computes the block on the gathered hidden state.
+        ``metrics_port`` binds on the mesh's first rank only
         (two ranks on one host cannot bind one port).  Under tp ``params``
         and :meth:`swap_params` take the full weights; each rank keeps its
         block.  The model's full weights may lie on the host (or come there
@@ -481,10 +483,6 @@ class ServingEngine:
                              "that mesh, or build a model of its own")
         if mesh is not None:
             self._tp = serving_tp(mesh, tp_axis)
-            mcfg = model.config
-            if mcfg.quantization is not None or mcfg.use_fp8 or mcfg.num_experts > 0:
-                raise _not_ported("mesh= serving of weight-quantized, fp8 and MoE models",
-                                  "9e-ii e-ii")
         #: "prefill" runs chunked prefill only: a lane whose last chunk
         #: landed never dispatches a decode window here, it waits for the
         #: router's prefill handoff (:mod:`.transfer`) onto a decode-role

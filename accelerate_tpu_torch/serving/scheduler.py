@@ -116,6 +116,11 @@ class Request:
     replay_decode: bool = False
     replay_len: int = 0
     replay_done: int = 0
+    # a router over processes (serving/remote.py): the request's number in
+    # the router's submission order, the same on every rank, and how many
+    # of its tokens every rank has seen
+    route_id: Optional[int] = None
+    reported: int = 0
 
     @property
     def done(self) -> bool:

@@ -53,6 +53,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..telemetry import (
     MetricsRegistry,
@@ -65,9 +66,10 @@ from ..telemetry.watchdog import tensor_signature
 from . import faults
 from .errors import AdmissionError
 from .pool import _raw, plan_chunks, promote_install, spill_extract
+from .remote import apply_report, describe, report_line
 from .scheduler import Request, RequestState
 
-__all__ = ["MigrationError", "PageMigrator", "adopt", "export_inflight",
+__all__ = ["MigrationError", "PageMigrator", "adopt", "export_inflight", "geometry_mismatch",
            "migration_executables"]
 
 # Migration wall time spans ~10 us (a one-page d2d handoff) to ~100 s (a
@@ -249,6 +251,55 @@ def _bounce(chunk: Sequence[torch.Tensor], device: torch.device) -> tuple:
     return tuple(h.to(device, non_blocking=True).view(c.dtype) for h, c in zip(host, chunk))
 
 
+def geometry_mismatch(a: dict, b: dict) -> Optional[str]:
+    """``None`` when a lane can move from the replica ``a`` describes to
+    ``b``'s (:func:`.remote.describe`), whatever ranks serve them; else the
+    reason.  The pools must agree on page geometry and storage dtype, so
+    that the gathered pages feed the destination's install bit for bit.
+    The kv heads count over the whole
+    mesh, so replicas of different tp degrees take each other's lanes; a
+    mesh replica and an engine without a mesh do not."""
+    if a["mesh"] != b["mesh"]:
+        return "a mesh replica and an engine without a mesh: lanes move between meshes"
+    if not (a["paged"] and b["paged"]):
+        return "both engines must run the paged KV pool"
+    ga, gb = a["geometry"], b["geometry"]
+    for key in ("page_size", "pages_per_lane", "storage_dtype"):
+        if ga[key] != gb[key]:
+            return f"{key} differs ({ga[key]} vs {gb[key]})"
+    if any(ga[k] != gb[k] for k in ("layers", "kv_heads", "head_dim")):
+        return "KV pool geometry (layers/heads/head_dim) differs"
+    return None
+
+
+def _head_dims(chunk) -> tuple:
+    """The head axis of each tensor of a gathered chunk: ``[L, n, page,
+    Hkv, D]`` pages, ``[L, n, Hkv]`` scales."""
+    return tuple(c.dim() - 2 if c.dim() == 5 else c.dim() - 1 for c in chunk)
+
+
+def _shard_bytes(chunk) -> "torch.Tensor":
+    """A chunk's bits as one flat uint8 host tensor (the wire form)."""
+    return torch.cat([_raw(c).contiguous().cpu().reshape(-1).view(torch.uint8)
+                      for c in chunk])
+
+
+def _shard_from_bytes(buf: "torch.Tensor", layout) -> tuple:
+    """:func:`_shard_bytes`' inverse: ``layout`` is each tensor's shape
+    and dtype name."""
+    out, at = [], 0
+    for shape, dtype in layout:
+        dt = getattr(torch, dtype)
+        n = int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+        raw = _RAW_BY_SIZE[torch.empty((), dtype=dt).element_size()]
+        out.append(buf[at:at + n].clone().view(raw).reshape(shape).view(dt))
+        at += n
+    return tuple(out)
+
+
+_RAW_BY_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
 # ------------------------------------------------------------------- migrator
 class PageMigrator:
     """Move live decode lanes between :class:`~.engine.ServingEngine`
@@ -292,32 +343,17 @@ class PageMigrator:
     # ------------------------------------------------------------ feasibility
     @staticmethod
     def compatible(src, dst) -> Optional[str]:
-        """``None`` when lanes can migrate ``src -> dst``; else the reason.
-        The pools must agree on page geometry and storage dtype, so that
-        the gathered pages feed the destination's install bit for bit."""
+        """``None`` when lanes can migrate ``src -> dst`` in this process
+        (:func:`geometry_mismatch`, between engines of one mesh or none);
+        else the reason."""
         if src is dst:
             return "source and destination are the same engine"
-        from .router import mesh_ranks
-
-        if mesh_ranks(src) != mesh_ranks(dst) or src.tp_degree != dst.tp_degree:
+        ranks = [None if getattr(e, "mesh", None) is None else e.mesh.ranks for e in (src, dst)]
+        if ranks[0] != ranks[1] or src.tp_degree != dst.tp_degree:
             # each rank moves its own head shard between engines of one mesh
-            return ("the engines are not on one mesh: lanes move between single-card "
-                    "engines or engines that share a mesh (replicas on disjoint meshes: "
-                    "ROADMAP Queue 1 item 9e-ii f)")
-        if not (src.paged and dst.paged):
-            return "both engines must run the paged KV pool"
-        if src.kv.page_size != dst.kv.page_size:
-            return f"page_size differs ({src.kv.page_size} vs {dst.kv.page_size})"
-        if src.kv.pages_per_lane != dst.kv.pages_per_lane:
-            return (f"pages_per_lane differs ({src.kv.pages_per_lane} vs "
-                    f"{dst.kv.pages_per_lane})")
-        if src.kv.storage_dtype != dst.kv.storage_dtype:
-            return (f"KV storage dtype differs ({src.kv.storage_dtype} vs "
-                    f"{dst.kv.storage_dtype})")
-        if src.kv.pages_k.shape[0] != dst.kv.pages_k.shape[0] \
-                or src.kv.pages_k.shape[2:] != dst.kv.pages_k.shape[2:]:
-            return "KV pool geometry (layers/heads/head_dim) differs"
-        return None
+            return ("the engines are not on one mesh: between replicas on other ranks a "
+                    "router over processes moves the lane (migrate_across)")
+        return geometry_mismatch(describe(src), describe(dst))
 
     @staticmethod
     def resolve_mode(src, dst) -> str:
@@ -430,6 +466,205 @@ class PageMigrator:
         self.recorder.record("serve/prefill_handoff", rid=req.rid, src=src.engine_id,
                              dst=dst.engine_id, generated=len(req.tokens))
         return req
+
+    def count(self, nbytes: int, handoff: bool) -> None:
+        """Count one lane move made elsewhere (a router over processes
+        counts every move on every rank, as the reference's one process
+        does)."""
+        self._migrations.inc()
+        self._bytes.inc(nbytes)
+        if handoff:
+            self._handoffs.inc()
+
+    # ------------------------------------------------------ across processes
+    def migrate_across(self, src, dst, slot: int, req: Request, world, src_ranks,
+                       dst_ranks, reason: str = "rebalance", handoff: bool = False):
+        """Move ``req``'s running lane in slot ``slot`` of a replica on
+        ``src_ranks`` to one on the disjoint ``dst_ranks``, through the
+        host: every rank of the world calls it alike (``world``:
+        :class:`.remote.World`), ``src`` / ``dst`` the engines where this
+        rank serves them, else ``None``.
+
+        Three exchanges.  The source's ranks drain their windows and report
+        the lane (write index, pending token, ``(seed, counter)``, the
+        tokens the drain landed since the last report) or a refusal; the
+        destination's ranks take a slot and pages, or refuse, before any
+        state changes.  Then each source tp rank's gathered pages (its kv
+        heads) go to every destination rank whose heads they overlap, in
+        one ``all_to_all_single`` of host bytes over the world's gloo group
+        (gloo's point-to-point send cannot take a card tensor): with equal
+        tp degrees rank ``r`` to rank ``r``, else each destination rank
+        cuts its heads from the shards it received.  The lane then retires
+        on the source and installs on the destination, which continues it
+        bit-identically (the reference re-lays the chunk with
+        ``device_put``).  Raises :class:`MigrationError` on every rank on a
+        refusal; returns ``(rid, slot)`` of the lane on the destination."""
+        t0 = time.perf_counter()
+        # 1. the lane, from the source's ranks
+        sent, chunk = None, None
+        if src is not None:
+            try:
+                meta, chunk = self._extract(src, slot, req)
+                sent = ("ok", meta)
+            except MigrationError as exc:
+                sent = ("refused", exc.reason, exc.retriable)
+            except Exception as exc:  # noqa: BLE001 (a refusal on every rank)
+                sent = ("refused", f"the source failed: {exc!r}", False)
+            # the tokens the drain landed go round, whatever the outcome
+            sent += (report_line(req),)
+        says = [world.gather(sent)[r] for r in src_ranks]
+        apply_report(req, says[0][-1], local=src is not None)
+        refused = next((s for s in says if s[0] == "refused"), None)
+        if refused is not None:
+            raise MigrationError(refused[1], retriable=refused[2])
+        meta = says[0][1]
+        # 2. a slot and pages on the destination
+        plan = None
+        if dst is not None:
+            try:
+                plan = ("ok", self._reserve(dst, meta, req))
+            except MigrationError as exc:
+                plan = ("refused", exc.reason, exc.retriable)
+        got = world.gather(plan)
+        says = [got[r] for r in dst_ranks]
+        refused = next((s for s in says if s[0] == "refused"), None)
+        if refused is not None:
+            if plan is not None and plan[0] == "ok":
+                dst.kv.allocator.deref(plan[1]["ids"])
+            raise MigrationError(refused[1], retriable=refused[2])
+        where = says[0][1]
+        # 3. the pages, each source shard to the destination ranks it overlaps
+        chunk = self._send_heads(world, chunk, meta, src_ranks, dst_ranks)
+        # 4. the lane leaves the source and lands on the destination
+        if src is not None:
+            src._retire_lane(slot)
+        if dst is not None:
+            chunk = tuple(c.to(dst.device, non_blocking=True) for c in chunk)
+            _, install = migration_executables(dst)
+            with self.tracer.span("serve/migrate", mode="bounce", pages=meta["npages"],
+                                  behind_window=dst._inflight is not None):
+                install(dst._pool, chunk, _ids(plan[1]["ids"], dst.device))
+            dst_slot = self._install_lane(dst, req, plan[1]["ids"], meta["lane_len"],
+                                          meta["pending"], meta["seed"], meta["counter"])
+            old_rid = req.rid
+            req.rid = dst._next_rid
+            dst._next_rid += 1
+            req.slot = dst_slot
+            if req.trace is not None:
+                req.trace.phase("migrate", from_engine=meta["engine"],
+                                to_engine=dst.engine_id, old_rid=old_rid, rid=req.rid,
+                                mode="bounce", pages=meta["npages"], generated=len(req.tokens))
+                dst.reqtrace.rebind(req.trace, dst.engine_id, req.rid)
+            self._reestablish_prefix(dst, req, plan[1]["ids"], meta["lane_len"])
+        self.count(meta["nbytes"], handoff)
+        self._ms_hist.observe((time.perf_counter() - t0) * 1e3)
+        self.recorder.record("serve/migrate", rid=where["rid"], mode="bounce",
+                             src=meta["engine"], dst=where["engine"], slot=int(slot),
+                             dst_slot=where["slot"], pages=meta["npages"],
+                             bytes=meta["nbytes"], ranks=[list(src_ranks), list(dst_ranks)],
+                             reason=reason)
+        if handoff:
+            self.recorder.record("serve/prefill_handoff", rid=where["rid"], src=meta["engine"],
+                                 dst=where["engine"], generated=len(req.tokens))
+        return where["rid"], where["slot"]
+
+    def _extract(self, src, slot: int, req: Request) -> tuple:
+        """The source side of :meth:`migrate_across`: the lane's state (the
+        wire's ``meta``) and its gathered pages on the host."""
+        live = src._slot_req[slot]
+        if live is not req or req.state is not RequestState.RUNNING or not src._active[slot]:
+            raise MigrationError(f"no running lane in slot {slot}")
+        src._drain_inflight()
+        if not src._active[slot] or src._slot_req[slot] is not req:
+            raise MigrationError("lane finished while draining the source")
+        page_ids = src.kv.lane_pages(slot)
+        lanes = src.lanes
+        pending, seed, counter = torch.cat(
+            [lanes.pending[slot:slot + 1].long(), lanes.keys[slot]]).tolist()
+        sampled = bool(lanes.sampling[slot])
+        if faults.ACTIVE is not None and faults.ACTIVE.fire("migrate_bounce"):
+            self.recorder.record("serve/fault", point="migrate_bounce", rid=req.rid,
+                                 slot=int(slot), src=src.engine_id)
+            raise MigrationError("injected migrate_bounce fault")
+        extract, _ = migration_executables(src)
+        chunk = tuple(c.cpu() for c in extract(src._pool, _ids(page_ids, src.device)))
+        meta = dict(lane_len=int(src._lane_len[slot]), pending=int(pending),
+                    seed=int(seed) if sampled else None, counter=int(counter),
+                    npages=len(page_ids), nbytes=src.kv.chunk_bytes(len(page_ids)),
+                    engine=src.engine_id,
+                    layout=[(tuple(c.shape), str(c.dtype).replace("torch.", "")) for c in chunk],
+                    tp=src.tp_degree)
+        return meta, chunk
+
+    @staticmethod
+    def _reserve(dst, meta: dict, req: Request) -> dict:
+        """The destination side's refusals, before anything changes, and
+        its pages: a free slot, the capacity for the rest of the lane."""
+        s = dst._next_free_slot()
+        if s is None:
+            raise MigrationError("destination has no free slot", retriable=True)
+        span = max(dst.window, dst._spec_span)
+        remaining = max(req.config.max_new_tokens - len(req.tokens), 1)
+        if meta["lane_len"] + 1 + remaining + span > dst.max_len:
+            raise MigrationError(
+                f"lane length {meta['lane_len']} + remaining {remaining} + span {span} "
+                f"exceeds destination capacity {dst.max_len}")
+        ids = dst.kv.allocator.alloc(meta["npages"])
+        if ids is None:
+            if dst._reclaim_pages(meta["npages"], allow_preempt=False):
+                ids = dst.kv.allocator.alloc(meta["npages"])
+            if ids is None:
+                raise MigrationError("destination page pool exhausted", retriable=True)
+        return dict(ids=list(ids), slot=dst._next_free_slot(), rid=dst._next_rid,
+                    engine=dst.engine_id, tp=dst.tp_degree)
+
+    @staticmethod
+    def _send_heads(world, chunk, meta: dict, src_ranks, dst_ranks):
+        """Each source shard to the destination ranks whose kv heads it
+        overlaps, in one ``all_to_all_single`` of host bytes; on a
+        destination rank, its heads of the whole chunk (else ``None``)."""
+        ts, td = len(src_ranks), len(dst_ranks)
+        heads = meta["layout"][0][0][3] * ts
+        hs, hd = heads // ts, heads // td
+
+        def overlaps(i, j):
+            return i * hs < (j + 1) * hd and j * hd < (i + 1) * hs
+
+        me = world.rank
+        nbytes = sum(int(np.prod(shape)) * torch.empty((), dtype=getattr(torch, dt)).element_size()
+                     for shape, dt in meta["layout"])
+        send = [0] * world.size
+        recv = [0] * world.size
+        if me in src_ranks:
+            i = src_ranks.index(me)
+            for j, r in enumerate(dst_ranks):
+                if overlaps(i, j):
+                    send[r] = nbytes
+        if me in dst_ranks:
+            j = dst_ranks.index(me)
+            for i, r in enumerate(src_ranks):
+                if overlaps(i, j):
+                    recv[r] = nbytes
+        payload = _shard_bytes(chunk) if me in src_ranks else torch.empty(0, dtype=torch.uint8)
+        inp = torch.cat([payload] * sum(1 for n in send if n)) if any(send) else payload[:0]
+        out = torch.empty(sum(recv), dtype=torch.uint8)
+        dist.all_to_all_single(out, inp, output_split_sizes=recv, input_split_sizes=send,
+                               group=world.group)
+        if me not in dst_ranks:
+            return None
+        j = dst_ranks.index(me)
+        parts, at = [], 0
+        first = None
+        for i, r in enumerate(src_ranks):
+            if not recv[r]:
+                continue
+            first = i if first is None else first
+            parts.append(_shard_from_bytes(out[at:at + nbytes], meta["layout"]))
+            at += nbytes
+        dims = _head_dims(parts[0])
+        whole = [torch.cat([p[k] for p in parts], dim=dims[k]) for k in range(len(dims))]
+        lo = j * hd - first * hs
+        return tuple(t.narrow(d, lo, hd) for t, d in zip(whole, dims))
 
     # -------------------------------------------------------------- internals
     @staticmethod

@@ -297,15 +297,17 @@ Phases, each printing one JSON line:
    0-1 with 20-21; peak card memory under 80 GB, pinned bytes, s/token
    beside the bound).
 7b'. ``serve_world1`` (tensor-parallel serving, ROADMAP 9e-ii e; the
-   serving model at ``SERVE_TP_LAYERS`` = 8 of its 32 layers, its tensors
+   serving model at ``SERVE_TP_LAYERS`` = 2 of its 32 layers, its tensors
    shared, the ``engine`` line's six requests): mesh-less graphed engines
    on bf16 and int8 pages (the tp=1 twins), then this process over a NCCL
    group of one with ``ServingEngine(mesh=build_mesh({"tp": 1}))``: the
    sharded path, its windows and chunks CUDA graphs with the column gathers
    inside; tokens identical to the twin's, K1/K2 launches equal, as many
-   graphs captured, replays printed.  ``serve_tp2`` (after ``api``): two
+   graphs captured, replays printed.  Those weights are then saved once
+   to a temporary directory, bf16 and int8 weight-quantized, for the
+   worlds below to map.  ``serve_tp2`` (after ``api``): two
    ranks on the one card over gloo (an emulation of two nodes: NCCL refuses
-   two ranks on one card), each drawing the same seed-0 weights, over
+   two ranks on one card), each mapping the saved weights, over
    ``{"tp": 2}`` with eager windows (gloo cannot be captured): whether the
    column-sliced products are bitwise the full product's columns at the
    engine's row counts, each rank's tokens equal to the other's and to the
@@ -314,7 +316,16 @@ Phases, each printing one JSON line:
    int8 pages, and every request handed off prefill->decode between two
    engines of the mesh with the bf16 engine's tokens; the gathers of a
    window and of a 512-token chunk timed at their shapes (loopback gloo,
-   not NVLink).
+   not NVLink).  ``router_tp2x2`` (ROADMAP 9e-ii f, e-ii): four ranks on
+   the card over gloo, two replicas of ``{"tp": 2}``
+   (``replica_meshes``) behind one ``ReplicaRouter`` that every rank runs:
+   three waves whose warm requests route to the replica holding their
+   512-token prefix, a prefill replica handing every lane to a decode
+   replica through the host, a replica killed on both its ranks and its
+   requests replayed on the other, the breaker's re-admission, the front
+   door's HTTP on rank 0 while the others follow its driver, and int8 and
+   fp8 weights; every rank's tokens equal, and each replica's tokens and
+   K1/K2 launches a rank those of a mesh-less twin on its requests.
 7c. ``fleet`` (at ``CUT_LAYERS`` = 8 of 32 layers, as
    ``router`` and ``api``: they check swaps, failover, migration and HTTP,
    not depth; the serving model's first layers' weights, A, then B drawn
@@ -362,7 +373,7 @@ Phases, each printing one JSON line:
    the path each count comes from; K1 and K2 also with ``engine_mixtral``'s
    and ``engine_int4``'s launches and with ``fleet``'s, ``router``'s,
    ``api``'s, ``serve_world1``'s and ``serve_tp2``'s (K1's and K2's int8
-   arms too), K3-K5 with
+   arms too) and ``router_tp2x2``'s a rank, K3-K5 with
    ``train_fp8``'s and ``train_moe``'s),
    the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
@@ -1134,9 +1145,10 @@ def eager_twin(model, cfg, rng, gpu, tol, prompts, tokens, name: str) -> None:
     free_card()
 
 
-#: tensor-parallel serving (ROADMAP 9e-ii e): the engine line's model at
-#: the eager twins' depth, its six requests and engine
-SERVE_TP_LAYERS = EAGER_TWIN_LAYERS
+#: tensor-parallel serving (ROADMAP 9e-ii e, f): the engine line's model at
+#: 2 of its 32 layers, its six requests and engine (the lines check tokens,
+#: launches and the exchanges, not depth)
+SERVE_TP_LAYERS = 2
 SERVE_TP_KW = dict(num_slots=4, max_len=2048, prefill_buckets=(128, 512), decode_window=4,
                    prefix_cache_mb=0, device="cuda")
 #: the window's gathers a layer (the attention output, the MLP's product)
@@ -1175,6 +1187,46 @@ def serve_once(model, prompts, mesh=None, **knobs) -> tuple:
            "decode_steps": st["decode_steps"], "kv_pool_bytes": eng.kv_pool_bytes(),
            "tp_degree": eng.tp_degree, "kv_quant_error": st["kv_quant_error"]}
     return rec, eng
+
+
+def save_serve_weights(model, cfg) -> str:
+    """The engine line's first ``SERVE_TP_LAYERS`` layers (with its
+    embedding, final norm and head: the tp=1 twins' weights) written to a
+    new temporary directory once, as ``bf16.pt``, and their int8
+    weight-quantized form as ``int8.pt``: the ranks of ``serve_tp2`` and
+    ``router_tp2x2`` map them (:func:`serve_model`) instead of each drawing
+    the 32-layer model on the card (four ranks at once would hold 4 x 13.5
+    GB there).  Returns the directory."""
+    from accelerate_tpu_torch.ops.quantization import Int8Config, quantize_model_params
+
+    out = tempfile.mkdtemp(prefix="atpu_serve_weights_")
+    shell, _ = shallow_model(model, cfg, SERVE_TP_LAYERS)
+    sd = shell.state_dict()
+    torch.save({k: v.cpu() for k, v in sd.items()}, os.path.join(out, "bf16.pt"))
+    int8 = quantize_model_params(sd, Int8Config())
+    torch.save({k: v.cpu() for k, v in int8.items()}, os.path.join(out, "int8.pt"))
+    del shell, sd, int8
+    free_card()
+    return out
+
+
+def serve_model(weights: str, kind: str = "bf16", device: str = "cpu"):
+    """:func:`save_serve_weights`' weights as a Llama-2-7B-wide model of
+    ``SERVE_TP_LAYERS`` layers: ``"bf16"``, ``"int8"`` (the quantized codes
+    and scales) or ``"fp8"`` (the bf16 weights behind fp8 products).  On the
+    host the file is mapped, not read: a tensor-parallel engine copies this
+    rank's blocks to the card."""
+    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+
+    extra = {"int8": dict(quantization=8), "fp8": dict(use_fp8=True)}.get(kind, {})
+    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16, num_layers=SERVE_TP_LAYERS, **extra)
+    sd = torch.load(os.path.join(weights, "int8.pt" if kind == "int8" else "bf16.pt"),
+                    mmap=True, weights_only=True)
+    if device != "cpu":
+        sd = {k: v.to(device) for k, v in sd.items()}
+    model = Transformer(cfg, device="meta")
+    model.load_state_dict(sd, assign=True)
+    return model
 
 
 def serve_world1_phase(model, cfg, gpu, prompts) -> dict:
@@ -1294,40 +1346,28 @@ def tiny_tp_pair(mesh) -> dict:
     return out
 
 
-def serve_tp2_rank(out_dir: str, prompts) -> None:
-    """One rank of ``serve_tp2``: the engine line's seed-0 weights drawn
-    whole on the card (the other lines' values), cut to ``SERVE_TP_LAYERS``
-    and moved to the host, so that each engine copies only this rank's
-    blocks to the card; then over ``{"tp": 2}`` (gloo: two ranks share the
-    card, which NCCL refuses) the bf16 engine, the int8 pages, a
-    prefill->decode handoff between two engines of the mesh and the tiny
-    pair (:func:`tiny_tp_pair`); the window's gathers timed at their
-    shapes.  The peak card memory is read from after the draw."""
+def serve_tp2_rank(out_dir: str, weights: str, prompts) -> None:
+    """One rank of ``serve_tp2``: the engine line's weights at
+    ``SERVE_TP_LAYERS`` mapped on the host (:func:`serve_model`), so that
+    each engine copies only this rank's blocks to the card; then over
+    ``{"tp": 2}`` (gloo: two ranks share the card, which NCCL refuses) the
+    bf16 engine, the int8 pages, a prefill->decode handoff between two
+    engines of the mesh and the tiny pair (:func:`tiny_tp_pair`); the
+    window's gathers timed at their shapes."""
     import torch.distributed as dist
 
     from accelerate_tpu_torch.models.generation import GenerationConfig
-    from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
     from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.parallel.mesh import build_mesh
     from accelerate_tpu_torch.serving import ReplicaRouter, ServingEngine
     from accelerate_tpu_torch.state import PartialState
     from accelerate_tpu_torch.telemetry import MetricsRegistry
-    from accelerate_tpu_torch.weights import init_params
 
     PartialState(backend="gloo")
     rank = dist.get_rank()
     mesh = build_mesh({"tp": 2})
-    cfg = TransformerConfig.llama2_7b(dtype=torch.bfloat16)
-    # family_model(cfg, affine_std=0.0)'s values, without its second copy
-    sd = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    keep = {k: v.cpu() for k, v in sd.items()
-            if not k.startswith("layers.") or int(k.split(".")[1]) < SERVE_TP_LAYERS}
-    del sd
-    full = {k: (v.numel(), v.element_size()) for k, v in keep.items()}
-    shell = Transformer(dataclasses.replace(cfg, num_layers=SERVE_TP_LAYERS), device="meta")
-    shell.load_state_dict(keep, assign=True)
-    del keep
-    free_card()
+    shell = serve_model(weights)
+    full = {k: (v.numel(), v.element_size()) for k, v in shell.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     rec = {"column_slice": column_slices(), "backend": dist.get_backend()}
     rec["bf16"], eng = serve_once(shell, prompts, mesh=mesh)
@@ -1379,7 +1419,7 @@ def serve_tp2_rank(out_dir: str, prompts) -> None:
         json.dump(rec, f)
 
 
-def serve_tp2_phase(gpu, refs, prompts) -> dict:
+def serve_tp2_phase(gpu, refs, prompts, weights: str) -> dict:
     """``serve_tp2`` (ROADMAP 9e-ii e): two ranks on the one card over gloo
     (an emulation of two nodes: NCCL refuses two ranks on one card), each
     serving the engine line's six requests over ``{"tp": 2}`` with eager
@@ -1394,7 +1434,7 @@ def serve_tp2_phase(gpu, refs, prompts) -> dict:
     out_dir = tempfile.mkdtemp(prefix="atpu_serve_tp2_")
     try:
         t0 = time.perf_counter()
-        run_ranks(serve_tp2_rank, (out_dir, prompts), 2, "the serve_tp2 world")
+        run_ranks(serve_tp2_rank, (out_dir, weights, prompts), 2, "the serve_tp2 world")
         world_s = time.perf_counter() - t0
         ranks = [json.load(open(os.path.join(out_dir, f"serve_tp2_{r}.json")))
                  for r in range(2)]
@@ -1462,6 +1502,360 @@ def serve_tp2_phase(gpu, refs, prompts) -> dict:
           "serve_tp2 tiny: the ranks' tokens differ")
     return {**r0["bf16"]["launches"],
             **{f"{k}[int8]": v for k, v in r0["int8"]["launches"].items()}}
+
+
+#: the router over processes (ROADMAP 9e-ii f): two replicas of {"tp": 2}
+#: on four gloo ranks of the one card, the engine line's model at
+#: ``SERVE_TP_LAYERS``; each request to ``ROUTER_TP_NEW`` greedy tokens (the
+#: first of the tp=1 twin's 48); a cache budget that evicts nothing here, so
+#: that each replica's prefix hits are its twin's
+ROUTER_TP_WORLD = 4
+ROUTER_TP_NEW = 24
+ROUTER_TP_KW = dict(SERVE_TP_KW, prefix_cache_mb=1024)
+#: the affinity waves' prompts: two 512-token prefixes (one chunk of the
+#: largest bucket), each with a tail of these lengths, served once cold and
+#: then twice warm
+ROUTER_TP_TAILS = ((40, 90), (130, 60, 100, 20))
+ROUTER_TP_BREAKER_S = 0.5
+#: the front door's idle heartbeat, which also keeps its followers' broadcast
+#: alive
+ROUTER_TP_HEARTBEAT_S = 0.25
+
+
+def router_tp_waves(prompts) -> list:
+    """The ``router_tp2x2`` affinity stage's three waves of prompts: the
+    engine line's six, then one prompt of each of two 512-token prefixes,
+    then four more of them (a numpy seed of their own)."""
+    rng = np.random.default_rng(23)
+    heads = [rng.integers(1, 32000, 512).astype(np.int32) for _ in range(2)]
+    cold, warm = ROUTER_TP_TAILS
+    return [list(prompts),
+            [np.concatenate([heads[i], rng.integers(1, 32000, n).astype(np.int32)])
+             for i, n in enumerate(cold)],
+            [np.concatenate([heads[i % 2], rng.integers(1, 32000, n).astype(np.int32)])
+             for i, n in enumerate(warm)]]
+
+
+def router_tp2x2_rank(out_dir: str, weights: str, prompts) -> None:
+    """One rank of ``router_tp2x2``: ``replica_meshes(2, {"tp": 2})`` over
+    the world of four, this rank building the engine of its replica and
+    passing the other replica's mesh in its place, every rank making the
+    same router calls.  Stages: the affinity waves (:func:`router_tp_waves`,
+    K1/K2 counts zeroed just before and read just after); a prefill replica
+    on ranks 0-1 handing every lane to a decode replica on ranks 2-3
+    through the host; replica 0 killed on both its ranks mid-serve, its
+    requests replayed on replica 1, and re-admitted by the breaker's probe
+    past its backoff; the front door over that router (rank 0 serves HTTP
+    on localhost, the others follow its driver), with an idle spell past
+    the heartbeat interval; int8 and fp8 weights at 2 x tp2."""
+    import http.client
+    import threading
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.parallel.mesh import replica_meshes
+    from accelerate_tpu_torch.serving import ReplicaRouter, ServingEngine
+    from accelerate_tpu_torch.serving.api import ApiServer, FrontDoor
+    from accelerate_tpu_torch.serving.remote import RemoteReplica
+    from accelerate_tpu_torch.state import PartialState
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    PartialState(backend="gloo")
+    rank = dist.get_rank()
+    meshes = replica_meshes(2, {"tp": 2})
+    gen = GenerationConfig(max_new_tokens=ROUTER_TP_NEW)
+    models = {}
+
+    def router(kind="bf16", roles=(None, None), **kw):
+        if kind not in models:
+            models[kind] = serve_model(weights, kind)
+        entries = [ServingEngine(models[kind], None, registry=MetricsRegistry(), mesh=m,
+                                 **dict(ROUTER_TP_KW, **({"role": role} if role else {})))
+                   if rank in m else m for m, role in zip(meshes, roles)]
+        return ReplicaRouter(entries, registry=MetricsRegistry(), **kw)
+
+    def local(r):
+        return next(e for e in r.engines if not isinstance(e, RemoteReplica))
+
+    def tokens(reqs):
+        return [list(q.tokens) for q in reqs]
+
+    def waves(r, prompt_waves) -> dict:
+        """Each wave submitted whole and run to the end, K1/K2's counts
+        zeroed just before the first and read just after the last."""
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        t0 = time.perf_counter()
+        placed, got = [], []
+        for wave in prompt_waves:
+            reqs = [r.submit(p.copy(), config=gen) for p in wave]
+            r.run()
+            placed.append([q.replica for q in reqs])
+            got.append(tokens(reqs))
+        torch.cuda.synchronize()
+        return {"placed": placed, "tokens": got, "wall_s": time.perf_counter() - t0,
+                "launches": {"paged_attention": pa.paged_attention.launches,
+                             "paged_flash_prefill": pa.paged_flash_prefill.launches},
+                "tp_degrees": [p["tp_degree"] for p in r.health()["per_replica"]]}
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"replica": next(i for i, m in enumerate(meshes) if rank in m)}
+    # affinity routing with prefix hits
+    r = router()
+    rec["bf16"] = waves(r, router_tp_waves(prompts))
+    st = local(r).stats
+    health = r.health()
+    rec["bf16"].update({
+        "router_tokens_per_s": sum(len(t) for w in rec["bf16"]["tokens"] for t in w)
+        / rec["bf16"]["wall_s"],
+        "decode_ms_per_step": st["decode_s"] / max(st["decode_steps"], 1) * 1e3,
+        "decode_steps": st["decode_steps"], "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "affinity_hit_rate": health["affinity_hit_rate"], "graph_captures": st["graph_captures"]})
+    del r
+    # the disaggregated pair on disjoint ranks
+    r = router(roles=("prefill", "decode"), policy="disaggregated")
+    t0 = time.perf_counter()
+    reqs = r.serve([p.copy() for p in prompts], gen)
+    torch.cuda.synchronize()
+    mig = r.migrator
+    rec["handoff"] = {"tokens": tokens(reqs), "wall_s": time.perf_counter() - t0,
+                      "role": local(r).role, "handoffs": mig._handoffs.value,
+                      "bytes": mig._bytes.value, "ms_mean": mig._ms_hist._sum
+                      / max(mig._ms_hist._count, 1), "ms_max": mig._ms_hist._max,
+                      "completed": local(r).stats["requests_completed"],
+                      "decode_steps": local(r).stats["decode_steps"]}
+    del r, mig
+    # failover: replica 0 killed on both its ranks once two lanes decode
+    # (the others mid-prefill or queued)
+    r = router(breaker_base_s=ROUTER_TP_BREAKER_S)
+    reqs = [r.submit(p.copy(), config=gen) for p in prompts]
+    while sum(1 for q in reqs if q.tokens) < 2:
+        r.step()
+    owed = sum(1 for q in reqs if q.replica_id == 0 and not q.done)
+    victim = r.engines[0]
+    if rank in meshes[0]:
+        victim.kill("router_tp2x2: replica 0 killed on both its ranks")
+    t0 = time.perf_counter()
+    r.step()
+    after_kill = r.health()["replicas"]
+    r.run()
+    torch.cuda.synchronize()
+    rec["failover"] = {"tokens": tokens(reqs), "replay_wall_s": time.perf_counter() - t0,
+                       "replicas_after_kill": after_kill, "owed": owed,
+                       "ejections": r.health()["ejections"],
+                       "replayed": r.stats()["requests_replayed"]}
+    time.sleep(ROUTER_TP_BREAKER_S * 1.5)
+    r.step()  # the probe reads the world's first rank's clock, exchanged by this step
+    health = r.health()
+    rec["failover"].update(replicas_after_probe=health["replicas"],
+                           breaker=len(health["breaker"]), ids=r.replica_ids())
+    rec["failover"]["again"] = tokens(r.serve([p.copy() for p in prompts], gen))
+    # the front door over the same router
+    door = FrontDoor(r, model_name="llama2-7b",
+                     heartbeat_interval_s=ROUTER_TP_HEARTBEAT_S)
+    if rank != 0:
+        # the follower's mirrors of rank 0's requests, in ticket order
+        mirrored, submit = [], r.submit
+        r.submit = lambda *a, **k: mirrored.append(submit(*a, **k)) or mirrored[-1]
+        t0 = time.perf_counter()
+        door.follow()
+        rec["frontdoor"] = {"followed_s": time.perf_counter() - t0,
+                            "routed": r.stats()["routed"], "tokens": tokens(mirrored)}
+    else:
+        door.start()
+        server = ApiServer(door, host="127.0.0.1", port=0)
+
+        def complete(i, out):
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=300)
+            try:
+                conn.request("POST", "/v1/completions", json.dumps(
+                    {"prompt": [int(t) for t in prompts[i]], "max_tokens": ROUTER_TP_NEW,
+                     "temperature": 0}), {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                out[i] = (resp.status, json.loads(resp.read())["choices"][0]["token_ids"])
+            finally:
+                conn.close()
+
+        try:
+            out = [None] * len(prompts)
+            threads = [threading.Thread(target=complete, args=(i, out))
+                       for i in range(len(prompts))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            time.sleep(ROUTER_TP_HEARTBEAT_S * 3)
+            idle = [None]
+            complete(0, idle)
+            rec["frontdoor"] = {"http": out, "wall_s": wall, "after_idle": idle[0],
+                                "replicas": door.health()["replicas"]}
+        finally:
+            server.stop()
+            door.stop()
+        rec["frontdoor"]["routed"] = r.stats()["routed"]
+    del door, r
+    # weight-quantized and fp8 models at 2 x tp2
+    for kind in ("int8", "fp8"):
+        r = router(kind)
+        rec[kind] = waves(r, [prompts])
+        del r
+        models.pop(kind)
+    torch.cuda.synchronize()
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, f"router_tp2x2_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def router_tp_twins(weights: str, prompts, placed: dict) -> dict:
+    """``router_tp2x2``'s tp=1 twins, in this process on the card on the
+    same weights: for each weights kind and each replica, a mesh-less engine
+    serving the requests the router placed on that replica (``placed``:
+    kind -> each wave's replica of each request), wave by wave, K1/K2
+    counts zeroed just before (an fp8 product's scale spans every lane of a
+    window, so its twin must hold the replica's lanes, not all six)."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.serving import ServingEngine
+    from accelerate_tpu_torch.telemetry import MetricsRegistry
+
+    gen = GenerationConfig(max_new_tokens=ROUTER_TP_NEW)
+    waves = {"bf16": router_tp_waves(prompts), "int8": [prompts], "fp8": [prompts]}
+    out = {}
+    for kind, kind_waves in waves.items():
+        model = serve_model(weights, kind, device="cuda")
+        for replica in (0, 1):
+            eng = ServingEngine(model, None, registry=MetricsRegistry(), **ROUTER_TP_KW)
+            torch.cuda.synchronize()
+            pa.reset_launch_counts()
+            got = [[list(q.tokens) for q in eng.serve(
+                [p.copy() for p, at in zip(wave, where) if at == replica], gen)]
+                for wave, where in zip(kind_waves, placed[kind])]
+            torch.cuda.synchronize()
+            out[kind, replica] = {"tokens": got, "launches": {
+                "paged_attention": pa.paged_attention.launches,
+                "paged_flash_prefill": pa.paged_flash_prefill.launches}}
+            del eng
+        del model
+        free_card()
+    return out
+
+
+def router_tp2x2_phase(gpu, refs, prompts, weights: str) -> dict:
+    """``router_tp2x2`` (ROADMAP 9e-ii f, e-ii): four ranks on the one card
+    over gloo (an emulation of two nodes of two cards each), two replicas of
+    ``{"tp": 2}`` behind one ``ReplicaRouter`` that every rank runs
+    (:func:`router_tp2x2_rank`).  Checked: every rank returns every
+    request's tokens, the same on every rank; the engine line's six
+    requests' tokens are the tp=1 twin's (``serve_world1``'s first
+    ``ROUTER_TP_NEW``); for bf16, int8 and fp8 weights each replica's tokens
+    and K1/K2 launches a rank are those of a mesh-less twin serving the
+    requests the router placed there (:func:`router_tp_twins`); the warm
+    waves route to the replica holding their prefix, with prefix hits;
+    every lane of the disaggregated pair handed off across the groups,
+    tokens the twin's; the killed replica ejected on every rank, its
+    requests finishing on the survivor with the twin's tokens, and
+    re-admitted by the breaker; the front door's HTTP answers the twin's
+    tokens, also after an idle spell past the heartbeat interval, and
+    every follower applied every ticket, its mirrors ending on the twin's
+    tokens.  Returns K1's and K2's launches a rank on the bf16 waves, in
+    rank order, and the line it printed."""
+    out_dir = tempfile.mkdtemp(prefix="atpu_router_tp2x2_")
+    try:
+        t0 = time.perf_counter()
+        run_ranks(router_tp2x2_rank, (out_dir, weights, prompts), ROUTER_TP_WORLD,
+                  "the router_tp2x2 world")
+        world_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(out_dir, f"router_tp2x2_{r}.json")))
+                 for r in range(ROUTER_TP_WORLD)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    kinds = ("bf16", "int8", "fp8")
+    t0 = time.perf_counter()
+    twins = router_tp_twins(weights, prompts, {k: r0[k]["placed"] for k in kinds})
+    twins_s = time.perf_counter() - t0
+    want = [t[:ROUTER_TP_NEW] for t in refs["bf16"]["tokens"]]
+    launches = {k: [r["bf16"]["launches"][k] for r in ranks]
+                for k in ("paged_attention", "paged_flash_prefill")}
+    line = {"phase": "router_tp2x2", "config": "llama2_7b", "layers": SERVE_TP_LAYERS,
+            "of_layers": 32, "ranks": ROUTER_TP_WORLD, "replicas": 2, "mesh": {"tp": 2},
+            "emulation": "two nodes of two cards each, four gloo ranks over localhost on one "
+            "H100: the times, the router's tokens/s and the handoff's rate measure loopback "
+            "TCP, not the card or NVLink",
+            "replica_of_rank": [r["replica"] for r in ranks],
+            "placed": {k: r0[k]["placed"] for k in kinds},
+            "launches_per_rank": {k: [r[k]["launches"] for r in ranks] for k in kinds},
+            "twin_launches": {f"{k}_replica{i}": v["launches"] for (k, i), v in twins.items()},
+            "bf16": {k: v for k, v in r0["bf16"].items()
+                     if k not in ("tokens", "placed", "launches")},
+            "decode_ms_per_step_per_rank": [r["bf16"]["decode_ms_per_step"] for r in ranks],
+            "handoff": {k: v for k, v in r0["handoff"].items() if k != "tokens"},
+            "failover": {k: v for k, v in r0["failover"].items() if k not in ("tokens", "again")},
+            "frontdoor": {"statuses": [s for s, _ in r0["frontdoor"]["http"]],
+                          "wall_s": r0["frontdoor"]["wall_s"],
+                          "routed_per_rank": [r["frontdoor"]["routed"] for r in ranks]},
+            "wall_s": {k: r0[k]["wall_s"] for k in kinds},
+            "max_memory_allocated_gb_per_rank": [r["max_memory_allocated_gb"] for r in ranks],
+            "world_s": world_s, "twins_s": twins_s, "gpu": gpu}
+    emit(line)
+    for key in (*kinds, "handoff", "failover"):
+        check(all(r[key]["tokens"] == r0[key]["tokens"] for r in ranks),
+              f"router_tp2x2 {key}: the ranks returned different tokens")
+    check(r0["bf16"]["tokens"][0] == want, "router_tp2x2: the six requests' tokens differ "
+          "from the tp=1 twin's")
+    for (kind, replica), twin in twins.items():
+        rec = r0[kind]
+        mine = [[t for t, at in zip(wave, where) if at == replica]
+                for wave, where in zip(rec["tokens"], rec["placed"])]
+        check(mine == twin["tokens"], f"router_tp2x2 {kind}: replica {replica}'s tokens "
+              "differ from its mesh-less twin's")
+        for r in ranks:
+            if r["replica"] == replica:
+                check(r[kind]["launches"] == twin["launches"]
+                      and twin["launches"]["paged_attention"] > 0
+                      and twin["launches"]["paged_flash_prefill"] > 0,
+                      f"router_tp2x2 {kind}: replica {replica}'s rank launched "
+                      f"{r[kind]['launches']}, its twin {twin['launches']}")
+        check(rec["tp_degrees"] == [2, 2], f"router_tp2x2 {kind}: tp degrees "
+              f"{rec['tp_degrees']}")
+    aff = r0["bf16"]
+    check(aff["placed"][1] == [0, 1] and aff["placed"][2] == [0, 1, 0, 1],
+          f"router_tp2x2: the waves were placed {aff['placed']}, want each warm request on "
+          "the replica that served its prefix")
+    check(all(r["bf16"]["prefix_hit_tokens"] > 0 for r in ranks)
+          and aff["affinity_hit_rate"] > 0 and aff["graph_captures"] == 0,
+          f"router_tp2x2: prefix hits {[r['bf16']['prefix_hit_tokens'] for r in ranks]}, "
+          f"affinity hit rate {aff['affinity_hit_rate']}, {aff['graph_captures']} graphs")
+    for r in ranks:
+        h = r["handoff"]
+        check(h["tokens"] == want and h["handoffs"] == len(prompts) and h["bytes"] > 0,
+              f"router_tp2x2 handoff: {h['handoffs']} handoffs, tokens equal to the twin's: "
+              f"{h['tokens'] == want}")
+        check(h["completed"] == (len(prompts) if h["role"] == "decode" else 0)
+              and (h["role"] == "decode" or h["decode_steps"] == 0),
+              f"router_tp2x2 handoff: the {h['role']} replica completed {h['completed']} "
+              f"requests in {h['decode_steps']} decode steps")
+        f = r["failover"]
+        check(f["tokens"] == want and f["again"] == want,
+              "router_tp2x2 failover: tokens differ from the uninterrupted twin's")
+        check(f["replicas_after_kill"] == 1 and f["ejections"] == 1
+              and f["replayed"] == f["owed"] > 0
+              and f["replicas_after_probe"] == 2 and f["breaker"] == 0 and f["ids"] == [1, 2],
+              f"router_tp2x2 failover: {f}")
+        check(r["frontdoor"]["routed"] == r0["frontdoor"]["routed"],
+              "router_tp2x2 front door: a follower routed another count than rank 0")
+        check(r is r0 or sorted(r["frontdoor"]["tokens"]) == sorted([*want, want[0]]),
+              "router_tp2x2 front door: a follower's mirrors ended on other tokens than "
+              "the twin's")
+    door = r0["frontdoor"]
+    check([tuple(x) for x in door["http"]] == [(200, t) for t in want]
+          and tuple(door["after_idle"]) == (200, want[0]) and door["replicas"] == 2,
+          "router_tp2x2 front door: HTTP answers differ from the twin's tokens")
+    return launches, line
 
 
 def chunk_graph_phase(model, cfg, gpu) -> None:
@@ -4608,7 +5002,7 @@ def checkpoint_offload_phase(gpu) -> dict:
     from accelerate_tpu_torch.models.transformer import lm_loss_fn
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    layers = 2
+    layers = 1
     cfg = train_config(layers)
     rng = np.random.default_rng(8)
     batches = [{"input_ids": torch.from_numpy(rng.integers(
@@ -5181,6 +5575,15 @@ def main() -> int:
         ("tree_phi2_d80", 233, tree_lanes, 9, 32, 32, bf16, 128, 80, "int8", tree24),
         ("tree_phi3_d96", 234, tree_lanes, 9, 32, 32, bf16, 128, 96, None, tree24),
         ("tree_phi3_d96", 235, tree_lanes, 9, 32, 32, f32, 128, 96, "fp8", tree24),
+        # a tp=2 rank's heads of the Llama line (serve_tp2, router_tp2x2): 16
+        # query heads over 16 kv heads of D 128, both q dtypes, and the
+        # quantized pages serve_tp2 runs
+        ("tp2_engine", 240, engine_lanes, 1, 16, 16, bf16, 128),
+        ("tp2_engine", 241, engine_lanes, 1, 16, 16, f32, 128),
+        ("tp2_main", 242, ragged, 1, 16, 16, bf16, 128),
+        ("tp2_main", 243, ragged, 1, 16, 16, f32, 128),
+        ("tp2_engine", 244, engine_lanes, 1, 16, 16, bf16, 128, 128, "int8"),
+        ("tp2_engine", 245, engine_lanes, 1, 16, 16, bf16, 128, 128, "fp8"),
     ], k1_describe, k1_checks)
     k2 = kernel_phase("k2", pa.paged_flash_prefill, pa.paged_flash_prefill_reference,
                       "paged_prefill", [
@@ -5227,6 +5630,14 @@ def main() -> int:
         ("gemma7b_d256_chunk128_base640", 330, [640], 128, 16, 16, bf16, 128, 256),
         ("phi2_d80_chunk128_base640", 331, [640], 128, 32, 32, bf16, 128, 80),
         ("phi3_d96_chunk128_base600_page16", 332, [600], 128, 32, 32, bf16, 16, 96, "int8"),
+        # a tp=2 rank's heads of the Llama line: 16 over 16 at D 128, the
+        # engine's 512- and 128-token chunks, both q dtypes, quantized pages
+        ("tp2_chunk512_base0", 340, [0], 512, 16, 16, bf16, 128),
+        ("tp2_chunk128_base640", 341, [640], 128, 16, 16, bf16, 128),
+        ("tp2_chunk512_base0", 342, [0], 512, 16, 16, f32, 128),
+        ("tp2_chunk128_base640", 343, [640], 128, 16, 16, f32, 128),
+        ("tp2_chunk512_base0", 344, [0], 512, 16, 16, bf16, 128, 128, "int8"),
+        ("tp2_chunk128_base640", 345, [640], 128, 16, 16, bf16, 128, 128, "fp8"),
     ], k2_describe, k2_checks)
 
     cfg = TransformerConfig.llama2_7b(dtype=bf16)
@@ -5243,6 +5654,8 @@ def main() -> int:
     # tensor-parallel serving: the sharded path over a NCCL group of one,
     # beside the tp=1 twins serve_tp2 is held to
     serve_refs = serve_world1_phase(model, cfg, gpu, prompts)
+    # the twins' weights, for the ranks of serve_tp2 and router_tp2x2 to map
+    serve_weights = save_serve_weights(model, cfg)
     # the decode-first ordering: the same requests, chunks queued behind
     # the window of their cycle
     _, _, inter_tokens = engine_phase(
@@ -5287,8 +5700,14 @@ def main() -> int:
     del model, shell, replicas, fleet_model
     free_card()
     # two ranks on the card over {"tp": 2}, drawing the engine line's weights
-    family_launches_tp = {"serve_world1": serve_refs["world1"]["launches"],
-                          "serve_tp2": serve_tp2_phase(gpu, serve_refs, prompts)}
+    try:
+        family_launches_tp = {
+            "serve_world1": serve_refs["world1"]["launches"],
+            "serve_tp2": serve_tp2_phase(gpu, serve_refs, prompts, serve_weights)}
+        family_launches_tp["router_tp2x2"], router_tp_line = router_tp2x2_phase(
+            gpu, serve_refs, prompts, serve_weights)
+    finally:
+        shutil.rmtree(serve_weights, ignore_errors=True)
     stream_disk_phase(gpu)
     stream_launches = stream_forward_phase(gpu)
     # the other families: one 7B model on the card at a time; Gemma-7B (16
@@ -5369,6 +5788,17 @@ def main() -> int:
              k2_src, "accelerate_tpu/ops/paged_attention.py:479",
              counts["paged_flash_prefill"], where),
         ]
+    # a tp=2 rank's heads of the Llama line (16 over 16 at D 128, bf16), on
+    # router_tp2x2's path (rank 0's count)
+    tp_counts = family_launches_tp["router_tp2x2"]
+    arms += [
+        (first(k1, "bfloat16", "tp2_engine"), "paged_attention[tp2_rank]", k1_src,
+         "accelerate_tpu/ops/paged_attention.py:252", tp_counts["paged_attention"][0],
+         "router_tp2x2"),
+        (first(k2, "bfloat16", "tp2_chunk512_base0"), "paged_flash_prefill[tp2_rank]", k2_src,
+         "accelerate_tpu/ops/paged_attention.py:479", tp_counts["paged_flash_prefill"][0],
+         "router_tp2x2"),
+    ]
     # each new head dim of K3-K5 (bf16 at the training shape): D 256 on
     # train_gemma's path, the others on their own kernel cases only
     for name in ("k3", "k4", "k5"):
@@ -5433,6 +5863,8 @@ def main() -> int:
             # the two-rank lines: rank 0's count (each rank launches the same)
             if name in counts:
                 kernels[-1]["launches_" + line] = counts[name]
+    # again at the end, where the last lines of the output show it
+    emit(router_tp_line)
     emit({"phase": "run", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(gpu, flush=True)

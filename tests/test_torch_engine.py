@@ -46,6 +46,7 @@ from accelerate_tpu.serving import plan_chunks as jplan_chunks
 from accelerate_tpu.telemetry import MetricsRegistry
 from accelerate_tpu_torch.models.generation import GenerationConfig, filter_logits_batched
 from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
+from accelerate_tpu_torch.parallel.mesh import Mesh
 from accelerate_tpu_torch.serving import (
     AdmissionError,
     PageAllocator,
@@ -247,7 +248,8 @@ def test_admission_refusals(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "9e"), (dict(role="prefill"), "8b"), (dict(tp_axis="model"), "9e"),
+    (dict(mesh=Mesh({"tp": 2})), "9e"), (dict(role="prefill"), "8b"),
+    (dict(tp_axis="model"), "9e"),
 ])
 def test_unported_arguments_raise(models, kw, item):
     """The reference's keywords that the port has not ported raise
@@ -257,11 +259,17 @@ def test_unported_arguments_raise(models, kw, item):
     its case holds that a prefill replica builds, publishes its role and
     prefills without decoding (``tests/test_torch_router.py`` holds the
     rest).  ``mesh=`` and ``tp_axis=`` (item 9e-ii e) are ported since
-    (``tests/test_torch_serving_mesh.py``): a mesh with no process group up
-    still raises, naming item 9e-ii f (replicas on disjoint meshes), and
+    (``tests/test_torch_serving_mesh.py``, and the router over processes,
+    item 9e-ii f, ``tests/test_torch_router_dist.py``): a mesh of two ranks
+    with no process group up would be two cards in this process, and raises
+    ``ValueError`` naming ``launchers.py`` (one process a card), and
     ``tp_axis`` without a mesh serves on one card, as the reference's
     engine does."""
     _, _, model, params = models
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="launchers.py"):
+            ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
+        return
     if "tp_axis" in kw:
         engine = ServingEngine(model, params, device="cpu", **{**ENGINE_KW, **kw})
         assert engine.tp_degree == 1 and engine.tp_axis == "model"

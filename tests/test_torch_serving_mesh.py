@@ -27,12 +27,16 @@ on 2 of the conftest's CPU devices, on the same f32 weights
   handoff (``test_disagg.py:211-222``).
 * ``swap_params`` with full weights (each rank keeps its block), an alibi
   model (each rank's heads take the global heads' slopes) against the JAX
-  engine, and the refusals: weight-quantized, fp8 and MoE models, the front
-  door over a tp engine and replicas on different meshes.
+  engine; weight-quantized, fp8 and MoE models, the front door over a tp
+  engine's router and single-rank replicas on disjoint ranks, each against
+  the JAX engine; overlapping replicas, and a mesh of two cards in
+  one process, refused.
 * A rank that submits one request more raises on every rank at the next
-  step (the plan exchange), well inside the launcher's deadline.
+  step (the plan exchange), well inside the launcher's deadline; a mesh
+  replica killed on both ranks fails over to the other.
 """
 
+import dataclasses
 import os
 import threading
 import time
@@ -45,6 +49,8 @@ import pytest
 from accelerate_tpu.models.generation import GenerationConfig as JGenerationConfig
 from accelerate_tpu.models.transformer import Transformer as JTransformer
 from accelerate_tpu.models.transformer import TransformerConfig as JConfig
+from accelerate_tpu.ops.quantization import Int8Config as JInt8Config
+from accelerate_tpu.ops.quantization import quantize_model_params as jquantize
 from accelerate_tpu.parallel.mesh import build_mesh as jbuild_mesh
 from accelerate_tpu.serving import ServingEngine as JServingEngine
 from accelerate_tpu.serving.paging import PagedKVPool as JPagedKVPool
@@ -64,6 +70,9 @@ SMALL_KW = dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), prefill_token_b
 TREE_KW = dict(draft_model=1, tree_width=2, tree_depth=3, draft_ctx=16)
 GREEDY = dict(max_new_tokens=12, do_sample=False)
 SAMPLED = dict(max_new_tokens=12, do_sample=True, temperature=0.8)
+#: the models a mesh engine refused before, each served at tp2
+LIFTED = {"int8": dict(quantization=8), "fp8": dict(use_fp8=True),
+          "moe": dict(num_experts=4, num_experts_per_tok=2)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -151,7 +160,8 @@ def _cases(disk_dir):
              prompts=mig_prompts, migrate_at=4,
              gens=[dict(max_new_tokens=10), dict(max_new_tokens=10, do_sample=True,
                                                  temperature=0.8, top_k=50)]),
-        dict(tag="refusals", kind="refusals"),
+        dict(tag="lifted", kind="lifted", kw=dict(SMALL_KW, paged=True), prompts=p,
+             gen=dict(max_new_tokens=6), models=LIFTED),
         dict(tag="router_failures", kind="router_failures", kw=dict(SMALL_KW, paged=True),
              prompts=_prompts(3, (6, 7)), gen=dict(max_new_tokens=6), deadline_s=60.0),
     ]
@@ -167,8 +177,11 @@ def runs(tmp_path_factory):
     jalibi, jparams_alibi = _jparams(positional="alibi")
     _, jparams_swap = _jparams(seed=1)
     _, jparams_odd = _jparams(hidden_size=48, num_heads=6, num_kv_heads=3)
+    lifted = {"int8": (JTransformer(dataclasses.replace(jmodel.config, quantization=8)),
+                       jax.tree_util.tree_map(np.asarray, jquantize(jparams, JInt8Config()))),
+              "fp8": _jparams(use_fp8=True), "moe": _jparams(**LIFTED["moe"])}
     by_model = {"llama": jparams, "alibi": jparams_alibi, "swap": jparams_swap,
-                "odd": jparams_odd}
+                "odd": jparams_odd, **{name: p for name, (_, p) in lifted.items()}}
     cases = _cases(disk_dir)
     errors = []
 
@@ -205,6 +218,18 @@ def runs(tmp_path_factory):
     c = by_tag["swap"]
     want["swap"] = {w: _jserve(jmodel, params, c["prompts"], c["gen"], 1, **c["kw"])[0]
                     for w, params in (("before", jparams), ("after", jparams_swap))}
+    c = by_tag["lifted"]
+    # one device, the decode windows on the reference's Pallas kernel
+    # (interpret mode), which K1 ports.  An fp8 window scales by the amax of
+    # every lane's row, so a last-ulp difference can move one fp8 code: on
+    # these prompts the JAX engine's own fp8 tokens differ between its XLA
+    # attention program and the kernel, and between one device and its tp2
+    # mesh (prompt 0's fifth token).  The port's tp2 is bitwise its tp1
+    # (column slices), so it is held against the kernel on one device.
+    want["lifted"] = {name: _jserve(model, params, c["prompts"], c["gen"], 1,
+                                    decode_kernel="pallas", **c["kw"])[0]
+                      for name, (model, params) in lifted.items()}
+    want["lifted"]["llama"] = _jserve(jmodel, jparams, c["prompts"], c["gen"], 1, **c["kw"])[0]
     c = by_tag["migrate"]
     want["migrate"] = _jserve(jmodel, jparams, c["prompts"][:1], c["gens"][0], 1,
                               **c["kw"])[0]
@@ -370,27 +395,68 @@ def test_alibi_heads_take_global_slopes(runs, tag):
     ("frontdoor", "9e-ii e-ii"), ("mixed_router", "9e-ii f"), ("disjoint", "9e-ii f"),
 ])
 def test_refusals_name_their_item(runs, what, item):
+    """What raised ``NotImplementedError`` naming ROADMAP item ``item``
+    (9e-ii e-ii: every model under a mesh and the front door; 9e-ii f: the
+    router over processes) now serves, on both ranks, the JAX engine's
+    tokens: weight-quantized (int8), fp8 and MoE models over ``{"tp": 2}``
+    against the JAX engine on its Pallas decode kernel (the fixture says
+    why on one device); the front door over a mesh engine's
+    router (rank 0's streams and rank 1's mirrors), a single-rank mesh
+    replica beside a mesh-less engine on the other rank and one single-rank
+    replica a rank against the JAX engine on one device."""
+    want, got = runs
+    out = _both_ranks(got, "lifted")[what]
+    assert out["tokens"] == want["lifted"][what if what in LIFTED else "llama"]
+    assert out["served"] > 0
+    if what == "disjoint":
+        assert out["tp"] == [1, 1]
+
+
+def test_overlapping_replicas_refused(runs):
+    """A mesh-less engine on every rank beside a replica over both ranks:
+    each rank describes its own replicas, so the ranks' lists differ and
+    every rank raises the same ``ValueError``."""
     _, got = runs
-    kind, msg = _both_ranks(got, "refusals")[what]
-    assert kind == "NotImplementedError"
-    assert f"ROADMAP Queue 1 item {item}" in msg
+    kind, msg = _both_ranks(got, "lifted")["overlap"]
+    assert kind == "ValueError" and "different replicas" in msg
+
+
+def test_mesh_of_several_cards_in_one_process_refused():
+    """Without a process group a mesh of two ranks would be two cards in
+    this process: the port runs one process a card, and says so."""
+    from accelerate_tpu_torch.parallel.mesh import Mesh
+    from accelerate_tpu_torch.parallel.tensor_parallel import serving_tp
+
+    with pytest.raises(ValueError, match="launchers.py"):
+        serving_tp(Mesh({"tp": 2}))
+    assert serving_tp(Mesh({"tp": 1})) is None
 
 
 @pytest.mark.parametrize("what,kind,says", [
     ("diverge", "PlanDivergence", "planned different steps"),
     ("kill_one", "PlanDivergence", "hold the error of an earlier step"),
-    ("kill_all", "NotImplementedError", "ROADMAP Queue 1 item 9e-ii f"),
 ])
 def test_router_mesh_replica_failure_raises_on_every_rank(runs, what, kind, says):
-    """A mesh replica's failing step under the router (a rank's extra
-    submit, a kill on one rank, a kill on every rank) raises on every rank,
+    """A mesh replica's failing step under the router that the ranks do not
+    share (a rank's extra submit, a kill on one rank) raises on every rank,
     the same error, within the deadline: no ejection, replay or breaker
     probe that one rank would run without the other."""
     _, got = runs
     err = _both_ranks(got, "router_failures")[what]
-    assert err is not None, f"{what}: the router drained instead of raising"
+    assert isinstance(err, list), f"{what}: the router drained instead of raising"
     assert err[0] == kind and says in err[1]
     assert err[2], f"{what}: raised after the deadline"
+
+
+def test_router_mesh_replica_killed_on_every_rank_fails_over(runs):
+    """A kill on every rank of a mesh replica: ejected on both ranks at the
+    same step, its requests replayed on the other replica of the mesh with
+    the tokens of the same router's undisturbed run."""
+    _, got = runs
+    out = _both_ranks(got, "router_failures")["kill_all"]
+    assert isinstance(out, dict), f"kill_all raised {out}"
+    assert out["ejections"] == 1 and out["replayed"] > 0
+    assert out["tokens"] == _both_ranks(got, "router_failures")["undisturbed"]
 
 
 def test_divergent_rank_raises():

@@ -853,6 +853,24 @@ def _serve_model(jparams, cfg_kw=None):
     return model
 
 
+def _follow(door, router):
+    """``door.follow()`` on a follower rank; returns the requests it
+    mirrored from rank 0's submit tickets, in ticket order."""
+    seen = []
+    submit = router.submit
+
+    def recording(*args, **kw):
+        seen.append(submit(*args, **kw))
+        return seen[-1]
+
+    router.submit = recording
+    try:
+        door.follow()
+    finally:
+        del router.submit
+    return seen
+
+
 def _gen_config(gen):
     from accelerate_tpu_torch.models.generation import GenerationConfig
 
@@ -974,37 +992,72 @@ def _migrate(case, jparams_by_model, mesh):
             "handoffs": dec.stats["requests_completed"]}
 
 
-def _refusals(jparams_by_model, mesh):
-    """What a mesh engine refuses, by type and message."""
+def _lifted(case, jparams_by_model, mesh):
+    """What a mesh engine refused before the router over processes and the
+    serving of every model under a mesh: each now serves, on the JAX
+    package's weights, tokens the test holds against the JAX engine's.
+    Weight-quantized, fp8 and MoE models over ``mesh`` (``case["models"]``:
+    name -> config); the front door over a router of a mesh engine (rank 0
+    drives and submits as the API server does, rank 1 follows and records
+    its mirrors' tokens); a router over a single-rank mesh replica beside a mesh-less
+    engine on the other rank (``mixed_router``); one single-rank replica a
+    rank (``disjoint``).  Then what still refuses: a mesh-less engine on
+    every rank beside a replica over both (``overlap``)."""
+    from accelerate_tpu_torch.models.generation import GenerationConfig
     from accelerate_tpu_torch.parallel.mesh import replica_meshes
     from accelerate_tpu_torch.serving import ReplicaRouter
     from accelerate_tpu_torch.serving.api.frontdoor import FrontDoor
+    from accelerate_tpu_torch.serving.api.protocol import CompletionCall
     from accelerate_tpu_torch.telemetry import MetricsRegistry
 
-    def caught(fn):
-        try:
-            fn()
-        except Exception as e:  # noqa: BLE001 (the refusal is what is recorded)
-            return type(e).__name__, str(e)
-        return None
+    rank = torch.distributed.get_rank()
+    kw = dict(case["kw"])
+    prompts = [np.asarray(p, np.int32) for p in case["prompts"]]
+    gen = GenerationConfig(**case["gen"])
 
-    kw = dict(num_slots=2, max_len=64, prefill_buckets=(4, 8), decode_window=2)
+    def tokens(reqs):
+        return [list(r.tokens) for r in reqs]
+
+    def llama():
+        return _serve_model(jparams_by_model["llama"])
+
     out = {}
-    for name, cfg in (("int8", dict(quantization=8)), ("fp8", dict(use_fp8=True)),
-                      ("moe", dict(num_experts=4, num_experts_per_tok=2))):
-        from accelerate_tpu_torch.models.transformer import Transformer, TransformerConfig
-
-        model = Transformer(TransformerConfig.tiny(dtype=torch.float32, max_seq_len=64, **cfg),
-                            device="cpu")
-        out[name] = caught(lambda: _serve_engine(model, mesh, kw))
-    eng = _serve_engine(_serve_model(jparams_by_model["llama"]), mesh, kw)
-    solo = _serve_engine(_serve_model(jparams_by_model["llama"]), None, kw)
-    out["frontdoor"] = caught(lambda: FrontDoor(ReplicaRouter([eng],
-                                                              registry=MetricsRegistry())))
-    out["mixed_router"] = caught(lambda: ReplicaRouter([eng, solo],
-                                                       registry=MetricsRegistry()))
-    out["disjoint"] = caught(lambda: _serve_engine(_serve_model(jparams_by_model["llama"]),
-                                                   replica_meshes(2)[0], kw))
+    for name, cfg in case["models"].items():
+        got = tokens(_serve_engine(_serve_model(jparams_by_model[name], cfg), mesh, kw)
+                     .serve(prompts, gen))
+        out[name] = dict(tokens=got, served=sum(map(len, got)))
+    router = ReplicaRouter([_serve_engine(llama(), mesh, kw)], registry=MetricsRegistry())
+    door = FrontDoor(router)
+    if rank == 0:
+        door.start()
+        streams = [door.submit(CompletionCall(prompt=[int(t) for t in p],
+                                              max_tokens=gen.max_new_tokens,
+                                              temperature=0.0))[1] for p in prompts]
+        for stream in streams:
+            stream.wait_done(60.0)
+        door.stop()
+        got = [s.final_tokens for s in streams]
+    else:
+        got = tokens(_follow(door, router))
+    out["frontdoor"] = dict(tokens=got, served=sum(map(len, got)))
+    one, other = replica_meshes(2)
+    mine = one if rank in one else other
+    mixed = [_serve_engine(llama(), one, kw) if rank == 0 else one,
+             other if rank == 0 else _serve_engine(llama(), None, kw)]
+    got = tokens(ReplicaRouter(mixed, registry=MetricsRegistry()).serve(prompts, gen))
+    out["mixed_router"] = dict(tokens=got, served=sum(map(len, got)))
+    disjoint = [_serve_engine(llama(), m, kw) if m is mine else m for m in (one, other)]
+    router = ReplicaRouter(disjoint, registry=MetricsRegistry())
+    got = tokens(router.serve(prompts, gen))
+    out["disjoint"] = dict(tokens=got, served=sum(map(len, got)),
+                           tp=[r["tp_degree"] for r in router.health()["per_replica"]])
+    eng = _serve_engine(llama(), mesh, kw)
+    here = _serve_engine(llama(), None, kw)
+    try:
+        ReplicaRouter([eng, here], registry=MetricsRegistry())
+        out["overlap"] = None
+    except ValueError as e:
+        out["overlap"] = [type(e).__name__, str(e)]
     return out
 
 
@@ -1023,8 +1076,8 @@ def serve_mesh_cases(out_dir, jparams_by_model, cases):
             res = _swap(case, jparams_by_model, mesh)
         elif kind == "migrate":
             res = _migrate(case, jparams_by_model, mesh)
-        elif kind == "refusals":
-            res = _refusals(jparams_by_model, mesh)
+        elif kind == "lifted":
+            res = _lifted(case, jparams_by_model, mesh)
         elif kind == "router_failures":
             res = _router_failures(case, jparams_by_model, mesh)
         else:
@@ -1035,8 +1088,10 @@ def serve_mesh_cases(out_dir, jparams_by_model, cases):
 def _router_failures(case, jparams_by_model, mesh):
     """A failing step of a mesh replica under the router: one rank submits
     a request more to a replica, one rank alone kills a replica, every rank
-    kills it.  Each raises on every rank (type and message recorded, and
-    whether within ``deadline_s``) instead of failing over or hanging."""
+    kills it.  The first two raise on every rank (type and message
+    recorded, and whether within ``deadline_s``) instead of hanging; the
+    third ejects the replica on every rank and replays its requests on the
+    other (the tokens recorded)."""
     import time
 
     from accelerate_tpu_torch.serving import ReplicaRouter
@@ -1048,20 +1103,25 @@ def _router_failures(case, jparams_by_model, mesh):
     fail = {"diverge": lambda e: rank == 1 and e.submit(prompts[0].copy(), config=gen),
             "kill_one": lambda e: rank == 0 and e.kill("killed on rank 0"),
             "kill_all": lambda e: e.kill("killed on every rank")}
-    out = {}
+    model = _serve_model(jparams_by_model["llama"])
+    router = ReplicaRouter([_serve_engine(model, mesh, dict(case["kw"])) for _ in range(2)],
+                           policy="round_robin", registry=MetricsRegistry())
+    out = {"undisturbed": [list(r.tokens) for r in router.serve(
+        [p.copy() for p in prompts], gen)]}
     for what, act in fail.items():
         model = _serve_model(jparams_by_model["llama"])
         engines = [_serve_engine(model, mesh, dict(case["kw"])) for _ in range(2)]
         # round robin: the first replica holds two of the three requests
         router = ReplicaRouter(engines, policy="round_robin", registry=MetricsRegistry())
-        for p in prompts:
-            router.submit(p.copy(), config=gen)
+        reqs = [router.submit(p.copy(), config=gen) for p in prompts]
         router.step()
         act(engines[0])
         t0 = time.perf_counter()
         try:
             router.run(max_steps=100)
-            out[what] = None
+            out[what] = dict(tokens=[list(r.tokens) for r in reqs],
+                             ejections=router.health()["ejections"],
+                             replayed=router.stats()["requests_replayed"])
         except Exception as e:  # noqa: BLE001 (the raise is what is recorded)
             out[what] = [type(e).__name__, str(e),
                          time.perf_counter() - t0 < case["deadline_s"]]
